@@ -1,4 +1,5 @@
-"""Drive the zaftpu_torch STFT -> ISTFT path once on an NVIDIA GPU.
+"""Drive the zaftpu_torch STFT -> ISTFT, MDCT -> IMDCT and spectrogram /
+mel / MFCC paths once on an NVIDIA GPU.
 
     python3 chip_smoke.py
 
@@ -8,20 +9,34 @@ non-zero exit and no result line:
 
 1. device: the card's name and power limit (as nvidia-smi gives them),
    torch and CUDA versions; TF32 off for matmuls and cuDNN;
-2. build: the four kernels from zaftpu_torch/csrc, with the seconds taken;
+2. build: the eight kernels from zaftpu_torch/csrc, with the seconds taken;
 3. kernels: each kernel against its plain PyTorch version on the card at
-   the main-path shape (WL 2048, hop 1024, a 600-s segment: T = 25,841)
-   and a ragged one (WL 512, hop 128, T = 1,001); framing and OLA must be
-   bit-equal, fused and synth within 2e-5 * max|ref|; median times of
-   kernel and plain version at the main-path shape (CUDA events);
-4. main path, default dispatch: stft -> istft of a 600-s signal with the
-   periodic Hamming window; the spectrum against a float64 torch.fft oracle
-   (<= 1e-5 * max|oracle|), the round-trip SNR (>= 120 dB), and launch
-   counts showing the fused kernels ran and no plain version did;
-5. main path, split dispatch (ZAFTPU_FUSED=0 ZAFTPU_SYNTH=0): the same
-   checks, with the framing and OLA kernels;
-6. one hour: six 600-s segments through stft, then istft, under both
-   dispatches; frames/s from CUDA events (printed, not gated).
+   its main-path shape (WL 2048, hop 1024, a 600-s segment: T = 25,841;
+   F = 1,024 for the IMDCT; 40 mels) and a ragged one (WL 512, hop 128,
+   T = 1,001 for the STFT kernels; WL 512 / hop 256 for frames_op; F = 100
+   for imdct_ola; WL 512 / hop 128 with 20 mels for spec_rows and
+   mel_rows); framing and OLA must be bit-equal, the GEMM kernels within
+   2e-5 * max|ref|; median times of kernel and plain version at the
+   main-path shape (CUDA events);
+4. STFT main path, default dispatch: stft -> istft of a 600-s signal with
+   the periodic Hamming window; the spectrum against a float64 torch.fft
+   oracle (<= 1e-5 * max|oracle|), the round-trip SNR (>= 120 dB), and
+   launch counts showing the fused kernels ran and no plain version did;
+5. STFT main path, split dispatch (ZAFTPU_FUSED=0 ZAFTPU_SYNTH=0): the
+   same checks, with the framing and OLA kernels;
+6. MDCT main path: mdct -> imdct of the 600-s signal with vorbis(2048),
+   under the default and the split dispatch; the coefficients against a
+   float64 torch.fft MDCT oracle (<= 1e-5 * max|oracle|), the round-trip
+   SNR (>= 120 dB), and launch counts (frames_op and imdct_ola, or framing
+   and OLA; no plain version);
+7. mel main path at MelConfig() (44.1 kHz, Hamming 2048 / hop 1024, 40
+   mels, 20 coefficients): spectrogram, melspectrogram and mfcc of the
+   600-s signal against float64 torch.fft oracles (<= 1e-5 * max|oracle|;
+   MFCC atol 5e-3), under the default dispatch (spec_rows and mel_rows, not
+   the fused STFT kernel) and ZAFTPU_MELFUSE=0 (the fused STFT kernel);
+8. one hour: six 600-s segments through stft, then istft; mdct, then
+   imdct; spectrogram; melspectrogram; mfcc, under the default and the
+   split dispatch; frames/s from CUDA events (printed, not gated).
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is ``{"ok": true, "device": {...}}``.
@@ -39,28 +54,47 @@ import numpy as np
 import torch
 
 import zaftpu_torch
+from zaftpu_torch import MelConfig
 from zaftpu_torch.core import fft
 from zaftpu_torch.core.frame import stft_padding
-from zaftpu_torch.core.windows import hamming
-from zaftpu_torch.kernels import _build, framing, fused, ola, synth
+from zaftpu_torch.core.windows import hamming, vorbis
+from zaftpu_torch.features.mel import dct_ii_ortho_matrix, melfilterbank
+from zaftpu_torch.kernels import _build, framing, fused, melfused, ola, synth
+from zaftpu_torch.transforms import mdct as tmdct
 
 SR = 44100
 SEGMENT_SECONDS = 600
 SEGMENTS_PER_HOUR = 6
 WL, STEP = 2048, 1024
 RAGGED = (512, 128, 1001)  # WL, hop, T
+MDCT_RAGGED = (512, 256, 1001)  # frames_op: WL, hop, T
+IMDCT_RAGGED_F = 100  # imdct_ola: F, 16-row padding of the contraction
+MEL_RAGGED = (512, 128, 1001, 20)  # spec_rows / mel_rows: WL, hop, T, mels
 SEED = 20260816
 EXACT_TOL = 0.0
 GEMM_TOL = 2e-5     # x max|ref|; TF32 would read about 1e-3
 ORACLE_TOL = 1e-5   # x max|oracle|
 MIN_SNR_DB = 120.0
+MFCC_ATOL = 5e-3    # float32 against float64, tests/test_mel.py:70
 
-# name -> (module, kernel wrapper, plain version)
+# name -> (source, TPU kernel it replaces, kernel wrapper, plain version)
 KERNELS = {
-    "fused": (fused, fused.frames_rfft, fused.frames_rfft_plain),
-    "synth": (synth, synth.istft_ola, synth.istft_ola_plain),
-    "framing": (framing, framing.frame_window, framing.frame_window_plain),
-    "ola": (ola, ola.overlap_add, ola.overlap_add_plain),
+    "fused": (fused.CUDA_SOURCE, fused.REPLACES, fused.frames_rfft,
+              fused.frames_rfft_plain),
+    "synth": (synth.CUDA_SOURCE, synth.REPLACES, synth.istft_ola,
+              synth.istft_ola_plain),
+    "framing": (framing.CUDA_SOURCE, framing.REPLACES, framing.frame_window,
+                framing.frame_window_plain),
+    "ola": (ola.CUDA_SOURCE, ola.REPLACES, ola.overlap_add,
+            ola.overlap_add_plain),
+    "frames_op": (fused.CUDA_SOURCE, fused.REPLACES_OP, fused.frames_op,
+                  fused.frames_op_plain),
+    "imdct_ola": (synth.CUDA_SOURCE, synth.REPLACES_IMDCT, synth.imdct_ola,
+                  synth.imdct_ola_plain),
+    "spec_rows": (melfused.CUDA_SOURCE, melfused.REPLACES_SPEC,
+                  melfused.spec_rows, melfused.spec_rows_plain),
+    "mel_rows": (melfused.CUDA_SOURCE, melfused.REPLACES_MEL,
+                 melfused.mel_rows, melfused.mel_rows_plain),
 }
 
 
@@ -144,48 +178,110 @@ def _max_abs(a: torch.Tensor) -> float:
     return float(a.abs().max())
 
 
-def phase_kernels(dev) -> dict:
-    """Each kernel against its plain version at the main-path shape and a
-    ragged one; returns the main-path error and median times."""
-    results = {}
-    main_t = stft_padding(SEGMENT_SECONDS * SR, WL, STEP)[2]  # 25,841
+def _signal_and_window(wl: int, step: int, t: int, window, dev):
+    """The test signal cut to T frames, and ``window(wl)``, on the card."""
+    sig = np.resize(segment(0), (t - 1) * step + wl).astype(np.float32)
+    return (torch.from_numpy(sig).to(dev),
+            torch.from_numpy(window(wl).astype(np.float32)).to(dev))
+
+
+def _mdct_ops(wl: int, dev) -> torch.Tensor:
+    return torch.from_numpy(tmdct._direct_forward_ops_padded(wl)).to(dev)
+
+
+def _kernel_cases(dev, main_t: int):
+    """``(name, label, shape, args, tol)`` for each kernel at its main-path
+    shape and a ragged one, made one at a time."""
     for label, (wl, step, t) in (("main", (WL, STEP, main_t)),
                                  ("ragged", RAGGED)):
         for name, (args, tol) in _kernel_inputs(wl, step, t, dev).items():
-            _, kernel, plain = KERNELS[name]
-            got = kernel(*args)
-            ref = plain(*args)
-            torch.cuda.synchronize()
-            require(got.shape == ref.shape and got.dtype == ref.dtype,
-                    f"{name} {label}: {got.shape} {got.dtype} vs "
-                    f"{ref.shape} {ref.dtype}")
-            err = _max_abs(got - ref)
-            scale = _max_abs(ref)
-            print(f"kernel {name:8s} {label:6s} WL {wl} hop {step} T {t}: "
-                  f"max_abs_err {err!r} max|ref| {scale!r}")
-            require(np.isfinite(err) and err <= tol * scale,
-                    f"{name} {label}: max_abs_err {err} > {tol} * {scale}")
-            if label == "main":
-                ms = median_ms(lambda: kernel(*args))
-                plain_ms = median_ms(lambda: plain(*args))
-                print(f"  {name}: kernel {ms:.4f} ms, plain {plain_ms:.4f} "
-                      "ms (median of 10)")
-                results[name] = {"max_abs_err": err, "ms": ms,
-                                 "plain_ms": plain_ms}
-            del got, ref
+            yield name, label, f"WL {wl} hop {step} T {t}", args, tol
+    for label, (wl, step, t) in (("main", (WL, STEP, main_t)),
+                                 ("ragged", MDCT_RAGGED)):
+        padded, win = _signal_and_window(wl, step, t, vorbis, dev)
+        yield ("frames_op", label, f"WL {wl} hop {step} T {t}",
+               (padded, win, _mdct_ops(wl, dev), wl // 2, wl, step, t),
+               GEMM_TOL)
+    # The IMDCT reads the MDCT coefficients of the test signal.
+    for label, (f, t) in (("main", (WL // 2, main_t)),
+                          ("ragged", (IMDCT_RAGGED_F, RAGGED[2]))):
+        padded, win = _signal_and_window(2 * f, f, t, vorbis, dev)
+        coeffs = fused.frames_op_plain(padded, win, _mdct_ops(2 * f, dev), f,
+                                       2 * f, f, t)
+        yield ("imdct_ola", label, f"F {f} T {t}",
+               (coeffs, f, vorbis(2 * f).tobytes()), GEMM_TOL)
+    for label, (wl, step, t, mels) in (
+            ("main", (WL, STEP, main_t, MelConfig().number_mels)),
+            ("ragged", MEL_RAGGED)):
+        padded, win = _signal_and_window(wl, step, t, hamming, dev)
+        yield ("spec_rows", label, f"WL {wl} hop {step} T {t}",
+               (padded, win, wl, step, t), GEMM_TOL)
+        fbank_t = torch.from_numpy(np.ascontiguousarray(
+            melfilterbank(SR, wl, mels).T.astype(np.float32))).to(dev)
+        for power in (False, True):
+            yield ("mel_rows", label,
+                   f"WL {wl} hop {step} T {t} mels {mels} power {power}",
+                   (padded, win, fbank_t, wl, step, t, power), GEMM_TOL)
+
+
+def phase_kernels(dev) -> dict:
+    """Each kernel against its plain version at the main-path shape and a
+    ragged one; returns the main-path error and median times (for
+    mel_rows, the largest error of its two main cases and the times of
+    the first, power=False)."""
+    results = {}
+    main_t = stft_padding(SEGMENT_SECONDS * SR, WL, STEP)[2]  # 25,841
+    for name, label, shape, args, tol in _kernel_cases(dev, main_t):
+        _, _, kernel, plain = KERNELS[name]
+        got = kernel(*args)
+        ref = plain(*args)
+        torch.cuda.synchronize()
+        require(got.shape == ref.shape and got.dtype == ref.dtype,
+                f"{name} {label}: {got.shape} {got.dtype} vs "
+                f"{ref.shape} {ref.dtype}")
+        err = _max_abs(got - ref)
+        scale = _max_abs(ref)
+        print(f"kernel {name:9s} {label:6s} {shape}: "
+              f"max_abs_err {err!r} max|ref| {scale!r}")
+        require(np.isfinite(err) and err <= tol * scale,
+                f"{name} {label}: max_abs_err {err} > {tol} * {scale}")
+        if label == "main":
+            ms = median_ms(lambda: kernel(*args))
+            plain_ms = median_ms(lambda: plain(*args))
+            print(f"  {name}: kernel {ms:.4f} ms, plain {plain_ms:.4f} "
+                  "ms (median of 10)")
+            entry = results.setdefault(name, {"max_abs_err": err, "ms": ms,
+                                              "plain_ms": plain_ms})
+            entry["max_abs_err"] = max(entry["max_abs_err"], err)
+        del got, ref, args
         torch.cuda.empty_cache()
     return results
 
 
 def reset_counters() -> None:
-    for _, kernel, plain in KERNELS.values():
+    for _, _, kernel, plain in KERNELS.values():
         kernel.launches = 0
         plain.calls = 0
 
 
 def read_counters() -> tuple[dict, dict]:
-    return ({k: v[1].launches for k, v in KERNELS.items()},
-            {k: v[2].calls for k, v in KERNELS.items()})
+    return ({k: v[2].launches for k, v in KERNELS.items()},
+            {k: v[3].calls for k, v in KERNELS.items()})
+
+
+def check_counters(path: str, want: tuple) -> dict:
+    """Fail unless exactly the kernels in ``want`` launched since
+    :func:`reset_counters` and no plain version ran; return their counts."""
+    launches, plain_calls = read_counters()
+    print(f"{path}: launches {launches} plain calls {plain_calls}")
+    for name in launches:
+        if name in want:
+            require(launches[name] >= 1, f"[{path}] {name} never ran")
+        else:
+            require(launches[name] == 0, f"[{path}] {name} ran")
+    require(all(v == 0 for v in plain_calls.values()),
+            f"[{path}] a plain version ran: {plain_calls}")
+    return {k: launches[k] for k in want}
 
 
 def snr_db(x: torch.Tensor, rec: torch.Tensor) -> float:
@@ -215,20 +311,11 @@ def phase_main_path(dispatch: str, x: torch.Tensor) -> dict:
     spec = zaftpu_torch.stft(x, win, STEP)
     rec = zaftpu_torch.istft(spec, win, STEP)
     torch.cuda.synchronize()
-    launches, plain_calls = read_counters()
-    print(f"main path [{dispatch}]: launches {launches} plain calls "
-          f"{plain_calls}")
+    want = ("fused", "synth") if dispatch == "default" else ("framing", "ola")
+    launches = check_counters(f"main path [{dispatch}]", want)
     require(tuple(spec.shape) == (WL, t) and spec.dtype == torch.complex64,
             f"[{dispatch}] spectrum {tuple(spec.shape)} {spec.dtype}")
     require(spec.is_cuda and rec.is_cuda, f"[{dispatch}] left the card")
-    want = ("fused", "synth") if dispatch == "default" else ("framing", "ola")
-    for name in launches:
-        if name in want:
-            require(launches[name] >= 1, f"[{dispatch}] {name} never ran")
-        else:
-            require(launches[name] == 0, f"[{dispatch}] {name} ran")
-    require(all(v == 0 for v in plain_calls.values()),
-            f"[{dispatch}] a plain version ran: {plain_calls}")
     err, scale = oracle_error(x, spec)
     snr = snr_db(x, rec)
     print(f"main path [{dispatch}]: spectrum max_abs_err vs f64 oracle "
@@ -237,7 +324,97 @@ def phase_main_path(dispatch: str, x: torch.Tensor) -> dict:
     require(err <= ORACLE_TOL * scale,
             f"[{dispatch}] spectrum error {err} > {ORACLE_TOL} * {scale}")
     require(snr >= MIN_SNR_DB, f"[{dispatch}] SNR {snr} dB < {MIN_SNR_DB}")
-    return {k: launches[k] for k in want}
+    return launches
+
+
+def mdct_oracle(x: torch.Tensor) -> torch.Tensor:
+    """MDCT coefficients ``(T, F)`` in float64 by the reference's FFT chain
+    (pre-twiddle, FFT, post-twiddle, real part; zaf.py:1036-1071) on the
+    card; a check only, never on the path."""
+    step = WL // 2
+    n = x.shape[-1]
+    t = int(np.ceil(n / step)) + 1
+    padded = torch.nn.functional.pad(x.double(), (step, (t + 1) * step - n))
+    win = torch.from_numpy(vorbis(WL)).to(x.device)
+    pre, post = (torch.from_numpy(a).to(x.device)
+                 for a in tmdct._forward_twiddles(WL))
+    frames = padded.unfold(-1, WL, step)[:t] * win
+    return (torch.fft.fft(frames * pre, dim=-1)[:, :step] * post).real
+
+
+def phase_mdct_path(dispatch: str, x: torch.Tensor) -> dict:
+    """One 600-s mdct -> imdct with vorbis(2048); returns the launch counts
+    of the kernels this dispatch must run."""
+    win = vorbis(WL)
+    reset_counters()
+    coeffs = zaftpu_torch.mdct(x, win)
+    rec = zaftpu_torch.imdct(coeffs, win)
+    torch.cuda.synchronize()
+    want = (("frames_op", "imdct_ola") if dispatch == "default"
+            else ("framing", "ola"))
+    launches = check_counters(f"mdct path [{dispatch}]", want)
+    oracle = mdct_oracle(x)
+    require(tuple(coeffs.shape) == tuple(oracle.T.shape)
+            and coeffs.dtype == torch.float32,
+            f"[{dispatch}] coefficients {tuple(coeffs.shape)} {coeffs.dtype}")
+    require(coeffs.is_cuda and rec.is_cuda, f"[{dispatch}] left the card")
+    err = _max_abs(coeffs.T.double() - oracle)
+    scale = _max_abs(oracle)
+    snr = snr_db(x, rec)
+    print(f"mdct path [{dispatch}]: coefficients max_abs_err vs f64 oracle "
+          f"{err!r} (max|oracle| {scale!r}, ratio {err / scale!r}); "
+          f"round-trip SNR {snr!r} dB; output {tuple(rec.shape)}")
+    require(err <= ORACLE_TOL * scale,
+            f"[{dispatch}] MDCT error {err} > {ORACLE_TOL} * {scale}")
+    require(snr >= MIN_SNR_DB, f"[{dispatch}] SNR {snr} dB < {MIN_SNR_DB}")
+    return launches
+
+
+def mel_oracles(x: torch.Tensor, cfg: MelConfig):
+    """Float64 spectrogram ``(T, WL/2)``, mel ``(T, M)`` and MFCC ``(T, C)``
+    rows from torch.fft on the card; a check only, never on the path."""
+    wl, step = cfg.window_length, cfg.step_length
+    pad_front, pad_back, t = stft_padding(x.shape[-1], wl, step)
+    padded = torch.nn.functional.pad(x.double(), (pad_front, pad_back))
+    win = torch.from_numpy(cfg.window_array()).to(x.device)
+    frames = padded.unfold(-1, wl, step)[:t] * win
+    spec = torch.fft.rfft(frames, dim=-1)[:, 1:].abs()
+    fbank_t = torch.from_numpy(cfg.filterbank().T.copy()).to(x.device)
+    dct = torch.from_numpy(
+        dct_ii_ortho_matrix(cfg.number_mels)).to(x.device)
+    logmel = torch.log((spec * spec) @ fbank_t + np.finfo(np.float64).eps)
+    return (spec, spec @ fbank_t,
+            (logmel @ dct.T)[:, 1:cfg.number_coefficients + 1])
+
+
+def phase_mel_path(dispatch: str, x: torch.Tensor) -> dict:
+    """spectrogram, melspectrogram and mfcc of the 600-s signal at
+    MelConfig(); returns the launch counts of the kernels this dispatch
+    must run."""
+    cfg = MelConfig()
+    reset_counters()
+    spec = zaftpu_torch.spectrogram(x, cfg.window_array(), cfg.step_length)
+    mel = zaftpu_torch.melspectrogram(x, config=cfg)
+    mf = zaftpu_torch.mfcc(x, config=cfg)
+    torch.cuda.synchronize()
+    want = (("spec_rows", "mel_rows") if dispatch == "default"
+            else ("fused",))
+    launches = check_counters(f"mel path [{dispatch}]", want)
+    for name, got, oracle, gate in zip(
+            ("spectrogram", "melspectrogram", "mfcc"), (spec, mel, mf),
+            mel_oracles(x, cfg), (ORACLE_TOL, ORACLE_TOL, None)):
+        require(tuple(got.shape) == tuple(oracle.T.shape)
+                and got.dtype == torch.float32 and got.is_cuda,
+                f"[{dispatch}] {name} {tuple(got.shape)} {got.dtype} "
+                f"{got.device}")
+        err = _max_abs(got.T.double() - oracle)
+        scale = _max_abs(oracle)
+        print(f"mel path [{dispatch}]: {name} max_abs_err vs f64 oracle "
+              f"{err!r} (max|oracle| {scale!r}, ratio {err / scale!r})")
+        limit = MFCC_ATOL if gate is None else gate * scale
+        require(np.isfinite(err) and err <= limit,
+                f"[{dispatch}] {name} error {err} > {limit}")
+    return launches
 
 
 def phase_hour(dispatch: str, segs: list) -> None:
@@ -264,17 +441,70 @@ def phase_hour(dispatch: str, segs: list) -> None:
           f"-> {frames / stft_ms * 1e3:,.0f} frames/s; istft "
           f"{istft_ms:.3f} ms -> {frames / istft_ms * 1e3:,.0f} frames/s; "
           f"min segment SNR {snr:.2f} dB (median of 3)")
+    del recs
 
 
-def _with_dispatch(split: bool, fn, *args):
-    """Run ``fn`` with ZAFTPU_FUSED/ZAFTPU_SYNTH set to 0 (split) or unset
-    (default), restoring the environment after."""
-    saved = {k: os.environ.get(k) for k in ("ZAFTPU_FUSED", "ZAFTPU_SYNTH")}
-    for k in saved:
-        if split:
-            os.environ[k] = "0"
-        else:
+def _hour_ms(fn, segs: list) -> float:
+    """Median of 3 CUDA-event times of ``fn`` over every segment, after
+    one warm-up segment."""
+    fn(segs[0])
+    runs = []
+    for _ in range(3):
+        e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        e0.record()
+        outs = [fn(s) for s in segs]
+        e1.record()
+        e1.synchronize()
+        runs.append(e0.elapsed_time(e1))
+        del outs
+    return statistics.median(runs)
+
+
+def phase_hour_features(dispatch: str, segs: list) -> None:
+    """mdct, imdct (of the mdct's coefficients), spectrogram,
+    melspectrogram and mfcc over the six 600-s segments; frames/s from
+    CUDA events, median of 3 passes (printed, not gated)."""
+    vwin = vorbis(WL)
+    cfg = MelConfig()
+    hwin = cfg.window_array()
+    coeffs = [zaftpu_torch.mdct(s, vwin) for s in segs]
+    mdct_frames = sum(c.shape[-1] for c in coeffs)
+    stft_frames = sum(stft_padding(s.shape[-1], WL, STEP)[2] for s in segs)
+    rates = []
+    for name, fn, data, frames in (
+            ("mdct", lambda s: zaftpu_torch.mdct(s, vwin), segs,
+             mdct_frames),
+            ("imdct", lambda c: zaftpu_torch.imdct(c, vwin), coeffs,
+             mdct_frames),
+            ("spectrogram",
+             lambda s: zaftpu_torch.spectrogram(s, hwin, cfg.step_length),
+             segs, stft_frames),
+            ("melspectrogram",
+             lambda s: zaftpu_torch.melspectrogram(s, config=cfg), segs,
+             stft_frames),
+            ("mfcc", lambda s: zaftpu_torch.mfcc(s, config=cfg), segs,
+             stft_frames)):
+        ms = _hour_ms(fn, data)
+        rates.append(f"{name} {ms:.3f} ms -> {frames / ms * 1e3:,.0f} "
+                     "frames/s")
+    print(f"one hour [{dispatch}]: " + "; ".join(rates) + " (median of 3)")
+
+
+DEFAULT = {"ZAFTPU_FUSED": None, "ZAFTPU_SYNTH": None,
+           "ZAFTPU_MELFUSE": None}
+SPLIT = {"ZAFTPU_FUSED": "0", "ZAFTPU_SYNTH": "0", "ZAFTPU_MELFUSE": "0"}
+MELFUSE_OFF = {**DEFAULT, "ZAFTPU_MELFUSE": "0"}
+
+
+def _with_env(env: dict, fn, *args):
+    """Run ``fn`` with each variable of ``env`` set to its value (None:
+    unset), restoring the environment after."""
+    saved = {k: os.environ.get(k) for k in env}
+    for k, v in env.items():
+        if v is None:
             os.environ.pop(k, None)
+        else:
+            os.environ[k] = v
     try:
         return fn(*args)
     finally:
@@ -292,21 +522,31 @@ def main() -> int:
     timings = phase_kernels(dev)
 
     x = torch.from_numpy(segment(0)).to(dev)
-    launches = _with_dispatch(False, phase_main_path, "default", x)
-    launches.update(_with_dispatch(True, phase_main_path, "split", x))
+    launches = {name: 0 for name in KERNELS}
+    for env, phase, dispatch in (
+            (DEFAULT, phase_main_path, "default"),
+            (SPLIT, phase_main_path, "split"),
+            (DEFAULT, phase_mdct_path, "default"),
+            (SPLIT, phase_mdct_path, "split"),
+            (DEFAULT, phase_mel_path, "default"),
+            (MELFUSE_OFF, phase_mel_path, "ZAFTPU_MELFUSE=0")):
+        for name, count in _with_env(env, phase, dispatch, x).items():
+            launches[name] += count
+        torch.cuda.empty_cache()
     del x
     torch.cuda.empty_cache()
 
     segs = [torch.from_numpy(segment(i)).to(dev)
             for i in range(SEGMENTS_PER_HOUR)]
-    _with_dispatch(False, phase_hour, "default", segs)
-    _with_dispatch(True, phase_hour, "split", segs)
+    for env, dispatch in ((DEFAULT, "default"), (SPLIT, "split")):
+        _with_env(env, phase_hour, dispatch, segs)
+        _with_env(env, phase_hour_features, dispatch, segs)
+        torch.cuda.empty_cache()
 
     print(json.dumps({"kernels": [
-        {"name": name, "route": "cuda", "source": mod.CUDA_SOURCE,
-         "replaces": mod.REPLACES, "launches": launches[name],
-         **timings[name]}
-        for name, (mod, _, _) in KERNELS.items()]}))
+        {"name": name, "route": "cuda", "source": source,
+         "replaces": replaces, "launches": launches[name], **timings[name]}
+        for name, (source, replaces, _, _) in KERNELS.items()]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

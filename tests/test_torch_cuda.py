@@ -1,7 +1,7 @@
 """zaftpu_torch's CUDA kernels on the card: each against its plain version
 (batched, ragged, general-hop and misaligned inputs), launch counts, the
-whole stft/istft path against the CPU float64 path, and the inputs the
-CUDA path refuses.
+stft/istft, mdct/imdct and spectrogram/mel/MFCC paths against the CPU
+float64 path, and the inputs the CUDA path refuses.
 
 Every test needs an NVIDIA GPU (marker ``cuda``) and skips without one.
 This file imports neither JAX nor zaftpu, so on a machine without JAX it
@@ -14,8 +14,9 @@ import torch
 
 import zaftpu_torch
 from zaftpu_torch.core import policy
-from zaftpu_torch.core.windows import hamming
-from zaftpu_torch.kernels import framing, fused, ola, synth
+from zaftpu_torch.core.windows import hamming, kbd, vorbis
+from zaftpu_torch.kernels import framing, fused, melfused, ola, synth
+from zaftpu_torch.transforms import mdct as tmdct
 
 pytestmark = pytest.mark.cuda
 
@@ -135,3 +136,195 @@ def test_split_path_matmul_refuses_tf32(dev, monkeypatch):
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.set_float32_matmul_precision("highest")
 
+
+
+@pytest.mark.parametrize("wl,step,t", SHAPES)
+@pytest.mark.parametrize("lead", [(), (2, 3)])
+def test_new_kernels_match_plain(dev, wl, step, t, lead):
+    """frames_op, spec_rows and mel_rows (magnitude and power, 40 mels)."""
+    padded, win = _inputs(wl, step, t, dev, lead)
+    ops = torch.from_numpy(tmdct._direct_forward_ops_padded(wl)).to(dev)
+    got = fused.frames_op(padded, win, ops, wl // 2, wl, step, t)
+    ref = fused.frames_op_plain(padded, win, ops, wl // 2, wl, step, t)
+    assert got.shape == ref.shape and _rel_err(got, ref) < 2e-5
+    got = melfused.spec_rows(padded, win, wl, step, t)
+    ref = melfused.spec_rows_plain(padded, win, wl, step, t)
+    assert got.shape == ref.shape and _rel_err(got, ref) < 2e-5
+    fbt = torch.rand(wl // 2, 40, generator=torch.Generator().manual_seed(t))
+    fbt = fbt.to(dev)
+    for power in (False, True):
+        got = melfused.mel_rows(padded, win, fbt, wl, step, t, power)
+        ref = melfused.mel_rows_plain(padded, win, fbt, wl, step, t, power)
+        assert got.shape == ref.shape and _rel_err(got, ref) < 2e-5
+
+
+@pytest.mark.parametrize("f,t", [(1024, 37), (100, 61), (128, 5), (8, 3),
+                                 (256, 130)])
+@pytest.mark.parametrize("lead", [(), (2, 3)])
+def test_imdct_ola_matches_plain(dev, f, t, lead):
+    """Includes F = 100 and 8 (16-row padding of the contraction) and the
+    K = 2 edge rows at both ends of the output."""
+    rng = np.random.default_rng(f + t)
+    coeffs = torch.from_numpy(rng.standard_normal((*lead, t, f)).astype(
+        np.float32)).to(dev)
+    wb = vorbis(2 * f).tobytes()
+    got = synth.imdct_ola(coeffs, f, wb)
+    ref = synth.imdct_ola_plain(coeffs, f, wb)
+    assert got.shape == ref.shape == (*lead, t * f + f)
+    assert _rel_err(got, ref) < 2e-5
+    scale = float(ref.abs().max())
+    for edge in (slice(0, 2 * f), slice(-2 * f, None)):
+        assert float((got[..., edge] - ref[..., edge]).abs().max()) \
+            <= 2e-5 * scale
+    # A transposed (non-contiguous) view is read as the same values.
+    view = coeffs.transpose(-1, -2).contiguous().transpose(-1, -2)
+    assert torch.equal(synth.imdct_ola(view, f, wb), got)
+
+
+@pytest.mark.parametrize("mels", [1, 128, 256, 512])
+def test_mel_rows_mel_counts(dev, mels):
+    wl, step, t = 512, 128, 70
+    padded, win = _inputs(wl, step, t, dev, (2,))
+    fbt = torch.rand(wl // 2, mels,
+                     generator=torch.Generator().manual_seed(mels)).to(dev)
+    for power in (False, True):
+        got = melfused.mel_rows(padded, win, fbt, wl, step, t, power)
+        ref = melfused.mel_rows_plain(padded, win, fbt, wl, step, t, power)
+        assert got.shape == ref.shape == (2, t, mels)
+        assert _rel_err(got, ref) < 2e-5
+
+
+def test_mel_rows_past_shared_memory_raises(dev):
+    """A filterbank tile too large for the card's shared memory per block
+    raises; the error does not linger into the next launch."""
+    wl, step, t = 512, 128, 70
+    padded, win = _inputs(wl, step, t, dev, ())
+    with pytest.raises(RuntimeError, match="zt_mel_rows"):
+        melfused.mel_rows(padded, win, torch.ones(wl // 2, 4096, device=dev),
+                          wl, step, t, False)
+    fbt = torch.ones(wl // 2, 40, device=dev)
+    got = melfused.mel_rows(padded, win, fbt, wl, step, t, False)
+    ref = melfused.mel_rows_plain(padded, win, fbt, wl, step, t, False)
+    assert _rel_err(got, ref) < 2e-5
+
+
+def test_mdct_path_with_an_uneven_window_matches_cpu_f64(dev):
+    """The reference's KBD example window has 510 samples: F = 255 pads the
+    forward operator to 256 columns and the inverse contraction to 256
+    rows."""
+    win = kbd(512)
+    x = np.random.default_rng(4).standard_normal((3, 20000))
+    ref = zaftpu_torch.mdct(torch.from_numpy(x), win)
+    coeffs = zaftpu_torch.mdct(torch.from_numpy(x.astype(np.float32)).to(dev),
+                               win)
+    assert _rel_err(coeffs.cpu().double(), ref) < 1e-5
+    rec = zaftpu_torch.imdct(coeffs, win)
+    rec_ref = zaftpu_torch.imdct(ref, win)
+    assert rec.shape == rec_ref.shape
+    assert _rel_err(rec.cpu().double(), rec_ref) < 1e-5
+
+
+def test_new_kernels_on_a_misaligned_signal(dev):
+    wl, step, t = 512, 128, 9
+    padded, win = _inputs(wl, step, t, dev, offset=1)
+    assert padded.data_ptr() % 16 != 0
+    ops = torch.from_numpy(tmdct._direct_forward_ops_padded(wl)).to(dev)
+    assert _rel_err(fused.frames_op(padded, win, ops, wl // 2, wl, step, t),
+                    fused.frames_op_plain(padded, win, ops, wl // 2, wl,
+                                          step, t)) < 2e-5
+    assert _rel_err(melfused.spec_rows(padded, win, wl, step, t),
+                    melfused.spec_rows_plain(padded, win, wl, step,
+                                             t)) < 2e-5
+    fbt = torch.ones(wl // 2, 3, device=dev)
+    assert _rel_err(
+        melfused.mel_rows(padded, win, fbt, wl, step, t, True),
+        melfused.mel_rows_plain(padded, win, fbt, wl, step, t, True)) < 2e-5
+
+
+def _launches():
+    return {"frames_op": fused.frames_op.launches,
+            "imdct_ola": synth.imdct_ola.launches,
+            "spec_rows": melfused.spec_rows.launches,
+            "mel_rows": melfused.mel_rows.launches,
+            "frames_rfft": fused.frames_rfft.launches,
+            "framing": framing.frame_window.launches,
+            "ola": ola.overlap_add.launches}
+
+
+def _calls():
+    return (fused.frames_op_plain.calls, synth.imdct_ola_plain.calls,
+            melfused.spec_rows_plain.calls, melfused.mel_rows_plain.calls,
+            fused.frames_rfft_plain.calls)
+
+
+@pytest.mark.parametrize("split", [False, True])
+def test_mdct_imdct_on_card_match_cpu_f64(dev, split, monkeypatch):
+    if split:
+        monkeypatch.setenv("ZAFTPU_FUSED", "0")
+        monkeypatch.setenv("ZAFTPU_SYNTH", "0")
+    x = np.random.default_rng(2).standard_normal((2, 44100))
+    win = vorbis(2048)
+    ref = zaftpu_torch.mdct(torch.from_numpy(x), win)
+    before, calls = _launches(), _calls()
+    coeffs = zaftpu_torch.mdct(
+        torch.from_numpy(x.astype(np.float32)).to(dev), win)
+    rec = zaftpu_torch.imdct(coeffs, win)
+    moved = {k for k, v in _launches().items() if v != before[k]}
+    assert moved == ({"framing", "ola"} if split
+                     else {"frames_op", "imdct_ola"})
+    assert _calls() == calls
+    assert coeffs.is_cuda and coeffs.dtype == torch.float32
+    assert _rel_err(coeffs.cpu().double(), ref) < 1e-5
+    rec_ref = zaftpu_torch.imdct(ref, win)
+    assert rec.is_cuda and _rel_err(rec.cpu().double(), rec_ref) < 1e-5
+
+
+@pytest.mark.parametrize("melfuse", ["auto", "0"])
+def test_mel_paths_on_card_match_cpu_f64(dev, melfuse, monkeypatch):
+    monkeypatch.setenv("ZAFTPU_MELFUSE", melfuse)
+    x = np.random.default_rng(3).standard_normal((2, 44100))
+    win = hamming(2048)
+    fb = zaftpu_torch.melfilterbank(44100, 2048, 40)
+    x32 = torch.from_numpy(x.astype(np.float32)).to(dev)
+    before, calls = _launches(), _calls()
+    spec = zaftpu_torch.spectrogram(x32, win, 1024)
+    mel = zaftpu_torch.melspectrogram(x32, win, 1024, fb)
+    mf = zaftpu_torch.mfcc(x32, win, 1024, fb, 20)
+    moved = {k for k, v in _launches().items() if v != before[k]}
+    assert moved == ({"spec_rows", "mel_rows"} if melfuse == "auto"
+                     else {"frames_rfft"})
+    assert _calls() == calls
+    x64 = torch.from_numpy(x)
+    assert _rel_err(spec.cpu().double(),
+                    zaftpu_torch.spectrogram(x64, win, 1024)) < 1e-5
+    assert _rel_err(mel.cpu().double(),
+                    zaftpu_torch.melspectrogram(x64, win, 1024, fb)) < 1e-5
+    ref = zaftpu_torch.mfcc(x64, win, 1024, fb, 20)
+    assert float((mf.cpu().double() - ref).abs().max()) < 5e-3
+
+
+def test_new_cuda_paths_refuse_what_kernels_do_not_take(dev):
+    x64 = torch.zeros(4096, dtype=torch.float64, device=dev)
+    fb = zaftpu_torch.melfilterbank(8000, 256, 20)
+    with pytest.raises(NotImplementedError, match="float32"):
+        zaftpu_torch.mdct(x64, vorbis(256))
+    with pytest.raises(NotImplementedError, match="float32"):
+        zaftpu_torch.imdct(torch.zeros((128, 9), dtype=torch.float64,
+                                       device=dev), vorbis(256))
+    with pytest.raises(NotImplementedError, match="float32"):
+        zaftpu_torch.spectrogram(x64, hamming(256), 128)
+    with pytest.raises(NotImplementedError, match="float32"):
+        zaftpu_torch.melspectrogram(x64, hamming(256), 128, fb)
+    with pytest.raises(NotImplementedError, match="float32"):
+        zaftpu_torch.mfcc(x64, hamming(256), 128, fb, 12)
+    long = torch.zeros(20000, device=dev)
+    with pytest.raises(NotImplementedError, match="four-step"):
+        zaftpu_torch.mdct(long, vorbis(8192))
+    with pytest.raises(NotImplementedError, match="four-step"):
+        zaftpu_torch.imdct(torch.zeros((4096, 5), device=dev), vorbis(8192))
+    with pytest.raises(NotImplementedError, match="four-step"):
+        zaftpu_torch.spectrogram(long, hamming(8192), 4096)
+    with pytest.raises(NotImplementedError, match="four-step"):
+        zaftpu_torch.melspectrogram(
+            long, hamming(8192), 4096,
+            zaftpu_torch.melfilterbank(44100, 8192, 40))

@@ -5,7 +5,7 @@ The CUDA kernels themselves run only on the card (tests/test_torch_cuda.py
 and chip_smoke.py compare them with these plain versions there). Here the
 wrappers take their plain versions because the tensors lie on the CPU.
 Shapes: WL 256 / hop 128 (K = 2) and WL 512 / hop 128 (K = 4), with T not a
-multiple of 8.
+multiple of 8; the MDCT synthesis at F = 128, 256 and the ragged 100.
 """
 
 import jax.numpy as jnp
@@ -14,16 +14,21 @@ import pytest
 import torch
 
 from zaftpu.core.windows import hamming
+from zaftpu.features import mel as zmel
 from zaftpu.pallas import framing as zframing
 from zaftpu.pallas import fused as zfused
+from zaftpu.pallas import melfused as zmelfused
 from zaftpu.pallas import ola as zola
 from zaftpu.pallas import synth as zsynth
+from zaftpu.transforms import mdct as zmdct
 from zaftpu_torch import kernels as tkernels
 from zaftpu_torch.core import fft as tfft
 from zaftpu_torch.kernels import framing as tframing
 from zaftpu_torch.kernels import fused as tfused
+from zaftpu_torch.kernels import melfused as tmelfused
 from zaftpu_torch.kernels import ola as tola
 from zaftpu_torch.kernels import synth as tsynth
+from zaftpu_torch.transforms import mdct as tmdct
 
 SHAPES = [(256, 128, 37), (512, 128, 61), (512, 128, 5)]
 
@@ -249,3 +254,224 @@ def test_split_levers_agree_with_fused(lever, value, monkeypatch):
     _gemm_close(half2.numpy().imag, half.numpy().imag)
     _gemm_close(sig2.numpy(), sig.numpy())
 
+
+
+@pytest.mark.parametrize("wl,step,t", SHAPES)
+def test_frames_op_matches_zaftpu(wl, step, t):
+    padded = _signal(wl, step, t, 10)
+    win = np.sin(np.pi * (np.arange(wl) + 0.5) / wl).astype(np.float32)
+    ref = np.asarray(zfused.frames_op(
+        jnp.asarray(padded), jnp.asarray(win),
+        zmdct._direct_forward_ops_padded, wl // 2, wl, step, t,
+        interpret=True))
+    ops = tfft.operators_from_numpy(zmdct._direct_forward_ops_padded(wl),
+                                    wl, "mdct")
+    mine = tfused.frames_op(torch.from_numpy(padded), torch.from_numpy(win),
+                            ops, wl // 2, wl, step, t)
+    assert mine.shape == ref.shape and mine.dtype == torch.float32
+    _gemm_close(mine.numpy(), ref)
+
+
+@pytest.mark.parametrize("f,t", [(128, 37), (256, 61), (100, 9)])
+def test_imdct_ola_matches_zaftpu(f, t, monkeypatch):
+    monkeypatch.setenv("ZAFTPU_FFT", "matmul")
+    coeffs = np.random.default_rng(11).standard_normal((t, f)).astype(
+        np.float32)
+    wbytes = np.sin(np.pi * (np.arange(2 * f) + 0.5) / (2 * f)).tobytes()
+    ref = np.asarray(zsynth.imdct_ola(jnp.asarray(coeffs), f, wbytes,
+                                      interpret=True))
+    ops = tfft.operators_from_numpy(zsynth._imdct_ops_padded(f, wbytes),
+                                    2 * f, "imdct")
+    mine = tsynth.imdct_ola(torch.from_numpy(coeffs), f, wbytes, ops=ops)
+    assert mine.shape == ref.shape == (t * f + f,)
+    assert mine.dtype == torch.float32
+    _gemm_close(mine.numpy(), ref)
+    # Its own operator (built from the port's host math) agrees too.
+    _gemm_close(tsynth.imdct_ola(torch.from_numpy(coeffs), f,
+                                 wbytes).numpy(), ref)
+
+
+@pytest.mark.parametrize("wl,step,t", SHAPES)
+def test_spec_rows_matches_zaftpu(wl, step, t, monkeypatch):
+    monkeypatch.setenv("ZAFTPU_FFT", "matmul")
+    padded = _signal(wl, step, t, 12)
+    win = hamming(wl).astype(np.float32)
+    ref = np.asarray(zmelfused.spec_rows(
+        jnp.asarray(padded), jnp.asarray(win), wl, step, t, interpret=True))
+    ops = tfft.operators_from_numpy(zfused._rdft_ops_padded(wl), wl, "spec")
+    mine = tmelfused.spec_rows(torch.from_numpy(padded),
+                               torch.from_numpy(win), wl, step, t, ops=ops)
+    assert mine.shape == ref.shape == (t, wl // 2)
+    assert mine.dtype == torch.float32
+    _gemm_close(mine.numpy(), ref)
+
+
+@pytest.mark.parametrize("power", [False, True])
+@pytest.mark.parametrize("wl,step,t,sr,mels", [(256, 128, 37, 8000, 20),
+                                               (512, 128, 61, 16000, 40),
+                                               (512, 128, 5, 22050, 7)])
+def test_mel_rows_matches_zaftpu(wl, step, t, sr, mels, power, monkeypatch):
+    monkeypatch.setenv("ZAFTPU_FFT", "matmul")
+    padded = _signal(wl, step, t, 13)
+    win = hamming(wl).astype(np.float32)
+    fbank_t = np.ascontiguousarray(
+        zmel.melfilterbank(sr, wl, mels).T.astype(np.float32))
+    ref = np.asarray(zmelfused.mel_rows(
+        jnp.asarray(padded), jnp.asarray(win), jnp.asarray(fbank_t), wl,
+        step, t, power, interpret=True))
+    ops = tfft.operators_from_numpy(zfused._rdft_ops_padded(wl), wl, "spec")
+    mine = tmelfused.mel_rows(torch.from_numpy(padded),
+                              torch.from_numpy(win),
+                              torch.from_numpy(fbank_t), wl, step, t, power,
+                              ops=ops)
+    assert mine.shape == ref.shape == (t, mels)
+    assert mine.dtype == torch.float32
+    _gemm_close(mine.numpy(), ref)
+
+
+def _new_counts():
+    return (tfused.frames_op.launches, tsynth.imdct_ola.launches,
+            tmelfused.spec_rows.launches, tmelfused.mel_rows.launches)
+
+
+def _new_calls():
+    return (tfused.frames_op_plain.calls, tsynth.imdct_ola_plain.calls,
+            tmelfused.spec_rows_plain.calls, tmelfused.mel_rows_plain.calls)
+
+
+def test_new_wrappers_take_plain_versions_on_cpu():
+    wl, step, t = 256, 128, 9
+    padded = torch.from_numpy(_signal(wl, step, t, 14))
+    win = torch.from_numpy(hamming(wl).astype(np.float32))
+    ops = tfft.operators_from_numpy(zmdct._direct_forward_ops_padded(wl),
+                                    wl, "mdct")
+    launches, calls = _new_counts(), _new_calls()
+    coeffs = tfused.frames_op(padded, win, ops, wl // 2, wl, step, t)
+    tsynth.imdct_ola(coeffs, wl // 2, np.ones(wl).tobytes())
+    tmelfused.spec_rows(padded, win, wl, step, t)
+    tmelfused.mel_rows(padded, win, torch.ones(wl // 2, 3), wl, step, t,
+                       False)
+    assert _new_counts() == launches
+    assert _new_calls() == tuple(c + 1 for c in calls)
+
+
+def _bad_new_launch(case):
+    """Call a new CUDA wrapper's checking half with one bad argument."""
+    wl, step, t = 256, 128, 9
+    padded = torch.zeros(t * step + wl - step)
+    win = torch.zeros(wl)
+    mops = torch.zeros(1, wl, 128)
+    coeffs = torch.zeros(t, wl // 2)
+    wb = np.ones(wl).tobytes()
+    fbt = torch.zeros(wl // 2, 40)
+    calls = {
+        "frames_op_f64": lambda: tfused._frames_op_cuda(
+            padded.double(), win, mops, wl // 2, wl, step, t),
+        "frames_op_step": lambda: tfused._frames_op_cuda(
+            padded, win, mops, wl // 2, wl, wl + 1, t),
+        "frames_op_short": lambda: tfused._frames_op_cuda(
+            padded[:-1], win, mops, wl // 2, wl, step, t),
+        "frames_op_ops": lambda: tfused._frames_op_cuda(
+            padded, win, mops[:, :, :64], wl // 2, wl, step, t),
+        "imdct_f64": lambda: tsynth._imdct_ola_cuda(
+            coeffs.double(), wl // 2, wb),
+        "imdct_width": lambda: tsynth._imdct_ola_cuda(
+            coeffs[:, :-1], wl // 2, wb),
+        "imdct_ops": lambda: tsynth._imdct_ola_cuda(
+            coeffs, wl // 2, wb, ops=torch.zeros(wl // 2, wl - 2)),
+        "spec_f64": lambda: tmelfused._spec_rows_cuda(
+            padded.double(), win, wl, step, t),
+        "spec_window": lambda: tmelfused._spec_rows_cuda(
+            padded, win[:-1], wl, step, t),
+        "spec_ops": lambda: tmelfused._spec_rows_cuda(
+            padded, win, wl, step, t, ops=torch.zeros(2, wl, 64)),
+        "mel_f64": lambda: tmelfused._mel_rows_cuda(
+            padded.double(), win, fbt, wl, step, t, False),
+        "mel_fbank_f64": lambda: tmelfused._mel_rows_cuda(
+            padded, win, fbt.double(), wl, step, t, False),
+        "mel_fbank_rows": lambda: tmelfused._mel_rows_cuda(
+            padded, win, fbt[:-1], wl, step, t, False),
+        "mel_no_mels": lambda: tmelfused._mel_rows_cuda(
+            padded, win, torch.zeros(wl // 2, 0), wl, step, t, True),
+        "mel_short": lambda: tmelfused._mel_rows_cuda(
+            padded[:-1], win, fbt, wl, step, t, True),
+    }
+    return calls[case]()
+
+
+@pytest.mark.parametrize("case", [
+    "frames_op_f64", "frames_op_step", "frames_op_short", "frames_op_ops",
+    "imdct_f64", "imdct_width", "imdct_ops", "spec_f64", "spec_window",
+    "spec_ops", "mel_f64", "mel_fbank_f64", "mel_fbank_rows", "mel_no_mels",
+    "mel_short"])
+def test_new_cuda_wrappers_refuse_before_launch(case, monkeypatch):
+    """The MDCT and magnitude wrappers check dtype, shapes, hop, operator
+    and filterbank before they touch the library: non-float32 raises
+    NotImplementedError, the rest ValueError; nothing is launched."""
+    from zaftpu_torch.kernels import _build
+
+    def no_library():
+        raise AssertionError("the launch was reached")
+
+    monkeypatch.setattr(_build, "library", no_library)
+    launches = _new_counts()
+    error = NotImplementedError if case.endswith("_f64") else ValueError
+    with pytest.raises(error):
+        _bad_new_launch(case)
+    assert _new_counts() == launches
+
+
+@pytest.mark.parametrize("wl,step,t", [(256, 128, 9), (512, 256, 11),
+                                       (64, 24, 10)])
+def test_new_wrappers_batched_equal_per_item(wl, step, t):
+    rng = np.random.default_rng(15)
+    padded = torch.from_numpy(rng.standard_normal(
+        (2, 3, t * step + wl - step)).astype(np.float32))
+    win = torch.from_numpy(hamming(wl).astype(np.float32))
+    ops = torch.from_numpy(tmdct._direct_forward_ops_padded(wl))
+    fbt = torch.from_numpy(rng.random((wl // 2, 5)).astype(np.float32))
+    wb = hamming(wl).tobytes()
+    op = tfused.frames_op(padded, win, ops, wl // 2, wl, step, t)
+    syn = tsynth.imdct_ola(op, wl // 2, wb)
+    spec = tmelfused.spec_rows(padded, win, wl, step, t)
+    mel = tmelfused.mel_rows(padded, win, fbt, wl, step, t, True)
+    for i in range(2):
+        for j in range(3):
+            one = padded[i, j]
+            torch.testing.assert_close(
+                op[i, j], tfused.frames_op(one, win, ops, wl // 2, wl, step,
+                                           t))
+            torch.testing.assert_close(
+                syn[i, j], tsynth.imdct_ola(op[i, j], wl // 2, wb))
+            torch.testing.assert_close(
+                spec[i, j], tmelfused.spec_rows(one, win, wl, step, t))
+            torch.testing.assert_close(
+                mel[i, j], tmelfused.mel_rows(one, win, fbt, wl, step, t,
+                                              True))
+
+
+@pytest.mark.parametrize("lever,deltas", [("ZAFTPU_FUSED", (1, 0, 0, 1)),
+                                          ("ZAFTPU_SYNTH", (0, 1, 1, 0))])
+def test_mdct_split_levers_agree_with_fused(lever, deltas, monkeypatch):
+    """Each lever moves its half of the MDCT path to the framing or OLA
+    kernel's plain version, and the values agree with the fused ones."""
+    wl, step, t = 512, 256, 21
+    padded = torch.from_numpy(_signal(wl, step, t, 16))
+    win = torch.from_numpy(hamming(wl).astype(np.float32))
+    ops = torch.from_numpy(tmdct._direct_forward_ops_padded(wl))
+    wb = hamming(wl).tobytes()
+    coeffs = tkernels.windowed_frames_op(padded, win, ops, step, wl, step, t)
+    sig = tkernels.imdct_synthesis(coeffs, step, wb)
+
+    def calls():
+        return (tframing.frame_window_plain.calls,
+                tola.overlap_add_plain.calls, tfused.frames_op_plain.calls,
+                tsynth.imdct_ola_plain.calls)
+
+    before = calls()
+    monkeypatch.setenv(lever, "0")
+    coeffs2 = tkernels.windowed_frames_op(padded, win, ops, step, wl, step, t)
+    sig2 = tkernels.imdct_synthesis(coeffs, step, wb)
+    assert calls() == tuple(b + d for b, d in zip(before, deltas))
+    _gemm_close(coeffs2.numpy(), coeffs.numpy())
+    _gemm_close(sig2.numpy(), sig.numpy())

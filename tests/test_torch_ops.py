@@ -20,14 +20,19 @@ from zaftpu.core import fft as zfft
 from zaftpu.core import frame as zframe
 from zaftpu.core import windows as zwindows
 from zaftpu.pallas import fused as zfused
+from zaftpu.core import validate as zvalidate
 from zaftpu.pallas import synth as zsynth
+from zaftpu.transforms import mdct as zmdct
 from zaftpu_torch import config as tconfig
 from zaftpu_torch.core import fft as tfft
 from zaftpu_torch.core import frame as tframe
 from zaftpu_torch.core import policy as tpolicy
+from zaftpu_torch.core import validate as tvalidate
 from zaftpu_torch.core import windows as twindows
 from zaftpu_torch.kernels import fused as tfused
+from zaftpu_torch.kernels import melfused as tmelfused
 from zaftpu_torch.kernels import synth as tsynth
+from zaftpu_torch.transforms import mdct as tmdct
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -143,7 +148,7 @@ def test_operators_from_numpy_roundtrip(n):
         istft, tsynth.istft_ops(n, scale, torch.float32, "cpu"),
         rtol=0, atol=0)
     with pytest.raises(ValueError, match="kind"):
-        tfft.operators_from_numpy(zfused._rdft_ops_padded(n), n, "mdct")
+        tfft.operators_from_numpy(zfused._rdft_ops_padded(n), n, "cqt")
 
 
 def test_device_operator_cached_per_key():
@@ -213,11 +218,113 @@ def test_exact_matmul_blocks_the_contraction():
 
 
 def test_import_leaves_jax_and_zaftpu_out():
-    code = ("import sys, zaftpu_torch, zaftpu_torch.kernels._build; "
-            "bad = [m for m in sys.modules if m.split('.')[0] in "
-            "('jax', 'jaxlib', 'zaftpu')]; "
-            "print(bad); sys.exit(1 if bad else 0)")
+    """Importing the port, its kernel modules and running every public
+    transform on a small CPU input loads no jax, jaxlib or zaftpu module."""
+    code = (
+        "import sys, numpy as np, torch, zaftpu_torch as z\n"
+        "import zaftpu_torch.kernels._build, zaftpu_torch.transforms.mdct\n"
+        "import zaftpu_torch.features.mel, zaftpu_torch.kernels.melfused\n"
+        "x = torch.from_numpy(np.random.default_rng(0).standard_normal("
+        "3000))\n"
+        "w, v = z.hamming(256), z.vorbis(256)\n"
+        "fb = z.melfilterbank(8000, 256, 20)\n"
+        "z.imdct(z.mdct(x, v), v); z.spectrogram(x, w, 128)\n"
+        "z.melspectrogram(x, w, 128, fb); z.mfcc(x, w, 128, fb, 12)\n"
+        "bad = [m for m in sys.modules if m.split('.')[0] in "
+        "('jax', 'jaxlib', 'zaftpu')]\n"
+        "print(bad); sys.exit(1 if bad else 0)\n")
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+@pytest.mark.parametrize("wl", [256, 510, 2048])
+def test_mdct_host_matrices_bitwise(wl):
+    f = wl // 2
+    for mine, ref in zip(tmdct._forward_twiddles(wl),
+                         zmdct._forward_twiddles(wl)):
+        np.testing.assert_array_equal(mine, ref)
+    for mine, ref in zip(tmdct._inverse_twiddles(f),
+                         zmdct._inverse_twiddles(f)):
+        np.testing.assert_array_equal(mine, ref)
+    np.testing.assert_array_equal(tmdct._direct_forward_matrix(wl),
+                                  zmdct._direct_forward_matrix(wl))
+    np.testing.assert_array_equal(tmdct._direct_inverse_matrix(f),
+                                  zmdct._direct_inverse_matrix(f))
+    wb = twindows.vorbis(wl).tobytes()
+    np.testing.assert_array_equal(
+        tmdct._direct_inverse_windowed_matrix(f, wb),
+        zmdct._direct_inverse_windowed_matrix(f, wb))
+
+
+@pytest.mark.parametrize("wl", [256, 510, 2048])
+def test_mdct_kernel_operators_bitwise(wl):
+    """The forward ``(1, WL, F_pad)`` and inverse ``(Q, 2F)`` operators equal
+    zaftpu's on their valid columns and rows, zero elsewhere."""
+    f = wl // 2
+    mine = tmdct._direct_forward_ops_padded(wl)
+    ref = zmdct._direct_forward_ops_padded(wl)
+    assert mine.shape == (1, wl, tfused.padded_cols(f))
+    assert mine.dtype == np.float32 and mine.shape[-1] % 64 == 0
+    np.testing.assert_array_equal(mine[..., :f], ref[..., :f])
+    assert not mine[..., f:].any()
+    wb = twindows.kbd_exact(wl).tobytes()
+    mine = tsynth._imdct_ops(f, wb)
+    ref = zsynth._imdct_ops_padded(f, wb)
+    assert mine.shape == (tsynth.padded_slices(f), wl)
+    assert mine.dtype == np.float32 and mine.shape[0] % 16 == 0
+    np.testing.assert_array_equal(mine[:f], ref[0])
+    assert not mine[f:].any()
+
+
+@pytest.mark.parametrize("n", [256, 512, 2048])
+def test_spec_operator_bitwise(n):
+    """The magnitude kernels' operator is zaftpu's rDFT operator without its
+    DC column."""
+    mine = tmelfused._spec_ops(n)
+    ref = zfused._rdft_ops_padded(n)
+    assert mine.shape == (2, n, tfused.padded_cols(n // 2))
+    np.testing.assert_array_equal(mine[:, :, :n // 2],
+                                  ref[:, :, 1:n // 2 + 1])
+    assert not mine[:, :, n // 2:].any()
+
+
+@pytest.mark.parametrize("n", [256, 2048])
+def test_operators_from_numpy_new_kinds(n):
+    f = n // 2
+    got = tfft.operators_from_numpy(zmdct._direct_forward_ops_padded(n), n,
+                                    "mdct")
+    torch.testing.assert_close(
+        got, torch.from_numpy(tmdct._direct_forward_ops_padded(n)),
+        rtol=0, atol=0)
+    wb = twindows.vorbis(n).tobytes()
+    got = tfft.operators_from_numpy(zsynth._imdct_ops_padded(f, wb), n,
+                                    "imdct")
+    torch.testing.assert_close(got, torch.from_numpy(tsynth._imdct_ops(f, wb)),
+                               rtol=0, atol=0)
+    got = tfft.operators_from_numpy(zfused._rdft_ops_padded(n), n, "spec")
+    torch.testing.assert_close(
+        got, tmelfused.spec_ops(n, torch.float32, "cpu"), rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("shape,wl", [((40, 1024), 2048), ((40, 1025), 2048),
+                                      ((1024,), 2048), ((20, 128), 512)])
+def test_check_filterbank_same_as_zaftpu(shape, wl):
+    fb = np.zeros(shape)
+    try:
+        zvalidate.check_filterbank(fb, wl)
+    except ValueError as ref:
+        with pytest.raises(ValueError) as mine:
+            tvalidate.check_filterbank(fb, wl)
+        assert str(mine.value) == str(ref)
+    else:
+        assert tvalidate.check_filterbank(fb, wl) is fb
+
+
+def test_mel_config_filterbank_equal():
+    for kwargs in ({}, {"sampling_frequency": 16000, "window_length": 1024,
+                        "number_mels": 32}):
+        mine = tconfig.MelConfig(**kwargs).filterbank()
+        np.testing.assert_array_equal(mine,
+                                      zconfig.MelConfig(**kwargs).filterbank())

@@ -1,5 +1,6 @@
-"""zaftpu_torch: the STFT/ISTFT path of zaftpu in PyTorch, with hand-written
-CUDA kernels for NVIDIA Hopper (sm_90a).
+"""zaftpu_torch: the STFT/ISTFT, MDCT/IMDCT and spectrogram/mel/MFCC paths
+of zaftpu in PyTorch, with hand-written CUDA kernels for NVIDIA Hopper
+(sm_90a).
 
 It imports neither JAX nor ``zaftpu``; the tests hold it against both.
 Tensors stay on the device they arrive on: CUDA float32 runs the kernels,
@@ -10,10 +11,13 @@ from zaftpu_torch.config import (CqtConfig, MdctConfig, MelConfig,
                                  StftConfig)
 from zaftpu_torch.core.windows import (get_window, hamming, hann, kbd,
                                        kbd_exact, sine, vorbis)
-from zaftpu_torch.transforms.stft import istft, stft
+from zaftpu_torch.features.mel import melfilterbank, melspectrogram, mfcc
+from zaftpu_torch.transforms.mdct import imdct, mdct
+from zaftpu_torch.transforms.stft import istft, spectrogram, stft
 
 __all__ = [
-    "stft", "istft",
+    "stft", "istft", "spectrogram", "mdct", "imdct",
+    "melfilterbank", "melspectrogram", "mfcc",
     "StftConfig", "MelConfig", "CqtConfig", "MdctConfig",
     "hamming", "hann", "vorbis", "kbd", "kbd_exact", "sine", "get_window",
 ]

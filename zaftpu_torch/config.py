@@ -56,6 +56,13 @@ class MelConfig:
 
         return get_window(self.window, self.window_length)
 
+    def filterbank(self):
+        """The configured mel filterbank (cached)."""
+        from zaftpu_torch.features.mel import melfilterbank
+
+        return melfilterbank(self.sampling_frequency, self.window_length,
+                             self.number_mels)
+
 
 @dataclasses.dataclass(frozen=True)
 class CqtConfig:

@@ -70,16 +70,24 @@ def _real_name(dtype: torch.dtype) -> str:
 def operators_from_numpy(ops: np.ndarray, n: int, kind: str,
                          device=None) -> torch.Tensor:
     """The port's kernel operator from one of ``zaftpu``'s stacked operator
-    arrays, so both packages can run on identical operators.
+    arrays, so both packages can run on identical operators. ``n`` is the
+    window length.
 
     ``kind="rdft"``: ``zaftpu.pallas.fused._rdft_ops_padded(n)``,
     ``(2, N, 128-lane F_pad)``, becomes the fused kernel's ``(2, N, F_pad)``
     with 64-bin padding.
+    ``kind="spec"``: the same array becomes the magnitude kernels'
+    ``(2, N, F_pad)`` over bins ``1..N/2`` (``kernels.melfused``).
     ``kind="istft"``: ``zaftpu.pallas.synth._istft_ops_padded(n, s)``,
     ``(2, 128-lane kpad, N)``, becomes the synthesis kernel's
     ``(2, KP, N)`` with 16-row padding.
-    Only the valid ``F = N/2+1`` columns (rows) are carried; the padding is
-    zero.
+    ``kind="mdct"``: ``zaftpu.transforms.mdct._direct_forward_ops_padded(n)``,
+    ``(1, N, F_pad)``, becomes ``frames_op``'s ``(1, N, F_pad)`` with
+    64-column padding, F = N/2.
+    ``kind="imdct"``: ``zaftpu.pallas.synth._imdct_ops_padded(n/2, wbytes)``,
+    ``(1, F, 2F)``, becomes ``imdct_ola``'s ``(Q, 2F)`` with Q = F rounded
+    up to 16.
+    Only the valid columns (rows) are carried; the padding is zero.
     """
     from zaftpu_torch.kernels import fused, synth
 
@@ -88,11 +96,21 @@ def operators_from_numpy(ops: np.ndarray, n: int, kind: str,
     if kind == "rdft":
         out = np.zeros((2, n, fused.padded_bins(n)), ops.dtype)
         out[:, :, :f] = ops[:, :n, :f]
+    elif kind == "spec":
+        out = np.zeros((2, n, fused.padded_cols(n // 2)), ops.dtype)
+        out[:, :, :n // 2] = ops[:, :n, 1:f]
     elif kind == "istft":
         out = np.zeros((2, synth.padded_rows(n), n), ops.dtype)
         out[:, :f] = ops[:, :f, :n]
+    elif kind == "mdct":
+        out = np.zeros((1, n, fused.padded_cols(n // 2)), ops.dtype)
+        out[:, :, :n // 2] = ops[:, :n, :n // 2]
+    elif kind == "imdct":
+        out = np.zeros((synth.padded_slices(n // 2), n), ops.dtype)
+        out[:n // 2] = ops[0, :n // 2, :n]
     else:
-        raise ValueError(f"kind must be 'rdft' or 'istft', got {kind!r}")
+        raise ValueError("kind must be 'rdft', 'spec', 'istft', 'mdct' or "
+                         f"'imdct', got {kind!r}")
     return torch.from_numpy(out).to(device=device)
 
 

@@ -77,3 +77,13 @@ def check_cola(window: np.ndarray, step_length: int, gain: float) -> float:
             f"{step_length}: not a valid analysis/synthesis pair "
             "(use a periodic window with step dividing its length)")
     return gain
+
+
+def check_filterbank(fbank: np.ndarray, window_length: int) -> np.ndarray:
+    """Filterbank columns must span bins 1..WL/2 (the reference's DC-dropped,
+    Nyquist-kept convention, zaf.py:298/370). ``fbank`` is a host array."""
+    if fbank.ndim != 2 or fbank.shape[1] != window_length // 2:
+        raise ValueError(
+            f"mel_filterbank must be (number_mels, window_length//2 = "
+            f"{window_length // 2}) for this window, got {fbank.shape}")
+    return fbank

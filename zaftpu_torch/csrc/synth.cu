@@ -1,28 +1,34 @@
-// Inverse real-DFT GEMM + overlap-add in one launch:
+// Inverse GEMM + overlap-add in one launch:
 //   frames[t, n] = sum_q h[t, q] * op[q, n]
 //   y[r*step + j] = sum_c frames[r - c, c*step + j]      (c ascending)
-// with h = [h_re | 0 | h_im | 0], the Hermitian-folded planes packed into
-// (T, 2*KP) rows, and op = [cos; 0; -sin; 0], (2*KP, N), carrying the pair
-// weights, 1/N and the COLA 1/gain.
+// Two callers:
+// - istft_ola: h = [h_re | 0 | h_im | 0], the Hermitian-folded planes
+//   packed into (T, 2*KP) rows, and op = [cos; 0; -sin; 0], (2*KP, N),
+//   carrying the pair weights, 1/N and the COLA 1/gain;
+// - imdct_ola: h = the MDCT coefficients (T, F), zero-padded to Q = F
+//   rounded up to 16 where F is not a multiple of 16, and op the
+//   window-folded inverse MDCT matrix (Q, 2F) with zero rows past F; so
+//   N = 2F, step = F, K = 2 (the TDAC overlap-add).
 //
 // Replaces zaftpu/pallas/synth.py: _gemm_ola_impl as reached from
-// istft_ola (C = 2). The Pallas kernel walks frame blocks on a sequential
-// grid and carries the last K-1 frame rows of each block to the next in
-// VMEM. CUDA blocks run in no order, so nothing is carried here.
+// istft_ola (C = 2, here the two planes side by side in one contraction)
+// and imdct_ola (C = 1). The Pallas kernel walks frame blocks on a
+// sequential grid and carries the last K-1 frame rows of each block to the
+// next in VMEM. CUDA blocks run in no order, so nothing is carried here.
 //
-// Bound: FP32 arithmetic, 2 x 2F x N FLOP per frame, the same as one
-// full inverse GEMM. Design: each 256-thread block owns 64 output rows
+// Bound: FP32 arithmetic, 2 x Q x N FLOP per frame, the same as one full
+// inverse GEMM. Design: each 256-thread block owns 64 output rows
 // (hops) x 64 columns of one hop. Output row r needs exactly column chunk c
 // of frame row r - c, so for c = 0..K-1 the block computes the GEMM piece
 // frames[r0 - c .. r0 - c + 64, c*step + cols] in its own register tile
-// (a SIMT GEMM over the 2*KP contraction, staged through double-buffered
+// (a SIMT GEMM over the Q contraction, staged through double-buffered
 // shared memory in slices of 16 with the next slice's 16-byte loads in
 // flight, zt::slice_fma) and adds each finished piece into the running
 // sum. Every frame element is computed once, no halo is redone, no atomics
 // are needed, the frame matrix never reaches device memory, and the sum
 // keeps zaftpu's c-ascending order. Frame rows outside [0, T) are masked
 // to zero at load, which is the zero contribution of the padded chunk
-// views in the plain version. The zero padding of the packed rows keeps
+// views in the plain version. The zero padding of the rows to Q keeps
 // every load 16-byte aligned and unmasked along the contraction. A thread
 // holds 4 x 4 outputs, its piece and its slice partial in about 80
 // registers, so several blocks share an SM; 128-row blocks measured 5%
@@ -42,7 +48,7 @@ constexpr int APAD = 4;
 // by 4), else one float at a time.
 template <bool VEC_B>
 __global__ void __launch_bounds__(zt::kThreads)
-istft_ola_kernel(const float* __restrict__ h, const float* __restrict__ ops,
+gemm_ola_kernel(const float* __restrict__ h, const float* __restrict__ ops,
                  float* __restrict__ out, int T, int Q, int N, int step,
                  int K, long long out_len) {
   __shared__ __align__(16) float As[2][BK][BM + APAD];
@@ -149,12 +155,11 @@ istft_ola_kernel(const float* __restrict__ h, const float* __restrict__ ops,
 
 }  // namespace
 
-// h: (batch, T, Q) packed folded planes, Q = 2*KP a multiple of 16;
-// ops: (Q, N) with the scale folded in; out: (batch, (T - 1) * step + N).
-// float32, contiguous, 16-byte aligned.
-ZT_EXPORT int zt_istft_ola(const void* h, const void* ops, void* out,
-                           int batch, int T, int Q, int N, int step,
-                           void* stream) {
+// h: (batch, T, Q), Q a multiple of 16; ops: (Q, N); out:
+// (batch, (T - 1) * step + N). float32, contiguous, 16-byte aligned.
+ZT_EXPORT int zt_gemm_ola(const void* h, const void* ops, void* out,
+                          int batch, int T, int Q, int N, int step,
+                          void* stream) {
   if (Q % BK != 0 || !zt::aligned16(h) || !zt::aligned16(ops)) {
     return (int)cudaErrorInvalidValue;
   }
@@ -167,10 +172,10 @@ ZT_EXPORT int zt_istft_ola(const void* h, const void* ops, void* out,
   const float* o = static_cast<const float*>(ops);
   float* y = static_cast<float*>(out);
   if (step % 4 == 0 && N % 4 == 0) {
-    istft_ola_kernel<true><<<grid, zt::kThreads, 0, st>>>(
+    gemm_ola_kernel<true><<<grid, zt::kThreads, 0, st>>>(
         hp, o, y, T, Q, N, step, K, out_len);
   } else {
-    istft_ola_kernel<false><<<grid, zt::kThreads, 0, st>>>(
+    gemm_ola_kernel<false><<<grid, zt::kThreads, 0, st>>>(
         hp, o, y, T, Q, N, step, K, out_len);
   }
   return (int)cudaGetLastError();

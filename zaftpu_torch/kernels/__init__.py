@@ -1,18 +1,22 @@
-"""The four CUDA kernels of the STFT/ISTFT path and their dispatch.
+"""The CUDA kernels of the STFT/ISTFT, MDCT/IMDCT and magnitude/mel paths,
+and their dispatch.
 
 The same dispatch functions as ``zaftpu.pallas``, minus its silent-retry
 machinery: a CPU tensor always takes the kernels' plain PyTorch versions,
 and a CUDA tensor always launches a kernel or raises. No path catches a
 kernel failure and carries on.
 
-Two levers choose the kernels, with ``zaftpu``'s names and meaning:
+Three levers choose the kernels, with ``zaftpu``'s names and meaning:
 
-* ``ZAFTPU_FUSED=0``: framing kernel + ``torch.matmul`` DFT GEMM instead of
-  the fused analysis kernel;
+* ``ZAFTPU_FUSED=0``: framing kernel + ``torch.matmul`` GEMM instead of
+  the fused analysis kernels (STFT and MDCT);
 * ``ZAFTPU_SYNTH=0``: ``torch.matmul`` inverse GEMM + OLA kernel instead of
-  the fused synthesis kernel.
+  the fused synthesis kernel (ISTFT and IMDCT);
+* ``ZAFTPU_MELFUSE=0``: the analysis dispatch's half spectrum, ``|·|`` and
+  ``torch.matmul`` instead of the one-pass magnitude and mel kernels
+  (:mod:`zaftpu_torch.kernels.melfused`).
 
-Both default to the fused kernels.
+All default to the fused kernels.
 """
 
 from __future__ import annotations
@@ -22,6 +26,7 @@ import os
 import torch
 
 from zaftpu_torch.core import fft as _fft
+from zaftpu_torch.core.policy import exact_matmul
 from zaftpu_torch.kernels import framing as _framing
 from zaftpu_torch.kernels import fused as _fused
 from zaftpu_torch.kernels import ola as _ola
@@ -76,6 +81,19 @@ def windowed_frames_rfft(padded, window, window_length: int, step: int,
     return _fft.direct_rfft(frames)
 
 
+def windowed_frames_op(padded, window, ops, n_cols: int, window_length: int,
+                       step: int, number_times: int):
+    """Windowed overlapped frames times one real operator ``(1, WL, F_pad)``
+    -> ``(..., T, n_cols)``: the fused kernel, or with ``ZAFTPU_FUSED=0``
+    the framing kernel followed by the GEMM."""
+    if fused_enabled():
+        return _fused.frames_op(padded, window, ops, n_cols, window_length,
+                                step, number_times)
+    frames = windowed_frames(padded, window, window_length, step,
+                             number_times)
+    return exact_matmul(frames, ops[0, :, :n_cols])
+
+
 def overlap_add(frames, step: int):
     """Overlap-add ``(..., T, WL)`` frames into
     ``(..., T*step + WL - step)``."""
@@ -95,3 +113,15 @@ def synthesis_ola(spectra, step: int, gain: float = 1.0):
         return _synth.istft_ola(h_re, h_im, n, step, 1.0 / gain)
     frames = _fft.direct_real_ifft_folded(h_re, h_im, n, scale=1.0 / gain)
     return overlap_add(frames, step)
+
+
+def imdct_synthesis(coeffs, f: int, window_bytes: bytes):
+    """IMDCT synthesis from frames-major coefficients ``(..., T, F)``:
+    ``overlap_add(coeffs @ M_w, F)`` with M_w the window-folded inverse
+    operator (keyed by the float64 window's bytes), ``(..., T*F + F)``
+    before the trim. The fused synthesis kernel, or with ``ZAFTPU_SYNTH=0``
+    the inverse GEMM followed by the OLA kernel."""
+    if synth_enabled():
+        return _synth.imdct_ola(coeffs, f, window_bytes)
+    ops = _synth.imdct_ops(f, window_bytes, coeffs.dtype, coeffs.device)
+    return overlap_add(exact_matmul(coeffs, ops[:f]), f)

@@ -40,7 +40,11 @@ SIGNATURES = {
     "zt_frame_window": (_P, _P, _P, _I, _LL, _I, _I, _I, _P),
     "zt_overlap_add": (_P, _P, _I, _I, _I, _I, _P),
     "zt_frames_rfft": (_P, _P, _P, _P, _I, _LL, _I, _I, _I, _I, _I, _P),
-    "zt_istft_ola": (_P, _P, _P, _I, _I, _I, _I, _I, _P),
+    "zt_frames_op": (_P, _P, _P, _P, _I, _LL, _I, _I, _I, _I, _I, _P),
+    "zt_gemm_ola": (_P, _P, _P, _I, _I, _I, _I, _I, _P),
+    "zt_spec_rows": (_P, _P, _P, _P, _I, _LL, _I, _I, _I, _I, _I, _P),
+    "zt_mel_rows": (_P, _P, _P, _P, _P, _P, _I, _LL, _I, _I, _I, _I, _I, _I,
+                    _I, _P),
     "zt_error_string": (_I,),
 }
 

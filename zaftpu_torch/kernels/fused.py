@@ -1,10 +1,12 @@
-"""Framing + window + real-DFT GEMM: CUDA kernel (``csrc/fused.cu``) and its
-plain version.
+"""Framing + window + operator GEMM: CUDA kernels (``csrc/fused.cu``) and
+their plain versions.
 
-Replaces ``zaftpu/pallas/fused.py: _frames_matmul_impl`` as ``frames_rfft``
-reaches it (two components, cos and sin). The kernel is FP32-compute-bound;
-see the source note in ``csrc/fused.cu``. One launch computes both
-components from the same frame tile.
+Replace ``zaftpu/pallas/fused.py: _frames_matmul_impl`` as ``frames_rfft``
+(two components, the cos and sin rDFT operators) and ``frames_op`` (one
+real operator, the folded MDCT matrix) reach it. The kernels are
+FP32-compute-bound; see the source notes in ``csrc/fused.cu`` and
+``csrc/frames_gemm.cuh``. One launch computes every component from the same
+frame tile.
 """
 
 from __future__ import annotations
@@ -21,14 +23,20 @@ from zaftpu_torch.kernels import _build
 from zaftpu_torch.kernels.framing import check_frame_args
 
 CUDA_SOURCE = "zaftpu_torch/csrc/fused.cu"
-REPLACES = "zaftpu/pallas/fused.py:279"  # _frames_matmul_impl
+REPLACES = "zaftpu/pallas/fused.py:279"  # _frames_matmul_impl (frames_rfft)
+REPLACES_OP = "zaftpu/pallas/fused.py:590"  # frames_op -> _frames_matmul_impl
 
 TILE_BINS = 64    # the kernel's bins per block; the operator is padded to it
 TILE_FRAMES = 64  # the kernel's frames per block
 
 
+def padded_cols(cols: int) -> int:
+    """``cols`` rounded up to whole 64-column tiles of the kernels."""
+    return -(-cols // TILE_BINS) * TILE_BINS
+
+
 def padded_bins(n: int) -> int:
-    return -(-(n // 2 + 1) // TILE_BINS) * TILE_BINS
+    return padded_cols(n // 2 + 1)
 
 
 @lru_cache(maxsize=8)
@@ -117,3 +125,68 @@ def _frames_rfft_cuda(padded: torch.Tensor, window: torch.Tensor,
 
 
 frames_rfft.launches = 0
+
+
+def frames_op_plain(padded: torch.Tensor, window: torch.Tensor,
+                    ops: torch.Tensor, n_cols: int, window_length: int,
+                    step: int, number_times: int) -> torch.Tensor:
+    """``windowed_frames @ ops[0, :, :n_cols]``, ``(..., T, n_cols)``, in
+    plain PyTorch."""
+    frames_op_plain.calls += 1
+    frames = (extract_frames(padded, window_length, step, number_times)
+              * window.to(padded.dtype))
+    return exact_matmul(frames, ops[0, :, :n_cols].to(padded.dtype))
+
+
+frames_op_plain.calls = 0
+
+
+def frames_op(padded: torch.Tensor, window: torch.Tensor, ops: torch.Tensor,
+              n_cols: int, window_length: int, step: int,
+              number_times: int) -> torch.Tensor:
+    """Fused ``windowed_frames @ op`` for one real operator: ``(..., T,
+    n_cols)`` from a padded signal ``(..., L)``, the frames never stored.
+    ``ops`` is ``(1, WL, F_pad)`` with zero columns from ``n_cols`` to
+    :func:`padded_cols` (``zaftpu``'s ``frames_op`` takes the host function
+    that makes it instead; here the caller uploads it once).
+
+    A CPU tensor takes the plain version; a CUDA tensor launches the kernel
+    (leading axes flattened into its batch) or raises.
+    """
+    if not padded.is_cuda:
+        return frames_op_plain(padded, window, ops, n_cols, window_length,
+                               step, number_times)
+    return _frames_op_cuda(padded, window, ops, n_cols, window_length, step,
+                           number_times)
+
+
+def _frames_op_cuda(padded: torch.Tensor, window: torch.Tensor,
+                    ops: torch.Tensor, n_cols: int, window_length: int,
+                    step: int, number_times: int) -> torch.Tensor:
+    """Check the CUDA input, launch the kernel, count the launch."""
+    check_frame_args("frames_op", padded, window, window_length, step,
+                     number_times)
+    wl, t = window_length, number_times
+    fp = padded_cols(n_cols)
+    if ops.shape != (1, wl, fp) or ops.dtype != torch.float32:
+        raise ValueError(f"frames_op: operator must be float32 "
+                         f"(1, {wl}, {fp}), got {ops.dtype} "
+                         f"{tuple(ops.shape)}")
+    length = padded.shape[-1]
+    lead = padded.shape[:-1]
+    sig = padded.reshape(-1, length).contiguous()
+    _build.require_grid(sig.shape[0], -(-t // TILE_FRAMES), "frames_op")
+    win = window.to(device=padded.device, dtype=torch.float32).contiguous()
+    ops = ops.to(padded.device).contiguous()
+    out = torch.empty((sig.shape[0], t, n_cols), dtype=torch.float32,
+                      device=padded.device)
+    err = _build.library().zt_frames_op(
+        sig.data_ptr(), win.data_ptr(), ops.data_ptr(), out.data_ptr(),
+        sig.shape[0], length, t, wl, step, n_cols, fp,
+        _build.stream_of(padded))
+    _build.check(err, "zt_frames_op")
+    frames_op.launches += 1
+    return out.reshape(*lead, t, n_cols)
+
+
+frames_op.launches = 0

@@ -1,13 +1,14 @@
-"""Short-time Fourier transform and its inverse.
+"""Short-time Fourier transform, its inverse, and the magnitude spectrogram.
 
 Semantics match ``zaftpu.transforms.stft`` and the reference
 (zaf.py:45-243): the same centering pad and frame count, the full complex
 ``(window_length, number_times)`` output with DC and mirrored bins, and the
 COLA-normalized inverse. On a CUDA float32 signal the analysis runs the
 fused framing + window + DFT kernel and the synthesis the fused inverse
-GEMM + overlap-add kernel (:mod:`zaftpu_torch.kernels`); on the CPU the
-same path runs their plain PyTorch versions, in the input's dtype (float64
-is the oracle mode).
+GEMM + overlap-add kernel (:mod:`zaftpu_torch.kernels`); the spectrogram
+runs the one-pass magnitude kernel (:mod:`zaftpu_torch.kernels.melfused`).
+On the CPU the same paths run their plain PyTorch versions, in the input's
+dtype (float64 is the oracle mode).
 """
 
 from __future__ import annotations
@@ -19,6 +20,7 @@ from zaftpu_torch import kernels as _kernels
 from zaftpu_torch.core import fft as _fft
 from zaftpu_torch.core import frame as _frame
 from zaftpu_torch.core import validate as _validate
+from zaftpu_torch.kernels import melfused as _melfused
 
 
 def _as_tensor(x) -> torch.Tensor:
@@ -48,6 +50,38 @@ def _resolve_analysis_args(window_function, step_length, config):
     return window_function, step_length
 
 
+def _analysis_inputs(audio_signal, window_function, step_length, config):
+    """The validated signal (at least float32), window (on the signal's
+    device, in its dtype) and hop."""
+    x = _validate.check_signal(_as_tensor(audio_signal))
+    window, step = _resolve_analysis_args(window_function, step_length,
+                                          config)
+    win = _validate.check_window(_as_tensor(window))
+    wl = win.shape[0]
+    step = _validate.check_step(step, wl)
+    _kernels.check_device_input(x, wl)
+    x = x.to(torch.promote_types(x.dtype, torch.float32))
+    return x, win.to(device=x.device, dtype=x.dtype), step
+
+
+def centre_padded(x: torch.Tensor, window_length: int, step: int):
+    """The centre-padded signal and its frame count (zaf.py:99-125)."""
+    pad_front, pad_back, t = _frame.stft_padding(x.shape[-1], window_length,
+                                                 step)
+    return torch.nn.functional.pad(x, (pad_front, pad_back)), t
+
+
+def _stft_frames_half(x: torch.Tensor, window: torch.Tensor,
+                      step: int) -> torch.Tensor:
+    """Windowed frames -> rDFT, frames-major ``(..., T, WL/2+1)``: shared by
+    :func:`stft` and the split magnitude and mel paths, which use only the
+    non-mirrored bins. ``x`` and ``window`` as :func:`_analysis_inputs`
+    gives them."""
+    wl = window.shape[0]
+    padded, t = centre_padded(x, wl, step)
+    return _kernels.windowed_frames_rfft(padded, window, wl, step, t)
+
+
 def stft(audio_signal, window_function=None, step_length: int | None = None,
          *, config=None) -> torch.Tensor:
     """Short-time Fourier transform.
@@ -63,19 +97,10 @@ def stft(audio_signal, window_function=None, step_length: int | None = None,
         spectrum with DC and mirrored bins, as reference zaf.py:45-141
         returns it. It is a transposed view of a frames-major tensor.
     """
-    x = _validate.check_signal(_as_tensor(audio_signal))
-    window, step = _resolve_analysis_args(window_function, step_length,
-                                          config)
-    win = _validate.check_window(_as_tensor(window))
-    wl = win.shape[0]
-    step = _validate.check_step(step, wl)
-    _kernels.check_device_input(x, wl)
-    x = x.to(torch.promote_types(x.dtype, torch.float32))
-    win = win.to(device=x.device, dtype=x.dtype)
-    pad_front, pad_back, t = _frame.stft_padding(x.shape[-1], wl, step)
-    padded = torch.nn.functional.pad(x, (pad_front, pad_back))
-    half = _kernels.windowed_frames_rfft(padded, win, wl, step, t)
-    return _fft.full_from_half(half, wl).transpose(-1, -2)
+    x, win, step = _analysis_inputs(audio_signal, window_function,
+                                    step_length, config)
+    half = _stft_frames_half(x, win, step)
+    return _fft.full_from_half(half, win.shape[0]).transpose(-1, -2)
 
 
 def istft(audio_stft, window_function=None, step_length: int | None = None,
@@ -108,3 +133,27 @@ def istft(audio_stft, window_function=None, step_length: int | None = None,
     # Trim the centering pad (zaf.py:236-238).
     edge = wl - step
     return signal[..., edge:signal.shape[-1] - edge]
+
+
+def spectrogram(audio_signal, window_function=None,
+                step_length: int | None = None, *,
+                config=None) -> torch.Tensor:
+    """Magnitude spectrogram over bins ``1..WL/2``, DC dropped and Nyquist
+    kept: the reference's analysis slice ``abs(stft[1:WL/2+1, :])``
+    (zaf.py:370), computed without the mirrored bins.
+
+    Inputs as :func:`stft` (``config=`` takes a
+    :class:`zaftpu_torch.config.StftConfig`). Output: real
+    ``(..., window_length/2, number_times)``, a transposed view of a
+    frames-major tensor. The one-pass magnitude kernel, or with
+    ``ZAFTPU_MELFUSE=0`` the half spectrum and ``|·|``.
+    """
+    x, win, step = _analysis_inputs(audio_signal, window_function,
+                                    step_length, config)
+    if _melfused.kernel_wanted():
+        wl = win.shape[0]
+        padded, t = centre_padded(x, wl, step)
+        spec = _melfused.spec_rows(padded, win, wl, step, t)
+    else:
+        spec = _stft_frames_half(x, win, step)[..., 1:].abs()
+    return spec.transpose(-1, -2)
