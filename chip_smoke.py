@@ -1,5 +1,5 @@
-"""Drive the zaftpu_torch STFT -> ISTFT, MDCT -> IMDCT and spectrogram /
-mel / MFCC paths once on an NVIDIA GPU.
+"""Drive the zaftpu_torch STFT -> ISTFT, MDCT -> IMDCT, spectrogram / mel /
+MFCC and CQT paths once on an NVIDIA GPU.
 
     python3 chip_smoke.py
 
@@ -9,15 +9,18 @@ non-zero exit and no result line:
 
 1. device: the card's name and power limit (as nvidia-smi gives them),
    torch and CUDA versions; TF32 off for matmuls and cuDNN;
-2. build: the eight kernels from zaftpu_torch/csrc, with the seconds taken;
+2. build: the twelve kernels from zaftpu_torch/csrc (one nvcc per source,
+   all started together), with the seconds taken;
 3. kernels: each kernel against its plain PyTorch version on the card at
    its main-path shape (WL 2048, hop 1024, a 600-s segment: T = 25,841;
-   F = 1,024 for the IMDCT; 40 mels) and a ragged one (WL 512, hop 128,
-   T = 1,001 for the STFT kernels; WL 512 / hop 256 for frames_op; F = 100
-   for imdct_ola; WL 512 / hop 128 with 20 mels for spec_rows and
-   mel_rows); framing and OLA must be bit-equal, the GEMM kernels within
-   2e-5 * max|ref|; median times of kernel and plain version at the
-   main-path shape (CUDA events);
+   F = 1,024 for the IMDCT; 40 mels; the CQT at CqtConfig(): T = 15,000,
+   L = 32,768, hop 1764, F = 144) and a ragged one (WL 512, hop 128,
+   T = 1,001 for the STFT, mirror and fold kernels; WL 512 / hop 256 for
+   frames_op; F = 100 for imdct_ola; WL 512 / hop 128 with 20 mels for
+   spec_rows and mel_rows; the CQT at 22,050 Hz, 12 bins per octave,
+   110-3,520 Hz: L 4,096, hop 882, F 60, T 1,001); framing, OLA, mirror and
+   fold must be bit-equal, the GEMM kernels within 2e-5 * max|ref|; median
+   times of kernel and plain version at the main-path shape (CUDA events);
 4. STFT main path, default dispatch: stft -> istft of a 600-s signal with
    the periodic Hamming window; the spectrum against a float64 torch.fft
    oracle (<= 1e-5 * max|oracle|), the round-trip SNR (>= 120 dB), and
@@ -34,9 +37,23 @@ non-zero exit and no result line:
    600-s signal against float64 torch.fft oracles (<= 1e-5 * max|oracle|;
    MFCC atol 5e-3), under the default dispatch (spec_rows and mel_rows, not
    the fused STFT kernel) and ZAFTPU_MELFUSE=0 (the fused STFT kernel);
-8. one hour: six 600-s segments through stft, then istft; mdct, then
+8. CQT main path at CqtConfig() (44.1 kHz, 24 bins per octave, 55-3,520
+   Hz, 25 frames/s): cqtspectrogram and cqtchromagram of the 600-s signal
+   against a float64 oracle on the card (per-frame FFT times the kernel's
+   non-zero columns, then abs, zaf.py:627-633; <= 1e-5 * max|oracle|), and
+   launch counts showing cqt_magnitudes ran and no plain version did;
+9. full-spectrum levers: stft -> istft of the 600-s signal under
+   ZAFTPU_MIRROR=pallas (fused, mirror_full_planes, fold_half_planes,
+   synth), then ZAFTPU_FULLSPEC=1 (frames_rfft_full, synth): spectrum and
+   round trip bit-equal to the default dispatch's, and the oracle and SNR
+   gates of phase 4;
+10. one hour: six 600-s segments through stft, then istft; mdct, then
    imdct; spectrogram; melspectrogram; mfcc, under the default and the
-   split dispatch; frames/s from CUDA events (printed, not gated).
+   split dispatch; cqtspectrogram and cqtchromagram (90,000 frames);
+   frames/s from CUDA events (printed, not gated).
+
+The CQT kernel is built on the host without the disk cache
+(ZAFTPU_CACHE=0), so the run writes nothing outside the checkout.
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is ``{"ok": true, "device": {...}}``.
@@ -54,12 +71,13 @@ import numpy as np
 import torch
 
 import zaftpu_torch
-from zaftpu_torch import MelConfig
+from zaftpu_torch import CqtConfig, MelConfig
 from zaftpu_torch.core import fft
 from zaftpu_torch.core.frame import stft_padding
 from zaftpu_torch.core.windows import hamming, vorbis
 from zaftpu_torch.features.mel import dct_ii_ortho_matrix, melfilterbank
-from zaftpu_torch.kernels import _build, framing, fused, melfused, ola, synth
+from zaftpu_torch.kernels import (_build, cqtslab, framing, fused, melfused,
+                                  mirror, ola, synth)
 from zaftpu_torch.transforms import mdct as tmdct
 
 SR = 44100
@@ -70,6 +88,8 @@ RAGGED = (512, 128, 1001)  # WL, hop, T
 MDCT_RAGGED = (512, 256, 1001)  # frames_op: WL, hop, T
 IMDCT_RAGGED_F = 100  # imdct_ola: F, 16-row padding of the contraction
 MEL_RAGGED = (512, 128, 1001, 20)  # spec_rows / mel_rows: WL, hop, T, mels
+CQT_RAGGED = (CqtConfig(sampling_frequency=22050, octave_resolution=12,
+                        minimum_frequency=110.0), 1001)  # L 4096, hop 882
 SEED = 20260816
 EXACT_TOL = 0.0
 GEMM_TOL = 2e-5     # x max|ref|; TF32 would read about 1e-3
@@ -95,6 +115,17 @@ KERNELS = {
                   melfused.spec_rows, melfused.spec_rows_plain),
     "mel_rows": (melfused.CUDA_SOURCE, melfused.REPLACES_MEL,
                  melfused.mel_rows, melfused.mel_rows_plain),
+    "cqt_magnitudes": (cqtslab.CUDA_SOURCE, cqtslab.REPLACES,
+                       cqtslab.cqt_magnitudes, cqtslab.cqt_magnitudes_plain),
+    "mirror_full_planes": (mirror.CUDA_SOURCE, mirror.REPLACES_MIRROR,
+                           mirror.mirror_full_planes,
+                           mirror.mirror_full_planes_plain),
+    "fold_half_planes": (mirror.CUDA_SOURCE, mirror.REPLACES_FOLD,
+                         mirror.fold_half_planes,
+                         mirror.fold_half_planes_plain),
+    "frames_rfft_full": (fused.CUDA_SOURCE, fused.REPLACES_FULL,
+                         fused.frames_rfft_full,
+                         fused.frames_rfft_full_plain),
 }
 
 
@@ -161,8 +192,8 @@ def _kernel_inputs(wl: int, step: int, t: int, dev) -> dict:
     padded = torch.from_numpy(sig).to(dev)
     win = torch.from_numpy(hamming(wl).astype(np.float32)).to(dev)
     frames = framing.frame_window_plain(padded, win, wl, step, t)
-    spec = fft.full_from_half(
-        fused.frames_rfft_plain(padded, win, wl, step, t), wl)
+    half = fused.frames_rfft_plain(padded, win, wl, step, t)
+    spec = fft.conjugate_mirror(half, wl)
     h_re, h_im = fft.hermitian_fold_planes(spec.real, spec.imag, wl)
     scale = 1.0 / float(hamming(wl)[::step].sum())
     return {
@@ -170,12 +201,19 @@ def _kernel_inputs(wl: int, step: int, t: int, dev) -> dict:
         "synth": ((h_re, h_im, wl, step, scale), GEMM_TOL),
         "framing": ((padded, win, wl, step, t), EXACT_TOL),
         "ola": ((frames.contiguous(), step), EXACT_TOL),
+        "mirror_full_planes": ((half, wl), EXACT_TOL),
+        "fold_half_planes": ((spec, wl), EXACT_TOL),
+        "frames_rfft_full": ((padded, win, wl, step, t), GEMM_TOL),
     }
 
 
 def _max_abs(a: torch.Tensor) -> float:
     a = torch.view_as_real(a) if a.is_complex() else a
     return float(a.abs().max())
+
+
+def _cqt_step(cfg: CqtConfig) -> int:
+    return round(cfg.sampling_frequency / cfg.time_resolution)
 
 
 def _signal_and_window(wl: int, step: int, t: int, window, dev):
@@ -222,6 +260,17 @@ def _kernel_cases(dev, main_t: int):
             yield ("mel_rows", label,
                    f"WL {wl} hop {step} T {t} mels {mels} power {power}",
                    (padded, win, fbank_t, wl, step, t, power), GEMM_TOL)
+    main_cqt_t = SEGMENT_SECONDS * SR // _cqt_step(CqtConfig())  # 15,000
+    for label, (cfg, t) in (("main", (CqtConfig(), main_cqt_t)),
+                            ("ragged", CQT_RAGGED)):
+        kern = cfg.kernel()
+        step, length = _cqt_step(cfg), kern.fft_length
+        sig = np.resize(segment(0), (t - 1) * step + length)
+        ops = torch.from_numpy(cqtslab.time_ops(kern.time_kernel)).to(dev)
+        yield ("cqt_magnitudes", label,
+               f"L {length} hop {step} T {t} F {kern.number_frequencies}",
+               (torch.from_numpy(sig.astype(np.float32)).to(dev), ops, step,
+                length, t, kern.number_frequencies), GEMM_TOL)
 
 
 def phase_kernels(dev) -> dict:
@@ -236,12 +285,14 @@ def phase_kernels(dev) -> dict:
         got = kernel(*args)
         ref = plain(*args)
         torch.cuda.synchronize()
+        if isinstance(got, tuple):  # the fold's (re, im) planes
+            got, ref = torch.stack(got), torch.stack(ref)
         require(got.shape == ref.shape and got.dtype == ref.dtype,
                 f"{name} {label}: {got.shape} {got.dtype} vs "
                 f"{ref.shape} {ref.dtype}")
         err = _max_abs(got - ref)
         scale = _max_abs(ref)
-        print(f"kernel {name:9s} {label:6s} {shape}: "
+        print(f"kernel {name:18s} {label:6s} {shape}: "
               f"max_abs_err {err!r} max|ref| {scale!r}")
         require(np.isfinite(err) and err <= tol * scale,
                 f"{name} {label}: max_abs_err {err} > {tol} * {scale}")
@@ -490,10 +541,106 @@ def phase_hour_features(dispatch: str, segs: list) -> None:
     print(f"one hour [{dispatch}]: " + "; ".join(rates) + " (median of 3)")
 
 
-DEFAULT = {"ZAFTPU_FUSED": None, "ZAFTPU_SYNTH": None,
-           "ZAFTPU_MELFUSE": None}
-SPLIT = {"ZAFTPU_FUSED": "0", "ZAFTPU_SYNTH": "0", "ZAFTPU_MELFUSE": "0"}
+def cqt_oracle(x: torch.Tensor, cfg: CqtConfig, chunk: int = 256):
+    """Float64 CQT spectrogram ``(T, F)`` and chromagram ``(T, OR)`` of
+    ``x`` by the reference's chain (zaf.py:613-633): the asymmetric centre
+    pad, per-frame FFT, the kernel's non-zero columns, ``abs``, in chunks of
+    frames on the card; a check only, never on the path."""
+    kern = cfg.kernel()
+    step, length = _cqt_step(cfg), kern.fft_length
+    t = x.shape[-1] // step
+    padded = torch.nn.functional.pad(
+        x.double(), (int(np.ceil((length - step) / 2)),
+                     int(np.floor((length - step) / 2)) + length))
+    cols = np.nonzero(np.any(kern.kernel != 0, axis=0))[0]
+    k_cols = torch.from_numpy(kern.kernel[:, cols].T.copy()).to(x.device)
+    idx = torch.from_numpy(cols).to(x.device)
+    spec = torch.cat([
+        (torch.fft.fft(padded[b0 * step:(min(b0 + chunk, t) - 1) * step
+                              + length].unfold(-1, length, step),
+                       dim=-1)[:, idx] @ k_cols).abs()
+        for b0 in range(0, t, chunk)])
+    f, bins = spec.shape[-1], cfg.octave_resolution
+    octaves = -(-f // bins)
+    chroma = torch.nn.functional.pad(spec, (0, octaves * bins - f)).reshape(
+        t, octaves, bins).sum(dim=1)
+    return spec, chroma
+
+
+def phase_cqt_path(dispatch: str, x: torch.Tensor) -> dict:
+    """cqtspectrogram and cqtchromagram of the 600-s signal at CqtConfig();
+    returns the launch counts of cqt_magnitudes."""
+    cfg = CqtConfig()
+    reset_counters()
+    spec = zaftpu_torch.cqtspectrogram(x, config=cfg)
+    chroma = zaftpu_torch.cqtchromagram(x, config=cfg)
+    torch.cuda.synchronize()
+    launches = check_counters(f"cqt path [{dispatch}]", ("cqt_magnitudes",))
+    for name, got, oracle in zip(("cqtspectrogram", "cqtchromagram"),
+                                 (spec, chroma), cqt_oracle(x, cfg)):
+        require(tuple(got.shape) == tuple(oracle.T.shape)
+                and got.dtype == torch.float32 and got.is_cuda,
+                f"[{dispatch}] {name} {tuple(got.shape)} {got.dtype} "
+                f"{got.device}")
+        err = _max_abs(got.T.double() - oracle)
+        scale = _max_abs(oracle)
+        print(f"cqt path [{dispatch}]: {name} max_abs_err vs f64 oracle "
+              f"{err!r} (max|oracle| {scale!r}, ratio {err / scale!r})")
+        require(np.isfinite(err) and err <= ORACLE_TOL * scale,
+                f"[{dispatch}] {name} error {err} > {ORACLE_TOL} * {scale}")
+    return launches
+
+
+def phase_fullspec_path(dispatch: str, x: torch.Tensor, ref: tuple,
+                        want: tuple) -> dict:
+    """stft -> istft of the 600-s signal under a mirror or full-spectrum
+    lever: the spectrum and the round trip bit-equal to the default
+    dispatch's ``ref``, and phase 4's gates; returns the launch counts of
+    the kernels in ``want``."""
+    win = hamming(WL)
+    reset_counters()
+    spec = zaftpu_torch.stft(x, win, STEP)
+    rec = zaftpu_torch.istft(spec, win, STEP)
+    torch.cuda.synchronize()
+    launches = check_counters(f"full-spectrum path [{dispatch}]", want)
+    require(torch.equal(spec, ref[0]),
+            f"[{dispatch}] spectrum differs from the default dispatch's")
+    require(torch.equal(rec, ref[1]),
+            f"[{dispatch}] round trip differs from the default dispatch's")
+    err, scale = oracle_error(x, spec)
+    snr = snr_db(x, rec)
+    print(f"full-spectrum path [{dispatch}]: spectrum and round trip "
+          f"bit-equal to the default's; spectrum max_abs_err vs f64 oracle "
+          f"{err!r} (ratio {err / scale!r}); round-trip SNR {snr!r} dB")
+    require(err <= ORACLE_TOL * scale,
+            f"[{dispatch}] spectrum error {err} > {ORACLE_TOL} * {scale}")
+    require(snr >= MIN_SNR_DB, f"[{dispatch}] SNR {snr} dB < {MIN_SNR_DB}")
+    return launches
+
+
+def phase_hour_cqt(segs: list) -> None:
+    """cqtspectrogram and cqtchromagram over the six 600-s segments;
+    frames/s from CUDA events, median of 3 passes (printed, not gated)."""
+    cfg = CqtConfig()
+    frames = sum(s.shape[-1] // _cqt_step(cfg) for s in segs)
+    rates = []
+    for name, fn in (("cqtspectrogram", zaftpu_torch.cqtspectrogram),
+                     ("cqtchromagram", zaftpu_torch.cqtchromagram)):
+        ms = _hour_ms(lambda s, fn=fn: fn(s, config=cfg), segs)
+        rates.append(f"{name} {ms:.3f} ms -> {frames / ms * 1e3:,.0f} "
+                     "frames/s")
+    print(f"one hour [cqt]: {frames} frames; " + "; ".join(rates)
+          + " (median of 3)")
+
+
+LEVERS = ("ZAFTPU_FUSED", "ZAFTPU_SYNTH", "ZAFTPU_MELFUSE", "ZAFTPU_MIRROR",
+          "ZAFTPU_FULLSPEC")
+DEFAULT = dict.fromkeys(LEVERS)
+SPLIT = {**DEFAULT, "ZAFTPU_FUSED": "0", "ZAFTPU_SYNTH": "0",
+         "ZAFTPU_MELFUSE": "0"}
 MELFUSE_OFF = {**DEFAULT, "ZAFTPU_MELFUSE": "0"}
+MIRROR_ON = {**DEFAULT, "ZAFTPU_MIRROR": "pallas"}
+FULLSPEC_ON = {**DEFAULT, "ZAFTPU_FULLSPEC": "1"}
 
 
 def _with_env(env: dict, fn, *args):
@@ -515,7 +662,14 @@ def _with_env(env: dict, fn, *args):
                 os.environ[k] = v
 
 
+def _default_stft_istft(x: torch.Tensor) -> tuple:
+    win = hamming(WL)
+    spec = zaftpu_torch.stft(x, win, STEP)
+    return spec, zaftpu_torch.istft(spec, win, STEP)
+
+
 def main() -> int:
+    os.environ["ZAFTPU_CACHE"] = "0"
     phase_device()
     dev = torch.device("cuda", 0)
     phase_build()
@@ -529,11 +683,22 @@ def main() -> int:
             (DEFAULT, phase_mdct_path, "default"),
             (SPLIT, phase_mdct_path, "split"),
             (DEFAULT, phase_mel_path, "default"),
-            (MELFUSE_OFF, phase_mel_path, "ZAFTPU_MELFUSE=0")):
+            (MELFUSE_OFF, phase_mel_path, "ZAFTPU_MELFUSE=0"),
+            (DEFAULT, phase_cqt_path, "default")):
         for name, count in _with_env(env, phase, dispatch, x).items():
             launches[name] += count
         torch.cuda.empty_cache()
-    del x
+    ref = _with_env(DEFAULT, _default_stft_istft, x)
+    for env, dispatch, want in (
+            (MIRROR_ON, "ZAFTPU_MIRROR=pallas",
+             ("fused", "mirror_full_planes", "fold_half_planes", "synth")),
+            (FULLSPEC_ON, "ZAFTPU_FULLSPEC=1", ("frames_rfft_full",
+                                                "synth"))):
+        for name, count in _with_env(env, phase_fullspec_path, dispatch, x,
+                                     ref, want).items():
+            launches[name] += count
+        torch.cuda.empty_cache()
+    del x, ref
     torch.cuda.empty_cache()
 
     segs = [torch.from_numpy(segment(i)).to(dev)
@@ -542,6 +707,7 @@ def main() -> int:
         _with_env(env, phase_hour, dispatch, segs)
         _with_env(env, phase_hour_features, dispatch, segs)
         torch.cuda.empty_cache()
+    _with_env(DEFAULT, phase_hour_cqt, segs)
 
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": source,

@@ -1,7 +1,8 @@
 """zaftpu_torch's CUDA kernels on the card: each against its plain version
 (batched, ragged, general-hop and misaligned inputs), launch counts, the
-stft/istft, mdct/imdct and spectrogram/mel/MFCC paths against the CPU
-float64 path, and the inputs the CUDA path refuses.
+stft/istft, mdct/imdct, spectrogram/mel/MFCC and CQT paths against the CPU
+float64 path, the mirror and full-spectrum levers, and the inputs the CUDA
+path refuses.
 
 Every test needs an NVIDIA GPU (marker ``cuda``) and skips without one.
 This file imports neither JAX nor zaftpu, so on a machine without JAX it
@@ -15,7 +16,9 @@ import torch
 import zaftpu_torch
 from zaftpu_torch.core import policy
 from zaftpu_torch.core.windows import hamming, kbd, vorbis
-from zaftpu_torch.kernels import framing, fused, melfused, ola, synth
+from zaftpu_torch.core import fft as tfft
+from zaftpu_torch.kernels import (cqtslab, framing, fused, melfused, mirror,
+                                  ola, synth)
 from zaftpu_torch.transforms import mdct as tmdct
 
 pytestmark = pytest.mark.cuda
@@ -328,3 +331,138 @@ def test_new_cuda_paths_refuse_what_kernels_do_not_take(dev):
         zaftpu_torch.melspectrogram(
             long, hamming(8192), 4096,
             zaftpu_torch.melfilterbank(44100, 8192, 40))
+
+
+@pytest.fixture
+def cqt_cache(tmp_path, monkeypatch):
+    monkeypatch.setenv("ZAFTPU_CACHE_DIR", str(tmp_path))
+
+
+CQT_GEOMETRIES = [
+    (44100, 24, 55.0, 3520.0, 70),   # CqtConfig(): L 32,768, hop 1764, F 144
+    (22050, 12, 110.0, 3520.0, 61),  # L 4096, hop 882 (scalar path), F 60
+    (48000, 36, 60.0, 6000.0, 9),    # L 65,536, hop 1920, F 239
+]
+
+
+@pytest.mark.parametrize("sr,bins,fmin,fmax,t", CQT_GEOMETRIES)
+@pytest.mark.parametrize("lead", [(), (2, 3)])
+def test_cqt_magnitudes_match_plain(dev, cqt_cache, sr, bins, fmin, fmax, t,
+                                    lead):
+    kern = zaftpu_torch.cqtkernel(sr, bins, fmin, fmax)
+    step, length, f = round(sr / 25), kern.fft_length, kern.number_frequencies
+    ops = torch.from_numpy(cqtslab.time_ops(kern.time_kernel)).to(dev)
+    rng = np.random.default_rng(sr + t)
+    sig = torch.from_numpy(rng.standard_normal(
+        (*lead, (t - 1) * step + length)).astype(np.float32)).to(dev)
+    got = cqtslab.cqt_magnitudes(sig, ops, step, length, t, f)
+    ref = cqtslab.cqt_magnitudes_plain(sig, ops, step, length, t, f)
+    assert got.shape == ref.shape == (*lead, t, f)
+    assert _rel_err(got, ref) < 2e-5
+
+
+def test_cqt_magnitudes_on_a_misaligned_signal(dev, cqt_cache):
+    kern = zaftpu_torch.cqtkernel(44100, 24, 55.0, 3520.0)
+    step, length, f = 1764, kern.fft_length, kern.number_frequencies
+    ops = torch.from_numpy(cqtslab.time_ops(kern.time_kernel)).to(dev)
+    t = 33
+    raw = torch.from_numpy(np.random.default_rng(5).standard_normal(
+        (t - 1) * step + length + 1).astype(np.float32)).to(dev)
+    sig = raw[1:]
+    assert sig.data_ptr() % 16 != 0
+    assert _rel_err(cqtslab.cqt_magnitudes(sig, ops, step, length, t, f),
+                    cqtslab.cqt_magnitudes_plain(sig, ops, step, length, t,
+                                                 f)) < 2e-5
+
+
+def test_cqt_on_card_matches_cpu_f64(dev, cqt_cache):
+    cfg = zaftpu_torch.CqtConfig()
+    x = np.random.default_rng(6).standard_normal((2, 3 * 44100))
+    ref = zaftpu_torch.cqtspectrogram(x, config=cfg)
+    ref_chroma = zaftpu_torch.cqtchromagram(x, config=cfg)
+    x32 = torch.from_numpy(x.astype(np.float32)).to(dev)
+    before = (cqtslab.cqt_magnitudes.launches,
+              cqtslab.cqt_magnitudes_plain.calls)
+    spec = zaftpu_torch.cqtspectrogram(x32, config=cfg)
+    chroma = zaftpu_torch.cqtchromagram(x32, config=cfg)
+    assert (cqtslab.cqt_magnitudes.launches,
+            cqtslab.cqt_magnitudes_plain.calls) == (before[0] + 2, before[1])
+    assert spec.is_cuda and spec.dtype == torch.float32
+    assert spec.shape == ref.shape and chroma.shape == ref_chroma.shape
+    assert _rel_err(spec.cpu().double(), ref) < 1e-5
+    assert _rel_err(chroma.cpu().double(), ref_chroma) < 1e-5
+
+
+def test_cuda_f64_cqt_raises(dev, cqt_cache):
+    kern = zaftpu_torch.cqtkernel(8000, 12, 110.0, 880.0)
+    x = torch.zeros(8000, dtype=torch.float64, device=dev)
+    with pytest.raises(NotImplementedError, match="float32"):
+        zaftpu_torch.cqtspectrogram(x, 8000, 25, kern)
+    with pytest.raises(NotImplementedError, match="float32"):
+        zaftpu_torch.cqtchromagram(x, 8000, 25, 12, kern)
+
+
+@pytest.mark.parametrize("n", [2048, 512, 256, 255, 100, 2])
+@pytest.mark.parametrize("lead", [(), (2, 3)])
+def test_mirror_and_fold_bitwise_vs_plain(dev, n, lead):
+    rng = np.random.default_rng(n)
+    t = 37
+    half = torch.from_numpy(
+        rng.standard_normal((*lead, t, n // 2 + 1))
+        + 1j * rng.standard_normal((*lead, t, n // 2 + 1))).to(
+            torch.complex64).to(dev)
+    # Also one frame as a 1-D spectrum, and no frames at all, as the plain
+    # versions take them.
+    for view in (half, half[..., 0, :], half[..., :0, :]):
+        assert torch.equal(mirror.mirror_full_planes(view, n),
+                           mirror.mirror_full_planes_plain(view, n))
+    z = torch.from_numpy(
+        rng.standard_normal((*lead, t, n))
+        + 1j * rng.standard_normal((*lead, t, n))).to(torch.complex64).to(dev)
+    bins_major = z.transpose(-1, -2).contiguous().transpose(-1, -2)
+    for view in (z, bins_major, z[..., 0, :], z[..., :0, :]):
+        got = mirror.fold_half_planes(view, n)
+        ref = mirror.fold_half_planes_plain(view, n)
+        assert torch.equal(got[0], ref[0]) and torch.equal(got[1], ref[1])
+
+
+@pytest.mark.parametrize("wl,step,t", SHAPES)
+@pytest.mark.parametrize("lead", [(), (2, 3)])
+def test_frames_rfft_full_bitwise_vs_half_and_mirror(dev, wl, step, t, lead):
+    padded, win = _inputs(wl, step, t, dev, lead)
+    full = fused.frames_rfft_full(padded, win, wl, step, t)
+    half = fused.frames_rfft(padded, win, wl, step, t)
+    assert full.shape == (*lead, t, wl)
+    assert torch.equal(full, mirror.mirror_full_planes(half, wl))
+    assert torch.equal(full, tfft.conjugate_mirror(half, wl))
+    ref = fused.frames_rfft_full_plain(padded, win, wl, step, t)
+    assert _rel_err(full, ref) < 2e-5
+
+
+@pytest.mark.parametrize("levers,moved", [
+    ({"ZAFTPU_MIRROR": "pallas"},
+     {"frames_rfft", "mirror_full_planes", "fold_half_planes", "synth"}),
+    ({"ZAFTPU_FULLSPEC": "1"}, {"frames_rfft_full", "synth"})])
+def test_mirror_and_fullspec_levers_on_card_bit_equal_default(
+        dev, levers, moved, monkeypatch):
+    x = torch.from_numpy(np.random.default_rng(7).standard_normal(
+        (2, 44100)).astype(np.float32)).to(dev)
+    win = hamming(2048)
+    ref = zaftpu_torch.stft(x, win, 1024)
+    ref_rec = zaftpu_torch.istft(ref, win, 1024)
+    for name, value in levers.items():
+        monkeypatch.setenv(name, value)
+
+    def launches():
+        return {"frames_rfft": fused.frames_rfft.launches,
+                "frames_rfft_full": fused.frames_rfft_full.launches,
+                "mirror_full_planes": mirror.mirror_full_planes.launches,
+                "fold_half_planes": mirror.fold_half_planes.launches,
+                "synth": synth.istft_ola.launches}
+
+    before = launches()
+    spec = zaftpu_torch.stft(x, win, 1024)
+    rec = zaftpu_torch.istft(spec, win, 1024)
+    assert {k for k, v in launches().items() if v != before[k]} == moved
+    assert torch.equal(spec, ref)
+    assert torch.equal(rec, ref_rec)

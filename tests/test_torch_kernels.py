@@ -475,3 +475,236 @@ def test_mdct_split_levers_agree_with_fused(lever, deltas, monkeypatch):
     assert calls() == tuple(b + d for b, d in zip(before, deltas))
     _gemm_close(coeffs2.numpy(), coeffs.numpy())
     _gemm_close(sig2.numpy(), sig.numpy())
+
+
+# B10, B11a, B11b and B3: the CQT slab kernel, the mirror and fold kernels
+# and the full-spectrum analysis kernel.
+
+from zaftpu.pallas import cqtslab as zcqtslab  # noqa: E402
+from zaftpu.pallas import mirror as zmirror  # noqa: E402
+from zaftpu.transforms import cqt as zcqt  # noqa: E402
+from zaftpu_torch.kernels import cqtslab as tcqtslab  # noqa: E402
+from zaftpu_torch.kernels import mirror as tmirror  # noqa: E402
+
+
+def _cqt_case(sr, bins, fmin, fmax, seconds, seed):
+    """A padded signal as ``cqtspectrogram`` pads it and the operator, for
+    zaftpu's kernel at these parameters (the port's is bit-equal,
+    tests/test_torch_cqt.py)."""
+    kern = zcqt.cqtkernel(sr, bins, fmin, fmax)
+    step = round(sr / 25)
+    n = int(sr * seconds)
+    t = n // step
+    length = kern.fft_length
+    x = np.random.default_rng(seed).standard_normal(n).astype(np.float32)
+    pad_front = -(-(length - step) // 2)
+    padded = np.pad(x, (pad_front, length))
+    return kern, padded, step, t
+
+
+@pytest.mark.parametrize("sr,bins,fmin,fmax,seconds", [
+    (8000, 12, 110.0, 880.0, 2), (8000, 12, 220.0, 880.0, 1.3)])
+def test_cqt_magnitudes_matches_zaftpu(sr, bins, fmin, fmax, seconds):
+    """B10's plain version against the Pallas slab kernel in interpret
+    mode at tests/test_pallas.py's geometry (L 2048, hop 320, F 36) and a
+    narrower one (F 24, a T that is not a multiple of the block)."""
+    kern, padded, step, t = _cqt_case(sr, bins, fmin, fmax, seconds, 17)
+    length, f = kern.fft_length, kern.number_frequencies
+    m_real = np.ascontiguousarray(kern.time_kernel.real.T).astype(np.float32)
+    m_imag = np.ascontiguousarray(kern.time_kernel.imag.T).astype(np.float32)
+    key = ("test_torch_cqt_magnitudes", sr, bins, fmin, fmax)
+    zcqtslab.register_kernel(key, m_real, m_imag)
+    ref = np.asarray(zcqtslab.cqt_magnitudes(
+        jnp.asarray(padded), key, step, length, t, f, block=16,
+        interpret=True))
+    ops = torch.from_numpy(tcqtslab.time_ops(kern.time_kernel))
+    assert ops.shape == (2, length, tfused.padded_cols(f))
+    mine = tcqtslab.cqt_magnitudes(torch.from_numpy(padded), ops, step,
+                                   length, t, f)
+    assert mine.shape == ref.shape == (t, f) and mine.dtype == torch.float32
+    np.testing.assert_allclose(mine.numpy(), ref, rtol=0,
+                               atol=2e-6 * np.abs(ref).max())
+
+
+def test_cqt_time_ops_match_zaftpu_planes():
+    kern = zcqt.cqtkernel(8000, 12, 110.0, 880.0)
+    ops = tcqtslab.time_ops(kern.time_kernel)
+    f = kern.number_frequencies
+    np.testing.assert_array_equal(
+        ops[0, :, :f], np.ascontiguousarray(kern.time_kernel.real.T).astype(
+            np.float32))
+    np.testing.assert_array_equal(
+        ops[1, :, :f], np.ascontiguousarray(kern.time_kernel.imag.T).astype(
+            np.float32))
+    assert not ops[:, :, f:].any()
+
+
+@pytest.mark.parametrize("strategy", ["rev", "dot"])
+@pytest.mark.parametrize("n,t", [(256, 37), (512, 61), (256, 5)])
+def test_mirror_and_fold_match_zaftpu_bitwise(n, t, strategy):
+    rng = np.random.default_rng(n + t)
+    re, im = rng.standard_normal((2, t, n // 2 + 1)).astype(np.float32)
+    ref_re, ref_im = zmirror.mirror_full_planes(
+        jnp.asarray(re), jnp.asarray(im), n, strategy=strategy,
+        interpret=True)
+    full = tmirror.mirror_full_planes(
+        torch.complex(torch.from_numpy(re), torch.from_numpy(im)), n)
+    assert full.shape == (t, n) and full.dtype == torch.complex64
+    np.testing.assert_array_equal(full.real.numpy(), np.asarray(ref_re))
+    np.testing.assert_array_equal(full.imag.numpy(), np.asarray(ref_im))
+    zr, zi = rng.standard_normal((2, t, n)).astype(np.float32)
+    ref_hr, ref_hi = zmirror.fold_half_planes(
+        jnp.asarray(zr), jnp.asarray(zi), n, strategy=strategy,
+        interpret=True)
+    h_re, h_im = tmirror.fold_half_planes(
+        torch.complex(torch.from_numpy(zr), torch.from_numpy(zi)), n)
+    assert h_re.shape == h_im.shape == (t, n // 2 + 1)
+    np.testing.assert_array_equal(h_re.numpy(), np.asarray(ref_hr))
+    np.testing.assert_array_equal(h_im.numpy(), np.asarray(ref_hi))
+
+
+@pytest.mark.parametrize("wl,step,t", SHAPES)
+def test_frames_rfft_full_matches_zaftpu(wl, step, t):
+    padded = _signal(wl, step, t, 18)
+    win = hamming(wl).astype(np.float32)
+    ref_re, ref_im = zfused.frames_rfft_full(
+        jnp.asarray(padded), jnp.asarray(win), wl, step, t, interpret=True)
+    ops = tfft.operators_from_numpy(zfused._rdft_ops_padded(wl), wl, "rdft")
+    mine = tfused.frames_rfft_full(torch.from_numpy(padded),
+                                   torch.from_numpy(win), wl, step, t,
+                                   ops=ops)
+    assert mine.shape == (t, wl) and mine.dtype == torch.complex64
+    _gemm_close(mine.numpy().real, np.asarray(ref_re))
+    _gemm_close(mine.numpy().imag, np.asarray(ref_im))
+    # Bit-equal to the half spectrum followed by the conjugate mirror.
+    half = tfused.frames_rfft(torch.from_numpy(padded), torch.from_numpy(win),
+                              wl, step, t, ops=ops)
+    assert torch.equal(mine, tfft.conjugate_mirror(half, wl))
+
+
+def _b3_b11_counts():
+    return (tcqtslab.cqt_magnitudes.launches,
+            tmirror.mirror_full_planes.launches,
+            tmirror.fold_half_planes.launches,
+            tfused.frames_rfft_full.launches)
+
+
+def _b3_b11_calls():
+    return (tcqtslab.cqt_magnitudes_plain.calls,
+            tmirror.mirror_full_planes_plain.calls,
+            tmirror.fold_half_planes_plain.calls,
+            tfused.frames_rfft_full_plain.calls)
+
+
+def test_cqt_mirror_full_wrappers_take_plain_versions_on_cpu():
+    wl, step, t = 256, 128, 9
+    padded = torch.from_numpy(_signal(wl, step, t, 19))
+    win = torch.from_numpy(hamming(wl).astype(np.float32))
+    kern = zcqt.cqtkernel(8000, 12, 110.0, 880.0)
+    ops = torch.from_numpy(tcqtslab.time_ops(kern.time_kernel))
+    sig = torch.zeros(20 * 320 + kern.fft_length)
+    launches, calls = _b3_b11_counts(), _b3_b11_calls()
+    tcqtslab.cqt_magnitudes(sig, ops, 320, kern.fft_length, 20,
+                            kern.number_frequencies)
+    full = tfused.frames_rfft_full(padded, win, wl, step, t)
+    tmirror.mirror_full_planes(tfused.frames_rfft(padded, win, wl, step, t),
+                               wl)
+    tmirror.fold_half_planes(full, wl)
+    assert _b3_b11_counts() == launches
+    assert _b3_b11_calls() == tuple(c + 1 for c in calls)
+
+
+def _bad_b3_b11_launch(case):
+    """Call a B3, B10 or B11 CUDA wrapper's checking half with one bad
+    argument."""
+    wl, step, t = 256, 128, 9
+    padded = torch.zeros(t * step + wl - step)
+    win = torch.zeros(wl)
+    length, f = 2048, 36
+    ops = torch.zeros(2, length, 64)
+    sig = torch.zeros((t - 1) * 320 + length)
+    half = torch.zeros(t, wl // 2 + 1, dtype=torch.complex64)
+    full = torch.zeros(t, wl, dtype=torch.complex64)
+    calls = {
+        "cqt_f64": lambda: tcqtslab._cqt_magnitudes_cuda(
+            sig.double(), ops, 320, length, t, f),
+        "cqt_ops": lambda: tcqtslab._cqt_magnitudes_cuda(
+            sig, ops[:, :-1], 320, length, t, f),
+        "cqt_ops_dtype": lambda: tcqtslab._cqt_magnitudes_cuda(
+            sig, ops.double(), 320, length, t, f),
+        "cqt_short": lambda: tcqtslab._cqt_magnitudes_cuda(
+            sig[:-1], ops, 320, length, t, f),
+        "cqt_step": lambda: tcqtslab._cqt_magnitudes_cuda(
+            sig, ops, 0, length, t, f),
+        "mirror_f64": lambda: tmirror._mirror_full_planes_cuda(
+            half.to(torch.complex128), wl),
+        "mirror_width": lambda: tmirror._mirror_full_planes_cuda(
+            half[:, :-1], wl),
+        "fold_f64": lambda: tmirror._fold_half_planes_cuda(
+            full.to(torch.complex128), wl),
+        "fold_width": lambda: tmirror._fold_half_planes_cuda(
+            full[:, :-1], wl),
+        "fold_0d": lambda: tmirror._fold_half_planes_cuda(full[0, 0], wl),
+        "full_f64": lambda: tfused._frames_rfft_cuda(
+            padded.double(), win, wl, step, t, full=True),
+        "full_short": lambda: tfused._frames_rfft_cuda(
+            padded[:-1], win, wl, step, t, full=True),
+        "full_ops": lambda: tfused._frames_rfft_cuda(
+            padded, win, wl, step, t,
+            ops=tfused.rdft_ops(wl, torch.float32, "cpu")[:, :, :-64],
+            full=True),
+    }
+    return calls[case]()
+
+
+@pytest.mark.parametrize("case", [
+    "cqt_f64", "cqt_ops", "cqt_ops_dtype", "cqt_short", "cqt_step",
+    "mirror_f64", "mirror_width", "fold_f64", "fold_width", "fold_0d",
+    "full_f64", "full_short", "full_ops"])
+def test_b3_b10_b11_cuda_wrappers_refuse_before_launch(case, monkeypatch):
+    """The CQT, mirror, fold and full-spectrum wrappers check dtype, shapes,
+    hop and operator before they touch the library: a type the kernel does
+    not take raises NotImplementedError, the rest ValueError; nothing is
+    launched or counted."""
+    from zaftpu_torch.kernels import _build
+
+    def no_library():
+        raise AssertionError("the launch was reached")
+
+    monkeypatch.setattr(_build, "library", no_library)
+    launches = (_b3_b11_counts(), tfused.frames_rfft.launches)
+    error = NotImplementedError if case.endswith("_f64") else ValueError
+    with pytest.raises(error):
+        _bad_b3_b11_launch(case)
+    assert (_b3_b11_counts(), tfused.frames_rfft.launches) == launches
+
+
+@pytest.mark.parametrize("wl,step,t", [(256, 128, 9), (255, 100, 6)])
+def test_b3_b10_b11_batched_equal_per_item(wl, step, t):
+    rng = np.random.default_rng(20)
+    padded = torch.from_numpy(rng.standard_normal(
+        (2, 3, t * step + wl - step)).astype(np.float32))
+    win = torch.from_numpy(hamming(wl).astype(np.float32))
+    full = tfused.frames_rfft_full(padded, win, wl, step, t)
+    half = tfused.frames_rfft(padded, win, wl, step, t)
+    mirrored = tmirror.mirror_full_planes(half, wl)
+    h_re, h_im = tmirror.fold_half_planes(full.transpose(-1, -2).contiguous()
+                                          .transpose(-1, -2), wl)
+    kern = zcqt.cqtkernel(8000, 12, 110.0, 880.0)
+    ops = torch.from_numpy(tcqtslab.time_ops(kern.time_kernel))
+    sig = torch.from_numpy(rng.standard_normal(
+        (2, 3, (t - 1) * 320 + kern.fft_length)).astype(np.float32))
+    mags = tcqtslab.cqt_magnitudes(sig, ops, 320, kern.fft_length, t,
+                                   kern.number_frequencies)
+    assert torch.equal(full, mirrored)
+    for i in range(2):
+        for j in range(3):
+            one = padded[i, j]
+            torch.testing.assert_close(full[i, j], tfused.frames_rfft_full(
+                one, win, wl, step, t))
+            r, m = tmirror.fold_half_planes(full[i, j], wl)
+            assert torch.equal(h_re[i, j], r) and torch.equal(h_im[i, j], m)
+            torch.testing.assert_close(
+                mags[i, j], tcqtslab.cqt_magnitudes(
+                    sig[i, j], ops, 320, kern.fft_length, t,
+                    kern.number_frequencies))

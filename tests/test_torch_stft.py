@@ -222,3 +222,61 @@ def test_outputs_stay_on_the_input_device(signal, hamming_window):
     assert spec.device.type == rec.device.type == "cpu"
     assert isinstance(zaftpu_torch.stft(signal, hamming_window, STEP),
                       torch.Tensor)
+
+
+@pytest.mark.parametrize("levers", [{"ZAFTPU_MIRROR": "pallas"},
+                                    {"ZAFTPU_FULLSPEC": "1"},
+                                    {"ZAFTPU_MIRROR": "pallas",
+                                     "ZAFTPU_FULLSPEC": "1"}])
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+def test_mirror_and_fullspec_levers_bit_equal_default(signal, hamming_window,
+                                                      levers, dtype,
+                                                      monkeypatch):
+    """On the CPU the mirror, fold and full-spectrum levers route stft and
+    istft through those kernels' plain versions: the outputs are bit-equal
+    to the default dispatch's and no kernel is launched."""
+    from zaftpu_torch.kernels import fused as tfused
+    from zaftpu_torch.kernels import mirror as tmirror
+
+    x = torch.from_numpy(np.stack([signal, signal[::-1]]).astype(dtype))
+    ref = zaftpu_torch.stft(x, hamming_window, STEP)
+    ref_rec = zaftpu_torch.istft(ref, hamming_window, STEP)
+
+    def counts():
+        return (tmirror.mirror_full_planes_plain.calls,
+                tmirror.fold_half_planes_plain.calls,
+                tfused.frames_rfft_full_plain.calls,
+                tmirror.mirror_full_planes.launches,
+                tmirror.fold_half_planes.launches,
+                tfused.frames_rfft_full.launches)
+
+    for name, value in levers.items():
+        monkeypatch.setenv(name, value)
+    before = counts()
+    spec = zaftpu_torch.stft(x, hamming_window, STEP)
+    rec = zaftpu_torch.istft(spec, hamming_window, STEP)
+    rec_bins_major = zaftpu_torch.istft(spec.contiguous(), hamming_window,
+                                        STEP)
+    full = levers.get("ZAFTPU_FULLSPEC") == "1"
+    mirror = levers.get("ZAFTPU_MIRROR") == "pallas"
+    assert counts() == tuple(b + d for b, d in zip(before, (
+        int(mirror and not full), 2 * int(mirror), int(full), 0, 0, 0)))
+    assert torch.equal(spec, ref)
+    assert torch.equal(rec, ref_rec)
+    assert torch.equal(rec_bins_major, ref_rec)
+
+
+def test_fullspec_needs_the_fused_analysis(signal, hamming_window,
+                                           monkeypatch):
+    """ZAFTPU_FULLSPEC=1 with ZAFTPU_FUSED=0 keeps the split analysis and
+    the separate mirror, as zaftpu's dispatch does."""
+    from zaftpu_torch.kernels import framing as tframing
+    from zaftpu_torch.kernels import fused as tfused
+
+    monkeypatch.setenv("ZAFTPU_FULLSPEC", "1")
+    monkeypatch.setenv("ZAFTPU_FUSED", "0")
+    before = (tfused.frames_rfft_full_plain.calls,
+              tframing.frame_window_plain.calls)
+    zaftpu_torch.stft(signal.astype(np.float32), hamming_window, STEP)
+    assert (tfused.frames_rfft_full_plain.calls,
+            tframing.frame_window_plain.calls) == (before[0], before[1] + 1)

@@ -74,6 +74,13 @@ class CqtConfig:
     maximum_frequency: float = 3520.0
     time_resolution: int = 25
 
+    def kernel(self):
+        """The configured CQT kernel (memory- and disk-cached)."""
+        from zaftpu_torch.transforms.cqt import cqtkernel
+
+        return cqtkernel(self.sampling_frequency, self.octave_resolution,
+                         self.minimum_frequency, self.maximum_frequency)
+
 
 @dataclasses.dataclass(frozen=True)
 class MdctConfig:

@@ -5,7 +5,10 @@ The operators are built on the host in numpy float64 with the same math as
 ``zaftpu.core.fft`` (so the arrays match bit for bit), cast to the compute
 dtype, and uploaded once per ``(builder, args, device, dtype)``. The
 conjugate mirror and the Hermitian fold are plain index ops on the re/im
-planes, as they are XLA gathers outside any kernel in ``zaftpu``.
+planes, as they are XLA gathers outside any kernel in ``zaftpu``; under
+``ZAFTPU_MIRROR=pallas`` the mirror of :func:`full_from_half` (and the
+ISTFT's fold, :func:`zaftpu_torch.kernels.synthesis_ola`) go through
+:mod:`zaftpu_torch.kernels.mirror`, whose plain versions are these.
 
 Dtype follows the input: float32 in gives complex64 out, float64 (the CPU
 oracle mode) gives complex128.
@@ -130,12 +133,22 @@ def _fold_index(n: int, device: torch.device):
 
 
 def full_from_half(half: torch.Tensor, n: int) -> torch.Tensor:
-    """Length-``n`` full spectrum from a half spectrum ``(..., n//2+1)``.
+    """Length-``n`` full spectrum from a half spectrum ``(..., n//2+1)``:
+    :func:`conjugate_mirror`, or with ``ZAFTPU_MIRROR=pallas`` the mirror
+    kernel's wrapper (``kernels.mirror.mirror_full_planes``), as
+    ``zaftpu.core.fft.full_from_half`` dispatches."""
+    from zaftpu_torch.kernels import mirror  # the kernels import this module
 
-    Appends the mirrored conjugate bins so the result matches
-    ``np.fft.fft`` of the real frames (the reference's convention,
-    zaf.py:139), built from index gathers on the re/im planes.
-    """
+    if mirror.enabled():
+        return mirror.mirror_full_planes(half, n)
+    return conjugate_mirror(half, n)
+
+
+def conjugate_mirror(half: torch.Tensor, n: int) -> torch.Tensor:
+    """Appends the mirrored conjugate bins ``full[k] = conj(half[n - k])``
+    so the result matches ``np.fft.fft`` of the real frames (the
+    reference's convention, zaf.py:139), built from index gathers on the
+    re/im planes."""
     re, im = half.real, half.imag
     idx = _mirror_index(half.shape[-1], n, half.device)
     return torch.complex(torch.cat([re, re[..., idx]], dim=-1),

@@ -1,9 +1,10 @@
-// The main loop the analysis kernels share (fused.cu: frames_rfft and
-// frames_op; melfused.cu: spec_rows and mel_rows): one block's tile of
+// The main loop the analysis kernels share (fused.cu: frames_rfft,
+// frames_op and frames_rfft_full; melfused.cu: spec_rows and mel_rows;
+// cqtslab.cu: cqt_magnitudes): one block's tile of
 //   acc[i][c*4 + j] += sum_w frame[t][w] * ops[c][w][f]
 // for frames t = t0 + ty*TM + i and operator columns f = f0 + tx*4 + j of
 // each of the NC stacked components, where frame t is
-// sig[t*step .. t*step + WL) times the window.
+// sig[t*step .. t*step + WL) times the window (WIN) or as it is (!WIN).
 //
 // Bound: FP32 arithmetic (NC x 2 x WL FLOP per frame and column; exactness
 // forbids the TF32 tensor cores). Design: a register-tiled SIMT GEMM. A
@@ -40,7 +41,8 @@ __device__ __forceinline__ float4 mul4(float4 a, float4 b) {
 }
 
 // The signal rows and the window can be read as 16-byte vectors: step, WL
-// and the batch stride divisible by 4 and both pointers aligned.
+// and the batch stride divisible by 4 and both pointers aligned (a null
+// window, which is never read, counts as aligned).
 inline bool vec_ok(const void* sig, const void* win, long long sig_len,
                    int WL, int step) {
   return step % 4 == 0 && WL % 4 == 0 && sig_len % 4 == 0 &&
@@ -48,13 +50,15 @@ inline bool vec_ok(const void* sig, const void* win, long long sig_len,
 }
 
 // Adds this block's tile to acc (which the caller zeroes). sb: the batch
-// item's signal; ops: (NC, WL, FP) with FP a multiple of BN. Ends with a
-// barrier, so the caller may reuse shared memory after it.
-template <bool VEC, int NC>
+// item's signal; ops: NC components of (WL, FP) rows, component c at
+// ops + c * comp_stride, FP a multiple of BN; win is not read unless WIN.
+// Ends with a barrier, so the caller may reuse shared memory after it.
+template <bool VEC, int NC, bool WIN = true>
 __device__ __forceinline__ void tile(const float* __restrict__ sb,
                                      const float* __restrict__ win,
-                                     const float* __restrict__ ops, int T,
-                                     int WL, int step, int FP, int t0, int f0,
+                                     const float* __restrict__ ops,
+                                     long long comp_stride, int T, int WL,
+                                     int step, int FP, int t0, int f0,
                                      float (&acc)[TM][4 * NC]) {
   __shared__ __align__(16) float As[2][BK][BM + APAD];
   __shared__ __align__(16) float Bs[2][BK][NC * BN];
@@ -80,7 +84,6 @@ __device__ __forceinline__ void tile(const float* __restrict__ sb,
   const int bk = tid / (BN / 4);
   const int bc = (tid % (BN / 4)) * 4;
   const float* bp = ops + (long long)bk * FP + f0 + bc;
-  const long long comp_off = (long long)WL * FP;
 
   float4 ra[AV];
   float rs[TM];
@@ -88,30 +91,41 @@ __device__ __forceinline__ void tile(const float* __restrict__ sb,
   auto load = [&](int k0) {
     if constexpr (VEC) {
       const int w = k0 + ak;
-      const float4 wv = w < WL ? *reinterpret_cast<const float4*>(win + w)
-                               : zero4();
+      float4 wv = zero4();
+      if constexpr (WIN) {
+        if (w < WL) wv = *reinterpret_cast<const float4*>(win + w);
+      }
 #pragma unroll
       for (int j = 0; j < AV; ++j) {
-        ra[j] = (w < WL && av[j])
-                    ? mul4(*reinterpret_cast<const float4*>(
-                               ap + 64LL * j * step + k0), wv)
-                    : zero4();
+        if (w < WL && av[j]) {
+          const float4 x =
+              *reinterpret_cast<const float4*>(ap + 64LL * j * step + k0);
+          ra[j] = WIN ? mul4(x, wv) : x;
+        } else {
+          ra[j] = zero4();
+        }
       }
     } else {
       const int w = k0 + sk;
-      const float wv = w < WL ? win[w] : 0.f;
+      float wv = 0.f;
+      if constexpr (WIN) {
+        if (w < WL) wv = win[w];
+      }
 #pragma unroll
       for (int i = 0; i < TM; ++i) {
-        rs[i] = (w < WL && t0 + sr + 16 * i < T)
-                    ? ap[16LL * i * step + k0] * wv
-                    : 0.f;
+        if (w < WL && t0 + sr + 16 * i < T) {
+          const float x = ap[16LL * i * step + k0];
+          rs[i] = WIN ? x * wv : x;
+        } else {
+          rs[i] = 0.f;
+        }
       }
     }
     if (k0 + bk < WL) {
       const float* row = bp + (long long)k0 * FP;
 #pragma unroll
       for (int c = 0; c < NC; ++c) {
-        rb[c] = *reinterpret_cast<const float4*>(row + c * comp_off);
+        rb[c] = *reinterpret_cast<const float4*>(row + c * comp_stride);
       }
     } else {
 #pragma unroll

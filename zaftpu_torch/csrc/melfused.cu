@@ -50,8 +50,8 @@ spec_rows_kernel(const float* __restrict__ sig,
 #pragma unroll
     for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
   }
-  tile<VEC, 2>(sig + blockIdx.z * sig_len, win, ops, T, WL, step, FP, t0, f0,
-               acc);
+  tile<VEC, 2>(sig + blockIdx.z * sig_len, win, ops, (long long)WL * FP, T,
+               WL, step, FP, t0, f0, acc);
 
   float* ob = out + blockIdx.z * (long long)T * F;
 #pragma unroll
@@ -99,8 +99,8 @@ mel_rows_kernel(const float* __restrict__ sig, const float* __restrict__ win,
 #pragma unroll
     for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
   }
-  tile<VEC, 2>(sig + blockIdx.z * sig_len, win, ops, T, WL, step, FP, t0, f0,
-               acc);
+  tile<VEC, 2>(sig + blockIdx.z * sig_len, win, ops, (long long)WL * FP, T,
+               WL, step, FP, t0, f0, acc);
 #pragma unroll
   for (int i = 0; i < TM; ++i) {
 #pragma unroll

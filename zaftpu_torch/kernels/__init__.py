@@ -1,12 +1,12 @@
-"""The CUDA kernels of the STFT/ISTFT, MDCT/IMDCT and magnitude/mel paths,
-and their dispatch.
+"""The CUDA kernels of the STFT/ISTFT, MDCT/IMDCT, magnitude/mel and CQT
+paths, and their dispatch.
 
 The same dispatch functions as ``zaftpu.pallas``, minus its silent-retry
 machinery: a CPU tensor always takes the kernels' plain PyTorch versions,
 and a CUDA tensor always launches a kernel or raises. No path catches a
 kernel failure and carries on.
 
-Three levers choose the kernels, with ``zaftpu``'s names and meaning:
+Five levers choose the kernels, with ``zaftpu``'s names and meaning:
 
 * ``ZAFTPU_FUSED=0``: framing kernel + ``torch.matmul`` GEMM instead of
   the fused analysis kernels (STFT and MDCT);
@@ -14,9 +14,17 @@ Three levers choose the kernels, with ``zaftpu``'s names and meaning:
   the fused synthesis kernel (ISTFT and IMDCT);
 * ``ZAFTPU_MELFUSE=0``: the analysis dispatch's half spectrum, ``|·|`` and
   ``torch.matmul`` instead of the one-pass magnitude and mel kernels
-  (:mod:`zaftpu_torch.kernels.melfused`).
+  (:mod:`zaftpu_torch.kernels.melfused`);
+* ``ZAFTPU_FULLSPEC=1``: ``stft`` takes the full-spectrum analysis kernel,
+  the conjugate mirror in its store (``fused.frames_rfft_full``), instead
+  of the half-spectrum kernel and a separate mirror; off by default, and
+  only with the fused analysis on;
+* ``ZAFTPU_MIRROR=pallas``: the STFT's conjugate mirror and the ISTFT's
+  Hermitian fold run as kernels (:mod:`zaftpu_torch.kernels.mirror`)
+  instead of PyTorch index ops; off by default.
 
-All default to the fused kernels.
+The first three default to the fused kernels, the last two to off. The CQT
+has no lever: a CUDA float32 CQT always runs ``cqtslab.cqt_magnitudes``.
 """
 
 from __future__ import annotations
@@ -29,6 +37,7 @@ from zaftpu_torch.core import fft as _fft
 from zaftpu_torch.core.policy import exact_matmul
 from zaftpu_torch.kernels import framing as _framing
 from zaftpu_torch.kernels import fused as _fused
+from zaftpu_torch.kernels import mirror as _mirror
 from zaftpu_torch.kernels import ola as _ola
 from zaftpu_torch.kernels import synth as _synth
 
@@ -81,6 +90,18 @@ def windowed_frames_rfft(padded, window, window_length: int, step: int,
     return _fft.direct_rfft(frames)
 
 
+def windowed_frames_rfft_fullspec(padded, window, window_length: int,
+                                  step: int, number_times: int):
+    """Windowed overlapped frames -> full spectrum ``(..., T, WL)`` with the
+    conjugate mirror written by the analysis kernel, or ``None`` unless
+    ``ZAFTPU_FULLSPEC=1`` and the fused analysis is on (the caller then
+    mirrors the half spectrum). Bit-equal to that composition."""
+    if _fused.fullspec_enabled() and fused_enabled():
+        return _fused.frames_rfft_full(padded, window, window_length, step,
+                                       number_times)
+    return None
+
+
 def windowed_frames_op(padded, window, ops, n_cols: int, window_length: int,
                        step: int, number_times: int):
     """Windowed overlapped frames times one real operator ``(1, WL, F_pad)``
@@ -103,12 +124,16 @@ def overlap_add(frames, step: int):
 def synthesis_ola(spectra, step: int, gain: float = 1.0):
     """Synthesis back end from bins-major spectra ``(..., N, T)``:
     ``overlap_add(real(ifft(spectraᵀ)), step) / gain``, with the division
-    folded into the inverse operator. The Hermitian fold runs in plain
-    PyTorch; then the fused synthesis kernel, or with ``ZAFTPU_SYNTH=0`` the
-    inverse GEMM followed by the OLA kernel."""
+    folded into the inverse operator. The Hermitian fold runs as PyTorch
+    index ops, or with ``ZAFTPU_MIRROR=pallas`` as the fold kernel; then
+    the fused synthesis kernel, or with ``ZAFTPU_SYNTH=0`` the inverse GEMM
+    followed by the OLA kernel."""
     n = spectra.shape[-2]
     fm = spectra.transpose(-1, -2)
-    h_re, h_im = _fft.hermitian_fold_planes(fm.real, fm.imag, n)
+    if _mirror.enabled():
+        h_re, h_im = _mirror.fold_half_planes(fm, n)
+    else:
+        h_re, h_im = _fft.hermitian_fold_planes(fm.real, fm.imag, n)
     if synth_enabled():
         return _synth.istft_ola(h_re, h_im, n, step, 1.0 / gain)
     frames = _fft.direct_real_ifft_folded(h_re, h_im, n, scale=1.0 / gain)

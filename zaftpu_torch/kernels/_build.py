@@ -1,8 +1,9 @@
 """Build and load the CUDA kernels.
 
-At first use, ``nvcc`` compiles every ``zaftpu_torch/csrc/*.cu`` into one
-shared library with a plain C interface, under ``build/zaftpu_torch/`` at the
-repository root, named by a hash of the sources' content, and ``ctypes``
+At first use, ``nvcc`` compiles every ``zaftpu_torch/csrc/*.cu`` to an
+object, one process per source, all started together, and links them into
+one shared library with a plain C interface, under ``build/zaftpu_torch/``
+at the repository root, named by a hash of the sources' content; ``ctypes``
 loads it. A source edit therefore rebuilds, and an unchanged tree reuses the
 library. Nothing here runs at import.
 
@@ -28,8 +29,9 @@ import torch
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "zaftpu_torch"
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC")
+ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
+COMPILE_FLAGS = (*ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC")
+LINK_FLAGS = (*ARCH_FLAGS, "-shared")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -41,10 +43,16 @@ SIGNATURES = {
     "zt_overlap_add": (_P, _P, _I, _I, _I, _I, _P),
     "zt_frames_rfft": (_P, _P, _P, _P, _I, _LL, _I, _I, _I, _I, _I, _P),
     "zt_frames_op": (_P, _P, _P, _P, _I, _LL, _I, _I, _I, _I, _I, _P),
+    "zt_frames_rfft_full": (_P, _P, _P, _P, _I, _LL, _I, _I, _I, _I, _I,
+                            _P),
     "zt_gemm_ola": (_P, _P, _P, _I, _I, _I, _I, _I, _P),
     "zt_spec_rows": (_P, _P, _P, _P, _I, _LL, _I, _I, _I, _I, _I, _P),
     "zt_mel_rows": (_P, _P, _P, _P, _P, _P, _I, _LL, _I, _I, _I, _I, _I, _I,
                     _I, _P),
+    "zt_cqt_chunks": (_I,),
+    "zt_cqt_magnitudes": (_P, _P, _P, _P, _I, _LL, _I, _I, _I, _I, _I, _P),
+    "zt_mirror_full": (_P, _P, _LL, _I, _P),
+    "zt_fold_half": (_P, _P, _P, _LL, _I, _I, _LL, _LL, _LL, _P),
     "zt_error_string": (_I,),
 }
 
@@ -54,7 +62,7 @@ def sources() -> list[Path]:
 
 
 def source_hash() -> str:
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    h = hashlib.sha256(" ".join(COMPILE_FLAGS + LINK_FLAGS).encode())
     for path in sources():
         h.update(path.name.encode())
         h.update(path.read_bytes())
@@ -73,6 +81,16 @@ def nvcc_path() -> str:
     return found
 
 
+def _run_all(cmds: list[list[str]]) -> list[tuple[int, str]]:
+    """Run the commands side by side and wait for every one; return each
+    exit code and its merged output, in order."""
+    procs = [subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for cmd in cmds]
+    outs = [proc.communicate()[0] for proc in procs]
+    return [(proc.returncode, out) for proc, out in zip(procs, outs)]
+
+
 def build(verbose: bool = False) -> tuple[Path, str]:
     """Compile the library if it is not built yet; return its path and the
     compiler's output (empty when the library already existed).
@@ -82,19 +100,31 @@ def build(verbose: bool = False) -> tuple[Path, str]:
     if lib_path.exists():
         return lib_path, ""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    srcs = [str(p) for p in sorted(CSRC.glob("*.cu"))]
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    cmd = [nvcc_path(), *NVCC_FLAGS, *(["-Xptxas=-v"] if verbose else []),
-           "-I", str(CSRC), "-o", tmp, *srcs]
-    proc = subprocess.run(cmd, capture_output=True, text=True, check=False)
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(
-            f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n"
-            f"{proc.stdout}\n{proc.stderr}")
-    os.replace(tmp, lib_path)  # atomic: a concurrent process sees all or none
-    return lib_path, proc.stdout + proc.stderr
+    nvcc = nvcc_path()
+    work = Path(tempfile.mkdtemp(dir=BUILD_DIR))
+    try:
+        srcs = sorted(CSRC.glob("*.cu"))
+        objs = [str(work / f"{src.stem}.o") for src in srcs]
+        cmds = [[nvcc, *COMPILE_FLAGS, *(["-Xptxas=-v"] if verbose else []),
+                 "-I", str(CSRC), "-c", "-o", obj, str(src)]
+                for src, obj in zip(srcs, objs)]
+        compiled = _run_all(cmds)
+        log = "\n".join(out for _, out in compiled)
+        failed = [(cmd, rc) for cmd, (rc, _) in zip(cmds, compiled) if rc]
+        tmp = str(work / "lib.so")
+        if not failed:
+            link = [nvcc, *LINK_FLAGS, "-o", tmp, *objs]
+            ((rc, out),) = _run_all([link])
+            log += "\n" + out
+            if rc:
+                failed.append((link, rc))
+        if failed:
+            raise RuntimeError("nvcc failed:\n" + "\n".join(
+                f"({rc}) {' '.join(cmd)}" for cmd, rc in failed) + "\n" + log)
+        os.replace(tmp, lib_path)  # atomic: another process sees all or none
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    return lib_path, log
 
 
 @cache

@@ -3,7 +3,9 @@ their plain versions.
 
 Replace ``zaftpu/pallas/fused.py: _frames_matmul_impl`` as ``frames_rfft``
 (two components, the cos and sin rDFT operators) and ``frames_op`` (one
-real operator, the folded MDCT matrix) reach it. The kernels are
+real operator, the folded MDCT matrix) reach it, and its full-spectrum twin
+``_frames_matmul_full_impl`` (``frames_rfft_full``, the conjugate mirror
+written by the kernel's store; ``ZAFTPU_FULLSPEC=1``). The kernels are
 FP32-compute-bound; see the source notes in ``csrc/fused.cu`` and
 ``csrc/frames_gemm.cuh``. One launch computes every component from the same
 frame tile.
@@ -11,6 +13,7 @@ frame tile.
 
 from __future__ import annotations
 
+import os
 from functools import lru_cache
 
 import numpy as np
@@ -25,6 +28,7 @@ from zaftpu_torch.kernels.framing import check_frame_args
 CUDA_SOURCE = "zaftpu_torch/csrc/fused.cu"
 REPLACES = "zaftpu/pallas/fused.py:279"  # _frames_matmul_impl (frames_rfft)
 REPLACES_OP = "zaftpu/pallas/fused.py:590"  # frames_op -> _frames_matmul_impl
+REPLACES_FULL = "zaftpu/pallas/fused.py:475"  # _frames_matmul_full_impl
 
 TILE_BINS = 64    # the kernel's bins per block; the operator is padded to it
 TILE_FRAMES = 64  # the kernel's frames per block
@@ -63,6 +67,14 @@ def frames_rfft_plain(padded: torch.Tensor, window: torch.Tensor,
     """Half spectrum ``(..., T, WL/2+1)`` of the windowed frames in plain
     PyTorch: framing, window, then the two operator GEMMs."""
     frames_rfft_plain.calls += 1
+    return _half_spectrum(padded, window, window_length, step, number_times,
+                          ops)
+
+
+frames_rfft_plain.calls = 0
+
+
+def _half_spectrum(padded, window, window_length, step, number_times, ops):
     frames = (extract_frames(padded, window_length, step, number_times)
               * window.to(padded.dtype))
     if ops is None:
@@ -70,9 +82,6 @@ def frames_rfft_plain(padded: torch.Tensor, window: torch.Tensor,
     f = window_length // 2 + 1
     return torch.complex(exact_matmul(frames, ops[0, :, :f]),
                          exact_matmul(frames, ops[1, :, :f]))
-
-
-frames_rfft_plain.calls = 0
 
 
 def frames_rfft(padded: torch.Tensor, window: torch.Tensor,
@@ -95,9 +104,12 @@ def frames_rfft(padded: torch.Tensor, window: torch.Tensor,
 
 def _frames_rfft_cuda(padded: torch.Tensor, window: torch.Tensor,
                       window_length: int, step: int, number_times: int,
-                      ops: torch.Tensor | None = None) -> torch.Tensor:
-    """Check the CUDA input, launch the kernel, count the launch."""
-    check_frame_args("frames_rfft", padded, window, window_length, step,
+                      ops: torch.Tensor | None = None,
+                      full: bool = False) -> torch.Tensor:
+    """Check the CUDA input, launch the half- or (``full``) full-spectrum
+    kernel, count the launch."""
+    name = "frames_rfft_full" if full else "frames_rfft"
+    check_frame_args(name, padded, window, window_length, step,
                      number_times)
     wl, t = window_length, number_times
     f = wl // 2 + 1
@@ -106,25 +118,70 @@ def _frames_rfft_cuda(padded: torch.Tensor, window: torch.Tensor,
         ops = rdft_ops(wl, torch.float32, padded.device)
     fp = padded_bins(wl)
     if ops.shape != (2, wl, fp) or ops.dtype != torch.float32:
-        raise ValueError(f"frames_rfft: operator must be float32 "
+        raise ValueError(f"{name}: operator must be float32 "
                          f"(2, {wl}, {fp}), got {ops.dtype} "
                          f"{tuple(ops.shape)}")
     lead = padded.shape[:-1]
     sig = padded.reshape(-1, length).contiguous()
-    _build.require_grid(sig.shape[0], -(-t // TILE_FRAMES), "frames_rfft")
+    _build.require_grid(sig.shape[0], -(-t // TILE_FRAMES), name)
     win = window.to(device=padded.device, dtype=torch.float32).contiguous()
     ops = ops.to(padded.device).contiguous()
-    out = torch.empty((sig.shape[0], t, f), dtype=torch.complex64,
+    width = wl if full else f
+    out = torch.empty((sig.shape[0], t, width), dtype=torch.complex64,
                       device=padded.device)
-    err = _build.library().zt_frames_rfft(
-        sig.data_ptr(), win.data_ptr(), ops.data_ptr(), out.data_ptr(),
-        sig.shape[0], length, t, wl, step, f, fp, _build.stream_of(padded))
-    _build.check(err, "zt_frames_rfft")
-    frames_rfft.launches += 1
-    return out.reshape(*lead, t, f)
+    lib = _build.library()
+    launch = lib.zt_frames_rfft_full if full else lib.zt_frames_rfft
+    err = launch(sig.data_ptr(), win.data_ptr(), ops.data_ptr(),
+                 out.data_ptr(), sig.shape[0], length, t, wl, step, f, fp,
+                 _build.stream_of(padded))
+    _build.check(err, f"zt_{name}")
+    (frames_rfft_full if full else frames_rfft).launches += 1
+    return out.reshape(*lead, t, width)
 
 
 frames_rfft.launches = 0
+
+
+def fullspec_enabled() -> bool:
+    """``ZAFTPU_FULLSPEC``: the full-spectrum kernel for ``stft`` only when
+    set to ``1`` (``zaftpu``'s lever and default)."""
+    return os.environ.get("ZAFTPU_FULLSPEC", "0") == "1"
+
+
+def frames_rfft_full_plain(padded: torch.Tensor, window: torch.Tensor,
+                           window_length: int, step: int, number_times: int,
+                           ops: torch.Tensor | None = None) -> torch.Tensor:
+    """Full spectrum ``(..., T, WL)`` in plain PyTorch: the plain half
+    spectrum, then the conjugate mirror's index gathers."""
+    frames_rfft_full_plain.calls += 1
+    return _fft.conjugate_mirror(
+        _half_spectrum(padded, window, window_length, step, number_times,
+                       ops), window_length)
+
+
+frames_rfft_full_plain.calls = 0
+
+
+def frames_rfft_full(padded: torch.Tensor, window: torch.Tensor,
+                     window_length: int, step: int, number_times: int,
+                     ops: torch.Tensor | None = None) -> torch.Tensor:
+    """Fused windowed-frames full spectrum: ``(..., T, WL)`` complex, the
+    reference's zaf.py:139 convention, with the mirrored bins written by
+    the kernel. Bit-equal to :func:`frames_rfft` followed by the conjugate
+    mirror, since both store the same sums. ``ops`` as for
+    :func:`frames_rfft`.
+
+    A CPU tensor takes the plain version; a CUDA tensor launches the kernel
+    (leading axes flattened into its batch) or raises.
+    """
+    if not padded.is_cuda:
+        return frames_rfft_full_plain(padded, window, window_length, step,
+                                      number_times, ops)
+    return _frames_rfft_cuda(padded, window, window_length, step,
+                             number_times, ops, full=True)
+
+
+frames_rfft_full.launches = 0
 
 
 def frames_op_plain(padded: torch.Tensor, window: torch.Tensor,

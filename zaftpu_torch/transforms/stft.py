@@ -7,6 +7,8 @@ COLA-normalized inverse. On a CUDA float32 signal the analysis runs the
 fused framing + window + DFT kernel and the synthesis the fused inverse
 GEMM + overlap-add kernel (:mod:`zaftpu_torch.kernels`); the spectrogram
 runs the one-pass magnitude kernel (:mod:`zaftpu_torch.kernels.melfused`).
+``ZAFTPU_FULLSPEC=1`` and ``ZAFTPU_MIRROR=pallas`` move the conjugate
+mirror and the Hermitian fold into kernels, bit-equal to the default.
 On the CPU the same paths run their plain PyTorch versions, in the input's
 dtype (float64 is the oracle mode).
 """
@@ -73,10 +75,9 @@ def centre_padded(x: torch.Tensor, window_length: int, step: int):
 
 def _stft_frames_half(x: torch.Tensor, window: torch.Tensor,
                       step: int) -> torch.Tensor:
-    """Windowed frames -> rDFT, frames-major ``(..., T, WL/2+1)``: shared by
-    :func:`stft` and the split magnitude and mel paths, which use only the
-    non-mirrored bins. ``x`` and ``window`` as :func:`_analysis_inputs`
-    gives them."""
+    """Windowed frames -> rDFT, frames-major ``(..., T, WL/2+1)``, for the
+    split magnitude and mel paths, which use only the non-mirrored bins.
+    ``x`` and ``window`` as :func:`_analysis_inputs` gives them."""
     wl = window.shape[0]
     padded, t = centre_padded(x, wl, step)
     return _kernels.windowed_frames_rfft(padded, window, wl, step, t)
@@ -99,8 +100,13 @@ def stft(audio_signal, window_function=None, step_length: int | None = None,
     """
     x, win, step = _analysis_inputs(audio_signal, window_function,
                                     step_length, config)
-    half = _stft_frames_half(x, win, step)
-    return _fft.full_from_half(half, win.shape[0]).transpose(-1, -2)
+    wl = win.shape[0]
+    padded, t = centre_padded(x, wl, step)
+    full = _kernels.windowed_frames_rfft_fullspec(padded, win, wl, step, t)
+    if full is None:
+        half = _kernels.windowed_frames_rfft(padded, win, wl, step, t)
+        full = _fft.full_from_half(half, wl)
+    return full.transpose(-1, -2)
 
 
 def istft(audio_stft, window_function=None, step_length: int | None = None,
