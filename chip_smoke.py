@@ -1,5 +1,6 @@
 """Drive the zaftpu_torch STFT -> ISTFT, MDCT -> IMDCT, spectrogram / mel /
-MFCC and CQT paths once on an NVIDIA GPU.
+MFCC and CQT paths once on an NVIDIA GPU, under the exact dial and under
+ZAFTPU_PRECISION=split4.
 
     python3 chip_smoke.py
 
@@ -9,18 +10,24 @@ non-zero exit and no result line:
 
 1. device: the card's name and power limit (as nvidia-smi gives them),
    torch and CUDA versions; TF32 off for matmuls and cuDNN;
-2. build: the twelve kernels from zaftpu_torch/csrc (one nvcc per source,
+2. build: the nineteen kernels from zaftpu_torch/csrc (one nvcc per source,
    all started together), with the seconds taken;
 3. kernels: each kernel against its plain PyTorch version on the card at
    its main-path shape (WL 2048, hop 1024, a 600-s segment: T = 25,841;
    F = 1,024 for the IMDCT; 40 mels; the CQT at CqtConfig(): T = 15,000,
    L = 32,768, hop 1764, F = 144) and a ragged one (WL 512, hop 128,
-   T = 1,001 for the STFT, mirror and fold kernels; WL 512 / hop 256 for
-   frames_op; F = 100 for imdct_ola; WL 512 / hop 128 with 20 mels for
-   spec_rows and mel_rows; the CQT at 22,050 Hz, 12 bins per octave,
-   110-3,520 Hz: L 4,096, hop 882, F 60, T 1,001); framing, OLA, mirror and
-   fold must be bit-equal, the GEMM kernels within 2e-5 * max|ref|; median
-   times of kernel and plain version at the main-path shape (CUDA events);
+   T = 1,001 for the STFT, mirror and fold kernels and B12; WL 512 / hop
+   256 for frames_op; F = 100 for imdct_ola; WL 512 / hop 128 with 20 mels
+   for spec_rows and mel_rows; the CQT at 22,050 Hz, 12 bins per octave,
+   110-3,520 Hz: L 4,096, hop 882, F 60, T 1,001), the split4 twins of B1,
+   B2, B3, B4 and B7 and B12 under both dials included; framing, OLA,
+   mirror and fold must be bit-equal, the GEMM kernels within 2e-5 *
+   max|ref|, and the kernels that only store B1's sums elsewhere (B3, B12
+   and their twins) bit-equal to B1 or its twin (with the mirror); median
+   times of kernel and plain version at the main-path shape (CUDA events),
+   and of one PyTorch call computing the same function where there is one
+   (torch.stft for B1, B3, B12 and their twins, fold for the OLA); each
+   kernel's bound, the least time the card could take, from its inputs;
 4. STFT main path, default dispatch: stft -> istft of a 600-s signal with
    the periodic Hamming window; the spectrum against a float64 torch.fft
    oracle (<= 1e-5 * max|oracle|), the round-trip SNR (>= 120 dB), and
@@ -42,15 +49,22 @@ non-zero exit and no result line:
    against a float64 oracle on the card (per-frame FFT times the kernel's
    non-zero columns, then abs, zaf.py:627-633; <= 1e-5 * max|oracle|), and
    launch counts showing cqt_magnitudes ran and no plain version did;
-9. full-spectrum levers: stft -> istft of the 600-s signal under
-   ZAFTPU_MIRROR=pallas (fused, mirror_full_planes, fold_half_planes,
-   synth), then ZAFTPU_FULLSPEC=1 (frames_rfft_full, synth): spectrum and
-   round trip bit-equal to the default dispatch's, and the oracle and SNR
-   gates of phase 4;
-10. one hour: six 600-s segments through stft, then istft; mdct, then
-   imdct; spectrogram; melspectrogram; mfcc, under the default and the
-   split dispatch; cqtspectrogram and cqtchromagram (90,000 frames);
-   frames/s from CUDA events (printed, not gated).
+9. split4 main path (ZAFTPU_PRECISION=split4): stft -> istft and mdct ->
+   imdct of the 600-s signal; the spectrum and the coefficients within
+   1e-4 * max of the float64 oracles, the round trips in [100, 125) dB,
+   and launch counts showing the split4 twins ran and no exact kernel or
+   plain version did;
+10. levers: stft -> istft of the 600-s signal under ZAFTPU_MIRROR=pallas
+   (fused, mirror_full_planes, fold_half_planes, synth), ZAFTPU_FULLSPEC=1
+   (frames_rfft_full, synth) and ZAFTPU_FUSED2=1 (frames_matmul2, synth),
+   then under split4 with ZAFTPU_FUSED2=1 (frames_matmul2_split4,
+   synth_split4) and ZAFTPU_FULLSPEC=1 (frames_rfft_full_split4,
+   synth_split4): spectrum and round trip bit-equal to those of the same
+   dial without the lever, and that dial's oracle and SNR gates;
+11. one hour: six 600-s segments through stft, then istft; mdct, then
+   imdct; spectrogram; melspectrogram; mfcc, under the default, the split
+   and the split4 dispatch; cqtspectrogram and cqtchromagram (90,000
+   frames); frames/s from CUDA events (printed, not gated).
 
 The CQT kernel is built on the host without the disk cache
 (ZAFTPU_CACHE=0), so the run writes nothing outside the checkout.
@@ -72,7 +86,7 @@ import torch
 
 import zaftpu_torch
 from zaftpu_torch import CqtConfig, MelConfig
-from zaftpu_torch.core import fft
+from zaftpu_torch.core import fft, policy
 from zaftpu_torch.core.frame import stft_padding
 from zaftpu_torch.core.windows import hamming, vorbis
 from zaftpu_torch.features.mel import dct_ii_ortho_matrix, melfilterbank
@@ -96,6 +110,17 @@ GEMM_TOL = 2e-5     # x max|ref|; TF32 would read about 1e-3
 ORACLE_TOL = 1e-5   # x max|oracle|
 MIN_SNR_DB = 120.0
 MFCC_ATOL = 5e-3    # float32 against float64, tests/test_mel.py:70
+# split4 (about 104 dB against float64): the oracle gate of
+# tests/test_pallas.py:177, the round trip of tests/test_bf16.py:263.
+SPLIT4_ORACLE_TOL = 1e-4
+SPLIT4_SNR_DB = (100.0, 125.0)
+# (oracle tolerance x max, lowest SNR, SNR bound it must stay under)
+EXACT_GATES = (ORACLE_TOL, MIN_SNR_DB, float("inf"))
+SPLIT4_GATES = (SPLIT4_ORACLE_TOL, *SPLIT4_SNR_DB)
+# The H100 SXM's peaks (NVIDIA data sheet, dense rates at 700 W).
+PEAK_FP32 = 67e12    # FLOP/s outside the tensor cores
+PEAK_BF16 = 989e12   # dense bf16 tensor-core FLOP/s
+PEAK_BYTES = 3.35e12  # HBM3 bytes/s
 
 # name -> (source, TPU kernel it replaces, kernel wrapper, plain version)
 KERNELS = {
@@ -126,6 +151,35 @@ KERNELS = {
     "frames_rfft_full": (fused.CUDA_SOURCE, fused.REPLACES_FULL,
                          fused.frames_rfft_full,
                          fused.frames_rfft_full_plain),
+    "frames_matmul2": (fused.CUDA_SOURCE, fused.REPLACES_2,
+                       fused.frames_matmul2, fused.frames_matmul2_plain),
+    "fused_split4": (fused.CUDA_SOURCE, fused.REPLACES_SPLIT4,
+                     fused.frames_rfft_split4,
+                     fused.frames_rfft_split4_plain),
+    "frames_op_split4": (fused.CUDA_SOURCE, fused.REPLACES_SPLIT4,
+                         fused.frames_op_split4,
+                         fused.frames_op_split4_plain),
+    "frames_rfft_full_split4": (fused.CUDA_SOURCE,
+                                fused.REPLACES_FULL_SPLIT4,
+                                fused.frames_rfft_full_split4,
+                                fused.frames_rfft_full_split4_plain),
+    "frames_matmul2_split4": (fused.CUDA_SOURCE, fused.REPLACES_2_SPLIT4,
+                              fused.frames_matmul2_split4,
+                              fused.frames_matmul2_split4_plain),
+    "synth_split4": (synth.CUDA_SOURCE, synth.REPLACES_SPLIT4,
+                     synth.istft_ola_split4, synth.istft_ola_split4_plain),
+    "imdct_ola_split4": (synth.CUDA_SOURCE, synth.REPLACES_SPLIT4,
+                         synth.imdct_ola_split4,
+                         synth.imdct_ola_split4_plain),
+}
+# Kernels that store B1's (or its twin's) sums elsewhere: name -> (B1 or
+# its twin, the store's function of that output).
+RESTORES = {
+    "frames_rfft_full": ("fused", fft.conjugate_mirror),
+    "frames_rfft_full_split4": ("fused_split4", fft.conjugate_mirror),
+    "frames_matmul2": ("fused", lambda half, wl: (half.real, half.imag)),
+    "frames_matmul2_split4": ("fused_split4",
+                              lambda half, wl: (half.real, half.imag)),
 }
 
 
@@ -196,14 +250,20 @@ def _kernel_inputs(wl: int, step: int, t: int, dev) -> dict:
     spec = fft.conjugate_mirror(half, wl)
     h_re, h_im = fft.hermitian_fold_planes(spec.real, spec.imag, wl)
     scale = 1.0 / float(hamming(wl)[::step].sum())
+    analysis = (padded, win, wl, step, t)
     return {
-        "fused": ((padded, win, wl, step, t), GEMM_TOL),
+        "fused": (analysis, GEMM_TOL),
         "synth": ((h_re, h_im, wl, step, scale), GEMM_TOL),
-        "framing": ((padded, win, wl, step, t), EXACT_TOL),
+        "framing": (analysis, EXACT_TOL),
         "ola": ((frames.contiguous(), step), EXACT_TOL),
         "mirror_full_planes": ((half, wl), EXACT_TOL),
         "fold_half_planes": ((spec, wl), EXACT_TOL),
-        "frames_rfft_full": ((padded, win, wl, step, t), GEMM_TOL),
+        "frames_rfft_full": (analysis, GEMM_TOL),
+        "frames_matmul2": (analysis, GEMM_TOL),
+        "fused_split4": (analysis, GEMM_TOL),
+        "frames_rfft_full_split4": (analysis, GEMM_TOL),
+        "frames_matmul2_split4": (analysis, GEMM_TOL),
+        "synth_split4": ((h_re, h_im, wl, step, scale), GEMM_TOL),
     }
 
 
@@ -237,17 +297,20 @@ def _kernel_cases(dev, main_t: int):
     for label, (wl, step, t) in (("main", (WL, STEP, main_t)),
                                  ("ragged", MDCT_RAGGED)):
         padded, win = _signal_and_window(wl, step, t, vorbis, dev)
-        yield ("frames_op", label, f"WL {wl} hop {step} T {t}",
-               (padded, win, _mdct_ops(wl, dev), wl // 2, wl, step, t),
-               GEMM_TOL)
+        ops = _mdct_ops(wl, dev)
+        for name, op in (("frames_op", ops),
+                         ("frames_op_split4", policy.presplit(ops))):
+            yield (name, label, f"WL {wl} hop {step} T {t}",
+                   (padded, win, op, wl // 2, wl, step, t), GEMM_TOL)
     # The IMDCT reads the MDCT coefficients of the test signal.
     for label, (f, t) in (("main", (WL // 2, main_t)),
                           ("ragged", (IMDCT_RAGGED_F, RAGGED[2]))):
         padded, win = _signal_and_window(2 * f, f, t, vorbis, dev)
         coeffs = fused.frames_op_plain(padded, win, _mdct_ops(2 * f, dev), f,
                                        2 * f, f, t)
-        yield ("imdct_ola", label, f"F {f} T {t}",
-               (coeffs, f, vorbis(2 * f).tobytes()), GEMM_TOL)
+        for name in ("imdct_ola", "imdct_ola_split4"):
+            yield (name, label, f"F {f} T {t}",
+                   (coeffs, f, vorbis(2 * f).tobytes()), GEMM_TOL)
     for label, (wl, step, t, mels) in (
             ("main", (WL, STEP, main_t, MelConfig().number_mels)),
             ("ragged", MEL_RAGGED)):
@@ -273,11 +336,110 @@ def _kernel_cases(dev, main_t: int):
                 length, t, kern.number_frequencies), GEMM_TOL)
 
 
+def _rows(x: torch.Tensor) -> int:
+    """Rows of ``x`` over its last axis (batch and frames together)."""
+    return x.numel() // max(x.shape[-1], 1)
+
+
+def _work(name: str, args: tuple) -> tuple[float, float]:
+    """FLOP and bytes of one call of kernel ``name`` on ``args``: the
+    operations the function does and the bytes it must move, each input
+    read once and each output written once (an operator's bf16 hi and lo
+    are as many bytes as its float32)."""
+    base = name.removesuffix("_split4")
+    passes = 4 if base != name else 1  # the split4 twins' bf16 passes
+    if base == "synth":
+        h_re, _, n, step, _ = args
+        b, t, f = _rows(h_re) // h_re.shape[-2], h_re.shape[-2], h_re.shape[-1]
+        return (passes * 2 * b * t * 2 * f * n,
+                4 * (2 * b * t * f + 2 * f * n + b * ((t - 1) * step + n)))
+    if base == "imdct_ola":
+        c, f, _ = args
+        b, t = _rows(c) // c.shape[-2], c.shape[-2]
+        return (passes * 2 * b * t * f * 2 * f,
+                4 * (b * t * f + 2 * f * f + b * (t + 1) * f))
+    if base == "ola":
+        frames, step = args
+        t, wl = frames.shape[-2:]
+        return t * wl, 4 * (t * wl + (t - 1) * step + wl)
+    if base == "mirror_full_planes":
+        half, n = args
+        return 0, 8 * _rows(half) * (half.shape[-1] + n)
+    if base == "fold_half_planes":
+        spec, n = args
+        rows, f = _rows(spec), n // 2 + 1
+        return 6 * rows * f, 8 * rows * (n + f)
+    if base == "cqt_magnitudes":
+        sig, ops, _, length, t, f = args
+        b = _rows(sig)
+        return (4 * b * t * length * f + 3 * b * t * f,
+                4 * (sig.numel() + 2 * length * f + b * t * f))
+    # The analysis kernels: windowed frames times an operator.
+    if base == "frames_op":
+        padded, _, _, f, wl, _, t = args
+        nc, out = 1, 4 * t * f
+    elif base == "mel_rows":
+        padded, _, fbt, wl, _, t, _ = args
+        nc, f = 2, wl // 2
+        out = 4 * t * fbt.shape[1]
+    else:
+        padded, _, wl, _, t = args
+        nc = 2
+        f = wl // 2 if base == "spec_rows" else wl // 2 + 1
+        out = {"fused": 8 * t * f, "frames_matmul2": 8 * t * f,
+               "frames_rfft_full": 8 * t * wl, "spec_rows": 4 * t * f,
+               "framing": 4 * t * wl}[base]
+    b = _rows(padded)
+    inputs = 4 * (padded.numel() + wl)
+    if base == "framing":
+        return b * t * wl, inputs + b * out
+    flop = passes * 2 * nc * b * t * wl * f
+    ops_bytes = 4 * nc * wl * f
+    if base == "mel_rows":
+        flop += 2 * b * t * f * fbt.shape[1]
+        ops_bytes += 4 * f * fbt.shape[1]
+    return flop, inputs + ops_bytes + b * out
+
+
+def bound(name: str, args: tuple) -> tuple[float, str]:
+    """The least time in ms the card could take for kernel ``name`` on
+    ``args``, and what sets it: the larger of its bytes over the HBM rate
+    and its operations over the peak rate for their type (the bf16 tensor
+    cores for the split4 twins, FP32 for the rest)."""
+    flop, nbytes = _work(name, args)
+    peak = PEAK_BF16 if name.endswith("_split4") else PEAK_FP32
+    t_ops, t_bytes = flop / peak, nbytes / PEAK_BYTES
+    return (max(t_ops, t_bytes) * 1e3,
+            "operations" if t_ops >= t_bytes else "bytes")
+
+
+def library_call(name: str, args: tuple):
+    """One PyTorch call computing the same function as kernel ``name`` on
+    ``args`` (timed beside it, never called by the port), or None."""
+    base = name.removesuffix("_split4")
+    if base in ("fused", "frames_matmul2", "frames_rfft_full"):
+        padded, win, wl, step, _ = args
+        return lambda: torch.stft(padded, wl, step, window=win, center=False,
+                                  onesided=base != "frames_rfft_full",
+                                  return_complex=True)
+    if base == "ola":
+        frames, step = args
+        t, wl = frames.shape
+        return lambda: torch.nn.functional.fold(
+            frames.T[None], (1, (t - 1) * step + wl), (1, wl),
+            stride=(1, step))
+    return None
+
+
+def _planes(x) -> tuple:
+    return x if isinstance(x, tuple) else (x,)
+
+
 def phase_kernels(dev) -> dict:
     """Each kernel against its plain version at the main-path shape and a
-    ragged one; returns the main-path error and median times (for
-    mel_rows, the largest error of its two main cases and the times of
-    the first, power=False)."""
+    ragged one; returns the main-path error, median times (kernel, plain
+    version, library call) and bound (for mel_rows, the largest error of
+    its two main cases and the times of the first, power=False)."""
     results = {}
     main_t = stft_padding(SEGMENT_SECONDS * SR, WL, STEP)[2]  # 25,841
     for name, label, shape, args, tol in _kernel_cases(dev, main_t):
@@ -285,7 +447,13 @@ def phase_kernels(dev) -> dict:
         got = kernel(*args)
         ref = plain(*args)
         torch.cuda.synchronize()
-        if isinstance(got, tuple):  # the fold's (re, im) planes
+        if name in RESTORES:
+            base, store = RESTORES[name]
+            sums = _planes(store(KERNELS[base][2](*args), args[2]))
+            require(all(torch.equal(a, b) for a, b in zip(_planes(got), sums)),
+                    f"{name} {label}: not bit-equal to {base}'s sums")
+            print(f"kernel {name} {label}: bit-equal to {base}'s sums")
+        if isinstance(got, tuple):  # (re, im) planes
             got, ref = torch.stack(got), torch.stack(ref)
         require(got.shape == ref.shape and got.dtype == ref.dtype,
                 f"{name} {label}: {got.shape} {got.dtype} vs "
@@ -299,10 +467,16 @@ def phase_kernels(dev) -> dict:
         if label == "main":
             ms = median_ms(lambda: kernel(*args))
             plain_ms = median_ms(lambda: plain(*args))
-            print(f"  {name}: kernel {ms:.4f} ms, plain {plain_ms:.4f} "
-                  "ms (median of 10)")
-            entry = results.setdefault(name, {"max_abs_err": err, "ms": ms,
-                                              "plain_ms": plain_ms})
+            lib = library_call(name, args)
+            library_ms = None if lib is None else median_ms(lib)
+            bound_ms, bound_by = bound(name, args)
+            print(f"  {name}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+                  f"library {library_ms} ms (median of 10); bound "
+                  f"{bound_ms:.4f} ms by {bound_by}")
+            entry = results.setdefault(name, {
+                "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                "bound_ms": bound_ms, "bound_by": bound_by,
+                "library_ms": library_ms})
             entry["max_abs_err"] = max(entry["max_abs_err"], err)
         del got, ref, args
         torch.cuda.empty_cache()
@@ -353,6 +527,22 @@ def oracle_error(x: torch.Tensor, spec: torch.Tensor) -> tuple[float, float]:
     return err, _max_abs(oracle)
 
 
+# dispatch -> the kernels the STFT and the MDCT main paths must run.
+STFT_WANT = {"default": ("fused", "synth"), "split": ("framing", "ola"),
+             "split4": ("fused_split4", "synth_split4")}
+MDCT_WANT = {"default": ("frames_op", "imdct_ola"),
+             "split": ("framing", "ola"),
+             "split4": ("frames_op_split4", "imdct_ola_split4")}
+
+
+def check_gates(path: str, err: float, scale: float, snr: float,
+                gates: tuple) -> None:
+    """Fail unless ``err <= tol * scale`` and ``lo <= snr < hi``."""
+    tol, lo, hi = gates
+    require(err <= tol * scale, f"[{path}] error {err} > {tol} * {scale}")
+    require(lo <= snr < hi, f"[{path}] SNR {snr} dB outside [{lo}, {hi})")
+
+
 def phase_main_path(dispatch: str, x: torch.Tensor) -> dict:
     """One 600-s stft -> istft; returns the launch counts of the kernels
     this dispatch must run."""
@@ -362,8 +552,7 @@ def phase_main_path(dispatch: str, x: torch.Tensor) -> dict:
     spec = zaftpu_torch.stft(x, win, STEP)
     rec = zaftpu_torch.istft(spec, win, STEP)
     torch.cuda.synchronize()
-    want = ("fused", "synth") if dispatch == "default" else ("framing", "ola")
-    launches = check_counters(f"main path [{dispatch}]", want)
+    launches = check_counters(f"main path [{dispatch}]", STFT_WANT[dispatch])
     require(tuple(spec.shape) == (WL, t) and spec.dtype == torch.complex64,
             f"[{dispatch}] spectrum {tuple(spec.shape)} {spec.dtype}")
     require(spec.is_cuda and rec.is_cuda, f"[{dispatch}] left the card")
@@ -372,9 +561,8 @@ def phase_main_path(dispatch: str, x: torch.Tensor) -> dict:
     print(f"main path [{dispatch}]: spectrum max_abs_err vs f64 oracle "
           f"{err!r} (max|oracle| {scale!r}, ratio {err / scale!r}); "
           f"round-trip SNR {snr!r} dB; output {tuple(rec.shape)}")
-    require(err <= ORACLE_TOL * scale,
-            f"[{dispatch}] spectrum error {err} > {ORACLE_TOL} * {scale}")
-    require(snr >= MIN_SNR_DB, f"[{dispatch}] SNR {snr} dB < {MIN_SNR_DB}")
+    check_gates(f"main path {dispatch}", err, scale, snr,
+                SPLIT4_GATES if dispatch == "split4" else EXACT_GATES)
     return launches
 
 
@@ -401,9 +589,7 @@ def phase_mdct_path(dispatch: str, x: torch.Tensor) -> dict:
     coeffs = zaftpu_torch.mdct(x, win)
     rec = zaftpu_torch.imdct(coeffs, win)
     torch.cuda.synchronize()
-    want = (("frames_op", "imdct_ola") if dispatch == "default"
-            else ("framing", "ola"))
-    launches = check_counters(f"mdct path [{dispatch}]", want)
+    launches = check_counters(f"mdct path [{dispatch}]", MDCT_WANT[dispatch])
     oracle = mdct_oracle(x)
     require(tuple(coeffs.shape) == tuple(oracle.T.shape)
             and coeffs.dtype == torch.float32,
@@ -415,9 +601,8 @@ def phase_mdct_path(dispatch: str, x: torch.Tensor) -> dict:
     print(f"mdct path [{dispatch}]: coefficients max_abs_err vs f64 oracle "
           f"{err!r} (max|oracle| {scale!r}, ratio {err / scale!r}); "
           f"round-trip SNR {snr!r} dB; output {tuple(rec.shape)}")
-    require(err <= ORACLE_TOL * scale,
-            f"[{dispatch}] MDCT error {err} > {ORACLE_TOL} * {scale}")
-    require(snr >= MIN_SNR_DB, f"[{dispatch}] SNR {snr} dB < {MIN_SNR_DB}")
+    check_gates(f"mdct path {dispatch}", err, scale, snr,
+                SPLIT4_GATES if dispatch == "split4" else EXACT_GATES)
     return launches
 
 
@@ -592,11 +777,11 @@ def phase_cqt_path(dispatch: str, x: torch.Tensor) -> dict:
 
 
 def phase_fullspec_path(dispatch: str, x: torch.Tensor, ref: tuple,
-                        want: tuple) -> dict:
-    """stft -> istft of the 600-s signal under a mirror or full-spectrum
-    lever: the spectrum and the round trip bit-equal to the default
-    dispatch's ``ref``, and phase 4's gates; returns the launch counts of
-    the kernels in ``want``."""
+                        want: tuple, gates: tuple) -> dict:
+    """stft -> istft of the 600-s signal under a mirror, full-spectrum or
+    two-output lever: the spectrum and the round trip bit-equal to the
+    ``ref`` of the dispatch without the lever, and its ``gates``; returns
+    the launch counts of the kernels in ``want``."""
     win = hamming(WL)
     reset_counters()
     spec = zaftpu_torch.stft(x, win, STEP)
@@ -604,17 +789,16 @@ def phase_fullspec_path(dispatch: str, x: torch.Tensor, ref: tuple,
     torch.cuda.synchronize()
     launches = check_counters(f"full-spectrum path [{dispatch}]", want)
     require(torch.equal(spec, ref[0]),
-            f"[{dispatch}] spectrum differs from the default dispatch's")
+            f"[{dispatch}] spectrum differs from the lever-free dispatch's")
     require(torch.equal(rec, ref[1]),
-            f"[{dispatch}] round trip differs from the default dispatch's")
+            f"[{dispatch}] round trip differs from the lever-free one's")
     err, scale = oracle_error(x, spec)
     snr = snr_db(x, rec)
     print(f"full-spectrum path [{dispatch}]: spectrum and round trip "
-          f"bit-equal to the default's; spectrum max_abs_err vs f64 oracle "
+          f"bit-equal to the lever-free dispatch's; spectrum max_abs_err "
+          f"vs f64 oracle "
           f"{err!r} (ratio {err / scale!r}); round-trip SNR {snr!r} dB")
-    require(err <= ORACLE_TOL * scale,
-            f"[{dispatch}] spectrum error {err} > {ORACLE_TOL} * {scale}")
-    require(snr >= MIN_SNR_DB, f"[{dispatch}] SNR {snr} dB < {MIN_SNR_DB}")
+    check_gates(f"full-spectrum path {dispatch}", err, scale, snr, gates)
     return launches
 
 
@@ -634,13 +818,17 @@ def phase_hour_cqt(segs: list) -> None:
 
 
 LEVERS = ("ZAFTPU_FUSED", "ZAFTPU_SYNTH", "ZAFTPU_MELFUSE", "ZAFTPU_MIRROR",
-          "ZAFTPU_FULLSPEC")
+          "ZAFTPU_FULLSPEC", "ZAFTPU_FUSED2", "ZAFTPU_PRECISION")
 DEFAULT = dict.fromkeys(LEVERS)
 SPLIT = {**DEFAULT, "ZAFTPU_FUSED": "0", "ZAFTPU_SYNTH": "0",
          "ZAFTPU_MELFUSE": "0"}
 MELFUSE_OFF = {**DEFAULT, "ZAFTPU_MELFUSE": "0"}
 MIRROR_ON = {**DEFAULT, "ZAFTPU_MIRROR": "pallas"}
 FULLSPEC_ON = {**DEFAULT, "ZAFTPU_FULLSPEC": "1"}
+FUSED2_ON = {**DEFAULT, "ZAFTPU_FUSED2": "1"}
+SPLIT4 = {**DEFAULT, "ZAFTPU_PRECISION": "split4"}
+SPLIT4_FUSED2 = {**SPLIT4, "ZAFTPU_FUSED2": "1"}
+SPLIT4_FULLSPEC = {**SPLIT4, "ZAFTPU_FULLSPEC": "1"}
 
 
 def _with_env(env: dict, fn, *args):
@@ -684,26 +872,39 @@ def main() -> int:
             (SPLIT, phase_mdct_path, "split"),
             (DEFAULT, phase_mel_path, "default"),
             (MELFUSE_OFF, phase_mel_path, "ZAFTPU_MELFUSE=0"),
-            (DEFAULT, phase_cqt_path, "default")):
+            (DEFAULT, phase_cqt_path, "default"),
+            (SPLIT4, phase_main_path, "split4"),
+            (SPLIT4, phase_mdct_path, "split4")):
         for name, count in _with_env(env, phase, dispatch, x).items():
             launches[name] += count
         torch.cuda.empty_cache()
-    ref = _with_env(DEFAULT, _default_stft_istft, x)
-    for env, dispatch, want in (
-            (MIRROR_ON, "ZAFTPU_MIRROR=pallas",
-             ("fused", "mirror_full_planes", "fold_half_planes", "synth")),
-            (FULLSPEC_ON, "ZAFTPU_FULLSPEC=1", ("frames_rfft_full",
-                                                "synth"))):
-        for name, count in _with_env(env, phase_fullspec_path, dispatch, x,
-                                     ref, want).items():
-            launches[name] += count
-        torch.cuda.empty_cache()
-    del x, ref
+    for base, gates, levers in (
+            (DEFAULT, EXACT_GATES, (
+                (MIRROR_ON, "ZAFTPU_MIRROR=pallas",
+                 ("fused", "mirror_full_planes", "fold_half_planes",
+                  "synth")),
+                (FULLSPEC_ON, "ZAFTPU_FULLSPEC=1",
+                 ("frames_rfft_full", "synth")),
+                (FUSED2_ON, "ZAFTPU_FUSED2=1", ("frames_matmul2", "synth")))),
+            (SPLIT4, SPLIT4_GATES, (
+                (SPLIT4_FUSED2, "split4 ZAFTPU_FUSED2=1",
+                 ("frames_matmul2_split4", "synth_split4")),
+                (SPLIT4_FULLSPEC, "split4 ZAFTPU_FULLSPEC=1",
+                 ("frames_rfft_full_split4", "synth_split4"))))):
+        ref = _with_env(base, _default_stft_istft, x)
+        for env, dispatch, want in levers:
+            for name, count in _with_env(env, phase_fullspec_path, dispatch,
+                                         x, ref, want, gates).items():
+                launches[name] += count
+            torch.cuda.empty_cache()
+        del ref
+    del x
     torch.cuda.empty_cache()
 
     segs = [torch.from_numpy(segment(i)).to(dev)
             for i in range(SEGMENTS_PER_HOUR)]
-    for env, dispatch in ((DEFAULT, "default"), (SPLIT, "split")):
+    for env, dispatch in ((DEFAULT, "default"), (SPLIT, "split"),
+                          (SPLIT4, "split4")):
         _with_env(env, phase_hour, dispatch, segs)
         _with_env(env, phase_hour_features, dispatch, segs)
         torch.cuda.empty_cache()

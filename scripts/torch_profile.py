@@ -1,0 +1,88 @@
+"""Where the device time of zaftpu_torch's main path goes, on a CUDA card.
+
+    python3 scripts/torch_profile.py [--precision highest|split4] [--iters 3]
+
+Profiles 600-s stft -> istft and mdct -> imdct (the chip_smoke.py signal,
+Hamming and vorbis windows of 2048, hop 1024) with torch.profiler after two
+warm-up iterations, under the given ZAFTPU_PRECISION and the other levers
+as set in the environment. Prints, per path and per iteration: the device
+time of each kernel (largest first), the busy time (their sum), the window
+(host clock around the profiled iterations, synchronised) and the busy
+share. Needs a CUDA card; prints nothing else and exits 1 without one.
+"""
+
+from __future__ import annotations
+
+import argparse
+import os
+import sys
+import time
+from pathlib import Path
+
+import torch
+
+sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+
+import zaftpu_torch  # noqa: E402
+from chip_smoke import segment  # noqa: E402
+from zaftpu_torch.core.windows import hamming, vorbis  # noqa: E402
+
+WL, STEP = 2048, 1024
+
+
+def device_ms(event) -> float:
+    """An event's own device time in ms (the attribute's name moved)."""
+    total = getattr(event, "self_device_time_total", None)
+    if total is None:
+        total = event.self_cuda_time_total
+    return total / 1e3
+
+
+def profile(name: str, fn, iters: int) -> None:
+    for _ in range(2):
+        fn()
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+        window = (time.perf_counter() - t0) * 1e3 / iters
+    rows = [(device_ms(e) / iters, e.key) for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA
+            and device_ms(e) > 0]
+    rows.sort(reverse=True)
+    busy = sum(ms for ms, _ in rows)
+    print(f"{name}: busy {busy:.3f} ms / window {window:.3f} ms "
+          f"({100 * busy / window:.2f}%) per iteration, {iters} iterations")
+    for ms, key in rows:
+        print(f"  {ms:9.4f} ms  {100 * ms / busy:6.2f}%  {key[:90]}")
+
+
+def main() -> int:
+    parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    parser.add_argument("--precision", default="highest",
+                        choices=("highest", "split4"))
+    parser.add_argument("--iters", type=int, default=3)
+    args = parser.parse_args()
+    if not torch.cuda.is_available():
+        print("no CUDA card", file=sys.stderr)
+        return 1
+    os.environ["ZAFTPU_PRECISION"] = args.precision
+    torch.backends.cuda.matmul.allow_tf32 = False
+    print(f"{torch.cuda.get_device_name(0)}; ZAFTPU_PRECISION="
+          f"{args.precision}")
+    x = torch.from_numpy(segment(0)).cuda()
+    hw, vw = hamming(WL), vorbis(WL)
+    profile("stft -> istft", lambda: zaftpu_torch.istft(
+        zaftpu_torch.stft(x, hw, STEP), hw, STEP), args.iters)
+    profile("stft", lambda: zaftpu_torch.stft(x, hw, STEP), args.iters)
+    profile("mdct -> imdct", lambda: zaftpu_torch.imdct(
+        zaftpu_torch.mdct(x, vw), vw), args.iters)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

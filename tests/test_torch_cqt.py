@@ -244,7 +244,8 @@ def test_cqtchromagram_golden(golden, signal, kernel):
 
 
 def test_spectrogram_is_a_frames_major_view(signal, kernel):
-    mine = tcqt.cqtspectrogram(signal.astype(np.float32), SR, TRES, kernel)
+    mine = tcqt.cqtspectrogram(torch.from_numpy(signal.astype(np.float32)),
+                               SR, TRES, kernel)
     assert mine.transpose(-1, -2).is_contiguous()
 
 
@@ -263,7 +264,8 @@ def test_f32_matches_zaftpu(signal, kernel, fn):
 
 
 def test_f32_within_the_golden_tolerance(golden, signal, kernel):
-    mine = tcqt.cqtspectrogram(signal.astype(np.float32), SR, TRES, kernel)
+    mine = tcqt.cqtspectrogram(torch.from_numpy(signal.astype(np.float32)),
+                               SR, TRES, kernel)
     ref = golden["cqtspectrogram"]
     np.testing.assert_allclose(_np(mine), ref, atol=2e-4 * np.abs(ref).max())
 
@@ -294,8 +296,9 @@ def test_block_boundary_continuity(signal, kernel, block, monkeypatch):
     """Frame counts that are not multiples of the float64 block agree with
     a longer signal's prefix (tests/test_cqt.py:64)."""
     monkeypatch.setenv("ZAFTPU_CQT_BLOCK", block)
-    long = np.concatenate([signal, signal])
-    short_out = _np(tcqt.cqtspectrogram(signal, SR, TRES, kernel))
+    long = torch.from_numpy(np.concatenate([signal, signal]))
+    short_out = _np(tcqt.cqtspectrogram(torch.from_numpy(signal), SR, TRES,
+                                        kernel))
     long_out = _np(tcqt.cqtspectrogram(long, SR, TRES, kernel))
     step = round(SR / TRES)
     safe = len(signal) // step - (kernel.fft_length // step + 1)
@@ -305,14 +308,16 @@ def test_block_boundary_continuity(signal, kernel, block, monkeypatch):
 
 def test_block_size_does_not_change_the_f64_result(signal, kernel,
                                                     monkeypatch):
-    ref = _np(tcqt.cqtspectrogram(signal, SR, TRES, kernel))
+    x = torch.from_numpy(signal)
+    ref = _np(tcqt.cqtspectrogram(x, SR, TRES, kernel))
     monkeypatch.setenv("ZAFTPU_CQT_BLOCK", "4")
     np.testing.assert_allclose(
-        _np(tcqt.cqtspectrogram(signal, SR, TRES, kernel)), ref, rtol=0,
+        _np(tcqt.cqtspectrogram(x, SR, TRES, kernel)), ref, rtol=0,
         atol=1e-15)
 
 
 def test_config_equals_positional(signal, kernel):
+    signal = torch.from_numpy(signal)
     cfg = CqtConfig()
     np.testing.assert_array_equal(
         _np(tcqt.cqtspectrogram(signal, config=cfg)),
@@ -355,6 +360,8 @@ def test_validation_errors_match_zaftpu(case, kernel):
 
     def call(module, kern, cfg):
         a = tuple(kern if isinstance(v, str) else v for v in args)
+        if module is tcqt:  # the port's signal as a CPU tensor
+            a = (torch.from_numpy(a[0]), *a[1:])
         kw = {k: cfg for k in kwargs}
         return lambda: getattr(module, fn)(*a, **kw)
 

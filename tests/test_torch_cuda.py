@@ -1,8 +1,9 @@
 """zaftpu_torch's CUDA kernels on the card: each against its plain version
 (batched, ragged, general-hop and misaligned inputs), launch counts, the
 stft/istft, mdct/imdct, spectrogram/mel/MFCC and CQT paths against the CPU
-float64 path, the mirror and full-spectrum levers, and the inputs the CUDA
-path refuses.
+float64 path, the mirror, full-spectrum and two-output levers, the split4
+twins and the split4 dial, the device rule, and the inputs the CUDA path
+refuses.
 
 Every test needs an NVIDIA GPU (marker ``cuda``) and skips without one.
 This file imports neither JAX nor zaftpu, so on a machine without JAX it
@@ -378,8 +379,8 @@ def test_cqt_magnitudes_on_a_misaligned_signal(dev, cqt_cache):
 def test_cqt_on_card_matches_cpu_f64(dev, cqt_cache):
     cfg = zaftpu_torch.CqtConfig()
     x = np.random.default_rng(6).standard_normal((2, 3 * 44100))
-    ref = zaftpu_torch.cqtspectrogram(x, config=cfg)
-    ref_chroma = zaftpu_torch.cqtchromagram(x, config=cfg)
+    ref = zaftpu_torch.cqtspectrogram(torch.from_numpy(x), config=cfg)
+    ref_chroma = zaftpu_torch.cqtchromagram(torch.from_numpy(x), config=cfg)
     x32 = torch.from_numpy(x.astype(np.float32)).to(dev)
     before = (cqtslab.cqt_magnitudes.launches,
               cqtslab.cqt_magnitudes_plain.calls)
@@ -466,3 +467,185 @@ def test_mirror_and_fullspec_levers_on_card_bit_equal_default(
     assert {k for k, v in launches().items() if v != before[k]} == moved
     assert torch.equal(spec, ref)
     assert torch.equal(rec, ref_rec)
+
+
+# The split4 twins (ZAFTPU_PRECISION=split4) and B12.
+
+S4_SHAPES = SHAPES + [(512, 256, 37)]
+
+
+@pytest.mark.parametrize("wl,step,t", S4_SHAPES)
+@pytest.mark.parametrize("lead", [(), (2, 3)])
+@pytest.mark.parametrize("offset", [0, 1])
+def test_split4_analysis_twins_match_plain(dev, wl, step, t, lead, offset):
+    """B1's, B2's, B3's and B12's twins against their plain versions, B3's
+    and B12's bit-equal to B1's twin (with the mirror), on aligned and
+    misaligned (scalar-load) signals."""
+    padded, win = _inputs(wl, step, t, dev, lead, offset)
+    args = (padded, win, wl, step, t)
+    half = fused.frames_rfft_split4(*args)
+    ref = fused.frames_rfft_split4_plain(*args)
+    assert half.shape == ref.shape and _rel_err(half, ref) < 2e-5
+    full = fused.frames_rfft_full_split4(*args)
+    assert torch.equal(full, tfft.conjugate_mirror(half, wl))
+    assert _rel_err(full, fused.frames_rfft_full_split4_plain(*args)) < 2e-5
+    re, im = fused.frames_matmul2_split4(*args)
+    assert torch.equal(torch.complex(re, im), half)
+    pre, pim = fused.frames_matmul2_split4_plain(*args)
+    assert _rel_err(torch.stack((re, im)), torch.stack((pre, pim))) < 2e-5
+    if wl % 2 == 0:
+        ops = policy.presplit(torch.from_numpy(
+            tmdct._direct_forward_ops_padded(wl)).to(dev))
+        got = fused.frames_op_split4(padded, win, ops, wl // 2, wl, step, t)
+        ref = fused.frames_op_split4_plain(padded, win, ops, wl // 2, wl,
+                                           step, t)
+        assert got.shape == ref.shape and _rel_err(got, ref) < 2e-5
+
+
+@pytest.mark.parametrize("wl,step,t", SHAPES)
+@pytest.mark.parametrize("lead", [(), (2, 3)])
+def test_frames_matmul2_bitwise_vs_frames_rfft(dev, wl, step, t, lead):
+    padded, win = _inputs(wl, step, t, dev, lead)
+    re, im = fused.frames_matmul2(padded, win, wl, step, t)
+    assert re.shape == (*lead, t, wl // 2 + 1)
+    half = fused.frames_rfft(padded, win, wl, step, t)
+    assert torch.equal(torch.complex(re, im), half)
+    pre, pim = fused.frames_matmul2_plain(padded, win, wl, step, t)
+    assert _rel_err(torch.stack((re, im)), torch.stack((pre, pim))) < 2e-5
+
+
+@pytest.mark.parametrize("wl,step,t", S4_SHAPES)
+@pytest.mark.parametrize("lead", [(), (2, 3)])
+def test_split4_synthesis_twins_match_plain(dev, wl, step, t, lead):
+    rng = np.random.default_rng(wl + t)
+    f = wl // 2 + 1
+    h = torch.from_numpy(rng.standard_normal((2, *lead, t, f)).astype(
+        np.float32)).to(dev)
+    got = synth.istft_ola_split4(h[0], h[1], wl, step, 0.5)
+    ref = synth.istft_ola_split4_plain(h[0], h[1], wl, step, 0.5)
+    assert got.shape == ref.shape and _rel_err(got, ref) < 2e-5
+    if wl % 2 == 0:
+        c = torch.from_numpy(rng.standard_normal((*lead, t, wl // 2)).astype(
+            np.float32)).to(dev)
+        wb = vorbis(wl).tobytes()
+        got = synth.imdct_ola_split4(c, wl // 2, wb)
+        ref = synth.imdct_ola_split4_plain(c, wl // 2, wb)
+        assert got.shape == ref.shape and _rel_err(got, ref) < 2e-5
+
+
+def _split4_launches():
+    return {"fused_split4": fused.frames_rfft_split4.launches,
+            "synth_split4": synth.istft_ola_split4.launches,
+            "frames_op_split4": fused.frames_op_split4.launches,
+            "imdct_ola_split4": synth.imdct_ola_split4.launches,
+            "fused": fused.frames_rfft.launches,
+            "synth": synth.istft_ola.launches,
+            "frames_op": fused.frames_op.launches,
+            "imdct_ola": synth.imdct_ola.launches}
+
+
+def test_split4_paths_on_card_match_cpu_f64(dev, monkeypatch):
+    """stft -> istft and mdct -> imdct under split4 on the card: the twins
+    launch (and no exact kernel), the outputs sit within 1e-4 of max of the
+    CPU float64 path, the round trips in (100, 125) dB."""
+    rng = np.random.default_rng(11)
+    x = rng.standard_normal((2, 44100))
+    hw, vw = hamming(2048), vorbis(2048)
+    ref_spec = zaftpu_torch.stft(torch.from_numpy(x), hw, 1024)
+    ref_coeffs = zaftpu_torch.mdct(torch.from_numpy(x), vw)
+    monkeypatch.setenv("ZAFTPU_PRECISION", "split4")
+    x32 = torch.from_numpy(x.astype(np.float32)).to(dev)
+    before = _split4_launches()
+    spec = zaftpu_torch.stft(x32, hw, 1024)
+    rec = zaftpu_torch.istft(spec, hw, 1024)
+    coeffs = zaftpu_torch.mdct(x32, vw)
+    rec2 = zaftpu_torch.imdct(coeffs, vw)
+    moved = {k for k, v in _split4_launches().items() if v != before[k]}
+    assert moved == {"fused_split4", "synth_split4", "frames_op_split4",
+                     "imdct_ola_split4"}
+    assert _rel_err(spec.cpu().to(torch.complex128), ref_spec) < 1e-4
+    assert _rel_err(coeffs.cpu().double(), ref_coeffs) < 1e-4
+    for r in (rec, rec2):
+        err = r.cpu().double()[..., :x.shape[-1]] - torch.from_numpy(x)
+        snr = 10 * np.log10((x ** 2).sum() / float((err ** 2).sum()))
+        assert 100.0 < snr < 125.0
+
+
+@pytest.mark.parametrize("lever", ["ZAFTPU_FUSED2", "ZAFTPU_FULLSPEC"])
+@pytest.mark.parametrize("dial", ["highest", "split4"])
+def test_fused2_and_fullspec_levers_on_card_bit_equal(dev, lever, dial,
+                                                      monkeypatch):
+    monkeypatch.setenv("ZAFTPU_PRECISION", dial)
+    x = torch.from_numpy(np.random.default_rng(12).standard_normal(
+        (2, 44100)).astype(np.float32)).to(dev)
+    win = hamming(2048)
+    ref = zaftpu_torch.stft(x, win, 1024)
+    monkeypatch.setenv(lever, "1")
+    kernel = {("ZAFTPU_FUSED2", "highest"): fused.frames_matmul2,
+              ("ZAFTPU_FUSED2", "split4"): fused.frames_matmul2_split4,
+              ("ZAFTPU_FULLSPEC", "highest"): fused.frames_rfft_full,
+              ("ZAFTPU_FULLSPEC", "split4"): fused.frames_rfft_full_split4
+              }[lever, dial]
+    before = kernel.launches
+    spec = zaftpu_torch.stft(x, win, 1024)
+    assert kernel.launches == before + 1
+    assert torch.equal(spec, ref)
+
+
+ENTRY_POINTS = ["stft", "istft", "spectrogram", "mdct", "imdct",
+                "melspectrogram", "mfcc", "cqtspectrogram", "cqtchromagram"]
+
+
+@pytest.mark.parametrize("name", ENTRY_POINTS)
+def test_numpy_input_runs_on_the_card(dev, name, cqt_cache):
+    """The device rule: a numpy signal (spectrum, coefficients) goes to the
+    card; the same input as a CPU tensor stays on the CPU."""
+    rng = np.random.default_rng(13)
+    x = rng.standard_normal(8000).astype(np.float32)
+    win, vw = hamming(512), vorbis(512)
+    fb = zaftpu_torch.melfilterbank(8000, 512, 20)
+    kern = zaftpu_torch.cqtkernel(8000, 12, 110.0, 880.0)
+    spec = zaftpu_torch.stft(torch.from_numpy(x), win, 256).numpy()
+    coeffs = zaftpu_torch.mdct(torch.from_numpy(x), vw).numpy()
+    calls = {
+        "stft": lambda a: zaftpu_torch.stft(a, win, 256),
+        "istft": lambda a: zaftpu_torch.istft(a, win, 256),
+        "spectrogram": lambda a: zaftpu_torch.spectrogram(a, win, 256),
+        "mdct": lambda a: zaftpu_torch.mdct(a, vw),
+        "imdct": lambda a: zaftpu_torch.imdct(a, vw),
+        "melspectrogram": lambda a: zaftpu_torch.melspectrogram(
+            a, win, 256, fb),
+        "mfcc": lambda a: zaftpu_torch.mfcc(a, win, 256, fb, 12),
+        "cqtspectrogram": lambda a: zaftpu_torch.cqtspectrogram(
+            a, 8000, 25, kern),
+        "cqtchromagram": lambda a: zaftpu_torch.cqtchromagram(
+            a, 8000, 25, 12, kern),
+    }
+    data = {"istft": spec, "imdct": coeffs}.get(name, x)
+    assert calls[name](data).is_cuda
+    assert calls[name](torch.from_numpy(data)).device.type == "cpu"
+
+
+@pytest.mark.parametrize("value", ["high", "default"])
+def test_tpu_pass_count_dials_refused_on_cuda(dev, value, monkeypatch):
+    monkeypatch.setenv("ZAFTPU_PRECISION", value)
+    x = torch.zeros(8192, device=dev)
+    with pytest.raises(NotImplementedError, match=value):
+        zaftpu_torch.stft(x, hamming(512), 256)
+    with pytest.raises(NotImplementedError, match=value):
+        zaftpu_torch.mdct(x, vorbis(512))
+
+
+def test_forced_mel_kernel_under_split4_raises_on_cuda(dev, monkeypatch):
+    """ZAFTPU_MELFUSE=1 under split4: spec_rows runs exact (no twin), the
+    mel kernel's twin is not ported and raises."""
+    monkeypatch.setenv("ZAFTPU_PRECISION", "split4")
+    monkeypatch.setenv("ZAFTPU_MELFUSE", "1")
+    x = torch.from_numpy(np.random.default_rng(14).standard_normal(
+        8192).astype(np.float32)).to(dev)
+    before = melfused.spec_rows.launches
+    zaftpu_torch.spectrogram(x, hamming(512), 256)
+    assert melfused.spec_rows.launches == before + 1
+    with pytest.raises(NotImplementedError, match="split4"):
+        zaftpu_torch.melspectrogram(x, hamming(512), 256,
+                                    zaftpu_torch.melfilterbank(8000, 512, 20))

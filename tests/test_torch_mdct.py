@@ -179,7 +179,7 @@ def test_contiguous_and_transposed_views_agree(signal, vorbis_window):
 
 def test_array_and_tensor_windows_agree(signal, vorbis_window):
     x = torch.from_numpy(signal)
-    a = zaftpu_torch.mdct(signal, vorbis_window)
+    a = zaftpu_torch.mdct(x, vorbis_window)
     b = zaftpu_torch.mdct(x, torch.from_numpy(vorbis_window))
     torch.testing.assert_close(a, b, rtol=0, atol=0)
     ra = zaftpu_torch.imdct(a, torch.from_numpy(vorbis_window))
@@ -228,9 +228,11 @@ def test_validation_errors_match_zaftpu(case):
         "imdct_no_window": ("imdct", (coeffs,), {}),
     }
     fn, args, kwargs = calls[case]
+    # The port's signal or coefficients as a CPU tensor (the device rule).
+    mine_args = (torch.tensor(np.asarray(args[0])), *args[1:])
     with pytest.raises(ValueError) as mine:
         getattr(zaftpu_torch, fn)(
-            *args, **{k: MdctConfig() for k in kwargs})
+            *mine_args, **{k: MdctConfig() for k in kwargs})
     with pytest.raises(ValueError) as ref:
         getattr(zaftpu, fn)(*args, **{k: zaftpu.MdctConfig() for k in kwargs})
     assert str(mine.value) == str(ref.value)
@@ -240,4 +242,5 @@ def test_outputs_stay_on_the_input_device(signal, vorbis_window):
     coeffs = zaftpu_torch.mdct(torch.from_numpy(signal), vorbis_window)
     rec = zaftpu_torch.imdct(coeffs, vorbis_window)
     assert coeffs.device.type == rec.device.type == "cpu"
-    assert isinstance(zaftpu_torch.mdct(signal, vorbis_window), torch.Tensor)
+    assert isinstance(zaftpu_torch.mdct(torch.from_numpy(signal),
+                                        list(vorbis_window)), torch.Tensor)

@@ -278,8 +278,11 @@ def test_validation_errors_match_zaftpu(case):
         "spec_missing": ("spectrogram", (SIG, win), {}),
     }
     fn, args, kwargs = calls[case]
+    # The port's signal as a CPU tensor (the device rule).
+    mine_args = (torch.tensor(np.asarray(args[0])), *args[1:])
     with pytest.raises(ValueError) as mine:
-        getattr(zaftpu_torch, fn)(*args, **{k: MelConfig() for k in kwargs})
+        getattr(zaftpu_torch, fn)(*mine_args,
+                                  **{k: MelConfig() for k in kwargs})
     with pytest.raises(ValueError) as ref:
         getattr(zaftpu, fn)(*args, **{k: zaftpu.MelConfig() for k in kwargs})
     assert str(mine.value) == str(ref.value)
@@ -289,6 +292,6 @@ def test_outputs_stay_on_the_input_device(signal, hamming_window, fbank):
     x = torch.from_numpy(signal)
     outs = (zaftpu_torch.spectrogram(x, hamming_window, STEP),
             zaftpu_torch.melspectrogram(x, hamming_window, STEP, fbank),
-            zaftpu_torch.mfcc(signal, hamming_window, STEP, fbank, COEFFS))
+            zaftpu_torch.mfcc(x, list(hamming_window), STEP, fbank, COEFFS))
     assert all(isinstance(o, torch.Tensor) and o.device.type == "cpu"
                for o in outs)

@@ -138,7 +138,7 @@ def test_istft_contiguous_and_transposed_views_agree(signal, hamming_window):
 
 def test_array_and_tensor_windows_agree(signal, hamming_window):
     x = torch.from_numpy(signal)
-    a = zaftpu_torch.stft(signal, hamming_window, STEP)
+    a = zaftpu_torch.stft(x, hamming_window, STEP)
     b = zaftpu_torch.stft(x, torch.from_numpy(hamming_window), STEP)
     torch.testing.assert_close(a, b, rtol=0, atol=0)
     ra = zaftpu_torch.istft(a, torch.from_numpy(hamming_window), STEP)
@@ -173,7 +173,8 @@ def test_quarter_hop_reference_offset(golden):
     x = golden["signal"][:44100].astype(np.float64)
     wl, step = 2048, 512
     win = hamming(wl)
-    rec = _np(zaftpu_torch.istft(zaftpu_torch.stft(x, win, step), win, step))
+    rec = _np(zaftpu_torch.istft(zaftpu_torch.stft(torch.from_numpy(x), win,
+                                                   step), win, step))
     off = (wl - step) - wl // 2
     n = min(len(x) - off, len(rec))
     err = rec[:n] - x[off:off + n]
@@ -212,7 +213,9 @@ def test_validation_errors_match_zaftpu(case):
         "istft_non_cola": ("istft", (spec, bad_cola, 128)),
     }
     fn, args = calls[case]
-    _same_error(lambda: getattr(zaftpu_torch, fn)(*args),
+    # The port's signal or spectrum as a CPU tensor (the device rule).
+    mine = (torch.tensor(np.asarray(args[0])), *args[1:])
+    _same_error(lambda: getattr(zaftpu_torch, fn)(*mine),
                 lambda: getattr(zaftpu, fn)(*args))
 
 
@@ -220,7 +223,8 @@ def test_outputs_stay_on_the_input_device(signal, hamming_window):
     spec = zaftpu_torch.stft(torch.from_numpy(signal), hamming_window, STEP)
     rec = zaftpu_torch.istft(spec, hamming_window, STEP)
     assert spec.device.type == rec.device.type == "cpu"
-    assert isinstance(zaftpu_torch.stft(signal, hamming_window, STEP),
+    assert isinstance(zaftpu_torch.stft(torch.from_numpy(signal),
+                                        list(hamming_window), STEP),
                       torch.Tensor)
 
 
@@ -277,6 +281,7 @@ def test_fullspec_needs_the_fused_analysis(signal, hamming_window,
     monkeypatch.setenv("ZAFTPU_FUSED", "0")
     before = (tfused.frames_rfft_full_plain.calls,
               tframing.frame_window_plain.calls)
-    zaftpu_torch.stft(signal.astype(np.float32), hamming_window, STEP)
+    zaftpu_torch.stft(torch.from_numpy(signal.astype(np.float32)),
+                      hamming_window, STEP)
     assert (tfused.frames_rfft_full_plain.calls,
             tframing.frame_window_plain.calls) == (before[0], before[1] + 1)

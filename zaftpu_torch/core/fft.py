@@ -21,7 +21,7 @@ from functools import lru_cache
 import numpy as np
 import torch
 
-from zaftpu_torch.core.policy import exact_matmul
+from zaftpu_torch.core.policy import presplit, presplit_host, real_matmul
 
 
 @lru_cache(maxsize=8)
@@ -51,19 +51,36 @@ def _direct_ridft_half_mats(n: int, rdtype_name: str, scale: float = 1.0):
             (np.sin(ang) * row_scale).astype(rdtype_name))
 
 
-@lru_cache(maxsize=16)
+@lru_cache(maxsize=32)
 def device_operator(builder, args: tuple, device: torch.device,
-                    dtype: torch.dtype):
+                    dtype: torch.dtype, presplit: bool = False):
     """``builder(*args)`` uploaded to ``device`` as ``dtype``, once per key.
 
     ``builder`` returns a numpy array or a tuple of them (already in the
-    target precision, so the upload only copies)."""
+    target precision, so the upload only copies). ``presplit`` (the split4
+    dial's operators) uploads the ``(2, ...)`` bf16 hi/lo stack of the
+    float32 array instead (:func:`zaftpu_torch.core.policy.presplit_host`);
+    the dial is part of the key."""
     host = builder(*args)
+    if presplit:
+        host = presplit_host(host)
     if isinstance(host, tuple):
         return tuple(torch.from_numpy(np.ascontiguousarray(h)).to(
             device=device, dtype=dtype) for h in host)
     return torch.from_numpy(np.ascontiguousarray(host)).to(device=device,
                                                            dtype=dtype)
+
+
+def presplit_operator(ops: torch.Tensor | None, builder=None,
+                      args: tuple = (), device=None) -> torch.Tensor:
+    """A split4 twin's operator: ``ops`` as given when it is already the
+    presplit bf16 stack, split on the host when it is float32, or when
+    ``None`` the cached presplit stack of the float32 array
+    ``builder(*args)`` on ``device``."""
+    if ops is None:
+        return device_operator(builder, args, torch.device(device),
+                               torch.bfloat16, presplit=True)
+    return ops if ops.dtype == torch.bfloat16 else presplit(ops)
 
 
 def _real_name(dtype: torch.dtype) -> str:
@@ -182,17 +199,20 @@ def ridft_half_mats(n: int, dtype: torch.dtype, device,
 
 def direct_rfft(x: torch.Tensor) -> torch.Tensor:
     """Real DFT of frames ``(..., N)`` as two GEMMs against the cos/sin
-    operators: ``X = x @ C + i * (x @ S)``, ``(..., N/2+1)`` complex."""
+    operators: ``X = x @ C + i * (x @ S)``, ``(..., N/2+1)`` complex. The
+    GEMMs honour the precision dial (``policy.real_matmul``), as
+    ``zaftpu.core.fft.direct_rfft``'s do."""
     cos_m, sin_m = rdft_mats(x.shape[-1], x.dtype, x.device)
-    return torch.complex(exact_matmul(x, cos_m), exact_matmul(x, sin_m))
+    return torch.complex(real_matmul(x, cos_m), real_matmul(x, sin_m))
 
 
 def direct_real_ifft_folded(h_re: torch.Tensor, h_im: torch.Tensor, n: int,
                             scale: float = 1.0) -> torch.Tensor:
     """``h_re @ C - h_im @ S`` over pre-folded planes ``(..., N/2+1)``:
-    frames ``(..., N)`` of ``real(ifft(Z)) * scale``."""
+    frames ``(..., N)`` of ``real(ifft(Z)) * scale``, the GEMMs honouring
+    the precision dial."""
     cos_m, sin_m = ridft_half_mats(n, h_re.dtype, h_re.device, scale)
-    return exact_matmul(h_re, cos_m) - exact_matmul(h_im, sin_m)
+    return real_matmul(h_re, cos_m) - real_matmul(h_im, sin_m)
 
 
 def direct_real_ifft(z: torch.Tensor, scale: float = 1.0) -> torch.Tensor:

@@ -1,10 +1,22 @@
-"""Matmul precision: the exact dial only.
+"""Matmul precision: the exact dial and ``ZAFTPU_PRECISION=split4``.
 
-Every product in the port is a true FP32 product, as ``zaftpu``'s HIGHEST
-default is (its docs/perf.md, "Matmul precision on TPU"). The kernels use
-FP32 FMAs. The one ``torch.matmul`` on the path, the split path's DFT GEMM,
-refuses to run on CUDA where PyTorch would lower float32 to TF32, which
-keeps about three decimal digits, rather than quietly losing them.
+``ZAFTPU_PRECISION`` (the port of ``zaftpu.core.policy.matmul_precision``
+and ``split4_enabled``, policy.py:96-200):
+
+* ``highest`` (default): every product is a true FP32 product, as
+  ``zaftpu``'s HIGHEST is (its docs/perf.md, "Matmul precision on TPU").
+  The kernels use FP32 FMAs; :func:`exact_matmul` refuses to run on CUDA
+  where PyTorch would lower float32 to TF32, which keeps about three
+  decimal digits, rather than quietly losing them.
+* ``split4``: float32 operator GEMMs at least 256 columns wide run the
+  4-pass bf16 hi/lo scheme, ``((al·bl + al·bh) + ah·bl) + ah·bh`` with
+  float32 sums (:func:`split4_matmul`, :func:`real_matmul`); about 104 dB
+  against float64 at 4 bf16 passes. On the card the analysis and synthesis
+  kernels run it on the tensor cores. Float64 never lowers.
+* ``high`` and ``default`` are pass counts of the TPU's matrix unit that
+  ``zaftpu`` keeps for A/B runs. On the CPU they run the exact path, as
+  ``zaftpu``'s CPU backend does; on CUDA :func:`check_cuda_dial` refuses
+  them.
 
 Summation: a float32 GEMM on the card sums its contraction in one running
 sum (the fused kernel matched cuBLAS bit for bit at WL 2048), which cost
@@ -16,9 +28,46 @@ their 16-wide slices.
 
 from __future__ import annotations
 
+import os
+
+import numpy as np
 import torch
 
 K_BLOCK = 256
+PRECISIONS = ("default", "high", "highest", "split4")
+SPLIT4_MIN_COLS = 256  # narrower operator GEMMs are bandwidth-bound
+
+
+def precision() -> str:
+    """``ZAFTPU_PRECISION`` (default ``highest``), checked."""
+    env = os.environ.get("ZAFTPU_PRECISION", "highest").lower()
+    if env not in PRECISIONS:
+        raise ValueError(
+            f"ZAFTPU_PRECISION must be default/high/highest/split4, "
+            f"got {env!r}")
+    return env
+
+
+def split4_enabled() -> bool:
+    """True when ``ZAFTPU_PRECISION=split4`` selects the 4-pass bf16-split
+    GEMM for real float32 operator matmuls."""
+    return precision() == "split4"
+
+
+def split4_applies(dtype: torch.dtype) -> bool:
+    """Does the dial lower a GEMM on ``dtype`` operands? Only float32 under
+    split4: the float64 oracle never lowers."""
+    return dtype == torch.float32 and split4_enabled()
+
+
+def check_cuda_dial() -> None:
+    """Raise ``NotImplementedError`` on CUDA for the TPU pass-count dials
+    ``high`` and ``default``, which the port has no kernels for."""
+    dial = precision()
+    if dial in ("high", "default"):
+        raise NotImplementedError(
+            f"ZAFTPU_PRECISION={dial} is a TPU matrix-unit pass count; the "
+            "CUDA path runs highest or split4")
 
 
 def check_exact(x: torch.Tensor) -> None:
@@ -44,3 +93,75 @@ def exact_matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     for k0 in range(K_BLOCK, k, K_BLOCK):
         out.addmm_(a2[:, k0:k0 + K_BLOCK], b[k0:k0 + K_BLOCK])
     return out.reshape(*a.shape[:-1], b.shape[-1])
+
+
+def bf16_split(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """Exact bf16 pair ``(hi, lo)`` of a float32 tensor, ``x = hi + lo +
+    eps`` with ``|eps| ~ 2^-17 |x|``: ``hi`` rounds ``x`` to nearest even
+    (``zaftpu``'s ``reduce_precision(8, 7)``), ``lo`` the exact float32
+    difference."""
+    hi = x.to(torch.bfloat16)
+    return hi, (x - hi.float()).to(torch.bfloat16)
+
+
+def _round_bf16_host(f32: np.ndarray) -> np.ndarray:
+    """float32 rounded to the nearest bf16 value, ties to even, as float32
+    (the uint32 bit trick of ``zaftpu.pallas.fused._bf16_split_host``)."""
+    bits = f32.view(np.uint32)
+    lsb = (bits >> 16) & 1
+    return ((bits + 0x7FFF + lsb) & 0xFFFF0000).astype(np.uint32).view(
+        np.float32)
+
+
+def bf16_split_host(m: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
+    """Host twin of :func:`bf16_split` in numpy, without a bf16 dtype:
+    float32 ``(hi, lo)`` arrays whose values are bf16 values, so they turn
+    into bf16 tensors exactly. ``hi`` is ``zaftpu``'s ``_bf16_split_host``
+    hi; ``lo`` its float32 difference rounded the same way, as its
+    ``astype(bfloat16)`` rounds it."""
+    f32 = np.ascontiguousarray(m, dtype=np.float32)
+    hi = _round_bf16_host(f32)
+    return hi, _round_bf16_host(f32 - hi)
+
+
+def presplit_host(ops: np.ndarray) -> np.ndarray:
+    """``(2, *ops.shape)`` float32 stack of :func:`bf16_split_host`'s hi
+    then lo: the kernels' presplit operator layout, halves outermost."""
+    return np.stack(bf16_split_host(ops))
+
+
+def presplit(ops: torch.Tensor) -> torch.Tensor:
+    """A float32 operator as the ``(2, *ops.shape)`` bf16 hi/lo stack on
+    its device (split on the host, as the kernels' operators are)."""
+    host = presplit_host(ops.detach().to("cpu", torch.float32).numpy())
+    return torch.from_numpy(host).to(device=ops.device, dtype=torch.bfloat16)
+
+
+def split4_matmul_presplit(a: torch.Tensor, b_hi: torch.Tensor,
+                           b_lo: torch.Tensor) -> torch.Tensor:
+    """``a @ b`` as four bf16 x bf16 GEMMs with float32 sums, ``b`` given
+    presplit: ``((al·bl + al·bh) + ah·bl) + ah·bh``, smallest first, each an
+    :func:`exact_matmul` of the float32-cast halves (a product of two bf16
+    values is exact in FP32, so these are the tensor cores' products)."""
+    ah, al = (h.float() for h in bf16_split(a))
+    bh, bl = b_hi.float(), b_lo.float()
+    return (((exact_matmul(al, bl) + exact_matmul(al, bh))
+             + exact_matmul(ah, bl)) + exact_matmul(ah, bh))
+
+
+def split4_matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``a @ b`` by the 4-pass bf16-split scheme (``zaftpu.core.policy.
+    _split4_matmul``), both float32 operands split here."""
+    return split4_matmul_presplit(a, *bf16_split(b))
+
+
+def real_matmul(a: torch.Tensor, b: torch.Tensor,
+                bandwidth_bound: bool = False) -> torch.Tensor:
+    """Real-operand GEMM honouring the dial, with ``zaftpu``'s routing:
+    :func:`split4_matmul` under split4 when both operands are float32,
+    ``b`` is at least :data:`SPLIT4_MIN_COLS` wide and the GEMM is not
+    marked ``bandwidth_bound``; otherwise :func:`exact_matmul`."""
+    if (not bandwidth_bound and b.shape[-1] >= SPLIT4_MIN_COLS
+            and b.dtype == torch.float32 and split4_applies(a.dtype)):
+        return split4_matmul(a, b)
+    return exact_matmul(a, b)

@@ -112,7 +112,7 @@ def mel_rows_fused_or_none(x: torch.Tensor, window: torch.Tensor,
     :func:`zaftpu_torch.kernels.melfused.kernel_wanted`; ``None`` selects
     the split half-spectrum path. ``x`` and ``window`` as
     :func:`zaftpu_torch.transforms.stft._analysis_inputs` gives them."""
-    if not _melfused.kernel_wanted():
+    if not _melfused.kernel_wanted(x.dtype):
         return None
     wl = window.shape[0]
     padded, t = centre_padded(x, wl, step)

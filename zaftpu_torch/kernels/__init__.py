@@ -6,7 +6,7 @@ machinery: a CPU tensor always takes the kernels' plain PyTorch versions,
 and a CUDA tensor always launches a kernel or raises. No path catches a
 kernel failure and carries on.
 
-Five levers choose the kernels, with ``zaftpu``'s names and meaning:
+Six levers choose the kernels, with ``zaftpu``'s names and meaning:
 
 * ``ZAFTPU_FUSED=0``: framing kernel + ``torch.matmul`` GEMM instead of
   the fused analysis kernels (STFT and MDCT);
@@ -19,12 +19,26 @@ Five levers choose the kernels, with ``zaftpu``'s names and meaning:
   the conjugate mirror in its store (``fused.frames_rfft_full``), instead
   of the half-spectrum kernel and a separate mirror; off by default, and
   only with the fused analysis on;
+* ``ZAFTPU_FUSED2=1``: the half spectrum through the two-output analysis
+  kernel (``fused.frames_matmul2``, both components as float32 planes)
+  instead of the complex-store one; off by default, equal values;
 * ``ZAFTPU_MIRROR=pallas``: the STFT's conjugate mirror and the ISTFT's
   Hermitian fold run as kernels (:mod:`zaftpu_torch.kernels.mirror`)
   instead of PyTorch index ops; off by default.
 
-The first three default to the fused kernels, the last two to off. The CQT
-has no lever: a CUDA float32 CQT always runs ``cqtslab.cqt_magnitudes``.
+The first three default to the fused kernels, the last three to off.
+
+One dial sets the arithmetic, ``ZAFTPU_PRECISION``
+(:mod:`zaftpu_torch.core.policy`): ``highest`` (default) runs the exact
+FP32 kernels; ``split4`` runs every float32 analysis and synthesis kernel
+above as its split4 twin (four bf16 passes on the tensor cores, float32
+sums) and the split dispatch's wide GEMMs as ``policy.split4_matmul``.
+Under split4 the magnitude and mel front ends take the half spectrum of
+the analysis kernel unless ``ZAFTPU_MELFUSE=1`` forces their kernels, as
+in ``zaftpu``. ``high`` and ``default`` are refused on CUDA. The CQT has no
+lever and no split4 twin yet: a CUDA float32 CQT always runs the exact
+``cqtslab.cqt_magnitudes`` (``zaftpu`` defaults its CQT to split4 on the
+TPU).
 """
 
 from __future__ import annotations
@@ -34,7 +48,7 @@ import os
 import torch
 
 from zaftpu_torch.core import fft as _fft
-from zaftpu_torch.core.policy import exact_matmul
+from zaftpu_torch.core.policy import check_cuda_dial, real_matmul
 from zaftpu_torch.kernels import framing as _framing
 from zaftpu_torch.kernels import fused as _fused
 from zaftpu_torch.kernels import mirror as _mirror
@@ -56,10 +70,12 @@ def synth_enabled() -> bool:
 
 def check_device_input(x: torch.Tensor, window_length: int) -> None:
     """Raise ``NotImplementedError`` for a CUDA input the kernels do not
-    take: anything but float32 (complex64 spectra) or a window above
-    :data:`MAX_WINDOW`. CPU inputs are always taken."""
+    take: anything but float32 (complex64 spectra), a window above
+    :data:`MAX_WINDOW`, or the TPU-only dials ``high`` and ``default``.
+    CPU inputs are always taken."""
     if not x.is_cuda:
         return
+    check_cuda_dial()
     if x.dtype not in (torch.float32, torch.complex64):
         raise NotImplementedError(
             f"the CUDA path takes float32 signals and complex64 spectra, got "
@@ -102,19 +118,6 @@ def windowed_frames_rfft_fullspec(padded, window, window_length: int,
     return None
 
 
-def windowed_frames_op(padded, window, ops, n_cols: int, window_length: int,
-                       step: int, number_times: int):
-    """Windowed overlapped frames times one real operator ``(1, WL, F_pad)``
-    -> ``(..., T, n_cols)``: the fused kernel, or with ``ZAFTPU_FUSED=0``
-    the framing kernel followed by the GEMM."""
-    if fused_enabled():
-        return _fused.frames_op(padded, window, ops, n_cols, window_length,
-                                step, number_times)
-    frames = windowed_frames(padded, window, window_length, step,
-                             number_times)
-    return exact_matmul(frames, ops[0, :, :n_cols])
-
-
 def overlap_add(frames, step: int):
     """Overlap-add ``(..., T, WL)`` frames into
     ``(..., T*step + WL - step)``."""
@@ -145,8 +148,8 @@ def imdct_synthesis(coeffs, f: int, window_bytes: bytes):
     ``overlap_add(coeffs @ M_w, F)`` with M_w the window-folded inverse
     operator (keyed by the float64 window's bytes), ``(..., T*F + F)``
     before the trim. The fused synthesis kernel, or with ``ZAFTPU_SYNTH=0``
-    the inverse GEMM followed by the OLA kernel."""
+    the inverse GEMM (honouring the dial) followed by the OLA kernel."""
     if synth_enabled():
         return _synth.imdct_ola(coeffs, f, window_bytes)
     ops = _synth.imdct_ops(f, window_bytes, coeffs.dtype, coeffs.device)
-    return overlap_add(exact_matmul(coeffs, ops[:f]), f)
+    return overlap_add(real_matmul(coeffs, ops[:f]), f)

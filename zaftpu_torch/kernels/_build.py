@@ -37,15 +37,18 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _LL = ctypes.c_longlong
 
+_FRAMES = (_P, _P, _P, _P, _I, _LL, _I, _I, _I, _I, _I, _P)
+_GEMM_OLA = (_P, _P, _P, _I, _I, _I, _I, _I, _P)
+
 # C entry point -> argument types (pointers and the stream as c_void_p).
 SIGNATURES = {
     "zt_frame_window": (_P, _P, _P, _I, _LL, _I, _I, _I, _P),
     "zt_overlap_add": (_P, _P, _I, _I, _I, _I, _P),
-    "zt_frames_rfft": (_P, _P, _P, _P, _I, _LL, _I, _I, _I, _I, _I, _P),
-    "zt_frames_op": (_P, _P, _P, _P, _I, _LL, _I, _I, _I, _I, _I, _P),
-    "zt_frames_rfft_full": (_P, _P, _P, _P, _I, _LL, _I, _I, _I, _I, _I,
-                            _P),
-    "zt_gemm_ola": (_P, _P, _P, _I, _I, _I, _I, _I, _P),
+    **{f"zt_frames_{kind}{twin}": _FRAMES
+       for kind in ("rfft", "op", "rfft_full", "planes")
+       for twin in ("", "_split4")},
+    "zt_gemm_ola": _GEMM_OLA,
+    "zt_gemm_ola_split4": _GEMM_OLA,
     "zt_spec_rows": (_P, _P, _P, _P, _I, _LL, _I, _I, _I, _I, _I, _P),
     "zt_mel_rows": (_P, _P, _P, _P, _P, _P, _I, _LL, _I, _I, _I, _I, _I, _I,
                     _I, _P),

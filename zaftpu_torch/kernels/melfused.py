@@ -10,6 +10,13 @@ the plain versions alike, not complex ``abs``, which may round otherwise at
 the last ulp. The filterbank GEMM is full FP32, as ``zaftpu`` runs it at
 HIGHEST in every precision mode.
 
+Under ``ZAFTPU_PRECISION=split4`` the front ends leave these kernels for
+the split4 half spectrum (:func:`kernel_wanted`), as ``zaftpu``'s do. Forced
+with ``ZAFTPU_MELFUSE=1``, ``spec_rows`` stays exact (it has no split4
+twin, in ``zaftpu`` either) and ``mel_rows`` takes the split4 rDFT in its
+plain version, as ``zaftpu``'s ``_kernel_split4`` does; its CUDA twin is
+not ported yet, so on CUDA it raises.
+
 ``ZAFTPU_MELFUSE=0`` is ``zaftpu``'s A/B lever: ``spectrogram``,
 ``melspectrogram`` and ``mfcc`` then take the split path (the half spectrum
 from the analysis dispatch, ``|·|`` and ``exact_matmul``).
@@ -25,10 +32,10 @@ import torch
 
 from zaftpu_torch.core import fft as _fft
 from zaftpu_torch.core.frame import extract_frames
-from zaftpu_torch.core.policy import exact_matmul
+from zaftpu_torch.core.policy import exact_matmul, presplit, split4_applies
 from zaftpu_torch.kernels import _build
 from zaftpu_torch.kernels.framing import check_frame_args
-from zaftpu_torch.kernels.fused import (TILE_BINS, TILE_FRAMES,
+from zaftpu_torch.kernels.fused import (TILE_BINS, TILE_FRAMES, _products,
                                         padded_cols)
 
 CUDA_SOURCE = "zaftpu_torch/csrc/melfused.cu"
@@ -41,11 +48,15 @@ def enabled() -> bool:
     return os.environ.get("ZAFTPU_MELFUSE", "auto") != "0"
 
 
-def kernel_wanted() -> bool:
-    """Take the one-pass kernels? Yes unless ``ZAFTPU_MELFUSE=0``. Unlike
-    ``zaftpu``'s there is no hop, rank or operator-size condition: the
-    kernels take any hop up to WL and any batch, and the operator lives in
-    device memory."""
+def kernel_wanted(dtype: torch.dtype = torch.float32) -> bool:
+    """Take the one-pass kernels for a ``dtype`` signal? Yes unless
+    ``ZAFTPU_MELFUSE=0``, or where split4 applies (float32) unless
+    ``ZAFTPU_MELFUSE=1`` forces them (``zaftpu``'s gate, melfused.py:87-95:
+    the split4 half spectrum carries the front ends). Unlike ``zaftpu``'s
+    there is no hop, rank or operator-size condition: the kernels take any
+    hop up to WL and any batch, and the operator lives in device memory."""
+    if split4_applies(dtype) and os.environ.get("ZAFTPU_MELFUSE") != "1":
+        return False
     return enabled()
 
 
@@ -67,15 +78,17 @@ def spec_ops(n: int, dtype: torch.dtype, device) -> torch.Tensor:
                                 torch.device(device), dtype)
 
 
-def _planes(padded, window, window_length, step, number_times, ops):
-    """Re and im of bins ``1..WL/2`` of the windowed frames, plain."""
+def _planes(padded, window, window_length, step, number_times, ops,
+            split4=False):
+    """Re and im of bins ``1..WL/2`` of the windowed frames, plain; by the
+    split4 scheme when ``split4`` (the operator split on the host)."""
     frames = (extract_frames(padded, window_length, step, number_times)
               * window.to(padded.dtype))
     if ops is None:
         ops = spec_ops(window_length, padded.dtype, padded.device)
-    f = window_length // 2
-    return (exact_matmul(frames, ops[0, :, :f]),
-            exact_matmul(frames, ops[1, :, :f]))
+    if split4:
+        ops = presplit(ops)
+    return _products(frames, ops, window_length // 2)
 
 
 def spec_rows_plain(padded: torch.Tensor, window: torch.Tensor,
@@ -157,7 +170,8 @@ def mel_rows_plain(padded: torch.Tensor, window: torch.Tensor,
     ``1..WL/2`` times the ``(WL/2, n_mels)`` filterbank transpose,
     ``(..., T, n_mels)``, in plain PyTorch."""
     mel_rows_plain.calls += 1
-    re, im = _planes(padded, window, window_length, step, number_times, ops)
+    re, im = _planes(padded, window, window_length, step, number_times, ops,
+                     split4_applies(padded.dtype))
     p2 = re * re + im * im
     return exact_matmul(p2 if power else torch.sqrt(p2),
                         fbank_t.to(padded.dtype))
@@ -176,11 +190,12 @@ def mel_rows(padded: torch.Tensor, window: torch.Tensor,
     ``(WL/2, n_mels)`` filterbank transpose. ``ops`` overrides the
     operator (:func:`spec_ops`).
 
-    A CPU tensor takes the plain version; a CUDA tensor launches the kernel
-    (leading axes flattened into its batch) or raises. The kernel stages a
-    bin tile's ``(64, n_mels)`` filterbank rows in shared memory, so the
-    card's shared memory per block bounds ``n_mels`` (about 740 on an
-    H100); above that the launch raises.
+    A CPU tensor takes the plain version (the split4 rDFT under split4); a
+    CUDA tensor launches the kernel (leading axes flattened into its batch)
+    or raises, as it does under split4, whose twin is not ported yet. The
+    kernel stages a bin tile's ``(64, n_mels)`` filterbank rows in shared
+    memory, so the card's shared memory per block bounds ``n_mels`` (about
+    740 on an H100); above that the launch raises.
     """
     if not padded.is_cuda:
         return mel_rows_plain(padded, window, fbank_t, window_length, step,
@@ -194,6 +209,10 @@ def _mel_rows_cuda(padded: torch.Tensor, window: torch.Tensor,
                    number_times: int, power: bool,
                    ops: torch.Tensor | None = None) -> torch.Tensor:
     """Check the CUDA input, launch the kernels, count the launch."""
+    if split4_applies(padded.dtype):
+        raise NotImplementedError(
+            "mel_rows: the split4 twin of the mel kernel is not ported yet; "
+            "leave ZAFTPU_MELFUSE unset under ZAFTPU_PRECISION=split4")
     f = window_length // 2
     if fbank_t.ndim != 2 or fbank_t.shape[0] != f or fbank_t.shape[1] < 1:
         raise ValueError(f"mel_rows: filterbank transpose must be ({f}, "

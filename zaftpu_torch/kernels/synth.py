@@ -8,6 +8,11 @@ it. Both launch the same kernel, whose contraction width and hop are
 arguments. It is FP32-compute-bound; see the source note in
 ``csrc/synth.cu`` for how it overlap-adds without the TPU kernel's
 sequential carry.
+
+Under ``ZAFTPU_PRECISION=split4`` (float32 only) both launch the split4
+twin instead, the port of ``_kernel_split4``: the spectrum rows split into
+bf16 hi/lo in the kernel, the operator presplit on the host, four bf16
+passes on the tensor cores with float32 sums, the same overlap-add.
 """
 
 from __future__ import annotations
@@ -20,12 +25,14 @@ import torch
 
 from zaftpu_torch.core import fft as _fft
 from zaftpu_torch.core import frame as _frame
-from zaftpu_torch.core.policy import exact_matmul
+from zaftpu_torch.core.policy import (exact_matmul, split4_applies,
+                                      split4_matmul_presplit)
 from zaftpu_torch.kernels import _build
 
 CUDA_SOURCE = "zaftpu_torch/csrc/synth.cu"
 REPLACES = "zaftpu/pallas/synth.py:264"  # _gemm_ola_impl (istft_ola)
 REPLACES_IMDCT = "zaftpu/pallas/synth.py:408"  # imdct_ola -> _gemm_ola_impl
+REPLACES_SPLIT4 = "zaftpu/pallas/synth.py:231"  # _kernel_split4 (B4, B7)
 
 SLICE = 16      # the kernel's contraction slice; each plane is padded to it
 TILE_ROWS = 64  # the kernel's output rows (hops) per block
@@ -61,6 +68,36 @@ def istft_ops(n: int, scale: float, dtype: torch.dtype,
                                 torch.device(device), dtype)
 
 
+def _presplit_ops(ops: torch.Tensor | None, builder, args: tuple,
+                  device) -> torch.Tensor:
+    """A split4 twin's operator as the kernel takes it: the ``(2, Q, N)``
+    bf16 hi/lo stack of ``ops`` or ``builder(*args)``
+    (:func:`zaftpu_torch.core.fft.presplit_operator`), the components'
+    rows side by side along Q."""
+    ops = _fft.presplit_operator(ops, builder, args, device)
+    return ops.reshape(2, -1, ops.shape[-1])
+
+
+def istft_ops_split4(n: int, scale: float, device) -> torch.Tensor:
+    """:func:`istft_ops` presplit: ``(2, 2*KP, N)`` bf16, hi then lo."""
+    return _presplit_ops(None, _istft_ops, (n, float(scale), "float32"),
+                         device)
+
+
+def _packed_planes(h_re: torch.Tensor, h_im: torch.Tensor,
+                   n: int) -> torch.Tensor:
+    """The folded planes ``(..., T, N/2+1)`` packed into zero-padded
+    ``(batch, T, 2*KP)`` rows, the synthesis kernels' contraction."""
+    f, kp = n // 2 + 1, padded_rows(n)
+    *lead, t, _ = h_re.shape
+    batch = math.prod(lead)
+    packed = torch.zeros((batch, t, 2, kp), dtype=h_re.dtype,
+                         device=h_re.device)
+    packed[:, :, 0, :f] = h_re.reshape(batch, t, f)
+    packed[:, :, 1, :f] = h_im.reshape(batch, t, f)
+    return packed.view(batch, t, 2 * kp)
+
+
 def istft_ola_plain(h_re: torch.Tensor, h_im: torch.Tensor, n: int,
                     step: int, scale: float,
                     ops: torch.Tensor | None = None) -> torch.Tensor:
@@ -74,7 +111,23 @@ def istft_ola_plain(h_re: torch.Tensor, h_im: torch.Tensor, n: int,
     return _frame.overlap_add(frames, step)
 
 
+def istft_ola_split4_plain(h_re: torch.Tensor, h_im: torch.Tensor, n: int,
+                           step: int, scale: float,
+                           ops: torch.Tensor | None = None) -> torch.Tensor:
+    """The split4 synthesis in plain PyTorch: the packed planes
+    ``(T, 2*KP)`` times the presplit operator by the 4-pass scheme, then
+    the plain overlap-add. ``ops`` as for :func:`istft_ola_split4`."""
+    istft_ola_split4_plain.calls += 1
+    ops = _presplit_ops(ops, _istft_ops, (n, float(scale), "float32"),
+                        h_re.device)
+    frames = split4_matmul_presplit(_packed_planes(h_re, h_im, n), ops[0],
+                                    ops[1])
+    out = _frame.overlap_add(frames, step)
+    return out.reshape(*h_re.shape[:-2], out.shape[-1])
+
+
 istft_ola_plain.calls = 0
+istft_ola_split4_plain.calls = 0
 
 
 def istft_ola(h_re: torch.Tensor, h_im: torch.Tensor, n: int, step: int,
@@ -85,64 +138,88 @@ def istft_ola(h_re: torch.Tensor, h_im: torch.Tensor, n: int, step: int,
     1/gain) is folded into the operator; ``ops`` overrides it. The kernel
     reads the two planes packed into zero-padded ``(T, 2, KP)`` rows.
 
-    A CPU tensor takes the plain version; a CUDA tensor launches the kernel
-    (leading axes flattened into its batch) or raises.
+    Split4 (float32) takes :func:`istft_ola_split4`. A CPU tensor takes the
+    plain version; a CUDA tensor launches the kernel (leading axes flattened
+    into its batch) or raises.
     """
+    if split4_applies(h_re.dtype):
+        return istft_ola_split4(h_re, h_im, n, step, scale, ops)
     if not h_re.is_cuda:
         return istft_ola_plain(h_re, h_im, n, step, scale, ops)
     return _istft_ola_cuda(h_re, h_im, n, step, scale, ops)
 
 
+def istft_ola_split4(h_re: torch.Tensor, h_im: torch.Tensor, n: int,
+                     step: int, scale: float,
+                     ops: torch.Tensor | None = None) -> torch.Tensor:
+    """The split4 twin of :func:`istft_ola` (B4's ``_kernel_split4``).
+    ``ops`` is the presplit ``(2, 2*KP, N)`` bf16 stack
+    (:func:`istft_ops_split4`), or a float32 ``(2, KP, N)`` operator that
+    is split on the host. A CPU tensor takes the plain version; a CUDA
+    tensor launches the tensor-core kernel or raises."""
+    if not h_re.is_cuda:
+        return istft_ola_split4_plain(h_re, h_im, n, step, scale, ops)
+    return _istft_ola_cuda(h_re, h_im, n, step, scale, ops, split4=True)
+
+
 def _istft_ola_cuda(h_re: torch.Tensor, h_im: torch.Tensor, n: int,
                     step: int, scale: float,
-                    ops: torch.Tensor | None = None) -> torch.Tensor:
-    """Check the CUDA input, launch the kernel, count the launch."""
-    _build.require_f32(h_re, "istft_ola")
-    _build.require_f32(h_im, "istft_ola")
+                    ops: torch.Tensor | None = None,
+                    split4: bool = False) -> torch.Tensor:
+    """Check the CUDA input, launch the kernel or (``split4``) its twin,
+    count the launch."""
+    name = "istft_ola_split4" if split4 else "istft_ola"
+    _build.require_f32(h_re, name)
+    _build.require_f32(h_im, name)
     f = n // 2 + 1
     *lead, t, width = h_re.shape
     if h_im.shape != h_re.shape or width != f:
-        raise ValueError(f"istft_ola: planes must both be (..., T, {f}), got "
+        raise ValueError(f"{name}: planes must both be (..., T, {f}), got "
                          f"{tuple(h_re.shape)} and {tuple(h_im.shape)}")
     if not 1 <= step <= n:
-        raise ValueError(f"istft_ola: need step in [1, {n}], got {step}")
+        raise ValueError(f"{name}: need step in [1, {n}], got {step}")
     kp = padded_rows(n)
-    if ops is None:
-        ops = istft_ops(n, scale, torch.float32, h_re.device)
-    if ops.shape != (2, kp, n) or ops.dtype != torch.float32:
-        raise ValueError(f"istft_ola: operator must be float32 "
-                         f"(2, {kp}, {n}), got {ops.dtype} "
-                         f"{tuple(ops.shape)}")
-    batch = math.prod(lead)
-    packed = torch.zeros((batch, t, 2, kp), dtype=torch.float32,
-                         device=h_re.device)
-    packed[:, :, 0, :f] = h_re.reshape(batch, t, f)
-    packed[:, :, 1, :f] = h_im.reshape(batch, t, f)
-    out = _gemm_ola(packed.view(batch, t, 2 * kp), ops.reshape(2 * kp, n), n,
-                    step, "istft_ola")
-    istft_ola.launches += 1
+    if split4:
+        ops = _presplit_ops(ops, _istft_ops, (n, float(scale), "float32"),
+                            h_re.device)
+    else:
+        if ops is None:
+            ops = istft_ops(n, scale, torch.float32, h_re.device)
+        if ops.shape == (2, kp, n):  # both components along one contraction
+            ops = ops.reshape(2 * kp, n)
+    out = _gemm_ola(_packed_planes(h_re, h_im, n), ops, n, step, name,
+                    split4)
+    (istft_ola_split4 if split4 else istft_ola).launches += 1
     return out.reshape(*lead, out.shape[-1])
 
 
 def _gemm_ola(h: torch.Tensor, ops: torch.Tensor, n: int, step: int,
-              name: str) -> torch.Tensor:
-    """Launch the kernel on ``h`` ``(batch, T, Q)`` and ``ops`` ``(Q, N)``,
-    both float32 with Q a multiple of 16; returns ``(batch, (T-1)*step +
-    N)``."""
+              name: str, split4: bool = False) -> torch.Tensor:
+    """Check ``ops`` and launch the kernel on ``h`` ``(batch, T, Q)``,
+    float32 with Q a multiple of 16, and ``ops``: float32 ``(Q, N)``, or
+    for the split4 twin the presplit ``(2, Q, N)`` bf16 stack; returns
+    ``(batch, (T-1)*step + N)``."""
     batch, t, q = h.shape
+    shape = (2, q, n) if split4 else (q, n)
+    dtype = torch.bfloat16 if split4 else torch.float32
+    if tuple(ops.shape) != shape or ops.dtype != dtype:
+        raise ValueError(f"{name}: operator must be {dtype} {shape}, got "
+                         f"{ops.dtype} {tuple(ops.shape)}")
     k = -(-n // step)
     _build.require_grid(batch, -(-(t - 1 + k) // TILE_ROWS), name)
     ops = ops.to(h.device).contiguous()
     out_len = (t - 1) * step + n
     out = torch.empty((batch, out_len), dtype=torch.float32, device=h.device)
-    err = _build.library().zt_gemm_ola(
+    entry = "zt_gemm_ola_split4" if split4 else "zt_gemm_ola"
+    err = getattr(_build.library(), entry)(
         h.data_ptr(), ops.data_ptr(), out.data_ptr(), batch, t, q, n, step,
         _build.stream_of(h))
-    _build.check(err, f"zt_gemm_ola ({name})")
+    _build.check(err, f"{entry} ({name})")
     return out
 
 
 istft_ola.launches = 0
+istft_ola_split4.launches = 0
 
 
 @lru_cache(maxsize=8)
@@ -167,6 +244,12 @@ def imdct_ops(f: int, window_bytes: bytes, dtype: torch.dtype,
                                 torch.device(device), dtype)
 
 
+def imdct_ops_split4(f: int, window_bytes: bytes, device) -> torch.Tensor:
+    """:func:`imdct_ops` presplit: ``(2, Q, 2F)`` bf16, hi then lo."""
+    return _presplit_ops(None, _imdct_ops, (f, window_bytes, "float32"),
+                         device)
+
+
 def imdct_ola_plain(coeffs: torch.Tensor, f: int, window_bytes: bytes,
                     ops: torch.Tensor | None = None) -> torch.Tensor:
     """``overlap_add(coeffs @ op[:F], F)`` in plain PyTorch."""
@@ -176,7 +259,20 @@ def imdct_ola_plain(coeffs: torch.Tensor, f: int, window_bytes: bytes,
     return _frame.overlap_add(exact_matmul(coeffs, ops[:f]), f)
 
 
+def imdct_ola_split4_plain(coeffs: torch.Tensor, f: int, window_bytes: bytes,
+                           ops: torch.Tensor | None = None) -> torch.Tensor:
+    """The split4 IMDCT synthesis in plain PyTorch: the coefficients times
+    the presplit operator by the 4-pass scheme, then the plain
+    overlap-add. ``ops`` as for :func:`imdct_ola_split4`."""
+    imdct_ola_split4_plain.calls += 1
+    ops = _presplit_ops(ops, _imdct_ops, (f, window_bytes, "float32"),
+                        coeffs.device)
+    return _frame.overlap_add(
+        split4_matmul_presplit(coeffs, ops[0, :f], ops[1, :f]), f)
+
+
 imdct_ola_plain.calls = 0
+imdct_ola_split4_plain.calls = 0
 
 
 def imdct_ola(coeffs: torch.Tensor, f: int, window_bytes: bytes,
@@ -187,38 +283,56 @@ def imdct_ola(coeffs: torch.Tensor, f: int, window_bytes: bytes,
     ``window_bytes`` (the float64 window's bytes) keys the operator;
     ``ops`` overrides it.
 
-    A CPU tensor takes the plain version; a CUDA tensor launches the kernel
-    (leading axes flattened into its batch) or raises.
+    Split4 (float32) takes :func:`imdct_ola_split4`. A CPU tensor takes the
+    plain version; a CUDA tensor launches the kernel (leading axes
+    flattened into its batch) or raises.
     """
+    if split4_applies(coeffs.dtype):
+        return imdct_ola_split4(coeffs, f, window_bytes, ops)
     if not coeffs.is_cuda:
         return imdct_ola_plain(coeffs, f, window_bytes, ops)
     return _imdct_ola_cuda(coeffs, f, window_bytes, ops)
 
 
+def imdct_ola_split4(coeffs: torch.Tensor, f: int, window_bytes: bytes,
+                     ops: torch.Tensor | None = None) -> torch.Tensor:
+    """The split4 twin of :func:`imdct_ola` (B7's ``_kernel_split4``).
+    ``ops`` is the presplit ``(2, Q, 2F)`` bf16 stack
+    (:func:`imdct_ops_split4`), or a float32 ``(Q, 2F)`` operator that is
+    split on the host. A CPU tensor takes the plain version; a CUDA tensor
+    launches the tensor-core kernel or raises."""
+    if not coeffs.is_cuda:
+        return imdct_ola_split4_plain(coeffs, f, window_bytes, ops)
+    return _imdct_ola_cuda(coeffs, f, window_bytes, ops, split4=True)
+
+
 def _imdct_ola_cuda(coeffs: torch.Tensor, f: int, window_bytes: bytes,
-                    ops: torch.Tensor | None = None) -> torch.Tensor:
-    """Check the CUDA input, launch the kernel, count the launch."""
-    _build.require_f32(coeffs, "imdct_ola")
+                    ops: torch.Tensor | None = None,
+                    split4: bool = False) -> torch.Tensor:
+    """Check the CUDA input, launch the kernel or (``split4``) its twin,
+    count the launch."""
+    name = "imdct_ola_split4" if split4 else "imdct_ola"
+    _build.require_f32(coeffs, name)
     *lead, t, width = coeffs.shape
     if width != f:
-        raise ValueError(f"imdct_ola: coefficients must be (..., T, {f}), "
+        raise ValueError(f"{name}: coefficients must be (..., T, {f}), "
                          f"got {tuple(coeffs.shape)}")
     q = padded_slices(f)
-    if ops is None:
+    if split4:
+        ops = _presplit_ops(ops, _imdct_ops, (f, window_bytes, "float32"),
+                            coeffs.device)
+    elif ops is None:
         ops = imdct_ops(f, window_bytes, torch.float32, coeffs.device)
-    if ops.shape != (q, 2 * f) or ops.dtype != torch.float32:
-        raise ValueError(f"imdct_ola: operator must be float32 "
-                         f"({q}, {2 * f}), got {ops.dtype} "
-                         f"{tuple(ops.shape)}")
     batch = math.prod(lead)
     h = coeffs.reshape(batch, t, f)
     if q != f:
         h = torch.nn.functional.pad(h, (0, q - f))
     elif not h.is_contiguous() or h.data_ptr() % 16:
         h = h.clone(memory_format=torch.contiguous_format)
-    out = _gemm_ola(h, ops, 2 * f, f, "imdct_ola")
-    imdct_ola.launches += 1
+    out = _gemm_ola(h, ops, 2 * f, f, name, split4)
+    (imdct_ola_split4 if split4 else imdct_ola).launches += 1
     return out.reshape(*lead, out.shape[-1])
 
 
 imdct_ola.launches = 0
+imdct_ola_split4.launches = 0

@@ -38,8 +38,9 @@ import torch
 
 from zaftpu_torch.core import validate as _validate
 from zaftpu_torch.core import windows as _windows
+from zaftpu_torch.core.policy import check_cuda_dial
 from zaftpu_torch.kernels import cqtslab as _cqtslab
-from zaftpu_torch.transforms.stft import _as_tensor
+from zaftpu_torch.transforms.stft import _as_input
 from zaftpu_torch.utils.cache import cached_operator
 
 
@@ -315,10 +316,12 @@ def _resolve_cqt_args(sampling_frequency, time_resolution, cqt_kernel,
 def _cqt_inputs(audio_signal, sampling_frequency, time_resolution):
     """The validated signal (at least float32; a CUDA signal only as
     float32), the hop and the frame count (zaf.py:600-612)."""
-    x = _validate.check_signal(_as_tensor(audio_signal))
-    if x.is_cuda and x.dtype != torch.float32:
-        raise NotImplementedError(
-            f"the CUDA CQT takes float32 signals, got {x.dtype}")
+    x = _validate.check_signal(_as_input(audio_signal))
+    if x.is_cuda:
+        check_cuda_dial()
+        if x.dtype != torch.float32:
+            raise NotImplementedError(
+                f"the CUDA CQT takes float32 signals, got {x.dtype}")
     x = x.to(torch.promote_types(x.dtype, torch.float32))
     step = round(float(sampling_frequency) / float(time_resolution))
     number_times = int(x.shape[-1] // step)

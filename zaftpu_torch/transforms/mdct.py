@@ -9,8 +9,10 @@ float64 operator that folds the pre-twiddle, DFT, post-twiddle and real
 part (and, for the inverse, the window) into one real matrix. On a CUDA
 float32 signal the forward runs the fused framing + window + GEMM kernel
 (``frames_op``) and the inverse the fused GEMM + TDAC overlap-add kernel
-(``imdct_ola``); on the CPU the same path runs their plain PyTorch
-versions, in the input's dtype (float64 is the oracle mode).
+(``imdct_ola``), or under ``ZAFTPU_PRECISION=split4`` their split4 twins;
+on the CPU the same path runs their plain PyTorch versions, in the input's
+dtype (float64 is the oracle mode). The split dispatch's GEMMs
+(``ZAFTPU_FUSED=0``, ``ZAFTPU_SYNTH=0``) go through ``policy.real_matmul``.
 
 The inverse keys its window-folded operator by the float64 bytes of the
 window. A window given as a tensor, on the CPU or the card, is copied to
@@ -32,8 +34,10 @@ import torch
 from zaftpu_torch import kernels as _kernels
 from zaftpu_torch.core import fft as _fft
 from zaftpu_torch.core import validate as _validate
+from zaftpu_torch.core.policy import real_matmul
 from zaftpu_torch.kernels import fused as _fused
-from zaftpu_torch.transforms.stft import _as_tensor, _host_window
+from zaftpu_torch.transforms.stft import (_as_input, _as_tensor,
+                                          _host_window)
 
 
 @lru_cache(maxsize=32)
@@ -126,6 +130,7 @@ def mdct(audio_signal, window_function=None, *, config=None) -> torch.Tensor:
     Inputs:
         audio_signal: real signal ``(number_samples,)`` or batched
             ``(..., number_samples)``, a tensor (on its device) or an array
+            (sent to the card)
         window_function: TDAC window ``(window_length,)``, e.g.
             :func:`zaftpu_torch.vorbis` (zaf.py:1100) or ``kbd``
         config: alternatively, a :class:`zaftpu_torch.config.MdctConfig`
@@ -134,7 +139,7 @@ def mdct(audio_signal, window_function=None, *, config=None) -> torch.Tensor:
         ``number_times = ceil(N/(WL/2)) + 1`` (reference zaf.py:984-1075),
         a transposed view of a frames-major tensor.
     """
-    x = _validate.check_signal(_as_tensor(audio_signal))
+    x = _validate.check_signal(_as_input(audio_signal))
     window = _resolve_mdct_window(window_function, config)
     win = _validate.check_window(_as_tensor(window), even=True)
     wl = win.shape[0]
@@ -146,10 +151,16 @@ def mdct(audio_signal, window_function=None, *, config=None) -> torch.Tensor:
     t = int(np.ceil(n / step)) + 1
     # Pad `step` in front and to (T+1)*step in all (zaf.py:1036-1041).
     padded = torch.nn.functional.pad(x, (step, (t + 1) * step - n))
-    ops = _fft.device_operator(_direct_forward_ops_padded,
-                               (wl, _fft._real_name(x.dtype)), x.device,
-                               x.dtype)
-    coeffs = _kernels.windowed_frames_op(padded, win, ops, step, wl, step, t)
+    args = (wl, _fft._real_name(x.dtype))
+    if _kernels.fused_enabled():
+        ops = _fused.dispatch_ops(_direct_forward_ops_padded, args, x.device,
+                                  x.dtype)
+        coeffs = _fused.frames_op(padded, win, ops, step, wl, step, t)
+    else:
+        frames = _kernels.windowed_frames(padded, win, wl, step, t)
+        ops = _fft.device_operator(_direct_forward_ops_padded, args,
+                                   x.device, x.dtype)
+        coeffs = real_matmul(frames, ops[0, :, :step])
     return coeffs.transpose(-1, -2)
 
 
@@ -167,7 +178,7 @@ def imdct(audio_mdct, window_function=None, *, config=None) -> torch.Tensor:
         zaf.py:1078-1184; perfect reconstruction up to rounding for TDAC
         windows).
     """
-    c = _as_tensor(audio_mdct)
+    c = _as_input(audio_mdct)
     if c.ndim < 2:
         raise ValueError(
             f"audio_mdct must be (number_frequencies, number_times), "

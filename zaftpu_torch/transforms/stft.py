@@ -5,12 +5,18 @@ Semantics match ``zaftpu.transforms.stft`` and the reference
 ``(window_length, number_times)`` output with DC and mirrored bins, and the
 COLA-normalized inverse. On a CUDA float32 signal the analysis runs the
 fused framing + window + DFT kernel and the synthesis the fused inverse
-GEMM + overlap-add kernel (:mod:`zaftpu_torch.kernels`); the spectrogram
-runs the one-pass magnitude kernel (:mod:`zaftpu_torch.kernels.melfused`).
+GEMM + overlap-add kernel (:mod:`zaftpu_torch.kernels`), or under
+``ZAFTPU_PRECISION=split4`` their split4 twins; the spectrogram runs the
+one-pass magnitude kernel (:mod:`zaftpu_torch.kernels.melfused`).
 ``ZAFTPU_FULLSPEC=1`` and ``ZAFTPU_MIRROR=pallas`` move the conjugate
 mirror and the Hermitian fold into kernels, bit-equal to the default.
 On the CPU the same paths run their plain PyTorch versions, in the input's
 dtype (float64 is the oracle mode).
+
+Device rule: a signal or spectrum given as a tensor stays on its device,
+so a CPU tensor is how a caller asks for the CPU; anything else (a numpy
+array, a list) goes to the CUDA card, and without a card it raises. The
+window and the other arguments follow the signal's device.
 """
 
 from __future__ import annotations
@@ -26,8 +32,22 @@ from zaftpu_torch.kernels import melfused as _melfused
 
 
 def _as_tensor(x) -> torch.Tensor:
-    """A tensor as is; anything else copied into a CPU tensor."""
+    """A tensor as is; anything else copied into a CPU tensor (windows and
+    other arguments, which then follow the signal's device)."""
     return x if isinstance(x, torch.Tensor) else torch.tensor(np.asarray(x))
+
+
+def _as_input(x) -> torch.Tensor:
+    """A signal or spectrum as a tensor: a tensor as is, on its device;
+    anything else copied to the CUDA card. Without a card that raises
+    rather than quietly running on the CPU."""
+    if isinstance(x, torch.Tensor):
+        return x
+    if not torch.cuda.is_available():
+        raise RuntimeError(
+            "no CUDA card: a non-tensor input runs on the card; pass a CPU "
+            "tensor (torch.from_numpy(x)) to run on the CPU")
+    return torch.as_tensor(np.asarray(x), device="cuda")
 
 
 def _host_window(window) -> np.ndarray:
@@ -55,7 +75,7 @@ def _resolve_analysis_args(window_function, step_length, config):
 def _analysis_inputs(audio_signal, window_function, step_length, config):
     """The validated signal (at least float32), window (on the signal's
     device, in its dtype) and hop."""
-    x = _validate.check_signal(_as_tensor(audio_signal))
+    x = _validate.check_signal(_as_input(audio_signal))
     window, step = _resolve_analysis_args(window_function, step_length,
                                           config)
     win = _validate.check_window(_as_tensor(window))
@@ -90,6 +110,7 @@ def stft(audio_signal, window_function=None, step_length: int | None = None,
     Inputs:
         audio_signal: real signal ``(number_samples,)`` or batched
             ``(..., number_samples)``, a tensor (on its device) or an array
+            (sent to the card)
         window_function: window ``(window_length,)``
         step_length: hop in samples
         config: alternatively, a :class:`zaftpu_torch.config.StftConfig`
@@ -125,7 +146,7 @@ def istft(audio_stft, window_function=None, step_length: int | None = None,
         with the reference's trim and normalization (zaf.py:144-243).
         Exact reconstruction needs a COLA window (periodic, step | WL).
     """
-    z = _validate.check_spectrum(_as_tensor(audio_stft))
+    z = _validate.check_spectrum(_as_input(audio_stft))
     window, step = _resolve_analysis_args(window_function, step_length,
                                           config)
     _validate.check_window(window)
@@ -156,7 +177,7 @@ def spectrogram(audio_signal, window_function=None,
     """
     x, win, step = _analysis_inputs(audio_signal, window_function,
                                     step_length, config)
-    if _melfused.kernel_wanted():
+    if _melfused.kernel_wanted(x.dtype):
         wl = win.shape[0]
         padded, t = centre_padded(x, wl, step)
         spec = _melfused.spec_rows(padded, win, wl, step, t)
