@@ -1,6 +1,6 @@
 """Drive the zaftpu_torch STFT -> ISTFT, MDCT -> IMDCT, spectrogram / mel /
 MFCC and CQT paths once on an NVIDIA GPU, under the exact dial and under
-ZAFTPU_PRECISION=split4.
+ZAFTPU_PRECISION=split4, and the CQT under both of its schemes.
 
     python3 chip_smoke.py
 
@@ -10,8 +10,8 @@ non-zero exit and no result line:
 
 1. device: the card's name and power limit (as nvidia-smi gives them),
    torch and CUDA versions; TF32 off for matmuls and cuDNN;
-2. build: the nineteen kernels from zaftpu_torch/csrc (one nvcc per source,
-   all started together), with the seconds taken;
+2. build: the twenty-one kernels from zaftpu_torch/csrc (one nvcc per
+   source, all started together), with the seconds taken;
 3. kernels: each kernel against its plain PyTorch version on the card at
    its main-path shape (WL 2048, hop 1024, a 600-s segment: T = 25,841;
    F = 1,024 for the IMDCT; 40 mels; the CQT at CqtConfig(): T = 15,000,
@@ -20,7 +20,7 @@ non-zero exit and no result line:
    256 for frames_op; F = 100 for imdct_ola; WL 512 / hop 128 with 20 mels
    for spec_rows and mel_rows; the CQT at 22,050 Hz, 12 bins per octave,
    110-3,520 Hz: L 4,096, hop 882, F 60, T 1,001), the split4 twins of B1,
-   B2, B3, B4 and B7 and B12 under both dials included; framing, OLA,
+   B2, B3, B4, B7, B9, B10 and B12 included; framing, OLA,
    mirror and fold must be bit-equal, the GEMM kernels within 2e-5 *
    max|ref|, and the kernels that only store B1's sums elsewhere (B3, B12
    and their twins) bit-equal to B1 or its twin (with the mirror); median
@@ -47,13 +47,19 @@ non-zero exit and no result line:
 8. CQT main path at CqtConfig() (44.1 kHz, 24 bins per octave, 55-3,520
    Hz, 25 frames/s): cqtspectrogram and cqtchromagram of the 600-s signal
    against a float64 oracle on the card (per-frame FFT times the kernel's
-   non-zero columns, then abs, zaf.py:627-633; <= 1e-5 * max|oracle|), and
-   launch counts showing cqt_magnitudes ran and no plain version did;
+   non-zero columns, then abs, zaf.py:627-633), under the default scheme
+   (the split4 twin, <= 1e-4 * max|oracle|) and under
+   ZAFTPU_PRECISION=highest and ZAFTPU_CQT_SCHEME=exact (the exact kernel,
+   <= 1e-5 * max|oracle|), with launch counts showing which kernel ran and
+   that no plain version did;
 9. split4 main path (ZAFTPU_PRECISION=split4): stft -> istft and mdct ->
    imdct of the 600-s signal; the spectrum and the coefficients within
    1e-4 * max of the float64 oracles, the round trips in [100, 125) dB,
    and launch counts showing the split4 twins ran and no exact kernel or
-   plain version did;
+   plain version did; then the mel phase under split4 with
+   ZAFTPU_MELFUSE=1: melspectrogram and mfcc through the mel kernel's twin
+   (within 1e-4 * max; MFCC atol 5e-3), spectrogram through the exact
+   spec_rows (1e-5 * max);
 10. levers: stft -> istft of the 600-s signal under ZAFTPU_MIRROR=pallas
    (fused, mirror_full_planes, fold_half_planes, synth), ZAFTPU_FULLSPEC=1
    (frames_rfft_full, synth) and ZAFTPU_FUSED2=1 (frames_matmul2, synth),
@@ -63,8 +69,10 @@ non-zero exit and no result line:
    dial without the lever, and that dial's oracle and SNR gates;
 11. one hour: six 600-s segments through stft, then istft; mdct, then
    imdct; spectrogram; melspectrogram; mfcc, under the default, the split
-   and the split4 dispatch; cqtspectrogram and cqtchromagram (90,000
-   frames); frames/s from CUDA events (printed, not gated).
+   and the split4 dispatch, and the three mel front ends under split4 with
+   ZAFTPU_MELFUSE=1; cqtspectrogram and cqtchromagram (90,000 frames) under
+   the default (split4) and the exact CQT scheme; frames/s from CUDA events
+   (printed, not gated).
 
 The CQT kernel is built on the host without the disk cache
 (ZAFTPU_CACHE=0), so the run writes nothing outside the checkout.
@@ -80,6 +88,7 @@ import os
 import statistics
 import subprocess
 import sys
+import time
 
 import numpy as np
 import torch
@@ -92,6 +101,7 @@ from zaftpu_torch.core.windows import hamming, vorbis
 from zaftpu_torch.features.mel import dct_ii_ortho_matrix, melfilterbank
 from zaftpu_torch.kernels import (_build, cqtslab, framing, fused, melfused,
                                   mirror, ola, synth)
+from zaftpu_torch.transforms import cqt as tcqt
 from zaftpu_torch.transforms import mdct as tmdct
 
 SR = 44100
@@ -140,8 +150,14 @@ KERNELS = {
                   melfused.spec_rows, melfused.spec_rows_plain),
     "mel_rows": (melfused.CUDA_SOURCE, melfused.REPLACES_MEL,
                  melfused.mel_rows, melfused.mel_rows_plain),
+    "mel_rows_split4": (melfused.CUDA_SOURCE, melfused.REPLACES_MEL_SPLIT4,
+                        melfused.mel_rows_split4,
+                        melfused.mel_rows_split4_plain),
     "cqt_magnitudes": (cqtslab.CUDA_SOURCE, cqtslab.REPLACES,
                        cqtslab.cqt_magnitudes, cqtslab.cqt_magnitudes_plain),
+    "cqt_magnitudes_split4": (cqtslab.CUDA_SOURCE, cqtslab.REPLACES_SPLIT4,
+                              cqtslab.cqt_magnitudes_split4,
+                              cqtslab.cqt_magnitudes_split4_plain),
     "mirror_full_planes": (mirror.CUDA_SOURCE, mirror.REPLACES_MIRROR,
                            mirror.mirror_full_planes,
                            mirror.mirror_full_planes_plain),
@@ -319,21 +335,24 @@ def _kernel_cases(dev, main_t: int):
                (padded, win, wl, step, t), GEMM_TOL)
         fbank_t = torch.from_numpy(np.ascontiguousarray(
             melfilterbank(SR, wl, mels).T.astype(np.float32))).to(dev)
-        for power in (False, True):
-            yield ("mel_rows", label,
-                   f"WL {wl} hop {step} T {t} mels {mels} power {power}",
-                   (padded, win, fbank_t, wl, step, t, power), GEMM_TOL)
+        for name in ("mel_rows", "mel_rows_split4"):
+            for power in (False, True):
+                yield (name, label,
+                       f"WL {wl} hop {step} T {t} mels {mels} power {power}",
+                       (padded, win, fbank_t, wl, step, t, power), GEMM_TOL)
     main_cqt_t = SEGMENT_SECONDS * SR // _cqt_step(CqtConfig())  # 15,000
     for label, (cfg, t) in (("main", (CqtConfig(), main_cqt_t)),
                             ("ragged", CQT_RAGGED)):
         kern = cfg.kernel()
         step, length = _cqt_step(cfg), kern.fft_length
-        sig = np.resize(segment(0), (t - 1) * step + length)
-        ops = torch.from_numpy(cqtslab.time_ops(kern.time_kernel)).to(dev)
-        yield ("cqt_magnitudes", label,
-               f"L {length} hop {step} T {t} F {kern.number_frequencies}",
-               (torch.from_numpy(sig.astype(np.float32)).to(dev), ops, step,
-                length, t, kern.number_frequencies), GEMM_TOL)
+        sig = torch.from_numpy(np.resize(
+            segment(0), (t - 1) * step + length).astype(np.float32)).to(dev)
+        for name, split4 in (("cqt_magnitudes", False),
+                             ("cqt_magnitudes_split4", True)):
+            yield (name, label,
+                   f"L {length} hop {step} T {t} F {kern.number_frequencies}",
+                   (sig, tcqt._device_time_kernel(kern, dev, split4), step,
+                    length, t, kern.number_frequencies), GEMM_TOL)
 
 
 def _rows(x: torch.Tensor) -> int:
@@ -341,38 +360,39 @@ def _rows(x: torch.Tensor) -> int:
     return x.numel() // max(x.shape[-1], 1)
 
 
-def _work(name: str, args: tuple) -> tuple[float, float]:
-    """FLOP and bytes of one call of kernel ``name`` on ``args``: the
-    operations the function does and the bytes it must move, each input
-    read once and each output written once (an operator's bf16 hi and lo
-    are as many bytes as its float32)."""
+def _work(name: str, args: tuple) -> tuple[float, float, float]:
+    """Operator-GEMM FLOP, other FLOP and bytes of one call of kernel
+    ``name`` on ``args``: the operations the function does and the bytes it
+    must move, each input read once and each output written once (an
+    operator's bf16 hi and lo are as many bytes as its float32). The split4
+    twins do their GEMM in four bf16 passes; the rest is FP32 work."""
     base = name.removesuffix("_split4")
     passes = 4 if base != name else 1  # the split4 twins' bf16 passes
     if base == "synth":
         h_re, _, n, step, _ = args
         b, t, f = _rows(h_re) // h_re.shape[-2], h_re.shape[-2], h_re.shape[-1]
-        return (passes * 2 * b * t * 2 * f * n,
+        return (passes * 2 * b * t * 2 * f * n, 0,
                 4 * (2 * b * t * f + 2 * f * n + b * ((t - 1) * step + n)))
     if base == "imdct_ola":
         c, f, _ = args
         b, t = _rows(c) // c.shape[-2], c.shape[-2]
-        return (passes * 2 * b * t * f * 2 * f,
+        return (passes * 2 * b * t * f * 2 * f, 0,
                 4 * (b * t * f + 2 * f * f + b * (t + 1) * f))
     if base == "ola":
         frames, step = args
         t, wl = frames.shape[-2:]
-        return t * wl, 4 * (t * wl + (t - 1) * step + wl)
+        return 0, t * wl, 4 * (t * wl + (t - 1) * step + wl)
     if base == "mirror_full_planes":
         half, n = args
-        return 0, 8 * _rows(half) * (half.shape[-1] + n)
+        return 0, 0, 8 * _rows(half) * (half.shape[-1] + n)
     if base == "fold_half_planes":
         spec, n = args
         rows, f = _rows(spec), n // 2 + 1
-        return 6 * rows * f, 8 * rows * (n + f)
+        return 0, 6 * rows * f, 8 * rows * (n + f)
     if base == "cqt_magnitudes":
-        sig, ops, _, length, t, f = args
+        sig, _, _, length, t, f = args
         b = _rows(sig)
-        return (4 * b * t * length * f + 3 * b * t * f,
+        return (passes * 4 * b * t * length * f, 3 * b * t * f,
                 4 * (sig.numel() + 2 * length * f + b * t * f))
     # The analysis kernels: windowed frames times an operator.
     if base == "frames_op":
@@ -392,23 +412,26 @@ def _work(name: str, args: tuple) -> tuple[float, float]:
     b = _rows(padded)
     inputs = 4 * (padded.numel() + wl)
     if base == "framing":
-        return b * t * wl, inputs + b * out
-    flop = passes * 2 * nc * b * t * wl * f
+        return 0, b * t * wl, inputs + b * out
     ops_bytes = 4 * nc * wl * f
+    other = 0
     if base == "mel_rows":
-        flop += 2 * b * t * f * fbt.shape[1]
+        other = 3 * b * t * f + 2 * b * t * f * fbt.shape[1]
         ops_bytes += 4 * f * fbt.shape[1]
-    return flop, inputs + ops_bytes + b * out
+    return passes * 2 * nc * b * t * wl * f, other, inputs + ops_bytes + b * out
 
 
 def bound(name: str, args: tuple) -> tuple[float, str]:
     """The least time in ms the card could take for kernel ``name`` on
     ``args``, and what sets it: the larger of its bytes over the HBM rate
-    and its operations over the peak rate for their type (the bf16 tensor
-    cores for the split4 twins, FP32 for the rest)."""
-    flop, nbytes = _work(name, args)
-    peak = PEAK_BF16 if name.endswith("_split4") else PEAK_FP32
-    t_ops, t_bytes = flop / peak, nbytes / PEAK_BYTES
+    and its operations over the peak rate for their type (a split4 twin's
+    GEMM on the bf16 tensor cores beside its FP32 epilogue, the rest FP32)."""
+    gemm, other, nbytes = _work(name, args)
+    if name.endswith("_split4"):
+        t_ops = max(gemm / PEAK_BF16, other / PEAK_FP32)
+    else:
+        t_ops = (gemm + other) / PEAK_FP32
+    t_bytes = nbytes / PEAK_BYTES
     return (max(t_ops, t_bytes) * 1e3,
             "operations" if t_ops >= t_bytes else "bytes")
 
@@ -623,6 +646,14 @@ def mel_oracles(x: torch.Tensor, cfg: MelConfig):
             (logmel @ dct.T)[:, 1:cfg.number_coefficients + 1])
 
 
+# dispatch -> the kernels the mel phase must run, and the oracle gates of
+# spectrogram and melspectrogram (x max|oracle|; the MFCC's is MFCC_ATOL).
+MEL_WANT = {"default": (("spec_rows", "mel_rows"), ORACLE_TOL, ORACLE_TOL),
+            "ZAFTPU_MELFUSE=0": (("fused",), ORACLE_TOL, ORACLE_TOL),
+            "split4 ZAFTPU_MELFUSE=1": (("spec_rows", "mel_rows_split4"),
+                                        ORACLE_TOL, SPLIT4_ORACLE_TOL)}
+
+
 def phase_mel_path(dispatch: str, x: torch.Tensor) -> dict:
     """spectrogram, melspectrogram and mfcc of the 600-s signal at
     MelConfig(); returns the launch counts of the kernels this dispatch
@@ -633,12 +664,11 @@ def phase_mel_path(dispatch: str, x: torch.Tensor) -> dict:
     mel = zaftpu_torch.melspectrogram(x, config=cfg)
     mf = zaftpu_torch.mfcc(x, config=cfg)
     torch.cuda.synchronize()
-    want = (("spec_rows", "mel_rows") if dispatch == "default"
-            else ("fused",))
+    want, spec_tol, mel_tol = MEL_WANT[dispatch]
     launches = check_counters(f"mel path [{dispatch}]", want)
     for name, got, oracle, gate in zip(
             ("spectrogram", "melspectrogram", "mfcc"), (spec, mel, mf),
-            mel_oracles(x, cfg), (ORACLE_TOL, ORACLE_TOL, None)):
+            mel_oracles(x, cfg), (spec_tol, mel_tol, None)):
         require(tuple(got.shape) == tuple(oracle.T.shape)
                 and got.dtype == torch.float32 and got.is_cuda,
                 f"[{dispatch}] {name} {tuple(got.shape)} {got.dtype} "
@@ -696,14 +726,16 @@ def _hour_ms(fn, segs: list) -> float:
     return statistics.median(runs)
 
 
-def phase_hour_features(dispatch: str, segs: list) -> None:
+def phase_hour_features(dispatch: str, segs: list,
+                        mel_only: bool = False) -> None:
     """mdct, imdct (of the mdct's coefficients), spectrogram,
-    melspectrogram and mfcc over the six 600-s segments; frames/s from
-    CUDA events, median of 3 passes (printed, not gated)."""
+    melspectrogram and mfcc (only the last three when ``mel_only``) over
+    the six 600-s segments; frames/s from CUDA events, median of 3 passes
+    (printed, not gated)."""
     vwin = vorbis(WL)
     cfg = MelConfig()
     hwin = cfg.window_array()
-    coeffs = [zaftpu_torch.mdct(s, vwin) for s in segs]
+    coeffs = [] if mel_only else [zaftpu_torch.mdct(s, vwin) for s in segs]
     mdct_frames = sum(c.shape[-1] for c in coeffs)
     stft_frames = sum(stft_padding(s.shape[-1], WL, STEP)[2] for s in segs)
     rates = []
@@ -720,6 +752,8 @@ def phase_hour_features(dispatch: str, segs: list) -> None:
              stft_frames),
             ("mfcc", lambda s: zaftpu_torch.mfcc(s, config=cfg), segs,
              stft_frames)):
+        if mel_only and name in ("mdct", "imdct"):
+            continue
         ms = _hour_ms(fn, data)
         rates.append(f"{name} {ms:.3f} ms -> {frames / ms * 1e3:,.0f} "
                      "frames/s")
@@ -752,15 +786,22 @@ def cqt_oracle(x: torch.Tensor, cfg: CqtConfig, chunk: int = 256):
     return spec, chroma
 
 
+# CQT scheme -> the kernel it must run and its oracle gate (x max|oracle|).
+CQT_WANT = {"default": ("cqt_magnitudes_split4", SPLIT4_ORACLE_TOL),
+            "ZAFTPU_PRECISION=highest": ("cqt_magnitudes", ORACLE_TOL),
+            "ZAFTPU_CQT_SCHEME=exact": ("cqt_magnitudes", ORACLE_TOL)}
+
+
 def phase_cqt_path(dispatch: str, x: torch.Tensor) -> dict:
     """cqtspectrogram and cqtchromagram of the 600-s signal at CqtConfig();
-    returns the launch counts of cqt_magnitudes."""
+    returns the launch counts of the CQT kernel this scheme must run."""
     cfg = CqtConfig()
+    kernel, tol = CQT_WANT[dispatch]
     reset_counters()
     spec = zaftpu_torch.cqtspectrogram(x, config=cfg)
     chroma = zaftpu_torch.cqtchromagram(x, config=cfg)
     torch.cuda.synchronize()
-    launches = check_counters(f"cqt path [{dispatch}]", ("cqt_magnitudes",))
+    launches = check_counters(f"cqt path [{dispatch}]", (kernel,))
     for name, got, oracle in zip(("cqtspectrogram", "cqtchromagram"),
                                  (spec, chroma), cqt_oracle(x, cfg)):
         require(tuple(got.shape) == tuple(oracle.T.shape)
@@ -771,8 +812,8 @@ def phase_cqt_path(dispatch: str, x: torch.Tensor) -> dict:
         scale = _max_abs(oracle)
         print(f"cqt path [{dispatch}]: {name} max_abs_err vs f64 oracle "
               f"{err!r} (max|oracle| {scale!r}, ratio {err / scale!r})")
-        require(np.isfinite(err) and err <= ORACLE_TOL * scale,
-                f"[{dispatch}] {name} error {err} > {ORACLE_TOL} * {scale}")
+        require(np.isfinite(err) and err <= tol * scale,
+                f"[{dispatch}] {name} error {err} > {tol} * {scale}")
     return launches
 
 
@@ -802,7 +843,7 @@ def phase_fullspec_path(dispatch: str, x: torch.Tensor, ref: tuple,
     return launches
 
 
-def phase_hour_cqt(segs: list) -> None:
+def phase_hour_cqt(dispatch: str, segs: list) -> None:
     """cqtspectrogram and cqtchromagram over the six 600-s segments;
     frames/s from CUDA events, median of 3 passes (printed, not gated)."""
     cfg = CqtConfig()
@@ -813,12 +854,13 @@ def phase_hour_cqt(segs: list) -> None:
         ms = _hour_ms(lambda s, fn=fn: fn(s, config=cfg), segs)
         rates.append(f"{name} {ms:.3f} ms -> {frames / ms * 1e3:,.0f} "
                      "frames/s")
-    print(f"one hour [cqt]: {frames} frames; " + "; ".join(rates)
+    print(f"one hour [cqt {dispatch}]: {frames} frames; " + "; ".join(rates)
           + " (median of 3)")
 
 
 LEVERS = ("ZAFTPU_FUSED", "ZAFTPU_SYNTH", "ZAFTPU_MELFUSE", "ZAFTPU_MIRROR",
-          "ZAFTPU_FULLSPEC", "ZAFTPU_FUSED2", "ZAFTPU_PRECISION")
+          "ZAFTPU_FULLSPEC", "ZAFTPU_FUSED2", "ZAFTPU_PRECISION",
+          "ZAFTPU_CQT_SCHEME")
 DEFAULT = dict.fromkeys(LEVERS)
 SPLIT = {**DEFAULT, "ZAFTPU_FUSED": "0", "ZAFTPU_SYNTH": "0",
          "ZAFTPU_MELFUSE": "0"}
@@ -829,6 +871,9 @@ FUSED2_ON = {**DEFAULT, "ZAFTPU_FUSED2": "1"}
 SPLIT4 = {**DEFAULT, "ZAFTPU_PRECISION": "split4"}
 SPLIT4_FUSED2 = {**SPLIT4, "ZAFTPU_FUSED2": "1"}
 SPLIT4_FULLSPEC = {**SPLIT4, "ZAFTPU_FULLSPEC": "1"}
+SPLIT4_MELFUSE = {**SPLIT4, "ZAFTPU_MELFUSE": "1"}
+CQT_HIGHEST = {**DEFAULT, "ZAFTPU_PRECISION": "highest"}
+CQT_EXACT = {**DEFAULT, "ZAFTPU_CQT_SCHEME": "exact"}
 
 
 def _with_env(env: dict, fn, *args):
@@ -857,6 +902,7 @@ def _default_stft_istft(x: torch.Tensor) -> tuple:
 
 
 def main() -> int:
+    start = time.perf_counter()
     os.environ["ZAFTPU_CACHE"] = "0"
     phase_device()
     dev = torch.device("cuda", 0)
@@ -873,8 +919,11 @@ def main() -> int:
             (DEFAULT, phase_mel_path, "default"),
             (MELFUSE_OFF, phase_mel_path, "ZAFTPU_MELFUSE=0"),
             (DEFAULT, phase_cqt_path, "default"),
+            (CQT_HIGHEST, phase_cqt_path, "ZAFTPU_PRECISION=highest"),
+            (CQT_EXACT, phase_cqt_path, "ZAFTPU_CQT_SCHEME=exact"),
             (SPLIT4, phase_main_path, "split4"),
-            (SPLIT4, phase_mdct_path, "split4")):
+            (SPLIT4, phase_mdct_path, "split4"),
+            (SPLIT4_MELFUSE, phase_mel_path, "split4 ZAFTPU_MELFUSE=1")):
         for name, count in _with_env(env, phase, dispatch, x).items():
             launches[name] += count
         torch.cuda.empty_cache()
@@ -908,8 +957,14 @@ def main() -> int:
         _with_env(env, phase_hour, dispatch, segs)
         _with_env(env, phase_hour_features, dispatch, segs)
         torch.cuda.empty_cache()
-    _with_env(DEFAULT, phase_hour_cqt, segs)
+    _with_env(SPLIT4_MELFUSE, phase_hour_features, "split4 ZAFTPU_MELFUSE=1",
+              segs, True)
+    for env, dispatch in ((DEFAULT, "default: split4"),
+                          (CQT_EXACT, "ZAFTPU_CQT_SCHEME=exact")):
+        _with_env(env, phase_hour_cqt, dispatch, segs)
+        torch.cuda.empty_cache()
 
+    print(f"chip_smoke: {time.perf_counter() - start:.1f} s")
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": source,
          "replaces": replaces, "launches": launches[name], **timings[name]}

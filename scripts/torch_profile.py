@@ -2,10 +2,12 @@
 
     python3 scripts/torch_profile.py [--precision highest|split4] [--iters 3]
 
-Profiles 600-s stft -> istft and mdct -> imdct (the chip_smoke.py signal,
-Hamming and vorbis windows of 2048, hop 1024) with torch.profiler after two
-warm-up iterations, under the given ZAFTPU_PRECISION and the other levers
-as set in the environment. Prints, per path and per iteration: the device
+Profiles 600-s stft -> istft, mdct -> imdct (the chip_smoke.py signal,
+Hamming and vorbis windows of 2048, hop 1024) and cqtspectrogram at
+CqtConfig() with torch.profiler after two warm-up iterations, under the
+given ZAFTPU_PRECISION (set explicitly, so the CQT runs its split4 twin
+under split4 and its exact kernel under highest) and the other levers as
+set in the environment; the CQT kernel is built without the disk cache. Prints, per path and per iteration: the device
 time of each kernel (largest first), the busy time (their sum), the window
 (host clock around the profiled iterations, synchronised) and the busy
 share. Needs a CUDA card; prints nothing else and exits 1 without one.
@@ -25,6 +27,7 @@ sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 
 import zaftpu_torch  # noqa: E402
 from chip_smoke import segment  # noqa: E402
+from zaftpu_torch import CqtConfig  # noqa: E402
 from zaftpu_torch.core.windows import hamming, vorbis  # noqa: E402
 
 WL, STEP = 2048, 1024
@@ -71,6 +74,7 @@ def main() -> int:
         print("no CUDA card", file=sys.stderr)
         return 1
     os.environ["ZAFTPU_PRECISION"] = args.precision
+    os.environ["ZAFTPU_CACHE"] = "0"
     torch.backends.cuda.matmul.allow_tf32 = False
     print(f"{torch.cuda.get_device_name(0)}; ZAFTPU_PRECISION="
           f"{args.precision}")
@@ -81,6 +85,9 @@ def main() -> int:
     profile("stft", lambda: zaftpu_torch.stft(x, hw, STEP), args.iters)
     profile("mdct -> imdct", lambda: zaftpu_torch.imdct(
         zaftpu_torch.mdct(x, vw), vw), args.iters)
+    cfg = CqtConfig()
+    profile("cqtspectrogram", lambda: zaftpu_torch.cqtspectrogram(
+        x, config=cfg), args.iters)
     return 0
 
 

@@ -2,8 +2,8 @@
 (batched, ragged, general-hop and misaligned inputs), launch counts, the
 stft/istft, mdct/imdct, spectrogram/mel/MFCC and CQT paths against the CPU
 float64 path, the mirror, full-spectrum and two-output levers, the split4
-twins and the split4 dial, the device rule, and the inputs the CUDA path
-refuses.
+twins (B9's and B10's included) and the split4 dial, the CQT's scheme, the
+device rule, and the inputs the CUDA path refuses.
 
 Every test needs an NVIDIA GPU (marker ``cuda``) and skips without one.
 This file imports neither JAX nor zaftpu, so on a machine without JAX it
@@ -376,22 +376,43 @@ def test_cqt_magnitudes_on_a_misaligned_signal(dev, cqt_cache):
                                                  f)) < 2e-5
 
 
-def test_cqt_on_card_matches_cpu_f64(dev, cqt_cache):
+@pytest.mark.parametrize("env,split4", [
+    ({}, True), ({"ZAFTPU_PRECISION": "highest"}, False),
+    ({"ZAFTPU_CQT_SCHEME": "exact"}, False),
+    ({"ZAFTPU_PRECISION": "split4", "ZAFTPU_CQT_SCHEME": "exact"}, True),
+    ({"ZAFTPU_PRECISION": "highest", "ZAFTPU_CQT_SCHEME": "split4"}, True)])
+def test_cqt_on_card_matches_cpu_f64(dev, cqt_cache, env, split4,
+                                     monkeypatch):
+    """The CQT's scheme on the card: the split4 twin by default (within
+    1e-4 of max of the CPU float64 path), the exact kernel under a pinned
+    dial or ZAFTPU_CQT_SCHEME=exact (1e-5); no plain version runs."""
+    monkeypatch.delenv("ZAFTPU_PRECISION", raising=False)
+    monkeypatch.delenv("ZAFTPU_CQT_SCHEME", raising=False)
     cfg = zaftpu_torch.CqtConfig()
     x = np.random.default_rng(6).standard_normal((2, 3 * 44100))
     ref = zaftpu_torch.cqtspectrogram(torch.from_numpy(x), config=cfg)
     ref_chroma = zaftpu_torch.cqtchromagram(torch.from_numpy(x), config=cfg)
+    for name, value in env.items():
+        monkeypatch.setenv(name, value)
     x32 = torch.from_numpy(x.astype(np.float32)).to(dev)
-    before = (cqtslab.cqt_magnitudes.launches,
-              cqtslab.cqt_magnitudes_plain.calls)
+
+    def counts():
+        return (cqtslab.cqt_magnitudes.launches,
+                cqtslab.cqt_magnitudes_split4.launches,
+                cqtslab.cqt_magnitudes_plain.calls,
+                cqtslab.cqt_magnitudes_split4_plain.calls)
+
+    before = counts()
     spec = zaftpu_torch.cqtspectrogram(x32, config=cfg)
     chroma = zaftpu_torch.cqtchromagram(x32, config=cfg)
-    assert (cqtslab.cqt_magnitudes.launches,
-            cqtslab.cqt_magnitudes_plain.calls) == (before[0] + 2, before[1])
+    moved = (0, 2) if split4 else (2, 0)
+    assert counts() == (before[0] + moved[0], before[1] + moved[1],
+                        before[2], before[3])
     assert spec.is_cuda and spec.dtype == torch.float32
     assert spec.shape == ref.shape and chroma.shape == ref_chroma.shape
-    assert _rel_err(spec.cpu().double(), ref) < 1e-5
-    assert _rel_err(chroma.cpu().double(), ref_chroma) < 1e-5
+    tol = 1e-4 if split4 else 1e-5
+    assert _rel_err(spec.cpu().double(), ref) < tol
+    assert _rel_err(chroma.cpu().double(), ref_chroma) < tol
 
 
 def test_cuda_f64_cqt_raises(dev, cqt_cache):
@@ -636,16 +657,101 @@ def test_tpu_pass_count_dials_refused_on_cuda(dev, value, monkeypatch):
         zaftpu_torch.mdct(x, vorbis(512))
 
 
-def test_forced_mel_kernel_under_split4_raises_on_cuda(dev, monkeypatch):
-    """ZAFTPU_MELFUSE=1 under split4: spec_rows runs exact (no twin), the
-    mel kernel's twin is not ported and raises."""
+def test_forced_mel_kernel_under_split4_runs_the_twin_on_cuda(dev,
+                                                              monkeypatch):
+    """ZAFTPU_MELFUSE=1 under split4: spec_rows runs exact (no twin),
+    melspectrogram and mfcc run the mel kernel's twin; the outputs sit
+    within the split4 gates of the CPU float64 path."""
+    x = np.random.default_rng(14).standard_normal((2, 44100))
+    win = hamming(2048)
+    fb = zaftpu_torch.melfilterbank(44100, 2048, 40)
+    x64 = torch.from_numpy(x)
+    refs = (zaftpu_torch.spectrogram(x64, win, 1024),
+            zaftpu_torch.melspectrogram(x64, win, 1024, fb),
+            zaftpu_torch.mfcc(x64, win, 1024, fb, 20))
     monkeypatch.setenv("ZAFTPU_PRECISION", "split4")
     monkeypatch.setenv("ZAFTPU_MELFUSE", "1")
-    x = torch.from_numpy(np.random.default_rng(14).standard_normal(
-        8192).astype(np.float32)).to(dev)
-    before = melfused.spec_rows.launches
-    zaftpu_torch.spectrogram(x, hamming(512), 256)
-    assert melfused.spec_rows.launches == before + 1
-    with pytest.raises(NotImplementedError, match="split4"):
-        zaftpu_torch.melspectrogram(x, hamming(512), 256,
-                                    zaftpu_torch.melfilterbank(8000, 512, 20))
+    x32 = torch.from_numpy(x.astype(np.float32)).to(dev)
+
+    def counts():
+        return (melfused.spec_rows.launches, melfused.mel_rows.launches,
+                melfused.mel_rows_split4.launches,
+                melfused.mel_rows_split4_plain.calls)
+
+    before = counts()
+    spec = zaftpu_torch.spectrogram(x32, win, 1024)
+    mel = zaftpu_torch.melspectrogram(x32, win, 1024, fb)
+    mf = zaftpu_torch.mfcc(x32, win, 1024, fb, 20)
+    assert counts() == (before[0] + 1, before[1], before[2] + 2, before[3])
+    assert _rel_err(spec.cpu().double(), refs[0]) < 1e-5
+    assert _rel_err(mel.cpu().double(), refs[1]) < 1e-4
+    assert float((mf.cpu().double() - refs[2]).abs().max()) < 5e-3
+
+
+@pytest.mark.parametrize("wl,step,t", S4_SHAPES)
+@pytest.mark.parametrize("lead", [(), (2, 3)])
+@pytest.mark.parametrize("offset", [0, 1])
+def test_mel_rows_split4_matches_plain(dev, wl, step, t, lead, offset):
+    """B9's twin against its plain version on batched, ragged, general-hop
+    and misaligned (scalar-load) signals, magnitude and power."""
+    padded, win = _inputs(wl, step, t, dev, lead, offset)
+    fbt = torch.rand(wl // 2, 20,
+                     generator=torch.Generator().manual_seed(wl)).to(dev)
+    for power in (False, True):
+        got = melfused.mel_rows_split4(padded, win, fbt, wl, step, t, power)
+        ref = melfused.mel_rows_split4_plain(padded, win, fbt, wl, step, t,
+                                             power)
+        assert got.shape == ref.shape == (*lead, t, 20)
+        assert _rel_err(got, ref) < 2e-5
+
+
+@pytest.mark.parametrize("mels", [1, 128, 711])
+def test_mel_rows_split4_mel_counts(dev, mels):
+    """Up to 711 mels fit the twin's shared memory (the split4 tile's
+    33,792 static bytes beside the filterbank tile); 712 raise."""
+    wl, step, t = 512, 128, 70
+    padded, win = _inputs(wl, step, t, dev, (2,))
+    fbt = torch.rand(wl // 2, mels,
+                     generator=torch.Generator().manual_seed(mels)).to(dev)
+    got = melfused.mel_rows_split4(padded, win, fbt, wl, step, t, True)
+    ref = melfused.mel_rows_split4_plain(padded, win, fbt, wl, step, t, True)
+    assert got.shape == ref.shape == (2, t, mels)
+    assert _rel_err(got, ref) < 2e-5
+    with pytest.raises(RuntimeError, match="zt_mel_rows_split4"):
+        melfused.mel_rows_split4(padded, win,
+                                 torch.ones(wl // 2, 712, device=dev), wl,
+                                 step, t, True)
+
+
+@pytest.mark.parametrize("sr,bins,fmin,fmax,t", CQT_GEOMETRIES)
+@pytest.mark.parametrize("lead", [(), (2, 3)])
+def test_cqt_magnitudes_split4_match_plain(dev, cqt_cache, sr, bins, fmin,
+                                           fmax, t, lead):
+    kern = zaftpu_torch.cqtkernel(sr, bins, fmin, fmax)
+    step, length, f = round(sr / 25), kern.fft_length, kern.number_frequencies
+    ops = torch.from_numpy(cqtslab.time_ops_split4(kern.time_kernel)).to(
+        device=dev, dtype=torch.bfloat16)
+    rng = np.random.default_rng(sr + t + 1)
+    sig = torch.from_numpy(rng.standard_normal(
+        (*lead, (t - 1) * step + length)).astype(np.float32)).to(dev)
+    got = cqtslab.cqt_magnitudes_split4(sig, ops, step, length, t, f)
+    ref = cqtslab.cqt_magnitudes_split4_plain(sig, ops, step, length, t, f)
+    assert got.shape == ref.shape == (*lead, t, f)
+    assert _rel_err(got, ref) < 2e-5
+
+
+def test_cqt_magnitudes_split4_on_a_misaligned_signal(dev, cqt_cache):
+    kern = zaftpu_torch.cqtkernel(44100, 24, 55.0, 3520.0)
+    step, length, f = 1764, kern.fft_length, kern.number_frequencies
+    ops = cqtslab.time_ops(kern.time_kernel)
+    t = 33
+    raw = torch.from_numpy(np.random.default_rng(15).standard_normal(
+        (t - 1) * step + length + 1).astype(np.float32)).to(dev)
+    sig = raw[1:]
+    assert sig.data_ptr() % 16 != 0
+    # A float32 operator is split on the host.
+    ops = torch.from_numpy(ops).to(dev)
+    assert _rel_err(
+        cqtslab.cqt_magnitudes_split4(sig, ops, step, length, t, f),
+        cqtslab.cqt_magnitudes_split4_plain(sig, ops, step, length, t,
+                                            f)) < 2e-5

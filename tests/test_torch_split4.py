@@ -32,6 +32,7 @@ from zaftpu.transforms import mdct as zmdct
 from zaftpu_torch.core import fft as tfft
 from zaftpu_torch.core import policy
 from zaftpu_torch.kernels import _build
+from zaftpu_torch.kernels import cqtslab as tcqtslab
 from zaftpu_torch.kernels import fused as tfused
 from zaftpu_torch.kernels import melfused as tmelfused
 from zaftpu_torch.kernels import synth as tsynth
@@ -500,7 +501,7 @@ def test_front_ends_take_the_split4_half_spectrum(x32, split4, monkeypatch):
 
 @pytest.mark.parametrize("power", [False, True])
 def test_forced_melfuse_under_split4(power, split4):
-    """ZAFTPU_MELFUSE=1 under split4: mel_rows takes the split4 rDFT (as
+    """ZAFTPU_MELFUSE=1 under split4: mel_rows takes its split4 twin (as
     zaftpu's _kernel_split4 does, compared in interpret mode), spec_rows
     stays exact (it has no twin, in zaftpu either)."""
     wl, step, t = 512, 128, 21
@@ -511,8 +512,10 @@ def test_forced_melfuse_under_split4(power, split4):
     ref = np.asarray(zmelfused.mel_rows(
         jnp.asarray(padded), jnp.asarray(win), jnp.asarray(fbt), wl, step, t,
         power, interpret=True))
+    calls = tmelfused.mel_rows_split4_plain.calls
     mine = tmelfused.mel_rows(torch.from_numpy(padded), torch.from_numpy(win),
                               torch.from_numpy(fbt), wl, step, t, power)
+    assert tmelfused.mel_rows_split4_plain.calls == calls + 1
     _gemm_close(_np(mine), ref)
     spec = tmelfused.spec_rows(torch.from_numpy(padded),
                                torch.from_numpy(win), wl, step, t)
@@ -521,16 +524,94 @@ def test_forced_melfuse_under_split4(power, split4):
     _gemm_close(_np(spec), ref_spec)
 
 
-def test_mel_rows_twin_not_ported_raises_on_cuda(split4, monkeypatch):
-    def no_library():
-        raise AssertionError("the launch was reached")
+MEL_SHAPES = [(512, 128, 21, 8000, 20), (256, 128, 5, 16000, 7),
+              (512, 256, 37, 22050, 40)]
 
-    monkeypatch.setattr(_build, "library", no_library)
-    wl, step, t = 256, 128, 9
-    with pytest.raises(NotImplementedError, match="split4"):
-        tmelfused._mel_rows_cuda(torch.zeros(t * step + wl - step),
-                                 torch.zeros(wl), torch.zeros(wl // 2, 20),
-                                 wl, step, t, False)
+
+@pytest.mark.parametrize("power", [False, True])
+@pytest.mark.parametrize("wl,step,t,sr,mels", MEL_SHAPES)
+def test_mel_rows_split4_matches_zaftpu(wl, step, t, sr, mels, power,
+                                        split4):
+    """B9's twin (its plain version, called by name) against zaftpu's
+    _kernel_split4 in interpret mode."""
+    padded = _signal(wl, step, t, 15)
+    win = hamming(wl).astype(np.float32)
+    fbt = np.ascontiguousarray(
+        zaftpu.melfilterbank(sr, wl, mels).T.astype(np.float32))
+    ref = np.asarray(zmelfused.mel_rows(
+        jnp.asarray(padded), jnp.asarray(win), jnp.asarray(fbt), wl, step, t,
+        power, interpret=True))
+    calls = tmelfused.mel_rows_split4_plain.calls
+    mine = tmelfused.mel_rows_split4(torch.from_numpy(padded),
+                                     torch.from_numpy(win),
+                                     torch.from_numpy(fbt), wl, step, t,
+                                     power)
+    assert tmelfused.mel_rows_split4_plain.calls == calls + 1
+    assert mine.shape == ref.shape == (t, mels)
+    _gemm_close(_np(mine), ref)
+
+
+def test_mel_rows_split4_batched_and_operators(split4):
+    """A (2, 3, L) batch equals its rows; the presplit operator, its
+    float32 source and the cached default give the same values."""
+    wl, step, t = 512, 128, 9
+    rng = np.random.default_rng(16)
+    padded = torch.from_numpy(rng.standard_normal(
+        (2, 3, t * step + wl - step)).astype(np.float32))
+    win = torch.from_numpy(hamming(wl).astype(np.float32))
+    fbt = torch.from_numpy(rng.random((wl // 2, 6)).astype(np.float32))
+    out = tmelfused.mel_rows_split4(padded, win, fbt, wl, step, t, True)
+    ops = tmelfused.spec_ops(wl, torch.float32, "cpu")
+    for i in range(2):
+        for j in range(3):
+            one = tmelfused.mel_rows_split4(padded[i, j], win, fbt, wl, step,
+                                            t, True)
+            torch.testing.assert_close(out[i, j], one)
+    a = tmelfused.mel_rows_split4(padded[0, 0], win, fbt, wl, step, t, False,
+                                  ops)
+    b = tmelfused.mel_rows_split4(padded[0, 0], win, fbt, wl, step, t, False,
+                                  policy.presplit(ops))
+    c = tmelfused.mel_rows_split4(padded[0, 0], win, fbt, wl, step, t, False)
+    assert torch.equal(a, b) and torch.equal(a, c)
+
+
+def test_mel_front_ends_under_forced_melfuse_match_zaftpu(x32, split4,
+                                                          monkeypatch):
+    """ZAFTPU_MELFUSE=1 under split4: melspectrogram and mfcc run B9's twin
+    (its plain version here), spectrogram the exact spec_rows, as zaftpu's
+    front ends do through their kernels (interpret mode)."""
+    import functools
+
+    monkeypatch.setenv("ZAFTPU_FFT", "matmul")
+    monkeypatch.setenv("ZAFTPU_MELFUSE", "1")
+    monkeypatch.setenv("ZAFTPU_PALLAS", "1")
+    monkeypatch.setattr(zmelfused, "mel_rows",
+                        functools.partial(zmelfused.mel_rows, interpret=True))
+    monkeypatch.setattr(zmelfused, "spec_rows",
+                        functools.partial(zmelfused.spec_rows,
+                                          interpret=True))
+    x = torch.from_numpy(x32)
+    win = hamming(WL).astype(np.float32)
+    fb = zaftpu.melfilterbank(SR, WL, 40)
+    calls = (tmelfused.spec_rows_plain.calls,
+             tmelfused.mel_rows_split4_plain.calls,
+             tmelfused.mel_rows_plain.calls,
+             tfused.frames_rfft_split4_plain.calls)
+    outs = (zaftpu_torch.spectrogram(x, win, STEP),
+            zaftpu_torch.melspectrogram(x, win, STEP, fb),
+            zaftpu_torch.mfcc(x, win, STEP, fb, 20))
+    assert (tmelfused.spec_rows_plain.calls,
+            tmelfused.mel_rows_split4_plain.calls,
+            tmelfused.mel_rows_plain.calls,
+            tfused.frames_rfft_split4_plain.calls) == (
+                calls[0] + 1, calls[1] + 2, calls[2], calls[3])
+    refs = (zaftpu.spectrogram(x32, win, STEP),
+            zaftpu.melspectrogram(x32, win, STEP, fb),
+            zaftpu.mfcc(x32, win, STEP, fb, 20))
+    for mine, ref in zip(outs[:2], refs[:2]):
+        _gemm_close(_np(mine), np.asarray(ref))
+    np.testing.assert_allclose(_np(outs[2]), np.asarray(refs[2]), rtol=0,
+                               atol=5e-3)  # the log domain (test_mel.py:70)
 
 
 # ---- The new CUDA wrappers refuse before launching -------------------------
@@ -543,6 +624,11 @@ def _bad_split4_launch(case):
     h = torch.zeros(t, f)
     ops = tfused.rdft_ops(wl, torch.float32, "cpu")
     sops = policy.presplit(ops)
+    fbt = torch.zeros(wl // 2, 20)
+    mel_ops = tmelfused.split4_spec_ops(None, wl, "cpu")
+    length, cf = 2048, 36
+    sig = torch.zeros((t - 1) * 320 + length)
+    cops = torch.zeros(2, 2, length, 64, dtype=torch.bfloat16)
     calls = {
         "rfft_f64": lambda: tfused._frames_rfft_cuda(
             padded.double(), win, wl, step, t, split4=True),
@@ -570,13 +656,39 @@ def _bad_split4_launch(case):
         "imdct_f64": lambda: tsynth._imdct_ola_cuda(
             torch.zeros(t, wl // 2, dtype=torch.float64), wl // 2,
             vorbis(wl).tobytes(), split4=True),
+        "mel_f64": lambda: tmelfused._mel_rows_cuda(
+            padded.double(), win, fbt, wl, step, t, False, split4=True),
+        "mel_fbank_f64": lambda: tmelfused._mel_rows_cuda(
+            padded, win, fbt.double(), wl, step, t, False, split4=True),
+        "mel_fbank_rows": lambda: tmelfused._mel_rows_cuda(
+            padded, win, fbt[:-1], wl, step, t, True, split4=True),
+        "mel_short": lambda: tmelfused._mel_rows_cuda(
+            padded[:-1], win, fbt, wl, step, t, True, split4=True),
+        "mel_ops": lambda: tmelfused._mel_rows_cuda(
+            padded, win, fbt, wl, step, t, True, mel_ops[:, :, :, :-64],
+            split4=True),
+        "mel_ops_exact": lambda: tmelfused._mel_rows_cuda(
+            padded, win, fbt, wl, step, t, True, mel_ops, split4=False),
+        "cqt_f64": lambda: tcqtslab._cqt_magnitudes_cuda(
+            sig.double(), cops, 320, length, t, cf, split4=True),
+        "cqt_ops": lambda: tcqtslab._cqt_magnitudes_cuda(
+            sig, cops[:, :, :-1], 320, length, t, cf, split4=True),
+        "cqt_ops_dtype": lambda: tcqtslab._cqt_magnitudes_cuda(
+            sig, cops.double(), 320, length, t, cf, split4=True),
+        "cqt_short": lambda: tcqtslab._cqt_magnitudes_cuda(
+            sig[:-1], cops, 320, length, t, cf, split4=True),
+        "cqt_step": lambda: tcqtslab._cqt_magnitudes_cuda(
+            sig, cops, 0, length, t, cf, split4=True),
     }
     return calls[case]()
 
 
 @pytest.mark.parametrize("case", [
     "rfft_f64", "rfft_ops", "full_short", "op_ops", "planes_ops",
-    "planes_s4_ops", "synth_f64", "synth_width", "synth_ops", "imdct_f64"])
+    "planes_s4_ops", "synth_f64", "synth_width", "synth_ops", "imdct_f64",
+    "mel_f64", "mel_fbank_f64", "mel_fbank_rows", "mel_short", "mel_ops",
+    "mel_ops_exact", "cqt_f64", "cqt_ops", "cqt_ops_dtype", "cqt_short",
+    "cqt_step"])
 def test_split4_and_planes_wrappers_refuse_before_launch(case, monkeypatch):
     """The twins' and B12's CUDA wrappers check dtype, shapes and operator
     before they touch the library: non-float32 raises NotImplementedError,
@@ -588,7 +700,9 @@ def test_split4_and_planes_wrappers_refuse_before_launch(case, monkeypatch):
     counters = (tfused.frames_rfft_split4, tfused.frames_rfft_full_split4,
                 tfused.frames_op_split4, tfused.frames_matmul2,
                 tfused.frames_matmul2_split4, tsynth.istft_ola_split4,
-                tsynth.imdct_ola_split4)
+                tsynth.imdct_ola_split4, tmelfused.mel_rows,
+                tmelfused.mel_rows_split4, tcqtslab.cqt_magnitudes,
+                tcqtslab.cqt_magnitudes_split4)
     before = [fn.launches for fn in counters]
     error = NotImplementedError if case.endswith("_f64") else ValueError
     with pytest.raises(error):

@@ -26,7 +26,16 @@
 // whole-L blocks would leave 705 long ones. For L <= CH the one pass stores
 // the magnitudes itself. Every result is the same from run to run: no
 // atomics.
-#include "frames_gemm.cuh"
+//
+// The split4 twin (zt_cqt_magnitudes_split4) replaces its _kernel_split4:
+// the same chunks and second pass, each chunk's product by
+// frames_gemm_split4.cuh's tensor-core tile (no window), the signal split
+// into bf16 hi and lo in the tile as zaftpu splits the raw segment values,
+// the operator presplit on the host as a (2, 2, L, FP) bf16 stack (hi then
+// lo, M_re then M_im). Bound: four bf16 passes of the same products, 1,132
+// GFLOP per 600-s segment at CqtConfig() (F 144), 1.15 ms at the H100's
+// 989 TFLOP/s.
+#include "frames_gemm_split4.cuh"
 
 namespace {
 
@@ -35,9 +44,14 @@ using namespace zt::frames;
 constexpr int CH = 2048;  // contraction samples per block
 
 // Grid: x = chunk * (FP / BN) + column tile, y = frame tile, z = batch.
-template <bool VEC>
-__global__ void __launch_bounds__(zt::kThreads)
-cqt_chunk_kernel(const float* __restrict__ sig, const float* __restrict__ ops,
+// S4: the split4 tile, ops the presplit (2, 2, L, FP) bf16 stack; else the
+// exact tile, ops (2, L, FP) float32. At most 128 registers, so two blocks
+// share an SM: left free, the split4 kernel took 144 and ran 1.61 times
+// slower (8.17 against 5.08 ms at CqtConfig(), H100 80GB HBM3, 700 W;
+// scripts/torch_ab.py, PERF.md); the exact one takes 127 either way.
+template <bool VEC, bool S4>
+__global__ void __launch_bounds__(zt::kThreads, 2)
+cqt_chunk_kernel(const float* __restrict__ sig, const void* __restrict__ ops,
                  float* __restrict__ out, long long sig_len, int T, int L,
                  int step, int F, int FP, int P) {
   const int tiles = FP / BN;
@@ -55,9 +69,17 @@ cqt_chunk_kernel(const float* __restrict__ sig, const float* __restrict__ ops,
 #pragma unroll
     for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
   }
-  tile<VEC, 2, false>(sig + blockIdx.z * sig_len + w0, nullptr,
-                      ops + (long long)w0 * FP, (long long)L * FP, T, width,
-                      step, FP, t0, f0, acc);
+  const float* sb = sig + blockIdx.z * sig_len + w0;
+  const long long row0 = (long long)w0 * FP;
+  if constexpr (S4) {
+    tile_split4<VEC, 2, false>(sb, nullptr,
+                               static_cast<const __nv_bfloat16*>(ops) + row0,
+                               (long long)L * FP, T, width, step, FP, t0, f0,
+                               acc);
+  } else {
+    tile<VEC, 2, false>(sb, nullptr, static_cast<const float*>(ops) + row0,
+                        (long long)L * FP, T, width, step, FP, t0, f0, acc);
+  }
 
   const long long plane = (long long)gridDim.z * T * F;  // one chunk's
   const long long base = (long long)blockIdx.z * T * F;
@@ -97,6 +119,34 @@ cqt_sum_kernel(const float2* __restrict__ part, float* __restrict__ out,
   }
 }
 
+template <bool S4>
+int launch(const void* sig, const void* ops, void* part, void* out,
+           int batch, long long sig_len, int T, int L, int step, int F,
+           int FP, void* stream) {
+  if (FP % BN != 0 || FP < F || F < 1 || L < 1 || step < 1 ||
+      !zt::aligned16(ops)) {
+    return (int)cudaErrorInvalidValue;
+  }
+  const int P = zt::ceil_div(L, CH);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const dim3 grid(P * (FP / BN), zt::ceil_div(T, BM), batch);
+  const float* s = static_cast<const float*>(sig);
+  float* dst = static_cast<float*>(P > 1 ? part : out);
+  if (vec_ok(sig, nullptr, sig_len, L, step)) {
+    cqt_chunk_kernel<true, S4><<<grid, zt::kThreads, 0, st>>>(
+        s, ops, dst, sig_len, T, L, step, F, FP, P);
+  } else {
+    cqt_chunk_kernel<false, S4><<<grid, zt::kThreads, 0, st>>>(
+        s, ops, dst, sig_len, T, L, step, F, FP, P);
+  }
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess || P == 1) return (int)err;
+  const long long n = (long long)batch * T * F;
+  cqt_sum_kernel<<<zt::grid_1d(n, zt::kThreads), zt::kThreads, 0, st>>>(
+      static_cast<const float2*>(part), static_cast<float*>(out), n, P);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 // Chunks of the contraction for an operator of L rows: part must hold
@@ -111,27 +161,17 @@ ZT_EXPORT int zt_cqt_magnitudes(const void* sig, const void* ops, void* part,
                                 void* out, int batch, long long sig_len,
                                 int T, int L, int step, int F, int FP,
                                 void* stream) {
-  if (FP % BN != 0 || FP < F || F < 1 || L < 1 || step < 1 ||
-      !zt::aligned16(ops)) {
-    return (int)cudaErrorInvalidValue;
-  }
-  const int P = zt::ceil_div(L, CH);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const dim3 grid(P * (FP / BN), zt::ceil_div(T, BM), batch);
-  const float* s = static_cast<const float*>(sig);
-  const float* o = static_cast<const float*>(ops);
-  float* dst = static_cast<float*>(P > 1 ? part : out);
-  if (vec_ok(sig, nullptr, sig_len, L, step)) {
-    cqt_chunk_kernel<true><<<grid, zt::kThreads, 0, st>>>(
-        s, o, dst, sig_len, T, L, step, F, FP, P);
-  } else {
-    cqt_chunk_kernel<false><<<grid, zt::kThreads, 0, st>>>(
-        s, o, dst, sig_len, T, L, step, F, FP, P);
-  }
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess || P == 1) return (int)err;
-  const long long n = (long long)batch * T * F;
-  cqt_sum_kernel<<<zt::grid_1d(n, zt::kThreads), zt::kThreads, 0, st>>>(
-      static_cast<const float2*>(part), static_cast<float*>(out), n, P);
-  return (int)cudaGetLastError();
+  return launch<false>(sig, ops, part, out, batch, sig_len, T, L, step, F,
+                       FP, stream);
+}
+
+// The split4 twin: the same arguments, ops the presplit (2, 2, L, FP) bf16
+// stack (hi then lo, each M_re then M_im), 16-byte aligned.
+ZT_EXPORT int zt_cqt_magnitudes_split4(const void* sig, const void* ops,
+                                       void* part, void* out, int batch,
+                                       long long sig_len, int T, int L,
+                                       int step, int F, int FP,
+                                       void* stream) {
+  return launch<true>(sig, ops, part, out, batch, sig_len, T, L, step, F, FP,
+                      stream);
 }

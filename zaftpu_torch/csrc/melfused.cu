@@ -27,7 +27,17 @@
 // all bins itself leaves 404 blocks at the 600-s shape, 1.5 waves of two
 // blocks on 132 SMs: 9.7 ms against 7.3 ms for one tile per block, with
 // runs of 2, 4 and 8 tiles in between (H100 80GB HBM3, 700 W; PERF.md).
-#include "frames_gemm.cuh"
+//
+// mel_rows_split4 replaces _mel_rows_impl's _kernel_split4 (the split4
+// dial with ZAFTPU_MELFUSE=1): the same grid, epilogue and second pass
+// around frames_gemm_split4.cuh's tensor-core tile, ops the presplit
+// (2, 2, WL, FP) bf16 stack. The filterbank product stays FP32, as zaftpu
+// keeps it at HIGHEST. Bound: four bf16 passes of the rDFT, 0.88 ms per
+// 600-s segment at WL 2048. The split4 tile's 33,792 bytes of static
+// shared memory come on top of the epilogue's dynamic mel_smem_bytes, so
+// the largest mel count falls from 745 to 711 on an H100 (232,448 bytes a
+// block).
+#include "frames_gemm_split4.cuh"
 
 namespace {
 
@@ -75,12 +85,16 @@ inline size_t mel_smem_bytes(int M) {
   return sizeof(float) * ((size_t)BN * M + BM * (BN + 1));
 }
 
-// At most 128 registers, so two blocks share an SM; left free, the
-// compiler took more and one block per SM measured 17-20% slower.
-template <bool VEC, bool POWER>
+// At most 128 registers, so two blocks share an SM. Left free, the
+// compiler took more and one block per SM measured 17-20% slower for the
+// exact kernel, and 1.44-1.48 times slower for the split4 one (134-136
+// registers; H100 80GB HBM3, 700 W; scripts/torch_ab.py, PERF.md).
+// S4: the split4 tile, ops the presplit (2, 2, WL, FP) bf16 stack; else the
+// exact tile, ops (2, WL, FP) float32.
+template <bool VEC, bool POWER, bool S4>
 __global__ void __launch_bounds__(zt::kThreads, 2)
 mel_rows_kernel(const float* __restrict__ sig, const float* __restrict__ win,
-                const float* __restrict__ ops, const float* __restrict__ fbt,
+                const void* __restrict__ ops, const float* __restrict__ fbt,
                 float* __restrict__ part, long long sig_len, int T, int WL,
                 int step, int F, int FP, int M) {
   extern __shared__ __align__(16) float dyn[];
@@ -99,8 +113,15 @@ mel_rows_kernel(const float* __restrict__ sig, const float* __restrict__ win,
 #pragma unroll
     for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
   }
-  tile<VEC, 2>(sig + blockIdx.z * sig_len, win, ops, (long long)WL * FP, T,
-               WL, step, FP, t0, f0, acc);
+  if constexpr (S4) {
+    tile_split4<VEC, 2>(sig + blockIdx.z * sig_len, win,
+                        static_cast<const __nv_bfloat16*>(ops),
+                        (long long)WL * FP, T, WL, step, FP, t0, f0, acc);
+  } else {
+    tile<VEC, 2>(sig + blockIdx.z * sig_len, win,
+                 static_cast<const float*>(ops), (long long)WL * FP, T, WL,
+                 step, FP, t0, f0, acc);
+  }
 #pragma unroll
   for (int i = 0; i < TM; ++i) {
 #pragma unroll
@@ -145,23 +166,63 @@ sum_partials_kernel(const float* __restrict__ part, float* __restrict__ out,
   }
 }
 
-template <bool VEC, bool POWER>
+template <bool VEC, bool POWER, bool S4>
 cudaError_t launch_mel(dim3 grid, size_t smem, cudaStream_t st,
-                       const float* s, const float* w, const float* o,
+                       const float* s, const float* w, const void* o,
                        const float* fb, float* part, long long sig_len, int T,
                        int WL, int step, int F, int FP, int M) {
-  auto kernel = mel_rows_kernel<VEC, POWER>;
+  auto kernel = mel_rows_kernel<VEC, POWER, S4>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) {
-    // Too many mels for the card's shared memory per block (about 740 on
-    // an H100). Clear the error so the next launch does not read it.
+    // Too many mels for the card's shared memory per block (745, or 711
+    // for the twin, on an H100). Clear the error so the next launch does
+    // not read it.
     cudaGetLastError();
     return err;
   }
   kernel<<<grid, zt::kThreads, smem, st>>>(s, w, o, fb, part, sig_len, T, WL,
                                            step, F, FP, M);
   return cudaGetLastError();
+}
+
+template <bool S4>
+int mel_rows(const void* sig, const void* win, const void* ops,
+             const void* fbt, void* part, void* out, int batch,
+             long long sig_len, int T, int WL, int step, int F, int FP, int M,
+             int power, void* stream) {
+  if (FP % BN != 0 || FP < F || M < 1 || !zt::aligned16(ops)) {
+    return (int)cudaErrorInvalidValue;
+  }
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int P = FP / BN;
+  const dim3 grid(P, zt::ceil_div(T, BM), batch);
+  const size_t smem = mel_smem_bytes(M);
+  const float* s = static_cast<const float*>(sig);
+  const float* w = static_cast<const float*>(win);
+  const float* fb = static_cast<const float*>(fbt);
+  float* y = static_cast<float*>(out);
+  float* dst = P > 1 ? static_cast<float*>(part) : y;
+  const bool vec = vec_ok(sig, win, sig_len, WL, step);
+  cudaError_t err;
+  if (vec && power) {
+    err = launch_mel<true, true, S4>(grid, smem, st, s, w, ops, fb, dst,
+                                     sig_len, T, WL, step, F, FP, M);
+  } else if (vec) {
+    err = launch_mel<true, false, S4>(grid, smem, st, s, w, ops, fb, dst,
+                                      sig_len, T, WL, step, F, FP, M);
+  } else if (power) {
+    err = launch_mel<false, true, S4>(grid, smem, st, s, w, ops, fb, dst,
+                                      sig_len, T, WL, step, F, FP, M);
+  } else {
+    err = launch_mel<false, false, S4>(grid, smem, st, s, w, ops, fb, dst,
+                                       sig_len, T, WL, step, F, FP, M);
+  }
+  if (err != cudaSuccess || P == 1) return (int)err;
+  const long long n = (long long)batch * T * M;
+  sum_partials_kernel<<<zt::grid_1d(n, zt::kThreads), zt::kThreads, 0, st>>>(
+      dst, y, n, P);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -199,37 +260,17 @@ ZT_EXPORT int zt_mel_rows(const void* sig, const void* win, const void* ops,
                           const void* fbt, void* part, void* out, int batch,
                           long long sig_len, int T, int WL, int step, int F,
                           int FP, int M, int power, void* stream) {
-  if (FP % BN != 0 || FP < F || M < 1 || !zt::aligned16(ops)) {
-    return (int)cudaErrorInvalidValue;
-  }
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int P = FP / BN;
-  const dim3 grid(P, zt::ceil_div(T, BM), batch);
-  const size_t smem = mel_smem_bytes(M);
-  const float* s = static_cast<const float*>(sig);
-  const float* w = static_cast<const float*>(win);
-  const float* o = static_cast<const float*>(ops);
-  const float* fb = static_cast<const float*>(fbt);
-  float* y = static_cast<float*>(out);
-  float* dst = P > 1 ? static_cast<float*>(part) : y;
-  const bool vec = vec_ok(sig, win, sig_len, WL, step);
-  cudaError_t err;
-  if (vec && power) {
-    err = launch_mel<true, true>(grid, smem, st, s, w, o, fb, dst, sig_len,
-                                 T, WL, step, F, FP, M);
-  } else if (vec) {
-    err = launch_mel<true, false>(grid, smem, st, s, w, o, fb, dst, sig_len,
-                                  T, WL, step, F, FP, M);
-  } else if (power) {
-    err = launch_mel<false, true>(grid, smem, st, s, w, o, fb, dst, sig_len,
-                                  T, WL, step, F, FP, M);
-  } else {
-    err = launch_mel<false, false>(grid, smem, st, s, w, o, fb, dst,
-                                   sig_len, T, WL, step, F, FP, M);
-  }
-  if (err != cudaSuccess || P == 1) return (int)err;
-  const long long n = (long long)batch * T * M;
-  sum_partials_kernel<<<zt::grid_1d(n, zt::kThreads), zt::kThreads, 0, st>>>(
-      dst, y, n, P);
-  return (int)cudaGetLastError();
+  return mel_rows<false>(sig, win, ops, fbt, part, out, batch, sig_len, T,
+                         WL, step, F, FP, M, power, stream);
+}
+
+// The split4 twin: the same arguments, ops the presplit (2, 2, WL, FP) bf16
+// stack (hi then lo, each cos then sin), 16-byte aligned.
+ZT_EXPORT int zt_mel_rows_split4(const void* sig, const void* win,
+                                 const void* ops, const void* fbt, void* part,
+                                 void* out, int batch, long long sig_len,
+                                 int T, int WL, int step, int F, int FP,
+                                 int M, int power, void* stream) {
+  return mel_rows<true>(sig, win, ops, fbt, part, out, batch, sig_len, T, WL,
+                        step, F, FP, M, power, stream);
 }

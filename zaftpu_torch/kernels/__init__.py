@@ -34,11 +34,13 @@ FP32 kernels; ``split4`` runs every float32 analysis and synthesis kernel
 above as its split4 twin (four bf16 passes on the tensor cores, float32
 sums) and the split dispatch's wide GEMMs as ``policy.split4_matmul``.
 Under split4 the magnitude and mel front ends take the half spectrum of
-the analysis kernel unless ``ZAFTPU_MELFUSE=1`` forces their kernels, as
-in ``zaftpu``. ``high`` and ``default`` are refused on CUDA. The CQT has no
-lever and no split4 twin yet: a CUDA float32 CQT always runs the exact
-``cqtslab.cqt_magnitudes`` (``zaftpu`` defaults its CQT to split4 on the
-TPU).
+the analysis kernel unless ``ZAFTPU_MELFUSE=1`` forces their kernels (the
+exact ``spec_rows``, the mel kernel's twin), as in ``zaftpu``. ``high`` and
+``default`` are refused on CUDA. The CQT has its own scheme,
+``ZAFTPU_CQT_SCHEME`` (:mod:`zaftpu_torch.transforms.cqt`): a CUDA float32
+CQT runs ``cqtslab.cqt_magnitudes_split4`` by default and the exact
+``cqtslab.cqt_magnitudes`` under a pinned dial or ``exact``, as
+``zaftpu``'s does on its TPU.
 """
 
 from __future__ import annotations

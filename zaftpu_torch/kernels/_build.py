@@ -39,6 +39,8 @@ _LL = ctypes.c_longlong
 
 _FRAMES = (_P, _P, _P, _P, _I, _LL, _I, _I, _I, _I, _I, _P)
 _GEMM_OLA = (_P, _P, _P, _I, _I, _I, _I, _I, _P)
+_MEL = (_P, _P, _P, _P, _P, _P, _I, _LL, _I, _I, _I, _I, _I, _I, _I, _P)
+_CQT = (_P, _P, _P, _P, _I, _LL, _I, _I, _I, _I, _I, _P)
 
 # C entry point -> argument types (pointers and the stream as c_void_p).
 SIGNATURES = {
@@ -50,10 +52,11 @@ SIGNATURES = {
     "zt_gemm_ola": _GEMM_OLA,
     "zt_gemm_ola_split4": _GEMM_OLA,
     "zt_spec_rows": (_P, _P, _P, _P, _I, _LL, _I, _I, _I, _I, _I, _P),
-    "zt_mel_rows": (_P, _P, _P, _P, _P, _P, _I, _LL, _I, _I, _I, _I, _I, _I,
-                    _I, _P),
+    "zt_mel_rows": _MEL,
+    "zt_mel_rows_split4": _MEL,
     "zt_cqt_chunks": (_I,),
-    "zt_cqt_magnitudes": (_P, _P, _P, _P, _I, _LL, _I, _I, _I, _I, _I, _P),
+    "zt_cqt_magnitudes": _CQT,
+    "zt_cqt_magnitudes_split4": _CQT,
     "zt_mirror_full": (_P, _P, _LL, _I, _P),
     "zt_fold_half": (_P, _P, _P, _LL, _I, _I, _LL, _LL, _LL, _P),
     "zt_error_string": (_I,),

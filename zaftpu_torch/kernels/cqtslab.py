@@ -15,7 +15,15 @@ k multiplies the contiguous ``(T, step)`` view of the padded signal that
 starts at sample ``k*step``, for k ascending. The kernel reads the frames
 from the signal directly and sums the contraction in chunks of 2,048
 samples (``csrc/cqtslab.cu``), so the two agree to float32 rounding, not
-bit for bit. The bf16 split4 twin (``_kernel_split4``) is not ported.
+bit for bit.
+
+``cqt_magnitudes_split4`` replaces the bf16 split4 twin (``_kernel_split4``),
+the CQT's default on ``zaftpu``'s accelerator: each slab product by the
+4-pass scheme, the signal split into bf16 hi and lo as it is read, the
+operator presplit on the host (:func:`time_ops_split4`). Its plain version
+is the slab loop with each slab product a
+:func:`zaftpu_torch.core.policy.split4_matmul_presplit`; the kernel runs
+the tensor cores over the same chunks as the exact one.
 """
 
 from __future__ import annotations
@@ -23,12 +31,15 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from zaftpu_torch.core.policy import exact_matmul
+from zaftpu_torch.core.fft import presplit_operator
+from zaftpu_torch.core.policy import (exact_matmul, presplit_host,
+                                      split4_matmul_presplit)
 from zaftpu_torch.kernels import _build
 from zaftpu_torch.kernels.fused import TILE_FRAMES, padded_cols
 
 CUDA_SOURCE = "zaftpu_torch/csrc/cqtslab.cu"
 REPLACES = "zaftpu/pallas/cqtslab.py:290"  # magnitudes_in_trace
+REPLACES_SPLIT4 = "zaftpu/pallas/cqtslab.py:203"  # _kernel_split4
 
 
 def time_ops(time_kernel: np.ndarray, dtype=np.float32) -> np.ndarray:
@@ -43,11 +54,43 @@ def time_ops(time_kernel: np.ndarray, dtype=np.float32) -> np.ndarray:
     return ops
 
 
+def time_ops_split4(time_kernel: np.ndarray) -> np.ndarray:
+    """The ``(2, 2, L, F_pad)`` presplit of :func:`time_ops`: bf16 hi then
+    lo (:func:`zaftpu_torch.core.policy.presplit_host`), each the real then
+    the imaginary plane, as float32 arrays of bf16 values. The values are
+    ``zaftpu``'s ``_slab_ops_host_split`` with its slabs put back into rows
+    and its lane-padding rows dropped."""
+    return presplit_host(time_ops(time_kernel))
+
+
 def slab_needed(number_times: int, step: int, fft_length: int) -> int:
     """Samples the slab loop reads: every slab view spans ``T * step``
     samples, so coverage rounds ``fft_length`` up to whole hops
     (``zaftpu``'s ``cqt._blocked_needed``)."""
     return (number_times - 1) * step + -(-fft_length // step) * step
+
+
+def _slab_loop(padded, step, length, number_times, product):
+    """Re and im ``(..., T, F)`` of the slab loop: ``product(slab, lo,
+    width, c)`` is slab k's product with operator component ``c`` over rows
+    ``lo..lo+width``, added for k ascending. A signal shorter than the
+    slabs' reach is zero-extended."""
+    t = number_times
+    need = slab_needed(t, step, length)
+    if padded.shape[-1] < need:
+        padded = torch.nn.functional.pad(padded,
+                                         (0, need - padded.shape[-1]))
+    lead = padded.shape[:-1]
+    re = im = None
+    for lo in range(0, length, step):
+        width = min(step, length - lo)
+        slab = padded[..., lo:lo + t * step].reshape(*lead, t, step)
+        slab = slab[..., :width]
+        pr = product(slab, lo, width, 0)
+        pi = product(slab, lo, width, 1)
+        re = pr if re is None else re + pr
+        im = pi if im is None else im + pi
+    return re, im
 
 
 def cqt_magnitudes_plain(padded: torch.Tensor, ops: torch.Tensor, step: int,
@@ -58,26 +101,36 @@ def cqt_magnitudes_plain(padded: torch.Tensor, ops: torch.Tensor, step: int,
     then ``sqrt(re² + im²)``. A signal shorter than the slabs' reach is
     zero-extended."""
     cqt_magnitudes_plain.calls += 1
-    t, f, length = number_times, f_channels, fft_length
-    need = slab_needed(t, step, length)
-    if padded.shape[-1] < need:
-        padded = torch.nn.functional.pad(padded,
-                                         (0, need - padded.shape[-1]))
-    lead = padded.shape[:-1]
+    f = f_channels
     ops = ops.to(padded.dtype)
-    re = im = None
-    for lo in range(0, length, step):
-        width = min(step, length - lo)
-        slab = padded[..., lo:lo + t * step].reshape(*lead, t, step)
-        slab = slab[..., :width]
-        pr = exact_matmul(slab, ops[0, lo:lo + width, :f])
-        pi = exact_matmul(slab, ops[1, lo:lo + width, :f])
-        re = pr if re is None else re + pr
-        im = pi if im is None else im + pi
+    re, im = _slab_loop(
+        padded, step, fft_length, number_times,
+        lambda slab, lo, width, c: exact_matmul(slab,
+                                                ops[c, lo:lo + width, :f]))
     return torch.sqrt(re * re + im * im)
 
 
-cqt_magnitudes_plain.calls = 0
+def cqt_magnitudes_split4_plain(padded: torch.Tensor, ops: torch.Tensor,
+                                step: int, fft_length: int,
+                                number_times: int,
+                                f_channels: int) -> torch.Tensor:
+    """:func:`cqt_magnitudes_plain` with each slab product by the split4
+    scheme (``zaftpu``'s ``_kernel_split4``): the slab split into bf16 hi
+    and lo, four exact GEMMs against the presplit operator, smallest first.
+    ``ops``: the presplit ``(2, 2, L, F_pad)`` bf16 stack, or the float32
+    ``(2, L, F_pad)`` one, split on the host."""
+    cqt_magnitudes_split4_plain.calls += 1
+    f = f_channels
+    ops = presplit_operator(ops)
+    re, im = _slab_loop(
+        padded, step, fft_length, number_times,
+        lambda slab, lo, width, c: split4_matmul_presplit(
+            slab, ops[0, c, lo:lo + width, :f], ops[1, c, lo:lo + width, :f]))
+    return torch.sqrt(re * re + im * im)
+
+
+for _fn in (cqt_magnitudes_plain, cqt_magnitudes_split4_plain):
+    _fn.calls = 0
 
 
 def cqt_magnitudes(padded: torch.Tensor, ops: torch.Tensor, step: int,
@@ -97,26 +150,50 @@ def cqt_magnitudes(padded: torch.Tensor, ops: torch.Tensor, step: int,
                                 f_channels)
 
 
+def cqt_magnitudes_split4(padded: torch.Tensor, ops: torch.Tensor, step: int,
+                          fft_length: int, number_times: int,
+                          f_channels: int) -> torch.Tensor:
+    """The split4 twin of :func:`cqt_magnitudes`: the same magnitudes with
+    each product by four bf16 passes with float32 sums. ``ops`` is the
+    presplit ``(2, 2, fft_length, F_pad)`` bf16 stack of
+    :func:`time_ops_split4`, or the float32 one, split on the host.
+
+    A CPU tensor takes the plain version; a CUDA tensor launches the
+    tensor-core kernel (leading axes flattened into its batch) or raises.
+    """
+    if not padded.is_cuda:
+        return cqt_magnitudes_split4_plain(padded, ops, step, fft_length,
+                                           number_times, f_channels)
+    return _cqt_magnitudes_cuda(padded, ops, step, fft_length, number_times,
+                                f_channels, split4=True)
+
+
 def _cqt_magnitudes_cuda(padded: torch.Tensor, ops: torch.Tensor, step: int,
                          fft_length: int, number_times: int,
-                         f_channels: int) -> torch.Tensor:
-    """Check the CUDA input, launch the kernels, count the launch."""
-    _build.require_f32(padded, "cqt_magnitudes")
+                         f_channels: int, split4: bool = False
+                         ) -> torch.Tensor:
+    """Check the CUDA input, launch the kernels, exact or (``split4``) the
+    twin, count the launch."""
+    name = "cqt_magnitudes_split4" if split4 else "cqt_magnitudes"
+    _build.require_f32(padded, name)
     t, f, length = number_times, f_channels, fft_length
     fp = padded_cols(f)
     if step < 1 or t < 1 or f < 1:
-        raise ValueError(f"cqt_magnitudes: need step, T and F >= 1, got "
+        raise ValueError(f"{name}: need step, T and F >= 1, got "
                          f"{step}, {t} and {f}")
-    if ops.shape != (2, length, fp) or ops.dtype != torch.float32:
-        raise ValueError(f"cqt_magnitudes: operator must be float32 "
-                         f"(2, {length}, {fp}), got {ops.dtype} "
-                         f"{tuple(ops.shape)}")
+    if split4:
+        ops = presplit_operator(ops)
+    shape = (2, 2, length, fp) if split4 else (2, length, fp)
+    dtype = torch.bfloat16 if split4 else torch.float32
+    if tuple(ops.shape) != shape or ops.dtype != dtype:
+        raise ValueError(f"{name}: operator must be {dtype} {shape}, got "
+                         f"{ops.dtype} {tuple(ops.shape)}")
     if padded.shape[-1] < (t - 1) * step + length:
-        raise ValueError(f"cqt_magnitudes: {padded.shape[-1]} samples hold "
+        raise ValueError(f"{name}: {padded.shape[-1]} samples hold "
                          f"fewer than {t} frames of {length} at hop {step}")
     sig = padded.reshape(-1, padded.shape[-1]).contiguous()
     batch = sig.shape[0]
-    _build.require_grid(batch, -(-t // TILE_FRAMES), "cqt_magnitudes")
+    _build.require_grid(batch, -(-t // TILE_FRAMES), name)
     ops = ops.to(padded.device).contiguous()
     lib = _build.library()
     chunks = lib.zt_cqt_chunks(length)
@@ -124,13 +201,16 @@ def _cqt_magnitudes_cuda(padded: torch.Tensor, ops: torch.Tensor, step: int,
                         device=padded.device) if chunks > 1 else None)
     out = torch.empty((batch, t, f), dtype=torch.float32,
                       device=padded.device)
-    err = lib.zt_cqt_magnitudes(
+    entry = "zt_" + name
+    err = getattr(lib, entry)(
         sig.data_ptr(), ops.data_ptr(),
         None if part is None else part.data_ptr(), out.data_ptr(), batch,
         sig.shape[-1], t, length, step, f, fp, _build.stream_of(padded))
-    _build.check(err, "zt_cqt_magnitudes")
-    cqt_magnitudes.launches += 1
+    _build.check(err, entry)
+    (cqt_magnitudes_split4 if split4 else cqt_magnitudes).launches += 1
     return out.reshape(*padded.shape[:-1], t, f)
 
 
-cqt_magnitudes.launches = 0
+for _fn in (cqt_magnitudes, cqt_magnitudes_split4):
+    _fn.launches = 0
+del _fn

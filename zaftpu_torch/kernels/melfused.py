@@ -13,9 +13,10 @@ HIGHEST in every precision mode.
 Under ``ZAFTPU_PRECISION=split4`` the front ends leave these kernels for
 the split4 half spectrum (:func:`kernel_wanted`), as ``zaftpu``'s do. Forced
 with ``ZAFTPU_MELFUSE=1``, ``spec_rows`` stays exact (it has no split4
-twin, in ``zaftpu`` either) and ``mel_rows`` takes the split4 rDFT in its
-plain version, as ``zaftpu``'s ``_kernel_split4`` does; its CUDA twin is
-not ported yet, so on CUDA it raises.
+twin, in ``zaftpu`` either) and ``mel_rows`` takes its split4 twin
+``mel_rows_split4``, the port of ``zaftpu``'s ``_kernel_split4``: the rDFT
+by four bf16 passes on the tensor cores, the operator presplit on the host,
+the filterbank product still FP32.
 
 ``ZAFTPU_MELFUSE=0`` is ``zaftpu``'s A/B lever: ``spectrogram``,
 ``melspectrogram`` and ``mfcc`` then take the split path (the half spectrum
@@ -32,7 +33,7 @@ import torch
 
 from zaftpu_torch.core import fft as _fft
 from zaftpu_torch.core.frame import extract_frames
-from zaftpu_torch.core.policy import exact_matmul, presplit, split4_applies
+from zaftpu_torch.core.policy import exact_matmul, split4_applies
 from zaftpu_torch.kernels import _build
 from zaftpu_torch.kernels.framing import check_frame_args
 from zaftpu_torch.kernels.fused import (TILE_BINS, TILE_FRAMES, _products,
@@ -41,6 +42,7 @@ from zaftpu_torch.kernels.fused import (TILE_BINS, TILE_FRAMES, _products,
 CUDA_SOURCE = "zaftpu_torch/csrc/melfused.cu"
 REPLACES_SPEC = "zaftpu/pallas/melfused.py:200"  # _spec_rows_impl
 REPLACES_MEL = "zaftpu/pallas/melfused.py:263"   # _mel_rows_impl
+REPLACES_MEL_SPLIT4 = "zaftpu/pallas/melfused.py:142"  # _kernel_split4
 
 
 def enabled() -> bool:
@@ -78,16 +80,21 @@ def spec_ops(n: int, dtype: torch.dtype, device) -> torch.Tensor:
                                 torch.device(device), dtype)
 
 
-def _planes(padded, window, window_length, step, number_times, ops,
-            split4=False):
-    """Re and im of bins ``1..WL/2`` of the windowed frames, plain; by the
-    split4 scheme when ``split4`` (the operator split on the host)."""
+def split4_spec_ops(ops: torch.Tensor | None, n: int,
+                    device) -> torch.Tensor:
+    """The operator of ``mel_rows``'s twin: ``ops`` (presplit, or float32
+    and split on the host), or the cached presplit ``(2, 2, N, F_pad)``
+    stack of :func:`_spec_ops`."""
+    return _fft.presplit_operator(ops, _spec_ops, (n, "float32"), device)
+
+
+def _planes(padded, window, window_length, step, number_times, ops):
+    """Re and im of bins ``1..WL/2`` of the windowed frames, plain: exact
+    for a float operator, by the split4 scheme for a presplit one."""
     frames = (extract_frames(padded, window_length, step, number_times)
               * window.to(padded.dtype))
     if ops is None:
         ops = spec_ops(window_length, padded.dtype, padded.device)
-    if split4:
-        ops = presplit(ops)
     return _products(frames, ops, window_length // 2)
 
 
@@ -123,18 +130,20 @@ def spec_rows(padded: torch.Tensor, window: torch.Tensor, window_length: int,
 
 
 def _device_args(name, padded, window, window_length, step, number_times,
-                 ops):
+                 ops, split4=False):
     """Check a CUDA input; return the flattened signal, window and
-    operator as the kernels take them."""
+    operator as the kernels take them (``split4``: the presplit one)."""
     check_frame_args(name, padded, window, window_length, step,
                      number_times)
     wl = window_length
     fp = padded_cols(wl // 2)
     if ops is None:
         ops = spec_ops(wl, torch.float32, padded.device)
-    if ops.shape != (2, wl, fp) or ops.dtype != torch.float32:
-        raise ValueError(f"{name}: operator must be float32 (2, {wl}, {fp}), "
-                         f"got {ops.dtype} {tuple(ops.shape)}")
+    shape = (2, 2, wl, fp) if split4 else (2, wl, fp)
+    dtype = torch.bfloat16 if split4 else torch.float32
+    if tuple(ops.shape) != shape or ops.dtype != dtype:
+        raise ValueError(f"{name}: operator must be {dtype} {shape}, got "
+                         f"{ops.dtype} {tuple(ops.shape)}")
     sig = padded.reshape(-1, padded.shape[-1]).contiguous()
     _build.require_grid(sig.shape[0], -(-number_times // TILE_FRAMES), name)
     win = window.to(device=padded.device, dtype=torch.float32).contiguous()
@@ -162,6 +171,14 @@ def _spec_rows_cuda(padded: torch.Tensor, window: torch.Tensor,
 spec_rows.launches = 0
 
 
+def _mel_plain(padded, window, fbank_t, window_length, step, number_times,
+               power, ops):
+    re, im = _planes(padded, window, window_length, step, number_times, ops)
+    p2 = re * re + im * im
+    return exact_matmul(p2 if power else torch.sqrt(p2),
+                        fbank_t.to(padded.dtype))
+
+
 def mel_rows_plain(padded: torch.Tensor, window: torch.Tensor,
                    fbank_t: torch.Tensor, window_length: int, step: int,
                    number_times: int, power: bool,
@@ -170,14 +187,25 @@ def mel_rows_plain(padded: torch.Tensor, window: torch.Tensor,
     ``1..WL/2`` times the ``(WL/2, n_mels)`` filterbank transpose,
     ``(..., T, n_mels)``, in plain PyTorch."""
     mel_rows_plain.calls += 1
-    re, im = _planes(padded, window, window_length, step, number_times, ops,
-                     split4_applies(padded.dtype))
-    p2 = re * re + im * im
-    return exact_matmul(p2 if power else torch.sqrt(p2),
-                        fbank_t.to(padded.dtype))
+    return _mel_plain(padded, window, fbank_t, window_length, step,
+                      number_times, power, ops)
 
 
-mel_rows_plain.calls = 0
+def mel_rows_split4_plain(padded: torch.Tensor, window: torch.Tensor,
+                          fbank_t: torch.Tensor, window_length: int,
+                          step: int, number_times: int, power: bool,
+                          ops: torch.Tensor | None = None) -> torch.Tensor:
+    """:func:`mel_rows_plain` with the rDFT by the split4 scheme (the
+    frames split in torch, four exact GEMMs against the presplit operator);
+    the filterbank product stays exact."""
+    mel_rows_split4_plain.calls += 1
+    return _mel_plain(padded, window, fbank_t, window_length, step,
+                      number_times, power,
+                      split4_spec_ops(ops, window_length, padded.device))
+
+
+for _fn in (mel_rows_plain, mel_rows_split4_plain):
+    _fn.calls = 0
 
 
 def mel_rows(padded: torch.Tensor, window: torch.Tensor,
@@ -188,15 +216,18 @@ def mel_rows(padded: torch.Tensor, window: torch.Tensor,
     (``power=False``, melspectrogram) or power-mel (``power=True``, the
     MFCC front) rows of a padded signal ``(..., L)``. ``fbank_t``: the
     ``(WL/2, n_mels)`` filterbank transpose. ``ops`` overrides the
-    operator (:func:`spec_ops`).
+    operator (:func:`spec_ops`). Split4 (float32) takes
+    :func:`mel_rows_split4`.
 
-    A CPU tensor takes the plain version (the split4 rDFT under split4); a
-    CUDA tensor launches the kernel (leading axes flattened into its batch)
-    or raises, as it does under split4, whose twin is not ported yet. The
-    kernel stages a bin tile's ``(64, n_mels)`` filterbank rows in shared
-    memory, so the card's shared memory per block bounds ``n_mels`` (about
-    740 on an H100); above that the launch raises.
+    A CPU tensor takes the plain version; a CUDA tensor launches the kernel
+    (leading axes flattened into its batch) or raises. The kernel stages a
+    bin tile's ``(64, n_mels)`` filterbank rows in shared memory, so the
+    card's shared memory per block bounds ``n_mels`` (745 on an H100, 711
+    for the twin); above that the launch raises.
     """
+    if split4_applies(padded.dtype):
+        return mel_rows_split4(padded, window, fbank_t, window_length, step,
+                               number_times, power, ops)
     if not padded.is_cuda:
         return mel_rows_plain(padded, window, fbank_t, window_length, step,
                               number_times, power, ops)
@@ -204,23 +235,40 @@ def mel_rows(padded: torch.Tensor, window: torch.Tensor,
                           number_times, power, ops)
 
 
+def mel_rows_split4(padded: torch.Tensor, window: torch.Tensor,
+                    fbank_t: torch.Tensor, window_length: int, step: int,
+                    number_times: int, power: bool,
+                    ops: torch.Tensor | None = None) -> torch.Tensor:
+    """The split4 twin of :func:`mel_rows` (``_mel_rows_impl``'s
+    ``_kernel_split4``): the rDFT by four bf16 passes with float32 sums.
+    ``ops`` is the presplit ``(2, 2, WL, F_pad)`` bf16 stack, or a float32
+    operator that is split on the host. A CPU tensor takes the plain
+    version; a CUDA tensor launches the tensor-core kernel or raises."""
+    if not padded.is_cuda:
+        return mel_rows_split4_plain(padded, window, fbank_t, window_length,
+                                     step, number_times, power, ops)
+    return _mel_rows_cuda(padded, window, fbank_t, window_length, step,
+                          number_times, power, ops, split4=True)
+
+
 def _mel_rows_cuda(padded: torch.Tensor, window: torch.Tensor,
                    fbank_t: torch.Tensor, window_length: int, step: int,
                    number_times: int, power: bool,
-                   ops: torch.Tensor | None = None) -> torch.Tensor:
-    """Check the CUDA input, launch the kernels, count the launch."""
-    if split4_applies(padded.dtype):
-        raise NotImplementedError(
-            "mel_rows: the split4 twin of the mel kernel is not ported yet; "
-            "leave ZAFTPU_MELFUSE unset under ZAFTPU_PRECISION=split4")
+                   ops: torch.Tensor | None = None,
+                   split4: bool = False) -> torch.Tensor:
+    """Check the CUDA input, launch the kernels, exact or (``split4``) the
+    twin, count the launch."""
+    name = "mel_rows_split4" if split4 else "mel_rows"
     f = window_length // 2
     if fbank_t.ndim != 2 or fbank_t.shape[0] != f or fbank_t.shape[1] < 1:
-        raise ValueError(f"mel_rows: filterbank transpose must be ({f}, "
+        raise ValueError(f"{name}: filterbank transpose must be ({f}, "
                          f"n_mels) with n_mels >= 1, got "
                          f"{tuple(fbank_t.shape)}")
-    _build.require_f32(fbank_t, "mel_rows")
-    sig, win, ops, fp = _device_args("mel_rows", padded, window,
-                                     window_length, step, number_times, ops)
+    _build.require_f32(fbank_t, name)
+    if split4:
+        ops = split4_spec_ops(ops, window_length, padded.device)
+    sig, win, ops, fp = _device_args(name, padded, window, window_length,
+                                     step, number_times, ops, split4)
     t, m, batch = number_times, fbank_t.shape[1], sig.shape[0]
     fbt = fbank_t.to(padded.device).contiguous()
     tiles = fp // TILE_BINS  # each writes a partial; a second pass sums them
@@ -228,14 +276,17 @@ def _mel_rows_cuda(padded: torch.Tensor, window: torch.Tensor,
     part = (torch.empty((tiles, batch, t, m), dtype=torch.float32, device=dev)
             if tiles > 1 else None)
     out = torch.empty((batch, t, m), dtype=torch.float32, device=dev)
-    err = _build.library().zt_mel_rows(
+    entry = "zt_" + name
+    err = getattr(_build.library(), entry)(
         sig.data_ptr(), win.data_ptr(), ops.data_ptr(), fbt.data_ptr(),
         None if part is None else part.data_ptr(), out.data_ptr(), batch,
         sig.shape[-1], t, window_length, step, f, fp, m, int(power),
         _build.stream_of(padded))
-    _build.check(err, "zt_mel_rows")
-    mel_rows.launches += 1
+    _build.check(err, entry)
+    (mel_rows_split4 if split4 else mel_rows).launches += 1
     return out.reshape(*padded.shape[:-1], t, m)
 
 
-mel_rows.launches = 0
+for _fn in (mel_rows, mel_rows_split4):
+    _fn.launches = 0
+del _fn

@@ -17,12 +17,19 @@ Application follows the input's dtype, as ``zaftpu``'s does:
   Hermitian symmetry), a complex GEMM and ``abs``;
 * float32: the frame FFT folded into the operator, ``K @ FFT(x) ==
   FFT(K rows) @ x``, so the CQT is one ``(T, L) x (L, F)`` complex product
-  per signal: on the card the hand-written kernel
-  :func:`zaftpu_torch.kernels.cqtslab.cqt_magnitudes`, on the CPU its plain
-  slab loop. A CUDA float64 signal raises ``NotImplementedError``.
+  per signal: on the card a hand-written kernel, on the CPU the exact plain
+  slab loop of :func:`zaftpu_torch.kernels.cqtslab.cqt_magnitudes`. A CUDA
+  float64 signal raises ``NotImplementedError``.
 
-Not ported: the split4 scheme (``ZAFTPU_CQT_SCHEME``), the scoped-VMEM
-twins, the 128-lane hop padding and the silent-retry wrapper.
+On the card the CQT has its own scheme, ``zaftpu``'s ``ZAFTPU_CQT_SCHEME``
+(:func:`_slab_scheme_split4`): the split4 twin
+(:func:`zaftpu_torch.kernels.cqtslab.cqt_magnitudes_split4`) by default,
+the exact kernel when ``ZAFTPU_PRECISION`` is pinned to anything but
+``split4`` or ``ZAFTPU_CQT_SCHEME=exact``. On the CPU the CQT stays exact
+under every scheme, as ``zaftpu``'s does off its accelerator.
+
+Not ported: the scoped-VMEM twins, the 128-lane hop padding and the
+silent-retry wrapper.
 """
 
 from __future__ import annotations
@@ -38,7 +45,7 @@ import torch
 
 from zaftpu_torch.core import validate as _validate
 from zaftpu_torch.core import windows as _windows
-from zaftpu_torch.core.policy import check_cuda_dial
+from zaftpu_torch.core.policy import check_cuda_dial, split4_enabled
 from zaftpu_torch.kernels import cqtslab as _cqtslab
 from zaftpu_torch.transforms.stft import _as_input
 from zaftpu_torch.utils.cache import cached_operator
@@ -223,8 +230,9 @@ def _block_frames() -> int:
 
 # Device operators, keyed by (id(kernel), device, dtype); each entry pins
 # its kernel so the id stays its own. FIFO-bounded. A float32 entry is the
-# (2, L, F_pad) time-domain stack, a float64 one the reduced spectral
-# kernel with its gather columns and conjugation mask.
+# (2, L, F_pad) time-domain stack, a bfloat16 one its (2, 2, L, F_pad)
+# presplit, a float64 one the reduced spectral kernel with its gather
+# columns and conjugation mask.
 _device_kernels: dict = {}
 _DEVICE_KERNEL_LIMIT = 16
 
@@ -240,8 +248,15 @@ def _device_entry(kern: CqtKernel, device: torch.device, dtype, build):
     return hit[1]
 
 
-def _device_time_kernel(kern: CqtKernel, device: torch.device):
-    """The ``(2, L, F_pad)`` float32 time-domain operator on ``device``."""
+def _device_time_kernel(kern: CqtKernel, device: torch.device,
+                        split4: bool = False):
+    """The ``(2, L, F_pad)`` float32 time-domain operator on ``device``, or
+    (``split4``) its ``(2, 2, L, F_pad)`` bf16 presplit."""
+    if split4:
+        return _device_entry(
+            kern, device, torch.bfloat16,
+            lambda: torch.from_numpy(_cqtslab.time_ops_split4(
+                kern.time_kernel)).to(device=device, dtype=torch.bfloat16))
     return _device_entry(
         kern, device, torch.float32,
         lambda: torch.from_numpy(_cqtslab.time_ops(kern.time_kernel)).to(
@@ -332,12 +347,33 @@ def _cqt_inputs(audio_signal, sampling_frequency, time_resolution):
     return x, step, number_times
 
 
+def _slab_scheme_split4() -> bool:
+    """Is the 4-pass bf16-split scheme selected for the CQT kernel?
+    ``ZAFTPU_CQT_SCHEME`` (``zaftpu``'s ``_slab_scheme_split4``):
+
+    * ``auto`` (default): split4, unless ``ZAFTPU_PRECISION`` is set to
+      something else (an unset dial is its ``highest`` default, not a
+      choice);
+    * ``split4`` / ``exact``: force the scheme / follow the dial.
+    """
+    scheme = os.environ.get("ZAFTPU_CQT_SCHEME", "auto")
+    if scheme == "split4":
+        return True
+    if scheme == "exact":
+        return split4_enabled()
+    explicit = os.environ.get("ZAFTPU_PRECISION")
+    return explicit is None or explicit.lower() == "split4"
+
+
 def _cqt_dispatch(x: torch.Tensor, kern: CqtKernel, step: int,
                   number_times: int, octave_resolution: int):
     """The asymmetric centring pad (zaf.py:613-620) plus the slab loop's
     tail (``zaftpu``'s ``_blocked_needed``), then the float32 or float64
     core; ``(..., F, T)`` as a transposed view, octave-folded when
-    ``octave_resolution`` is set."""
+    ``octave_resolution`` is set. A CUDA float32 signal takes the split4
+    twin when the scheme selects it (``zaftpu``'s ``_use_slab_kernel`` on
+    its accelerator); a CPU signal keeps the exact slab loop, as
+    ``zaftpu``'s CPU backend does."""
     length = kern.fft_length
     pad_front = int(np.ceil((length - step) / 2))
     pad_back = int(np.floor((length - step) / 2))
@@ -346,9 +382,11 @@ def _cqt_dispatch(x: torch.Tensor, kern: CqtKernel, step: int,
     padded = torch.nn.functional.pad(
         x, (pad_front, pad_back + max(0, needed - have)))
     if x.dtype == torch.float32:
-        mags = _cqtslab.cqt_magnitudes(
-            padded, _device_time_kernel(kern, x.device), step, length,
-            number_times, kern.number_frequencies)
+        split4 = x.is_cuda and _slab_scheme_split4()
+        core = (_cqtslab.cqt_magnitudes_split4 if split4
+                else _cqtslab.cqt_magnitudes)
+        mags = core(padded, _device_time_kernel(kern, x.device, split4),
+                    step, length, number_times, kern.number_frequencies)
     else:
         k_reduced, gather_cols, conj_mask = _device_oracle_kernel(kern,
                                                                   x.device)
@@ -368,7 +406,8 @@ def cqtspectrogram(audio_signal, sampling_frequency=None,
     ``T = floor(N/step)``, an asymmetric centring pad, per-frame
     ``|K . fft(frame)|``. ``config=CqtConfig(...)`` may stand in for the
     three positional parameters. The output is a transposed view of a
-    frames-major tensor. A CUDA float32 signal runs the CQT kernel.
+    frames-major tensor. A CUDA float32 signal runs the CQT kernel of
+    ``ZAFTPU_CQT_SCHEME``: the split4 twin by default.
     """
     sampling_frequency, time_resolution, cqt_kernel = _resolve_cqt_args(
         sampling_frequency, time_resolution, cqt_kernel, config)
