@@ -1,9 +1,12 @@
 """zaftpu_torch's CUDA kernels on the card: each against its plain version
 (batched, ragged, general-hop and misaligned inputs), launch counts, the
 stft/istft, mdct/imdct, spectrogram/mel/MFCC and CQT paths against the CPU
-float64 path, the mirror, full-spectrum and two-output levers, the split4
-twins (B9's and B10's included) and the split4 dial, the CQT's scheme, the
-device rule, and the inputs the CUDA path refuses.
+float64 path, the real-FFT analysis kernel and the shape rule that picks
+it, the mirror, full-spectrum and two-output levers, the split4 twins
+(B9's and B10's included) and the split4 dial, the CQT's scheme, the mel
+kernels past the old shared-memory limit, the device and dtype rules
+(float64 arrays, lists and bfloat16 signals), and the inputs the CUDA path
+refuses.
 
 Every test needs an NVIDIA GPU (marker ``cuda``) and skips without one.
 This file imports neither JAX nor zaftpu, so on a machine without JAX it
@@ -19,8 +22,9 @@ from zaftpu_torch.core import policy
 from zaftpu_torch.core.windows import hamming, kbd, vorbis
 from zaftpu_torch.core import fft as tfft
 from zaftpu_torch.kernels import (cqtslab, framing, fused, melfused, mirror,
-                                  ola, synth)
+                                  ola, rfft, synth)
 from zaftpu_torch.transforms import mdct as tmdct
+from zaftpu_torch.transforms.stft import centre_padded
 
 pytestmark = pytest.mark.cuda
 
@@ -53,6 +57,18 @@ def _rel_err(got, ref):
     return float((g - r).abs().max() / r.abs().max())
 
 
+def _half_plain(wl):
+    """The plain version of the kernel frames_rfft launches at ``wl``."""
+    return (rfft.frames_rfft_fft_plain if rfft.applies(wl)
+            else fused.frames_rfft_plain)
+
+
+def _oracle_half(padded, win, wl, step, t):
+    """The float64 half spectrum of the windowed frames, on the CPU."""
+    frames = padded.double().cpu().unfold(-1, wl, step)[..., :t, :]
+    return torch.fft.rfft(frames * win.double().cpu(), dim=-1)
+
+
 @pytest.mark.parametrize("wl,step,t", SHAPES)
 @pytest.mark.parametrize("lead", [(), (2, 3)])
 def test_kernels_match_plain(dev, wl, step, t, lead):
@@ -68,7 +84,7 @@ def test_kernels_match_plain(dev, wl, step, t, lead):
     else:  # the plain scatter-add sums in frame order, the kernel c-ascending
         assert _rel_err(got, ref) < 1e-6
     half = fused.frames_rfft(padded, win, wl, step, t)
-    ref = fused.frames_rfft_plain(padded, win, wl, step, t)
+    ref = _half_plain(wl)(padded, win, wl, step, t)
     assert half.shape == ref.shape and _rel_err(half, ref) < 2e-5
     h_re, h_im = half.real.contiguous(), half.imag.contiguous()
     got = synth.istft_ola(h_re, h_im, wl, step, 0.5)
@@ -85,13 +101,23 @@ def test_misaligned_signal_takes_the_scalar_framing(dev):
                                                        t))
 
 
-def test_batched_cuda_input_launches_once(dev):
-    wl, step, t = 512, 128, 21
+@pytest.mark.parametrize("wl", [512, 500])
+def test_batched_cuda_input_launches_once(dev, wl):
+    """One launch for a batch, of the kernel the shape rule picks: the FFT
+    at a power-of-two window, the GEMM otherwise; no plain version."""
+    step, t = 128, 21
     padded, win = _inputs(wl, step, t, dev, (4,))
-    before = (fused.frames_rfft.launches, fused.frames_rfft_plain.calls)
+
+    def counts():
+        return (fused.frames_rfft.launches, rfft.frames_rfft_fft.launches,
+                fused.frames_rfft_plain.calls,
+                rfft.frames_rfft_fft_plain.calls)
+
+    before = counts()
     fused.frames_rfft(padded, win, wl, step, t)
-    assert (fused.frames_rfft.launches,
-            fused.frames_rfft_plain.calls) == (before[0] + 1, before[1])
+    fft = rfft.applies(wl)
+    assert counts() == (before[0] + (not fft), before[1] + fft, before[2],
+                        before[3])
 
 
 @pytest.mark.parametrize("split", [False, True])
@@ -185,7 +211,7 @@ def test_imdct_ola_matches_plain(dev, f, t, lead):
     assert torch.equal(synth.imdct_ola(view, f, wb), got)
 
 
-@pytest.mark.parametrize("mels", [1, 128, 256, 512])
+@pytest.mark.parametrize("mels", [1, 128, 256, 512, 800, 1024])
 def test_mel_rows_mel_counts(dev, mels):
     wl, step, t = 512, 128, 70
     padded, win = _inputs(wl, step, t, dev, (2,))
@@ -198,18 +224,24 @@ def test_mel_rows_mel_counts(dev, mels):
         assert _rel_err(got, ref) < 2e-5
 
 
-def test_mel_rows_past_shared_memory_raises(dev):
-    """A filterbank tile too large for the card's shared memory per block
-    raises; the error does not linger into the next launch."""
-    wl, step, t = 512, 128, 70
-    padded, win = _inputs(wl, step, t, dev, ())
-    with pytest.raises(RuntimeError, match="zt_mel_rows"):
-        melfused.mel_rows(padded, win, torch.ones(wl // 2, 4096, device=dev),
-                          wl, step, t, False)
-    fbt = torch.ones(wl // 2, 40, device=dev)
-    got = melfused.mel_rows(padded, win, fbt, wl, step, t, False)
-    ref = melfused.mel_rows_plain(padded, win, fbt, wl, step, t, False)
-    assert _rel_err(got, ref) < 2e-5
+@pytest.mark.parametrize("mels", [800, 1024])
+@pytest.mark.parametrize("split4", [False, True])
+def test_mel_rows_past_the_old_shared_memory_limit(dev, mels, split4):
+    """More mels than a bin tile's filterbank rows once fit in shared
+    memory (745, 711 for the twin): the epilogue walks them in chunks, at
+    WL 2048 through melspectrogram's own filterbank."""
+    wl, step, t = 2048, 1024, 45
+    padded, win = _inputs(wl, step, t, dev, (2,))
+    fbt = torch.from_numpy(np.ascontiguousarray(zaftpu_torch.melfilterbank(
+        44100, wl, mels).T.astype(np.float32))).to(dev)
+    kernel, plain = (
+        (melfused.mel_rows_split4, melfused.mel_rows_split4_plain) if split4
+        else (melfused.mel_rows, melfused.mel_rows_plain))
+    for power in (False, True):
+        got = kernel(padded, win, fbt, wl, step, t, power)
+        ref = plain(padded, win, fbt, wl, step, t, power)
+        assert got.shape == ref.shape == (2, t, mels)
+        assert _rel_err(got, ref) < 2e-5
 
 
 def test_mdct_path_with_an_uneven_window_matches_cpu_f64(dev):
@@ -251,6 +283,7 @@ def _launches():
             "spec_rows": melfused.spec_rows.launches,
             "mel_rows": melfused.mel_rows.launches,
             "frames_rfft": fused.frames_rfft.launches,
+            "frames_rfft_fft": rfft.frames_rfft_fft.launches,
             "framing": framing.frame_window.launches,
             "ola": ola.overlap_add.launches}
 
@@ -258,7 +291,7 @@ def _launches():
 def _calls():
     return (fused.frames_op_plain.calls, synth.imdct_ola_plain.calls,
             melfused.spec_rows_plain.calls, melfused.mel_rows_plain.calls,
-            fused.frames_rfft_plain.calls)
+            fused.frames_rfft_plain.calls, rfft.frames_rfft_fft_plain.calls)
 
 
 @pytest.mark.parametrize("split", [False, True])
@@ -283,7 +316,7 @@ def test_mdct_imdct_on_card_match_cpu_f64(dev, split, monkeypatch):
     assert rec.is_cuda and _rel_err(rec.cpu().double(), rec_ref) < 1e-5
 
 
-@pytest.mark.parametrize("melfuse", ["auto", "0"])
+@pytest.mark.parametrize("melfuse", ["auto", "0", "1"])
 def test_mel_paths_on_card_match_cpu_f64(dev, melfuse, monkeypatch):
     monkeypatch.setenv("ZAFTPU_MELFUSE", melfuse)
     x = np.random.default_rng(3).standard_normal((2, 44100))
@@ -295,8 +328,10 @@ def test_mel_paths_on_card_match_cpu_f64(dev, melfuse, monkeypatch):
     mel = zaftpu_torch.melspectrogram(x32, win, 1024, fb)
     mf = zaftpu_torch.mfcc(x32, win, 1024, fb, 20)
     moved = {k for k, v in _launches().items() if v != before[k]}
-    assert moved == ({"spec_rows", "mel_rows"} if melfuse == "auto"
-                     else {"frames_rfft"})
+    # WL 2048: the FFT rule's half spectrum unless the lever forces the
+    # magnitude and mel kernels.
+    assert moved == ({"spec_rows", "mel_rows"} if melfuse == "1"
+                     else {"frames_rfft_fft"})
     assert _calls() == calls
     x64 = torch.from_numpy(x)
     assert _rel_err(spec.cpu().double(),
@@ -451,24 +486,38 @@ def test_mirror_and_fold_bitwise_vs_plain(dev, n, lead):
 @pytest.mark.parametrize("wl,step,t", SHAPES)
 @pytest.mark.parametrize("lead", [(), (2, 3)])
 def test_frames_rfft_full_bitwise_vs_half_and_mirror(dev, wl, step, t, lead):
+    """B3 is bit-equal to the mirror of the GEMM half spectrum it shares a
+    tile with (an explicit operator; without one at a window outside the
+    FFT rule), and within 1e-5 of max of the float64 oracle: at a
+    power-of-two window the default half spectrum is the FFT kernel's."""
     padded, win = _inputs(wl, step, t, dev, lead)
     full = fused.frames_rfft_full(padded, win, wl, step, t)
-    half = fused.frames_rfft(padded, win, wl, step, t)
+    half = fused.frames_rfft(padded, win, wl, step, t,
+                             ops=fused.rdft_ops(wl, torch.float32, dev))
     assert full.shape == (*lead, t, wl)
     assert torch.equal(full, mirror.mirror_full_planes(half, wl))
     assert torch.equal(full, tfft.conjugate_mirror(half, wl))
+    if not rfft.applies(wl):
+        assert torch.equal(full, tfft.conjugate_mirror(
+            fused.frames_rfft(padded, win, wl, step, t), wl))
+    oracle = tfft.conjugate_mirror(_oracle_half(padded, win, wl, step, t), wl)
+    assert _rel_err(full.cpu().to(torch.complex128), oracle) < 1e-5
     ref = fused.frames_rfft_full_plain(padded, win, wl, step, t)
     assert _rel_err(full, ref) < 2e-5
 
 
 @pytest.mark.parametrize("levers,moved", [
     ({"ZAFTPU_MIRROR": "pallas"},
-     {"frames_rfft", "mirror_full_planes", "fold_half_planes", "synth"}),
+     {"frames_rfft_fft", "mirror_full_planes", "fold_half_planes", "synth"}),
     ({"ZAFTPU_FULLSPEC": "1"}, {"frames_rfft_full", "synth"})])
 def test_mirror_and_fullspec_levers_on_card_bit_equal_default(
         dev, levers, moved, monkeypatch):
-    x = torch.from_numpy(np.random.default_rng(7).standard_normal(
-        (2, 44100)).astype(np.float32)).to(dev)
+    """The mirror lever is bit-equal to the default. The full-spectrum
+    kernel stays a GEMM while the default at WL 2048 is the FFT kernel, so
+    under it stft and the round trip are held within 1e-5 of max of the
+    CPU float64 path instead."""
+    x64 = np.random.default_rng(7).standard_normal((2, 44100))
+    x = torch.from_numpy(x64.astype(np.float32)).to(dev)
     win = hamming(2048)
     ref = zaftpu_torch.stft(x, win, 1024)
     ref_rec = zaftpu_torch.istft(ref, win, 1024)
@@ -477,6 +526,7 @@ def test_mirror_and_fullspec_levers_on_card_bit_equal_default(
 
     def launches():
         return {"frames_rfft": fused.frames_rfft.launches,
+                "frames_rfft_fft": rfft.frames_rfft_fft.launches,
                 "frames_rfft_full": fused.frames_rfft_full.launches,
                 "mirror_full_planes": mirror.mirror_full_planes.launches,
                 "fold_half_planes": mirror.fold_half_planes.launches,
@@ -486,8 +536,15 @@ def test_mirror_and_fullspec_levers_on_card_bit_equal_default(
     spec = zaftpu_torch.stft(x, win, 1024)
     rec = zaftpu_torch.istft(spec, win, 1024)
     assert {k for k, v in launches().items() if v != before[k]} == moved
-    assert torch.equal(spec, ref)
-    assert torch.equal(rec, ref_rec)
+    if "ZAFTPU_FULLSPEC" not in levers:
+        assert torch.equal(spec, ref)
+        assert torch.equal(rec, ref_rec)
+        return
+    monkeypatch.delenv("ZAFTPU_FULLSPEC")
+    oracle = zaftpu_torch.stft(torch.from_numpy(x64), win, 1024)
+    assert _rel_err(spec.cpu().to(torch.complex128), oracle) < 1e-5
+    assert _rel_err(rec.cpu().double(),
+                    zaftpu_torch.istft(oracle, win, 1024)) < 1e-5
 
 
 # The split4 twins (ZAFTPU_PRECISION=split4) and B12.
@@ -526,13 +583,21 @@ def test_split4_analysis_twins_match_plain(dev, wl, step, t, lead, offset):
 @pytest.mark.parametrize("wl,step,t", SHAPES)
 @pytest.mark.parametrize("lead", [(), (2, 3)])
 def test_frames_matmul2_bitwise_vs_frames_rfft(dev, wl, step, t, lead):
+    """B12's planes equal B1's half spectrum bit for bit, FFT or GEMM as
+    the shape rule picks, and the GEMM pair under an explicit operator."""
     padded, win = _inputs(wl, step, t, dev, lead)
     re, im = fused.frames_matmul2(padded, win, wl, step, t)
     assert re.shape == (*lead, t, wl // 2 + 1)
     half = fused.frames_rfft(padded, win, wl, step, t)
     assert torch.equal(torch.complex(re, im), half)
-    pre, pim = fused.frames_matmul2_plain(padded, win, wl, step, t)
+    plain = (rfft.frames_matmul2_fft_plain if rfft.applies(wl)
+             else fused.frames_matmul2_plain)
+    pre, pim = plain(padded, win, wl, step, t)
     assert _rel_err(torch.stack((re, im)), torch.stack((pre, pim))) < 2e-5
+    ops = fused.rdft_ops(wl, torch.float32, dev)
+    gre, gim = fused.frames_matmul2(padded, win, wl, step, t, ops)
+    assert torch.equal(torch.complex(gre, gim),
+                       fused.frames_rfft(padded, win, wl, step, t, ops))
 
 
 @pytest.mark.parametrize("wl,step,t", S4_SHAPES)
@@ -596,13 +661,16 @@ def test_split4_paths_on_card_match_cpu_f64(dev, monkeypatch):
 @pytest.mark.parametrize("dial", ["highest", "split4"])
 def test_fused2_and_fullspec_levers_on_card_bit_equal(dev, lever, dial,
                                                       monkeypatch):
+    """Each lever's kernel shares the default's tile, so stft is bit-equal
+    to the default, except B3 on the exact dial: a GEMM beside the default
+    FFT kernel, held within 1e-5 of max of the CPU float64 path."""
     monkeypatch.setenv("ZAFTPU_PRECISION", dial)
-    x = torch.from_numpy(np.random.default_rng(12).standard_normal(
-        (2, 44100)).astype(np.float32)).to(dev)
+    x64 = np.random.default_rng(12).standard_normal((2, 44100))
+    x = torch.from_numpy(x64.astype(np.float32)).to(dev)
     win = hamming(2048)
     ref = zaftpu_torch.stft(x, win, 1024)
     monkeypatch.setenv(lever, "1")
-    kernel = {("ZAFTPU_FUSED2", "highest"): fused.frames_matmul2,
+    kernel = {("ZAFTPU_FUSED2", "highest"): rfft.frames_matmul2_fft,
               ("ZAFTPU_FUSED2", "split4"): fused.frames_matmul2_split4,
               ("ZAFTPU_FULLSPEC", "highest"): fused.frames_rfft_full,
               ("ZAFTPU_FULLSPEC", "split4"): fused.frames_rfft_full_split4
@@ -610,7 +678,11 @@ def test_fused2_and_fullspec_levers_on_card_bit_equal(dev, lever, dial,
     before = kernel.launches
     spec = zaftpu_torch.stft(x, win, 1024)
     assert kernel.launches == before + 1
-    assert torch.equal(spec, ref)
+    if (lever, dial) != ("ZAFTPU_FULLSPEC", "highest"):
+        assert torch.equal(spec, ref)
+        return
+    oracle = zaftpu_torch.stft(torch.from_numpy(x64), win, 1024)
+    assert _rel_err(spec.cpu().to(torch.complex128), oracle) < 1e-5
 
 
 ENTRY_POINTS = ["stft", "istft", "spectrogram", "mdct", "imdct",
@@ -705,10 +777,10 @@ def test_mel_rows_split4_matches_plain(dev, wl, step, t, lead, offset):
         assert _rel_err(got, ref) < 2e-5
 
 
-@pytest.mark.parametrize("mels", [1, 128, 711])
+@pytest.mark.parametrize("mels", [1, 128, 711, 712, 800, 1024])
 def test_mel_rows_split4_mel_counts(dev, mels):
-    """Up to 711 mels fit the twin's shared memory (the split4 tile's
-    33,792 static bytes beside the filterbank tile); 712 raise."""
+    """Any mel count: the epilogue stages the filterbank 256 mels at a
+    time beside the split4 tile (712 and more raised before the chunks)."""
     wl, step, t = 512, 128, 70
     padded, win = _inputs(wl, step, t, dev, (2,))
     fbt = torch.rand(wl // 2, mels,
@@ -717,10 +789,6 @@ def test_mel_rows_split4_mel_counts(dev, mels):
     ref = melfused.mel_rows_split4_plain(padded, win, fbt, wl, step, t, True)
     assert got.shape == ref.shape == (2, t, mels)
     assert _rel_err(got, ref) < 2e-5
-    with pytest.raises(RuntimeError, match="zt_mel_rows_split4"):
-        melfused.mel_rows_split4(padded, win,
-                                 torch.ones(wl // 2, 712, device=dev), wl,
-                                 step, t, True)
 
 
 @pytest.mark.parametrize("sr,bins,fmin,fmax,t", CQT_GEOMETRIES)
@@ -755,3 +823,154 @@ def test_cqt_magnitudes_split4_on_a_misaligned_signal(dev, cqt_cache):
         cqtslab.cqt_magnitudes_split4(sig, ops, step, length, t, f),
         cqtslab.cqt_magnitudes_split4_plain(sig, ops, step, length, t,
                                             f)) < 2e-5
+
+
+# The real-FFT analysis kernel: B1 and B12 at power-of-two windows.
+
+FFT_SHAPES = [(16, 4, 300), (16, 5, 37), (64, 1, 45), (256, 100, 61),
+              (512, 128, 1001), (2048, 1024, 37), (2048, 683, 19),
+              (4096, 1024, 9), (4096, 4096, 3)]
+
+
+@pytest.mark.parametrize("wl,step,t", FFT_SHAPES)
+@pytest.mark.parametrize("lead", [(), (2, 3)])
+@pytest.mark.parametrize("offset", [0, 1])
+def test_fft_kernel_matches_plain(dev, wl, step, t, lead, offset):
+    """Both stores against the plain version, which does the kernel's
+    float32 operations in its order (gate 1e-6 of max), the planes
+    bit-equal to the half spectrum, both within 2e-6 of max of the float64
+    oracle; batched, ragged, hops that do not divide WL, and misaligned
+    (scalar-load) signals."""
+    padded, win = _inputs(wl, step, t, dev, lead, offset)
+    half = rfft.frames_rfft_fft(padded, win, wl, step, t)
+    ref = rfft.frames_rfft_fft_plain(padded, win, wl, step, t)
+    assert half.shape == ref.shape == (*lead, t, wl // 2 + 1)
+    assert half.dtype == torch.complex64
+    assert _rel_err(half, ref) <= 1e-6
+    re, im = rfft.frames_matmul2_fft(padded, win, wl, step, t)
+    assert torch.equal(torch.complex(re, im), half)
+    pre, pim = rfft.frames_matmul2_fft_plain(padded, win, wl, step, t)
+    assert _rel_err(torch.stack((re, im)), torch.stack((pre, pim))) <= 1e-6
+    oracle = _oracle_half(padded, win, wl, step, t)
+    assert _rel_err(half.cpu().to(torch.complex128), oracle) < 2e-6
+
+
+def test_fft_kernel_takes_an_hour_in_one_launch(dev):
+    """One hour at 44.1 kHz, WL 2048 / hop 1024: 155,041 frames, 77,521
+    blocks on grid x (more than grid y or z take), in one launch; its first
+    and last 64 frames against the plain version of the same frames."""
+    wl, step, n = 2048, 1024, 3600 * 44100
+    gen = torch.Generator(device=dev).manual_seed(17)
+    x = torch.randn(n, device=dev, generator=gen)
+    padded, t = centre_padded(x, wl, step)
+    win = torch.from_numpy(hamming(wl).astype(np.float32)).to(dev)
+    before = rfft.frames_rfft_fft.launches
+    half = fused.frames_rfft(padded, win, wl, step, t)
+    assert rfft.frames_rfft_fft.launches == before + 1
+    assert half.shape == (t, wl // 2 + 1) and t == 155041
+    span = 63 * step + wl
+    head = rfft.frames_rfft_fft_plain(padded[:span], win, wl, step, 64)
+    tail = rfft.frames_rfft_fft_plain(padded[(t - 64) * step:][:span], win,
+                                      wl, step, 64)
+    assert _rel_err(half[:64], head) <= 1e-6
+    assert _rel_err(half[-64:], tail) <= 1e-6
+
+
+@pytest.mark.parametrize("wl", [16, 256, 2048, 4096, 100, 1764])
+@pytest.mark.parametrize("fused2", [False, True])
+def test_shape_rule_launch_counts_on_card(dev, wl, fused2, monkeypatch):
+    """stft launches the FFT kernel (its half or, with ZAFTPU_FUSED2=1, its
+    planes store) at a power-of-two window and the GEMM kernel otherwise,
+    once, and no plain version; within 1e-5 of max of the float64 path."""
+    if fused2:
+        monkeypatch.setenv("ZAFTPU_FUSED2", "1")
+    x64 = np.random.default_rng(wl).standard_normal((2, 20000))
+    x = torch.from_numpy(x64.astype(np.float32)).to(dev)
+    counters = {"gemm": fused.frames_rfft, "gemm2": fused.frames_matmul2,
+                "fft": rfft.frames_rfft_fft, "fft2": rfft.frames_matmul2_fft}
+    plains = (fused.frames_rfft_plain, fused.frames_matmul2_plain,
+              rfft.frames_rfft_fft_plain, rfft.frames_matmul2_fft_plain)
+    before = {k: c.launches for k, c in counters.items()}
+    calls = [p.calls for p in plains]
+    win = hamming(wl)
+    spec = zaftpu_torch.stft(x, win, wl // 2)
+    moved = {k for k, c in counters.items() if c.launches != before[k]}
+    want = ("fft" if rfft.applies(wl) else "gemm") + ("2" if fused2 else "")
+    assert moved == {want} and counters[want].launches == before[want] + 1
+    assert [p.calls for p in plains] == calls
+    monkeypatch.delenv("ZAFTPU_FUSED2", raising=False)
+    oracle = zaftpu_torch.stft(torch.from_numpy(x64), win, wl // 2)
+    assert _rel_err(spec.cpu().to(torch.complex128), oracle) < 1e-5
+
+
+# The dtype rules on the card: float64 arrays and lists, bfloat16 signals.
+
+def _entry_calls(cqt_kern):
+    win, vw = hamming(512), vorbis(512)
+    fb = zaftpu_torch.melfilterbank(8000, 512, 20)
+    return {
+        "stft": lambda a: zaftpu_torch.stft(a, win, 256),
+        "istft": lambda a: zaftpu_torch.istft(a, win, 256),
+        "spectrogram": lambda a: zaftpu_torch.spectrogram(a, win, 256),
+        "mdct": lambda a: zaftpu_torch.mdct(a, vw),
+        "imdct": lambda a: zaftpu_torch.imdct(a, vw),
+        "melspectrogram": lambda a: zaftpu_torch.melspectrogram(
+            a, win, 256, fb),
+        "mfcc": lambda a: zaftpu_torch.mfcc(a, win, 256, fb, 12),
+        "cqtspectrogram": lambda a: zaftpu_torch.cqtspectrogram(
+            a, 8000, 25, cqt_kern),
+        "cqtchromagram": lambda a: zaftpu_torch.cqtchromagram(
+            a, 8000, 25, 12, cqt_kern),
+    }
+
+
+@pytest.mark.parametrize("name", ENTRY_POINTS)
+@pytest.mark.parametrize("kind", ["float64", "list"])
+def test_float64_arrays_and_lists_run_on_the_card(dev, name, kind,
+                                                  cqt_cache):
+    """A float64 numpy array (numpy's default, what wavread returns) or a
+    list goes to the card as float32, a complex128 spectrum as complex64:
+    the same result as the float32 (complex64) tensor on the card."""
+    x = np.random.default_rng(16).standard_normal(8000)
+    calls = _entry_calls(zaftpu_torch.cqtkernel(8000, 12, 110.0, 880.0))
+    data = {"istft": np.ascontiguousarray(
+                zaftpu_torch.stft(torch.from_numpy(x), hamming(512),
+                                  256).numpy()),
+            "imdct": np.ascontiguousarray(
+                zaftpu_torch.mdct(torch.from_numpy(x), vorbis(512)).numpy())
+            }.get(name, x)
+    assert data.dtype in (np.float64, np.complex128)
+    got = calls[name](data if kind == "float64" else data.tolist())
+    tensor = torch.from_numpy(data).to(
+        dev, torch.complex64 if data.dtype == np.complex128 else torch.float32)
+    want = calls[name](tensor)
+    assert got.is_cuda and got.dtype == want.dtype
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("name", ENTRY_POINTS)
+def test_bf16_signal_runs_on_the_card(dev, name, cqt_cache):
+    """A bfloat16 signal on the card is promoted to float32 before the
+    kernels: the float32 result of the same values, returned as bfloat16
+    by mdct and imdct (of mdct's bfloat16 coefficients), as zaftpu's engine
+    path returns them."""
+    x = torch.from_numpy(np.random.default_rng(18).standard_normal(
+        (2, 8000)).astype(np.float32)).to(dev, torch.bfloat16)
+    calls = _entry_calls(zaftpu_torch.cqtkernel(8000, 12, 110.0, 880.0))
+    vw = vorbis(512)
+    if name == "istft":
+        got = calls["istft"](calls["stft"](x))
+        want = calls["istft"](calls["stft"](x.float()))
+    elif name == "imdct":
+        coeffs = calls["mdct"](x)
+        got = calls["imdct"](coeffs)
+        want = zaftpu_torch.imdct(coeffs.float(), vw).to(torch.bfloat16)
+    else:
+        got = calls[name](x)
+        want = calls[name](x.float())
+        if name == "mdct":
+            want = want.to(torch.bfloat16)
+    assert got.is_cuda and got.dtype == want.dtype
+    assert got.dtype == (torch.bfloat16 if name in ("mdct", "imdct")
+                         else want.dtype)
+    assert torch.equal(got, want)

@@ -27,6 +27,7 @@ from zaftpu_torch.kernels import framing as tframing
 from zaftpu_torch.kernels import fused as tfused
 from zaftpu_torch.kernels import melfused as tmelfused
 from zaftpu_torch.kernels import ola as tola
+from zaftpu_torch.kernels import rfft as trfft
 from zaftpu_torch.kernels import synth as tsynth
 from zaftpu_torch.transforms import mdct as tmdct
 
@@ -137,25 +138,32 @@ def test_synth_own_operator_matches_zaftpu_split_path(wl, step, t,
 
 def _counts():
     return (tframing.frame_window.launches, tola.overlap_add.launches,
-            tfused.frames_rfft.launches, tsynth.istft_ola.launches)
+            tfused.frames_rfft.launches, tsynth.istft_ola.launches,
+            trfft.frames_rfft_fft.launches)
 
 
 def test_cpu_tensors_take_plain_versions_only():
+    """WL 256 takes the FFT kernel's plain version, WL 255 the GEMM's."""
     wl, step, t = 256, 128, 9
     padded = torch.from_numpy(_signal(wl, step, t, 6))
     win = torch.from_numpy(hamming(wl).astype(np.float32))
     launches = _counts()
-    calls = (tframing.frame_window_plain.calls, tola.overlap_add_plain.calls,
-             tfused.frames_rfft_plain.calls, tsynth.istft_ola_plain.calls)
+
+    def calls():
+        return (tframing.frame_window_plain.calls,
+                tola.overlap_add_plain.calls, tfused.frames_rfft_plain.calls,
+                tsynth.istft_ola_plain.calls,
+                trfft.frames_rfft_fft_plain.calls)
+
+    before = calls()
     frames = tframing.frame_window(padded, win, wl, step, t)
     tola.overlap_add(frames, step)
     half = tfused.frames_rfft(padded, win, wl, step, t)
     tsynth.istft_ola(half.real.contiguous(), half.imag.contiguous(), wl, step,
                      1.0)
+    tfused.frames_rfft(padded[:-1], win[:-1], wl - 1, step, t)
     assert _counts() == launches
-    assert (tframing.frame_window_plain.calls, tola.overlap_add_plain.calls,
-            tfused.frames_rfft_plain.calls,
-            tsynth.istft_ola_plain.calls) == tuple(c + 1 for c in calls)
+    assert calls() == tuple(c + 1 for c in before)
 
 
 def _bad_launch(case):
@@ -701,7 +709,9 @@ def test_b3_b10_b11_batched_equal_per_item(wl, step, t):
         (2, 3, t * step + wl - step)).astype(np.float32))
     win = torch.from_numpy(hamming(wl).astype(np.float32))
     full = tfused.frames_rfft_full(padded, win, wl, step, t)
-    half = tfused.frames_rfft(padded, win, wl, step, t)
+    # The GEMM half spectrum (an explicit operator), which B3 shares.
+    half = tfused.frames_rfft(padded, win, wl, step, t,
+                              ops=tfused.rdft_ops(wl, torch.float32, "cpu"))
     mirrored = tmirror.mirror_full_planes(half, wl)
     h_re, h_im = tmirror.fold_half_planes(full.transpose(-1, -2).contiguous()
                                           .transpose(-1, -2), wl)

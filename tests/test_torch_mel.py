@@ -24,6 +24,7 @@ from zaftpu_torch.core.windows import hamming
 from zaftpu_torch.features import mel as tmel
 from zaftpu_torch.kernels import fused as tfused
 from zaftpu_torch.kernels import melfused as tmelfused
+from zaftpu_torch.kernels import rfft as trfft
 
 SR, WL, STEP, MELS, COEFFS = 44100, 2048, 1024, 40, 20
 
@@ -98,7 +99,7 @@ def test_mfcc_matches_reference_golden(golden, signal, hamming_window, fbank):
     np.testing.assert_allclose(_np(mine), golden["mfcc"], atol=1e-10)
 
 
-@pytest.mark.parametrize("melfuse", ["auto", "0"])
+@pytest.mark.parametrize("melfuse", ["auto", "0", "1"])
 def test_f64_goldens_under_both_dispatches(golden, signal, hamming_window,
                                            fbank, melfuse, monkeypatch):
     monkeypatch.setenv("ZAFTPU_MELFUSE", melfuse)
@@ -114,7 +115,7 @@ def test_f64_goldens_under_both_dispatches(golden, signal, hamming_window,
         np.abs(golden["stft"][1:WL // 2 + 1]), atol=1e-12)
 
 
-@pytest.mark.parametrize("melfuse", ["auto", "0"])
+@pytest.mark.parametrize("melfuse", ["auto", "0", "1"])
 def test_match_zaftpu_f32(signal, hamming_window, fbank, melfuse,
                           monkeypatch):
     monkeypatch.setenv("ZAFTPU_MELFUSE", melfuse)
@@ -147,31 +148,71 @@ def test_mfcc_f32_against_f64(signal, hamming_window, fbank):
     np.testing.assert_allclose(out32, out64, atol=5e-3)
 
 
-@pytest.mark.parametrize("melfuse,ran", [
-    ("auto", {"spec_rows", "mel_rows"}), ("0", {"frames_rfft"})])
-def test_dispatch_takes_the_lever(melfuse, ran, fbank, monkeypatch):
+def _front_end_plain_calls(wl, fb, monkeypatch, melfuse):
+    """Which plain versions spectrogram, melspectrogram and mfcc ran at
+    window length ``wl`` under ``ZAFTPU_MELFUSE=melfuse``."""
     monkeypatch.setenv("ZAFTPU_MELFUSE", melfuse)
     plain = {"spec_rows": tmelfused.spec_rows_plain,
              "mel_rows": tmelfused.mel_rows_plain,
-             "frames_rfft": tfused.frames_rfft_plain}
+             "frames_rfft": tfused.frames_rfft_plain,
+             "frames_rfft_fft": trfft.frames_rfft_fft_plain}
     before = {k: v.calls for k, v in plain.items()}
     x = torch.from_numpy(np.random.default_rng(2).standard_normal(8000))
-    win = hamming(WL)
-    zaftpu_torch.spectrogram(x, win, STEP)
-    zaftpu_torch.melspectrogram(x, win, STEP, fbank)
-    zaftpu_torch.mfcc(x, win, STEP, fbank, COEFFS)
-    assert {k for k, v in plain.items() if v.calls != before[k]} == ran
+    win = hamming(wl)
+    zaftpu_torch.spectrogram(x, win, wl // 2)
+    zaftpu_torch.melspectrogram(x, win, wl // 2, fb)
+    zaftpu_torch.mfcc(x, win, wl // 2, fb, COEFFS)
+    return {k for k, v in plain.items() if v.calls != before[k]}
+
+
+@pytest.mark.parametrize("melfuse,ran", [
+    ("auto", {"frames_rfft_fft"}), ("0", {"frames_rfft_fft"}),
+    ("1", {"spec_rows", "mel_rows"})])
+def test_dispatch_takes_the_lever(melfuse, ran, fbank, monkeypatch):
+    """At WL 2048 the front ends take the FFT kernel's half spectrum (the
+    shape rule) unless ZAFTPU_MELFUSE=1 forces the magnitude and mel
+    kernels."""
+    assert _front_end_plain_calls(WL, fbank, monkeypatch, melfuse) == ran
+
+
+@pytest.mark.parametrize("melfuse,ran", [
+    ("auto", {"spec_rows", "mel_rows"}), ("0", {"frames_rfft"}),
+    ("1", {"spec_rows", "mel_rows"})])
+def test_dispatch_off_the_fft_rule_takes_the_kernels(melfuse, ran,
+                                                     monkeypatch):
+    """At a window the FFT rule leaves to the GEMM (WL 1764) the front ends
+    take the magnitude and mel kernels unless ZAFTPU_MELFUSE=0."""
+    fb = zaftpu_torch.melfilterbank(SR, 1764, MELS)
+    assert _front_end_plain_calls(1764, fb, monkeypatch, melfuse) == ran
+
+
+@pytest.mark.parametrize("melfuse,wl,wanted", [
+    (None, 2048, False), ("auto", 16, False), (None, 4096, False),
+    ("0", 2048, False), ("1", 2048, True), (None, 1764, True),
+    (None, 8, True), (None, 8192, True), ("0", 1764, False),
+    ("1", 1764, True)])
+def test_melfuse_gate_follows_the_fft_rule(melfuse, wl, wanted, monkeypatch):
+    """On the exact dial the lever decides where it is set, else the FFT
+    shape rule: the kernels wherever it does not give the half spectrum."""
+    monkeypatch.delenv("ZAFTPU_PRECISION", raising=False)
+    if melfuse is None:
+        monkeypatch.delenv("ZAFTPU_MELFUSE", raising=False)
+    else:
+        monkeypatch.setenv("ZAFTPU_MELFUSE", melfuse)
+    for dtype in (torch.float32, torch.float64):
+        assert tmelfused.kernel_wanted(dtype, wl) is wanted
 
 
 def test_many_mels_take_the_kernel_path():
     """The number of mels picks no path: a 300-row filterbank still goes
-    through mel_rows and matches zaftpu."""
-    fb = np.random.default_rng(5).random((300, 256))
+    through mel_rows (at a window the FFT rule leaves to the kernels) and
+    matches zaftpu."""
+    fb = np.random.default_rng(5).random((300, 255))
     x = torch.from_numpy(np.random.default_rng(3).standard_normal(4000))
     calls = tmelfused.mel_rows_plain.calls
-    got = zaftpu_torch.melspectrogram(x, hamming(512), 256, fb)
+    got = zaftpu_torch.melspectrogram(x, hamming(510), 256, fb)
     assert tmelfused.mel_rows_plain.calls == calls + 1
-    ref = np.asarray(zaftpu.melspectrogram(x.numpy(), hamming(512), 256, fb))
+    ref = np.asarray(zaftpu.melspectrogram(x.numpy(), hamming(510), 256, fb))
     np.testing.assert_allclose(_np(got), ref, rtol=1e-10, atol=1e-12)
 
 

@@ -35,6 +35,7 @@ from zaftpu_torch.kernels import _build
 from zaftpu_torch.kernels import cqtslab as tcqtslab
 from zaftpu_torch.kernels import fused as tfused
 from zaftpu_torch.kernels import melfused as tmelfused
+from zaftpu_torch.kernels import rfft as trfft
 from zaftpu_torch.kernels import synth as tsynth
 
 SR, WL, STEP = 44100, 2048, 1024
@@ -291,7 +292,8 @@ def test_frames_rfft_full_split4_matches_zaftpu(wl, step, t, split4):
 @pytest.mark.parametrize("wl,step,t", SHAPES)
 def test_frames_matmul2_matches_zaftpu(wl, step, t, dial, monkeypatch):
     """B12 under each dial: zaftpu's two-output kernel's planes, and the
-    port's bit-equal to its one-output half spectrum."""
+    port's bit-equal to its one-output half spectrum. On the exact dial
+    these power-of-two windows take the FFT kernel's planes store."""
     monkeypatch.setenv("ZAFTPU_PRECISION", dial)
     jax.clear_caches()
     padded = _signal(wl, step, t, 7)
@@ -300,8 +302,9 @@ def test_frames_matmul2_matches_zaftpu(wl, step, t, dial, monkeypatch):
     ops, precision = zfused._dispatch_ops(zfused._rdft_ops_padded, wl)
     re, im = zfused.frames_matmul2(jnp.asarray(padded), jnp.asarray(win), ops,
                                    wl, step, t, precision, interpret=True)
+    assert trfft.applies(wl)
     plain = (tfused.frames_matmul2_split4_plain if dial == "split4"
-             else tfused.frames_matmul2_plain)
+             else trfft.frames_matmul2_fft_plain)
     calls = plain.calls
     mre, mim = tfused.frames_matmul2(torch.from_numpy(padded),
                                      torch.from_numpy(win), wl, step, t)
@@ -427,8 +430,12 @@ def test_float64_is_unchanged_by_the_dial(signal, monkeypatch):
 @pytest.mark.parametrize("dial", ["highest", "split4"])
 def test_levers_equal_the_default_under_each_dial(x32, lever, dial,
                                                   monkeypatch):
-    """ZAFTPU_FUSED2=1 and ZAFTPU_FULLSPEC=1 store the same sums as the
-    default analysis: stft and the round trip are bit-equal to it."""
+    """ZAFTPU_FUSED2=1 stores the default analysis's sums under both dials,
+    and ZAFTPU_FULLSPEC=1 under split4: stft and the round trip are
+    bit-equal to the default. On the exact dial the full-spectrum kernel
+    stays a GEMM while the default at WL 2048 is the FFT kernel: there the
+    lever's spectrum sits within float32 rounding of the default's and of
+    the float64 oracle."""
     monkeypatch.setenv("ZAFTPU_PRECISION", dial)
     x = torch.from_numpy(x32)
     win = hamming(WL)
@@ -436,16 +443,24 @@ def test_levers_equal_the_default_under_each_dial(x32, lever, dial,
     monkeypatch.setenv(lever, "1")
     counted = {"ZAFTPU_FUSED2": (tfused.frames_matmul2_split4_plain
                                  if dial == "split4"
-                                 else tfused.frames_matmul2_plain),
+                                 else trfft.frames_matmul2_fft_plain),
                "ZAFTPU_FULLSPEC": (tfused.frames_rfft_full_split4_plain
                                    if dial == "split4"
                                    else tfused.frames_rfft_full_plain)}[lever]
     calls = counted.calls
     spec = zaftpu_torch.stft(x, win, STEP)
     assert counted.calls == calls + 1
+    rec = zaftpu_torch.istft(spec, win, STEP)
+    ref_rec = zaftpu_torch.istft(ref, win, STEP)
+    if lever == "ZAFTPU_FULLSPEC" and dial == "highest":
+        oracle = _np(zaftpu_torch.stft(x.double(), win, STEP))
+        for got in (spec, ref):
+            _gemm_close(_np(got).real, oracle.real)
+            _gemm_close(_np(got).imag, oracle.imag)
+        _gemm_close(_np(rec), _np(ref_rec))
+        return
     assert torch.equal(spec, ref)
-    assert torch.equal(zaftpu_torch.istft(spec, win, STEP),
-                       zaftpu_torch.istft(ref, win, STEP))
+    assert torch.equal(rec, ref_rec)
 
 
 def test_fused2_lever_is_off_unless_one(monkeypatch):
@@ -469,9 +484,12 @@ def test_melfuse_gate_under_split4(melfuse, wanted, monkeypatch):
         monkeypatch.delenv("ZAFTPU_MELFUSE", raising=False)
     else:
         monkeypatch.setenv("ZAFTPU_MELFUSE", melfuse)
-    assert tmelfused.kernel_wanted(torch.float32) is wanted
-    # float64 never lowers, so the dial does not move it.
-    assert tmelfused.kernel_wanted(torch.float64) is (melfuse != "0")
+    for wl in (2048, 1764):
+        assert tmelfused.kernel_wanted(torch.float32, wl) is wanted
+    # float64 never lowers, so the dial does not move it: the lever and the
+    # FFT shape rule decide, as on the exact dial.
+    assert tmelfused.kernel_wanted(torch.float64, 1764) is (melfuse != "0")
+    assert tmelfused.kernel_wanted(torch.float64, 2048) is (melfuse == "1")
 
 
 def test_front_ends_take_the_split4_half_spectrum(x32, split4, monkeypatch):

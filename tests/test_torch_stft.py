@@ -237,8 +237,12 @@ def test_mirror_and_fullspec_levers_bit_equal_default(signal, hamming_window,
                                                       levers, dtype,
                                                       monkeypatch):
     """On the CPU the mirror, fold and full-spectrum levers route stft and
-    istft through those kernels' plain versions: the outputs are bit-equal
-    to the default dispatch's and no kernel is launched."""
+    istft through those kernels' plain versions and no kernel is launched.
+    The mirror and fold levers are bit-equal to the default dispatch. The
+    full-spectrum kernel stays a GEMM while the default analysis at WL
+    2048 is the FFT, so under it stft and the round trip sit within the
+    dtype's rounding of the default (2e-6 of max in float32, 1e-13 in
+    float64)."""
     from zaftpu_torch.kernels import fused as tfused
     from zaftpu_torch.kernels import mirror as tmirror
 
@@ -265,9 +269,16 @@ def test_mirror_and_fullspec_levers_bit_equal_default(signal, hamming_window,
     mirror = levers.get("ZAFTPU_MIRROR") == "pallas"
     assert counts() == tuple(b + d for b, d in zip(before, (
         int(mirror and not full), 2 * int(mirror), int(full), 0, 0, 0)))
-    assert torch.equal(spec, ref)
-    assert torch.equal(rec, ref_rec)
-    assert torch.equal(rec_bins_major, ref_rec)
+    if not full:
+        assert torch.equal(spec, ref)
+        assert torch.equal(rec, ref_rec)
+        assert torch.equal(rec_bins_major, ref_rec)
+        return
+    tol = 2e-6 if dtype == np.float32 else 1e-13
+    for got, want in ((spec, ref), (rec, ref_rec), (rec_bins_major, ref_rec)):
+        got, want = _np(got), _np(want)
+        np.testing.assert_allclose(got, want, rtol=0,
+                                   atol=tol * np.abs(want).max())
 
 
 def test_fullspec_needs_the_fused_analysis(signal, hamming_window,

@@ -20,10 +20,11 @@
 // sums over all bins, while the B1 grid spreads the bins over blocks.
 // Design: the B1 grid, one 64-frame x 64-bin tile per block; the block
 // writes its 64 x 64 magnitudes to shared memory, stages the tile's
-// 64 x n_mels filterbank rows beside them, and writes their product (a
-// 64-long sum per element) as partial p = blockIdx.x of (P, batch, T,
-// n_mels); a second pass sums the P partials in ascending order. No
-// atomics: every result is the same from run to run. A block that walks
+// filterbank rows beside them, 256 mels at a time (kMelChunk, so any mel
+// count fits), and writes their product (a 64-long sum per element) as
+// partial p = blockIdx.x of (P, batch, T, n_mels); a second pass sums the
+// P partials in ascending order. No atomics: every result is the same from
+// run to run. A block that walks
 // all bins itself leaves 404 blocks at the 600-s shape, 1.5 waves of two
 // blocks on 132 SMs: 9.7 ms against 7.3 ms for one tile per block, with
 // runs of 2, 4 and 8 tiles in between (H100 80GB HBM3, 700 W; PERF.md).
@@ -34,9 +35,8 @@
 // (2, 2, WL, FP) bf16 stack. The filterbank product stays FP32, as zaftpu
 // keeps it at HIGHEST. Bound: four bf16 passes of the rDFT, 0.88 ms per
 // 600-s segment at WL 2048. The split4 tile's 33,792 bytes of static
-// shared memory come on top of the epilogue's dynamic mel_smem_bytes, so
-// the largest mel count falls from 745 to 711 on an H100 (232,448 bytes a
-// block).
+// shared memory come on top of the epilogue's dynamic mel_smem_bytes
+// (82,176 bytes at 256 mels or more).
 #include "frames_gemm_split4.cuh"
 
 namespace {
@@ -79,10 +79,15 @@ spec_rows_kernel(const float* __restrict__ sig,
   }
 }
 
-// Dynamic shared memory: the tile's (BN, M) filterbank rows and its
-// (BM, BN + 1) magnitudes.
+// Mels the epilogue stages at a time: a wider filterbank is walked in
+// chunks of this many columns, so any mel count runs.
+constexpr int kMelChunk = 256;
+
+// Dynamic shared memory: the tile's (BN, MC) filterbank chunk and its
+// (BM, BN + 1) magnitudes, MC = min(M, kMelChunk).
 inline size_t mel_smem_bytes(int M) {
-  return sizeof(float) * ((size_t)BN * M + BM * (BN + 1));
+  const int mc = M < kMelChunk ? M : kMelChunk;
+  return sizeof(float) * ((size_t)BN * mc + BM * (BN + 1));
 }
 
 // At most 128 registers, so two blocks share an SM. Left free, the
@@ -97,9 +102,10 @@ mel_rows_kernel(const float* __restrict__ sig, const float* __restrict__ win,
                 const void* __restrict__ ops, const float* __restrict__ fbt,
                 float* __restrict__ part, long long sig_len, int T, int WL,
                 int step, int F, int FP, int M) {
+  const int MC = M < kMelChunk ? M : kMelChunk;
   extern __shared__ __align__(16) float dyn[];
-  float* fs = dyn;             // [BN][M]
-  float* ms = fs + BN * M;     // [BM][BN + 1]
+  float* fs = dyn;             // [BN][MC]
+  float* ms = fs + BN * MC;    // [BM][BN + 1]
 
   const int tid = threadIdx.x;
   const int tx = tid % (BN / 4);
@@ -132,25 +138,28 @@ mel_rows_kernel(const float* __restrict__ sig, const float* __restrict__ win,
       ms[(ty * TM + i) * (BN + 1) + tx * 4 + j] = POWER ? p2 : sqrtf(p2);
     }
   }
-  // fbt rows f0..f0+BN are one contiguous run; rows past F read as 0.
-  const float* fb = fbt + (long long)f0 * M;
-  const long long fb_left = (long long)(F - f0) * M;
-  for (int e = tid; e < BN * M; e += zt::kThreads) {
-    fs[e] = e < fb_left ? fb[e] : 0.f;
-  }
-  __syncthreads();
-
   float* pb = part + ((long long)blockIdx.x * gridDim.z + blockIdx.z) *
                          (long long)T * M;
-  for (int e = tid; e < BM * M; e += zt::kThreads) {
-    const int t = t0 + e / M;
-    if (t >= T) continue;
-    const float* mr = ms + (e / M) * (BN + 1);
-    const float* fc = fs + e % M;
-    float s = mr[0] * fc[0];
+  // Mels c0..c0+mc of fbt rows f0..f0+BN; rows past F read as 0. Each
+  // output is the same 64-long sum whatever the chunking.
+  for (int c0 = 0; c0 < M; c0 += MC) {
+    const int mc = M - c0 < MC ? M - c0 : MC;
+    for (int e = tid; e < BN * mc; e += zt::kThreads) {
+      const int f = f0 + e / mc;
+      fs[e] = f < F ? fbt[(long long)f * M + c0 + e % mc] : 0.f;
+    }
+    __syncthreads();
+    for (int e = tid; e < BM * mc; e += zt::kThreads) {
+      const int t = t0 + e / mc;
+      if (t >= T) continue;
+      const float* mr = ms + (e / mc) * (BN + 1);
+      const float* fc = fs + e % mc;
+      float s = mr[0] * fc[0];
 #pragma unroll 8
-    for (int k = 1; k < BN; ++k) s = fmaf(mr[k], fc[k * M], s);
-    pb[(long long)t * M + e % M] = s;
+      for (int k = 1; k < BN; ++k) s = fmaf(mr[k], fc[k * mc], s);
+      pb[(long long)t * M + c0 + e % mc] = s;
+    }
+    __syncthreads();  // before the next chunk overwrites fs
   }
 }
 
@@ -175,9 +184,7 @@ cudaError_t launch_mel(dim3 grid, size_t smem, cudaStream_t st,
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) {
-    // Too many mels for the card's shared memory per block (745, or 711
-    // for the twin, on an H100). Clear the error so the next launch does
-    // not read it.
+    // Clear the error so the next launch does not read it.
     cudaGetLastError();
     return err;
   }

@@ -7,10 +7,12 @@ orthonormal DCT-II over the mel axis (the reference's
 ``scipy.fftpack.dct(axis=0, norm="ortho")``, zaf.py:443-449) is a host
 matrix too.
 
-On a CUDA float32 signal ``melspectrogram`` and ``mfcc`` run the one-pass
-mel kernel (framing, rDFT, magnitude or power, filterbank GEMM;
-:mod:`zaftpu_torch.kernels.melfused`); with ``ZAFTPU_MELFUSE=0`` the half
-spectrum from the analysis dispatch, ``|·|`` and the filterbank GEMM. The
+On a CUDA float32 signal ``melspectrogram`` and ``mfcc`` take the half
+spectrum from the analysis dispatch, ``|·|`` and the filterbank GEMM at a
+power-of-two window (the real-FFT kernel's), and the one-pass mel kernel
+(framing, rDFT, magnitude or power, filterbank GEMM;
+:mod:`zaftpu_torch.kernels.melfused`) at any other; ``ZAFTPU_MELFUSE=1``
+forces the kernel and ``ZAFTPU_MELFUSE=0`` the half spectrum. The
 log and the DCT-II GEMM run outside any kernel, as in ``zaftpu``. On the
 CPU the same paths run the kernels' plain versions, in the input's dtype.
 """
@@ -112,9 +114,9 @@ def mel_rows_fused_or_none(x: torch.Tensor, window: torch.Tensor,
     :func:`zaftpu_torch.kernels.melfused.kernel_wanted`; ``None`` selects
     the split half-spectrum path. ``x`` and ``window`` as
     :func:`zaftpu_torch.transforms.stft._analysis_inputs` gives them."""
-    if not _melfused.kernel_wanted(x.dtype):
-        return None
     wl = window.shape[0]
+    if not _melfused.kernel_wanted(x.dtype, wl):
+        return None
     padded, t = centre_padded(x, wl, step)
     return _melfused.mel_rows(padded, window, fbank_t, wl, step, t, power)
 

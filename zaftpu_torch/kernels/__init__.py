@@ -14,11 +14,12 @@ Six levers choose the kernels, with ``zaftpu``'s names and meaning:
   the fused synthesis kernel (ISTFT and IMDCT);
 * ``ZAFTPU_MELFUSE=0``: the analysis dispatch's half spectrum, ``|·|`` and
   ``torch.matmul`` instead of the one-pass magnitude and mel kernels
-  (:mod:`zaftpu_torch.kernels.melfused`);
+  (:mod:`zaftpu_torch.kernels.melfused`); ``1`` forces those kernels, and
+  unset it follows the shape rule below;
 * ``ZAFTPU_FULLSPEC=1``: ``stft`` takes the full-spectrum analysis kernel,
-  the conjugate mirror in its store (``fused.frames_rfft_full``), instead
-  of the half-spectrum kernel and a separate mirror; off by default, and
-  only with the fused analysis on;
+  the conjugate mirror in its store (``fused.frames_rfft_full``, a GEMM at
+  every window length), instead of the half-spectrum kernel and a separate
+  mirror; off by default, and only with the fused analysis on;
 * ``ZAFTPU_FUSED2=1``: the half spectrum through the two-output analysis
   kernel (``fused.frames_matmul2``, both components as float32 planes)
   instead of the complex-store one; off by default, equal values;
@@ -26,7 +27,15 @@ Six levers choose the kernels, with ``zaftpu``'s names and meaning:
   Hermitian fold run as kernels (:mod:`zaftpu_torch.kernels.mirror`)
   instead of PyTorch index ops; off by default.
 
-The first three default to the fused kernels, the last three to off.
+The first two default to the fused kernels, the last three to off.
+
+On the exact dial the half-spectrum analysis (``fused.frames_rfft`` and
+``fused.frames_matmul2``) follows a shape rule: a power-of-two window
+length from 16 to 4096 takes the real-FFT kernel
+(:mod:`zaftpu_torch.kernels.rfft`), any other length the GEMM kernel. The
+magnitude and mel front ends follow it too: at such a window they take
+the FFT's half spectrum unless ``ZAFTPU_MELFUSE=1`` forces their kernels
+(``melfused.kernel_wanted``).
 
 One dial sets the arithmetic, ``ZAFTPU_PRECISION``
 (:mod:`zaftpu_torch.core.policy`): ``highest`` (default) runs the exact
@@ -56,10 +65,9 @@ from zaftpu_torch.kernels import fused as _fused
 from zaftpu_torch.kernels import mirror as _mirror
 from zaftpu_torch.kernels import ola as _ola
 from zaftpu_torch.kernels import synth as _synth
-
-# Largest window the direct DFT GEMM covers; longer ones need the four-step
-# FFT, which is not ported yet.
-MAX_WINDOW = 4096
+# Largest window the direct DFT GEMM and the real-FFT kernel cover; longer
+# ones need the four-step FFT, which is not ported yet.
+from zaftpu_torch.kernels.rfft import MAX_WINDOW
 
 
 def fused_enabled() -> bool:
@@ -72,9 +80,10 @@ def synth_enabled() -> bool:
 
 def check_device_input(x: torch.Tensor, window_length: int) -> None:
     """Raise ``NotImplementedError`` for a CUDA input the kernels do not
-    take: anything but float32 (complex64 spectra), a window above
-    :data:`MAX_WINDOW`, or the TPU-only dials ``high`` and ``default``.
-    CPU inputs are always taken."""
+    take: anything but float32 (complex64 spectra; callers promote a
+    bfloat16 signal to float32 first), a window above :data:`MAX_WINDOW`,
+    or the TPU-only dials ``high`` and ``default``. CPU inputs are always
+    taken."""
     if not x.is_cuda:
         return
     check_cuda_dial()

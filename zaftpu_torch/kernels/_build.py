@@ -57,6 +57,8 @@ SIGNATURES = {
     "zt_cqt_chunks": (_I,),
     "zt_cqt_magnitudes": _CQT,
     "zt_cqt_magnitudes_split4": _CQT,
+    "zt_rfft_half": (_P, _P, _P, _P, _I, _LL, _I, _I, _I, _P),
+    "zt_rfft_planes": (_P, _P, _P, _P, _I, _LL, _I, _I, _I, _P),
     "zt_mirror_full": (_P, _P, _LL, _I, _P),
     "zt_fold_half": (_P, _P, _P, _LL, _I, _I, _LL, _LL, _LL, _P),
     "zt_error_string": (_I,),

@@ -10,6 +10,15 @@ twin ``_frames_matmul2_impl`` (``frames_matmul2``, both components as
 float32 planes; ``ZAFTPU_FUSED2=1``). One launch computes every component
 from the same frame tile.
 
+On the exact dial ``frames_rfft`` and ``frames_matmul2`` follow a shape
+rule (:func:`zaftpu_torch.kernels.rfft.applies`): at a power-of-two window
+length from 16 to 4096, with no explicit ``ops``, they take the real-FFT
+kernel of :mod:`zaftpu_torch.kernels.rfft` (``csrc/rfft.cu``), which
+computes the same half spectrum with an FFT; every other window length,
+and an explicit operator, keeps the GEMM kernels below. The rule is a
+dispatch, not a fallback: a CUDA tensor launches the kernel it picks or
+raises.
+
 Under ``ZAFTPU_PRECISION=split4`` (float32 only) each of them launches its
 split4 twin instead, the port of the ``_kernel_split4`` bodies: the frames
 split into bf16 hi/lo in the kernel, the operator presplit on the host
@@ -32,6 +41,7 @@ from zaftpu_torch.core.frame import extract_frames
 from zaftpu_torch.core.policy import (exact_matmul, split4_applies,
                                       split4_matmul_presplit)
 from zaftpu_torch.kernels import _build
+from zaftpu_torch.kernels import rfft as _rfft
 from zaftpu_torch.kernels.framing import check_frame_args
 
 CUDA_SOURCE = "zaftpu_torch/csrc/fused.cu"
@@ -155,12 +165,16 @@ def frames_rfft(padded: torch.Tensor, window: torch.Tensor,
     spectrum of a padded signal ``(..., L)``, the frames never stored.
     ``ops`` overrides the ``(2, WL, F_pad)`` operator (tests pass
     ``zaftpu``'s through :func:`zaftpu_torch.core.fft.operators_from_numpy`).
+    No public entry point passes it: it exists for tests and to force the
+    GEMM kernel, since an explicit operator names the GEMM at any window.
 
     ``ZAFTPU_FUSED2=1`` takes :func:`frames_matmul2` and forms the complex
     result, as ``zaftpu`` does; split4 (float32) takes
-    :func:`frames_rfft_split4`. A CPU tensor takes the plain version; a
-    CUDA tensor launches the kernel (leading axes flattened into its batch)
-    or raises.
+    :func:`frames_rfft_split4`; otherwise the shape rule
+    (:func:`zaftpu_torch.kernels.rfft.applies`) takes
+    :func:`zaftpu_torch.kernels.rfft.frames_rfft_fft`. A CPU tensor takes
+    the plain version; a CUDA tensor launches the kernel (leading axes
+    flattened into its batch) or raises.
     """
     if fused2_enabled():
         return torch.complex(*frames_matmul2(padded, window, window_length,
@@ -168,6 +182,9 @@ def frames_rfft(padded: torch.Tensor, window: torch.Tensor,
     if split4_applies(padded.dtype):
         return frames_rfft_split4(padded, window, window_length, step,
                                   number_times, ops)
+    if _rfft.applies(window_length, ops):
+        return _rfft.frames_rfft_fft(padded, window, window_length, step,
+                                     number_times)
     if not padded.is_cuda:
         return frames_rfft_plain(padded, window, window_length, step,
                                  number_times, ops)
@@ -270,8 +287,8 @@ def fullspec_enabled() -> bool:
 def fused2_enabled() -> bool:
     """``ZAFTPU_FUSED2``: :func:`frames_rfft` through the two-output kernel
     :func:`frames_matmul2` only when set to ``1`` (``zaftpu``'s lever and
-    default). The values are the same either way: both kernels store the
-    same sums."""
+    default). The values are the same either way: the two stores of each
+    analysis kernel (GEMM or FFT) hold the same sums."""
     return os.environ.get("ZAFTPU_FUSED2", "0") == "1"
 
 
@@ -308,8 +325,10 @@ def frames_rfft_full(padded: torch.Tensor, window: torch.Tensor,
                      ops: torch.Tensor | None = None) -> torch.Tensor:
     """Fused windowed-frames full spectrum: ``(..., T, WL)`` complex, the
     reference's zaf.py:139 convention, with the mirrored bins written by
-    the kernel. Bit-equal to :func:`frames_rfft` followed by the conjugate
-    mirror, since both store the same sums. ``ops`` as for
+    the kernel. It stays a GEMM at every window length: bit-equal to
+    :func:`frames_rfft` followed by the conjugate mirror wherever that is
+    the GEMM too (an explicit ``ops``, or a window length outside the FFT
+    shape rule), within float32 rounding of it elsewhere. ``ops`` as for
     :func:`frames_rfft`; split4 (float32) takes
     :func:`frames_rfft_full_split4`.
 
@@ -371,7 +390,8 @@ def frames_matmul2(padded: torch.Tensor, window: torch.Tensor,
     ``(..., T, WL/2+1)``, from one launch (``zaftpu``'s
     ``frames_matmul2``, sliced to the valid bins). ``ops`` as for
     :func:`frames_rfft`; split4 (float32) takes
-    :func:`frames_matmul2_split4`.
+    :func:`frames_matmul2_split4`, the shape rule
+    :func:`zaftpu_torch.kernels.rfft.frames_matmul2_fft`.
 
     A CPU tensor takes the plain version; a CUDA tensor launches the kernel
     (leading axes flattened into its batch) or raises.
@@ -379,6 +399,9 @@ def frames_matmul2(padded: torch.Tensor, window: torch.Tensor,
     if split4_applies(padded.dtype):
         return frames_matmul2_split4(padded, window, window_length, step,
                                      number_times, ops)
+    if _rfft.applies(window_length, ops):
+        return _rfft.frames_matmul2_fft(padded, window, window_length, step,
+                                        number_times)
     if not padded.is_cuda:
         return frames_matmul2_plain(padded, window, window_length, step,
                                     number_times, ops)

@@ -10,6 +10,11 @@ the plain versions alike, not complex ``abs``, which may round otherwise at
 the last ulp. The filterbank GEMM is full FP32, as ``zaftpu`` runs it at
 HIGHEST in every precision mode.
 
+The front ends take these kernels at the window lengths the real-FFT
+kernel does not cover (:func:`kernel_wanted`); at a power-of-two window
+they take its half spectrum, ``|·|`` and the filterbank product, unless
+``ZAFTPU_MELFUSE=1`` forces the kernels.
+
 Under ``ZAFTPU_PRECISION=split4`` the front ends leave these kernels for
 the split4 half spectrum (:func:`kernel_wanted`), as ``zaftpu``'s do. Forced
 with ``ZAFTPU_MELFUSE=1``, ``spec_rows`` stays exact (it has no split4
@@ -35,6 +40,7 @@ from zaftpu_torch.core import fft as _fft
 from zaftpu_torch.core.frame import extract_frames
 from zaftpu_torch.core.policy import exact_matmul, split4_applies
 from zaftpu_torch.kernels import _build
+from zaftpu_torch.kernels import rfft as _rfft
 from zaftpu_torch.kernels.framing import check_frame_args
 from zaftpu_torch.kernels.fused import (TILE_BINS, TILE_FRAMES, _products,
                                         padded_cols)
@@ -45,21 +51,24 @@ REPLACES_MEL = "zaftpu/pallas/melfused.py:263"   # _mel_rows_impl
 REPLACES_MEL_SPLIT4 = "zaftpu/pallas/melfused.py:142"  # _kernel_split4
 
 
-def enabled() -> bool:
-    """``ZAFTPU_MELFUSE``: on unless ``0`` (``zaftpu``'s A/B lever)."""
-    return os.environ.get("ZAFTPU_MELFUSE", "auto") != "0"
-
-
-def kernel_wanted(dtype: torch.dtype = torch.float32) -> bool:
-    """Take the one-pass kernels for a ``dtype`` signal? Yes unless
-    ``ZAFTPU_MELFUSE=0``, or where split4 applies (float32) unless
-    ``ZAFTPU_MELFUSE=1`` forces them (``zaftpu``'s gate, melfused.py:87-95:
-    the split4 half spectrum carries the front ends). Unlike ``zaftpu``'s
-    there is no hop, rank or operator-size condition: the kernels take any
-    hop up to WL and any batch, and the operator lives in device memory."""
-    if split4_applies(dtype) and os.environ.get("ZAFTPU_MELFUSE") != "1":
+def kernel_wanted(dtype: torch.dtype, window_length: int) -> bool:
+    """Take the one-pass kernels for a ``dtype`` signal framed at
+    ``window_length``? ``ZAFTPU_MELFUSE=1`` forces them and ``0`` refuses
+    them (``zaftpu``'s A/B lever). Otherwise no where split4 applies
+    (float32; ``zaftpu``'s gate, melfused.py:87-95: the split4 half
+    spectrum carries the front ends) or where the FFT shape rule
+    (:func:`zaftpu_torch.kernels.rfft.applies`) gives the half spectrum:
+    these kernels run B1's GEMM tile, and the FFT's half spectrum with
+    ``|·|`` and one filterbank product is 6.7 to 9 times faster on an H100
+    (PERF.md). Yes at any other window. Unlike ``zaftpu``'s there is no
+    hop, rank or operator-size condition: the kernels take any hop up to
+    WL and any batch, and the operator lives in device memory."""
+    melfuse = os.environ.get("ZAFTPU_MELFUSE", "auto")
+    if melfuse == "1":
+        return True
+    if melfuse == "0" or split4_applies(dtype):
         return False
-    return enabled()
+    return not _rfft.applies(window_length)
 
 
 @lru_cache(maxsize=8)
@@ -221,9 +230,8 @@ def mel_rows(padded: torch.Tensor, window: torch.Tensor,
 
     A CPU tensor takes the plain version; a CUDA tensor launches the kernel
     (leading axes flattened into its batch) or raises. The kernel stages a
-    bin tile's ``(64, n_mels)`` filterbank rows in shared memory, so the
-    card's shared memory per block bounds ``n_mels`` (745 on an H100, 711
-    for the twin); above that the launch raises.
+    bin tile's filterbank rows in shared memory 256 mels at a time, so it
+    takes any ``n_mels``.
     """
     if split4_applies(padded.dtype):
         return mel_rows_split4(padded, window, fbank_t, window_length, step,

@@ -329,15 +329,16 @@ def _resolve_cqt_args(sampling_frequency, time_resolution, cqt_kernel,
 
 
 def _cqt_inputs(audio_signal, sampling_frequency, time_resolution):
-    """The validated signal (at least float32; a CUDA signal only as
-    float32), the hop and the frame count (zaf.py:600-612)."""
+    """The validated signal (at least float32, a bfloat16 one promoted; a
+    CUDA signal only as float32 after that), the hop and the frame count
+    (zaf.py:600-612)."""
     x = _validate.check_signal(_as_input(audio_signal))
+    x = x.to(torch.promote_types(x.dtype, torch.float32))
     if x.is_cuda:
         check_cuda_dial()
         if x.dtype != torch.float32:
             raise NotImplementedError(
                 f"the CUDA CQT takes float32 signals, got {x.dtype}")
-    x = x.to(torch.promote_types(x.dtype, torch.float32))
     step = round(float(sampling_frequency) / float(time_resolution))
     number_times = int(x.shape[-1] // step)
     if number_times < 1:

@@ -137,15 +137,18 @@ def mdct(audio_signal, window_function=None, *, config=None) -> torch.Tensor:
     Output:
         MDCT ``(..., window_length/2, number_times)`` with
         ``number_times = ceil(N/(WL/2)) + 1`` (reference zaf.py:984-1075),
-        a transposed view of a frames-major tensor.
+        a transposed view of a frames-major tensor; bfloat16 for a bfloat16
+        signal (computed in float32), as ``zaftpu``'s engine path returns
+        it.
     """
     x = _validate.check_signal(_as_input(audio_signal))
     window = _resolve_mdct_window(window_function, config)
     win = _validate.check_window(_as_tensor(window), even=True)
     wl = win.shape[0]
     step = wl // 2
-    _kernels.check_device_input(x, wl)
+    in_dtype = x.dtype
     x = x.to(torch.promote_types(x.dtype, torch.float32))
+    _kernels.check_device_input(x, wl)
     win = win.to(device=x.device, dtype=x.dtype)
     n = x.shape[-1]
     t = int(np.ceil(n / step)) + 1
@@ -161,6 +164,8 @@ def mdct(audio_signal, window_function=None, *, config=None) -> torch.Tensor:
         ops = _fft.device_operator(_direct_forward_ops_padded, args,
                                    x.device, x.dtype)
         coeffs = real_matmul(frames, ops[0, :, :step])
+    if in_dtype == torch.bfloat16:
+        coeffs = coeffs.to(in_dtype)
     return coeffs.transpose(-1, -2)
 
 
@@ -176,7 +181,8 @@ def imdct(audio_mdct, window_function=None, *, config=None) -> torch.Tensor:
     Output:
         real signal ``(..., F*(number_times+1) - 2F - 1)`` (reference
         zaf.py:1078-1184; perfect reconstruction up to rounding for TDAC
-        windows).
+        windows); bfloat16 for bfloat16 coefficients (computed in float32),
+        as ``zaftpu``'s engine path returns it.
     """
     c = _as_input(audio_mdct)
     if c.ndim < 2:
@@ -191,9 +197,11 @@ def imdct(audio_mdct, window_function=None, *, config=None) -> torch.Tensor:
         raise ValueError(
             f"window length must be 2*number_frequencies = {2 * f}, got "
             f"{host_window.shape[0]}")
-    _kernels.check_device_input(c, 2 * f)
     coeffs = c.transpose(-1, -2)  # (..., T, F) frames-major
     coeffs = coeffs.to(torch.promote_types(coeffs.dtype, torch.float32))
+    _kernels.check_device_input(coeffs, 2 * f)
     signal = _kernels.imdct_synthesis(coeffs, f, host_window.tobytes())
+    if c.dtype == torch.bfloat16:
+        signal = signal.to(c.dtype)
     # Reference trim [F : -F-1], one sample short on the right (zaf.py:1182).
     return signal[..., f:signal.shape[-1] - f - 1]

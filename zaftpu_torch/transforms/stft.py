@@ -4,19 +4,27 @@ Semantics match ``zaftpu.transforms.stft`` and the reference
 (zaf.py:45-243): the same centering pad and frame count, the full complex
 ``(window_length, number_times)`` output with DC and mirrored bins, and the
 COLA-normalized inverse. On a CUDA float32 signal the analysis runs the
-fused framing + window + DFT kernel and the synthesis the fused inverse
-GEMM + overlap-add kernel (:mod:`zaftpu_torch.kernels`), or under
-``ZAFTPU_PRECISION=split4`` their split4 twins; the spectrogram runs the
-one-pass magnitude kernel (:mod:`zaftpu_torch.kernels.melfused`).
-``ZAFTPU_FULLSPEC=1`` and ``ZAFTPU_MIRROR=pallas`` move the conjugate
-mirror and the Hermitian fold into kernels, bit-equal to the default.
+fused framing + window + real-FFT kernel at a power-of-two window (16 to
+4096) and the fused framing + window + DFT-GEMM kernel at any other, and
+the synthesis the fused inverse GEMM + overlap-add kernel
+(:mod:`zaftpu_torch.kernels`), or under ``ZAFTPU_PRECISION=split4`` their
+split4 twins; the spectrogram takes that half spectrum and ``|·|`` at a
+power-of-two window and the one-pass magnitude kernel at any other
+(:mod:`zaftpu_torch.kernels.melfused`). ``ZAFTPU_MIRROR=pallas`` moves the
+conjugate mirror and the Hermitian fold into kernels, bit-equal to the
+default; ``ZAFTPU_FULLSPEC=1`` writes the full spectrum from the GEMM
+analysis kernel, within float32 rounding of the default at a window the
+FFT takes.
 On the CPU the same paths run their plain PyTorch versions, in the input's
 dtype (float64 is the oracle mode).
 
-Device rule: a signal or spectrum given as a tensor stays on its device,
-so a CPU tensor is how a caller asks for the CPU; anything else (a numpy
-array, a list) goes to the CUDA card, and without a card it raises. The
-window and the other arguments follow the signal's device.
+Device rule: a signal or spectrum given as a tensor stays on its device
+and keeps its dtype, so a CPU tensor is how a caller asks for the CPU;
+anything else (a numpy array, a list) goes to the CUDA card as float32
+(complex64 for a spectrum), and without a card it raises. The window and
+the other arguments follow the signal's device. A bfloat16 signal computes
+in float32, on the card too; ``mdct`` and ``imdct`` return it as bfloat16,
+as ``zaftpu``'s do.
 """
 
 from __future__ import annotations
@@ -37,17 +45,32 @@ def _as_tensor(x) -> torch.Tensor:
     return x if isinstance(x, torch.Tensor) else torch.tensor(np.asarray(x))
 
 
+def _card_array(x) -> np.ndarray:
+    """A non-tensor signal or spectrum as the array that goes to the card:
+    a real floating array as float32 and a complex one as complex64, which
+    is what ``zaftpu`` computes a float64 array (numpy's default, and what
+    ``wavread`` returns) in on its accelerator. Any other dtype is kept for
+    the validators to refuse."""
+    a = np.asarray(x)
+    if a.dtype.kind == "c":
+        return a.astype(np.complex64)
+    if a.dtype.kind == "f" and a.dtype != np.float16:
+        return a.astype(np.float32)
+    return a
+
+
 def _as_input(x) -> torch.Tensor:
-    """A signal or spectrum as a tensor: a tensor as is, on its device;
-    anything else copied to the CUDA card. Without a card that raises
-    rather than quietly running on the CPU."""
+    """A signal or spectrum as a tensor: a tensor as is, on its device and
+    in its dtype; anything else copied to the CUDA card in the dtype
+    :func:`_card_array` gives it. Without a card that raises rather than
+    quietly running on the CPU."""
     if isinstance(x, torch.Tensor):
         return x
     if not torch.cuda.is_available():
         raise RuntimeError(
             "no CUDA card: a non-tensor input runs on the card; pass a CPU "
             "tensor (torch.from_numpy(x)) to run on the CPU")
-    return torch.as_tensor(np.asarray(x), device="cuda")
+    return torch.as_tensor(_card_array(x), device="cuda")
 
 
 def _host_window(window) -> np.ndarray:
@@ -73,16 +96,17 @@ def _resolve_analysis_args(window_function, step_length, config):
 
 
 def _analysis_inputs(audio_signal, window_function, step_length, config):
-    """The validated signal (at least float32), window (on the signal's
-    device, in its dtype) and hop."""
+    """The validated signal (at least float32: a bfloat16 one is promoted,
+    on the card too), window (on the signal's device, in its dtype) and
+    hop."""
     x = _validate.check_signal(_as_input(audio_signal))
     window, step = _resolve_analysis_args(window_function, step_length,
                                           config)
     win = _validate.check_window(_as_tensor(window))
     wl = win.shape[0]
     step = _validate.check_step(step, wl)
-    _kernels.check_device_input(x, wl)
     x = x.to(torch.promote_types(x.dtype, torch.float32))
+    _kernels.check_device_input(x, wl)
     return x, win.to(device=x.device, dtype=x.dtype), step
 
 
@@ -172,13 +196,14 @@ def spectrogram(audio_signal, window_function=None,
     Inputs as :func:`stft` (``config=`` takes a
     :class:`zaftpu_torch.config.StftConfig`). Output: real
     ``(..., window_length/2, number_times)``, a transposed view of a
-    frames-major tensor. The one-pass magnitude kernel, or with
-    ``ZAFTPU_MELFUSE=0`` the half spectrum and ``|·|``.
+    frames-major tensor. The one-pass magnitude kernel where
+    :func:`zaftpu_torch.kernels.melfused.kernel_wanted`, else the half
+    spectrum and ``|·|``.
     """
     x, win, step = _analysis_inputs(audio_signal, window_function,
                                     step_length, config)
-    if _melfused.kernel_wanted(x.dtype):
-        wl = win.shape[0]
+    wl = win.shape[0]
+    if _melfused.kernel_wanted(x.dtype, wl):
         padded, t = centre_padded(x, wl, step)
         spec = _melfused.spec_rows(padded, win, wl, step, t)
     else:
