@@ -21,13 +21,18 @@ non-zero exit and no result line:
    for spec_rows and mel_rows; the CQT at 22,050 Hz, 12 bins per octave,
    110-3,520 Hz: L 4,096, hop 882, F 60, T 1,001), the split4 twins of B1,
    B2, B3, B4, B7, B9, B10 and B12 included. The real-FFT kernel (B1 and
-   B12 at power-of-two windows, both stores) also at a batched, misaligned
-   shape whose hop does not divide WL (3 rows, WL 512, hop 100, T 1,001).
-   The GEMM B1 and B12 take their main-path shape from the 40-ms window
-   the FFT rule leaves to them (WL 1,764, hop 882, a 600-s segment: T =
-   30,001, no operator), a ragged one at WL 1,764 / hop 441, and WL 2048
+   B12, and on the split4 dial their twins, at every even window whose
+   half is 7-smooth; both stores) also at batched, misaligned shapes whose
+   hop does not divide WL (3 rows, WL 512 / hop 100 and WL 400 / hop 160,
+   T 1,001), and at the 40-ms window (WL 1,764, hop 882, T 30,001: radices
+   2, 3, 3, 7, 7), timed beside torch.stft and the GEMM B1 with its
+   operator in the same call. The GEMM B1 and B12 and the twins B1-s4 and
+   B12-s4 take their main-path shape from the 25-ms window the FFT rule
+   leaves to them (WL 1,102 = 2 * 19 * 29, hop 551, a 600-s segment: T =
+   48,023, no operator), a ragged one at WL 1,102 / hop 300, and WL 2048
    and WL 512 with their operator given (which names the GEMM); the mel
-   kernels also past the old shared-memory limit (800 mels at WL 2048). Framing, OLA, mirror and fold must be bit-equal, the FFT
+   kernels also past the old shared-memory limit (800 mels at WL 2048).
+   Framing, OLA, mirror and fold must be bit-equal, the FFT
    kernel within 1e-6 * max|ref| (it does its plain version's operations
    in its order), the GEMM kernels within 2e-5 * max|ref|, and the kernels
    that only store another's sums elsewhere (B3, B12, their twins and the
@@ -43,8 +48,9 @@ non-zero exit and no result line:
    the periodic Hamming window; the spectrum against a float64 torch.fft
    oracle (<= 1e-5 * max|oracle|), the round-trip SNR (>= 120 dB), and
    launch counts showing the FFT analysis and the fused synthesis kernel
-   ran and no plain version did; then the same with a 40-ms window (WL
-   1,764, hop 882), which the shape rule sends to the GEMM B1, and under
+   ran and no plain version did; then the same with the 40-ms window (WL
+   1,764, hop 882; the FFT kernel) and the 25-ms window (WL 1,102, hop
+   551), which the shape rule sends to the GEMM B1, and under
    ZAFTPU_FUSED2=1 to the GEMM B12;
 5. STFT main path, split dispatch (ZAFTPU_FUSED=0 ZAFTPU_SYNTH=0): the
    same checks, with the framing and OLA kernels;
@@ -58,7 +64,9 @@ non-zero exit and no result line:
    600-s signal against float64 torch.fft oracles (<= 1e-5 * max|oracle|;
    MFCC atol 5e-3), under the default dispatch (at WL 2048 the real-FFT
    analysis kernel's half spectrum, by the shape rule) and ZAFTPU_MELFUSE=1
-   (spec_rows and mel_rows, not the STFT's analysis kernel);
+   (spec_rows and mel_rows, not the STFT's analysis kernel); then the
+   three at Whisper's front-end geometry (16 kHz, Hann 400 / hop 160, 80
+   mels: the FFT kernel's mixed-radix half spectrum);
 8. CQT main path at CqtConfig() (44.1 kHz, 24 bins per octave, 55-3,520
    Hz, 25 frames/s): cqtspectrogram and cqtchromagram of the 600-s signal
    against a float64 oracle on the card (per-frame FFT times the kernel's
@@ -68,23 +76,28 @@ non-zero exit and no result line:
    <= 1e-5 * max|oracle|), with launch counts showing which kernel ran and
    that no plain version did;
 9. split4 main path (ZAFTPU_PRECISION=split4): stft -> istft and mdct ->
-   imdct of the 600-s signal; the spectrum and the coefficients within
-   1e-4 * max of the float64 oracles, the round trips in [100, 125) dB,
-   and launch counts showing the split4 twins ran and no exact kernel or
-   plain version did; then the mel phase under split4 with
-   ZAFTPU_MELFUSE=1: melspectrogram and mfcc through the mel kernel's twin
-   (within 1e-4 * max; MFCC atol 5e-3), spectrogram through the exact
-   spec_rows (1e-5 * max);
+   imdct of the 600-s signal; at WL 2048 the FFT kernel computes the
+   spectrum (within 1e-5 * max of the float64 oracle) and B4's twin the
+   round trip, the coefficients within 1e-4 * max, the round trips in
+   [100, 125) dB, and launch counts showing which kernels ran and that no
+   exact GEMM kernel or plain version did; stft -> istft at WL 1,102 (B1's
+   twin, B12's under ZAFTPU_FUSED2=1) and at WL 2048 under
+   ZAFTPU_FFT=matmul (B1's twin) within 1e-4 * max; then the mel phase
+   under split4 (the FFT's half spectrum) and with ZAFTPU_MELFUSE=1:
+   melspectrogram and mfcc through the mel kernel's twin (within 1e-4 *
+   max; MFCC atol 5e-3), spectrogram through the exact spec_rows (1e-5 *
+   max);
 10. levers: stft -> istft of the 600-s signal under ZAFTPU_MIRROR=pallas
    (fused_fft, mirror_full_planes, fold_half_planes, synth),
    ZAFTPU_FULLSPEC=1 (frames_rfft_full, synth) and ZAFTPU_FUSED2=1
    (frames_matmul2_fft, synth), then under split4 with ZAFTPU_FUSED2=1
-   (frames_matmul2_split4, synth_split4) and ZAFTPU_FULLSPEC=1
+   (frames_matmul2_fft, synth_split4) and ZAFTPU_FULLSPEC=1
    (frames_rfft_full_split4, synth_split4): spectrum and round trip
    bit-equal to those of the same dial without the lever where both share
-   a tile (all but the exact-dial ZAFTPU_FULLSPEC=1, whose GEMM B3 stands
+   a tile (all but ZAFTPU_FULLSPEC=1, whose GEMM B3 or its twin stands
    beside the default FFT kernel), and that dial's oracle and SNR gates;
-11. one hour: six 600-s segments through stft, then istft; mdct, then
+11. one hour: six 600-s segments through stft, then istft (also at the
+   40-ms window on the default dispatch); mdct, then
    imdct; spectrogram; melspectrogram; mfcc, under the default, the split
    and the split4 dispatch, and the three mel front ends under
    ZAFTPU_MELFUSE=1 and under split4 with ZAFTPU_MELFUSE=1;
@@ -131,12 +144,21 @@ MDCT_RAGGED = (512, 256, 1001)  # frames_op: WL, hop, T
 IMDCT_RAGGED_F = 100  # imdct_ola: F, 16-row padding of the contraction
 MEL_RAGGED = (512, 128, 1001, 20)  # spec_rows / mel_rows: WL, hop, T, mels
 MEL_WIDE = (WL, STEP, 1001, 800)  # past the old shared-memory limit (745)
-# The FFT kernel: WL, hop (not dividing WL), T, batch rows, sample offset.
-FFT_RAGGED = (512, 100, 1001, 3, 1)
-# A window the FFT rule leaves to the GEMM B1 / B12 (40 ms at 44.1 kHz).
-GEMM_WL = 1764
-GEMM_RAGGED = (GEMM_WL, 441, 1001)
+# The FFT kernel: WL, hop (not dividing WL), T, batch rows, sample offset;
+# a power-of-two window and a mixed-radix one (25 ms / 10 ms at 16 kHz).
+FFT_RAGGED = ((512, 100, 1001, 3, 1), (400, 160, 1001, 3, 1))
+# The 40-ms window at 44.1 kHz: the FFT kernel's mixed-radix shape (882 =
+# 2 * 3^2 * 7^2), timed beside the GEMM B1 with its operator.
+MIXED_WL = 1764
+# A window the FFT rule leaves to the GEMM B1 / B12 and, under split4, to
+# their twins (25 ms at 44.1 kHz; its half 551 = 19 * 29).
+GEMM_WL = 1102
+GEMM_RAGGED = (GEMM_WL, 300, 1001)
 GEMM_KERNELS = ("fused", "frames_matmul2")  # the GEMM B1 and B12
+TWIN_KERNELS = ("fused_split4", "frames_matmul2_split4")  # B1-s4, B12-s4
+# Whisper's front end: 16 kHz, Hann 400 / hop 160 (25 ms / 10 ms), 80 mels.
+WHISPER = MelConfig(sampling_frequency=16000, window_length=400,
+                    step_length=160, number_mels=80, window="hann")
 CQT_RAGGED = (CqtConfig(sampling_frequency=22050, octave_resolution=12,
                         minimum_frequency=110.0), 1001)  # L 4096, hop 882
 SEED = 20260816
@@ -290,9 +312,9 @@ def phase_build() -> None:
 def _kernel_inputs(wl: int, step: int, t: int, dev) -> dict:
     """Inputs at the shapes the main path hands each kernel: a padded
     signal for the analysis kernels (with the operator for the GEMM B1,
-    B3 and B12, which an explicit operator selects at a power-of-two
-    window), real frames for the OLA, folded planes of a real spectrum for
-    the synthesis kernel."""
+    B3 and B12 and the twins of B1 and B12, which an explicit operator
+    selects at a window the FFT rule covers), real frames for the OLA,
+    folded planes of a real spectrum for the synthesis kernel."""
     sig = np.resize(segment(0), (t - 1) * step + wl).astype(np.float32)
     padded = torch.from_numpy(sig).to(dev)
     win = torch.from_numpy(hamming(wl).astype(np.float32)).to(dev)
@@ -314,9 +336,9 @@ def _kernel_inputs(wl: int, step: int, t: int, dev) -> dict:
         "fold_half_planes": ((spec, wl), EXACT_TOL),
         "frames_rfft_full": (gemm, GEMM_TOL),
         "frames_matmul2": (gemm, GEMM_TOL),
-        "fused_split4": (analysis, GEMM_TOL),
+        "fused_split4": (gemm, GEMM_TOL),
         "frames_rfft_full_split4": (analysis, GEMM_TOL),
-        "frames_matmul2_split4": (analysis, GEMM_TOL),
+        "frames_matmul2_split4": (gemm, GEMM_TOL),
         "synth_split4": ((h_re, h_im, wl, step, scale), GEMM_TOL),
     }
 
@@ -347,26 +369,38 @@ def _kernel_cases(dev, main_t: int):
     for label, (wl, step, t) in (("main", (WL, STEP, main_t)),
                                  ("ragged", RAGGED)):
         for name, (args, tol) in _kernel_inputs(wl, step, t, dev).items():
-            # At WL 2048 only an explicit operator sends B1 / B12 to the
-            # GEMM; their main-path shape is the 40-ms window's, below.
-            case = ("operator" if label == "main" and name in GEMM_KERNELS
-                    else label)
+            # At WL 2048 only an explicit operator sends B1 / B12 (and
+            # their twins) to the GEMM; their main-path shape is WL 1102's,
+            # below.
+            case = ("operator" if label == "main"
+                    and name in GEMM_KERNELS + TWIN_KERNELS else label)
             yield name, case, f"WL {wl} hop {step} T {t}", args, tol
-    wl, step, t, rows, offset = FFT_RAGGED
-    sig = np.resize(segment(1), rows * ((t - 1) * step + wl) + offset)
-    padded = torch.from_numpy(sig.astype(np.float32)).to(dev)[offset:].reshape(
-        rows, -1)
-    win = torch.from_numpy(hamming(wl).astype(np.float32)).to(dev)
+    for wl, step, t, rows, offset in FFT_RAGGED:
+        sig = np.resize(segment(1), rows * ((t - 1) * step + wl) + offset)
+        padded = torch.from_numpy(sig.astype(np.float32)).to(dev)[
+            offset:].reshape(rows, -1)
+        win = torch.from_numpy(hamming(wl).astype(np.float32)).to(dev)
+        for name in ("fused_fft", "frames_matmul2_fft"):
+            yield (name, "ragged", f"{rows} rows WL {wl} hop {step} T {t} "
+                   f"offset {offset}", (padded, win, wl, step, t), FFT_TOL)
+    # The 40-ms window: the FFT kernel (both stores) and, in the same
+    # call, the GEMM B1 with its operator, both timed.
+    wl, step = MIXED_WL, MIXED_WL // 2
+    t = stft_padding(SEGMENT_SECONDS * SR, wl, step)[2]  # 30,001
+    padded, win = _signal_and_window(wl, step, t, hamming, dev)
+    analysis = (padded, win, wl, step, t)
     for name in ("fused_fft", "frames_matmul2_fft"):
-        yield (name, "ragged", f"{rows} rows WL {wl} hop {step} T {t} "
-               f"offset {offset}", (padded, win, wl, step, t), FFT_TOL)
+        yield name, "40 ms", f"WL {wl} hop {step} T {t}", analysis, FFT_TOL
+    yield ("fused", "40 ms", f"WL {wl} hop {step} T {t} (operator)",
+           (*analysis, fused.rdft_ops(wl, torch.float32, dev)), GEMM_TOL)
+    del padded, analysis
     gemm_main_t = stft_padding(SEGMENT_SECONDS * SR, GEMM_WL,
-                               GEMM_WL // 2)[2]  # 30,001
+                               GEMM_WL // 2)[2]  # 48,023
     for label, (wl, step, t) in (
             ("main", (GEMM_WL, GEMM_WL // 2, gemm_main_t)),
             ("ragged", GEMM_RAGGED)):
         padded, win = _signal_and_window(wl, step, t, hamming, dev)
-        for name in GEMM_KERNELS:
+        for name in GEMM_KERNELS + TWIN_KERNELS:
             yield (name, label, f"WL {wl} hop {step} T {t} (no operator)",
                    (padded, win, wl, step, t), GEMM_TOL)
     for label, (wl, step, t) in (("main", (WL, STEP, main_t)),
@@ -543,7 +577,8 @@ def phase_kernels(dev) -> dict:
     """Each kernel against its plain version at the main-path shape and a
     ragged one; returns the main-path error, median times (kernel, plain
     version, library call) and bound (for mel_rows, the largest error of
-    its two main cases and the times of the first, power=False)."""
+    its two main cases and the times of the first, power=False). The
+    40-ms window's cases are timed and printed too, not returned."""
     results = {}
     main_t = stft_padding(SEGMENT_SECONDS * SR, WL, STEP)[2]  # 25,841
     for name, label, shape, args, tol in _kernel_cases(dev, main_t):
@@ -568,7 +603,7 @@ def phase_kernels(dev) -> dict:
               f"max_abs_err {err!r} max|ref| {scale!r}")
         require(np.isfinite(err) and err <= tol * scale,
                 f"{name} {label}: max_abs_err {err} > {tol} * {scale}")
-        if label == "main":
+        if label in ("main", "40 ms"):
             ms = median_ms(lambda: kernel(*args))
             plain_ms = median_ms(lambda: plain(*args))
             lib = library_call(name, args)
@@ -582,9 +617,10 @@ def phase_kernels(dev) -> dict:
                         f"{name}: torch.istft yardstick {lerr} > "
                         f"{GEMM_TOL} * {scale}")
             bound_ms, bound_by = bound(name, args)
-            print(f"  {name}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-                  f"library {library_ms} ms (median of 10); bound "
-                  f"{bound_ms:.4f} ms by {bound_by}")
+            print(f"  {name} {label}: kernel {ms:.4f} ms, plain "
+                  f"{plain_ms:.4f} ms, library {library_ms} ms (median of "
+                  f"10); bound {bound_ms:.4f} ms by {bound_by}")
+        if label == "main":
             entry = results.setdefault(name, {
                 "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
                 "bound_ms": bound_ms, "bound_by": bound_by,
@@ -640,11 +676,23 @@ def oracle_error(x: torch.Tensor, spec: torch.Tensor, wl: int = WL,
     return err, _max_abs(oracle)
 
 
-# dispatch -> the kernels the STFT and the MDCT main paths must run.
-STFT_WANT = {"default": ("fused_fft", "synth"), "split": ("framing", "ola"),
-             "split4": ("fused_split4", "synth_split4"),
-             f"default WL {GEMM_WL}": ("fused", "synth"),
-             f"ZAFTPU_FUSED2=1 WL {GEMM_WL}": ("frames_matmul2", "synth")}
+# dispatch -> the kernels the STFT main path must run, and its gates. At
+# WL 2048 and 1764 the FFT kernel computes the spectrum on both dials, so
+# split4's spectrum meets the exact oracle gate and its round trip (B4's
+# twin) split4's band.
+STFT_WANT = {
+    "default": (("fused_fft", "synth"), EXACT_GATES),
+    "split": (("framing", "ola"), EXACT_GATES),
+    f"default WL {MIXED_WL}": (("fused_fft", "synth"), EXACT_GATES),
+    f"default WL {GEMM_WL}": (("fused", "synth"), EXACT_GATES),
+    f"ZAFTPU_FUSED2=1 WL {GEMM_WL}": (("frames_matmul2", "synth"),
+                                      EXACT_GATES),
+    "split4": (("fused_fft", "synth_split4"), (ORACLE_TOL, *SPLIT4_SNR_DB)),
+    f"split4 WL {GEMM_WL}": (("fused_split4", "synth_split4"), SPLIT4_GATES),
+    f"split4 ZAFTPU_FUSED2=1 WL {GEMM_WL}": (
+        ("frames_matmul2_split4", "synth_split4"), SPLIT4_GATES),
+    "split4 ZAFTPU_FFT=matmul": (("fused_split4", "synth_split4"),
+                                 SPLIT4_GATES)}
 MDCT_WANT = {"default": ("frames_op", "imdct_ola"),
              "split": ("framing", "ola"),
              "split4": ("frames_op_split4", "imdct_ola_split4")}
@@ -659,18 +707,19 @@ def check_gates(path: str, err: float, scale: float, snr: float,
 
 
 def phase_main_path(dispatch: str, x: torch.Tensor) -> dict:
-    """One 600-s stft -> istft (WL 2048 / hop 1024, or the 40-ms window
-    where the dispatch names it); returns the launch counts of the kernels
-    this dispatch must run."""
-    wl, step = ((GEMM_WL, GEMM_WL // 2) if dispatch.endswith(f"WL {GEMM_WL}")
-                else (WL, STEP))
+    """One 600-s stft -> istft (WL 2048 / hop 1024, or the window the
+    dispatch names, at half overlap); returns the launch counts of the
+    kernels this dispatch must run."""
+    wl = int(dispatch.rsplit("WL ", 1)[1]) if "WL " in dispatch else WL
+    step = wl // 2
+    want, gates = STFT_WANT[dispatch]
     win = hamming(wl)
     t = stft_padding(x.shape[-1], wl, step)[2]
     reset_counters()
     spec = zaftpu_torch.stft(x, win, step)
     rec = zaftpu_torch.istft(spec, win, step)
     torch.cuda.synchronize()
-    launches = check_counters(f"main path [{dispatch}]", STFT_WANT[dispatch])
+    launches = check_counters(f"main path [{dispatch}]", want)
     require(tuple(spec.shape) == (wl, t) and spec.dtype == torch.complex64,
             f"[{dispatch}] spectrum {tuple(spec.shape)} {spec.dtype}")
     require(spec.is_cuda and rec.is_cuda, f"[{dispatch}] left the card")
@@ -679,8 +728,7 @@ def phase_main_path(dispatch: str, x: torch.Tensor) -> dict:
     print(f"main path [{dispatch}]: spectrum max_abs_err vs f64 oracle "
           f"{err!r} (max|oracle| {scale!r}, ratio {err / scale!r}); "
           f"round-trip SNR {snr!r} dB; output {tuple(rec.shape)}")
-    check_gates(f"main path {dispatch}", err, scale, snr,
-                SPLIT4_GATES if dispatch == "split4" else EXACT_GATES)
+    check_gates(f"main path {dispatch}", err, scale, snr, gates)
     return launches
 
 
@@ -741,26 +789,32 @@ def mel_oracles(x: torch.Tensor, cfg: MelConfig):
             (logmel @ dct.T)[:, 1:cfg.number_coefficients + 1])
 
 
-# dispatch -> the kernels the mel phase must run, and the oracle gates of
-# spectrogram and melspectrogram (x max|oracle|; the MFCC's is MFCC_ATOL).
-MEL_WANT = {"default": (("fused_fft",), ORACLE_TOL, ORACLE_TOL),
-            "ZAFTPU_MELFUSE=1": (("spec_rows", "mel_rows"), ORACLE_TOL,
-                                 ORACLE_TOL),
-            "split4 ZAFTPU_MELFUSE=1": (("spec_rows", "mel_rows_split4"),
+# dispatch -> the configuration, the kernels the mel phase must run, and
+# the oracle gates of spectrogram and melspectrogram (x max|oracle|; the
+# MFCC's is MFCC_ATOL).
+MEL_WANT = {"default": (MelConfig(), ("fused_fft",), ORACLE_TOL, ORACLE_TOL),
+            "ZAFTPU_MELFUSE=1": (MelConfig(), ("spec_rows", "mel_rows"),
+                                 ORACLE_TOL, ORACLE_TOL),
+            "default 16 kHz WL 400": (WHISPER, ("fused_fft",), ORACLE_TOL,
+                                      ORACLE_TOL),
+            "split4": (MelConfig(), ("fused_fft",), ORACLE_TOL, ORACLE_TOL),
+            "split4 ZAFTPU_MELFUSE=1": (MelConfig(),
+                                        ("spec_rows", "mel_rows_split4"),
                                         ORACLE_TOL, SPLIT4_ORACLE_TOL)}
 
 
 def phase_mel_path(dispatch: str, x: torch.Tensor) -> dict:
-    """spectrogram, melspectrogram and mfcc of the 600-s signal at
-    MelConfig(); returns the launch counts of the kernels this dispatch
+    """spectrogram, melspectrogram and mfcc of the 600-s signal (its first
+    600 s of samples, read at the configuration's rate) at the dispatch's
+    configuration; returns the launch counts of the kernels this dispatch
     must run."""
-    cfg = MelConfig()
+    cfg, want, spec_tol, mel_tol = MEL_WANT[dispatch]
+    x = x[..., :SEGMENT_SECONDS * cfg.sampling_frequency]
     reset_counters()
     spec = zaftpu_torch.spectrogram(x, cfg.window_array(), cfg.step_length)
     mel = zaftpu_torch.melspectrogram(x, config=cfg)
     mf = zaftpu_torch.mfcc(x, config=cfg)
     torch.cuda.synchronize()
-    want, spec_tol, mel_tol = MEL_WANT[dispatch]
     launches = check_counters(f"mel path [{dispatch}]", want)
     for name, got, oracle, gate in zip(
             ("spectrogram", "melspectrogram", "mfcc"), (spec, mel, mf),
@@ -779,19 +833,21 @@ def phase_mel_path(dispatch: str, x: torch.Tensor) -> dict:
     return launches
 
 
-def phase_hour(dispatch: str, segs: list) -> None:
-    """Six 600-s segments through stft, then istft; frames/s from CUDA
-    events, median of 3 passes (printed, not gated)."""
-    win = hamming(WL)
-    frames = sum(stft_padding(s.shape[-1], WL, STEP)[2] for s in segs)
-    zaftpu_torch.istft(zaftpu_torch.stft(segs[0], win, STEP), win, STEP)
+def phase_hour(dispatch: str, segs: list, wl: int = WL) -> None:
+    """Six 600-s segments through stft, then istft, at WL ``wl`` and half
+    overlap; frames/s from CUDA events, median of 3 passes (printed, not
+    gated)."""
+    step = wl // 2
+    win = hamming(wl)
+    frames = sum(stft_padding(s.shape[-1], wl, step)[2] for s in segs)
+    zaftpu_torch.istft(zaftpu_torch.stft(segs[0], win, step), win, step)
     runs = []
     for _ in range(3):
         e0, e1, e2 = (torch.cuda.Event(enable_timing=True) for _ in range(3))
         e0.record()
-        specs = [zaftpu_torch.stft(s, win, STEP) for s in segs]
+        specs = [zaftpu_torch.stft(s, win, step) for s in segs]
         e1.record()
-        recs = [zaftpu_torch.istft(s, win, STEP) for s in specs]
+        recs = [zaftpu_torch.istft(s, win, step) for s in specs]
         e2.record()
         e2.synchronize()
         runs.append((e0.elapsed_time(e1), e1.elapsed_time(e2)))
@@ -961,7 +1017,7 @@ def phase_hour_cqt(dispatch: str, segs: list) -> None:
 
 
 LEVERS = ("ZAFTPU_FUSED", "ZAFTPU_SYNTH", "ZAFTPU_MELFUSE", "ZAFTPU_MIRROR",
-          "ZAFTPU_FULLSPEC", "ZAFTPU_FUSED2", "ZAFTPU_PRECISION",
+          "ZAFTPU_FULLSPEC", "ZAFTPU_FUSED2", "ZAFTPU_FFT", "ZAFTPU_PRECISION",
           "ZAFTPU_CQT_SCHEME")
 DEFAULT = dict.fromkeys(LEVERS)
 SPLIT = {**DEFAULT, "ZAFTPU_FUSED": "0", "ZAFTPU_SYNTH": "0",
@@ -974,6 +1030,7 @@ SPLIT4 = {**DEFAULT, "ZAFTPU_PRECISION": "split4"}
 SPLIT4_FUSED2 = {**SPLIT4, "ZAFTPU_FUSED2": "1"}
 SPLIT4_FULLSPEC = {**SPLIT4, "ZAFTPU_FULLSPEC": "1"}
 SPLIT4_MELFUSE = {**SPLIT4, "ZAFTPU_MELFUSE": "1"}
+SPLIT4_MATMUL = {**SPLIT4, "ZAFTPU_FFT": "matmul"}
 CQT_HIGHEST = {**DEFAULT, "ZAFTPU_PRECISION": "highest"}
 CQT_EXACT = {**DEFAULT, "ZAFTPU_CQT_SCHEME": "exact"}
 
@@ -1016,17 +1073,24 @@ def main() -> int:
     for env, phase, dispatch in (
             (DEFAULT, phase_main_path, "default"),
             (SPLIT, phase_main_path, "split"),
+            (DEFAULT, phase_main_path, f"default WL {MIXED_WL}"),
             (DEFAULT, phase_main_path, f"default WL {GEMM_WL}"),
             (FUSED2_ON, phase_main_path, f"ZAFTPU_FUSED2=1 WL {GEMM_WL}"),
             (DEFAULT, phase_mdct_path, "default"),
             (SPLIT, phase_mdct_path, "split"),
             (DEFAULT, phase_mel_path, "default"),
             (MELFUSE_ON, phase_mel_path, "ZAFTPU_MELFUSE=1"),
+            (DEFAULT, phase_mel_path, "default 16 kHz WL 400"),
             (DEFAULT, phase_cqt_path, "default"),
             (CQT_HIGHEST, phase_cqt_path, "ZAFTPU_PRECISION=highest"),
             (CQT_EXACT, phase_cqt_path, "ZAFTPU_CQT_SCHEME=exact"),
             (SPLIT4, phase_main_path, "split4"),
+            (SPLIT4, phase_main_path, f"split4 WL {GEMM_WL}"),
+            (SPLIT4_FUSED2, phase_main_path,
+             f"split4 ZAFTPU_FUSED2=1 WL {GEMM_WL}"),
+            (SPLIT4_MATMUL, phase_main_path, "split4 ZAFTPU_FFT=matmul"),
             (SPLIT4, phase_mdct_path, "split4"),
+            (SPLIT4, phase_mel_path, "split4"),
             (SPLIT4_MELFUSE, phase_mel_path, "split4 ZAFTPU_MELFUSE=1")):
         for name, count in _with_env(env, phase, dispatch, x).items():
             launches[name] += count
@@ -1042,9 +1106,9 @@ def main() -> int:
                  ("frames_matmul2_fft", "synth"), True))),
             (SPLIT4, SPLIT4_GATES, (
                 (SPLIT4_FUSED2, "split4 ZAFTPU_FUSED2=1",
-                 ("frames_matmul2_split4", "synth_split4"), True),
+                 ("frames_matmul2_fft", "synth_split4"), True),
                 (SPLIT4_FULLSPEC, "split4 ZAFTPU_FULLSPEC=1",
-                 ("frames_rfft_full_split4", "synth_split4"), True)))):
+                 ("frames_rfft_full_split4", "synth_split4"), False)))):
         ref = _with_env(base, _default_stft_istft, x)
         for env, dispatch, want, bit_equal in levers:
             for name, count in _with_env(env, phase_fullspec_path, dispatch,
@@ -1063,6 +1127,7 @@ def main() -> int:
         _with_env(env, phase_hour, dispatch, segs)
         _with_env(env, phase_hour_features, dispatch, segs)
         torch.cuda.empty_cache()
+    _with_env(DEFAULT, phase_hour, f"default WL {MIXED_WL}", segs, MIXED_WL)
     for env, dispatch in ((MELFUSE_ON, "ZAFTPU_MELFUSE=1"),
                           (SPLIT4_MELFUSE, "split4 ZAFTPU_MELFUSE=1")):
         _with_env(env, phase_hour_features, dispatch, segs, True)

@@ -3,14 +3,19 @@
     python3 scripts/torch_profile.py [--precision highest|split4] [--iters 3]
 
 Profiles 600-s stft -> istft, mdct -> imdct (the chip_smoke.py signal,
-Hamming and vorbis windows of 2048, hop 1024) and cqtspectrogram at
-CqtConfig() with torch.profiler after two warm-up iterations, under the
+Hamming and vorbis windows of 2048, hop 1024), cqtspectrogram at
+CqtConfig(), one hour of stft (six 600-s segments queued back to back)
+and one hour of stft, then istft (chip_smoke.py's hour phase) with
+torch.profiler after two
+warm-up iterations, under the
 given ZAFTPU_PRECISION (set explicitly, so the CQT runs its split4 twin
 under split4 and its exact kernel under highest) and the other levers as
 set in the environment; the CQT kernel is built without the disk cache. Prints, per path and per iteration: the device
 time of each kernel (largest first), the busy time (their sum), the window
 (host clock around the profiled iterations, synchronised) and the busy
-share. Needs a CUDA card; prints nothing else and exits 1 without one.
+share; for the hours, also the host operators that take the most host
+time of their own. Needs a CUDA card; prints nothing else and exits 1
+without one.
 """
 
 from __future__ import annotations
@@ -41,7 +46,7 @@ def device_ms(event) -> float:
     return total / 1e3
 
 
-def profile(name: str, fn, iters: int) -> None:
+def profile(name: str, fn, iters: int, host_rows: int = 0) -> None:
     for _ in range(2):
         fn()
     torch.cuda.synchronize()
@@ -62,6 +67,11 @@ def profile(name: str, fn, iters: int) -> None:
           f"({100 * busy / window:.2f}%) per iteration, {iters} iterations")
     for ms, key in rows:
         print(f"  {ms:9.4f} ms  {100 * ms / busy:6.2f}%  {key[:90]}")
+    host = sorted(((e.self_cpu_time_total / 1e3 / iters, e.count // iters,
+                    e.key) for e in prof.key_averages()
+                   if e.self_cpu_time_total > 0), reverse=True)
+    for ms, count, key in host[:host_rows]:
+        print(f"  host {ms:9.4f} ms  {count:5d} calls  {key[:80]}")
 
 
 def main() -> int:
@@ -88,6 +98,17 @@ def main() -> int:
     cfg = CqtConfig()
     profile("cqtspectrogram", lambda: zaftpu_torch.cqtspectrogram(
         x, config=cfg), args.iters)
+    segs = [torch.from_numpy(segment(i)).cuda() for i in range(6)]
+    profile("stft, one hour", lambda: [zaftpu_torch.stft(s, hw, STEP)
+                                       for s in segs], args.iters,
+            host_rows=8)
+
+    def hour_round_trip():
+        specs = [zaftpu_torch.stft(s, hw, STEP) for s in segs]
+        return [zaftpu_torch.istft(s, hw, STEP) for s in specs]
+
+    profile("stft, then istft, one hour", hour_round_trip, args.iters,
+            host_rows=12)
     return 0
 
 

@@ -21,8 +21,8 @@ import zaftpu_torch
 from zaftpu_torch.core import policy
 from zaftpu_torch.core.windows import hamming, kbd, vorbis
 from zaftpu_torch.core import fft as tfft
-from zaftpu_torch.kernels import (cqtslab, framing, fused, melfused, mirror,
-                                  ola, rfft, synth)
+from zaftpu_torch.kernels import (_build, cqtslab, framing, fused, melfused,
+                                  mirror, ola, rfft, synth)
 from zaftpu_torch.transforms import mdct as tmdct
 from zaftpu_torch.transforms.stft import centre_padded
 
@@ -101,10 +101,11 @@ def test_misaligned_signal_takes_the_scalar_framing(dev):
                                                        t))
 
 
-@pytest.mark.parametrize("wl", [512, 500])
+@pytest.mark.parametrize("wl", [512, 500, 502])
 def test_batched_cuda_input_launches_once(dev, wl):
     """One launch for a batch, of the kernel the shape rule picks: the FFT
-    at a power-of-two window, the GEMM otherwise; no plain version."""
+    at an even window whose half is 7-smooth (512, 500), the GEMM otherwise
+    (502: 251 is prime); no plain version."""
     step, t = 128, 21
     padded, win = _inputs(wl, step, t, dev, (4,))
 
@@ -620,7 +621,8 @@ def test_split4_synthesis_twins_match_plain(dev, wl, step, t, lead):
 
 
 def _split4_launches():
-    return {"fused_split4": fused.frames_rfft_split4.launches,
+    return {"fft": rfft.frames_rfft_fft.launches,
+            "fused_split4": fused.frames_rfft_split4.launches,
             "synth_split4": synth.istft_ola_split4.launches,
             "frames_op_split4": fused.frames_op_split4.launches,
             "imdct_ola_split4": synth.imdct_ola_split4.launches,
@@ -631,9 +633,11 @@ def _split4_launches():
 
 
 def test_split4_paths_on_card_match_cpu_f64(dev, monkeypatch):
-    """stft -> istft and mdct -> imdct under split4 on the card: the twins
-    launch (and no exact kernel), the outputs sit within 1e-4 of max of the
-    CPU float64 path, the round trips in (100, 125) dB."""
+    """stft -> istft and mdct -> imdct under split4 on the card: at WL 2048
+    the FFT kernel computes the spectrum (within the exact gate, 1e-5 of
+    max of the CPU float64 path) and the twins the rest (and no exact GEMM
+    kernel), the coefficients within 1e-4 of max, the round trips in
+    (100, 125) dB."""
     rng = np.random.default_rng(11)
     x = rng.standard_normal((2, 44100))
     hw, vw = hamming(2048), vorbis(2048)
@@ -647,9 +651,9 @@ def test_split4_paths_on_card_match_cpu_f64(dev, monkeypatch):
     coeffs = zaftpu_torch.mdct(x32, vw)
     rec2 = zaftpu_torch.imdct(coeffs, vw)
     moved = {k for k, v in _split4_launches().items() if v != before[k]}
-    assert moved == {"fused_split4", "synth_split4", "frames_op_split4",
+    assert moved == {"fft", "synth_split4", "frames_op_split4",
                      "imdct_ola_split4"}
-    assert _rel_err(spec.cpu().to(torch.complex128), ref_spec) < 1e-4
+    assert _rel_err(spec.cpu().to(torch.complex128), ref_spec) < 1e-5
     assert _rel_err(coeffs.cpu().double(), ref_coeffs) < 1e-4
     for r in (rec, rec2):
         err = r.cpu().double()[..., :x.shape[-1]] - torch.from_numpy(x)
@@ -662,8 +666,9 @@ def test_split4_paths_on_card_match_cpu_f64(dev, monkeypatch):
 def test_fused2_and_fullspec_levers_on_card_bit_equal(dev, lever, dial,
                                                       monkeypatch):
     """Each lever's kernel shares the default's tile, so stft is bit-equal
-    to the default, except B3 on the exact dial: a GEMM beside the default
-    FFT kernel, held within 1e-5 of max of the CPU float64 path."""
+    to the default (B12's FFT planes store on both dials), except B3 and
+    its twin: a GEMM beside the default FFT kernel, held within 1e-5 (1e-4
+    under split4) of max of the CPU float64 path."""
     monkeypatch.setenv("ZAFTPU_PRECISION", dial)
     x64 = np.random.default_rng(12).standard_normal((2, 44100))
     x = torch.from_numpy(x64.astype(np.float32)).to(dev)
@@ -671,18 +676,57 @@ def test_fused2_and_fullspec_levers_on_card_bit_equal(dev, lever, dial,
     ref = zaftpu_torch.stft(x, win, 1024)
     monkeypatch.setenv(lever, "1")
     kernel = {("ZAFTPU_FUSED2", "highest"): rfft.frames_matmul2_fft,
-              ("ZAFTPU_FUSED2", "split4"): fused.frames_matmul2_split4,
+              ("ZAFTPU_FUSED2", "split4"): rfft.frames_matmul2_fft,
               ("ZAFTPU_FULLSPEC", "highest"): fused.frames_rfft_full,
               ("ZAFTPU_FULLSPEC", "split4"): fused.frames_rfft_full_split4
               }[lever, dial]
     before = kernel.launches
     spec = zaftpu_torch.stft(x, win, 1024)
     assert kernel.launches == before + 1
-    if (lever, dial) != ("ZAFTPU_FULLSPEC", "highest"):
+    if lever != "ZAFTPU_FULLSPEC":
         assert torch.equal(spec, ref)
         return
     oracle = zaftpu_torch.stft(torch.from_numpy(x64), win, 1024)
-    assert _rel_err(spec.cpu().to(torch.complex128), oracle) < 1e-5
+    tol = 1e-4 if dial == "split4" else 1e-5
+    assert _rel_err(spec.cpu().to(torch.complex128), oracle) < tol
+
+
+@pytest.mark.parametrize("wl,lever,fused2,kernel", [
+    (2048, None, False, "fft"), (2048, None, True, "fft2"),
+    (1102, None, False, "twin"), (1102, None, True, "twin2"),
+    (2048, "matmul", False, "twin"), (2048, "matmul", True, "twin2"),
+    (1764, "native", False, "fft")])
+def test_split4_stft_takes_the_fft_where_the_rule_holds(dev, wl, lever,
+                                                       fused2, kernel,
+                                                       monkeypatch):
+    """Under split4 stft launches the FFT kernel (its planes store under
+    ZAFTPU_FUSED2=1) where the shape rule holds, and B1's twin (B12's)
+    at WL 1102 or with ZAFTPU_FFT=matmul, once and nothing else; the FFT's
+    spectrum bit-equal to the exact dial's, the twins' within 1e-4 of max
+    of the CPU float64 path."""
+    monkeypatch.setenv("ZAFTPU_PRECISION", "split4")
+    if lever is not None:
+        monkeypatch.setenv("ZAFTPU_FFT", lever)
+    if fused2:
+        monkeypatch.setenv("ZAFTPU_FUSED2", "1")
+    x64 = np.random.default_rng(wl + 1).standard_normal((2, 20000))
+    x = torch.from_numpy(x64.astype(np.float32)).to(dev)
+    counters = {"fft": rfft.frames_rfft_fft, "fft2": rfft.frames_matmul2_fft,
+                "twin": fused.frames_rfft_split4,
+                "twin2": fused.frames_matmul2_split4,
+                "gemm": fused.frames_rfft, "gemm2": fused.frames_matmul2}
+    before = {k: c.launches for k, c in counters.items()}
+    win = hamming(wl)
+    spec = zaftpu_torch.stft(x, win, wl // 2)
+    moved = {k for k, c in counters.items() if c.launches != before[k]}
+    assert moved == {kernel} and counters[kernel].launches == before[kernel] + 1
+    oracle = zaftpu_torch.stft(torch.from_numpy(x64), win, wl // 2)
+    if kernel.startswith("fft"):
+        monkeypatch.setenv("ZAFTPU_PRECISION", "highest")
+        assert torch.equal(spec, zaftpu_torch.stft(x, win, wl // 2))
+        assert _rel_err(spec.cpu().to(torch.complex128), oracle) < 1e-5
+    else:
+        assert _rel_err(spec.cpu().to(torch.complex128), oracle) < 1e-4
 
 
 ENTRY_POINTS = ["stft", "istft", "spectrogram", "mdct", "imdct",
@@ -825,11 +869,18 @@ def test_cqt_magnitudes_split4_on_a_misaligned_signal(dev, cqt_cache):
                                             f)) < 2e-5
 
 
-# The real-FFT analysis kernel: B1 and B12 at power-of-two windows.
+# The real-FFT analysis kernel: B1 and B12 (and, under split4, their twins)
+# at every even window whose half is 7-smooth.
 
 FFT_SHAPES = [(16, 4, 300), (16, 5, 37), (64, 1, 45), (256, 100, 61),
               (512, 128, 1001), (2048, 1024, 37), (2048, 683, 19),
-              (4096, 1024, 9), (4096, 4096, 3)]
+              (4096, 1024, 9), (4096, 4096, 3),
+              # Mixed radices: m = 12 (4, 3), 200 (4, 2, 5, 5), odd 441
+              # (3, 3, 7, 7), 882 (2, 3, 3, 7, 7), 1500 (4, 3, 5, 5, 5; one
+              # frame per block), ten frames per block at 400.
+              (24, 6, 200), (400, 160, 1001), (400, 150, 61), (882, 441, 37),
+              (882, 300, 37), (1764, 882, 37), (1764, 500, 19),
+              (3000, 1000, 9), (3000, 3000, 3)]
 
 
 @pytest.mark.parametrize("wl,step,t", FFT_SHAPES)
@@ -855,6 +906,24 @@ def test_fft_kernel_matches_plain(dev, wl, step, t, lead, offset):
     assert _rel_err(half.cpu().to(torch.complex128), oracle) < 2e-6
 
 
+def test_fft_entry_refuses_what_the_rule_refuses(dev):
+    """The CUDA entry takes exactly the lengths rfft.fits takes (the set of
+    rfft.applies without an operator or the lever) and refuses every other
+    before any launch: T = 0 returns after the checks; the wrapper raises
+    ValueError on the same lengths."""
+    lib = _build.library()
+    buf = torch.zeros(8192, device=dev)
+    for wl in range(1, 4200):
+        for entry in (lib.zt_rfft_half, lib.zt_rfft_planes):
+            err = entry(buf.data_ptr(), buf.data_ptr(), buf.data_ptr(),
+                        buf.data_ptr(), 1, 8192, 0, wl, 1, 0)
+            assert (err == 0) is rfft.fits(wl), (wl, err)
+    for wl in (38, 1102, 255, 4098):
+        padded, win = _inputs(wl, wl // 2, 3, dev)
+        with pytest.raises(ValueError, match="prime factor"):
+            rfft.frames_rfft_fft(padded, win, wl, wl // 2, 3)
+
+
 def test_fft_kernel_takes_an_hour_in_one_launch(dev):
     """One hour at 44.1 kHz, WL 2048 / hop 1024: 155,041 frames, 77,521
     blocks on grid x (more than grid y or z take), in one launch; its first
@@ -876,12 +945,13 @@ def test_fft_kernel_takes_an_hour_in_one_launch(dev):
     assert _rel_err(half[-64:], tail) <= 1e-6
 
 
-@pytest.mark.parametrize("wl", [16, 256, 2048, 4096, 100, 1764])
+@pytest.mark.parametrize("wl", [16, 256, 2048, 4096, 100, 1764, 1102])
 @pytest.mark.parametrize("fused2", [False, True])
 def test_shape_rule_launch_counts_on_card(dev, wl, fused2, monkeypatch):
     """stft launches the FFT kernel (its half or, with ZAFTPU_FUSED2=1, its
-    planes store) at a power-of-two window and the GEMM kernel otherwise,
-    once, and no plain version; within 1e-5 of max of the float64 path."""
+    planes store) at an even window whose half is 7-smooth (16 ... 1764)
+    and the GEMM kernel otherwise (1102 = 2 * 19 * 29), once, and no plain
+    version; within 1e-5 of max of the float64 path."""
     if fused2:
         monkeypatch.setenv("ZAFTPU_FUSED2", "1")
     x64 = np.random.default_rng(wl).standard_normal((2, 20000))

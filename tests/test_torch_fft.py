@@ -1,6 +1,7 @@
 """The real-FFT analysis kernel's plain version (zaftpu_torch.kernels.rfft)
 against zaftpu's half-spectrum analysis, against a float64 numpy rfft, its
-twiddle table, the shape rule that sends the exact dial to it, and a CPU
+twiddle table and mixed-radix pass plans, the shape rule that sends both
+dials to it and the ZAFTPU_FFT lever that turns the rule off, and a CPU
 float32 stft -> istft round trip through it.
 
 zaftpu's reference is what its own dispatch runs on these shapes: the
@@ -25,7 +26,10 @@ from zaftpu.pallas import fused as zfused
 from zaftpu_torch.kernels import fused as tfused
 from zaftpu_torch.kernels import rfft as trfft
 
-WINDOWS = [16, 64, 256, 2048, 4096]
+# Powers of two, and mixed radices: 24 (m = 12: 4, 3), 400 (m = 200: 4, 2,
+# 5, 5), 882 (odd m = 441: 3, 3, 7, 7), 1764 (m = 882: 2, 3, 3, 7, 7) and
+# 3000 (m = 1500: 4, 3, 5, 5, 5; one frame per block on the card).
+WINDOWS = [16, 64, 256, 2048, 4096, 24, 400, 882, 1764, 3000]
 HOPS = ["1", "quarter", "half", "whole", "non-divisor"]
 T = 11  # not a multiple of any block
 
@@ -121,20 +125,40 @@ def test_twiddle_table_against_float64(n):
     np.testing.assert_array_equal(on_card.numpy(), t32)
 
 
-@pytest.mark.parametrize("m,want", [(8, (4, 2)), (16, (4, 4)), (32, (4, 4, 2)),
-                                    (1024, (4,) * 5), (2048, (4,) * 5 + (2,))])
+@pytest.mark.parametrize("m,want", [
+    (8, (4, 2)), (16, (4, 4)), (32, (4, 4, 2)), (1024, (4,) * 5),
+    (2048, (4,) * 5 + (2,)), (12, (4, 3)), (9, (3, 3)), (200, (4, 2, 5, 5)),
+    (441, (3, 3, 7, 7)), (882, (2, 3, 3, 7, 7)), (1500, (4, 3, 5, 5, 5)),
+    (2016, (4, 4, 2, 3, 3, 7)), (2025, (3, 3, 3, 3, 5, 5))])
 def test_radices(m, want):
+    """Radix 4 while it fits in the power-of-two part, one radix 2 when its
+    log2 is odd, then the 3s, 5s and 7s: the passes multiply to m."""
     assert trfft.radices(m) == want
+    assert int(np.prod(want)) == m
 
 
-@pytest.mark.parametrize("wl,fft", [(8, False), (16, True), (100, False),
+@pytest.mark.parametrize("log_m", range(3, 12))
+def test_radices_of_a_power_of_two_keep_the_radix_4_plan(log_m):
+    """Every power-of-two half length keeps the plan the kernel ran before
+    the odd radices: radix 4 while it fits, then one radix 2."""
+    assert trfft.radices(1 << log_m) == (4,) * (log_m // 2) + (2,) * (log_m % 2)
+
+
+def test_radices_refuse_a_prime_above_7():
+    with pytest.raises(ValueError):
+        trfft.radices(551)  # 19 * 29: WL 1102
+
+
+@pytest.mark.parametrize("wl,fft", [(8, False), (16, True), (100, True),
                                     (255, False), (256, True), (2048, True),
-                                    (3000, False), (4096, True)])
+                                    (3000, True), (4096, True), (1764, True),
+                                    (1102, False), (38, False)])
 def test_shape_rule_through_plain_calls(wl, fft, monkeypatch):
-    """frames_rfft and frames_matmul2 take the FFT's plain version at a
-    power-of-two window in [16, 4096] and no operator; any other length,
-    an explicit operator and the split4 dial keep their GEMM plain
-    versions."""
+    """frames_rfft and frames_matmul2 take the FFT's plain version at an
+    even window in [16, 4096] whose half is 7-smooth and no operator, on
+    both dials; any other length keeps the GEMM plain versions (the
+    split4 twin's under split4), and an explicit operator the exact
+    GEMM's."""
     monkeypatch.delenv("ZAFTPU_PRECISION", raising=False)
     assert trfft.applies(wl) is fft
     step = max(1, wl // 2)
@@ -160,13 +184,59 @@ def test_shape_rule_through_plain_calls(wl, fft, monkeypatch):
     monkeypatch.setenv("ZAFTPU_PRECISION", "split4")
     before = calls()
     tfused.frames_rfft(padded, win, wl, step, 3)
-    assert calls() == tuple(b + d for b, d in zip(before, (0, 0, 0, 0, 1)))
+    assert calls() == tuple(b + d for b, d in zip(
+        before, (1, 0, 0, 0, 0) if fft else (0, 0, 0, 0, 1)))
+
+
+def _seven_smooth(m):
+    for p in (2, 3, 5, 7):
+        while m % p == 0:
+            m //= p
+    return m == 1
 
 
 def test_shape_rule_bounds():
-    assert [n for n in range(1, 9000) if trfft.applies(n)] == [
-        16, 32, 64, 128, 256, 512, 1024, 2048, 4096]
+    """Exactly the even N in [16, 4096] whose half has no prime factor
+    above 7: 183 lengths, every power of two among them, and the audio
+    front ends' 25-ms, 40-ms and 10-ms windows at 16 kHz, 44.1 kHz and
+    48 kHz."""
+    want = [n for n in range(16, 4097, 2) if _seven_smooth(n // 2)]
+    assert [n for n in range(1, 9000) if trfft.applies(n)] == want
+    assert [n for n in range(1, 9000) if trfft.fits(n)] == want
+    assert len(want) == 183
+    assert {16, 32, 64, 128, 256, 512, 1024, 2048, 4096} <= set(want)
+    assert {320, 400, 480, 882, 960, 1200, 1764, 2400, 3000} <= set(want)
+    assert not {8, 38, 255, 1102, 4098, 8192} & set(want)
     assert not trfft.applies(2048, ops=torch.zeros(1))
+
+
+@pytest.mark.parametrize("mode,fft", [(None, True), ("auto", True),
+                                      ("native", True), ("matmul", False)])
+@pytest.mark.parametrize("dial", ["highest", "split4"])
+def test_fft_lever_matmul_turns_the_rule_off(mode, fft, dial, monkeypatch):
+    """ZAFTPU_FFT, zaftpu's engine lever: matmul sends a window the rule
+    covers (WL 1764) to the GEMM, on the exact dial and, as its twin,
+    under split4; auto (the default) and native follow the rule. fits,
+    the CUDA entry's set, does not move."""
+    if mode is None:
+        monkeypatch.delenv("ZAFTPU_FFT", raising=False)
+    else:
+        monkeypatch.setenv("ZAFTPU_FFT", mode)
+    monkeypatch.setenv("ZAFTPU_PRECISION", dial)
+    wl, step, t = 1764, 882, 3
+    assert trfft.applies(wl) is fft and trfft.fits(wl)
+    padded = torch.from_numpy(_signal((), wl, step, t, 3))
+    win = torch.from_numpy(hamming(wl).astype(np.float32))
+    gemm = (tfused.frames_rfft_split4_plain if dial == "split4"
+            else tfused.frames_rfft_plain)
+    counters = (trfft.frames_rfft_fft_plain, gemm)
+    before = tuple(c.calls for c in counters)
+    half = tfused.frames_rfft(padded, win, wl, step, t)
+    assert tuple(c.calls for c in counters) == tuple(
+        b + d for b, d in zip(before, (1, 0) if fft else (0, 1)))
+    oracle = _oracle(padded.numpy(), win.numpy(), wl, step, t)
+    np.testing.assert_allclose(half.numpy(), oracle, rtol=0,
+                               atol=1e-5 * np.abs(oracle).max())
 
 
 def test_stft_takes_the_fft_and_fullspec_keeps_the_gemm(monkeypatch):
@@ -210,6 +280,9 @@ def _bad_fft_launch(case):
         "not_pow2": lambda: trfft._launch("frames_matmul2_fft", True,
                                           padded[:-1], win[:-1], wl - 1,
                                           step, t),
+        "prime_above_7": lambda: trfft._launch(
+            "frames_rfft_fft", False, torch.zeros(8 * 551 + 1102),
+            torch.zeros(1102), 1102, 551, 9),
         "too_long": lambda: trfft._launch(
             "frames_rfft_fft", False, torch.zeros(8192 * 2), torch.zeros(8192),
             8192, 4096, 2),
@@ -218,11 +291,11 @@ def _bad_fft_launch(case):
 
 
 @pytest.mark.parametrize("case", ["f64", "step", "window", "short",
-                                  "not_pow2", "too_long"])
+                                  "not_pow2", "prime_above_7", "too_long"])
 def test_fft_wrapper_refuses_before_launch(case, monkeypatch):
     """The CUDA half of the wrapper checks dtype, hop, window, length and
-    the shape rule before it touches the library: non-float32 raises
-    NotImplementedError, the rest ValueError."""
+    the kernel's set of lengths before it touches the library: non-float32
+    raises NotImplementedError, the rest ValueError."""
     from zaftpu_torch.kernels import _build
 
     def no_library():

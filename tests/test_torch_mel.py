@@ -180,17 +180,18 @@ def test_dispatch_takes_the_lever(melfuse, ran, fbank, monkeypatch):
     ("1", {"spec_rows", "mel_rows"})])
 def test_dispatch_off_the_fft_rule_takes_the_kernels(melfuse, ran,
                                                      monkeypatch):
-    """At a window the FFT rule leaves to the GEMM (WL 1764) the front ends
-    take the magnitude and mel kernels unless ZAFTPU_MELFUSE=0."""
-    fb = zaftpu_torch.melfilterbank(SR, 1764, MELS)
-    assert _front_end_plain_calls(1764, fb, monkeypatch, melfuse) == ran
+    """At a window the FFT rule leaves to the GEMM (WL 1102: its half 551 =
+    19 * 29) the front ends take the magnitude and mel kernels unless
+    ZAFTPU_MELFUSE=0."""
+    fb = zaftpu_torch.melfilterbank(SR, 1102, MELS)
+    assert _front_end_plain_calls(1102, fb, monkeypatch, melfuse) == ran
 
 
 @pytest.mark.parametrize("melfuse,wl,wanted", [
     (None, 2048, False), ("auto", 16, False), (None, 4096, False),
-    ("0", 2048, False), ("1", 2048, True), (None, 1764, True),
-    (None, 8, True), (None, 8192, True), ("0", 1764, False),
-    ("1", 1764, True)])
+    ("0", 2048, False), ("1", 2048, True), (None, 1102, True),
+    (None, 8, True), (None, 8192, True), ("0", 1102, False),
+    ("1", 1102, True), (None, 1764, False)])
 def test_melfuse_gate_follows_the_fft_rule(melfuse, wl, wanted, monkeypatch):
     """On the exact dial the lever decides where it is set, else the FFT
     shape rule: the kernels wherever it does not give the half spectrum."""

@@ -5,9 +5,16 @@ torch hi/lo splits bit for bit against ``zaftpu``'s, the plain versions of
 the split4 twins (B1, B2, B3, B4, B7, B12) and of B12's exact form against
 ``zaftpu``'s Pallas kernels in interpret mode with the same dial, the
 STFT and MDCT slices under split4 against ``zaftpu`` under split4 with
-``ZAFTPU_FFT=matmul``, the levers under the dial, the magnitude and mel
-front ends' gate, and the device rule of the public functions (a non-tensor
-input goes to the card; without one it raises).
+``ZAFTPU_FFT=matmul``, the real-FFT kernel that the split4 dial takes
+where the shape rule holds (bit-equal to the exact dial, near ``zaftpu``'s
+split4 outputs under ``ZAFTPU_FFT=auto``) and B1's twin where it does not,
+the levers under the dial, the magnitude and mel front ends' gate, and the
+device rule of the public functions (a non-tensor input goes to the card;
+without one it raises).
+
+The port's ``ZAFTPU_FFT=matmul`` turns the FFT shape rule off, so the
+tests that hold a twin at a power-of-two window against ``zaftpu``'s set
+it, as ``zaftpu``'s own engine tests do.
 
 The twins' CUDA kernels run only on the card (tests/test_torch_cuda.py and
 chip_smoke.py hold them against these plain versions there).
@@ -238,7 +245,8 @@ def test_presplit_operators_bit_equal_to_zaftpu(n):
 # ---- Each twin's plain version against zaftpu's kernel ---------------------
 
 @pytest.mark.parametrize("wl,step,t", SHAPES)
-def test_frames_rfft_split4_matches_zaftpu(wl, step, t, split4):
+def test_frames_rfft_split4_matches_zaftpu(wl, step, t, split4, monkeypatch):
+    monkeypatch.setenv("ZAFTPU_FFT", "matmul")  # B1's twin at this window
     padded = _signal(wl, step, t, 4)
     win = hamming(wl).astype(np.float32)
     ref = np.asarray(zfused.frames_rfft(
@@ -271,7 +279,11 @@ def test_frames_op_split4_matches_zaftpu(wl, step, t, split4):
 
 
 @pytest.mark.parametrize("wl,step,t", SHAPES)
-def test_frames_rfft_full_split4_matches_zaftpu(wl, step, t, split4):
+def test_frames_rfft_full_split4_matches_zaftpu(wl, step, t, split4,
+                                                monkeypatch):
+    """B3's twin against zaftpu's, and bit-equal to the mirror of B1's
+    twin (ZAFTPU_FFT=matmul: the half spectrum of the same tile)."""
+    monkeypatch.setenv("ZAFTPU_FFT", "matmul")
     padded = _signal(wl, step, t, 6)
     win = hamming(wl).astype(np.float32)
     re, im = zfused.frames_rfft_full(jnp.asarray(padded), jnp.asarray(win),
@@ -293,8 +305,11 @@ def test_frames_rfft_full_split4_matches_zaftpu(wl, step, t, split4):
 def test_frames_matmul2_matches_zaftpu(wl, step, t, dial, monkeypatch):
     """B12 under each dial: zaftpu's two-output kernel's planes, and the
     port's bit-equal to its one-output half spectrum. On the exact dial
-    these power-of-two windows take the FFT kernel's planes store."""
+    these windows take the FFT kernel's planes store; under split4
+    ZAFTPU_FFT=matmul sends them to B12's twin."""
     monkeypatch.setenv("ZAFTPU_PRECISION", dial)
+    if dial == "split4":
+        monkeypatch.setenv("ZAFTPU_FFT", "matmul")
     jax.clear_caches()
     padded = _signal(wl, step, t, 7)
     win = hamming(wl).astype(np.float32)
@@ -302,7 +317,7 @@ def test_frames_matmul2_matches_zaftpu(wl, step, t, dial, monkeypatch):
     ops, precision = zfused._dispatch_ops(zfused._rdft_ops_padded, wl)
     re, im = zfused.frames_matmul2(jnp.asarray(padded), jnp.asarray(win), ops,
                                    wl, step, t, precision, interpret=True)
-    assert trfft.applies(wl)
+    assert trfft.applies(wl) is (dial == "highest")
     plain = (tfused.frames_matmul2_split4_plain if dial == "split4"
              else trfft.frames_matmul2_fft_plain)
     calls = plain.calls
@@ -430,20 +445,20 @@ def test_float64_is_unchanged_by_the_dial(signal, monkeypatch):
 @pytest.mark.parametrize("dial", ["highest", "split4"])
 def test_levers_equal_the_default_under_each_dial(x32, lever, dial,
                                                   monkeypatch):
-    """ZAFTPU_FUSED2=1 stores the default analysis's sums under both dials,
-    and ZAFTPU_FULLSPEC=1 under split4: stft and the round trip are
-    bit-equal to the default. On the exact dial the full-spectrum kernel
-    stays a GEMM while the default at WL 2048 is the FFT kernel: there the
-    lever's spectrum sits within float32 rounding of the default's and of
-    the float64 oracle."""
+    """ZAFTPU_FUSED2=1 stores the default analysis's sums under both dials
+    (the FFT kernel's at WL 2048): stft and the round trip are bit-equal to
+    the default. The full-spectrum kernel (ZAFTPU_FULLSPEC=1) stays a GEMM
+    while the default at WL 2048 is the FFT kernel on both dials: there
+    both spectra are held against the float64 oracle instead, the lever's
+    at its dial's gate (float32 rounding on the exact dial; split4's 1e-4
+    of max and its (100, 125) dB round trip), the default's at float32
+    rounding."""
     monkeypatch.setenv("ZAFTPU_PRECISION", dial)
     x = torch.from_numpy(x32)
     win = hamming(WL)
     ref = zaftpu_torch.stft(x, win, STEP)
     monkeypatch.setenv(lever, "1")
-    counted = {"ZAFTPU_FUSED2": (tfused.frames_matmul2_split4_plain
-                                 if dial == "split4"
-                                 else trfft.frames_matmul2_fft_plain),
+    counted = {"ZAFTPU_FUSED2": trfft.frames_matmul2_fft_plain,
                "ZAFTPU_FULLSPEC": (tfused.frames_rfft_full_split4_plain
                                    if dial == "split4"
                                    else tfused.frames_rfft_full_plain)}[lever]
@@ -458,6 +473,15 @@ def test_levers_equal_the_default_under_each_dial(x32, lever, dial,
             _gemm_close(_np(got).real, oracle.real)
             _gemm_close(_np(got).imag, oracle.imag)
         _gemm_close(_np(rec), _np(ref_rec))
+        return
+    if lever == "ZAFTPU_FULLSPEC":
+        oracle = _np(zaftpu_torch.stft(x.double(), win, STEP))
+        scale = np.abs(oracle).max()
+        np.testing.assert_allclose(_np(spec), oracle, rtol=0,
+                                   atol=1e-4 * scale)  # test_pallas.py:177
+        _gemm_close(_np(ref).real, oracle.real)
+        _gemm_close(_np(ref).imag, oracle.imag)
+        assert 100.0 < snr_db(x32, _np(rec)) < 125.0
         return
     assert torch.equal(spec, ref)
     assert torch.equal(rec, ref_rec)
@@ -484,18 +508,18 @@ def test_melfuse_gate_under_split4(melfuse, wanted, monkeypatch):
         monkeypatch.delenv("ZAFTPU_MELFUSE", raising=False)
     else:
         monkeypatch.setenv("ZAFTPU_MELFUSE", melfuse)
-    for wl in (2048, 1764):
+    for wl in (2048, 1102):
         assert tmelfused.kernel_wanted(torch.float32, wl) is wanted
     # float64 never lowers, so the dial does not move it: the lever and the
     # FFT shape rule decide, as on the exact dial.
-    assert tmelfused.kernel_wanted(torch.float64, 1764) is (melfuse != "0")
+    assert tmelfused.kernel_wanted(torch.float64, 1102) is (melfuse != "0")
     assert tmelfused.kernel_wanted(torch.float64, 2048) is (melfuse == "1")
 
 
 def test_front_ends_take_the_split4_half_spectrum(x32, split4, monkeypatch):
-    """spectrogram, melspectrogram and mfcc under split4 run B1's twin
-    (once each) and agree with zaftpu's split4 outputs (its GEMM engine,
-    where the dial applies)."""
+    """spectrogram, melspectrogram and mfcc under split4 with
+    ZAFTPU_FFT=matmul run B1's twin (once each) and agree with zaftpu's
+    split4 outputs (its GEMM engine, where the dial applies)."""
     monkeypatch.setenv("ZAFTPU_FFT", "matmul")
     x = torch.from_numpy(x32)
     win = hamming(WL).astype(np.float32)
@@ -515,6 +539,78 @@ def test_front_ends_take_the_split4_half_spectrum(x32, split4, monkeypatch):
         _gemm_close(_np(mine), np.asarray(ref))
     np.testing.assert_allclose(_np(outs[2]), np.asarray(refs[2]), rtol=0,
                                atol=5e-3)  # the log domain (test_mel.py:70)
+
+
+def _outputs(x, win, fb):
+    return (zaftpu_torch.stft(x, win, STEP),
+            zaftpu_torch.spectrogram(x, win, STEP),
+            zaftpu_torch.melspectrogram(x, win, STEP, fb),
+            zaftpu_torch.mfcc(x, win, STEP, fb, 20))
+
+
+def test_split4_takes_the_fft_where_the_rule_holds(x32, monkeypatch):
+    """Under split4 without ZAFTPU_FFT=matmul, stft, spectrogram,
+    melspectrogram and mfcc at WL 2048 run the FFT kernel's plain version
+    once each and no twin: bit-equal to the exact dial's outputs, within
+    2e-6 of max of zaftpu's split4 outputs under ZAFTPU_FFT=auto (its
+    native FFT off the TPU; MFCC atol 5e-3), and the round trip, through
+    B4's twin, still in split4's (100, 125) dB."""
+    monkeypatch.delenv("ZAFTPU_FFT", raising=False)
+    x = torch.from_numpy(x32)
+    win = hamming(WL).astype(np.float32)
+    fb = zaftpu.melfilterbank(SR, WL, 40)
+    monkeypatch.setenv("ZAFTPU_PRECISION", "highest")
+    exact = _outputs(x, win, fb)
+    monkeypatch.setenv("ZAFTPU_PRECISION", "split4")
+    jax.clear_caches()
+    twins = (tfused.frames_rfft_split4_plain, tfused.frames_matmul2_split4_plain,
+             tmelfused.spec_rows_plain, tmelfused.mel_rows_split4_plain)
+    before = (trfft.frames_rfft_fft_plain.calls, *(c.calls for c in twins))
+    outs = _outputs(x, win, fb)
+    assert (trfft.frames_rfft_fft_plain.calls,
+            *(c.calls for c in twins)) == (before[0] + 4, *before[1:])
+    for got, want in zip(outs, exact):
+        assert torch.equal(got, want)
+    refs = (zaftpu.stft(x32, win, STEP), zaftpu.spectrogram(x32, win, STEP),
+            zaftpu.melspectrogram(x32, win, STEP, fb),
+            zaftpu.mfcc(x32, win, STEP, fb, 20))
+    _gemm_close(_np(outs[0]).real, np.asarray(refs[0]).real)
+    _gemm_close(_np(outs[0]).imag, np.asarray(refs[0]).imag)
+    for mine, ref in zip(outs[1:3], refs[1:3]):
+        _gemm_close(_np(mine), np.asarray(ref))
+    np.testing.assert_allclose(_np(outs[3]), np.asarray(refs[3]), rtol=0,
+                               atol=5e-3)  # the log domain (test_mel.py:70)
+    calls = tsynth.istft_ola_split4_plain.calls
+    rec = _np(zaftpu_torch.istft(outs[0], win, STEP))
+    assert tsynth.istft_ola_split4_plain.calls == calls + 1
+    assert 100.0 < snr_db(x32, rec) < 125.0
+    jax.clear_caches()
+
+
+@pytest.mark.parametrize("fused2", [False, True])
+def test_split4_off_the_rule_runs_the_twins_and_matches_zaftpu(
+        x32, fused2, split4, monkeypatch):
+    """At WL 1102 (551 = 19 * 29, the 25-ms window at 44.1 kHz) the split4
+    stft runs B1's twin, or under ZAFTPU_FUSED2=1 B12's, without the
+    lever, and agrees with zaftpu's split4 stft (its GEMM engine,
+    ZAFTPU_FFT=matmul on its side only) at 2e-6 of max."""
+    wl, step = 1102, 551
+    assert not trfft.applies(wl)
+    win = hamming(wl).astype(np.float32)
+    monkeypatch.setenv("ZAFTPU_FFT", "matmul")
+    ref = np.asarray(zaftpu.stft(x32, win, step))
+    monkeypatch.delenv("ZAFTPU_FFT")
+    if fused2:
+        monkeypatch.setenv("ZAFTPU_FUSED2", "1")
+    twin = (tfused.frames_matmul2_split4_plain if fused2
+            else tfused.frames_rfft_split4_plain)
+    calls = (twin.calls, trfft.frames_rfft_fft_plain.calls)
+    mine = zaftpu_torch.stft(torch.from_numpy(x32), win, step)
+    assert (twin.calls, trfft.frames_rfft_fft_plain.calls) == (calls[0] + 1,
+                                                               calls[1])
+    assert mine.dtype == torch.complex64 and tuple(mine.shape) == ref.shape
+    _gemm_close(_np(mine).real, ref.real)
+    _gemm_close(_np(mine).imag, ref.imag)
 
 
 @pytest.mark.parametrize("power", [False, True])

@@ -1,13 +1,16 @@
 // Framing + window + real FFT, the frames never stored:
 //   out[b, t, k] = sum_w sig[b, t*step + w] * win[w] * exp(-2 pi i k w / N)
-// for k = 0..N/2, N = WL a power of two from 16 to 4096, with two stores of
-// the same values: rfft_half writes the interleaved complex (batch, T, F)
-// half spectrum, rfft_planes the two float32 planes (2, batch, T, F), F =
-// N/2 + 1. Both run one kernel body, so they are bit-equal.
+// for k = 0..N/2, N = WL even, from 16 to 4096, with N/2 free of prime
+// factors above 7 (183 lengths: every power of two, and 400, 882, 1764,
+// 3000 ...), with two stores of the same values: rfft_half writes the
+// interleaved complex (batch, T, F) half spectrum, rfft_planes the two
+// float32 planes (2, batch, T, F), F = N/2 + 1. Both run one kernel body,
+// so they are bit-equal.
 //
 // Replaces zaftpu/pallas/fused.py: _frames_matmul_impl as frames_rfft
-// reaches it (B1) and _frames_matmul2_impl (B12) on the exact dial at those
-// window lengths; the GEMM kernels of fused.cu keep every other length and
+// reaches it (B1), its _kernel_split4 (B1-s4), _frames_matmul2_impl (B12)
+// and its _kernel2_split4 (B12-s4) on both dials at those window lengths;
+// the GEMM kernels of fused.cu and their twins keep every other length and
 // an explicit operator (kernels/fused.py states the rule). The TPU kernels
 // contract each frame with a dense (N, F) cos/sin operator on the matrix
 // unit: 4 N F FLOP per frame. Here the same sums come from an FFT, about
@@ -15,30 +18,37 @@
 // signal sample read once (4 bytes per hop) and 8 F bytes written per
 // frame, 0.095 ms at the 600-s WL 2048 shape on an H100 (3.35 TB/s).
 //
-// Design: a block of 256 threads transforms kElems = 2048 complex values at
-// once, the N/2-point complex FFTs of kElems / (N/2) consecutive frames of
-// one batch row (two frames at WL 2048, one at 4096). Frame groups ride
-// grid x and the batch grid y, so an hour-long signal fits one launch.
+// Design: a block of 256 threads transforms up to kElems = 2048 complex
+// values at once, the M-point complex FFTs (M = N/2) of fpb = kElems / M
+// (rounded down) consecutive frames of one batch row: two frames at WL 2048
+// and 1764, one at 3000 and 4096, ten at 400. Frame groups ride grid x and
+// the batch grid y, so an hour-long signal fits one launch.
 //  1. Framing: each thread reads sample pairs (2m, 2m + 1) of a frame (one
 //     8-byte load where the hop and the pointers allow), multiplies them by
 //     the window and stores z[m] = x[2m] + i x[2m+1] in shared memory:
-//     the real FFT of N as a complex FFT of N/2.
+//     the real FFT of N as a complex FFT of M.
 //  2. Stockham autosort passes between two shared-memory buffers (16 KB
-//     each), one barrier per pass: radix 4 while it fits, then one radix-2
-//     pass when log2(N/2) is odd. Pass p with sub-transform length ns reads
-//     v[s] = in[j + s * N/(2R)], multiplies v[s] (s > 0) by the twiddle
+//     each), one barrier per pass, in the plan the host gives (Plan below,
+//     kernels/rfft.radices): radix 4 while it fits in M's power-of-two
+//     part, one radix-2 pass when that part's log2 is odd, then the
+//     radix-3, -5 and -7 passes. Pass p with sub-transform length ns reads
+//     v[s] = in[j + s * M/R], multiplies v[s] (s > 0) by the twiddle
 //     W_N^(s k N/(ns R)), k = j mod ns, runs the R-point DFT and writes
-//     y[s] to out[(j - k) R + k + s ns]. After the last pass the buffer
-//     holds Z = FFT_{N/2}(z) in natural order.
-//  3. Split: X[k] = E + W_N^k O with E = (Z[k] + conj Z[N/2-k]) / 2,
-//     O = (Z[k] - conj Z[N/2-k]) / 2i, for k = 0..N/2; a warp writes
-//     consecutive bins of one frame, so both stores are coalesced.
+//     y[s] to out[(j - k) R + k + s ns]. The odd radices are direct R-point
+//     DFTs over the sums and differences of mirrored inputs, with cos and
+//     sin of 2 pi k / R read from the twiddle table (W_N^(k N/R)). After
+//     the last pass the buffer holds Z = FFT_M(z) in natural order.
+//  3. Split: X[k] = E + W_N^k O with E = (Z[k] + conj Z[(M-k) mod M]) / 2,
+//     O = (Z[k] - conj Z[(M-k) mod M]) / 2i, for k = 0..M (Z[M] read as
+//     Z[0]); a warp writes consecutive bins of one frame, so both stores
+//     are coalesced.
 // The twiddles W_N^j, j < N, are one host table (float64 math rounded once
 // to float32, kernels/rfft.py), read through the read-only cache. Every
 // product and sum is an explicitly rounded intrinsic (__fmul_rn, __fadd_rn),
 // so nothing is contracted into an FMA and the kernel does the plain
-// version's float32 operations in the plain version's order. No atomics;
-// ragged T is masked at the loads (zeros) and the stores.
+// version's float32 operations in the plain version's order. Indices are
+// integer divisions by the runtime M, q and ns. No atomics; ragged T is
+// masked at the loads (zeros) and the stores.
 #include "common.cuh"
 
 namespace {
@@ -58,29 +68,42 @@ __device__ __forceinline__ float2 cmul(float2 a, float2 w) {
                      __fadd_rn(__fmul_rn(a.x, w.y), __fmul_rn(a.y, w.x)));
 }
 
-// One radix-R Stockham pass over every frame of the block: sub-transforms
-// of length 2^log_ns grow to R times that.
+// The passes of an M-point FFT: n4 radix-4 passes, then n2 (0 or 1)
+// radix-2, n3 radix-3, n5 radix-5 and n7 radix-7 passes.
+struct Plan {
+  int n4, n2, n3, n5, n7;
+};
+
+// One radix-R Stockham pass over the fpb frames of the block (M points
+// each): sub-transforms of length ns grow to R ns.
 template <int R>
 __device__ __forceinline__ void stage(const float2* __restrict__ src,
                                       float2* __restrict__ dst,
-                                      const float2* __restrict__ tw,
-                                      int log_m, int log_ns, int log_n) {
-  constexpr int LOG_R = R == 4 ? 2 : 1;
-  const int log_q = log_m - LOG_R;       // butterflies per frame: N/2 / R
-  const int q = 1 << log_q;
-  const int ns = 1 << log_ns;
-  const int log_tw = log_n - log_ns - LOG_R;  // N / (ns R)
-  for (int b = threadIdx.x; b < kElems / R; b += blockDim.x) {
-    const int f = b >> log_q;
-    const int j = b & (q - 1);
-    const int k = j & (ns - 1);
-    const float2* in = src + (f << log_m) + j;
+                                      const float2* __restrict__ tw, int m,
+                                      int fpb, int ns, int n) {
+  const int q = m / R;             // butterflies per frame
+  const int stride = n / (ns * R);  // twiddle index step: N / (ns R)
+  // Odd R: cos and sin of 2 pi k / R, from W_N^(k N/R) = (cos, -sin).
+  float c[R], sn[R];
+  if constexpr (R % 2 == 1) {
+#pragma unroll
+    for (int k = 1; k < R; ++k) {
+      const float2 w = __ldg(tw + k * (n / R));
+      c[k] = w.x;
+      sn[k] = -w.y;
+    }
+  }
+  for (int b = threadIdx.x; b < fpb * q; b += blockDim.x) {
+    const int f = b / q;
+    const int j = b - f * q;
+    const int k = j % ns;
+    const float2* in = src + f * m + j;
     float2 v[R];
 #pragma unroll
     for (int s = 0; s < R; ++s) v[s] = in[s * q];
 #pragma unroll
     for (int s = 1; s < R; ++s) {
-      v[s] = cmul(v[s], __ldg(tw + ((s * k) << log_tw)));
+      v[s] = cmul(v[s], __ldg(tw + s * k * stride));
     }
     float2 y[R];
     if constexpr (R == 4) {
@@ -92,13 +115,59 @@ __device__ __forceinline__ void stage(const float2* __restrict__ src,
       y[1] = make_float2(__fadd_rn(t1.x, d.y), __fsub_rn(t1.y, d.x));
       y[2] = csub(t0, t2);
       y[3] = make_float2(__fsub_rn(t1.x, d.y), __fadd_rn(t1.y, d.x));
-    } else {
+    } else if constexpr (R == 2) {
       y[0] = cadd(v[0], v[1]);
       y[1] = csub(v[0], v[1]);
+    } else {
+      // a_p = v_p + v_{R-p}, b_p = v_p - v_{R-p}; y_0 = v_0 + sum a_p; for
+      // t = 1..H: A = v_0 + sum_p a_p cos(2 pi p t / R), B = sum_p b_p
+      // sin(2 pi p t / R), y_t = A - i B, y_{R-t} = A + i B; sums in p
+      // order (kernels/rfft.py: _odd_butterfly).
+      constexpr int H = (R - 1) / 2;
+      float2 a[H + 1], d[H + 1];
+#pragma unroll
+      for (int p = 1; p <= H; ++p) {
+        a[p] = cadd(v[p], v[R - p]);
+        d[p] = csub(v[p], v[R - p]);
+      }
+      y[0] = v[0];
+#pragma unroll
+      for (int p = 1; p <= H; ++p) y[0] = cadd(y[0], a[p]);
+#pragma unroll
+      for (int t = 1; t <= H; ++t) {
+        float2 sa = v[0];
+        float2 sb = make_float2(__fmul_rn(d[1].x, sn[t]),
+                                __fmul_rn(d[1].y, sn[t]));
+#pragma unroll
+        for (int p = 1; p <= H; ++p) {
+          const int kk = p * t % R;
+          sa = make_float2(__fadd_rn(sa.x, __fmul_rn(a[p].x, c[kk])),
+                           __fadd_rn(sa.y, __fmul_rn(a[p].y, c[kk])));
+          if (p > 1) {
+            sb = make_float2(__fadd_rn(sb.x, __fmul_rn(d[p].x, sn[kk])),
+                             __fadd_rn(sb.y, __fmul_rn(d[p].y, sn[kk])));
+          }
+        }
+        y[t] = make_float2(__fadd_rn(sa.x, sb.y), __fsub_rn(sa.y, sb.x));
+        y[R - t] = make_float2(__fsub_rn(sa.x, sb.y), __fadd_rn(sa.y, sb.x));
+      }
     }
-    float2* out = dst + (f << log_m) + (j - k) * R + k;
+    float2* out = dst + f * m + (j - k) * R + k;
 #pragma unroll
     for (int s = 0; s < R; ++s) out[s * ns] = y[s];
+  }
+}
+
+// `count` radix-R passes from buf[cur], one barrier after each.
+template <int R>
+__device__ __forceinline__ void passes(float2 (*buf)[kElems], int& cur,
+                                       const float2* __restrict__ tw, int m,
+                                       int fpb, int& ns, int n, int count) {
+  for (int i = 0; i < count; ++i) {
+    stage<R>(buf[cur], buf[cur ^ 1], tw, m, fpb, ns, n);
+    cur ^= 1;
+    ns *= R;
+    __syncthreads();
   }
 }
 
@@ -107,17 +176,17 @@ template <bool VEC, bool PLANES>
 __global__ void __launch_bounds__(zt::kThreads)
 rfft_kernel(const float* __restrict__ sig, const float* __restrict__ win,
             const float2* __restrict__ tw, float* __restrict__ out,
-            long long sig_len, int T, int log_n, int step) {
+            long long sig_len, int T, int n, int step, Plan plan) {
   __shared__ __align__(16) float2 buf[2][kElems];
-  const int log_m = log_n - 1;
-  const int M = 1 << log_m;
-  const int fpb = kElems >> log_m;  // frames per block
+  const int M = n / 2;
+  const int fpb = kElems / M;  // frames per block
   const long long t0 = (long long)blockIdx.x * fpb;
   const float* sb = sig + blockIdx.y * sig_len;
 
-  for (int e = threadIdx.x; e < kElems; e += blockDim.x) {
-    const int m = e & (M - 1);
-    const long long t = t0 + (e >> log_m);
+  for (int e = threadIdx.x; e < fpb * M; e += blockDim.x) {
+    const int f = e / M;
+    const int m = e - f * M;
+    const long long t = t0 + f;
     float2 v = make_float2(0.f, 0.f);
     if (t < T) {
       const float* p = sb + t * step + 2 * m;
@@ -136,17 +205,12 @@ rfft_kernel(const float* __restrict__ sig, const float* __restrict__ win,
   __syncthreads();
 
   int cur = 0;
-  int log_ns = 0;
-  for (; log_ns + 2 <= log_m; log_ns += 2) {
-    stage<4>(buf[cur], buf[cur ^ 1], tw, log_m, log_ns, log_n);
-    cur ^= 1;
-    __syncthreads();
-  }
-  if (log_ns < log_m) {
-    stage<2>(buf[cur], buf[cur ^ 1], tw, log_m, log_ns, log_n);
-    cur ^= 1;
-    __syncthreads();
-  }
+  int ns = 1;
+  passes<4>(buf, cur, tw, M, fpb, ns, n, plan.n4);
+  passes<2>(buf, cur, tw, M, fpb, ns, n, plan.n2);
+  passes<3>(buf, cur, tw, M, fpb, ns, n, plan.n3);
+  passes<5>(buf, cur, tw, M, fpb, ns, n, plan.n5);
+  passes<7>(buf, cur, tw, M, fpb, ns, n, plan.n7);
 
   const int F = M + 1;
   const long long plane = (long long)gridDim.y * T * F;
@@ -155,9 +219,9 @@ rfft_kernel(const float* __restrict__ sig, const float* __restrict__ win,
     const int k = e - f * F;
     const long long t = t0 + f;
     if (t >= T) continue;
-    const float2* z = buf[cur] + (f << log_m);
-    const float2 a = z[k & (M - 1)];
-    const float2 b = z[(M - k) & (M - 1)];
+    const float2* z = buf[cur] + f * M;
+    const float2 a = z[k == M ? 0 : k];
+    const float2 b = z[k == 0 ? 0 : M - k];
     const float2 w = __ldg(tw + k);
     const float er = __fmul_rn(__fadd_rn(a.x, b.x), 0.5f);
     const float ei = __fmul_rn(__fsub_rn(a.y, b.y), 0.5f);
@@ -177,6 +241,21 @@ rfft_kernel(const float* __restrict__ sig, const float* __restrict__ win,
   }
 }
 
+// The plan of an M-point FFT (kernels/rfft.py: radices), or false when M
+// has a prime factor above 7.
+inline bool make_plan(int m, Plan* plan) {
+  const int primes[4] = {2, 3, 5, 7};
+  int count[8] = {0};
+  for (int r : primes) {
+    while (m % r == 0) {
+      m /= r;
+      ++count[r];
+    }
+  }
+  *plan = Plan{count[2] / 2, count[2] % 2, count[3], count[5], count[7]};
+  return m == 1;
+}
+
 inline bool aligned8(const void* p) {
   return (reinterpret_cast<uintptr_t>(p) & 7u) == 0;
 }
@@ -185,10 +264,9 @@ template <bool PLANES>
 int launch(const void* sig, const void* win, const void* tw, void* out,
            int batch, long long sig_len, int T, int WL, int step,
            void* stream) {
-  int log_n = 0;
-  while ((1 << log_n) < WL) ++log_n;
-  if (WL < 16 || WL > 2 * kElems || (1 << log_n) != WL || step < 1 ||
-      step > WL || batch > 65535 || !aligned8(tw)) {
+  Plan plan;
+  if (WL < 16 || WL > 2 * kElems || WL % 2 != 0 || !make_plan(WL / 2, &plan) ||
+      step < 1 || step > WL || batch > 65535 || !aligned8(tw)) {
     return (int)cudaErrorInvalidValue;
   }
   if (T <= 0 || batch <= 0) return (int)cudaSuccess;
@@ -201,10 +279,10 @@ int launch(const void* sig, const void* win, const void* tw, void* out,
   float* y = static_cast<float*>(out);
   if (step % 2 == 0 && sig_len % 2 == 0 && aligned8(sig) && aligned8(win)) {
     rfft_kernel<true, PLANES><<<grid, zt::kThreads, 0, st>>>(
-        s, w, t, y, sig_len, T, log_n, step);
+        s, w, t, y, sig_len, T, WL, step, plan);
   } else {
     rfft_kernel<false, PLANES><<<grid, zt::kThreads, 0, st>>>(
-        s, w, t, y, sig_len, T, log_n, step);
+        s, w, t, y, sig_len, T, WL, step, plan);
   }
   return (int)cudaGetLastError();
 }
@@ -213,8 +291,9 @@ int launch(const void* sig, const void* win, const void* tw, void* out,
 
 // sig: (batch, sig_len) with sig_len >= (T - 1) * step + WL; win: (WL,);
 // tw: (WL, 2) float32, W_WL^j = (cos, sin)(-2 pi j / WL), 8-byte aligned;
-// out: (batch, T, WL/2 + 1) complex64 as float pairs. WL a power of two in
-// [16, 4096], step in [1, WL]. All contiguous.
+// out: (batch, T, WL/2 + 1) complex64 as float pairs. WL even in [16, 4096]
+// with no prime factor above 7 in WL/2, step in [1, WL]; any other WL
+// returns cudaErrorInvalidValue before a launch. All contiguous.
 ZT_EXPORT int zt_rfft_half(const void* sig, const void* win, const void* tw,
                            void* out, int batch, long long sig_len, int T,
                            int WL, int step, void* stream) {

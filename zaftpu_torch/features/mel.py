@@ -8,8 +8,8 @@ orthonormal DCT-II over the mel axis (the reference's
 matrix too.
 
 On a CUDA float32 signal ``melspectrogram`` and ``mfcc`` take the half
-spectrum from the analysis dispatch, ``|·|`` and the filterbank GEMM at a
-power-of-two window (the real-FFT kernel's), and the one-pass mel kernel
+spectrum from the analysis dispatch, ``|·|`` and the filterbank GEMM where
+the real-FFT kernel's shape rule holds, and the one-pass mel kernel
 (framing, rDFT, magnitude or power, filterbank GEMM;
 :mod:`zaftpu_torch.kernels.melfused`) at any other; ``ZAFTPU_MELFUSE=1``
 forces the kernel and ``ZAFTPU_MELFUSE=0`` the half spectrum. The

@@ -6,7 +6,7 @@ machinery: a CPU tensor always takes the kernels' plain PyTorch versions,
 and a CUDA tensor always launches a kernel or raises. No path catches a
 kernel failure and carries on.
 
-Six levers choose the kernels, with ``zaftpu``'s names and meaning:
+Seven levers choose the kernels, with ``zaftpu``'s names and meaning:
 
 * ``ZAFTPU_FUSED=0``: framing kernel + ``torch.matmul`` GEMM instead of
   the fused analysis kernels (STFT and MDCT);
@@ -25,23 +25,30 @@ Six levers choose the kernels, with ``zaftpu``'s names and meaning:
   instead of the complex-store one; off by default, equal values;
 * ``ZAFTPU_MIRROR=pallas``: the STFT's conjugate mirror and the ISTFT's
   Hermitian fold run as kernels (:mod:`zaftpu_torch.kernels.mirror`)
-  instead of PyTorch index ops; off by default.
+  instead of PyTorch index ops; off by default;
+* ``ZAFTPU_FFT=matmul``: the DFT as a GEMM at every window, which turns
+  the shape rule below off (``auto``, the default, and ``native`` follow
+  it); ``zaftpu``'s FFT-engine lever.
 
-The first two default to the fused kernels, the last three to off.
+The first two default to the fused kernels, ``ZAFTPU_MELFUSE`` and
+``ZAFTPU_FFT`` to the shape rule, the other three to off.
 
-On the exact dial the half-spectrum analysis (``fused.frames_rfft`` and
-``fused.frames_matmul2``) follows a shape rule: a power-of-two window
-length from 16 to 4096 takes the real-FFT kernel
-(:mod:`zaftpu_torch.kernels.rfft`), any other length the GEMM kernel. The
-magnitude and mel front ends follow it too: at such a window they take
-the FFT's half spectrum unless ``ZAFTPU_MELFUSE=1`` forces their kernels
+On both dials the half-spectrum analysis (``fused.frames_rfft`` and
+``fused.frames_matmul2``) follows a shape rule (``rfft.applies``): an even
+window length from 16 to 4096 whose half has no prime factor above 7
+takes the real-FFT kernel (:mod:`zaftpu_torch.kernels.rfft`), any other
+length the GEMM kernel or, under split4, its twin. The magnitude and mel
+front ends follow it too: at such a window they take the FFT's half
+spectrum unless ``ZAFTPU_MELFUSE=1`` forces their kernels
 (``melfused.kernel_wanted``).
 
 One dial sets the arithmetic, ``ZAFTPU_PRECISION``
 (:mod:`zaftpu_torch.core.policy`): ``highest`` (default) runs the exact
-FP32 kernels; ``split4`` runs every float32 analysis and synthesis kernel
-above as its split4 twin (four bf16 passes on the tensor cores, float32
-sums) and the split dispatch's wide GEMMs as ``policy.split4_matmul``.
+FP32 kernels; ``split4`` runs every float32 GEMM analysis and synthesis
+kernel above as its split4 twin (four bf16 passes on the tensor cores,
+float32 sums) and the split dispatch's wide GEMMs as
+``policy.split4_matmul``; the real-FFT kernel, exact and faster than the
+twins, serves both dials wherever the shape rule holds.
 Under split4 the magnitude and mel front ends take the half spectrum of
 the analysis kernel unless ``ZAFTPU_MELFUSE=1`` forces their kernels (the
 exact ``spec_rows``, the mel kernel's twin), as in ``zaftpu``. ``high`` and

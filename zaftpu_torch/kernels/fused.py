@@ -10,18 +10,19 @@ twin ``_frames_matmul2_impl`` (``frames_matmul2``, both components as
 float32 planes; ``ZAFTPU_FUSED2=1``). One launch computes every component
 from the same frame tile.
 
-On the exact dial ``frames_rfft`` and ``frames_matmul2`` follow a shape
-rule (:func:`zaftpu_torch.kernels.rfft.applies`): at a power-of-two window
-length from 16 to 4096, with no explicit ``ops``, they take the real-FFT
-kernel of :mod:`zaftpu_torch.kernels.rfft` (``csrc/rfft.cu``), which
-computes the same half spectrum with an FFT; every other window length,
-and an explicit operator, keeps the GEMM kernels below. The rule is a
-dispatch, not a fallback: a CUDA tensor launches the kernel it picks or
+On both dials ``frames_rfft`` and ``frames_matmul2`` follow a shape rule
+(:func:`zaftpu_torch.kernels.rfft.applies`): at an even window length from
+16 to 4096 whose half has no prime factor above 7, with no explicit
+``ops`` and ``ZAFTPU_FFT`` not ``matmul``, they take the real-FFT kernel of
+:mod:`zaftpu_torch.kernels.rfft` (``csrc/rfft.cu``), which computes the
+same half spectrum with an FFT; every other window length, an explicit
+operator and ``ZAFTPU_FFT=matmul`` keep the GEMM kernels below. The rule is
+a dispatch, not a fallback: a CUDA tensor launches the kernel it picks or
 raises.
 
-Under ``ZAFTPU_PRECISION=split4`` (float32 only) each of them launches its
-split4 twin instead, the port of the ``_kernel_split4`` bodies: the frames
-split into bf16 hi/lo in the kernel, the operator presplit on the host
+Under ``ZAFTPU_PRECISION=split4`` (float32 only) each GEMM kernel launches
+its split4 twin instead, the port of the ``_kernel_split4`` bodies: the
+frames split into bf16 hi/lo in the kernel, the operator presplit on the host
 (:func:`dispatch_ops`), four bf16 passes on the tensor cores with float32
 sums (``csrc/frames_gemm_split4.cuh``). The exact kernels are
 FP32-compute-bound (``csrc/frames_gemm.cuh``). Every kernel has a plain
@@ -169,22 +170,22 @@ def frames_rfft(padded: torch.Tensor, window: torch.Tensor,
     GEMM kernel, since an explicit operator names the GEMM at any window.
 
     ``ZAFTPU_FUSED2=1`` takes :func:`frames_matmul2` and forms the complex
-    result, as ``zaftpu`` does; split4 (float32) takes
-    :func:`frames_rfft_split4`; otherwise the shape rule
+    result, as ``zaftpu`` does; the shape rule
     (:func:`zaftpu_torch.kernels.rfft.applies`) takes
-    :func:`zaftpu_torch.kernels.rfft.frames_rfft_fft`. A CPU tensor takes
-    the plain version; a CUDA tensor launches the kernel (leading axes
-    flattened into its batch) or raises.
+    :func:`zaftpu_torch.kernels.rfft.frames_rfft_fft` on either dial;
+    elsewhere split4 (float32) takes :func:`frames_rfft_split4`. A CPU
+    tensor takes the plain version; a CUDA tensor launches the kernel
+    (leading axes flattened into its batch) or raises.
     """
     if fused2_enabled():
         return torch.complex(*frames_matmul2(padded, window, window_length,
                                              step, number_times, ops))
-    if split4_applies(padded.dtype):
-        return frames_rfft_split4(padded, window, window_length, step,
-                                  number_times, ops)
     if _rfft.applies(window_length, ops):
         return _rfft.frames_rfft_fft(padded, window, window_length, step,
                                      number_times)
+    if split4_applies(padded.dtype):
+        return frames_rfft_split4(padded, window, window_length, step,
+                                  number_times, ops)
     if not padded.is_cuda:
         return frames_rfft_plain(padded, window, window_length, step,
                                  number_times, ops)
@@ -389,19 +390,19 @@ def frames_matmul2(padded: torch.Tensor, window: torch.Tensor,
     """Fused windowed-frames rDFT as two float32 planes ``(re, im)``, each
     ``(..., T, WL/2+1)``, from one launch (``zaftpu``'s
     ``frames_matmul2``, sliced to the valid bins). ``ops`` as for
-    :func:`frames_rfft`; split4 (float32) takes
-    :func:`frames_matmul2_split4`, the shape rule
-    :func:`zaftpu_torch.kernels.rfft.frames_matmul2_fft`.
+    :func:`frames_rfft`; the shape rule takes
+    :func:`zaftpu_torch.kernels.rfft.frames_matmul2_fft` on either dial,
+    elsewhere split4 (float32) :func:`frames_matmul2_split4`.
 
     A CPU tensor takes the plain version; a CUDA tensor launches the kernel
     (leading axes flattened into its batch) or raises.
     """
-    if split4_applies(padded.dtype):
-        return frames_matmul2_split4(padded, window, window_length, step,
-                                     number_times, ops)
     if _rfft.applies(window_length, ops):
         return _rfft.frames_matmul2_fft(padded, window, window_length, step,
                                         number_times)
+    if split4_applies(padded.dtype):
+        return frames_matmul2_split4(padded, window, window_length, step,
+                                     number_times, ops)
     if not padded.is_cuda:
         return frames_matmul2_plain(padded, window, window_length, step,
                                     number_times, ops)

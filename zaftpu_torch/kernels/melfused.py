@@ -11,7 +11,7 @@ the last ulp. The filterbank GEMM is full FP32, as ``zaftpu`` runs it at
 HIGHEST in every precision mode.
 
 The front ends take these kernels at the window lengths the real-FFT
-kernel does not cover (:func:`kernel_wanted`); at a power-of-two window
+kernel does not cover (:func:`kernel_wanted`); where its shape rule holds
 they take its half spectrum, ``|·|`` and the filterbank product, unless
 ``ZAFTPU_MELFUSE=1`` forces the kernels.
 
@@ -55,8 +55,9 @@ def kernel_wanted(dtype: torch.dtype, window_length: int) -> bool:
     """Take the one-pass kernels for a ``dtype`` signal framed at
     ``window_length``? ``ZAFTPU_MELFUSE=1`` forces them and ``0`` refuses
     them (``zaftpu``'s A/B lever). Otherwise no where split4 applies
-    (float32; ``zaftpu``'s gate, melfused.py:87-95: the split4 half
-    spectrum carries the front ends) or where the FFT shape rule
+    (float32; ``zaftpu``'s gate, melfused.py:87-95: the split4 dial's half
+    spectrum carries the front ends, the FFT's where the shape rule holds
+    and B1's twin elsewhere) or where the FFT shape rule
     (:func:`zaftpu_torch.kernels.rfft.applies`) gives the half spectrum:
     these kernels run B1's GEMM tile, and the FFT's half spectrum with
     ``|·|`` and one filterbank product is 6.7 to 9 times faster on an H100

@@ -10,16 +10,19 @@ each frame with a dense cos/sin operator; this one runs an FFT, so it is
 bound by its bytes, not by FP32 arithmetic.
 
 :func:`applies` is the shape rule that :mod:`zaftpu_torch.kernels.fused`
-uses to send the exact dial here: a window length that is a power of two
-from :data:`MIN_WINDOW` to :data:`MAX_WINDOW` and no explicit operator. The
-plain version repeats the kernel's arithmetic (the same even/odd packing,
-radix-4/radix-2 Stockham passes in the same order, the same twiddle table,
-the same split step), operation by operation, so the CPU tests exercise the
-kernel's indexing and the kernel equals it on the card.
+uses to send both dials here: an even window length from
+:data:`MIN_WINDOW` to :data:`MAX_WINDOW` whose half has no prime factor
+above 7 (:func:`fits`), no explicit operator, and ``ZAFTPU_FFT`` not set to
+``matmul``. The plain version repeats the kernel's arithmetic (the same
+even/odd packing, the same mixed-radix Stockham passes in the same order,
+the same twiddle table, the same split step), operation by operation, so
+the CPU tests exercise the kernel's indexing and the kernel equals it on
+the card.
 """
 
 from __future__ import annotations
 
+import os
 from functools import lru_cache
 
 import numpy as np
@@ -40,13 +43,32 @@ MIN_WINDOW = 16
 MAX_WINDOW = 4096
 
 
+def fits(window_length: int) -> bool:
+    """Does the kernel take this window length? An even ``N`` in
+    ``[MIN_WINDOW, MAX_WINDOW]`` whose half ``N/2`` has no prime factor
+    above 7. The CUDA entry accepts exactly this set."""
+    n = int(window_length)
+    if n % 2 or not MIN_WINDOW <= n <= MAX_WINDOW:
+        return False
+    m = n // 2
+    for p in (2, 3, 5, 7):
+        while m % p == 0:
+            m //= p
+    return m == 1
+
+
 def applies(window_length: int, ops=None) -> bool:
     """The shape rule: the FFT kernel computes the half spectrum when the
-    window length is a power of two in ``[MIN_WINDOW, MAX_WINDOW]`` and no
-    operator is given (an explicit ``ops`` names the GEMM kernels)."""
-    n = int(window_length)
-    return (ops is None and MIN_WINDOW <= n <= MAX_WINDOW
-            and n & (n - 1) == 0)
+    window length :func:`fits` and no operator is given (an explicit
+    ``ops`` names the GEMM kernels), unless ``ZAFTPU_FFT=matmul``.
+
+    ``ZAFTPU_FFT`` is ``zaftpu``'s FFT-engine lever with its meaning
+    (zaftpu/core/fft.py: engine_selected): ``matmul`` runs the DFT as a
+    GEMM everywhere, so here it turns the rule off and the GEMM kernels
+    (their split4 twins under split4) take every window; ``auto`` (the
+    default) and ``native`` follow the rule."""
+    return (ops is None and os.environ.get("ZAFTPU_FFT", "auto") != "matmul"
+            and fits(window_length))
 
 
 @lru_cache(maxsize=8)
@@ -63,10 +85,48 @@ def twiddles(n: int, dtype: torch.dtype, device) -> torch.Tensor:
 
 
 def radices(m: int) -> tuple:
-    """The Stockham passes of an ``m``-point complex FFT: radix 4 while it
-    fits, then one radix-2 pass when ``log2 m`` is odd."""
-    log_m = m.bit_length() - 1
-    return (4,) * (log_m // 2) + (2,) * (log_m % 2)
+    """The Stockham passes of an ``m``-point complex FFT, ``m`` 7-smooth:
+    radix 4 while it fits in the power-of-two part, one radix-2 pass when
+    that part's log2 is odd, then the 3s, 5s and 7s. A power of two keeps
+    the radix-4/radix-2 plan alone."""
+    plan = []
+    for r in (2, 3, 5, 7):
+        while m % r == 0:
+            m //= r
+            plan.append(r)
+    if m != 1:
+        raise ValueError("radices: the length has a prime factor above 7")
+    twos = plan.count(2)
+    return (4,) * (twos // 2) + (2,) * (twos % 2) + tuple(plan[twos:])
+
+
+def _odd_butterfly(vr, vi, c, s):
+    """The direct ``r``-point DFT of ``r`` odd inputs, ``r = len(vr)``:
+    with ``a_p = v_p + v_{r-p}``, ``b_p = v_p - v_{r-p}`` (``p = 1..h``,
+    ``h = (r-1)/2``), ``y_0 = v_0 + a_1 + ... + a_h`` and, for ``t = 1..h``,
+    ``A = v_0 + sum_p a_p cos(2 pi p t / r)``, ``B = sum_p b_p sin(2 pi p t
+    / r)``, ``y_t = A - i B``, ``y_{r-t} = A + i B``; sums left to right.
+    ``c[k]``, ``s[k]`` are cos and sin of ``2 pi k / r``."""
+    r = len(vr)
+    h = (r - 1) // 2
+    ar = [None] + [vr[p] + vr[r - p] for p in range(1, h + 1)]
+    ai = [None] + [vi[p] + vi[r - p] for p in range(1, h + 1)]
+    br = [None] + [vr[p] - vr[r - p] for p in range(1, h + 1)]
+    bi = [None] + [vi[p] - vi[r - p] for p in range(1, h + 1)]
+    yr, yi = [vr[0]] + [None] * (r - 1), [vi[0]] + [None] * (r - 1)
+    for p in range(1, h + 1):
+        yr[0], yi[0] = yr[0] + ar[p], yi[0] + ai[p]
+    for t in range(1, h + 1):
+        sa_r, sa_i = vr[0], vi[0]
+        sb_r, sb_i = br[1] * s[t], bi[1] * s[t]
+        for p in range(1, h + 1):
+            k = p * t % r
+            sa_r, sa_i = sa_r + ar[p] * c[k], sa_i + ai[p] * c[k]
+            if p > 1:
+                sb_r, sb_i = sb_r + br[p] * s[k], sb_i + bi[p] * s[k]
+        yr[t], yi[t] = sa_r + sb_i, sa_i - sb_r
+        yr[r - t], yi[r - t] = sa_r - sb_i, sa_i + sb_r
+    return yr, yi
 
 
 def _stage(re, im, tw_re, tw_im, n, ns, r):
@@ -74,7 +134,9 @@ def _stage(re, im, tw_re, tw_im, n, ns, r):
     sub-transforms of length ``ns`` growing to ``ns * r``): ``csrc/rfft.cu``
     ``stage``, vectorised. Input ``s`` is the slice ``[s q, (s+1) q)``;
     output ``s`` of butterfly ``j`` lands at ``(j - k) r + k + s ns``, which
-    is the stack of the outputs along a new axis before the last ``ns``."""
+    is the stack of the outputs along a new axis before the last ``ns``.
+    An odd ``r`` takes its constants from the twiddle table:
+    ``W_N^(k N/r) = (cos, -sin)(2 pi k / r)``."""
     *lead, m = re.shape
     q = m // r
     vr = [re[..., s * q:(s + 1) * q].reshape(*lead, q // ns, ns)
@@ -93,9 +155,13 @@ def _stage(re, im, tw_re, tw_im, n, ns, r):
         dr, di = vr[1] - vr[3], vi[1] - vi[3]  # t3 = -i d
         yr = (t0r + t2r, t1r + di, t0r - t2r, t1r - di)
         yi = (t0i + t2i, t1i - dr, t0i - t2i, t1i + dr)
-    else:
+    elif r == 2:
         yr = (vr[0] + vr[1], vr[0] - vr[1])
         yi = (vi[0] + vi[1], vi[0] - vi[1])
+    else:
+        idx = [j * (n // r) for j in range(r)]
+        yr, yi = _odd_butterfly(vr, vi, [tw_re[j] for j in idx],
+                                [-tw_im[j] for j in idx])
     return (torch.stack(yr, dim=-2).reshape(*lead, m),
             torch.stack(yi, dim=-2).reshape(*lead, m))
 
@@ -152,7 +218,7 @@ def frames_rfft_fft(padded: torch.Tensor, window: torch.Tensor,
                     number_times: int) -> torch.Tensor:
     """Windowed-frames real FFT: the ``(..., T, WL/2+1)`` complex half
     spectrum of a padded signal ``(..., L)``, the frames never stored, for
-    a power-of-two ``window_length`` in ``[16, 4096]``.
+    a ``window_length`` that :func:`fits`.
 
     A CPU tensor takes the plain version; a CUDA tensor launches the kernel
     (leading axes flattened into its batch) or raises.
@@ -186,9 +252,10 @@ def _launch(name: str, planes: bool, padded: torch.Tensor,
     """Check a CUDA input and launch the half (complex) or planes store."""
     check_frame_args(name, padded, window, window_length, step,
                      number_times)
-    if not applies(window_length):
-        raise ValueError(f"{name}: window_length must be a power of two in "
-                         f"[{MIN_WINDOW}, {MAX_WINDOW}], got {window_length}")
+    if not fits(window_length):
+        raise ValueError(f"{name}: window_length must be even, in "
+                         f"[{MIN_WINDOW}, {MAX_WINDOW}], with no prime factor "
+                         f"above 7 in its half, got {window_length}")
     wl, t, f = window_length, number_times, window_length // 2 + 1
     length = padded.shape[-1]
     lead = padded.shape[:-1]

@@ -4,12 +4,14 @@ Semantics match ``zaftpu.transforms.stft`` and the reference
 (zaf.py:45-243): the same centering pad and frame count, the full complex
 ``(window_length, number_times)`` output with DC and mirrored bins, and the
 COLA-normalized inverse. On a CUDA float32 signal the analysis runs the
-fused framing + window + real-FFT kernel at a power-of-two window (16 to
-4096) and the fused framing + window + DFT-GEMM kernel at any other, and
-the synthesis the fused inverse GEMM + overlap-add kernel
-(:mod:`zaftpu_torch.kernels`), or under ``ZAFTPU_PRECISION=split4`` their
-split4 twins; the spectrogram takes that half spectrum and ``|·|`` at a
-power-of-two window and the one-pass magnitude kernel at any other
+fused framing + window + real-FFT kernel at an even window from 16 to 4096
+whose half has no prime factor above 7 (the shape rule,
+``kernels/rfft.applies``) and the fused framing + window + DFT-GEMM kernel
+at any other, and the synthesis the fused inverse GEMM + overlap-add kernel
+(:mod:`zaftpu_torch.kernels`); under ``ZAFTPU_PRECISION=split4`` the
+synthesis and the GEMM analysis run their split4 twins, the FFT stays. The
+spectrogram takes that half spectrum and ``|·|`` where the rule holds and
+the one-pass magnitude kernel at any other window
 (:mod:`zaftpu_torch.kernels.melfused`). ``ZAFTPU_MIRROR=pallas`` moves the
 conjugate mirror and the Hermitian fold into kernels, bit-equal to the
 default; ``ZAFTPU_FULLSPEC=1`` writes the full spectrum from the GEMM
