@@ -10,7 +10,7 @@ non-zero exit and no result line:
 
 1. device: the card's name and power limit (as nvidia-smi gives them),
    torch and CUDA versions; TF32 off for matmuls and cuDNN;
-2. build: the twenty-three kernels from zaftpu_torch/csrc (one nvcc per
+2. build: the twenty-four kernels from zaftpu_torch/csrc (one nvcc per
    source, all started together), with the seconds taken;
 3. kernels: each kernel against its plain PyTorch version on the card at
    its main-path shape (WL 2048, hop 1024, a 600-s segment: T = 25,841;
@@ -26,32 +26,39 @@ non-zero exit and no result line:
    hop does not divide WL (3 rows, WL 512 / hop 100 and WL 400 / hop 160,
    T 1,001), and at the 40-ms window (WL 1,764, hop 882, T 30,001: radices
    2, 3, 3, 7, 7), timed beside torch.stft and the GEMM B1 with its
-   operator in the same call. The GEMM B1 and B12 and the twins B1-s4 and
-   B12-s4 take their main-path shape from the 25-ms window the FFT rule
-   leaves to them (WL 1,102 = 2 * 19 * 29, hop 551, a 600-s segment: T =
-   48,023, no operator), a ragged one at WL 1,102 / hop 300, and WL 2048
-   and WL 512 with their operator given (which names the GEMM); the mel
-   kernels also past the old shared-memory limit (800 mels at WL 2048).
-   Framing, OLA, mirror and fold must be bit-equal, the FFT
-   kernel within 1e-6 * max|ref| (it does its plain version's operations
-   in its order), the GEMM kernels within 2e-5 * max|ref|, and the kernels
-   that only store another's sums elsewhere (B3, B12, their twins and the
-   FFT's planes store) bit-equal to it (with the mirror); median times of
+   operator in the same call. The inverse real-FFT kernel (B4 and B4-s4 at
+   those windows) likewise at its main-path shape, at WL 4,096 / hop 256
+   (K = 16), 3 rows of WL 400 / hop 160 and 2 rows of WL 3,000 / hop 1,000,
+   and at the 40-ms window, timed beside torch.istft, B4 with its operator
+   and B4-s4 in the same call, and at WL 2048 beside them too; it prints
+   the frames it transforms per output frame. The GEMM B1, B12 and B4 and
+   the twins B1-s4, B12-s4 and B4-s4 take their main-path shape from the
+   25-ms window the FFT rule leaves to them (WL 1,102 = 2 * 19 * 29, hop
+   551, a 600-s segment: T = 48,023, no operator), a ragged one at WL
+   1,102 / hop 300, and WL 2048 and WL 512 with their operator given (which
+   names the GEMM); the mel kernels also past the old shared-memory limit
+   (800 mels at WL 2048). Framing, OLA, mirror and fold must be bit-equal,
+   the FFT kernels within 1e-6 * max|ref| (they do their plain versions'
+   operations in their order), the GEMM kernels within 2e-5 * max|ref|,
+   and the kernels that only store another's sums elsewhere (B3, B12,
+   their twins and the FFT's planes store) bit-equal to it (with the
+   mirror); median times of
    kernel and plain version at the main-path shape (CUDA events), and of
    one PyTorch call computing the same function where there is one
    (torch.stft for B1, B3, B12, their twins and the FFT kernel, fold for
-   the OLA, torch.istft of a ones window times WL / hop / gain for B4 and
-   its twin, held against B4 away from the first and last WL samples);
+   the OLA, torch.istft of a ones window times WL / hop / gain for B4, its
+   twin and the inverse FFT kernel, held against the kernel away from the
+   first and last WL samples);
    each kernel's bound, the least time the card could take, from its
    inputs;
 4. STFT main path, default dispatch: stft -> istft of a 600-s signal with
    the periodic Hamming window; the spectrum against a float64 torch.fft
    oracle (<= 1e-5 * max|oracle|), the round-trip SNR (>= 120 dB), and
-   launch counts showing the FFT analysis and the fused synthesis kernel
+   launch counts showing the FFT analysis and the inverse FFT synthesis
    ran and no plain version did; then the same with the 40-ms window (WL
-   1,764, hop 882; the FFT kernel) and the 25-ms window (WL 1,102, hop
-   551), which the shape rule sends to the GEMM B1, and under
-   ZAFTPU_FUSED2=1 to the GEMM B12;
+   1,764, hop 882; the FFT kernels) and the 25-ms window (WL 1,102, hop
+   551), which the shape rule sends to the GEMM B1 and B4, and under
+   ZAFTPU_FUSED2=1 to the GEMM B12 and B4;
 5. STFT main path, split dispatch (ZAFTPU_FUSED=0 ZAFTPU_SYNTH=0): the
    same checks, with the framing and OLA kernels;
 6. MDCT main path: mdct -> imdct of the 600-s signal with vorbis(2048),
@@ -76,26 +83,28 @@ non-zero exit and no result line:
    <= 1e-5 * max|oracle|), with launch counts showing which kernel ran and
    that no plain version did;
 9. split4 main path (ZAFTPU_PRECISION=split4): stft -> istft and mdct ->
-   imdct of the 600-s signal; at WL 2048 the FFT kernel computes the
-   spectrum (within 1e-5 * max of the float64 oracle) and B4's twin the
-   round trip, the coefficients within 1e-4 * max, the round trips in
-   [100, 125) dB, and launch counts showing which kernels ran and that no
-   exact GEMM kernel or plain version did; stft -> istft at WL 1,102 (B1's
-   twin, B12's under ZAFTPU_FUSED2=1) and at WL 2048 under
-   ZAFTPU_FFT=matmul (B1's twin) within 1e-4 * max; then the mel phase
+   imdct of the 600-s signal; at WL 2048 and 1,764 the FFT kernels compute
+   the spectrum and the round trip under the exact gates (1e-5 * max of
+   the float64 oracle, >= 120 dB), the coefficients within 1e-4 * max and
+   the MDCT round trip in [100, 125) dB, and launch counts showing which
+   kernels ran and that no exact GEMM kernel or plain version did; stft ->
+   istft at WL 1,102 (B1's and B4's twins, B12's under ZAFTPU_FUSED2=1) and
+   at WL 2048 under ZAFTPU_FFT=matmul (B1's and B4's twins) within 1e-4 *
+   max, round trips in [100, 125) dB; then the mel phase
    under split4 (the FFT's half spectrum) and with ZAFTPU_MELFUSE=1:
    melspectrogram and mfcc through the mel kernel's twin (within 1e-4 *
    max; MFCC atol 5e-3), spectrogram through the exact spec_rows (1e-5 *
    max);
 10. levers: stft -> istft of the 600-s signal under ZAFTPU_MIRROR=pallas
-   (fused_fft, mirror_full_planes, fold_half_planes, synth),
-   ZAFTPU_FULLSPEC=1 (frames_rfft_full, synth) and ZAFTPU_FUSED2=1
-   (frames_matmul2_fft, synth), then under split4 with ZAFTPU_FUSED2=1
-   (frames_matmul2_fft, synth_split4) and ZAFTPU_FULLSPEC=1
-   (frames_rfft_full_split4, synth_split4): spectrum and round trip
+   (fused_fft, mirror_full_planes, fold_half_planes, synth_fft),
+   ZAFTPU_FULLSPEC=1 (frames_rfft_full, synth_fft) and ZAFTPU_FUSED2=1
+   (frames_matmul2_fft, synth_fft), then under split4 with ZAFTPU_FUSED2=1
+   (frames_matmul2_fft, synth_fft) and ZAFTPU_FULLSPEC=1
+   (frames_rfft_full_split4, synth_fft): spectrum and round trip
    bit-equal to those of the same dial without the lever where both share
    a tile (all but ZAFTPU_FULLSPEC=1, whose GEMM B3 or its twin stands
-   beside the default FFT kernel), and that dial's oracle and SNR gates;
+   beside the default FFT kernel), and the exact gates (split4's for B3's
+   twin);
 11. one hour: six 600-s segments through stft, then istft (also at the
    40-ms window on the default dispatch); mdct, then
    imdct; spectrogram; melspectrogram; mfcc, under the default, the split
@@ -130,8 +139,8 @@ from zaftpu_torch.core import fft, policy
 from zaftpu_torch.core.frame import stft_padding
 from zaftpu_torch.core.windows import hamming, vorbis
 from zaftpu_torch.features.mel import dct_ii_ortho_matrix, melfilterbank
-from zaftpu_torch.kernels import (_build, cqtslab, framing, fused, melfused,
-                                  mirror, ola, rfft, synth)
+from zaftpu_torch.kernels import (_build, cqtslab, framing, fused, irfft,
+                                  melfused, mirror, ola, rfft, synth)
 from zaftpu_torch.transforms import cqt as tcqt
 from zaftpu_torch.transforms import mdct as tmdct
 
@@ -156,6 +165,10 @@ GEMM_WL = 1102
 GEMM_RAGGED = (GEMM_WL, 300, 1001)
 GEMM_KERNELS = ("fused", "frames_matmul2")  # the GEMM B1 and B12
 TWIN_KERNELS = ("fused_split4", "frames_matmul2_split4")  # B1-s4, B12-s4
+SYNTH_GEMMS = ("synth", "synth_split4")  # B4, B4-s4
+# The inverse FFT kernel's other shapes: WL, hop, T, batch rows (K = 16, a
+# mixed-radix window whose hop does not divide it, one frame per block).
+IFFT_RAGGED = ((4096, 256, 1001, 1), (400, 160, 1001, 3), (3000, 1000, 301, 2))
 # Whisper's front end: 16 kHz, Hann 400 / hop 160 (25 ms / 10 ms), 80 mels.
 WHISPER = MelConfig(sampling_frequency=16000, window_length=400,
                     step_length=160, number_mels=80, window="hann")
@@ -237,6 +250,9 @@ KERNELS = {
                               fused.frames_matmul2_split4_plain),
     "synth_split4": (synth.CUDA_SOURCE, synth.REPLACES_SPLIT4,
                      synth.istft_ola_split4, synth.istft_ola_split4_plain),
+    "synth_fft": (irfft.CUDA_SOURCE,
+                  f"{irfft.REPLACES} and {irfft.REPLACES_SPLIT4}",
+                  irfft.istft_ola_fft, irfft.istft_ola_fft_plain),
     "imdct_ola_split4": (synth.CUDA_SOURCE, synth.REPLACES_SPLIT4,
                          synth.imdct_ola_split4,
                          synth.imdct_ola_split4_plain),
@@ -314,22 +330,25 @@ def _kernel_inputs(wl: int, step: int, t: int, dev) -> dict:
     signal for the analysis kernels (with the operator for the GEMM B1,
     B3 and B12 and the twins of B1 and B12, which an explicit operator
     selects at a window the FFT rule covers), real frames for the OLA,
-    folded planes of a real spectrum for the synthesis kernel."""
+    folded planes of a real spectrum for the synthesis kernels (with the
+    operator for B4, which an explicit operator selects at a window the FFT
+    rule covers)."""
     sig = np.resize(segment(0), (t - 1) * step + wl).astype(np.float32)
     padded = torch.from_numpy(sig).to(dev)
     win = torch.from_numpy(hamming(wl).astype(np.float32)).to(dev)
     frames = framing.frame_window_plain(padded, win, wl, step, t)
     half = fused.frames_rfft_plain(padded, win, wl, step, t)
     spec = fft.conjugate_mirror(half, wl)
-    h_re, h_im = fft.hermitian_fold_planes(spec.real, spec.imag, wl)
-    scale = 1.0 / float(hamming(wl)[::step].sum())
+    h_re, h_im, scale = _folded(half, wl, step)
     analysis = (padded, win, wl, step, t)
     gemm = (*analysis, fused.rdft_ops(wl, torch.float32, dev))
     return {
         "fused": (gemm, GEMM_TOL),
         "fused_fft": (analysis, FFT_TOL),
         "frames_matmul2_fft": (analysis, FFT_TOL),
-        "synth": ((h_re, h_im, wl, step, scale), GEMM_TOL),
+        "synth": ((h_re, h_im, wl, step, scale,
+                   synth.istft_ops(wl, scale, torch.float32, dev)), GEMM_TOL),
+        "synth_fft": ((h_re, h_im, wl, step, scale), FFT_TOL),
         "framing": (analysis, EXACT_TOL),
         "ola": ((frames.contiguous(), step), EXACT_TOL),
         "mirror_full_planes": ((half, wl), EXACT_TOL),
@@ -341,6 +360,39 @@ def _kernel_inputs(wl: int, step: int, t: int, dev) -> dict:
         "frames_matmul2_split4": (gemm, GEMM_TOL),
         "synth_split4": ((h_re, h_im, wl, step, scale), GEMM_TOL),
     }
+
+
+def _folded(half: torch.Tensor, wl: int, step: int) -> tuple:
+    """The Hermitian-folded planes of a half spectrum's full spectrum, as
+    istft hands them to the synthesis kernels, and the COLA 1/gain of the
+    Hamming window at this hop."""
+    spec = fft.conjugate_mirror(half, wl)
+    h_re, h_im = fft.hermitian_fold_planes(spec.real, spec.imag, wl)
+    return h_re, h_im, 1.0 / float(hamming(wl)[::step].sum())
+
+
+def _synth_args(wl: int, step: int, t: int, dev, rows: int = 1) -> tuple:
+    """Synthesis-kernel arguments for T frames of the test signal's
+    spectrum at this window and hop, ``rows`` batch rows."""
+    sig = np.resize(segment(2), rows * ((t - 1) * step + wl))
+    padded = torch.from_numpy(sig.astype(np.float32)).to(dev).reshape(
+        rows, -1).squeeze(0)
+    win = torch.from_numpy(hamming(wl).astype(np.float32)).to(dev)
+    h_re, h_im, scale = _folded(
+        fused.frames_rfft_plain(padded, win, wl, step, t), wl, step)
+    return h_re, h_im, wl, step, scale
+
+
+def irfft_transforms(wl: int, step: int, t: int) -> float:
+    """Frames the inverse FFT kernel transforms per output frame: each
+    block of irfft.SPAN output samples transforms every frame that reaches
+    them (csrc/irfft.cu), so frames at a block edge are done twice."""
+    out_len = (t - 1) * step + wl
+    p0 = np.arange(0, out_len, irfft.SPAN, dtype=np.int64)
+    p1 = np.minimum(p0 + irfft.SPAN, out_len)
+    top = np.minimum((p1 - 1) // step, t - 1)
+    low = np.maximum(0, -((wl - 1 - p0) // step))
+    return float((top - low + 1).sum()) / t
 
 
 def _max_abs(a: torch.Tensor) -> float:
@@ -369,11 +421,11 @@ def _kernel_cases(dev, main_t: int):
     for label, (wl, step, t) in (("main", (WL, STEP, main_t)),
                                  ("ragged", RAGGED)):
         for name, (args, tol) in _kernel_inputs(wl, step, t, dev).items():
-            # At WL 2048 only an explicit operator sends B1 / B12 (and
+            # At WL 2048 only an explicit operator sends B1 / B12 / B4 (and
             # their twins) to the GEMM; their main-path shape is WL 1102's,
             # below.
-            case = ("operator" if label == "main"
-                    and name in GEMM_KERNELS + TWIN_KERNELS else label)
+            case = ("operator" if label == "main" and name in
+                    GEMM_KERNELS + TWIN_KERNELS + SYNTH_GEMMS else label)
             yield name, case, f"WL {wl} hop {step} T {t}", args, tol
     for wl, step, t, rows, offset in FFT_RAGGED:
         sig = np.resize(segment(1), rows * ((t - 1) * step + wl) + offset)
@@ -383,8 +435,12 @@ def _kernel_cases(dev, main_t: int):
         for name in ("fused_fft", "frames_matmul2_fft"):
             yield (name, "ragged", f"{rows} rows WL {wl} hop {step} T {t} "
                    f"offset {offset}", (padded, win, wl, step, t), FFT_TOL)
-    # The 40-ms window: the FFT kernel (both stores) and, in the same
-    # call, the GEMM B1 with its operator, both timed.
+    for wl, step, t, rows in IFFT_RAGGED:
+        yield ("synth_fft", "ragged", f"{rows} rows WL {wl} hop {step} T {t}",
+               _synth_args(wl, step, t, dev, rows), FFT_TOL)
+    # The 40-ms window: the FFT kernels (both analysis stores and the
+    # synthesis) and, in the same call, the GEMM B1 and B4 with their
+    # operators and B4-s4, all timed.
     wl, step = MIXED_WL, MIXED_WL // 2
     t = stft_padding(SEGMENT_SECONDS * SR, wl, step)[2]  # 30,001
     padded, win = _signal_and_window(wl, step, t, hamming, dev)
@@ -394,6 +450,13 @@ def _kernel_cases(dev, main_t: int):
     yield ("fused", "40 ms", f"WL {wl} hop {step} T {t} (operator)",
            (*analysis, fused.rdft_ops(wl, torch.float32, dev)), GEMM_TOL)
     del padded, analysis
+    args = _synth_args(wl, step, t, dev)
+    yield "synth_fft", "40 ms", f"WL {wl} hop {step} T {t}", args, FFT_TOL
+    yield ("synth", "40 ms", f"WL {wl} hop {step} T {t} (operator)",
+           (*args, synth.istft_ops(wl, args[-1], torch.float32, dev)),
+           GEMM_TOL)
+    yield "synth_split4", "40 ms", f"WL {wl} hop {step} T {t}", args, GEMM_TOL
+    del args
     gemm_main_t = stft_padding(SEGMENT_SECONDS * SR, GEMM_WL,
                                GEMM_WL // 2)[2]  # 48,023
     for label, (wl, step, t) in (
@@ -403,6 +466,11 @@ def _kernel_cases(dev, main_t: int):
         for name in GEMM_KERNELS + TWIN_KERNELS:
             yield (name, label, f"WL {wl} hop {step} T {t} (no operator)",
                    (padded, win, wl, step, t), GEMM_TOL)
+        args = _synth_args(wl, step, t, dev)
+        for name in SYNTH_GEMMS:
+            yield (name, label, f"WL {wl} hop {step} T {t} (no operator)",
+                   args, GEMM_TOL)
+        del padded, args
     for label, (wl, step, t) in (("main", (WL, STEP, main_t)),
                                  ("ragged", MDCT_RAGGED)):
         padded, win = _signal_and_window(wl, step, t, vorbis, dev)
@@ -462,11 +530,18 @@ def _work(name: str, args: tuple) -> tuple[float, float, float]:
     twins do their GEMM in four bf16 passes; the rest is FP32 work."""
     base = name.removesuffix("_split4")
     passes = 4 if base != name else 1  # the split4 twins' bf16 passes
-    if base == "synth":
-        h_re, _, n, step, _ = args
+    if base in ("synth", "synth_fft"):
+        h_re, _, n, step, _ = args[:5]
         b, t, f = _rows(h_re) // h_re.shape[-2], h_re.shape[-2], h_re.shape[-1]
+        out = 4 * b * ((t - 1) * step + n)
+        if base == "synth_fft":
+            # The inverse real FFT: about 2.5 N log2 N operations a frame,
+            # the split step and the scaled overlap-add about 8 N; both
+            # planes read once, the twiddle table, the signal written once.
+            return (0, b * t * (2.5 * n * np.log2(n) + 8 * n),
+                    4 * 2 * b * t * f + 8 * n + out)
         return (passes * 2 * b * t * 2 * f * n, 0,
-                4 * (2 * b * t * f + 2 * f * n + b * ((t - 1) * step + n)))
+                4 * (2 * b * t * f + 2 * f * n) + out)
     if base == "imdct_ola":
         c, f, _ = args
         b, t = _rows(c) // c.shape[-2], c.shape[-2]
@@ -548,8 +623,8 @@ def library_call(name: str, args: tuple):
         return lambda: torch.stft(padded, wl, step, window=win, center=False,
                                   onesided=base != "frames_rfft_full",
                                   return_complex=True)
-    if base == "synth":
-        return synth_library(*args)
+    if base in ("synth", "synth_fft"):
+        return synth_library(*args[:5])
     if base == "ola":
         frames, step = args
         t, wl = frames.shape
@@ -562,7 +637,8 @@ def library_call(name: str, args: tuple):
 def synth_library(h_re, h_im, wl, step, scale):
     """B4's function as one torch.istft call: a ones window normalises the
     overlap-add by its envelope, WL / hop away from the first and last WL
-    samples, so the result times (WL / hop) * scale is B4's there."""
+    samples, so the result times (WL / hop) * scale is B4's there (for a
+    hop that divides WL)."""
     half = torch.complex(h_re, h_im).transpose(-1, -2)
     ones = torch.ones(wl, device=h_re.device)
     return lambda: torch.istft(half, wl, step, window=ones,
@@ -578,7 +654,8 @@ def phase_kernels(dev) -> dict:
     ragged one; returns the main-path error, median times (kernel, plain
     version, library call) and bound (for mel_rows, the largest error of
     its two main cases and the times of the first, power=False). The
-    40-ms window's cases are timed and printed too, not returned."""
+    40-ms window's cases and B4's and B4-s4's at WL 2048 are timed and
+    printed too, not returned."""
     results = {}
     main_t = stft_padding(SEGMENT_SECONDS * SR, WL, STEP)[2]  # 25,841
     for name, label, shape, args, tol in _kernel_cases(dev, main_t):
@@ -603,14 +680,19 @@ def phase_kernels(dev) -> dict:
               f"max_abs_err {err!r} max|ref| {scale!r}")
         require(np.isfinite(err) and err <= tol * scale,
                 f"{name} {label}: max_abs_err {err} > {tol} * {scale}")
-        if label in ("main", "40 ms"):
+        if name == "synth_fft":
+            wl, step, t = args[2], args[3], args[0].shape[-2]
+            print(f"  {name}: {irfft_transforms(wl, step, t):.4f} frames "
+                  "transformed per output frame")
+        if label in ("main", "40 ms") or (label == "operator"
+                                          and name in SYNTH_GEMMS):
             ms = median_ms(lambda: kernel(*args))
             plain_ms = median_ms(lambda: plain(*args))
             lib = library_call(name, args)
             library_ms = None if lib is None else median_ms(lib)
-            if name.removesuffix("_split4") == "synth":
+            if name.removesuffix("_split4") in ("synth", "synth_fft"):
                 wl = args[2]
-                lerr = _max_abs((lib() - kernel(*args))[wl:-wl])
+                lerr = _max_abs((lib() - kernel(*args))[..., wl:-wl])
                 print(f"  {name}: torch.istft yardstick vs kernel, interior "
                       f"max_abs_err {lerr!r}")
                 require(lerr <= GEMM_TOL * scale,
@@ -677,17 +759,18 @@ def oracle_error(x: torch.Tensor, spec: torch.Tensor, wl: int = WL,
 
 
 # dispatch -> the kernels the STFT main path must run, and its gates. At
-# WL 2048 and 1764 the FFT kernel computes the spectrum on both dials, so
-# split4's spectrum meets the exact oracle gate and its round trip (B4's
-# twin) split4's band.
+# WL 2048 and 1764 the FFT kernels compute the spectrum and the round trip
+# on both dials, so split4 meets the exact gates there; at WL 1102 and
+# under ZAFTPU_FFT=matmul its twins meet split4's.
 STFT_WANT = {
-    "default": (("fused_fft", "synth"), EXACT_GATES),
+    "default": (("fused_fft", "synth_fft"), EXACT_GATES),
     "split": (("framing", "ola"), EXACT_GATES),
-    f"default WL {MIXED_WL}": (("fused_fft", "synth"), EXACT_GATES),
+    f"default WL {MIXED_WL}": (("fused_fft", "synth_fft"), EXACT_GATES),
     f"default WL {GEMM_WL}": (("fused", "synth"), EXACT_GATES),
     f"ZAFTPU_FUSED2=1 WL {GEMM_WL}": (("frames_matmul2", "synth"),
                                       EXACT_GATES),
-    "split4": (("fused_fft", "synth_split4"), (ORACLE_TOL, *SPLIT4_SNR_DB)),
+    "split4": (("fused_fft", "synth_fft"), EXACT_GATES),
+    f"split4 WL {MIXED_WL}": (("fused_fft", "synth_fft"), EXACT_GATES),
     f"split4 WL {GEMM_WL}": (("fused_split4", "synth_split4"), SPLIT4_GATES),
     f"split4 ZAFTPU_FUSED2=1 WL {GEMM_WL}": (
         ("frames_matmul2_split4", "synth_split4"), SPLIT4_GATES),
@@ -1085,6 +1168,7 @@ def main() -> int:
             (CQT_HIGHEST, phase_cqt_path, "ZAFTPU_PRECISION=highest"),
             (CQT_EXACT, phase_cqt_path, "ZAFTPU_CQT_SCHEME=exact"),
             (SPLIT4, phase_main_path, "split4"),
+            (SPLIT4, phase_main_path, f"split4 WL {MIXED_WL}"),
             (SPLIT4, phase_main_path, f"split4 WL {GEMM_WL}"),
             (SPLIT4_FUSED2, phase_main_path,
              f"split4 ZAFTPU_FUSED2=1 WL {GEMM_WL}"),
@@ -1095,22 +1179,24 @@ def main() -> int:
         for name, count in _with_env(env, phase, dispatch, x).items():
             launches[name] += count
         torch.cuda.empty_cache()
-    for base, gates, levers in (
-            (DEFAULT, EXACT_GATES, (
+    for base, levers in (
+            (DEFAULT, (
                 (MIRROR_ON, "ZAFTPU_MIRROR=pallas",
                  ("fused_fft", "mirror_full_planes", "fold_half_planes",
-                  "synth"), True),
+                  "synth_fft"), EXACT_GATES, True),
                 (FULLSPEC_ON, "ZAFTPU_FULLSPEC=1",
-                 ("frames_rfft_full", "synth"), False),
+                 ("frames_rfft_full", "synth_fft"), EXACT_GATES, False),
                 (FUSED2_ON, "ZAFTPU_FUSED2=1",
-                 ("frames_matmul2_fft", "synth"), True))),
-            (SPLIT4, SPLIT4_GATES, (
+                 ("frames_matmul2_fft", "synth_fft"), EXACT_GATES, True))),
+            (SPLIT4, (
                 (SPLIT4_FUSED2, "split4 ZAFTPU_FUSED2=1",
-                 ("frames_matmul2_fft", "synth_split4"), True),
+                 ("frames_matmul2_fft", "synth_fft"), EXACT_GATES, True),
+                # B3's twin's spectrum, inverted exactly: split4's gates.
                 (SPLIT4_FULLSPEC, "split4 ZAFTPU_FULLSPEC=1",
-                 ("frames_rfft_full_split4", "synth_split4"), False)))):
+                 ("frames_rfft_full_split4", "synth_fft"), SPLIT4_GATES,
+                 False)))):
         ref = _with_env(base, _default_stft_istft, x)
-        for env, dispatch, want, bit_equal in levers:
+        for env, dispatch, want, gates, bit_equal in levers:
             for name, count in _with_env(env, phase_fullspec_path, dispatch,
                                          x, ref, want, gates,
                                          bit_equal).items():

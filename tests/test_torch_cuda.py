@@ -1,12 +1,12 @@
 """zaftpu_torch's CUDA kernels on the card: each against its plain version
 (batched, ragged, general-hop and misaligned inputs), launch counts, the
 stft/istft, mdct/imdct, spectrogram/mel/MFCC and CQT paths against the CPU
-float64 path, the real-FFT analysis kernel and the shape rule that picks
-it, the mirror, full-spectrum and two-output levers, the split4 twins
-(B9's and B10's included) and the split4 dial, the CQT's scheme, the mel
-kernels past the old shared-memory limit, the device and dtype rules
-(float64 arrays, lists and bfloat16 signals), and the inputs the CUDA path
-refuses.
+float64 path, the real-FFT analysis kernel, the inverse real-FFT synthesis
+kernel and the shape rule that picks them, the mirror, full-spectrum and
+two-output levers, the split4 twins (B9's and B10's included) and the
+split4 dial, the CQT's scheme, the mel kernels past the old shared-memory
+limit, the device and dtype rules (float64 arrays, lists and bfloat16
+signals), and the inputs the CUDA path refuses.
 
 Every test needs an NVIDIA GPU (marker ``cuda``) and skips without one.
 This file imports neither JAX nor zaftpu, so on a machine without JAX it
@@ -21,8 +21,8 @@ import zaftpu_torch
 from zaftpu_torch.core import policy
 from zaftpu_torch.core.windows import hamming, kbd, vorbis
 from zaftpu_torch.core import fft as tfft
-from zaftpu_torch.kernels import (_build, cqtslab, framing, fused, melfused,
-                                  mirror, ola, rfft, synth)
+from zaftpu_torch.kernels import (_build, cqtslab, framing, fused, irfft,
+                                  melfused, mirror, ola, rfft, synth)
 from zaftpu_torch.transforms import mdct as tmdct
 from zaftpu_torch.transforms.stft import centre_padded
 
@@ -86,9 +86,11 @@ def test_kernels_match_plain(dev, wl, step, t, lead):
     half = fused.frames_rfft(padded, win, wl, step, t)
     ref = _half_plain(wl)(padded, win, wl, step, t)
     assert half.shape == ref.shape and _rel_err(half, ref) < 2e-5
+    # An explicit operator names B4 at every window.
     h_re, h_im = half.real.contiguous(), half.imag.contiguous()
-    got = synth.istft_ola(h_re, h_im, wl, step, 0.5)
-    ref = synth.istft_ola_plain(h_re, h_im, wl, step, 0.5)
+    ops = synth.istft_ops(wl, 0.5, torch.float32, dev)
+    got = synth.istft_ola(h_re, h_im, wl, step, 0.5, ops)
+    ref = synth.istft_ola_plain(h_re, h_im, wl, step, 0.5, ops)
     assert got.shape == ref.shape and _rel_err(got, ref) < 2e-5
 
 
@@ -509,8 +511,9 @@ def test_frames_rfft_full_bitwise_vs_half_and_mirror(dev, wl, step, t, lead):
 
 @pytest.mark.parametrize("levers,moved", [
     ({"ZAFTPU_MIRROR": "pallas"},
-     {"frames_rfft_fft", "mirror_full_planes", "fold_half_planes", "synth"}),
-    ({"ZAFTPU_FULLSPEC": "1"}, {"frames_rfft_full", "synth"})])
+     {"frames_rfft_fft", "mirror_full_planes", "fold_half_planes",
+      "synth_fft"}),
+    ({"ZAFTPU_FULLSPEC": "1"}, {"frames_rfft_full", "synth_fft"})])
 def test_mirror_and_fullspec_levers_on_card_bit_equal_default(
         dev, levers, moved, monkeypatch):
     """The mirror lever is bit-equal to the default. The full-spectrum
@@ -531,7 +534,8 @@ def test_mirror_and_fullspec_levers_on_card_bit_equal_default(
                 "frames_rfft_full": fused.frames_rfft_full.launches,
                 "mirror_full_planes": mirror.mirror_full_planes.launches,
                 "fold_half_planes": mirror.fold_half_planes.launches,
-                "synth": synth.istft_ola.launches}
+                "synth": synth.istft_ola.launches,
+                "synth_fft": irfft.istft_ola_fft.launches}
 
     before = launches()
     spec = zaftpu_torch.stft(x, win, 1024)
@@ -628,22 +632,24 @@ def _split4_launches():
             "imdct_ola_split4": synth.imdct_ola_split4.launches,
             "fused": fused.frames_rfft.launches,
             "synth": synth.istft_ola.launches,
+            "synth_fft": irfft.istft_ola_fft.launches,
             "frames_op": fused.frames_op.launches,
             "imdct_ola": synth.imdct_ola.launches}
 
 
 def test_split4_paths_on_card_match_cpu_f64(dev, monkeypatch):
-    """stft -> istft and mdct -> imdct under split4 on the card: at WL 2048
-    the FFT kernel computes the spectrum (within the exact gate, 1e-5 of
-    max of the CPU float64 path) and the twins the rest (and no exact GEMM
-    kernel), the coefficients within 1e-4 of max, the round trips in
-    (100, 125) dB."""
+    """stft -> istft and mdct -> imdct under split4 on the card with
+    ZAFTPU_FFT=matmul, which keeps the STFT's twins at WL 2048: the twins
+    compute everything (and no exact GEMM or FFT kernel), the spectrum and
+    the coefficients within 1e-4 of max of the CPU float64 path, the round
+    trips in (100, 125) dB."""
     rng = np.random.default_rng(11)
     x = rng.standard_normal((2, 44100))
     hw, vw = hamming(2048), vorbis(2048)
     ref_spec = zaftpu_torch.stft(torch.from_numpy(x), hw, 1024)
     ref_coeffs = zaftpu_torch.mdct(torch.from_numpy(x), vw)
     monkeypatch.setenv("ZAFTPU_PRECISION", "split4")
+    monkeypatch.setenv("ZAFTPU_FFT", "matmul")
     x32 = torch.from_numpy(x.astype(np.float32)).to(dev)
     before = _split4_launches()
     spec = zaftpu_torch.stft(x32, hw, 1024)
@@ -651,9 +657,9 @@ def test_split4_paths_on_card_match_cpu_f64(dev, monkeypatch):
     coeffs = zaftpu_torch.mdct(x32, vw)
     rec2 = zaftpu_torch.imdct(coeffs, vw)
     moved = {k for k, v in _split4_launches().items() if v != before[k]}
-    assert moved == {"fft", "synth_split4", "frames_op_split4",
+    assert moved == {"fused_split4", "synth_split4", "frames_op_split4",
                      "imdct_ola_split4"}
-    assert _rel_err(spec.cpu().to(torch.complex128), ref_spec) < 1e-5
+    assert _rel_err(spec.cpu().to(torch.complex128), ref_spec) < 1e-4
     assert _rel_err(coeffs.cpu().double(), ref_coeffs) < 1e-4
     for r in (rec, rec2):
         err = r.cpu().double()[..., :x.shape[-1]] - torch.from_numpy(x)
@@ -971,6 +977,102 @@ def test_shape_rule_launch_counts_on_card(dev, wl, fused2, monkeypatch):
     monkeypatch.delenv("ZAFTPU_FUSED2", raising=False)
     oracle = zaftpu_torch.stft(torch.from_numpy(x64), win, wl // 2)
     assert _rel_err(spec.cpu().to(torch.complex128), oracle) < 1e-5
+
+
+# The inverse real-FFT + overlap-add kernel: B4 and B4-s4 at every even
+# window whose half is 7-smooth.
+
+IRFFT_SHAPES = [(2048, 1024, 37), (2048, 1024, 1), (1764, 882, 23),
+                (400, 160, 61), (400, 160, 1), (4096, 256, 40), (16, 1, 700),
+                (16, 5, 3000), (3000, 1000, 9), (3000, 3000, 3),
+                (512, 100, 1001), (24, 7, 300)]
+
+
+@pytest.mark.parametrize("wl,step,t", IRFFT_SHAPES)
+@pytest.mark.parametrize("lead", [(), (2, 3)])
+def test_irfft_kernel_matches_plain(dev, wl, step, t, lead):
+    """Bit-equal to the plain version, which does the kernel's float32
+    operations in its order, and within 2e-6 of max of the float64 path;
+    batched, ragged, T = 1, hops that do not divide WL, K up to 16 and
+    hop 1."""
+    rng = np.random.default_rng(wl + step + t)
+    h = rng.standard_normal((2, *lead, t, wl // 2 + 1)).astype(np.float32)
+    h_re, h_im = (torch.from_numpy(a).to(dev) for a in h)
+    before = irfft.istft_ola_fft.launches
+    got = irfft.istft_ola_fft(h_re, h_im, wl, step, 0.5)
+    assert irfft.istft_ola_fft.launches == before + 1
+    ref = irfft.istft_ola_fft_plain(h_re, h_im, wl, step, 0.5)
+    assert got.shape == ref.shape == (*lead, (t - 1) * step + wl)
+    assert got.dtype == torch.float32
+    assert torch.equal(got, ref), _rel_err(got, ref)
+    oracle = irfft.istft_ola_fft(*(torch.from_numpy(a).double() for a in h),
+                                 wl, step, 0.5)
+    assert _rel_err(got.cpu().double(), oracle) < 2e-6
+
+
+def test_irfft_entry_refuses_what_the_rule_refuses(dev):
+    """The CUDA entry takes exactly the lengths rfft.fits takes with a hop
+    in [1, N] and refuses every other before any launch: T = 0 returns
+    after the checks."""
+    lib = _build.library()
+    buf = torch.zeros(8192, device=dev)
+    p = buf.data_ptr()
+    for wl in range(1, 4200):
+        for step in sorted({0, 1, max(wl // 3, 1), wl, wl + 1}):
+            err = lib.zt_irfft_ola(p, p, p, p, 1.0, 1, 0, wl, step, 0)
+            assert (err == 0) is (rfft.fits(wl) and 1 <= step <= wl), (
+                wl, step, err)
+
+
+def test_irfft_kernel_takes_an_hour_in_one_launch(dev):
+    """One hour at 44.1 kHz, WL 2048 / hop 1024: 155,041 frames, 19,380
+    blocks on grid x, in one launch; its first and last samples against
+    the plain version of the frames that reach them."""
+    wl, step, t = 2048, 1024, 155041
+    gen = torch.Generator(device=dev).manual_seed(19)
+    h_re, h_im = torch.randn((2, t, wl // 2 + 1), device=dev, generator=gen)
+    before = irfft.istft_ola_fft.launches
+    out = irfft.istft_ola_fft(h_re, h_im, wl, step, 0.5)
+    assert irfft.istft_ola_fft.launches == before + 1
+    assert out.shape == ((t - 1) * step + wl,)
+    head = irfft.istft_ola_fft_plain(h_re[:64], h_im[:64], wl, step, 0.5)
+    tail = irfft.istft_ola_fft_plain(h_re[-64:], h_im[-64:], wl, step, 0.5)
+    assert torch.equal(out[:64 * step], head[:64 * step])
+    assert torch.equal(out[(t - 64) * step + wl:], tail[wl:])
+
+
+@pytest.mark.parametrize("wl", [2048, 1764, 1102])
+@pytest.mark.parametrize("dial", ["highest", "split4"])
+def test_stft_istft_take_the_ffts_on_both_dials(dev, wl, dial, monkeypatch):
+    """stft -> istft on the card: where the shape rule holds (WL 2048, 1764)
+    both dials launch the FFT analysis and the inverse FFT synthesis, once
+    each and no B4 or B4-s4, bit-equal across the dials, within 1e-5 of
+    max of the CPU float64 path and above 120 dB; at WL 1102 B4 (B4-s4
+    under split4) runs, in split4's band there."""
+    x64 = np.random.default_rng(wl + 3).standard_normal((2, 44100))
+    x = torch.from_numpy(x64.astype(np.float32)).to(dev)
+    win = hamming(wl)
+    monkeypatch.setenv("ZAFTPU_PRECISION", dial)
+    counters = {"fft": irfft.istft_ola_fft, "gemm": synth.istft_ola,
+                "twin": synth.istft_ola_split4}
+    before = {k: c.launches for k, c in counters.items()}
+    spec = zaftpu_torch.stft(x, win, wl // 2)
+    rec = zaftpu_torch.istft(spec, win, wl // 2)
+    moved = {k for k, c in counters.items() if c.launches != before[k]}
+    want = ("fft" if rfft.applies(wl) else
+            "twin" if dial == "split4" else "gemm")
+    assert moved == {want} and counters[want].launches == before[want] + 1
+    monkeypatch.setenv("ZAFTPU_PRECISION", "highest")
+    ref = zaftpu_torch.istft(zaftpu_torch.stft(torch.from_numpy(x64), win,
+                                               wl // 2), win, wl // 2)
+    err = rec.cpu().double()[..., :x64.shape[-1]] - torch.from_numpy(x64)
+    snr = 10 * np.log10((x64 ** 2).sum() / float((err ** 2).sum()))
+    if want == "twin":
+        assert 100.0 < snr < 125.0
+        return
+    assert torch.equal(rec, zaftpu_torch.istft(spec, win, wl // 2))
+    assert _rel_err(rec.cpu().double(), ref) < 1e-5
+    assert snr > 120.0
 
 
 # The dtype rules on the card: float64 arrays and lists, bfloat16 signals.

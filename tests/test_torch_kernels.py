@@ -25,6 +25,7 @@ from zaftpu_torch import kernels as tkernels
 from zaftpu_torch.core import fft as tfft
 from zaftpu_torch.kernels import framing as tframing
 from zaftpu_torch.kernels import fused as tfused
+from zaftpu_torch.kernels import irfft as tirfft
 from zaftpu_torch.kernels import melfused as tmelfused
 from zaftpu_torch.kernels import ola as tola
 from zaftpu_torch.kernels import rfft as trfft
@@ -139,11 +140,12 @@ def test_synth_own_operator_matches_zaftpu_split_path(wl, step, t,
 def _counts():
     return (tframing.frame_window.launches, tola.overlap_add.launches,
             tfused.frames_rfft.launches, tsynth.istft_ola.launches,
-            trfft.frames_rfft_fft.launches)
+            trfft.frames_rfft_fft.launches, tirfft.istft_ola_fft.launches)
 
 
 def test_cpu_tensors_take_plain_versions_only():
-    """WL 256 takes the FFT kernel's plain version, WL 255 the GEMM's."""
+    """WL 256 takes the FFT kernel's plain version, WL 255 the GEMM's; the
+    synthesis, given its operator, B4's."""
     wl, step, t = 256, 128, 9
     padded = torch.from_numpy(_signal(wl, step, t, 6))
     win = torch.from_numpy(hamming(wl).astype(np.float32))
@@ -160,7 +162,7 @@ def test_cpu_tensors_take_plain_versions_only():
     tola.overlap_add(frames, step)
     half = tfused.frames_rfft(padded, win, wl, step, t)
     tsynth.istft_ola(half.real.contiguous(), half.imag.contiguous(), wl, step,
-                     1.0)
+                     1.0, ops=tsynth.istft_ops(wl, 1.0, torch.float32, "cpu"))
     tfused.frames_rfft(padded[:-1], win[:-1], wl - 1, step, t)
     assert _counts() == launches
     assert calls() == tuple(c + 1 for c in before)

@@ -5,9 +5,10 @@ torch hi/lo splits bit for bit against ``zaftpu``'s, the plain versions of
 the split4 twins (B1, B2, B3, B4, B7, B12) and of B12's exact form against
 ``zaftpu``'s Pallas kernels in interpret mode with the same dial, the
 STFT and MDCT slices under split4 against ``zaftpu`` under split4 with
-``ZAFTPU_FFT=matmul``, the real-FFT kernel that the split4 dial takes
+``ZAFTPU_FFT=matmul``, the real-FFT kernels that the split4 dial takes
 where the shape rule holds (bit-equal to the exact dial, near ``zaftpu``'s
-split4 outputs under ``ZAFTPU_FFT=auto``) and B1's twin where it does not,
+split4 outputs under ``ZAFTPU_FFT=auto``) and B1's and B4's twins where it
+does not,
 the levers under the dial, the magnitude and mel front ends' gate, and the
 device rule of the public functions (a non-tensor input goes to the card;
 without one it raises).
@@ -41,6 +42,7 @@ from zaftpu_torch.core import policy
 from zaftpu_torch.kernels import _build
 from zaftpu_torch.kernels import cqtslab as tcqtslab
 from zaftpu_torch.kernels import fused as tfused
+from zaftpu_torch.kernels import irfft as tirfft
 from zaftpu_torch.kernels import melfused as tmelfused
 from zaftpu_torch.kernels import rfft as trfft
 from zaftpu_torch.kernels import synth as tsynth
@@ -410,7 +412,10 @@ def test_mdct_imdct_split4_match_zaftpu(x32, split4, monkeypatch):
 def test_split4_round_trips_move_and_exact_stays_above(x32, fused, synth,
                                                        monkeypatch):
     """The dial takes effect on both dispatches: the round trips read in
-    (100, 125) dB under split4 and above 125 dB on the exact dial."""
+    (100, 125) dB under split4 and above 125 dB on the exact dial.
+    ZAFTPU_FFT=matmul keeps the STFT's twins at WL 2048, where the shape
+    rule would send both dials to the exact FFT kernels."""
+    monkeypatch.setenv("ZAFTPU_FFT", "matmul")
     monkeypatch.setenv("ZAFTPU_FUSED", fused)
     monkeypatch.setenv("ZAFTPU_SYNTH", synth)
     x = torch.from_numpy(x32)
@@ -553,8 +558,9 @@ def test_split4_takes_the_fft_where_the_rule_holds(x32, monkeypatch):
     melspectrogram and mfcc at WL 2048 run the FFT kernel's plain version
     once each and no twin: bit-equal to the exact dial's outputs, within
     2e-6 of max of zaftpu's split4 outputs under ZAFTPU_FFT=auto (its
-    native FFT off the TPU; MFCC atol 5e-3), and the round trip, through
-    B4's twin, still in split4's (100, 125) dB."""
+    native FFT off the TPU; MFCC atol 5e-3), and istft runs the inverse
+    FFT's plain version and no twin: its round trip bit-equal to the exact
+    dial's, above split4's (100, 125) dB."""
     monkeypatch.delenv("ZAFTPU_FFT", raising=False)
     x = torch.from_numpy(x32)
     win = hamming(WL).astype(np.float32)
@@ -580,10 +586,13 @@ def test_split4_takes_the_fft_where_the_rule_holds(x32, monkeypatch):
         _gemm_close(_np(mine), np.asarray(ref))
     np.testing.assert_allclose(_np(outs[3]), np.asarray(refs[3]), rtol=0,
                                atol=5e-3)  # the log domain (test_mel.py:70)
-    calls = tsynth.istft_ola_split4_plain.calls
-    rec = _np(zaftpu_torch.istft(outs[0], win, STEP))
-    assert tsynth.istft_ola_split4_plain.calls == calls + 1
-    assert 100.0 < snr_db(x32, rec) < 125.0
+    synths = (tirfft.istft_ola_fft_plain, tsynth.istft_ola_split4_plain)
+    calls = tuple(c.calls for c in synths)
+    rec = zaftpu_torch.istft(outs[0], win, STEP)
+    assert tuple(c.calls for c in synths) == (calls[0] + 1, calls[1])
+    monkeypatch.setenv("ZAFTPU_PRECISION", "highest")
+    assert torch.equal(rec, zaftpu_torch.istft(exact[0], win, STEP))
+    assert snr_db(x32, _np(rec)) > 125.0
     jax.clear_caches()
 
 

@@ -26,20 +26,22 @@ Seven levers choose the kernels, with ``zaftpu``'s names and meaning:
 * ``ZAFTPU_MIRROR=pallas``: the STFT's conjugate mirror and the ISTFT's
   Hermitian fold run as kernels (:mod:`zaftpu_torch.kernels.mirror`)
   instead of PyTorch index ops; off by default;
-* ``ZAFTPU_FFT=matmul``: the DFT as a GEMM at every window, which turns
-  the shape rule below off (``auto``, the default, and ``native`` follow
-  it); ``zaftpu``'s FFT-engine lever.
+* ``ZAFTPU_FFT=matmul``: the DFT and its inverse as GEMMs at every
+  window, which turns the shape rule below off (``auto``, the default,
+  and ``native`` follow it); ``zaftpu``'s FFT-engine lever.
 
 The first two default to the fused kernels, ``ZAFTPU_MELFUSE`` and
 ``ZAFTPU_FFT`` to the shape rule, the other three to off.
 
 On both dials the half-spectrum analysis (``fused.frames_rfft`` and
-``fused.frames_matmul2``) follows a shape rule (``rfft.applies``): an even
+``fused.frames_matmul2``) and the fused ISTFT synthesis
+(``synth.istft_ola``) follow a shape rule (``rfft.applies``): an even
 window length from 16 to 4096 whose half has no prime factor above 7
-takes the real-FFT kernel (:mod:`zaftpu_torch.kernels.rfft`), any other
-length the GEMM kernel or, under split4, its twin. The magnitude and mel
-front ends follow it too: at such a window they take the FFT's half
-spectrum unless ``ZAFTPU_MELFUSE=1`` forces their kernels
+takes the real-FFT kernel (:mod:`zaftpu_torch.kernels.rfft`) and the
+inverse real-FFT + overlap-add kernel (:mod:`zaftpu_torch.kernels.irfft`),
+any other length the GEMM kernels or, under split4, their twins. The
+magnitude and mel front ends follow it too: at such a window they take
+the FFT's half spectrum unless ``ZAFTPU_MELFUSE=1`` forces their kernels
 (``melfused.kernel_wanted``).
 
 One dial sets the arithmetic, ``ZAFTPU_PRECISION``
@@ -47,8 +49,8 @@ One dial sets the arithmetic, ``ZAFTPU_PRECISION``
 FP32 kernels; ``split4`` runs every float32 GEMM analysis and synthesis
 kernel above as its split4 twin (four bf16 passes on the tensor cores,
 float32 sums) and the split dispatch's wide GEMMs as
-``policy.split4_matmul``; the real-FFT kernel, exact and faster than the
-twins, serves both dials wherever the shape rule holds.
+``policy.split4_matmul``; the real-FFT kernels, exact and faster than the
+twins, serve both dials wherever the shape rule holds.
 Under split4 the magnitude and mel front ends take the half spectrum of
 the analysis kernel unless ``ZAFTPU_MELFUSE=1`` forces their kernels (the
 exact ``spec_rows``, the mel kernel's twin), as in ``zaftpu``. ``high`` and
@@ -145,10 +147,11 @@ def overlap_add(frames, step: int):
 def synthesis_ola(spectra, step: int, gain: float = 1.0):
     """Synthesis back end from bins-major spectra ``(..., N, T)``:
     ``overlap_add(real(ifft(spectraᵀ)), step) / gain``, with the division
-    folded into the inverse operator. The Hermitian fold runs as PyTorch
+    folded into the inverse transform. The Hermitian fold runs as PyTorch
     index ops, or with ``ZAFTPU_MIRROR=pallas`` as the fold kernel; then
-    the fused synthesis kernel, or with ``ZAFTPU_SYNTH=0`` the inverse GEMM
-    followed by the OLA kernel."""
+    the fused synthesis (the inverse real-FFT kernel where the shape rule
+    holds, else the inverse GEMM kernel or its twin), or with
+    ``ZAFTPU_SYNTH=0`` the inverse GEMM followed by the OLA kernel."""
     n = spectra.shape[-2]
     fm = spectra.transpose(-1, -2)
     if _mirror.enabled():

@@ -36,6 +36,7 @@ LINK_FLAGS = (*ARCH_FLAGS, "-shared")
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _LL = ctypes.c_longlong
+_F = ctypes.c_float
 
 _FRAMES = (_P, _P, _P, _P, _I, _LL, _I, _I, _I, _I, _I, _P)
 _GEMM_OLA = (_P, _P, _P, _I, _I, _I, _I, _I, _P)
@@ -59,6 +60,7 @@ SIGNATURES = {
     "zt_cqt_magnitudes_split4": _CQT,
     "zt_rfft_half": (_P, _P, _P, _P, _I, _LL, _I, _I, _I, _P),
     "zt_rfft_planes": (_P, _P, _P, _P, _I, _LL, _I, _I, _I, _P),
+    "zt_irfft_ola": (_P, _P, _P, _P, _F, _I, _I, _I, _I, _P),
     "zt_mirror_full": (_P, _P, _LL, _I, _P),
     "zt_fold_half": (_P, _P, _P, _LL, _I, _I, _LL, _LL, _LL, _P),
     "zt_error_string": (_I,),

@@ -1,0 +1,150 @@
+"""Inverse real FFT + overlap-add: the CUDA kernel (``csrc/irfft.cu``) and
+its plain version.
+
+It computes what ``zaftpu/pallas/synth.py: _gemm_ola_impl`` computes as
+``istft_ola`` reaches it (B4, ``synth.py:264``) and its ``_kernel_split4``
+(B4-s4, ``synth.py:231``): the ISTFT's pre-trim signal from the
+Hermitian-folded planes ``(..., T, N/2+1)``, each frame ``scale *
+irfft_N(H[t])`` overlap-added at the hop. The TPU kernels contract each
+frame with a dense inverse operator; this one runs an FFT, so it is bound
+by its bytes, not by FP32 or bf16 arithmetic.
+
+:mod:`zaftpu_torch.kernels.synth` sends both dials here by the analysis's
+shape rule (:func:`zaftpu_torch.kernels.rfft.applies`). The plain version
+repeats the kernel's arithmetic operation by operation, with the forward
+kernel's pieces (:mod:`zaftpu_torch.kernels.rfft`: the twiddle table, the
+pass plan and the Stockham passes): the inverse split step, conj -> the
+forward passes -> conj, the interleave, the factor ``s = scale / N``
+rounded once, and the overlap-add summed c ascending. So the CPU tests
+exercise the kernel's indexing and the kernel equals it on the card.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import math
+
+import torch
+
+from zaftpu_torch.kernels import _build
+from zaftpu_torch.kernels import rfft as _rfft
+
+CUDA_SOURCE = "zaftpu_torch/csrc/irfft.cu"
+REPLACES = "zaftpu/pallas/synth.py:264"  # _gemm_ola_impl (istft_ola), B4
+REPLACES_SPLIT4 = "zaftpu/pallas/synth.py:231"  # its _kernel_split4, B4-s4
+
+# Output samples a block of the kernel owns (csrc/irfft.cu: kSpan).
+SPAN = 8192
+
+
+def _factor(n: int, scale: float, dtype: torch.dtype) -> torch.Tensor:
+    """``s = scale / N``, computed in float64 and rounded once to ``dtype``."""
+    return torch.tensor(float(scale) / n, dtype=torch.float64).to(dtype)
+
+
+def _inverse_frames(h_re: torch.Tensor, h_im: torch.Tensor, n: int,
+                    scale: float) -> torch.Tensor:
+    """``scale * irfft_N`` of each folded row, ``(..., T, N)``, in the
+    kernel's arithmetic and order, in ``h_re``'s dtype."""
+    m = n // 2
+    tw = _rfft.twiddles(n, h_re.dtype, h_re.device)
+    tw_re, tw_im = tw[:, 0], tw[:, 1]
+    # The imaginary parts of DC and Nyquist are not read.
+    h_im = h_im.clone()
+    h_im[..., 0] = 0
+    h_im[..., m] = 0
+    k = torch.arange(m, device=h_re.device)
+    ar, ai = h_re[..., :m], h_im[..., :m]
+    br, bi = h_re[..., m - k], h_im[..., m - k]
+    sr, si = ar + br, ai - bi
+    dr, di = ar - br, ai + bi
+    wr, wi = tw_re[:m], tw_im[:m]
+    # Z = S + i W^-k D; the passes run forward on conj Z.
+    re = sr - (wr * di - wi * dr)
+    im = -(si + (wr * dr + wi * di))
+    ns = 1
+    for r in _rfft.radices(m):
+        re, im = _rfft._stage(re, im, tw_re, tw_im, n, ns, r)
+        ns *= r
+    s = _factor(n, scale, h_re.dtype)
+    return torch.stack((re * s, -im * s), dim=-1).flatten(-2)
+
+
+def _overlap_add(frames: torch.Tensor, step: int) -> torch.Tensor:
+    """``(..., T, N)`` frames overlap-added at ``step`` into ``(..., (T-1) *
+    step + N)``, each sample's terms c ascending (frame index descending),
+    left-associated from 0; any hop in [1, N]."""
+    *lead, t, n = frames.shape
+    k = -(-n // step)
+    out = frames.new_zeros((*lead, t - 1 + k, step))
+    for c in range(k):
+        w = min(step, n - c * step)
+        out[..., c:c + t, :w] = (out[..., c:c + t, :w]
+                                 + frames[..., c * step:c * step + w])
+    return out.flatten(-2)[..., :(t - 1) * step + n]
+
+
+def istft_ola_fft_plain(h_re: torch.Tensor, h_im: torch.Tensor, n: int,
+                        step: int, scale: float) -> torch.Tensor:
+    """The kernel's function in plain PyTorch (not ``torch.fft``): the
+    ``(..., (T-1)*step + N)`` overlap-add of ``scale * irfft_N`` of the
+    folded planes ``(..., T, N/2+1)``."""
+    istft_ola_fft_plain.calls += 1
+    return _overlap_add(_inverse_frames(h_re, h_im, n, scale), step)
+
+
+istft_ola_fft_plain.calls = 0
+
+
+def istft_ola_fft(h_re: torch.Tensor, h_im: torch.Tensor, n: int, step: int,
+                  scale: float) -> torch.Tensor:
+    """Fused ISTFT synthesis by the inverse real FFT: the ``(..., T*step + N
+    - step)`` signal before the trim, from Hermitian-folded planes ``(...,
+    T, N/2+1)``, for an ``n`` that :func:`zaftpu_torch.kernels.rfft.fits`
+    and any hop in ``[1, n]``. ``scale`` is the COLA 1/gain.
+
+    A CPU tensor takes the plain version; a CUDA tensor launches the kernel
+    (leading axes flattened into its batch) or raises.
+    """
+    if not h_re.is_cuda:
+        return istft_ola_fft_plain(h_re, h_im, n, step, scale)
+    out = _launch(h_re, h_im, n, step, scale)
+    istft_ola_fft.launches += 1
+    return out
+
+
+istft_ola_fft.launches = 0
+
+
+def _launch(h_re: torch.Tensor, h_im: torch.Tensor, n: int, step: int,
+            scale: float) -> torch.Tensor:
+    """Check a CUDA input and launch the kernel."""
+    name = "istft_ola_fft"
+    _build.require_f32(h_re, name)
+    _build.require_f32(h_im, name)
+    if not _rfft.fits(n):
+        raise ValueError(f"{name}: N must be even, in [{_rfft.MIN_WINDOW}, "
+                         f"{_rfft.MAX_WINDOW}], with no prime factor above 7 "
+                         f"in its half, got {n}")
+    f = n // 2 + 1
+    *lead, t, width = h_re.shape
+    if h_im.shape != h_re.shape or width != f:
+        raise ValueError(f"{name}: planes must both be (..., T, {f}), got "
+                         f"{tuple(h_re.shape)} and {tuple(h_im.shape)}")
+    if not 1 <= step <= n:
+        raise ValueError(f"{name}: need step in [1, {n}], got {step}")
+    batch = math.prod(lead)
+    # Output spans ride grid x (2^31 - 1 blocks), the batch grid y.
+    _build.require_grid(batch, 1, name)
+    dev = h_re.device
+    hr = h_re.reshape(batch, t, f).contiguous()
+    hi = h_im.reshape(batch, t, f).contiguous()
+    tw = _rfft.twiddles(n, torch.float32, dev)
+    out = torch.empty((batch, (t - 1) * step + n), dtype=torch.float32,
+                      device=dev)
+    s = ctypes.c_float(_factor(n, scale, torch.float32).item())
+    err = _build.library().zt_irfft_ola(
+        hr.data_ptr(), hi.data_ptr(), tw.data_ptr(), out.data_ptr(), s, batch,
+        t, n, step, _build.stream_of(h_re))
+    _build.check(err, "zt_irfft_ola")
+    return out.reshape(*lead, out.shape[-1])

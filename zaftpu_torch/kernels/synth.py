@@ -13,6 +13,15 @@ Under ``ZAFTPU_PRECISION=split4`` (float32 only) both launch the split4
 twin instead, the port of ``_kernel_split4``: the spectrum rows split into
 bf16 hi/lo in the kernel, the operator presplit on the host, four bf16
 passes on the tensor cores with float32 sums, the same overlap-add.
+
+On both dials ``istft_ola`` first follows the analysis's shape rule
+(:func:`zaftpu_torch.kernels.rfft.applies`): at an even window length from
+16 to 4096 whose half has no prime factor above 7, with no explicit
+``ops`` and ``ZAFTPU_FFT`` not ``matmul``, it takes the inverse real-FFT
+kernel of :mod:`zaftpu_torch.kernels.irfft` (``csrc/irfft.cu``), as
+``zaftpu`` runs its FFT off the TPU; every other window length, an
+explicit operator and ``ZAFTPU_FFT=matmul`` keep the GEMM kernel or its
+twin. ``imdct_ola`` has no such rule.
 """
 
 from __future__ import annotations
@@ -28,6 +37,8 @@ from zaftpu_torch.core import frame as _frame
 from zaftpu_torch.core.policy import (exact_matmul, split4_applies,
                                       split4_matmul_presplit)
 from zaftpu_torch.kernels import _build
+from zaftpu_torch.kernels import irfft as _irfft
+from zaftpu_torch.kernels import rfft as _rfft
 
 CUDA_SOURCE = "zaftpu_torch/csrc/synth.cu"
 REPLACES = "zaftpu/pallas/synth.py:264"  # _gemm_ola_impl (istft_ola)
@@ -135,13 +146,18 @@ def istft_ola(h_re: torch.Tensor, h_im: torch.Tensor, n: int, step: int,
     """Fused ISTFT synthesis from Hermitian-folded planes ``(..., T, N/2+1)``:
     inverse-rDFT GEMM and overlap-add in one pass, returning the
     ``(..., T*step + N - step)`` signal before the trim. ``scale`` (the COLA
-    1/gain) is folded into the operator; ``ops`` overrides it. The kernel
-    reads the two planes packed into zero-padded ``(T, 2, KP)`` rows.
+    1/gain) is folded into the operator; ``ops`` overrides it, and names
+    the GEMM at any window. The kernel reads the two planes packed into
+    zero-padded ``(T, 2, KP)`` rows.
 
-    Split4 (float32) takes :func:`istft_ola_split4`. A CPU tensor takes the
-    plain version; a CUDA tensor launches the kernel (leading axes flattened
-    into its batch) or raises.
+    The shape rule (:func:`zaftpu_torch.kernels.rfft.applies`) takes
+    :func:`zaftpu_torch.kernels.irfft.istft_ola_fft` on either dial;
+    elsewhere split4 (float32) takes :func:`istft_ola_split4`. A CPU tensor
+    takes the plain version; a CUDA tensor launches the kernel (leading
+    axes flattened into its batch) or raises.
     """
+    if _rfft.applies(n, ops):
+        return _irfft.istft_ola_fft(h_re, h_im, n, step, scale)
     if split4_applies(h_re.dtype):
         return istft_ola_split4(h_re, h_im, n, step, scale, ops)
     if not h_re.is_cuda:

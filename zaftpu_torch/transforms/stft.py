@@ -7,11 +7,12 @@ COLA-normalized inverse. On a CUDA float32 signal the analysis runs the
 fused framing + window + real-FFT kernel at an even window from 16 to 4096
 whose half has no prime factor above 7 (the shape rule,
 ``kernels/rfft.applies``) and the fused framing + window + DFT-GEMM kernel
-at any other, and the synthesis the fused inverse GEMM + overlap-add kernel
-(:mod:`zaftpu_torch.kernels`); under ``ZAFTPU_PRECISION=split4`` the
-synthesis and the GEMM analysis run their split4 twins, the FFT stays. The
-spectrogram takes that half spectrum and ``|·|`` where the rule holds and
-the one-pass magnitude kernel at any other window
+at any other; the synthesis runs the inverse real-FFT + overlap-add kernel
+where the rule holds and the fused inverse GEMM + overlap-add kernel at
+any other window (:mod:`zaftpu_torch.kernels`); under
+``ZAFTPU_PRECISION=split4`` the GEMM kernels run their split4 twins, the
+FFT kernels stay. The spectrogram takes that half spectrum and ``|·|``
+where the rule holds and the one-pass magnitude kernel at any other window
 (:mod:`zaftpu_torch.kernels.melfused`). ``ZAFTPU_MIRROR=pallas`` moves the
 conjugate mirror and the Hermitian fold into kernels, bit-equal to the
 default; ``ZAFTPU_FULLSPEC=1`` writes the full spectrum from the GEMM
@@ -171,6 +172,12 @@ def istft(audio_stft, window_function=None, step_length: int | None = None,
         real signal ``(..., number_times*step - window_length + step)``,
         with the reference's trim and normalization (zaf.py:144-243).
         Exact reconstruction needs a COLA window (periodic, step | WL).
+
+    On a CUDA complex64 spectrum the synthesis follows the analysis's
+    shape rule on both dials: the inverse real-FFT + overlap-add kernel at
+    an even window from 16 to 4096 whose half has no prime factor above 7,
+    B4 (its split4 twin under split4) at any other or under
+    ``ZAFTPU_FFT=matmul``.
     """
     z = _validate.check_spectrum(_as_input(audio_stft))
     window, step = _resolve_analysis_args(window_function, step_length,
