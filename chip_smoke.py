@@ -10,7 +10,7 @@ non-zero exit and no result line:
 
 1. device: the card's name and power limit (as nvidia-smi gives them),
    torch and CUDA versions; TF32 off for matmuls and cuDNN;
-2. build: the twenty-four kernels from zaftpu_torch/csrc (one nvcc per
+2. build: the twenty-five kernels from zaftpu_torch/csrc (one nvcc per
    source, all started together), with the seconds taken;
 3. kernels: each kernel against its plain PyTorch version on the card at
    its main-path shape (WL 2048, hop 1024, a 600-s segment: T = 25,841;
@@ -20,32 +20,35 @@ non-zero exit and no result line:
    256 for frames_op; F = 100 for imdct_ola; WL 512 / hop 128 with 20 mels
    for spec_rows and mel_rows; the CQT at 22,050 Hz, 12 bins per octave,
    110-3,520 Hz: L 4,096, hop 882, F 60, T 1,001), the split4 twins of B1,
-   B2, B3, B4, B7, B9, B10 and B12 included. The real-FFT kernel (B1 and
-   B12, and on the split4 dial their twins, at every even window whose
-   half is 7-smooth; both stores) also at batched, misaligned shapes whose
-   hop does not divide WL (3 rows, WL 512 / hop 100 and WL 400 / hop 160,
-   T 1,001), and at the 40-ms window (WL 1,764, hop 882, T 30,001: radices
-   2, 3, 3, 7, 7), timed beside torch.stft and the GEMM B1 with its
-   operator in the same call. The inverse real-FFT kernel (B4 and B4-s4 at
-   those windows) likewise at its main-path shape, at WL 4,096 / hop 256
+   B2, B3, B4, B7, B9, B10 and B12 included. The real-FFT kernel (B1, B12
+   and B3, and on the split4 dial their twins, at every even window whose
+   half is 7-smooth; its half, planes and full stores) also at batched,
+   misaligned shapes whose hop does not divide WL (3 rows, WL 512 / hop 100
+   and WL 400 / hop 160, T 1,001), and at the 40-ms window (WL 1,764, hop
+   882, T 30,001: radices 2, 3, 3, 7, 7), timed beside torch.stft (two-sided
+   for the full store) and the GEMM B1 with its operator in the same call.
+   The inverse real-FFT kernel (B4 and B4-s4 at those windows) likewise at
+   its main-path shape, at WL 4,096 / hop 256
    (K = 16), 3 rows of WL 400 / hop 160 and 2 rows of WL 3,000 / hop 1,000,
    and at the 40-ms window, timed beside torch.istft, B4 with its operator
    and B4-s4 in the same call, and at WL 2048 beside them too; it prints
-   the frames it transforms per output frame. The GEMM B1, B12 and B4 and
-   the twins B1-s4, B12-s4 and B4-s4 take their main-path shape from the
-   25-ms window the FFT rule leaves to them (WL 1,102 = 2 * 19 * 29, hop
-   551, a 600-s segment: T = 48,023, no operator), a ragged one at WL
-   1,102 / hop 300, and WL 2048 and WL 512 with their operator given (which
-   names the GEMM); the mel kernels also past the old shared-memory limit
-   (800 mels at WL 2048). Framing, OLA, mirror and fold must be bit-equal,
-   the FFT kernels within 1e-6 * max|ref| (they do their plain versions'
-   operations in their order), the GEMM kernels within 2e-5 * max|ref|,
-   and the kernels that only store another's sums elsewhere (B3, B12,
-   their twins and the FFT's planes store) bit-equal to it (with the
-   mirror); median times of
+   the frames it transforms per output frame. The GEMM B1, B12, B3 and B4
+   and the twins B1-s4, B12-s4, B3-s4 and B4-s4 take their main-path shape
+   from the 25-ms window the FFT rule leaves to them (WL 1,102 = 2 * 19 *
+   29, hop 551, a 600-s segment: T = 48,023, no operator), a ragged one at
+   WL 1,102 / hop 300, and WL 2048 (timed, for B3, B3-s4, B4 and B4-s4)
+   and WL 512 with their operator given (which names the GEMM); the mel
+   kernels also past the old shared-memory limit (800 mels at WL 2048).
+   Framing, OLA, mirror, fold and the FFT's full store must be bit-equal,
+   the FFT's other stores within 1e-6 * max|ref| (they do their plain
+   versions' operations in their order), the GEMM kernels within 2e-5 *
+   max|ref|, and the kernels that only store another's sums elsewhere (B3,
+   B12, their twins and the FFT's planes and full stores) bit-equal to it
+   (with the mirror); median times of
    kernel and plain version at the main-path shape (CUDA events), and of
    one PyTorch call computing the same function where there is one
-   (torch.stft for B1, B3, B12, their twins and the FFT kernel, fold for
+   (torch.stft for B1, B3, B12, their twins and the FFT kernel's stores,
+   two-sided for B3, its twin and the full store, fold for
    the OLA, torch.istft of a ones window times WL / hop / gain for B4, its
    twin and the inverse FFT kernel, held against the kernel away from the
    first and last WL samples);
@@ -54,10 +57,11 @@ non-zero exit and no result line:
 4. STFT main path, default dispatch: stft -> istft of a 600-s signal with
    the periodic Hamming window; the spectrum against a float64 torch.fft
    oracle (<= 1e-5 * max|oracle|), the round-trip SNR (>= 120 dB), and
-   launch counts showing the FFT analysis and the inverse FFT synthesis
-   ran and no plain version did; then the same with the 40-ms window (WL
-   1,764, hop 882; the FFT kernels) and the 25-ms window (WL 1,102, hop
-   551), which the shape rule sends to the GEMM B1 and B4, and under
+   launch counts showing the FFT analysis (its full store: the mirror in
+   the launch) and the inverse FFT synthesis ran and no plain version did;
+   then the same with the 40-ms window (WL 1,764, hop 882; the FFT
+   kernels) and the 25-ms window (WL 1,102, hop 551), which the shape rule
+   sends to the GEMM B1, the index mirror and B4, and under
    ZAFTPU_FUSED2=1 to the GEMM B12 and B4;
 5. STFT main path, split dispatch (ZAFTPU_FUSED=0 ZAFTPU_SYNTH=0): the
    same checks, with the framing and OLA kernels;
@@ -97,14 +101,15 @@ non-zero exit and no result line:
    max);
 10. levers: stft -> istft of the 600-s signal under ZAFTPU_MIRROR=pallas
    (fused_fft, mirror_full_planes, fold_half_planes, synth_fft),
-   ZAFTPU_FULLSPEC=1 (frames_rfft_full, synth_fft) and ZAFTPU_FUSED2=1
-   (frames_matmul2_fft, synth_fft), then under split4 with ZAFTPU_FUSED2=1
-   (frames_matmul2_fft, synth_fft) and ZAFTPU_FULLSPEC=1
-   (frames_rfft_full_split4, synth_fft): spectrum and round trip
-   bit-equal to those of the same dial without the lever where both share
-   a tile (all but ZAFTPU_FULLSPEC=1, whose GEMM B3 or its twin stands
-   beside the default FFT kernel), and the exact gates (split4's for B3's
-   twin);
+   ZAFTPU_FULLSPEC=1 (frames_rfft_full_fft, synth_fft), ZAFTPU_FULLSPEC=0
+   (fused_fft, synth_fft) and ZAFTPU_FUSED2=1 (frames_matmul2_fft,
+   synth_fft), and ZAFTPU_FULLSPEC=1 at WL 1,102 (the GEMM B3, synth);
+   then under split4 with ZAFTPU_FUSED2=1 (frames_matmul2_fft,
+   synth_fft), ZAFTPU_FULLSPEC=1 and =0 (as on the exact dial), and
+   ZAFTPU_FULLSPEC=1 at WL 1,102 (B3-s4, synth_split4): each spectrum and
+   round trip bit-equal to those of the same dial and window without the
+   lever, and the exact gates (split4's at WL 1,102); then the peak device
+   memory of one 600-s stft under ZAFTPU_FULLSPEC=0 and unset;
 11. one hour: six 600-s segments through stft, then istft (also at the
    40-ms window on the default dispatch); mdct, then
    imdct; spectrogram; melspectrogram; mfcc, under the default, the split
@@ -163,9 +168,12 @@ MIXED_WL = 1764
 # their twins (25 ms at 44.1 kHz; its half 551 = 19 * 29).
 GEMM_WL = 1102
 GEMM_RAGGED = (GEMM_WL, 300, 1001)
-GEMM_KERNELS = ("fused", "frames_matmul2")  # the GEMM B1 and B12
-TWIN_KERNELS = ("fused_split4", "frames_matmul2_split4")  # B1-s4, B12-s4
+# The GEMM B1, B12 and B3, and their twins.
+GEMM_KERNELS = ("fused", "frames_matmul2", "frames_rfft_full")
+TWIN_KERNELS = ("fused_split4", "frames_matmul2_split4",
+                "frames_rfft_full_split4")
 SYNTH_GEMMS = ("synth", "synth_split4")  # B4, B4-s4
+FULL_GEMMS = ("frames_rfft_full", "frames_rfft_full_split4")  # B3, B3-s4
 # The inverse FFT kernel's other shapes: WL, hop, T, batch rows (K = 16, a
 # mixed-radix window whose hop does not divide it, one frame per block).
 IFFT_RAGGED = ((4096, 256, 1001, 1), (400, 160, 1001, 3), (3000, 1000, 301, 2))
@@ -235,6 +243,11 @@ KERNELS = {
     "frames_matmul2_fft": (rfft.CUDA_SOURCE, rfft.REPLACES_2,
                            rfft.frames_matmul2_fft,
                            rfft.frames_matmul2_fft_plain),
+    "frames_rfft_full_fft": (rfft.CUDA_SOURCE,
+                             f"{rfft.REPLACES_FULL} and "
+                             f"{rfft.REPLACES_FULL_SPLIT4}",
+                             rfft.frames_rfft_full_fft,
+                             rfft.frames_rfft_full_fft_plain),
     "fused_split4": (fused.CUDA_SOURCE, fused.REPLACES_SPLIT4,
                      fused.frames_rfft_split4,
                      fused.frames_rfft_split4_plain),
@@ -267,6 +280,7 @@ RESTORES = {
                               lambda half, wl: (half.real, half.imag)),
     "frames_matmul2_fft": ("fused_fft",
                            lambda half, wl: (half.real, half.imag)),
+    "frames_rfft_full_fft": ("fused_fft", fft.conjugate_mirror),
 }
 
 
@@ -346,6 +360,7 @@ def _kernel_inputs(wl: int, step: int, t: int, dev) -> dict:
         "fused": (gemm, GEMM_TOL),
         "fused_fft": (analysis, FFT_TOL),
         "frames_matmul2_fft": (analysis, FFT_TOL),
+        "frames_rfft_full_fft": (analysis, EXACT_TOL),
         "synth": ((h_re, h_im, wl, step, scale,
                    synth.istft_ops(wl, scale, torch.float32, dev)), GEMM_TOL),
         "synth_fft": ((h_re, h_im, wl, step, scale), FFT_TOL),
@@ -415,15 +430,24 @@ def _mdct_ops(wl: int, dev) -> torch.Tensor:
     return torch.from_numpy(tmdct._direct_forward_ops_padded(wl)).to(dev)
 
 
+# The FFT kernel's half, planes and full stores; the full store is gated
+# bit-equal to its plain version, the others at FFT_TOL.
+FFT_STORES = ("fused_fft", "frames_matmul2_fft", "frames_rfft_full_fft")
+
+
+def _fft_tol(name: str) -> float:
+    return EXACT_TOL if name == "frames_rfft_full_fft" else FFT_TOL
+
+
 def _kernel_cases(dev, main_t: int):
     """``(name, label, shape, args, tol)`` for each kernel at its main-path
     shape and a ragged one, made one at a time."""
     for label, (wl, step, t) in (("main", (WL, STEP, main_t)),
                                  ("ragged", RAGGED)):
         for name, (args, tol) in _kernel_inputs(wl, step, t, dev).items():
-            # At WL 2048 only an explicit operator sends B1 / B12 / B4 (and
-            # their twins) to the GEMM; their main-path shape is WL 1102's,
-            # below.
+            # At WL 2048 only an explicit operator sends B1 / B12 / B3 / B4
+            # (and their twins) to the GEMM; their main-path shape is WL
+            # 1102's, below.
             case = ("operator" if label == "main" and name in
                     GEMM_KERNELS + TWIN_KERNELS + SYNTH_GEMMS else label)
             yield name, case, f"WL {wl} hop {step} T {t}", args, tol
@@ -432,9 +456,10 @@ def _kernel_cases(dev, main_t: int):
         padded = torch.from_numpy(sig.astype(np.float32)).to(dev)[
             offset:].reshape(rows, -1)
         win = torch.from_numpy(hamming(wl).astype(np.float32)).to(dev)
-        for name in ("fused_fft", "frames_matmul2_fft"):
+        for name in FFT_STORES:
             yield (name, "ragged", f"{rows} rows WL {wl} hop {step} T {t} "
-                   f"offset {offset}", (padded, win, wl, step, t), FFT_TOL)
+                   f"offset {offset}", (padded, win, wl, step, t),
+                   _fft_tol(name))
     for wl, step, t, rows in IFFT_RAGGED:
         yield ("synth_fft", "ragged", f"{rows} rows WL {wl} hop {step} T {t}",
                _synth_args(wl, step, t, dev, rows), FFT_TOL)
@@ -445,8 +470,9 @@ def _kernel_cases(dev, main_t: int):
     t = stft_padding(SEGMENT_SECONDS * SR, wl, step)[2]  # 30,001
     padded, win = _signal_and_window(wl, step, t, hamming, dev)
     analysis = (padded, win, wl, step, t)
-    for name in ("fused_fft", "frames_matmul2_fft"):
-        yield name, "40 ms", f"WL {wl} hop {step} T {t}", analysis, FFT_TOL
+    for name in FFT_STORES:
+        yield (name, "40 ms", f"WL {wl} hop {step} T {t}", analysis,
+               _fft_tol(name))
     yield ("fused", "40 ms", f"WL {wl} hop {step} T {t} (operator)",
            (*analysis, fused.rdft_ops(wl, torch.float32, dev)), GEMM_TOL)
     del padded, analysis
@@ -563,12 +589,13 @@ def _work(name: str, args: tuple) -> tuple[float, float, float]:
         b = _rows(sig)
         return (passes * 4 * b * t * length * f, 3 * b * t * f,
                 4 * (sig.numel() + 2 * length * f + b * t * f))
-    if base in ("fused_fft", "frames_matmul2_fft"):
+    if base in FFT_STORES:
         # The real FFT: about 2.5 N log2 N operations a frame, and the
         # window; the signal and the window read once, the twiddle table,
-        # the half spectrum written once.
+        # the half (or, for the full store, the full) spectrum written once.
         padded, _, wl, _, t = args
-        b, f = _rows(padded), wl // 2 + 1
+        b = _rows(padded)
+        f = wl if base == "frames_rfft_full_fft" else wl // 2 + 1
         return (0, b * t * (2.5 * wl * np.log2(wl) + wl),
                 4 * (padded.numel() + wl + 2 * wl) + 8 * b * t * f)
     # The analysis kernels: windowed frames times an operator.
@@ -617,12 +644,11 @@ def library_call(name: str, args: tuple):
     """One PyTorch call computing the same function as kernel ``name`` on
     ``args`` (timed beside it, never called by the port), or None."""
     base = name.removesuffix("_split4")
-    if base in ("fused", "frames_matmul2", "frames_rfft_full", "fused_fft",
-                "frames_matmul2_fft"):
+    if base in ("fused", "frames_matmul2", "frames_rfft_full") + FFT_STORES:
         padded, win, wl, step, _ = args[:5]
+        full = base in ("frames_rfft_full", "frames_rfft_full_fft")
         return lambda: torch.stft(padded, wl, step, window=win, center=False,
-                                  onesided=base != "frames_rfft_full",
-                                  return_complex=True)
+                                  onesided=not full, return_complex=True)
     if base in ("synth", "synth_fft"):
         return synth_library(*args[:5])
     if base == "ola":
@@ -684,8 +710,8 @@ def phase_kernels(dev) -> dict:
             wl, step, t = args[2], args[3], args[0].shape[-2]
             print(f"  {name}: {irfft_transforms(wl, step, t):.4f} frames "
                   "transformed per output frame")
-        if label in ("main", "40 ms") or (label == "operator"
-                                          and name in SYNTH_GEMMS):
+        if label in ("main", "40 ms") or (label == "operator" and name in
+                                          SYNTH_GEMMS + FULL_GEMMS):
             ms = median_ms(lambda: kernel(*args))
             plain_ms = median_ms(lambda: plain(*args))
             lib = library_call(name, args)
@@ -759,18 +785,21 @@ def oracle_error(x: torch.Tensor, spec: torch.Tensor, wl: int = WL,
 
 
 # dispatch -> the kernels the STFT main path must run, and its gates. At
-# WL 2048 and 1764 the FFT kernels compute the spectrum and the round trip
-# on both dials, so split4 meets the exact gates there; at WL 1102 and
-# under ZAFTPU_FFT=matmul its twins meet split4's.
+# WL 2048 and 1764 the FFT kernels compute the spectrum (the full store,
+# the mirror in its epilogue) and the round trip on both dials, so split4
+# meets the exact gates there; at WL 1102 and under ZAFTPU_FFT=matmul its
+# twins meet split4's.
 STFT_WANT = {
-    "default": (("fused_fft", "synth_fft"), EXACT_GATES),
+    "default": (("frames_rfft_full_fft", "synth_fft"), EXACT_GATES),
     "split": (("framing", "ola"), EXACT_GATES),
-    f"default WL {MIXED_WL}": (("fused_fft", "synth_fft"), EXACT_GATES),
+    f"default WL {MIXED_WL}": (("frames_rfft_full_fft", "synth_fft"),
+                               EXACT_GATES),
     f"default WL {GEMM_WL}": (("fused", "synth"), EXACT_GATES),
     f"ZAFTPU_FUSED2=1 WL {GEMM_WL}": (("frames_matmul2", "synth"),
                                       EXACT_GATES),
-    "split4": (("fused_fft", "synth_fft"), EXACT_GATES),
-    f"split4 WL {MIXED_WL}": (("fused_fft", "synth_fft"), EXACT_GATES),
+    "split4": (("frames_rfft_full_fft", "synth_fft"), EXACT_GATES),
+    f"split4 WL {MIXED_WL}": (("frames_rfft_full_fft", "synth_fft"),
+                              EXACT_GATES),
     f"split4 WL {GEMM_WL}": (("fused_split4", "synth_split4"), SPLIT4_GATES),
     f"split4 ZAFTPU_FUSED2=1 WL {GEMM_WL}": (
         ("frames_matmul2_split4", "synth_split4"), SPLIT4_GATES),
@@ -793,7 +822,7 @@ def phase_main_path(dispatch: str, x: torch.Tensor) -> dict:
     """One 600-s stft -> istft (WL 2048 / hop 1024, or the window the
     dispatch names, at half overlap); returns the launch counts of the
     kernels this dispatch must run."""
-    wl = int(dispatch.rsplit("WL ", 1)[1]) if "WL " in dispatch else WL
+    wl = _dispatch_wl(dispatch)
     step = wl // 2
     want, gates = STFT_WANT[dispatch]
     win = hamming(wl)
@@ -1052,36 +1081,57 @@ def phase_cqt_path(dispatch: str, x: torch.Tensor) -> dict:
     return launches
 
 
+def _dispatch_wl(dispatch: str) -> int:
+    """The window a dispatch names (``... WL n``), WL 2048 without one."""
+    return int(dispatch.rsplit("WL ", 1)[1]) if "WL " in dispatch else WL
+
+
 def phase_fullspec_path(dispatch: str, x: torch.Tensor, ref: tuple,
-                        want: tuple, gates: tuple, bit_equal: bool) -> dict:
+                        want: tuple, gates: tuple) -> dict:
     """stft -> istft of the 600-s signal under a mirror, full-spectrum or
-    two-output lever: the spectrum and the round trip bit-equal to the
-    ``ref`` of the dispatch without the lever where ``bit_equal`` (the two
-    share a kernel tile), and its ``gates``; returns the launch counts of
-    the kernels in ``want``."""
-    win = hamming(WL)
+    two-output lever, at WL 2048 or the window the dispatch names: the
+    spectrum and the round trip bit-equal to the ``ref`` of the dispatch
+    without the lever (the two share a kernel's sums), and its ``gates``;
+    returns the launch counts of the kernels in ``want``."""
+    wl = _dispatch_wl(dispatch)
+    win = hamming(wl)
     reset_counters()
-    spec = zaftpu_torch.stft(x, win, STEP)
-    rec = zaftpu_torch.istft(spec, win, STEP)
+    spec = zaftpu_torch.stft(x, win, wl // 2)
+    rec = zaftpu_torch.istft(spec, win, wl // 2)
     torch.cuda.synchronize()
     launches = check_counters(f"full-spectrum path [{dispatch}]", want)
-    if bit_equal:
-        require(torch.equal(spec, ref[0]),
-                f"[{dispatch}] spectrum differs from the lever-free one's")
-        require(torch.equal(rec, ref[1]),
-                f"[{dispatch}] round trip differs from the lever-free one's")
-        how = "bit-equal to the lever-free dispatch's"
-    else:
-        how = (f"against the lever-free dispatch's: spectrum max_abs_err "
-               f"{_max_abs(spec - ref[0])!r}, round trip "
-               f"{_max_abs(rec - ref[1])!r}")
-    err, scale = oracle_error(x, spec)
+    require(torch.equal(spec, ref[0]),
+            f"[{dispatch}] spectrum differs from the lever-free one's")
+    require(torch.equal(rec, ref[1]),
+            f"[{dispatch}] round trip differs from the lever-free one's")
+    err, scale = oracle_error(x, spec, wl, wl // 2)
     snr = snr_db(x, rec)
-    print(f"full-spectrum path [{dispatch}]: spectrum and round trip {how}; "
-          f"spectrum max_abs_err vs f64 oracle "
-          f"{err!r} (ratio {err / scale!r}); round-trip SNR {snr!r} dB")
+    print(f"full-spectrum path [{dispatch}]: spectrum and round trip "
+          f"bit-equal to the lever-free dispatch's; spectrum max_abs_err vs "
+          f"f64 oracle {err!r} (ratio {err / scale!r}); round-trip SNR "
+          f"{snr!r} dB")
     check_gates(f"full-spectrum path {dispatch}", err, scale, snr, gates)
     return launches
+
+
+def phase_peak_memory(x: torch.Tensor) -> None:
+    """Peak device memory of one default 600-s stft under ZAFTPU_FULLSPEC=0
+    (the half store and the index mirror) and unset (the full store), above
+    what was allocated before the call (the signal)."""
+    peaks = []
+    for env in (FULLSPEC_OFF, DEFAULT):
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        spec = _with_env(env, zaftpu_torch.stft, x, hamming(WL), STEP)
+        torch.cuda.synchronize()
+        peaks.append(torch.cuda.max_memory_allocated() - base)
+        out = spec.numel() * spec.element_size()
+        del spec
+    print(f"peak device memory of one 600-s stft (WL {WL}, hop {STEP}; "
+          f"the output is {out} bytes): ZAFTPU_FULLSPEC=0 {peaks[0]} bytes, "
+          f"unset {peaks[1]} bytes above the signal")
 
 
 def phase_hour_cqt(dispatch: str, segs: list) -> None:
@@ -1108,10 +1158,12 @@ SPLIT = {**DEFAULT, "ZAFTPU_FUSED": "0", "ZAFTPU_SYNTH": "0",
 MELFUSE_ON = {**DEFAULT, "ZAFTPU_MELFUSE": "1"}
 MIRROR_ON = {**DEFAULT, "ZAFTPU_MIRROR": "pallas"}
 FULLSPEC_ON = {**DEFAULT, "ZAFTPU_FULLSPEC": "1"}
+FULLSPEC_OFF = {**DEFAULT, "ZAFTPU_FULLSPEC": "0"}
 FUSED2_ON = {**DEFAULT, "ZAFTPU_FUSED2": "1"}
 SPLIT4 = {**DEFAULT, "ZAFTPU_PRECISION": "split4"}
 SPLIT4_FUSED2 = {**SPLIT4, "ZAFTPU_FUSED2": "1"}
 SPLIT4_FULLSPEC = {**SPLIT4, "ZAFTPU_FULLSPEC": "1"}
+SPLIT4_FULLSPEC_OFF = {**SPLIT4, "ZAFTPU_FULLSPEC": "0"}
 SPLIT4_MELFUSE = {**SPLIT4, "ZAFTPU_MELFUSE": "1"}
 SPLIT4_MATMUL = {**SPLIT4, "ZAFTPU_FFT": "matmul"}
 CQT_HIGHEST = {**DEFAULT, "ZAFTPU_PRECISION": "highest"}
@@ -1137,10 +1189,10 @@ def _with_env(env: dict, fn, *args):
                 os.environ[k] = v
 
 
-def _default_stft_istft(x: torch.Tensor) -> tuple:
-    win = hamming(WL)
-    spec = zaftpu_torch.stft(x, win, STEP)
-    return spec, zaftpu_torch.istft(spec, win, STEP)
+def _default_stft_istft(x: torch.Tensor, wl: int) -> tuple:
+    win = hamming(wl)
+    spec = zaftpu_torch.stft(x, win, wl // 2)
+    return spec, zaftpu_torch.istft(spec, win, wl // 2)
 
 
 def main() -> int:
@@ -1179,30 +1231,42 @@ def main() -> int:
         for name, count in _with_env(env, phase, dispatch, x).items():
             launches[name] += count
         torch.cuda.empty_cache()
-    for base, levers in (
-            (DEFAULT, (
+    # Each lever against its dial's lever-free run at the same window, bit
+    # for bit. At WL 1102 ZAFTPU_FULLSPEC=1 runs the GEMM B3 (B3-s4 under
+    # split4), which the default leaves for B1 and the index mirror there.
+    fft_stores = ("frames_rfft_full_fft", "synth_fft")
+    half_store = ("fused_fft", "synth_fft")
+    for base, wl, levers in (
+            (DEFAULT, WL, (
                 (MIRROR_ON, "ZAFTPU_MIRROR=pallas",
                  ("fused_fft", "mirror_full_planes", "fold_half_planes",
-                  "synth_fft"), EXACT_GATES, True),
-                (FULLSPEC_ON, "ZAFTPU_FULLSPEC=1",
-                 ("frames_rfft_full", "synth_fft"), EXACT_GATES, False),
+                  "synth_fft"), EXACT_GATES),
+                (FULLSPEC_ON, "ZAFTPU_FULLSPEC=1", fft_stores, EXACT_GATES),
+                (FULLSPEC_OFF, "ZAFTPU_FULLSPEC=0", half_store, EXACT_GATES),
                 (FUSED2_ON, "ZAFTPU_FUSED2=1",
-                 ("frames_matmul2_fft", "synth_fft"), EXACT_GATES, True))),
-            (SPLIT4, (
+                 ("frames_matmul2_fft", "synth_fft"), EXACT_GATES))),
+            (DEFAULT, GEMM_WL, (
+                (FULLSPEC_ON, f"ZAFTPU_FULLSPEC=1 WL {GEMM_WL}",
+                 ("frames_rfft_full", "synth"), EXACT_GATES),)),
+            (SPLIT4, WL, (
                 (SPLIT4_FUSED2, "split4 ZAFTPU_FUSED2=1",
-                 ("frames_matmul2_fft", "synth_fft"), EXACT_GATES, True),
-                # B3's twin's spectrum, inverted exactly: split4's gates.
-                (SPLIT4_FULLSPEC, "split4 ZAFTPU_FULLSPEC=1",
-                 ("frames_rfft_full_split4", "synth_fft"), SPLIT4_GATES,
-                 False)))):
-        ref = _with_env(base, _default_stft_istft, x)
-        for env, dispatch, want, gates, bit_equal in levers:
+                 ("frames_matmul2_fft", "synth_fft"), EXACT_GATES),
+                (SPLIT4_FULLSPEC, "split4 ZAFTPU_FULLSPEC=1", fft_stores,
+                 EXACT_GATES),
+                (SPLIT4_FULLSPEC_OFF, "split4 ZAFTPU_FULLSPEC=0", half_store,
+                 EXACT_GATES))),
+            (SPLIT4, GEMM_WL, (
+                (SPLIT4_FULLSPEC, f"split4 ZAFTPU_FULLSPEC=1 WL {GEMM_WL}",
+                 ("frames_rfft_full_split4", "synth_split4"),
+                 SPLIT4_GATES),))):
+        ref = _with_env(base, _default_stft_istft, x, wl)
+        for env, dispatch, want, gates in levers:
             for name, count in _with_env(env, phase_fullspec_path, dispatch,
-                                         x, ref, want, gates,
-                                         bit_equal).items():
+                                         x, ref, want, gates).items():
                 launches[name] += count
             torch.cuda.empty_cache()
         del ref
+    phase_peak_memory(x)
     del x
     torch.cuda.empty_cache()
 

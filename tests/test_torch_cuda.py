@@ -489,23 +489,19 @@ def test_mirror_and_fold_bitwise_vs_plain(dev, n, lead):
 @pytest.mark.parametrize("wl,step,t", SHAPES)
 @pytest.mark.parametrize("lead", [(), (2, 3)])
 def test_frames_rfft_full_bitwise_vs_half_and_mirror(dev, wl, step, t, lead):
-    """B3 is bit-equal to the mirror of the GEMM half spectrum it shares a
-    tile with (an explicit operator; without one at a window outside the
-    FFT rule), and within 1e-5 of max of the float64 oracle: at a
-    power-of-two window the default half spectrum is the FFT kernel's."""
+    """B3 (the GEMM, which an explicit operator names at every window) is
+    bit-equal to the mirror of the GEMM half spectrum it shares a tile
+    with, and within 1e-5 of max of the float64 oracle."""
     padded, win = _inputs(wl, step, t, dev, lead)
-    full = fused.frames_rfft_full(padded, win, wl, step, t)
-    half = fused.frames_rfft(padded, win, wl, step, t,
-                             ops=fused.rdft_ops(wl, torch.float32, dev))
+    gemm = fused.rdft_ops(wl, torch.float32, dev)
+    full = fused.frames_rfft_full(padded, win, wl, step, t, ops=gemm)
+    half = fused.frames_rfft(padded, win, wl, step, t, ops=gemm)
     assert full.shape == (*lead, t, wl)
     assert torch.equal(full, mirror.mirror_full_planes(half, wl))
     assert torch.equal(full, tfft.conjugate_mirror(half, wl))
-    if not rfft.applies(wl):
-        assert torch.equal(full, tfft.conjugate_mirror(
-            fused.frames_rfft(padded, win, wl, step, t), wl))
     oracle = tfft.conjugate_mirror(_oracle_half(padded, win, wl, step, t), wl)
     assert _rel_err(full.cpu().to(torch.complex128), oracle) < 1e-5
-    ref = fused.frames_rfft_full_plain(padded, win, wl, step, t)
+    ref = fused.frames_rfft_full_plain(padded, win, wl, step, t, gemm)
     assert _rel_err(full, ref) < 2e-5
 
 
@@ -513,13 +509,14 @@ def test_frames_rfft_full_bitwise_vs_half_and_mirror(dev, wl, step, t, lead):
     ({"ZAFTPU_MIRROR": "pallas"},
      {"frames_rfft_fft", "mirror_full_planes", "fold_half_planes",
       "synth_fft"}),
-    ({"ZAFTPU_FULLSPEC": "1"}, {"frames_rfft_full", "synth_fft"})])
+    ({"ZAFTPU_FULLSPEC": "1"}, {"frames_rfft_full_fft", "synth_fft"}),
+    ({"ZAFTPU_FULLSPEC": "0"}, {"frames_rfft_fft", "synth_fft"})])
 def test_mirror_and_fullspec_levers_on_card_bit_equal_default(
         dev, levers, moved, monkeypatch):
-    """The mirror lever is bit-equal to the default. The full-spectrum
-    kernel stays a GEMM while the default at WL 2048 is the FFT kernel, so
-    under it stft and the round trip are held within 1e-5 of max of the
-    CPU float64 path instead."""
+    """At WL 2048 the default stft takes the FFT kernel's full store; the
+    mirror lever and ZAFTPU_FULLSPEC=0 its half store (and the mirror
+    kernel or the index mirror), ZAFTPU_FULLSPEC=1 the full store: each
+    bit-equal to the default, spectrum and round trip."""
     x64 = np.random.default_rng(7).standard_normal((2, 44100))
     x = torch.from_numpy(x64.astype(np.float32)).to(dev)
     win = hamming(2048)
@@ -532,6 +529,7 @@ def test_mirror_and_fullspec_levers_on_card_bit_equal_default(
         return {"frames_rfft": fused.frames_rfft.launches,
                 "frames_rfft_fft": rfft.frames_rfft_fft.launches,
                 "frames_rfft_full": fused.frames_rfft_full.launches,
+                "frames_rfft_full_fft": rfft.frames_rfft_full_fft.launches,
                 "mirror_full_planes": mirror.mirror_full_planes.launches,
                 "fold_half_planes": mirror.fold_half_planes.launches,
                 "synth": synth.istft_ola.launches,
@@ -541,15 +539,8 @@ def test_mirror_and_fullspec_levers_on_card_bit_equal_default(
     spec = zaftpu_torch.stft(x, win, 1024)
     rec = zaftpu_torch.istft(spec, win, 1024)
     assert {k for k, v in launches().items() if v != before[k]} == moved
-    if "ZAFTPU_FULLSPEC" not in levers:
-        assert torch.equal(spec, ref)
-        assert torch.equal(rec, ref_rec)
-        return
-    monkeypatch.delenv("ZAFTPU_FULLSPEC")
-    oracle = zaftpu_torch.stft(torch.from_numpy(x64), win, 1024)
-    assert _rel_err(spec.cpu().to(torch.complex128), oracle) < 1e-5
-    assert _rel_err(rec.cpu().double(),
-                    zaftpu_torch.istft(oracle, win, 1024)) < 1e-5
+    assert torch.equal(spec, ref)
+    assert torch.equal(rec, ref_rec)
 
 
 # The split4 twins (ZAFTPU_PRECISION=split4) and B12.
@@ -672,41 +663,49 @@ def test_split4_paths_on_card_match_cpu_f64(dev, monkeypatch):
 def test_fused2_and_fullspec_levers_on_card_bit_equal(dev, lever, dial,
                                                       monkeypatch):
     """Each lever's kernel shares the default's tile, so stft is bit-equal
-    to the default (B12's FFT planes store on both dials), except B3 and
-    its twin: a GEMM beside the default FFT kernel, held within 1e-5 (1e-4
-    under split4) of max of the CPU float64 path."""
+    to the default: the FFT kernel's planes (ZAFTPU_FUSED2=1) or full
+    (ZAFTPU_FULLSPEC=1, as the default) store on both dials. With
+    ZAFTPU_FFT=matmul the full-spectrum lever launches B3 or its twin,
+    bit-equal to that dispatch's default (B1 or its twin and the mirror)
+    and within 1e-5 (1e-4 under split4) of max of the CPU float64 path."""
     monkeypatch.setenv("ZAFTPU_PRECISION", dial)
     x64 = np.random.default_rng(12).standard_normal((2, 44100))
     x = torch.from_numpy(x64.astype(np.float32)).to(dev)
     win = hamming(2048)
     ref = zaftpu_torch.stft(x, win, 1024)
     monkeypatch.setenv(lever, "1")
-    kernel = {("ZAFTPU_FUSED2", "highest"): rfft.frames_matmul2_fft,
-              ("ZAFTPU_FUSED2", "split4"): rfft.frames_matmul2_fft,
-              ("ZAFTPU_FULLSPEC", "highest"): fused.frames_rfft_full,
-              ("ZAFTPU_FULLSPEC", "split4"): fused.frames_rfft_full_split4
-              }[lever, dial]
+    kernel = {"ZAFTPU_FUSED2": rfft.frames_matmul2_fft,
+              "ZAFTPU_FULLSPEC": rfft.frames_rfft_full_fft}[lever]
     before = kernel.launches
     spec = zaftpu_torch.stft(x, win, 1024)
     assert kernel.launches == before + 1
+    assert torch.equal(spec, ref)
     if lever != "ZAFTPU_FULLSPEC":
-        assert torch.equal(spec, ref)
         return
+    monkeypatch.setenv("ZAFTPU_FFT", "matmul")
+    gemm = (fused.frames_rfft_full_split4 if dial == "split4"
+            else fused.frames_rfft_full)
+    before = gemm.launches
+    spec = zaftpu_torch.stft(x, win, 1024)
+    assert gemm.launches == before + 1
+    monkeypatch.delenv(lever)
+    assert torch.equal(spec, zaftpu_torch.stft(x, win, 1024))
     oracle = zaftpu_torch.stft(torch.from_numpy(x64), win, 1024)
     tol = 1e-4 if dial == "split4" else 1e-5
     assert _rel_err(spec.cpu().to(torch.complex128), oracle) < tol
 
 
 @pytest.mark.parametrize("wl,lever,fused2,kernel", [
-    (2048, None, False, "fft"), (2048, None, True, "fft2"),
+    (2048, None, False, "fft_full"), (2048, None, True, "fft2"),
     (1102, None, False, "twin"), (1102, None, True, "twin2"),
     (2048, "matmul", False, "twin"), (2048, "matmul", True, "twin2"),
-    (1764, "native", False, "fft")])
+    (1764, "native", False, "fft_full")])
 def test_split4_stft_takes_the_fft_where_the_rule_holds(dev, wl, lever,
                                                        fused2, kernel,
                                                        monkeypatch):
-    """Under split4 stft launches the FFT kernel (its planes store under
-    ZAFTPU_FUSED2=1) where the shape rule holds, and B1's twin (B12's)
+    """Under split4 stft launches the FFT kernel (its full store, or its
+    planes store under ZAFTPU_FUSED2=1) where the shape rule holds, and
+    B1's twin (B12's)
     at WL 1102 or with ZAFTPU_FFT=matmul, once and nothing else; the FFT's
     spectrum bit-equal to the exact dial's, the twins' within 1e-4 of max
     of the CPU float64 path."""
@@ -718,6 +717,7 @@ def test_split4_stft_takes_the_fft_where_the_rule_holds(dev, wl, lever,
     x64 = np.random.default_rng(wl + 1).standard_normal((2, 20000))
     x = torch.from_numpy(x64.astype(np.float32)).to(dev)
     counters = {"fft": rfft.frames_rfft_fft, "fft2": rfft.frames_matmul2_fft,
+                "fft_full": rfft.frames_rfft_full_fft,
                 "twin": fused.frames_rfft_split4,
                 "twin2": fused.frames_matmul2_split4,
                 "gemm": fused.frames_rfft, "gemm2": fused.frames_matmul2}
@@ -920,14 +920,16 @@ def test_fft_entry_refuses_what_the_rule_refuses(dev):
     lib = _build.library()
     buf = torch.zeros(8192, device=dev)
     for wl in range(1, 4200):
-        for entry in (lib.zt_rfft_half, lib.zt_rfft_planes):
+        for entry in (lib.zt_rfft_half, lib.zt_rfft_planes,
+                      lib.zt_rfft_full):
             err = entry(buf.data_ptr(), buf.data_ptr(), buf.data_ptr(),
                         buf.data_ptr(), 1, 8192, 0, wl, 1, 0)
             assert (err == 0) is rfft.fits(wl), (wl, err)
     for wl in (38, 1102, 255, 4098):
         padded, win = _inputs(wl, wl // 2, 3, dev)
-        with pytest.raises(ValueError, match="prime factor"):
-            rfft.frames_rfft_fft(padded, win, wl, wl // 2, 3)
+        for wrapper in (rfft.frames_rfft_fft, rfft.frames_rfft_full_fft):
+            with pytest.raises(ValueError, match="prime factor"):
+                wrapper(padded, win, wl, wl // 2, 3)
 
 
 def test_fft_kernel_takes_an_hour_in_one_launch(dev):
@@ -954,7 +956,7 @@ def test_fft_kernel_takes_an_hour_in_one_launch(dev):
 @pytest.mark.parametrize("wl", [16, 256, 2048, 4096, 100, 1764, 1102])
 @pytest.mark.parametrize("fused2", [False, True])
 def test_shape_rule_launch_counts_on_card(dev, wl, fused2, monkeypatch):
-    """stft launches the FFT kernel (its half or, with ZAFTPU_FUSED2=1, its
+    """stft launches the FFT kernel (its full or, with ZAFTPU_FUSED2=1, its
     planes store) at an even window whose half is 7-smooth (16 ... 1764)
     and the GEMM kernel otherwise (1102 = 2 * 19 * 29), once, and no plain
     version; within 1e-5 of max of the float64 path."""
@@ -963,20 +965,98 @@ def test_shape_rule_launch_counts_on_card(dev, wl, fused2, monkeypatch):
     x64 = np.random.default_rng(wl).standard_normal((2, 20000))
     x = torch.from_numpy(x64.astype(np.float32)).to(dev)
     counters = {"gemm": fused.frames_rfft, "gemm2": fused.frames_matmul2,
-                "fft": rfft.frames_rfft_fft, "fft2": rfft.frames_matmul2_fft}
+                "fft": rfft.frames_rfft_fft, "fft2": rfft.frames_matmul2_fft,
+                "fft_full": rfft.frames_rfft_full_fft,
+                "gemm_full": fused.frames_rfft_full}
     plains = (fused.frames_rfft_plain, fused.frames_matmul2_plain,
-              rfft.frames_rfft_fft_plain, rfft.frames_matmul2_fft_plain)
+              rfft.frames_rfft_fft_plain, rfft.frames_matmul2_fft_plain,
+              rfft.frames_rfft_full_fft_plain, fused.frames_rfft_full_plain)
     before = {k: c.launches for k, c in counters.items()}
     calls = [p.calls for p in plains]
     win = hamming(wl)
     spec = zaftpu_torch.stft(x, win, wl // 2)
     moved = {k for k, c in counters.items() if c.launches != before[k]}
-    want = ("fft" if rfft.applies(wl) else "gemm") + ("2" if fused2 else "")
+    if not rfft.applies(wl):
+        want = "gemm2" if fused2 else "gemm"
+    else:
+        want = "fft2" if fused2 else "fft_full"
     assert moved == {want} and counters[want].launches == before[want] + 1
     assert [p.calls for p in plains] == calls
     monkeypatch.delenv("ZAFTPU_FUSED2", raising=False)
     oracle = zaftpu_torch.stft(torch.from_numpy(x64), win, wl // 2)
     assert _rel_err(spec.cpu().to(torch.complex128), oracle) < 1e-5
+
+
+# The FFT kernel's full store: B3 and B3-s4 at every even window whose half
+# is 7-smooth.
+
+@pytest.mark.parametrize("wl,step,t", FFT_SHAPES + [(2048, 1024, 1),
+                                                    (400, 160, 1)])
+@pytest.mark.parametrize("lead,offset", [((), 0), ((), 1), ((3,), 0),
+                                         ((2, 3), 1)])
+def test_fft_full_store_matches_plain(dev, wl, step, t, lead, offset):
+    """The full store equals its plain version bit for bit (the kernel
+    does the plain version's float32 operations in its order; the mirror's
+    negation is exact) and the half store followed by the conjugate mirror;
+    T = 1, ragged batches, and misaligned signal views (an odd storage
+    offset: the scalar loads)."""
+    padded, win = _inputs(wl, step, t, dev, lead, offset)
+    before = rfft.frames_rfft_full_fft.launches
+    full = rfft.frames_rfft_full_fft(padded, win, wl, step, t)
+    assert rfft.frames_rfft_full_fft.launches == before + 1
+    assert full.shape == (*lead, t, wl) and full.dtype == torch.complex64
+    assert torch.equal(full, rfft.frames_rfft_full_fft_plain(padded, win, wl,
+                                                             step, t))
+    half = rfft.frames_rfft_fft(padded, win, wl, step, t)
+    assert torch.equal(full, tfft.conjugate_mirror(half, wl))
+
+
+def test_fft_full_store_takes_an_hour_in_one_launch(dev):
+    """One hour at 44.1 kHz, WL 2048 / hop 1024 (155,041 frames, 2.5 GB of
+    full spectrum) in one launch; its first and last 64 frames against the
+    plain version of the same frames."""
+    wl, step, n = 2048, 1024, 3600 * 44100
+    gen = torch.Generator(device=dev).manual_seed(23)
+    x = torch.randn(n, device=dev, generator=gen)
+    padded, t = centre_padded(x, wl, step)
+    win = torch.from_numpy(hamming(wl).astype(np.float32)).to(dev)
+    before = rfft.frames_rfft_full_fft.launches
+    full = fused.frames_rfft_full(padded, win, wl, step, t)
+    assert rfft.frames_rfft_full_fft.launches == before + 1
+    assert full.shape == (t, wl) and t == 155041
+    span = 63 * step + wl
+    head = rfft.frames_rfft_full_fft_plain(padded[:span], win, wl, step, 64)
+    tail = rfft.frames_rfft_full_fft_plain(padded[(t - 64) * step:][:span],
+                                           win, wl, step, 64)
+    assert torch.equal(full[:64], head) and torch.equal(full[-64:], tail)
+
+
+@pytest.mark.parametrize("wl", [2048, 1764])
+@pytest.mark.parametrize("dial", ["highest", "split4"])
+def test_default_stft_takes_the_full_store_on_both_dials(dev, wl, dial,
+                                                         monkeypatch):
+    """At a rule window the default stft launches the FFT kernel's full
+    store once, and no half store, mirror kernel or GEMM; its spectrum and
+    round trip equal ZAFTPU_FULLSPEC=0's (the half store and the index
+    mirror) bit for bit, on both dials."""
+    monkeypatch.setenv("ZAFTPU_PRECISION", dial)
+    x64 = np.random.default_rng(wl + 5).standard_normal((2, 44100))
+    x = torch.from_numpy(x64.astype(np.float32)).to(dev)
+    win = hamming(wl)
+    counters = (rfft.frames_rfft_full_fft, rfft.frames_rfft_fft,
+                rfft.frames_matmul2_fft, mirror.mirror_full_planes,
+                fused.frames_rfft_full, fused.frames_rfft_full_split4,
+                fused.frames_rfft, fused.frames_rfft_split4)
+    before = [c.launches for c in counters]
+    spec = zaftpu_torch.stft(x, win, wl // 2)
+    assert [c.launches for c in counters] == [before[0] + 1, *before[1:]]
+    rec = zaftpu_torch.istft(spec, win, wl // 2)
+    monkeypatch.setenv("ZAFTPU_FULLSPEC", "0")
+    half = rfft.frames_rfft_fft.launches
+    ref = zaftpu_torch.stft(x, win, wl // 2)
+    assert rfft.frames_rfft_fft.launches == half + 1
+    assert torch.equal(spec, ref)
+    assert torch.equal(rec, zaftpu_torch.istft(ref, win, wl // 2))
 
 
 # The inverse real-FFT + overlap-add kernel: B4 and B4-s4 at every even

@@ -240,24 +240,37 @@ def test_fft_lever_matmul_turns_the_rule_off(mode, fft, dial, monkeypatch):
 
 
 def test_stft_takes_the_fft_and_fullspec_keeps_the_gemm(monkeypatch):
+    """At a rule window the default stft and ZAFTPU_FULLSPEC=1 take the FFT
+    kernel's full store, ZAFTPU_FULLSPEC=0 its half store and the mirror;
+    ZAFTPU_FULLSPEC=1 with ZAFTPU_FFT=matmul keeps the GEMM B3. All four
+    spectra are equal."""
     x = torch.from_numpy(np.random.default_rng(3).standard_normal(9000))
-    before = (trfft.frames_rfft_fft_plain.calls,
-              tfused.frames_rfft_full_plain.calls)
-    zaftpu_torch.stft(x, hamming(512), 128)
-    monkeypatch.setenv("ZAFTPU_FULLSPEC", "1")
-    zaftpu_torch.stft(x, hamming(512), 128)
-    assert (trfft.frames_rfft_fft_plain.calls,
-            tfused.frames_rfft_full_plain.calls) == (before[0] + 1,
-                                                     before[1] + 1)
+    counters = (trfft.frames_rfft_full_fft_plain, trfft.frames_rfft_fft_plain,
+                tfused.frames_rfft_full_plain)
+    specs = []
+    for levers, took in (({}, 0), ({"ZAFTPU_FULLSPEC": "1"}, 0),
+                         ({"ZAFTPU_FULLSPEC": "0"}, 1),
+                         ({"ZAFTPU_FULLSPEC": "1", "ZAFTPU_FFT": "matmul"},
+                          2)):
+        for name, value in levers.items():
+            monkeypatch.setenv(name, value)
+        before = [c.calls for c in counters]
+        specs.append(zaftpu_torch.stft(x, hamming(512), 128))
+        before[took] += 1
+        assert [c.calls for c in counters] == before, levers
+        for name in levers:
+            monkeypatch.delenv(name)
+    assert torch.equal(specs[0], specs[1]) and torch.equal(specs[0], specs[2])
+    torch.testing.assert_close(specs[3], specs[0], rtol=0, atol=1e-12)
 
 
 def test_cpu_f32_round_trip_above_120db(signal, hamming_window):
-    """The exact-dial gate: float32 stft (the FFT plain version at WL 2048)
-    then istft reads at least 120 dB."""
+    """The exact-dial gate: float32 stft (the FFT full store's plain version
+    at WL 2048) then istft reads at least 120 dB."""
     x32 = signal.astype(np.float32)
-    calls = trfft.frames_rfft_fft_plain.calls
+    calls = trfft.frames_rfft_full_fft_plain.calls
     spec = zaftpu_torch.stft(torch.from_numpy(x32), hamming_window, 1024)
-    assert trfft.frames_rfft_fft_plain.calls == calls + 1
+    assert trfft.frames_rfft_full_fft_plain.calls == calls + 1
     rec = zaftpu_torch.istft(spec, hamming_window, 1024)
     assert snr_db(x32.astype(np.float64), rec.numpy().astype(np.float64)) \
         >= 120.0
@@ -269,29 +282,32 @@ def _bad_fft_launch(case):
     padded = torch.zeros(t * step + wl - step)
     win = torch.zeros(wl)
     calls = {
-        "f64": lambda: trfft._launch("frames_rfft_fft", False,
+        "f64": lambda: trfft._launch("frames_rfft_fft", "half",
                                      padded.double(), win, wl, step, t),
-        "step": lambda: trfft._launch("frames_rfft_fft", False, padded, win,
+        "step": lambda: trfft._launch("frames_rfft_fft", "half", padded, win,
                                       wl, wl + 1, t),
-        "window": lambda: trfft._launch("frames_rfft_fft", False, padded,
+        "window": lambda: trfft._launch("frames_rfft_fft", "half", padded,
                                         win[:-1], wl, step, t),
-        "short": lambda: trfft._launch("frames_matmul2_fft", True,
+        "short": lambda: trfft._launch("frames_matmul2_fft", "planes",
                                        padded[:-1], win, wl, step, t),
-        "not_pow2": lambda: trfft._launch("frames_matmul2_fft", True,
+        "not_pow2": lambda: trfft._launch("frames_matmul2_fft", "planes",
                                           padded[:-1], win[:-1], wl - 1,
                                           step, t),
         "prime_above_7": lambda: trfft._launch(
-            "frames_rfft_fft", False, torch.zeros(8 * 551 + 1102),
+            "frames_rfft_full_fft", "full", torch.zeros(8 * 551 + 1102),
             torch.zeros(1102), 1102, 551, 9),
         "too_long": lambda: trfft._launch(
-            "frames_rfft_fft", False, torch.zeros(8192 * 2), torch.zeros(8192),
-            8192, 4096, 2),
+            "frames_rfft_fft", "half", torch.zeros(8192 * 2),
+            torch.zeros(8192), 8192, 4096, 2),
+        "full_short": lambda: trfft._launch("frames_rfft_full_fft", "full",
+                                            padded[:-1], win, wl, step, t),
     }
     return calls[case]()
 
 
 @pytest.mark.parametrize("case", ["f64", "step", "window", "short",
-                                  "not_pow2", "prime_above_7", "too_long"])
+                                  "not_pow2", "prime_above_7", "too_long",
+                                  "full_short"])
 def test_fft_wrapper_refuses_before_launch(case, monkeypatch):
     """The CUDA half of the wrapper checks dtype, hop, window, length and
     the kernel's set of lengths before it touches the library: non-float32
@@ -302,10 +318,10 @@ def test_fft_wrapper_refuses_before_launch(case, monkeypatch):
         raise AssertionError("the launch was reached")
 
     monkeypatch.setattr(_build, "library", no_library)
-    launches = (trfft.frames_rfft_fft.launches,
-                trfft.frames_matmul2_fft.launches)
+    wrappers = (trfft.frames_rfft_fft, trfft.frames_matmul2_fft,
+                trfft.frames_rfft_full_fft)
+    launches = [w.launches for w in wrappers]
     error = NotImplementedError if case == "f64" else ValueError
     with pytest.raises(error):
         _bad_fft_launch(case)
-    assert (trfft.frames_rfft_fft.launches,
-            trfft.frames_matmul2_fft.launches) == launches
+    assert [w.launches for w in wrappers] == launches

@@ -631,7 +631,10 @@ def test_cqt_mirror_full_wrappers_take_plain_versions_on_cpu():
     launches, calls = _b3_b11_counts(), _b3_b11_calls()
     tcqtslab.cqt_magnitudes(sig, ops, 320, kern.fft_length, 20,
                             kern.number_frequencies)
-    full = tfused.frames_rfft_full(padded, win, wl, step, t)
+    # B3 is the GEMM's full store: an explicit operator names it at WL 256.
+    full = tfused.frames_rfft_full(padded, win, wl, step, t,
+                                   ops=tfused.rdft_ops(wl, torch.float32,
+                                                       "cpu"))
     tmirror.mirror_full_planes(tfused.frames_rfft(padded, win, wl, step, t),
                                wl)
     tmirror.fold_half_planes(full, wl)
@@ -710,10 +713,11 @@ def test_b3_b10_b11_batched_equal_per_item(wl, step, t):
     padded = torch.from_numpy(rng.standard_normal(
         (2, 3, t * step + wl - step)).astype(np.float32))
     win = torch.from_numpy(hamming(wl).astype(np.float32))
-    full = tfused.frames_rfft_full(padded, win, wl, step, t)
-    # The GEMM half spectrum (an explicit operator), which B3 shares.
-    half = tfused.frames_rfft(padded, win, wl, step, t,
-                              ops=tfused.rdft_ops(wl, torch.float32, "cpu"))
+    # B3 and the GEMM half spectrum it shares: an explicit operator names
+    # the GEMM at every window.
+    gemm = tfused.rdft_ops(wl, torch.float32, "cpu")
+    full = tfused.frames_rfft_full(padded, win, wl, step, t, ops=gemm)
+    half = tfused.frames_rfft(padded, win, wl, step, t, ops=gemm)
     mirrored = tmirror.mirror_full_planes(half, wl)
     h_re, h_im = tmirror.fold_half_planes(full.transpose(-1, -2).contiguous()
                                           .transpose(-1, -2), wl)
@@ -728,7 +732,7 @@ def test_b3_b10_b11_batched_equal_per_item(wl, step, t):
         for j in range(3):
             one = padded[i, j]
             torch.testing.assert_close(full[i, j], tfused.frames_rfft_full(
-                one, win, wl, step, t))
+                one, win, wl, step, t, ops=gemm))
             r, m = tmirror.fold_half_planes(full[i, j], wl)
             assert torch.equal(h_re[i, j], r) and torch.equal(h_im[i, j], m)
             torch.testing.assert_close(

@@ -450,46 +450,45 @@ def test_float64_is_unchanged_by_the_dial(signal, monkeypatch):
 @pytest.mark.parametrize("dial", ["highest", "split4"])
 def test_levers_equal_the_default_under_each_dial(x32, lever, dial,
                                                   monkeypatch):
-    """ZAFTPU_FUSED2=1 stores the default analysis's sums under both dials
-    (the FFT kernel's at WL 2048): stft and the round trip are bit-equal to
-    the default. The full-spectrum kernel (ZAFTPU_FULLSPEC=1) stays a GEMM
-    while the default at WL 2048 is the FFT kernel on both dials: there
-    both spectra are held against the float64 oracle instead, the lever's
-    at its dial's gate (float32 rounding on the exact dial; split4's 1e-4
-    of max and its (100, 125) dB round trip), the default's at float32
-    rounding."""
+    """ZAFTPU_FUSED2=1 and ZAFTPU_FULLSPEC=1 store the default analysis's
+    sums under both dials (the FFT kernel's planes and full stores at WL
+    2048): stft and the round trip are bit-equal to the default. Under
+    ZAFTPU_FFT=matmul the full-spectrum lever runs the GEMM B3 or its twin
+    beside the default's B1 or its twin, the same tile: bit-equal again,
+    and on the split4 dial within split4's gates (1e-4 of max of the
+    float64 oracle, test_pallas.py:177; a (100, 125) dB round trip)."""
     monkeypatch.setenv("ZAFTPU_PRECISION", dial)
     x = torch.from_numpy(x32)
     win = hamming(WL)
     ref = zaftpu_torch.stft(x, win, STEP)
     monkeypatch.setenv(lever, "1")
     counted = {"ZAFTPU_FUSED2": trfft.frames_matmul2_fft_plain,
-               "ZAFTPU_FULLSPEC": (tfused.frames_rfft_full_split4_plain
-                                   if dial == "split4"
-                                   else tfused.frames_rfft_full_plain)}[lever]
+               "ZAFTPU_FULLSPEC": trfft.frames_rfft_full_fft_plain}[lever]
     calls = counted.calls
     spec = zaftpu_torch.stft(x, win, STEP)
     assert counted.calls == calls + 1
-    rec = zaftpu_torch.istft(spec, win, STEP)
-    ref_rec = zaftpu_torch.istft(ref, win, STEP)
-    if lever == "ZAFTPU_FULLSPEC" and dial == "highest":
-        oracle = _np(zaftpu_torch.stft(x.double(), win, STEP))
-        for got in (spec, ref):
-            _gemm_close(_np(got).real, oracle.real)
-            _gemm_close(_np(got).imag, oracle.imag)
-        _gemm_close(_np(rec), _np(ref_rec))
-        return
-    if lever == "ZAFTPU_FULLSPEC":
-        oracle = _np(zaftpu_torch.stft(x.double(), win, STEP))
-        scale = np.abs(oracle).max()
-        np.testing.assert_allclose(_np(spec), oracle, rtol=0,
-                                   atol=1e-4 * scale)  # test_pallas.py:177
-        _gemm_close(_np(ref).real, oracle.real)
-        _gemm_close(_np(ref).imag, oracle.imag)
-        assert 100.0 < snr_db(x32, _np(rec)) < 125.0
-        return
     assert torch.equal(spec, ref)
-    assert torch.equal(rec, ref_rec)
+    assert torch.equal(zaftpu_torch.istft(spec, win, STEP),
+                       zaftpu_torch.istft(ref, win, STEP))
+    if lever != "ZAFTPU_FULLSPEC":
+        return
+    monkeypatch.setenv("ZAFTPU_FFT", "matmul")
+    gemm = (tfused.frames_rfft_full_split4_plain if dial == "split4"
+            else tfused.frames_rfft_full_plain)
+    calls = gemm.calls
+    spec = zaftpu_torch.stft(x, win, STEP)
+    assert gemm.calls == calls + 1
+    monkeypatch.delenv(lever)
+    assert torch.equal(spec, zaftpu_torch.stft(x, win, STEP))
+    oracle = _np(zaftpu_torch.stft(x.double(), win, STEP))
+    if dial == "highest":
+        _gemm_close(_np(spec).real, oracle.real)
+        _gemm_close(_np(spec).imag, oracle.imag)
+        return
+    np.testing.assert_allclose(_np(spec), oracle, rtol=0,
+                               atol=1e-4 * np.abs(oracle).max())
+    rec = zaftpu_torch.istft(spec, win, STEP)
+    assert 100.0 < snr_db(x32, _np(rec)) < 125.0
 
 
 def test_fused2_lever_is_off_unless_one(monkeypatch):
@@ -554,13 +553,13 @@ def _outputs(x, win, fb):
 
 
 def test_split4_takes_the_fft_where_the_rule_holds(x32, monkeypatch):
-    """Under split4 without ZAFTPU_FFT=matmul, stft, spectrogram,
-    melspectrogram and mfcc at WL 2048 run the FFT kernel's plain version
-    once each and no twin: bit-equal to the exact dial's outputs, within
-    2e-6 of max of zaftpu's split4 outputs under ZAFTPU_FFT=auto (its
-    native FFT off the TPU; MFCC atol 5e-3), and istft runs the inverse
-    FFT's plain version and no twin: its round trip bit-equal to the exact
-    dial's, above split4's (100, 125) dB."""
+    """Under split4 without ZAFTPU_FFT=matmul, stft (the full store),
+    spectrogram, melspectrogram and mfcc (the half store) at WL 2048 run
+    the FFT kernel's plain version once each and no twin: bit-equal to the
+    exact dial's outputs, within 2e-6 of max of zaftpu's split4 outputs
+    under ZAFTPU_FFT=auto (its native FFT off the TPU; MFCC atol 5e-3),
+    and istft runs the inverse FFT's plain version and no twin: its round
+    trip bit-equal to the exact dial's, above split4's (100, 125) dB."""
     monkeypatch.delenv("ZAFTPU_FFT", raising=False)
     x = torch.from_numpy(x32)
     win = hamming(WL).astype(np.float32)
@@ -571,10 +570,11 @@ def test_split4_takes_the_fft_where_the_rule_holds(x32, monkeypatch):
     jax.clear_caches()
     twins = (tfused.frames_rfft_split4_plain, tfused.frames_matmul2_split4_plain,
              tmelfused.spec_rows_plain, tmelfused.mel_rows_split4_plain)
-    before = (trfft.frames_rfft_fft_plain.calls, *(c.calls for c in twins))
+    ffts = (trfft.frames_rfft_full_fft_plain, trfft.frames_rfft_fft_plain)
+    before = tuple(c.calls for c in ffts + twins)
     outs = _outputs(x, win, fb)
-    assert (trfft.frames_rfft_fft_plain.calls,
-            *(c.calls for c in twins)) == (before[0] + 4, *before[1:])
+    assert tuple(c.calls for c in ffts + twins) == (
+        before[0] + 1, before[1] + 3, *before[2:])
     for got, want in zip(outs, exact):
         assert torch.equal(got, want)
     refs = (zaftpu.stft(x32, win, STEP), zaftpu.spectrogram(x32, win, STEP),

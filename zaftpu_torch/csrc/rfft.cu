@@ -2,21 +2,25 @@
 //   out[b, t, k] = sum_w sig[b, t*step + w] * win[w] * exp(-2 pi i k w / N)
 // for k = 0..N/2, N = WL even, from 16 to 4096, with N/2 free of prime
 // factors above 7 (183 lengths: every power of two, and 400, 882, 1764,
-// 3000 ...), with two stores of the same values: rfft_half writes the
+// 3000 ...), with three stores of the same values: rfft_half writes the
 // interleaved complex (batch, T, F) half spectrum, rfft_planes the two
-// float32 planes (2, batch, T, F), F = N/2 + 1. Both run one kernel body,
-// so they are bit-equal.
+// float32 planes (2, batch, T, F), F = N/2 + 1, and rfft_full the complex
+// (batch, T, N) full spectrum, out[N - k] = conj out[k] for k = 1..N/2 - 1
+// (the reference's zaf.py:139 convention). All three run one kernel body,
+// so they are bit-equal (the conjugate's negation is exact).
 //
 // Replaces zaftpu/pallas/fused.py: _frames_matmul_impl as frames_rfft
-// reaches it (B1), its _kernel_split4 (B1-s4), _frames_matmul2_impl (B12)
-// and its _kernel2_split4 (B12-s4) on both dials at those window lengths;
-// the GEMM kernels of fused.cu and their twins keep every other length and
-// an explicit operator (kernels/fused.py states the rule). The TPU kernels
-// contract each frame with a dense (N, F) cos/sin operator on the matrix
-// unit: 4 N F FLOP per frame. Here the same sums come from an FFT, about
-// 2.5 N log2 N FLOP, which leaves the kernel bound by its bytes: each
-// signal sample read once (4 bytes per hop) and 8 F bytes written per
-// frame, 0.095 ms at the 600-s WL 2048 shape on an H100 (3.35 TB/s).
+// reaches it (B1), its _kernel_split4 (B1-s4), _frames_matmul2_impl (B12),
+// its _kernel2_split4 (B12-s4), _frames_matmul_full_impl (B3, the mirror in
+// its epilogue) and its _kernel_full_split4 (B3-s4) on both dials at those
+// window lengths; the GEMM kernels of fused.cu and their twins keep every
+// other length and an explicit operator (kernels/fused.py states the
+// rule). The TPU kernels contract each frame with a dense (N, F) cos/sin
+// operator on the matrix unit: 4 N F FLOP per frame. Here the same sums
+// come from an FFT, about 2.5 N log2 N FLOP, which leaves the kernel bound
+// by its bytes: each signal sample read once (4 bytes per hop) and 8 F
+// bytes (8 N for the full store) written per frame, 0.095 ms (0.158 ms) at
+// the 600-s WL 2048 shape on an H100 (3.35 TB/s).
 //
 // Design: a block of 256 threads transforms up to kElems = 2048 complex
 // values at once, the M-point complex FFTs (M = N/2) of fpb = kElems / M
@@ -32,21 +36,19 @@
 //     each): the buffer then holds Z = FFT_M(z) in natural order.
 //  3. Split: X[k] = E + W_N^k O with E = (Z[k] + conj Z[(M-k) mod M]) / 2,
 //     O = (Z[k] - conj Z[(M-k) mod M]) / 2i, for k = 0..M (Z[M] read as
-//     Z[0]); a warp writes consecutive bins of one frame, so both stores
-//     are coalesced.
-// The twiddles W_N^j, j < N, are one host table (float64 math rounded once
-// to float32, kernels/rfft.py), read through the read-only cache. Every
-// product and sum is an explicitly rounded intrinsic (__fmul_rn, __fadd_rn),
-// so nothing is contracted into an FMA and the kernel does the plain
-// version's float32 operations in the plain version's order. Indices are
-// integer divisions by the runtime M, q and ns. No atomics; ragged T is
-// masked at the loads (zeros) and the stores.
+//     Z[0]); a warp writes consecutive bins of one frame, so every store is
+//     coalesced: the full store's mirrored writes land on consecutive
+//     descending addresses, in the same loop iteration as the forward ones.
 #include "stockham.cuh"
 
 namespace {
 
-// VEC: 8-byte signal and window loads. PLANES: the (2, batch, T, F) store.
-template <bool VEC, bool PLANES>
+// The output layouts of one body: (batch, T, F) complex, (2, batch, T, F)
+// float32 planes, (batch, T, N) complex with the conjugate mirror.
+enum class Store { kHalf, kPlanes, kFull };
+
+// VEC: 8-byte signal and window loads.
+template <bool VEC, Store S>
 __global__ void __launch_bounds__(zt::kThreads)
 rfft_kernel(const float* __restrict__ sig, const float* __restrict__ win,
             const float2* __restrict__ tw, float* __restrict__ out,
@@ -82,7 +84,6 @@ rfft_kernel(const float* __restrict__ sig, const float* __restrict__ win,
   zt::fft_rows(buf, cur, tw, M, fpb, n, plan);
 
   const int F = M + 1;
-  const long long plane = (long long)gridDim.y * T * F;
   for (int e = threadIdx.x; e < fpb * F; e += blockDim.x) {
     const int f = e / F;
     const int k = e - f * F;
@@ -100,17 +101,21 @@ rfft_kernel(const float* __restrict__ sig, const float* __restrict__ win,
         __fadd_rn(er, __fsub_rn(__fmul_rn(w.x, od), __fmul_rn(w.y, oi)));
     const float xi =
         __fadd_rn(ei, __fadd_rn(__fmul_rn(w.x, oi), __fmul_rn(w.y, od)));
-    const long long idx = ((long long)blockIdx.y * T + t) * F + k;
-    if constexpr (PLANES) {
-      out[idx] = xr;
-      out[plane + idx] = xi;
+    const long long row = (long long)blockIdx.y * T + t;
+    if constexpr (S == Store::kPlanes) {
+      out[row * F + k] = xr;
+      out[((long long)gridDim.y * T + row) * F + k] = xi;
+    } else if constexpr (S == Store::kHalf) {
+      reinterpret_cast<float2*>(out)[row * F + k] = make_float2(xr, xi);
     } else {
-      reinterpret_cast<float2*>(out)[idx] = make_float2(xr, xi);
+      float2* o = reinterpret_cast<float2*>(out) + row * n;
+      o[k] = make_float2(xr, xi);
+      if (k != 0 && k != M) o[n - k] = make_float2(xr, -xi);
     }
   }
 }
 
-template <bool PLANES>
+template <Store S>
 int launch(const void* sig, const void* win, const void* tw, void* out,
            int batch, long long sig_len, int T, int WL, int step,
            void* stream) {
@@ -129,10 +134,10 @@ int launch(const void* sig, const void* win, const void* tw, void* out,
   float* y = static_cast<float*>(out);
   if (step % 2 == 0 && sig_len % 2 == 0 && zt::aligned8(sig) &&
       zt::aligned8(win)) {
-    rfft_kernel<true, PLANES><<<grid, zt::kThreads, 0, st>>>(
+    rfft_kernel<true, S><<<grid, zt::kThreads, 0, st>>>(
         s, w, t, y, sig_len, T, WL, step, plan);
   } else {
-    rfft_kernel<false, PLANES><<<grid, zt::kThreads, 0, st>>>(
+    rfft_kernel<false, S><<<grid, zt::kThreads, 0, st>>>(
         s, w, t, y, sig_len, T, WL, step, plan);
   }
   return (int)cudaGetLastError();
@@ -148,8 +153,8 @@ int launch(const void* sig, const void* win, const void* tw, void* out,
 ZT_EXPORT int zt_rfft_half(const void* sig, const void* win, const void* tw,
                            void* out, int batch, long long sig_len, int T,
                            int WL, int step, void* stream) {
-  return launch<false>(sig, win, tw, out, batch, sig_len, T, WL, step,
-                       stream);
+  return launch<Store::kHalf>(sig, win, tw, out, batch, sig_len, T, WL, step,
+                              stream);
 }
 
 // As zt_rfft_half, out two float32 planes (2, batch, T, WL/2 + 1): the real
@@ -157,5 +162,16 @@ ZT_EXPORT int zt_rfft_half(const void* sig, const void* win, const void* tw,
 ZT_EXPORT int zt_rfft_planes(const void* sig, const void* win, const void* tw,
                              void* out, int batch, long long sig_len, int T,
                              int WL, int step, void* stream) {
-  return launch<true>(sig, win, tw, out, batch, sig_len, T, WL, step, stream);
+  return launch<Store::kPlanes>(sig, win, tw, out, batch, sig_len, T, WL,
+                                step, stream);
+}
+
+// As zt_rfft_half, out the full spectrum (batch, T, WL) complex64 as float
+// pairs: bins 0..WL/2 as zt_rfft_half writes them, then bin WL - k the
+// conjugate of bin k for k = 1..WL/2 - 1.
+ZT_EXPORT int zt_rfft_full(const void* sig, const void* win, const void* tw,
+                           void* out, int batch, long long sig_len, int T,
+                           int WL, int step, void* stream) {
+  return launch<Store::kFull>(sig, win, tw, out, batch, sig_len, T, WL, step,
+                              stream);
 }

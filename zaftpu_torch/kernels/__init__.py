@@ -16,10 +16,14 @@ Seven levers choose the kernels, with ``zaftpu``'s names and meaning:
   ``torch.matmul`` instead of the one-pass magnitude and mel kernels
   (:mod:`zaftpu_torch.kernels.melfused`); ``1`` forces those kernels, and
   unset it follows the shape rule below;
-* ``ZAFTPU_FULLSPEC=1``: ``stft`` takes the full-spectrum analysis kernel,
-  the conjugate mirror in its store (``fused.frames_rfft_full``, a GEMM at
-  every window length), instead of the half-spectrum kernel and a separate
-  mirror; off by default, and only with the fused analysis on;
+* ``ZAFTPU_FULLSPEC``: ``1`` makes ``stft`` take the full-spectrum
+  analysis kernel, the conjugate mirror in its store
+  (``fused.frames_rfft_full``: the real-FFT kernel's full store where the
+  shape rule below holds, the GEMM B3 or its twin elsewhere), at every
+  window; ``0`` the half-spectrum kernel and a separate mirror; unset, the
+  full store at the shape rule's windows unless ``ZAFTPU_MIRROR=pallas`` or
+  ``ZAFTPU_FUSED2=1`` is set, and the half spectrum and mirror elsewhere
+  (``fused.fullspec_enabled``); only with the fused analysis on;
 * ``ZAFTPU_FUSED2=1``: the half spectrum through the two-output analysis
   kernel (``fused.frames_matmul2``, both components as float32 planes)
   instead of the complex-store one; off by default, equal values;
@@ -30,14 +34,16 @@ Seven levers choose the kernels, with ``zaftpu``'s names and meaning:
   window, which turns the shape rule below off (``auto``, the default,
   and ``native`` follow it); ``zaftpu``'s FFT-engine lever.
 
-The first two default to the fused kernels, ``ZAFTPU_MELFUSE`` and
-``ZAFTPU_FFT`` to the shape rule, the other three to off.
+The first two default to the fused kernels, ``ZAFTPU_MELFUSE``,
+``ZAFTPU_FULLSPEC`` and ``ZAFTPU_FFT`` to the shape rule, the other two to
+off.
 
-On both dials the half-spectrum analysis (``fused.frames_rfft`` and
-``fused.frames_matmul2``) and the fused ISTFT synthesis
-(``synth.istft_ola``) follow a shape rule (``rfft.applies``): an even
-window length from 16 to 4096 whose half has no prime factor above 7
-takes the real-FFT kernel (:mod:`zaftpu_torch.kernels.rfft`) and the
+On both dials the analysis (``fused.frames_rfft``,
+``fused.frames_rfft_full`` and ``fused.frames_matmul2``) and the fused
+ISTFT synthesis (``synth.istft_ola``) follow a shape rule
+(``rfft.applies``): an even window length from 16 to 4096 whose half has no
+prime factor above 7 takes the real-FFT kernel
+(:mod:`zaftpu_torch.kernels.rfft`) and the
 inverse real-FFT + overlap-add kernel (:mod:`zaftpu_torch.kernels.irfft`),
 any other length the GEMM kernels or, under split4, their twins. The
 magnitude and mel front ends follow it too: at such a window they take
@@ -129,10 +135,10 @@ def windowed_frames_rfft(padded, window, window_length: int, step: int,
 def windowed_frames_rfft_fullspec(padded, window, window_length: int,
                                   step: int, number_times: int):
     """Windowed overlapped frames -> full spectrum ``(..., T, WL)`` with the
-    conjugate mirror written by the analysis kernel, or ``None`` unless
-    ``ZAFTPU_FULLSPEC=1`` and the fused analysis is on (the caller then
+    conjugate mirror written by the analysis kernel, or ``None`` unless the
+    fused analysis is on and ``fused.fullspec_enabled`` (the caller then
     mirrors the half spectrum). Bit-equal to that composition."""
-    if _fused.fullspec_enabled() and fused_enabled():
+    if fused_enabled() and _fused.fullspec_enabled(window_length):
         return _fused.frames_rfft_full(padded, window, window_length, step,
                                        number_times)
     return None

@@ -60,6 +60,7 @@ SIGNATURES = {
     "zt_cqt_magnitudes_split4": _CQT,
     "zt_rfft_half": (_P, _P, _P, _P, _I, _LL, _I, _I, _I, _P),
     "zt_rfft_planes": (_P, _P, _P, _P, _I, _LL, _I, _I, _I, _P),
+    "zt_rfft_full": (_P, _P, _P, _P, _I, _LL, _I, _I, _I, _P),
     "zt_irfft_ola": (_P, _P, _P, _P, _F, _I, _I, _I, _I, _P),
     "zt_mirror_full": (_P, _P, _LL, _I, _P),
     "zt_fold_half": (_P, _P, _P, _LL, _I, _I, _LL, _LL, _LL, _P),

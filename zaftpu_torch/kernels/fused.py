@@ -5,20 +5,20 @@ Replace ``zaftpu/pallas/fused.py: _frames_matmul_impl`` as ``frames_rfft``
 (two components, the cos and sin rDFT operators) and ``frames_op`` (one
 real operator, the folded MDCT matrix) reach it, its full-spectrum twin
 ``_frames_matmul_full_impl`` (``frames_rfft_full``, the conjugate mirror
-written by the kernel's store; ``ZAFTPU_FULLSPEC=1``) and its two-output
+written by the kernel's store; ``ZAFTPU_FULLSPEC``) and its two-output
 twin ``_frames_matmul2_impl`` (``frames_matmul2``, both components as
 float32 planes; ``ZAFTPU_FUSED2=1``). One launch computes every component
 from the same frame tile.
 
-On both dials ``frames_rfft`` and ``frames_matmul2`` follow a shape rule
-(:func:`zaftpu_torch.kernels.rfft.applies`): at an even window length from
-16 to 4096 whose half has no prime factor above 7, with no explicit
-``ops`` and ``ZAFTPU_FFT`` not ``matmul``, they take the real-FFT kernel of
-:mod:`zaftpu_torch.kernels.rfft` (``csrc/rfft.cu``), which computes the
-same half spectrum with an FFT; every other window length, an explicit
-operator and ``ZAFTPU_FFT=matmul`` keep the GEMM kernels below. The rule is
-a dispatch, not a fallback: a CUDA tensor launches the kernel it picks or
-raises.
+On both dials ``frames_rfft``, ``frames_rfft_full`` and ``frames_matmul2``
+follow a shape rule (:func:`zaftpu_torch.kernels.rfft.applies`): at an even
+window length from 16 to 4096 whose half has no prime factor above 7, with
+no explicit ``ops`` and ``ZAFTPU_FFT`` not ``matmul``, they take the
+real-FFT kernel of :mod:`zaftpu_torch.kernels.rfft` (``csrc/rfft.cu``, its
+half, full and planes stores), which computes the same spectrum with an
+FFT; every other window length, an explicit operator and
+``ZAFTPU_FFT=matmul`` keep the GEMM kernels below. The rule is a dispatch,
+not a fallback: a CUDA tensor launches the kernel it picks or raises.
 
 Under ``ZAFTPU_PRECISION=split4`` (float32 only) each GEMM kernel launches
 its split4 twin instead, the port of the ``_kernel_split4`` bodies: the
@@ -42,6 +42,7 @@ from zaftpu_torch.core.frame import extract_frames
 from zaftpu_torch.core.policy import (exact_matmul, split4_applies,
                                       split4_matmul_presplit)
 from zaftpu_torch.kernels import _build
+from zaftpu_torch.kernels import mirror as _mirror
 from zaftpu_torch.kernels import rfft as _rfft
 from zaftpu_torch.kernels.framing import check_frame_args
 
@@ -279,10 +280,22 @@ def _frames_rfft_cuda(padded: torch.Tensor, window: torch.Tensor,
     return out
 
 
-def fullspec_enabled() -> bool:
-    """``ZAFTPU_FULLSPEC``: the full-spectrum kernel for ``stft`` only when
-    set to ``1`` (``zaftpu``'s lever and default)."""
-    return os.environ.get("ZAFTPU_FULLSPEC", "0") == "1"
+def fullspec_enabled(window_length: int) -> bool:
+    """``ZAFTPU_FULLSPEC``: does ``stft`` take the full-spectrum analysis
+    (:func:`frames_rfft_full`) at ``window_length``, or the half spectrum
+    and a separate conjugate mirror? ``1`` forces the former and ``0`` the
+    latter at every window (``zaftpu``'s lever; its default ``0`` stands
+    only because Mosaic cannot lower the kernel's lane reversal,
+    zaftpu/pallas/fused.py:539-552). Unset, yes where
+    :func:`zaftpu_torch.kernels.rfft.applies` (the FFT kernel's full store)
+    unless ``ZAFTPU_MIRROR=pallas`` or ``ZAFTPU_FUSED2=1`` names a
+    half-spectrum path, no elsewhere. Both give the same values wherever
+    they run the same analysis kernel."""
+    lever = os.environ.get("ZAFTPU_FULLSPEC", "auto")
+    if lever in ("0", "1"):
+        return lever == "1"
+    return (_rfft.applies(window_length) and not _mirror.enabled()
+            and not fused2_enabled())
 
 
 def fused2_enabled() -> bool:
@@ -326,16 +339,20 @@ def frames_rfft_full(padded: torch.Tensor, window: torch.Tensor,
                      ops: torch.Tensor | None = None) -> torch.Tensor:
     """Fused windowed-frames full spectrum: ``(..., T, WL)`` complex, the
     reference's zaf.py:139 convention, with the mirrored bins written by
-    the kernel. It stays a GEMM at every window length: bit-equal to
-    :func:`frames_rfft` followed by the conjugate mirror wherever that is
-    the GEMM too (an explicit ``ops``, or a window length outside the FFT
-    shape rule), within float32 rounding of it elsewhere. ``ops`` as for
-    :func:`frames_rfft`; split4 (float32) takes
-    :func:`frames_rfft_full_split4`.
+    the kernel's store: bit-equal to :func:`frames_rfft` followed by the
+    conjugate mirror on either dial. The shape rule
+    (:func:`zaftpu_torch.kernels.rfft.applies`) takes the FFT kernel's
+    full store, :func:`zaftpu_torch.kernels.rfft.frames_rfft_full_fft`, on
+    either dial; elsewhere (another window length, an explicit ``ops``,
+    ``ZAFTPU_FFT=matmul``) the GEMM B3, or under split4 (float32)
+    :func:`frames_rfft_full_split4`. ``ops`` as for :func:`frames_rfft`.
 
     A CPU tensor takes the plain version; a CUDA tensor launches the kernel
     (leading axes flattened into its batch) or raises.
     """
+    if _rfft.applies(window_length, ops):
+        return _rfft.frames_rfft_full_fft(padded, window, window_length,
+                                          step, number_times)
     if split4_applies(padded.dtype):
         return frames_rfft_full_split4(padded, window, window_length, step,
                                        number_times, ops)

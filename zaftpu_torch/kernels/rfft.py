@@ -2,12 +2,15 @@
 plain version.
 
 It computes what ``zaftpu/pallas/fused.py: _frames_matmul_impl`` computes as
-``frames_rfft`` reaches it (B1), and ``_frames_matmul2_impl`` (B12): the
-half spectrum ``X[t, k] = sum_w sig[t*step + w] * win[w] * exp(-2 pi i k w /
-N)``, ``k = 0..N/2``, as interleaved complex (:func:`frames_rfft_fft`) or as
-two float32 planes (:func:`frames_matmul2_fft`). The TPU kernels contract
-each frame with a dense cos/sin operator; this one runs an FFT, so it is
-bound by its bytes, not by FP32 arithmetic.
+``frames_rfft`` reaches it (B1), ``_frames_matmul2_impl`` (B12) and
+``_frames_matmul_full_impl`` (B3): the half spectrum ``X[t, k] = sum_w
+sig[t*step + w] * win[w] * exp(-2 pi i k w / N)``, ``k = 0..N/2``, as
+interleaved complex (:func:`frames_rfft_fft`), as two float32 planes
+(:func:`frames_matmul2_fft`), or as the full spectrum with the conjugate
+mirror written by the kernel's store (:func:`frames_rfft_full_fft`), from one
+kernel body. The TPU kernels contract each frame with a dense cos/sin
+operator; this one runs an FFT, so it is bound by its bytes, not by FP32
+arithmetic.
 
 :func:`applies` is the shape rule that :mod:`zaftpu_torch.kernels.fused`
 uses to send both dials here: an even window length from
@@ -36,6 +39,8 @@ from zaftpu_torch.kernels.framing import check_frame_args
 CUDA_SOURCE = "zaftpu_torch/csrc/rfft.cu"
 REPLACES = "zaftpu/pallas/fused.py:279"  # _frames_matmul_impl (frames_rfft)
 REPLACES_2 = "zaftpu/pallas/fused.py:367"  # _frames_matmul2_impl
+REPLACES_FULL = "zaftpu/pallas/fused.py:475"  # _frames_matmul_full_impl
+REPLACES_FULL_SPLIT4 = "zaftpu/pallas/fused.py:174"  # _kernel_full_split4
 
 MIN_WINDOW = 16
 # The CUDA path's largest window (zaftpu_torch.kernels.MAX_WINDOW): the
@@ -209,7 +214,19 @@ def frames_matmul2_fft_plain(padded: torch.Tensor, window: torch.Tensor,
     return _fft_planes(padded, window, window_length, step, number_times)
 
 
-for _fn in (frames_rfft_fft_plain, frames_matmul2_fft_plain):
+def frames_rfft_full_fft_plain(padded: torch.Tensor, window: torch.Tensor,
+                               window_length: int, step: int,
+                               number_times: int) -> torch.Tensor:
+    """Full spectrum ``(..., T, WL)``: :func:`frames_rfft_fft_plain`'s half
+    spectrum and the conjugate mirror's index gathers."""
+    frames_rfft_full_fft_plain.calls += 1
+    half = torch.complex(*_fft_planes(padded, window, window_length, step,
+                                      number_times))
+    return _fft.conjugate_mirror(half, window_length)
+
+
+for _fn in (frames_rfft_fft_plain, frames_matmul2_fft_plain,
+            frames_rfft_full_fft_plain):
     _fn.calls = 0
 
 
@@ -226,7 +243,7 @@ def frames_rfft_fft(padded: torch.Tensor, window: torch.Tensor,
     if not padded.is_cuda:
         return frames_rfft_fft_plain(padded, window, window_length, step,
                                      number_times)
-    out = _launch("frames_rfft_fft", False, padded, window, window_length,
+    out = _launch("frames_rfft_fft", "half", padded, window, window_length,
                   step, number_times)
     frames_rfft_fft.launches += 1
     return out
@@ -240,23 +257,48 @@ def frames_matmul2_fft(padded: torch.Tensor, window: torch.Tensor,
     if not padded.is_cuda:
         return frames_matmul2_fft_plain(padded, window, window_length, step,
                                         number_times)
-    out = _launch("frames_matmul2_fft", True, padded, window, window_length,
-                  step, number_times)
+    out = _launch("frames_matmul2_fft", "planes", padded, window,
+                  window_length, step, number_times)
     frames_matmul2_fft.launches += 1
     return out
 
 
-def _launch(name: str, planes: bool, padded: torch.Tensor,
+def frames_rfft_full_fft(padded: torch.Tensor, window: torch.Tensor,
+                         window_length: int, step: int,
+                         number_times: int) -> torch.Tensor:
+    """:func:`frames_rfft_fft` as the ``(..., T, WL)`` full spectrum, the
+    reference's zaf.py:139 convention: bin ``WL - k`` the conjugate of bin
+    ``k``, written by the kernel's store in the same launch. Bit-equal to
+    :func:`frames_rfft_fft` followed by
+    :func:`zaftpu_torch.core.fft.conjugate_mirror`.
+
+    A CPU tensor takes the plain version; a CUDA tensor launches the kernel
+    (leading axes flattened into its batch) or raises.
+    """
+    if not padded.is_cuda:
+        return frames_rfft_full_fft_plain(padded, window, window_length,
+                                          step, number_times)
+    out = _launch("frames_rfft_full_fft", "full", padded, window,
+                  window_length, step, number_times)
+    frames_rfft_full_fft.launches += 1
+    return out
+
+
+def _launch(name: str, store: str, padded: torch.Tensor,
             window: torch.Tensor, window_length: int, step: int,
             number_times: int):
-    """Check a CUDA input and launch the half (complex) or planes store."""
+    """Check a CUDA input and launch one store, the C entry
+    ``zt_rfft_<store>``: ``half`` (complex), ``planes`` (two float32
+    planes) or ``full`` (complex, mirrored)."""
     check_frame_args(name, padded, window, window_length, step,
                      number_times)
     if not fits(window_length):
         raise ValueError(f"{name}: window_length must be even, in "
                          f"[{MIN_WINDOW}, {MAX_WINDOW}], with no prime factor "
                          f"above 7 in its half, got {window_length}")
-    wl, t, f = window_length, number_times, window_length // 2 + 1
+    entry = f"zt_rfft_{store}"
+    wl, t = window_length, number_times
+    f = wl if store == "full" else wl // 2 + 1
     length = padded.shape[-1]
     lead = padded.shape[:-1]
     sig = padded.reshape(-1, length).contiguous()
@@ -266,20 +308,19 @@ def _launch(name: str, planes: bool, padded: torch.Tensor,
     dev = padded.device
     win = window.to(device=dev, dtype=torch.float32).contiguous()
     tw = twiddles(wl, torch.float32, dev)
-    if planes:
+    if store == "planes":
         out = torch.empty((2, batch, t, f), dtype=torch.float32, device=dev)
     else:
         out = torch.empty((batch, t, f), dtype=torch.complex64, device=dev)
-    entry = "zt_rfft_planes" if planes else "zt_rfft_half"
     err = getattr(_build.library(), entry)(
         sig.data_ptr(), win.data_ptr(), tw.data_ptr(), out.data_ptr(), batch,
         length, t, wl, step, _build.stream_of(padded))
     _build.check(err, entry)
-    if planes:
+    if store == "planes":
         return out[0].reshape(*lead, t, f), out[1].reshape(*lead, t, f)
     return out.reshape(*lead, t, f)
 
 
-for _fn in (frames_rfft_fft, frames_matmul2_fft):
+for _fn in (frames_rfft_fft, frames_matmul2_fft, frames_rfft_full_fft):
     _fn.launches = 0
 del _fn

@@ -6,18 +6,21 @@ Semantics match ``zaftpu.transforms.stft`` and the reference
 COLA-normalized inverse. On a CUDA float32 signal the analysis runs the
 fused framing + window + real-FFT kernel at an even window from 16 to 4096
 whose half has no prime factor above 7 (the shape rule,
-``kernels/rfft.applies``) and the fused framing + window + DFT-GEMM kernel
-at any other; the synthesis runs the inverse real-FFT + overlap-add kernel
+``kernels/rfft.applies``), which writes the full spectrum, the conjugate
+mirror included, in its store; at any other window the fused framing +
+window + DFT-GEMM kernel computes the half spectrum and PyTorch index ops
+mirror it. The synthesis runs the inverse real-FFT + overlap-add kernel
 where the rule holds and the fused inverse GEMM + overlap-add kernel at
 any other window (:mod:`zaftpu_torch.kernels`); under
 ``ZAFTPU_PRECISION=split4`` the GEMM kernels run their split4 twins, the
-FFT kernels stay. The spectrogram takes that half spectrum and ``|·|``
+FFT kernels stay. The spectrogram takes the half spectrum and ``|·|``
 where the rule holds and the one-pass magnitude kernel at any other window
-(:mod:`zaftpu_torch.kernels.melfused`). ``ZAFTPU_MIRROR=pallas`` moves the
-conjugate mirror and the Hermitian fold into kernels, bit-equal to the
-default; ``ZAFTPU_FULLSPEC=1`` writes the full spectrum from the GEMM
-analysis kernel, within float32 rounding of the default at a window the
-FFT takes.
+(:mod:`zaftpu_torch.kernels.melfused`). ``ZAFTPU_FULLSPEC=0`` takes the
+half spectrum and the index mirror at every window, ``1`` the full
+spectrum at every window (the GEMM B3, or its twin, off the rule), and
+``ZAFTPU_MIRROR=pallas`` the half spectrum with the mirror and the
+Hermitian fold as kernels: each bit-equal to the default wherever both run
+the same analysis kernel.
 On the CPU the same paths run their plain PyTorch versions, in the input's
 dtype (float64 is the oracle mode).
 
