@@ -22,23 +22,29 @@ non-zero exit and no result line:
    110-3,520 Hz: L 4,096, hop 882, F 60, T 1,001), the split4 twins of B1,
    B2, B3, B4, B7, B9, B10 and B12 included. The real-FFT kernel (B1, B12
    and B3, and on the split4 dial their twins, at every even window whose
-   half is 7-smooth; its half, planes and full stores) also at batched,
-   misaligned shapes whose hop does not divide WL (3 rows, WL 512 / hop 100
-   and WL 400 / hop 160, T 1,001), and at the 40-ms window (WL 1,764, hop
-   882, T 30,001: radices 2, 3, 3, 7, 7), timed beside torch.stft (two-sided
-   for the full store) and the GEMM B1 with its operator in the same call.
-   The inverse real-FFT kernel (B4 and B4-s4 at those windows) likewise at
-   its main-path shape, at WL 4,096 / hop 256
-   (K = 16), 3 rows of WL 400 / hop 160 and 2 rows of WL 3,000 / hop 1,000,
-   and at the 40-ms window, timed beside torch.istft, B4 with its operator
-   and B4-s4 in the same call, and at WL 2048 beside them too; it prints
-   the frames it transforms per output frame. The GEMM B1, B12, B3 and B4
-   and the twins B1-s4, B12-s4, B3-s4 and B4-s4 take their main-path shape
-   from the 25-ms window the FFT rule leaves to them (WL 1,102 = 2 * 19 *
-   29, hop 551, a 600-s segment: T = 48,023, no operator), a ragged one at
-   WL 1,102 / hop 300, and WL 2048 (timed, for B3, B3-s4, B4 and B4-s4)
-   and WL 512 with their operator given (which names the GEMM); the mel
-   kernels also past the old shared-memory limit (800 mels at WL 2048).
+   half has no prime factor above 127; its half, planes and full stores)
+   also at batched, misaligned shapes whose hop does not divide WL (3 rows,
+   WL 512 / hop 100 and WL 400 / hop 160, T 1,001; 3 rows of WL 2,032 and
+   2,662 and 2 of WL 2,822, hop 1,000: the odd-prime passes 4, 2, 127; 11,
+   11, 11; 17, 83), at the 40-ms window (WL 1,764, hop 882, T 30,001:
+   radices 2, 3, 3, 7, 7), timed beside torch.stft (two-sided for the full
+   store) and the GEMM B1 with its operator in the same call, and at the
+   25-ms window (WL 1,102, hop 551, T 48,023: the odd-prime passes 19, 29),
+   timed beside torch.stft. The inverse real-FFT kernel (B4 and B4-s4 at
+   those windows) likewise at its main-path shape, at WL 4,096 / hop 256
+   (K = 16), 3 rows of WL 400 / hop 160, 2 rows of WL 3,000 / hop 1,000
+   and the three odd-prime shapes, and at the 40-ms window, timed beside
+   torch.istft, B4 with its operator and B4-s4 in the same call, at the
+   25-ms window beside torch.istft, and at WL 2048 beside B4 and B4-s4
+   too; it prints the frames it transforms per output frame. The GEMM B1,
+   B12, B3 and B4 take their main-path shape from the 25-ms window with
+   their operator given (which names the GEMM at a rule window), and the
+   twins B1-s4, B12-s4, B3-s4 and B4-s4 the same shape (the twin wrappers
+   take no rule), as in earlier runs; all eight also run at WL 2,062 / hop
+   300 with no operator (2,062 = 2 * 1,031: the rule leaves it to them)
+   and at WL 2048 (timed, for B3, B3-s4, B4 and B4-s4) and WL 512 with
+   their operator given; the mel kernels also past the old shared-memory
+   limit (800 mels at WL 2048).
    Framing, OLA, mirror, fold and the FFT's full store must be bit-equal,
    the FFT's other stores within 1e-6 * max|ref| (they do their plain
    versions' operations in their order), the GEMM kernels within 2e-5 *
@@ -59,10 +65,11 @@ non-zero exit and no result line:
    oracle (<= 1e-5 * max|oracle|), the round-trip SNR (>= 120 dB), and
    launch counts showing the FFT analysis (its full store: the mirror in
    the launch) and the inverse FFT synthesis ran and no plain version did;
-   then the same with the 40-ms window (WL 1,764, hop 882; the FFT
-   kernels) and the 25-ms window (WL 1,102, hop 551), which the shape rule
-   sends to the GEMM B1, the index mirror and B4, and under
-   ZAFTPU_FUSED2=1 to the GEMM B12 and B4;
+   then the same with the 40-ms window (WL 1,764, hop 882) and the 25-ms
+   window (WL 1,102, hop 551; the FFT kernels through the odd-prime
+   passes), and with WL 2,062 (hop 1,031), which the shape rule sends to
+   the GEMM B1, the index mirror and B4, and under ZAFTPU_FUSED2=1 to the
+   GEMM B12 and B4;
 5. STFT main path, split dispatch (ZAFTPU_FUSED=0 ZAFTPU_SYNTH=0): the
    same checks, with the framing and OLA kernels;
 6. MDCT main path: mdct -> imdct of the 600-s signal with vorbis(2048),
@@ -87,14 +94,15 @@ non-zero exit and no result line:
    <= 1e-5 * max|oracle|), with launch counts showing which kernel ran and
    that no plain version did;
 9. split4 main path (ZAFTPU_PRECISION=split4): stft -> istft and mdct ->
-   imdct of the 600-s signal; at WL 2048 and 1,764 the FFT kernels compute
-   the spectrum and the round trip under the exact gates (1e-5 * max of
-   the float64 oracle, >= 120 dB), the coefficients within 1e-4 * max and
-   the MDCT round trip in [100, 125) dB, and launch counts showing which
-   kernels ran and that no exact GEMM kernel or plain version did; stft ->
-   istft at WL 1,102 (B1's and B4's twins, B12's under ZAFTPU_FUSED2=1) and
-   at WL 2048 under ZAFTPU_FFT=matmul (B1's and B4's twins) within 1e-4 *
-   max, round trips in [100, 125) dB; then the mel phase
+   imdct of the 600-s signal; at WL 2048, 1,764 and 1,102 the FFT kernels
+   compute the spectrum and the round trip under the exact gates (1e-5 *
+   max of the float64 oracle, >= 120 dB), the coefficients within 1e-4 *
+   max and the MDCT round trip in [100, 125) dB, and launch counts showing
+   which kernels ran and that no exact GEMM kernel or plain version did;
+   stft -> istft at WL 2,062 (B1's and B4's twins, B12's under
+   ZAFTPU_FUSED2=1) and at WL 2048 under ZAFTPU_FFT=matmul (B1's and B4's
+   twins) within 1e-4 * max, round trips in [100, 125) dB; then the mel
+   phase
    under split4 (the FFT's half spectrum) and with ZAFTPU_MELFUSE=1:
    melspectrogram and mfcc through the mel kernel's twin (within 1e-4 *
    max; MFCC atol 5e-3), spectrogram through the exact spec_rows (1e-5 *
@@ -103,15 +111,15 @@ non-zero exit and no result line:
    (fused_fft, mirror_full_planes, fold_half_planes, synth_fft),
    ZAFTPU_FULLSPEC=1 (frames_rfft_full_fft, synth_fft), ZAFTPU_FULLSPEC=0
    (fused_fft, synth_fft) and ZAFTPU_FUSED2=1 (frames_matmul2_fft,
-   synth_fft), and ZAFTPU_FULLSPEC=1 at WL 1,102 (the GEMM B3, synth);
+   synth_fft), and ZAFTPU_FULLSPEC=1 at WL 2,062 (the GEMM B3, synth);
    then under split4 with ZAFTPU_FUSED2=1 (frames_matmul2_fft,
    synth_fft), ZAFTPU_FULLSPEC=1 and =0 (as on the exact dial), and
-   ZAFTPU_FULLSPEC=1 at WL 1,102 (B3-s4, synth_split4): each spectrum and
+   ZAFTPU_FULLSPEC=1 at WL 2,062 (B3-s4, synth_split4): each spectrum and
    round trip bit-equal to those of the same dial and window without the
    lever, and the exact gates (split4's at WL 1,102); then the peak device
    memory of one 600-s stft under ZAFTPU_FULLSPEC=0 and unset;
 11. one hour: six 600-s segments through stft, then istft (also at the
-   40-ms window on the default dispatch); mdct, then
+   40-ms and 25-ms windows on the default dispatch); mdct, then
    imdct; spectrogram; melspectrogram; mfcc, under the default, the split
    and the split4 dispatch, and the three mel front ends under
    ZAFTPU_MELFUSE=1 and under split4 with ZAFTPU_MELFUSE=1;
@@ -159,14 +167,25 @@ IMDCT_RAGGED_F = 100  # imdct_ola: F, 16-row padding of the contraction
 MEL_RAGGED = (512, 128, 1001, 20)  # spec_rows / mel_rows: WL, hop, T, mels
 MEL_WIDE = (WL, STEP, 1001, 800)  # past the old shared-memory limit (745)
 # The FFT kernel: WL, hop (not dividing WL), T, batch rows, sample offset;
-# a power-of-two window and a mixed-radix one (25 ms / 10 ms at 16 kHz).
-FFT_RAGGED = ((512, 100, 1001, 3, 1), (400, 160, 1001, 3, 1))
+# a power-of-two window, a mixed-radix one (25 ms / 10 ms at 16 kHz) and
+# three through the odd-prime passes (2032: 4, 2, 127; 2822: 17, 83; 2662:
+# 11, 11, 11).
+FFT_RAGGED = ((512, 100, 1001, 3, 1), (400, 160, 1001, 3, 1),
+              (2032, 1000, 301, 3, 1), (2822, 1000, 201, 2, 1),
+              (2662, 1000, 201, 3, 1))
 # The 40-ms window at 44.1 kHz: the FFT kernel's mixed-radix shape (882 =
 # 2 * 3^2 * 7^2), timed beside the GEMM B1 with its operator.
 MIXED_WL = 1764
-# A window the FFT rule leaves to the GEMM B1 / B12 and, under split4, to
-# their twins (25 ms at 44.1 kHz; its half 551 = 19 * 29).
-GEMM_WL = 1102
+# The 25-ms window at 44.1 kHz (its half 551 = 19 * 29): the FFT kernels
+# through the odd-prime passes, timed beside torch.stft and torch.istft;
+# the main-path shape of the GEMM B1, B12, B3 and B4 (with their operator)
+# and of their twins, as in earlier runs.
+PRIME_WL = 1102
+# A window the FFT rule leaves to the GEMMs and, under split4, to their
+# twins: its half 1031 is a prime above 127. (An odd window such as 1323
+# takes the GEMMs too, but its round trip is one sample off under the
+# reference's trim.)
+GEMM_WL = 2062
 GEMM_RAGGED = (GEMM_WL, 300, 1001)
 # The GEMM B1, B12 and B3, and their twins.
 GEMM_KERNELS = ("fused", "frames_matmul2", "frames_rfft_full")
@@ -176,7 +195,9 @@ SYNTH_GEMMS = ("synth", "synth_split4")  # B4, B4-s4
 FULL_GEMMS = ("frames_rfft_full", "frames_rfft_full_split4")  # B3, B3-s4
 # The inverse FFT kernel's other shapes: WL, hop, T, batch rows (K = 16, a
 # mixed-radix window whose hop does not divide it, one frame per block).
-IFFT_RAGGED = ((4096, 256, 1001, 1), (400, 160, 1001, 3), (3000, 1000, 301, 2))
+IFFT_RAGGED = ((4096, 256, 1001, 1), (400, 160, 1001, 3), (3000, 1000, 301, 2),
+               (2032, 1000, 301, 3), (2822, 1411, 201, 2),
+               (2662, 1000, 201, 3))
 # Whisper's front end: 16 kHz, Hann 400 / hop 160 (25 ms / 10 ms), 80 mels.
 WHISPER = MelConfig(sampling_frequency=16000, window_length=400,
                     step_length=160, number_mels=80, window="hann")
@@ -439,6 +460,11 @@ def _fft_tol(name: str) -> float:
     return EXACT_TOL if name == "frames_rfft_full_fft" else FFT_TOL
 
 
+def _segment_shape(wl: int) -> tuple:
+    """WL, hop and T of a 600-s segment at half overlap."""
+    return wl, wl // 2, stft_padding(SEGMENT_SECONDS * SR, wl, wl // 2)[2]
+
+
 def _kernel_cases(dev, main_t: int):
     """``(name, label, shape, args, tol)`` for each kernel at its main-path
     shape and a ragged one, made one at a time."""
@@ -463,11 +489,10 @@ def _kernel_cases(dev, main_t: int):
     for wl, step, t, rows in IFFT_RAGGED:
         yield ("synth_fft", "ragged", f"{rows} rows WL {wl} hop {step} T {t}",
                _synth_args(wl, step, t, dev, rows), FFT_TOL)
-    # The 40-ms window: the FFT kernels (both analysis stores and the
+    # The 40-ms window: the FFT kernels (the three analysis stores and the
     # synthesis) and, in the same call, the GEMM B1 and B4 with their
     # operators and B4-s4, all timed.
-    wl, step = MIXED_WL, MIXED_WL // 2
-    t = stft_padding(SEGMENT_SECONDS * SR, wl, step)[2]  # 30,001
+    wl, step, t = _segment_shape(MIXED_WL)  # T 30,001
     padded, win = _signal_and_window(wl, step, t, hamming, dev)
     analysis = (padded, win, wl, step, t)
     for name in FFT_STORES:
@@ -483,20 +508,40 @@ def _kernel_cases(dev, main_t: int):
            GEMM_TOL)
     yield "synth_split4", "40 ms", f"WL {wl} hop {step} T {t}", args, GEMM_TOL
     del args
-    gemm_main_t = stft_padding(SEGMENT_SECONDS * SR, GEMM_WL,
-                               GEMM_WL // 2)[2]  # 48,023
-    for label, (wl, step, t) in (
-            ("main", (GEMM_WL, GEMM_WL // 2, gemm_main_t)),
-            ("ragged", GEMM_RAGGED)):
-        padded, win = _signal_and_window(wl, step, t, hamming, dev)
-        for name in GEMM_KERNELS + TWIN_KERNELS:
-            yield (name, label, f"WL {wl} hop {step} T {t} (no operator)",
-                   (padded, win, wl, step, t), GEMM_TOL)
-        args = _synth_args(wl, step, t, dev)
-        for name in SYNTH_GEMMS:
-            yield (name, label, f"WL {wl} hop {step} T {t} (no operator)",
-                   args, GEMM_TOL)
-        del padded, args
+    # The 25-ms window: the FFT kernels through the odd-prime passes, then
+    # the GEMMs with their operator and the twins at the same shape (their
+    # main-path shape), all timed in the same call.
+    wl, step, t = _segment_shape(PRIME_WL)  # T 48,023
+    padded, win = _signal_and_window(wl, step, t, hamming, dev)
+    analysis = (padded, win, wl, step, t)
+    for name in FFT_STORES:
+        yield (name, "25 ms", f"WL {wl} hop {step} T {t}", analysis,
+               _fft_tol(name))
+    ops = fused.rdft_ops(wl, torch.float32, dev)
+    for name in GEMM_KERNELS:
+        yield (name, "main", f"WL {wl} hop {step} T {t} (operator)",
+               (*analysis, ops), GEMM_TOL)
+    for name in TWIN_KERNELS:
+        yield name, "main", f"WL {wl} hop {step} T {t}", analysis, GEMM_TOL
+    del padded, analysis, ops
+    args = _synth_args(wl, step, t, dev)
+    yield "synth_fft", "25 ms", f"WL {wl} hop {step} T {t}", args, FFT_TOL
+    yield ("synth", "main", f"WL {wl} hop {step} T {t} (operator)",
+           (*args, synth.istft_ops(wl, args[-1], torch.float32, dev)),
+           GEMM_TOL)
+    yield "synth_split4", "main", f"WL {wl} hop {step} T {t}", args, GEMM_TOL
+    del args
+    # The off-rule window, no operator: the rule's own way to the GEMMs.
+    wl, step, t = GEMM_RAGGED
+    padded, win = _signal_and_window(wl, step, t, hamming, dev)
+    for name in GEMM_KERNELS + TWIN_KERNELS:
+        yield (name, "ragged", f"WL {wl} hop {step} T {t} (no operator)",
+               (padded, win, wl, step, t), GEMM_TOL)
+    args = _synth_args(wl, step, t, dev)
+    for name in SYNTH_GEMMS:
+        yield (name, "ragged", f"WL {wl} hop {step} T {t} (no operator)",
+               args, GEMM_TOL)
+    del padded, args
     for label, (wl, step, t) in (("main", (WL, STEP, main_t)),
                                  ("ragged", MDCT_RAGGED)):
         padded, win = _signal_and_window(wl, step, t, vorbis, dev)
@@ -548,6 +593,20 @@ def _rows(x: torch.Tensor) -> int:
     return x.numel() // max(x.shape[-1], 1)
 
 
+def _fft_ops(n: int) -> int:
+    """Operations of the FFT kernels' N/2-point complex FFT, pass by pass
+    in their plan (rfft.radices): each input of a butterfly past the first
+    times its twiddle (6), then the butterfly: 4 (radix 2), 16 (radix 4),
+    or for an odd radix r with h = (r - 1)/2 the 4h sums and differences,
+    2h adds for y_0 and 8h + 2 for each of the h other output pairs."""
+    m, total = n // 2, 0
+    for r in rfft.radices(m):
+        h = (r - 1) // 2
+        fly = {2: 4, 4: 16}.get(r, 6 * h + h * (8 * h + 2))
+        total += m // r * (6 * (r - 1) + fly)
+    return total
+
+
 def _work(name: str, args: tuple) -> tuple[float, float, float]:
     """Operator-GEMM FLOP, other FLOP and bytes of one call of kernel
     ``name`` on ``args``: the operations the function does and the bytes it
@@ -561,10 +620,10 @@ def _work(name: str, args: tuple) -> tuple[float, float, float]:
         b, t, f = _rows(h_re) // h_re.shape[-2], h_re.shape[-2], h_re.shape[-1]
         out = 4 * b * ((t - 1) * step + n)
         if base == "synth_fft":
-            # The inverse real FFT: about 2.5 N log2 N operations a frame,
-            # the split step and the scaled overlap-add about 8 N; both
+            # The inverse real FFT: its plan's passes, the inverse split
+            # step (12 a bin) and the scaled overlap-add (2 a sample); both
             # planes read once, the twiddle table, the signal written once.
-            return (0, b * t * (2.5 * n * np.log2(n) + 8 * n),
+            return (0, b * t * (_fft_ops(n) + 12 * (n // 2) + 2 * n),
                     4 * 2 * b * t * f + 8 * n + out)
         return (passes * 2 * b * t * 2 * f * n, 0,
                 4 * (2 * b * t * f + 2 * f * n) + out)
@@ -590,13 +649,14 @@ def _work(name: str, args: tuple) -> tuple[float, float, float]:
         return (passes * 4 * b * t * length * f, 3 * b * t * f,
                 4 * (sig.numel() + 2 * length * f + b * t * f))
     if base in FFT_STORES:
-        # The real FFT: about 2.5 N log2 N operations a frame, and the
-        # window; the signal and the window read once, the twiddle table,
-        # the half (or, for the full store, the full) spectrum written once.
+        # The real FFT: the window, its plan's passes and the split step
+        # (16 a bin); the signal and the window read once, the twiddle
+        # table, the half (or, for the full store, the full) spectrum
+        # written once.
         padded, _, wl, _, t = args
         b = _rows(padded)
         f = wl if base == "frames_rfft_full_fft" else wl // 2 + 1
-        return (0, b * t * (2.5 * wl * np.log2(wl) + wl),
+        return (0, b * t * (wl + _fft_ops(wl) + 16 * (wl // 2 + 1)),
                 4 * (padded.numel() + wl + 2 * wl) + 8 * b * t * f)
     # The analysis kernels: windowed frames times an operator.
     if base == "frames_op":
@@ -680,8 +740,8 @@ def phase_kernels(dev) -> dict:
     ragged one; returns the main-path error, median times (kernel, plain
     version, library call) and bound (for mel_rows, the largest error of
     its two main cases and the times of the first, power=False). The
-    40-ms window's cases and B4's and B4-s4's at WL 2048 are timed and
-    printed too, not returned."""
+    40-ms and 25-ms windows' cases and B3's, B3-s4's, B4's and B4-s4's at
+    WL 2048 are timed and printed too, not returned."""
     results = {}
     main_t = stft_padding(SEGMENT_SECONDS * SR, WL, STEP)[2]  # 25,841
     for name, label, shape, args, tol in _kernel_cases(dev, main_t):
@@ -710,8 +770,8 @@ def phase_kernels(dev) -> dict:
             wl, step, t = args[2], args[3], args[0].shape[-2]
             print(f"  {name}: {irfft_transforms(wl, step, t):.4f} frames "
                   "transformed per output frame")
-        if label in ("main", "40 ms") or (label == "operator" and name in
-                                          SYNTH_GEMMS + FULL_GEMMS):
+        if label in ("main", "40 ms", "25 ms") or (
+                label == "operator" and name in SYNTH_GEMMS + FULL_GEMMS):
             ms = median_ms(lambda: kernel(*args))
             plain_ms = median_ms(lambda: plain(*args))
             lib = library_call(name, args)
@@ -785,21 +845,22 @@ def oracle_error(x: torch.Tensor, spec: torch.Tensor, wl: int = WL,
 
 
 # dispatch -> the kernels the STFT main path must run, and its gates. At
-# WL 2048 and 1764 the FFT kernels compute the spectrum (the full store,
-# the mirror in its epilogue) and the round trip on both dials, so split4
-# meets the exact gates there; at WL 1102 and under ZAFTPU_FFT=matmul its
-# twins meet split4's.
+# WL 2048, 1764 and 1102 the FFT kernels compute the spectrum (the full
+# store, the mirror in its epilogue) and the round trip on both dials, so
+# split4 meets the exact gates there; at WL 2062 and under
+# ZAFTPU_FFT=matmul its twins meet split4's.
+FFT_PATH = (("frames_rfft_full_fft", "synth_fft"), EXACT_GATES)
 STFT_WANT = {
-    "default": (("frames_rfft_full_fft", "synth_fft"), EXACT_GATES),
+    "default": FFT_PATH,
     "split": (("framing", "ola"), EXACT_GATES),
-    f"default WL {MIXED_WL}": (("frames_rfft_full_fft", "synth_fft"),
-                               EXACT_GATES),
+    f"default WL {MIXED_WL}": FFT_PATH,
+    f"default WL {PRIME_WL}": FFT_PATH,
     f"default WL {GEMM_WL}": (("fused", "synth"), EXACT_GATES),
     f"ZAFTPU_FUSED2=1 WL {GEMM_WL}": (("frames_matmul2", "synth"),
                                       EXACT_GATES),
-    "split4": (("frames_rfft_full_fft", "synth_fft"), EXACT_GATES),
-    f"split4 WL {MIXED_WL}": (("frames_rfft_full_fft", "synth_fft"),
-                              EXACT_GATES),
+    "split4": FFT_PATH,
+    f"split4 WL {MIXED_WL}": FFT_PATH,
+    f"split4 WL {PRIME_WL}": FFT_PATH,
     f"split4 WL {GEMM_WL}": (("fused_split4", "synth_split4"), SPLIT4_GATES),
     f"split4 ZAFTPU_FUSED2=1 WL {GEMM_WL}": (
         ("frames_matmul2_split4", "synth_split4"), SPLIT4_GATES),
@@ -1202,6 +1263,7 @@ def main() -> int:
     dev = torch.device("cuda", 0)
     phase_build()
     timings = phase_kernels(dev)
+    print(f"chip_smoke: kernels at {time.perf_counter() - start:.1f} s")
 
     x = torch.from_numpy(segment(0)).to(dev)
     launches = {name: 0 for name in KERNELS}
@@ -1209,6 +1271,7 @@ def main() -> int:
             (DEFAULT, phase_main_path, "default"),
             (SPLIT, phase_main_path, "split"),
             (DEFAULT, phase_main_path, f"default WL {MIXED_WL}"),
+            (DEFAULT, phase_main_path, f"default WL {PRIME_WL}"),
             (DEFAULT, phase_main_path, f"default WL {GEMM_WL}"),
             (FUSED2_ON, phase_main_path, f"ZAFTPU_FUSED2=1 WL {GEMM_WL}"),
             (DEFAULT, phase_mdct_path, "default"),
@@ -1221,6 +1284,7 @@ def main() -> int:
             (CQT_EXACT, phase_cqt_path, "ZAFTPU_CQT_SCHEME=exact"),
             (SPLIT4, phase_main_path, "split4"),
             (SPLIT4, phase_main_path, f"split4 WL {MIXED_WL}"),
+            (SPLIT4, phase_main_path, f"split4 WL {PRIME_WL}"),
             (SPLIT4, phase_main_path, f"split4 WL {GEMM_WL}"),
             (SPLIT4_FUSED2, phase_main_path,
              f"split4 ZAFTPU_FUSED2=1 WL {GEMM_WL}"),
@@ -1231,8 +1295,9 @@ def main() -> int:
         for name, count in _with_env(env, phase, dispatch, x).items():
             launches[name] += count
         torch.cuda.empty_cache()
+    print(f"chip_smoke: main paths at {time.perf_counter() - start:.1f} s")
     # Each lever against its dial's lever-free run at the same window, bit
-    # for bit. At WL 1102 ZAFTPU_FULLSPEC=1 runs the GEMM B3 (B3-s4 under
+    # for bit. At WL 2062 ZAFTPU_FULLSPEC=1 runs the GEMM B3 (B3-s4 under
     # split4), which the default leaves for B1 and the index mirror there.
     fft_stores = ("frames_rfft_full_fft", "synth_fft")
     half_store = ("fused_fft", "synth_fft")
@@ -1268,6 +1333,7 @@ def main() -> int:
         del ref
     phase_peak_memory(x)
     del x
+    print(f"chip_smoke: levers at {time.perf_counter() - start:.1f} s")
     torch.cuda.empty_cache()
 
     segs = [torch.from_numpy(segment(i)).to(dev)
@@ -1277,7 +1343,8 @@ def main() -> int:
         _with_env(env, phase_hour, dispatch, segs)
         _with_env(env, phase_hour_features, dispatch, segs)
         torch.cuda.empty_cache()
-    _with_env(DEFAULT, phase_hour, f"default WL {MIXED_WL}", segs, MIXED_WL)
+    for wl in (MIXED_WL, PRIME_WL):
+        _with_env(DEFAULT, phase_hour, f"default WL {wl}", segs, wl)
     for env, dispatch in ((MELFUSE_ON, "ZAFTPU_MELFUSE=1"),
                           (SPLIT4_MELFUSE, "split4 ZAFTPU_MELFUSE=1")):
         _with_env(env, phase_hour_features, dispatch, segs, True)

@@ -3,7 +3,7 @@
     python3 scripts/torch_ab.py --kernel mel_rows mel_rows_split4 \
         --edit zaftpu_torch/csrc/melfused.cu \
         '(zt::kThreads, 2)\\nmel_rows_kernel' '(zt::kThreads)\\nmel_rows_kernel' \
-        [--ptxas mel_rows_kernel]
+        [--ptxas mel_rows_kernel] [--label '25 ms']
 
 Copies zaftpu_torch/ and chip_smoke.py into build/ab/ with each --edit
 applied (OLD must occur exactly once in FILE; backslash escapes such as
@@ -11,7 +11,8 @@ applied (OLD must occur exactly once in FILE; backslash escapes such as
 is (A), the edited copy (B), B, A. Each builds its own kernels, prints the
 registers and spills that ``nvcc -Xptxas -v`` reports for the entry
 functions whose names contain the --ptxas text, and times each --kernel
-(a chip_smoke.py KERNELS name) at its chip_smoke.py main-path shapes:
+(a chip_smoke.py KERNELS name) at its chip_smoke.py shapes of the --label
+case (main by default; "40 ms" and "25 ms" the FFT kernels' windows):
 median of 10 launches (CUDA events). Ends with each side's median of its
 two runs and B / A. Needs a CUDA card and nvcc; exits 1 without a card.
 """
@@ -67,7 +68,8 @@ def registers(log: str, needle: str) -> list[str]:
     return out
 
 
-def worker(root: str, side: str, kernels: list, needle: str) -> None:
+def worker(root: str, side: str, kernels: list, needle: str,
+           label: str) -> None:
     sys.path.insert(0, root)
     os.environ["ZAFTPU_CACHE"] = "0"
     import torch
@@ -86,8 +88,8 @@ def worker(root: str, side: str, kernels: list, needle: str) -> None:
     dev = torch.device("cuda", 0)
     main_t = chip_smoke.stft_padding(chip_smoke.SEGMENT_SECONDS * chip_smoke.SR,
                                      chip_smoke.WL, chip_smoke.STEP)[2]
-    for name, label, shape, args, _ in chip_smoke._kernel_cases(dev, main_t):
-        if name in kernels and label == "main":
+    for name, case, shape, args, _ in chip_smoke._kernel_cases(dev, main_t):
+        if name in kernels and case == label:
             fn = chip_smoke.KERNELS[name][2]
             ms = chip_smoke.median_ms(lambda: fn(*args))
             print(json.dumps({"side": side, "kernel": name, "shape": shape,
@@ -100,10 +102,11 @@ def main() -> int:
     parser.add_argument("--edit", nargs=3, action="append", default=[],
                         metavar=("FILE", "OLD", "NEW"))
     parser.add_argument("--ptxas", default="")
+    parser.add_argument("--label", default="main")
     parser.add_argument("--worker", nargs=2, metavar=("ROOT", "SIDE"))
     args = parser.parse_args()
     if args.worker:
-        worker(*args.worker, args.kernel, args.ptxas)
+        worker(*args.worker, args.kernel, args.ptxas, args.label)
         return 0
     if not args.edit:
         parser.error("give at least one --edit")
@@ -121,7 +124,8 @@ def main() -> int:
     for side, root in (("A", ROOT), ("B", copy), ("B", copy), ("A", ROOT)):
         proc = subprocess.run(
             [sys.executable, __file__, "--worker", str(root), side,
-             "--kernel", *args.kernel, "--ptxas", args.ptxas],
+             "--kernel", *args.kernel, "--ptxas", args.ptxas,
+             "--label", args.label],
             capture_output=True, text=True)
         if proc.returncode:
             print(proc.stdout + proc.stderr, file=sys.stderr)

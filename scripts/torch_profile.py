@@ -1,9 +1,11 @@
 """Where the device time of zaftpu_torch's main path goes, on a CUDA card.
 
     python3 scripts/torch_profile.py [--precision highest|split4] [--iters 3]
+        [--window 1102]
 
 Profiles 600-s stft -> istft, mdct -> imdct (the chip_smoke.py signal,
-Hamming and vorbis windows of 2048, hop 1024), cqtspectrogram at
+Hamming and vorbis windows of 2048, hop 1024; --window sets the STFT's
+Hamming window, at half overlap), cqtspectrogram at
 CqtConfig(), one hour of stft (six 600-s segments queued back to back)
 and one hour of stft, then istft (chip_smoke.py's hour phase) with
 torch.profiler after two
@@ -35,7 +37,7 @@ from chip_smoke import segment  # noqa: E402
 from zaftpu_torch import CqtConfig  # noqa: E402
 from zaftpu_torch.core.windows import hamming, vorbis  # noqa: E402
 
-WL, STEP = 2048, 1024
+WL = 2048
 
 
 def device_ms(event) -> float:
@@ -79,6 +81,7 @@ def main() -> int:
     parser.add_argument("--precision", default="highest",
                         choices=("highest", "split4"))
     parser.add_argument("--iters", type=int, default=3)
+    parser.add_argument("--window", type=int, default=WL)
     args = parser.parse_args()
     if not torch.cuda.is_available():
         print("no CUDA card", file=sys.stderr)
@@ -87,25 +90,26 @@ def main() -> int:
     os.environ["ZAFTPU_CACHE"] = "0"
     torch.backends.cuda.matmul.allow_tf32 = False
     print(f"{torch.cuda.get_device_name(0)}; ZAFTPU_PRECISION="
-          f"{args.precision}")
+          f"{args.precision}; STFT window {args.window}")
     x = torch.from_numpy(segment(0)).cuda()
-    hw, vw = hamming(WL), vorbis(WL)
+    step = args.window // 2
+    hw, vw = hamming(args.window), vorbis(WL)
     profile("stft -> istft", lambda: zaftpu_torch.istft(
-        zaftpu_torch.stft(x, hw, STEP), hw, STEP), args.iters)
-    profile("stft", lambda: zaftpu_torch.stft(x, hw, STEP), args.iters)
+        zaftpu_torch.stft(x, hw, step), hw, step), args.iters)
+    profile("stft", lambda: zaftpu_torch.stft(x, hw, step), args.iters)
     profile("mdct -> imdct", lambda: zaftpu_torch.imdct(
         zaftpu_torch.mdct(x, vw), vw), args.iters)
     cfg = CqtConfig()
     profile("cqtspectrogram", lambda: zaftpu_torch.cqtspectrogram(
         x, config=cfg), args.iters)
     segs = [torch.from_numpy(segment(i)).cuda() for i in range(6)]
-    profile("stft, one hour", lambda: [zaftpu_torch.stft(s, hw, STEP)
+    profile("stft, one hour", lambda: [zaftpu_torch.stft(s, hw, step)
                                        for s in segs], args.iters,
             host_rows=8)
 
     def hour_round_trip():
-        specs = [zaftpu_torch.stft(s, hw, STEP) for s in segs]
-        return [zaftpu_torch.istft(s, hw, STEP) for s in specs]
+        specs = [zaftpu_torch.stft(s, hw, step) for s in segs]
+        return [zaftpu_torch.istft(s, hw, step) for s in specs]
 
     profile("stft, then istft, one hour", hour_round_trip, args.iters,
             host_rows=12)

@@ -106,8 +106,8 @@ def test_misaligned_signal_takes_the_scalar_framing(dev):
 @pytest.mark.parametrize("wl", [512, 500, 502])
 def test_batched_cuda_input_launches_once(dev, wl):
     """One launch for a batch, of the kernel the shape rule picks: the FFT
-    at an even window whose half is 7-smooth (512, 500), the GEMM otherwise
-    (502: 251 is prime); no plain version."""
+    at an even window whose half has no prime factor above 127 (512, 500),
+    the GEMM otherwise (502: 251 is prime); no plain version."""
     step, t = 128, 21
     padded, win = _inputs(wl, step, t, dev, (4,))
 
@@ -697,18 +697,19 @@ def test_fused2_and_fullspec_levers_on_card_bit_equal(dev, lever, dial,
 
 @pytest.mark.parametrize("wl,lever,fused2,kernel", [
     (2048, None, False, "fft_full"), (2048, None, True, "fft2"),
-    (1102, None, False, "twin"), (1102, None, True, "twin2"),
+    (1102, None, False, "fft_full"), (1102, None, True, "fft2"),
+    (262, None, False, "twin"), (262, None, True, "twin2"),
     (2048, "matmul", False, "twin"), (2048, "matmul", True, "twin2"),
     (1764, "native", False, "fft_full")])
 def test_split4_stft_takes_the_fft_where_the_rule_holds(dev, wl, lever,
                                                        fused2, kernel,
                                                        monkeypatch):
     """Under split4 stft launches the FFT kernel (its full store, or its
-    planes store under ZAFTPU_FUSED2=1) where the shape rule holds, and
-    B1's twin (B12's)
-    at WL 1102 or with ZAFTPU_FFT=matmul, once and nothing else; the FFT's
-    spectrum bit-equal to the exact dial's, the twins' within 1e-4 of max
-    of the CPU float64 path."""
+    planes store under ZAFTPU_FUSED2=1) where the shape rule holds (WL
+    1102 = 2 * 19 * 29 among its windows), and B1's twin (B12's) at WL 262
+    (131 is a prime above 127) or with ZAFTPU_FFT=matmul, once and nothing
+    else; the FFT's spectrum bit-equal to the exact dial's, the twins'
+    within 1e-4 of max of the CPU float64 path."""
     monkeypatch.setenv("ZAFTPU_PRECISION", "split4")
     if lever is not None:
         monkeypatch.setenv("ZAFTPU_FFT", lever)
@@ -876,7 +877,7 @@ def test_cqt_magnitudes_split4_on_a_misaligned_signal(dev, cqt_cache):
 
 
 # The real-FFT analysis kernel: B1 and B12 (and, under split4, their twins)
-# at every even window whose half is 7-smooth.
+# at every even window whose half has no prime factor above 127.
 
 FFT_SHAPES = [(16, 4, 300), (16, 5, 37), (64, 1, 45), (256, 100, 61),
               (512, 128, 1001), (2048, 1024, 37), (2048, 683, 19),
@@ -887,9 +888,15 @@ FFT_SHAPES = [(16, 4, 300), (16, 5, 37), (64, 1, 45), (256, 100, 61),
               (24, 6, 200), (400, 160, 1001), (400, 150, 61), (882, 441, 37),
               (882, 300, 37), (1764, 882, 37), (1764, 500, 19),
               (3000, 1000, 9), (3000, 3000, 3)]
+# Primes above 7 (the generic odd-prime pass): m = 110 (2, 5, 11), 127 (one
+# pass, sixteen frames per block), 143 (11, 13), 551 (19, 29), 1016 (4, 2,
+# 127), 1331 (11, 11, 11) and 1411 (17, 83; one frame per block).
+PRIME_SHAPES = [(220, 100, 61), (254, 127, 61), (286, 50, 40),
+                (1102, 551, 37), (1102, 300, 19), (2032, 1000, 9),
+                (2662, 1000, 7), (2822, 1411, 9)]
 
 
-@pytest.mark.parametrize("wl,step,t", FFT_SHAPES)
+@pytest.mark.parametrize("wl,step,t", FFT_SHAPES + PRIME_SHAPES)
 @pytest.mark.parametrize("lead", [(), (2, 3)])
 @pytest.mark.parametrize("offset", [0, 1])
 def test_fft_kernel_matches_plain(dev, wl, step, t, lead, offset):
@@ -912,6 +919,27 @@ def test_fft_kernel_matches_plain(dev, wl, step, t, lead, offset):
     assert _rel_err(half.cpu().to(torch.complex128), oracle) < 2e-6
 
 
+@pytest.mark.parametrize("wl,step,t", PRIME_SHAPES)
+@pytest.mark.parametrize("lead,offset", [((), 0), ((3,), 1)])
+def test_prime_passes_bit_equal_to_plain(dev, wl, step, t, lead, offset):
+    """Through the generic odd-prime passes all three stores and the
+    inverse kernel equal their plain versions bit for bit (every product
+    and sum an explicitly rounded intrinsic in the plain version's order),
+    one row and a batched, misaligned (scalar-load) case."""
+    padded, win = _inputs(wl, step, t, dev, lead, offset)
+    half = rfft.frames_rfft_fft(padded, win, wl, step, t)
+    assert torch.equal(half, rfft.frames_rfft_fft_plain(padded, win, wl,
+                                                        step, t))
+    re, im = rfft.frames_matmul2_fft(padded, win, wl, step, t)
+    assert torch.equal(torch.complex(re, im), half)
+    assert torch.equal(rfft.frames_rfft_full_fft(padded, win, wl, step, t),
+                       tfft.conjugate_mirror(half, wl))
+    h_re, h_im = half.real.contiguous(), half.imag.contiguous()
+    got = irfft.istft_ola_fft(h_re, h_im, wl, step, 0.5)
+    assert torch.equal(got, irfft.istft_ola_fft_plain(h_re, h_im, wl, step,
+                                                      0.5))
+
+
 def test_fft_entry_refuses_what_the_rule_refuses(dev):
     """The CUDA entry takes exactly the lengths rfft.fits takes (the set of
     rfft.applies without an operator or the lever) and refuses every other
@@ -925,7 +953,7 @@ def test_fft_entry_refuses_what_the_rule_refuses(dev):
             err = entry(buf.data_ptr(), buf.data_ptr(), buf.data_ptr(),
                         buf.data_ptr(), 1, 8192, 0, wl, 1, 0)
             assert (err == 0) is rfft.fits(wl), (wl, err)
-    for wl in (38, 1102, 255, 4098):
+    for wl in (262, 2062, 255, 4098):
         padded, win = _inputs(wl, wl // 2, 3, dev)
         for wrapper in (rfft.frames_rfft_fft, rfft.frames_rfft_full_fft):
             with pytest.raises(ValueError, match="prime factor"):
@@ -953,13 +981,15 @@ def test_fft_kernel_takes_an_hour_in_one_launch(dev):
     assert _rel_err(half[-64:], tail) <= 1e-6
 
 
-@pytest.mark.parametrize("wl", [16, 256, 2048, 4096, 100, 1764, 1102])
+@pytest.mark.parametrize("wl", [16, 256, 2048, 4096, 100, 1764, 1102, 2822,
+                                262, 2062])
 @pytest.mark.parametrize("fused2", [False, True])
 def test_shape_rule_launch_counts_on_card(dev, wl, fused2, monkeypatch):
     """stft launches the FFT kernel (its full or, with ZAFTPU_FUSED2=1, its
-    planes store) at an even window whose half is 7-smooth (16 ... 1764)
-    and the GEMM kernel otherwise (1102 = 2 * 19 * 29), once, and no plain
-    version; within 1e-5 of max of the float64 path."""
+    planes store) at an even window whose half has no prime factor above
+    127 (16 ... 2822) and the GEMM kernel otherwise (262 = 2 * 131, 2062 =
+    2 * 1031), once, and no plain version; within 1e-5 of max of the
+    float64 path."""
     if fused2:
         monkeypatch.setenv("ZAFTPU_FUSED2", "1")
     x64 = np.random.default_rng(wl).standard_normal((2, 20000))
@@ -988,10 +1018,10 @@ def test_shape_rule_launch_counts_on_card(dev, wl, fused2, monkeypatch):
 
 
 # The FFT kernel's full store: B3 and B3-s4 at every even window whose half
-# is 7-smooth.
+# has no prime factor above 127.
 
-@pytest.mark.parametrize("wl,step,t", FFT_SHAPES + [(2048, 1024, 1),
-                                                    (400, 160, 1)])
+@pytest.mark.parametrize("wl,step,t", FFT_SHAPES + PRIME_SHAPES + [
+    (2048, 1024, 1), (400, 160, 1), (1102, 551, 1)])
 @pytest.mark.parametrize("lead,offset", [((), 0), ((), 1), ((3,), 0),
                                          ((2, 3), 1)])
 def test_fft_full_store_matches_plain(dev, wl, step, t, lead, offset):
@@ -1060,12 +1090,18 @@ def test_default_stft_takes_the_full_store_on_both_dials(dev, wl, dial,
 
 
 # The inverse real-FFT + overlap-add kernel: B4 and B4-s4 at every even
-# window whose half is 7-smooth.
+# window whose half has no prime factor above 127.
 
 IRFFT_SHAPES = [(2048, 1024, 37), (2048, 1024, 1), (1764, 882, 23),
                 (400, 160, 61), (400, 160, 1), (4096, 256, 40), (16, 1, 700),
                 (16, 5, 3000), (3000, 1000, 9), (3000, 3000, 3),
-                (512, 100, 1001), (24, 7, 300)]
+                (512, 100, 1001), (24, 7, 300),
+                # Primes above 7: 220 (2, 5, 11), 254 (127) at hop 7, 1102
+                # (19, 29), 2032 (4, 2, 127), 2662 (11, 11, 11), 2822 (17,
+                # 83).
+                (220, 110, 61), (254, 7, 300), (1102, 551, 23),
+                (1102, 1102, 1), (2032, 500, 9), (2662, 1331, 5),
+                (2822, 1411, 9)]
 
 
 @pytest.mark.parametrize("wl,step,t", IRFFT_SHAPES)
@@ -1121,14 +1157,15 @@ def test_irfft_kernel_takes_an_hour_in_one_launch(dev):
     assert torch.equal(out[(t - 64) * step + wl:], tail[wl:])
 
 
-@pytest.mark.parametrize("wl", [2048, 1764, 1102])
+@pytest.mark.parametrize("wl", [2048, 1764, 1102, 2822, 262])
 @pytest.mark.parametrize("dial", ["highest", "split4"])
 def test_stft_istft_take_the_ffts_on_both_dials(dev, wl, dial, monkeypatch):
-    """stft -> istft on the card: where the shape rule holds (WL 2048, 1764)
-    both dials launch the FFT analysis and the inverse FFT synthesis, once
-    each and no B4 or B4-s4, bit-equal across the dials, within 1e-5 of
-    max of the CPU float64 path and above 120 dB; at WL 1102 B4 (B4-s4
-    under split4) runs, in split4's band there."""
+    """stft -> istft on the card: where the shape rule holds (WL 2048, 1764
+    and, through the odd-prime passes, 1102 and 2822) both dials launch the
+    FFT analysis and the inverse FFT synthesis, once each and no B4 or
+    B4-s4, bit-equal across the dials, within 1e-5 of max of the CPU
+    float64 path and above 120 dB; at WL 262 (131 is a prime above 127) B4
+    (B4-s4 under split4) runs, in split4's band there."""
     x64 = np.random.default_rng(wl + 3).standard_normal((2, 44100))
     x = torch.from_numpy(x64.astype(np.float32)).to(dev)
     win = hamming(wl)
@@ -1153,6 +1190,40 @@ def test_stft_istft_take_the_ffts_on_both_dials(dev, wl, dial, monkeypatch):
     assert torch.equal(rec, zaftpu_torch.istft(spec, win, wl // 2))
     assert _rel_err(rec.cpu().double(), ref) < 1e-5
     assert snr > 120.0
+
+
+@pytest.mark.parametrize("dial", ["highest", "split4"])
+def test_odd_window_keeps_the_gemms_on_card(dev, dial, monkeypatch):
+    """An odd window stays with the GEMM kernels: stft -> istft at WL 1323 /
+    hop 441 (30 ms at 44.1 kHz, periodic Hamming at a third of its length)
+    launches B1 and B4 (their twins under split4) once each and no FFT
+    kernel; the spectrum and the signal within 1e-5 (1e-4) of max of the
+    CPU float64 path. (At an odd window the reference's trim leaves the
+    round trip one sample off, so it is held to that path, not to x.)"""
+    monkeypatch.setenv("ZAFTPU_PRECISION", dial)
+    wl, step = 1323, 441
+    x64 = np.random.default_rng(wl).standard_normal((2, 44100))
+    x = torch.from_numpy(x64.astype(np.float32)).to(dev)
+    win = hamming(wl)
+    counters = {"gemm": fused.frames_rfft, "twin": fused.frames_rfft_split4,
+                "synth": synth.istft_ola, "synth_twin": synth.istft_ola_split4,
+                "fft": rfft.frames_rfft_fft,
+                "fft_full": rfft.frames_rfft_full_fft,
+                "ifft": irfft.istft_ola_fft}
+    before = {k: c.launches for k, c in counters.items()}
+    spec = zaftpu_torch.stft(x, win, step)
+    rec = zaftpu_torch.istft(spec, win, step)
+    moved = {k for k, c in counters.items() if c.launches != before[k]}
+    want = ({"twin", "synth_twin"} if dial == "split4"
+            else {"gemm", "synth"})
+    assert moved == want
+    assert all(counters[k].launches == before[k] + 1 for k in want)
+    monkeypatch.setenv("ZAFTPU_PRECISION", "highest")
+    oracle = zaftpu_torch.stft(torch.from_numpy(x64), win, step)
+    tol = 1e-4 if dial == "split4" else 1e-5
+    assert _rel_err(spec.cpu().to(torch.complex128), oracle) < tol
+    assert _rel_err(rec.cpu().double(),
+                    zaftpu_torch.istft(oracle, win, step)) < tol
 
 
 # The dtype rules on the card: float64 arrays and lists, bfloat16 signals.

@@ -17,6 +17,7 @@ import numpy as np
 import pytest
 import torch
 
+import zaftpu
 import zaftpu_torch
 from conftest import snr_db
 from zaftpu.core import fft as zfft
@@ -24,12 +25,17 @@ from zaftpu.core import frame as zframe
 from zaftpu.core.windows import hamming
 from zaftpu.pallas import fused as zfused
 from zaftpu_torch.kernels import fused as tfused
+from zaftpu_torch.kernels import irfft as tirfft
 from zaftpu_torch.kernels import rfft as trfft
 
 # Powers of two, and mixed radices: 24 (m = 12: 4, 3), 400 (m = 200: 4, 2,
 # 5, 5), 882 (odd m = 441: 3, 3, 7, 7), 1764 (m = 882: 2, 3, 3, 7, 7) and
 # 3000 (m = 1500: 4, 3, 5, 5, 5; one frame per block on the card).
-WINDOWS = [16, 64, 256, 2048, 4096, 24, 400, 882, 1764, 3000]
+# Primes above 7 (the generic odd-prime pass): 220 (m = 110: 2, 5, 11), 254
+# (127), 286 (11, 13), 1102 (19, 29: the 25-ms window at 44.1 kHz), 2032 (4,
+# 2, 127), 2662 (11, 11, 11) and 2822 (17, 83: 64 ms at 44.1 kHz).
+PRIME_WINDOWS = [220, 254, 286, 1102, 2032, 2662, 2822]
+WINDOWS = [16, 64, 256, 2048, 4096, 24, 400, 882, 1764, 3000] + PRIME_WINDOWS
 HOPS = ["1", "quarter", "half", "whole", "non-divisor"]
 T = 11  # not a multiple of any block
 
@@ -129,10 +135,14 @@ def test_twiddle_table_against_float64(n):
     (8, (4, 2)), (16, (4, 4)), (32, (4, 4, 2)), (1024, (4,) * 5),
     (2048, (4,) * 5 + (2,)), (12, (4, 3)), (9, (3, 3)), (200, (4, 2, 5, 5)),
     (441, (3, 3, 7, 7)), (882, (2, 3, 3, 7, 7)), (1500, (4, 3, 5, 5, 5)),
-    (2016, (4, 4, 2, 3, 3, 7)), (2025, (3, 3, 3, 3, 5, 5))])
+    (2016, (4, 4, 2, 3, 3, 7)), (2025, (3, 3, 3, 3, 5, 5)),
+    (551, (19, 29)), (110, (2, 5, 11)), (127, (127,)), (143, (11, 13)),
+    (1016, (4, 2, 127)), (1331, (11, 11, 11)), (1411, (17, 83)),
+    (1386, (2, 3, 3, 7, 11))])
 def test_radices(m, want):
     """Radix 4 while it fits in the power-of-two part, one radix 2 when its
-    log2 is odd, then the 3s, 5s and 7s: the passes multiply to m."""
+    log2 is odd, then the 3s, 5s and 7s, then the primes above 7 ascending:
+    the passes multiply to m."""
     assert trfft.radices(m) == want
     assert int(np.prod(want)) == m
 
@@ -145,20 +155,25 @@ def test_radices_of_a_power_of_two_keep_the_radix_4_plan(log_m):
 
 
 def test_radices_refuse_a_prime_above_7():
-    with pytest.raises(ValueError):
-        trfft.radices(551)  # 19 * 29: WL 1102
+    """A prime factor above 127 is refused: 131 (WL 262), 1031 (WL 2062)
+    and 2039 (WL 4078); 551 = 19 * 29 (WL 1102) takes two prime passes."""
+    assert trfft.radices(551) == (19, 29)
+    for m in (131, 1031, 2039, 2 * 131):
+        with pytest.raises(ValueError, match="above 127"):
+            trfft.radices(m)
 
 
 @pytest.mark.parametrize("wl,fft", [(8, False), (16, True), (100, True),
                                     (255, False), (256, True), (2048, True),
                                     (3000, True), (4096, True), (1764, True),
-                                    (1102, False), (38, False)])
+                                    (1102, True), (38, True), (262, False),
+                                    (2062, False)])
 def test_shape_rule_through_plain_calls(wl, fft, monkeypatch):
     """frames_rfft and frames_matmul2 take the FFT's plain version at an
-    even window in [16, 4096] whose half is 7-smooth and no operator, on
-    both dials; any other length keeps the GEMM plain versions (the
-    split4 twin's under split4), and an explicit operator the exact
-    GEMM's."""
+    even window in [16, 4096] whose half has no prime factor above 127 and
+    no operator, on both dials; any other length (262 = 2 * 131, 2062 = 2 *
+    1031) keeps the GEMM plain versions (the split4 twin's under split4),
+    and an explicit operator the exact GEMM's."""
     monkeypatch.delenv("ZAFTPU_PRECISION", raising=False)
     assert trfft.applies(wl) is fft
     step = max(1, wl // 2)
@@ -188,25 +203,32 @@ def test_shape_rule_through_plain_calls(wl, fft, monkeypatch):
         before, (1, 0, 0, 0, 0) if fft else (0, 0, 0, 0, 1)))
 
 
-def _seven_smooth(m):
-    for p in (2, 3, 5, 7):
+def _largest_prime_factor(m):
+    largest, p = 1, 2
+    while m > 1:
         while m % p == 0:
             m //= p
-    return m == 1
+            largest = p
+        p += 1
+    return largest
 
 
 def test_shape_rule_bounds():
     """Exactly the even N in [16, 4096] whose half has no prime factor
-    above 7: 183 lengths, every power of two among them, and the audio
-    front ends' 25-ms, 40-ms and 10-ms windows at 16 kHz, 44.1 kHz and
-    48 kHz."""
-    want = [n for n in range(16, 4097, 2) if _seven_smooth(n // 2)]
+    above 127: 1,263 lengths (183 of them 7-smooth), every power of two
+    among them, the audio front ends' 25-ms, 40-ms and 10-ms windows at 16
+    kHz, 44.1 kHz and 48 kHz, and 10 ms at 22.05 kHz (220) and 64 ms at
+    44.1 kHz (2822 = 2 * 17 * 83)."""
+    want = [n for n in range(16, 4097, 2)
+            if _largest_prime_factor(n // 2) <= 127]
     assert [n for n in range(1, 9000) if trfft.applies(n)] == want
     assert [n for n in range(1, 9000) if trfft.fits(n)] == want
-    assert len(want) == 183
+    assert len(want) == 1263
+    assert sum(_largest_prime_factor(n // 2) <= 7 for n in want) == 183
     assert {16, 32, 64, 128, 256, 512, 1024, 2048, 4096} <= set(want)
     assert {320, 400, 480, 882, 960, 1200, 1764, 2400, 3000} <= set(want)
-    assert not {8, 38, 255, 1102, 4098, 8192} & set(want)
+    assert {220, 1102, 2032, 2662, 2822} <= set(want)
+    assert not {8, 255, 262, 1323, 2062, 4078, 4098, 8192} & set(want)
     assert not trfft.applies(2048, ops=torch.zeros(1))
 
 
@@ -294,8 +316,8 @@ def _bad_fft_launch(case):
                                           padded[:-1], win[:-1], wl - 1,
                                           step, t),
         "prime_above_7": lambda: trfft._launch(
-            "frames_rfft_full_fft", "full", torch.zeros(8 * 551 + 1102),
-            torch.zeros(1102), 1102, 551, 9),
+            "frames_rfft_full_fft", "full", torch.zeros(8 * 131 + 262),
+            torch.zeros(262), 262, 131, 9),
         "too_long": lambda: trfft._launch(
             "frames_rfft_fft", "half", torch.zeros(8192 * 2),
             torch.zeros(8192), 8192, 4096, 2),
@@ -325,3 +347,48 @@ def test_fft_wrapper_refuses_before_launch(case, monkeypatch):
     with pytest.raises(error):
         _bad_fft_launch(case)
     assert [w.launches for w in wrappers] == launches
+
+
+@pytest.mark.parametrize("wl", PRIME_WINDOWS)
+def test_prime_windows_f32_match_numpy_rfft(wl):
+    """float32 through the generic odd-prime passes, two batch rows, a hop
+    that does not divide WL: within 1e-6 of max of numpy's float64 rfft
+    (the FFT's float32 rounding reads 1.3-2.5e-7 of max here)."""
+    step = _hop(wl, "non-divisor")
+    padded = _signal((2,), wl, step, T, wl + 7)
+    win = hamming(wl).astype(np.float32)
+    mine = trfft.frames_rfft_fft(torch.from_numpy(padded),
+                                 torch.from_numpy(win), wl, step, T)
+    ref = _oracle(padded, win, wl, step, T)
+    np.testing.assert_allclose(mine.numpy(), ref, rtol=0,
+                               atol=1e-6 * np.abs(ref).max())
+
+
+@pytest.mark.parametrize("wl", PRIME_WINDOWS)
+def test_prime_windows_stft_istft_match_zaftpu(wl, monkeypatch):
+    """The public float32 stft -> istft at a window whose half has a prime
+    factor above 7, half overlap: the FFT's full store and the inverse
+    FFT's plain versions, once each; the spectrum and the signal within
+    1e-5 of max of zaftpu.stft and zaftpu.istft on the same input
+    (tests/test_torch_stft.py's gate), and a round trip of at least 120
+    dB."""
+    monkeypatch.delenv("ZAFTPU_PRECISION", raising=False)
+    step = wl // 2
+    x = np.random.default_rng(wl).standard_normal(12 * wl).astype(
+        np.float32)
+    win = hamming(wl).astype(np.float32)
+    counters = (trfft.frames_rfft_full_fft_plain,
+                tirfft.istft_ola_fft_plain)
+    before = [c.calls for c in counters]
+    spec = zaftpu_torch.stft(torch.from_numpy(x), win, step)
+    rec = zaftpu_torch.istft(spec, win, step)
+    assert [c.calls for c in counters] == [b + 1 for b in before]
+    ref = np.asarray(zaftpu.stft(x, win, step))
+    ref_rec = np.asarray(zaftpu.istft(ref, win, step))
+    assert spec.dtype == torch.complex64 and tuple(spec.shape) == ref.shape
+    np.testing.assert_allclose(spec.numpy(), ref, rtol=0,
+                               atol=1e-5 * np.abs(ref).max())
+    np.testing.assert_allclose(rec.numpy(), ref_rec, rtol=0,
+                               atol=1e-5 * np.abs(ref_rec).max())
+    assert snr_db(x.astype(np.float64),
+                  rec.numpy().astype(np.float64)) >= 120.0

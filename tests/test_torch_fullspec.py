@@ -27,9 +27,10 @@ from zaftpu_torch.kernels import fused as tfused
 from zaftpu_torch.kernels import mirror as tmirror
 from zaftpu_torch.kernels import rfft as trfft
 
-# Powers of two and mixed radices (400: 4, 2, 5, 5; 882: 3, 3, 7, 7; 1764:
-# 2, 3, 3, 7, 7; 3000: 4, 3, 5, 5, 5).
-WINDOWS = [16, 400, 882, 1764, 2048, 3000, 4096]
+# Powers of two, mixed radices (400: 4, 2, 5, 5; 882: 3, 3, 7, 7; 1764: 2,
+# 3, 3, 7, 7; 3000: 4, 3, 5, 5, 5) and primes above 7 (1102: 19, 29; 2822:
+# 17, 83).
+WINDOWS = [16, 400, 882, 1764, 2048, 3000, 4096, 1102, 2822]
 HOPS = ["1", "non-divisor", "half", "whole"]
 LEADS = [(), (2, 3), (0,)]
 T = 5
@@ -117,14 +118,16 @@ LEVERS = {"none": {}, "ZAFTPU_MIRROR=pallas": {"ZAFTPU_MIRROR": "pallas"},
           "ZAFTPU_FUSED2=1": {"ZAFTPU_FUSED2": "1"},
           "ZAFTPU_FUSED=0": {"ZAFTPU_FUSED": "0"},
           "ZAFTPU_FFT=matmul": {"ZAFTPU_FFT": "matmul"}}
-RULE_WL, OFF_RULE_WL = 2048, 1102  # 1102 = 2 * 19 * 29
+# A 7-smooth rule window, one through the odd-prime passes (1102 = 2 * 19
+# * 29) and one the rule leaves to the GEMMs (262 = 2 * 131).
+RULE_WL, PRIME_WL, OFF_RULE_WL = 2048, 1102, 262
 
 
 def _expected(fullspec, lever: str, dial: str, wl: int) -> set:
     """The counters stft moves: the lever's rule, stated once more."""
     if lever == "ZAFTPU_FUSED=0":
         return {"framing"}
-    fft = wl == RULE_WL and lever != "ZAFTPU_FFT=matmul"
+    fft = wl != OFF_RULE_WL and lever != "ZAFTPU_FFT=matmul"
     kernel = "fft" if fft else "twin" if dial == "split4" else "gemm"
     if fullspec is None:
         full = fft and lever not in ("ZAFTPU_MIRROR=pallas",
@@ -142,7 +145,8 @@ def _group(lever: str, wl: int) -> str:
     """The analysis kernel whose sums the spectrum holds."""
     if lever == "ZAFTPU_FUSED=0":
         return "split"
-    return "fft" if wl == RULE_WL and lever != "ZAFTPU_FFT=matmul" else "gemm"
+    return ("fft" if wl != OFF_RULE_WL and lever != "ZAFTPU_FFT=matmul"
+            else "gemm")
 
 
 def _stft(x, wl, env: dict, monkeypatch):
@@ -153,7 +157,7 @@ def _stft(x, wl, env: dict, monkeypatch):
     return zaftpu_torch.stft(x, hamming(wl), wl // 2)
 
 
-@pytest.mark.parametrize("wl", [RULE_WL, OFF_RULE_WL])
+@pytest.mark.parametrize("wl", [RULE_WL, PRIME_WL, OFF_RULE_WL])
 @pytest.mark.parametrize("dial", ["highest", "split4"])
 @pytest.mark.parametrize("lever", list(LEVERS))
 @pytest.mark.parametrize("fullspec", [None, "0", "1"])
@@ -196,13 +200,15 @@ def test_unset_lever_takes_the_full_store_only_at_rule_windows(monkeypatch):
                  "ZAFTPU_FFT"):
         monkeypatch.delenv(name, raising=False)
     assert tfused.fullspec_enabled(2048) and tfused.fullspec_enabled(400)
-    assert not tfused.fullspec_enabled(1102)
+    assert tfused.fullspec_enabled(1102) and tfused.fullspec_enabled(2822)
+    assert not tfused.fullspec_enabled(262)
     assert not tfused.fullspec_enabled(8192)
     for value, rule, off_rule in (("1", True, True), ("0", False, False),
                                   ("auto", True, False)):
         monkeypatch.setenv("ZAFTPU_FULLSPEC", value)
         assert tfused.fullspec_enabled(2048) is rule
-        assert tfused.fullspec_enabled(1102) is off_rule
+        assert tfused.fullspec_enabled(1102) is rule
+        assert tfused.fullspec_enabled(262) is off_rule
 
 
 def test_stft_matches_golden_under_the_unset_lever(golden, signal,

@@ -32,12 +32,18 @@ from zaftpu_torch.kernels import synth as tsynth
 SCALE = 0.7310586
 # WL, hop, T, leading axes: a hop that does not divide WL (400 / 160), T = 1,
 # mixed radices (24: 4, 3; 400: 4, 2, 5, 5; 882: 3, 3, 7, 7; 1764: 2, 3, 3,
-# 7, 7; 3000: 4, 3, 5, 5, 5) and batches.
+# 7, 7; 3000: 4, 3, 5, 5, 5), primes above 7 (220: 2, 5, 11; 254: 127;
+# 1102: 19, 29; 2662: 11, 11, 11; 2822: 17, 83) and batches.
 ZAFTPU_CASES = [(16, 8, 11, (2,)), (16, 4, 1, ()), (24, 6, 11, (2,)),
                 (400, 160, 11, (2,)), (400, 200, 1, ()), (882, 441, 11, ()),
                 (1764, 882, 7, (2,)), (2048, 1024, 5, ()),
-                (2048, 512, 1, (2,)), (3000, 1000, 4, ())]
-WINDOWS = [16, 64, 256, 2048, 4096, 24, 400, 882, 1764, 3000]
+                (2048, 512, 1, (2,)), (3000, 1000, 4, ()),
+                (220, 110, 11, (2,)), (254, 100, 7, ()), (1102, 551, 7, ()),
+                (2662, 1331, 3, ()), (2822, 1411, 4, (2,))]
+# The generic odd-prime passes: 220, 254, 286 (11, 13), 1102, 2032 (4, 2,
+# 127), 2662 and 2822.
+PRIME_WINDOWS = [220, 254, 286, 1102, 2032, 2662, 2822]
+WINDOWS = [16, 64, 256, 2048, 4096, 24, 400, 882, 1764, 3000] + PRIME_WINDOWS
 HOPS = ["1", "quarter", "half", "whole", "non-divisor"]
 T = 11
 
@@ -158,15 +164,18 @@ def _synth_calls():
 
 @pytest.mark.parametrize("wl,lever,ops,want", [
     (2048, None, False, "fft"), (1764, "native", False, "fft"),
-    (1102, None, False, "gemm"), (2048, "matmul", False, "gemm"),
-    (2048, None, True, "gemm"), (400, "auto", False, "fft")])
+    (1102, None, False, "fft"), (262, None, False, "gemm"),
+    (2048, "matmul", False, "gemm"), (2048, None, True, "gemm"),
+    (400, "auto", False, "fft"), (2822, None, False, "fft")])
 @pytest.mark.parametrize("dial", ["highest", "split4"])
 def test_shape_rule_through_plain_calls(wl, lever, ops, want, dial,
                                         monkeypatch):
     """istft_ola takes the inverse FFT's plain version where the analysis's
-    shape rule holds, on both dials; at WL 1102 (551 = 19 * 29), under
-    ZAFTPU_FFT=matmul and with an explicit operator B4's plain version
-    (B4-s4's under split4), once. All agree with the float64 oracle."""
+    shape rule holds (WL 1102 = 2 * 19 * 29 and 2822 = 2 * 17 * 83 among
+    its windows), on both dials; at WL 262 (131 is a prime above 127),
+    under ZAFTPU_FFT=matmul and with an explicit operator B4's plain
+    version (B4-s4's under split4), once. All agree with the float64
+    oracle."""
     monkeypatch.setenv("ZAFTPU_PRECISION", dial)
     if lever is None:
         monkeypatch.delenv("ZAFTPU_FFT", raising=False)
@@ -206,7 +215,7 @@ def _bad_launch(case):
     calls = {
         "f64": lambda: tirfft._launch(h.double(), h.double(), wl, step, 1.0),
         "prime_above_7": lambda: tirfft._launch(
-            torch.zeros(t, 552), torch.zeros(t, 552), 1102, 551, 1.0),
+            torch.zeros(t, 132), torch.zeros(t, 132), 262, 131, 1.0),
         "odd": lambda: tirfft._launch(torch.zeros(t, 128),
                                       torch.zeros(t, 128), 255, 128, 1.0),
         "too_long": lambda: tirfft._launch(
@@ -237,3 +246,18 @@ def test_wrapper_refuses_before_launch(case, monkeypatch):
     with pytest.raises(error):
         _bad_launch(case)
     assert tirfft.istft_ola_fft.launches == launches
+
+
+@pytest.mark.parametrize("wl", PRIME_WINDOWS)
+def test_prime_windows_f32_match_numpy_irfft(wl):
+    """float32 through the generic odd-prime passes, two batch rows, a hop
+    that does not divide WL: within 1e-6 of max of numpy's float64 irfft
+    and overlap-add."""
+    step = _hop(wl, "non-divisor")
+    h = _planes((2,), wl, T, wl + 11)
+    mine = tirfft.istft_ola_fft(torch.from_numpy(h[0]),
+                                torch.from_numpy(h[1]), wl, step, SCALE)
+    ref = _oracle(h, wl, step)
+    assert mine.dtype == torch.float32
+    np.testing.assert_allclose(mine.numpy(), ref, rtol=0,
+                               atol=1e-6 * np.abs(ref).max())

@@ -180,18 +180,19 @@ def test_dispatch_takes_the_lever(melfuse, ran, fbank, monkeypatch):
     ("1", {"spec_rows", "mel_rows"})])
 def test_dispatch_off_the_fft_rule_takes_the_kernels(melfuse, ran,
                                                      monkeypatch):
-    """At a window the FFT rule leaves to the GEMM (WL 1102: its half 551 =
-    19 * 29) the front ends take the magnitude and mel kernels unless
-    ZAFTPU_MELFUSE=0."""
-    fb = zaftpu_torch.melfilterbank(SR, 1102, MELS)
-    assert _front_end_plain_calls(1102, fb, monkeypatch, melfuse) == ran
+    """At a window the FFT rule leaves to the GEMM (WL 262: its half 131
+    is a prime above 127) the front ends take the magnitude and mel
+    kernels unless ZAFTPU_MELFUSE=0."""
+    fb = zaftpu_torch.melfilterbank(SR, 262, MELS)
+    assert _front_end_plain_calls(262, fb, monkeypatch, melfuse) == ran
 
 
 @pytest.mark.parametrize("melfuse,wl,wanted", [
     (None, 2048, False), ("auto", 16, False), (None, 4096, False),
-    ("0", 2048, False), ("1", 2048, True), (None, 1102, True),
+    ("0", 2048, False), ("1", 2048, True), (None, 1102, False),
     (None, 8, True), (None, 8192, True), ("0", 1102, False),
-    ("1", 1102, True), (None, 1764, False)])
+    ("1", 1102, True), (None, 1764, False), (None, 262, True),
+    ("0", 262, False), (None, 2062, True), (None, 2822, False)])
 def test_melfuse_gate_follows_the_fft_rule(melfuse, wl, wanted, monkeypatch):
     """On the exact dial the lever decides where it is set, else the FFT
     shape rule: the kernels wherever it does not give the half spectrum."""
@@ -206,14 +207,14 @@ def test_melfuse_gate_follows_the_fft_rule(melfuse, wl, wanted, monkeypatch):
 
 def test_many_mels_take_the_kernel_path():
     """The number of mels picks no path: a 300-row filterbank still goes
-    through mel_rows (at a window the FFT rule leaves to the kernels) and
-    matches zaftpu."""
-    fb = np.random.default_rng(5).random((300, 255))
+    through mel_rows (at a window the FFT rule leaves to the kernels: WL
+    262, its half 131 a prime above 127) and matches zaftpu."""
+    fb = np.random.default_rng(5).random((300, 131))
     x = torch.from_numpy(np.random.default_rng(3).standard_normal(4000))
     calls = tmelfused.mel_rows_plain.calls
-    got = zaftpu_torch.melspectrogram(x, hamming(510), 256, fb)
+    got = zaftpu_torch.melspectrogram(x, hamming(262), 131, fb)
     assert tmelfused.mel_rows_plain.calls == calls + 1
-    ref = np.asarray(zaftpu.melspectrogram(x.numpy(), hamming(510), 256, fb))
+    ref = np.asarray(zaftpu.melspectrogram(x.numpy(), hamming(262), 131, fb))
     np.testing.assert_allclose(_np(got), ref, rtol=1e-10, atol=1e-12)
 
 

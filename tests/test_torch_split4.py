@@ -512,11 +512,13 @@ def test_melfuse_gate_under_split4(melfuse, wanted, monkeypatch):
         monkeypatch.delenv("ZAFTPU_MELFUSE", raising=False)
     else:
         monkeypatch.setenv("ZAFTPU_MELFUSE", melfuse)
-    for wl in (2048, 1102):
+    for wl in (2048, 1102, 262):
         assert tmelfused.kernel_wanted(torch.float32, wl) is wanted
     # float64 never lowers, so the dial does not move it: the lever and the
-    # FFT shape rule decide, as on the exact dial.
-    assert tmelfused.kernel_wanted(torch.float64, 1102) is (melfuse != "0")
+    # FFT shape rule decide, as on the exact dial (the FFT at WL 2048 and
+    # 1102, the kernels at WL 262 = 2 * 131).
+    assert tmelfused.kernel_wanted(torch.float64, 262) is (melfuse != "0")
+    assert tmelfused.kernel_wanted(torch.float64, 1102) is (melfuse == "1")
     assert tmelfused.kernel_wanted(torch.float64, 2048) is (melfuse == "1")
 
 
@@ -599,11 +601,11 @@ def test_split4_takes_the_fft_where_the_rule_holds(x32, monkeypatch):
 @pytest.mark.parametrize("fused2", [False, True])
 def test_split4_off_the_rule_runs_the_twins_and_matches_zaftpu(
         x32, fused2, split4, monkeypatch):
-    """At WL 1102 (551 = 19 * 29, the 25-ms window at 44.1 kHz) the split4
-    stft runs B1's twin, or under ZAFTPU_FUSED2=1 B12's, without the
-    lever, and agrees with zaftpu's split4 stft (its GEMM engine,
-    ZAFTPU_FFT=matmul on its side only) at 2e-6 of max."""
-    wl, step = 1102, 551
+    """At WL 2062 (its half 1031 is a prime above 127) the split4 stft
+    runs B1's twin, or under ZAFTPU_FUSED2=1 B12's, without the lever, and
+    agrees with zaftpu's split4 stft (its GEMM engine, ZAFTPU_FFT=matmul on
+    its side only) at 2e-6 of max."""
+    wl, step = 2062, 1031
     assert not trfft.applies(wl)
     win = hamming(wl).astype(np.float32)
     monkeypatch.setenv("ZAFTPU_FFT", "matmul")

@@ -6,16 +6,17 @@
 // Hermitian-folded half spectrum as two float32 planes (batch, T, N/2 + 1);
 // the imaginary parts of DC and Nyquist are not read, as an inverse real
 // FFT ignores them. N even, from 16 to 4096, with N/2 free of prime factors
-// above 7 (kernels/rfft.py: fits), any hop in [1, N].
+// above 127 (kernels/rfft.py: fits), any hop in [1, N].
 //
 // Replaces zaftpu/pallas/synth.py: _gemm_ola_impl as istft_ola reaches it
 // (B4) and its _kernel_split4 (B4-s4) on both dials at those window
 // lengths; synth.cu's GEMM kernels keep every other length, an explicit
 // operator and ZAFTPU_FFT=matmul (kernels/synth.py states the rule). The TPU
 // kernels contract each frame with a dense (2 (N/2+1), N) inverse operator:
-// 2 N (N + 2) FLOP per frame. The FFT does about 2.5 N log2 N, which leaves
-// this kernel bound by its bytes: both planes read once and the signal
-// written once, 0.095 ms at the 600-s WL 2048 shape on an H100 (3.35 TB/s).
+// 2 N (N + 2) FLOP per frame. The FFT does about 2.5 N log2 N at a smooth
+// N and more at a large prime factor, which leaves this kernel bound by its
+// bytes: both planes read once and the signal written once, 0.095 ms at the
+// 600-s WL 2048 and WL 1102 shapes on an H100 (3.35 TB/s).
 //
 // Design: a 256-thread block owns kSpan = 8,192 consecutive output samples
 // of one batch row (grid x; the batch on grid y) in a shared-memory
@@ -131,7 +132,7 @@ irfft_ola_kernel(const float* __restrict__ hr, const float* __restrict__ hi,
 // h_re, h_im: (batch, T, N/2 + 1) float32; tw: (N, 2) float32, W_N^j =
 // (cos, sin)(-2 pi j / N), 8-byte aligned; out: (batch, (T - 1) * step +
 // N) float32; s the factor (scale / N). All contiguous. N even in [16,
-// 4096] with no prime factor above 7 in N/2, step in [1, N] and batch at
+// 4096] with no prime factor above 127 in N/2, step in [1, N] and batch at
 // most 65535; anything else returns cudaErrorInvalidValue before a launch.
 ZT_EXPORT int zt_irfft_ola(const void* h_re, const void* h_im, const void* tw,
                            void* out, float s, int batch, int T, int N,

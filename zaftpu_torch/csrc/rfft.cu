@@ -1,13 +1,13 @@
 // Framing + window + real FFT, the frames never stored:
 //   out[b, t, k] = sum_w sig[b, t*step + w] * win[w] * exp(-2 pi i k w / N)
 // for k = 0..N/2, N = WL even, from 16 to 4096, with N/2 free of prime
-// factors above 7 (183 lengths: every power of two, and 400, 882, 1764,
-// 3000 ...), with three stores of the same values: rfft_half writes the
-// interleaved complex (batch, T, F) half spectrum, rfft_planes the two
-// float32 planes (2, batch, T, F), F = N/2 + 1, and rfft_full the complex
-// (batch, T, N) full spectrum, out[N - k] = conj out[k] for k = 1..N/2 - 1
-// (the reference's zaf.py:139 convention). All three run one kernel body,
-// so they are bit-equal (the conjugate's negation is exact).
+// factors above 127 (1,263 lengths: every power of two, and 400, 1102,
+// 1764, 2822, 3000 ...), with three stores of the same values: rfft_half
+// writes the interleaved complex (batch, T, F) half spectrum, rfft_planes
+// the two float32 planes (2, batch, T, F), F = N/2 + 1, and rfft_full the
+// complex (batch, T, N) full spectrum, out[N - k] = conj out[k] for k =
+// 1..N/2 - 1 (the reference's zaf.py:139 convention). All three run one
+// kernel body, so they are bit-equal (the conjugate's negation is exact).
 //
 // Replaces zaftpu/pallas/fused.py: _frames_matmul_impl as frames_rfft
 // reaches it (B1), its _kernel_split4 (B1-s4), _frames_matmul2_impl (B12),
@@ -17,16 +17,18 @@
 // other length and an explicit operator (kernels/fused.py states the
 // rule). The TPU kernels contract each frame with a dense (N, F) cos/sin
 // operator on the matrix unit: 4 N F FLOP per frame. Here the same sums
-// come from an FFT, about 2.5 N log2 N FLOP, which leaves the kernel bound
-// by its bytes: each signal sample read once (4 bytes per hop) and 8 F
-// bytes (8 N for the full store) written per frame, 0.095 ms (0.158 ms) at
-// the 600-s WL 2048 shape on an H100 (3.35 TB/s).
+// come from an FFT, about 2.5 N log2 N FLOP at a smooth N and more at a
+// large prime factor (a radix-p pass does O(p) operations a point), which
+// leaves the kernel bound by its bytes: each signal sample read once (4
+// bytes per hop) and 8 F bytes (8 N for the full store) written per frame,
+// 0.095 ms (0.158 ms) at the 600-s WL 2048 and WL 1102 shapes on an H100
+// (3.35 TB/s).
 //
 // Design: a block of 256 threads transforms up to kElems = 2048 complex
 // values at once, the M-point complex FFTs (M = N/2) of fpb = kElems / M
 // (rounded down) consecutive frames of one batch row: two frames at WL 2048
-// and 1764, one at 3000 and 4096, ten at 400. Frame groups ride grid x and
-// the batch grid y, so an hour-long signal fits one launch.
+// and 1764, three at 1102, one at 3000 and 4096, ten at 400. Frame groups
+// ride grid x and the batch grid y, so an hour-long signal fits one launch.
 //  1. Framing: each thread reads sample pairs (2m, 2m + 1) of a frame (one
 //     8-byte load where the hop and the pointers allow), multiplies them by
 //     the window and stores z[m] = x[2m] + i x[2m+1] in shared memory:
@@ -148,7 +150,7 @@ int launch(const void* sig, const void* win, const void* tw, void* out,
 // sig: (batch, sig_len) with sig_len >= (T - 1) * step + WL; win: (WL,);
 // tw: (WL, 2) float32, W_WL^j = (cos, sin)(-2 pi j / WL), 8-byte aligned;
 // out: (batch, T, WL/2 + 1) complex64 as float pairs. WL even in [16, 4096]
-// with no prime factor above 7 in WL/2, step in [1, WL]; any other WL
+// with no prime factor above 127 in WL/2, step in [1, WL]; any other WL
 // returns cudaErrorInvalidValue before a launch. All contiguous.
 ZT_EXPORT int zt_rfft_half(const void* sig, const void* win, const void* tw,
                            void* out, int batch, long long sig_len, int T,

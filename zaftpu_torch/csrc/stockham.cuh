@@ -7,7 +7,8 @@
 // (16 KB each), one barrier per pass, in the plan the host gives (Plan,
 // kernels/rfft.radices): radix 4 while it fits in M's power-of-two part,
 // one radix-2 pass when that part's log2 is odd, then the radix-3, -5 and
-// -7 passes. Pass p with sub-transform length ns reads v[s] = in[j + s *
+// -7 passes, then one pass for each prime factor from 11 to kMaxPrime,
+// ascending. Pass p with sub-transform length ns reads v[s] = in[j + s *
 // M/R], multiplies v[s] (s > 0) by the twiddle W_N^(s k N/(ns R)), k = j mod
 // ns, runs the R-point DFT and writes y[s] to out[(j - k) R + k + s ns].
 // The odd radices are direct R-point DFTs over the sums and differences of
@@ -19,6 +20,12 @@
 // sum is an explicitly rounded intrinsic (__fmul_rn, __fadd_rn), so
 // nothing is contracted into an FMA and the passes do the plain version's
 // float32 operations (kernels/rfft.py: _stage) in its order.
+//
+// The radices up to 7 are templates that hold a butterfly's R values in
+// registers. A prime p from 11 to 127 is a runtime value (prime_stage): R
+// values a thread do not scale to p = 127, so its work item is one output
+// pair (y_t, y_{p-t}) of one butterfly, after a sub-pass that applies the
+// twiddles in place.
 #pragma once
 
 #include "common.cuh"
@@ -26,6 +33,9 @@
 namespace zt {
 
 constexpr int kElems = 2048;  // complex values a block transforms
+constexpr int kMaxPrime = 127;  // the largest prime factor of M a pass takes
+// Passes of a prime above 7: 11^3 = 1331 <= kElems < 11^4.
+constexpr int kMaxPrimes = 3;
 
 __device__ __forceinline__ float2 cadd(float2 a, float2 b) {
   return make_float2(__fadd_rn(a.x, b.x), __fadd_rn(a.y, b.y));
@@ -41,9 +51,12 @@ __device__ __forceinline__ float2 cmul(float2 a, float2 w) {
 }
 
 // The passes of an M-point FFT: n4 radix-4 passes, then n2 (0 or 1)
-// radix-2, n3 radix-3, n5 radix-5 and n7 radix-7 passes.
+// radix-2, n3 radix-3, n5 radix-5 and n7 radix-7 passes, then np passes of
+// the primes p[0] <= p[1] <= p[2] from 11 to kMaxPrime.
 struct Plan {
   int n4, n2, n3, n5, n7;
+  int np;
+  int p[kMaxPrimes];
 };
 
 // One radix-R Stockham pass over the fpb rows of the block (M points
@@ -143,6 +156,89 @@ __device__ __forceinline__ void passes(float2 (*buf)[kElems], int& cur,
   }
 }
 
+// One radix-p Stockham pass for a prime p from 11 to kMaxPrime, in two
+// steps with a barrier between them. First every input v[s], s > 0, is
+// multiplied by its twiddle in place in src (the plain version's products;
+// src is not read again after the pass), unless the pass is the first (ns
+// = 1), whose twiddles are all W^0 = 1 and which the plain version does
+// not multiply either. Then a work item (t, f, j) forms output t of
+// butterfly j of row f, t = 0..H, H = (p-1)/2: y_0 = v_0 + a_1 + ... +
+// a_H, or for t >= 1 A = v_0 + sum_u a_u cos(2 pi u t / p), B = sum_u b_u
+// sin(2 pi u t / p), y_t = A - i B and y_{p-t} = A + i B, with a_u = v_u +
+// v_{p-u}, b_u = v_u - v_{p-u} and every sum in u order (kernels/rfft.py:
+// _odd_butterfly). Items run j fastest, so a warp reads consecutive inputs
+// and one cos/sin pair (W_N^(kk N/p), kk = u t mod p) at a time. The u
+// loops are unrolled by 4, so an item's shared loads of four terms are in
+// flight together.
+//
+// On an H100 at WL 1102 (passes 19, 29) the twiddles applied inline by
+// each item (2H products an item, no sub-pass) ran 8-25% slower, skipping
+// the first pass's sub-pass 9-12% faster and the unrolling 4-6% faster
+// (scripts/torch_ab.py, PERF.md).
+__device__ __forceinline__ void prime_stage(float2* __restrict__ src,
+                                            float2* __restrict__ dst,
+                                            const float2* __restrict__ tw,
+                                            int m, int fpb, int ns, int n,
+                                            int p) {
+  const int q = m / p;              // butterflies per row
+  const int stride = n / (ns * p);  // twiddle index step: N / (ns p)
+  const int rest = m - q;           // inputs of a row with s > 0
+  if (ns > 1) {
+    for (int e = threadIdx.x; e < fpb * rest; e += blockDim.x) {
+      const int f = e / rest;
+      const int r = e - f * rest + q;  // r = j + s q, s >= 1
+      const int s = r / q;
+      const int j = r - s * q;
+      float2* v = src + f * m + r;
+      *v = cmul(*v, __ldg(tw + s * (j % ns) * stride));
+    }
+    __syncthreads();
+  }
+  const int h = (p - 1) / 2;
+  const int rows = fpb * q;   // butterflies of the block
+  const int cstep = n / p;    // W_N^(kk N/p) = (cos, -sin)(2 pi kk / p)
+  for (int b = threadIdx.x; b < (h + 1) * rows; b += blockDim.x) {
+    const int t = b / rows;
+    const int i = b - t * rows;
+    const int f = i / q;
+    const int j = i - f * q;
+    const int k = j % ns;
+    const float2* in = src + f * m + j;
+    float2* out = dst + f * m + (j - k) * p + k;
+    float2 sa = in[0];
+    if (t == 0) {
+#pragma unroll 4
+      for (int u = 1; u <= h; ++u) {
+        sa = cadd(sa, cadd(in[u * q], in[(p - u) * q]));
+      }
+      out[0] = sa;
+      continue;
+    }
+    float2 sb = make_float2(0.f, 0.f);
+    int kk = 0;
+#pragma unroll 4
+    for (int u = 1; u <= h; ++u) {
+      kk += t;
+      if (kk >= p) kk -= p;
+      const float2 w = __ldg(tw + kk * cstep);
+      const float c = w.x;
+      const float sn = -w.y;
+      const float2 x = in[u * q];
+      const float2 z = in[(p - u) * q];
+      const float2 a = cadd(x, z);
+      const float2 d = csub(x, z);
+      sa = make_float2(__fadd_rn(sa.x, __fmul_rn(a.x, c)),
+                       __fadd_rn(sa.y, __fmul_rn(a.y, c)));
+      const float2 db = make_float2(__fmul_rn(d.x, sn), __fmul_rn(d.y, sn));
+      sb = u == 1 ? db : make_float2(__fadd_rn(sb.x, db.x),
+                                     __fadd_rn(sb.y, db.y));
+    }
+    out[t * ns] = make_float2(__fadd_rn(sa.x, sb.y), __fsub_rn(sa.y, sb.x));
+    out[(p - t) * ns] =
+        make_float2(__fsub_rn(sa.x, sb.y), __fadd_rn(sa.y, sb.x));
+  }
+}
+
 // Every pass of the plan over the fpb rows in buf[cur]; on return buf[cur]
 // holds their FFTs, after a barrier.
 __device__ __forceinline__ void fft_rows(float2 (*buf)[kElems], int& cur,
@@ -154,10 +250,17 @@ __device__ __forceinline__ void fft_rows(float2 (*buf)[kElems], int& cur,
   passes<3>(buf, cur, tw, m, fpb, ns, n, plan.n3);
   passes<5>(buf, cur, tw, m, fpb, ns, n, plan.n5);
   passes<7>(buf, cur, tw, m, fpb, ns, n, plan.n7);
+  for (int i = 0; i < plan.np; ++i) {
+    prime_stage(buf[cur], buf[cur ^ 1], tw, m, fpb, ns, n, plan.p[i]);
+    cur ^= 1;
+    ns *= plan.p[i];
+    __syncthreads();
+  }
 }
 
 // The plan of an M-point FFT (kernels/rfft.py: radices), or false when M
-// has a prime factor above 7.
+// has a prime factor above kMaxPrime (or more than kMaxPrimes primes above
+// 7, which no M <= kElems has).
 inline bool make_plan(int m, Plan* plan) {
   const int primes[4] = {2, 3, 5, 7};
   int count[8] = {0};
@@ -167,12 +270,22 @@ inline bool make_plan(int m, Plan* plan) {
       ++count[r];
     }
   }
-  *plan = Plan{count[2] / 2, count[2] % 2, count[3], count[5], count[7]};
+  Plan out{count[2] / 2, count[2] % 2, count[3], count[5], count[7], 0,
+           {0, 0, 0}};
+  // Odd trial divisors from 11: a composite one never divides what is left.
+  for (int r = 11; r <= kMaxPrime && m > 1; r += 2) {
+    while (m % r == 0) {
+      if (out.np == kMaxPrimes) return false;
+      m /= r;
+      out.p[out.np++] = r;
+    }
+  }
+  *plan = out;
   return m == 1;
 }
 
-// An even window N in [16, 2 kElems] whose half is 7-smooth, with its plan
-// (kernels/rfft.py: fits).
+// An even window N in [16, 2 kElems] whose half has no prime factor above
+// kMaxPrime, with its plan (kernels/rfft.py: fits).
 inline bool fft_fits(int n, Plan* plan) {
   return n >= 16 && n <= 2 * kElems && n % 2 == 0 && make_plan(n / 2, plan);
 }

@@ -42,7 +42,7 @@ On both dials the analysis (``fused.frames_rfft``,
 ``fused.frames_rfft_full`` and ``fused.frames_matmul2``) and the fused
 ISTFT synthesis (``synth.istft_ola``) follow a shape rule
 (``rfft.applies``): an even window length from 16 to 4096 whose half has no
-prime factor above 7 takes the real-FFT kernel
+prime factor above 127 takes the real-FFT kernel
 (:mod:`zaftpu_torch.kernels.rfft`) and the
 inverse real-FFT + overlap-add kernel (:mod:`zaftpu_torch.kernels.irfft`),
 any other length the GEMM kernels or, under split4, their twins. The

@@ -12,8 +12,8 @@ from the same frame tile.
 
 On both dials ``frames_rfft``, ``frames_rfft_full`` and ``frames_matmul2``
 follow a shape rule (:func:`zaftpu_torch.kernels.rfft.applies`): at an even
-window length from 16 to 4096 whose half has no prime factor above 7, with
-no explicit ``ops`` and ``ZAFTPU_FFT`` not ``matmul``, they take the
+window length from 16 to 4096 whose half has no prime factor above 127,
+with no explicit ``ops`` and ``ZAFTPU_FFT`` not ``matmul``, they take the
 real-FFT kernel of :mod:`zaftpu_torch.kernels.rfft` (``csrc/rfft.cu``, its
 half, full and planes stores), which computes the same spectrum with an
 FFT; every other window length, an explicit operator and

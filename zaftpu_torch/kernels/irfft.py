@@ -124,8 +124,8 @@ def _launch(h_re: torch.Tensor, h_im: torch.Tensor, n: int, step: int,
     _build.require_f32(h_im, name)
     if not _rfft.fits(n):
         raise ValueError(f"{name}: N must be even, in [{_rfft.MIN_WINDOW}, "
-                         f"{_rfft.MAX_WINDOW}], with no prime factor above 7 "
-                         f"in its half, got {n}")
+                         f"{_rfft.MAX_WINDOW}], with no prime factor above "
+                         f"{_rfft.MAX_PRIME} in its half, got {n}")
     f = n // 2 + 1
     *lead, t, width = h_re.shape
     if h_im.shape != h_re.shape or width != f:

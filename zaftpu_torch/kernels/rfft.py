@@ -15,12 +15,13 @@ arithmetic.
 :func:`applies` is the shape rule that :mod:`zaftpu_torch.kernels.fused`
 uses to send both dials here: an even window length from
 :data:`MIN_WINDOW` to :data:`MAX_WINDOW` whose half has no prime factor
-above 7 (:func:`fits`), no explicit operator, and ``ZAFTPU_FFT`` not set to
-``matmul``. The plain version repeats the kernel's arithmetic (the same
-even/odd packing, the same mixed-radix Stockham passes in the same order,
-the same twiddle table, the same split step), operation by operation, so
-the CPU tests exercise the kernel's indexing and the kernel equals it on
-the card.
+above :data:`MAX_PRIME` (:func:`fits`: 1,263 lengths, the 25-ms window at
+44.1 kHz, WL 1,102 = 2 * 19 * 29, among them), no explicit operator, and
+``ZAFTPU_FFT`` not set to ``matmul``. The plain version repeats the
+kernel's arithmetic (the same even/odd packing, the same mixed-radix
+Stockham passes in the same order, the same twiddle table, the same split
+step), operation by operation, so the CPU tests exercise the kernel's
+indexing and the kernel equals it on the card.
 """
 
 from __future__ import annotations
@@ -46,20 +47,33 @@ MIN_WINDOW = 16
 # The CUDA path's largest window (zaftpu_torch.kernels.MAX_WINDOW): the
 # direct DFT GEMM's, and this kernel's 2,048 complex values per block.
 MAX_WINDOW = 4096
+# The largest prime factor of N/2 that a pass takes (csrc/stockham.cuh:
+# kMaxPrime). A direct p-point butterfly sums (p - 1)/2 terms an output: up
+# to 63 here, where a lone prime of 2,039 (WL 4,078) would sum 1,019.
+MAX_PRIME = 127
+
+
+def _factors(m: int) -> tuple:
+    """The prime factors of ``m`` up to :data:`MAX_PRIME`, ascending with
+    repeats, and what is left of ``m`` after them (1 when there is none
+    above)."""
+    out = []
+    for p in range(2, MAX_PRIME + 1):
+        while m % p == 0:
+            m //= p
+            out.append(p)
+    return out, m
 
 
 def fits(window_length: int) -> bool:
     """Does the kernel take this window length? An even ``N`` in
     ``[MIN_WINDOW, MAX_WINDOW]`` whose half ``N/2`` has no prime factor
-    above 7. The CUDA entry accepts exactly this set."""
+    above :data:`MAX_PRIME`: 1,263 lengths. The CUDA entry accepts exactly
+    this set."""
     n = int(window_length)
     if n % 2 or not MIN_WINDOW <= n <= MAX_WINDOW:
         return False
-    m = n // 2
-    for p in (2, 3, 5, 7):
-        while m % p == 0:
-            m //= p
-    return m == 1
+    return _factors(n // 2)[1] == 1
 
 
 def applies(window_length: int, ops=None) -> bool:
@@ -90,17 +104,16 @@ def twiddles(n: int, dtype: torch.dtype, device) -> torch.Tensor:
 
 
 def radices(m: int) -> tuple:
-    """The Stockham passes of an ``m``-point complex FFT, ``m`` 7-smooth:
-    radix 4 while it fits in the power-of-two part, one radix-2 pass when
-    that part's log2 is odd, then the 3s, 5s and 7s. A power of two keeps
-    the radix-4/radix-2 plan alone."""
-    plan = []
-    for r in (2, 3, 5, 7):
-        while m % r == 0:
-            m //= r
-            plan.append(r)
-    if m != 1:
-        raise ValueError("radices: the length has a prime factor above 7")
+    """The Stockham passes of an ``m``-point complex FFT, ``m`` free of
+    prime factors above :data:`MAX_PRIME`: radix 4 while it fits in the
+    power-of-two part, one radix-2 pass when that part's log2 is odd, then
+    the 3s, 5s and 7s, then each prime above 7, ascending (at most three
+    for ``m <= 2048``). A 7-smooth ``m`` keeps the plan it had before the
+    primes above 7."""
+    plan, rest = _factors(m)
+    if rest != 1:
+        raise ValueError(f"radices: {m} has a prime factor above "
+                         f"{MAX_PRIME}")
     twos = plan.count(2)
     return (4,) * (twos // 2) + (2,) * (twos % 2) + tuple(plan[twos:])
 
@@ -141,7 +154,9 @@ def _stage(re, im, tw_re, tw_im, n, ns, r):
     output ``s`` of butterfly ``j`` lands at ``(j - k) r + k + s ns``, which
     is the stack of the outputs along a new axis before the last ``ns``.
     An odd ``r`` takes its constants from the twiddle table:
-    ``W_N^(k N/r) = (cos, -sin)(2 pi k / r)``."""
+    ``W_N^(k N/r) = (cos, -sin)(2 pi k / r)``. A prime above 7 in the first
+    pass (``ns = 1``) skips the twiddle products, which are all by ``W^0 =
+    1``, as the kernel's odd-prime pass does."""
     *lead, m = re.shape
     q = m // r
     vr = [re[..., s * q:(s + 1) * q].reshape(*lead, q // ns, ns)
@@ -149,10 +164,11 @@ def _stage(re, im, tw_re, tw_im, n, ns, r):
     vi = [im[..., s * q:(s + 1) * q].reshape(*lead, q // ns, ns)
           for s in range(r)]
     k = torch.arange(ns, device=re.device)
-    for s in range(1, r):
-        e = s * k * (n // (ns * r))
-        wr, wi = tw_re[e], tw_im[e]
-        vr[s], vi[s] = vr[s] * wr - vi[s] * wi, vr[s] * wi + vi[s] * wr
+    if r <= 7 or ns > 1:
+        for s in range(1, r):
+            e = s * k * (n // (ns * r))
+            wr, wi = tw_re[e], tw_im[e]
+            vr[s], vi[s] = vr[s] * wr - vi[s] * wi, vr[s] * wi + vi[s] * wr
     if r == 4:
         t0r, t0i = vr[0] + vr[2], vi[0] + vi[2]
         t1r, t1i = vr[0] - vr[2], vi[0] - vi[2]
@@ -295,7 +311,8 @@ def _launch(name: str, store: str, padded: torch.Tensor,
     if not fits(window_length):
         raise ValueError(f"{name}: window_length must be even, in "
                          f"[{MIN_WINDOW}, {MAX_WINDOW}], with no prime factor "
-                         f"above 7 in its half, got {window_length}")
+                         f"above {MAX_PRIME} in its half, got "
+                         f"{window_length}")
     entry = f"zt_rfft_{store}"
     wl, t = window_length, number_times
     f = wl if store == "full" else wl // 2 + 1

@@ -16,7 +16,7 @@ passes on the tensor cores with float32 sums, the same overlap-add.
 
 On both dials ``istft_ola`` first follows the analysis's shape rule
 (:func:`zaftpu_torch.kernels.rfft.applies`): at an even window length from
-16 to 4096 whose half has no prime factor above 7, with no explicit
+16 to 4096 whose half has no prime factor above 127, with no explicit
 ``ops`` and ``ZAFTPU_FFT`` not ``matmul``, it takes the inverse real-FFT
 kernel of :mod:`zaftpu_torch.kernels.irfft` (``csrc/irfft.cu``), as
 ``zaftpu`` runs its FFT off the TPU; every other window length, an

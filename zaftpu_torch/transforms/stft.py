@@ -5,7 +5,7 @@ Semantics match ``zaftpu.transforms.stft`` and the reference
 ``(window_length, number_times)`` output with DC and mirrored bins, and the
 COLA-normalized inverse. On a CUDA float32 signal the analysis runs the
 fused framing + window + real-FFT kernel at an even window from 16 to 4096
-whose half has no prime factor above 7 (the shape rule,
+whose half has no prime factor above 127 (the shape rule,
 ``kernels/rfft.applies``), which writes the full spectrum, the conjugate
 mirror included, in its store; at any other window the fused framing +
 window + DFT-GEMM kernel computes the half spectrum and PyTorch index ops
@@ -178,7 +178,7 @@ def istft(audio_stft, window_function=None, step_length: int | None = None,
 
     On a CUDA complex64 spectrum the synthesis follows the analysis's
     shape rule on both dials: the inverse real-FFT + overlap-add kernel at
-    an even window from 16 to 4096 whose half has no prime factor above 7,
+    an even window from 16 to 4096 whose half has no prime factor above 127,
     B4 (its split4 twin under split4) at any other or under
     ``ZAFTPU_FFT=matmul``.
     """
