@@ -10,7 +10,7 @@ non-zero exit and no result line:
 
 1. device: the card's name and power limit (as nvidia-smi gives them),
    torch and CUDA versions; TF32 off for matmuls and cuDNN;
-2. build: the twenty-five kernels from zaftpu_torch/csrc (one nvcc per
+2. build: the twenty-seven kernels from zaftpu_torch/csrc (one nvcc per
    source, all started together), with the seconds taken;
 3. kernels: each kernel against its plain PyTorch version on the card at
    its main-path shape (WL 2048, hop 1024, a 600-s segment: T = 25,841;
@@ -44,7 +44,16 @@ non-zero exit and no result line:
    300 with no operator (2,062 = 2 * 1,031: the rule leaves it to them)
    and at WL 2048 (timed, for B3, B3-s4, B4 and B4-s4) and WL 512 with
    their operator given; the mel kernels also past the old shared-memory
-   limit (800 mels at WL 2048).
+   limit (800 mels at WL 2048). The fast MDCT and IMDCT + overlap-add
+   kernels (B2, B7 and their twins at every window that is a multiple of
+   4 up to 4096 whose quarter has no prime factor above 127) at the
+   main-path shape (vorbis 2048, T 25,841) and at batched, misaligned
+   shapes through odd-prime quarters (3 rows of WL 1,764, 2 of WL 1,100
+   and 2,060), bit-equal to their plain versions. B2, B7 and their twins,
+   with their operator given (B7's, like B2's, names the GEMM at a rule
+   window), take their main-path shape from vorbis(1102) (hop 551,
+   T 48,023, F 551: odd, so the fast kernels refuse it), timed, and also
+   run at WL 2048 and at their ragged shapes.
    Framing, OLA, mirror, fold and the FFT's full store must be bit-equal,
    the FFT's other stores within 1e-6 * max|ref| (they do their plain
    versions' operations in their order), the GEMM kernels within 2e-5 *
@@ -73,10 +82,12 @@ non-zero exit and no result line:
 5. STFT main path, split dispatch (ZAFTPU_FUSED=0 ZAFTPU_SYNTH=0): the
    same checks, with the framing and OLA kernels;
 6. MDCT main path: mdct -> imdct of the 600-s signal with vorbis(2048),
-   under the default and the split dispatch; the coefficients against a
-   float64 torch.fft MDCT oracle (<= 1e-5 * max|oracle|), the round-trip
-   SNR (>= 120 dB), and launch counts (frames_op and imdct_ola, or framing
-   and OLA; no plain version);
+   under the default and the split dispatch, and with vorbis(1102) (F 551:
+   a window the fast MDCT refuses); the coefficients against a float64
+   torch.fft MDCT oracle (<= 1e-5 * max|oracle|), the round-trip SNR (>=
+   120 dB), and launch counts (the fast MDCT and IMDCT kernels at WL 2048,
+   frames_op and imdct_ola at WL 1102, framing and OLA under the split
+   dispatch; no plain version);
 7. mel main path at MelConfig() (44.1 kHz, Hamming 2048 / hop 1024, 40
    mels, 20 coefficients): spectrogram, melspectrogram and mfcc of the
    600-s signal against float64 torch.fft oracles (<= 1e-5 * max|oracle|;
@@ -96,8 +107,10 @@ non-zero exit and no result line:
 9. split4 main path (ZAFTPU_PRECISION=split4): stft -> istft and mdct ->
    imdct of the 600-s signal; at WL 2048, 1,764 and 1,102 the FFT kernels
    compute the spectrum and the round trip under the exact gates (1e-5 *
-   max of the float64 oracle, >= 120 dB), the coefficients within 1e-4 *
-   max and the MDCT round trip in [100, 125) dB, and launch counts showing
+   max of the float64 oracle, >= 120 dB), as the fast MDCT kernels do the
+   MDCT round trip at WL 2048; at WL 1102 the twins of B2 and B7 give the
+   coefficients within 1e-4 * max and the MDCT round trip in [100, 125)
+   dB; launch counts showing
    which kernels ran and that no exact GEMM kernel or plain version did;
    stft -> istft at WL 2,062 (B1's and B4's twins, B12's under
    ZAFTPU_FUSED2=1) and at WL 2048 under ZAFTPU_FFT=matmul (B1's and B4's
@@ -136,6 +149,7 @@ last line is ``{"ok": true, "device": {...}}``.
 
 from __future__ import annotations
 
+import functools
 import json
 import os
 import statistics
@@ -154,6 +168,7 @@ from zaftpu_torch.core.windows import hamming, vorbis
 from zaftpu_torch.features.mel import dct_ii_ortho_matrix, melfilterbank
 from zaftpu_torch.kernels import (_build, cqtslab, framing, fused, irfft,
                                   melfused, mirror, ola, rfft, synth)
+from zaftpu_torch.kernels import mdct as kmdct
 from zaftpu_torch.transforms import cqt as tcqt
 from zaftpu_torch.transforms import mdct as tmdct
 
@@ -164,6 +179,13 @@ WL, STEP = 2048, 1024
 RAGGED = (512, 128, 1001)  # WL, hop, T
 MDCT_RAGGED = (512, 256, 1001)  # frames_op: WL, hop, T
 IMDCT_RAGGED_F = 100  # imdct_ola: F, 16-row padding of the contraction
+# The fast MDCT and IMDCT kernels' other shapes: WL, T, batch rows, sample
+# offset; quarters with odd primes (1764: Q = 441 = 3^2 7^2; 1100: Q = 275 =
+# 5^2 11; 2060: Q = 515 = 5 103), batched and misaligned.
+MDCT_FFT_RAGGED = ((1764, 1001, 3, 1), (1100, 1001, 2, 3), (2060, 301, 2, 1))
+# The MDCT at a window its FFT kernels refuse (WL 1102: F = 551 is odd), so
+# the GEMM B2 and B7 (their twins under split4) still run on a main path.
+MDCT_GEMM_WL = 1102
 MEL_RAGGED = (512, 128, 1001, 20)  # spec_rows / mel_rows: WL, hop, T, mels
 MEL_WIDE = (WL, STEP, 1001, 800)  # past the old shared-memory limit (745)
 # The FFT kernel: WL, hop (not dividing WL), T, batch rows, sample offset;
@@ -290,6 +312,10 @@ KERNELS = {
     "imdct_ola_split4": (synth.CUDA_SOURCE, synth.REPLACES_SPLIT4,
                          synth.imdct_ola_split4,
                          synth.imdct_ola_split4_plain),
+    "mdct_fft": (kmdct.CUDA_SOURCE, kmdct.REPLACES, kmdct.mdct_fft,
+                 kmdct.mdct_fft_plain),
+    "imdct_ola_fft": (kmdct.CUDA_SOURCE, kmdct.REPLACES_IMDCT,
+                      kmdct.imdct_ola_fft, kmdct.imdct_ola_fft_plain),
 }
 # Kernels that store B1's (or its twin's) sums elsewhere: name -> (B1 or
 # its twin, the store's function of that output).
@@ -310,9 +336,12 @@ def require(cond: bool, msg: str) -> None:
         raise RuntimeError(f"chip_smoke: FAILED: {msg}")
 
 
+@functools.cache
 def segment(index: int, seconds: int = SEGMENT_SECONDS) -> np.ndarray:
     """Segment ``index`` of the test signal: the two tones and seeded noise
-    of tests/make_golden.py (its chirp would pass Nyquist over 600 s)."""
+    of tests/make_golden.py (its chirp would pass Nyquist over 600 s).
+    Made once and shared (phase 3 would otherwise remake it for each
+    case): callers copy it, never write to it."""
     n = seconds * SR
     t = (np.arange(n, dtype=np.float64) + index * n) / SR
     sig = (0.3 * np.sin(2 * np.pi * 440.0 * t)
@@ -542,23 +571,62 @@ def _kernel_cases(dev, main_t: int):
         yield (name, "ragged", f"WL {wl} hop {step} T {t} (no operator)",
                args, GEMM_TOL)
     del padded, args
-    for label, (wl, step, t) in (("main", (WL, STEP, main_t)),
-                                 ("ragged", MDCT_RAGGED)):
+    # B2 and B7 (and their twins) with their operator: at WL 2048, which
+    # the fast MDCT kernels take on the main path; at a ragged shape; and
+    # at their main-path shape, WL 1102's (F 551 is odd), timed.
+    mdct_gemm = _segment_shape(MDCT_GEMM_WL)  # hop 551, T 48,023
+    for label, (wl, step, t) in (("operator", (WL, STEP, main_t)),
+                                 ("ragged", MDCT_RAGGED),
+                                 ("main", mdct_gemm)):
         padded, win = _signal_and_window(wl, step, t, vorbis, dev)
         ops = _mdct_ops(wl, dev)
         for name, op in (("frames_op", ops),
                          ("frames_op_split4", policy.presplit(ops))):
             yield (name, label, f"WL {wl} hop {step} T {t}",
                    (padded, win, op, wl // 2, wl, step, t), GEMM_TOL)
-    # The IMDCT reads the MDCT coefficients of the test signal.
-    for label, (f, t) in (("main", (WL // 2, main_t)),
-                          ("ragged", (IMDCT_RAGGED_F, RAGGED[2]))):
+        del padded, ops
+    # The IMDCT reads the MDCT coefficients of the test signal. Only an
+    # explicit operator sends imdct_ola to B7 at a window the fast kernels
+    # take (the twin's wrapper takes no rule).
+    for label, (f, t) in (("operator", (WL // 2, main_t)),
+                          ("ragged", (IMDCT_RAGGED_F, RAGGED[2])),
+                          ("main", (MDCT_GEMM_WL // 2, mdct_gemm[2]))):
         padded, win = _signal_and_window(2 * f, f, t, vorbis, dev)
         coeffs = fused.frames_op_plain(padded, win, _mdct_ops(2 * f, dev), f,
                                        2 * f, f, t)
-        for name in ("imdct_ola", "imdct_ola_split4"):
-            yield (name, label, f"F {f} T {t}",
-                   (coeffs, f, vorbis(2 * f).tobytes()), GEMM_TOL)
+        del padded
+        wb = vorbis(2 * f).tobytes()
+        yield ("imdct_ola", label, f"F {f} T {t} (operator)",
+               (coeffs, f, wb, synth.imdct_ops(f, wb, torch.float32, dev)),
+               GEMM_TOL)
+        yield "imdct_ola_split4", label, f"F {f} T {t}", (coeffs, f, wb), \
+            GEMM_TOL
+    # The fast MDCT and IMDCT kernels, bit-equal to their plain versions:
+    # the main-path shape (vorbis 2048, T 25,841), then batched, misaligned
+    # shapes through odd-prime quarters.
+    wl, t = WL, main_t
+    padded, win = _signal_and_window(wl, wl // 2, t, vorbis, dev)
+    yield ("mdct_fft", "main", f"WL {wl} T {t}", (padded, win, wl, t),
+           EXACT_TOL)
+    coeffs = kmdct.mdct_fft_plain(padded, win, wl, t)
+    del padded
+    yield ("imdct_ola_fft", "main", f"F {wl // 2} T {t}",
+           (coeffs, wl // 2, vorbis(wl).tobytes()), EXACT_TOL)
+    del coeffs
+    for wl, t, rows, offset in MDCT_FFT_RAGGED:
+        f = wl // 2
+        sig = np.resize(segment(1), rows * (t + 1) * f + offset)
+        padded = torch.from_numpy(sig.astype(np.float32)).to(dev)[
+            offset:].reshape(rows, -1)
+        win = torch.from_numpy(vorbis(wl).astype(np.float32)).to(dev)
+        shape = f"{rows} rows WL {wl} T {t} offset {offset}"
+        yield "mdct_fft", "ragged", shape, (padded, win, wl, t), EXACT_TOL
+        coeffs = kmdct.mdct_fft_plain(padded, win, wl, t)
+        flat = torch.zeros(coeffs.numel() + offset, device=dev)
+        flat[offset:] = coeffs.reshape(-1)
+        yield ("imdct_ola_fft", "ragged", shape,
+               (flat[offset:].view(rows, t, f), f, vorbis(wl).tobytes()),
+               EXACT_TOL)
     for label, (wl, step, t, mels) in (
             ("main", (WL, STEP, main_t, MelConfig().number_mels)),
             ("ragged", MEL_RAGGED), ("wide", MEL_WIDE)):
@@ -627,8 +695,28 @@ def _work(name: str, args: tuple) -> tuple[float, float, float]:
                     4 * 2 * b * t * f + 8 * n + out)
         return (passes * 2 * b * t * 2 * f * n, 0,
                 4 * (2 * b * t * f + 2 * f * n) + out)
+    if base in ("mdct_fft", "imdct_ola_fft"):
+        # The fast MDCT: the fold (an add a value) or the window and the
+        # overlap-add (2 a sample), the pre- and post-twiddles (6 a packed
+        # value each) and the quarter-length FFT's passes; the signal (or
+        # coefficients) and the window read once, the tables, the
+        # coefficients (or signal) written once.
+        x, n = args[0], (args[2] if base == "mdct_fft" else 2 * args[1])
+        f, q = n // 2, n // 4
+        tables = 4 * (n + 4 * q + 2 * f)
+        if base == "mdct_fft":
+            t = args[3]
+            b = _rows(x)
+            ops = n + f
+            nbytes = 4 * x.numel() + tables + 4 * b * t * f
+        else:
+            t = x.shape[-2]
+            b = _rows(x) // t if t else 0
+            ops = 2 * n
+            nbytes = 4 * x.numel() + tables + 4 * b * (t + 1) * f
+        return 0, b * t * (ops + 12 * q + _fft_ops(f)), nbytes
     if base == "imdct_ola":
-        c, f, _ = args
+        c, f, _ = args[:3]
         b, t = _rows(c) // c.shape[-2], c.shape[-2]
         return (passes * 2 * b * t * f * 2 * f, 0,
                 4 * (b * t * f + 2 * f * f + b * (t + 1) * f))
@@ -866,9 +954,18 @@ STFT_WANT = {
         ("frames_matmul2_split4", "synth_split4"), SPLIT4_GATES),
     "split4 ZAFTPU_FFT=matmul": (("fused_split4", "synth_split4"),
                                  SPLIT4_GATES)}
-MDCT_WANT = {"default": ("frames_op", "imdct_ola"),
-             "split": ("framing", "ola"),
-             "split4": ("frames_op_split4", "imdct_ola_split4")}
+# dispatch -> the kernels the MDCT main path must run, and its gates. At WL
+# 2048 the fast MDCT and IMDCT kernels run on both dials, so split4 meets
+# the exact gates there; at WL 1102 (an odd F) B2 and B7 run, their twins
+# under split4.
+MDCT_FFT_PATH = (("mdct_fft", "imdct_ola_fft"), EXACT_GATES)
+MDCT_WANT = {"default": MDCT_FFT_PATH,
+             "split": (("framing", "ola"), EXACT_GATES),
+             f"default WL {MDCT_GEMM_WL}": (("frames_op", "imdct_ola"),
+                                            EXACT_GATES),
+             "split4": MDCT_FFT_PATH,
+             f"split4 WL {MDCT_GEMM_WL}": (
+                 ("frames_op_split4", "imdct_ola_split4"), SPLIT4_GATES)}
 
 
 def check_gates(path: str, err: float, scale: float, snr: float,
@@ -905,31 +1002,34 @@ def phase_main_path(dispatch: str, x: torch.Tensor) -> dict:
     return launches
 
 
-def mdct_oracle(x: torch.Tensor) -> torch.Tensor:
+def mdct_oracle(x: torch.Tensor, wl: int = WL) -> torch.Tensor:
     """MDCT coefficients ``(T, F)`` in float64 by the reference's FFT chain
     (pre-twiddle, FFT, post-twiddle, real part; zaf.py:1036-1071) on the
     card; a check only, never on the path."""
-    step = WL // 2
+    step = wl // 2
     n = x.shape[-1]
     t = int(np.ceil(n / step)) + 1
     padded = torch.nn.functional.pad(x.double(), (step, (t + 1) * step - n))
-    win = torch.from_numpy(vorbis(WL)).to(x.device)
+    win = torch.from_numpy(vorbis(wl)).to(x.device)
     pre, post = (torch.from_numpy(a).to(x.device)
-                 for a in tmdct._forward_twiddles(WL))
-    frames = padded.unfold(-1, WL, step)[:t] * win
+                 for a in tmdct._forward_twiddles(wl))
+    frames = padded.unfold(-1, wl, step)[:t] * win
     return (torch.fft.fft(frames * pre, dim=-1)[:, :step] * post).real
 
 
 def phase_mdct_path(dispatch: str, x: torch.Tensor) -> dict:
-    """One 600-s mdct -> imdct with vorbis(2048); returns the launch counts
-    of the kernels this dispatch must run."""
-    win = vorbis(WL)
+    """One 600-s mdct -> imdct with vorbis(2048), or vorbis at the window
+    the dispatch names; returns the launch counts of the kernels this
+    dispatch must run."""
+    wl = _dispatch_wl(dispatch)
+    want, gates = MDCT_WANT[dispatch]
+    win = vorbis(wl)
     reset_counters()
     coeffs = zaftpu_torch.mdct(x, win)
     rec = zaftpu_torch.imdct(coeffs, win)
     torch.cuda.synchronize()
-    launches = check_counters(f"mdct path [{dispatch}]", MDCT_WANT[dispatch])
-    oracle = mdct_oracle(x)
+    launches = check_counters(f"mdct path [{dispatch}]", want)
+    oracle = mdct_oracle(x, wl)
     require(tuple(coeffs.shape) == tuple(oracle.T.shape)
             and coeffs.dtype == torch.float32,
             f"[{dispatch}] coefficients {tuple(coeffs.shape)} {coeffs.dtype}")
@@ -940,8 +1040,7 @@ def phase_mdct_path(dispatch: str, x: torch.Tensor) -> dict:
     print(f"mdct path [{dispatch}]: coefficients max_abs_err vs f64 oracle "
           f"{err!r} (max|oracle| {scale!r}, ratio {err / scale!r}); "
           f"round-trip SNR {snr!r} dB; output {tuple(rec.shape)}")
-    check_gates(f"mdct path {dispatch}", err, scale, snr,
-                SPLIT4_GATES if dispatch == "split4" else EXACT_GATES)
+    check_gates(f"mdct path {dispatch}", err, scale, snr, gates)
     return launches
 
 
@@ -1276,6 +1375,7 @@ def main() -> int:
             (FUSED2_ON, phase_main_path, f"ZAFTPU_FUSED2=1 WL {GEMM_WL}"),
             (DEFAULT, phase_mdct_path, "default"),
             (SPLIT, phase_mdct_path, "split"),
+            (DEFAULT, phase_mdct_path, f"default WL {MDCT_GEMM_WL}"),
             (DEFAULT, phase_mel_path, "default"),
             (MELFUSE_ON, phase_mel_path, "ZAFTPU_MELFUSE=1"),
             (DEFAULT, phase_mel_path, "default 16 kHz WL 400"),
@@ -1290,6 +1390,7 @@ def main() -> int:
              f"split4 ZAFTPU_FUSED2=1 WL {GEMM_WL}"),
             (SPLIT4_MATMUL, phase_main_path, "split4 ZAFTPU_FFT=matmul"),
             (SPLIT4, phase_mdct_path, "split4"),
+            (SPLIT4, phase_mdct_path, f"split4 WL {MDCT_GEMM_WL}"),
             (SPLIT4, phase_mel_path, "split4"),
             (SPLIT4_MELFUSE, phase_mel_path, "split4 ZAFTPU_MELFUSE=1")):
         for name, count in _with_env(env, phase, dispatch, x).items():

@@ -1,7 +1,7 @@
 """Where the device time of zaftpu_torch's main path goes, on a CUDA card.
 
     python3 scripts/torch_profile.py [--precision highest|split4] [--iters 3]
-        [--window 1102]
+        [--window 1102] [--only mdct]
 
 Profiles 600-s stft -> istft, mdct -> imdct (the chip_smoke.py signal,
 Hamming and vorbis windows of 2048, hop 1024; --window sets the STFT's
@@ -16,8 +16,10 @@ set in the environment; the CQT kernel is built without the disk cache. Prints, 
 time of each kernel (largest first), the busy time (their sum), the window
 (host clock around the profiled iterations, synchronised) and the busy
 share; for the hours, also the host operators that take the most host
-time of their own. Needs a CUDA card; prints nothing else and exits 1
-without one.
+time of their own. ``--only mdct`` profiles the MDCT instead: 600-s mdct ->
+imdct, mdct alone and imdct alone, and one hour of mdct, then imdct (set
+ZAFTPU_FFT=matmul to profile the GEMMs B2 and B7, or their twins, at WL
+2048). Needs a CUDA card; prints nothing else and exits 1 without one.
 """
 
 from __future__ import annotations
@@ -76,12 +78,32 @@ def profile(name: str, fn, iters: int, host_rows: int = 0) -> None:
         print(f"  host {ms:9.4f} ms  {count:5d} calls  {key[:80]}")
 
 
+def profile_mdct(x: torch.Tensor, vw, iters: int) -> None:
+    """The MDCT's paths with vorbis(2048): the 600-s round trip, each
+    direction alone, and one hour of mdct, then imdct."""
+    profile("mdct -> imdct", lambda: zaftpu_torch.imdct(
+        zaftpu_torch.mdct(x, vw), vw), iters)
+    profile("mdct", lambda: zaftpu_torch.mdct(x, vw), iters)
+    coeffs = zaftpu_torch.mdct(x, vw)
+    profile("imdct", lambda: zaftpu_torch.imdct(coeffs, vw), iters)
+    del coeffs
+    segs = [torch.from_numpy(segment(i)).cuda() for i in range(6)]
+
+    def hour_round_trip():
+        coeffs = [zaftpu_torch.mdct(s, vw) for s in segs]
+        return [zaftpu_torch.imdct(c, vw) for c in coeffs]
+
+    profile("mdct, then imdct, one hour", hour_round_trip, iters,
+            host_rows=8)
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--precision", default="highest",
                         choices=("highest", "split4"))
     parser.add_argument("--iters", type=int, default=3)
     parser.add_argument("--window", type=int, default=WL)
+    parser.add_argument("--only", choices=("all", "mdct"), default="all")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         print("no CUDA card", file=sys.stderr)
@@ -90,10 +112,14 @@ def main() -> int:
     os.environ["ZAFTPU_CACHE"] = "0"
     torch.backends.cuda.matmul.allow_tf32 = False
     print(f"{torch.cuda.get_device_name(0)}; ZAFTPU_PRECISION="
-          f"{args.precision}; STFT window {args.window}")
+          f"{args.precision}; ZAFTPU_FFT="
+          f"{os.environ.get('ZAFTPU_FFT', 'auto')}; STFT window {args.window}")
     x = torch.from_numpy(segment(0)).cuda()
     step = args.window // 2
     hw, vw = hamming(args.window), vorbis(WL)
+    if args.only == "mdct":
+        profile_mdct(x, vw, args.iters)
+        return 0
     profile("stft -> istft", lambda: zaftpu_torch.istft(
         zaftpu_torch.stft(x, hw, step), hw, step), args.iters)
     profile("stft", lambda: zaftpu_torch.stft(x, hw, step), args.iters)

@@ -23,6 +23,7 @@ from zaftpu_torch.core.windows import hamming, kbd, vorbis
 from zaftpu_torch.core import fft as tfft
 from zaftpu_torch.kernels import (_build, cqtslab, framing, fused, irfft,
                                   melfused, mirror, ola, rfft, synth)
+from zaftpu_torch.kernels import mdct as kmdct
 from zaftpu_torch.transforms import mdct as tmdct
 from zaftpu_torch.transforms.stft import centre_padded
 
@@ -196,13 +197,17 @@ def test_new_kernels_match_plain(dev, wl, step, t, lead):
 @pytest.mark.parametrize("lead", [(), (2, 3)])
 def test_imdct_ola_matches_plain(dev, f, t, lead):
     """Includes F = 100 and 8 (16-row padding of the contraction) and the
-    K = 2 edge rows at both ends of the output."""
+    K = 2 edge rows at both ends of the output. The operator is given: it
+    names B7 where the MDCT rule would take the fast IMDCT kernel."""
     rng = np.random.default_rng(f + t)
     coeffs = torch.from_numpy(rng.standard_normal((*lead, t, f)).astype(
         np.float32)).to(dev)
     wb = vorbis(2 * f).tobytes()
-    got = synth.imdct_ola(coeffs, f, wb)
-    ref = synth.imdct_ola_plain(coeffs, f, wb)
+    ops = synth.imdct_ops(f, wb, torch.float32, dev)
+    before = synth.imdct_ola.launches
+    got = synth.imdct_ola(coeffs, f, wb, ops)
+    assert synth.imdct_ola.launches == before + 1
+    ref = synth.imdct_ola_plain(coeffs, f, wb, ops)
     assert got.shape == ref.shape == (*lead, t * f + f)
     assert _rel_err(got, ref) < 2e-5
     scale = float(ref.abs().max())
@@ -211,7 +216,7 @@ def test_imdct_ola_matches_plain(dev, f, t, lead):
             <= 2e-5 * scale
     # A transposed (non-contiguous) view is read as the same values.
     view = coeffs.transpose(-1, -2).contiguous().transpose(-1, -2)
-    assert torch.equal(synth.imdct_ola(view, f, wb), got)
+    assert torch.equal(synth.imdct_ola(view, f, wb, ops), got)
 
 
 @pytest.mark.parametrize("mels", [1, 128, 256, 512, 800, 1024])
@@ -283,6 +288,8 @@ def test_new_kernels_on_a_misaligned_signal(dev):
 def _launches():
     return {"frames_op": fused.frames_op.launches,
             "imdct_ola": synth.imdct_ola.launches,
+            "mdct_fft": kmdct.mdct_fft.launches,
+            "imdct_ola_fft": kmdct.imdct_ola_fft.launches,
             "spec_rows": melfused.spec_rows.launches,
             "mel_rows": melfused.mel_rows.launches,
             "frames_rfft": fused.frames_rfft.launches,
@@ -293,6 +300,7 @@ def _launches():
 
 def _calls():
     return (fused.frames_op_plain.calls, synth.imdct_ola_plain.calls,
+            kmdct.mdct_fft_plain.calls, kmdct.imdct_ola_fft_plain.calls,
             melfused.spec_rows_plain.calls, melfused.mel_rows_plain.calls,
             fused.frames_rfft_plain.calls, rfft.frames_rfft_fft_plain.calls)
 
@@ -311,7 +319,7 @@ def test_mdct_imdct_on_card_match_cpu_f64(dev, split, monkeypatch):
     rec = zaftpu_torch.imdct(coeffs, win)
     moved = {k for k, v in _launches().items() if v != before[k]}
     assert moved == ({"framing", "ola"} if split
-                     else {"frames_op", "imdct_ola"})
+                     else {"mdct_fft", "imdct_ola_fft"})
     assert _calls() == calls
     assert coeffs.is_cuda and coeffs.dtype == torch.float32
     assert _rel_err(coeffs.cpu().double(), ref) < 1e-5
@@ -1297,3 +1305,142 @@ def test_bf16_signal_runs_on_the_card(dev, name, cqt_cache):
     assert got.dtype == (torch.bfloat16 if name in ("mdct", "imdct")
                          else want.dtype)
     assert torch.equal(got, want)
+
+
+def test_irfft_kernel_returns_zeros_for_no_frames(dev):
+    """With no frames the wrapper returns its plain version's N - step
+    zeros a row, not an unwritten buffer, and launches nothing."""
+    wl, step = 2048, 512
+    for lead in ((), (2, 3)):
+        # A buffer that held other values, so stale memory would show.
+        junk = torch.full((1 << 16,), 7.0, device=dev)
+        del junk
+        h = torch.zeros((*lead, 0, wl // 2 + 1), device=dev)
+        before = irfft.istft_ola_fft.launches
+        got = irfft.istft_ola_fft(h, h, wl, step, 0.5)
+        assert irfft.istft_ola_fft.launches == before
+        ref = irfft.istft_ola_fft_plain(h, h, wl, step, 0.5)
+        assert got.shape == ref.shape == (*lead, wl - step)
+        assert torch.equal(got, ref) and not got.any()
+
+
+# The fast MDCT and IMDCT + overlap-add kernels: B2, B7 and their twins at
+# every window that is a multiple of 4 up to 4096 whose quarter has no
+# prime factor above 127.
+
+MDCT_FFT_SHAPES = [(2048, 37), (2048, 1), (2048, 2), (256, 61), (32, 300),
+                   (64, 257), (4096, 9), (1024, 5),
+                   # Odd primes in the quarter: 1100 (5, 5, 11), 1764 (3,
+                   # 3, 7, 7), 2060 (5, 103), 4088 (2, 2, 2, 7, 73), 1920
+                   # (2^5, 3, 5), 508 (127).
+                   (1100, 23), (1764, 9), (2060, 7), (4088, 5), (1920, 11),
+                   (508, 40)]
+
+
+@pytest.mark.parametrize("wl,t", MDCT_FFT_SHAPES)
+@pytest.mark.parametrize("lead,offset", [((), 0), ((2, 3), 0), ((), 1),
+                                         ((2,), 3)])
+def test_mdct_fft_kernels_match_plain(dev, wl, t, lead, offset):
+    """Both kernels bit-equal to their plain versions, which do the
+    kernels' float32 operations in their order, and within 2e-6 of max of
+    the float64 path: batched, misaligned (a signal and coefficients that
+    start 1 or 3 floats past an aligned address), T = 1 and 2."""
+    f = wl // 2
+    rng = np.random.default_rng(wl + t + offset)
+    n = (t + 1) * f
+    flat = torch.from_numpy(rng.standard_normal(
+        int(np.prod(lead, dtype=np.int64)) * n + offset).astype(
+            np.float32)).to(dev)
+    padded = flat[offset:].reshape(*lead, n)
+    win = torch.from_numpy(vorbis(wl).astype(np.float32)).to(dev)
+    before = kmdct.mdct_fft.launches
+    got = kmdct.mdct_fft(padded, win, wl, t)
+    assert kmdct.mdct_fft.launches == before + 1
+    ref = kmdct.mdct_fft_plain(padded, win, wl, t)
+    assert got.shape == ref.shape == (*lead, t, f)
+    assert torch.equal(got, ref), _rel_err(got, ref)
+    oracle = kmdct.mdct_fft(padded.cpu().double(), win.cpu().double(), wl, t)
+    assert _rel_err(got.cpu().double(), oracle) < 2e-6
+
+    cflat = torch.zeros(got.numel() + offset, device=dev)
+    cflat[offset:] = got.reshape(-1)
+    coeffs = cflat[offset:].view(got.shape)
+    wb = vorbis(wl).tobytes()
+    before = kmdct.imdct_ola_fft.launches
+    rec = kmdct.imdct_ola_fft(coeffs, f, wb)
+    assert kmdct.imdct_ola_fft.launches == before + 1
+    rref = kmdct.imdct_ola_fft_plain(coeffs, f, wb)
+    assert rec.shape == rref.shape == (*lead, (t + 1) * f)
+    assert torch.equal(rec, rref), _rel_err(rec, rref)
+    oracle = kmdct.imdct_ola_fft(coeffs.cpu().double(), f, wb)
+    assert _rel_err(rec.cpu().double(), oracle) < 2e-6
+
+
+def test_imdct_ola_fft_returns_zeros_for_no_frames(dev):
+    """No frames: F zeros a row, as its plain version and B7 return, and no
+    launch, not an unwritten buffer."""
+    f = 1024
+    wb = vorbis(2 * f).tobytes()
+    for lead in ((), (2, 3)):
+        c = torch.zeros((*lead, 0, f), device=dev)
+        before = kmdct.imdct_ola_fft.launches
+        got = kmdct.imdct_ola_fft(c, f, wb)
+        assert kmdct.imdct_ola_fft.launches == before
+        ref = kmdct.imdct_ola_fft_plain(c, f, wb)
+        assert got.shape == ref.shape == (*lead, f)
+        assert torch.equal(got, ref) and not got.any()
+
+
+def test_mdct_fft_entries_take_exactly_what_fits_takes(dev):
+    """Both CUDA entries take exactly the window lengths mdct.fits takes
+    and refuse every other before any launch: T = 0 returns after the
+    checks."""
+    lib = _build.library()
+    buf = torch.zeros(8192, device=dev)
+    p = buf.data_ptr()
+    for wl in range(1, 4200):
+        err = lib.zt_mdct_fft(p, p, p, p, p, 1, 8192, 0, wl, 0)
+        assert (err == 0) is kmdct.fits(wl), (wl, err)
+        err = lib.zt_imdct_ola_fft(p, p, p, p, p, 1, 0, wl, 0)
+        assert (err == 0) is kmdct.fits(wl), (wl, err)
+
+
+@pytest.mark.parametrize("wl", [2048, 1100, 1102, 524])
+@pytest.mark.parametrize("dial", ["highest", "split4"])
+def test_mdct_imdct_take_the_fast_kernels_on_both_dials(dev, wl, dial,
+                                                        monkeypatch):
+    """mdct -> imdct on the card: where the MDCT rule holds (WL 2048, and
+    1100 through the odd-prime pass) both dials launch the fast MDCT and
+    IMDCT kernels, once each and no B2, B7 or twin, bit-equal across the
+    dials, within 1e-5 of max of the CPU float64 path and above 120 dB; at
+    WL 1102 (F odd) and 524 (quarter 131) B2 and B7 run (their twins under
+    split4, then in split4's band)."""
+    x64 = np.random.default_rng(wl + 5).standard_normal((2, 44100))
+    x = torch.from_numpy(x64.astype(np.float32)).to(dev)
+    win = vorbis(wl)
+    ref = zaftpu_torch.mdct(torch.from_numpy(x64), win)
+    monkeypatch.setenv("ZAFTPU_PRECISION", dial)
+    counters = {"fft": (kmdct.mdct_fft, kmdct.imdct_ola_fft),
+                "gemm": (fused.frames_op, synth.imdct_ola),
+                "twin": (fused.frames_op_split4, synth.imdct_ola_split4)}
+    before = {k: [c.launches for c in cs] for k, cs in counters.items()}
+    coeffs = zaftpu_torch.mdct(x, win)
+    rec = zaftpu_torch.imdct(coeffs, win)
+    moved = {k for k, cs in counters.items()
+             if [c.launches for c in cs] != before[k]}
+    ran = ("fft" if kmdct.fits(wl)
+           else "twin" if dial == "split4" else "gemm")
+    assert moved == {ran}
+    assert [c.launches for c in counters[ran]] == [b + 1 for b in before[ran]]
+    assert _rel_err(coeffs.cpu().double(), ref) < (
+        1e-4 if ran == "twin" else 1e-5)
+    err = rec.cpu().double()[..., :x64.shape[-1]] - torch.from_numpy(x64)
+    snr = 10 * np.log10((x64 ** 2).sum() / float((err ** 2).sum()))
+    if ran == "twin":
+        assert 100.0 < snr < 125.0
+    else:
+        assert snr > 120.0
+    if ran == "fft":
+        monkeypatch.setenv("ZAFTPU_PRECISION", "highest")
+        assert torch.equal(coeffs, zaftpu_torch.mdct(x, win))
+        assert torch.equal(rec, zaftpu_torch.imdct(coeffs, win))

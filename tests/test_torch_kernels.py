@@ -26,6 +26,7 @@ from zaftpu_torch.core import fft as tfft
 from zaftpu_torch.kernels import framing as tframing
 from zaftpu_torch.kernels import fused as tfused
 from zaftpu_torch.kernels import irfft as tirfft
+from zaftpu_torch.kernels import mdct as tkmdct
 from zaftpu_torch.kernels import melfused as tmelfused
 from zaftpu_torch.kernels import ola as tola
 from zaftpu_torch.kernels import rfft as trfft
@@ -332,6 +333,32 @@ def test_spec_rows_matches_zaftpu(wl, step, t, monkeypatch):
     _gemm_close(mine.numpy(), ref, oracle)
 
 
+@pytest.mark.parametrize("lowered", ["high", "medium", "mkldnn bf16",
+                                     "mkldnn tf32"])
+def test_exact_matmul_refuses_a_lowered_precision_on_cpu(lowered):
+    """A lowered float32 matmul precision (oneDNN's bf16 or TF32 products on
+    the CPU) raises in the exact path instead of returning numbers that are
+    off by far more than float32 rounding; float64 is unaffected."""
+    wl, step, t = 256, 128, 9
+    padded = torch.from_numpy(_signal(wl, step, t, 12))
+    win = torch.from_numpy(hamming(wl).astype(np.float32))
+    mkldnn = torch.backends.mkldnn.matmul
+    try:
+        if lowered.startswith("mkldnn"):
+            mkldnn.fp32_precision = lowered.split()[1]
+        else:
+            torch.set_float32_matmul_precision(lowered)
+        with pytest.raises(RuntimeError, match="precision is lowered"):
+            tmelfused.spec_rows(padded, win, wl, step, t)
+        tmelfused.spec_rows(padded.double(), win.double(), wl, step, t)
+    finally:  # back to torch's start state: highest, oneDNN's "none"
+        torch.set_float32_matmul_precision("highest")
+        mkldnn.fp32_precision = "none"
+    assert torch.get_float32_matmul_precision() == "highest"
+    assert torch.equal(tmelfused.spec_rows(padded, win, wl, step, t),
+                       tmelfused.spec_rows_plain(padded, win, wl, step, t))
+
+
 @pytest.mark.parametrize("power", [False, True])
 @pytest.mark.parametrize("wl,step,t,sr,mels", [(256, 128, 37, 8000, 20),
                                                (512, 128, 61, 16000, 40),
@@ -373,7 +400,10 @@ def test_new_wrappers_take_plain_versions_on_cpu():
                                     wl, "mdct")
     launches, calls = _new_counts(), _new_calls()
     coeffs = tfused.frames_op(padded, win, ops, wl // 2, wl, step, t)
-    tsynth.imdct_ola(coeffs, wl // 2, np.ones(wl).tobytes())
+    wb = np.ones(wl).tobytes()
+    # An explicit operator names the GEMM at a window the MDCT rule takes.
+    tsynth.imdct_ola(coeffs, wl // 2, wb,
+                     ops=tsynth.imdct_ops(wl // 2, wb, torch.float32, "cpu"))
     tmelfused.spec_rows(padded, win, wl, step, t)
     tmelfused.mel_rows(padded, win, torch.ones(wl // 2, 3), wl, step, t,
                        False)
@@ -476,11 +506,13 @@ def test_new_wrappers_batched_equal_per_item(wl, step, t):
                                               True))
 
 
-@pytest.mark.parametrize("lever,deltas", [("ZAFTPU_FUSED", (1, 0, 0, 1)),
-                                          ("ZAFTPU_SYNTH", (0, 1, 1, 0))])
+@pytest.mark.parametrize("lever,deltas", [
+    ("ZAFTPU_FUSED", (1, 0, 0, 0, 0, 1)), ("ZAFTPU_SYNTH", (0, 1, 0, 0, 1, 0))])
 def test_mdct_split_levers_agree_with_fused(lever, deltas, monkeypatch):
-    """Each lever moves its half of the MDCT path to the framing or OLA
-    kernel's plain version, and the values agree with the fused ones."""
+    """Each lever moves its half of the MDCT path from the fast MDCT (IMDCT)
+    kernel, which WL 512 takes by the shape rule, to the framing or OLA
+    kernel's plain version and a GEMM, and the values agree with the fused
+    ones."""
     wl, step, t = 512, 256, 21
     x = torch.from_numpy(_signal(wl, step, t, 16))
     win = hamming(wl)
@@ -491,7 +523,8 @@ def test_mdct_split_levers_agree_with_fused(lever, deltas, monkeypatch):
     def calls():
         return (tframing.frame_window_plain.calls,
                 tola.overlap_add_plain.calls, tfused.frames_op_plain.calls,
-                tsynth.imdct_ola_plain.calls)
+                tsynth.imdct_ola_plain.calls, tkmdct.mdct_fft_plain.calls,
+                tkmdct.imdct_ola_fft_plain.calls)
 
     before = calls()
     monkeypatch.setenv(lever, "0")

@@ -18,6 +18,7 @@ from zaftpu_torch import MdctConfig
 from zaftpu_torch.core.windows import kbd, kbd_exact, sine, vorbis
 from zaftpu_torch.kernels import framing as tframing
 from zaftpu_torch.kernels import fused as tfused
+from zaftpu_torch.kernels import mdct as tkmdct
 from zaftpu_torch.kernels import ola as tola
 from zaftpu_torch.kernels import synth as tsynth
 
@@ -98,15 +99,18 @@ def test_mdct_imdct_match_zaftpu_f32(signal, vorbis_window, fused, synth,
 
 
 @pytest.mark.parametrize("fused,synth,ran", [
-    ("auto", "auto", ("frames_op", "imdct_ola")),
+    ("auto", "auto", ("mdct_fft", "imdct_ola_fft")),
     ("0", "0", ("framing", "ola"))])
 def test_dispatch_takes_the_levers(fused, synth, ran, monkeypatch):
-    """Default: frames_op and imdct_ola; ZAFTPU_FUSED=0 ZAFTPU_SYNTH=0:
-    framing and OLA (their plain versions, on the CPU)."""
+    """Default at WL 256, a window the MDCT rule takes: the fast MDCT and
+    IMDCT kernels; ZAFTPU_FUSED=0 ZAFTPU_SYNTH=0: framing and OLA (their
+    plain versions, on the CPU)."""
     monkeypatch.setenv("ZAFTPU_FUSED", fused)
     monkeypatch.setenv("ZAFTPU_SYNTH", synth)
     plain = {"frames_op": tfused.frames_op_plain,
              "imdct_ola": tsynth.imdct_ola_plain,
+             "mdct_fft": tkmdct.mdct_fft_plain,
+             "imdct_ola_fft": tkmdct.imdct_ola_fft_plain,
              "framing": tframing.frame_window_plain,
              "ola": tola.overlap_add_plain}
     before = {k: v.calls for k, v in plain.items()}

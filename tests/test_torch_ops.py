@@ -223,6 +223,7 @@ def test_import_leaves_jax_and_zaftpu_out():
     code = (
         "import sys, numpy as np, torch, zaftpu_torch as z\n"
         "import zaftpu_torch.kernels._build, zaftpu_torch.transforms.mdct\n"
+        "import zaftpu_torch.kernels.mdct\n"
         "import zaftpu_torch.features.mel, zaftpu_torch.kernels.melfused\n"
         "x = torch.from_numpy(np.random.default_rng(0).standard_normal("
         "3000))\n"
@@ -237,6 +238,38 @@ def test_import_leaves_jax_and_zaftpu_out():
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+@pytest.mark.skipif(not torch.backends.mkl.is_available(),
+                    reason="torch is built without MKL")
+def test_import_sets_up_mkl_vector_math_on_one_thread():
+    """Importing the port makes one MKL vector-math (VML) call on the
+    importing thread before any multithreaded one: VML sets itself up at
+    its first call, and a first call from several threads at once (a
+    float32 sqrt of more than 2,048 values) can return one thread's share
+    as 12-bit approximations (policy.set_up_cpu_vector_math). torch passes
+    VML_FTZDAZ_OFF (0x140000) with each VML call, and MKL keeps it in the
+    calling thread's mode, so that bit shows the call was made. The
+    process's first large sqrt is then within an ulp of every root."""
+    code = (
+        "import ctypes, os, numpy as np, torch\n"
+        "lib = ctypes.CDLL(os.path.join(os.path.dirname(torch.__file__), "
+        "'lib', 'libtorch_cpu.so'))\n"
+        "before = lib.vmlGetMode()\n"
+        "import zaftpu_torch\n"
+        "after = lib.vmlGetMode()\n"
+        "x = np.random.default_rng(0).random(4736).astype(np.float32) + 1\n"
+        "y = torch.sqrt(torch.from_numpy(x)).numpy()\n"
+        "ref = np.sqrt(x.astype(np.float64))\n"
+        "print(before, after, float((np.abs(y - ref) / ref).max()))\n")
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    before, after, worst = proc.stdout.split()
+    assert int(before) & 0x140000 == 0, proc.stdout
+    assert int(after) & 0x140000 == 0x140000, proc.stdout
+    assert float(worst) <= 2 ** -23, proc.stdout  # within an ulp
 
 
 @pytest.mark.parametrize("wl", [256, 510, 2048])

@@ -9,6 +9,7 @@ CPU tensors run their plain PyTorch versions (float64 is the oracle mode).
 
 from zaftpu_torch.config import (CqtConfig, MdctConfig, MelConfig,
                                  StftConfig)
+from zaftpu_torch.core import policy as _policy
 from zaftpu_torch.core.windows import (get_window, hamming, hann, kbd,
                                        kbd_exact, sine, vorbis)
 from zaftpu_torch.features.mel import melfilterbank, melspectrogram, mfcc
@@ -16,6 +17,11 @@ from zaftpu_torch.transforms.cqt import (cqtchromagram, cqtkernel,
                                          cqtspectrogram)
 from zaftpu_torch.transforms.mdct import imdct, mdct
 from zaftpu_torch.transforms.stft import istft, spectrogram, stft
+
+# Set up MKL's vector math on this thread before the port's first CPU sqrt
+# or log: set up from several threads at once, it can return approximate
+# roots (policy.set_up_cpu_vector_math).
+_policy.set_up_cpu_vector_math()
 
 __all__ = [
     "stft", "istft", "spectrogram", "mdct", "imdct",

@@ -71,15 +71,45 @@ def check_cuda_dial() -> None:
 
 
 def check_exact(x: torch.Tensor) -> None:
-    """Raise if a float32 CUDA matmul on ``x`` would run in TF32."""
-    if not (x.is_cuda and x.dtype == torch.float32):
+    """Raise if a float32 matmul on ``x`` would run below FP32: in TF32 on
+    CUDA, or on the CPU under a lowered float32 matmul precision
+    (``torch.set_float32_matmul_precision`` other than ``highest``, or
+    oneDNN's ``torch.backends.mkldnn.matmul.fp32_precision`` set to
+    ``bf16`` or ``tf32``), which runs bf16 products through oneDNN on a CPU
+    that has them. Either way the product would be wrong by far more than
+    float32 rounding, silently."""
+    if x.dtype != torch.float32:
         return
-    if (torch.backends.cuda.matmul.allow_tf32
+    if x.is_cuda:
+        if (torch.backends.cuda.matmul.allow_tf32
+                or torch.get_float32_matmul_precision() != "highest"):
+            raise RuntimeError(
+                "TF32 matmuls are enabled (torch.backends.cuda.matmul."
+                "allow_tf32 or torch.set_float32_matmul_precision); the exact "
+                "path needs true FP32 products — turn TF32 off")
+        return
+    mkldnn = getattr(torch.backends.mkldnn, "matmul", None)
+    if (getattr(mkldnn, "fp32_precision", "none") in ("bf16", "tf32")
             or torch.get_float32_matmul_precision() != "highest"):
         raise RuntimeError(
-            "TF32 matmuls are enabled (torch.backends.cuda.matmul.allow_tf32 "
-            "or torch.set_float32_matmul_precision); the exact path needs "
-            "true FP32 products — turn TF32 off")
+            "the float32 matmul precision is lowered "
+            "(torch.set_float32_matmul_precision or "
+            "torch.backends.mkldnn.matmul.fp32_precision); the exact path "
+            "needs true FP32 products — set it back to highest")
+
+
+def set_up_cpu_vector_math() -> None:
+    """Let MKL's vector math (VML) set itself up on this thread alone.
+
+    On the CPU, torch's float ``sqrt`` and ``log`` call VML, which sets
+    itself up at its first call in the process. That set-up races: when
+    the first call comes from several OpenMP threads at once (a tensor of
+    more than 2,048 elements is split among them), a thread's share can
+    come back as ``x * rsqrtps(x)``, a 12-bit approximation about 3e-4 of
+    each root off. One single-element call does the set-up first; later
+    calls, from any thread, are exact. The package calls this on import.
+    """
+    torch.sqrt(torch.ones(1))
 
 
 def exact_matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:

@@ -46,15 +46,6 @@
 
 namespace {
 
-constexpr int kSpan = 4 * zt::kElems;  // output samples per block: 2 N_max
-
-// The first frame whose N samples reach position p: max(0, ceil((p - N +
-// 1) / step)).
-__device__ inline long long first_frame(long long p, int n, int step) {
-  const long long a = p - n + 1;
-  return a <= 0 ? 0 : (a + step - 1) / step;
-}
-
 __global__ void __launch_bounds__(zt::kThreads)
 irfft_ola_kernel(const float* __restrict__ hr, const float* __restrict__ hi,
                  const float2* __restrict__ tw, float* __restrict__ out,
@@ -65,12 +56,12 @@ irfft_ola_kernel(const float* __restrict__ hr, const float* __restrict__ hi,
   const int M = n / 2;
   const int F = M + 1;
   const int G = zt::kElems / M;  // frames per group
-  const long long p0 = (long long)blockIdx.x * kSpan;
+  const long long p0 = (long long)blockIdx.x * zt::kSpan;
   const long long rest = out_len - p0;
-  const int span = rest < kSpan ? (int)rest : kSpan;
+  const int span = rest < zt::kSpan ? (int)rest : zt::kSpan;
   const long long last = (p0 + span - 1) / step;
   const long long t_top = last < T - 1 ? last : T - 1;
-  const long long t_lo = first_frame(p0, n, step);
+  const long long t_lo = zt::first_frame(p0, n, step);
   // Block-relative positions and frames: sample q = p - t_lo * step of
   // relative frame u = t - t_lo (q < kSpan + N, u * step <= q).
   const int q0 = (int)(p0 - t_lo * step);
@@ -134,6 +125,8 @@ irfft_ola_kernel(const float* __restrict__ hr, const float* __restrict__ hi,
 // N) float32; s the factor (scale / N). All contiguous. N even in [16,
 // 4096] with no prime factor above 127 in N/2, step in [1, N] and batch at
 // most 65535; anything else returns cudaErrorInvalidValue before a launch.
+// T = 0 returns after the checks and writes nothing: the wrapper returns
+// the N - step zeros itself.
 ZT_EXPORT int zt_irfft_ola(const void* h_re, const void* h_im, const void* tw,
                            void* out, float s, int batch, int T, int N,
                            int step, void* stream) {
@@ -143,12 +136,12 @@ ZT_EXPORT int zt_irfft_ola(const void* h_re, const void* h_im, const void* tw,
     return (int)cudaErrorInvalidValue;
   }
   if (T <= 0 || batch <= 0) return (int)cudaSuccess;
-  const int smem = kSpan * (int)sizeof(float);
+  const int smem = zt::kSpan * (int)sizeof(float);
   cudaError_t err = cudaFuncSetAttribute(
       irfft_ola_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
   const long long out_len = (long long)(T - 1) * step + N;
-  const long long blocks = (out_len + kSpan - 1) / kSpan;
+  const long long blocks = (out_len + zt::kSpan - 1) / zt::kSpan;
   const dim3 grid((unsigned int)blocks, batch);
   irfft_ola_kernel<<<grid, zt::kThreads, smem,
                      static_cast<cudaStream_t>(stream)>>>(

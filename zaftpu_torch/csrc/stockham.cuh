@@ -33,6 +33,9 @@
 namespace zt {
 
 constexpr int kElems = 2048;  // complex values a block transforms
+// Output samples a block of the inverse kernels (irfft.cu, mdct.cu) owns in
+// its shared-memory accumulator: 2 N_max.
+constexpr int kSpan = 4 * kElems;
 constexpr int kMaxPrime = 127;  // the largest prime factor of M a pass takes
 // Passes of a prime above 7: 11^3 = 1331 <= kElems < 11^4.
 constexpr int kMaxPrimes = 3;
@@ -288,6 +291,13 @@ inline bool make_plan(int m, Plan* plan) {
 // kMaxPrime, with its plan (kernels/rfft.py: fits).
 inline bool fft_fits(int n, Plan* plan) {
   return n >= 16 && n <= 2 * kElems && n % 2 == 0 && make_plan(n / 2, plan);
+}
+
+// The inverse kernels' first frame whose N samples reach output position p
+// at this hop: max(0, ceil((p - N + 1) / step)).
+__device__ inline long long first_frame(long long p, int n, int step) {
+  const long long a = p - n + 1;
+  return a <= 0 ? 0 : (a + step - 1) / step;
 }
 
 inline bool aligned8(const void* p) {

@@ -48,14 +48,20 @@ inverse real-FFT + overlap-add kernel (:mod:`zaftpu_torch.kernels.irfft`),
 any other length the GEMM kernels or, under split4, their twins. The
 magnitude and mel front ends follow it too: at such a window they take
 the FFT's half spectrum unless ``ZAFTPU_MELFUSE=1`` forces their kernels
-(``melfused.kernel_wanted``).
+(``melfused.kernel_wanted``). The MDCT and IMDCT follow the same rule at a
+quarter of the window (``mdct.applies``: a multiple of 4 up to 4096 whose
+quarter has no prime factor above 127): the fast MDCT kernel and the fast
+IMDCT + overlap-add kernel (:mod:`zaftpu_torch.kernels.mdct`) there, the
+GEMMs ``fused.frames_op`` and ``synth.imdct_ola`` (their twins under
+split4) at any other length, with an explicit operator or under
+``ZAFTPU_FFT=matmul``.
 
 One dial sets the arithmetic, ``ZAFTPU_PRECISION``
 (:mod:`zaftpu_torch.core.policy`): ``highest`` (default) runs the exact
 FP32 kernels; ``split4`` runs every float32 GEMM analysis and synthesis
 kernel above as its split4 twin (four bf16 passes on the tensor cores,
 float32 sums) and the split dispatch's wide GEMMs as
-``policy.split4_matmul``; the real-FFT kernels, exact and faster than the
+``policy.split4_matmul``; the FFT kernels, exact and faster than the
 twins, serve both dials wherever the shape rule holds.
 Under split4 the magnitude and mel front ends take the half spectrum of
 the analysis kernel unless ``ZAFTPU_MELFUSE=1`` forces their kernels (the
@@ -174,8 +180,10 @@ def imdct_synthesis(coeffs, f: int, window_bytes: bytes):
     """IMDCT synthesis from frames-major coefficients ``(..., T, F)``:
     ``overlap_add(coeffs @ M_w, F)`` with M_w the window-folded inverse
     operator (keyed by the float64 window's bytes), ``(..., T*F + F)``
-    before the trim. The fused synthesis kernel, or with ``ZAFTPU_SYNTH=0``
-    the inverse GEMM (honouring the dial) followed by the OLA kernel."""
+    before the trim. The fused synthesis (the fast IMDCT + overlap-add
+    kernel where the MDCT's shape rule holds, else the inverse GEMM kernel
+    or its twin), or with ``ZAFTPU_SYNTH=0`` the inverse GEMM (honouring
+    the dial) followed by the OLA kernel."""
     if synth_enabled():
         return _synth.imdct_ola(coeffs, f, window_bytes)
     ops = _synth.imdct_ops(f, window_bytes, coeffs.dtype, coeffs.device)

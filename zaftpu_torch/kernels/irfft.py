@@ -33,7 +33,7 @@ CUDA_SOURCE = "zaftpu_torch/csrc/irfft.cu"
 REPLACES = "zaftpu/pallas/synth.py:264"  # _gemm_ola_impl (istft_ola), B4
 REPLACES_SPLIT4 = "zaftpu/pallas/synth.py:231"  # its _kernel_split4, B4-s4
 
-# Output samples a block of the kernel owns (csrc/irfft.cu: kSpan).
+# Output samples a block of the kernel owns (csrc/stockham.cuh: kSpan).
 SPAN = 8192
 
 
@@ -108,9 +108,7 @@ def istft_ola_fft(h_re: torch.Tensor, h_im: torch.Tensor, n: int, step: int,
     """
     if not h_re.is_cuda:
         return istft_ola_fft_plain(h_re, h_im, n, step, scale)
-    out = _launch(h_re, h_im, n, step, scale)
-    istft_ola_fft.launches += 1
-    return out
+    return _launch(h_re, h_im, n, step, scale)
 
 
 istft_ola_fft.launches = 0
@@ -118,7 +116,9 @@ istft_ola_fft.launches = 0
 
 def _launch(h_re: torch.Tensor, h_im: torch.Tensor, n: int, step: int,
             scale: float) -> torch.Tensor:
-    """Check a CUDA input and launch the kernel."""
+    """Check a CUDA input and launch the kernel; with no frames (or no
+    rows), return the plain version's ``N - step`` zeros a row without a
+    launch."""
     name = "istft_ola_fft"
     _build.require_f32(h_re, name)
     _build.require_f32(h_im, name)
@@ -139,6 +139,10 @@ def _launch(h_re: torch.Tensor, h_im: torch.Tensor, n: int, step: int,
     dev = h_re.device
     hr = h_re.reshape(batch, t, f).contiguous()
     hi = h_im.reshape(batch, t, f).contiguous()
+    if t == 0 or batch == 0:
+        out = torch.zeros((batch, (t - 1) * step + n), dtype=torch.float32,
+                          device=dev)
+        return out.reshape(*lead, out.shape[-1])
     tw = _rfft.twiddles(n, torch.float32, dev)
     out = torch.empty((batch, (t - 1) * step + n), dtype=torch.float32,
                       device=dev)
@@ -147,4 +151,5 @@ def _launch(h_re: torch.Tensor, h_im: torch.Tensor, n: int, step: int,
         hr.data_ptr(), hi.data_ptr(), tw.data_ptr(), out.data_ptr(), s, batch,
         t, n, step, _build.stream_of(h_re))
     _build.check(err, "zt_irfft_ola")
+    istft_ola_fft.launches += 1
     return out.reshape(*lead, out.shape[-1])

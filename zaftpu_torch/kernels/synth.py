@@ -21,7 +21,11 @@ On both dials ``istft_ola`` first follows the analysis's shape rule
 kernel of :mod:`zaftpu_torch.kernels.irfft` (``csrc/irfft.cu``), as
 ``zaftpu`` runs its FFT off the TPU; every other window length, an
 explicit operator and ``ZAFTPU_FFT=matmul`` keep the GEMM kernel or its
-twin. ``imdct_ola`` has no such rule.
+twin. ``imdct_ola`` follows the MDCT's rule
+(:func:`zaftpu_torch.kernels.mdct.applies`) the same way: the fast IMDCT +
+overlap-add kernel of :mod:`zaftpu_torch.kernels.mdct` (``csrc/mdct.cu``)
+at a window length that is a multiple of 4 up to 4096 whose quarter has no
+prime factor above 127.
 """
 
 from __future__ import annotations
@@ -38,6 +42,7 @@ from zaftpu_torch.core.policy import (exact_matmul, split4_applies,
                                       split4_matmul_presplit)
 from zaftpu_torch.kernels import _build
 from zaftpu_torch.kernels import irfft as _irfft
+from zaftpu_torch.kernels import mdct as _mdct
 from zaftpu_torch.kernels import rfft as _rfft
 
 CUDA_SOURCE = "zaftpu_torch/csrc/synth.cu"
@@ -299,10 +304,14 @@ def imdct_ola(coeffs: torch.Tensor, f: int, window_bytes: bytes,
     ``window_bytes`` (the float64 window's bytes) keys the operator;
     ``ops`` overrides it.
 
-    Split4 (float32) takes :func:`imdct_ola_split4`. A CPU tensor takes the
-    plain version; a CUDA tensor launches the kernel (leading axes
-    flattened into its batch) or raises.
+    The MDCT's shape rule (:func:`zaftpu_torch.kernels.mdct.applies`)
+    takes :func:`zaftpu_torch.kernels.mdct.imdct_ola_fft` on either dial;
+    elsewhere split4 (float32) takes :func:`imdct_ola_split4`. A CPU tensor
+    takes the plain version; a CUDA tensor launches the kernel (leading
+    axes flattened into its batch) or raises.
     """
+    if _mdct.applies(2 * f, ops):
+        return _mdct.imdct_ola_fft(coeffs, f, window_bytes)
     if split4_applies(coeffs.dtype):
         return imdct_ola_split4(coeffs, f, window_bytes, ops)
     if not coeffs.is_cuda:

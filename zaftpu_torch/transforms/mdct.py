@@ -4,15 +4,22 @@ Semantics match ``zaftpu.transforms.mdct`` and the reference
 (zaf.py:984-1184): fixed 50% overlap, ``T = ceil(N/step) + 1`` frames, a
 caller-supplied TDAC window (Vorbis sine slope or KBD, see
 :mod:`zaftpu_torch.core.windows`), and the inverse's overlap-add with the
-reference's ``[F : -F-1]`` trim. Each direction is one GEMM against a host
-float64 operator that folds the pre-twiddle, DFT, post-twiddle and real
-part (and, for the inverse, the window) into one real matrix. On a CUDA
-float32 signal the forward runs the fused framing + window + GEMM kernel
-(``frames_op``) and the inverse the fused GEMM + TDAC overlap-add kernel
-(``imdct_ola``), or under ``ZAFTPU_PRECISION=split4`` their split4 twins;
-on the CPU the same path runs their plain PyTorch versions, in the input's
-dtype (float64 is the oracle mode). The split dispatch's GEMMs
-(``ZAFTPU_FUSED=0``, ``ZAFTPU_SYNTH=0``) go through ``policy.real_matmul``.
+reference's ``[F : -F-1]`` trim. On both dials, at a window length that
+:func:`zaftpu_torch.kernels.mdct.applies` takes (a multiple of 4 up to
+4096 whose quarter has no prime factor above 127, no explicit operator,
+``ZAFTPU_FFT`` not ``matmul``), the forward runs the fast MDCT kernel
+(``kernels.mdct.mdct_fft``: fold, pre-twiddle, quarter-length FFT,
+post-twiddle) and the inverse the fast IMDCT + TDAC overlap-add kernel
+(``kernels.mdct.imdct_ola_fft``), as ``zaftpu`` runs its FFT cores off the
+TPU. Elsewhere each direction is one GEMM against a host float64 operator
+that folds the pre-twiddle, DFT, post-twiddle and real part (and, for the
+inverse, the window) into one real matrix: the fused framing + window +
+GEMM kernel (``frames_op``) and the fused GEMM + TDAC overlap-add kernel
+(``imdct_ola``), or under ``ZAFTPU_PRECISION=split4`` their split4 twins.
+On the CPU the same dispatch runs the kernels' plain PyTorch versions, in
+the input's dtype (float64 is the oracle mode). The split dispatch's
+framing or OLA kernel and GEMMs (``ZAFTPU_FUSED=0``, ``ZAFTPU_SYNTH=0``)
+keep the GEMM at every window; they go through ``policy.real_matmul``.
 
 The inverse keys its window-folded operator by the float64 bytes of the
 window. A window given as a tensor, on the CPU or the card, is copied to
@@ -36,6 +43,7 @@ from zaftpu_torch.core import fft as _fft
 from zaftpu_torch.core import validate as _validate
 from zaftpu_torch.core.policy import real_matmul
 from zaftpu_torch.kernels import fused as _fused
+from zaftpu_torch.kernels import mdct as _mdct
 from zaftpu_torch.transforms.stft import (_as_input, _as_tensor,
                                           _host_window)
 
@@ -155,7 +163,9 @@ def mdct(audio_signal, window_function=None, *, config=None) -> torch.Tensor:
     # Pad `step` in front and to (T+1)*step in all (zaf.py:1036-1041).
     padded = torch.nn.functional.pad(x, (step, (t + 1) * step - n))
     args = (wl, _fft._real_name(x.dtype))
-    if _kernels.fused_enabled():
+    if _kernels.fused_enabled() and _mdct.applies(wl):
+        coeffs = _mdct.mdct_fft(padded, win, wl, t)
+    elif _kernels.fused_enabled():
         ops = _fused.dispatch_ops(_direct_forward_ops_padded, args, x.device,
                                   x.dtype)
         coeffs = _fused.frames_op(padded, win, ops, step, wl, step, t)
