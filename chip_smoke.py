@@ -10,7 +10,7 @@ non-zero exit and no result line:
 
 1. device: the card's name and power limit (as nvidia-smi gives them),
    torch and CUDA versions; TF32 off for matmuls and cuDNN;
-2. build: the twenty-seven kernels from zaftpu_torch/csrc (one nvcc per
+2. build: the twenty-eight kernels from zaftpu_torch/csrc (one nvcc per
    source, all started together), with the seconds taken;
 3. kernels: each kernel against its plain PyTorch version on the card at
    its main-path shape (WL 2048, hop 1024, a 600-s segment: T = 25,841;
@@ -53,14 +53,22 @@ non-zero exit and no result line:
    with their operator given (B7's, like B2's, names the GEMM at a rule
    window), take their main-path shape from vorbis(1102) (hop 551,
    T 48,023, F 551: odd, so the fast kernels refuse it), timed, and also
-   run at WL 2048 and at their ragged shapes.
+   run at WL 2048 and at their ragged shapes. The spectral CQT kernel (B10
+   and B10-s4 at every power-of-two L up to 32,768) at CqtConfig()'s
+   main-path shape, at CQT_RAGGED's (2 rows, misaligned) and on a dense
+   foreign kernel with columns above L/2 (L 1,024, 2 rows, misaligned),
+   bit-equal to its plain version, timed beside torch.stft + a gather +
+   the complex product + abs (four calls); B10 and B10-s4 at CqtConfig()
+   (timed, the same-shape A/B), at CQT_RAGGED's and at their main-path
+   shape, CQT_WIDE (27.5 Hz: L 65,536, F 168, hop 1,764, T 15,000), timed.
    Framing, OLA, mirror, fold and the FFT's full store must be bit-equal,
    the FFT's other stores within 1e-6 * max|ref| (they do their plain
    versions' operations in their order), the GEMM kernels within 2e-5 *
    max|ref|, and the kernels that only store another's sums elsewhere (B3,
    B12, their twins and the FFT's planes and full stores) bit-equal to it
    (with the mirror); median times of
-   kernel and plain version at the main-path shape (CUDA events), and of
+   kernel and plain version at the main-path shape (CUDA events; of 10, of
+   3 for a plain version slower than 0.1 s), and of
    one PyTorch call computing the same function where there is one
    (torch.stft for B1, B3, B12, their twins and the FFT kernel's stores,
    two-sided for B3, its twin and the full store, fold for
@@ -99,11 +107,13 @@ non-zero exit and no result line:
 8. CQT main path at CqtConfig() (44.1 kHz, 24 bins per octave, 55-3,520
    Hz, 25 frames/s): cqtspectrogram and cqtchromagram of the 600-s signal
    against a float64 oracle on the card (per-frame FFT times the kernel's
-   non-zero columns, then abs, zaf.py:627-633), under the default scheme
-   (the split4 twin, <= 1e-4 * max|oracle|) and under
-   ZAFTPU_PRECISION=highest and ZAFTPU_CQT_SCHEME=exact (the exact kernel,
-   <= 1e-5 * max|oracle|), with launch counts showing which kernel ran and
-   that no plain version did;
+   non-zero columns, then abs, zaf.py:627-633), under the default scheme,
+   ZAFTPU_PRECISION=highest, ZAFTPU_CQT_SCHEME=exact and
+   ZAFTPU_PRECISION=split4 (the spectral kernel, <= 1e-5 * max|oracle|),
+   under ZAFTPU_FFT=matmul (the split4 twin B10-s4, <= 1e-4 * max|oracle|;
+   with ZAFTPU_CQT_SCHEME=exact the exact B10, <= 1e-5) and at CQT_WIDE
+   (L 65,536: B10-s4 by default, B10 under ZAFTPU_CQT_SCHEME=exact), with
+   launch counts showing which kernel ran and that no plain version did;
 9. split4 main path (ZAFTPU_PRECISION=split4): stft -> istft and mdct ->
    imdct of the 600-s signal; at WL 2048, 1,764 and 1,102 the FFT kernels
    compute the spectrum and the round trip under the exact gates (1e-5 *
@@ -130,15 +140,17 @@ non-zero exit and no result line:
    ZAFTPU_FULLSPEC=1 at WL 2,062 (B3-s4, synth_split4): each spectrum and
    round trip bit-equal to those of the same dial and window without the
    lever, and the exact gates (split4's at WL 1,102); then the peak device
-   memory of one 600-s stft under ZAFTPU_FULLSPEC=0 and unset;
+   memory of one 600-s stft under ZAFTPU_FULLSPEC=0 and unset, and of one
+   600-s cqtspectrogram on the spectral kernel and under ZAFTPU_FFT=matmul;
 11. one hour: six 600-s segments through stft, then istft (also at the
    40-ms and 25-ms windows on the default dispatch); mdct, then
    imdct; spectrogram; melspectrogram; mfcc, under the default, the split
    and the split4 dispatch, and the three mel front ends under
    ZAFTPU_MELFUSE=1 and under split4 with ZAFTPU_MELFUSE=1;
    cqtspectrogram and cqtchromagram (90,000 frames) under the default
-   (split4) and the exact CQT scheme; frames/s from CUDA events (printed,
-   not gated).
+   and the exact CQT scheme (the spectral kernel) and under
+   ZAFTPU_FFT=matmul (B10-s4); frames/s from CUDA events (printed, not
+   gated).
 
 The CQT kernel is built on the host without the disk cache
 (ZAFTPU_CACHE=0), so the run writes nothing outside the checkout.
@@ -166,8 +178,8 @@ from zaftpu_torch.core import fft, policy
 from zaftpu_torch.core.frame import stft_padding
 from zaftpu_torch.core.windows import hamming, vorbis
 from zaftpu_torch.features.mel import dct_ii_ortho_matrix, melfilterbank
-from zaftpu_torch.kernels import (_build, cqtslab, framing, fused, irfft,
-                                  melfused, mirror, ola, rfft, synth)
+from zaftpu_torch.kernels import (_build, cqtfft, cqtslab, framing, fused,
+                                  irfft, melfused, mirror, ola, rfft, synth)
 from zaftpu_torch.kernels import mdct as kmdct
 from zaftpu_torch.transforms import cqt as tcqt
 from zaftpu_torch.transforms import mdct as tmdct
@@ -215,6 +227,7 @@ TWIN_KERNELS = ("fused_split4", "frames_matmul2_split4",
                 "frames_rfft_full_split4")
 SYNTH_GEMMS = ("synth", "synth_split4")  # B4, B4-s4
 FULL_GEMMS = ("frames_rfft_full", "frames_rfft_full_split4")  # B3, B3-s4
+CQT_GEMMS = ("cqt_magnitudes", "cqt_magnitudes_split4")  # B10, B10-s4
 # The inverse FFT kernel's other shapes: WL, hop, T, batch rows (K = 16, a
 # mixed-radix window whose hop does not divide it, one frame per block).
 IFFT_RAGGED = ((4096, 256, 1001, 1), (400, 160, 1001, 3), (3000, 1000, 301, 2),
@@ -225,6 +238,13 @@ WHISPER = MelConfig(sampling_frequency=16000, window_length=400,
                     step_length=160, number_mels=80, window="hann")
 CQT_RAGGED = (CqtConfig(sampling_frequency=22050, octave_resolution=12,
                         minimum_frequency=110.0), 1001)  # L 4096, hop 882
+# The CQT from 27.5 Hz (the piano's lowest A) at 24 bins per octave: L
+# 65,536, F 168, past the spectral kernel's one-block FFT, so B10 and
+# B10-s4 still run there (and under ZAFTPU_FFT=matmul everywhere).
+CQT_WIDE = CqtConfig(minimum_frequency=27.5)
+# A small dense foreign CQT kernel with columns above L/2 (read as
+# conjugates): F, L, hop, T, batch rows, signal offset.
+CQT_FOREIGN = (12, 1024, 160, 301, 2, 1)
 SEED = 20260816
 EXACT_TOL = 0.0
 GEMM_TOL = 2e-5     # x max|ref|; TF32 would read about 1e-3
@@ -270,6 +290,9 @@ KERNELS = {
     "cqt_magnitudes_split4": (cqtslab.CUDA_SOURCE, cqtslab.REPLACES_SPLIT4,
                               cqtslab.cqt_magnitudes_split4,
                               cqtslab.cqt_magnitudes_split4_plain),
+    "cqt_fft": (cqtfft.CUDA_SOURCE,
+                f"{cqtfft.REPLACES} and {cqtfft.REPLACES_SPLIT4}",
+                cqtfft.cqt_magnitudes_fft, cqtfft.cqt_magnitudes_fft_plain),
     "mirror_full_planes": (mirror.CUDA_SOURCE, mirror.REPLACES_MIRROR,
                            mirror.mirror_full_planes,
                            mirror.mirror_full_planes_plain),
@@ -642,8 +665,43 @@ def _kernel_cases(dev, main_t: int):
                        f"WL {wl} hop {step} T {t} mels {mels} power {power}",
                        (padded, win, fbank_t, wl, step, t, power), GEMM_TOL)
     main_cqt_t = SEGMENT_SECONDS * SR // _cqt_step(CqtConfig())  # 15,000
-    for label, (cfg, t) in (("main", (CqtConfig(), main_cqt_t)),
-                            ("ragged", CQT_RAGGED)):
+    # The spectral kernel (B10 and B10-s4 at every power-of-two L up to
+    # 32,768), bit-equal to its plain version: CqtConfig()'s main-path
+    # shape, CQT_RAGGED's batched and misaligned, and a dense foreign kernel
+    # with columns above L/2.
+    for label, (cfg, t), rows, offset in (
+            ("main", (CqtConfig(), main_cqt_t), 1, 0),
+            ("ragged", CQT_RAGGED, 2, 1)):
+        kern = cfg.kernel()
+        step, length = _cqt_step(cfg), kern.fft_length
+        n = (t - 1) * step + length
+        sig = torch.from_numpy(np.resize(segment(0), rows * n + offset).astype(
+            np.float32)).to(dev)[offset:].reshape(rows, n).squeeze(0)
+        yield ("cqt_fft", label,
+               f"{rows} rows L {length} hop {step} T {t} F "
+               f"{kern.number_frequencies} offset {offset}",
+               (sig, tcqt._device_fft_table(kern, dev), step, length, t),
+               EXACT_TOL)
+        del sig
+    f, length, step, t, rows, offset = CQT_FOREIGN
+    rng = np.random.default_rng(SEED)
+    dense = (rng.standard_normal((f, length))
+             + 1j * rng.standard_normal((f, length))) / length
+    dense[rng.random(dense.shape) < 0.5] = 0
+    n = (t - 1) * step + length
+    sig = torch.from_numpy(np.resize(segment(1), rows * n + offset).astype(
+        np.float32)).to(dev)[offset:].reshape(rows, n)
+    yield ("cqt_fft", "ragged",
+           f"dense foreign {rows} rows L {length} hop {step} T {t} F {f} "
+           f"offset {offset}",
+           (sig, cqtfft.device_table(cqtfft.kernel_table(dense), dev), step,
+            length, t), EXACT_TOL)
+    # B10 and B10-s4: at CqtConfig() (the spectral kernel's shape, timed
+    # beside it), at CQT_RAGGED's, and at their main-path shape, L 65,536
+    # (CQT_WIDE), timed.
+    for label, (cfg, t) in (("operator", (CqtConfig(), main_cqt_t)),
+                            ("ragged", CQT_RAGGED),
+                            ("main", (CQT_WIDE, main_cqt_t))):
         kern = cfg.kernel()
         step, length = _cqt_step(cfg), kern.fft_length
         sig = torch.from_numpy(np.resize(
@@ -736,6 +794,21 @@ def _work(name: str, args: tuple) -> tuple[float, float, float]:
         b = _rows(sig)
         return (passes * 4 * b * t * length * f, 3 * b * t * f,
                 4 * (sig.numel() + 2 * length * f + b * t * f))
+    if base == "cqt_fft":
+        # The spectral CQT: each frame's L/2-point FFT (its plan's passes),
+        # the split step at the distinct bins the kernel reads (16 each),
+        # the banded product (8 a nonzero) and the magnitude (3 an output);
+        # the signal, the passes' eighth of the twiddle table and the
+        # kernel's table read once (a row pointer; a bin code, a complex64
+        # value and its twiddle a nonzero), the magnitudes written once.
+        sig, table, _, length, t = args
+        b = _rows(sig)
+        f, nnz = table.number_frequencies, table.code.numel()
+        bins = torch.unique(table.code >> 1).numel()
+        ops = _fft_ops(length) + 16 * bins + 8 * nnz + 3 * f
+        return (0, b * t * ops,
+                4 * sig.numel() + length + 4 * (f + 1) + 20 * nnz
+                + 4 * b * t * f)
     if base in FFT_STORES:
         # The real FFT: the window, its plan's passes and the split step
         # (16 a bin); the signal and the window read once, the twiddle
@@ -805,7 +878,31 @@ def library_call(name: str, args: tuple):
         return lambda: torch.nn.functional.fold(
             frames.T[None], (1, (t - 1) * step + wl), (1, wl),
             stride=(1, step))
+    if base == "cqt_fft":
+        return cqt_fft_library(*args[:4])
     return None
+
+
+def cqt_fft_library(sig, table, step, length):
+    """The spectral CQT as four PyTorch calls: torch.stft (one-sided, a
+    ones window, center=False), a gather of the kernel's nonzero columns,
+    the complex64 product with the reduced kernel (its ``reduced_low``
+    rounded to complex64) and ``abs``, ``(F, T)``. For a kernel with no
+    columns above L/2, as every CqtConfig() kernel."""
+    codes = table.code.cpu().numpy()
+    require(not (codes & 1).any(), "cqt_fft yardstick: conjugate columns")
+    cols = np.unique(codes >> 1)
+    rowptr = table.rowptr.cpu().numpy()
+    reduced = np.zeros((rowptr.shape[0] - 1, cols.shape[0]), np.complex64)
+    row = np.repeat(np.arange(reduced.shape[0]), np.diff(rowptr))
+    reduced[row, np.searchsorted(cols, codes >> 1)] = \
+        table.values.cpu().numpy()
+    red = torch.from_numpy(reduced).to(sig.device)
+    idx = torch.from_numpy(cols).to(sig.device)
+    ones = torch.ones(length, device=sig.device)
+    return lambda: (red @ torch.stft(
+        sig, length, step, window=ones, center=False,
+        return_complex=True)[..., idx, :]).abs()
 
 
 def synth_library(h_re, h_im, wl, step, scale):
@@ -835,8 +932,12 @@ def phase_kernels(dev) -> dict:
     for name, label, shape, args, tol in _kernel_cases(dev, main_t):
         _, _, kernel, plain = KERNELS[name]
         got = kernel(*args)
+        torch.cuda.synchronize()
+        start = time.perf_counter()
         ref = plain(*args)
         torch.cuda.synchronize()
+        # A plain version slower than 0.1 s a call is timed 3 times.
+        plain_reps = 3 if time.perf_counter() - start > 0.1 else 10
         if name in RESTORES:
             base, store = RESTORES[name]
             sums = _planes(store(KERNELS[base][2](*args), args[2]))
@@ -859,9 +960,11 @@ def phase_kernels(dev) -> dict:
             print(f"  {name}: {irfft_transforms(wl, step, t):.4f} frames "
                   "transformed per output frame")
         if label in ("main", "40 ms", "25 ms") or (
-                label == "operator" and name in SYNTH_GEMMS + FULL_GEMMS):
+                label == "operator"
+                and name in SYNTH_GEMMS + FULL_GEMMS + CQT_GEMMS):
             ms = median_ms(lambda: kernel(*args))
-            plain_ms = median_ms(lambda: plain(*args))
+            plain_ms = median_ms(lambda: plain(*args), reps=plain_reps,
+                                 warmup=2 if plain_reps == 10 else 1)
             lib = library_call(name, args)
             library_ms = None if lib is None else median_ms(lib)
             if name.removesuffix("_split4") in ("synth", "synth_fft"):
@@ -872,10 +975,15 @@ def phase_kernels(dev) -> dict:
                 require(lerr <= GEMM_TOL * scale,
                         f"{name}: torch.istft yardstick {lerr} > "
                         f"{GEMM_TOL} * {scale}")
+            if name == "cqt_fft":
+                lerr = _max_abs(lib().transpose(-1, -2) - got)
+                print(f"  {name}: four-call yardstick vs kernel max_abs_err "
+                      f"{lerr!r} (printed, not gated)")
             bound_ms, bound_by = bound(name, args)
             print(f"  {name} {label}: kernel {ms:.4f} ms, plain "
-                  f"{plain_ms:.4f} ms, library {library_ms} ms (median of "
-                  f"10); bound {bound_ms:.4f} ms by {bound_by}")
+                  f"{plain_ms:.4f} ms (median of {plain_reps}), library "
+                  f"{library_ms} ms (median of 10); bound {bound_ms:.4f} ms "
+                  f"by {bound_by}")
         if label == "main":
             entry = results.setdefault(name, {
                 "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
@@ -1184,11 +1292,13 @@ def phase_hour_features(dispatch: str, segs: list,
     print(f"one hour [{dispatch}]: " + "; ".join(rates) + " (median of 3)")
 
 
+@functools.cache
 def cqt_oracle(x: torch.Tensor, cfg: CqtConfig, chunk: int = 256):
     """Float64 CQT spectrogram ``(T, F)`` and chromagram ``(T, OR)`` of
     ``x`` by the reference's chain (zaf.py:613-633): the asymmetric centre
     pad, per-frame FFT, the kernel's non-zero columns, ``abs``, in chunks of
-    frames on the card; a check only, never on the path."""
+    frames on the card; a check only, never on the path. Made once for a
+    signal and configuration."""
     kern = cfg.kernel()
     step, length = _cqt_step(cfg), kern.fft_length
     t = x.shape[-1] // step
@@ -1210,17 +1320,30 @@ def cqt_oracle(x: torch.Tensor, cfg: CqtConfig, chunk: int = 256):
     return spec, chroma
 
 
-# CQT scheme -> the kernel it must run and its oracle gate (x max|oracle|).
-CQT_WANT = {"default": ("cqt_magnitudes_split4", SPLIT4_ORACLE_TOL),
-            "ZAFTPU_PRECISION=highest": ("cqt_magnitudes", ORACLE_TOL),
-            "ZAFTPU_CQT_SCHEME=exact": ("cqt_magnitudes", ORACLE_TOL)}
+# CQT dispatch -> the configuration, the kernel it must run and its oracle
+# gate (x max|oracle|). At CqtConfig() (L 32,768) the spectral kernel runs
+# on every scheme and dial; under ZAFTPU_FFT=matmul and at CQT_WIDE's L
+# 65,536 the scheme's time-domain kernel: B10-s4 by default, B10 exact.
+CQT_WANT = {
+    "default": (CqtConfig(), "cqt_fft", ORACLE_TOL),
+    "ZAFTPU_PRECISION=highest": (CqtConfig(), "cqt_fft", ORACLE_TOL),
+    "ZAFTPU_CQT_SCHEME=exact": (CqtConfig(), "cqt_fft", ORACLE_TOL),
+    "ZAFTPU_PRECISION=split4": (CqtConfig(), "cqt_fft", ORACLE_TOL),
+    "ZAFTPU_FFT=matmul": (CqtConfig(), "cqt_magnitudes_split4",
+                          SPLIT4_ORACLE_TOL),
+    "ZAFTPU_FFT=matmul ZAFTPU_CQT_SCHEME=exact": (CqtConfig(),
+                                                  "cqt_magnitudes",
+                                                  ORACLE_TOL),
+    "default L 65536": (CQT_WIDE, "cqt_magnitudes_split4", SPLIT4_ORACLE_TOL),
+    "ZAFTPU_CQT_SCHEME=exact L 65536": (CQT_WIDE, "cqt_magnitudes",
+                                        ORACLE_TOL)}
 
 
 def phase_cqt_path(dispatch: str, x: torch.Tensor) -> dict:
-    """cqtspectrogram and cqtchromagram of the 600-s signal at CqtConfig();
-    returns the launch counts of the CQT kernel this scheme must run."""
-    cfg = CqtConfig()
-    kernel, tol = CQT_WANT[dispatch]
+    """cqtspectrogram and cqtchromagram of the 600-s signal at the
+    dispatch's configuration; returns the launch counts of the CQT kernel
+    this dispatch must run."""
+    cfg, kernel, tol = CQT_WANT[dispatch]
     reset_counters()
     spec = zaftpu_torch.cqtspectrogram(x, config=cfg)
     chroma = zaftpu_torch.cqtchromagram(x, config=cfg)
@@ -1294,6 +1417,38 @@ def phase_peak_memory(x: torch.Tensor) -> None:
           f"unset {peaks[1]} bytes above the signal")
 
 
+def phase_peak_memory_cqt(x: torch.Tensor) -> None:
+    """Peak device memory of one 600-s cqtspectrogram at CqtConfig() on the
+    spectral kernel and under ZAFTPU_FFT=matmul (B10-s4: its chunk
+    partials), above what was allocated before the call (the signal and
+    the cached device table or operator, whose sizes are printed too)."""
+    cfg = CqtConfig()
+    kern = cfg.kernel()
+    held = {"spectral": sum(v.numel() * v.element_size() for v in
+                            tcqt._device_fft_table(kern, x.device)
+                            if isinstance(v, torch.Tensor)),
+            "ZAFTPU_FFT=matmul": tcqt._device_time_kernel(
+                kern, x.device, True).numel() * 2}
+    peaks = []
+    for env in (DEFAULT, FFT_MATMUL):
+        run = functools.partial(zaftpu_torch.cqtspectrogram, x, config=cfg)
+        _with_env(env, run)
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        spec = _with_env(env, run)
+        torch.cuda.synchronize()
+        peaks.append(torch.cuda.max_memory_allocated() - base)
+        out = spec.numel() * spec.element_size()
+        del spec
+    print(f"peak device memory of one 600-s cqtspectrogram (CqtConfig(); "
+          f"the output is {out} bytes): spectral kernel {peaks[0]} bytes, "
+          f"ZAFTPU_FFT=matmul {peaks[1]} bytes above the signal; cached on "
+          f"the card: the table {held['spectral']} bytes, B10-s4's operator "
+          f"{held['ZAFTPU_FFT=matmul']} bytes")
+
+
 def phase_hour_cqt(dispatch: str, segs: list) -> None:
     """cqtspectrogram and cqtchromagram over the six 600-s segments;
     frames/s from CUDA events, median of 3 passes (printed, not gated)."""
@@ -1328,6 +1483,8 @@ SPLIT4_MELFUSE = {**SPLIT4, "ZAFTPU_MELFUSE": "1"}
 SPLIT4_MATMUL = {**SPLIT4, "ZAFTPU_FFT": "matmul"}
 CQT_HIGHEST = {**DEFAULT, "ZAFTPU_PRECISION": "highest"}
 CQT_EXACT = {**DEFAULT, "ZAFTPU_CQT_SCHEME": "exact"}
+FFT_MATMUL = {**DEFAULT, "ZAFTPU_FFT": "matmul"}
+CQT_EXACT_MATMUL = {**CQT_EXACT, "ZAFTPU_FFT": "matmul"}
 
 
 def _with_env(env: dict, fn, *args):
@@ -1382,6 +1539,12 @@ def main() -> int:
             (DEFAULT, phase_cqt_path, "default"),
             (CQT_HIGHEST, phase_cqt_path, "ZAFTPU_PRECISION=highest"),
             (CQT_EXACT, phase_cqt_path, "ZAFTPU_CQT_SCHEME=exact"),
+            (SPLIT4, phase_cqt_path, "ZAFTPU_PRECISION=split4"),
+            (FFT_MATMUL, phase_cqt_path, "ZAFTPU_FFT=matmul"),
+            (CQT_EXACT_MATMUL, phase_cqt_path,
+             "ZAFTPU_FFT=matmul ZAFTPU_CQT_SCHEME=exact"),
+            (DEFAULT, phase_cqt_path, "default L 65536"),
+            (CQT_EXACT, phase_cqt_path, "ZAFTPU_CQT_SCHEME=exact L 65536"),
             (SPLIT4, phase_main_path, "split4"),
             (SPLIT4, phase_main_path, f"split4 WL {MIXED_WL}"),
             (SPLIT4, phase_main_path, f"split4 WL {PRIME_WL}"),
@@ -1433,6 +1596,8 @@ def main() -> int:
             torch.cuda.empty_cache()
         del ref
     phase_peak_memory(x)
+    phase_peak_memory_cqt(x)
+    cqt_oracle.cache_clear()
     del x
     print(f"chip_smoke: levers at {time.perf_counter() - start:.1f} s")
     torch.cuda.empty_cache()
@@ -1449,8 +1614,10 @@ def main() -> int:
     for env, dispatch in ((MELFUSE_ON, "ZAFTPU_MELFUSE=1"),
                           (SPLIT4_MELFUSE, "split4 ZAFTPU_MELFUSE=1")):
         _with_env(env, phase_hour_features, dispatch, segs, True)
-    for env, dispatch in ((DEFAULT, "default: split4"),
-                          (CQT_EXACT, "ZAFTPU_CQT_SCHEME=exact")):
+    for env, dispatch in ((DEFAULT, "default: spectral kernel"),
+                          (CQT_EXACT, "ZAFTPU_CQT_SCHEME=exact: spectral "
+                           "kernel"),
+                          (FFT_MATMUL, "ZAFTPU_FFT=matmul: B10-s4")):
         _with_env(env, phase_hour_cqt, dispatch, segs)
         torch.cuda.empty_cache()
 

@@ -1,17 +1,20 @@
 """Where the device time of zaftpu_torch's main path goes, on a CUDA card.
 
     python3 scripts/torch_profile.py [--precision highest|split4] [--iters 3]
-        [--window 1102] [--only mdct]
+        [--window 1102] [--only mdct|cqt]
 
 Profiles 600-s stft -> istft, mdct -> imdct (the chip_smoke.py signal,
 Hamming and vorbis windows of 2048, hop 1024; --window sets the STFT's
 Hamming window, at half overlap), cqtspectrogram at
-CqtConfig(), one hour of stft (six 600-s segments queued back to back)
+CqtConfig() (on the path the environment selects, then under
+ZAFTPU_FFT=matmul: the time-domain kernels), one hour of stft (six 600-s
+segments queued back to back)
 and one hour of stft, then istft (chip_smoke.py's hour phase) with
 torch.profiler after two
 warm-up iterations, under the
-given ZAFTPU_PRECISION (set explicitly, so the CQT runs its split4 twin
-under split4 and its exact kernel under highest) and the other levers as
+given ZAFTPU_PRECISION (set explicitly, so the CQT's time-domain kernels
+run the split4 twin under split4 and the exact kernel under highest) and
+the other levers as
 set in the environment; the CQT kernel is built without the disk cache. Prints, per path and per iteration: the device
 time of each kernel (largest first), the busy time (their sum), the window
 (host clock around the profiled iterations, synchronised) and the busy
@@ -19,7 +22,9 @@ share; for the hours, also the host operators that take the most host
 time of their own. ``--only mdct`` profiles the MDCT instead: 600-s mdct ->
 imdct, mdct alone and imdct alone, and one hour of mdct, then imdct (set
 ZAFTPU_FFT=matmul to profile the GEMMs B2 and B7, or their twins, at WL
-2048). Needs a CUDA card; prints nothing else and exits 1 without one.
+2048). ``--only cqt`` profiles the CQT alone: 600-s cqtspectrogram and
+one hour of it, each on the selected path and under ZAFTPU_FFT=matmul.
+Needs a CUDA card; prints nothing else and exits 1 without one.
 """
 
 from __future__ import annotations
@@ -97,13 +102,41 @@ def profile_mdct(x: torch.Tensor, vw, iters: int) -> None:
             host_rows=8)
 
 
+def profile_cqt(x: torch.Tensor, iters: int, hour: bool) -> None:
+    """cqtspectrogram at CqtConfig() on the path the environment selects
+    (the spectral kernel by default) and again under ZAFTPU_FFT=matmul (the
+    time-domain kernels B10-s4 and B10, the path before the spectral
+    kernel): 600 s and, with ``hour``, one hour."""
+    cfg = CqtConfig()
+    segs = ([torch.from_numpy(segment(i)).cuda() for i in range(6)]
+            if hour else [])
+    saved = os.environ.get("ZAFTPU_FFT")
+    try:
+        for fft in (saved, "matmul"):
+            if fft is not None:
+                os.environ["ZAFTPU_FFT"] = fft
+            label = f"cqtspectrogram [ZAFTPU_FFT={fft or 'auto'}]"
+            profile(label, lambda: zaftpu_torch.cqtspectrogram(
+                x, config=cfg), iters)
+            if hour:
+                profile(label + ", one hour", lambda: [
+                    zaftpu_torch.cqtspectrogram(s, config=cfg)
+                    for s in segs], iters, host_rows=8)
+    finally:
+        if saved is None:
+            os.environ.pop("ZAFTPU_FFT", None)
+        else:
+            os.environ["ZAFTPU_FFT"] = saved
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--precision", default="highest",
                         choices=("highest", "split4"))
     parser.add_argument("--iters", type=int, default=3)
     parser.add_argument("--window", type=int, default=WL)
-    parser.add_argument("--only", choices=("all", "mdct"), default="all")
+    parser.add_argument("--only", choices=("all", "mdct", "cqt"),
+                        default="all")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         print("no CUDA card", file=sys.stderr)
@@ -120,14 +153,15 @@ def main() -> int:
     if args.only == "mdct":
         profile_mdct(x, vw, args.iters)
         return 0
+    if args.only == "cqt":
+        profile_cqt(x, args.iters, hour=True)
+        return 0
     profile("stft -> istft", lambda: zaftpu_torch.istft(
         zaftpu_torch.stft(x, hw, step), hw, step), args.iters)
     profile("stft", lambda: zaftpu_torch.stft(x, hw, step), args.iters)
     profile("mdct -> imdct", lambda: zaftpu_torch.imdct(
         zaftpu_torch.mdct(x, vw), vw), args.iters)
-    cfg = CqtConfig()
-    profile("cqtspectrogram", lambda: zaftpu_torch.cqtspectrogram(
-        x, config=cfg), args.iters)
+    profile_cqt(x, args.iters, hour=False)
     segs = [torch.from_numpy(segment(i)).cuda() for i in range(6)]
     profile("stft, one hour", lambda: [zaftpu_torch.stft(s, hw, step)
                                        for s in segs], args.iters,

@@ -5,8 +5,8 @@ the goldens (float64) and against zaftpu (float32), batching, block
 boundaries, ``config=`` and validation.
 
 Mirrors tests/test_cqt.py and the cache tests of tests/test_utils.py. On
-the CPU the float32 CQT runs the plain slab loop of
-``kernels.cqtslab.cqt_magnitudes``. Every kernel here is built with the
+the CPU the float32 CQT runs the plain version of the spectral kernel
+``kernels.cqtfft.cqt_magnitudes_fft`` (tests/test_torch_cqt_fft.py). Every kernel here is built with the
 disk cache pointed at a temporary directory, so no cached file stands in
 for the port's own build.
 """
@@ -25,7 +25,7 @@ from zaftpu.transforms import cqt as zcqt
 from zaftpu.utils import cache as zcache
 import zaftpu_torch
 from zaftpu_torch import CqtConfig
-from zaftpu_torch.kernels import cqtslab as tcqtslab
+from zaftpu_torch.kernels import cqtfft as tcqtfft
 from zaftpu_torch.transforms import cqt as tcqt
 from zaftpu_torch.utils import cache as tcache
 
@@ -215,9 +215,9 @@ def test_evicting_a_foreign_kernel_keeps_the_others_device_operators(
     after_b = entries(kb)
     assert after_b.keys() == before_b.keys()
     assert all(after_b[key] is before_b[key] for key in after_b)
-    # Another upload of b reuses its operator.
-    ops = tcqt._device_time_kernel(kb, torch.device("cpu"))
-    assert ops is before_b[(id(kb), torch.device("cpu"), torch.float32)][1]
+    # Another upload of b reuses its float32 path's table.
+    table = tcqt._device_fft_table(kb, torch.device("cpu"))
+    assert table is before_b[(id(kb), torch.device("cpu"), "cqt_fft")][1]
 
 
 def test_device_operators_fifo_bounded(fresh_cache):
@@ -255,9 +255,9 @@ def test_f32_matches_zaftpu(signal, kernel, fn):
     zk = zcqt.cqtkernel(SR, OR, FMIN, FMAX)
     args = (SR, TRES, OR) if fn == "cqtchromagram" else (SR, TRES)
     ref = np.asarray(getattr(zaftpu, fn)(x32, *args, zk))
-    calls = tcqtslab.cqt_magnitudes_plain.calls
+    calls = tcqtfft.cqt_magnitudes_fft_plain.calls
     mine = getattr(tcqt, fn)(torch.from_numpy(x32), *args, kernel)
-    assert tcqtslab.cqt_magnitudes_plain.calls == calls + 1
+    assert tcqtfft.cqt_magnitudes_fft_plain.calls == calls + 1
     assert mine.dtype == torch.float32 and tuple(mine.shape) == ref.shape
     np.testing.assert_allclose(_np(mine), ref, rtol=0,
                                atol=2e-6 * np.abs(ref).max())

@@ -5,8 +5,9 @@ The twin's plain version against zaftpu's slab kernel in interpret mode
 under ``ZAFTPU_PRECISION=split4`` (which hands that kernel the bf16
 operator), the presplit operator bit for bit against zaftpu's host split,
 the scheme's resolution over tests/test_dispatch.py's environment matrix,
-the CPU CQT under every scheme (exact, as zaftpu's CPU backend), and the
-device operators' cache. The twin's CUDA kernel runs only on the card
+the CPU CQT under every scheme (exact, as zaftpu's CPU backend: the
+spectral kernel's plain version, the slab loop under ZAFTPU_FFT=matmul),
+and the device operators' cache. The twin's CUDA kernel runs only on the card
 (tests/test_torch_cuda.py and chip_smoke.py).
 """
 
@@ -21,6 +22,7 @@ import torch
 import zaftpu
 from zaftpu.pallas import cqtslab as zcqtslab
 from zaftpu.transforms import cqt as zcqt
+from zaftpu_torch.kernels import cqtfft as tcqtfft
 from zaftpu_torch.kernels import cqtslab as tcqtslab
 from zaftpu_torch.transforms import cqt as tcqt
 
@@ -163,19 +165,23 @@ def test_scheme_resolution_matches_zaftpu(precision, scheme, monkeypatch):
     assert tcqt._slab_scheme_split4() is zcqt._slab_scheme_split4()
 
 
+@pytest.mark.parametrize("fft", ["auto", "matmul"])
 @pytest.mark.parametrize("scheme", [None, "split4", "exact"])
 @pytest.mark.parametrize("precision", [None, "highest", "split4", "high"])
-def test_cpu_cqt_exact_under_every_scheme(scheme, precision, cache_dir,
+def test_cpu_cqt_exact_under_every_scheme(scheme, precision, fft, cache_dir,
                                           monkeypatch):
-    """On the CPU the CQT runs the exact slab loop whatever the scheme and
-    the dial say, bit-equal to the unset default, and matches zaftpu's CPU
-    CQT under the same environment; the twin's plain version never runs."""
+    """On the CPU the CQT runs an exact path whatever the scheme and the dial
+    say, bit-equal to the unset default, and matches zaftpu's CPU CQT under
+    the same environment: the spectral kernel's plain version at L 2048,
+    the exact slab loop under ZAFTPU_FFT=matmul; the twin's plain version
+    never runs."""
     kern = tcqt.cqtkernel(8000, 12, 110.0, 880.0)
     zk = zcqt.cqtkernel(8000, 12, 110.0, 880.0)
     x32 = np.random.default_rng(23).standard_normal(16000).astype(np.float32)
     x = torch.from_numpy(x32)
     monkeypatch.delenv("ZAFTPU_PRECISION", raising=False)
     monkeypatch.delenv("ZAFTPU_CQT_SCHEME", raising=False)
+    monkeypatch.setenv("ZAFTPU_FFT", fft)
     ref_spec = tcqt.cqtspectrogram(x, 8000, 25, kern)
     ref_chroma = tcqt.cqtchromagram(x, 8000, 25, 12, kern)
     if precision is not None:
@@ -183,13 +189,16 @@ def test_cpu_cqt_exact_under_every_scheme(scheme, precision, cache_dir,
     if scheme is not None:
         monkeypatch.setenv("ZAFTPU_CQT_SCHEME", scheme)
     jax.clear_caches()
-    calls = (tcqtslab.cqt_magnitudes_plain.calls,
+    calls = (tcqtfft.cqt_magnitudes_fft_plain.calls,
+             tcqtslab.cqt_magnitudes_plain.calls,
              tcqtslab.cqt_magnitudes_split4_plain.calls)
     spec = tcqt.cqtspectrogram(x, 8000, 25, kern)
     chroma = tcqt.cqtchromagram(x, 8000, 25, 12, kern)
-    assert (tcqtslab.cqt_magnitudes_plain.calls,
-            tcqtslab.cqt_magnitudes_split4_plain.calls) == (calls[0] + 2,
-                                                            calls[1])
+    moved = (2, 0) if fft == "auto" else (0, 2)
+    assert (tcqtfft.cqt_magnitudes_fft_plain.calls,
+            tcqtslab.cqt_magnitudes_plain.calls,
+            tcqtslab.cqt_magnitudes_split4_plain.calls) == (
+                calls[0] + moved[0], calls[1] + moved[1], calls[2])
     assert torch.equal(spec, ref_spec) and torch.equal(chroma, ref_chroma)
     for mine, ref in ((spec, zaftpu.cqtspectrogram(x32, 8000, 25, zk)),
                       (chroma, zaftpu.cqtchromagram(x32, 8000, 25, 12, zk))):

@@ -2,11 +2,12 @@
 (batched, ragged, general-hop and misaligned inputs), launch counts, the
 stft/istft, mdct/imdct, spectrogram/mel/MFCC and CQT paths against the CPU
 float64 path, the real-FFT analysis kernel, the inverse real-FFT synthesis
-kernel and the shape rule that picks them, the mirror, full-spectrum and
-two-output levers, the split4 twins (B9's and B10's included) and the
-split4 dial, the CQT's scheme, the mel kernels past the old shared-memory
-limit, the device and dtype rules (float64 arrays, lists and bfloat16
-signals), and the inputs the CUDA path refuses.
+kernel and the shape rule that picks them, the spectral CQT kernel and
+its rule, the mirror, full-spectrum and two-output levers, the split4
+twins (B9's and B10's included) and the split4 dial, the CQT's scheme,
+the mel kernels past the old shared-memory limit, the device and dtype
+rules (float64 arrays, lists and bfloat16 signals), and the inputs the
+CUDA path refuses.
 
 Every test needs an NVIDIA GPU (marker ``cuda``) and skips without one.
 This file imports neither JAX nor zaftpu, so on a machine without JAX it
@@ -21,9 +22,10 @@ import zaftpu_torch
 from zaftpu_torch.core import policy
 from zaftpu_torch.core.windows import hamming, kbd, vorbis
 from zaftpu_torch.core import fft as tfft
-from zaftpu_torch.kernels import (_build, cqtslab, framing, fused, irfft,
-                                  melfused, mirror, ola, rfft, synth)
+from zaftpu_torch.kernels import (_build, cqtfft, cqtslab, framing, fused,
+                                  irfft, melfused, mirror, ola, rfft, synth)
 from zaftpu_torch.kernels import mdct as kmdct
+from zaftpu_torch.transforms import cqt as tcqt
 from zaftpu_torch.transforms import mdct as tmdct
 from zaftpu_torch.transforms.stft import centre_padded
 
@@ -422,41 +424,49 @@ def test_cqt_magnitudes_on_a_misaligned_signal(dev, cqt_cache):
                                                  f)) < 2e-5
 
 
+@pytest.mark.parametrize("matmul", [False, True])
 @pytest.mark.parametrize("env,split4", [
     ({}, True), ({"ZAFTPU_PRECISION": "highest"}, False),
     ({"ZAFTPU_CQT_SCHEME": "exact"}, False),
     ({"ZAFTPU_PRECISION": "split4", "ZAFTPU_CQT_SCHEME": "exact"}, True),
     ({"ZAFTPU_PRECISION": "highest", "ZAFTPU_CQT_SCHEME": "split4"}, True)])
-def test_cqt_on_card_matches_cpu_f64(dev, cqt_cache, env, split4,
+def test_cqt_on_card_matches_cpu_f64(dev, cqt_cache, env, split4, matmul,
                                      monkeypatch):
-    """The CQT's scheme on the card: the split4 twin by default (within
-    1e-4 of max of the CPU float64 path), the exact kernel under a pinned
-    dial or ZAFTPU_CQT_SCHEME=exact (1e-5); no plain version runs."""
+    """The CQT on the card at CqtConfig() (L 32,768): the spectral kernel
+    under every scheme and dial (within 1e-5 of max of the CPU float64
+    path); under ZAFTPU_FFT=matmul the scheme's time-domain kernel, the
+    split4 twin by default (1e-4) and the exact one under a pinned dial or
+    ZAFTPU_CQT_SCHEME=exact (1e-5); no plain version runs."""
     monkeypatch.delenv("ZAFTPU_PRECISION", raising=False)
     monkeypatch.delenv("ZAFTPU_CQT_SCHEME", raising=False)
+    monkeypatch.delenv("ZAFTPU_FFT", raising=False)
     cfg = zaftpu_torch.CqtConfig()
     x = np.random.default_rng(6).standard_normal((2, 3 * 44100))
     ref = zaftpu_torch.cqtspectrogram(torch.from_numpy(x), config=cfg)
     ref_chroma = zaftpu_torch.cqtchromagram(torch.from_numpy(x), config=cfg)
     for name, value in env.items():
         monkeypatch.setenv(name, value)
+    if matmul:
+        monkeypatch.setenv("ZAFTPU_FFT", "matmul")
     x32 = torch.from_numpy(x.astype(np.float32)).to(dev)
 
     def counts():
-        return (cqtslab.cqt_magnitudes.launches,
+        return (cqtfft.cqt_magnitudes_fft.launches,
+                cqtslab.cqt_magnitudes.launches,
                 cqtslab.cqt_magnitudes_split4.launches,
+                cqtfft.cqt_magnitudes_fft_plain.calls,
                 cqtslab.cqt_magnitudes_plain.calls,
                 cqtslab.cqt_magnitudes_split4_plain.calls)
 
     before = counts()
     spec = zaftpu_torch.cqtspectrogram(x32, config=cfg)
     chroma = zaftpu_torch.cqtchromagram(x32, config=cfg)
-    moved = (0, 2) if split4 else (2, 0)
-    assert counts() == (before[0] + moved[0], before[1] + moved[1],
-                        before[2], before[3])
+    ran = 0 if not matmul else 2 if split4 else 1
+    assert counts() == tuple(b + 2 * (i == ran)
+                             for i, b in enumerate(before))
     assert spec.is_cuda and spec.dtype == torch.float32
     assert spec.shape == ref.shape and chroma.shape == ref_chroma.shape
-    tol = 1e-4 if split4 else 1e-5
+    tol = 1e-4 if ran == 2 else 1e-5
     assert _rel_err(spec.cpu().double(), ref) < tol
     assert _rel_err(chroma.cpu().double(), ref_chroma) < tol
 
@@ -468,6 +478,136 @@ def test_cuda_f64_cqt_raises(dev, cqt_cache):
         zaftpu_torch.cqtspectrogram(x, 8000, 25, kern)
     with pytest.raises(NotImplementedError, match="float32"):
         zaftpu_torch.cqtchromagram(x, 8000, 25, 12, kern)
+
+
+# The spectral CQT kernel: B10 and B10-s4 at every power-of-two L up to
+# 32,768.
+
+# (sr, bins per octave, fmin, fmax, T): CqtConfig() (L 32,768, hop 1,764,
+# F 144) at T 1, 2 and 700; L 2,048 (hop 320, F 36), L 4,096 (hop 882, F
+# 60) and L 16,384 (hop 1,764, F 72).
+CQT_FFT_SHAPES = [(44100, 24, 55.0, 3520.0, 1), (44100, 24, 55.0, 3520.0, 2),
+                  (44100, 24, 55.0, 3520.0, 700),
+                  (8000, 12, 110.0, 880.0, 301),
+                  (22050, 12, 110.0, 3520.0, 101),
+                  (44100, 12, 55.0, 3520.0, 40)]
+
+
+def _cqt_fft_case(dense, step, t, dev, lead=(), offset=0, seed=0):
+    """A signal of T frames (batch ``lead``, starting ``offset`` floats past
+    an aligned address) and the kernel's device table."""
+    length = dense.shape[1]
+    n = (t - 1) * step + length
+    rows = int(np.prod(lead, dtype=np.int64))
+    flat = torch.from_numpy(np.random.default_rng(seed + t).standard_normal(
+        rows * n + offset).astype(np.float32)).to(dev)
+    sig = flat[offset:].reshape(*lead, n)
+    table = cqtfft.device_table(cqtfft.kernel_table(dense), dev)
+    return sig, table
+
+
+@pytest.mark.parametrize("sr,bins,fmin,fmax,t", CQT_FFT_SHAPES)
+@pytest.mark.parametrize("lead,offset", [((), 0), ((2, 3), 0), ((), 1),
+                                         ((2,), 3)])
+def test_cqt_fft_kernel_matches_plain(dev, cqt_cache, sr, bins, fmin, fmax,
+                                      t, lead, offset):
+    """The spectral kernel bit-equal to its plain version, which does the
+    kernel's float32 operations in its order: batched, misaligned (1 or 3
+    floats past an aligned address, the scalar framing), T = 1, 2 and 700
+    at CqtConfig(), and L 2,048, 4,096 and 16,384; one launch a call; and
+    within 1e-6 of max of the float64 path."""
+    kern = zaftpu_torch.cqtkernel(sr, bins, fmin, fmax)
+    step = round(sr / 25)
+    sig, table = _cqt_fft_case(kern.kernel, step, t, dev, lead, offset)
+    if offset:
+        assert sig.data_ptr() % 8 != 0
+    before = cqtfft.cqt_magnitudes_fft.launches
+    got = cqtfft.cqt_magnitudes_fft(sig, table, step, kern.fft_length, t)
+    assert cqtfft.cqt_magnitudes_fft.launches == before + 1
+    ref = cqtfft.cqt_magnitudes_fft_plain(sig, table, step, kern.fft_length,
+                                          t)
+    assert got.shape == ref.shape == (*lead, t, kern.number_frequencies)
+    assert torch.equal(got, ref), _rel_err(got, ref)
+    k_red, cols, mask = tcqt._device_oracle_kernel(kern, torch.device("cpu"))
+    oracle = tcqt._cqt_apply(sig.cpu().double(), k_red, cols, mask, step,
+                             kern.fft_length, t, 1024)
+    assert _rel_err(got.cpu().double(), oracle) < 1e-6
+
+
+@pytest.mark.parametrize("kind", ["dense", "high"])
+def test_cqt_fft_kernel_on_foreign_kernels(dev, cqt_cache, kind):
+    """A dense foreign kernel over every column of L 512 (40% zeros) and
+    the L 2,048 kernel with its even rows' bands moved above L/2: the
+    conjugate reads, bit-equal to the plain version, batched."""
+    rng = np.random.default_rng(5)
+    if kind == "dense":
+        dense = (rng.standard_normal((10, 512))
+                 + 1j * rng.standard_normal((10, 512))) / 512
+        dense[rng.random(dense.shape) < 0.4] = 0
+    else:
+        dense = zaftpu_torch.cqtkernel(8000, 12, 110.0, 880.0).kernel.copy()
+        dense[::2] = np.roll(dense[::2, ::-1], 1, axis=1)
+    step, t = 320, 57
+    sig, table = _cqt_fft_case(dense, step, t, dev, (3,), 1)
+    assert bool(cqtfft.kernel_table(dense).conj.any())
+    got = cqtfft.cqt_magnitudes_fft(sig, table, step, dense.shape[1], t)
+    ref = cqtfft.cqt_magnitudes_fft_plain(sig, table, step, dense.shape[1],
+                                          t)
+    assert got.shape == (3, t, dense.shape[0])
+    assert torch.equal(got, ref), _rel_err(got, ref)
+
+
+def test_cqt_fft_entry_takes_exactly_what_fits_takes(dev):
+    """The CUDA entry takes exactly the FFT lengths cqtfft.fits takes and
+    refuses every other before any launch: T = 0 returns after the
+    checks."""
+    lib = _build.library()
+    buf = torch.zeros(16, device=dev)
+    p = buf.data_ptr()
+    for n in range(1, 70000):
+        err = lib.zt_cqt_magnitudes_fft(p, p, p, p, p, p, p, 1, 70000, 0, n,
+                                        1, 1, 0)
+        assert (err == 0) is cqtfft.fits(n), (n, err)
+
+
+@pytest.mark.parametrize("geometry,rule", [
+    ((44100, 24, 55.0, 3520.0), True),   # CqtConfig(): L 32,768
+    ((8000, 12, 110.0, 880.0), True),    # L 2,048
+    ((8000, 12, 3.0, 12.0), False)])     # L 65,536: past one block
+@pytest.mark.parametrize("env", [{}, {"ZAFTPU_CQT_SCHEME": "exact"},
+                                 {"ZAFTPU_PRECISION": "split4"},
+                                 {"ZAFTPU_FFT": "matmul"},
+                                 {"ZAFTPU_FFT": "matmul",
+                                  "ZAFTPU_CQT_SCHEME": "exact"}])
+def test_cqt_launch_counts_on_card(dev, cqt_cache, geometry, rule, env,
+                                   monkeypatch):
+    """cqtspectrogram and cqtchromagram launch the spectral kernel, once
+    each, at the rule's L under the default scheme, ZAFTPU_CQT_SCHEME=exact
+    and ZAFTPU_PRECISION=split4, and nothing else; at L 65,536 and under
+    ZAFTPU_FFT=matmul B10-s4 (default) or B10 (exact) launch, as before.
+    No plain version runs."""
+    for name in ("ZAFTPU_PRECISION", "ZAFTPU_CQT_SCHEME", "ZAFTPU_FFT"):
+        monkeypatch.delenv(name, raising=False)
+    for name, value in env.items():
+        monkeypatch.setenv(name, value)
+    sr, bins = geometry[:2]
+    kern = zaftpu_torch.cqtkernel(*geometry)
+    x = torch.from_numpy(np.random.default_rng(9).standard_normal(
+        2 * sr).astype(np.float32)).to(dev)
+    kernels = (cqtfft.cqt_magnitudes_fft, cqtslab.cqt_magnitudes,
+               cqtslab.cqt_magnitudes_split4)
+    plains = (cqtfft.cqt_magnitudes_fft_plain, cqtslab.cqt_magnitudes_plain,
+              cqtslab.cqt_magnitudes_split4_plain)
+    before = [k.launches for k in kernels], [p.calls for p in plains]
+    zaftpu_torch.cqtspectrogram(x, sr, 25, kern)
+    zaftpu_torch.cqtchromagram(x, sr, 25, bins, kern)
+    if rule and "ZAFTPU_FFT" not in env:
+        ran = 0
+    else:
+        ran = 1 if "ZAFTPU_CQT_SCHEME" in env else 2
+    assert [k.launches for k in kernels] == [
+        b + 2 * (i == ran) for i, b in enumerate(before[0])]
+    assert [p.calls for p in plains] == before[1]
 
 
 @pytest.mark.parametrize("n", [2048, 512, 256, 255, 100, 2])

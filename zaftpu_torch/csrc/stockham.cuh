@@ -62,6 +62,61 @@ struct Plan {
   int p[kMaxPrimes];
 };
 
+// The R-point DFT of v into y, the butterfly of a radix-R Stockham pass
+// after its twiddle products. Odd R reads cos and sin of 2 pi k / R from c
+// and sn (index 1..R-1); even R ignores them.
+template <int R>
+__device__ __forceinline__ void dft(const float2 (&v)[R],
+                                    const float (&c)[R],
+                                    const float (&sn)[R], float2 (&y)[R]) {
+  if constexpr (R == 4) {
+    const float2 t0 = cadd(v[0], v[2]);
+    const float2 t1 = csub(v[0], v[2]);
+    const float2 t2 = cadd(v[1], v[3]);
+    const float2 d = csub(v[1], v[3]);  // t3 = -i d
+    y[0] = cadd(t0, t2);
+    y[1] = make_float2(__fadd_rn(t1.x, d.y), __fsub_rn(t1.y, d.x));
+    y[2] = csub(t0, t2);
+    y[3] = make_float2(__fsub_rn(t1.x, d.y), __fadd_rn(t1.y, d.x));
+  } else if constexpr (R == 2) {
+    y[0] = cadd(v[0], v[1]);
+    y[1] = csub(v[0], v[1]);
+  } else {
+    // a_p = v_p + v_{R-p}, b_p = v_p - v_{R-p}; y_0 = v_0 + sum a_p; for
+    // t = 1..H: A = v_0 + sum_p a_p cos(2 pi p t / R), B = sum_p b_p
+    // sin(2 pi p t / R), y_t = A - i B, y_{R-t} = A + i B; sums in p
+    // order (kernels/rfft.py: _odd_butterfly).
+    constexpr int H = (R - 1) / 2;
+    float2 a[H + 1], d[H + 1];
+#pragma unroll
+    for (int p = 1; p <= H; ++p) {
+      a[p] = cadd(v[p], v[R - p]);
+      d[p] = csub(v[p], v[R - p]);
+    }
+    y[0] = v[0];
+#pragma unroll
+    for (int p = 1; p <= H; ++p) y[0] = cadd(y[0], a[p]);
+#pragma unroll
+    for (int t = 1; t <= H; ++t) {
+      float2 sa = v[0];
+      float2 sb = make_float2(__fmul_rn(d[1].x, sn[t]),
+                              __fmul_rn(d[1].y, sn[t]));
+#pragma unroll
+      for (int p = 1; p <= H; ++p) {
+        const int kk = p * t % R;
+        sa = make_float2(__fadd_rn(sa.x, __fmul_rn(a[p].x, c[kk])),
+                         __fadd_rn(sa.y, __fmul_rn(a[p].y, c[kk])));
+        if (p > 1) {
+          sb = make_float2(__fadd_rn(sb.x, __fmul_rn(d[p].x, sn[kk])),
+                           __fadd_rn(sb.y, __fmul_rn(d[p].y, sn[kk])));
+        }
+      }
+      y[t] = make_float2(__fadd_rn(sa.x, sb.y), __fsub_rn(sa.y, sb.x));
+      y[R - t] = make_float2(__fsub_rn(sa.x, sb.y), __fadd_rn(sa.y, sb.x));
+    }
+  }
+}
+
 // One radix-R Stockham pass over the fpb rows of the block (M points
 // each): sub-transforms of length ns grow to R ns.
 template <int R>
@@ -94,52 +149,7 @@ __device__ __forceinline__ void stage(const float2* __restrict__ src,
       v[s] = cmul(v[s], __ldg(tw + s * k * stride));
     }
     float2 y[R];
-    if constexpr (R == 4) {
-      const float2 t0 = cadd(v[0], v[2]);
-      const float2 t1 = csub(v[0], v[2]);
-      const float2 t2 = cadd(v[1], v[3]);
-      const float2 d = csub(v[1], v[3]);  // t3 = -i d
-      y[0] = cadd(t0, t2);
-      y[1] = make_float2(__fadd_rn(t1.x, d.y), __fsub_rn(t1.y, d.x));
-      y[2] = csub(t0, t2);
-      y[3] = make_float2(__fsub_rn(t1.x, d.y), __fadd_rn(t1.y, d.x));
-    } else if constexpr (R == 2) {
-      y[0] = cadd(v[0], v[1]);
-      y[1] = csub(v[0], v[1]);
-    } else {
-      // a_p = v_p + v_{R-p}, b_p = v_p - v_{R-p}; y_0 = v_0 + sum a_p; for
-      // t = 1..H: A = v_0 + sum_p a_p cos(2 pi p t / R), B = sum_p b_p
-      // sin(2 pi p t / R), y_t = A - i B, y_{R-t} = A + i B; sums in p
-      // order (kernels/rfft.py: _odd_butterfly).
-      constexpr int H = (R - 1) / 2;
-      float2 a[H + 1], d[H + 1];
-#pragma unroll
-      for (int p = 1; p <= H; ++p) {
-        a[p] = cadd(v[p], v[R - p]);
-        d[p] = csub(v[p], v[R - p]);
-      }
-      y[0] = v[0];
-#pragma unroll
-      for (int p = 1; p <= H; ++p) y[0] = cadd(y[0], a[p]);
-#pragma unroll
-      for (int t = 1; t <= H; ++t) {
-        float2 sa = v[0];
-        float2 sb = make_float2(__fmul_rn(d[1].x, sn[t]),
-                                __fmul_rn(d[1].y, sn[t]));
-#pragma unroll
-        for (int p = 1; p <= H; ++p) {
-          const int kk = p * t % R;
-          sa = make_float2(__fadd_rn(sa.x, __fmul_rn(a[p].x, c[kk])),
-                           __fadd_rn(sa.y, __fmul_rn(a[p].y, c[kk])));
-          if (p > 1) {
-            sb = make_float2(__fadd_rn(sb.x, __fmul_rn(d[p].x, sn[kk])),
-                             __fadd_rn(sb.y, __fmul_rn(d[p].y, sn[kk])));
-          }
-        }
-        y[t] = make_float2(__fadd_rn(sa.x, sb.y), __fsub_rn(sa.y, sb.x));
-        y[R - t] = make_float2(__fsub_rn(sa.x, sb.y), __fadd_rn(sa.y, sb.x));
-      }
-    }
+    dft<R>(v, c, sn, y);
     float2* out = dst + f * m + (j - k) * R + k;
 #pragma unroll
     for (int s = 0; s < R; ++s) out[s * ns] = y[s];

@@ -32,7 +32,8 @@ Seven levers choose the kernels, with ``zaftpu``'s names and meaning:
   instead of PyTorch index ops; off by default;
 * ``ZAFTPU_FFT=matmul``: the DFT and its inverse as GEMMs at every
   window, which turns the shape rule below off (``auto``, the default,
-  and ``native`` follow it); ``zaftpu``'s FFT-engine lever.
+  and ``native`` follow it), and the CQT's time-domain kernels at every
+  FFT length; ``zaftpu``'s FFT-engine lever.
 
 The first two default to the fused kernels, ``ZAFTPU_MELFUSE``,
 ``ZAFTPU_FULLSPEC`` and ``ZAFTPU_FFT`` to the shape rule, the other two to
@@ -66,7 +67,11 @@ twins, serve both dials wherever the shape rule holds.
 Under split4 the magnitude and mel front ends take the half spectrum of
 the analysis kernel unless ``ZAFTPU_MELFUSE=1`` forces their kernels (the
 exact ``spec_rows``, the mel kernel's twin), as in ``zaftpu``. ``high`` and
-``default`` are refused on CUDA. The CQT has its own scheme,
+``default`` are refused on CUDA. A float32 CQT whose FFT length is a
+power of two up to 32,768 runs the spectral CQT kernel
+(:mod:`zaftpu_torch.kernels.cqtfft`: each frame's real FFT and the
+kernel's nonzeros) on every scheme and dial (``cqtfft.applies``); at any
+other length or under ``ZAFTPU_FFT=matmul`` the CQT has its own scheme,
 ``ZAFTPU_CQT_SCHEME`` (:mod:`zaftpu_torch.transforms.cqt`): a CUDA float32
 CQT runs ``cqtslab.cqt_magnitudes_split4`` by default and the exact
 ``cqtslab.cqt_magnitudes`` under a pinned dial or ``exact``, as

@@ -24,6 +24,10 @@ operator presplit on the host (:func:`time_ops_split4`). Its plain version
 is the slab loop with each slab product a
 :func:`zaftpu_torch.core.policy.split4_matmul_presplit`; the kernel runs
 the tensor cores over the same chunks as the exact one.
+
+Both run where the spectral kernel (:mod:`zaftpu_torch.kernels.cqtfft`)
+does not: an FFT length above 32,768 or not a power of two, and under
+``ZAFTPU_FFT=matmul``.
 """
 
 from __future__ import annotations

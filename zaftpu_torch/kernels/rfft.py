@@ -192,10 +192,20 @@ def _fft_planes(padded: torch.Tensor, window: torch.Tensor,
                 number_times: int) -> tuple:
     """Re and im planes ``(..., T, N/2+1)`` of the windowed frames' rFFT,
     in the kernel's arithmetic and order, in ``padded``'s dtype."""
-    n, m = window_length, window_length // 2
-    frames = (extract_frames(padded, n, step, number_times)
+    frames = (extract_frames(padded, window_length, step, number_times)
               * window.to(padded.dtype))
-    tw = twiddles(n, padded.dtype, padded.device)
+    return frames_fft_planes(frames, window_length)
+
+
+def frames_fft_planes(frames: torch.Tensor, n: int,
+                      tw: torch.Tensor | None = None) -> tuple:
+    """Re and im planes ``(..., N/2+1)`` of the rFFT of real rows ``(...,
+    N)`` in the kernel's arithmetic and order: the even/odd packing, the
+    Stockham passes of :func:`radices` with the twiddle table of ``N`` (or
+    ``tw``, another ``(N, 2)`` table of ``W_N^j``), the split step."""
+    m = n // 2
+    if tw is None:
+        tw = twiddles(n, frames.dtype, frames.device)
     tw_re, tw_im = tw[:, 0], tw[:, 1]
     re, im = frames[..., 0::2], frames[..., 1::2]
     ns = 1
@@ -203,7 +213,7 @@ def _fft_planes(padded: torch.Tensor, window: torch.Tensor,
         re, im = _stage(re, im, tw_re, tw_im, n, ns, r)
         ns *= r
     # The split step: X[k] = E + W^k O over k = 0..N/2, Z[N/2] read as Z[0].
-    k = torch.arange(m + 1, device=padded.device)
+    k = torch.arange(m + 1, device=frames.device)
     ia, ib = k % m, (m - k) % m
     ar, ai, br, bi = re[..., ia], im[..., ia], re[..., ib], im[..., ib]
     er, ei = (ar + br) * 0.5, (ai - bi) * 0.5

@@ -15,14 +15,23 @@ Application follows the input's dtype, as ``zaftpu``'s does:
   (default 1024), one batched ``rfft`` per block, a gather of the kernel's
   non-zero columns (conjugated where they are negative frequencies, by
   Hermitian symmetry), a complex GEMM and ``abs``;
-* float32: the frame FFT folded into the operator, ``K @ FFT(x) ==
-  FFT(K rows) @ x``, so the CQT is one ``(T, L) x (L, F)`` complex product
-  per signal: on the card a hand-written kernel, on the CPU the exact plain
-  slab loop of :func:`zaftpu_torch.kernels.cqtslab.cqt_magnitudes`. A CUDA
-  float64 signal raises ``NotImplementedError``.
+* float32, at an ``fft_length`` that is a power of two up to 32,768
+  (:func:`zaftpu_torch.kernels.cqtfft.applies`; ``cqtkernel`` always
+  builds a power of two, and 32,768 reaches down to 55 Hz at 44.1 kHz and
+  24 bins per octave, not to 27.5 Hz), the same spectral form:
+  each frame's real FFT and the kernel's nonzeros from a host table
+  (:func:`zaftpu_torch.kernels.cqtfft.cqt_magnitudes_fft`), on the card a
+  hand-written kernel, on the CPU its plain version, under every scheme
+  and dial;
+* float32 at any other ``fft_length`` or under ``ZAFTPU_FFT=matmul``: the
+  frame FFT folded into the operator, ``K @ FFT(x) == FFT(K rows) @ x``, so
+  the CQT is one ``(T, L) x (L, F)`` complex product per signal: on the
+  card a hand-written kernel, on the CPU the exact plain slab loop of
+  :func:`zaftpu_torch.kernels.cqtslab.cqt_magnitudes`. A CUDA float64
+  signal raises ``NotImplementedError``.
 
-On the card the CQT has its own scheme, ``zaftpu``'s ``ZAFTPU_CQT_SCHEME``
-(:func:`_slab_scheme_split4`): the split4 twin
+The time-domain kernels have their own scheme on the card, ``zaftpu``'s
+``ZAFTPU_CQT_SCHEME`` (:func:`_slab_scheme_split4`): the split4 twin
 (:func:`zaftpu_torch.kernels.cqtslab.cqt_magnitudes_split4`) by default,
 the exact kernel when ``ZAFTPU_PRECISION`` is pinned to anything but
 ``split4`` or ``ZAFTPU_CQT_SCHEME=exact``. On the CPU the CQT stays exact
@@ -46,6 +55,7 @@ import torch
 from zaftpu_torch.core import validate as _validate
 from zaftpu_torch.core import windows as _windows
 from zaftpu_torch.core.policy import check_cuda_dial, split4_enabled
+from zaftpu_torch.kernels import cqtfft as _cqtfft
 from zaftpu_torch.kernels import cqtslab as _cqtslab
 from zaftpu_torch.transforms.stft import _as_input
 from zaftpu_torch.utils.cache import cached_operator
@@ -232,7 +242,8 @@ def _block_frames() -> int:
 # its kernel so the id stays its own. FIFO-bounded. A float32 entry is the
 # (2, L, F_pad) time-domain stack, a bfloat16 one its (2, 2, L, F_pad)
 # presplit, a float64 one the reduced spectral kernel with its gather
-# columns and conjugation mask.
+# columns and conjugation mask, and the "cqt_fft" one the spectral
+# kernel's table (kernels/cqtfft.DeviceTable).
 _device_kernels: dict = {}
 _DEVICE_KERNEL_LIMIT = 16
 
@@ -261,6 +272,14 @@ def _device_time_kernel(kern: CqtKernel, device: torch.device,
         kern, device, torch.float32,
         lambda: torch.from_numpy(_cqtslab.time_ops(kern.time_kernel)).to(
             device))
+
+
+def _device_fft_table(kern: CqtKernel, device: torch.device):
+    """The spectral kernel's :class:`zaftpu_torch.kernels.cqtfft.DeviceTable`
+    on ``device``, built once on the host."""
+    return _device_entry(
+        kern, device, "cqt_fft",
+        lambda: _cqtfft.device_table(_cqtfft.kernel_table(kern), device))
 
 
 def _device_oracle_kernel(kern: CqtKernel, device: torch.device):
@@ -371,10 +390,11 @@ def _cqt_dispatch(x: torch.Tensor, kern: CqtKernel, step: int,
     """The asymmetric centring pad (zaf.py:613-620) plus the slab loop's
     tail (``zaftpu``'s ``_blocked_needed``), then the float32 or float64
     core; ``(..., F, T)`` as a transposed view, octave-folded when
-    ``octave_resolution`` is set. A CUDA float32 signal takes the split4
-    twin when the scheme selects it (``zaftpu``'s ``_use_slab_kernel`` on
-    its accelerator); a CPU signal keeps the exact slab loop, as
-    ``zaftpu``'s CPU backend does."""
+    ``octave_resolution`` is set. A float32 signal takes the spectral
+    kernel wherever its rule applies, on every scheme; elsewhere a CUDA one
+    takes the split4 twin when the scheme selects it (``zaftpu``'s
+    ``_use_slab_kernel`` on its accelerator), and a CPU one the exact slab
+    loop, as ``zaftpu``'s CPU backend does."""
     length = kern.fft_length
     pad_front = int(np.ceil((length - step) / 2))
     pad_back = int(np.floor((length - step) / 2))
@@ -382,7 +402,11 @@ def _cqt_dispatch(x: torch.Tensor, kern: CqtKernel, step: int,
     have = x.shape[-1] + pad_front + pad_back
     padded = torch.nn.functional.pad(
         x, (pad_front, pad_back + max(0, needed - have)))
-    if x.dtype == torch.float32:
+    if x.dtype == torch.float32 and _cqtfft.applies(length):
+        mags = _cqtfft.cqt_magnitudes_fft(
+            padded, _device_fft_table(kern, x.device), step, length,
+            number_times)
+    elif x.dtype == torch.float32:
         split4 = x.is_cuda and _slab_scheme_split4()
         core = (_cqtslab.cqt_magnitudes_split4 if split4
                 else _cqtslab.cqt_magnitudes)
@@ -407,7 +431,8 @@ def cqtspectrogram(audio_signal, sampling_frequency=None,
     ``T = floor(N/step)``, an asymmetric centring pad, per-frame
     ``|K . fft(frame)|``. ``config=CqtConfig(...)`` may stand in for the
     three positional parameters. The output is a transposed view of a
-    frames-major tensor. A CUDA float32 signal runs the CQT kernel of
+    frames-major tensor. A CUDA float32 signal runs the spectral CQT
+    kernel at an FFT length up to 32,768, else the time-domain kernel of
     ``ZAFTPU_CQT_SCHEME``: the split4 twin by default.
     """
     sampling_frequency, time_resolution, cqt_kernel = _resolve_cqt_args(
