@@ -10,7 +10,7 @@ non-zero exit and no result line:
 
 1. device: the card's name and power limit (as nvidia-smi gives them),
    torch and CUDA versions; TF32 off for matmuls and cuDNN;
-2. build: the twenty-eight kernels from zaftpu_torch/csrc (one nvcc per
+2. build: the thirty kernels from zaftpu_torch/csrc (one nvcc per
    source, all started together), with the seconds taken;
 3. kernels: each kernel against its plain PyTorch version on the card at
    its main-path shape (WL 2048, hop 1024, a 600-s segment: T = 25,841;
@@ -61,6 +61,18 @@ non-zero exit and no result line:
    the complex product + abs (four calls); B10 and B10-s4 at CqtConfig()
    (timed, the same-shape A/B), at CQT_RAGGED's and at their main-path
    shape, CQT_WIDE (27.5 Hz: L 65,536, F 168, hop 1,764, T 15,000), timed.
+   The real-FFT kernel's magnitude and mel stores (B8, B9 and B9-s4's
+   function at every window of the FFT rule) bit-equal to their plain
+   versions at the main-path shape (40 mels, magnitude and power),
+   Whisper's (WL 400, hop 160, T 60,001, 80 mels), the 25-ms window's
+   (T 48,023, 40 mels), MEL_RAGGED's (3 rows, offset 1), with 800 mels at
+   WL 2048 and on a dense foreign filterbank (WL 512, 48 mels, 2 rows,
+   offset 1); B8, B9 and B9-s4 at the main-path and Whisper shapes too;
+   at the main-path, Whisper and 25-ms shapes each store is timed beside
+   its plain version, the parent's split path (the half store, |.| and,
+   for the mel store, exact_matmul with the filterbank transpose) and the
+   yardstick torch.stft(center=False)[..., 1:, :].abs() (times the
+   filterbank transpose for the mel store), B8, B9 and B9-s4 likewise.
    Framing, OLA, mirror, fold and the FFT's full store must be bit-equal,
    the FFT's other stores within 1e-6 * max|ref| (they do their plain
    versions' operations in their order), the GEMM kernels within 2e-5 *
@@ -99,11 +111,13 @@ non-zero exit and no result line:
 7. mel main path at MelConfig() (44.1 kHz, Hamming 2048 / hop 1024, 40
    mels, 20 coefficients): spectrogram, melspectrogram and mfcc of the
    600-s signal against float64 torch.fft oracles (<= 1e-5 * max|oracle|;
-   MFCC atol 5e-3), under the default dispatch (at WL 2048 the real-FFT
-   analysis kernel's half spectrum, by the shape rule) and ZAFTPU_MELFUSE=1
-   (spec_rows and mel_rows, not the STFT's analysis kernel); then the
-   three at Whisper's front-end geometry (16 kHz, Hann 400 / hop 160, 80
-   mels: the FFT kernel's mixed-radix half spectrum);
+   MFCC atol 5e-3), under the default dispatch and ZAFTPU_MELFUSE=1 (at
+   WL 2048 the real-FFT kernel's magnitude and mel stores, by the shape
+   rule), ZAFTPU_MELFUSE=0 (its half store, |.| and the filterbank
+   product) and ZAFTPU_FFT=matmul ZAFTPU_MELFUSE=1 (spec_rows and
+   mel_rows); then the three at Whisper's front-end geometry (16 kHz,
+   Hann 400 / hop 160, 80 mels: the stores through the mixed-radix
+   passes);
 8. CQT main path at CqtConfig() (44.1 kHz, 24 bins per octave, 55-3,520
    Hz, 25 frames/s): cqtspectrogram and cqtchromagram of the 600-s signal
    against a float64 oracle on the card (per-frame FFT times the kernel's
@@ -125,8 +139,8 @@ non-zero exit and no result line:
    stft -> istft at WL 2,062 (B1's and B4's twins, B12's under
    ZAFTPU_FUSED2=1) and at WL 2048 under ZAFTPU_FFT=matmul (B1's and B4's
    twins) within 1e-4 * max, round trips in [100, 125) dB; then the mel
-   phase
-   under split4 (the FFT's half spectrum) and with ZAFTPU_MELFUSE=1:
+   phase under split4 and with ZAFTPU_MELFUSE=1 (the FFT kernel's stores,
+   the exact gates) and with ZAFTPU_FFT=matmul ZAFTPU_MELFUSE=1:
    melspectrogram and mfcc through the mel kernel's twin (within 1e-4 *
    max; MFCC atol 5e-3), spectrogram through the exact spec_rows (1e-5 *
    max);
@@ -140,13 +154,17 @@ non-zero exit and no result line:
    ZAFTPU_FULLSPEC=1 at WL 2,062 (B3-s4, synth_split4): each spectrum and
    round trip bit-equal to those of the same dial and window without the
    lever, and the exact gates (split4's at WL 1,102); then the peak device
-   memory of one 600-s stft under ZAFTPU_FULLSPEC=0 and unset, and of one
-   600-s cqtspectrogram on the spectral kernel and under ZAFTPU_FFT=matmul;
+   memory of one 600-s stft under ZAFTPU_FULLSPEC=0 and unset, of one
+   600-s melspectrogram on the mel store and under ZAFTPU_MELFUSE=0, and
+   of one 600-s cqtspectrogram on the spectral kernel and under
+   ZAFTPU_FFT=matmul;
 11. one hour: six 600-s segments through stft, then istft (also at the
    40-ms and 25-ms windows on the default dispatch); mdct, then
    imdct; spectrogram; melspectrogram; mfcc, under the default, the split
    and the split4 dispatch, and the three mel front ends under
-   ZAFTPU_MELFUSE=1 and under split4 with ZAFTPU_MELFUSE=1;
+   ZAFTPU_MELFUSE=0, under ZAFTPU_FFT=matmul ZAFTPU_MELFUSE=1 (B8 and B9)
+   and its split4 twin (B9-s4), and at Whisper's front end (six 600-s
+   segments at 16 kHz) under the default and ZAFTPU_MELFUSE=0;
    cqtspectrogram and cqtchromagram (90,000 frames) under the default
    and the exact CQT scheme (the spectral kernel) and under
    ZAFTPU_FFT=matmul (B10-s4); frames/s from CUDA events (printed, not
@@ -179,7 +197,8 @@ from zaftpu_torch.core.frame import stft_padding
 from zaftpu_torch.core.windows import hamming, vorbis
 from zaftpu_torch.features.mel import dct_ii_ortho_matrix, melfilterbank
 from zaftpu_torch.kernels import (_build, cqtfft, cqtslab, framing, fused,
-                                  irfft, melfused, mirror, ola, rfft, synth)
+                                  irfft, melfft, melfused, mirror, ola, rfft,
+                                  synth)
 from zaftpu_torch.kernels import mdct as kmdct
 from zaftpu_torch.transforms import cqt as tcqt
 from zaftpu_torch.transforms import mdct as tmdct
@@ -200,6 +219,9 @@ MDCT_FFT_RAGGED = ((1764, 1001, 3, 1), (1100, 1001, 2, 3), (2060, 301, 2, 1))
 MDCT_GEMM_WL = 1102
 MEL_RAGGED = (512, 128, 1001, 20)  # spec_rows / mel_rows: WL, hop, T, mels
 MEL_WIDE = (WL, STEP, 1001, 800)  # past the old shared-memory limit (745)
+# The FFT kernel's mel store on a dense foreign filterbank: WL, hop, T,
+# mels, batch rows, sample offset.
+MEL_FOREIGN = (512, 128, 1001, 48, 2, 1)
 # The FFT kernel: WL, hop (not dividing WL), T, batch rows, sample offset;
 # a power-of-two window, a mixed-radix one (25 ms / 10 ms at 16 kHz) and
 # three through the odd-prime passes (2032: 4, 2, 127; 2822: 17, 83; 2662:
@@ -339,6 +361,11 @@ KERNELS = {
                  kmdct.mdct_fft_plain),
     "imdct_ola_fft": (kmdct.CUDA_SOURCE, kmdct.REPLACES_IMDCT,
                       kmdct.imdct_ola_fft, kmdct.imdct_ola_fft_plain),
+    "spec_rows_fft": (melfft.CUDA_SOURCE, melfft.REPLACES_SPEC,
+                      melfft.spec_rows_fft, melfft.spec_rows_fft_plain),
+    "mel_rows_fft": (melfft.CUDA_SOURCE,
+                     f"{melfft.REPLACES_MEL} and {melfft.REPLACES_MEL_SPLIT4}",
+                     melfft.mel_rows_fft, melfft.mel_rows_fft_plain),
 }
 # Kernels that store B1's (or its twin's) sums elsewhere: name -> (B1 or
 # its twin, the store's function of that output).
@@ -650,20 +677,67 @@ def _kernel_cases(dev, main_t: int):
         yield ("imdct_ola_fft", "ragged", shape,
                (flat[offset:].view(rows, t, f), f, vorbis(wl).tobytes()),
                EXACT_TOL)
-    for label, (wl, step, t, mels) in (
-            ("main", (WL, STEP, main_t, MelConfig().number_mels)),
-            ("ragged", MEL_RAGGED), ("wide", MEL_WIDE)):
-        padded, win = _signal_and_window(wl, step, t, hamming, dev)
+    # B8, B9 and B9-s4 (their operator built by the wrapper: they take no
+    # rule) and the FFT kernel's magnitude and mel stores, bit-equal to
+    # their plain versions, at the 600-s WL 2048 and Whisper shapes, all
+    # timed in the same call; the stores also at the 25-ms window (timed),
+    # all five at MEL_RAGGED's shape (the stores batched and misaligned:
+    # 3 rows, offset 1) and the mel kernels past the old shared-memory
+    # limit (800 mels).
+    whisper_t = stft_padding(SEGMENT_SECONDS * WHISPER.sampling_frequency,
+                             400, 160)[2]  # 60,001
+    for label, (wl, step, t, mels), sr, window, rows in (
+            ("main", (WL, STEP, main_t, MelConfig().number_mels), SR,
+             hamming, 1),
+            ("whisper", (400, 160, whisper_t, WHISPER.number_mels),
+             WHISPER.sampling_frequency, lambda n: WHISPER.window_array(),
+             1),
+            ("25 ms", (*_segment_shape(PRIME_WL), 40), SR, hamming, 1),
+            ("ragged", MEL_RAGGED, SR, hamming, 3),
+            ("wide", MEL_WIDE, SR, hamming, 1)):
+        shape = f"WL {wl} hop {step} T {t}"
+        fbank = melfilterbank(sr, wl, mels)
+        if label != "25 ms":
+            padded, win = _signal_and_window(wl, step, t, window, dev)
+            if label != "wide":
+                yield ("spec_rows", label, shape, (padded, win, wl, step, t),
+                       GEMM_TOL)
+            fbank_t = torch.from_numpy(np.ascontiguousarray(
+                fbank.T.astype(np.float32))).to(dev)
+            for name in ("mel_rows", "mel_rows_split4"):
+                for power in (False, True):
+                    yield (name, label, f"{shape} mels {mels} power {power}",
+                           (padded, win, fbank_t, wl, step, t, power),
+                           GEMM_TOL)
+            del padded, fbank_t
+        offset = 1 if rows > 1 else 0
+        sig = np.resize(segment(1), rows * ((t - 1) * step + wl) + offset)
+        padded = torch.from_numpy(sig.astype(np.float32)).to(dev)[
+            offset:].reshape(rows, -1).squeeze(0)
+        win = torch.from_numpy(window(wl).astype(np.float32)).to(dev)
+        shape = f"{rows} rows {shape} offset {offset}"
         if label != "wide":
-            yield ("spec_rows", label, f"WL {wl} hop {step} T {t}",
-                   (padded, win, wl, step, t), GEMM_TOL)
-        fbank_t = torch.from_numpy(np.ascontiguousarray(
-            melfilterbank(SR, wl, mels).T.astype(np.float32))).to(dev)
-        for name in ("mel_rows", "mel_rows_split4"):
-            for power in (False, True):
-                yield (name, label,
-                       f"WL {wl} hop {step} T {t} mels {mels} power {power}",
-                       (padded, win, fbank_t, wl, step, t, power), GEMM_TOL)
+            yield ("spec_rows_fft", label, shape, (padded, win, wl, step, t),
+                   EXACT_TOL)
+        table = melfft.device_table(melfft.filterbank_table(fbank), dev)
+        for power in (False, True):
+            yield ("mel_rows_fft", label, f"{shape} mels {mels} power {power}",
+                   (padded, win, table, wl, step, t, power), EXACT_TOL)
+        del padded
+    wl, step, t, mels, rows, offset = MEL_FOREIGN
+    rng = np.random.default_rng(SEED)
+    dense = rng.standard_normal((mels, wl // 2))
+    sig = np.resize(segment(1), rows * ((t - 1) * step + wl) + offset)
+    padded = torch.from_numpy(sig.astype(np.float32)).to(dev)[
+        offset:].reshape(rows, -1)
+    win = torch.from_numpy(hamming(wl).astype(np.float32)).to(dev)
+    table = melfft.device_table(melfft.filterbank_table(dense), dev)
+    for power in (False, True):
+        yield ("mel_rows_fft", "ragged",
+               f"dense foreign {rows} rows WL {wl} hop {step} T {t} mels "
+               f"{mels} offset {offset} power {power}",
+               (padded, win, table, wl, step, t, power), EXACT_TOL)
+    del padded
     main_cqt_t = SEGMENT_SECONDS * SR // _cqt_step(CqtConfig())  # 15,000
     # The spectral kernel (B10 and B10-s4 at every power-of-two L up to
     # 32,768), bit-equal to its plain version: CqtConfig()'s main-path
@@ -809,6 +883,25 @@ def _work(name: str, args: tuple) -> tuple[float, float, float]:
         return (0, b * t * ops,
                 4 * sig.numel() + length + 4 * (f + 1) + 20 * nnz
                 + 4 * b * t * f)
+    if base in ("spec_rows_fft", "mel_rows_fft"):
+        # The real FFT's magnitude or mel store: the window, its plan's
+        # passes, the split step (16 a bin) and the magnitude (3 a bin) over
+        # bins 1..WL/2, and for the mel store 2 a filterbank nonzero; the
+        # signal, the window and the twiddle table read once (and the CSR
+        # table: a row pointer, a column and a weight a nonzero), the
+        # magnitudes or mel rows written once.
+        padded = args[0]
+        if base == "spec_rows_fft":
+            wl, t = args[2], args[4]
+            adds, table_bytes, cols = 0, 0, wl // 2
+        else:
+            table, wl, t = args[2], args[3], args[5]
+            nnz = table.cols.numel()
+            adds, cols = 2 * nnz, table.number_mels
+            table_bytes = 4 * (cols + 1) + 8 * nnz
+        b = _rows(padded)
+        return (0, b * t * (wl + _fft_ops(wl) + 19 * (wl // 2) + adds),
+                4 * (padded.numel() + 3 * wl) + table_bytes + 4 * b * t * cols)
     if base in FFT_STORES:
         # The real FFT: the window, its plan's passes and the split step
         # (16 a bin); the signal and the window read once, the twiddle
@@ -880,7 +973,51 @@ def library_call(name: str, args: tuple):
             stride=(1, step))
     if base == "cqt_fft":
         return cqt_fft_library(*args[:4])
+    if base in ("spec_rows", "spec_rows_fft"):
+        padded, win, wl, step, _ = args[:5]
+        return lambda: torch.stft(padded, wl, step, window=win, center=False,
+                                  return_complex=True)[..., 1:, :].abs()
+    if base in ("mel_rows", "mel_rows_fft"):
+        padded, win, fb, wl, step, _, power = args
+        fbank_t = fb if base == "mel_rows" else _fbank_t(fb)
+
+        def mel():
+            mag = torch.stft(padded, wl, step, window=win, center=False,
+                             return_complex=True)[..., 1:, :].abs()
+            mag = mag.transpose(-1, -2)
+            return (mag * mag if power else mag) @ fbank_t
+        return mel
     return None
+
+
+def _fbank_t(table) -> torch.Tensor:
+    """The ``(WL/2, n_mels)`` float32 filterbank transpose of a device
+    table."""
+    dense = torch.zeros((table.number_mels, table.number_bins),
+                        device=table.weights.device)
+    rows = torch.repeat_interleave(
+        torch.arange(table.number_mels, device=dense.device),
+        table.counts.long())
+    dense[rows, table.cols.long()] = table.weights
+    return dense.T.contiguous()
+
+
+def split_path_call(name: str, args: tuple):
+    """The parent's path to a store's function: the FFT kernel's half
+    store, ``|·|`` of bins 1..WL/2 and, for the mel store,
+    ``policy.exact_matmul`` with the filterbank transpose."""
+    padded, win = args[:2]
+    if name == "spec_rows_fft":
+        wl, step, t = args[2:5]
+        return lambda: rfft.frames_rfft_fft(padded, win, wl, step,
+                                            t)[..., 1:].abs()
+    table, wl, step, t, power = args[2:7]
+    fbank_t = _fbank_t(table)
+
+    def mel():
+        mag = rfft.frames_rfft_fft(padded, win, wl, step, t)[..., 1:].abs()
+        return policy.exact_matmul(mag * mag if power else mag, fbank_t)
+    return mel
 
 
 def cqt_fft_library(sig, table, step, length):
@@ -923,10 +1060,10 @@ def _planes(x) -> tuple:
 def phase_kernels(dev) -> dict:
     """Each kernel against its plain version at the main-path shape and a
     ragged one; returns the main-path error, median times (kernel, plain
-    version, library call) and bound (for mel_rows, the largest error of
-    its two main cases and the times of the first, power=False). The
-    40-ms and 25-ms windows' cases and B3's, B3-s4's, B4's and B4-s4's at
-    WL 2048 are timed and printed too, not returned."""
+    version, library call) and bound (for the mel kernels, the largest
+    error of their two main cases and the times of the first,
+    power=False). The 40-ms, 25-ms and Whisper cases and B3's, B3-s4's,
+    B4's and B4-s4's at WL 2048 are timed and printed too, not returned."""
     results = {}
     main_t = stft_padding(SEGMENT_SECONDS * SR, WL, STEP)[2]  # 25,841
     for name, label, shape, args, tol in _kernel_cases(dev, main_t):
@@ -959,7 +1096,7 @@ def phase_kernels(dev) -> dict:
             wl, step, t = args[2], args[3], args[0].shape[-2]
             print(f"  {name}: {irfft_transforms(wl, step, t):.4f} frames "
                   "transformed per output frame")
-        if label in ("main", "40 ms", "25 ms") or (
+        if label in ("main", "40 ms", "25 ms", "whisper") or (
                 label == "operator"
                 and name in SYNTH_GEMMS + FULL_GEMMS + CQT_GEMMS):
             ms = median_ms(lambda: kernel(*args))
@@ -979,6 +1116,19 @@ def phase_kernels(dev) -> dict:
                 lerr = _max_abs(lib().transpose(-1, -2) - got)
                 print(f"  {name}: four-call yardstick vs kernel max_abs_err "
                       f"{lerr!r} (printed, not gated)")
+            if name in ("spec_rows_fft", "mel_rows_fft"):
+                split = split_path_call(name, args)
+                yard = lib()
+                lerr = _max_abs((yard.transpose(-1, -2) if name ==
+                                 "spec_rows_fft" else yard) - got)
+                serr = _max_abs(split() - got)
+                split_ms = median_ms(split)
+                print(f"  {name} {label}: split path (half store, |.|"
+                      f"{', exact_matmul' if name == 'mel_rows_fft' else ''})"
+                      f" {split_ms:.4f} ms, max_abs_err {serr!r}; torch.stft"
+                      f" yardstick max_abs_err {lerr!r} (printed, not "
+                      "gated)")
+                del yard
             bound_ms, bound_by = bound(name, args)
             print(f"  {name} {label}: kernel {ms:.4f} ms, plain "
                   f"{plain_ms:.4f} ms (median of {plain_reps}), library "
@@ -1171,16 +1321,28 @@ def mel_oracles(x: torch.Tensor, cfg: MelConfig):
 
 # dispatch -> the configuration, the kernels the mel phase must run, and
 # the oracle gates of spectrogram and melspectrogram (x max|oracle|; the
-# MFCC's is MFCC_ATOL).
-MEL_WANT = {"default": (MelConfig(), ("fused_fft",), ORACLE_TOL, ORACLE_TOL),
-            "ZAFTPU_MELFUSE=1": (MelConfig(), ("spec_rows", "mel_rows"),
-                                 ORACLE_TOL, ORACLE_TOL),
-            "default 16 kHz WL 400": (WHISPER, ("fused_fft",), ORACLE_TOL,
+# MFCC's is MFCC_ATOL). At the FFT rule's windows the FFT kernel's
+# magnitude and mel stores run on both dials, with ZAFTPU_MELFUSE=1 too;
+# ZAFTPU_MELFUSE=0 gives the half store, |.| and the filterbank product
+# (the path before the stores); ZAFTPU_FFT=matmul with ZAFTPU_MELFUSE=1
+# keeps B8 and B9 (B9-s4 under split4) on an end-to-end path.
+MEL_STORES = ("spec_rows_fft", "mel_rows_fft")
+MEL_WANT = {"default": (MelConfig(), MEL_STORES, ORACLE_TOL, ORACLE_TOL),
+            "ZAFTPU_MELFUSE=1": (MelConfig(), MEL_STORES, ORACLE_TOL,
+                                 ORACLE_TOL),
+            "ZAFTPU_MELFUSE=0": (MelConfig(), ("fused_fft",), ORACLE_TOL,
+                                 ORACLE_TOL),
+            "default 16 kHz WL 400": (WHISPER, MEL_STORES, ORACLE_TOL,
                                       ORACLE_TOL),
-            "split4": (MelConfig(), ("fused_fft",), ORACLE_TOL, ORACLE_TOL),
-            "split4 ZAFTPU_MELFUSE=1": (MelConfig(),
-                                        ("spec_rows", "mel_rows_split4"),
-                                        ORACLE_TOL, SPLIT4_ORACLE_TOL)}
+            "ZAFTPU_FFT=matmul ZAFTPU_MELFUSE=1": (
+                MelConfig(), ("spec_rows", "mel_rows"), ORACLE_TOL,
+                ORACLE_TOL),
+            "split4": (MelConfig(), MEL_STORES, ORACLE_TOL, ORACLE_TOL),
+            "split4 ZAFTPU_MELFUSE=1": (MelConfig(), MEL_STORES, ORACLE_TOL,
+                                        ORACLE_TOL),
+            "split4 ZAFTPU_FFT=matmul ZAFTPU_MELFUSE=1": (
+                MelConfig(), ("spec_rows", "mel_rows_split4"), ORACLE_TOL,
+                SPLIT4_ORACLE_TOL)}
 
 
 def phase_mel_path(dispatch: str, x: torch.Tensor) -> dict:
@@ -1258,18 +1420,21 @@ def _hour_ms(fn, segs: list) -> float:
     return statistics.median(runs)
 
 
-def phase_hour_features(dispatch: str, segs: list,
-                        mel_only: bool = False) -> None:
+def phase_hour_features(dispatch: str, segs: list, mel_only: bool = False,
+                        cfg: MelConfig | None = None) -> None:
     """mdct, imdct (of the mdct's coefficients), spectrogram,
-    melspectrogram and mfcc (only the last three when ``mel_only``) over
-    the six 600-s segments; frames/s from CUDA events, median of 3 passes
-    (printed, not gated)."""
+    melspectrogram and mfcc at ``cfg`` (MelConfig() by default; only the
+    last three when ``mel_only``) over the six 600-s segments (their first
+    600 s of samples, read at the configuration's rate); frames/s from
+    CUDA events, median of 3 passes (printed, not gated)."""
     vwin = vorbis(WL)
-    cfg = MelConfig()
+    cfg = cfg or MelConfig()
+    segs = [s[..., :SEGMENT_SECONDS * cfg.sampling_frequency] for s in segs]
     hwin = cfg.window_array()
     coeffs = [] if mel_only else [zaftpu_torch.mdct(s, vwin) for s in segs]
     mdct_frames = sum(c.shape[-1] for c in coeffs)
-    stft_frames = sum(stft_padding(s.shape[-1], WL, STEP)[2] for s in segs)
+    stft_frames = sum(stft_padding(s.shape[-1], cfg.window_length,
+                                   cfg.step_length)[2] for s in segs)
     rates = []
     for name, fn, data, frames in (
             ("mdct", lambda s: zaftpu_torch.mdct(s, vwin), segs,
@@ -1290,6 +1455,30 @@ def phase_hour_features(dispatch: str, segs: list,
         rates.append(f"{name} {ms:.3f} ms -> {frames / ms * 1e3:,.0f} "
                      "frames/s")
     print(f"one hour [{dispatch}]: " + "; ".join(rates) + " (median of 3)")
+
+
+def phase_peak_memory_mel(x: torch.Tensor) -> None:
+    """Peak device memory of one 600-s melspectrogram at MelConfig() on the
+    FFT kernel's mel store (the default) and under ZAFTPU_MELFUSE=0 (the
+    half store, |.| and the filterbank product), above what was allocated
+    before the call (the signal)."""
+    run = functools.partial(zaftpu_torch.melspectrogram, x,
+                            config=MelConfig())
+    peaks = []
+    for env in (DEFAULT, MELFUSE_OFF):
+        _with_env(env, run)
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        mel = _with_env(env, run)
+        torch.cuda.synchronize()
+        peaks.append(torch.cuda.max_memory_allocated() - base)
+        out = mel.numel() * mel.element_size()
+        del mel
+    print(f"peak device memory of one 600-s melspectrogram (MelConfig(); "
+          f"the output is {out} bytes): mel store {peaks[0]} bytes, "
+          f"ZAFTPU_MELFUSE=0 {peaks[1]} bytes above the signal")
 
 
 @functools.cache
@@ -1471,6 +1660,7 @@ DEFAULT = dict.fromkeys(LEVERS)
 SPLIT = {**DEFAULT, "ZAFTPU_FUSED": "0", "ZAFTPU_SYNTH": "0",
          "ZAFTPU_MELFUSE": "0"}
 MELFUSE_ON = {**DEFAULT, "ZAFTPU_MELFUSE": "1"}
+MELFUSE_OFF = {**DEFAULT, "ZAFTPU_MELFUSE": "0"}
 MIRROR_ON = {**DEFAULT, "ZAFTPU_MIRROR": "pallas"}
 FULLSPEC_ON = {**DEFAULT, "ZAFTPU_FULLSPEC": "1"}
 FULLSPEC_OFF = {**DEFAULT, "ZAFTPU_FULLSPEC": "0"}
@@ -1484,6 +1674,8 @@ SPLIT4_MATMUL = {**SPLIT4, "ZAFTPU_FFT": "matmul"}
 CQT_HIGHEST = {**DEFAULT, "ZAFTPU_PRECISION": "highest"}
 CQT_EXACT = {**DEFAULT, "ZAFTPU_CQT_SCHEME": "exact"}
 FFT_MATMUL = {**DEFAULT, "ZAFTPU_FFT": "matmul"}
+MATMUL_MELFUSE = {**FFT_MATMUL, "ZAFTPU_MELFUSE": "1"}
+SPLIT4_MATMUL_MELFUSE = {**SPLIT4_MATMUL, "ZAFTPU_MELFUSE": "1"}
 CQT_EXACT_MATMUL = {**CQT_EXACT, "ZAFTPU_FFT": "matmul"}
 
 
@@ -1535,7 +1727,10 @@ def main() -> int:
             (DEFAULT, phase_mdct_path, f"default WL {MDCT_GEMM_WL}"),
             (DEFAULT, phase_mel_path, "default"),
             (MELFUSE_ON, phase_mel_path, "ZAFTPU_MELFUSE=1"),
+            (MELFUSE_OFF, phase_mel_path, "ZAFTPU_MELFUSE=0"),
             (DEFAULT, phase_mel_path, "default 16 kHz WL 400"),
+            (MATMUL_MELFUSE, phase_mel_path,
+             "ZAFTPU_FFT=matmul ZAFTPU_MELFUSE=1"),
             (DEFAULT, phase_cqt_path, "default"),
             (CQT_HIGHEST, phase_cqt_path, "ZAFTPU_PRECISION=highest"),
             (CQT_EXACT, phase_cqt_path, "ZAFTPU_CQT_SCHEME=exact"),
@@ -1555,7 +1750,9 @@ def main() -> int:
             (SPLIT4, phase_mdct_path, "split4"),
             (SPLIT4, phase_mdct_path, f"split4 WL {MDCT_GEMM_WL}"),
             (SPLIT4, phase_mel_path, "split4"),
-            (SPLIT4_MELFUSE, phase_mel_path, "split4 ZAFTPU_MELFUSE=1")):
+            (SPLIT4_MELFUSE, phase_mel_path, "split4 ZAFTPU_MELFUSE=1"),
+            (SPLIT4_MATMUL_MELFUSE, phase_mel_path,
+             "split4 ZAFTPU_FFT=matmul ZAFTPU_MELFUSE=1")):
         for name, count in _with_env(env, phase, dispatch, x).items():
             launches[name] += count
         torch.cuda.empty_cache()
@@ -1596,6 +1793,7 @@ def main() -> int:
             torch.cuda.empty_cache()
         del ref
     phase_peak_memory(x)
+    phase_peak_memory_mel(x)
     phase_peak_memory_cqt(x)
     cqt_oracle.cache_clear()
     del x
@@ -1611,9 +1809,14 @@ def main() -> int:
         torch.cuda.empty_cache()
     for wl in (MIXED_WL, PRIME_WL):
         _with_env(DEFAULT, phase_hour, f"default WL {wl}", segs, wl)
-    for env, dispatch in ((MELFUSE_ON, "ZAFTPU_MELFUSE=1"),
-                          (SPLIT4_MELFUSE, "split4 ZAFTPU_MELFUSE=1")):
+    for env, dispatch in ((MELFUSE_OFF, "ZAFTPU_MELFUSE=0"),
+                          (MATMUL_MELFUSE, "ZAFTPU_FFT=matmul ZAFTPU_MELFUSE=1"),
+                          (SPLIT4_MATMUL_MELFUSE,
+                           "split4 ZAFTPU_FFT=matmul ZAFTPU_MELFUSE=1")):
         _with_env(env, phase_hour_features, dispatch, segs, True)
+    for env, dispatch in ((DEFAULT, "default 16 kHz WL 400"),
+                          (MELFUSE_OFF, "ZAFTPU_MELFUSE=0 16 kHz WL 400")):
+        _with_env(env, phase_hour_features, dispatch, segs, True, WHISPER)
     for env, dispatch in ((DEFAULT, "default: spectral kernel"),
                           (CQT_EXACT, "ZAFTPU_CQT_SCHEME=exact: spectral "
                            "kernel"),

@@ -1,7 +1,7 @@
 """Where the device time of zaftpu_torch's main path goes, on a CUDA card.
 
     python3 scripts/torch_profile.py [--precision highest|split4] [--iters 3]
-        [--window 1102] [--only mdct|cqt]
+        [--window 1102] [--only mdct|cqt|mel]
 
 Profiles 600-s stft -> istft, mdct -> imdct (the chip_smoke.py signal,
 Hamming and vorbis windows of 2048, hop 1024; --window sets the STFT's
@@ -24,6 +24,12 @@ imdct, mdct alone and imdct alone, and one hour of mdct, then imdct (set
 ZAFTPU_FFT=matmul to profile the GEMMs B2 and B7, or their twins, at WL
 2048). ``--only cqt`` profiles the CQT alone: 600-s cqtspectrogram and
 one hour of it, each on the selected path and under ZAFTPU_FFT=matmul.
+``--only mel`` profiles the mel front ends: 600-s melspectrogram and mfcc
+at MelConfig() and melspectrogram at Whisper's front end (16 kHz, Hann 400
+/ hop 160, 80 mels: the signal's first 600 s of samples read at 16 kHz),
+each on the selected path (the real-FFT kernel's mel store by default) and
+under ZAFTPU_MELFUSE=0 (the half store, ``|·|`` and the filterbank
+product).
 Needs a CUDA card; prints nothing else and exits 1 without one.
 """
 
@@ -41,7 +47,7 @@ sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 
 import zaftpu_torch  # noqa: E402
 from chip_smoke import segment  # noqa: E402
-from zaftpu_torch import CqtConfig  # noqa: E402
+from zaftpu_torch import CqtConfig, MelConfig  # noqa: E402
 from zaftpu_torch.core.windows import hamming, vorbis  # noqa: E402
 
 WL = 2048
@@ -129,13 +135,40 @@ def profile_cqt(x: torch.Tensor, iters: int, hour: bool) -> None:
             os.environ["ZAFTPU_FFT"] = saved
 
 
+def profile_mel(x: torch.Tensor, iters: int) -> None:
+    """melspectrogram and mfcc of 600 s at MelConfig(), and melspectrogram
+    at Whisper's front end, on the path the environment selects and under
+    ZAFTPU_MELFUSE=0."""
+    cfg = MelConfig()
+    whisper = MelConfig(sampling_frequency=16000, window_length=400,
+                        step_length=160, number_mels=80, window="hann")
+    x16 = x[:600 * 16000]
+    saved = os.environ.get("ZAFTPU_MELFUSE")
+    try:
+        for melfuse in (saved, "0"):
+            if melfuse is not None:
+                os.environ["ZAFTPU_MELFUSE"] = melfuse
+            tag = f"[ZAFTPU_MELFUSE={melfuse or 'auto'}]"
+            profile(f"melspectrogram {tag}", lambda: zaftpu_torch.
+                    melspectrogram(x, config=cfg), iters)
+            profile(f"mfcc {tag}", lambda: zaftpu_torch.mfcc(
+                x, config=cfg), iters)
+            profile(f"melspectrogram 16 kHz WL 400 {tag}", lambda:
+                    zaftpu_torch.melspectrogram(x16, config=whisper), iters)
+    finally:
+        if saved is None:
+            os.environ.pop("ZAFTPU_MELFUSE", None)
+        else:
+            os.environ["ZAFTPU_MELFUSE"] = saved
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--precision", default="highest",
                         choices=("highest", "split4"))
     parser.add_argument("--iters", type=int, default=3)
     parser.add_argument("--window", type=int, default=WL)
-    parser.add_argument("--only", choices=("all", "mdct", "cqt"),
+    parser.add_argument("--only", choices=("all", "mdct", "cqt", "mel"),
                         default="all")
     args = parser.parse_args()
     if not torch.cuda.is_available():
@@ -155,6 +188,9 @@ def main() -> int:
         return 0
     if args.only == "cqt":
         profile_cqt(x, args.iters, hour=True)
+        return 0
+    if args.only == "mel":
+        profile_mel(x, args.iters)
         return 0
     profile("stft -> istft", lambda: zaftpu_torch.istft(
         zaftpu_torch.stft(x, hw, step), hw, step), args.iters)

@@ -5,7 +5,8 @@ float64 path, the real-FFT analysis kernel, the inverse real-FFT synthesis
 kernel and the shape rule that picks them, the spectral CQT kernel and
 its rule, the mirror, full-spectrum and two-output levers, the split4
 twins (B9's and B10's included) and the split4 dial, the CQT's scheme,
-the mel kernels past the old shared-memory limit, the device and dtype
+the mel kernels past the old shared-memory limit, the real-FFT kernel's
+magnitude and mel stores and the front ends' route, the device and dtype
 rules (float64 arrays, lists and bfloat16 signals), and the inputs the
 CUDA path refuses.
 
@@ -23,7 +24,8 @@ from zaftpu_torch.core import policy
 from zaftpu_torch.core.windows import hamming, kbd, vorbis
 from zaftpu_torch.core import fft as tfft
 from zaftpu_torch.kernels import (_build, cqtfft, cqtslab, framing, fused,
-                                  irfft, melfused, mirror, ola, rfft, synth)
+                                  irfft, melfft, melfused, mirror, ola, rfft,
+                                  synth)
 from zaftpu_torch.kernels import mdct as kmdct
 from zaftpu_torch.transforms import cqt as tcqt
 from zaftpu_torch.transforms import mdct as tmdct
@@ -294,6 +296,8 @@ def _launches():
             "imdct_ola_fft": kmdct.imdct_ola_fft.launches,
             "spec_rows": melfused.spec_rows.launches,
             "mel_rows": melfused.mel_rows.launches,
+            "spec_rows_fft": melfft.spec_rows_fft.launches,
+            "mel_rows_fft": melfft.mel_rows_fft.launches,
             "frames_rfft": fused.frames_rfft.launches,
             "frames_rfft_fft": rfft.frames_rfft_fft.launches,
             "framing": framing.frame_window.launches,
@@ -304,6 +308,7 @@ def _calls():
     return (fused.frames_op_plain.calls, synth.imdct_ola_plain.calls,
             kmdct.mdct_fft_plain.calls, kmdct.imdct_ola_fft_plain.calls,
             melfused.spec_rows_plain.calls, melfused.mel_rows_plain.calls,
+            melfft.spec_rows_fft_plain.calls, melfft.mel_rows_fft_plain.calls,
             fused.frames_rfft_plain.calls, rfft.frames_rfft_fft_plain.calls)
 
 
@@ -341,10 +346,10 @@ def test_mel_paths_on_card_match_cpu_f64(dev, melfuse, monkeypatch):
     mel = zaftpu_torch.melspectrogram(x32, win, 1024, fb)
     mf = zaftpu_torch.mfcc(x32, win, 1024, fb, 20)
     moved = {k for k, v in _launches().items() if v != before[k]}
-    # WL 2048: the FFT rule's half spectrum unless the lever forces the
-    # magnitude and mel kernels.
-    assert moved == ({"spec_rows", "mel_rows"} if melfuse == "1"
-                     else {"frames_rfft_fft"})
+    # WL 2048: the FFT kernel's magnitude and mel stores by the shape rule,
+    # ZAFTPU_MELFUSE=1 too; its half spectrum under ZAFTPU_MELFUSE=0.
+    assert moved == ({"frames_rfft_fft"} if melfuse == "0"
+                     else {"spec_rows_fft", "mel_rows_fft"})
     assert _calls() == calls
     x64 = torch.from_numpy(x)
     assert _rel_err(spec.cpu().double(),
@@ -930,9 +935,10 @@ def test_tpu_pass_count_dials_refused_on_cuda(dev, value, monkeypatch):
 
 def test_forced_mel_kernel_under_split4_runs_the_twin_on_cuda(dev,
                                                               monkeypatch):
-    """ZAFTPU_MELFUSE=1 under split4: spec_rows runs exact (no twin),
-    melspectrogram and mfcc run the mel kernel's twin; the outputs sit
-    within the split4 gates of the CPU float64 path."""
+    """ZAFTPU_MELFUSE=1 under split4 with ZAFTPU_FFT=matmul (at WL 2048
+    the FFT rule gives the FFT kernel's stores otherwise): spec_rows runs
+    exact (no twin), melspectrogram and mfcc run the mel kernel's twin; the
+    outputs sit within the split4 gates of the CPU float64 path."""
     x = np.random.default_rng(14).standard_normal((2, 44100))
     win = hamming(2048)
     fb = zaftpu_torch.melfilterbank(44100, 2048, 40)
@@ -942,6 +948,7 @@ def test_forced_mel_kernel_under_split4_runs_the_twin_on_cuda(dev,
             zaftpu_torch.mfcc(x64, win, 1024, fb, 20))
     monkeypatch.setenv("ZAFTPU_PRECISION", "split4")
     monkeypatch.setenv("ZAFTPU_MELFUSE", "1")
+    monkeypatch.setenv("ZAFTPU_FFT", "matmul")
     x32 = torch.from_numpy(x.astype(np.float32)).to(dev)
 
     def counts():
@@ -1584,3 +1591,166 @@ def test_mdct_imdct_take_the_fast_kernels_on_both_dials(dev, wl, dial,
         monkeypatch.setenv("ZAFTPU_PRECISION", "highest")
         assert torch.equal(coeffs, zaftpu_torch.mdct(x, win))
         assert torch.equal(rec, zaftpu_torch.imdct(coeffs, win))
+
+
+# The real-FFT kernel's magnitude and mel stores: B8, B9 and B9-s4's
+# function at every window rfft.fits takes.
+
+MELFFT_SHAPES = [(16, 5), (400, 160), (1102, 551), (2032, 1000),
+                 (2662, 1331), (2822, 1411), (2048, 1024), (4096, 256)]
+
+
+def _filterbanks(wl):
+    """(name, dense (n_mels, WL/2) float64) for the stores' card tests: 1,
+    40, 128 and 800 random sparse rows (about a tenth nonzero, rows of
+    zeros among them) and a dense random one."""
+    rng = np.random.default_rng(wl)
+    out = []
+    for mels in (1, 40, 128, 800):
+        fb = rng.random((mels, wl // 2))
+        fb[rng.random(fb.shape) < 0.9] = 0.0
+        out.append((f"{mels} sparse", fb))
+    out.append(("dense", rng.standard_normal((24, wl // 2))))
+    return out
+
+
+@pytest.mark.parametrize("wl,step", MELFFT_SHAPES)
+@pytest.mark.parametrize("t", [0, 1, 2, 1001])
+@pytest.mark.parametrize("lead,offset", [((), 0), ((3,), 1)])
+def test_melfft_stores_match_plain(dev, wl, step, t, lead, offset):
+    """Both stores bit-equal to their plain versions (torch.equal), batched
+    and misaligned, with 1 to 800 mels and a dense foreign filterbank,
+    magnitude and power; zero frames give an empty output and no launch."""
+    padded, win = _inputs(wl, step, max(t, 1), dev, lead, offset)
+    before = (melfft.spec_rows_fft.launches, melfft.mel_rows_fft.launches)
+    spec = melfft.spec_rows_fft(padded, win, wl, step, t)
+    assert spec.shape == (*lead, t, wl // 2) and spec.is_cuda
+    if t:
+        assert torch.equal(spec, melfft.spec_rows_fft_plain(padded, win, wl,
+                                                            step, t))
+    for name, fb in _filterbanks(wl):
+        table = melfft.device_table(melfft.filterbank_table(fb), dev)
+        for power in (False, True):
+            got = melfft.mel_rows_fft(padded, win, table, wl, step, t, power)
+            assert got.shape == (*lead, t, fb.shape[0]), name
+            if t:
+                ref = melfft.mel_rows_fft_plain(padded, win, table, wl, step,
+                                                t, power)
+                assert torch.equal(got, ref), (name, power)
+    runs = 1 if t else 0
+    assert (melfft.spec_rows_fft.launches, melfft.mel_rows_fft.launches) == (
+        before[0] + runs, before[1] + 10 * runs)
+
+
+@pytest.mark.parametrize("wl,step", MELFFT_SHAPES)
+def test_magnitude_store_is_the_half_stores_bins(dev, wl, step):
+    """The magnitude store equals sqrt(re*re + im*im) of the half store's
+    bins 1..WL/2 (torch's products, sum and correctly rounded root on the
+    card), bit for bit."""
+    padded, win = _inputs(wl, step, 301, dev, (2,), 1)
+    half = rfft.frames_rfft_fft(padded, win, wl, step, 301)[..., 1:]
+    re, im = half.real, half.imag
+    want = torch.sqrt((re * re + im * im).double()).float()
+    assert torch.equal(melfft.spec_rows_fft(padded, win, wl, step, 301), want)
+
+
+def test_melfft_entries_take_exactly_what_fits_takes(dev):
+    """The two C entries take exactly the lengths rfft.fits takes and refuse
+    every other before any launch (T = 0 returns after the checks); the
+    mel entry refuses n_mels < 1 too; the wrappers raise ValueError on the
+    same lengths."""
+    lib = _build.library()
+    buf = torch.zeros(8192, device=dev)
+    ints = torch.zeros(8, dtype=torch.int32, device=dev)
+    p = buf.data_ptr()
+    for wl in range(1, 4200):
+        err = lib.zt_rfft_spec(p, p, p, p, 1, 8192, 0, wl, 1, 0)
+        assert (err == 0) is rfft.fits(wl), (wl, err)
+        err = lib.zt_rfft_mel(p, p, p, ints.data_ptr(), ints.data_ptr(), p,
+                              p, 1, 8192, 0, wl, 1, 1, 0, 0)
+        assert (err == 0) is rfft.fits(wl), (wl, err)
+    assert lib.zt_rfft_mel(p, p, p, ints.data_ptr(), ints.data_ptr(), p, p,
+                           1, 8192, 0, 2048, 1, 0, 0, 0) != 0
+    for wl in (262, 2062, 255, 4098):
+        padded, win = _inputs(wl, wl // 2, 3, dev)
+        table = melfft.device_table(melfft.filterbank_table(
+            np.ones((2, wl // 2))), dev)
+        with pytest.raises(ValueError, match="prime factor"):
+            melfft.spec_rows_fft(padded, win, wl, wl // 2, 3)
+        with pytest.raises(ValueError, match="prime factor"):
+            melfft.mel_rows_fft(padded, win, table, wl, wl // 2, 3, False)
+
+
+_ROUTE_COUNTERS = {"spec_rows_fft": melfft.spec_rows_fft,
+                   "mel_rows_fft": melfft.mel_rows_fft,
+                   "spec_rows": melfused.spec_rows,
+                   "mel_rows": melfused.mel_rows,
+                   "mel_rows_split4": melfused.mel_rows_split4,
+                   "frames_rfft_fft": rfft.frames_rfft_fft,
+                   "frames_rfft": fused.frames_rfft,
+                   "frames_rfft_split4": fused.frames_rfft_split4}
+
+
+@pytest.mark.parametrize("wl,melfuse,fft,want,want_split4", [
+    (2048, None, None, {"spec_rows_fft", "mel_rows_fft"},
+     {"spec_rows_fft", "mel_rows_fft"}),
+    (1102, "1", None, {"spec_rows_fft", "mel_rows_fft"},
+     {"spec_rows_fft", "mel_rows_fft"}),
+    (2048, "0", None, {"frames_rfft_fft"}, {"frames_rfft_fft"}),
+    (2062, None, None, {"spec_rows", "mel_rows"}, {"frames_rfft_split4"}),
+    (2048, None, "matmul", {"spec_rows", "mel_rows"},
+     {"frames_rfft_split4"}),
+    (2062, "1", None, {"spec_rows", "mel_rows"},
+     {"spec_rows", "mel_rows_split4"}),
+    (2048, "1", "matmul", {"spec_rows", "mel_rows"},
+     {"spec_rows", "mel_rows_split4"}),
+    (2062, "0", None, {"frames_rfft"}, {"frames_rfft_split4"})])
+@pytest.mark.parametrize("dial", ["highest", "split4"])
+def test_mel_routes_launch_counts_on_card(dev, wl, melfuse, fft, want,
+                                          want_split4, dial, monkeypatch):
+    """spectrogram, melspectrogram and mfcc of a float32 card signal launch
+    the kernels of their route (kernels/melfused.route) and no others, on
+    both dials: the stores at the rule's windows unless ZAFTPU_MELFUSE=0,
+    B8 / B9 (B9-s4) or the half spectrum off the rule and under
+    ZAFTPU_FFT=matmul."""
+    monkeypatch.setenv("ZAFTPU_PRECISION", dial)
+    for name, value in (("ZAFTPU_MELFUSE", melfuse), ("ZAFTPU_FFT", fft)):
+        if value is None:
+            monkeypatch.delenv(name, raising=False)
+        else:
+            monkeypatch.setenv(name, value)
+    x = torch.from_numpy(np.random.default_rng(wl).standard_normal(
+        (2, 22050)).astype(np.float32)).to(dev)
+    win = hamming(wl)
+    fb = zaftpu_torch.melfilterbank(44100, wl, 40)
+    before = {k: c.launches for k, c in _ROUTE_COUNTERS.items()}
+    calls = _calls()
+    zaftpu_torch.spectrogram(x, win, wl // 2)
+    zaftpu_torch.melspectrogram(x, win, wl // 2, fb)
+    zaftpu_torch.mfcc(x, win, wl // 2, fb, 20)
+    moved = {k for k, c in _ROUTE_COUNTERS.items()
+             if c.launches != before[k]}
+    assert moved == (want_split4 if dial == "split4" else want)
+    assert _calls() == calls
+
+
+def test_mel_store_takes_an_hour_in_one_launch(dev):
+    """One hour at 44.1 kHz through melspectrogram at MelConfig(): 155,041
+    frames in one launch of the mel store; its first and last 64 frames
+    against the plain version of the same frames."""
+    cfg = zaftpu_torch.MelConfig()
+    gen = torch.Generator(device=dev).manual_seed(18)
+    x = torch.randn(3600 * 44100, device=dev, generator=gen)
+    before = melfft.mel_rows_fft.launches
+    mel = zaftpu_torch.melspectrogram(x, config=cfg).T
+    assert melfft.mel_rows_fft.launches == before + 1
+    assert mel.shape == (155041, 40)
+    padded, t = centre_padded(x, 2048, 1024)
+    win = torch.from_numpy(cfg.window_array().astype(np.float32)).to(dev)
+    table = melfft.device_table(melfft.filterbank_table(cfg.filterbank()),
+                                dev)
+    span = 63 * 1024 + 2048
+    for rows, start in ((mel[:64], 0), (mel[-64:], (t - 64) * 1024)):
+        ref = melfft.mel_rows_fft_plain(padded[start:start + span], win,
+                                        table, 2048, 1024, 64, False)
+        assert torch.equal(rows, ref)

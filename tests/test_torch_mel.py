@@ -5,7 +5,8 @@ ZAFTPU_MELFUSE lever, sparse and tensor filterbanks, batching, ``config=``
 and validation.
 
 Mirrors tests/test_mel.py; on the CPU the port runs its kernels' plain
-versions (spec_rows and mel_rows, or with ZAFTPU_MELFUSE=0 the analysis
+versions (at WL 2048 the real-FFT kernel's magnitude and mel stores, off
+the FFT rule spec_rows and mel_rows, or with ZAFTPU_MELFUSE=0 the analysis
 dispatch's half spectrum).
 """
 
@@ -23,6 +24,7 @@ from zaftpu_torch import MelConfig, StftConfig
 from zaftpu_torch.core.windows import hamming
 from zaftpu_torch.features import mel as tmel
 from zaftpu_torch.kernels import fused as tfused
+from zaftpu_torch.kernels import melfft as tmelfft
 from zaftpu_torch.kernels import melfused as tmelfused
 from zaftpu_torch.kernels import rfft as trfft
 
@@ -154,6 +156,8 @@ def _front_end_plain_calls(wl, fb, monkeypatch, melfuse):
     monkeypatch.setenv("ZAFTPU_MELFUSE", melfuse)
     plain = {"spec_rows": tmelfused.spec_rows_plain,
              "mel_rows": tmelfused.mel_rows_plain,
+             "spec_rows_fft": tmelfft.spec_rows_fft_plain,
+             "mel_rows_fft": tmelfft.mel_rows_fft_plain,
              "frames_rfft": tfused.frames_rfft_plain,
              "frames_rfft_fft": trfft.frames_rfft_fft_plain}
     before = {k: v.calls for k, v in plain.items()}
@@ -166,12 +170,12 @@ def _front_end_plain_calls(wl, fb, monkeypatch, melfuse):
 
 
 @pytest.mark.parametrize("melfuse,ran", [
-    ("auto", {"frames_rfft_fft"}), ("0", {"frames_rfft_fft"}),
-    ("1", {"spec_rows", "mel_rows"})])
+    ("auto", {"spec_rows_fft", "mel_rows_fft"}), ("0", {"frames_rfft_fft"}),
+    ("1", {"spec_rows_fft", "mel_rows_fft"})])
 def test_dispatch_takes_the_lever(melfuse, ran, fbank, monkeypatch):
-    """At WL 2048 the front ends take the FFT kernel's half spectrum (the
-    shape rule) unless ZAFTPU_MELFUSE=1 forces the magnitude and mel
-    kernels."""
+    """At WL 2048 the front ends take the FFT kernel's magnitude and mel
+    stores (the shape rule), also under ZAFTPU_MELFUSE=1, and its half
+    spectrum under ZAFTPU_MELFUSE=0."""
     assert _front_end_plain_calls(WL, fbank, monkeypatch, melfuse) == ran
 
 
@@ -188,21 +192,22 @@ def test_dispatch_off_the_fft_rule_takes_the_kernels(melfuse, ran,
 
 
 @pytest.mark.parametrize("melfuse,wl,wanted", [
-    (None, 2048, False), ("auto", 16, False), (None, 4096, False),
-    ("0", 2048, False), ("1", 2048, True), (None, 1102, False),
-    (None, 8, True), (None, 8192, True), ("0", 1102, False),
-    ("1", 1102, True), (None, 1764, False), (None, 262, True),
-    ("0", 262, False), (None, 2062, True), (None, 2822, False)])
+    (None, 2048, "fft"), ("auto", 16, "fft"), (None, 4096, "fft"),
+    ("0", 2048, "split"), ("1", 2048, "fft"), (None, 1102, "fft"),
+    (None, 8, "kernel"), (None, 8192, "kernel"), ("0", 1102, "split"),
+    ("1", 1102, "fft"), (None, 1764, "fft"), (None, 262, "kernel"),
+    ("0", 262, "split"), (None, 2062, "kernel"), (None, 2822, "fft")])
 def test_melfuse_gate_follows_the_fft_rule(melfuse, wl, wanted, monkeypatch):
-    """On the exact dial the lever decides where it is set, else the FFT
-    shape rule: the kernels wherever it does not give the half spectrum."""
+    """On the exact dial ZAFTPU_MELFUSE=0 gives the split path everywhere;
+    otherwise the FFT shape rule gives its stores and any other window
+    the kernels."""
     monkeypatch.delenv("ZAFTPU_PRECISION", raising=False)
     if melfuse is None:
         monkeypatch.delenv("ZAFTPU_MELFUSE", raising=False)
     else:
         monkeypatch.setenv("ZAFTPU_MELFUSE", melfuse)
     for dtype in (torch.float32, torch.float64):
-        assert tmelfused.kernel_wanted(dtype, wl) is wanted
+        assert tmelfused.route(dtype, wl) == wanted
 
 
 def test_many_mels_take_the_kernel_path():

@@ -43,6 +43,7 @@ from zaftpu_torch.kernels import _build
 from zaftpu_torch.kernels import cqtslab as tcqtslab
 from zaftpu_torch.kernels import fused as tfused
 from zaftpu_torch.kernels import irfft as tirfft
+from zaftpu_torch.kernels import melfft as tmelfft
 from zaftpu_torch.kernels import melfused as tmelfused
 from zaftpu_torch.kernels import rfft as trfft
 from zaftpu_torch.kernels import synth as tsynth
@@ -507,22 +508,30 @@ def test_fused2_lever_is_off_unless_one(monkeypatch):
 
 # ---- The magnitude and mel front ends under split4 -------------------------
 
-@pytest.mark.parametrize("melfuse,wanted", [(None, False), ("auto", False),
-                                            ("0", False), ("1", True)])
+@pytest.mark.parametrize("melfuse,wanted", [(None, "split"),
+                                            ("auto", "split"),
+                                            ("0", "split"), ("1", "kernel")])
 def test_melfuse_gate_under_split4(melfuse, wanted, monkeypatch):
+    """Under split4 a float32 signal off the FFT rule (WL 262 = 2 * 131)
+    takes the split4 half spectrum unless ZAFTPU_MELFUSE=1 forces the
+    kernels (``wanted``); at the rule's windows the FFT kernel's stores
+    unless ZAFTPU_MELFUSE=0."""
     monkeypatch.setenv("ZAFTPU_PRECISION", "split4")
     if melfuse is None:
         monkeypatch.delenv("ZAFTPU_MELFUSE", raising=False)
     else:
         monkeypatch.setenv("ZAFTPU_MELFUSE", melfuse)
-    for wl in (2048, 1102, 262):
-        assert tmelfused.kernel_wanted(torch.float32, wl) is wanted
+    fft = "split" if melfuse == "0" else "fft"
+    assert tmelfused.route(torch.float32, 262) == wanted
+    for wl in (2048, 1102):
+        assert tmelfused.route(torch.float32, wl) == fft
     # float64 never lowers, so the dial does not move it: the lever and the
     # FFT shape rule decide, as on the exact dial (the FFT at WL 2048 and
-    # 1102, the kernels at WL 262 = 2 * 131).
-    assert tmelfused.kernel_wanted(torch.float64, 262) is (melfuse != "0")
-    assert tmelfused.kernel_wanted(torch.float64, 1102) is (melfuse == "1")
-    assert tmelfused.kernel_wanted(torch.float64, 2048) is (melfuse == "1")
+    # 1102, the kernels at WL 262).
+    assert tmelfused.route(torch.float64, 262) == (
+        "split" if melfuse == "0" else "kernel")
+    for wl in (2048, 1102):
+        assert tmelfused.route(torch.float64, wl) == fft
 
 
 def test_front_ends_take_the_split4_half_spectrum(x32, split4, monkeypatch):
@@ -559,8 +568,9 @@ def _outputs(x, win, fb):
 
 def test_split4_takes_the_fft_where_the_rule_holds(x32, monkeypatch):
     """Under split4 without ZAFTPU_FFT=matmul, stft (the full store),
-    spectrogram, melspectrogram and mfcc (the half store) at WL 2048 run
-    the FFT kernel's plain version once each and no twin: bit-equal to the
+    spectrogram (the magnitude store), melspectrogram and mfcc (the mel
+    store) at WL 2048 run the FFT kernel's plain versions once each and no
+    twin: bit-equal to the
     exact dial's outputs, within 2e-6 of max of zaftpu's split4 outputs
     under ZAFTPU_FFT=auto (its native FFT off the TPU; MFCC atol 5e-3),
     and istft runs the inverse FFT's plain version and no twin: its round
@@ -575,11 +585,12 @@ def test_split4_takes_the_fft_where_the_rule_holds(x32, monkeypatch):
     jax.clear_caches()
     twins = (tfused.frames_rfft_split4_plain, tfused.frames_matmul2_split4_plain,
              tmelfused.spec_rows_plain, tmelfused.mel_rows_split4_plain)
-    ffts = (trfft.frames_rfft_full_fft_plain, trfft.frames_rfft_fft_plain)
+    ffts = (trfft.frames_rfft_full_fft_plain, tmelfft.spec_rows_fft_plain,
+            tmelfft.mel_rows_fft_plain, trfft.frames_rfft_fft_plain)
     before = tuple(c.calls for c in ffts + twins)
     outs = _outputs(x, win, fb)
     assert tuple(c.calls for c in ffts + twins) == (
-        before[0] + 1, before[1] + 3, *before[2:])
+        before[0] + 1, before[1] + 1, before[2] + 2, *before[3:])
     for got, want in zip(outs, exact):
         assert torch.equal(got, want)
     refs = (zaftpu.stft(x32, win, STEP), zaftpu.spectrogram(x32, win, STEP),

@@ -1,13 +1,17 @@
 // Framing + window + real FFT, the frames never stored:
-//   out[b, t, k] = sum_w sig[b, t*step + w] * win[w] * exp(-2 pi i k w / N)
+//   X[b, t, k] = sum_w sig[b, t*step + w] * win[w] * exp(-2 pi i k w / N)
 // for k = 0..N/2, N = WL even, from 16 to 4096, with N/2 free of prime
 // factors above 127 (1,263 lengths: every power of two, and 400, 1102,
-// 1764, 2822, 3000 ...), with three stores of the same values: rfft_half
+// 1764, 2822, 3000 ...), with five stores of the same values: rfft_half
 // writes the interleaved complex (batch, T, F) half spectrum, rfft_planes
-// the two float32 planes (2, batch, T, F), F = N/2 + 1, and rfft_full the
+// the two float32 planes (2, batch, T, F), F = N/2 + 1, rfft_full the
 // complex (batch, T, N) full spectrum, out[N - k] = conj out[k] for k =
-// 1..N/2 - 1 (the reference's zaf.py:139 convention). All three run one
-// kernel body, so they are bit-equal (the conjugate's negation is exact).
+// 1..N/2 - 1 (the reference's zaf.py:139 convention), rfft_spec the
+// magnitudes (batch, T, N/2) of bins 1..N/2 (DC dropped, Nyquist kept,
+// zaf.py:370), and rfft_mel those magnitudes (or their squares, the power)
+// times a mel filterbank, (batch, T, n_mels). All five run one kernel body,
+// so every bin is bit-equal across them (the conjugate's negation is
+// exact).
 //
 // Replaces zaftpu/pallas/fused.py: _frames_matmul_impl as frames_rfft
 // reaches it (B1), its _kernel_split4 (B1-s4), _frames_matmul2_impl (B12),
@@ -15,14 +19,27 @@
 // its epilogue) and its _kernel_full_split4 (B3-s4) on both dials at those
 // window lengths; the GEMM kernels of fused.cu and their twins keep every
 // other length and an explicit operator (kernels/fused.py states the
-// rule). The TPU kernels contract each frame with a dense (N, F) cos/sin
+// rule). The magnitude store replaces zaftpu/pallas/melfused.py:
+// _spec_rows_impl (:200, B8) and the mel store its _mel_rows_impl (:263,
+// B9) and that kernel's _kernel_split4 (:142, B9-s4) at those window
+// lengths on both dials; melfused.cu keeps every other length, an explicit
+// operator and ZAFTPU_FFT=matmul (kernels/melfused.route states the rule).
+// The TPU kernels contract each frame with a dense (N, F) cos/sin
 // operator on the matrix unit: 4 N F FLOP per frame. Here the same sums
 // come from an FFT, about 2.5 N log2 N FLOP at a smooth N and more at a
 // large prime factor (a radix-p pass does O(p) operations a point), which
 // leaves the kernel bound by its bytes: each signal sample read once (4
 // bytes per hop) and 8 F bytes (8 N for the full store) written per frame,
 // 0.095 ms (0.158 ms) at the 600-s WL 2048 and WL 1102 shapes on an H100
-// (3.35 TB/s).
+// (3.35 TB/s). The magnitude store writes 4 N/2 bytes a frame (half the
+// half store's writes, and no complex spectrum for a later |.| to read
+// back): bound 0.0632 ms at WL 2048. The mel store writes 4 n_mels bytes a
+// frame, so it reads the signal and little else: bound 0.0328 ms at WL
+// 2048 with 40 mels, 0.0258 ms at Whisper's front end (16 kHz, WL 400, hop
+// 160, 80 mels), both by bytes. B8 and B9 contract with the dense operator in FP32 without tensor
+// cores (3.2 ms), and B9 then multiplies by a dense (N/2, n_mels)
+// filterbank that is 95% zeros at MelConfig(); the mel store adds only the
+// filterbank's nonzeros (2 operations each).
 //
 // Design: a block of 256 threads transforms up to kElems = 2048 complex
 // values at once, the M-point complex FFTs (M = N/2) of fpb = kElems / M
@@ -41,20 +58,63 @@
 //     Z[0]); a warp writes consecutive bins of one frame, so every store is
 //     coalesced: the full store's mirrored writes land on consecutive
 //     descending addresses, in the same loop iteration as the forward ones.
+//  4. Magnitude store: for k = 1..N/2, sqrt(re^2 + im^2) (__fmul_rn,
+//     __fadd_rn, __fsqrt_rn), consecutive threads on consecutive bins.
+//     Mel store: the same values (the power skips the root) go into the
+//     shared buffer the last pass did not write (N/2 floats a frame, at
+//     most 2,048 of its 4,096), then after a barrier each thread takes
+//     (frame, mel) outputs in turn, any n_mels, and walks that mel's row of
+//     a CSR table (row pointer, column c for bin c + 1, float32 weight, read
+//     through the read-only cache: a dense foreign filterbank may hold N/2
+//     n_mels nonzeros, more than shared memory), adding weight * value to a
+//     zero sum in the table's (ascending-column) order. One output a thread
+//     leaves threads idle at a few mels (80 outputs for 256 threads at WL
+//     2048 and 40 mels) and rows of 4 to 163 terms unbalanced at
+//     MelConfig(); a later change may split the rows.
 #include "stockham.cuh"
 
 namespace {
 
 // The output layouts of one body: (batch, T, F) complex, (2, batch, T, F)
-// float32 planes, (batch, T, N) complex with the conjugate mirror.
-enum class Store { kHalf, kPlanes, kFull };
+// float32 planes, (batch, T, N) complex with the conjugate mirror,
+// (batch, T, N/2) magnitudes of bins 1..N/2, (batch, T, n_mels) mel rows.
+enum class Store { kHalf, kPlanes, kFull, kSpec, kMel };
+
+// The mel store's filterbank over bins 1..N/2, in CSR form: row m holds
+// entries [rowptr[m], rowptr[m + 1]), each a column c (bin c + 1) and a
+// weight, columns ascending. power: the squared magnitude, unrooted.
+struct Mel {
+  const int* rowptr;
+  const int* cols;
+  const float* weights;
+  int n_mels;
+  int power;
+};
+
+// Bin k of the split step from Z = FFT_M(z) of one frame (k = 0..M, Z[M]
+// read as Z[0]): X[k] = E + W_N^k O.
+__device__ __forceinline__ float2 split_bin(const float2* z,
+                                            const float2* __restrict__ tw,
+                                            int k, int M) {
+  const float2 a = z[k == M ? 0 : k];
+  const float2 b = z[k == 0 ? 0 : M - k];
+  const float2 w = __ldg(tw + k);
+  const float er = __fmul_rn(__fadd_rn(a.x, b.x), 0.5f);
+  const float ei = __fmul_rn(__fsub_rn(a.y, b.y), 0.5f);
+  const float od = __fmul_rn(__fadd_rn(a.y, b.y), 0.5f);
+  const float oi = __fmul_rn(__fsub_rn(b.x, a.x), 0.5f);
+  return make_float2(
+      __fadd_rn(er, __fsub_rn(__fmul_rn(w.x, od), __fmul_rn(w.y, oi))),
+      __fadd_rn(ei, __fadd_rn(__fmul_rn(w.x, oi), __fmul_rn(w.y, od))));
+}
 
 // VEC: 8-byte signal and window loads.
 template <bool VEC, Store S>
 __global__ void __launch_bounds__(zt::kThreads)
 rfft_kernel(const float* __restrict__ sig, const float* __restrict__ win,
             const float2* __restrict__ tw, float* __restrict__ out,
-            long long sig_len, int T, int n, int step, zt::Plan plan) {
+            long long sig_len, int T, int n, int step, zt::Plan plan,
+            Mel mel) {
   __shared__ __align__(16) float2 buf[2][zt::kElems];
   const int M = n / 2;
   const int fpb = zt::kElems / M;  // frames per block
@@ -85,34 +145,58 @@ rfft_kernel(const float* __restrict__ sig, const float* __restrict__ win,
   int cur = 0;
   zt::fft_rows(buf, cur, tw, M, fpb, n, plan);
 
-  const int F = M + 1;
-  for (int e = threadIdx.x; e < fpb * F; e += blockDim.x) {
-    const int f = e / F;
-    const int k = e - f * F;
-    const long long t = t0 + f;
-    if (t >= T) continue;
-    const float2* z = buf[cur] + f * M;
-    const float2 a = z[k == M ? 0 : k];
-    const float2 b = z[k == 0 ? 0 : M - k];
-    const float2 w = __ldg(tw + k);
-    const float er = __fmul_rn(__fadd_rn(a.x, b.x), 0.5f);
-    const float ei = __fmul_rn(__fsub_rn(a.y, b.y), 0.5f);
-    const float od = __fmul_rn(__fadd_rn(a.y, b.y), 0.5f);
-    const float oi = __fmul_rn(__fsub_rn(b.x, a.x), 0.5f);
-    const float xr =
-        __fadd_rn(er, __fsub_rn(__fmul_rn(w.x, od), __fmul_rn(w.y, oi)));
-    const float xi =
-        __fadd_rn(ei, __fadd_rn(__fmul_rn(w.x, oi), __fmul_rn(w.y, od)));
-    const long long row = (long long)blockIdx.y * T + t;
-    if constexpr (S == Store::kPlanes) {
-      out[row * F + k] = xr;
-      out[((long long)gridDim.y * T + row) * F + k] = xi;
-    } else if constexpr (S == Store::kHalf) {
-      reinterpret_cast<float2*>(out)[row * F + k] = make_float2(xr, xi);
-    } else {
-      float2* o = reinterpret_cast<float2*>(out) + row * n;
-      o[k] = make_float2(xr, xi);
-      if (k != 0 && k != M) o[n - k] = make_float2(xr, -xi);
+  if constexpr (S == Store::kSpec || S == Store::kMel) {
+    // Bins 1..M: the magnitudes straight out, or into the free buffer.
+    float* vals = reinterpret_cast<float*>(buf[cur ^ 1]);
+    for (int e = threadIdx.x; e < fpb * M; e += blockDim.x) {
+      const int f = e / M;
+      const int k = e - f * M + 1;
+      const long long t = t0 + f;
+      if (t >= T) continue;
+      const float2 x = split_bin(buf[cur] + f * M, tw, k, M);
+      const float p = __fadd_rn(__fmul_rn(x.x, x.x), __fmul_rn(x.y, x.y));
+      if constexpr (S == Store::kSpec) {
+        out[((long long)blockIdx.y * T + t) * M + k - 1] = __fsqrt_rn(p);
+      } else {
+        vals[e] = mel.power ? p : __fsqrt_rn(p);
+      }
+    }
+    if constexpr (S == Store::kMel) {
+      __syncthreads();
+      for (int o = threadIdx.x; o < fpb * mel.n_mels; o += blockDim.x) {
+        const int f = o / mel.n_mels;
+        const int m = o - f * mel.n_mels;
+        const long long t = t0 + f;
+        if (t >= T) continue;
+        const float* v = vals + f * M;
+        const int end = __ldg(mel.rowptr + m + 1);
+        float acc = 0.f;
+        for (int j = __ldg(mel.rowptr + m); j < end; ++j) {
+          acc = __fadd_rn(acc, __fmul_rn(__ldg(mel.weights + j),
+                                         v[__ldg(mel.cols + j)]));
+        }
+        out[((long long)blockIdx.y * T + t) * mel.n_mels + m] = acc;
+      }
+    }
+  } else {
+    const int F = M + 1;
+    for (int e = threadIdx.x; e < fpb * F; e += blockDim.x) {
+      const int f = e / F;
+      const int k = e - f * F;
+      const long long t = t0 + f;
+      if (t >= T) continue;
+      const float2 x = split_bin(buf[cur] + f * M, tw, k, M);
+      const long long row = (long long)blockIdx.y * T + t;
+      if constexpr (S == Store::kPlanes) {
+        out[row * F + k] = x.x;
+        out[((long long)gridDim.y * T + row) * F + k] = x.y;
+      } else if constexpr (S == Store::kHalf) {
+        reinterpret_cast<float2*>(out)[row * F + k] = x;
+      } else {
+        float2* o = reinterpret_cast<float2*>(out) + row * n;
+        o[k] = x;
+        if (k != 0 && k != M) o[n - k] = make_float2(x.x, -x.y);
+      }
     }
   }
 }
@@ -120,10 +204,14 @@ rfft_kernel(const float* __restrict__ sig, const float* __restrict__ win,
 template <Store S>
 int launch(const void* sig, const void* win, const void* tw, void* out,
            int batch, long long sig_len, int T, int WL, int step,
-           void* stream) {
+           void* stream, Mel mel = Mel{}) {
   zt::Plan plan;
   if (!zt::fft_fits(WL, &plan) || step < 1 || step > WL || batch > 65535 ||
       !zt::aligned8(tw)) {
+    return (int)cudaErrorInvalidValue;
+  }
+  if (S == Store::kMel && (mel.n_mels < 1 || !mel.rowptr || !mel.cols ||
+                           !mel.weights)) {
     return (int)cudaErrorInvalidValue;
   }
   if (T <= 0 || batch <= 0) return (int)cudaSuccess;
@@ -137,10 +225,10 @@ int launch(const void* sig, const void* win, const void* tw, void* out,
   if (step % 2 == 0 && sig_len % 2 == 0 && zt::aligned8(sig) &&
       zt::aligned8(win)) {
     rfft_kernel<true, S><<<grid, zt::kThreads, 0, st>>>(
-        s, w, t, y, sig_len, T, WL, step, plan);
+        s, w, t, y, sig_len, T, WL, step, plan, mel);
   } else {
     rfft_kernel<false, S><<<grid, zt::kThreads, 0, st>>>(
-        s, w, t, y, sig_len, T, WL, step, plan);
+        s, w, t, y, sig_len, T, WL, step, plan, mel);
   }
   return (int)cudaGetLastError();
 }
@@ -176,4 +264,30 @@ ZT_EXPORT int zt_rfft_full(const void* sig, const void* win, const void* tw,
                            int WL, int step, void* stream) {
   return launch<Store::kFull>(sig, win, tw, out, batch, sig_len, T, WL, step,
                               stream);
+}
+
+// As zt_rfft_half, out the magnitudes (batch, T, WL/2) float32 of bins
+// 1..WL/2: out[b, t, k - 1] = sqrt(re^2 + im^2) of zt_rfft_half's bin k.
+ZT_EXPORT int zt_rfft_spec(const void* sig, const void* win, const void* tw,
+                           void* out, int batch, long long sig_len, int T,
+                           int WL, int step, void* stream) {
+  return launch<Store::kSpec>(sig, win, tw, out, batch, sig_len, T, WL, step,
+                              stream);
+}
+
+// As zt_rfft_spec (power != 0: the squares, unrooted), each frame's values
+// v[c] (bin c + 1) times a filterbank of n_mels >= 1 rows in CSR form:
+// out (batch, T, n_mels) float32, out[b, t, m] = the sum over j in
+// [rowptr[m], rowptr[m + 1]) of weights[j] * v[cols[j]], from zero in j
+// order; rowptr (n_mels + 1,) and cols (nnz,) int32 with cols in
+// [0, WL/2), weights (nnz,) float32.
+ZT_EXPORT int zt_rfft_mel(const void* sig, const void* win, const void* tw,
+                          const void* rowptr, const void* cols,
+                          const void* weights, void* out, int batch,
+                          long long sig_len, int T, int WL, int step,
+                          int n_mels, int power, void* stream) {
+  return launch<Store::kMel>(
+      sig, win, tw, out, batch, sig_len, T, WL, step, stream,
+      Mel{static_cast<const int*>(rowptr), static_cast<const int*>(cols),
+          static_cast<const float*>(weights), n_mels, power});
 }

@@ -7,14 +7,17 @@ orthonormal DCT-II over the mel axis (the reference's
 ``scipy.fftpack.dct(axis=0, norm="ortho")``, zaf.py:443-449) is a host
 matrix too.
 
-On a CUDA float32 signal ``melspectrogram`` and ``mfcc`` take the half
-spectrum from the analysis dispatch, ``|·|`` and the filterbank GEMM where
-the real-FFT kernel's shape rule holds, and the one-pass mel kernel
-(framing, rDFT, magnitude or power, filterbank GEMM;
-:mod:`zaftpu_torch.kernels.melfused`) at any other; ``ZAFTPU_MELFUSE=1``
-forces the kernel and ``ZAFTPU_MELFUSE=0`` the half spectrum. The
-log and the DCT-II GEMM run outside any kernel, as in ``zaftpu``. On the
-CPU the same paths run the kernels' plain versions, in the input's dtype.
+On a CUDA float32 signal ``melspectrogram`` and ``mfcc`` take the
+real-FFT kernel's mel store (framing, FFT, magnitude or power, and the
+filterbank's nonzeros from a CSR table; :mod:`zaftpu_torch.kernels.melfft`)
+where its shape rule holds, on both dials, and the one-pass mel GEMM kernel
+(:mod:`zaftpu_torch.kernels.melfused`) at any other window on the exact
+dial, the half spectrum, ``|·|`` and the filterbank GEMM under split4
+(:func:`zaftpu_torch.kernels.melfused.route`); ``ZAFTPU_MELFUSE=1`` forces
+the GEMM kernel off the rule and ``ZAFTPU_MELFUSE=0`` the half spectrum
+everywhere. The log and the DCT-II GEMM run outside any kernel, as in
+``zaftpu``. On the CPU the same paths run the kernels' plain versions, in
+the input's dtype.
 """
 
 from __future__ import annotations
@@ -27,6 +30,7 @@ import torch
 from zaftpu_torch.core import validate as _validate
 from zaftpu_torch.core.fft import device_operator
 from zaftpu_torch.core.policy import exact_matmul
+from zaftpu_torch.kernels import melfft as _melfft
 from zaftpu_torch.kernels import melfused as _melfused
 from zaftpu_torch.transforms.stft import (_analysis_inputs, _stft_frames_half,
                                           centre_padded)
@@ -84,16 +88,6 @@ def melfilterbank(sampling_frequency, window_length, number_mels):
                                  int(number_mels))
 
 
-def _as_dense(mel_filterbank) -> np.ndarray:
-    """A dense host array from a dense array, a tensor or any scipy.sparse
-    matrix."""
-    if hasattr(mel_filterbank, "toarray"):
-        return np.asarray(mel_filterbank.toarray())
-    if isinstance(mel_filterbank, torch.Tensor):
-        return mel_filterbank.detach().cpu().numpy()
-    return np.asarray(mel_filterbank)
-
-
 @lru_cache(maxsize=16)
 def dct_ii_ortho_matrix(size: int) -> np.ndarray:
     """Orthonormal DCT-II matrix ``C[k,n] = s_k sqrt(2/N) cos(pi k(2n+1)/2N)``,
@@ -107,26 +101,25 @@ def dct_ii_ortho_matrix(size: int) -> np.ndarray:
     return mat
 
 
-def mel_rows_fused_or_none(x: torch.Tensor, window: torch.Tensor,
-                           fbank_t: torch.Tensor, step: int,
-                           power: bool) -> torch.Tensor | None:
-    """The one-pass mel kernel's ``(..., T, n_mels)`` rows when
-    :func:`zaftpu_torch.kernels.melfused.kernel_wanted`; ``None`` selects
-    the split half-spectrum path. ``x`` and ``window`` as
-    :func:`zaftpu_torch.transforms.stft._analysis_inputs` gives them."""
+def _mel_rows(x, window, fbank, step, power):
+    """Mel (``power=False``) or power-mel rows ``(..., T, n_mels)`` of the
+    dense host filterbank ``fbank``: the real-FFT kernel's mel store, the
+    one-pass mel kernel, or the split path (zaftpu's mel.py:146-148,
+    209-212), as :func:`zaftpu_torch.kernels.melfused.route` says."""
     wl = window.shape[0]
-    if not _melfused.kernel_wanted(x.dtype, wl):
-        return None
-    padded, t = centre_padded(x, wl, step)
-    return _melfused.mel_rows(padded, window, fbank_t, wl, step, t, power)
-
-
-def _mel_rows(x, window, fbank_t, step, power):
-    """Mel (``power=False``) or power-mel rows ``(..., T, n_mels)``: the
-    one-pass kernel, or the split path (zaftpu's mel.py:146-148, 209-212)."""
-    rows = mel_rows_fused_or_none(x, window, fbank_t, step, power)
-    if rows is not None:
-        return rows
+    route = _melfused.route(x.dtype, wl)
+    if route == "fft":
+        # A new table's copy from host memory waits for the queued
+        # kernels, so it goes before the pad is queued.
+        table = _melfft.filterbank_device_table(fbank, x.device, x.dtype)
+        padded, t = centre_padded(x, wl, step)
+        return _melfft.mel_rows_fft(padded, window, table, wl, step, t,
+                                    power)
+    fbank_t = _filterbank_t(fbank, x)
+    if route == "kernel":
+        padded, t = centre_padded(x, wl, step)
+        return _melfused.mel_rows(padded, window, fbank_t, wl, step, t,
+                                  power)
     mag = _stft_frames_half(x, window, step)[..., 1:].abs()
     return exact_matmul(mag * mag if power else mag, fbank_t)
 
@@ -154,7 +147,8 @@ def _inputs(audio_signal, window_function, step_length, mel_filterbank,
     window, step, fbank = _resolve_mel_args(window_function, step_length,
                                             mel_filterbank, config)
     x, win, step = _analysis_inputs(audio_signal, window, step, None)
-    fbank = _validate.check_filterbank(_as_dense(fbank), win.shape[0])
+    fbank = _validate.check_filterbank(_melfft.as_dense(fbank),
+                                      win.shape[0])
     return x, win, step, fbank
 
 
@@ -174,7 +168,7 @@ def melspectrogram(audio_signal, window_function=None, step_length=None,
     gives all three parameters."""
     x, win, step, fbank = _inputs(audio_signal, window_function, step_length,
                                   mel_filterbank, config)
-    mel = _mel_rows(x, win, _filterbank_t(fbank, x), step, power=False)
+    mel = _mel_rows(x, win, fbank, step, power=False)
     return mel.transpose(-1, -2)
 
 
@@ -198,7 +192,7 @@ def mfcc(audio_signal, window_function=None, step_length=None,
             f"number_coefficients must be in [1, number_mels-1="
             f"{fbank.shape[0] - 1}] (the 0th coefficient is dropped, "
             f"zaf.py:452), got {number_coefficients}")
-    mel = _mel_rows(x, win, _filterbank_t(fbank, x), step, power=True)
+    mel = _mel_rows(x, win, fbank, step, power=True)
     logmel = torch.log(mel + _LOG_EPS)
     dct = device_operator(dct_ii_ortho_matrix, (fbank.shape[0],), x.device,
                           x.dtype)

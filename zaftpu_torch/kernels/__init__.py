@@ -13,9 +13,11 @@ Seven levers choose the kernels, with ``zaftpu``'s names and meaning:
 * ``ZAFTPU_SYNTH=0``: ``torch.matmul`` inverse GEMM + OLA kernel instead of
   the fused synthesis kernel (ISTFT and IMDCT);
 * ``ZAFTPU_MELFUSE=0``: the analysis dispatch's half spectrum, ``|·|`` and
-  ``torch.matmul`` instead of the one-pass magnitude and mel kernels
-  (:mod:`zaftpu_torch.kernels.melfused`); ``1`` forces those kernels, and
-  unset it follows the shape rule below;
+  ``torch.matmul`` instead of the real-FFT kernel's magnitude and mel
+  stores (:mod:`zaftpu_torch.kernels.melfft`) or the one-pass magnitude
+  and mel GEMM kernels (:mod:`zaftpu_torch.kernels.melfused`); ``1``
+  forces the GEMM kernels where the shape rule below does not give the
+  stores, and unset it follows the rule (``melfused.route``);
 * ``ZAFTPU_FULLSPEC``: ``1`` makes ``stft`` take the full-spectrum
   analysis kernel, the conjugate mirror in its store
   (``fused.frames_rfft_full``: the real-FFT kernel's full store where the
@@ -48,8 +50,10 @@ prime factor above 127 takes the real-FFT kernel
 inverse real-FFT + overlap-add kernel (:mod:`zaftpu_torch.kernels.irfft`),
 any other length the GEMM kernels or, under split4, their twins. The
 magnitude and mel front ends follow it too: at such a window they take
-the FFT's half spectrum unless ``ZAFTPU_MELFUSE=1`` forces their kernels
-(``melfused.kernel_wanted``). The MDCT and IMDCT follow the same rule at a
+the FFT kernel's magnitude and mel stores
+(:mod:`zaftpu_torch.kernels.melfft`) on both dials unless
+``ZAFTPU_MELFUSE=0`` asks for the half spectrum (``melfused.route``). The
+MDCT and IMDCT follow the same rule at a
 quarter of the window (``mdct.applies``: a multiple of 4 up to 4096 whose
 quarter has no prime factor above 127): the fast MDCT kernel and the fast
 IMDCT + overlap-add kernel (:mod:`zaftpu_torch.kernels.mdct`) there, the
@@ -64,9 +68,10 @@ kernel above as its split4 twin (four bf16 passes on the tensor cores,
 float32 sums) and the split dispatch's wide GEMMs as
 ``policy.split4_matmul``; the FFT kernels, exact and faster than the
 twins, serve both dials wherever the shape rule holds.
-Under split4 the magnitude and mel front ends take the half spectrum of
-the analysis kernel unless ``ZAFTPU_MELFUSE=1`` forces their kernels (the
-exact ``spec_rows``, the mel kernel's twin), as in ``zaftpu``. ``high`` and
+Off the shape rule, under split4 the magnitude and mel front ends take
+the half spectrum of the analysis kernel unless ``ZAFTPU_MELFUSE=1``
+forces their kernels (the exact ``spec_rows``, the mel kernel's twin), as
+in ``zaftpu``. ``high`` and
 ``default`` are refused on CUDA. A float32 CQT whose FFT length is a
 power of two up to 32,768 runs the spectral CQT kernel
 (:mod:`zaftpu_torch.kernels.cqtfft`: each frame's real FFT and the

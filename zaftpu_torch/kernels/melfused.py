@@ -1,5 +1,5 @@
-"""The magnitude and mel front ends: CUDA kernels (``csrc/melfused.cu``) and
-their plain versions.
+"""The magnitude and mel front ends' GEMM kernels (``csrc/melfused.cu``),
+their plain versions, and the front ends' route.
 
 ``spec_rows`` replaces ``zaftpu/pallas/melfused.py: _spec_rows_impl`` (the
 one-pass magnitude spectrogram) and ``mel_rows`` its ``_mel_rows_impl``
@@ -10,22 +10,25 @@ the plain versions alike, not complex ``abs``, which may round otherwise at
 the last ulp. The filterbank GEMM is full FP32, as ``zaftpu`` runs it at
 HIGHEST in every precision mode.
 
-The front ends take these kernels at the window lengths the real-FFT
-kernel does not cover (:func:`kernel_wanted`); where its shape rule holds
-they take its half spectrum, ``|·|`` and the filterbank product, unless
-``ZAFTPU_MELFUSE=1`` forces the kernels.
+:func:`route` sends ``spectrogram``, ``melspectrogram`` and ``mfcc`` one of
+three ways. Where the real-FFT kernel's shape rule holds
+(:func:`zaftpu_torch.kernels.rfft.applies`) they take its magnitude and mel
+stores (:mod:`zaftpu_torch.kernels.melfft`) on both dials, as ``zaftpu``
+takes its one-pass mel kernel by default on its accelerator; these GEMM
+kernels take every other window, an explicit operator and
+``ZAFTPU_FFT=matmul``.
 
 Under ``ZAFTPU_PRECISION=split4`` the front ends leave these kernels for
-the split4 half spectrum (:func:`kernel_wanted`), as ``zaftpu``'s do. Forced
-with ``ZAFTPU_MELFUSE=1``, ``spec_rows`` stays exact (it has no split4
-twin, in ``zaftpu`` either) and ``mel_rows`` takes its split4 twin
+the split4 half spectrum off the rule (:func:`route`), as ``zaftpu``'s do.
+Forced with ``ZAFTPU_MELFUSE=1``, ``spec_rows`` stays exact (it has no
+split4 twin, in ``zaftpu`` either) and ``mel_rows`` takes its split4 twin
 ``mel_rows_split4``, the port of ``zaftpu``'s ``_kernel_split4``: the rDFT
 by four bf16 passes on the tensor cores, the operator presplit on the host,
 the filterbank product still FP32.
 
 ``ZAFTPU_MELFUSE=0`` is ``zaftpu``'s A/B lever: ``spectrogram``,
 ``melspectrogram`` and ``mfcc`` then take the split path (the half spectrum
-from the analysis dispatch, ``|·|`` and ``exact_matmul``).
+from the analysis dispatch, ``|·|`` and ``exact_matmul``) at every window.
 """
 
 from __future__ import annotations
@@ -51,25 +54,33 @@ REPLACES_MEL = "zaftpu/pallas/melfused.py:263"   # _mel_rows_impl
 REPLACES_MEL_SPLIT4 = "zaftpu/pallas/melfused.py:142"  # _kernel_split4
 
 
-def kernel_wanted(dtype: torch.dtype, window_length: int) -> bool:
-    """Take the one-pass kernels for a ``dtype`` signal framed at
-    ``window_length``? ``ZAFTPU_MELFUSE=1`` forces them and ``0`` refuses
-    them (``zaftpu``'s A/B lever). Otherwise no where split4 applies
-    (float32; ``zaftpu``'s gate, melfused.py:87-95: the split4 dial's half
-    spectrum carries the front ends, the FFT's where the shape rule holds
-    and B1's twin elsewhere) or where the FFT shape rule
-    (:func:`zaftpu_torch.kernels.rfft.applies`) gives the half spectrum:
-    these kernels run B1's GEMM tile, and the FFT's half spectrum with
-    ``|·|`` and one filterbank product is 6.7 to 9 times faster on an H100
-    (PERF.md). Yes at any other window. Unlike ``zaftpu``'s there is no
-    hop, rank or operator-size condition: the kernels take any hop up to
-    WL and any batch, and the operator lives in device memory."""
+def route(dtype: torch.dtype, window_length: int) -> str:
+    """How ``spectrogram``, ``melspectrogram`` and ``mfcc`` compute a
+    ``dtype`` signal framed at ``window_length``: ``"fft"`` (the real-FFT
+    kernel's magnitude and mel stores, :mod:`zaftpu_torch.kernels.melfft`),
+    ``"kernel"`` (``spec_rows`` and ``mel_rows``, or its split4 twin under
+    split4) or ``"split"`` (the analysis dispatch's half spectrum, ``|·|``
+    and one filterbank product).
+
+    ``ZAFTPU_MELFUSE=0`` (``zaftpu``'s A/B lever) gives ``"split"`` at every
+    window. Otherwise the FFT shape rule
+    (:func:`zaftpu_torch.kernels.rfft.applies`) gives ``"fft"`` on both
+    dials, ``ZAFTPU_MELFUSE`` ``auto`` or ``1``: the stores compute exact
+    values, as the FFT analysis does on the split4 dial. Where the rule
+    refuses (or under ``ZAFTPU_FFT=matmul``) ``1`` gives ``"kernel"``, and
+    the default ``auto`` gives ``"kernel"`` on the exact dial and
+    ``"split"`` where split4 applies (float32; ``zaftpu``'s gate,
+    melfused.py:87-95: the split4 half spectrum carries the front ends).
+    Unlike ``zaftpu``'s there is no hop, rank or operator-size condition:
+    every path takes any hop up to WL and any batch."""
     melfuse = os.environ.get("ZAFTPU_MELFUSE", "auto")
-    if melfuse == "1":
-        return True
-    if melfuse == "0" or split4_applies(dtype):
-        return False
-    return not _rfft.applies(window_length)
+    if melfuse == "0":
+        return "split"
+    if _rfft.applies(window_length):
+        return "fft"
+    if melfuse == "1" or not split4_applies(dtype):
+        return "kernel"
+    return "split"
 
 
 @lru_cache(maxsize=8)

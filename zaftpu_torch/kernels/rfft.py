@@ -10,7 +10,9 @@ interleaved complex (:func:`frames_rfft_fft`), as two float32 planes
 mirror written by the kernel's store (:func:`frames_rfft_full_fft`), from one
 kernel body. The TPU kernels contract each frame with a dense cos/sin
 operator; this one runs an FFT, so it is bound by its bytes, not by FP32
-arithmetic.
+arithmetic. The same body's magnitude and mel stores have their wrappers
+in :mod:`zaftpu_torch.kernels.melfft`, which checks its inputs with
+:func:`device_inputs`.
 
 :func:`applies` is the shape rule that :mod:`zaftpu_torch.kernels.fused`
 uses to send both dials here: an even window length from
@@ -310,12 +312,11 @@ def frames_rfft_full_fft(padded: torch.Tensor, window: torch.Tensor,
     return out
 
 
-def _launch(name: str, store: str, padded: torch.Tensor,
-            window: torch.Tensor, window_length: int, step: int,
-            number_times: int):
-    """Check a CUDA input and launch one store, the C entry
-    ``zt_rfft_<store>``: ``half`` (complex), ``planes`` (two float32
-    planes) or ``full`` (complex, mirrored)."""
+def device_inputs(name: str, padded: torch.Tensor, window: torch.Tensor,
+                  window_length: int, step: int, number_times: int) -> tuple:
+    """Check a CUDA input for the kernel's C entries ``zt_rfft_*``; return
+    the signal as ``(batch, L)``, the float32 window and twiddle table on
+    its device, and the leading axes."""
     check_frame_args(name, padded, window, window_length, step,
                      number_times)
     if not fits(window_length):
@@ -323,18 +324,28 @@ def _launch(name: str, store: str, padded: torch.Tensor,
                          f"[{MIN_WINDOW}, {MAX_WINDOW}], with no prime factor "
                          f"above {MAX_PRIME} in its half, got "
                          f"{window_length}")
+    sig = padded.reshape(-1, padded.shape[-1]).contiguous()
+    # Frame groups ride grid x (2^31 - 1 blocks), the batch grid y.
+    _build.require_grid(sig.shape[0], 1, name)
+    dev = padded.device
+    win = window.to(device=dev, dtype=torch.float32).contiguous()
+    return (sig, win, twiddles(window_length, torch.float32, dev),
+            padded.shape[:-1])
+
+
+def _launch(name: str, store: str, padded: torch.Tensor,
+            window: torch.Tensor, window_length: int, step: int,
+            number_times: int):
+    """Check a CUDA input and launch one store, the C entry
+    ``zt_rfft_<store>``: ``half`` (complex), ``planes`` (two float32
+    planes) or ``full`` (complex, mirrored)."""
+    sig, win, tw, lead = device_inputs(name, padded, window, window_length,
+                                       step, number_times)
     entry = f"zt_rfft_{store}"
     wl, t = window_length, number_times
     f = wl if store == "full" else wl // 2 + 1
-    length = padded.shape[-1]
-    lead = padded.shape[:-1]
-    sig = padded.reshape(-1, length).contiguous()
-    batch = sig.shape[0]
-    # Frame groups ride grid x (2^31 - 1 blocks), the batch grid y.
-    _build.require_grid(batch, 1, name)
+    batch, length = sig.shape
     dev = padded.device
-    win = window.to(device=dev, dtype=torch.float32).contiguous()
-    tw = twiddles(wl, torch.float32, dev)
     if store == "planes":
         out = torch.empty((2, batch, t, f), dtype=torch.float32, device=dev)
     else:

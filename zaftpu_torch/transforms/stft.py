@@ -13,9 +13,11 @@ mirror it. The synthesis runs the inverse real-FFT + overlap-add kernel
 where the rule holds and the fused inverse GEMM + overlap-add kernel at
 any other window (:mod:`zaftpu_torch.kernels`); under
 ``ZAFTPU_PRECISION=split4`` the GEMM kernels run their split4 twins, the
-FFT kernels stay. The spectrogram takes the half spectrum and ``|·|``
-where the rule holds and the one-pass magnitude kernel at any other window
-(:mod:`zaftpu_torch.kernels.melfused`). ``ZAFTPU_FULLSPEC=0`` takes the
+FFT kernels stay. The spectrogram takes the real-FFT kernel's magnitude
+store where the rule holds (:mod:`zaftpu_torch.kernels.melfft`) and the
+one-pass magnitude GEMM kernel at any other window on the exact dial
+(:func:`zaftpu_torch.kernels.melfused.route`; ``ZAFTPU_MELFUSE=0``: the half
+spectrum and ``|·|`` everywhere). ``ZAFTPU_FULLSPEC=0`` takes the
 half spectrum and the index mirror at every window, ``1`` the full
 spectrum at every window (the GEMM B3, or its twin, off the rule), and
 ``ZAFTPU_MIRROR=pallas`` the half spectrum with the mirror and the
@@ -42,6 +44,7 @@ from zaftpu_torch import kernels as _kernels
 from zaftpu_torch.core import fft as _fft
 from zaftpu_torch.core import frame as _frame
 from zaftpu_torch.core import validate as _validate
+from zaftpu_torch.kernels import melfft as _melfft
 from zaftpu_torch.kernels import melfused as _melfused
 
 
@@ -208,16 +211,18 @@ def spectrogram(audio_signal, window_function=None,
     Inputs as :func:`stft` (``config=`` takes a
     :class:`zaftpu_torch.config.StftConfig`). Output: real
     ``(..., window_length/2, number_times)``, a transposed view of a
-    frames-major tensor. The one-pass magnitude kernel where
-    :func:`zaftpu_torch.kernels.melfused.kernel_wanted`, else the half
-    spectrum and ``|·|``.
+    frames-major tensor. The real-FFT kernel's magnitude store, the
+    one-pass magnitude kernel or the half spectrum and ``|·|``, as
+    :func:`zaftpu_torch.kernels.melfused.route` says.
     """
     x, win, step = _analysis_inputs(audio_signal, window_function,
                                     step_length, config)
     wl = win.shape[0]
-    if _melfused.kernel_wanted(x.dtype, wl):
-        padded, t = centre_padded(x, wl, step)
-        spec = _melfused.spec_rows(padded, win, wl, step, t)
-    else:
+    route = _melfused.route(x.dtype, wl)
+    if route == "split":
         spec = _stft_frames_half(x, win, step)[..., 1:].abs()
+    else:
+        padded, t = centre_padded(x, wl, step)
+        rows = _melfft.spec_rows_fft if route == "fft" else _melfused.spec_rows
+        spec = rows(padded, win, wl, step, t)
     return spec.transpose(-1, -2)
