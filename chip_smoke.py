@@ -10,7 +10,7 @@ non-zero exit and no result line:
 
 1. device: the card's name and power limit (as nvidia-smi gives them),
    torch and CUDA versions; TF32 off for matmuls and cuDNN;
-2. build: the thirty kernels from zaftpu_torch/csrc (one nvcc per
+2. build: the thirty-one kernels from zaftpu_torch/csrc (one nvcc per
    source, all started together), with the seconds taken;
 3. kernels: each kernel against its plain PyTorch version on the card at
    its main-path shape (WL 2048, hop 1024, a 600-s segment: T = 25,841;
@@ -170,6 +170,41 @@ non-zero exit and no result line:
    ZAFTPU_FFT=matmul (B10-s4); frames/s from CUDA events (printed, not
    gated).
 
+Phases 3 and 12-14 cover the DCT / DST, the windows above 4,096 and
+Griffin-Lim. In phase 3 the inverse real-FFT kernel's windowed store
+(Griffin-Lim's synthesis) is bit-equal to its plain version at 600 s of
+Hamming 2048 / hop 512 (T 51,681; timed beside its plain version, its byte
+bound and torch.istft with the window, which computes the same ifft times
+the window, overlap-add and envelope division), at Tacotron's 24 kHz front
+end (Hann 1,200 / hop 300, T 48,001; timed) and at a ragged batch (3 rows
+of WL 400 / hop 160, misaligned). Then, after phase 9:
+
+12. windows above 4,096: stft -> istft (Hamming 8,192 / hop 4,096, T
+   6,461), mdct -> imdct (vorbis 8,192) and spectrogram / mel / MFCC at WL
+   8,192 of the 600-s signal on both dials and under ZAFTPU_FFT=matmul
+   (the four-step engine), and at WL 5,000; each within 1e-5 * max of a
+   float64 torch.fft oracle (MFCC atol 5e-3), round trips >= 120 dB, and
+   launch counts showing the framing and OLA kernels ran and no other; the
+   four-step rfft of the 8,192-point frames timed beside torch.fft.rfft
+   (the default route there), and the round trips timed;
+13. Griffin-Lim, 32 iterations on 60 s at Hamming 2,048 / hop 512, at
+   Tacotron's 24 kHz front end and at tests/test_griffinlim.py's WL 512 /
+   hop 256: the magnitude from stft under ZAFTPU_FULLSPEC=0 (the half
+   store) and griffin_lim, with launch counts showing 33 launches each of
+   the half store and the windowed store (and one OLA for the envelope)
+   and no plain version; the spectral error of the result no more than
+   0.005 above that of a float64 torch.fft run of the same algorithm on the
+   card, and below 0.1 at WL 512 / hop 256 (tests/test_griffinlim.py's
+   gate); one 600-s call timed, with its peak device memory;
+14. DCT / DST: the eight transforms of the 25,841 Hamming frames of the
+   600-s signal at N 2,048 (211.7 MB) on the direct operator and on the
+   embedded FFTs (the cores called directly), and N 4,100 and 8,192 on
+   1,000 rows (the embedded FFTs on torch.fft), each within 1e-5 * max of
+   a float64 product on the card with an operator built here from
+   scipy.fftpack's definitions; the inverse pairs within the same bound,
+   no kernel launched, each timed, N 2,048 with the operator GEMM's bound
+   (2 * T * N^2 FLOP at the FP32 peak).
+
 The CQT kernel is built on the host without the disk cache
 (ZAFTPU_CACHE=0), so the run writes nothing outside the checkout.
 
@@ -194,13 +229,14 @@ import zaftpu_torch
 from zaftpu_torch import CqtConfig, MelConfig
 from zaftpu_torch.core import fft, policy
 from zaftpu_torch.core.frame import stft_padding
-from zaftpu_torch.core.windows import hamming, vorbis
+from zaftpu_torch.core.windows import hamming, hann, vorbis
 from zaftpu_torch.features.mel import dct_ii_ortho_matrix, melfilterbank
 from zaftpu_torch.kernels import (_build, cqtfft, cqtslab, framing, fused,
                                   irfft, melfft, melfused, mirror, ola, rfft,
                                   synth)
 from zaftpu_torch.kernels import mdct as kmdct
 from zaftpu_torch.transforms import cqt as tcqt
+from zaftpu_torch.transforms import dct as tdct
 from zaftpu_torch.transforms import mdct as tmdct
 
 SR = 44100
@@ -267,6 +303,24 @@ CQT_WIDE = CqtConfig(minimum_frequency=27.5)
 # A small dense foreign CQT kernel with columns above L/2 (read as
 # conjugates): F, L, hop, T, batch rows, signal offset.
 CQT_FOREIGN = (12, 1024, 160, 301, 2, 1)
+# Windows above 4,096: a power of two (the four-step engine under
+# ZAFTPU_FFT=matmul, torch.fft by default) and one that is not (torch.fft).
+LONG_WL = 8192
+LONG_ODD_WL = 5000
+# Griffin-Lim: (label, rate, WL, hop, window); 60 s, 32 iterations. The
+# 25-ms-class Hamming 2048 / hop 512, Tacotron's 24 kHz front end (50-ms /
+# 12.5-ms Hann) and tests/test_griffinlim.py's WL 512 / hop 256.
+GL_CASES = (("hamming 2048/512", SR, 2048, 512, hamming),
+            ("tacotron 24 kHz", 24000, 1200, 300, hann),
+            ("test 512/256", SR, 512, 256, hamming))
+GL_SECONDS = 60
+GL_ITERATIONS = 32
+GL_MAX_ERROR = 0.1      # tests/test_griffinlim.py, at its WL 512 / hop 256
+GL_ORACLE_MARGIN = 0.005  # above the float64 run's spectral error
+# The DCT / DST: N 2048 on the 600-s signal's frames; N 4,100 and 8,192 on
+# 1,000 rows past the direct operator.
+DCT_LONG = (4100, 8192)
+DCT_LONG_ROWS = 1000
 SEED = 20260816
 EXACT_TOL = 0.0
 GEMM_TOL = 2e-5     # x max|ref|; TF32 would read about 1e-3
@@ -354,6 +408,9 @@ KERNELS = {
     "synth_fft": (irfft.CUDA_SOURCE,
                   f"{irfft.REPLACES} and {irfft.REPLACES_SPLIT4}",
                   irfft.istft_ola_fft, irfft.istft_ola_fft_plain),
+    "synth_fft_window": (irfft.CUDA_SOURCE, irfft.REPLACES_WINDOW,
+                         irfft.istft_ola_fft_window,
+                         irfft.istft_ola_fft_window_plain),
     "imdct_ola_split4": (synth.CUDA_SOURCE, synth.REPLACES_SPLIT4,
                          synth.imdct_ola_split4,
                          synth.imdct_ola_split4_plain),
@@ -738,6 +795,19 @@ def _kernel_cases(dev, main_t: int):
                f"{mels} offset {offset} power {power}",
                (padded, win, table, wl, step, t, power), EXACT_TOL)
     del padded
+    # The windowed store (Griffin-Lim's synthesis), bit-equal to its plain
+    # version: 600 s at Hamming 2048 / hop 512 (its main-path shape, timed
+    # beside torch.istft with the window), Tacotron's 24 kHz Hann 1200 /
+    # 300 (timed) and a misaligned ragged batch.
+    for label, sr, wl, step, window, rows, offset in (
+            ("main", SR, 2048, 512, hamming, 1, 0),
+            ("tacotron", 24000, 1200, 300, hann, 1, 0),
+            ("ragged", SR, 400, 160, hamming, 3, 1)):
+        args = _window_store_args(sr, wl, step, window, rows, offset, dev)
+        yield ("synth_fft_window", label,
+               f"{rows} rows WL {wl} hop {step} T {args[0].shape[-2]} "
+               f"offset {offset}", args, EXACT_TOL)
+        del args
     main_cqt_t = SEGMENT_SECONDS * SR // _cqt_step(CqtConfig())  # 15,000
     # The spectral kernel (B10 and B10-s4 at every power-of-two L up to
     # 32,768), bit-equal to its plain version: CqtConfig()'s main-path
@@ -788,6 +858,26 @@ def _kernel_cases(dev, main_t: int):
                     length, t, kern.number_frequencies), GEMM_TOL)
 
 
+def _window_store_args(sr: int, wl: int, step: int, window, rows: int,
+                       offset: int, dev) -> tuple:
+    """The windowed store's arguments: the half-spectrum planes of a 600-s
+    segment's frames at ``sr`` (of 1,001 frames a row when ``rows`` > 1),
+    copied ``offset`` floats into a buffer, the window and the floored
+    envelope, as griffin_lim hands them over."""
+    t = (stft_padding(SEGMENT_SECONDS * sr, wl, step)[2] if rows == 1
+         else 1001)
+    n = (t - 1) * step + wl
+    win = torch.from_numpy(window(wl).astype(np.float32)).to(dev)
+    sig = torch.from_numpy(np.resize(segment(2), rows * n).astype(
+        np.float32)).to(dev).reshape(rows, n).squeeze(0)
+    half = fused.frames_rfft_plain(sig, win, wl, step, t)
+    flat = torch.zeros(2 * half.numel() + offset, device=dev)
+    planes = flat[offset:].view(2, *half.shape)
+    planes[0], planes[1] = half.real, half.imag
+    wsq = ola.overlap_add_plain((win * win).expand(t, wl), step)
+    return planes[0], planes[1], wl, step, win, wsq.clamp_min(1e-12)
+
+
 def _rows(x: torch.Tensor) -> int:
     """Rows of ``x`` over its last axis (batch and frames together)."""
     return x.numel() // max(x.shape[-1], 1)
@@ -815,6 +905,17 @@ def _work(name: str, args: tuple) -> tuple[float, float, float]:
     twins do their GEMM in four bf16 passes; the rest is FP32 work."""
     base = name.removesuffix("_split4")
     passes = 4 if base != name else 1  # the split4 twins' bf16 passes
+    if base == "synth_fft_window":
+        # The inverse real FFT as synth_fft's, the window's product (1 a
+        # sample) and the divide by the envelope (1 an output sample); both
+        # planes, the twiddle table, the window and the envelope read once,
+        # the signal written once.
+        s_re, _, n, step, _, wsq = args
+        t, f = s_re.shape[-2], s_re.shape[-1]
+        b = _rows(s_re) // t
+        out = b * ((t - 1) * step + n)
+        return (0, b * t * (_fft_ops(n) + 12 * (n // 2) + 3 * n) + out,
+                4 * 2 * b * t * f + 12 * n + 4 * wsq.numel() + 4 * out)
     if base in ("synth", "synth_fft"):
         h_re, _, n, step, _ = args[:5]
         b, t, f = _rows(h_re) // h_re.shape[-2], h_re.shape[-2], h_re.shape[-1]
@@ -965,6 +1066,12 @@ def library_call(name: str, args: tuple):
                                   onesided=not full, return_complex=True)
     if base in ("synth", "synth_fft"):
         return synth_library(*args[:5])
+    if base == "synth_fft_window":
+        s_re, s_im, wl, step, win, _ = args
+        if float(win.min()) <= 0:  # torch.istft refuses a vanishing envelope
+            return None
+        spec = torch.complex(s_re, s_im).transpose(-1, -2)
+        return lambda: torch.istft(spec, wl, step, window=win, center=False)
     if base == "ola":
         frames, step = args
         t, wl = frames.shape
@@ -1096,7 +1203,7 @@ def phase_kernels(dev) -> dict:
             wl, step, t = args[2], args[3], args[0].shape[-2]
             print(f"  {name}: {irfft_transforms(wl, step, t):.4f} frames "
                   "transformed per output frame")
-        if label in ("main", "40 ms", "25 ms", "whisper") or (
+        if label in ("main", "40 ms", "25 ms", "whisper", "tacotron") or (
                 label == "operator"
                 and name in SYNTH_GEMMS + FULL_GEMMS + CQT_GEMMS):
             ms = median_ms(lambda: kernel(*args))
@@ -1104,7 +1211,8 @@ def phase_kernels(dev) -> dict:
                                  warmup=2 if plain_reps == 10 else 1)
             lib = library_call(name, args)
             library_ms = None if lib is None else median_ms(lib)
-            if name.removesuffix("_split4") in ("synth", "synth_fft"):
+            if lib is not None and name.removesuffix("_split4") in (
+                    "synth", "synth_fft", "synth_fft_window"):
                 wl = args[2]
                 lerr = _max_abs((lib() - kernel(*args))[..., wl:-wl])
                 print(f"  {name}: torch.istft yardstick vs kernel, interior "
@@ -1653,6 +1761,325 @@ def phase_hour_cqt(dispatch: str, segs: list) -> None:
           + " (median of 3)")
 
 
+def _timed_ms(fn, reps: int = 3) -> float:
+    """Median CUDA-event time of ``fn`` over ``reps`` runs after one."""
+    return median_ms(fn, reps=reps, warmup=1)
+
+
+def phase_long_window(dispatch: str, x: torch.Tensor) -> dict:
+    """stft -> istft, mdct -> imdct and spectrogram / mel / MFCC of the
+    600-s signal at the window the dispatch names (above 4,096): each
+    against its float64 torch.fft oracle and the exact gates (no GEMM of
+    these paths is one the split4 dial lowers), with launch counts showing
+    the framing kernel (five calls) and the OLA kernel (two) ran and no
+    other; returns those counts."""
+    wl = _dispatch_wl(dispatch)
+    step = wl // 2
+    win, tdac = hamming(wl), vorbis(wl)
+    cfg = MelConfig(window_length=wl, step_length=step)
+    reset_counters()
+    spec = zaftpu_torch.stft(x, win, step)
+    rec = zaftpu_torch.istft(spec, win, step)
+    coeffs = zaftpu_torch.mdct(x, tdac)
+    mrec = zaftpu_torch.imdct(coeffs, tdac)
+    feats = (zaftpu_torch.spectrogram(x, cfg.window_array(), step),
+             zaftpu_torch.melspectrogram(x, config=cfg),
+             zaftpu_torch.mfcc(x, config=cfg))
+    torch.cuda.synchronize()
+    launches = check_counters(f"long-window path [{dispatch}]",
+                              ("framing", "ola"))
+    require(launches == {"framing": 5, "ola": 2},
+            f"[{dispatch}] launches {launches}, want framing 5, ola 2")
+    err, scale = oracle_error(x, spec, wl, step)
+    snr = snr_db(x, rec)
+    print(f"long-window path [{dispatch}]: stft {tuple(spec.shape)} "
+          f"max_abs_err vs f64 oracle {err!r} (ratio {err / scale!r}); "
+          f"round-trip SNR {snr!r} dB")
+    check_gates(f"long-window stft {dispatch}", err, scale, snr, EXACT_GATES)
+    oracle = mdct_oracle(x, wl)
+    err, scale = _max_abs(coeffs.T.double() - oracle), _max_abs(oracle)
+    # The reference's trim leaves the inverse one sample short when F
+    # divides the signal (WL 5000 here).
+    snr = snr_db(x[..., :mrec.shape[-1]], mrec)
+    print(f"long-window path [{dispatch}]: mdct {tuple(coeffs.shape)} "
+          f"max_abs_err vs f64 oracle {err!r} (ratio {err / scale!r}); "
+          f"round-trip SNR {snr!r} dB")
+    check_gates(f"long-window mdct {dispatch}", err, scale, snr, EXACT_GATES)
+    for name, got, oracle, tol in zip(
+            ("spectrogram", "melspectrogram", "mfcc"), feats,
+            mel_oracles(x, cfg), (ORACLE_TOL, ORACLE_TOL, None)):
+        require(tuple(got.shape) == tuple(oracle.T.shape) and got.is_cuda,
+                f"[{dispatch}] {name} {tuple(got.shape)}")
+        err, scale = _max_abs(got.T.double() - oracle), _max_abs(oracle)
+        limit = MFCC_ATOL if tol is None else tol * scale
+        print(f"long-window path [{dispatch}]: {name} max_abs_err vs f64 "
+              f"oracle {err!r} (max|oracle| {scale!r})")
+        require(np.isfinite(err) and err <= limit,
+                f"[{dispatch}] {name} error {err} > {limit}")
+    if not dispatch.startswith("split4"):
+        times = {"stft": _timed_ms(lambda: zaftpu_torch.stft(x, win, step)),
+                 "istft": _timed_ms(
+                     lambda: zaftpu_torch.istft(spec, win, step)),
+                 "mdct": _timed_ms(lambda: zaftpu_torch.mdct(x, tdac)),
+                 "imdct": _timed_ms(lambda: zaftpu_torch.imdct(coeffs,
+                                                               tdac))}
+        print(f"long-window path [{dispatch}]: 600 s round trips "
+              + "; ".join(f"{k} {v:.4f} ms" for k, v in times.items())
+              + " (median of 3)")
+    if dispatch.startswith("default") and wl & (wl - 1) == 0:
+        # The four-step rfft of the frames (the ZAFTPU_FFT=matmul lever)
+        # beside torch.fft.rfft of the same frames (the default route past
+        # 4,096, and the library yardstick).
+        pad_front, pad_back, t = stft_padding(x.shape[-1], wl, step)
+        padded = torch.nn.functional.pad(x, (pad_front, pad_back))
+        frames = (padded.unfold(-1, wl, step)[:t]
+                  * torch.from_numpy(win.astype(np.float32)).to(x.device))
+        frames = frames.contiguous()
+        ours = fft.matmul_rfft(frames)
+        lib = torch.fft.rfft(frames)
+        ref = torch.fft.rfft(frames.double())
+        ferr = _max_abs(ours.to(torch.complex128) - ref)
+        lerr = _max_abs(lib.to(torch.complex128) - ref)
+        print(f"long-window path [{dispatch}]: rfft of the "
+              f"{tuple(frames.shape)} frames: four-step engine "
+              f"{_timed_ms(lambda: fft.matmul_rfft(frames), 10):.4f} ms "
+              f"(max_abs_err vs f64 {ferr!r}), torch.fft.rfft "
+              f"{_timed_ms(lambda: torch.fft.rfft(frames), 10):.4f} ms "
+              f"({lerr!r}); max|ref| {_max_abs(ref)!r}")
+        require(ferr <= ORACLE_TOL * _max_abs(ref),
+                f"four-step rfft error {ferr}")
+        del padded, frames, ours, lib, ref
+    return launches
+
+
+def gl_spectral_error(mag: torch.Tensor, signal: torch.Tensor,
+                      win64: torch.Tensor, step: int) -> float:
+    """tests/test_griffinlim.py's measure in float64 on the card: the
+    relative Frobenius error of the result's |STFT| (bins 0..WL/2, the
+    STFT's centre pad) against the target magnitude, over their common
+    frames."""
+    wl = win64.shape[0]
+    pad_front, pad_back, t = stft_padding(signal.shape[-1], wl, step)
+    padded = torch.nn.functional.pad(signal.double(), (pad_front, pad_back))
+    spec = torch.fft.rfft(padded.unfold(-1, wl, step)[:t] * win64).abs().T
+    t = min(spec.shape[1], mag.shape[1])
+    target = mag[:, :t].double()
+    return float(torch.linalg.norm(spec[:, :t] - target)
+                 / torch.linalg.norm(target))
+
+
+def gl_oracle(mag: torch.Tensor, win64: torch.Tensor, step: int,
+              iterations: int, momentum: float = 0.99) -> torch.Tensor:
+    """zaftpu's Griffin-Lim loop (griffinlim.py:28-66) in float64 on the
+    card with torch.fft, unfold and fold; a check only, never on the
+    path."""
+    wl = win64.shape[0]
+    mag_tf = mag.double().T
+    t = mag_tf.shape[0]
+    out_len = (t - 1) * step + wl
+
+    def ola(frames):
+        return torch.nn.functional.fold(
+            frames.T[None], (1, out_len), (1, wl), stride=(1, step)).reshape(
+                out_len)
+
+    wsq = ola((win64 * win64).expand(t, wl)).clamp_min(1e-12)
+    beta = momentum / (1.0 + momentum)
+    angles = torch.ones_like(mag_tf, dtype=torch.complex128)
+    prev = torch.zeros_like(angles)
+    for _ in range(iterations):
+        signal = ola(torch.fft.irfft(mag_tf * angles, n=wl) * win64) / wsq
+        rebuilt = torch.fft.rfft(signal.unfold(0, wl, step)[:t] * win64)
+        accel = rebuilt - beta * prev
+        angles = accel / accel.abs().clamp_min(1e-16)
+        prev = rebuilt
+    signal = ola(torch.fft.irfft(mag_tf * angles, n=wl) * win64) / wsq
+    return signal[wl - step:out_len - (wl - step)]
+
+
+def phase_griffin_lim(case: tuple, x: torch.Tensor) -> dict:
+    """The magnitude of 60 s of the signal (read at the case's rate) from
+    stft (ZAFTPU_FULLSPEC=0: the half store), then griffin_lim, 32
+    iterations: 33 launches each of the half store and the windowed store
+    and one OLA (the envelope), no plain version; the spectral error no
+    more than GL_ORACLE_MARGIN above the float64 run's (and below
+    GL_MAX_ERROR at tests/test_griffinlim.py's WL 512 / hop 256); returns
+    the launch counts."""
+    label, sr, wl, step, window = case
+    sig = x[..., :GL_SECONDS * sr]
+    win = window(wl)
+    win64 = torch.from_numpy(win).to(x.device)
+    reset_counters()
+    mag = zaftpu_torch.stft(sig, win, step)[:wl // 2 + 1].abs()
+    out = zaftpu_torch.griffin_lim(mag, win, step, iterations=GL_ITERATIONS)
+    torch.cuda.synchronize()
+    launches = check_counters(f"griffin-lim [{label}]",
+                              ("fused_fft", "synth_fft_window", "ola"))
+    want = {"fused_fft": GL_ITERATIONS + 1,
+            "synth_fft_window": GL_ITERATIONS + 1, "ola": 1}
+    require(launches == want, f"[{label}] launches {launches}, want {want}")
+    t = mag.shape[1]
+    require(out.is_cuda and out.dtype == torch.float32
+            and tuple(out.shape) == ((t - 1) * step + wl - 2 * (wl - step),)
+            and bool(torch.isfinite(out).all()),
+            f"[{label}] output {tuple(out.shape)} {out.dtype}")
+    err = gl_spectral_error(mag, out, win64, step)
+    ref = gl_spectral_error(mag, gl_oracle(mag, win64, step, GL_ITERATIONS),
+                            win64, step)
+    print(f"griffin-lim [{label}]: {GL_SECONDS} s, T {t}, {GL_ITERATIONS} "
+          f"iterations: spectral error {err!r}; float64 oracle's {ref!r}")
+    require(err <= ref + GL_ORACLE_MARGIN,
+            f"[{label}] spectral error {err} > {ref} + {GL_ORACLE_MARGIN}")
+    if (wl, step) == (512, 256):
+        require(err < GL_MAX_ERROR,
+                f"[{label}] spectral error {err} >= {GL_MAX_ERROR}")
+    return launches
+
+
+def phase_griffin_lim_600s(x: torch.Tensor) -> None:
+    """One 600-s griffin_lim at Hamming 2048 / hop 512 (T 51,681), 32
+    iterations: its time (CUDA events) and peak device memory above the
+    magnitude."""
+    wl, step = 2048, 512
+    win = hamming(wl)
+    mag = zaftpu_torch.stft(x, win, step)[:wl // 2 + 1].abs().contiguous()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    e0.record()
+    out = zaftpu_torch.griffin_lim(mag, win, step, iterations=GL_ITERATIONS)
+    e1.record()
+    e1.synchronize()
+    ms = e0.elapsed_time(e1)
+    peak = torch.cuda.max_memory_allocated() - base
+    require(bool(torch.isfinite(out).all()), "600-s griffin-lim not finite")
+    # An iteration's two kernels alone at this shape (median of 10): the
+    # windowed store on the magnitude's planes, the half store on its
+    # output; the rest of an iteration is the elementwise projection.
+    t = mag.shape[1]
+    s_re = mag.T.contiguous()
+    s_im = torch.zeros_like(s_re)
+    win_t = torch.from_numpy(win.astype(np.float32)).to(x.device)
+    wsq = ola.overlap_add((win_t * win_t).expand(t, wl), step).clamp_min(
+        1e-12)
+    synth_ms = median_ms(lambda: irfft.istft_ola_fft_window(
+        s_re, s_im, wl, step, win_t, wsq))
+    sig = irfft.istft_ola_fft_window(s_re, s_im, wl, step, win_t, wsq)
+    half_ms = median_ms(lambda: rfft.frames_rfft_fft(sig, win_t, wl, step, t))
+    print(f"griffin-lim 600 s (WL {wl}, hop {step}, T {t}, "
+          f"{GL_ITERATIONS} iterations): {ms:.3f} ms, "
+          f"{ms / GL_ITERATIONS:.4f} ms an iteration (the half store "
+          f"{half_ms:.4f}, the windowed store {synth_ms:.4f}, the rest "
+          f"{ms / GL_ITERATIONS - half_ms - synth_ms:.4f}); peak device "
+          f"memory {peak} bytes above the magnitude ({mag.numel() * 4} "
+          "bytes)")
+
+
+def dct_oracle_matrix(kind: str, ttype: int, n: int, dev) -> torch.Tensor:
+    """The orthonormal DCT / DST of type ``ttype`` as an ``(N, N)`` float64
+    matrix on ``dev``, ``y = x @ M``, from scipy.fftpack's definitions
+    (``norm="ortho"``), each phase reduced modulo its period in integers:
+    phase_dct's oracle, written apart from the port's closed forms and its
+    embeddings."""
+    if ttype == 3:
+        return dct_oracle_matrix(kind, 2, n, dev).T
+    j = torch.arange(n, device=dev)[:, None]
+    k = torch.arange(n, device=dev)[None, :]
+    if ttype == 1:
+        den = n - 1 if kind == "dct" else n + 1
+        num = j * k if kind == "dct" else (j + 1) * (k + 1)
+    elif ttype == 2:
+        den = 2 * n
+        num = (2 * j + 1) * (k if kind == "dct" else k + 1)
+    else:
+        den = 4 * n
+        num = (2 * j + 1) * (2 * k + 1)
+    # The angle is pi * num / den.
+    angle = (num % (2 * den)).double() * (np.pi / den)
+    mat = (torch.cos if kind == "dct" else torch.sin)(angle)
+    mat *= float(np.sqrt(2.0 / den)) if ttype == 1 else float(
+        np.sqrt(2.0 / n))
+    half = float(np.sqrt(0.5))
+    if kind == "dct" and ttype == 1:
+        mat[[0, -1], :] *= half
+        mat[:, [0, -1]] *= half
+    elif ttype == 2:
+        mat[:, 0 if kind == "dct" else -1] *= half
+    return mat
+
+
+def phase_dct(x: torch.Tensor) -> None:
+    """The eight DCT / DST transforms of the 600-s signal's Hamming frames
+    (N 2048, T 25,841) through the entry points (the direct operator) and
+    the embedded FFTs (the cores ``_dct_core`` / ``_dst_core`` called
+    directly: the direct GEMM rfft up to 4,096 points, torch.fft past it),
+    each within ORACLE_TOL * max of the float64 product with
+    :func:`dct_oracle_matrix` on the card, and the inverse pairs; N 4,100
+    and 8,192 on 1,000 rows (the embedded FFTs on torch.fft) against the
+    same oracle; no kernel launched; every case timed."""
+    n = WL
+    pad_front, pad_back, t = stft_padding(x.shape[-1], n, STEP)
+    padded = torch.nn.functional.pad(x, (pad_front, pad_back))
+    win = torch.from_numpy(hamming(n).astype(np.float32)).to(x.device)
+    frames = (padded.unfold(-1, n, STEP)[:t] * win).contiguous()
+    del padded
+    frames64 = frames.double()
+    bound_ms = 2 * t * n * n / PEAK_FP32 * 1e3
+    reset_counters()
+    for kind in ("dct", "dst"):
+        fn = getattr(zaftpu_torch, kind)
+        core = tdct._dct_core if kind == "dct" else tdct._dst_core
+        for ttype in (1, 2, 3, 4):
+            oracle = frames64 @ dct_oracle_matrix(kind, ttype, n, x.device)
+            scale = _max_abs(oracle)
+            errs, times = [], []
+            for route in (fn, core):
+                got = route(frames, ttype)
+                require(got.shape == frames.shape and got.is_cuda
+                        and got.dtype == torch.float32,
+                        f"{kind}-{ttype} {tuple(got.shape)} {got.dtype}")
+                errs.append(_max_abs(got.double() - oracle))
+                times.append(_timed_ms(lambda: route(frames, ttype)))
+                del got
+            print(f"dct path: {kind}-{ttype} N {n} T {t}: max_abs_err vs f64 "
+                  f"{errs[0]!r} direct, {errs[1]!r} embedded (max|oracle| "
+                  f"{scale!r}); {times[0]:.4f} ms direct, {times[1]:.4f} ms "
+                  f"embedded (median of 3); operator bound {bound_ms:.4f} ms")
+            require(max(errs) <= ORACLE_TOL * scale,
+                    f"{kind}-{ttype}: error {errs} > {ORACLE_TOL} * {scale}")
+            del oracle
+        for fwd, inv in ((1, 1), (2, 3), (4, 4)):
+            for route in (fn, core):
+                rec = route(route(frames, fwd), inv)
+                err = _max_abs(rec.double() - frames64)
+                require(err <= ORACLE_TOL * _max_abs(frames64),
+                        f"{kind} {fwd}->{inv} {route.__name__}: error {err}")
+            print(f"dct path: {kind} {fwd} -> {inv} returns the frames "
+                  f"within {ORACLE_TOL} * max on both routes")
+    del frames, frames64
+    for n in DCT_LONG:
+        rows = x[:DCT_LONG_ROWS * n].reshape(DCT_LONG_ROWS, n)
+        for kind in ("dct", "dst"):
+            fn = getattr(zaftpu_torch, kind)
+            for ttype in (1, 2, 3, 4):
+                got = fn(rows, ttype)
+                oracle = rows.double() @ dct_oracle_matrix(kind, ttype, n,
+                                                           x.device)
+                err, scale = _max_abs(got.double() - oracle), _max_abs(oracle)
+                ms = _timed_ms(lambda: fn(rows, ttype))
+                print(f"dct path: {kind}-{ttype} N {n} rows {DCT_LONG_ROWS}: "
+                      f"max_abs_err vs f64 {err!r} (max|oracle| {scale!r}); "
+                      f"{ms:.4f} ms")
+                require(err <= ORACLE_TOL * scale,
+                        f"{kind}-{ttype} N {n}: error {err} > {ORACLE_TOL} * "
+                        f"{scale}")
+                del got, oracle
+    torch.cuda.synchronize()
+    check_counters("dct path", ())
+
+
 LEVERS = ("ZAFTPU_FUSED", "ZAFTPU_SYNTH", "ZAFTPU_MELFUSE", "ZAFTPU_MIRROR",
           "ZAFTPU_FULLSPEC", "ZAFTPU_FUSED2", "ZAFTPU_FFT", "ZAFTPU_PRECISION",
           "ZAFTPU_CQT_SCHEME")
@@ -1757,6 +2184,23 @@ def main() -> int:
             launches[name] += count
         torch.cuda.empty_cache()
     print(f"chip_smoke: main paths at {time.perf_counter() - start:.1f} s")
+    # Windows above 4,096, Griffin-Lim (its magnitude from the half store)
+    # and the DCT / DST.
+    for env, phase, arg in (
+            (DEFAULT, phase_long_window, f"default WL {LONG_WL}"),
+            (SPLIT4, phase_long_window, f"split4 WL {LONG_WL}"),
+            (DEFAULT, phase_long_window, f"default WL {LONG_ODD_WL}"),
+            (FFT_MATMUL, phase_long_window,
+             f"ZAFTPU_FFT=matmul WL {LONG_WL}"),
+            *((FULLSPEC_OFF, phase_griffin_lim, case) for case in GL_CASES)):
+        for name, count in _with_env(env, phase, arg, x).items():
+            launches[name] += count
+        torch.cuda.empty_cache()
+    _with_env(DEFAULT, phase_griffin_lim_600s, x)
+    _with_env(DEFAULT, phase_dct, x)
+    torch.cuda.empty_cache()
+    print(f"chip_smoke: long windows, griffin-lim and dct at "
+          f"{time.perf_counter() - start:.1f} s")
     # Each lever against its dial's lever-free run at the same window, bit
     # for bit. At WL 2062 ZAFTPU_FULLSPEC=1 runs the GEMM B3 (B3-s4 under
     # split4), which the default leaves for B1 and the index mirror there.

@@ -3,18 +3,26 @@
     python3 scripts/torch_ab.py --kernel mel_rows mel_rows_split4 \
         --edit zaftpu_torch/csrc/melfused.cu \
         '(zt::kThreads, 2)\\nmel_rows_kernel' '(zt::kThreads)\\nmel_rows_kernel' \
-        [--ptxas mel_rows_kernel] [--label '25 ms']
+        [--ptxas mel_rows_kernel] [--label '25 ms'] [--launches 20]
+
+    python3 scripts/torch_ab.py --kernel synth_fft --tree build/parent
 
 Copies zaftpu_torch/ and chip_smoke.py into build/ab/ with each --edit
 applied (OLD must occur exactly once in FILE; backslash escapes such as
-\\n are decoded), then runs four worker processes in turn: the tree as it
-is (A), the edited copy (B), B, A. Each builds its own kernels, prints the
+\\n are decoded), or with --tree takes another checkout as it is (its
+zaftpu_torch/ and chip_smoke.py: say the parent commit, unpacked with
+``git archive`` into a directory that .gitignore lists), then runs four
+worker processes in turn: the tree as it is (A), the edited copy or the
+other tree (B), B, A. Each builds its own kernels, prints the
 registers and spills that ``nvcc -Xptxas -v`` reports for the entry
 functions whose names contain the --ptxas text, and times each --kernel
 (a chip_smoke.py KERNELS name) at its chip_smoke.py shapes of the --label
 case (main by default; "40 ms" and "25 ms" the FFT kernels' windows):
-median of 10 launches (CUDA events). Ends with each side's median of its
-two runs and B / A. Needs a CUDA card and nvcc; exits 1 without a card.
+median of 10 CUDA-event pairs around one launch, which includes the
+wrapper's host work before it, or with --launches N around N launches
+queued back to back, which leaves the device's time alone (divided by N).
+Ends with each side's median of its two runs and B / A. Needs a CUDA
+card and nvcc; exits 1 without a card.
 """
 
 from __future__ import annotations
@@ -69,7 +77,7 @@ def registers(log: str, needle: str) -> list[str]:
 
 
 def worker(root: str, side: str, kernels: list, needle: str,
-           label: str) -> None:
+           label: str, launches: int) -> None:
     sys.path.insert(0, root)
     os.environ["ZAFTPU_CACHE"] = "0"
     import torch
@@ -91,7 +99,8 @@ def worker(root: str, side: str, kernels: list, needle: str,
     for name, case, shape, args, _ in chip_smoke._kernel_cases(dev, main_t):
         if name in kernels and case == label:
             fn = chip_smoke.KERNELS[name][2]
-            ms = chip_smoke.median_ms(lambda: fn(*args))
+            ms = chip_smoke.median_ms(
+                lambda: [fn(*args) for _ in range(launches)]) / launches
             print(json.dumps({"side": side, "kernel": name, "shape": shape,
                               "ms": ms}), flush=True)
 
@@ -103,13 +112,17 @@ def main() -> int:
                         metavar=("FILE", "OLD", "NEW"))
     parser.add_argument("--ptxas", default="")
     parser.add_argument("--label", default="main")
+    parser.add_argument("--launches", type=int, default=1)
+    parser.add_argument("--tree", help="B: this checkout, not an edited "
+                        "copy")
     parser.add_argument("--worker", nargs=2, metavar=("ROOT", "SIDE"))
     args = parser.parse_args()
     if args.worker:
-        worker(*args.worker, args.kernel, args.ptxas, args.label)
+        worker(*args.worker, args.kernel, args.ptxas, args.label,
+               args.launches)
         return 0
-    if not args.edit:
-        parser.error("give at least one --edit")
+    if bool(args.edit) == bool(args.tree):
+        parser.error("give at least one --edit, or --tree")
     import torch
 
     if not torch.cuda.is_available():
@@ -119,13 +132,13 @@ def main() -> int:
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True, timeout=60)
     print(smi.stdout.strip().splitlines()[0])
-    copy = make_copy(args.edit)
+    copy = Path(args.tree).resolve() if args.tree else make_copy(args.edit)
     times: dict = {}
     for side, root in (("A", ROOT), ("B", copy), ("B", copy), ("A", ROOT)):
         proc = subprocess.run(
             [sys.executable, __file__, "--worker", str(root), side,
              "--kernel", *args.kernel, "--ptxas", args.ptxas,
-             "--label", args.label],
+             "--label", args.label, "--launches", str(args.launches)],
             capture_output=True, text=True)
         if proc.returncode:
             print(proc.stdout + proc.stderr, file=sys.stderr)

@@ -28,6 +28,7 @@ from zaftpu_torch.kernels import (_build, cqtfft, cqtslab, framing, fused,
                                   synth)
 from zaftpu_torch.kernels import mdct as kmdct
 from zaftpu_torch.transforms import cqt as tcqt
+from zaftpu_torch.transforms import dct as tdct
 from zaftpu_torch.transforms import mdct as tmdct
 from zaftpu_torch.transforms.stft import centre_padded
 
@@ -149,13 +150,15 @@ def test_stft_istft_on_card_match_cpu_f64(dev, split, monkeypatch):
 
 
 def test_cuda_path_refuses_what_kernels_do_not_take(dev):
+    """float64 and complex128 are refused; a window above 4,096 runs (the
+    framing kernel and torch.fft)."""
     win = hamming(256)
     with pytest.raises(NotImplementedError, match="float32"):
         zaftpu_torch.stft(torch.zeros(4096, dtype=torch.float64, device=dev),
                           win, 128)
-    with pytest.raises(NotImplementedError, match="four-step"):
-        zaftpu_torch.stft(torch.zeros(20000, device=dev), hamming(8192),
-                          4096)
+    spec = zaftpu_torch.stft(torch.zeros(20000, device=dev), hamming(8192),
+                             4096)
+    assert spec.is_cuda and spec.shape == (8192, 6) and not spec.any()
     spec = torch.zeros((256, 10), dtype=torch.complex128, device=dev)
     with pytest.raises(NotImplementedError, match="complex64"):
         zaftpu_torch.istft(spec, win, 128)
@@ -170,6 +173,20 @@ def test_split_path_matmul_refuses_tf32(dev, monkeypatch):
             zaftpu_torch.stft(x, hamming(256), 128)
         with pytest.raises(RuntimeError, match="TF32"):
             policy.exact_matmul(x.reshape(64, 64), x.reshape(64, 64))
+        # The FFT layer's GEMMs: the four-step engine, the DCT's operator
+        # and, under ZAFTPU_FFT=matmul, its embeddings and a window above
+        # 4,096 on the four-step engine.
+        monkeypatch.delenv("ZAFTPU_FUSED")
+        with pytest.raises(RuntimeError, match="TF32"):
+            tfft.matmul_fft(x.reshape(4, 1024))
+        with pytest.raises(RuntimeError, match="TF32"):
+            zaftpu_torch.dct(x.reshape(4, 1024), 2)
+        monkeypatch.setenv("ZAFTPU_FFT", "matmul")
+        with pytest.raises(RuntimeError, match="TF32"):
+            tdct._dst_core(x.reshape(4, 1024), 4)
+        with pytest.raises(RuntimeError, match="TF32"):
+            zaftpu_torch.stft(torch.zeros(20000, device=dev), hamming(8192),
+                              4096)
     finally:
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.set_float32_matmul_precision("highest")
@@ -374,17 +391,21 @@ def test_new_cuda_paths_refuse_what_kernels_do_not_take(dev):
         zaftpu_torch.melspectrogram(x64, hamming(256), 128, fb)
     with pytest.raises(NotImplementedError, match="float32"):
         zaftpu_torch.mfcc(x64, hamming(256), 128, fb, 12)
-    long = torch.zeros(20000, device=dev)
-    with pytest.raises(NotImplementedError, match="four-step"):
-        zaftpu_torch.mdct(long, vorbis(8192))
-    with pytest.raises(NotImplementedError, match="four-step"):
-        zaftpu_torch.imdct(torch.zeros((4096, 5), device=dev), vorbis(8192))
-    with pytest.raises(NotImplementedError, match="four-step"):
-        zaftpu_torch.spectrogram(long, hamming(8192), 4096)
-    with pytest.raises(NotImplementedError, match="four-step"):
-        zaftpu_torch.melspectrogram(
-            long, hamming(8192), 4096,
-            zaftpu_torch.melfilterbank(44100, 8192, 40))
+    # A window above 4,096 runs on the card and gives the CPU's float64
+    # values within 1e-5 * max.
+    gen = torch.Generator(device=dev).manual_seed(14)
+    long = torch.randn(20000, device=dev, generator=gen)
+    fb8 = zaftpu_torch.melfilterbank(44100, 8192, 40)
+    for call in (lambda a: zaftpu_torch.mdct(a, vorbis(8192)),
+                 lambda a: zaftpu_torch.imdct(
+                     torch.ones((4096, 5), dtype=a.dtype, device=a.device),
+                     vorbis(8192)),
+                 lambda a: zaftpu_torch.spectrogram(a, hamming(8192), 4096),
+                 lambda a: zaftpu_torch.melspectrogram(a, hamming(8192), 4096,
+                                                       fb8)):
+        got = call(long)
+        assert got.is_cuda and got.dtype == torch.float32
+        assert _rel_err(got.cpu().double(), call(long.cpu().double())) < 1e-5
 
 
 @pytest.fixture
@@ -931,6 +952,16 @@ def test_tpu_pass_count_dials_refused_on_cuda(dev, value, monkeypatch):
         zaftpu_torch.stft(x, hamming(512), 256)
     with pytest.raises(NotImplementedError, match=value):
         zaftpu_torch.mdct(x, vorbis(512))
+    # The windows above 4,096, the DCT / DST and Griffin-Lim too.
+    with pytest.raises(NotImplementedError, match=value):
+        zaftpu_torch.stft(x, hamming(8192), 4096)
+    with pytest.raises(NotImplementedError, match=value):
+        zaftpu_torch.imdct(torch.zeros((4096, 5), device=dev), vorbis(8192))
+    with pytest.raises(NotImplementedError, match=value):
+        zaftpu_torch.dct(x, 2)
+    with pytest.raises(NotImplementedError, match=value):
+        zaftpu_torch.griffin_lim(torch.ones((257, 9), device=dev),
+                                 hamming(512), 256)
 
 
 def test_forced_mel_kernel_under_split4_runs_the_twin_on_cuda(dev,
@@ -1754,3 +1785,170 @@ def test_mel_store_takes_an_hour_in_one_launch(dev):
         ref = melfft.mel_rows_fft_plain(padded[start:start + span], win,
                                         table, 2048, 1024, 64, False)
         assert torch.equal(rows, ref)
+
+
+# The inverse real-FFT kernel's windowed store (Griffin-Lim's synthesis),
+# the windows above 4,096, the DCT / DST and Griffin-Lim on the card.
+
+# WL, hop, T: hops that divide WL and that do not, odd-prime passes, T 0,
+# 1 and 2, one hour's worth of output spans at Tacotron's 24 kHz window.
+WINDOW_STORE_SHAPES = [(2048, 512, 37), (1200, 300, 61), (512, 100, 1001),
+                       (400, 160, 2), (256, 64, 1), (256, 64, 0),
+                       (254, 7, 300), (2822, 1411, 9), (16, 5, 3000)]
+
+
+def _window_store_inputs(wl, step, t, lead, dev, offset=0):
+    rng = np.random.default_rng(wl + step + t)
+    f = wl // 2 + 1
+    flat = rng.standard_normal(2 * int(np.prod(lead, dtype=int)) * t * f
+                               + offset).astype(np.float32)
+    planes = torch.from_numpy(flat).to(dev)[offset:].view(2, *lead, t, f)
+    win = torch.from_numpy(hamming(wl).astype(np.float32)).to(dev)
+    wsq = ola.overlap_add((win * win).expand(max(t, 1), wl), step)
+    wsq = wsq[:(t - 1) * step + wl].clamp_min(1e-12)
+    return planes[0], planes[1], win, wsq
+
+
+@pytest.mark.parametrize("wl,step,t", WINDOW_STORE_SHAPES)
+@pytest.mark.parametrize("lead,offset", [((), 0), ((2, 3), 1)])
+def test_window_store_matches_plain(dev, wl, step, t, lead, offset):
+    """Bit-equal to its plain version (batched, misaligned planes, ragged
+    hops, T 0, 1 and 2), one launch (none with no frames), within 2e-6 of
+    max of the float64 plain version."""
+    s_re, s_im, win, wsq = _window_store_inputs(wl, step, t, lead, dev,
+                                                offset)
+    before = irfft.istft_ola_fft_window.launches
+    got = irfft.istft_ola_fft_window(s_re, s_im, wl, step, win, wsq)
+    assert irfft.istft_ola_fft_window.launches == before + (t > 0)
+    ref = irfft.istft_ola_fft_window_plain(s_re, s_im, wl, step, win, wsq)
+    assert got.shape == ref.shape == (*lead, (t - 1) * step + wl)
+    assert torch.equal(got, ref), _rel_err(got, ref)
+    if t:
+        oracle = irfft.istft_ola_fft_window_plain(
+            *(v.cpu().double() for v in (s_re, s_im)), wl, step,
+            win.cpu().double(), wsq.cpu().double())
+        assert _rel_err(got.cpu().double(), oracle) < 2e-6
+
+
+def test_window_store_leaves_the_existing_store(dev):
+    """The existing store's values are its plain version's, bit for bit,
+    beside the windowed one (one template, two stores)."""
+    s_re, s_im, win, wsq = _window_store_inputs(2048, 512, 37, (), dev)
+    got = irfft.istft_ola_fft(s_re, s_im, 2048, 512, 0.5)
+    assert torch.equal(got, irfft.istft_ola_fft_plain(s_re, s_im, 2048, 512,
+                                                      0.5))
+
+
+def test_window_store_entry_refuses_what_the_rule_refuses(dev):
+    lib = _build.library()
+    buf = torch.zeros(8192, device=dev)
+    p = buf.data_ptr()
+    for wl in range(1, 4200, 7):
+        for step in sorted({0, 1, max(wl // 3, 1), wl, wl + 1}):
+            err = lib.zt_irfft_ola_window(p, p, p, p, p, p, 1.0, 1, 0, wl,
+                                          step, 0)
+            assert (err == 0) is (rfft.fits(wl) and 1 <= step <= wl), (
+                wl, step, err)
+
+
+LONG_WINDOWS = [4098, 5000, 8192]
+
+
+@pytest.mark.parametrize("wl", LONG_WINDOWS)
+@pytest.mark.parametrize("dial", ["highest", "split4"])
+@pytest.mark.parametrize("lever", ["auto", "matmul"])
+def test_long_windows_on_the_card(dev, wl, dial, lever, monkeypatch):
+    """stft, istft, spectrogram, melspectrogram, mfcc, mdct and imdct above
+    4,096 on both dials, on torch.fft and under ZAFTPU_FFT=matmul (the
+    four-step engine at 8,192): the framing and OLA kernels launch, no FFT
+    or GEMM kernel does; the outputs within 1e-5 * max of the CPU float64
+    path (MFCC atol 5e-3) and the round trips above 120 dB."""
+    monkeypatch.setenv("ZAFTPU_PRECISION", dial)
+    monkeypatch.setenv("ZAFTPU_FFT", lever)
+    gen = torch.Generator(device=dev).manual_seed(wl)
+    x = torch.randn(8 * wl + 17, device=dev, generator=gen)
+    win, step = hamming(wl), wl // 2
+    fb = zaftpu_torch.melfilterbank(44100, wl, 40)
+    kernels = (framing.frame_window, ola.overlap_add, fused.frames_rfft,
+               rfft.frames_rfft_fft, rfft.frames_rfft_full_fft,
+               irfft.istft_ola_fft, synth.istft_ola, kmdct.mdct_fft,
+               kmdct.imdct_ola_fft, melfft.spec_rows_fft,
+               melfft.mel_rows_fft, melfused.spec_rows, melfused.mel_rows)
+    before = [k.launches for k in kernels]
+
+    def run(a):
+        spec = zaftpu_torch.stft(a, win, step)
+        coeffs = zaftpu_torch.mdct(a, vorbis(wl))
+        return {"stft": spec, "istft": zaftpu_torch.istft(spec, win, step),
+                "spectrogram": zaftpu_torch.spectrogram(a, win, step),
+                "melspectrogram": zaftpu_torch.melspectrogram(a, win, step,
+                                                              fb),
+                "mfcc": zaftpu_torch.mfcc(a, win, step, fb, 20),
+                "mdct": coeffs, "imdct": zaftpu_torch.imdct(coeffs,
+                                                            vorbis(wl))}
+
+    got = run(x)
+    moved = [k.launches - b for k, b in zip(kernels, before)]
+    assert moved[:2] == [5, 2] and not any(moved[2:]), moved
+    ref = run(x.cpu().double())
+    for name, value in got.items():
+        assert value.is_cuda, name
+        if name == "mfcc":
+            assert float((value.cpu().double() - ref[name]).abs().max()) < 5e-3
+        else:
+            assert _rel_err(value.cpu().to(ref[name].dtype), ref[name]) < 1e-5
+    n = x.shape[-1]
+    for rec in (got["istft"], got["imdct"]):
+        err = rec[:n].double() - x.double()
+        assert 10 * torch.log10((x.double() ** 2).sum()
+                                / (err ** 2).sum()) > 120
+
+
+@pytest.mark.parametrize("route", ["entry", "embedded", "embedded matmul"])
+@pytest.mark.parametrize("n", [1024, 777, 4100, 8192])
+def test_dct_dst_on_the_card(dev, route, n, monkeypatch):
+    """All eight transforms on CUDA float32 against their CPU float64
+    values within 1e-5 * max: the entry points (the (N, N) operator up to
+    4,096, the embedded FFTs past it), or the embedded cores at every N
+    (the direct GEMM rfft up to 4,096 and torch.fft past it; under
+    ZAFTPU_FFT=matmul the four-step engine at powers of two); the inverse
+    pairs."""
+    if route == "embedded matmul":
+        monkeypatch.setenv("ZAFTPU_FFT", "matmul")
+    gen = torch.Generator(device=dev).manual_seed(n)
+    x = torch.randn(3, n, device=dev, generator=gen)
+    for entry, core in ((zaftpu_torch.dct, tdct._dct_core),
+                        (zaftpu_torch.dst, tdct._dst_core)):
+        fn = entry if route == "entry" else core
+        for ttype in (1, 2, 3, 4):
+            got = fn(x, ttype)
+            assert got.is_cuda and got.dtype == torch.float32
+            assert _rel_err(got.cpu().double(),
+                            entry(x.cpu().double(), ttype)) < 1e-5
+        for fwd, inv in ((1, 1), (2, 3), (4, 4)):
+            assert _rel_err(fn(fn(x, fwd), inv).cpu().double(),
+                            x.cpu().double()) < 1e-5
+
+
+@pytest.mark.parametrize("wl,step", [(2048, 512), (1200, 300), (262, 131),
+                                     (8192, 2048)])
+def test_griffin_lim_on_the_card(dev, wl, step):
+    """At the FFT rule's windows each iteration launches the half store and
+    the windowed store once (and the last synthesis once more); off the
+    rule the GEMM B1 (or, above 4,096, the framing kernel) and the OLA
+    kernel. The result within 1e-3 * max of the CPU's float32 plain
+    versions after 3 iterations."""
+    gen = torch.Generator(device=dev).manual_seed(wl)
+    x = torch.randn(44100, device=dev, generator=gen)
+    win = hamming(wl)
+    mag = zaftpu_torch.stft(x, win, step)[:wl // 2 + 1].abs()
+    half, window = rfft.frames_rfft_fft.launches, \
+        irfft.istft_ola_fft_window.launches
+    out = zaftpu_torch.griffin_lim(mag, win, step, iterations=3)
+    on_rule = rfft.fits(wl)
+    assert rfft.frames_rfft_fft.launches - half == (3 if on_rule else 0)
+    assert irfft.istft_ola_fft_window.launches - window == (4 if on_rule
+                                                            else 0)
+    ref = zaftpu_torch.griffin_lim(mag.cpu(), win, step, iterations=3)
+    assert out.is_cuda and out.shape == ref.shape
+    assert _rel_err(out.cpu().double(), ref.double()) < 1e-3

@@ -194,12 +194,13 @@ def test_dispatch_off_the_fft_rule_takes_the_kernels(melfuse, ran,
 @pytest.mark.parametrize("melfuse,wl,wanted", [
     (None, 2048, "fft"), ("auto", 16, "fft"), (None, 4096, "fft"),
     ("0", 2048, "split"), ("1", 2048, "fft"), (None, 1102, "fft"),
-    (None, 8, "kernel"), (None, 8192, "kernel"), ("0", 1102, "split"),
+    (None, 8, "kernel"), (None, 8192, "split"), ("0", 1102, "split"),
     ("1", 1102, "fft"), (None, 1764, "fft"), (None, 262, "kernel"),
     ("0", 262, "split"), (None, 2062, "kernel"), (None, 2822, "fft")])
 def test_melfuse_gate_follows_the_fft_rule(melfuse, wl, wanted, monkeypatch):
     """On the exact dial ZAFTPU_MELFUSE=0 gives the split path everywhere;
-    otherwise the FFT shape rule gives its stores and any other window
+    otherwise the FFT shape rule gives its stores, a window above 4096 the
+    split path (zaftpu's gate on its direct engine) and any other window
     the kernels."""
     monkeypatch.delenv("ZAFTPU_PRECISION", raising=False)
     if melfuse is None:

@@ -1,6 +1,6 @@
-"""zaftpu_torch: the STFT/ISTFT, MDCT/IMDCT, spectrogram/mel/MFCC and CQT
-paths of zaftpu in PyTorch, with hand-written CUDA kernels for NVIDIA
-Hopper (sm_90a).
+"""zaftpu_torch: the STFT/ISTFT, MDCT/IMDCT, spectrogram/mel/MFCC, CQT,
+DCT/DST and Griffin-Lim paths of zaftpu in PyTorch, at every window
+zaftpu takes, with hand-written CUDA kernels for NVIDIA Hopper (sm_90a).
 
 It imports neither JAX nor ``zaftpu``; the tests hold it against both.
 Tensors stay on the device they arrive on: CUDA float32 runs the kernels,
@@ -15,6 +15,8 @@ from zaftpu_torch.core.windows import (get_window, hamming, hann, kbd,
 from zaftpu_torch.features.mel import melfilterbank, melspectrogram, mfcc
 from zaftpu_torch.transforms.cqt import (cqtchromagram, cqtkernel,
                                          cqtspectrogram)
+from zaftpu_torch.transforms.dct import dct, dst
+from zaftpu_torch.transforms.griffinlim import griffin_lim
 from zaftpu_torch.transforms.mdct import imdct, mdct
 from zaftpu_torch.transforms.stft import istft, spectrogram, stft
 
@@ -26,7 +28,8 @@ _policy.set_up_cpu_vector_math()
 __all__ = [
     "stft", "istft", "spectrogram", "mdct", "imdct",
     "melfilterbank", "melspectrogram", "mfcc",
-    "cqtkernel", "cqtspectrogram", "cqtchromagram",
+    "cqtkernel", "cqtspectrogram", "cqtchromagram", "dct", "dst",
+    "griffin_lim",
     "StftConfig", "MelConfig", "CqtConfig", "MdctConfig",
     "hamming", "hann", "vorbis", "kbd", "kbd_exact", "sine", "get_window",
 ]

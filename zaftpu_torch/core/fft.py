@@ -1,8 +1,27 @@
-"""DFT-as-GEMM operators and spectrum-layout helpers (the main-path subset
-of ``zaftpu.core.fft``).
+"""The FFT layer: ``rfft``, ``fft``, ``ifft`` and ``real_ifft`` with
+``zaftpu.core.fft``'s routing, the four-step engine, the DFT-as-GEMM
+operators and the spectrum-layout helpers.
+
+Routing (``zaftpu.core.fft``'s levers): ``ZAFTPU_FFT=auto`` (the default)
+selects the matmul engine on CUDA and ``torch.fft`` on the CPU, ``matmul``
+the engine everywhere, ``native`` ``torch.fft`` everywhere. On the engine a
+real transform up to :data:`DIRECT_MAX` (4096) is one GEMM pair against the
+cos/sin operators. Past it ``auto`` runs ``torch.fft``, the card's own FFT,
+at every length. ``matmul`` runs ``zaftpu``'s four-step (Bailey) engine at
+a power of two and ``torch.fft`` at any other length, as ``zaftpu`` runs
+``jnp.fft`` there: the TPU has no FFT unit, so ``zaftpu`` takes the engine
+by default, and the port keeps it behind the lever, where it reproduces
+``zaftpu``'s arithmetic. The engine is plain PyTorch, as it is plain XLA in
+``zaftpu``: every real product goes through the exact GEMM
+(``policy.exact_matmul``: true FP32, the contraction summed in 256-wide
+blocks, TF32 refused), the complex stages as real GEMMs on the re/im planes
+against ``[[Re W, Im W], [-Im W, Re W]]`` block operators, never a complex
+GEMM; only a real input's first stage honours the split4 dial
+(``policy.real_matmul``), as in ``zaftpu``.
 
 The operators are built on the host in numpy float64 with the same math as
-``zaftpu.core.fft`` (so the arrays match bit for bit), cast to the compute
+``zaftpu.core.fft`` (the direct GEMM's match bit for bit; the four-step
+factors reduce each exponent modulo the length first), cast to the compute
 dtype, and uploaded once per ``(builder, args, device, dtype)``. The
 conjugate mirror and the Hermitian fold are plain index ops on the re/im
 planes, as they are XLA gathers outside any kernel in ``zaftpu``; under
@@ -16,12 +35,203 @@ oracle mode) gives complex128.
 
 from __future__ import annotations
 
+import os
 from functools import lru_cache
 
 import numpy as np
 import torch
 
-from zaftpu_torch.core.policy import presplit, presplit_host, real_matmul
+from zaftpu_torch.core.policy import (exact_matmul, presplit, presplit_host,
+                                     real_matmul)
+
+
+def engine_selected(device) -> bool:
+    """Is the matmul engine the FFT for tensors on ``device``?
+    ``ZAFTPU_FFT``: ``auto`` (default) on CUDA, not on the CPU, where
+    ``torch.fft`` is the float64 oracle; ``matmul`` everywhere; ``native``
+    nowhere."""
+    mode = os.environ.get("ZAFTPU_FFT", "auto")
+    if mode == "matmul":
+        return True
+    return mode == "auto" and torch.device(device).type == "cuda"
+
+
+# The direct GEMM's limit: zaftpu's default ZAFTPU_FFT_DIRECT_MAX, and the
+# largest window of the FFT kernels (kernels.rfft.MAX_WINDOW).
+DIRECT_MAX = 4096
+
+
+def direct_engine_enabled(n: int, device) -> bool:
+    """Does the engine's direct GEMM cover length ``n`` on ``device``? Any
+    ``n`` from 2 to :data:`DIRECT_MAX`, powers of two or not."""
+    return engine_selected(device) and 2 <= n <= DIRECT_MAX
+
+
+def _use_matmul_engine(n: int) -> bool:
+    """Route this length through the four-step engine: under
+    ``ZAFTPU_FFT=matmul``, a power of two of at least 4."""
+    return (os.environ.get("ZAFTPU_FFT", "auto") == "matmul"
+            and n >= 4 and n & (n - 1) == 0)
+
+
+def _pad_or_trim(x: torch.Tensor, n: int) -> torch.Tensor:
+    if n <= x.shape[-1]:
+        return x[..., :n]
+    return torch.nn.functional.pad(x, (0, n - x.shape[-1]))
+
+
+def rfft(frames: torch.Tensor, n: int | None = None) -> torch.Tensor:
+    """Real FFT along the last axis, ``(..., N)`` -> ``(..., N//2 + 1)``:
+    the direct GEMM, the four-step engine (``ZAFTPU_FFT=matmul``) or
+    ``torch.fft.rfft``."""
+    if n is not None and n != frames.shape[-1]:
+        frames = _pad_or_trim(frames, n)
+    length = frames.shape[-1]
+    if not frames.is_complex() and direct_engine_enabled(length,
+                                                          frames.device):
+        return direct_rfft(frames)
+    if _use_matmul_engine(length):
+        return matmul_rfft(frames)
+    return torch.fft.rfft(frames, dim=-1)
+
+
+def fft(frames: torch.Tensor, n: int | None = None) -> torch.Tensor:
+    """Full complex FFT along the last axis: the four-step engine
+    (``ZAFTPU_FFT=matmul``) or ``torch.fft.fft``."""
+    if n is not None and n != frames.shape[-1]:
+        frames = _pad_or_trim(frames, n)
+    if _use_matmul_engine(frames.shape[-1]):
+        return matmul_fft(frames)
+    return torch.fft.fft(frames, dim=-1)
+
+
+def ifft(spectra: torch.Tensor, n: int | None = None) -> torch.Tensor:
+    """Full complex inverse FFT along the last axis: the four-step engine
+    (``ZAFTPU_FFT=matmul``) or ``torch.fft.ifft``."""
+    if n is not None and n != spectra.shape[-1]:
+        spectra = _pad_or_trim(spectra, n)
+    if _use_matmul_engine(spectra.shape[-1]):
+        return matmul_ifft(spectra)
+    return torch.fft.ifft(spectra, dim=-1)
+
+
+@lru_cache(maxsize=16)
+def _four_step_factors(n: int):
+    """``n = n1 * n2`` (powers of two, ``n1 = 2^(log2 n // 2)``) and the
+    complex float64 ``W1 (n1, n1)``, ``W2 (n2, n2)`` and twiddle ``(n1,
+    n2)`` matrices."""
+    if n & (n - 1):
+        raise ValueError(f"matmul_fft needs a power-of-two length, got {n}")
+    log = n.bit_length() - 1
+    n1 = 1 << (log // 2)
+    n2 = n // n1
+
+    def dft(rows: int, cols: int, size: int) -> np.ndarray:
+        k = np.outer(np.arange(rows), np.arange(cols)) % size
+        return np.exp((-2j * np.pi / size) * k)
+
+    return n1, n2, dft(n1, n1, n1), dft(n2, n2, n2), dft(n1, n2, n)
+
+
+def _block(w: np.ndarray) -> np.ndarray:
+    """``[[Re W, Im W], [-Im W, Re W]]``: ``[re | im] @`` it is ``[Re(z W)
+    | Im(z W)]`` for the rows ``z = re + i im``."""
+    return np.block([[w.real, w.imag], [-w.imag, w.real]])
+
+
+@lru_cache(maxsize=8)
+def _four_step_ops(n: int, rdtype_name: str):
+    """The four-step operators in the target real dtype: ``Re W2``, ``Im
+    W2``, the block of ``W2``, the twiddle's re and im, the block of
+    ``W1``."""
+    _, _, w1, w2, tw = _four_step_factors(n)
+    return tuple(a.astype(rdtype_name) for a in (
+        w2.real, w2.imag, _block(w2), tw.real, tw.imag, _block(w1)))
+
+
+def _four_step_planes(xr: torch.Tensor, xi: torch.Tensor | None) -> tuple:
+    """(re, im) of the FFT of ``xr + i xi`` (``xi`` None: real input) along
+    the last axis, a power of two: with ``A[i1, i2] = x[i1 + n1 i2]``,
+    ``X[k2 + n2 k1] = sum_i1 W1[i1, k1] Tw[i1, k2] sum_i2 A[i1, i2] W2[i2,
+    k2]``."""
+    *lead, n = xr.shape
+    n1, n2 = _four_step_factors(n)[:2]
+    w2r, w2i, w2b, twr, twi, w1b = device_operator(
+        _four_step_ops, (n, _real_name(xr.dtype)), xr.device, xr.dtype)
+    ar = xr.reshape(*lead, n2, n1).transpose(-1, -2)
+    if xi is None:
+        # A real first stage: two real GEMMs, which split4 may lower.
+        br, bi = real_matmul(ar, w2r), real_matmul(ar, w2i)
+    else:
+        ai = xi.reshape(*lead, n2, n1).transpose(-1, -2)
+        b = exact_matmul(torch.cat([ar, ai], dim=-1), w2b)
+        br, bi = b[..., :n2], b[..., n2:]
+    # The twiddle, then the second stage over i1 with the rows (k2, i1).
+    cr = (br * twr - bi * twi).transpose(-1, -2)
+    ci = (br * twi + bi * twr).transpose(-1, -2)
+    c = exact_matmul(torch.cat([cr, ci], dim=-1), w1b)
+    return (c[..., :n1].transpose(-1, -2).reshape(*lead, n),
+            c[..., n1:].transpose(-1, -2).reshape(*lead, n))
+
+
+def complex_dtype(dtype: torch.dtype) -> torch.dtype:
+    """The complex dtype of a real compute dtype: complex64 for float32,
+    complex128 for float64."""
+    return torch.complex64 if dtype == torch.float32 else torch.complex128
+
+
+def _real_input(x: torch.Tensor) -> torch.Tensor:
+    """A real input at least float32 (bfloat16 computes in float32)."""
+    return x.to(torch.promote_types(x.dtype, torch.float32))
+
+
+def matmul_fft(x: torch.Tensor) -> torch.Tensor:
+    """Full complex FFT along the last axis by the four-step engine
+    (``zaftpu.core.fft.matmul_fft``), a power-of-two length; real or
+    complex input, complex64 or complex128 out."""
+    if x.is_complex():
+        return torch.complex(*_four_step_planes(x.real, x.imag))
+    return torch.complex(*_four_step_planes(_real_input(x), None))
+
+
+def matmul_rfft(x: torch.Tensor) -> torch.Tensor:
+    """Real-input bins ``0..N/2`` by the four-step engine: batched rows
+    pair-packed (:func:`_packed_rfft`), a single row through
+    :func:`matmul_fft`."""
+    if x.ndim >= 2 and x.shape[-2] >= 2 and not x.is_complex():
+        return _packed_rfft(x)
+    return matmul_fft(x)[..., :x.shape[-1] // 2 + 1]
+
+
+def _packed_rfft(x: torch.Tensor) -> torch.Tensor:
+    """Batched rfft over the last axis, adjacent rows along axis -2 packed
+    as one complex row ``x_even + i x_odd`` (an odd count padded with a
+    zero row) and unpacked by conjugate symmetry: ``X_even[k] = (Z[k] +
+    conj Z[-k]) / 2``, ``X_odd[k] = (Z[k] - conj Z[-k]) / 2i``."""
+    x = _real_input(x)
+    *lead, b, n = x.shape
+    half = n // 2 + 1
+    if b % 2:
+        x = torch.nn.functional.pad(x, (0, 0, 0, 1))
+    fr, fi = _four_step_planes(x[..., 0::2, :], x[..., 1::2, :])
+    idx = _fold_index(n, x.device)  # (n - k) mod n, k = 0..n/2
+    hr, hi = fr[..., :half], fi[..., :half]
+    rr, ri = fr[..., idx], fi[..., idx]
+    even_r, even_i = 0.5 * (hr + rr), 0.5 * (hi - ri)
+    odd_r, odd_i = 0.5 * (hi + ri), -0.5 * (hr - rr)
+    out = torch.stack([torch.complex(even_r, even_i),
+                       torch.complex(odd_r, odd_i)], dim=-2)
+    return out.reshape(*lead, -1, half)[..., :b, :]
+
+
+def matmul_ifft(x: torch.Tensor) -> torch.Tensor:
+    """Inverse FFT by the four-step engine: ``conj(FFT(conj X)) / N``."""
+    n = x.shape[-1]
+    if x.is_complex():
+        yr, yi = _four_step_planes(x.real, -x.imag)
+    else:
+        yr, yi = _four_step_planes(_real_input(x), None)
+    return torch.complex(yr / n, -yi / n)
 
 
 @lru_cache(maxsize=8)
@@ -227,5 +437,8 @@ def direct_real_ifft(z: torch.Tensor, scale: float = 1.0) -> torch.Tensor:
 def real_ifft(spectra: torch.Tensor) -> torch.Tensor:
     """``real(ifft(X))`` along the last axis (reference zaf.py:223): a full
     complex inverse, never ``irfft``, so non-Hermitian input keeps its
-    meaning."""
-    return direct_real_ifft(spectra)
+    meaning. The direct GEMM pair where the engine's direct mode covers the
+    length, else :func:`ifft`."""
+    if direct_engine_enabled(spectra.shape[-1], spectra.device):
+        return direct_real_ifft(spectra)
+    return ifft(spectra).real

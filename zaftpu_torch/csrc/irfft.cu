@@ -42,13 +42,25 @@
 // rounded intrinsic in the plain version's order (kernels/irfft.py), so the
 // kernel equals it bit for bit. Shared memory: 64 KB (the two 16-KB FFT
 // buffers, the 32-KB accumulator, dynamic), three blocks per SM.
+//
+// The windowed store (kWindowed, zt_irfft_ola_window) is Griffin-Lim's
+// synthesis, zaftpu/transforms/griffinlim.py:40-43: y[b, p] = (sum_t
+// win[p - t*step] * s * irfft_N(S[b, t])[p - t*step]) / wsq[p], the same
+// sum with each frame sample times the synthesis window before its add and
+// the finished sum divided by the window-square envelope at the store. It
+// reads the half spectrum S as it is: the Hermitian fold of S's conjugate
+// mirror is S again (0.5 (a + a) = a), but for the imaginary parts of DC
+// and Nyquist, which the kernel does not read. win and wsq come through
+// the read-only cache, so the shared memory and the blocks per SM stay.
 #include "stockham.cuh"
 
 namespace {
 
+template <bool kWindowed>
 __global__ void __launch_bounds__(zt::kThreads)
 irfft_ola_kernel(const float* __restrict__ hr, const float* __restrict__ hi,
-                 const float2* __restrict__ tw, float* __restrict__ out,
+                 const float2* __restrict__ tw, const float* __restrict__ win,
+                 const float* __restrict__ wsq, float* __restrict__ out,
                  float s, int T, int n, int step, long long out_len,
                  zt::Plan plan) {
   extern __shared__ float acc[];  // kSpan floats
@@ -107,7 +119,8 @@ irfft_ola_kernel(const float* __restrict__ hr, const float* __restrict__ hi,
       float v = acc[e];
       for (int j = q - u * step; u > u_end && j < n; --u, j += step) {
         const float2 c = z[(ug - u) * M + (j >> 1)];
-        v = __fadd_rn(v, __fmul_rn((j & 1) ? -c.y : c.x, s));
+        const float x = __fmul_rn((j & 1) ? -c.y : c.x, s);
+        v = __fadd_rn(v, kWindowed ? __fmul_rn(x, __ldg(win + j)) : x);
       }
       acc[e] = v;
     }
@@ -115,7 +128,36 @@ irfft_ola_kernel(const float* __restrict__ hr, const float* __restrict__ hi,
   }
 
   float* ob = out + blockIdx.y * out_len + p0;
-  for (int e = threadIdx.x; e < span; e += blockDim.x) ob[e] = acc[e];
+  for (int e = threadIdx.x; e < span; e += blockDim.x) {
+    ob[e] = kWindowed ? __fdiv_rn(acc[e], __ldg(wsq + p0 + e)) : acc[e];
+  }
+}
+
+template <bool kWindowed>
+int launch(const void* h_re, const void* h_im, const void* tw,
+           const void* win, const void* wsq, void* out, float s, int batch,
+           int T, int N, int step, void* stream) {
+  zt::Plan plan;
+  if (!zt::fft_fits(N, &plan) || step < 1 || step > N || batch > 65535 ||
+      !zt::aligned8(tw)) {
+    return (int)cudaErrorInvalidValue;
+  }
+  if (T <= 0 || batch <= 0) return (int)cudaSuccess;
+  const int smem = zt::kSpan * (int)sizeof(float);
+  cudaError_t err = cudaFuncSetAttribute(
+      irfft_ola_kernel<kWindowed>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return (int)err;
+  const long long out_len = (long long)(T - 1) * step + N;
+  const long long blocks = (out_len + zt::kSpan - 1) / zt::kSpan;
+  const dim3 grid((unsigned int)blocks, batch);
+  irfft_ola_kernel<kWindowed><<<grid, zt::kThreads, smem,
+                                static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(h_re), static_cast<const float*>(h_im),
+      static_cast<const float2*>(tw), static_cast<const float*>(win),
+      static_cast<const float*>(wsq), static_cast<float*>(out), s, T, N, step,
+      out_len, plan);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -130,23 +172,19 @@ irfft_ola_kernel(const float* __restrict__ hr, const float* __restrict__ hi,
 ZT_EXPORT int zt_irfft_ola(const void* h_re, const void* h_im, const void* tw,
                            void* out, float s, int batch, int T, int N,
                            int step, void* stream) {
-  zt::Plan plan;
-  if (!zt::fft_fits(N, &plan) || step < 1 || step > N || batch > 65535 ||
-      !zt::aligned8(tw)) {
-    return (int)cudaErrorInvalidValue;
-  }
-  if (T <= 0 || batch <= 0) return (int)cudaSuccess;
-  const int smem = zt::kSpan * (int)sizeof(float);
-  cudaError_t err = cudaFuncSetAttribute(
-      irfft_ola_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return (int)err;
-  const long long out_len = (long long)(T - 1) * step + N;
-  const long long blocks = (out_len + zt::kSpan - 1) / zt::kSpan;
-  const dim3 grid((unsigned int)blocks, batch);
-  irfft_ola_kernel<<<grid, zt::kThreads, smem,
-                     static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(h_re), static_cast<const float*>(h_im),
-      static_cast<const float2*>(tw), static_cast<float*>(out), s, T, N, step,
-      out_len, plan);
-  return (int)cudaGetLastError();
+  return launch<false>(h_re, h_im, tw, nullptr, nullptr, out, s, batch, T, N,
+                       step, stream);
+}
+
+// The windowed store: s_re, s_im the half spectrum's planes (batch, T, N/2 +
+// 1) float32; win (N,) the synthesis window and wsq ((T - 1) * step + N,)
+// the envelope it divides by, float32; the rest as zt_irfft_ola (s =
+// 1 / N for Griffin-Lim's inverse).
+ZT_EXPORT int zt_irfft_ola_window(const void* s_re, const void* s_im,
+                                  const void* tw, const void* win,
+                                  const void* wsq, void* out, float s,
+                                  int batch, int T, int N, int step,
+                                  void* stream) {
+  return launch<true>(s_re, s_im, tw, win, wsq, out, s, batch, T, N, step,
+                      stream);
 }

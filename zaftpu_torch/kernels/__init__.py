@@ -81,6 +81,14 @@ other length or under ``ZAFTPU_FFT=matmul`` the CQT has its own scheme,
 CQT runs ``cqtslab.cqt_magnitudes_split4`` by default and the exact
 ``cqtslab.cqt_magnitudes`` under a pinned dial or ``exact``, as
 ``zaftpu``'s does on its TPU.
+
+A window above :data:`MAX_WINDOW` takes ``zaftpu``'s off-engine
+composition on both dials and under every lever: the framing kernel and
+:func:`zaftpu_torch.core.fft.rfft` for the analysis (``torch.fft``; the
+four-step engine at a power of two under ``ZAFTPU_FFT=matmul``), :func:`zaftpu_torch.core.fft.
+real_ifft`, the OLA kernel and the gain division for the synthesis; the
+magnitude and mel front ends take that half spectrum (``melfused.route``)
+and the MDCT its FFT core (:mod:`zaftpu_torch.transforms.mdct`).
 """
 
 from __future__ import annotations
@@ -96,8 +104,8 @@ from zaftpu_torch.kernels import fused as _fused
 from zaftpu_torch.kernels import mirror as _mirror
 from zaftpu_torch.kernels import ola as _ola
 from zaftpu_torch.kernels import synth as _synth
-# Largest window the direct DFT GEMM and the real-FFT kernel cover; longer
-# ones need the four-step FFT, which is not ported yet.
+# Largest window the kernels' analysis and synthesis take; longer ones run
+# the framing kernel, the FFT layer and OLA.
 from zaftpu_torch.kernels.rfft import MAX_WINDOW
 
 
@@ -109,12 +117,11 @@ def synth_enabled() -> bool:
     return os.environ.get("ZAFTPU_SYNTH", "auto") != "0"
 
 
-def check_device_input(x: torch.Tensor, window_length: int) -> None:
+def check_device_input(x: torch.Tensor) -> None:
     """Raise ``NotImplementedError`` for a CUDA input the kernels do not
     take: anything but float32 (complex64 spectra; callers promote a
-    bfloat16 signal to float32 first), a window above :data:`MAX_WINDOW`,
-    or the TPU-only dials ``high`` and ``default``. CPU inputs are always
-    taken."""
+    bfloat16 signal to float32 first), or the TPU-only dials ``high`` and
+    ``default``. CPU inputs are always taken."""
     if not x.is_cuda:
         return
     check_cuda_dial()
@@ -122,10 +129,6 @@ def check_device_input(x: torch.Tensor, window_length: int) -> None:
         raise NotImplementedError(
             f"the CUDA path takes float32 signals and complex64 spectra, got "
             f"{x.dtype}")
-    if window_length > MAX_WINDOW:
-        raise NotImplementedError(
-            f"window_length {window_length} > {MAX_WINDOW} needs the "
-            "four-step FFT, which the CUDA path does not have yet")
 
 
 def windowed_frames(padded, window, window_length: int, step: int,
@@ -139,7 +142,11 @@ def windowed_frames_rfft(padded, window, window_length: int, step: int,
                          number_times: int):
     """Windowed overlapped frames -> rDFT half spectrum ``(..., T, WL/2+1)``:
     the fused kernel, or with ``ZAFTPU_FUSED=0`` the framing kernel followed
-    by the DFT GEMM."""
+    by the DFT GEMM; above :data:`MAX_WINDOW` the framing kernel followed
+    by :func:`zaftpu_torch.core.fft.rfft`."""
+    if window_length > MAX_WINDOW:
+        return _fft.rfft(windowed_frames(padded, window, window_length, step,
+                                         number_times))
     if fused_enabled():
         return _fused.frames_rfft(padded, window, window_length, step,
                                   number_times)
@@ -153,8 +160,10 @@ def windowed_frames_rfft_fullspec(padded, window, window_length: int,
     """Windowed overlapped frames -> full spectrum ``(..., T, WL)`` with the
     conjugate mirror written by the analysis kernel, or ``None`` unless the
     fused analysis is on and ``fused.fullspec_enabled`` (the caller then
-    mirrors the half spectrum). Bit-equal to that composition."""
-    if fused_enabled() and _fused.fullspec_enabled(window_length):
+    mirrors the half spectrum), and ``None`` above :data:`MAX_WINDOW`.
+    Bit-equal to that composition."""
+    if (window_length <= MAX_WINDOW and fused_enabled()
+            and _fused.fullspec_enabled(window_length)):
         return _fused.frames_rfft_full(padded, window, window_length, step,
                                        number_times)
     return None
@@ -173,9 +182,14 @@ def synthesis_ola(spectra, step: int, gain: float = 1.0):
     index ops, or with ``ZAFTPU_MIRROR=pallas`` as the fold kernel; then
     the fused synthesis (the inverse real-FFT kernel where the shape rule
     holds, else the inverse GEMM kernel or its twin), or with
-    ``ZAFTPU_SYNTH=0`` the inverse GEMM followed by the OLA kernel."""
+    ``ZAFTPU_SYNTH=0`` the inverse GEMM followed by the OLA kernel. Above
+    :data:`MAX_WINDOW`, ``zaftpu``'s off-engine composition:
+    :func:`zaftpu_torch.core.fft.real_ifft`, the OLA kernel, ``/ gain``."""
     n = spectra.shape[-2]
     fm = spectra.transpose(-1, -2)
+    if n > MAX_WINDOW:
+        out = overlap_add(_fft.real_ifft(fm), step)
+        return out / gain if gain != 1.0 else out
     if _mirror.enabled():
         h_re, h_im = _mirror.fold_half_planes(fm, n)
     else:

@@ -17,6 +17,16 @@ pass plan and the Stockham passes): the inverse split step, conj -> the
 forward passes -> conj, the interleave, the factor ``s = scale / N``
 rounded once, and the overlap-add summed c ascending. So the CPU tests
 exercise the kernel's indexing and the kernel equals it on the card.
+
+The same kernel body's windowed store (:func:`istft_ola_fft_window`, the
+C entry ``zt_irfft_ola_window``) is Griffin-Lim's synthesis
+(``zaftpu/transforms/griffinlim.py:40-43``, ``real_ifft(full_from_half(S))
+* win``, the overlap-add and ``/ wsq``) from the half spectrum's planes as
+they are: the Hermitian fold of S's conjugate mirror is S, bit for bit,
+but for the imaginary parts of DC and Nyquist, which the kernel does not
+read. Each frame sample is multiplied by the window before its add and
+the finished sum divided by the envelope at the store; its plain version
+repeats that order.
 """
 
 from __future__ import annotations
@@ -32,6 +42,9 @@ from zaftpu_torch.kernels import rfft as _rfft
 CUDA_SOURCE = "zaftpu_torch/csrc/irfft.cu"
 REPLACES = "zaftpu/pallas/synth.py:264"  # _gemm_ola_impl (istft_ola), B4
 REPLACES_SPLIT4 = "zaftpu/pallas/synth.py:231"  # its _kernel_split4, B4-s4
+# The windowed store: B4's function with Griffin-Lim's synthesis window and
+# envelope (zaftpu/transforms/griffinlim.py:40-43, XLA ops there).
+REPLACES_WINDOW = REPLACES
 
 # Output samples a block of the kernel owns (csrc/stockham.cuh: kSpan).
 SPAN = 8192
@@ -96,6 +109,42 @@ def istft_ola_fft_plain(h_re: torch.Tensor, h_im: torch.Tensor, n: int,
 istft_ola_fft_plain.calls = 0
 
 
+def istft_ola_fft_window_plain(s_re: torch.Tensor, s_im: torch.Tensor,
+                               n: int, step: int, window: torch.Tensor,
+                               wsq: torch.Tensor) -> torch.Tensor:
+    """The windowed store's function in plain PyTorch: the ``(...,
+    (T-1)*step + N)`` overlap-add of ``irfft_N`` of the half-spectrum planes
+    ``(..., T, N/2+1)`` times ``window``, divided by ``wsq``, in the
+    kernel's order."""
+    istft_ola_fft_window_plain.calls += 1
+    frames = _inverse_frames(s_re, s_im, n, 1.0) * window.to(s_re.dtype)
+    return _overlap_add(frames, step) / wsq.to(s_re.dtype)
+
+
+istft_ola_fft_window_plain.calls = 0
+
+
+def istft_ola_fft_window(s_re: torch.Tensor, s_im: torch.Tensor, n: int,
+                         step: int, window: torch.Tensor,
+                         wsq: torch.Tensor) -> torch.Tensor:
+    """Griffin-Lim's synthesis by the inverse real FFT: ``overlap_add(
+    irfft_N(S) * window, step) / wsq``, ``(..., (T-1)*step + N)``, from the
+    half spectrum's planes ``(..., T, N/2+1)``, for an ``n`` that
+    :func:`zaftpu_torch.kernels.rfft.fits` and any hop in ``[1, n]``;
+    ``window`` is ``(N,)`` and ``wsq`` ``((T-1)*step + N,)``, shared by the
+    leading axes.
+
+    A CPU tensor takes the plain version; a CUDA tensor launches the kernel
+    (leading axes flattened into its batch) or raises.
+    """
+    if not s_re.is_cuda:
+        return istft_ola_fft_window_plain(s_re, s_im, n, step, window, wsq)
+    return _launch(s_re, s_im, n, step, 1.0, (window, wsq))
+
+
+istft_ola_fft_window.launches = 0
+
+
 def istft_ola_fft(h_re: torch.Tensor, h_im: torch.Tensor, n: int, step: int,
                   scale: float) -> torch.Tensor:
     """Fused ISTFT synthesis by the inverse real FFT: the ``(..., T*step + N
@@ -115,11 +164,12 @@ istft_ola_fft.launches = 0
 
 
 def _launch(h_re: torch.Tensor, h_im: torch.Tensor, n: int, step: int,
-            scale: float) -> torch.Tensor:
-    """Check a CUDA input and launch the kernel; with no frames (or no
-    rows), return the plain version's ``N - step`` zeros a row without a
-    launch."""
-    name = "istft_ola_fft"
+            scale: float, windowed: tuple | None = None) -> torch.Tensor:
+    """Check a CUDA input and launch the kernel, the windowed store when
+    ``windowed`` gives ``(window, wsq)``; with no frames (or no rows),
+    return the ``N - step`` zeros a row without a launch (the windowed
+    store's plain version divides them by ``wsq``)."""
+    name = "istft_ola_fft_window" if windowed else "istft_ola_fft"
     _build.require_f32(h_re, name)
     _build.require_f32(h_im, name)
     if not _rfft.fits(n):
@@ -139,17 +189,32 @@ def _launch(h_re: torch.Tensor, h_im: torch.Tensor, n: int, step: int,
     dev = h_re.device
     hr = h_re.reshape(batch, t, f).contiguous()
     hi = h_im.reshape(batch, t, f).contiguous()
+    out_len = (t - 1) * step + n
+    if windowed:
+        win, wsq = (v.to(device=dev, dtype=torch.float32).contiguous()
+                    for v in windowed)
+        if win.shape != (n,) or wsq.shape != (out_len,):
+            raise ValueError(f"{name}: need a ({n},) window and a "
+                             f"({out_len},) wsq, got {tuple(win.shape)} and "
+                             f"{tuple(wsq.shape)}")
     if t == 0 or batch == 0:
-        out = torch.zeros((batch, (t - 1) * step + n), dtype=torch.float32,
-                          device=dev)
-        return out.reshape(*lead, out.shape[-1])
+        out = torch.zeros((batch, out_len), dtype=torch.float32, device=dev)
+        if windowed:
+            out = out / wsq
+        return out.reshape(*lead, out_len)
     tw = _rfft.twiddles(n, torch.float32, dev)
-    out = torch.empty((batch, (t - 1) * step + n), dtype=torch.float32,
-                      device=dev)
+    out = torch.empty((batch, out_len), dtype=torch.float32, device=dev)
     s = ctypes.c_float(_factor(n, scale, torch.float32).item())
-    err = _build.library().zt_irfft_ola(
-        hr.data_ptr(), hi.data_ptr(), tw.data_ptr(), out.data_ptr(), s, batch,
-        t, n, step, _build.stream_of(h_re))
-    _build.check(err, "zt_irfft_ola")
-    istft_ola_fft.launches += 1
-    return out.reshape(*lead, out.shape[-1])
+    lib, stream = _build.library(), _build.stream_of(h_re)
+    if windowed:
+        err = lib.zt_irfft_ola_window(
+            hr.data_ptr(), hi.data_ptr(), tw.data_ptr(), win.data_ptr(),
+            wsq.data_ptr(), out.data_ptr(), s, batch, t, n, step, stream)
+        _build.check(err, "zt_irfft_ola_window")
+        istft_ola_fft_window.launches += 1
+    else:
+        err = lib.zt_irfft_ola(hr.data_ptr(), hi.data_ptr(), tw.data_ptr(),
+                               out.data_ptr(), s, batch, t, n, step, stream)
+        _build.check(err, "zt_irfft_ola")
+        istft_ola_fft.launches += 1
+    return out.reshape(*lead, out_len)

@@ -56,7 +56,7 @@ CUDA_SOURCE = "zaftpu_torch/csrc/mdct.cu"
 REPLACES = "zaftpu/pallas/fused.py:590"  # frames_op (B2)
 REPLACES_IMDCT = "zaftpu/pallas/synth.py:408"  # imdct_ola (B7)
 
-# The CUDA path's largest window (zaftpu_torch.kernels.MAX_WINDOW).
+# The kernels' largest window (zaftpu_torch.kernels.MAX_WINDOW).
 MAX_WINDOW = _rfft.MAX_WINDOW
 
 

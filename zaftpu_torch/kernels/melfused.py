@@ -63,7 +63,8 @@ def route(dtype: torch.dtype, window_length: int) -> str:
     and one filterbank product).
 
     ``ZAFTPU_MELFUSE=0`` (``zaftpu``'s A/B lever) gives ``"split"`` at every
-    window. Otherwise the FFT shape rule
+    window, and so does a window above the FFT kernels' ``MAX_WINDOW``
+    (``zaftpu``'s gate on its direct engine, stft.py:221-222). Otherwise the FFT shape rule
     (:func:`zaftpu_torch.kernels.rfft.applies`) gives ``"fft"`` on both
     dials, ``ZAFTPU_MELFUSE`` ``auto`` or ``1``: the stores compute exact
     values, as the FFT analysis does on the split4 dial. Where the rule
@@ -74,7 +75,7 @@ def route(dtype: torch.dtype, window_length: int) -> str:
     Unlike ``zaftpu``'s there is no hop, rank or operator-size condition:
     every path takes any hop up to WL and any batch."""
     melfuse = os.environ.get("ZAFTPU_MELFUSE", "auto")
-    if melfuse == "0":
+    if melfuse == "0" or window_length > _rfft.MAX_WINDOW:
         return "split"
     if _rfft.applies(window_length):
         return "fft"

@@ -46,8 +46,9 @@ REPLACES_FULL = "zaftpu/pallas/fused.py:475"  # _frames_matmul_full_impl
 REPLACES_FULL_SPLIT4 = "zaftpu/pallas/fused.py:174"  # _kernel_full_split4
 
 MIN_WINDOW = 16
-# The CUDA path's largest window (zaftpu_torch.kernels.MAX_WINDOW): the
-# direct DFT GEMM's, and this kernel's 2,048 complex values per block.
+# The kernels' largest window (zaftpu_torch.kernels.MAX_WINDOW; above it the
+# framing kernel and the FFT layer): the direct DFT GEMM's default bound,
+# and this kernel's 2,048 complex values per block.
 MAX_WINDOW = 4096
 # The largest prime factor of N/2 that a pass takes (csrc/stockham.cuh:
 # kMaxPrime). A direct p-point butterfly sums (p - 1)/2 terms an output: up

@@ -25,10 +25,12 @@ The inverse keys its window-folded operator by the float64 bytes of the
 window. A window given as a tensor, on the CPU or the card, is copied to
 the host once for that, as :func:`zaftpu_torch.istft` does for its COLA
 gain, so the port needs no counterpart of ``zaftpu``'s unfused inverse for
-traced or device-resident windows. The FFT cores for windows above 4096
-(``zaftpu``'s ``_mdct_core`` / ``_imdct_core``) are not ported: on CUDA
-such a window raises ``NotImplementedError``; on the CPU the direct GEMM
-runs at any length.
+traced or device-resident windows. A window above 4096 runs ``zaftpu``'s
+FFT cores (``_mdct_core`` / ``_imdct_core``) on every dial and lever: the
+framing kernel, the pre-twiddle, :func:`zaftpu_torch.core.fft.fft`
+(``torch.fft``; the four-step engine at a power of two under
+``ZAFTPU_FFT=matmul``) and the post-twiddle forward; the pre-twiddle, a zero-padded 2F-point ``fft``, the
+post-twiddle, the window and the OLA kernel back.
 """
 
 from __future__ import annotations
@@ -117,6 +119,33 @@ def _direct_inverse_windowed_matrix(number_frequencies: int,
     return _direct_inverse_matrix(number_frequencies) * win[None, :]
 
 
+def _mdct_core(padded: torch.Tensor, win: torch.Tensor,
+               t: int) -> torch.Tensor:
+    """Frames-major coefficients ``(..., T, WL/2)`` by ``zaftpu``'s FFT core
+    (mdct.py:239-254): windowed frames times the pre-twiddle, the WL-point
+    :func:`zaftpu_torch.core.fft.fft`, the post-twiddle's real part."""
+    wl = win.shape[0]
+    step = wl // 2
+    pre, post = _fft.device_operator(_forward_twiddles, (wl,), padded.device,
+                                     _fft.complex_dtype(padded.dtype))
+    frames = _kernels.windowed_frames(padded, win, wl, step, t)
+    return (_fft.fft(frames * pre)[..., :step] * post).real
+
+
+def _imdct_core(coeffs: torch.Tensor, f: int,
+                host_window: np.ndarray) -> torch.Tensor:
+    """``(..., T*F + F)`` signal before the trim by ``zaftpu``'s FFT core
+    (mdct.py:309-321): the pre-twiddled coefficients' zero-padded 2F-point
+    :func:`zaftpu_torch.core.fft.fft`, twice the real part of the
+    post-twiddled spectrum times the window, the TDAC overlap-add."""
+    pre, post = _fft.device_operator(_inverse_twiddles, (f,), coeffs.device,
+                                     _fft.complex_dtype(coeffs.dtype))
+    win = torch.from_numpy(host_window).to(device=coeffs.device,
+                                           dtype=coeffs.dtype)
+    spectra = _fft.fft(coeffs * pre, n=2 * f)
+    return _kernels.overlap_add(2.0 * (spectra * post).real * win, f)
+
+
 def _resolve_mdct_window(window_function, config):
     """Window from the positional argument or an
     :class:`zaftpu_torch.config.MdctConfig` (a float64 host array, cast to
@@ -156,14 +185,16 @@ def mdct(audio_signal, window_function=None, *, config=None) -> torch.Tensor:
     step = wl // 2
     in_dtype = x.dtype
     x = x.to(torch.promote_types(x.dtype, torch.float32))
-    _kernels.check_device_input(x, wl)
+    _kernels.check_device_input(x)
     win = win.to(device=x.device, dtype=x.dtype)
     n = x.shape[-1]
     t = int(np.ceil(n / step)) + 1
     # Pad `step` in front and to (T+1)*step in all (zaf.py:1036-1041).
     padded = torch.nn.functional.pad(x, (step, (t + 1) * step - n))
     args = (wl, _fft._real_name(x.dtype))
-    if _kernels.fused_enabled() and _mdct.applies(wl):
+    if wl > _kernels.MAX_WINDOW:
+        coeffs = _mdct_core(padded, win, t)
+    elif _kernels.fused_enabled() and _mdct.applies(wl):
         coeffs = _mdct.mdct_fft(padded, win, wl, t)
     elif _kernels.fused_enabled():
         ops = _fused.dispatch_ops(_direct_forward_ops_padded, args, x.device,
@@ -209,8 +240,11 @@ def imdct(audio_mdct, window_function=None, *, config=None) -> torch.Tensor:
             f"{host_window.shape[0]}")
     coeffs = c.transpose(-1, -2)  # (..., T, F) frames-major
     coeffs = coeffs.to(torch.promote_types(coeffs.dtype, torch.float32))
-    _kernels.check_device_input(coeffs, 2 * f)
-    signal = _kernels.imdct_synthesis(coeffs, f, host_window.tobytes())
+    _kernels.check_device_input(coeffs)
+    if 2 * f > _kernels.MAX_WINDOW:
+        signal = _imdct_core(coeffs, f, host_window)
+    else:
+        signal = _kernels.imdct_synthesis(coeffs, f, host_window.tobytes())
     if c.dtype == torch.bfloat16:
         signal = signal.to(c.dtype)
     # Reference trim [F : -F-1], one sample short on the right (zaf.py:1182).

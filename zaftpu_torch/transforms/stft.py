@@ -11,7 +11,10 @@ mirror included, in its store; at any other window the fused framing +
 window + DFT-GEMM kernel computes the half spectrum and PyTorch index ops
 mirror it. The synthesis runs the inverse real-FFT + overlap-add kernel
 where the rule holds and the fused inverse GEMM + overlap-add kernel at
-any other window (:mod:`zaftpu_torch.kernels`); under
+any other window up to 4096 (:mod:`zaftpu_torch.kernels`); a longer
+window takes the framing kernel and the FFT layer's ``rfft``
+(``torch.fft``; the four-step engine at a power of two under
+``ZAFTPU_FFT=matmul``), and ``real_ifft`` and the OLA kernel back, as ``zaftpu`` does off its direct engine; under
 ``ZAFTPU_PRECISION=split4`` the GEMM kernels run their split4 twins, the
 FFT kernels stay. The spectrogram takes the real-FFT kernel's magnitude
 store where the rule holds (:mod:`zaftpu_torch.kernels.melfft`) and the
@@ -115,7 +118,7 @@ def _analysis_inputs(audio_signal, window_function, step_length, config):
     wl = win.shape[0]
     step = _validate.check_step(step, wl)
     x = x.to(torch.promote_types(x.dtype, torch.float32))
-    _kernels.check_device_input(x, wl)
+    _kernels.check_device_input(x)
     return x, win.to(device=x.device, dtype=x.dtype), step
 
 
@@ -194,7 +197,7 @@ def istft(audio_stft, window_function=None, step_length: int | None = None,
     host_window = _host_window(window)
     gain = _frame.cola_gain(host_window, step)
     _validate.check_cola(host_window, step, gain)
-    _kernels.check_device_input(z, wl)
+    _kernels.check_device_input(z)
     signal = _kernels.synthesis_ola(z, step, gain)
     # Trim the centering pad (zaf.py:236-238).
     edge = wl - step
