@@ -1,6 +1,8 @@
 """Drive the zaftpu_torch STFT -> ISTFT, MDCT -> IMDCT, spectrogram / mel /
-MFCC and CQT paths once on an NVIDIA GPU, under the exact dial and under
-ZAFTPU_PRECISION=split4, and the CQT under both of its schemes.
+MFCC and CQT paths once on an NVIDIA GPU, under the exact dial, under
+ZAFTPU_PRECISION=split4, high and default and the bf16 compute dtype, the
+CQT under both of its schemes, and the streaming pipeline over an hour read
+from disk.
 
     python3 chip_smoke.py
 
@@ -205,11 +207,40 @@ of WL 400 / hop 160, misaligned). Then, after phase 9:
    no kernel launched, each timed, N 2,048 with the operator GEMM's bound
    (2 * T * N^2 FLOP at the FP32 peak).
 
+The dials and the bf16 compute dtype. In phase 3 each of the eight split4
+twins (B1, B2, B3, B4, B7, B9, B10, B12) also runs at 3 and 1 bf16 passes
+(ZAFTPU_PRECISION=high and default) at every shape it runs at 4, against
+its plain version at the same count within 1e-4 * max, timed (with its
+bound) where the 4-pass twin is. After phase 9 the main paths run under
+ZAFTPU_PRECISION=high and default: stft -> istft and mdct -> imdct at WL
+2048 through the exact FFT kernels under the exact gates, and at WL 2,062
+(B1's and B4's twins) and vorbis(1102) (B2's and B7's twins) at 3 and 1
+passes, high within 1e-4 * max of the float64 oracle and >= 88 dB,
+default within 2e-3 * max and >= 40 dB, with default < high < split4 in
+this call; then under compute_dtype("bfloat16") the CQT at CQT_WIDE
+(L 65,536) through B10-s4 at one pass, >= 45 dB against the float64
+oracle, and melspectrogram and mfcc (exempt) bit-equal to float32.
+
+The stream phase, last: one hour (the six 600-s segments) written as a
+44.1 kHz mono 16-bit WAV to a temporary directory (removed after); the
+native WAV codec built from zaftpu_torch/io/native/wavio.cpp and every
+block reader on it; streaming_spectrogram and streaming_melspectrogram at
+MelConfig() (4,096 frames a block: 38 blocks) through the magnitude and mel
+stores, each within 1e-6 * max of the whole-signal transform of the same
+decoded hour on the card, with its frames/s, host read, upload, compute
+and fetch seconds and the device's busy share (CUDA events), beside the
+whole transform's frames/s from resident data; a mel run interrupted after
+block 3 and resumed from its checkpoints (only the 34 other blocks
+computed, bit-equal); streaming_istft and streaming_imdct of 600 s from an
+np.memmap (the 2048 x 25,841 complex64 spectrum, the 1024 x 25,841 MDCT)
+into float32 WAVs, within 1e-6 of istft / imdct and >= 120 dB.
+
 The CQT kernel is built on the host without the disk cache
 (ZAFTPU_CACHE=0), so the run writes nothing outside the checkout.
 
-The line before the last is a JSON object with one entry per kernel; the
-last line is ``{"ok": true, "device": {...}}``.
+The line before the last is a JSON object with one entry per kernel (a
+twin's also with its 3- and 1-pass times, bounds and errors); the last
+line is ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -218,6 +249,7 @@ import functools
 import json
 import os
 import statistics
+import struct
 import subprocess
 import sys
 import time
@@ -335,6 +367,25 @@ SPLIT4_SNR_DB = (100.0, 125.0)
 # (oracle tolerance x max, lowest SNR, SNR bound it must stay under)
 EXACT_GATES = (ORACLE_TOL, MIN_SNR_DB, float("inf"))
 SPLIT4_GATES = (SPLIT4_ORACLE_TOL, *SPLIT4_SNR_DB)
+# The twins at 3 and 1 bf16 passes against their plain versions at the same
+# count (the same bf16 products, float32 sums in another order).
+DIAL_TOL = 1e-4
+TWINS = ("fused_split4", "frames_op_split4", "frames_rfft_full_split4",
+         "frames_matmul2_split4", "synth_split4", "imdct_ola_split4",
+         "mel_rows_split4", "cqt_magnitudes_split4")
+# ZAFTPU_PRECISION=high (3 passes) and default (1 pass) off the FFT rule:
+# high keeps split4's spectrum gate and at least 88 dB (zaftpu read 94.9
+# dB for HIGH on its TPU, policy.py:134-136), default at least 40 dB (52.6
+# dB for one pass there, :158-161) with the spectrum within 2e-3 * max (a
+# CPU run of the plain versions on 20 s of this signal read 4.2e-4);
+# check_dial_order holds default < high < split4 in the same call.
+HIGH_GATES = (SPLIT4_ORACLE_TOL, 88.0, float("inf"))
+DEFAULT_DIAL_GATES = (2e-3, 40.0, float("inf"))
+BF16_CQT_MIN_SNR_DB = 45.0  # tests/test_bf16.py:56-61
+# Above one pass's reading (64 dB on the H100) and below the float32 dial's
+# 4 passes at the same length (read beside it in the same phase): a CQT
+# that did not lower fails.
+BF16_CQT_MAX_SNR_DB = 85.0
 # The H100 SXM's peaks (NVIDIA data sheet, dense rates at 700 W).
 PEAK_FP32 = 67e12    # FLOP/s outside the tensor cores
 PEAK_BF16 = 989e12   # dense bf16 tensor-core FLOP/s
@@ -472,6 +523,10 @@ def median_ms(fn, reps: int = 10, warmup: int = 2) -> float:
     return statistics.median(times)
 
 
+# The card's name and power limit, as nvidia-smi gives them.
+CARD = [""]
+
+
 def phase_device() -> None:
     require(torch.cuda.is_available(),
             "torch.cuda.is_available() is false: there is no CPU path")
@@ -479,7 +534,8 @@ def phase_device() -> None:
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60)
-    print(smi.stdout.strip().splitlines()[0])
+    CARD[0] = smi.stdout.strip().splitlines()[0]
+    print(CARD[0])
     print(f"torch {torch.__version__} cuda {torch.version.cuda} "
           f"device {torch.cuda.get_device_name(0)} "
           f"count {torch.cuda.device_count()}")
@@ -897,14 +953,17 @@ def _fft_ops(n: int) -> int:
     return total
 
 
-def _work(name: str, args: tuple) -> tuple[float, float, float]:
+def _work(name: str, args: tuple,
+          passes: int = 4) -> tuple[float, float, float]:
     """Operator-GEMM FLOP, other FLOP and bytes of one call of kernel
     ``name`` on ``args``: the operations the function does and the bytes it
     must move, each input read once and each output written once (an
-    operator's bf16 hi and lo are as many bytes as its float32). The split4
-    twins do their GEMM in four bf16 passes; the rest is FP32 work."""
+    operator's bf16 hi and lo are as many bytes as its float32; at one pass
+    a twin needs only the hi half, 2 bytes an element). The split4 twins do
+    their GEMM in ``passes`` bf16 passes; the rest is FP32 work."""
     base = name.removesuffix("_split4")
-    passes = 4 if base != name else 1  # the split4 twins' bf16 passes
+    passes = passes if base != name else 1
+    opb = 2 if base != name and passes == 1 else 4
     if base == "synth_fft_window":
         # The inverse real FFT as synth_fft's, the window's product (1 a
         # sample) and the divide by the envelope (1 an output sample); both
@@ -927,7 +986,7 @@ def _work(name: str, args: tuple) -> tuple[float, float, float]:
             return (0, b * t * (_fft_ops(n) + 12 * (n // 2) + 2 * n),
                     4 * 2 * b * t * f + 8 * n + out)
         return (passes * 2 * b * t * 2 * f * n, 0,
-                4 * (2 * b * t * f + 2 * f * n) + out)
+                8 * b * t * f + opb * 2 * f * n + out)
     if base in ("mdct_fft", "imdct_ola_fft"):
         # The fast MDCT: the fold (an add a value) or the window and the
         # overlap-add (2 a sample), the pre- and post-twiddles (6 a packed
@@ -952,7 +1011,7 @@ def _work(name: str, args: tuple) -> tuple[float, float, float]:
         c, f, _ = args[:3]
         b, t = _rows(c) // c.shape[-2], c.shape[-2]
         return (passes * 2 * b * t * f * 2 * f, 0,
-                4 * (b * t * f + 2 * f * f + b * (t + 1) * f))
+                4 * (b * t * f + b * (t + 1) * f) + opb * 2 * f * f)
     if base == "ola":
         frames, step = args
         t, wl = frames.shape[-2:]
@@ -968,7 +1027,7 @@ def _work(name: str, args: tuple) -> tuple[float, float, float]:
         sig, _, _, length, t, f = args
         b = _rows(sig)
         return (passes * 4 * b * t * length * f, 3 * b * t * f,
-                4 * (sig.numel() + 2 * length * f + b * t * f))
+                4 * (sig.numel() + b * t * f) + opb * 2 * length * f)
     if base == "cqt_fft":
         # The spectral CQT: each frame's L/2-point FFT (its plan's passes),
         # the split step at the distinct bins the kernel reads (16 each),
@@ -1032,7 +1091,7 @@ def _work(name: str, args: tuple) -> tuple[float, float, float]:
     inputs = 4 * (padded.numel() + wl)
     if base == "framing":
         return 0, b * t * wl, inputs + b * out
-    ops_bytes = 4 * nc * wl * f
+    ops_bytes = opb * nc * wl * f
     other = 0
     if base == "mel_rows":
         other = 3 * b * t * f + 2 * b * t * f * fbt.shape[1]
@@ -1040,12 +1099,13 @@ def _work(name: str, args: tuple) -> tuple[float, float, float]:
     return passes * 2 * nc * b * t * wl * f, other, inputs + ops_bytes + b * out
 
 
-def bound(name: str, args: tuple) -> tuple[float, str]:
+def bound(name: str, args: tuple, passes: int = 4) -> tuple[float, str]:
     """The least time in ms the card could take for kernel ``name`` on
-    ``args``, and what sets it: the larger of its bytes over the HBM rate
-    and its operations over the peak rate for their type (a split4 twin's
-    GEMM on the bf16 tensor cores beside its FP32 epilogue, the rest FP32)."""
-    gemm, other, nbytes = _work(name, args)
+    ``args`` (a twin at ``passes`` bf16 passes), and what sets it: the
+    larger of its bytes over the HBM rate and its operations over the peak
+    rate for their type (a split4 twin's GEMM on the bf16 tensor cores
+    beside its FP32 epilogue, the rest FP32)."""
+    gemm, other, nbytes = _work(name, args, passes)
     if name.endswith("_split4"):
         t_ops = max(gemm / PEAK_BF16, other / PEAK_FP32)
     else:
@@ -1203,9 +1263,15 @@ def phase_kernels(dev) -> dict:
             wl, step, t = args[2], args[3], args[0].shape[-2]
             print(f"  {name}: {irfft_transforms(wl, step, t):.4f} frames "
                   "transformed per output frame")
-        if label in ("main", "40 ms", "25 ms", "whisper", "tacotron") or (
-                label == "operator"
-                and name in SYNTH_GEMMS + FULL_GEMMS + CQT_GEMMS):
+        timed = label in ("main", "40 ms", "25 ms", "whisper",
+                          "tacotron") or (
+            label == "operator"
+            and name in SYNTH_GEMMS + FULL_GEMMS + CQT_GEMMS)
+        dials = {}
+        if name in TWINS:
+            dials = twin_at_pass_counts(name, label, shape, kernel, plain,
+                                        args, timed)
+        if timed:
             ms = median_ms(lambda: kernel(*args))
             plain_ms = median_ms(lambda: plain(*args), reps=plain_reps,
                                  warmup=2 if plain_reps == 10 else 1)
@@ -1246,11 +1312,57 @@ def phase_kernels(dev) -> dict:
             entry = results.setdefault(name, {
                 "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
                 "bound_ms": bound_ms, "bound_by": bound_by,
-                "library_ms": library_ms})
+                "library_ms": library_ms, **dials})
             entry["max_abs_err"] = max(entry["max_abs_err"], err)
+            for key in ("max_abs_err_3_passes", "max_abs_err_1_pass"):
+                if key in dials:
+                    entry[key] = max(entry[key], dials[key])
         del got, ref, args
         torch.cuda.empty_cache()
     return results
+
+
+def twin_at_pass_counts(name: str, label: str, shape: str, kernel, plain,
+                        args: tuple, timed: bool) -> dict:
+    """A split4 twin at 3 and 1 bf16 passes (ZAFTPU_PRECISION=high and
+    default) against its plain version at the same count, within
+    DIAL_TOL * max, and unequal to its own output at every other count:
+    the dropped terms lie far below DIAL_TOL, so the gate alone would pass
+    a twin that ignores its count (the kernels are deterministic, so the
+    inequality cannot flake). At a timed shape also its median time and
+    bound at each count. Returns them keyed for the kernels line."""
+    def run(fn, passes):
+        y = fn(*args, passes=passes)
+        return torch.stack(y) if isinstance(y, tuple) else y
+
+    out, seen = {}, {4: run(kernel, 4)}
+    for passes, tag in ((3, "3_passes"), (1, "1_pass")):
+        got, ref = run(kernel, passes), run(plain, passes)
+        for other, y in seen.items():
+            require(not torch.equal(got, y),
+                    f"{name} {label}: {passes} passes give the output of "
+                    f"{other}")
+        seen[passes] = got
+        require(got.shape == ref.shape and got.dtype == ref.dtype,
+                f"{name} {label} at {passes} passes: {got.shape} vs "
+                f"{ref.shape}")
+        err, scale = _max_abs(got - ref), _max_abs(ref)
+        require(np.isfinite(err) and err <= DIAL_TOL * scale,
+                f"{name} {label} at {passes} passes: max_abs_err {err} > "
+                f"{DIAL_TOL} * {scale}")
+        line = (f"dials: kernel {name} {label} {shape} at {passes} passes: "
+                f"max_abs_err {err!r} max|ref| {scale!r}")
+        out[f"max_abs_err_{tag}"] = err
+        if timed:
+            ms = median_ms(lambda: kernel(*args, passes=passes))
+            bound_ms, bound_by = bound(name, args, passes)
+            line += (f"; kernel {ms:.4f} ms, bound {bound_ms:.4f} ms by "
+                     f"{bound_by}")
+            out[f"ms_{tag}"] = ms
+            out[f"bound_ms_{tag}"] = bound_ms
+        print(line)
+        del ref
+    return out
 
 
 def reset_counters() -> None:
@@ -1319,7 +1431,15 @@ STFT_WANT = {
     f"split4 ZAFTPU_FUSED2=1 WL {GEMM_WL}": (
         ("frames_matmul2_split4", "synth_split4"), SPLIT4_GATES),
     "split4 ZAFTPU_FFT=matmul": (("fused_split4", "synth_split4"),
-                                 SPLIT4_GATES)}
+                                 SPLIT4_GATES),
+    # ZAFTPU_PRECISION=high and default: the exact FFT kernels at a rule
+    # window, the twins at 3 and 1 passes off it.
+    "ZAFTPU_PRECISION=high": FFT_PATH,
+    "ZAFTPU_PRECISION=default": FFT_PATH,
+    f"ZAFTPU_PRECISION=high WL {GEMM_WL}": (("fused_split4", "synth_split4"),
+                                            HIGH_GATES),
+    f"ZAFTPU_PRECISION=default WL {GEMM_WL}": (
+        ("fused_split4", "synth_split4"), DEFAULT_DIAL_GATES)}
 # dispatch -> the kernels the MDCT main path must run, and its gates. At WL
 # 2048 the fast MDCT and IMDCT kernels run on both dials, so split4 meets
 # the exact gates there; at WL 1102 (an odd F) B2 and B7 run, their twins
@@ -1331,7 +1451,16 @@ MDCT_WANT = {"default": MDCT_FFT_PATH,
                                             EXACT_GATES),
              "split4": MDCT_FFT_PATH,
              f"split4 WL {MDCT_GEMM_WL}": (
-                 ("frames_op_split4", "imdct_ola_split4"), SPLIT4_GATES)}
+                 ("frames_op_split4", "imdct_ola_split4"), SPLIT4_GATES),
+             "ZAFTPU_PRECISION=high": MDCT_FFT_PATH,
+             "ZAFTPU_PRECISION=default": MDCT_FFT_PATH,
+             f"ZAFTPU_PRECISION=high WL {MDCT_GEMM_WL}": (
+                 ("frames_op_split4", "imdct_ola_split4"), HIGH_GATES),
+             f"ZAFTPU_PRECISION=default WL {MDCT_GEMM_WL}": (
+                 ("frames_op_split4", "imdct_ola_split4"),
+                 DEFAULT_DIAL_GATES)}
+# Round-trip SNR of each main-path dispatch, for check_dial_order.
+SNRS: dict = {}
 
 
 def check_gates(path: str, err: float, scale: float, snr: float,
@@ -1365,6 +1494,7 @@ def phase_main_path(dispatch: str, x: torch.Tensor) -> dict:
           f"{err!r} (max|oracle| {scale!r}, ratio {err / scale!r}); "
           f"round-trip SNR {snr!r} dB; output {tuple(rec.shape)}")
     check_gates(f"main path {dispatch}", err, scale, snr, gates)
+    SNRS[f"stft {dispatch}"] = snr
     return launches
 
 
@@ -1407,6 +1537,58 @@ def phase_mdct_path(dispatch: str, x: torch.Tensor) -> dict:
           f"{err!r} (max|oracle| {scale!r}, ratio {err / scale!r}); "
           f"round-trip SNR {snr!r} dB; output {tuple(rec.shape)}")
     check_gates(f"mdct path {dispatch}", err, scale, snr, gates)
+    SNRS[f"mdct {dispatch}"] = snr
+    return launches
+
+
+def check_dial_order() -> None:
+    """Off the FFT rule the pass counts order the round trips: default
+    (1 pass) < high (3) < split4 (4), each read in this call."""
+    for kind, wl in (("stft", GEMM_WL), ("mdct", MDCT_GEMM_WL)):
+        snr = [SNRS[f"{kind} {d} WL {wl}"]
+               for d in ("ZAFTPU_PRECISION=default", "ZAFTPU_PRECISION=high",
+                         "split4")]
+        print(f"dials: {kind} round trip at WL {wl}: default {snr[0]!r} < "
+              f"high {snr[1]!r} < split4 {snr[2]!r} dB")
+        require(snr[0] < snr[1] < snr[2],
+                f"dials: {kind} WL {wl} round trips out of order: {snr}")
+
+
+def phase_bf16(dispatch: str, x: torch.Tensor) -> dict:
+    """Under compute_dtype("bfloat16"): the CQT at CQT_WIDE (L 65,536, B10's
+    route) through B10-s4 at one pass, at least 45 dB against the float64
+    oracle and below BF16_CQT_MAX_SNR_DB, which the float32 dial's CQT
+    exceeds; melspectrogram and mfcc at MelConfig() (exempt) bit-equal to
+    the float32 dial's. Returns the launch counts."""
+    cfg = MelConfig()
+    mel = zaftpu_torch.melspectrogram(x, config=cfg)
+    mf = zaftpu_torch.mfcc(x, config=cfg)
+    spec32 = zaftpu_torch.cqtspectrogram(x, config=CQT_WIDE)
+    reset_counters()
+    with zaftpu_torch.compute_dtype("bfloat16"):
+        spec = zaftpu_torch.cqtspectrogram(x, config=CQT_WIDE)
+        torch.cuda.synchronize()
+        launches = check_counters(f"bf16 [{dispatch}] cqt",
+                                  ("cqt_magnitudes_split4",))
+        require(launches["cqt_magnitudes_split4"] == 1,
+                f"bf16: {launches} launches of B10-s4, not one")
+        oracle = cqt_oracle(x, CQT_WIDE)[0]
+        snr, snr32 = (
+            float(10 * torch.log10((oracle ** 2).sum()
+                                   / ((s.T.double() - oracle) ** 2).sum()))
+            for s in (spec, spec32))
+        mel16 = zaftpu_torch.melspectrogram(x, config=cfg)
+        mf16 = zaftpu_torch.mfcc(x, config=cfg)
+    print(f"bf16 [{dispatch}]: cqtspectrogram at L "
+          f"{CQT_WIDE.kernel().fft_length} on B10-s4 at 1 pass: SNR vs f64 "
+          f"oracle {snr!r} dB (float32 dial {snr32!r} dB); melspectrogram "
+          f"and mfcc bit-equal to float32: {torch.equal(mel16, mel)} "
+          f"{torch.equal(mf16, mf)}")
+    require(BF16_CQT_MIN_SNR_DB <= snr < BF16_CQT_MAX_SNR_DB <= snr32,
+            f"bf16 CQT SNR {snr} dB (float32 {snr32} dB) outside "
+            f"[{BF16_CQT_MIN_SNR_DB}, {BF16_CQT_MAX_SNR_DB})")
+    require(torch.equal(mel16, mel) and torch.equal(mf16, mf),
+            "bf16: an exempt mel front end changed")
     return launches
 
 
@@ -2080,6 +2262,197 @@ def phase_dct(x: torch.Tensor) -> None:
     check_counters("dct path", ())
 
 
+STREAM_BLOCK_FRAMES = 4096
+STREAM_TOL = 1e-6  # x max|whole-signal result|; each frame runs the same kernel
+
+
+def _write_hour_wav(path: str) -> int:
+    """The six 600-s segments as one 44.1 kHz mono 16-bit PCM WAV, written
+    a segment at a time; returns its sample count."""
+    n = SEGMENTS_PER_HOUR * SEGMENT_SECONDS * SR
+    with open(path, "wb") as fh:
+        fh.write(b"RIFF" + struct.pack("<I", 36 + 2 * n) + b"WAVE"
+                 + b"fmt " + struct.pack("<IHHIIHH", 16, 1, 1, SR, 2 * SR, 2,
+                                         16)
+                 + b"data" + struct.pack("<I", 2 * n))
+        for i in range(SEGMENTS_PER_HOUR):
+            np.clip(np.round(segment(i) * 32767), -32768, 32767).astype(
+                "<i2").tofile(fh)
+    return n
+
+
+def _stream_line(what: str, stats, frames: int) -> str:
+    return (f"stream [{what}] ({CARD[0]}): {stats.blocks} blocks, {frames} "
+            f"frames in {stats.wall_s!r} s -> {frames / stats.wall_s:,.0f} "
+            f"frames/s disk -> device -> features; read {stats.read_s!r} s "
+            f"(host), upload {stats.upload_s!r} s, compute "
+            f"{stats.compute_s!r} s, fetch {stats.fetch_s!r} s (device, CUDA "
+            f"events); device busy share {stats.busy_share!r}")
+
+
+def phase_stream(dev) -> dict:
+    """The I/O layer and the streaming pipeline on an hour read from disk:
+    the six 600-s segments written as one 16-bit WAV to a temporary
+    directory (deleted after); the native codec required, and every block
+    reader opened on it; streaming_spectrogram and streaming_melspectrogram
+    at MelConfig() (Hamming 2048 / hop 1024, 4,096 frames a block) against
+    the port's whole-signal transform of the same decoded hour on the card
+    (<= 1e-6 * max), each with its frames/s, time split and busy share
+    beside the whole transform's frames/s from resident data; a mel run
+    interrupted after block 3 and resumed from its checkpoints, computing
+    only the rest and bit-equal to the uninterrupted one; streaming_istft
+    and streaming_imdct of 600 s from an np.memmap of the spectrum (the
+    MDCT coefficients) into a float32 WAV, within 1e-6 of istft (imdct) and
+    >= 120 dB against the signal. Returns the launch counts."""
+    import shutil
+    import tempfile
+
+    from zaftpu_torch.io import native, pipeline
+    from zaftpu_torch.io.stream import BlockReader
+
+    require(native.load() is not None,
+            "stream: the native WAV codec did not build or load")
+    opened = dict(BlockReader.opened)
+    launches: dict = {}
+
+    def count(path: str, want: tuple) -> None:
+        for name, n in check_counters(path, want).items():
+            launches[name] = launches.get(name, 0) + n
+
+    tmp = tempfile.mkdtemp(prefix="zaftpu_torch_stream_")
+    try:
+        wav = os.path.join(tmp, "hour.wav")
+        t0 = time.perf_counter()
+        n = _write_hour_wav(wav)
+        print(f"stream: wrote {n} samples ({os.path.getsize(wav)} bytes) in "
+              f"{time.perf_counter() - t0:.2f} s")
+        cfg = MelConfig()
+        win, step, fb = cfg.window_array(), cfg.step_length, cfg.filterbank()
+        reader = BlockReader(wav, 1)
+        require(reader.native and reader.frames == n,
+                f"stream: reader native {reader.native}, {reader.frames}")
+        x = torch.from_numpy(reader.read_span(0, n)).to(dev)
+        frames = stft_padding(n, cfg.window_length, step)[2]
+        blocks = -(-frames // STREAM_BLOCK_FRAMES)
+        streams = {
+            "spectrogram": (
+                lambda **k: pipeline.streaming_spectrogram(
+                    wav, win, step, block_frames=STREAM_BLOCK_FRAMES, **k),
+                lambda: zaftpu_torch.spectrogram(x, win, step),
+                "spec_rows_fft"),
+            "melspectrogram": (
+                lambda **k: pipeline.streaming_melspectrogram(
+                    wav, win, step, fb, block_frames=STREAM_BLOCK_FRAMES,
+                    **k),
+                lambda: zaftpu_torch.melspectrogram(x, config=cfg),
+                "mel_rows_fft")}
+        out = {}
+        for name, (stream, whole, want) in streams.items():
+            reset_counters()
+            stats = pipeline.StreamStats()
+            out[name] = stream(stats=stats)
+            torch.cuda.synchronize()
+            count(f"stream [{name}]", (want,))
+            require(stats.blocks == blocks and stats.frames == frames,
+                    f"stream [{name}]: {stats.blocks} blocks, "
+                    f"{stats.frames} frames")
+            ref = whole()
+            err = _max_abs(torch.from_numpy(out[name]).to(dev) - ref)
+            scale = _max_abs(ref)
+            ms = median_ms(whole, reps=3, warmup=1)
+            print(_stream_line(name, stats, frames))
+            print(f"stream [{name}]: max_abs_err vs the whole-signal "
+                  f"transform {err!r} (max {scale!r}); the whole hour from "
+                  f"resident data {ms:.4f} ms -> {frames / ms * 1e3:,.0f} "
+                  "frames/s")
+            require(tuple(ref.shape) == out[name].shape
+                    and err <= STREAM_TOL * scale,
+                    f"stream [{name}]: error {err} > {STREAM_TOL} * {scale}")
+            del ref
+        # Interrupted after block 3, resumed from the checkpoints.
+        ckpt = os.path.join(tmp, "ckpt")
+
+        class Interrupted(Exception):
+            pass
+
+        def stop(index: int, total: int) -> None:
+            if index == 3:
+                raise Interrupted
+
+        stream = streams["melspectrogram"][0]
+        try:
+            stream(checkpoint_dir=ckpt, progress=stop)
+            require(False, "stream: the interrupting callback did not stop")
+        except Interrupted:
+            pass
+        stats = pipeline.StreamStats()
+        resumed = stream(checkpoint_dir=ckpt, stats=stats)
+        print(f"stream [melspectrogram resumed]: {stats.blocks} of {blocks} "
+              f"blocks computed, bit-equal to the uninterrupted run: "
+              f"{np.array_equal(resumed, out['melspectrogram'])}")
+        require(stats.blocks == blocks - 4,
+                f"stream: the resumed run computed {stats.blocks} blocks")
+        require(np.array_equal(resumed, out["melspectrogram"]),
+                "stream: the resumed result differs")
+        del out, resumed, x
+        # Synthesis of 600 s from memory-mapped coefficients.
+        x600 = torch.from_numpy(segment(0)).to(dev)
+        hw, vw = hamming(WL), vorbis(WL)
+        spec = zaftpu_torch.stft(x600, hw, STEP)
+        coeffs = zaftpu_torch.mdct(x600, vw)
+        for name, coef, whole, run, want in (
+                ("istft", spec, zaftpu_torch.istft(spec, hw, STEP),
+                 lambda src, path, stats: pipeline.streaming_istft(
+                     src, hw, STEP, path, SR,
+                     block_frames=STREAM_BLOCK_FRAMES, stats=stats),
+                 "synth_fft"),
+                ("imdct", coeffs, zaftpu_torch.imdct(coeffs, vw),
+                 lambda src, path, stats: pipeline.streaming_imdct(
+                     src, vw, path, SR, block_frames=STREAM_BLOCK_FRAMES,
+                     stats=stats),
+                 "imdct_ola_fft")):
+            npy = os.path.join(tmp, f"{name}.npy")
+            host = coef.cpu().numpy()
+            mm = np.lib.format.open_memmap(npy, mode="w+", dtype=host.dtype,
+                                           shape=host.shape)
+            mm[...] = host
+            mm.flush()
+            del mm, host
+            src = np.load(npy, mmap_mode="r")
+            path = os.path.join(tmp, f"{name}.wav")
+            reset_counters()
+            stats = pipeline.StreamStats()
+            written = run(src, path, stats)
+            torch.cuda.synchronize()
+            count(f"stream [{name}]", (want,))
+            back = BlockReader(path, 1)
+            require(back.native and back.frames == written
+                    == whole.shape[-1],
+                    f"stream [{name}]: {back.frames} {written} "
+                    f"{whole.shape[-1]}")
+            rec = torch.from_numpy(back.read_span(0, written)).to(dev)
+            err = _max_abs(rec - whole)
+            snr = snr_db(x600, rec)
+            print(f"stream [{name}] ({CARD[0]}): {src.shape} {src.dtype} "
+                  f"memmap, {stats.blocks} blocks in {stats.wall_s!r} s, "
+                  f"read {stats.read_s!r} s, upload {stats.upload_s!r} s, "
+                  f"compute {stats.compute_s!r} s, fetch {stats.fetch_s!r} "
+                  f"s; max_abs_err vs {name} {err!r}; SNR vs the signal "
+                  f"{snr!r} dB")
+            require(err <= 1e-6 and snr >= MIN_SNR_DB,
+                    f"stream [{name}]: error {err}, SNR {snr} dB")
+            del src, rec, whole
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    native_opened = BlockReader.opened["native"] - opened["native"]
+    print(f"stream: {native_opened} block readers opened, all on the native "
+          "codec")
+    require(BlockReader.opened["scipy"] == opened["scipy"]
+            and native_opened > 0,
+            f"stream: a block reader took SciPy: {BlockReader.opened}")
+    return launches
+
+
 LEVERS = ("ZAFTPU_FUSED", "ZAFTPU_SYNTH", "ZAFTPU_MELFUSE", "ZAFTPU_MIRROR",
           "ZAFTPU_FULLSPEC", "ZAFTPU_FUSED2", "ZAFTPU_FFT", "ZAFTPU_PRECISION",
           "ZAFTPU_CQT_SCHEME")
@@ -2104,6 +2477,8 @@ FFT_MATMUL = {**DEFAULT, "ZAFTPU_FFT": "matmul"}
 MATMUL_MELFUSE = {**FFT_MATMUL, "ZAFTPU_MELFUSE": "1"}
 SPLIT4_MATMUL_MELFUSE = {**SPLIT4_MATMUL, "ZAFTPU_MELFUSE": "1"}
 CQT_EXACT_MATMUL = {**CQT_EXACT, "ZAFTPU_FFT": "matmul"}
+HIGH = {**DEFAULT, "ZAFTPU_PRECISION": "high"}
+DEFAULT_DIAL = {**DEFAULT, "ZAFTPU_PRECISION": "default"}
 
 
 def _with_env(env: dict, fn, *args):
@@ -2179,10 +2554,20 @@ def main() -> int:
             (SPLIT4, phase_mel_path, "split4"),
             (SPLIT4_MELFUSE, phase_mel_path, "split4 ZAFTPU_MELFUSE=1"),
             (SPLIT4_MATMUL_MELFUSE, phase_mel_path,
-             "split4 ZAFTPU_FFT=matmul ZAFTPU_MELFUSE=1")):
+             "split4 ZAFTPU_FFT=matmul ZAFTPU_MELFUSE=1"),
+            # The dials: exact FFT kernels at the rule's windows, the twins
+            # at 3 and 1 passes off it; the bf16 compute dtype.
+            *((env, phase, f"ZAFTPU_PRECISION={dial}{wl}")
+              for env, dial in ((HIGH, "high"), (DEFAULT_DIAL, "default"))
+              for phase, wl in ((phase_main_path, ""),
+                                (phase_main_path, f" WL {GEMM_WL}"),
+                                (phase_mdct_path, ""),
+                                (phase_mdct_path, f" WL {MDCT_GEMM_WL}"))),
+            (DEFAULT, phase_bf16, "compute_dtype bfloat16")):
         for name, count in _with_env(env, phase, dispatch, x).items():
             launches[name] += count
         torch.cuda.empty_cache()
+    check_dial_order()
     print(f"chip_smoke: main paths at {time.perf_counter() - start:.1f} s")
     # Windows above 4,096, Griffin-Lim (its magnitude from the half store)
     # and the DCT / DST.
@@ -2267,6 +2652,12 @@ def main() -> int:
                           (FFT_MATMUL, "ZAFTPU_FFT=matmul: B10-s4")):
         _with_env(env, phase_hour_cqt, dispatch, segs)
         torch.cuda.empty_cache()
+    del segs
+    torch.cuda.empty_cache()
+    print(f"chip_smoke: hours at {time.perf_counter() - start:.1f} s")
+    for name, count in _with_env(DEFAULT, phase_stream, dev).items():
+        launches[name] += count
+    torch.cuda.empty_cache()
 
     print(f"chip_smoke: {time.perf_counter() - start:.1f} s")
     print(json.dumps({"kernels": [

@@ -946,22 +946,38 @@ def test_numpy_input_runs_on_the_card(dev, name, cqt_cache):
 
 @pytest.mark.parametrize("value", ["high", "default"])
 def test_tpu_pass_count_dials_refused_on_cuda(dev, value, monkeypatch):
+    """``high`` and ``default`` are no longer refused on the card: the
+    transforms run, off the FFT rule on the twins at 3 and 1 passes (within
+    the dial's reach of the CPU float64 path), at a rule window on the
+    exact FFT kernels (bit-equal to highest)."""
     monkeypatch.setenv("ZAFTPU_PRECISION", value)
-    x = torch.zeros(8192, device=dev)
-    with pytest.raises(NotImplementedError, match=value):
-        zaftpu_torch.stft(x, hamming(512), 256)
-    with pytest.raises(NotImplementedError, match=value):
-        zaftpu_torch.mdct(x, vorbis(512))
-    # The windows above 4,096, the DCT / DST and Griffin-Lim too.
-    with pytest.raises(NotImplementedError, match=value):
-        zaftpu_torch.stft(x, hamming(8192), 4096)
-    with pytest.raises(NotImplementedError, match=value):
-        zaftpu_torch.imdct(torch.zeros((4096, 5), device=dev), vorbis(8192))
-    with pytest.raises(NotImplementedError, match=value):
-        zaftpu_torch.dct(x, 2)
-    with pytest.raises(NotImplementedError, match=value):
-        zaftpu_torch.griffin_lim(torch.ones((257, 9), device=dev),
-                                 hamming(512), 256)
+    p = {"high": 3, "default": 1}[value]
+    tol = {3: 2e-5, 1: 3e-2}[p]
+    x = torch.from_numpy(np.random.default_rng(21).standard_normal(
+        8192).astype(np.float32))
+    xd = x.to(dev)
+    for wl in (262, 510):
+        before = (fused.frames_rfft_split4.launches,
+                  synth.istft_ola_split4.launches)
+        spec = zaftpu_torch.stft(xd, hamming(wl), wl // 2)
+        rec = zaftpu_torch.istft(spec, hamming(wl), wl // 2)
+        assert (fused.frames_rfft_split4.launches > before[0]
+                or rfft.applies(wl))
+        ref = zaftpu_torch.stft(x.double(), hamming(wl), wl // 2)
+        assert _rel_err(spec.cpu().to(torch.complex128), ref) < tol
+        assert rec.is_cuda
+    coeffs = zaftpu_torch.mdct(xd, vorbis(1102))
+    assert _rel_err(coeffs.cpu().double(),
+                    zaftpu_torch.mdct(x.double(), vorbis(1102))) < tol
+    monkeypatch.delenv("ZAFTPU_PRECISION")
+    ref = zaftpu_torch.stft(xd, hamming(512), 256)
+    monkeypatch.setenv("ZAFTPU_PRECISION", value)
+    assert torch.equal(zaftpu_torch.stft(xd, hamming(512), 256), ref)
+    # The windows above 4,096, the DCT / DST and Griffin-Lim run too.
+    assert zaftpu_torch.stft(xd, hamming(8192), 4096).is_cuda
+    assert zaftpu_torch.dct(xd[:4096], 2).is_cuda
+    assert zaftpu_torch.griffin_lim(torch.ones((257, 9), device=dev),
+                                    hamming(512), 256).is_cuda
 
 
 def test_forced_mel_kernel_under_split4_runs_the_twin_on_cuda(dev,
@@ -1952,3 +1968,218 @@ def test_griffin_lim_on_the_card(dev, wl, step):
     ref = zaftpu_torch.griffin_lim(mag.cpu(), win, step, iterations=3)
     assert out.is_cuda and out.shape == ref.shape
     assert _rel_err(out.cpu().double(), ref.double()) < 1e-3
+
+
+# The dials' pass counts on the twins (ZAFTPU_PRECISION=high: 3 bf16
+# passes, default: 1) and the bf16 compute dtype.
+
+PASS_COUNTS = [3, 1]
+
+
+@pytest.mark.parametrize("passes", PASS_COUNTS)
+@pytest.mark.parametrize("wl,step,t", S4_SHAPES)
+@pytest.mark.parametrize("lead", [(), (2, 3)])
+@pytest.mark.parametrize("offset", [0, 1])
+def test_analysis_twins_at_pass_count_match_plain(dev, passes, wl, step, t,
+                                                  lead, offset):
+    """B1's, B3's, B12's and B2's twins at 3 and 1 passes against their
+    plain versions at the same count (the same bf16 products, float32 sums
+    in another order), B3's and B12's bit-equal to B1's twin."""
+    padded, win = _inputs(wl, step, t, dev, lead, offset)
+    args = (padded, win, wl, step, t)
+    half = fused.frames_rfft_split4(*args, passes=passes)
+    ref = fused.frames_rfft_split4_plain(*args, passes=passes)
+    assert half.shape == ref.shape and _rel_err(half, ref) < 1e-4
+    assert not torch.equal(half, fused.frames_rfft_split4(*args))
+    full = fused.frames_rfft_full_split4(*args, passes=passes)
+    assert torch.equal(full, tfft.conjugate_mirror(half, wl))
+    re, im = fused.frames_matmul2_split4(*args, passes=passes)
+    assert torch.equal(torch.complex(re, im), half)
+    if wl % 2 == 0:
+        ops = policy.presplit(torch.from_numpy(
+            tmdct._direct_forward_ops_padded(wl)).to(dev))
+        got = fused.frames_op_split4(padded, win, ops, wl // 2, wl, step, t,
+                                     passes=passes)
+        ref = fused.frames_op_split4_plain(padded, win, ops, wl // 2, wl,
+                                           step, t, passes=passes)
+        assert got.shape == ref.shape and _rel_err(got, ref) < 1e-4
+
+
+@pytest.mark.parametrize("passes", PASS_COUNTS)
+@pytest.mark.parametrize("wl,step,t", S4_SHAPES)
+@pytest.mark.parametrize("lead", [(), (2, 3)])
+def test_synthesis_twins_at_pass_count_match_plain(dev, passes, wl, step, t,
+                                                   lead):
+    rng = np.random.default_rng(wl + t)
+    f = wl // 2 + 1
+    h = torch.from_numpy(rng.standard_normal((2, *lead, t, f)).astype(
+        np.float32)).to(dev)
+    got = synth.istft_ola_split4(h[0], h[1], wl, step, 0.5, passes=passes)
+    ref = synth.istft_ola_split4_plain(h[0], h[1], wl, step, 0.5,
+                                       passes=passes)
+    assert got.shape == ref.shape and _rel_err(got, ref) < 1e-4
+    if wl % 2 == 0:
+        c = torch.from_numpy(rng.standard_normal((*lead, t, wl // 2)).astype(
+            np.float32)).to(dev)
+        wb = vorbis(wl).tobytes()
+        got = synth.imdct_ola_split4(c, wl // 2, wb, passes=passes)
+        ref = synth.imdct_ola_split4_plain(c, wl // 2, wb, passes=passes)
+        assert got.shape == ref.shape and _rel_err(got, ref) < 1e-4
+
+
+@pytest.mark.parametrize("passes", PASS_COUNTS)
+@pytest.mark.parametrize("wl,step,t", S4_SHAPES)
+@pytest.mark.parametrize("offset", [0, 1])
+def test_mel_rows_twin_at_pass_count_matches_plain(dev, passes, wl, step, t,
+                                                   offset):
+    padded, win = _inputs(wl, step, t, dev, (2,), offset)
+    fbt = torch.rand(wl // 2, 20,
+                     generator=torch.Generator().manual_seed(wl)).to(dev)
+    for power in (False, True):
+        got = melfused.mel_rows_split4(padded, win, fbt, wl, step, t, power,
+                                       passes=passes)
+        ref = melfused.mel_rows_split4_plain(padded, win, fbt, wl, step, t,
+                                             power, passes=passes)
+        assert got.shape == ref.shape and _rel_err(got, ref) < 1e-4
+
+
+@pytest.mark.parametrize("passes", PASS_COUNTS)
+@pytest.mark.parametrize("sr,bins,fmin,fmax,t", CQT_GEOMETRIES)
+@pytest.mark.parametrize("lead,offset", [((), 0), ((2,), 0), ((), 1)])
+def test_cqt_twin_at_pass_count_matches_plain(dev, cqt_cache, passes, sr,
+                                              bins, fmin, fmax, t, lead,
+                                              offset):
+    kern = zaftpu_torch.cqtkernel(sr, bins, fmin, fmax)
+    step, length, f = round(sr / 25), kern.fft_length, kern.number_frequencies
+    ops = torch.from_numpy(cqtslab.time_ops_split4(kern.time_kernel)).to(
+        device=dev, dtype=torch.bfloat16)
+    rng = np.random.default_rng(sr + t + 2)
+    n = (t - 1) * step + length
+    sig = torch.from_numpy(rng.standard_normal(
+        (*lead, n + offset)).astype(np.float32)).to(dev)[..., offset:]
+    got = cqtslab.cqt_magnitudes_split4(sig, ops, step, length, t, f,
+                                        passes=passes)
+    ref = cqtslab.cqt_magnitudes_split4_plain(sig, ops, step, length, t, f,
+                                              passes=passes)
+    assert got.shape == ref.shape == (*lead, t, f)
+    assert _rel_err(got, ref) < 1e-4
+
+
+def test_twin_entries_refuse_other_pass_counts(dev):
+    padded, win = _inputs(512, 256, 9, dev)
+    for passes in (0, 2):
+        with pytest.raises(ValueError, match="1, 3 or 4"):
+            fused.frames_rfft_split4(padded, win, 512, 256, 9,
+                                     passes=passes)
+
+
+def test_bf16_cqt_runs_the_twin_at_one_pass(dev, cqt_cache, monkeypatch):
+    """Under compute_dtype("bfloat16") the CQT off the spectral kernel's
+    rule (here ZAFTPU_FFT=matmul) launches B10's twin at one pass: within
+    1e-4 of max of its plain version, 45 dB or more from the exact CQT;
+    mel and MFCC are exempt, bit-equal."""
+    monkeypatch.setenv("ZAFTPU_FFT", "matmul")
+    kern = zaftpu_torch.cqtkernel(22050, 12, 110.0, 3520.0)
+    x = torch.from_numpy(np.random.default_rng(31).standard_normal(
+        22050 * 3).astype(np.float32)).to(dev)
+    exact = zaftpu_torch.cqtspectrogram(x, 22050, 25, kern)
+    before = cqtslab.cqt_magnitudes_split4.launches
+    with zaftpu_torch.compute_dtype("bfloat16"):
+        got = zaftpu_torch.cqtspectrogram(x, 22050, 25, kern)
+    assert cqtslab.cqt_magnitudes_split4.launches == before + 1
+    err = float(((got - exact) ** 2).sum() / (exact ** 2).sum())
+    assert 10 * np.log10(1 / err) >= 45.0
+    step = round(22050 / 25)
+    length = kern.fft_length
+    padded = torch.nn.functional.pad(
+        x, (-(-(length - step) // 2), (length - step) // 2))
+    padded = torch.nn.functional.pad(padded, (0, max(0, cqtslab.slab_needed(
+        got.shape[-1], step, length) - padded.shape[-1])))
+    ops = tcqt._device_time_kernel(kern, dev, True)
+    ref = cqtslab.cqt_magnitudes_split4_plain(
+        padded, ops, step, length, got.shape[-1], kern.number_frequencies,
+        passes=1)
+    assert _rel_err(got.transpose(-1, -2), ref) < 1e-4
+    fb = zaftpu_torch.melfilterbank(22050, 1024, 40)
+    win = hamming(1024)
+    mel = zaftpu_torch.melspectrogram(x, win, 512, fb)
+    mf = zaftpu_torch.mfcc(x, win, 512, fb, 13)
+    with zaftpu_torch.compute_dtype("bfloat16"):
+        assert torch.equal(zaftpu_torch.melspectrogram(x, win, 512, fb), mel)
+        assert torch.equal(zaftpu_torch.mfcc(x, win, 512, fb, 13), mf)
+
+
+def _short_wav(tmp_path, seconds=3, sr=22050):
+    from zaftpu_torch.io import native
+
+    x = np.random.default_rng(41).uniform(-0.5, 0.5, sr * seconds)
+    path = tmp_path / "short.wav"
+    native.write_i16(path, sr, (x * 32767).astype(np.int16))
+    return str(path)
+
+
+@pytest.mark.parametrize("kind", ["spectrogram", "melspectrogram", "mdct",
+                                  "cqtspectrogram"])
+def test_streaming_pipeline_bit_equal_across_prefetch(dev, tmp_path,
+                                                      cqt_cache, kind):
+    """The streamed features equal the whole-signal transform of the same
+    samples on the card, and the result does not depend on how many blocks
+    are in flight (a pinned buffer reused too early would show here)."""
+    from zaftpu_torch.io import pipeline
+    from zaftpu_torch.io.stream import BlockReader
+
+    path = _short_wav(tmp_path)
+    reader = BlockReader(path, 1)
+    assert reader.native
+    x = torch.from_numpy(reader.read_span(0, reader.frames)).to(dev)
+    win = hamming(1024)
+    fb = zaftpu_torch.melfilterbank(22050, 1024, 40)
+    kern = zaftpu_torch.cqtkernel(22050, 12, 110.0, 3520.0)
+    runs = {
+        "spectrogram": (lambda **k: pipeline.streaming_spectrogram(
+            path, win, 512, block_frames=13, **k),
+            lambda: zaftpu_torch.spectrogram(x, win, 512)),
+        "melspectrogram": (lambda **k: pipeline.streaming_melspectrogram(
+            path, win, 512, fb, block_frames=13, **k),
+            lambda: zaftpu_torch.melspectrogram(x, win, 512, fb)),
+        "mdct": (lambda **k: pipeline.streaming_mdct(
+            path, vorbis(1024), block_frames=13, **k),
+            lambda: zaftpu_torch.mdct(x, vorbis(1024))),
+        "cqtspectrogram": (lambda **k: pipeline.streaming_cqtspectrogram(
+            path, 22050, 25, kern, block_frames=7, **k),
+            lambda: zaftpu_torch.cqtspectrogram(x, 22050, 25, kern)),
+    }
+    stream, whole = runs[kind]
+    stats = pipeline.StreamStats()
+    outs = [stream(prefetch=p) for p in (1, 2)]
+    outs.append(stream(prefetch=3, stats=stats))
+    for out in outs[1:]:
+        np.testing.assert_array_equal(out, outs[0])
+    ref = whole().cpu().numpy()
+    assert outs[0].shape == ref.shape
+    np.testing.assert_array_equal(outs[0], ref)
+    assert stats.blocks >= 3 and stats.compute_s > 0 and stats.upload_s > 0
+
+
+def test_streaming_synthesis_on_card_matches_whole(dev, tmp_path):
+    from zaftpu_torch.io import pipeline
+    from zaftpu_torch.io.wav import wavread
+
+    x = torch.from_numpy(np.random.default_rng(43).uniform(
+        -0.5, 0.5, 30000).astype(np.float32)).to(dev)
+    win = hamming(1024)
+    spec = zaftpu_torch.stft(x, win, 512)
+    whole = zaftpu_torch.istft(spec, win, 512).cpu().numpy()
+    src = spec.cpu().numpy()
+    n = pipeline.streaming_istft(src, win, 512, tmp_path / "a.wav", 22050,
+                                 block_frames=11)
+    rec, _ = wavread(tmp_path / "a.wav")
+    assert n == whole.shape[0]
+    np.testing.assert_allclose(rec, whole, atol=1e-6)
+    coeffs = zaftpu_torch.mdct(x, vorbis(1024))
+    whole = zaftpu_torch.imdct(coeffs, vorbis(1024)).cpu().numpy()
+    n = pipeline.streaming_imdct(coeffs.cpu().numpy(), vorbis(1024),
+                                 tmp_path / "b.wav", 22050, block_frames=9)
+    rec, _ = wavread(tmp_path / "b.wav")
+    assert n == whole.shape[0]
+    np.testing.assert_allclose(rec, whole, atol=1e-6)

@@ -181,13 +181,14 @@ def test_split4_lowers_only_the_real_first_stage(monkeypatch):
     stay exact. The values match zaftpu's split4 engine."""
     monkeypatch.setenv("ZAFTPU_PRECISION", "split4")
     calls = []
-    split4 = policy.split4_matmul
+    split = policy.split_matmul
 
-    def spy(a, b):
+    def spy(a, b, passes=4):
+        assert passes == 4
         calls.append(tuple(b.shape))
-        return split4(a, b)
+        return split(a, b, passes)
 
-    monkeypatch.setattr(policy, "split4_matmul", spy)
+    monkeypatch.setattr(policy, "split_matmul", spy)
     x = _inputs((32768,), 5, False, np.float32)
     mine = tfft.matmul_fft(_t(x))
     assert calls == [(256, 256), (256, 256)]

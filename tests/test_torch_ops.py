@@ -217,20 +217,26 @@ def test_exact_matmul_blocks_the_contraction():
                                short @ b[:100], rtol=0, atol=0)
 
 
-def test_import_leaves_jax_and_zaftpu_out():
-    """Importing the port, its kernel modules and running every public
-    transform on a small CPU input loads no jax, jaxlib or zaftpu module."""
+def test_import_leaves_jax_and_zaftpu_out(tmp_path):
+    """Importing the port, its kernel modules, the I/O layer and the
+    streaming pipeline, running every public transform on a small CPU input
+    and one CPU streaming call loads no jax, jaxlib or zaftpu module."""
+    wav = tmp_path / "x.wav"
     code = (
         "import sys, numpy as np, torch, zaftpu_torch as z\n"
         "import zaftpu_torch.kernels._build, zaftpu_torch.transforms.mdct\n"
         "import zaftpu_torch.kernels.mdct\n"
         "import zaftpu_torch.features.mel, zaftpu_torch.kernels.melfused\n"
+        "import zaftpu_torch.io.native, zaftpu_torch.io.pipeline as p\n"
         "x = torch.from_numpy(np.random.default_rng(0).standard_normal("
         "3000))\n"
         "w, v = z.hamming(256), z.vorbis(256)\n"
         "fb = z.melfilterbank(8000, 256, 20)\n"
         "z.imdct(z.mdct(x, v), v); z.spectrogram(x, w, 128)\n"
         "z.melspectrogram(x, w, 128, fb); z.mfcc(x, w, 128, fb, 12)\n"
+        f"z.wavwrite((x.numpy() * 0.3).astype(np.float32), 8000, {str(wav)!r})\n"
+        f"p.streaming_spectrogram({str(wav)!r}, w, 128, block_frames=7, "
+        "device='cpu')\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'zaftpu')]\n"
         "print(bad); sys.exit(1 if bad else 0)\n")

@@ -117,16 +117,22 @@ def test_bad_dial_raises_zaftpus_error(value, monkeypatch):
 def test_tpu_pass_count_dials_run_exact_on_cpu_and_refuse_cuda(
         value, monkeypatch):
     """``high`` and ``default`` are TPU matrix-unit pass counts: on the CPU
-    the port runs the exact path (bit-equal to ``highest``); the CUDA path
-    refuses them."""
+    the port runs the exact path (bit-equal to ``highest``), as zaftpu's
+    CPU backend does; on CUDA they no longer refuse but lower float32 GEMMs
+    to 3 and 1 bf16 passes (``policy.gemm_passes``; the twins at that pass
+    count: tests/test_torch_dials.py, tests/test_torch_cuda.py)."""
     x = torch.from_numpy(np.random.default_rng(1).standard_normal(
         8192).astype(np.float32))
     win = hamming(512)
     ref = zaftpu_torch.stft(x, win, 256)
     monkeypatch.setenv("ZAFTPU_PRECISION", value)
     assert torch.equal(zaftpu_torch.stft(x, win, 256), ref)
-    with pytest.raises(NotImplementedError, match=value):
-        policy.check_cuda_dial()
+    want = {"high": 3, "default": 1}[value]
+    assert policy.passes() == want
+    assert policy.gemm_passes(torch.float32, "cuda") == want
+    assert policy.gemm_passes(torch.float32, "cpu") is None
+    assert policy.gemm_passes(torch.float64, "cuda") is None
+    assert not hasattr(policy, "check_cuda_dial")
 
 
 @pytest.mark.parametrize("case,passes", [

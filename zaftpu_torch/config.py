@@ -94,3 +94,54 @@ class MdctConfig:
         from zaftpu_torch.core.windows import get_window
 
         return get_window(self.window, self.window_length)
+
+
+@dataclasses.dataclass(frozen=True)
+class DispatchConfig:
+    """Frozen snapshot of the ``ZAFTPU_*`` dispatch levers the port reads,
+    with the precision dial and the resolved operator-GEMM dtype
+    (``zaftpu.config.DispatchConfig``, its config.py:116-192).
+
+    ``zaftpu`` keys its jit caches on this snapshot; the port traces
+    nothing and reads every lever at each call, so here it is an export and
+    a record of what a run was under. Left out, because the port does not
+    read those levers: ``fft_direct_max`` (the direct GEMM's bound is the
+    constant 4096), ``cfft``, ``mirror_strategy``, ``pallas``,
+    ``sharded_fuse``, ``budget``, ``fused_block`` and ``synth_block``.
+    """
+
+    fft: str = "auto"
+    mirror: str = ""
+    fused: str = ""
+    fused2: str = ""
+    melfuse: str = ""
+    fullspec: str = ""
+    synth: str = ""
+    cqt_scheme: str = "auto"
+    precision: str = "highest"
+    matmul_dtype: str = ""
+
+    @classmethod
+    def current(cls) -> "DispatchConfig":
+        """Snapshot the environment and the compute-dtype context now."""
+        import os
+
+        from zaftpu_torch.core import policy as _policy
+
+        env = os.environ.get
+        return cls(
+            fft=env("ZAFTPU_FFT", "auto"),
+            mirror=env("ZAFTPU_MIRROR", ""),
+            fused=env("ZAFTPU_FUSED", ""),
+            fused2=env("ZAFTPU_FUSED2", ""),
+            melfuse=env("ZAFTPU_MELFUSE", ""),
+            fullspec=env("ZAFTPU_FULLSPEC", ""),
+            synth=env("ZAFTPU_SYNTH", ""),
+            # An explicit dial changes what the CQT's auto scheme resolves
+            # to (transforms/cqt._slab_scheme_split4), as in zaftpu.
+            cqt_scheme=env("ZAFTPU_CQT_SCHEME", "auto") + (
+                ":pinned" if env("ZAFTPU_PRECISION") else ""),
+            precision=env("ZAFTPU_PRECISION", "highest").lower(),
+            matmul_dtype=("bfloat16" if _policy.matmul_dtype() is not None
+                          else ""),
+        )

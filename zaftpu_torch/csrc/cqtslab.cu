@@ -44,12 +44,12 @@ using namespace zt::frames;
 constexpr int CH = 2048;  // contraction samples per block
 
 // Grid: x = chunk * (FP / BN) + column tile, y = frame tile, z = batch.
-// S4: the split4 tile, ops the presplit (2, 2, L, FP) bf16 stack; else the
-// exact tile, ops (2, L, FP) float32. At most 128 registers, so two blocks
+// S > 0: the split4 tile at S bf16 passes, ops the presplit (2, 2, L, FP)
+// bf16 stack; S = 0: the exact tile, ops (2, L, FP) float32. At most 128 registers, so two blocks
 // share an SM: left free, the split4 kernel took 144 and ran 1.61 times
 // slower (8.17 against 5.08 ms at CqtConfig(), H100 80GB HBM3, 700 W;
 // scripts/torch_ab.py, PERF.md); the exact one takes 127 either way.
-template <bool VEC, bool S4>
+template <bool VEC, int S>
 __global__ void __launch_bounds__(zt::kThreads, 2)
 cqt_chunk_kernel(const float* __restrict__ sig, const void* __restrict__ ops,
                  float* __restrict__ out, long long sig_len, int T, int L,
@@ -71,11 +71,12 @@ cqt_chunk_kernel(const float* __restrict__ sig, const void* __restrict__ ops,
   }
   const float* sb = sig + blockIdx.z * sig_len + w0;
   const long long row0 = (long long)w0 * FP;
-  if constexpr (S4) {
-    tile_split4<VEC, 2, false>(sb, nullptr,
-                               static_cast<const __nv_bfloat16*>(ops) + row0,
-                               (long long)L * FP, T, width, step, FP, t0, f0,
-                               acc);
+  if constexpr (S > 0) {
+    tile_split4<VEC, 2, false, S>(sb, nullptr,
+                                  static_cast<const __nv_bfloat16*>(ops) +
+                                      row0,
+                                  (long long)L * FP, T, width, step, FP, t0,
+                                  f0, acc);
   } else {
     tile<VEC, 2, false>(sb, nullptr, static_cast<const float*>(ops) + row0,
                         (long long)L * FP, T, width, step, FP, t0, f0, acc);
@@ -119,7 +120,7 @@ cqt_sum_kernel(const float2* __restrict__ part, float* __restrict__ out,
   }
 }
 
-template <bool S4>
+template <int S>
 int launch(const void* sig, const void* ops, void* part, void* out,
            int batch, long long sig_len, int T, int L, int step, int F,
            int FP, void* stream) {
@@ -133,10 +134,10 @@ int launch(const void* sig, const void* ops, void* part, void* out,
   const float* s = static_cast<const float*>(sig);
   float* dst = static_cast<float*>(P > 1 ? part : out);
   if (vec_ok(sig, nullptr, sig_len, L, step)) {
-    cqt_chunk_kernel<true, S4><<<grid, zt::kThreads, 0, st>>>(
+    cqt_chunk_kernel<true, S><<<grid, zt::kThreads, 0, st>>>(
         s, ops, dst, sig_len, T, L, step, F, FP, P);
   } else {
-    cqt_chunk_kernel<false, S4><<<grid, zt::kThreads, 0, st>>>(
+    cqt_chunk_kernel<false, S><<<grid, zt::kThreads, 0, st>>>(
         s, ops, dst, sig_len, T, L, step, F, FP, P);
   }
   cudaError_t err = cudaGetLastError();
@@ -161,17 +162,20 @@ ZT_EXPORT int zt_cqt_magnitudes(const void* sig, const void* ops, void* part,
                                 void* out, int batch, long long sig_len,
                                 int T, int L, int step, int F, int FP,
                                 void* stream) {
-  return launch<false>(sig, ops, part, out, batch, sig_len, T, L, step, F,
-                       FP, stream);
+  return launch<0>(sig, ops, part, out, batch, sig_len, T, L, step, F, FP,
+                   stream);
 }
 
 // The split4 twin: the same arguments, ops the presplit (2, 2, L, FP) bf16
-// stack (hi then lo, each M_re then M_im), 16-byte aligned.
+// stack (hi then lo, each M_re then M_im), 16-byte aligned; passes: 4, 3 or
+// 1 (split4.cuh; 1 is the bf16 compute dtype's one pass).
 ZT_EXPORT int zt_cqt_magnitudes_split4(const void* sig, const void* ops,
                                        void* part, void* out, int batch,
                                        long long sig_len, int T, int L,
-                                       int step, int F, int FP,
+                                       int step, int F, int FP, int passes,
                                        void* stream) {
-  return launch<true>(sig, ops, part, out, batch, sig_len, T, L, step, F, FP,
-                      stream);
+  return zt::s4::with_passes(passes, [&](auto p) {
+    return launch<decltype(p)::value>(sig, ops, part, out, batch, sig_len, T,
+                                      L, step, F, FP, stream);
+  });
 }

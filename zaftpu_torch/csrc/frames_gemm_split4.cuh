@@ -30,11 +30,12 @@
 namespace zt {
 namespace frames {
 
-// Adds this block's tile to acc (which the caller zeroes), as tile() does.
-// ops: the presplit stack (2, NC, WL, FP) bf16, hi then lo, component c of
-// half h at ops + (h * NC + c) * comp_stride; FP a multiple of BN. Ends
-// with a barrier.
-template <bool VEC, int NC, bool WIN = true>
+// Adds this block's tile to acc (which the caller zeroes), as tile() does,
+// by P bf16 passes (split4.cuh). ops: the presplit stack (2, NC, WL, FP)
+// bf16, hi then lo, component c of half h at ops + (h * NC + c) *
+// comp_stride; FP a multiple of BN. At P = 1 neither the frames' nor the
+// operator's lo halves are staged. Ends with a barrier.
+template <bool VEC, int NC, bool WIN = true, int P = 4>
 __device__ __forceinline__ void tile_split4(
     const float* __restrict__ sb, const float* __restrict__ win,
     const __nv_bfloat16* __restrict__ ops, long long comp_stride, int T,
@@ -70,10 +71,12 @@ __device__ __forceinline__ void tile_split4(
   // 8 columns (q % 8) of slice row (q / 8) % 16 of half / component q / 128.
   const bf16* bp[NC];
   int brow[NC];
+  bool bneed[NC];  // chunk j is a hi half, or P > 1
 #pragma unroll
   for (int j = 0; j < NC; ++j) {
     const int q = tid + kThreads * j;
     const int hc = q >> 7;
+    bneed[j] = P > 1 || hc < NC;
     brow[j] = (q >> 3) & 15;
     bp[j] = ops + (long long)hc * comp_stride + (long long)brow[j] * FP + f0 +
             (q & 7) * 8;
@@ -113,7 +116,7 @@ __device__ __forceinline__ void tile_split4(
     }
 #pragma unroll
     for (int j = 0; j < NC; ++j) {
-      rb[j] = k0 + brow[j] < WL
+      rb[j] = bneed[j] && k0 + brow[j] < WL
                   ? *reinterpret_cast<const uint4*>(bp[j] + (long long)k0 * FP)
                   : make_uint4(0u, 0u, 0u, 0u);
     }
@@ -121,22 +124,32 @@ __device__ __forceinline__ void tile_split4(
   auto store = [&](int s) {
     if constexpr (VEC) {
       uint2 hi, lo;
-      zt::s4::split4v(ra, hi, lo);
+      if constexpr (P == 1) {
+        hi = zt::s4::hi4v(ra);
+      } else {
+        zt::s4::split4v(ra, hi, lo);
+        *reinterpret_cast<uint2*>(&As[s][1][ar][ak]) = lo;
+      }
       *reinterpret_cast<uint2*>(&As[s][0][ar][ak]) = hi;
-      *reinterpret_cast<uint2*>(&As[s][1][ar][ak]) = lo;
     } else {
 #pragma unroll
       for (int i = 0; i < TM; ++i) {
-        zt::s4::split1(rs[i], As[s][0][sr + 16 * i][sk],
-                       As[s][1][sr + 16 * i][sk]);
+        if constexpr (P == 1) {
+          As[s][0][sr + 16 * i][sk] = __float2bfloat16_rn(rs[i]);
+        } else {
+          zt::s4::split1(rs[i], As[s][0][sr + 16 * i][sk],
+                         As[s][1][sr + 16 * i][sk]);
+        }
       }
     }
 #pragma unroll
     for (int j = 0; j < NC; ++j) {
       const int q = tid + kThreads * j;
       const int hc = q >> 7;
-      *reinterpret_cast<uint4*>(
-          &Bs[s][hc / NC][hc % NC][brow[j]][(q & 7) * 8]) = rb[j];
+      if (bneed[j]) {
+        *reinterpret_cast<uint4*>(
+            &Bs[s][hc / NC][hc % NC][brow[j]][(q & 7) * 8]) = rb[j];
+      }
     }
   };
 
@@ -150,7 +163,7 @@ __device__ __forceinline__ void tile_split4(
   for (int s = 0; s < slices; ++s) {
     const int cur = s & 1;
     if (s + 1 < slices) load((s + 1) * BK);
-    zt::s4::slice<NC>(As[cur], Bs[cur], hh, cr);
+    zt::s4::slice<NC, P>(As[cur], Bs[cur], hh, cr);
     if (s + 1 < slices) store(cur ^ 1);
     __syncthreads();
   }

@@ -8,7 +8,8 @@
 // operator such as the folded MDCT matrix, a real (batch, T, F) result).
 // Each has an exact entry point (frames_gemm.cuh's FP32 tile) and a
 // *_split4 one (frames_gemm_split4.cuh's tensor-core tile, the operator
-// presplit into bf16 hi and lo); the stores are shared.
+// presplit into bf16 hi and lo, at 4, 3 or 1 bf16 passes); the stores are
+// shared.
 //
 // Replaces zaftpu/pallas/fused.py: _frames_matmul_impl as reached from
 // frames_rfft (C = 2) and frames_op (C = 1), _frames_matmul_full_impl
@@ -37,9 +38,9 @@ using namespace zt::frames;
 
 enum Store { kReal, kHalf, kFull, kPlanes };
 
-// S4: the split4 tile, ops the presplit (2, NC, WL, FP) bf16 stack; else
-// the exact tile, ops (NC, WL, FP) float32.
-template <bool VEC, Store S, bool S4>
+// P > 0: the split4 tile at P bf16 passes, ops the presplit (2, NC, WL, FP)
+// bf16 stack; P = 0: the exact tile, ops (NC, WL, FP) float32.
+template <bool VEC, Store S, int P>
 __global__ void __launch_bounds__(zt::kThreads)
 frames_kernel(const float* __restrict__ sig, const float* __restrict__ win,
               const void* __restrict__ ops, float* __restrict__ out,
@@ -57,10 +58,11 @@ frames_kernel(const float* __restrict__ sig, const float* __restrict__ win,
 #pragma unroll
     for (int j = 0; j < 4 * NC; ++j) acc[i][j] = 0.f;
   }
-  if constexpr (S4) {
-    tile_split4<VEC, NC>(sig + blockIdx.z * sig_len, win,
-                         static_cast<const __nv_bfloat16*>(ops),
-                         (long long)WL * FP, T, WL, step, FP, t0, f0, acc);
+  if constexpr (P > 0) {
+    tile_split4<VEC, NC, true, P>(sig + blockIdx.z * sig_len, win,
+                                  static_cast<const __nv_bfloat16*>(ops),
+                                  (long long)WL * FP, T, WL, step, FP, t0, f0,
+                                  acc);
   } else {
     tile<VEC, NC>(sig + blockIdx.z * sig_len, win,
                   static_cast<const float*>(ops), (long long)WL * FP, T, WL,
@@ -100,7 +102,7 @@ frames_kernel(const float* __restrict__ sig, const float* __restrict__ win,
   }
 }
 
-template <Store S, bool S4 = false>
+template <Store S, int P = 0>
 int launch(const void* sig, const void* win, const void* ops, void* out,
            int batch, long long sig_len, int T, int WL, int step, int F,
            int FP, void* stream) {
@@ -113,10 +115,10 @@ int launch(const void* sig, const void* win, const void* ops, void* out,
   const float* w = static_cast<const float*>(win);
   float* y = static_cast<float*>(out);
   if (vec_ok(sig, win, sig_len, WL, step)) {
-    frames_kernel<true, S, S4><<<grid, zt::kThreads, 0, st>>>(
+    frames_kernel<true, S, P><<<grid, zt::kThreads, 0, st>>>(
         s, w, ops, y, sig_len, T, WL, step, F, FP);
   } else {
-    frames_kernel<false, S, S4><<<grid, zt::kThreads, 0, st>>>(
+    frames_kernel<false, S, P><<<grid, zt::kThreads, 0, st>>>(
         s, w, ops, y, sig_len, T, WL, step, F, FP);
   }
   return (int)cudaGetLastError();
@@ -169,37 +171,52 @@ ZT_EXPORT int zt_frames_planes(const void* sig, const void* win,
 
 // The split4 twins of the four entry points above: the same arguments and
 // outputs, ops the presplit (2, NC, WL, FP) bf16 stack (hi, then lo; NC = 2
-// for the rDFT, 1 for frames_op), 16-byte aligned.
+// for the rDFT, 1 for frames_op), 16-byte aligned; passes: 4, 3 or 1
+// (split4.cuh).
 ZT_EXPORT int zt_frames_rfft_split4(const void* sig, const void* win,
                                     const void* ops, void* out, int batch,
                                     long long sig_len, int T, int WL,
-                                    int step, int F, int FP, void* stream) {
-  return launch<kHalf, true>(sig, win, ops, out, batch, sig_len, T, WL, step,
-                             F, FP, stream);
+                                    int step, int F, int FP, int passes,
+                                    void* stream) {
+  return zt::s4::with_passes(passes, [&](auto p) {
+    return launch<kHalf, decltype(p)::value>(sig, win, ops, out, batch,
+                                             sig_len, T, WL, step, F, FP,
+                                             stream);
+  });
 }
 
 ZT_EXPORT int zt_frames_op_split4(const void* sig, const void* win,
                                   const void* ops, void* out, int batch,
                                   long long sig_len, int T, int WL, int step,
-                                  int F, int FP, void* stream) {
-  return launch<kReal, true>(sig, win, ops, out, batch, sig_len, T, WL, step,
-                             F, FP, stream);
+                                  int F, int FP, int passes, void* stream) {
+  return zt::s4::with_passes(passes, [&](auto p) {
+    return launch<kReal, decltype(p)::value>(sig, win, ops, out, batch,
+                                             sig_len, T, WL, step, F, FP,
+                                             stream);
+  });
 }
 
 ZT_EXPORT int zt_frames_rfft_full_split4(const void* sig, const void* win,
                                          const void* ops, void* out,
                                          int batch, long long sig_len, int T,
                                          int WL, int step, int F, int FP,
-                                         void* stream) {
+                                         int passes, void* stream) {
   if (F != WL / 2 + 1) return (int)cudaErrorInvalidValue;
-  return launch<kFull, true>(sig, win, ops, out, batch, sig_len, T, WL, step,
-                             F, FP, stream);
+  return zt::s4::with_passes(passes, [&](auto p) {
+    return launch<kFull, decltype(p)::value>(sig, win, ops, out, batch,
+                                             sig_len, T, WL, step, F, FP,
+                                             stream);
+  });
 }
 
 ZT_EXPORT int zt_frames_planes_split4(const void* sig, const void* win,
                                       const void* ops, void* out, int batch,
                                       long long sig_len, int T, int WL,
-                                      int step, int F, int FP, void* stream) {
-  return launch<kPlanes, true>(sig, win, ops, out, batch, sig_len, T, WL,
-                               step, F, FP, stream);
+                                      int step, int F, int FP, int passes,
+                                      void* stream) {
+  return zt::s4::with_passes(passes, [&](auto p) {
+    return launch<kPlanes, decltype(p)::value>(sig, win, ops, out, batch,
+                                               sig_len, T, WL, step, F, FP,
+                                               stream);
+  });
 }

@@ -22,8 +22,8 @@
 // writes its 64 x 64 magnitudes to shared memory, stages the tile's
 // filterbank rows beside them, 256 mels at a time (kMelChunk, so any mel
 // count fits), and writes their product (a 64-long sum per element) as
-// partial p = blockIdx.x of (P, batch, T, n_mels); a second pass sums the
-// P partials in ascending order. No atomics: every result is the same from
+// partial p = blockIdx.x of (tiles, batch, T, n_mels); a second pass sums
+// the partials in ascending order. No atomics: every result is the same from
 // run to run. A block that walks
 // all bins itself leaves 404 blocks at the 600-s shape, 1.5 waves of two
 // blocks on 132 SMs: 9.7 ms against 7.3 ms for one tile per block, with
@@ -94,9 +94,9 @@ inline size_t mel_smem_bytes(int M) {
 // compiler took more and one block per SM measured 17-20% slower for the
 // exact kernel, and 1.44-1.48 times slower for the split4 one (134-136
 // registers; H100 80GB HBM3, 700 W; scripts/torch_ab.py, PERF.md).
-// S4: the split4 tile, ops the presplit (2, 2, WL, FP) bf16 stack; else the
-// exact tile, ops (2, WL, FP) float32.
-template <bool VEC, bool POWER, bool S4>
+// P > 0: the split4 tile at P bf16 passes, ops the presplit (2, 2, WL, FP)
+// bf16 stack; P = 0: the exact tile, ops (2, WL, FP) float32.
+template <bool VEC, bool POWER, int P>
 __global__ void __launch_bounds__(zt::kThreads, 2)
 mel_rows_kernel(const float* __restrict__ sig, const float* __restrict__ win,
                 const void* __restrict__ ops, const float* __restrict__ fbt,
@@ -119,10 +119,11 @@ mel_rows_kernel(const float* __restrict__ sig, const float* __restrict__ win,
 #pragma unroll
     for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
   }
-  if constexpr (S4) {
-    tile_split4<VEC, 2>(sig + blockIdx.z * sig_len, win,
-                        static_cast<const __nv_bfloat16*>(ops),
-                        (long long)WL * FP, T, WL, step, FP, t0, f0, acc);
+  if constexpr (P > 0) {
+    tile_split4<VEC, 2, true, P>(sig + blockIdx.z * sig_len, win,
+                                 static_cast<const __nv_bfloat16*>(ops),
+                                 (long long)WL * FP, T, WL, step, FP, t0, f0,
+                                 acc);
   } else {
     tile<VEC, 2>(sig + blockIdx.z * sig_len, win,
                  static_cast<const float*>(ops), (long long)WL * FP, T, WL,
@@ -175,12 +176,12 @@ sum_partials_kernel(const float* __restrict__ part, float* __restrict__ out,
   }
 }
 
-template <bool VEC, bool POWER, bool S4>
+template <bool VEC, bool POWER, int P>
 cudaError_t launch_mel(dim3 grid, size_t smem, cudaStream_t st,
                        const float* s, const float* w, const void* o,
                        const float* fb, float* part, long long sig_len, int T,
                        int WL, int step, int F, int FP, int M) {
-  auto kernel = mel_rows_kernel<VEC, POWER, S4>;
+  auto kernel = mel_rows_kernel<VEC, POWER, P>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) {
@@ -193,7 +194,7 @@ cudaError_t launch_mel(dim3 grid, size_t smem, cudaStream_t st,
   return cudaGetLastError();
 }
 
-template <bool S4>
+template <int P>
 int mel_rows(const void* sig, const void* win, const void* ops,
              const void* fbt, void* part, void* out, int batch,
              long long sig_len, int T, int WL, int step, int F, int FP, int M,
@@ -202,33 +203,33 @@ int mel_rows(const void* sig, const void* win, const void* ops,
     return (int)cudaErrorInvalidValue;
   }
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int P = FP / BN;
-  const dim3 grid(P, zt::ceil_div(T, BM), batch);
+  const int tiles = FP / BN;
+  const dim3 grid(tiles, zt::ceil_div(T, BM), batch);
   const size_t smem = mel_smem_bytes(M);
   const float* s = static_cast<const float*>(sig);
   const float* w = static_cast<const float*>(win);
   const float* fb = static_cast<const float*>(fbt);
   float* y = static_cast<float*>(out);
-  float* dst = P > 1 ? static_cast<float*>(part) : y;
+  float* dst = tiles > 1 ? static_cast<float*>(part) : y;
   const bool vec = vec_ok(sig, win, sig_len, WL, step);
   cudaError_t err;
   if (vec && power) {
-    err = launch_mel<true, true, S4>(grid, smem, st, s, w, ops, fb, dst,
+    err = launch_mel<true, true, P>(grid, smem, st, s, w, ops, fb, dst,
                                      sig_len, T, WL, step, F, FP, M);
   } else if (vec) {
-    err = launch_mel<true, false, S4>(grid, smem, st, s, w, ops, fb, dst,
+    err = launch_mel<true, false, P>(grid, smem, st, s, w, ops, fb, dst,
                                       sig_len, T, WL, step, F, FP, M);
   } else if (power) {
-    err = launch_mel<false, true, S4>(grid, smem, st, s, w, ops, fb, dst,
+    err = launch_mel<false, true, P>(grid, smem, st, s, w, ops, fb, dst,
                                       sig_len, T, WL, step, F, FP, M);
   } else {
-    err = launch_mel<false, false, S4>(grid, smem, st, s, w, ops, fb, dst,
+    err = launch_mel<false, false, P>(grid, smem, st, s, w, ops, fb, dst,
                                        sig_len, T, WL, step, F, FP, M);
   }
-  if (err != cudaSuccess || P == 1) return (int)err;
+  if (err != cudaSuccess || tiles == 1) return (int)err;
   const long long n = (long long)batch * T * M;
   sum_partials_kernel<<<zt::grid_1d(n, zt::kThreads), zt::kThreads, 0, st>>>(
-      dst, y, n, P);
+      dst, y, n, tiles);
   return (int)cudaGetLastError();
 }
 
@@ -260,24 +261,28 @@ ZT_EXPORT int zt_spec_rows(const void* sig, const void* win, const void* ops,
 }
 
 // As zt_spec_rows, then the filterbank: fbt (F, M) float32, out
-// (batch, T, M). For P = FP / 64 > 1 bin tiles, part is (P, batch, T, M)
-// scratch that a second pass sums into out; for P = 1 the tiles write out
+// (batch, T, M). For FP / 64 > 1 bin tiles, part is (tiles, batch, T, M)
+// scratch that a second pass sums into out; for one tile it writes out
 // directly and part is unused.
 ZT_EXPORT int zt_mel_rows(const void* sig, const void* win, const void* ops,
                           const void* fbt, void* part, void* out, int batch,
                           long long sig_len, int T, int WL, int step, int F,
                           int FP, int M, int power, void* stream) {
-  return mel_rows<false>(sig, win, ops, fbt, part, out, batch, sig_len, T,
-                         WL, step, F, FP, M, power, stream);
+  return mel_rows<0>(sig, win, ops, fbt, part, out, batch, sig_len, T, WL,
+                     step, F, FP, M, power, stream);
 }
 
 // The split4 twin: the same arguments, ops the presplit (2, 2, WL, FP) bf16
-// stack (hi then lo, each cos then sin), 16-byte aligned.
+// stack (hi then lo, each cos then sin), 16-byte aligned; passes: 4, 3 or
+// 1 (split4.cuh).
 ZT_EXPORT int zt_mel_rows_split4(const void* sig, const void* win,
                                  const void* ops, const void* fbt, void* part,
                                  void* out, int batch, long long sig_len,
                                  int T, int WL, int step, int F, int FP,
-                                 int M, int power, void* stream) {
-  return mel_rows<true>(sig, win, ops, fbt, part, out, batch, sig_len, T, WL,
-                        step, F, FP, M, power, stream);
+                                 int M, int power, int passes, void* stream) {
+  return zt::s4::with_passes(passes, [&](auto p) {
+    return mel_rows<decltype(p)::value>(sig, win, ops, fbt, part, out, batch,
+                                        sig_len, T, WL, step, F, FP, M, power,
+                                        stream);
+  });
 }

@@ -7,7 +7,15 @@
 // zaftpu's TPU matrix unit does in its four passes
 // (zaftpu/core/policy.py: _split4_matmul).
 //
-// Sums: the three small terms chain into one set of accumulators, cr; the
+// Pass count P (a template parameter of slice and of the tiles built on
+// it; the twins' entries take it at run time, with_passes): P = 4 keeps all
+// four terms; P = 3 drops al.bl, (al.bh + ah.bl) + ah.bh, which is XLA's
+// Precision.HIGH on zaftpu's TPU (ZAFTPU_PRECISION=high); P = 1 keeps ah.bh
+// alone, one bf16 pass (ZAFTPU_PRECISION=default, and the bf16 compute
+// dtype against the operator's hi half). The lo halves are neither loaded
+// from shared memory nor multiplied at P = 1.
+//
+// Sums: the small terms chain into one set of accumulators, cr; the
 // large term ah.bh goes into hh, one fresh mma partial per 16-deep slice
 // added into the running sum, the port's two-level sum (one running sum
 // over a 2048-long contraction cost about 9 dB of round trip on the H100,
@@ -23,6 +31,8 @@
 #pragma once
 
 #include <cuda_bf16.h>
+
+#include <type_traits>
 
 #include "common.cuh"
 
@@ -102,19 +112,39 @@ __device__ __forceinline__ void split4v(float4 v, uint2& hi, uint2& lo) {
   lo = make_uint2(as_u32(l01), as_u32(l23));
 }
 
+// The hi halves alone (the P = 1 staging).
+__device__ __forceinline__ uint2 hi4v(float4 v) {
+  return make_uint2(as_u32(__floats2bfloat162_rn(v.x, v.y)),
+                    as_u32(__floats2bfloat162_rn(v.z, v.w)));
+}
+
 __device__ __forceinline__ void split1(float v, bf16& hi, bf16& lo) {
   hi = __float2bfloat16_rn(v);
   lo = __float2bfloat16_rn(v - __bfloat162float(hi));
 }
 
+// Calls f(std::integral_constant<int, P>()) for the pass count P = passes
+// (4, 3 or 1) and returns its result; any other count is
+// cudaErrorInvalidValue.
+template <class F>
+int with_passes(int passes, F&& f) {
+  switch (passes) {
+    case 4: return f(std::integral_constant<int, 4>());
+    case 3: return f(std::integral_constant<int, 3>());
+    case 1: return f(std::integral_constant<int, 1>());
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
 // One 16-deep slice of the block tile: A[half][row][k] and
 // B[half][component][k][column] in shared memory, accumulated into this
-// thread's fragments of hh (ah.bh, two-level) and cr (the three small
+// thread's fragments of hh (ah.bh, two-level) and cr (the P - 1 small
 // terms, chained smallest first).
-template <int NC>
+template <int NC, int P = 4>
 __device__ __forceinline__ void slice(const bf16 (&A)[2][BM][LDA],
                                       const bf16 (&B)[2][NC][BK][LDB],
                                       Frag<NC>& hh, Frag<NC>& cr) {
+  static_assert(P == 1 || P == 3 || P == 4, "1, 3 or 4 bf16 passes");
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
   const int wm = warp >> 2;
@@ -126,7 +156,7 @@ __device__ __forceinline__ void slice(const bf16 (&A)[2][BM][LDA],
 #pragma unroll
   for (int m = 0; m < 2; ++m) {
     ldsm_x4(ah[m], &A[0][wm * 32 + m * 16 + arow][acol]);
-    ldsm_x4(al[m], &A[1][wm * 32 + m * 16 + arow][acol]);
+    if constexpr (P > 1) ldsm_x4(al[m], &A[1][wm * 32 + m * 16 + arow][acol]);
   }
   const float zeros[4] = {0.f, 0.f, 0.f, 0.f};
 #pragma unroll
@@ -134,15 +164,17 @@ __device__ __forceinline__ void slice(const bf16 (&A)[2][BM][LDA],
     // Regs 0, 1: b0, b1 of n-tile 0; regs 2, 3: those of n-tile 1.
     unsigned bh[4], bl[4];
     ldsm_x4_trans(bh, &B[0][c][arow][wn * 16 + acol]);
-    ldsm_x4_trans(bl, &B[1][c][arow][wn * 16 + acol]);
+    if constexpr (P > 1) ldsm_x4_trans(bl, &B[1][c][arow][wn * 16 + acol]);
 #pragma unroll
     for (int m = 0; m < 2; ++m) {
 #pragma unroll
       for (int n = 0; n < 2; ++n) {
         float (&x)[4] = cr[c][m][n];
-        mma(x, al[m], bl[2 * n], bl[2 * n + 1], x);
-        mma(x, al[m], bh[2 * n], bh[2 * n + 1], x);
-        mma(x, ah[m], bl[2 * n], bl[2 * n + 1], x);
+        if constexpr (P == 4) mma(x, al[m], bl[2 * n], bl[2 * n + 1], x);
+        if constexpr (P >= 3) {
+          mma(x, al[m], bh[2 * n], bh[2 * n + 1], x);
+          mma(x, ah[m], bl[2 * n], bl[2 * n + 1], x);
+        }
         float p[4];
         mma(p, ah[m], bh[2 * n], bh[2 * n + 1], zeros);
 #pragma unroll

@@ -39,7 +39,8 @@
 // same blocks, pieces and c-ascending running sum, each piece computed on
 // the tensor cores by the split4 scheme of split4.cuh, the spectrum rows
 // split into bf16 hi and lo as they enter shared memory and the operator
-// presplit on the host, (2, Q, N) bf16. The running sum stays in the mma
+// presplit on the host, (2, Q, N) bf16, at P = 4, 3 or 1 bf16 passes
+// (split4.cuh; P = 1 stages no lo half). The running sum stays in the mma
 // fragment layout, since every piece maps to the same output positions.
 // Bound: bf16 tensor-core arithmetic, 4 passes x 2 x Q x N FLOP per frame:
 // 0.88 ms for the ISTFT and 0.44 ms for the IMDCT at the 600-s shape on
@@ -165,8 +166,8 @@ gemm_ola_kernel(const float* __restrict__ h, const float* __restrict__ ops,
 }
 
 // VEC_B: operator columns read as 16-byte vectors of 8 bf16 (step and N
-// divisible by 8), else one value at a time.
-template <bool VEC_B>
+// divisible by 8), else one value at a time. P: bf16 passes.
+template <bool VEC_B, int P>
 __global__ void __launch_bounds__(zt::kThreads)
 gemm_ola_split4_kernel(const float* __restrict__ h,
                        const __nv_bfloat16* __restrict__ ops,
@@ -190,6 +191,7 @@ gemm_ola_split4_kernel(const float* __restrict__ h,
   // Operator loads: one 8-column chunk per thread, half bh, slice row bk,
   // hop columns j0 + bc .. + 7.
   const int bh = tid >> 7;
+  const bool bneed = P > 1 || bh == 0;  // the lo half only at P > 1
   const int bk = (tid >> 3) & 15;
   const int bc = (tid & 7) * 8;
   const bf16* bp = ops + (long long)bh * Q * N + (long long)bk * N + j0 + bc;
@@ -203,6 +205,7 @@ gemm_ola_split4_kernel(const float* __restrict__ h,
              : zt::zero4();
     const bf16* row = bp + (long long)q0 * N + (long long)c * step;
     const int col = j0 + bc;
+    if (!bneed) return;
     if constexpr (VEC_B) {
       rb = (col < step && c * step + col < N)
                ? *reinterpret_cast<const uint4*>(row)
@@ -225,10 +228,14 @@ gemm_ola_split4_kernel(const float* __restrict__ h,
   };
   auto store = [&](int s) {
     uint2 hi, lo;
-    zt::s4::split4v(ra, hi, lo);
+    if constexpr (P == 1) {
+      hi = zt::s4::hi4v(ra);
+    } else {
+      zt::s4::split4v(ra, hi, lo);
+      *reinterpret_cast<uint2*>(&As[s][1][ar][ak]) = lo;
+    }
     *reinterpret_cast<uint2*>(&As[s][0][ar][ak]) = hi;
-    *reinterpret_cast<uint2*>(&As[s][1][ar][ak]) = lo;
-    *reinterpret_cast<uint4*>(&Bs[s][bh][0][bk][bc]) = rb;
+    if (bneed) *reinterpret_cast<uint4*>(&Bs[s][bh][0][bk][bc]) = rb;
   };
 
   zt::s4::Frag<1> acc;
@@ -244,7 +251,7 @@ gemm_ola_split4_kernel(const float* __restrict__ h,
     for (int s = 0; s < slices; ++s) {
       const int cur = s & 1;
       if (s + 1 < slices) load(c, (s + 1) * BK);
-      zt::s4::slice<1>(As[cur], Bs[cur], hh, cr);
+      zt::s4::slice<1, P>(As[cur], Bs[cur], hh, cr);
       if (s + 1 < slices) store(cur ^ 1);
       __syncthreads();
     }
@@ -301,10 +308,10 @@ ZT_EXPORT int zt_gemm_ola(const void* h, const void* ops, void* out,
 }
 
 // The split4 twin of zt_gemm_ola: the same arguments, ops the presplit
-// (2, Q, N) bf16 stack (hi, then lo), 16-byte aligned.
+// (2, Q, N) bf16 stack (hi, then lo), 16-byte aligned; passes: 4, 3 or 1.
 ZT_EXPORT int zt_gemm_ola_split4(const void* h, const void* ops, void* out,
                                  int batch, int T, int Q, int N, int step,
-                                 void* stream) {
+                                 int passes, void* stream) {
   if (Q % BK != 0 || !zt::aligned16(h) || !zt::aligned16(ops)) {
     return (int)cudaErrorInvalidValue;
   }
@@ -316,12 +323,16 @@ ZT_EXPORT int zt_gemm_ola_split4(const void* h, const void* ops, void* out,
   const float* hp = static_cast<const float*>(h);
   const __nv_bfloat16* o = static_cast<const __nv_bfloat16*>(ops);
   float* y = static_cast<float*>(out);
-  if (step % 8 == 0 && N % 8 == 0) {
-    gemm_ola_split4_kernel<true><<<grid, zt::kThreads, 0, st>>>(
-        hp, o, y, T, Q, N, step, K, out_len);
-  } else {
-    gemm_ola_split4_kernel<false><<<grid, zt::kThreads, 0, st>>>(
-        hp, o, y, T, Q, N, step, K, out_len);
-  }
-  return (int)cudaGetLastError();
+  const bool vec = step % 8 == 0 && N % 8 == 0;
+  return zt::s4::with_passes(passes, [&](auto p) {
+    constexpr int P = decltype(p)::value;
+    if (vec) {
+      gemm_ola_split4_kernel<true, P><<<grid, zt::kThreads, 0, st>>>(
+          hp, o, y, T, Q, N, step, K, out_len);
+    } else {
+      gemm_ola_split4_kernel<false, P><<<grid, zt::kThreads, 0, st>>>(
+          hp, o, y, T, Q, N, step, K, out_len);
+    }
+    return (int)cudaGetLastError();
+  });
 }

@@ -27,13 +27,14 @@ from functools import lru_cache
 import numpy as np
 import torch
 
+from zaftpu_torch import kernels as _kernels
 from zaftpu_torch.core import validate as _validate
 from zaftpu_torch.core.fft import device_operator
+from zaftpu_torch.core import policy as _policy
 from zaftpu_torch.core.policy import exact_matmul
 from zaftpu_torch.kernels import melfft as _melfft
 from zaftpu_torch.kernels import melfused as _melfused
-from zaftpu_torch.transforms.stft import (_analysis_inputs, _stft_frames_half,
-                                          centre_padded)
+from zaftpu_torch.transforms.stft import _analysis_inputs, centre_padded
 
 # np.finfo(float).eps, as the reference adds at zaf.py:445 whatever the
 # compute dtype.
@@ -101,27 +102,65 @@ def dct_ii_ortho_matrix(size: int) -> np.ndarray:
     return mat
 
 
+def _operator_dtype(dtype: torch.dtype, power: bool) -> torch.dtype:
+    """The filterbank's dtype for a ``dtype`` signal: ``mfcc`` (``power``)
+    and ``melspectrogram`` are in ``policy.BF16_EXEMPT``, so the bf16
+    compute dtype leaves it ``dtype``, as ``zaftpu``'s mel.py:196, 250."""
+    return _policy.operator_dtype(dtype, "mfcc" if power else
+                                  "melspectrogram")
+
+
 def _mel_rows(x, window, fbank, step, power):
     """Mel (``power=False``) or power-mel rows ``(..., T, n_mels)`` of the
-    dense host filterbank ``fbank``: the real-FFT kernel's mel store, the
-    one-pass mel kernel, or the split path (zaftpu's mel.py:146-148,
-    209-212), as :func:`zaftpu_torch.kernels.melfused.route` says."""
-    wl = window.shape[0]
-    route = _melfused.route(x.dtype, wl)
-    if route == "fft":
+    dense host filterbank ``fbank`` (:func:`mel_rows_padded` of the
+    centre-padded signal)."""
+    wl, table = window.shape[0], None
+    if _melfused.route(x.dtype, wl) == "fft":
         # A new table's copy from host memory waits for the queued
         # kernels, so it goes before the pad is queued.
-        table = _melfft.filterbank_device_table(fbank, x.device, x.dtype)
-        padded, t = centre_padded(x, wl, step)
+        table = _melfft.filterbank_device_table(
+            fbank, x.device, _operator_dtype(x.dtype, power))
+    padded, t = centre_padded(x, wl, step)
+    return mel_rows_padded(padded, window, fbank, step, t, power, table)
+
+
+def mel_rows_padded(padded, window, fbank, step, number_times, power,
+                    table=None):
+    """Mel or power-mel rows ``(..., T, n_mels)`` of the first
+    ``number_times`` frames of an already padded signal: the real-FFT
+    kernel's mel store, the one-pass mel kernel, or the split path
+    (zaftpu's mel.py:146-148, 209-212), as
+    :func:`zaftpu_torch.kernels.melfused.route` says (the streaming
+    pipeline's block body too). ``table``: the filterbank's device table
+    for the mel store, if the caller has fetched it."""
+    wl, t = window.shape[0], number_times
+    route = _melfused.route(padded.dtype, wl)
+    op_dtype = _operator_dtype(padded.dtype, power)
+    if route == "fft":
+        if table is None:
+            table = _melfft.filterbank_device_table(fbank, padded.device,
+                                                    op_dtype)
         return _melfft.mel_rows_fft(padded, window, table, wl, step, t,
                                     power)
-    fbank_t = _filterbank_t(fbank, x)
+    fbank_t = _filterbank_t(fbank, padded, op_dtype)
     if route == "kernel":
-        padded, t = centre_padded(x, wl, step)
         return _melfused.mel_rows(padded, window, fbank_t, wl, step, t,
                                   power)
-    mag = _stft_frames_half(x, window, step)[..., 1:].abs()
+    mag = _kernels.windowed_frames_rfft(padded, window, wl, step,
+                                        t)[..., 1:].abs()
     return exact_matmul(mag * mag if power else mag, fbank_t)
+
+
+def cepstra(power_mel: torch.Tensor, number_mels: int,
+            number_coefficients: int) -> torch.Tensor:
+    """MFCC rows ``(..., T, C)`` from power-mel rows: ``log(+eps)``, the
+    orthonormal DCT-II along the mel axis, coefficients 1..C."""
+    logmel = torch.log(power_mel + _LOG_EPS)
+    dct = device_operator(dct_ii_ortho_matrix, (number_mels,),
+                          power_mel.device,
+                          _operator_dtype(power_mel.dtype, True))
+    # Keep coefficients 1..C; the 0th is dropped (zaf.py:452).
+    return exact_matmul(logmel, dct.T)[..., 1:number_coefficients + 1]
 
 
 def _resolve_mel_args(window_function, step_length, mel_filterbank, config):
@@ -152,11 +191,12 @@ def _inputs(audio_signal, window_function, step_length, mel_filterbank,
     return x, win, step, fbank
 
 
-def _filterbank_t(fbank: np.ndarray, x: torch.Tensor) -> torch.Tensor:
-    """The ``(WL/2, n_mels)`` filterbank transpose on ``x``'s device in its
-    dtype."""
+def _filterbank_t(fbank: np.ndarray, x: torch.Tensor,
+                  dtype: torch.dtype | None = None) -> torch.Tensor:
+    """The ``(WL/2, n_mels)`` filterbank transpose on ``x``'s device in
+    ``dtype`` (``x``'s by default)."""
     return torch.from_numpy(np.ascontiguousarray(fbank.T)).to(
-        device=x.device, dtype=x.dtype)
+        device=x.device, dtype=dtype or x.dtype)
 
 
 def melspectrogram(audio_signal, window_function=None, step_length=None,
@@ -193,9 +233,5 @@ def mfcc(audio_signal, window_function=None, step_length=None,
             f"{fbank.shape[0] - 1}] (the 0th coefficient is dropped, "
             f"zaf.py:452), got {number_coefficients}")
     mel = _mel_rows(x, win, fbank, step, power=True)
-    logmel = torch.log(mel + _LOG_EPS)
-    dct = device_operator(dct_ii_ortho_matrix, (fbank.shape[0],), x.device,
-                          x.dtype)
-    cepstra = exact_matmul(logmel, dct.T)
-    # Keep coefficients 1..C; the 0th is dropped (zaf.py:452).
-    return cepstra[..., 1:number_coefficients + 1].transpose(-1, -2)
+    return cepstra(mel, fbank.shape[0],
+                   number_coefficients).transpose(-1, -2)

@@ -66,20 +66,24 @@ One dial sets the arithmetic, ``ZAFTPU_PRECISION``
 FP32 kernels; ``split4`` runs every float32 GEMM analysis and synthesis
 kernel above as its split4 twin (four bf16 passes on the tensor cores,
 float32 sums) and the split dispatch's wide GEMMs as
-``policy.split4_matmul``; the FFT kernels, exact and faster than the
-twins, serve both dials wherever the shape rule holds.
+``policy.split_matmul``; on CUDA ``high`` and ``default`` run the same
+twins at three and one pass (``policy.gemm_passes``) and every operator
+GEMM of the split dispatch at that count, and on the CPU they run exact;
+the FFT kernels, exact and faster than the twins, serve every dial
+wherever the shape rule holds.
 Off the shape rule, under split4 the magnitude and mel front ends take
 the half spectrum of the analysis kernel unless ``ZAFTPU_MELFUSE=1``
 forces their kernels (the exact ``spec_rows``, the mel kernel's twin), as
-in ``zaftpu``. ``high`` and
-``default`` are refused on CUDA. A float32 CQT whose FFT length is a
+in ``zaftpu``. A float32 CQT whose FFT length is a
 power of two up to 32,768 runs the spectral CQT kernel
 (:mod:`zaftpu_torch.kernels.cqtfft`: each frame's real FFT and the
 kernel's nonzeros) on every scheme and dial (``cqtfft.applies``); at any
 other length or under ``ZAFTPU_FFT=matmul`` the CQT has its own scheme,
 ``ZAFTPU_CQT_SCHEME`` (:mod:`zaftpu_torch.transforms.cqt`): a CUDA float32
-CQT runs ``cqtslab.cqt_magnitudes_split4`` by default and the exact
-``cqtslab.cqt_magnitudes`` under a pinned dial or ``exact``, as
+CQT runs ``cqtslab.cqt_magnitudes_split4`` by default, at the dial's pass
+count under ``high`` or ``default``, at one pass under the bf16 compute
+dtype, and the exact ``cqtslab.cqt_magnitudes`` under a pinned
+``highest`` or ``exact``, as
 ``zaftpu``'s does on its TPU.
 
 A window above :data:`MAX_WINDOW` takes ``zaftpu``'s off-engine
@@ -98,7 +102,7 @@ import os
 import torch
 
 from zaftpu_torch.core import fft as _fft
-from zaftpu_torch.core.policy import check_cuda_dial, real_matmul
+from zaftpu_torch.core.policy import real_matmul
 from zaftpu_torch.kernels import framing as _framing
 from zaftpu_torch.kernels import fused as _fused
 from zaftpu_torch.kernels import mirror as _mirror
@@ -120,11 +124,9 @@ def synth_enabled() -> bool:
 def check_device_input(x: torch.Tensor) -> None:
     """Raise ``NotImplementedError`` for a CUDA input the kernels do not
     take: anything but float32 (complex64 spectra; callers promote a
-    bfloat16 signal to float32 first), or the TPU-only dials ``high`` and
-    ``default``. CPU inputs are always taken."""
+    bfloat16 signal to float32 first). CPU inputs are always taken."""
     if not x.is_cuda:
         return
-    check_cuda_dial()
     if x.dtype not in (torch.float32, torch.complex64):
         raise NotImplementedError(
             f"the CUDA path takes float32 signals and complex64 spectra, got "

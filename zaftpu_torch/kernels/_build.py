@@ -43,21 +43,29 @@ _GEMM_OLA = (_P, _P, _P, _I, _I, _I, _I, _I, _P)
 _MEL = (_P, _P, _P, _P, _P, _P, _I, _LL, _I, _I, _I, _I, _I, _I, _I, _P)
 _CQT = (_P, _P, _P, _P, _I, _LL, _I, _I, _I, _I, _I, _P)
 
+
+def _twin(args: tuple) -> tuple:
+    """A split4 twin's entry: its exact kernel's arguments and the pass
+    count (4, 3 or 1) before the stream."""
+    return (*args[:-1], _I, args[-1])
+
+
 # C entry point -> argument types (pointers and the stream as c_void_p).
 SIGNATURES = {
     "zt_frame_window": (_P, _P, _P, _I, _LL, _I, _I, _I, _P),
     "zt_overlap_add": (_P, _P, _I, _I, _I, _I, _P),
-    **{f"zt_frames_{kind}{twin}": _FRAMES
-       for kind in ("rfft", "op", "rfft_full", "planes")
-       for twin in ("", "_split4")},
+    **{f"zt_frames_{kind}": _FRAMES
+       for kind in ("rfft", "op", "rfft_full", "planes")},
+    **{f"zt_frames_{kind}_split4": _twin(_FRAMES)
+       for kind in ("rfft", "op", "rfft_full", "planes")},
     "zt_gemm_ola": _GEMM_OLA,
-    "zt_gemm_ola_split4": _GEMM_OLA,
+    "zt_gemm_ola_split4": _twin(_GEMM_OLA),
     "zt_spec_rows": (_P, _P, _P, _P, _I, _LL, _I, _I, _I, _I, _I, _P),
     "zt_mel_rows": _MEL,
-    "zt_mel_rows_split4": _MEL,
+    "zt_mel_rows_split4": _twin(_MEL),
     "zt_cqt_chunks": (_I,),
     "zt_cqt_magnitudes": _CQT,
-    "zt_cqt_magnitudes_split4": _CQT,
+    "zt_cqt_magnitudes_split4": _twin(_CQT),
     "zt_cqt_magnitudes_fft": (_P, _P, _P, _P, _P, _P, _P, _I, _LL, _I, _I, _I,
                               _I, _P),
     "zt_rfft_half": (_P, _P, _P, _P, _I, _LL, _I, _I, _I, _P),
@@ -185,6 +193,13 @@ def require_grid(batch: int, row_blocks: int, name: str) -> None:
     if batch > 65535 or row_blocks > 65535:
         raise ValueError(f"{name}: batch {batch} or {row_blocks} row blocks "
                          "exceed the launch grid's 65535")
+
+
+def check_passes(passes: int, name: str) -> int:
+    """A twin's bf16 pass count as its C entry takes it: 4, 3 or 1."""
+    if passes not in (1, 3, 4):
+        raise ValueError(f"{name}: passes must be 1, 3 or 4, got {passes}")
+    return int(passes)
 
 
 def check(err: int, name: str) -> None:

@@ -22,8 +22,11 @@ the CQT's default on ``zaftpu``'s accelerator: each slab product by the
 4-pass scheme, the signal split into bf16 hi and lo as it is read, the
 operator presplit on the host (:func:`time_ops_split4`). Its plain version
 is the slab loop with each slab product a
-:func:`zaftpu_torch.core.policy.split4_matmul_presplit`; the kernel runs
-the tensor cores over the same chunks as the exact one.
+:func:`zaftpu_torch.core.policy.split_matmul_presplit`; the kernel runs
+the tensor cores over the same chunks as the exact one. It takes a pass
+count: 4 (split4), 3 (``ZAFTPU_PRECISION=high``) or 1
+(``ZAFTPU_PRECISION=default``, and ``compute_dtype("bfloat16")``, which
+multiplies the signal rounded to bf16 by the operator's hi half).
 
 Both run where the spectral kernel (:mod:`zaftpu_torch.kernels.cqtfft`)
 does not: an FFT length above 32,768 or not a power of two, and under
@@ -36,8 +39,8 @@ import numpy as np
 import torch
 
 from zaftpu_torch.core.fft import presplit_operator
-from zaftpu_torch.core.policy import (exact_matmul, presplit_host,
-                                      split4_matmul_presplit)
+from zaftpu_torch.core.policy import (exact_matmul, mxu_matmul,
+                                      presplit_host, split_matmul_presplit)
 from zaftpu_torch.kernels import _build
 from zaftpu_torch.kernels.fused import TILE_FRAMES, padded_cols
 
@@ -116,20 +119,26 @@ def cqt_magnitudes_plain(padded: torch.Tensor, ops: torch.Tensor, step: int,
 
 def cqt_magnitudes_split4_plain(padded: torch.Tensor, ops: torch.Tensor,
                                 step: int, fft_length: int,
-                                number_times: int,
-                                f_channels: int) -> torch.Tensor:
-    """:func:`cqt_magnitudes_plain` with each slab product by the split4
-    scheme (``zaftpu``'s ``_kernel_split4``): the slab split into bf16 hi
-    and lo, four exact GEMMs against the presplit operator, smallest first.
-    ``ops``: the presplit ``(2, 2, L, F_pad)`` bf16 stack, or the float32
-    ``(2, L, F_pad)`` one, split on the host."""
+                                number_times: int, f_channels: int,
+                                passes: int = 4) -> torch.Tensor:
+    """:func:`cqt_magnitudes_plain` with each slab product by the bf16
+    scheme at ``passes`` (``zaftpu``'s ``_kernel_split4`` at 4; at 1 the
+    bf16 compute dtype's one pass, ``policy.mxu_matmul``): the slab split
+    into bf16 hi and lo, that many exact GEMMs against the presplit
+    operator, smallest first. ``ops``: the presplit ``(2, 2, L, F_pad)``
+    bf16 stack, or the float32 ``(2, L, F_pad)`` one, split on the host."""
     cqt_magnitudes_split4_plain.calls += 1
     f = f_channels
     ops = presplit_operator(ops)
-    re, im = _slab_loop(
-        padded, step, fft_length, number_times,
-        lambda slab, lo, width, c: split4_matmul_presplit(
-            slab, ops[0, c, lo:lo + width, :f], ops[1, c, lo:lo + width, :f]))
+
+    def product(slab, lo, width, c):
+        hi = ops[0, c, lo:lo + width, :f]
+        if passes == 1:
+            return mxu_matmul(slab, hi)
+        return split_matmul_presplit(slab, hi, ops[1, c, lo:lo + width, :f],
+                                     passes)
+
+    re, im = _slab_loop(padded, step, fft_length, number_times, product)
     return torch.sqrt(re * re + im * im)
 
 
@@ -156,10 +165,10 @@ def cqt_magnitudes(padded: torch.Tensor, ops: torch.Tensor, step: int,
 
 def cqt_magnitudes_split4(padded: torch.Tensor, ops: torch.Tensor, step: int,
                           fft_length: int, number_times: int,
-                          f_channels: int) -> torch.Tensor:
+                          f_channels: int, passes: int = 4) -> torch.Tensor:
     """The split4 twin of :func:`cqt_magnitudes`: the same magnitudes with
-    each product by four bf16 passes with float32 sums. ``ops`` is the
-    presplit ``(2, 2, fft_length, F_pad)`` bf16 stack of
+    each product by ``passes`` (4, 3 or 1) bf16 passes with float32 sums.
+    ``ops`` is the presplit ``(2, 2, fft_length, F_pad)`` bf16 stack of
     :func:`time_ops_split4`, or the float32 one, split on the host.
 
     A CPU tensor takes the plain version; a CUDA tensor launches the
@@ -167,17 +176,17 @@ def cqt_magnitudes_split4(padded: torch.Tensor, ops: torch.Tensor, step: int,
     """
     if not padded.is_cuda:
         return cqt_magnitudes_split4_plain(padded, ops, step, fft_length,
-                                           number_times, f_channels)
+                                           number_times, f_channels, passes)
     return _cqt_magnitudes_cuda(padded, ops, step, fft_length, number_times,
-                                f_channels, split4=True)
+                                f_channels, split4=True, passes=passes)
 
 
 def _cqt_magnitudes_cuda(padded: torch.Tensor, ops: torch.Tensor, step: int,
                          fft_length: int, number_times: int,
-                         f_channels: int, split4: bool = False
-                         ) -> torch.Tensor:
+                         f_channels: int, split4: bool = False,
+                         passes: int = 4) -> torch.Tensor:
     """Check the CUDA input, launch the kernels, exact or (``split4``) the
-    twin, count the launch."""
+    twin at ``passes``, count the launch."""
     name = "cqt_magnitudes_split4" if split4 else "cqt_magnitudes"
     _build.require_f32(padded, name)
     t, f, length = number_times, f_channels, fft_length
@@ -206,10 +215,12 @@ def _cqt_magnitudes_cuda(padded: torch.Tensor, ops: torch.Tensor, step: int,
     out = torch.empty((batch, t, f), dtype=torch.float32,
                       device=padded.device)
     entry = "zt_" + name
-    err = getattr(lib, entry)(
-        sig.data_ptr(), ops.data_ptr(),
-        None if part is None else part.data_ptr(), out.data_ptr(), batch,
-        sig.shape[-1], t, length, step, f, fp, _build.stream_of(padded))
+    args = (sig.data_ptr(), ops.data_ptr(),
+            None if part is None else part.data_ptr(), out.data_ptr(), batch,
+            sig.shape[-1], t, length, step, f, fp)
+    if split4:
+        args += (_build.check_passes(passes, name),)
+    err = getattr(lib, entry)(*args, _build.stream_of(padded))
     _build.check(err, entry)
     (cqt_magnitudes_split4 if split4 else cqt_magnitudes).launches += 1
     return out.reshape(*padded.shape[:-1], t, f)

@@ -20,10 +20,11 @@ FFT; every other window length, an explicit operator and
 ``ZAFTPU_FFT=matmul`` keep the GEMM kernels below. The rule is a dispatch,
 not a fallback: a CUDA tensor launches the kernel it picks or raises.
 
-Under ``ZAFTPU_PRECISION=split4`` (float32 only) each GEMM kernel launches
-its split4 twin instead, the port of the ``_kernel_split4`` bodies: the
-frames split into bf16 hi/lo in the kernel, the operator presplit on the host
-(:func:`dispatch_ops`), four bf16 passes on the tensor cores with float32
+Under ``ZAFTPU_PRECISION=split4`` (float32 only; ``high`` and ``default``
+on CUDA) each GEMM kernel launches its split4 twin instead, the port of the
+``_kernel_split4`` bodies: the frames split into bf16 hi/lo in the kernel,
+the operator presplit on the host (:func:`dispatch_ops`), the dial's bf16
+passes (4, 3 or 1, ``policy.gemm_passes``) on the tensor cores with float32
 sums (``csrc/frames_gemm_split4.cuh``). The exact kernels are
 FP32-compute-bound (``csrc/frames_gemm.cuh``). Every kernel has a plain
 PyTorch version with the same arithmetic, which a CPU tensor takes.
@@ -39,8 +40,8 @@ import torch
 
 from zaftpu_torch.core import fft as _fft
 from zaftpu_torch.core.frame import extract_frames
-from zaftpu_torch.core.policy import (exact_matmul, split4_applies,
-                                      split4_matmul_presplit)
+from zaftpu_torch.core.policy import (exact_matmul, gemm_passes,
+                                      split_matmul_presplit)
 from zaftpu_torch.kernels import _build
 from zaftpu_torch.kernels import mirror as _mirror
 from zaftpu_torch.kernels import rfft as _rfft
@@ -90,11 +91,12 @@ def dispatch_ops(builder, args: tuple, device,
                  dtype: torch.dtype) -> torch.Tensor:
     """The operator ``builder(*args)`` for the current dial, on ``device``
     (the port of ``zaftpu.pallas.fused._dispatch_ops``): as ``dtype`` on
-    the exact path, or, where split4 applies (float32), the ``(2, ...)``
-    bf16 hi/lo stack that :func:`zaftpu_torch.core.policy.presplit_host`
-    makes of the same float32 array. ``args`` must name the operator's
-    dtype as the builder takes it."""
-    split = split4_applies(dtype)
+    the exact path, or, where the dial lowers the GEMM
+    (:func:`zaftpu_torch.core.policy.gemm_passes`), the ``(2, ...)`` bf16
+    hi/lo stack that :func:`zaftpu_torch.core.policy.presplit_host` makes
+    of the same float32 array. ``args`` must name the operator's dtype as
+    the builder takes it."""
+    split = gemm_passes(dtype, device) is not None
     return _fft.device_operator(builder, args, torch.device(device),
                                 torch.bfloat16 if split else dtype,
                                 presplit=split)
@@ -112,26 +114,28 @@ def _windowed_frames(padded, window, window_length, step, number_times):
             * window.to(padded.dtype))
 
 
-def _products(frames: torch.Tensor, ops: torch.Tensor, cols: int) -> list:
+def _products(frames: torch.Tensor, ops: torch.Tensor, cols: int,
+              passes: int = 4) -> list:
     """``frames @ op[:, :cols]`` for each component of ``ops``: exact for a
-    float operator ``(C, WL, F_pad)``, the 4-pass split4 scheme for a
+    float operator ``(C, WL, F_pad)``, the bf16 scheme at ``passes`` for a
     presplit ``(2, C, WL, F_pad)`` bf16 stack."""
     if ops.dtype == torch.bfloat16:
-        return [split4_matmul_presplit(frames, ops[0, c, :, :cols],
-                                       ops[1, c, :, :cols])
+        return [split_matmul_presplit(frames, ops[0, c, :, :cols],
+                                      ops[1, c, :, :cols], passes)
                 for c in range(ops.shape[1])]
     return [exact_matmul(frames, ops[c, :, :cols].to(frames.dtype))
             for c in range(ops.shape[0])]
 
 
-def _half_planes(padded, window, window_length, step, number_times, ops):
+def _half_planes(padded, window, window_length, step, number_times, ops,
+                 passes=4):
     """Re and im planes ``(..., T, WL/2+1)`` of the windowed frames against
-    ``ops`` (float or presplit), plain."""
+    ``ops`` (float, or presplit at ``passes``), plain."""
     if ops is None:
         ops = rdft_ops(window_length, padded.dtype, padded.device)
     frames = _windowed_frames(padded, window, window_length, step,
                               number_times)
-    return _products(frames, ops, window_length // 2 + 1)
+    return _products(frames, ops, window_length // 2 + 1, passes)
 
 
 def frames_rfft_plain(padded: torch.Tensor, window: torch.Tensor,
@@ -147,13 +151,15 @@ def frames_rfft_plain(padded: torch.Tensor, window: torch.Tensor,
 def frames_rfft_split4_plain(padded: torch.Tensor, window: torch.Tensor,
                              window_length: int, step: int,
                              number_times: int,
-                             ops: torch.Tensor | None = None) -> torch.Tensor:
+                             ops: torch.Tensor | None = None,
+                             passes: int = 4) -> torch.Tensor:
     """:func:`frames_rfft_plain` with the split4 GEMMs: the frames split in
-    torch, the operator presplit, four exact GEMMs per component."""
+    torch, the operator presplit, ``passes`` exact GEMMs per component
+    (:func:`zaftpu_torch.core.policy.split_matmul_presplit`)."""
     frames_rfft_split4_plain.calls += 1
     ops = _split4_rdft_ops(ops, window_length, padded.device)
     return torch.complex(*_half_planes(padded, window, window_length, step,
-                                       number_times, ops))
+                                       number_times, ops, passes))
 
 
 for _fn in (frames_rfft_plain, frames_rfft_split4_plain):
@@ -173,10 +179,11 @@ def frames_rfft(padded: torch.Tensor, window: torch.Tensor,
     ``ZAFTPU_FUSED2=1`` takes :func:`frames_matmul2` and forms the complex
     result, as ``zaftpu`` does; the shape rule
     (:func:`zaftpu_torch.kernels.rfft.applies`) takes
-    :func:`zaftpu_torch.kernels.rfft.frames_rfft_fft` on either dial;
-    elsewhere split4 (float32) takes :func:`frames_rfft_split4`. A CPU
-    tensor takes the plain version; a CUDA tensor launches the kernel
-    (leading axes flattened into its batch) or raises.
+    :func:`zaftpu_torch.kernels.rfft.frames_rfft_fft` on every dial;
+    elsewhere a lowered dial (float32, ``policy.gemm_passes``) takes
+    :func:`frames_rfft_split4` at its pass count. A CPU tensor takes the
+    plain version; a CUDA tensor launches the kernel (leading axes
+    flattened into its batch) or raises.
     """
     if fused2_enabled():
         return torch.complex(*frames_matmul2(padded, window, window_length,
@@ -184,9 +191,10 @@ def frames_rfft(padded: torch.Tensor, window: torch.Tensor,
     if _rfft.applies(window_length, ops):
         return _rfft.frames_rfft_fft(padded, window, window_length, step,
                                      number_times)
-    if split4_applies(padded.dtype):
+    p = gemm_passes(padded.dtype, padded.device)
+    if p is not None:
         return frames_rfft_split4(padded, window, window_length, step,
-                                  number_times, ops)
+                                  number_times, ops, passes=p)
     if not padded.is_cuda:
         return frames_rfft_plain(padded, window, window_length, step,
                                  number_times, ops)
@@ -196,17 +204,19 @@ def frames_rfft(padded: torch.Tensor, window: torch.Tensor,
 
 def frames_rfft_split4(padded: torch.Tensor, window: torch.Tensor,
                        window_length: int, step: int, number_times: int,
-                       ops: torch.Tensor | None = None) -> torch.Tensor:
+                       ops: torch.Tensor | None = None,
+                       passes: int = 4) -> torch.Tensor:
     """The split4 twin of :func:`frames_rfft` (B1's ``_kernel_split4``):
-    the same half spectrum by four bf16 passes with float32 sums. ``ops``
-    is the presplit ``(2, 2, WL, F_pad)`` bf16 stack, or a float32 operator
-    that is split on the host. A CPU tensor takes the plain version; a CUDA
-    tensor launches the tensor-core kernel or raises."""
+    the same half spectrum by ``passes`` (4, 3 or 1) bf16 passes with
+    float32 sums. ``ops`` is the presplit ``(2, 2, WL, F_pad)`` bf16 stack,
+    or a float32 operator that is split on the host. A CPU tensor takes the
+    plain version; a CUDA tensor launches the tensor-core kernel or
+    raises."""
     if not padded.is_cuda:
         return frames_rfft_split4_plain(padded, window, window_length, step,
-                                        number_times, ops)
+                                        number_times, ops, passes)
     return _frames_rfft_cuda(padded, window, window_length, step,
-                             number_times, ops, split4=True)
+                             number_times, ops, split4=True, passes=passes)
 
 
 # Output kinds of the analysis kernels: C entry point, component count.
@@ -216,11 +226,12 @@ _STORES = {"half": ("zt_frames_rfft", 2), "full": ("zt_frames_rfft_full", 2),
 
 def _launch(name: str, store: str, split4: bool, padded: torch.Tensor,
             window: torch.Tensor, window_length: int, step: int,
-            number_times: int, ops: torch.Tensor, n_cols: int):
+            number_times: int, ops: torch.Tensor, n_cols: int,
+            passes: int = 4):
     """Check a CUDA input and launch one analysis kernel: ``store`` picks
-    the output, ``split4`` the tensor-core twin (``ops`` the presplit
-    ``(2, C, WL, F_pad)`` bf16 stack) over the exact one (``ops`` float32
-    ``(C, WL, F_pad)``)."""
+    the output, ``split4`` the tensor-core twin at ``passes`` (``ops`` the
+    presplit ``(2, C, WL, F_pad)`` bf16 stack) over the exact one (``ops``
+    float32 ``(C, WL, F_pad)``)."""
     check_frame_args(name, padded, window, window_length, step,
                      number_times)
     entry, nc = _STORES[store]
@@ -246,10 +257,12 @@ def _launch(name: str, store: str, split4: bool, padded: torch.Tensor,
         out = torch.empty((batch, t, wl if store == "full" else n_cols),
                           dtype=torch.float32 if store == "real"
                           else torch.complex64, device=dev)
-    entry += "_split4" if split4 else ""
-    err = getattr(_build.library(), entry)(
-        sig.data_ptr(), win.data_ptr(), ops.data_ptr(), out.data_ptr(), batch,
-        length, t, wl, step, n_cols, fp, _build.stream_of(padded))
+    args = (sig.data_ptr(), win.data_ptr(), ops.data_ptr(), out.data_ptr(),
+            batch, length, t, wl, step, n_cols, fp)
+    if split4:
+        entry += "_split4"
+        args += (_build.check_passes(passes, name),)
+    err = getattr(_build.library(), entry)(*args, _build.stream_of(padded))
     _build.check(err, entry)
     if store == "planes":
         return (out[0].reshape(*lead, t, n_cols),
@@ -260,9 +273,10 @@ def _launch(name: str, store: str, split4: bool, padded: torch.Tensor,
 def _frames_rfft_cuda(padded: torch.Tensor, window: torch.Tensor,
                       window_length: int, step: int, number_times: int,
                       ops: torch.Tensor | None = None, full: bool = False,
-                      split4: bool = False) -> torch.Tensor:
+                      split4: bool = False, passes: int = 4) -> torch.Tensor:
     """Check the CUDA input, launch the half- or (``full``) full-spectrum
-    kernel, exact or (``split4``) its twin, count the launch."""
+    kernel, exact or (``split4``) its twin at ``passes``, count the
+    launch."""
     name = "frames_rfft_full" if full else "frames_rfft"
     if split4:
         name += "_split4"
@@ -271,7 +285,7 @@ def _frames_rfft_cuda(padded: torch.Tensor, window: torch.Tensor,
         ops = rdft_ops(window_length, torch.float32, padded.device)
     out = _launch(name, "full" if full else "half", split4, padded, window,
                   window_length, step, number_times, ops,
-                  window_length // 2 + 1)
+                  window_length // 2 + 1, passes)
     if full:
         counted = frames_rfft_full_split4 if split4 else frames_rfft_full
     else:
@@ -320,13 +334,14 @@ def frames_rfft_full_plain(padded: torch.Tensor, window: torch.Tensor,
 def frames_rfft_full_split4_plain(padded: torch.Tensor, window: torch.Tensor,
                                   window_length: int, step: int,
                                   number_times: int,
-                                  ops: torch.Tensor | None = None
-                                  ) -> torch.Tensor:
-    """:func:`frames_rfft_full_plain` with the split4 GEMMs."""
+                                  ops: torch.Tensor | None = None,
+                                  passes: int = 4) -> torch.Tensor:
+    """:func:`frames_rfft_full_plain` with the split4 GEMMs at
+    ``passes``."""
     frames_rfft_full_split4_plain.calls += 1
     ops = _split4_rdft_ops(ops, window_length, padded.device)
     half = torch.complex(*_half_planes(padded, window, window_length, step,
-                                       number_times, ops))
+                                       number_times, ops, passes))
     return _fft.conjugate_mirror(half, window_length)
 
 
@@ -344,7 +359,7 @@ def frames_rfft_full(padded: torch.Tensor, window: torch.Tensor,
     (:func:`zaftpu_torch.kernels.rfft.applies`) takes the FFT kernel's
     full store, :func:`zaftpu_torch.kernels.rfft.frames_rfft_full_fft`, on
     either dial; elsewhere (another window length, an explicit ``ops``,
-    ``ZAFTPU_FFT=matmul``) the GEMM B3, or under split4 (float32)
+    ``ZAFTPU_FFT=matmul``) the GEMM B3, or on a lowered dial (float32)
     :func:`frames_rfft_full_split4`. ``ops`` as for :func:`frames_rfft`.
 
     A CPU tensor takes the plain version; a CUDA tensor launches the kernel
@@ -353,9 +368,10 @@ def frames_rfft_full(padded: torch.Tensor, window: torch.Tensor,
     if _rfft.applies(window_length, ops):
         return _rfft.frames_rfft_full_fft(padded, window, window_length,
                                           step, number_times)
-    if split4_applies(padded.dtype):
+    p = gemm_passes(padded.dtype, padded.device)
+    if p is not None:
         return frames_rfft_full_split4(padded, window, window_length, step,
-                                       number_times, ops)
+                                       number_times, ops, passes=p)
     if not padded.is_cuda:
         return frames_rfft_full_plain(padded, window, window_length, step,
                                       number_times, ops)
@@ -365,15 +381,17 @@ def frames_rfft_full(padded: torch.Tensor, window: torch.Tensor,
 
 def frames_rfft_full_split4(padded: torch.Tensor, window: torch.Tensor,
                             window_length: int, step: int, number_times: int,
-                            ops: torch.Tensor | None = None) -> torch.Tensor:
+                            ops: torch.Tensor | None = None,
+                            passes: int = 4) -> torch.Tensor:
     """The split4 twin of :func:`frames_rfft_full` (``_kernel_full_split4``):
     bit-equal to :func:`frames_rfft_split4` followed by the conjugate
-    mirror. ``ops`` as for :func:`frames_rfft_split4`."""
+    mirror. ``ops`` and ``passes`` as for :func:`frames_rfft_split4`."""
     if not padded.is_cuda:
         return frames_rfft_full_split4_plain(padded, window, window_length,
-                                             step, number_times, ops)
+                                             step, number_times, ops, passes)
     return _frames_rfft_cuda(padded, window, window_length, step,
-                             number_times, ops, full=True, split4=True)
+                             number_times, ops, full=True, split4=True,
+                             passes=passes)
 
 
 def frames_matmul2_plain(padded: torch.Tensor, window: torch.Tensor,
@@ -389,12 +407,13 @@ def frames_matmul2_plain(padded: torch.Tensor, window: torch.Tensor,
 def frames_matmul2_split4_plain(padded: torch.Tensor, window: torch.Tensor,
                                 window_length: int, step: int,
                                 number_times: int,
-                                ops: torch.Tensor | None = None) -> tuple:
-    """:func:`frames_matmul2_plain` with the split4 GEMMs."""
+                                ops: torch.Tensor | None = None,
+                                passes: int = 4) -> tuple:
+    """:func:`frames_matmul2_plain` with the split4 GEMMs at ``passes``."""
     frames_matmul2_split4_plain.calls += 1
     ops = _split4_rdft_ops(ops, window_length, padded.device)
     return tuple(_half_planes(padded, window, window_length, step,
-                              number_times, ops))
+                              number_times, ops, passes))
 
 
 for _fn in (frames_matmul2_plain, frames_matmul2_split4_plain):
@@ -409,7 +428,7 @@ def frames_matmul2(padded: torch.Tensor, window: torch.Tensor,
     ``frames_matmul2``, sliced to the valid bins). ``ops`` as for
     :func:`frames_rfft`; the shape rule takes
     :func:`zaftpu_torch.kernels.rfft.frames_matmul2_fft` on either dial,
-    elsewhere split4 (float32) :func:`frames_matmul2_split4`.
+    elsewhere a lowered dial (float32) :func:`frames_matmul2_split4`.
 
     A CPU tensor takes the plain version; a CUDA tensor launches the kernel
     (leading axes flattened into its batch) or raises.
@@ -417,9 +436,10 @@ def frames_matmul2(padded: torch.Tensor, window: torch.Tensor,
     if _rfft.applies(window_length, ops):
         return _rfft.frames_matmul2_fft(padded, window, window_length, step,
                                         number_times)
-    if split4_applies(padded.dtype):
+    p = gemm_passes(padded.dtype, padded.device)
+    if p is not None:
         return frames_matmul2_split4(padded, window, window_length, step,
-                                     number_times, ops)
+                                     number_times, ops, passes=p)
     if not padded.is_cuda:
         return frames_matmul2_plain(padded, window, window_length, step,
                                     number_times, ops)
@@ -434,16 +454,17 @@ def frames_matmul2(padded: torch.Tensor, window: torch.Tensor,
 
 def frames_matmul2_split4(padded: torch.Tensor, window: torch.Tensor,
                           window_length: int, step: int, number_times: int,
-                          ops: torch.Tensor | None = None) -> tuple:
+                          ops: torch.Tensor | None = None,
+                          passes: int = 4) -> tuple:
     """The split4 twin of :func:`frames_matmul2` (``_kernel2_split4``).
-    ``ops`` as for :func:`frames_rfft_split4`."""
+    ``ops`` and ``passes`` as for :func:`frames_rfft_split4`."""
     if not padded.is_cuda:
         return frames_matmul2_split4_plain(padded, window, window_length,
-                                           step, number_times, ops)
+                                           step, number_times, ops, passes)
     ops = _split4_rdft_ops(ops, window_length, padded.device)
     out = _launch("frames_matmul2_split4", "planes", True, padded, window,
                   window_length, step, number_times, ops,
-                  window_length // 2 + 1)
+                  window_length // 2 + 1, passes)
     frames_matmul2_split4.launches += 1
     return out
 
@@ -462,13 +483,16 @@ def frames_op_plain(padded: torch.Tensor, window: torch.Tensor,
 def frames_op_split4_plain(padded: torch.Tensor, window: torch.Tensor,
                            ops: torch.Tensor, n_cols: int,
                            window_length: int, step: int,
-                           number_times: int) -> torch.Tensor:
-    """:func:`frames_op_plain` with the split4 GEMMs; ``ops`` presplit
-    ``(2, 1, WL, F_pad)`` bf16, or float32 and split on the host."""
+                           number_times: int,
+                           passes: int = 4) -> torch.Tensor:
+    """:func:`frames_op_plain` with the split4 GEMMs at ``passes``; ``ops``
+    presplit ``(2, 1, WL, F_pad)`` bf16, or float32 and split on the
+    host."""
     frames_op_split4_plain.calls += 1
     frames = _windowed_frames(padded, window, window_length, step,
                               number_times)
-    return _products(frames, _fft.presplit_operator(ops), n_cols)[0]
+    return _products(frames, _fft.presplit_operator(ops), n_cols,
+                     passes)[0]
 
 
 for _fn in (frames_op_plain, frames_op_split4_plain):
@@ -481,17 +505,18 @@ def frames_op(padded: torch.Tensor, window: torch.Tensor, ops: torch.Tensor,
     """Fused ``windowed_frames @ op`` for one real operator: ``(..., T,
     n_cols)`` from a padded signal ``(..., L)``, the frames never stored.
     ``ops`` is ``(1, WL, F_pad)`` with zero columns from ``n_cols`` to
-    :func:`padded_cols`, or under split4 its presplit stack
+    :func:`padded_cols`, or on a lowered dial its presplit stack
     (:func:`dispatch_ops` gives the one the dial wants; ``zaftpu``'s
-    ``frames_op`` takes the host function that makes it instead). Split4
-    (float32) takes :func:`frames_op_split4`.
+    ``frames_op`` takes the host function that makes it instead). A lowered
+    dial (float32) takes :func:`frames_op_split4` at its pass count.
 
     A CPU tensor takes the plain version; a CUDA tensor launches the kernel
     (leading axes flattened into its batch) or raises.
     """
-    if split4_applies(padded.dtype):
+    p = gemm_passes(padded.dtype, padded.device)
+    if p is not None:
         return frames_op_split4(padded, window, ops, n_cols, window_length,
-                                step, number_times)
+                                step, number_times, passes=p)
     if not padded.is_cuda:
         return frames_op_plain(padded, window, ops, n_cols, window_length,
                                step, number_times)
@@ -501,27 +526,29 @@ def frames_op(padded: torch.Tensor, window: torch.Tensor, ops: torch.Tensor,
 
 def frames_op_split4(padded: torch.Tensor, window: torch.Tensor,
                      ops: torch.Tensor, n_cols: int, window_length: int,
-                     step: int, number_times: int) -> torch.Tensor:
-    """The split4 twin of :func:`frames_op` (B2's ``_kernel_split4``);
-    ``ops`` as for :func:`frames_op_split4_plain`."""
+                     step: int, number_times: int,
+                     passes: int = 4) -> torch.Tensor:
+    """The split4 twin of :func:`frames_op` (B2's ``_kernel_split4``) at
+    ``passes``; ``ops`` as for :func:`frames_op_split4_plain`."""
     if not padded.is_cuda:
         return frames_op_split4_plain(padded, window, ops, n_cols,
-                                      window_length, step, number_times)
+                                      window_length, step, number_times,
+                                      passes)
     return _frames_op_cuda(padded, window, ops, n_cols, window_length, step,
-                           number_times, split4=True)
+                           number_times, split4=True, passes=passes)
 
 
 def _frames_op_cuda(padded: torch.Tensor, window: torch.Tensor,
                     ops: torch.Tensor, n_cols: int, window_length: int,
                     step: int, number_times: int,
-                    split4: bool = False) -> torch.Tensor:
-    """Check the CUDA input, launch the kernel or (``split4``) its twin,
-    count the launch."""
+                    split4: bool = False, passes: int = 4) -> torch.Tensor:
+    """Check the CUDA input, launch the kernel or (``split4``) its twin at
+    ``passes``, count the launch."""
     name = "frames_op_split4" if split4 else "frames_op"
     if split4:
         ops = _fft.presplit_operator(ops)
     out = _launch(name, "real", split4, padded, window, window_length, step,
-                  number_times, ops, n_cols)
+                  number_times, ops, n_cols, passes)
     (frames_op_split4 if split4 else frames_op).launches += 1
     return out
 

@@ -24,7 +24,9 @@ Forced with ``ZAFTPU_MELFUSE=1``, ``spec_rows`` stays exact (it has no
 split4 twin, in ``zaftpu`` either) and ``mel_rows`` takes its split4 twin
 ``mel_rows_split4``, the port of ``zaftpu``'s ``_kernel_split4``: the rDFT
 by four bf16 passes on the tensor cores, the operator presplit on the host,
-the filterbank product still FP32.
+the filterbank product still FP32. Under ``high`` and ``default`` on CUDA
+the route stays ``zaftpu``'s exact-dial one and ``mel_rows`` takes the twin
+at three or one pass; ``spec_rows`` stays exact on every dial.
 
 ``ZAFTPU_MELFUSE=0`` is ``zaftpu``'s A/B lever: ``spectrogram``,
 ``melspectrogram`` and ``mfcc`` then take the split path (the half spectrum
@@ -41,7 +43,8 @@ import torch
 
 from zaftpu_torch.core import fft as _fft
 from zaftpu_torch.core.frame import extract_frames
-from zaftpu_torch.core.policy import exact_matmul, split4_applies
+from zaftpu_torch.core.policy import (exact_matmul, gemm_passes,
+                                      split4_applies)
 from zaftpu_torch.kernels import _build
 from zaftpu_torch.kernels import rfft as _rfft
 from zaftpu_torch.kernels.framing import check_frame_args
@@ -110,14 +113,16 @@ def split4_spec_ops(ops: torch.Tensor | None, n: int,
     return _fft.presplit_operator(ops, _spec_ops, (n, "float32"), device)
 
 
-def _planes(padded, window, window_length, step, number_times, ops):
+def _planes(padded, window, window_length, step, number_times, ops,
+            passes=4):
     """Re and im of bins ``1..WL/2`` of the windowed frames, plain: exact
-    for a float operator, by the split4 scheme for a presplit one."""
+    for a float operator, by the bf16 scheme at ``passes`` for a presplit
+    one."""
     frames = (extract_frames(padded, window_length, step, number_times)
               * window.to(padded.dtype))
     if ops is None:
         ops = spec_ops(window_length, padded.dtype, padded.device)
-    return _products(frames, ops, window_length // 2)
+    return _products(frames, ops, window_length // 2, passes)
 
 
 def spec_rows_plain(padded: torch.Tensor, window: torch.Tensor,
@@ -194,8 +199,9 @@ spec_rows.launches = 0
 
 
 def _mel_plain(padded, window, fbank_t, window_length, step, number_times,
-               power, ops):
-    re, im = _planes(padded, window, window_length, step, number_times, ops)
+               power, ops, passes=4):
+    re, im = _planes(padded, window, window_length, step, number_times, ops,
+                     passes)
     p2 = re * re + im * im
     return exact_matmul(p2 if power else torch.sqrt(p2),
                         fbank_t.to(padded.dtype))
@@ -216,14 +222,16 @@ def mel_rows_plain(padded: torch.Tensor, window: torch.Tensor,
 def mel_rows_split4_plain(padded: torch.Tensor, window: torch.Tensor,
                           fbank_t: torch.Tensor, window_length: int,
                           step: int, number_times: int, power: bool,
-                          ops: torch.Tensor | None = None) -> torch.Tensor:
-    """:func:`mel_rows_plain` with the rDFT by the split4 scheme (the
-    frames split in torch, four exact GEMMs against the presplit operator);
-    the filterbank product stays exact."""
+                          ops: torch.Tensor | None = None,
+                          passes: int = 4) -> torch.Tensor:
+    """:func:`mel_rows_plain` with the rDFT by the bf16 scheme at
+    ``passes`` (the frames split in torch, that many exact GEMMs against
+    the presplit operator); the filterbank product stays exact."""
     mel_rows_split4_plain.calls += 1
     return _mel_plain(padded, window, fbank_t, window_length, step,
                       number_times, power,
-                      split4_spec_ops(ops, window_length, padded.device))
+                      split4_spec_ops(ops, window_length, padded.device),
+                      passes)
 
 
 for _fn in (mel_rows_plain, mel_rows_split4_plain):
@@ -238,17 +246,19 @@ def mel_rows(padded: torch.Tensor, window: torch.Tensor,
     (``power=False``, melspectrogram) or power-mel (``power=True``, the
     MFCC front) rows of a padded signal ``(..., L)``. ``fbank_t``: the
     ``(WL/2, n_mels)`` filterbank transpose. ``ops`` overrides the
-    operator (:func:`spec_ops`). Split4 (float32) takes
-    :func:`mel_rows_split4`.
+    operator (:func:`spec_ops`). A lowered dial (float32,
+    ``policy.gemm_passes``) takes :func:`mel_rows_split4` at its pass
+    count.
 
     A CPU tensor takes the plain version; a CUDA tensor launches the kernel
     (leading axes flattened into its batch) or raises. The kernel stages a
     bin tile's filterbank rows in shared memory 256 mels at a time, so it
     takes any ``n_mels``.
     """
-    if split4_applies(padded.dtype):
+    p = gemm_passes(padded.dtype, padded.device)
+    if p is not None:
         return mel_rows_split4(padded, window, fbank_t, window_length, step,
-                               number_times, power, ops)
+                               number_times, power, ops, passes=p)
     if not padded.is_cuda:
         return mel_rows_plain(padded, window, fbank_t, window_length, step,
                               number_times, power, ops)
@@ -259,26 +269,29 @@ def mel_rows(padded: torch.Tensor, window: torch.Tensor,
 def mel_rows_split4(padded: torch.Tensor, window: torch.Tensor,
                     fbank_t: torch.Tensor, window_length: int, step: int,
                     number_times: int, power: bool,
-                    ops: torch.Tensor | None = None) -> torch.Tensor:
+                    ops: torch.Tensor | None = None,
+                    passes: int = 4) -> torch.Tensor:
     """The split4 twin of :func:`mel_rows` (``_mel_rows_impl``'s
-    ``_kernel_split4``): the rDFT by four bf16 passes with float32 sums.
-    ``ops`` is the presplit ``(2, 2, WL, F_pad)`` bf16 stack, or a float32
-    operator that is split on the host. A CPU tensor takes the plain
-    version; a CUDA tensor launches the tensor-core kernel or raises."""
+    ``_kernel_split4``): the rDFT by ``passes`` (4, 3 or 1) bf16 passes
+    with float32 sums. ``ops`` is the presplit ``(2, 2, WL, F_pad)`` bf16
+    stack, or a float32 operator that is split on the host. A CPU tensor
+    takes the plain version; a CUDA tensor launches the tensor-core kernel
+    or raises."""
     if not padded.is_cuda:
         return mel_rows_split4_plain(padded, window, fbank_t, window_length,
-                                     step, number_times, power, ops)
+                                     step, number_times, power, ops, passes)
     return _mel_rows_cuda(padded, window, fbank_t, window_length, step,
-                          number_times, power, ops, split4=True)
+                          number_times, power, ops, split4=True,
+                          passes=passes)
 
 
 def _mel_rows_cuda(padded: torch.Tensor, window: torch.Tensor,
                    fbank_t: torch.Tensor, window_length: int, step: int,
                    number_times: int, power: bool,
                    ops: torch.Tensor | None = None,
-                   split4: bool = False) -> torch.Tensor:
+                   split4: bool = False, passes: int = 4) -> torch.Tensor:
     """Check the CUDA input, launch the kernels, exact or (``split4``) the
-    twin, count the launch."""
+    twin at ``passes``, count the launch."""
     name = "mel_rows_split4" if split4 else "mel_rows"
     f = window_length // 2
     if fbank_t.ndim != 2 or fbank_t.shape[0] != f or fbank_t.shape[1] < 1:
@@ -298,11 +311,13 @@ def _mel_rows_cuda(padded: torch.Tensor, window: torch.Tensor,
             if tiles > 1 else None)
     out = torch.empty((batch, t, m), dtype=torch.float32, device=dev)
     entry = "zt_" + name
-    err = getattr(_build.library(), entry)(
-        sig.data_ptr(), win.data_ptr(), ops.data_ptr(), fbt.data_ptr(),
-        None if part is None else part.data_ptr(), out.data_ptr(), batch,
-        sig.shape[-1], t, window_length, step, f, fp, m, int(power),
-        _build.stream_of(padded))
+    args = (sig.data_ptr(), win.data_ptr(), ops.data_ptr(), fbt.data_ptr(),
+            None if part is None else part.data_ptr(), out.data_ptr(),
+            batch, sig.shape[-1], t, window_length, step, f, fp, m,
+            int(power))
+    if split4:
+        args += (_build.check_passes(passes, name),)
+    err = getattr(_build.library(), entry)(*args, _build.stream_of(padded))
     _build.check(err, entry)
     (mel_rows_split4 if split4 else mel_rows).launches += 1
     return out.reshape(*padded.shape[:-1], t, m)

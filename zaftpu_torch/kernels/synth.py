@@ -9,10 +9,11 @@ arguments. It is FP32-compute-bound; see the source note in
 ``csrc/synth.cu`` for how it overlap-adds without the TPU kernel's
 sequential carry.
 
-Under ``ZAFTPU_PRECISION=split4`` (float32 only) both launch the split4
-twin instead, the port of ``_kernel_split4``: the spectrum rows split into
-bf16 hi/lo in the kernel, the operator presplit on the host, four bf16
-passes on the tensor cores with float32 sums, the same overlap-add.
+Under ``ZAFTPU_PRECISION=split4`` (float32 only; ``high`` and ``default``
+on CUDA) both launch the split4 twin instead, the port of
+``_kernel_split4``: the spectrum rows split into bf16 hi/lo in the kernel,
+the operator presplit on the host, the dial's bf16 passes (4, 3 or 1) on
+the tensor cores with float32 sums, the same overlap-add.
 
 On both dials ``istft_ola`` first follows the analysis's shape rule
 (:func:`zaftpu_torch.kernels.rfft.applies`): at an even window length from
@@ -38,8 +39,8 @@ import torch
 
 from zaftpu_torch.core import fft as _fft
 from zaftpu_torch.core import frame as _frame
-from zaftpu_torch.core.policy import (exact_matmul, split4_applies,
-                                      split4_matmul_presplit)
+from zaftpu_torch.core.policy import (exact_matmul, gemm_passes,
+                                      split_matmul_presplit)
 from zaftpu_torch.kernels import _build
 from zaftpu_torch.kernels import irfft as _irfft
 from zaftpu_torch.kernels import mdct as _mdct
@@ -129,15 +130,17 @@ def istft_ola_plain(h_re: torch.Tensor, h_im: torch.Tensor, n: int,
 
 def istft_ola_split4_plain(h_re: torch.Tensor, h_im: torch.Tensor, n: int,
                            step: int, scale: float,
-                           ops: torch.Tensor | None = None) -> torch.Tensor:
+                           ops: torch.Tensor | None = None,
+                           passes: int = 4) -> torch.Tensor:
     """The split4 synthesis in plain PyTorch: the packed planes
-    ``(T, 2*KP)`` times the presplit operator by the 4-pass scheme, then
-    the plain overlap-add. ``ops`` as for :func:`istft_ola_split4`."""
+    ``(T, 2*KP)`` times the presplit operator by the bf16 scheme at
+    ``passes``, then the plain overlap-add. ``ops`` as for
+    :func:`istft_ola_split4`."""
     istft_ola_split4_plain.calls += 1
     ops = _presplit_ops(ops, _istft_ops, (n, float(scale), "float32"),
                         h_re.device)
-    frames = split4_matmul_presplit(_packed_planes(h_re, h_im, n), ops[0],
-                                    ops[1])
+    frames = split_matmul_presplit(_packed_planes(h_re, h_im, n), ops[0],
+                                   ops[1], passes)
     out = _frame.overlap_add(frames, step)
     return out.reshape(*h_re.shape[:-2], out.shape[-1])
 
@@ -156,15 +159,17 @@ def istft_ola(h_re: torch.Tensor, h_im: torch.Tensor, n: int, step: int,
     zero-padded ``(T, 2, KP)`` rows.
 
     The shape rule (:func:`zaftpu_torch.kernels.rfft.applies`) takes
-    :func:`zaftpu_torch.kernels.irfft.istft_ola_fft` on either dial;
-    elsewhere split4 (float32) takes :func:`istft_ola_split4`. A CPU tensor
-    takes the plain version; a CUDA tensor launches the kernel (leading
-    axes flattened into its batch) or raises.
+    :func:`zaftpu_torch.kernels.irfft.istft_ola_fft` on every dial;
+    elsewhere a lowered dial (float32, ``policy.gemm_passes``) takes
+    :func:`istft_ola_split4` at its pass count. A CPU tensor takes the
+    plain version; a CUDA tensor launches the kernel (leading axes
+    flattened into its batch) or raises.
     """
     if _rfft.applies(n, ops):
         return _irfft.istft_ola_fft(h_re, h_im, n, step, scale)
-    if split4_applies(h_re.dtype):
-        return istft_ola_split4(h_re, h_im, n, step, scale, ops)
+    p = gemm_passes(h_re.dtype, h_re.device)
+    if p is not None:
+        return istft_ola_split4(h_re, h_im, n, step, scale, ops, passes=p)
     if not h_re.is_cuda:
         return istft_ola_plain(h_re, h_im, n, step, scale, ops)
     return _istft_ola_cuda(h_re, h_im, n, step, scale, ops)
@@ -172,23 +177,27 @@ def istft_ola(h_re: torch.Tensor, h_im: torch.Tensor, n: int, step: int,
 
 def istft_ola_split4(h_re: torch.Tensor, h_im: torch.Tensor, n: int,
                      step: int, scale: float,
-                     ops: torch.Tensor | None = None) -> torch.Tensor:
-    """The split4 twin of :func:`istft_ola` (B4's ``_kernel_split4``).
-    ``ops`` is the presplit ``(2, 2*KP, N)`` bf16 stack
-    (:func:`istft_ops_split4`), or a float32 ``(2, KP, N)`` operator that
-    is split on the host. A CPU tensor takes the plain version; a CUDA
-    tensor launches the tensor-core kernel or raises."""
+                     ops: torch.Tensor | None = None,
+                     passes: int = 4) -> torch.Tensor:
+    """The split4 twin of :func:`istft_ola` (B4's ``_kernel_split4``) at
+    ``passes`` (4, 3 or 1) bf16 passes. ``ops`` is the presplit
+    ``(2, 2*KP, N)`` bf16 stack (:func:`istft_ops_split4`), or a float32
+    ``(2, KP, N)`` operator that is split on the host. A CPU tensor takes
+    the plain version; a CUDA tensor launches the tensor-core kernel or
+    raises."""
     if not h_re.is_cuda:
-        return istft_ola_split4_plain(h_re, h_im, n, step, scale, ops)
-    return _istft_ola_cuda(h_re, h_im, n, step, scale, ops, split4=True)
+        return istft_ola_split4_plain(h_re, h_im, n, step, scale, ops,
+                                      passes)
+    return _istft_ola_cuda(h_re, h_im, n, step, scale, ops, split4=True,
+                           passes=passes)
 
 
 def _istft_ola_cuda(h_re: torch.Tensor, h_im: torch.Tensor, n: int,
                     step: int, scale: float,
                     ops: torch.Tensor | None = None,
-                    split4: bool = False) -> torch.Tensor:
-    """Check the CUDA input, launch the kernel or (``split4``) its twin,
-    count the launch."""
+                    split4: bool = False, passes: int = 4) -> torch.Tensor:
+    """Check the CUDA input, launch the kernel or (``split4``) its twin at
+    ``passes``, count the launch."""
     name = "istft_ola_split4" if split4 else "istft_ola"
     _build.require_f32(h_re, name)
     _build.require_f32(h_im, name)
@@ -209,17 +218,18 @@ def _istft_ola_cuda(h_re: torch.Tensor, h_im: torch.Tensor, n: int,
         if ops.shape == (2, kp, n):  # both components along one contraction
             ops = ops.reshape(2 * kp, n)
     out = _gemm_ola(_packed_planes(h_re, h_im, n), ops, n, step, name,
-                    split4)
+                    split4, passes)
     (istft_ola_split4 if split4 else istft_ola).launches += 1
     return out.reshape(*lead, out.shape[-1])
 
 
 def _gemm_ola(h: torch.Tensor, ops: torch.Tensor, n: int, step: int,
-              name: str, split4: bool = False) -> torch.Tensor:
+              name: str, split4: bool = False,
+              passes: int = 4) -> torch.Tensor:
     """Check ``ops`` and launch the kernel on ``h`` ``(batch, T, Q)``,
     float32 with Q a multiple of 16, and ``ops``: float32 ``(Q, N)``, or
-    for the split4 twin the presplit ``(2, Q, N)`` bf16 stack; returns
-    ``(batch, (T-1)*step + N)``."""
+    for the split4 twin (at ``passes``) the presplit ``(2, Q, N)`` bf16
+    stack; returns ``(batch, (T-1)*step + N)``."""
     batch, t, q = h.shape
     shape = (2, q, n) if split4 else (q, n)
     dtype = torch.bfloat16 if split4 else torch.float32
@@ -232,9 +242,11 @@ def _gemm_ola(h: torch.Tensor, ops: torch.Tensor, n: int, step: int,
     out_len = (t - 1) * step + n
     out = torch.empty((batch, out_len), dtype=torch.float32, device=h.device)
     entry = "zt_gemm_ola_split4" if split4 else "zt_gemm_ola"
-    err = getattr(_build.library(), entry)(
-        h.data_ptr(), ops.data_ptr(), out.data_ptr(), batch, t, q, n, step,
-        _build.stream_of(h))
+    args = (h.data_ptr(), ops.data_ptr(), out.data_ptr(), batch, t, q, n,
+            step)
+    if split4:
+        args += (_build.check_passes(passes, name),)
+    err = getattr(_build.library(), entry)(*args, _build.stream_of(h))
     _build.check(err, f"{entry} ({name})")
     return out
 
@@ -281,15 +293,16 @@ def imdct_ola_plain(coeffs: torch.Tensor, f: int, window_bytes: bytes,
 
 
 def imdct_ola_split4_plain(coeffs: torch.Tensor, f: int, window_bytes: bytes,
-                           ops: torch.Tensor | None = None) -> torch.Tensor:
+                           ops: torch.Tensor | None = None,
+                           passes: int = 4) -> torch.Tensor:
     """The split4 IMDCT synthesis in plain PyTorch: the coefficients times
-    the presplit operator by the 4-pass scheme, then the plain
+    the presplit operator by the bf16 scheme at ``passes``, then the plain
     overlap-add. ``ops`` as for :func:`imdct_ola_split4`."""
     imdct_ola_split4_plain.calls += 1
     ops = _presplit_ops(ops, _imdct_ops, (f, window_bytes, "float32"),
                         coeffs.device)
     return _frame.overlap_add(
-        split4_matmul_presplit(coeffs, ops[0, :f], ops[1, :f]), f)
+        split_matmul_presplit(coeffs, ops[0, :f], ops[1, :f], passes), f)
 
 
 imdct_ola_plain.calls = 0
@@ -305,37 +318,41 @@ def imdct_ola(coeffs: torch.Tensor, f: int, window_bytes: bytes,
     ``ops`` overrides it.
 
     The MDCT's shape rule (:func:`zaftpu_torch.kernels.mdct.applies`)
-    takes :func:`zaftpu_torch.kernels.mdct.imdct_ola_fft` on either dial;
-    elsewhere split4 (float32) takes :func:`imdct_ola_split4`. A CPU tensor
-    takes the plain version; a CUDA tensor launches the kernel (leading
-    axes flattened into its batch) or raises.
+    takes :func:`zaftpu_torch.kernels.mdct.imdct_ola_fft` on every dial;
+    elsewhere a lowered dial (float32, ``policy.gemm_passes``) takes
+    :func:`imdct_ola_split4` at its pass count. A CPU tensor takes the
+    plain version; a CUDA tensor launches the kernel (leading axes
+    flattened into its batch) or raises.
     """
     if _mdct.applies(2 * f, ops):
         return _mdct.imdct_ola_fft(coeffs, f, window_bytes)
-    if split4_applies(coeffs.dtype):
-        return imdct_ola_split4(coeffs, f, window_bytes, ops)
+    p = gemm_passes(coeffs.dtype, coeffs.device)
+    if p is not None:
+        return imdct_ola_split4(coeffs, f, window_bytes, ops, passes=p)
     if not coeffs.is_cuda:
         return imdct_ola_plain(coeffs, f, window_bytes, ops)
     return _imdct_ola_cuda(coeffs, f, window_bytes, ops)
 
 
 def imdct_ola_split4(coeffs: torch.Tensor, f: int, window_bytes: bytes,
-                     ops: torch.Tensor | None = None) -> torch.Tensor:
-    """The split4 twin of :func:`imdct_ola` (B7's ``_kernel_split4``).
-    ``ops`` is the presplit ``(2, Q, 2F)`` bf16 stack
-    (:func:`imdct_ops_split4`), or a float32 ``(Q, 2F)`` operator that is
-    split on the host. A CPU tensor takes the plain version; a CUDA tensor
-    launches the tensor-core kernel or raises."""
+                     ops: torch.Tensor | None = None,
+                     passes: int = 4) -> torch.Tensor:
+    """The split4 twin of :func:`imdct_ola` (B7's ``_kernel_split4``) at
+    ``passes`` (4, 3 or 1). ``ops`` is the presplit ``(2, Q, 2F)`` bf16
+    stack (:func:`imdct_ops_split4`), or a float32 ``(Q, 2F)`` operator
+    that is split on the host. A CPU tensor takes the plain version; a CUDA
+    tensor launches the tensor-core kernel or raises."""
     if not coeffs.is_cuda:
-        return imdct_ola_split4_plain(coeffs, f, window_bytes, ops)
-    return _imdct_ola_cuda(coeffs, f, window_bytes, ops, split4=True)
+        return imdct_ola_split4_plain(coeffs, f, window_bytes, ops, passes)
+    return _imdct_ola_cuda(coeffs, f, window_bytes, ops, split4=True,
+                           passes=passes)
 
 
 def _imdct_ola_cuda(coeffs: torch.Tensor, f: int, window_bytes: bytes,
                     ops: torch.Tensor | None = None,
-                    split4: bool = False) -> torch.Tensor:
-    """Check the CUDA input, launch the kernel or (``split4``) its twin,
-    count the launch."""
+                    split4: bool = False, passes: int = 4) -> torch.Tensor:
+    """Check the CUDA input, launch the kernel or (``split4``) its twin at
+    ``passes``, count the launch."""
     name = "imdct_ola_split4" if split4 else "imdct_ola"
     _build.require_f32(coeffs, name)
     *lead, t, width = coeffs.shape
@@ -354,7 +371,7 @@ def _imdct_ola_cuda(coeffs: torch.Tensor, f: int, window_bytes: bytes,
         h = torch.nn.functional.pad(h, (0, q - f))
     elif not h.is_contiguous() or h.data_ptr() % 16:
         h = h.clone(memory_format=torch.contiguous_format)
-    out = _gemm_ola(h, ops, 2 * f, f, name, split4)
+    out = _gemm_ola(h, ops, 2 * f, f, name, split4, passes)
     (imdct_ola_split4 if split4 else imdct_ola).launches += 1
     return out.reshape(*lead, out.shape[-1])
 

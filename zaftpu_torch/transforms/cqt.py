@@ -54,7 +54,8 @@ import torch
 
 from zaftpu_torch.core import validate as _validate
 from zaftpu_torch.core import windows as _windows
-from zaftpu_torch.core.policy import check_cuda_dial, split4_enabled
+from zaftpu_torch.core import policy as _policy
+from zaftpu_torch.core.policy import split4_enabled
 from zaftpu_torch.kernels import cqtfft as _cqtfft
 from zaftpu_torch.kernels import cqtslab as _cqtslab
 from zaftpu_torch.transforms.stft import _as_input
@@ -354,7 +355,6 @@ def _cqt_inputs(audio_signal, sampling_frequency, time_resolution):
     x = _validate.check_signal(_as_input(audio_signal))
     x = x.to(torch.promote_types(x.dtype, torch.float32))
     if x.is_cuda:
-        check_cuda_dial()
         if x.dtype != torch.float32:
             raise NotImplementedError(
                 f"the CUDA CQT takes float32 signals, got {x.dtype}")
@@ -385,42 +385,71 @@ def _slab_scheme_split4() -> bool:
     return explicit is None or explicit.lower() == "split4"
 
 
+def _slab_passes(x: torch.Tensor) -> int | None:
+    """The bf16 passes of the time-domain route for a float32 signal ``x``,
+    or None for the exact slab loop / B10. Under ``compute_dtype
+    ("bfloat16")`` (``zaftpu``'s bf16 operator, cqt.py:568-570) one pass of
+    the signal rounded to bf16 against the operator's hi half, on every
+    device (``policy.mxu_matmul``'s arithmetic). Otherwise on CUDA the
+    scheme's split4 (4 passes), else the dial's (``policy.gemm_passes``: 3
+    under high, 1 under default, exact at highest); on the CPU exact, as
+    ``zaftpu``'s CPU backend runs every scheme and dial."""
+    if _policy.operator_dtype(x.dtype, "cqtspectrogram") == torch.bfloat16:
+        return 1
+    if not x.is_cuda:
+        return None
+    if _slab_scheme_split4():
+        return 4
+    return _policy.gemm_passes(x.dtype, x.device)
+
+
 def _cqt_dispatch(x: torch.Tensor, kern: CqtKernel, step: int,
                   number_times: int, octave_resolution: int):
-    """The asymmetric centring pad (zaf.py:613-620) plus the slab loop's
-    tail (``zaftpu``'s ``_blocked_needed``), then the float32 or float64
-    core; ``(..., F, T)`` as a transposed view, octave-folded when
-    ``octave_resolution`` is set. A float32 signal takes the spectral
-    kernel wherever its rule applies, on every scheme; elsewhere a CUDA one
-    takes the split4 twin when the scheme selects it (``zaftpu``'s
-    ``_use_slab_kernel`` on its accelerator), and a CPU one the exact slab
-    loop, as ``zaftpu``'s CPU backend does."""
+    """The asymmetric centring pad (zaf.py:613-620), then :func:`cqt_rows`;
+    ``(..., F, T)`` as a transposed view, octave-folded when
+    ``octave_resolution`` is set."""
     length = kern.fft_length
     pad_front = int(np.ceil((length - step) / 2))
     pad_back = int(np.floor((length - step) / 2))
-    needed = _cqtslab.slab_needed(number_times, step, length)
-    have = x.shape[-1] + pad_front + pad_back
-    padded = torch.nn.functional.pad(
-        x, (pad_front, pad_back + max(0, needed - have)))
-    if x.dtype == torch.float32 and _cqtfft.applies(length):
-        mags = _cqtfft.cqt_magnitudes_fft(
-            padded, _device_fft_table(kern, x.device), step, length,
-            number_times)
-    elif x.dtype == torch.float32:
-        split4 = x.is_cuda and _slab_scheme_split4()
-        core = (_cqtslab.cqt_magnitudes_split4 if split4
-                else _cqtslab.cqt_magnitudes)
-        mags = core(padded, _device_time_kernel(kern, x.device, split4),
-                    step, length, number_times, kern.number_frequencies)
-    else:
-        k_reduced, gather_cols, conj_mask = _device_oracle_kernel(kern,
-                                                                  x.device)
-        mags = _cqt_apply(padded, k_reduced, gather_cols, conj_mask, step,
-                          length, number_times, _block_frames())
-    spec = mags.transpose(-1, -2)
+    padded = torch.nn.functional.pad(x, (pad_front, pad_back))
+    spec = cqt_rows(padded, kern, step, number_times).transpose(-1, -2)
     if octave_resolution:
         return _octave_fold(spec, octave_resolution)
     return spec
+
+
+def cqt_rows(padded: torch.Tensor, kern: CqtKernel, step: int,
+             number_times: int) -> torch.Tensor:
+    """CQT magnitudes ``(..., T, F)`` of the first ``number_times`` frames
+    of an already padded signal (frame t: samples ``[t*step, t*step + L)``),
+    zero-extended to the slab loop's reach (``zaftpu``'s
+    ``_blocked_needed``); the streaming pipeline's block body too. A
+    float32 signal takes the spectral kernel wherever its rule applies, on
+    every scheme, dial and dtype; elsewhere the split4 twin at
+    :func:`_slab_passes` (a CUDA signal when the scheme selects split4,
+    ``zaftpu``'s ``_use_slab_kernel`` on its accelerator, or a lowered
+    dial; the bf16 compute dtype on every device), else the exact B10 or
+    slab loop. A float64 signal takes the oracle's spectral product."""
+    length, f = kern.fft_length, kern.number_frequencies
+    needed = _cqtslab.slab_needed(number_times, step, length)
+    if padded.shape[-1] < needed:
+        padded = torch.nn.functional.pad(padded,
+                                         (0, needed - padded.shape[-1]))
+    dev = padded.device
+    if padded.dtype == torch.float32 and _cqtfft.applies(length):
+        return _cqtfft.cqt_magnitudes_fft(
+            padded, _device_fft_table(kern, dev), step, length, number_times)
+    if padded.dtype == torch.float32:
+        passes = _slab_passes(padded)
+        ops = _device_time_kernel(kern, dev, passes is not None)
+        if passes is None:
+            return _cqtslab.cqt_magnitudes(padded, ops, step, length,
+                                           number_times, f)
+        return _cqtslab.cqt_magnitudes_split4(padded, ops, step, length,
+                                              number_times, f, passes=passes)
+    k_reduced, gather_cols, conj_mask = _device_oracle_kernel(kern, dev)
+    return _cqt_apply(padded, k_reduced, gather_cols, conj_mask, step,
+                      length, number_times, _block_frames())
 
 
 def cqtspectrogram(audio_signal, sampling_frequency=None,
@@ -432,8 +461,9 @@ def cqtspectrogram(audio_signal, sampling_frequency=None,
     ``|K . fft(frame)|``. ``config=CqtConfig(...)`` may stand in for the
     three positional parameters. The output is a transposed view of a
     frames-major tensor. A CUDA float32 signal runs the spectral CQT
-    kernel at an FFT length up to 32,768, else the time-domain kernel of
-    ``ZAFTPU_CQT_SCHEME``: the split4 twin by default.
+    kernel at a power-of-two FFT length up to 32,768, else the time-domain
+    kernel of ``ZAFTPU_CQT_SCHEME`` and the dial: the split4 twin by
+    default; under ``compute_dtype("bfloat16")`` the twin at one pass.
     """
     sampling_frequency, time_resolution, cqt_kernel = _resolve_cqt_args(
         sampling_frequency, time_resolution, cqt_kernel, config)

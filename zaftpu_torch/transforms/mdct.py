@@ -191,23 +191,47 @@ def mdct(audio_signal, window_function=None, *, config=None) -> torch.Tensor:
     t = int(np.ceil(n / step)) + 1
     # Pad `step` in front and to (T+1)*step in all (zaf.py:1036-1041).
     padded = torch.nn.functional.pad(x, (step, (t + 1) * step - n))
-    args = (wl, _fft._real_name(x.dtype))
-    if wl > _kernels.MAX_WINDOW:
-        coeffs = _mdct_core(padded, win, t)
-    elif _kernels.fused_enabled() and _mdct.applies(wl):
-        coeffs = _mdct.mdct_fft(padded, win, wl, t)
-    elif _kernels.fused_enabled():
-        ops = _fused.dispatch_ops(_direct_forward_ops_padded, args, x.device,
-                                  x.dtype)
-        coeffs = _fused.frames_op(padded, win, ops, step, wl, step, t)
-    else:
-        frames = _kernels.windowed_frames(padded, win, wl, step, t)
-        ops = _fft.device_operator(_direct_forward_ops_padded, args,
-                                   x.device, x.dtype)
-        coeffs = real_matmul(frames, ops[0, :, :step])
+    coeffs = mdct_rows(padded, win, t)
     if in_dtype == torch.bfloat16:
         coeffs = coeffs.to(in_dtype)
     return coeffs.transpose(-1, -2)
+
+
+def mdct_rows(padded: torch.Tensor, window: torch.Tensor,
+              number_times: int) -> torch.Tensor:
+    """MDCT coefficients ``(..., T, WL/2)`` of the first ``number_times``
+    frames (hop WL/2) of an already padded signal, by the route
+    :func:`mdct` takes (the streaming pipeline's block body): the FFT
+    cores above 4096, the fast MDCT kernel where its rule holds, else the
+    GEMM ``frames_op`` (its twin on a lowered dial), or under
+    ``ZAFTPU_FUSED=0`` the framing kernel and ``real_matmul``."""
+    wl, t = window.shape[0], number_times
+    step = wl // 2
+    args = (wl, _fft._real_name(padded.dtype))
+    if wl > _kernels.MAX_WINDOW:
+        return _mdct_core(padded, window, t)
+    if _kernels.fused_enabled() and _mdct.applies(wl):
+        return _mdct.mdct_fft(padded, window, wl, t)
+    if _kernels.fused_enabled():
+        ops = _fused.dispatch_ops(_direct_forward_ops_padded, args,
+                                  padded.device, padded.dtype)
+        return _fused.frames_op(padded, window, ops, step, wl, step, t)
+    frames = _kernels.windowed_frames(padded, window, wl, step, t)
+    ops = _fft.device_operator(_direct_forward_ops_padded, args,
+                               padded.device, padded.dtype)
+    return real_matmul(frames, ops[0, :, :step])
+
+
+def imdct_signal(coeffs: torch.Tensor, host_window: np.ndarray
+                 ) -> torch.Tensor:
+    """The untrimmed ``(..., (T+1)*F)`` TDAC overlap-add of frames-major
+    coefficients ``(..., T, F)``, by the route :func:`imdct` takes (the
+    streaming pipeline's block body); ``host_window`` is the float64
+    window."""
+    f = coeffs.shape[-1]
+    if 2 * f > _kernels.MAX_WINDOW:
+        return _imdct_core(coeffs, f, host_window)
+    return _kernels.imdct_synthesis(coeffs, f, host_window.tobytes())
 
 
 def imdct(audio_mdct, window_function=None, *, config=None) -> torch.Tensor:
@@ -241,10 +265,7 @@ def imdct(audio_mdct, window_function=None, *, config=None) -> torch.Tensor:
     coeffs = c.transpose(-1, -2)  # (..., T, F) frames-major
     coeffs = coeffs.to(torch.promote_types(coeffs.dtype, torch.float32))
     _kernels.check_device_input(coeffs)
-    if 2 * f > _kernels.MAX_WINDOW:
-        signal = _imdct_core(coeffs, f, host_window)
-    else:
-        signal = _kernels.imdct_synthesis(coeffs, f, host_window.tobytes())
+    signal = imdct_signal(coeffs, host_window)
     if c.dtype == torch.bfloat16:
         signal = signal.to(c.dtype)
     # Reference trim [F : -F-1], one sample short on the right (zaf.py:1182).

@@ -129,16 +129,6 @@ def centre_padded(x: torch.Tensor, window_length: int, step: int):
     return torch.nn.functional.pad(x, (pad_front, pad_back)), t
 
 
-def _stft_frames_half(x: torch.Tensor, window: torch.Tensor,
-                      step: int) -> torch.Tensor:
-    """Windowed frames -> rDFT, frames-major ``(..., T, WL/2+1)``, for the
-    split magnitude and mel paths, which use only the non-mirrored bins.
-    ``x`` and ``window`` as :func:`_analysis_inputs` gives them."""
-    wl = window.shape[0]
-    padded, t = centre_padded(x, wl, step)
-    return _kernels.windowed_frames_rfft(padded, window, wl, step, t)
-
-
 def stft(audio_signal, window_function=None, step_length: int | None = None,
          *, config=None) -> torch.Tensor:
     """Short-time Fourier transform.
@@ -220,12 +210,19 @@ def spectrogram(audio_signal, window_function=None,
     """
     x, win, step = _analysis_inputs(audio_signal, window_function,
                                     step_length, config)
-    wl = win.shape[0]
-    route = _melfused.route(x.dtype, wl)
+    padded, t = centre_padded(x, win.shape[0], step)
+    return spectrogram_rows(padded, win, step, t).transpose(-1, -2)
+
+
+def spectrogram_rows(padded: torch.Tensor, window: torch.Tensor, step: int,
+                     number_times: int) -> torch.Tensor:
+    """Magnitude rows ``(..., T, WL/2)`` over bins ``1..WL/2`` of the first
+    ``number_times`` frames of an already padded signal, by the route
+    :func:`spectrogram` takes (the streaming pipeline's block body)."""
+    wl = window.shape[0]
+    route = _melfused.route(padded.dtype, wl)
     if route == "split":
-        spec = _stft_frames_half(x, win, step)[..., 1:].abs()
-    else:
-        padded, t = centre_padded(x, wl, step)
-        rows = _melfft.spec_rows_fft if route == "fft" else _melfused.spec_rows
-        spec = rows(padded, win, wl, step, t)
-    return spec.transpose(-1, -2)
+        return _kernels.windowed_frames_rfft(padded, window, wl, step,
+                                             number_times)[..., 1:].abs()
+    rows = _melfft.spec_rows_fft if route == "fft" else _melfused.spec_rows
+    return rows(padded, window, wl, step, number_times)
