@@ -224,9 +224,9 @@ oracle, and melspectrogram and mfcc (exempt) bit-equal to float32.
 The stream phase, last: one hour (the six 600-s segments) written as a
 44.1 kHz mono 16-bit WAV to a temporary directory (removed after); the
 native WAV codec built from zaftpu_torch/io/native/wavio.cpp and every
-block reader on it; streaming_spectrogram and streaming_melspectrogram at
-MelConfig() (4,096 frames a block: 38 blocks) through the magnitude and mel
-stores, each within 1e-6 * max of the whole-signal transform of the same
+block reader on it (StreamStats.decoder "native"); streaming_spectrogram
+and streaming_melspectrogram at MelConfig() (4,096 frames a block: 38
+blocks) through the magnitude and mel stores, each within 1e-6 * max of the whole-signal transform of the same
 decoded hour on the card, with its frames/s, host read, upload, compute
 and fetch seconds and the device's busy share (CUDA events), beside the
 whole transform's frames/s from resident data; a mel run interrupted after
@@ -2287,7 +2287,8 @@ def _stream_line(what: str, stats, frames: int) -> str:
             f"frames/s disk -> device -> features; read {stats.read_s!r} s "
             f"(host), upload {stats.upload_s!r} s, compute "
             f"{stats.compute_s!r} s, fetch {stats.fetch_s!r} s (device, CUDA "
-            f"events); device busy share {stats.busy_share!r}")
+            f"events); device busy share {stats.busy_share!r}; decoder "
+            f"{stats.decoder}")
 
 
 def phase_stream(dev) -> dict:
@@ -2356,6 +2357,8 @@ def phase_stream(dev) -> dict:
             require(stats.blocks == blocks and stats.frames == frames,
                     f"stream [{name}]: {stats.blocks} blocks, "
                     f"{stats.frames} frames")
+            require(stats.decoder == "native",
+                    f"stream [{name}]: decoded with {stats.decoder}")
             ref = whole()
             err = _max_abs(torch.from_numpy(out[name]).to(dev) - ref)
             scale = _max_abs(ref)

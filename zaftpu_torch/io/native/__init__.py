@@ -6,7 +6,9 @@ At first use ``g++`` builds the codec into the port's build directory
 named by a hash of the source, so a source edit rebuilds and an unchanged
 tree reuses the library. It is a host library: it decodes into any float32
 buffer, pinned host memory included. Without a compiler :func:`load`
-returns None and the callers take ``zaftpu``'s SciPy path.
+returns None and the callers take ``zaftpu``'s SciPy path; without the
+source (an install that did not ship it) it raises
+:class:`FileNotFoundError`.
 """
 
 from __future__ import annotations
@@ -28,8 +30,17 @@ _lock = threading.Lock()
 _state: dict = {"lib": None, "tried": False}
 
 
+def _check_source() -> None:
+    if not SOURCE.is_file():
+        raise FileNotFoundError(
+            f"{SOURCE}: the native WAV codec's source is missing, so this "
+            "zaftpu_torch install is incomplete (its package data must ship "
+            "zaftpu_torch/io/native/wavio.cpp)")
+
+
 def lib_path() -> Path:
     """The library's path, keyed on the content of ``wavio.cpp``."""
+    _check_source()
     digest = hashlib.sha256(SOURCE.read_bytes()).hexdigest()[:12]
     return BUILD_DIR / f"libwavio-{digest}.so"
 
@@ -53,7 +64,9 @@ def _build(path: Path) -> bool:
 
 
 def load():
-    """The loaded native library, or None when it cannot be built."""
+    """The loaded native library, or None when it cannot be built; raises
+    :class:`FileNotFoundError` when ``wavio.cpp`` is missing."""
+    _check_source()
     with _lock:
         if _state["lib"] is not None or _state["tried"]:
             return _state["lib"]

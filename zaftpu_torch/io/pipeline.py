@@ -58,7 +58,9 @@ class StreamStats:
     buffers (``read_s``), device seconds of the uploads (``upload_s``, on
     the copy stream), of the blocks' kernels (``compute_s``) and of the
     fetches (``fetch_s``), all from CUDA events on the card, and the run's
-    wall seconds."""
+    wall seconds. ``decoder`` is the WAV decoder an analysis read with
+    (``"native"`` or ``"scipy"``; None for a synthesis, which decodes
+    none)."""
 
     blocks: int = 0
     frames: int = 0
@@ -67,6 +69,7 @@ class StreamStats:
     compute_s: float = 0.0
     fetch_s: float = 0.0
     wall_s: float = 0.0
+    decoder: str | None = None
 
     @property
     def busy_share(self) -> float:
@@ -266,6 +269,7 @@ class StreamingTransform:
         :attr:`stats` (and ``stats``, if given) holds the run's time
         split."""
         stage = _Stage(self.device, prefetch, stats)
+        stage.stats.decoder = self.reader.decoder
         inflight: collections.deque = collections.deque()
         result = None
 

@@ -8,8 +8,9 @@ CQT results concatenate to the whole-signal result; :meth:`read_span`
 reads any span of the padded stream, zero outside the file, into a buffer
 the caller gives (pinned host memory for the pipeline's uploads). Decoding
 runs on the native C++ codec (:mod:`zaftpu_torch.io.native`) when it
-builds, seeking by frame without a whole-file load, else on SciPy's
-``mmap`` reader.
+builds, seeking by frame without a whole-file load, else (no compiler, or
+a file the codec cannot parse) on SciPy's ``mmap`` reader. A missing codec
+source is an incomplete install and raises.
 """
 
 from __future__ import annotations
@@ -40,8 +41,9 @@ class BlockReader:
         mono: average the channels (the reference examples' convention).
 
     Yields ``(start_sample, block)`` with ``block.shape == (block_samples +
-    overlap,)``. ``native`` says which decoder it took; the class counts
-    the readers opened on each (``opened``).
+    overlap,)``. ``native`` and ``decoder`` say which decoder it took; the
+    class counts the readers opened on each (``opened``). Raises
+    :class:`FileNotFoundError` when the codec's source is missing.
     """
 
     opened = {"native": 0, "scipy": 0}
@@ -54,14 +56,16 @@ class BlockReader:
         self.mono = mono
         self._native = None
         self._mmap = None
-        try:
-            from zaftpu_torch.io.native import WavFile
+        from zaftpu_torch.io import native
 
-            self._native = WavFile(path)
+        try:
+            # RuntimeError: no library (no compiler); ValueError: a header
+            # the codec cannot parse. A missing source raises through.
+            self._native = native.WavFile(path)
             self.sample_rate = self._native.sample_rate
             self.channels = self._native.channels
             self.frames = self._native.frames
-        except Exception:
+        except (RuntimeError, ValueError):
             import scipy.io.wavfile
 
             sr, data = scipy.io.wavfile.read(path, mmap=True)
@@ -69,11 +73,16 @@ class BlockReader:
             self._mmap = data
             self.channels = 1 if data.ndim == 1 else data.shape[1]
             self.frames = data.shape[0]
-        BlockReader.opened["native" if self.native else "scipy"] += 1
+        BlockReader.opened[self.decoder] += 1
 
     @property
     def native(self) -> bool:
         return self._native is not None
+
+    @property
+    def decoder(self) -> str:
+        """``"native"`` or ``"scipy"``."""
+        return "native" if self.native else "scipy"
 
     @property
     def num_blocks(self) -> int:

@@ -45,14 +45,15 @@ def wavwrite(audio_signal, sampling_frequency, audio_file):
 
 def wavread_f32(audio_file):
     """Float32 read through the native codec (seeks, no whole-file float64
-    conversion), SciPy when the codec is unavailable; the normalisation of
-    :func:`wavread`. Returns ``(signal (N, channels) float32,
-    sampling_frequency)``."""
-    try:
-        from zaftpu_torch.io.native import WavFile
+    conversion), SciPy when the codec is unavailable or cannot parse the
+    file; the normalisation of :func:`wavread`. Returns ``(signal (N,
+    channels) float32, sampling_frequency)``; raises
+    :class:`FileNotFoundError` when the codec's source is missing."""
+    from zaftpu_torch.io import native
 
-        handle = WavFile(audio_file)
+    try:
+        handle = native.WavFile(audio_file)
         return handle.read(), handle.sample_rate
-    except Exception:
+    except (RuntimeError, ValueError):
         signal, sr = wavread(audio_file)
         return np.asarray(signal, dtype=np.float32), sr
