@@ -1,8 +1,9 @@
 """Drive the zaftpu_torch STFT -> ISTFT, MDCT -> IMDCT, spectrogram / mel /
 MFCC and CQT paths once on an NVIDIA GPU, under the exact dial, under
 ZAFTPU_PRECISION=split4, high and default and the bf16 compute dtype, the
-CQT under both of its schemes, and the streaming pipeline over an hour read
-from disk.
+CQT under both of its schemes, the streaming pipeline over an hour read
+from disk, asnumpy and the display helpers, the 13 examples and the bench
+suite.
 
     python3 chip_smoke.py
 
@@ -221,19 +222,30 @@ this call; then under compute_dtype("bfloat16") the CQT at CQT_WIDE
 (L 65,536) through B10-s4 at one pass, >= 45 dB against the float64
 oracle, and melspectrogram and mfcc (exempt) bit-equal to float32.
 
-The stream phase, last: one hour (the six 600-s segments) written as a
-44.1 kHz mono 16-bit WAV to a temporary directory (removed after); the
-native WAV codec built from zaftpu_torch/io/native/wavio.cpp and every
-block reader on it (StreamStats.decoder "native"); streaming_spectrogram
-and streaming_melspectrogram at MelConfig() (4,096 frames a block: 38
-blocks) through the magnitude and mel stores, each within 1e-6 * max of the whole-signal transform of the same
-decoded hour on the card, with its frames/s, host read, upload, compute
-and fetch seconds and the device's busy share (CUDA events), beside the
-whole transform's frames/s from resident data; a mel run interrupted after
-block 3 and resumed from its checkpoints (only the 34 other blocks
-computed, bit-equal); streaming_istft and streaming_imdct of 600 s from an
-np.memmap (the 2048 x 25,841 complex64 spectrum, the 1024 x 25,841 MDCT)
-into float32 WAVs, within 1e-6 of istft / imdct and >= 120 dB.
+The stream phase: one hour (the six 600-s segments) written as a 44.1 kHz
+mono 16-bit WAV to a temporary directory (removed after); the native WAV
+codec built from zaftpu_torch/io/native/wavio.cpp and every block reader
+on it (StreamStats.decoder "native"); streaming_spectrogram and
+streaming_melspectrogram at MelConfig() (4,096 frames a block: 38 blocks)
+through the magnitude and mel stores, each within 1e-6 * max of the
+whole-signal transform of the same decoded hour on the card, with its
+frames/s, host read, upload, compute and fetch seconds and the device's
+busy share (CUDA events), beside the whole transform's frames/s from
+resident data; a mel run interrupted after block 3 and resumed from its
+checkpoints (only the 34 other blocks computed, bit-equal);
+streaming_istft and streaming_imdct of 600 s from an np.memmap (the 2048 x
+25,841 complex64 spectrum, the 1024 x 25,841 MDCT) into float32 WAVs,
+within 1e-6 of istft / imdct and >= 120 dB.
+
+Then the rest of the surface, the examples and the bench suite:
+phase_surface (asnumpy of CUDA complex64, float32, float64 and bfloat16
+tensors; amplitude_to_db and, when matplotlib imports, the six display
+helpers on CUDA tensors, each as on their CPU copies), phase_examples (the
+13 examples of examples/examples_torch.py on the card, drawn when
+matplotlib imports, each within its stated tolerance of the same example
+on the CPU in float64) and phase_bench (zaftpu_torch.bench.harness's suite
+over one hour, 3 round-robin reps, every row printed); each checks which
+kernels launched, and their launches count in the kernels line.
 
 The CQT kernel is built on the host without the disk cache
 (ZAFTPU_CACHE=0), so the run writes nothing outside the checkout.
@@ -2456,6 +2468,233 @@ def phase_stream(dev) -> dict:
     return launches
 
 
+def _have_matplotlib() -> bool:
+    """Whether matplotlib imports here (the display helpers need it; the
+    arrays do not)."""
+    try:
+        import matplotlib
+    except ImportError:
+        return False
+    matplotlib.use("Agg")
+    return True
+
+
+def _drawn(helper, *args) -> dict:
+    """Ticks, labels, axis titles and drawn data of one display helper
+    call under Agg."""
+    import matplotlib.pyplot as plt
+
+    plt.figure()
+    helper(*args)
+    ax = plt.gca()
+    out = {"xticks": ax.get_xticks().tolist(),
+           "yticks": ax.get_yticks().tolist(),
+           "xlabels": [t.get_text() for t in ax.get_xticklabels()],
+           "ylabels": [t.get_text() for t in ax.get_yticklabels()],
+           "axes": (ax.get_xlabel(), ax.get_ylabel()),
+           "data": [np.asarray(im.get_array()) for im in ax.get_images()]
+           + [np.asarray(line.get_ydata()) for line in ax.get_lines()]}
+    plt.close("all")
+    return out
+
+
+def phase_surface(dev) -> dict:
+    """asnumpy of CUDA complex64, float32, float64 and bfloat16 tensors:
+    the dtype kept (bfloat16 as float32), the values those of
+    ``.cpu().numpy()``; amplitude_to_db of a CUDA tensor equal to that of
+    its CPU copy; and, when matplotlib imports, each of the six display
+    helpers on CUDA tensors (10 s of the signal, its spectrum, mel, MFCC,
+    CQT and chroma) under Agg with the ticks, labels, axis titles and drawn
+    data of the same call on their CPU copies. Returns the launch
+    counts."""
+    rng = np.random.default_rng(SEED)
+    for dtype, want in ((torch.complex64, np.complex64),
+                        (torch.float32, np.float32),
+                        (torch.float64, np.float64),
+                        (torch.bfloat16, np.float32)):
+        host = rng.standard_normal((64, 33)) + (
+            1j * rng.standard_normal((64, 33)) if dtype.is_complex else 0)
+        x = torch.from_numpy(host).to(dtype).to(dev)
+        got = zaftpu_torch.asnumpy(x)
+        ref = (x.float() if dtype == torch.bfloat16 else x).cpu().numpy()
+        require(got.dtype == want and np.array_equal(got, ref),
+                f"surface: asnumpy of {dtype} gave {got.dtype}")
+    print("surface: asnumpy of CUDA complex64, float32, float64 and "
+          "bfloat16 tensors: complex64, float32, float64, float32, the "
+          "values of .cpu().numpy()")
+    reset_counters()
+    x = torch.from_numpy(segment(0)[:10 * SR]).to(dev)
+    spec = zaftpu_torch.stft(x, hamming(WL), STEP)[1:WL // 2 + 1].abs()
+    mel = zaftpu_torch.melspectrogram(x, config=MelConfig())
+    mfcc = zaftpu_torch.mfcc(x, config=MelConfig())
+    cqt = zaftpu_torch.cqtspectrogram(x, config=CqtConfig())
+    chroma = zaftpu_torch.cqtchromagram(x, config=CqtConfig())
+    torch.cuda.synchronize()
+    launches = check_counters("surface", ("frames_rfft_full_fft",
+                                          "mel_rows_fft", "cqt_fft"))
+    from zaftpu_torch.viz.display import amplitude_to_db
+
+    require(np.array_equal(amplitude_to_db(spec),
+                           amplitude_to_db(spec.cpu())),
+            "surface: amplitude_to_db of a CUDA tensor differs")
+    if not _have_matplotlib():
+        print("surface: matplotlib does not import here: the display "
+              "helpers were not drawn")
+        return launches
+    n = x.shape[-1]
+    for name, arr, args in (
+            ("sigplot", x, (SR, 1)), ("specshow", spec, (n, SR, 1, 1000)),
+            ("melspecshow", mel, (n, SR, WL, 1)),
+            ("mfccshow", mfcc, (n, SR, 1)),
+            ("cqtspecshow", cqt, (25, 24, 55.0, 1)),
+            ("cqtchromshow", chroma, (25, 1))):
+        helper = getattr(zaftpu_torch, name)
+        card, host = _drawn(helper, arr, *args), _drawn(helper, arr.cpu(),
+                                                         *args)
+        same = all(card[k] == host[k] for k in
+                   ("xticks", "yticks", "xlabels", "ylabels", "axes"))
+        same = same and len(card["data"]) == len(host["data"]) >= 1 and all(
+            np.array_equal(a, b) for a, b in zip(card["data"],
+                                                 host["data"]))
+        print(f"surface [{name}]: {tuple(arr.shape)} CUDA tensor, "
+              f"{len(card['xticks'])} x ticks, {len(card['yticks'])} y "
+              f"ticks, same as its CPU copy: {same}")
+        require(same, f"surface [{name}]: the CUDA tensor drew otherwise")
+    return launches
+
+
+# The examples on the card (float32) against the same examples on the CPU
+# (float64, the example's own float32 for Griffin-Lim) in this run: shapes
+# and finite fractions exact; min, max, mean and rms each within
+# EXAMPLE_TOL times the larger of the CPU value and its array's largest
+# magnitude (a mean near zero is held to its array's scale), EXAMPLE_GL_TOL
+# for Griffin-Lim's 50 chaotic iterations (tests/test_examples.py:56). An
+# error array (a transform's difference from SciPy's or from its input) is
+# float32 rounding on the card and float64 rounding on the CPU: its largest
+# magnitude is held to EXAMPLE_RESIDUAL instead (the signals are of unit
+# scale).
+EXAMPLE_TOL = 1e-4
+EXAMPLE_GL_TOL = 5e-2
+EXAMPLE_RESIDUAL = 1e-4
+# The kernels the 13 examples launch on the card: the full store (stft),
+# the inverse FFT (istft), the mel store (melspectrogram, mfcc), the
+# spectral CQT, B2 (the MDCT at kbd(512)'s 510 samples: F 255, odd), the
+# fast MDCT and IMDCT (vorbis 2048), and Griffin-Lim's half store, windowed
+# store and envelope OLA; the DCT / DST of 1,024 points run the operator.
+EXAMPLE_KERNELS = ("frames_rfft_full_fft", "synth_fft", "mel_rows_fft",
+                   "cqt_fft", "frames_op", "mdct_fft", "imdct_ola_fft",
+                   "fused_fft", "synth_fft_window", "ola")
+
+
+def _is_residual(name: str) -> bool:
+    return name == "diff" or name.endswith(("_diff", "_recon_err"))
+
+
+def _fingerprint_gap(example: str, card: dict, host: dict) -> float:
+    """The largest deviation of ``card`` from ``host`` as a share of its
+    tolerance (at most 1 passes); shapes and finite fractions must be
+    equal."""
+    require(sorted(card) == sorted(host),
+            f"examples [{example}]: arrays {sorted(card)} {sorted(host)}")
+    tol = EXAMPLE_GL_TOL if example == "example_griffinlim" else EXAMPLE_TOL
+    worst = 0.0
+    for name, h in host.items():
+        c = card[name]
+        require(c["shape"] == h["shape"]
+                and c["finite_frac"] == h["finite_frac"],
+                f"examples [{example}/{name}]: {c['shape']} "
+                f"{c['finite_frac']} against {h['shape']} "
+                f"{h['finite_frac']}")
+        if _is_residual(name):
+            worst = max(worst, max(abs(c["min"]), abs(c["max"]))
+                        / EXAMPLE_RESIDUAL)
+            continue
+        scale = max(abs(h["min"]), abs(h["max"]))
+        for field in ("min", "max", "mean", "rms"):
+            worst = max(worst, abs(c[field] - h[field])
+                        / (tol * max(abs(h[field]), scale)))
+    return worst
+
+
+def phase_examples(dev) -> dict:
+    """The 13 examples of examples/examples_torch.py on the card, drawn
+    (their PNGs written to a temporary directory, deleted after) when
+    matplotlib imports, launching EXAMPLE_KERNELS and no plain version;
+    each example's fingerprint against the same example on the CPU in
+    float64 in this run (EXAMPLE_TOL, EXAMPLE_GL_TOL, EXAMPLE_RESIDUAL).
+    Returns the launch counts."""
+    import shutil
+    import tempfile
+
+    sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(
+        __file__)), "examples"))
+    import examples_torch
+
+    draw = _have_matplotlib()
+    print(f"examples: matplotlib {'imports' if draw else 'does not import'}"
+          f" here: draw={draw}")
+    examples_torch.FIXTURE = ""  # the synthetic signal
+    tmp = tempfile.mkdtemp(prefix="zaftpu_torch_examples_")
+    try:
+        t0 = time.perf_counter()
+        reset_counters()
+        card = {fn.__name__: examples_torch.fingerprint(
+            fn(tmp, device=dev, draw=draw)) for fn in examples_torch.ALL}
+        torch.cuda.synchronize()
+        launches = check_counters("examples", EXAMPLE_KERNELS)
+        t1 = time.perf_counter()
+        pngs = sorted(f for f in os.listdir(tmp) if f.endswith(".png"))
+        require(len(pngs) == (len(examples_torch.ALL) if draw else 0),
+                f"examples: {len(pngs)} figures written")
+        host = {fn.__name__: examples_torch.fingerprint(
+            fn(tmp, device="cpu", draw=False)) for fn in examples_torch.ALL}
+        t2 = time.perf_counter()
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    for name in card:
+        gap = _fingerprint_gap(name, card[name], host[name])
+        print(f"examples [{name}]: card against CPU float64, largest "
+              f"deviation {gap!r} of its tolerance")
+        require(gap <= 1.0, f"examples [{name}]: {gap} of its tolerance")
+    print(f"examples: {len(card)} on the card in {t1 - t0:.2f} s ({len(pngs)}"
+          f" figures), on the CPU in {t2 - t1:.2f} s")
+    return launches
+
+
+BENCH_SECONDS = 3600
+BENCH_REPS = 3
+# The kernels the bench suite launches on the card: the store of each row's
+# transform (stft, istft, spectrogram, mel and MFCC, mdct, imdct, the two
+# CQT rows) and Griffin-Lim's half store, windowed store and envelope OLA;
+# the DCT / DST rows run the operator.
+BENCH_KERNELS = ("frames_rfft_full_fft", "synth_fft", "spec_rows_fft",
+                 "mel_rows_fft", "mdct_fft", "imdct_ola_fft", "cqt_fft",
+                 "fused_fft", "synth_fft_window", "ola")
+
+
+def phase_bench(dev) -> dict:
+    """zaftpu_torch.bench.harness.run_transform_suite over BENCH_SECONDS
+    (six 600-s segments) with BENCH_REPS round-robin reps on the card,
+    every row printed; BENCH_KERNELS launched and no plain version.
+    Returns the launch counts."""
+    from zaftpu_torch.bench import harness
+
+    t0 = time.perf_counter()
+    reset_counters()
+    rows = harness.run_transform_suite(seconds=BENCH_SECONDS,
+                                       reps=BENCH_REPS, device=dev)
+    torch.cuda.synchronize()
+    launches = check_counters("bench", BENCH_KERNELS)
+    for row in rows:
+        print(f"bench ({CARD[0]}): {json.dumps(row)}")
+        require(np.isfinite(row["seconds"]) and row["seconds"] > 0
+                and row["frames"] > 0, f"bench: row {row}")
+    require(len(rows) == 18, f"bench: {len(rows)} rows")
+    print(f"bench: {len(rows)} rows over {BENCH_SECONDS} s, {BENCH_REPS} "
+          f"reps, in {time.perf_counter() - t0:.2f} s")
+    return launches
+
+
 LEVERS = ("ZAFTPU_FUSED", "ZAFTPU_SYNTH", "ZAFTPU_MELFUSE", "ZAFTPU_MIRROR",
           "ZAFTPU_FULLSPEC", "ZAFTPU_FUSED2", "ZAFTPU_FFT", "ZAFTPU_PRECISION",
           "ZAFTPU_CQT_SCHEME")
@@ -2661,6 +2900,17 @@ def main() -> int:
     for name, count in _with_env(DEFAULT, phase_stream, dev).items():
         launches[name] += count
     torch.cuda.empty_cache()
+    print(f"chip_smoke: stream at {time.perf_counter() - start:.1f} s")
+    for phase, arg in ((phase_surface, dev), (phase_examples, dev)):
+        for name, count in _with_env(DEFAULT, phase, arg).items():
+            launches[name] += count
+        torch.cuda.empty_cache()
+        print(f"chip_smoke: {phase.__name__} at "
+              f"{time.perf_counter() - start:.1f} s")
+    for name, count in _with_env(DEFAULT, phase_bench, dev).items():
+        launches[name] += count
+    torch.cuda.empty_cache()
+    print(f"chip_smoke: phase_bench at {time.perf_counter() - start:.1f} s")
 
     print(f"chip_smoke: {time.perf_counter() - start:.1f} s")
     print(json.dumps({"kernels": [

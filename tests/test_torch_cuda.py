@@ -2183,3 +2183,53 @@ def test_streaming_synthesis_on_card_matches_whole(dev, tmp_path):
     rec, _ = wavread(tmp_path / "b.wav")
     assert n == whole.shape[0]
     np.testing.assert_allclose(rec, whole, atol=1e-6)
+
+
+# ---- asnumpy, timed and the bench suite on the card ------------------------
+
+@pytest.mark.parametrize("dtype", [torch.complex64, torch.float32,
+                                   torch.float64, torch.bfloat16])
+def test_asnumpy_of_cuda_tensors(dev, dtype):
+    rng = np.random.default_rng(44)
+    host = rng.standard_normal((5, 7)) + (
+        1j * rng.standard_normal((5, 7)) if dtype.is_complex else 0)
+    x = torch.from_numpy(host).to(dtype).to(dev)
+    got = zaftpu_torch.asnumpy(x)
+    want = (x.float() if dtype == torch.bfloat16 else x).cpu().numpy()
+    assert got.dtype == want.dtype
+    assert got.dtype == (np.float32 if dtype == torch.bfloat16
+                         else x.cpu().numpy().dtype)
+    np.testing.assert_array_equal(got, want)
+
+
+def test_timed_on_cuda_events(dev):
+    from zaftpu_torch.utils.profiling import timed
+
+    x = torch.from_numpy(np.random.default_rng(45).standard_normal(
+        44100 * 10).astype(np.float32)).to(dev)
+    win = hamming(2048)
+    out, stats = timed("stft", lambda: zaftpu_torch.stft(x, win, 1024),
+                       frames=432, reps=3, log=False, dispatches=2,
+                       target_s=0.01)
+    assert out.is_cuda and out.shape == (2048, 432)
+    assert 0 < stats.seconds < 0.01
+    assert stats.frames_per_second > 1e6
+
+
+def test_bench_suite_on_the_card(dev):
+    from zaftpu_torch.bench import harness
+
+    rows = harness.run_transform_suite(seconds=2.0, reps=2, device="cuda")
+    by = {r["transform"]: r for r in rows}
+    assert len(rows) == 18
+    assert by["stft"]["launches"] == {"rfft.frames_rfft_full_fft": 1}
+    assert by["istft"]["launches"] == {"irfft.istft_ola_fft": 1}
+    assert by["melspectrogram"]["launches"] == {"melfft.mel_rows_fft": 1}
+    assert by["cqtspectrogram"]["launches"] == {
+        "cqtfft.cqt_magnitudes_fft": 1}
+    assert by["griffin_lim"]["launches"]["irfft.istft_ola_fft_window"] == 33
+    x = torch.from_numpy(harness._signal(2.0)).to(dev)
+    assert by["stft"]["frames"] == zaftpu_torch.stft(
+        x, hamming(2048), 1024).shape[1]
+    for row in rows:
+        assert 0 < row["seconds"] <= row["median_seconds"]

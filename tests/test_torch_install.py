@@ -18,7 +18,6 @@ from pathlib import Path
 import numpy as np
 import pytest
 import scipy.io.wavfile
-import torch
 
 from zaftpu_torch.io import native
 from zaftpu_torch.io import pipeline as tpipe
