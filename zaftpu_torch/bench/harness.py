@@ -190,14 +190,13 @@ def run_transform_suite(seconds: float = 60.0, reps: int = 3,
         del out
         launches[name] = {k: n - before[k] for k, n in counts().items()
                           if n > before[k]}
-    del specs, mags, coeffs
     seconds_of = {name: [] for name, *_ in rows}
     for _ in range(max(1, reps)):
         for name, fn, frames, inputs in rows:
-            _, stats = timed(name, _one_pass, fn, inputs, frames=frames,
-                             warmup=False, log=False, dispatches=dispatches)
+            out, stats = timed(name, _one_pass, fn, inputs, frames=frames,
+                               warmup=False, log=False, dispatches=dispatches)
+            del out  # before the next row's pass
             seconds_of[name].append(stats.seconds)
-            del _
     return [{"transform": name, "seconds": min(seconds_of[name]),
              "median_seconds": statistics.median(seconds_of[name]),
              "frames": frames,
