@@ -97,10 +97,10 @@ def test_kernel_wrappers_are_every_counted_kernel():
 
 
 def test_suite_on_the_cpu(cache_dir):
-    rows = harness.run_transform_suite(seconds=0.5, reps=2, device="cpu")
+    rows = harness.run_transform_suite(seconds=0.25, reps=2, device="cpu")
     assert [r["transform"] for r in rows] == list(ROWS)
     by = {r["transform"]: r for r in rows}
-    x = torch.from_numpy(harness._signal(0.5))
+    x = torch.from_numpy(harness._signal(0.25))
     spec = zaftpu_torch.stft(x, hamming(2048).astype(np.float32), 1024)
     coeffs = zaftpu_torch.mdct(x, vorbis(2048).astype(np.float32))
     cqt = zaftpu_torch.cqtspectrogram(x, 44100, 25,
@@ -150,7 +150,7 @@ def test_one_pass_keeps_only_the_last_output():
 
 
 def test_main_prints_one_row_per_transform(cache_dir, capsys):
-    harness.main(["--device", "cpu", "--seconds", "0.3", "--reps", "1"])
+    harness.main(["--device", "cpu", "--seconds", "0.2", "--reps", "1"])
     out, err = capsys.readouterr()
     rows = [json.loads(line) for line in out.splitlines()]
     assert [r["transform"] for r in rows] == list(ROWS)
