@@ -2,8 +2,8 @@
 MFCC and CQT paths once on an NVIDIA GPU, under the exact dial, under
 ZAFTPU_PRECISION=split4, high and default and the bf16 compute dtype, the
 CQT under both of its schemes, the streaming pipeline over an hour read
-from disk, asnumpy and the display helpers, the 13 examples and the bench
-suite.
+from disk, asnumpy and the display helpers, the 13 examples, the bench
+suite and the frame-block-sharded path on a one-rank NCCL world.
 
     python3 chip_smoke.py
 
@@ -246,6 +246,20 @@ matplotlib imports, each within its stated tolerance of the same example
 on the CPU in float64) and phase_bench (zaftpu_torch.bench.harness's suite
 over one hour, 3 round-robin reps, every row printed); each checks which
 kernels launched, and their launches count in the kernels line.
+
+Last, phase_sharded: a one-rank NCCL world on a file store in a temporary
+directory (it fails without NCCL; nothing moves to gloo or to the CPU),
+one hour (the six segments as one 158,760,000-sample tensor) through
+stft_sharded -> istft_sharded and mdct_sharded -> imdct_sharded (the
+blocks passed on, nothing gathered), spectrogram_sharded,
+melspectrogram_sharded and mfcc_sharded at MelConfig(), and
+cqtspectrogram_sharded, cqtchromagram_sharded and cqtspectrogram_tp at
+CqtConfig(), on make_mesh(1), and stft_sharded on make_mesh_2d(1, 1): each
+bit-equal to the unsharded transform of the same tensor (the MFCC within
+1e-6 * max: its DCT is a torch.matmul), each pair timed (CUDA events,
+median of 3 in alternation) with the ratio unsharded / sharded ms, and
+zaftpu_torch.bench.harness.run_scaling's row at one rank over the hour;
+its launches count in the kernels line.
 
 The CQT kernel is built on the host without the disk cache
 (ZAFTPU_CACHE=0), so the run writes nothing outside the checkout.
@@ -2695,6 +2709,157 @@ def phase_bench(dev) -> dict:
     return launches
 
 
+# The kernels the sharded path launches at one rank: the stores of stft,
+# istft, spectrogram, the mel front ends, mdct, imdct and the CQT.
+SHARDED_KERNELS = ("frames_rfft_full_fft", "synth_fft", "spec_rows_fft",
+                   "mel_rows_fft", "mdct_fft", "imdct_ola_fft", "cqt_fft")
+# x max|unsharded|: the MFCC's DCT is a torch.matmul, outside any kernel.
+SHARDED_MFCC_TOL = 1e-6
+
+
+def _pair_ms(fns, reps: int = 3) -> list:
+    """Median CUDA-event ms of each of ``fns`` over ``reps`` turns taken in
+    alternation, after one warm-up call each."""
+    for fn in fns:
+        fn()
+    times = [[] for _ in fns]
+    for _ in range(reps):
+        for fn, out in zip(fns, times):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            fn()
+            end.record()
+            end.synchronize()
+            out.append(start.elapsed_time(end))
+    return [statistics.median(t) for t in times]
+
+
+def phase_sharded(dev) -> dict:
+    """The sharded path on a one-rank NCCL world (a file store in a
+    temporary directory; it fails without NCCL and never moves to gloo):
+    one hour (158,760,000 samples) as one call through each of the ten
+    sharded functions and cqtspectrogram_tp on make_mesh(1), stft_sharded
+    also on make_mesh_2d(1, 1); stft -> istft and mdct -> imdct pass the
+    blocks on with no gather. Each result against the unsharded transform
+    of the same tensor: bit-equal but the MFCC (SHARDED_MFCC_TOL); each
+    pair timed (CUDA events, median of 3 in alternation) with the ratio
+    unsharded / sharded ms; then run_scaling's row at one rank over the
+    hour. SHARDED_KERNELS launched in the counted calls (the first of each
+    sharded function) and no plain version. Returns those counts."""
+    import tempfile
+
+    import torch.distributed as dist
+
+    from zaftpu_torch import sharding as S
+    from zaftpu_torch.bench import harness
+
+    t0 = time.perf_counter()
+    require(dist.is_nccl_available(), "sharded: this torch has no NCCL")
+    x = torch.from_numpy(np.concatenate(
+        [segment(i) for i in range(SEGMENTS_PER_HOUR)])).to(dev)
+    win, tdac = hamming(WL), vorbis(WL)
+    mel = MelConfig()
+    fbank, mwin = mel.filterbank(), mel.window_array()
+    cqt = CqtConfig()
+    kern = cqt.kernel()
+    z = zaftpu_torch
+    reset_counters()
+    launches = dict.fromkeys(KERNELS, 0)
+    with tempfile.TemporaryDirectory() as store:
+        S.initialize_distributed(init_method=f"file://{store}/store",
+                                 rank=0, world_size=1)
+        try:
+            require(dist.get_backend() == "nccl",
+                    f"sharded: backend {dist.get_backend()}")
+            mesh, mesh2 = S.make_mesh(1), S.make_mesh_2d(1, 1)
+            spec, coeffs = z.stft(x, win, STEP), z.mdct(x, tdac)
+            blocks = {}  # the first sharded stft's and mdct's blocks
+
+            def stft_block():
+                return S.stft_sharded(x, win, STEP, mesh)
+
+            def mdct_block():
+                return S.mdct_sharded(x, tdac, mesh)
+
+            pairs = (
+                ("stft", stft_block, lambda: z.stft(x, win, STEP)),
+                ("stft 1x1 mesh", lambda: S.stft_sharded(x, win, STEP, mesh2),
+                 lambda: z.stft(x, win, STEP)),
+                ("istft", lambda: S.istft_sharded(blocks["stft"], win, STEP,
+                                                  mesh, block=True),
+                 lambda: z.istft(spec, win, STEP)),
+                ("spectrogram",
+                 lambda: S.spectrogram_sharded(x, win, STEP, mesh),
+                 lambda: z.spectrogram(x, win, STEP)),
+                ("melspectrogram",
+                 lambda: S.melspectrogram_sharded(x, mwin, mel.step_length,
+                                                  fbank, mesh),
+                 lambda: z.melspectrogram(x, config=mel)),
+                ("mfcc", lambda: S.mfcc_sharded(
+                    x, mwin, mel.step_length, fbank,
+                    mel.number_coefficients, mesh),
+                 lambda: z.mfcc(x, config=mel)),
+                ("mdct", mdct_block, lambda: z.mdct(x, tdac)),
+                ("imdct", lambda: S.imdct_sharded(blocks["mdct"], tdac, mesh,
+                                                  block=True),
+                 lambda: z.imdct(coeffs, tdac)),
+                ("cqtspectrogram", lambda: S.cqtspectrogram_sharded(
+                    x, cqt.sampling_frequency, cqt.time_resolution, kern,
+                    mesh),
+                 lambda: z.cqtspectrogram(x, config=cqt)),
+                ("cqtchromagram", lambda: S.cqtchromagram_sharded(
+                    x, cqt.sampling_frequency, cqt.time_resolution,
+                    cqt.octave_resolution, kern, mesh),
+                 lambda: z.cqtchromagram(x, config=cqt)),
+                ("cqtspectrogram_tp", lambda: S.cqtspectrogram_tp(
+                    x, cqt.sampling_frequency, cqt.time_resolution, kern,
+                    mesh),
+                 lambda: z.cqtspectrogram(x, config=cqt)),
+            )
+            for name, sharded, whole in pairs:
+                before = read_counters()[0]
+                got = sharded()
+                torch.cuda.synchronize()
+                for k, n in read_counters()[0].items():
+                    launches[k] += n - before[k]
+                if name in ("stft", "mdct"):
+                    blocks[name] = got
+                ref = whole()
+                tol = SHARDED_MFCC_TOL if name == "mfcc" else EXACT_TOL
+                require(got.shape == ref.shape and got.dtype == ref.dtype,
+                        f"sharded [{name}]: {tuple(got.shape)} {got.dtype} "
+                        f"against {tuple(ref.shape)} {ref.dtype}")
+                err = _max_abs(got - ref)
+                del got
+                sh_ms, un_ms = _pair_ms((sharded, whole))
+                print(f"sharded [{name}] ({CARD[0]}): {tuple(ref.shape)}, "
+                      f"max|err| {err:.3e} (gate {tol:g} x max|ref| "
+                      f"{_max_abs(ref):.4g}); sharded {sh_ms:.4f} ms, "
+                      f"unsharded {un_ms:.4f} ms, ratio {un_ms / sh_ms:.4f} "
+                      "(median of 3)")
+                require(err <= tol * _max_abs(ref),
+                        f"sharded [{name}]: max|err| {err}")
+                del ref
+            del blocks, spec, coeffs
+            torch.cuda.empty_cache()
+            row = harness.run_scaling(seconds=BENCH_SECONDS, reps=3,
+                                      device=dev)
+            print(f"sharded scaling ({CARD[0]}): {json.dumps(row)}")
+            require(len(row) == 1 and row[0]["devices"] == 1,
+                    f"sharded scaling: {row}")
+        finally:
+            dist.destroy_process_group()
+    want = {k for k, n in launches.items() if n}
+    print(f"sharded: launches {({k: launches[k] for k in sorted(want)})}")
+    require(want == set(SHARDED_KERNELS),
+            f"sharded: launched {sorted(want)}, want {SHARDED_KERNELS}")
+    require(all(v == 0 for v in read_counters()[1].values()),
+            f"sharded: a plain version ran: {read_counters()[1]}")
+    print(f"sharded: {time.perf_counter() - t0:.2f} s")
+    return {k: launches[k] for k in SHARDED_KERNELS}
+
+
 LEVERS = ("ZAFTPU_FUSED", "ZAFTPU_SYNTH", "ZAFTPU_MELFUSE", "ZAFTPU_MIRROR",
           "ZAFTPU_FULLSPEC", "ZAFTPU_FUSED2", "ZAFTPU_FFT", "ZAFTPU_PRECISION",
           "ZAFTPU_CQT_SCHEME")
@@ -2911,6 +3076,10 @@ def main() -> int:
         launches[name] += count
     torch.cuda.empty_cache()
     print(f"chip_smoke: phase_bench at {time.perf_counter() - start:.1f} s")
+    for name, count in _with_env(DEFAULT, phase_sharded, dev).items():
+        launches[name] += count
+    torch.cuda.empty_cache()
+    print(f"chip_smoke: phase_sharded at {time.perf_counter() - start:.1f} s")
 
     print(f"chip_smoke: {time.perf_counter() - start:.1f} s")
     print(json.dumps({"kernels": [

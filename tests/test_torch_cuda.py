@@ -7,8 +7,9 @@ its rule, the mirror, full-spectrum and two-output levers, the split4
 twins (B9's and B10's included) and the split4 dial, the CQT's scheme,
 the mel kernels past the old shared-memory limit, the real-FFT kernel's
 magnitude and mel stores and the front ends' route, the device and dtype
-rules (float64 arrays, lists and bfloat16 signals), and the inputs the
-CUDA path refuses.
+rules (float64 arrays, lists and bfloat16 signals), the inputs the
+CUDA path refuses, and each sharded function on a one-rank NCCL world
+against the unsharded transform.
 
 Every test needs an NVIDIA GPU (marker ``cuda``) and skips without one.
 This file imports neither JAX nor zaftpu, so on a machine without JAX it
@@ -2233,3 +2234,112 @@ def test_bench_suite_on_the_card(dev):
         x, hamming(2048), 1024).shape[1]
     for row in rows:
         assert 0 < row["seconds"] <= row["median_seconds"]
+
+
+# ---- frame-block sharding on a one-rank NCCL world --------------------------
+
+@pytest.fixture(scope="module")
+def nccl_mesh(tmp_path_factory):
+    """``make_mesh(1)`` of a one-rank NCCL world on a file store (taken
+    down after the module), and ``make_mesh_2d(1, 1)``."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    import torch.distributed as dist
+    from zaftpu_torch import sharding
+
+    assert dist.is_nccl_available(), "this torch has no NCCL"
+    store = tmp_path_factory.mktemp("nccl") / "store"
+    sharding.initialize_distributed(init_method=f"file://{store}", rank=0,
+                                    world_size=1)
+    assert dist.get_backend() == "nccl"
+    yield sharding.make_mesh(1), sharding.make_mesh_2d(1, 1)
+    dist.destroy_process_group()
+
+
+def _sharded_cases():
+    """(name, sharded call, unsharded call, tolerance x max|ref|) at one
+    rank: bit-equal where each frame runs the same kernel; the MFCC's
+    DCT is a torch.matmul."""
+    from zaftpu_torch import sharding as S
+
+    win, tdac = hamming(2048), vorbis(2048)
+    fbank = zaftpu_torch.melfilterbank(44100, 2048, 40)
+    cfg = zaftpu_torch.CqtConfig()
+    kern = cfg.kernel()
+    stft, istft = zaftpu_torch.stft, zaftpu_torch.istft
+    return [
+        ("stft", lambda x, m: S.stft_sharded(x, win, 1024, m),
+         lambda x: stft(x, win, 1024), 0.0),
+        ("spectrogram", lambda x, m: S.spectrogram_sharded(x, win, 1024, m),
+         lambda x: zaftpu_torch.spectrogram(x, win, 1024), 0.0),
+        ("istft", lambda x, m: S.istft_sharded(stft(x, win, 1024), win,
+                                               1024, m),
+         lambda x: istft(stft(x, win, 1024), win, 1024), 0.0),
+        ("roundtrip", lambda x, m: S.istft_sharded(
+            S.stft_sharded(x, win, 1024, m), win, 1024, m, block=True),
+         lambda x: istft(stft(x, win, 1024), win, 1024), 0.0),
+        ("melspectrogram",
+         lambda x, m: S.melspectrogram_sharded(x, win, 1024, fbank, m),
+         lambda x: zaftpu_torch.melspectrogram(x, win, 1024, fbank), 0.0),
+        ("mfcc", lambda x, m: S.mfcc_sharded(x, win, 1024, fbank, 20, m),
+         lambda x: zaftpu_torch.mfcc(x, win, 1024, fbank, 20), 1e-6),
+        ("mdct", lambda x, m: S.mdct_sharded(x, tdac, m),
+         lambda x: zaftpu_torch.mdct(x, tdac), 0.0),
+        ("imdct", lambda x, m: S.imdct_sharded(
+            S.mdct_sharded(x, tdac, m), tdac, m, block=True),
+         lambda x: zaftpu_torch.imdct(zaftpu_torch.mdct(x, tdac), tdac), 0.0),
+        ("cqtspectrogram",
+         lambda x, m: S.cqtspectrogram_sharded(x, 44100, 25, kern, m),
+         lambda x: zaftpu_torch.cqtspectrogram(x, config=cfg), 0.0),
+        ("cqtchromagram",
+         lambda x, m: S.cqtchromagram_sharded(x, 44100, 25, 24, kern, m),
+         lambda x: zaftpu_torch.cqtchromagram(x, config=cfg), 0.0),
+        ("cqtspectrogram_tp",
+         lambda x, m: S.cqtspectrogram_tp(x, 44100, 25, kern, m),
+         lambda x: zaftpu_torch.cqtspectrogram(x, config=cfg), 0.0),
+    ]
+
+
+@pytest.mark.parametrize("case", range(11))
+@pytest.mark.parametrize("two_d", [False, True])
+def test_sharded_at_one_nccl_rank(dev, nccl_mesh, case, two_d):
+    """Each sharded function on one NCCL rank against the unsharded
+    transform on the same tensor, on a 1-D and a 1 x 1 mesh."""
+    name, sharded, whole, tol = _sharded_cases()[case]
+    x = torch.from_numpy(np.random.default_rng(46).standard_normal(
+        44100 * 10).astype(np.float32)).to(dev)
+    mesh = nccl_mesh[1] if two_d else nccl_mesh[0]
+    got, ref = sharded(x, mesh), whole(x)
+    assert got.is_cuda and got.shape == ref.shape and got.dtype == ref.dtype
+    assert float((got - ref).abs().max()) <= tol * float(ref.abs().max()), \
+        name
+
+
+def test_sharded_launches_the_same_kernels(dev, nccl_mesh):
+    from zaftpu_torch import sharding as S
+
+    x = torch.from_numpy(np.random.default_rng(47).standard_normal(
+        44100 * 5).astype(np.float32)).to(dev)
+    win = hamming(2048)
+    before = (rfft.frames_rfft_full_fft.launches, irfft.istft_ola_fft.launches,
+              rfft.frames_rfft_full_fft_plain.calls)
+    spec = S.stft_sharded(x, win, 1024, nccl_mesh[0])
+    S.istft_sharded(spec, win, 1024, nccl_mesh[0], block=True)
+    after = (rfft.frames_rfft_full_fft.launches, irfft.istft_ola_fft.launches,
+             rfft.frames_rfft_full_fft_plain.calls)
+    assert [b - a for a, b in zip(before, after)] == [1, 1, 0]
+
+
+def test_sharded_refuses_a_cpu_tensor_on_nccl(dev, nccl_mesh):
+    from zaftpu_torch import sharding as S
+
+    with pytest.raises(ValueError, match="gloo"):
+        S.stft_sharded(torch.zeros(8192), hamming(2048), 1024, nccl_mesh[0])
+
+
+def test_run_scaling_on_the_card(dev, nccl_mesh):
+    from zaftpu_torch.bench import harness
+
+    rows = harness.run_scaling(seconds=5.0, reps=2, device="cuda")
+    assert [r["devices"] for r in rows] == [1]
+    assert rows[0]["scaling_efficiency"] == 1.0 and rows[0]["seconds"] > 0

@@ -4,8 +4,8 @@
 labels and drawn data as zaftpu's on tests/golden/golden.npz's arrays under
 Agg, given as NumPy arrays and as CPU tensors in float32 and float64, in
 the style of tests/test_viz_parity.py), ``__all__`` (the 20 reference
-functions plus ``asnumpy``), and ``import zaftpu_torch`` loading none of
-JAX, zaftpu or matplotlib."""
+functions plus ``asnumpy``), and ``import zaftpu_torch`` and ``import
+zaftpu_torch.sharding`` loading none of JAX, zaftpu or matplotlib."""
 
 import json
 import os
@@ -180,7 +180,8 @@ def test_all_exports_the_reference_functions_and_asnumpy():
 
 
 def test_import_loads_no_jax_zaftpu_or_matplotlib():
-    code = ("import json, sys, zaftpu_torch; print(json.dumps(sorted({"
+    code = ("import json, sys, zaftpu_torch, zaftpu_torch.sharding; "
+            "print(json.dumps(sorted({"
             "m.split('.')[0] for m in sys.modules} & {'jax', 'jaxlib', "
             "'zaftpu', 'matplotlib'})))")
     env = {**os.environ, "PYTHONPATH": str(REPO)}

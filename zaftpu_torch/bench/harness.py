@@ -2,7 +2,7 @@
 ``zaftpu.bench.harness``).
 
     python -m zaftpu_torch.bench.harness [--seconds S] [--reps R]
-        [--dispatches D] [--device cuda|cpu]
+        [--dispatches D] [--device cuda|cpu] [--scaling]
 
 times every transform through the public entry points and prints one JSON
 row per transform: the best and the median seconds of one pass over the
@@ -13,19 +13,28 @@ run). The rows and their frame counts are ``zaftpu``'s, plus
 over the rows (rep 1 of every row, then rep 2, ...), so a slow spell of the
 machine lands on every row alike. On the card the suite times with CUDA
 events (:func:`zaftpu_torch.utils.profiling.timed`); without a card
-``device="cuda"`` raises rather than timing the CPU. ``zaftpu``'s
-``run_scaling`` (``--scaling``) waits for the port's sharding.
+``device="cuda"`` raises rather than timing the CPU.
+
+``--scaling`` (:func:`run_scaling`) times the frame-sharded
+``stft_sharded -> istft_sharded`` round trip on meshes of 1, 2 and all
+ranks instead, as ``zaftpu``'s does: in one plain process on a world of one
+it brings up itself, under ``torchrun --nproc-per-node N`` on the world it
+is given (NCCL on the cards, gloo with ``--device cpu``); rank 0 prints the
+rows.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import importlib
 import json
 import os
 import pkgutil
 import statistics
 import sys
+import tempfile
+import time
 
 import numpy as np
 import torch
@@ -205,6 +214,85 @@ def run_transform_suite(seconds: float = 60.0, reps: int = 3,
             for name, _, frames, _ in rows]
 
 
+def _spmd_seconds(fn, group, dev: torch.device) -> float:
+    """Seconds of one call of ``fn`` on every rank of ``group``: from a
+    barrier to the slowest rank's finish (its device synchronised), on the
+    host clock."""
+    import torch.distributed as dist
+
+    size = dist.get_world_size(group)
+    if size > 1:
+        dist.barrier(group=group)
+    start = time.perf_counter()
+    out = fn()
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+    elapsed = torch.tensor([time.perf_counter() - start], dtype=torch.float64,
+                           device=dev)
+    del out
+    if size > 1:
+        dist.all_reduce(elapsed, op=dist.ReduceOp.MAX, group=group)
+    return float(elapsed)
+
+
+def run_scaling(seconds: float = 60.0, reps: int = 3, device="cuda") -> list:
+    """Frame-sharded ``stft_sharded -> istft_sharded`` (the spectrum stays
+    in blocks: nothing is gathered between) frames/s on meshes of 1, 2 and
+    all ranks of the world, best of ``reps`` after a warm-up; each call
+    timed from a barrier to the slowest rank's finish. Every rank calls
+    it; rank 0's rows cover every mesh, with ``scaling_efficiency`` =
+    frames/s over (the one-rank frames/s times the mesh's ranks). Without
+    a process group it brings one up (the ``torchrun`` environment's, or
+    else a world of one on a file store) and takes it down after."""
+    import torch.distributed as dist
+
+    from zaftpu_torch.core.frame import stft_padding
+    from zaftpu_torch.core.windows import hamming
+    from zaftpu_torch.sharding import (initialize_distributed, istft_sharded,
+                                       make_mesh, stft_sharded)
+
+    dev = _device(device)
+    with contextlib.ExitStack() as stack:
+        if not dist.is_initialized():
+            if "RANK" in os.environ and "WORLD_SIZE" in os.environ:
+                initialize_distributed(device=dev.type)
+            else:
+                store = stack.enter_context(tempfile.TemporaryDirectory())
+                initialize_distributed(
+                    device=dev.type, init_method=f"file://{store}/store",
+                    rank=0, world_size=1)
+            stack.callback(dist.destroy_process_group)
+        if dev.type == "cuda":
+            dev = torch.device("cuda", torch.cuda.current_device())
+        world, rank = dist.get_world_size(), dist.get_rank()
+        signal = torch.from_numpy(_signal(seconds)).to(dev)
+        window = hamming(WL).astype(np.float32)
+        frames = stft_padding(signal.shape[-1], WL, STEP)[2]
+        rows = []
+        for size in sorted({1, 2, world} & set(range(1, world + 1))):
+            mesh = make_mesh(size)
+            if rank < size:
+                def pipeline(mesh=mesh):
+                    spec = stft_sharded(signal, window, STEP, mesh)
+                    return istft_sharded(spec, window, STEP, mesh,
+                                         block=True)
+
+                group = mesh.get_group()
+                _spmd_seconds(pipeline, group, dev)  # warm-up
+                best = min(_spmd_seconds(pipeline, group, dev)
+                           for _ in range(max(1, reps)))
+                rows.append({"devices": size, "seconds": best,
+                             "frames": frames,
+                             "frames_per_sec": frames / best})
+            if world > 1:
+                dist.barrier()
+    base = rows[0]["frames_per_sec"]
+    for row in rows:
+        row["scaling_efficiency"] = row["frames_per_sec"] / (
+            base * row["devices"])
+    return rows
+
+
 def main(argv=None):
     parser = argparse.ArgumentParser(
         description="Time every zaftpu_torch transform; one JSON row each.")
@@ -213,6 +301,9 @@ def main(argv=None):
     parser.add_argument("--dispatches", type=int, default=1,
                         help="back-to-back passes per timed rep")
     parser.add_argument("--device", default="cuda", choices=("cuda", "cpu"))
+    parser.add_argument("--scaling", action="store_true",
+                        help="the sharded stft -> istft on 1, 2 and all "
+                             "ranks instead of the suite")
     args = parser.parse_args(argv)
 
     dev = _device(args.device)
@@ -222,8 +313,14 @@ def main(argv=None):
     else:
         print(f"# device: cpu, threads: {torch.get_num_threads()}",
               file=sys.stderr)
-    for row in run_transform_suite(args.seconds, args.reps, args.dispatches,
-                                   dev):
+    if args.scaling:
+        rows = run_scaling(args.seconds, args.reps, dev)
+        if int(os.environ.get("RANK", "0")):
+            return
+    else:
+        rows = run_transform_suite(args.seconds, args.reps, args.dispatches,
+                                   dev)
+    for row in rows:
         print(json.dumps(row))
 
 

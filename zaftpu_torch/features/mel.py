@@ -114,14 +114,20 @@ def _mel_rows(x, window, fbank, step, power):
     """Mel (``power=False``) or power-mel rows ``(..., T, n_mels)`` of the
     dense host filterbank ``fbank`` (:func:`mel_rows_padded` of the
     centre-padded signal)."""
-    wl, table = window.shape[0], None
-    if _melfused.route(x.dtype, wl) == "fft":
-        # A new table's copy from host memory waits for the queued
-        # kernels, so it goes before the pad is queued.
-        table = _melfft.filterbank_device_table(
-            fbank, x.device, _operator_dtype(x.dtype, power))
-    padded, t = centre_padded(x, wl, step)
+    # A new table's copy from host memory waits for the queued kernels, so
+    # it goes before the pad is queued.
+    table = filterbank_table(x, window, fbank, power)
+    padded, t = centre_padded(x, window.shape[0], step)
     return mel_rows_padded(padded, window, fbank, step, t, power, table)
+
+
+def filterbank_table(x, window, fbank, power):
+    """The filterbank's device table for the mel store when
+    :func:`mel_rows_padded` takes it for signal ``x``, else None."""
+    if _melfused.route(x.dtype, window.shape[0]) != "fft":
+        return None
+    return _melfft.filterbank_device_table(fbank, x.device,
+                                           _operator_dtype(x.dtype, power))
 
 
 def mel_rows_padded(padded, window, fbank, step, number_times, power,
@@ -161,6 +167,21 @@ def cepstra(power_mel: torch.Tensor, number_mels: int,
                           _operator_dtype(power_mel.dtype, True))
     # Keep coefficients 1..C; the 0th is dropped (zaf.py:452).
     return exact_matmul(logmel, dct.T)[..., 1:number_coefficients + 1]
+
+
+def check_coefficients(number_coefficients, number_mels: int) -> int:
+    """The MFCC count as an int in ``[1, number_mels - 1]``, else
+    ``ValueError``."""
+    if number_coefficients is None:
+        raise ValueError(
+            "number_coefficients is required when no config= is given")
+    number_coefficients = int(number_coefficients)
+    if not 1 <= number_coefficients < number_mels:
+        raise ValueError(
+            f"number_coefficients must be in [1, number_mels-1="
+            f"{number_mels - 1}] (the 0th coefficient is dropped, "
+            f"zaf.py:452), got {number_coefficients}")
+    return number_coefficients
 
 
 def _resolve_mel_args(window_function, step_length, mel_filterbank, config):
@@ -223,15 +244,8 @@ def mfcc(audio_signal, window_function=None, step_length=None,
         number_coefficients = config.number_coefficients
     x, win, step, fbank = _inputs(audio_signal, window_function, step_length,
                                   mel_filterbank, config)
-    if number_coefficients is None:
-        raise ValueError(
-            "number_coefficients is required when no config= is given")
-    number_coefficients = int(number_coefficients)
-    if not 1 <= number_coefficients < fbank.shape[0]:
-        raise ValueError(
-            f"number_coefficients must be in [1, number_mels-1="
-            f"{fbank.shape[0] - 1}] (the 0th coefficient is dropped, "
-            f"zaf.py:452), got {number_coefficients}")
+    number_coefficients = check_coefficients(number_coefficients,
+                                             fbank.shape[0])
     mel = _mel_rows(x, win, fbank, step, power=True)
     return cepstra(mel, fbank.shape[0],
                    number_coefficients).transpose(-1, -2)

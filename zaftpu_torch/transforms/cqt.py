@@ -243,8 +243,9 @@ def _block_frames() -> int:
 # its kernel so the id stays its own. FIFO-bounded. A float32 entry is the
 # (2, L, F_pad) time-domain stack, a bfloat16 one its (2, 2, L, F_pad)
 # presplit, a float64 one the reduced spectral kernel with its gather
-# columns and conjugation mask, and the "cqt_fft" one the spectral
-# kernel's table (kernels/cqtfft.DeviceTable).
+# columns and conjugation mask, the "cqt_fft" one the spectral kernel's
+# table (kernels/cqtfft.DeviceTable), and a ("channels", first, last) one,
+# on no device, a channel slice of the kernel (:func:`channel_slice`).
 _device_kernels: dict = {}
 _DEVICE_KERNEL_LIMIT = 16
 
@@ -258,6 +259,17 @@ def _device_entry(kern: CqtKernel, device: torch.device, dtype, build):
         while len(_device_kernels) > _DEVICE_KERNEL_LIMIT:
             _device_kernels.pop(next(iter(_device_kernels)))
     return hit[1]
+
+
+def channel_slice(kern: CqtKernel, first: int, last: int) -> CqtKernel:
+    """Channels ``[first, last)`` of ``kern`` as a kernel of their own
+    (``cqtspectrogram_tp``'s share), finalized once and cached with
+    ``kern``'s device operators; ``kern`` itself for all of its
+    channels."""
+    if (first, last) == (0, kern.number_frequencies):
+        return kern
+    return _device_entry(kern, None, ("channels", first, last),
+                         lambda: _finalize_kernel(kern.kernel[first:last]))
 
 
 def _device_time_kernel(kern: CqtKernel, device: torch.device,

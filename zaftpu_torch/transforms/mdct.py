@@ -178,15 +178,9 @@ def mdct(audio_signal, window_function=None, *, config=None) -> torch.Tensor:
         signal (computed in float32), as ``zaftpu``'s engine path returns
         it.
     """
-    x = _validate.check_signal(_as_input(audio_signal))
-    window = _resolve_mdct_window(window_function, config)
-    win = _validate.check_window(_as_tensor(window), even=True)
-    wl = win.shape[0]
-    step = wl // 2
-    in_dtype = x.dtype
-    x = x.to(torch.promote_types(x.dtype, torch.float32))
-    _kernels.check_device_input(x)
-    win = win.to(device=x.device, dtype=x.dtype)
+    x, win, in_dtype = _analysis_inputs(audio_signal, window_function,
+                                        config)
+    step = win.shape[0] // 2
     n = x.shape[-1]
     t = int(np.ceil(n / step)) + 1
     # Pad `step` in front and to (T+1)*step in all (zaf.py:1036-1041).
@@ -195,6 +189,18 @@ def mdct(audio_signal, window_function=None, *, config=None) -> torch.Tensor:
     if in_dtype == torch.bfloat16:
         coeffs = coeffs.to(in_dtype)
     return coeffs.transpose(-1, -2)
+
+
+def _analysis_inputs(audio_signal, window_function, config):
+    """The validated signal (at least float32), the TDAC window on its
+    device in its dtype, and the signal's own dtype."""
+    x = _validate.check_signal(_as_input(audio_signal))
+    window = _resolve_mdct_window(window_function, config)
+    win = _validate.check_window(_as_tensor(window), even=True)
+    in_dtype = x.dtype
+    x = x.to(torch.promote_types(x.dtype, torch.float32))
+    _kernels.check_device_input(x)
+    return x, win.to(device=x.device, dtype=x.dtype), in_dtype
 
 
 def mdct_rows(padded: torch.Tensor, window: torch.Tensor,
@@ -234,6 +240,35 @@ def imdct_signal(coeffs: torch.Tensor, host_window: np.ndarray
     return _kernels.imdct_synthesis(coeffs, f, host_window.tobytes())
 
 
+def _synthesis_inputs(audio_mdct, window_function, config):
+    """The coefficients ``(..., F, T)`` (on their device, or sent to the
+    card) and the float64 window of an inverse MDCT, validated."""
+    c = _as_input(audio_mdct)
+    if c.ndim < 2:
+        raise ValueError(
+            f"audio_mdct must be (number_frequencies, number_times), "
+            f"got shape {tuple(c.shape)}")
+    window = _resolve_mdct_window(window_function, config)
+    _validate.check_window(window, even=True)
+    host_window = _host_window(window)
+    f = c.shape[-2]
+    if host_window.shape[0] != 2 * f:
+        raise ValueError(
+            f"window length must be 2*number_frequencies = {2 * f}, got "
+            f"{host_window.shape[0]}")
+    return c, host_window
+
+
+def frames_major(coeffs: torch.Tensor) -> torch.Tensor:
+    """Coefficients ``(..., F, T)`` as the frames-major ``(..., T, F)``
+    view the synthesis reads, at least float32 (a bfloat16 input computes
+    in float32)."""
+    out = coeffs.transpose(-1, -2)
+    out = out.to(torch.promote_types(out.dtype, torch.float32))
+    _kernels.check_device_input(out)
+    return out
+
+
 def imdct(audio_mdct, window_function=None, *, config=None) -> torch.Tensor:
     """Inverse MDCT with time-domain aliasing cancellation.
 
@@ -249,23 +284,9 @@ def imdct(audio_mdct, window_function=None, *, config=None) -> torch.Tensor:
         windows); bfloat16 for bfloat16 coefficients (computed in float32),
         as ``zaftpu``'s engine path returns it.
     """
-    c = _as_input(audio_mdct)
-    if c.ndim < 2:
-        raise ValueError(
-            f"audio_mdct must be (number_frequencies, number_times), "
-            f"got shape {tuple(c.shape)}")
-    window = _resolve_mdct_window(window_function, config)
-    _validate.check_window(window, even=True)
-    host_window = _host_window(window)
+    c, host_window = _synthesis_inputs(audio_mdct, window_function, config)
     f = c.shape[-2]
-    if host_window.shape[0] != 2 * f:
-        raise ValueError(
-            f"window length must be 2*number_frequencies = {2 * f}, got "
-            f"{host_window.shape[0]}")
-    coeffs = c.transpose(-1, -2)  # (..., T, F) frames-major
-    coeffs = coeffs.to(torch.promote_types(coeffs.dtype, torch.float32))
-    _kernels.check_device_input(coeffs)
-    signal = imdct_signal(coeffs, host_window)
+    signal = imdct_signal(frames_major(c), host_window)
     if c.dtype == torch.bfloat16:
         signal = signal.to(c.dtype)
     # Reference trim [F : -F-1], one sample short on the right (zaf.py:1182).

@@ -178,20 +178,28 @@ def istft(audio_stft, window_function=None, step_length: int | None = None,
     B4 (its split4 twin under split4) at any other or under
     ``ZAFTPU_FFT=matmul``.
     """
-    z = _validate.check_spectrum(_as_input(audio_stft))
-    window, step = _resolve_analysis_args(window_function, step_length,
-                                          config)
-    _validate.check_window(window)
+    z, step, gain = _synthesis_inputs(audio_stft, window_function,
+                                      step_length, config)
     wl = z.shape[-2]
-    step = _validate.check_step(step, wl)
-    host_window = _host_window(window)
-    gain = _frame.cola_gain(host_window, step)
-    _validate.check_cola(host_window, step, gain)
-    _kernels.check_device_input(z)
     signal = _kernels.synthesis_ola(z, step, gain)
     # Trim the centering pad (zaf.py:236-238).
     edge = wl - step
     return signal[..., edge:signal.shape[-1] - edge]
+
+
+def _synthesis_inputs(audio_stft, window_function, step_length, config):
+    """The validated spectrum (on its device, or sent to the card), hop and
+    COLA gain of an inverse STFT."""
+    z = _validate.check_spectrum(_as_input(audio_stft))
+    window, step = _resolve_analysis_args(window_function, step_length,
+                                          config)
+    _validate.check_window(window)
+    step = _validate.check_step(step, z.shape[-2])
+    host_window = _host_window(window)
+    gain = _frame.cola_gain(host_window, step)
+    _validate.check_cola(host_window, step, gain)
+    _kernels.check_device_input(z)
+    return z, step, gain
 
 
 def spectrogram(audio_signal, window_function=None,
