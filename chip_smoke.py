@@ -264,6 +264,24 @@ its launches count in the kernels line.
 The CQT kernel is built on the host without the disk cache
 (ZAFTPU_CACHE=0), so the run writes nothing outside the checkout.
 
+Right after phase 3, phase_any_window: the magnitude and mel stores at
+windows the FFT rule refuses (they take every window from 16 to 4,096):
+each frame alone a complex N-point FFT at an
+odd window, Bluestein's chirp z-transform where that FFT's length has a prime
+factor above 127, in a block of 2,048, 4,096 or 8,192 complex values. At
+600 s of 10 ms (441 / 147), 25 ms at 22.05 kHz (551 / 220), 30 ms (1,323 /
+441), 2,062 / 512 (Bluestein, P 2,304), 50 ms (2,205 / 441) and 4,078 /
+1,024 (Bluestein, P 4,096), 40 mels: spectrogram, melspectrogram and mfcc
+through the entry points launch the stores and nothing else, within 1e-5
+* max of a float64 torch.fft oracle; each store (magnitude, mel, power)
+bit-equal to its plain version; the store's median ms beside B8's or
+B9's (ZAFTPU_FFT=matmul's route), torch.stft(..., center=False)[..., 1:,
+:].abs() (times the filterbank transpose) and its bound; and at ANY_RAGGED
+(3 rows of WL 3,093: Bluestein in the 8,192-value block, T 301, offset 1,
+a sparse 1,546-mel filterbank) bit-equal. The hour phase adds
+spectrogram, melspectrogram and mfcc at 1,323 / 441 on the stores and
+under ZAFTPU_FFT=matmul (B8, B9).
+
 The line before the last is a JSON object with one entry per kernel (a
 twin's also with its 3- and 1-pass times, bounds and errors); the last
 line is ``{"ok": true, "device": {...}}``.
@@ -273,6 +291,7 @@ from __future__ import annotations
 
 import functools
 import json
+import math
 import os
 import statistics
 import struct
@@ -296,6 +315,7 @@ from zaftpu_torch.kernels import mdct as kmdct
 from zaftpu_torch.transforms import cqt as tcqt
 from zaftpu_torch.transforms import dct as tdct
 from zaftpu_torch.transforms import mdct as tmdct
+from zaftpu_torch.transforms.stft import centre_padded
 
 SR = 44100
 SEGMENT_SECONDS = 600
@@ -352,6 +372,27 @@ IFFT_RAGGED = ((4096, 256, 1001, 1), (400, 160, 1001, 3), (3000, 1000, 301, 2),
 # Whisper's front end: 16 kHz, Hann 400 / hop 160 (25 ms / 10 ms), 80 mels.
 WHISPER = MelConfig(sampling_frequency=16000, window_length=400,
                     step_length=160, number_mels=80, window="hann")
+# The magnitude and mel stores off the FFT rule, 600 s each at 40 mels: (a
+# label, rate, WL, hop). 10 ms at 44.1 kHz (441 = 3^2 7^2: a complex FFT a
+# frame in the static block), 25 ms at 22.05 kHz (551 = 19 29), 30 ms
+# (1,323 = 3^3 7^2), 2,062 (half 1,031: Bluestein at P 2,304), 50 ms (2,205:
+# the 4,096-value block) and 4,078 (half 2,039: Bluestein at P 4,096).
+ANY_WINDOWS = (("10 ms", SR, 441, 147), ("25 ms 22.05 kHz", 22050, 551, 220),
+               ("30 ms", SR, 1323, 441), ("2062", SR, 2062, 512),
+               ("50 ms", SR, 2205, 441), ("4078", SR, 4078, 1024))
+# A ragged shape off the rule: an odd prime window through Bluestein in the
+# 8,192-value block (3,093 = 3 * 1,031: P 6,400), 3 rows, T 301 (odd),
+# misaligned: WL, hop, T, rows, offset.
+ANY_RAGGED = (3093, 1000, 301, 3, 1)
+# Odd windows (441 in the static block, 1,031 by Bluestein, 2,205 in the
+# 4,096-value block) with five disjoint frames: loud, silent, -80 dB, loud,
+# loud. Two frames packed as one FFT would round the silent and the quiet
+# frame with a loud partner; each frame alone, they round alone.
+QUIET_WINDOWS = (441, 1031, 2205)
+QUIET_GAINS = (1.0, 0.0, 1e-4, 1.0, 1.0)
+# The hour at the 30-ms window: spectrogram and melspectrogram on the
+# stores, and under ZAFTPU_FFT=matmul on B8 and B9.
+MEL_30MS = MelConfig(window_length=1323, step_length=441)
 CQT_RAGGED = (CqtConfig(sampling_frequency=22050, octave_resolution=12,
                         minimum_frequency=110.0), 1001)  # L 4096, hop 882
 # The CQT from 27.5 Hz (the piano's lowest A) at 24 bins per octave: L
@@ -967,16 +1008,42 @@ def _rows(x: torch.Tensor) -> int:
 
 def _fft_ops(n: int) -> int:
     """Operations of the FFT kernels' N/2-point complex FFT, pass by pass
-    in their plan (rfft.radices): each input of a butterfly past the first
+    in their plan (rfft.pass_ops: each input of a butterfly past the first
     times its twiddle (6), then the butterfly: 4 (radix 2), 16 (radix 4),
     or for an odd radix r with h = (r - 1)/2 the 4h sums and differences,
-    2h adds for y_0 and 8h + 2 for each of the h other output pairs."""
-    m, total = n // 2, 0
-    for r in rfft.radices(m):
-        h = (r - 1) // 2
-        fly = {2: 4, 4: 16}.get(r, 6 * h + h * (8 * h + 2))
-        total += m // r * (6 * (r - 1) + fly)
-    return total
+    2h adds for y_0 and 8h + 2 for each of the h other output pairs)."""
+    return rfft.pass_ops(n // 2)
+
+
+def _dft_ops(m: int) -> float:
+    """Operations an ``m``-point complex DFT needs: its passes' where they
+    take ``m`` (rfft.pass_ops, as every FFT row counts), else the
+    conventional 5 m log2 m of a complex FFT. This counts the function,
+    not Bluestein's way to it (_store_ops with ``own``): two FFTs of more
+    than twice the length."""
+    if rfft._factors(m)[1] == 1:
+        return rfft.pass_ops(m)
+    return 5 * m * math.log2(m)
+
+
+def _store_ops(wl: int, own: bool = False) -> float:
+    """Operations a frame of the magnitude store at window ``wl``: the
+    window (1 a sample), the real DFT of the frame and the magnitude (3 a
+    bin) of bins 1..WL//2. The real DFT needs an N/2-point complex DFT
+    (_dft_ops) and the split step (16 a bin) at an even window, and half
+    an N-point complex DFT at an odd one. With ``own``, what the kernel
+    does for it (rfft.layout): an odd window's whole N-point complex FFT,
+    and where that FFT's length M has a prime above 127, Bluestein's two
+    P-point FFTs (rfft.pass_ops), table product (6 a value) and two chirp
+    products (6 a value each, over M)."""
+    lay = rfft.layout(wl)
+    if lay.p and own:
+        fft = 2 * rfft.pass_ops(lay.p) + 6 * lay.p + 12 * lay.m
+    else:
+        fft = _dft_ops(lay.m)
+    if lay.odd:
+        return wl + (fft if own else fft / 2) + 3 * (wl // 2)
+    return wl + fft + 19 * (wl // 2)
 
 
 def _work(name: str, args: tuple,
@@ -1070,12 +1137,11 @@ def _work(name: str, args: tuple,
                 4 * sig.numel() + length + 4 * (f + 1) + 20 * nnz
                 + 4 * b * t * f)
     if base in ("spec_rows_fft", "mel_rows_fft"):
-        # The real FFT's magnitude or mel store: the window, its plan's
-        # passes, the split step (16 a bin) and the magnitude (3 a bin) over
-        # bins 1..WL/2, and for the mel store 2 a filterbank nonzero; the
-        # signal, the window and the twiddle table read once (and the CSR
-        # table: a row pointer, a column and a weight a nonzero), the
-        # magnitudes or mel rows written once.
+        # The real FFT's magnitude or mel store (_store_ops a frame) and for
+        # the mel store 2 a filterbank nonzero; the signal, the window and
+        # the store's tables read once (and the CSR table: a row pointer, a
+        # column and a weight a nonzero), the magnitudes or mel rows
+        # written once.
         padded = args[0]
         if base == "spec_rows_fft":
             wl, t = args[2], args[4]
@@ -1086,8 +1152,10 @@ def _work(name: str, args: tuple,
             adds, cols = 2 * nnz, table.number_mels
             table_bytes = 4 * (cols + 1) + 8 * nnz
         b = _rows(padded)
-        return (0, b * t * (wl + _fft_ops(wl) + 19 * (wl // 2) + adds),
-                4 * (padded.numel() + 3 * wl) + table_bytes + 4 * b * t * cols)
+        tables = 8 * rfft._store_tables(wl).shape[0]
+        return (0, b * t * (_store_ops(wl) + adds),
+                4 * (padded.numel() + wl) + tables + table_bytes
+                + 4 * b * t * cols)
     if base in FFT_STORES:
         # The real FFT: the window, its plan's passes and the split step
         # (16 a bin); the signal and the window read once, the twiddle
@@ -1689,6 +1757,186 @@ def phase_mel_path(dispatch: str, x: torch.Tensor) -> dict:
         require(np.isfinite(err) and err <= limit,
                 f"[{dispatch}] {name} error {err} > {limit}")
     return launches
+
+
+def _any_oracle(x: torch.Tensor, win: torch.Tensor, wl: int, step: int,
+                fbank: np.ndarray) -> tuple:
+    """Float64 spectrogram ``(T, WL//2)`` and mel ``(T, M)`` rows from
+    torch.fft on the card; a check only, never on the path."""
+    pad_front, pad_back, t = stft_padding(x.shape[-1], wl, step)
+    padded = torch.nn.functional.pad(x.double(), (pad_front, pad_back))
+    frames = padded.unfold(-1, wl, step)[:t] * win.double()
+    spec = torch.fft.rfft(frames, dim=-1)[:, 1:wl // 2 + 1].abs()
+    return spec, spec @ torch.from_numpy(fbank.T.copy()).to(x.device)
+
+
+def phase_any_window(dev) -> dict:
+    """The magnitude and mel stores at windows the FFT rule refuses (two
+    frames a complex FFT at an odd window, Bluestein where the FFT's length
+    has a prime factor above 127), at ANY_WINDOWS' 600-s shapes and
+    ANY_RAGGED's: spectrogram, melspectrogram and mfcc through the entry
+    points (the stores launched, no plain version, no GEMM), each store
+    bit-equal to its plain version (magnitude, mel and power), the
+    spectrogram and mel against a float64 torch.fft oracle (<= 1e-5 *
+    max|oracle|), and at each 600-s shape the median ms of the store, of
+    B8 or B9 (the route under ZAFTPU_FFT=matmul) and of torch.stft(...,
+    center=False)[..., 1:, :].abs() (times the filterbank transpose for the
+    mel) and of its plain version, beside the store's bound; then
+    QUIET_WINDOWS' loud and quiet frames (_quiet_frames_case). Returns
+    the entry points' launches."""
+    launches = dict.fromkeys(MEL_STORES, 0)
+    for label, sr, wl, step in ANY_WINDOWS:
+        x = torch.from_numpy(segment(0)[:SEGMENT_SECONDS * sr]).to(dev)
+        host_win = hamming(wl).astype(np.float32)
+        win = torch.from_numpy(host_win).to(dev)
+        fbank = melfilterbank(sr, wl, 40)
+        reset_counters()
+        spec = zaftpu_torch.spectrogram(x, host_win, step)
+        mel = zaftpu_torch.melspectrogram(x, host_win, step, fbank)
+        mf = zaftpu_torch.mfcc(x, host_win, step, fbank, 20)
+        torch.cuda.synchronize()
+        for name, count in check_counters(f"any window [{label} WL {wl}]",
+                                          MEL_STORES).items():
+            launches[name] += count
+        require(bool(torch.isfinite(mf).all()), f"[{label}] mfcc not finite")
+        for name, got, oracle in zip(("spectrogram", "melspectrogram"),
+                                     (spec, mel),
+                                     _any_oracle(x, win, wl, step, fbank)):
+            require(tuple(got.shape) == tuple(oracle.T.shape),
+                    f"[{label}] {name} {tuple(got.shape)}")
+            err, scale = _max_abs(got.T.double() - oracle), _max_abs(oracle)
+            print(f"any window [{label} WL {wl} hop {step}]: {name} "
+                  f"max_abs_err vs f64 oracle {err!r} (ratio "
+                  f"{err / scale!r})")
+            require(err <= ORACLE_TOL * scale,
+                    f"[{label}] {name} error {err} > {ORACLE_TOL} * {scale}")
+        del spec, mel, mf
+        for name, args, gemm_args in _any_store_args(x, win, fbank, wl,
+                                                     step):
+            _any_store_case(name, label, args, gemm_args, True)
+            if name == "mel_rows_fft":
+                _any_store_case(name, label, (*args[:-1], True), None, False)
+        del x, args, gemm_args
+        torch.cuda.empty_cache()
+    wl, step, t, rows, offset = ANY_RAGGED
+    sig = np.resize(segment(1), rows * ((t - 1) * step + wl) + offset)
+    padded = torch.from_numpy(sig.astype(np.float32)).to(dev)[
+        offset:].reshape(rows, -1)
+    win = torch.from_numpy(hamming(wl).astype(np.float32)).to(dev)
+    rng = np.random.default_rng(SEED)
+    fb = rng.random((wl // 2, wl // 2))
+    fb[rng.random(fb.shape) < 0.9] = 0.0
+    table = melfft.device_table(melfft.filterbank_table(fb), dev)
+    label = f"ragged {rows} rows offset {offset}"
+    _any_store_case("spec_rows_fft", label, (padded, win, wl, step, t), None,
+                    False)
+    for power in (False, True):
+        _any_store_case("mel_rows_fft", label,
+                        (padded, win, table, wl, step, t, power), None, False)
+    for wl in QUIET_WINDOWS:
+        _quiet_frames_case(wl, dev)
+    return launches
+
+
+def _quiet_frames_case(wl: int, dev) -> None:
+    """QUIET_GAINS' frames at odd window ``wl`` through the magnitude store
+    and B8 (ZAFTPU_FFT=matmul's route): each frame's max_abs_err against a
+    float64 torch.fft oracle beside its max. Gated: the store bit-equal to
+    its plain version, each sounding frame's error within ORACLE_TOL of
+    that frame's own max, a silent frame's output exactly zero (the
+    oracle's need not be: cuFFT's float64 transform of a prime length gave
+    2e-14 there)."""
+    rng = np.random.default_rng(SEED)
+    gains = torch.tensor(QUIET_GAINS, dtype=torch.float64)
+    frames = torch.from_numpy(rng.standard_normal((len(gains), wl)))
+    padded = (frames * gains[:, None]).reshape(-1).float().to(dev)
+    win = torch.from_numpy(hamming(wl).astype(np.float32)).to(dev)
+    t = len(gains)
+    oracle = torch.fft.rfft(padded.double().reshape(t, wl) * win.double(),
+                            dim=-1)[:, 1:wl // 2 + 1].abs()
+    store = melfft.spec_rows_fft(padded, win, wl, wl, t)
+    gemm = melfused.spec_rows(padded, win, wl, wl, t)
+    require(torch.equal(store, melfft.spec_rows_fft_plain(padded, win, wl,
+                                                          wl, t)),
+            f"quiet frames WL {wl}: the store is not bit-equal to its plain "
+            "version")
+    own = oracle.amax(dim=-1)
+    errs = [(store.double() - oracle).abs().amax(dim=-1),
+            (gemm.double() - oracle).abs().amax(dim=-1)]
+    for f in range(t):
+        print(f"quiet frames WL {wl} frame {f} (gain {QUIET_GAINS[f]!r}, "
+              f"max {float(own[f])!r}): store max_abs_err "
+              f"{float(errs[0][f])!r}, B8 {float(errs[1][f])!r}")
+    sounding = gains.to(dev) > 0
+    require(bool((errs[0] <= ORACLE_TOL * own)[sounding].all())
+            and not store[~sounding].any(),
+            f"quiet frames WL {wl}: errors {errs[0].tolist()} above "
+            f"{ORACLE_TOL} x each frame's max {own.tolist()}, or a silent "
+            "frame not zero")
+
+
+def _any_store_args(x: torch.Tensor, win: torch.Tensor, fbank: np.ndarray,
+                    wl: int, step: int) -> tuple:
+    """(name, the store's arguments, B8's or B9's) for the magnitude and
+    the mel store (magnitude) on the centre-padded ``x``."""
+    padded, t = centre_padded(x, wl, step)
+    table = melfft.device_table(melfft.filterbank_table(fbank), x.device)
+    fbank_t = torch.from_numpy(np.ascontiguousarray(
+        fbank.T.astype(np.float32))).to(x.device)
+    return (("spec_rows_fft", (padded, win, wl, step, t),
+             (padded, win, wl, step, t)),
+            ("mel_rows_fft", (padded, win, table, wl, step, t, False),
+             (padded, win, fbank_t, wl, step, t, False)))
+
+
+def _any_cases(dev):
+    """``(name, label, shape, args, tol)`` of the stores at ANY_WINDOWS'
+    600-s shapes (scripts/torch_ab.py --label any)."""
+    for label, sr, wl, step in ANY_WINDOWS:
+        x = torch.from_numpy(segment(0)[:SEGMENT_SECONDS * sr]).to(dev)
+        win = torch.from_numpy(hamming(wl).astype(np.float32)).to(dev)
+        for name, args, _ in _any_store_args(
+                x, win, melfilterbank(sr, wl, 40), wl, step):
+            yield name, "any", f"{label} WL {wl} hop {step}", args, EXACT_TOL
+
+
+def _any_store_case(name: str, label: str, args: tuple, gemm_args,
+                    timed: bool) -> None:
+    """One store off the rule against its plain version, bit for bit, and
+    (``timed``) its median ms beside its plain version's, B8's or B9's on
+    ``gemm_args``, the torch.stft yardstick's and its bound."""
+    kernel, plain = KERNELS[name][2:]
+    wl = args[3] if name == "mel_rows_fft" else args[2]
+    t = args[-2] if name == "mel_rows_fft" else args[-1]
+    lay = rfft.layout(wl)
+    shape = (f"WL {wl} T {t}"
+             f" {'odd, a complex FFT a frame' if lay.odd else 'even'}"
+             f"{f', Bluestein P {lay.p}' if lay.p else ''}")
+    got, ref = kernel(*args), plain(*args)
+    require(torch.equal(got, ref),
+            f"{name} [{label}] {shape}: not bit-equal to its plain version "
+            f"(max_abs_err {_max_abs(got - ref)!r})")
+    print(f"any window kernel {name} [{label}] {shape}: bit-equal to its "
+          "plain version")
+    del got, ref
+    if not timed:
+        return
+    gemm = melfused.spec_rows if name == "spec_rows_fft" else \
+        melfused.mel_rows
+    ms = median_ms(lambda: kernel(*args))
+    plain_ms = median_ms(lambda: plain(*args), reps=3, warmup=1)
+    gemm_ms = median_ms(lambda: gemm(*gemm_args), reps=5)
+    library_ms = median_ms(library_call(name, args))
+    bound_ms, bound_by = bound(name, args)
+    # The kernel's own operations (_store_ops with own) at the FP32 peak.
+    extra = _rows(args[0]) * t * (_store_ops(wl, own=True) - _store_ops(wl))
+    own_ms = (_work(name, args)[1] + extra) / PEAK_FP32 * 1e3
+    print(f"  {name} [{label}]: kernel {ms:.4f} ms, plain {plain_ms:.4f} "
+          f"ms (median of 3), GEMM ({gemm.__name__}, ZAFTPU_FFT=matmul's "
+          f"route) {gemm_ms:.4f} ms (median of 5), library "
+          f"{library_ms:.4f} ms; bound {bound_ms:.4f} ms by {bound_by} "
+          f"(the kernel's own operations {own_ms:.4f} ms); kernel / library "
+          f"{ms / library_ms:.3f}")
 
 
 def phase_hour(dispatch: str, segs: list, wl: int = WL) -> None:
@@ -2921,9 +3169,13 @@ def main() -> int:
     phase_build()
     timings = phase_kernels(dev)
     print(f"chip_smoke: kernels at {time.perf_counter() - start:.1f} s")
+    launches = {name: 0 for name in KERNELS}
+    for name, count in _with_env(DEFAULT, phase_any_window, dev).items():
+        launches[name] += count
+    torch.cuda.empty_cache()
+    print(f"chip_smoke: any window at {time.perf_counter() - start:.1f} s")
 
     x = torch.from_numpy(segment(0)).to(dev)
-    launches = {name: 0 for name in KERNELS}
     for env, phase, dispatch in (
             (DEFAULT, phase_main_path, "default"),
             (SPLIT, phase_main_path, "split"),
@@ -3053,6 +3305,9 @@ def main() -> int:
     for env, dispatch in ((DEFAULT, "default 16 kHz WL 400"),
                           (MELFUSE_OFF, "ZAFTPU_MELFUSE=0 16 kHz WL 400")):
         _with_env(env, phase_hour_features, dispatch, segs, True, WHISPER)
+    for env, dispatch in ((DEFAULT, "default WL 1323 (the stores)"),
+                          (FFT_MATMUL, "ZAFTPU_FFT=matmul WL 1323 (B8, B9)")):
+        _with_env(env, phase_hour_features, dispatch, segs, True, MEL_30MS)
     for env, dispatch in ((DEFAULT, "default: spectral kernel"),
                           (CQT_EXACT, "ZAFTPU_CQT_SCHEME=exact: spectral "
                            "kernel"),

@@ -17,7 +17,8 @@ other tree (B), B, A. Each builds its own kernels, prints the
 registers and spills that ``nvcc -Xptxas -v`` reports for the entry
 functions whose names contain the --ptxas text, and times each --kernel
 (a chip_smoke.py KERNELS name) at its chip_smoke.py shapes of the --label
-case (main by default; "40 ms" and "25 ms" the FFT kernels' windows):
+case (main by default; "40 ms" and "25 ms" the FFT kernels' windows;
+"any" the magnitude and mel stores at chip_smoke.ANY_WINDOWS' windows):
 median of 10 CUDA-event pairs around one launch, which includes the
 wrapper's host work before it, or with --launches N around N launches
 queued back to back, which leaves the device's time alone (divided by N).
@@ -96,7 +97,9 @@ def worker(root: str, side: str, kernels: list, needle: str,
     dev = torch.device("cuda", 0)
     main_t = chip_smoke.stft_padding(chip_smoke.SEGMENT_SECONDS * chip_smoke.SR,
                                      chip_smoke.WL, chip_smoke.STEP)[2]
-    for name, case, shape, args, _ in chip_smoke._kernel_cases(dev, main_t):
+    cases = (chip_smoke._any_cases(dev) if label == "any"
+             else chip_smoke._kernel_cases(dev, main_t))
+    for name, case, shape, args, _ in cases:
         if name in kernels and case == label:
             fn = chip_smoke.KERNELS[name][2]
             ms = chip_smoke.median_ms(

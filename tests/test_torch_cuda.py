@@ -16,6 +16,8 @@ This file imports neither JAX nor zaftpu, so on a machine without JAX it
 runs with ``python -m pytest --noconftest -m cuda tests/test_torch_cuda.py``.
 """
 
+import os
+
 import numpy as np
 import pytest
 import torch
@@ -1646,10 +1648,18 @@ def test_mdct_imdct_take_the_fast_kernels_on_both_dials(dev, wl, dial,
 
 MELFFT_SHAPES = [(16, 5), (400, 160), (1102, 551), (2032, 1000),
                  (2662, 1331), (2822, 1411), (2048, 1024), (4096, 256)]
+# The stores at windows rfft.fits refuses, one of each path: an odd N a
+# complex FFT a frame in the static block (441) and in the dynamic one
+# (2,205),
+# Bluestein with an even N (262: P 288 in the static block; 2,062: P 2,304
+# and 4,078: P 4,096 in the 4,096-value block) and with an odd N (131: P 288;
+# 1,031: P 2,304; 3,093: P 6,400 in the 8,192-value block).
+MELFFT_ANY_SHAPES = [(441, 147), (2205, 441), (262, 100), (2062, 512),
+                     (4078, 1024), (131, 50), (1031, 400), (3093, 1000)]
 
 
 def _filterbanks(wl):
-    """(name, dense (n_mels, WL/2) float64) for the stores' card tests: 1,
+    """(name, dense (n_mels, WL//2) float64) for the stores' card tests: 1,
     40, 128 and 800 random sparse rows (about a tenth nonzero, rows of
     zeros among them) and a dense random one."""
     rng = np.random.default_rng(wl)
@@ -1662,13 +1672,15 @@ def _filterbanks(wl):
     return out
 
 
-@pytest.mark.parametrize("wl,step", MELFFT_SHAPES)
+@pytest.mark.parametrize("wl,step", MELFFT_SHAPES + MELFFT_ANY_SHAPES)
 @pytest.mark.parametrize("t", [0, 1, 2, 1001])
 @pytest.mark.parametrize("lead,offset", [((), 0), ((3,), 1)])
 def test_melfft_stores_match_plain(dev, wl, step, t, lead, offset):
     """Both stores bit-equal to their plain versions (torch.equal), batched
     and misaligned, with 1 to 800 mels and a dense foreign filterbank,
-    magnitude and power; zero frames give an empty output and no launch."""
+    magnitude and power, at the rule's windows and on every path off it (T
+    1 and 1,001: a block's last rows empty); zero frames give an empty
+    output and no launch."""
     padded, win = _inputs(wl, step, max(t, 1), dev, lead, offset)
     before = (melfft.spec_rows_fft.launches, melfft.mel_rows_fft.launches)
     spec = melfft.spec_rows_fft(padded, win, wl, step, t)
@@ -1703,30 +1715,107 @@ def test_magnitude_store_is_the_half_stores_bins(dev, wl, step):
 
 
 def test_melfft_entries_take_exactly_what_fits_takes(dev):
-    """The two C entries take exactly the lengths rfft.fits takes and refuse
-    every other before any launch (T = 0 returns after the checks); the
-    mel entry refuses n_mels < 1 too; the wrappers raise ValueError on the
+    """The two C entries take exactly the lengths melfft.fits takes (16 to
+    4,096), each with its Bluestein length (rfft.layout(WL).p, 0 where the
+    passes take the FFT's own length), and refuse every other length and a
+    wrong P before any launch (T = 0 returns after the checks); the mel
+    entry refuses n_mels < 1 too; the wrappers raise ValueError on the
     same lengths."""
     lib = _build.library()
     buf = torch.zeros(8192, device=dev)
     ints = torch.zeros(8, dtype=torch.int32, device=dev)
     p = buf.data_ptr()
     for wl in range(1, 4200):
-        err = lib.zt_rfft_spec(p, p, p, p, 1, 8192, 0, wl, 1, 0)
-        assert (err == 0) is rfft.fits(wl), (wl, err)
+        big = rfft.layout(wl).p if melfft.fits(wl) else 0
+        err = lib.zt_rfft_spec(p, p, p, p, 1, 8192, 0, wl, 1, big, 0)
+        assert (err == 0) is melfft.fits(wl), (wl, err)
         err = lib.zt_rfft_mel(p, p, p, ints.data_ptr(), ints.data_ptr(), p,
-                              p, 1, 8192, 0, wl, 1, 1, 0, 0)
-        assert (err == 0) is rfft.fits(wl), (wl, err)
+                              p, 1, 8192, 0, wl, 1, big, 1, 0, 0)
+        assert (err == 0) is melfft.fits(wl), (wl, err)
     assert lib.zt_rfft_mel(p, p, p, ints.data_ptr(), ints.data_ptr(), p, p,
-                           1, 8192, 0, 2048, 1, 0, 0, 0) != 0
-    for wl in (262, 2062, 255, 4098):
+                           1, 8192, 0, 2048, 1, 0, 0, 0, 0) != 0
+    # P: none at a length the passes take; at least 2M - 1, free of primes
+    # above 127 and at most 8,192 under Bluestein.
+    for wl, big in ((2048, 288), (441, 882), (262, 0), (262, 260),
+                    (262, 262), (2062, 2063), (3093, 8194)):
+        assert lib.zt_rfft_spec(p, p, p, p, 1, 8192, 0, wl, 1, big, 0) != 0
+    for wl, big in ((262, 261), (262, 2048), (3093, 8192)):
+        assert lib.zt_rfft_spec(p, p, p, p, 1, 8192, 0, wl, 1, big, 0) == 0
+    for wl in (15, 4097):
         padded, win = _inputs(wl, wl // 2, 3, dev)
         table = melfft.device_table(melfft.filterbank_table(
             np.ones((2, wl // 2))), dev)
-        with pytest.raises(ValueError, match="prime factor"):
+        with pytest.raises(ValueError, match="must be in"):
             melfft.spec_rows_fft(padded, win, wl, wl // 2, 3)
-        with pytest.raises(ValueError, match="prime factor"):
+        with pytest.raises(ValueError, match="must be in"):
             melfft.mel_rows_fft(padded, win, table, wl, wl // 2, 3, False)
+
+
+# One window of each path rfft_any and the static path take, by block
+# (2,048 / 4,096 / 8,192 values), layout (odd, even, Bluestein) and the
+# radices of its plan (rfft.radices of N, N/2 or P): the static path's
+# ends (16, 4,096) and halves of radix 127 (254) and 23 x 89 (4,094); odd
+# N with radices 17 (17, 255), 19 x 29 (551), 23 x 89 (2,047), 127 (127),
+# 3 and 7 (441) and in the 4,096-value block 13 (4,095), 5 and 7 (2,205),
+# 5 only (3,125), 59 (3,481); Bluestein with an even N (262: P 288, 514:
+# P 576, 2,062: P 2,304, 4,078: P 4,096) and an odd N (131: P 288, 393: P
+# 800, 1,031: P 2,304, 2,039: P 4,096, and in the 8,192-value block 2,049:
+# P 4,608, 3,093: P 6,400, 4,093: P 8,192).
+EVERY_PATH_WINDOWS = [16, 254, 4096, 17, 255, 551, 2047, 127, 441, 4095,
+                      2205, 3125, 3481, 262, 514, 2062, 4078, 4094, 131, 393,
+                      1031, 2039, 2049, 3093, 4093]
+
+
+def _spec_store_bit_equal(dev, wl):
+    """The magnitude store at ``wl`` launches once and equals its plain
+    version bit for bit: 3 frames, 2 rows, a hop that does not divide the
+    window, misaligned."""
+    before = melfft.spec_rows_fft.launches
+    step = wl // 3 + 1
+    padded, win = _inputs(wl, step, 3, dev, (2,), 1)
+    got = melfft.spec_rows_fft(padded, win, wl, step, 3)
+    assert torch.equal(got, melfft.spec_rows_fft_plain(padded, win, wl,
+                                                       step, 3)), wl
+    assert melfft.spec_rows_fft.launches == before + 1
+
+
+@pytest.mark.parametrize("wl", EVERY_PATH_WINDOWS)
+def test_spec_store_takes_every_window_bit_equal(dev, wl):
+    """EVERY_PATH_WINDOWS through _spec_store_bit_equal; every window from
+    16 to 4,096 with ZAFTPU_CUDA_SWEEP=1 (the test below)."""
+    _spec_store_bit_equal(dev, wl)
+
+
+@pytest.mark.skipif(os.environ.get("ZAFTPU_CUDA_SWEEP") != "1",
+                    reason="the sweep of all 4,081 windows takes about 3 "
+                    "minutes on an H100; set ZAFTPU_CUDA_SWEEP=1")
+def test_spec_store_every_window_sweep(dev):
+    """Every window from 16 to 4,096 through _spec_store_bit_equal."""
+    for wl in range(16, 4097):
+        _spec_store_bit_equal(dev, wl)
+
+
+@pytest.mark.parametrize("wl", [3093, 4095, 2062])
+def test_mel_store_every_bin_a_mel_at_the_largest_blocks(dev, wl):
+    """The mel store with one mel a bin (1,546 at WL 3,093, the 8,192-value
+    block; 2,047 at 4,095 and 1,031 at 2,062, the 4,096-value block: the
+    largest free buffers), an identity and a dense random filterbank, power
+    and magnitude: bit-equal to the plain version, and the identity's mels
+    are the magnitude store's bins."""
+    step, t = 1000, 301
+    padded, win = _inputs(wl, step, t, dev, (2,), 1)
+    f = wl // 2
+    rng = np.random.default_rng(wl)
+    spec = melfft.spec_rows_fft(padded, win, wl, step, t)
+    for name, fb in (("identity", np.eye(f)),
+                     ("dense", rng.standard_normal((f, f)))):
+        table = melfft.device_table(melfft.filterbank_table(fb), dev)
+        for power in (False, True):
+            got = melfft.mel_rows_fft(padded, win, table, wl, step, t, power)
+            assert torch.equal(got, melfft.mel_rows_fft_plain(
+                padded, win, table, wl, step, t, power)), (name, power)
+            if name == "identity" and not power:
+                assert torch.equal(got, spec)
 
 
 _ROUTE_COUNTERS = {"spec_rows_fft": melfft.spec_rows_fft,
@@ -1745,22 +1834,27 @@ _ROUTE_COUNTERS = {"spec_rows_fft": melfft.spec_rows_fft,
     (1102, "1", None, {"spec_rows_fft", "mel_rows_fft"},
      {"spec_rows_fft", "mel_rows_fft"}),
     (2048, "0", None, {"frames_rfft_fft"}, {"frames_rfft_fft"}),
-    (2062, None, None, {"spec_rows", "mel_rows"}, {"frames_rfft_split4"}),
+    (2062, None, None, {"spec_rows_fft", "mel_rows_fft"},
+     {"spec_rows_fft", "mel_rows_fft"}),
     (2048, None, "matmul", {"spec_rows", "mel_rows"},
      {"frames_rfft_split4"}),
-    (2062, "1", None, {"spec_rows", "mel_rows"},
-     {"spec_rows", "mel_rows_split4"}),
+    (2062, "1", None, {"spec_rows_fft", "mel_rows_fft"},
+     {"spec_rows_fft", "mel_rows_fft"}),
     (2048, "1", "matmul", {"spec_rows", "mel_rows"},
      {"spec_rows", "mel_rows_split4"}),
-    (2062, "0", None, {"frames_rfft"}, {"frames_rfft_split4"})])
+    (2062, "0", None, {"frames_rfft"}, {"frames_rfft_split4"}),
+    (1323, None, None, {"spec_rows_fft", "mel_rows_fft"},
+     {"spec_rows_fft", "mel_rows_fft"}),
+    (2062, None, "matmul", {"spec_rows", "mel_rows"},
+     {"frames_rfft_split4"})])
 @pytest.mark.parametrize("dial", ["highest", "split4"])
 def test_mel_routes_launch_counts_on_card(dev, wl, melfuse, fft, want,
                                           want_split4, dial, monkeypatch):
     """spectrogram, melspectrogram and mfcc of a float32 card signal launch
     the kernels of their route (kernels/melfused.route) and no others, on
-    both dials: the stores at the rule's windows unless ZAFTPU_MELFUSE=0,
-    B8 / B9 (B9-s4) or the half spectrum off the rule and under
-    ZAFTPU_FFT=matmul."""
+    both dials: the stores at every window from 16 to 4,096 (2,062 by
+    Bluestein, 1,323 a complex FFT a frame) unless ZAFTPU_MELFUSE=0, B8 / B9
+    (B9-s4) or the half spectrum under ZAFTPU_FFT=matmul."""
     monkeypatch.setenv("ZAFTPU_PRECISION", dial)
     for name, value in (("ZAFTPU_MELFUSE", melfuse), ("ZAFTPU_FFT", fft)):
         if value is None:

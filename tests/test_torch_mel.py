@@ -184,9 +184,11 @@ def test_dispatch_takes_the_lever(melfuse, ran, fbank, monkeypatch):
     ("1", {"spec_rows", "mel_rows"})])
 def test_dispatch_off_the_fft_rule_takes_the_kernels(melfuse, ran,
                                                      monkeypatch):
-    """At a window the FFT rule leaves to the GEMM (WL 262: its half 131
-    is a prime above 127) the front ends take the magnitude and mel
-    kernels unless ZAFTPU_MELFUSE=0."""
+    """With the FFT rule off (ZAFTPU_FFT=matmul; at WL 262, whose half 131
+    is a prime above 127, the stores take it by Bluestein otherwise) the
+    front ends take the magnitude and mel kernels unless
+    ZAFTPU_MELFUSE=0."""
+    monkeypatch.setenv("ZAFTPU_FFT", "matmul")
     fb = zaftpu_torch.melfilterbank(SR, 262, MELS)
     assert _front_end_plain_calls(262, fb, monkeypatch, melfuse) == ran
 
@@ -195,13 +197,14 @@ def test_dispatch_off_the_fft_rule_takes_the_kernels(melfuse, ran,
     (None, 2048, "fft"), ("auto", 16, "fft"), (None, 4096, "fft"),
     ("0", 2048, "split"), ("1", 2048, "fft"), (None, 1102, "fft"),
     (None, 8, "kernel"), (None, 8192, "split"), ("0", 1102, "split"),
-    ("1", 1102, "fft"), (None, 1764, "fft"), (None, 262, "kernel"),
-    ("0", 262, "split"), (None, 2062, "kernel"), (None, 2822, "fft")])
+    ("1", 1102, "fft"), (None, 1764, "fft"), (None, 262, "fft"),
+    ("0", 262, "split"), (None, 2062, "fft"), (None, 2822, "fft")])
 def test_melfuse_gate_follows_the_fft_rule(melfuse, wl, wanted, monkeypatch):
     """On the exact dial ZAFTPU_MELFUSE=0 gives the split path everywhere;
-    otherwise the FFT shape rule gives its stores, a window above 4096 the
-    split path (zaftpu's gate on its direct engine) and any other window
-    the kernels."""
+    otherwise the stores' rule gives the stores at every window from 16 to
+    4096 (262 and 2062, whose halves have a prime above 127, by
+    Bluestein), a window above 4096 the split path (zaftpu's gate on its
+    direct engine) and a window below 16 the kernels."""
     monkeypatch.delenv("ZAFTPU_PRECISION", raising=False)
     if melfuse is None:
         monkeypatch.delenv("ZAFTPU_MELFUSE", raising=False)
@@ -211,10 +214,11 @@ def test_melfuse_gate_follows_the_fft_rule(melfuse, wl, wanted, monkeypatch):
         assert tmelfused.route(dtype, wl) == wanted
 
 
-def test_many_mels_take_the_kernel_path():
+def test_many_mels_take_the_kernel_path(monkeypatch):
     """The number of mels picks no path: a 300-row filterbank still goes
-    through mel_rows (at a window the FFT rule leaves to the kernels: WL
-    262, its half 131 a prime above 127) and matches zaftpu."""
+    through mel_rows (at WL 262 under ZAFTPU_FFT=matmul, which leaves the
+    window to the kernels) and matches zaftpu."""
+    monkeypatch.setenv("ZAFTPU_FFT", "matmul")
     fb = np.random.default_rng(5).random((300, 131))
     x = torch.from_numpy(np.random.default_rng(3).standard_normal(4000))
     calls = tmelfused.mel_rows_plain.calls

@@ -356,10 +356,10 @@ def _bad_call(case):
     calls = {
         "spec f64": lambda: spec(sig.double(), win, wl, step, t),
         "mel f64": lambda: mel(sig.double(), win, tab, wl, step, t, False),
-        "spec window": lambda: spec(torch.zeros(5000), torch.zeros(262),
-                                    262, 131, 9),
-        "mel window": lambda: mel(torch.zeros(5000), torch.zeros(262),
-                                  _table(np.ones((4, 131))), 262, 131, 9,
+        "spec window": lambda: spec(torch.zeros(5000), torch.zeros(15),
+                                    15, 5, 9),
+        "mel window": lambda: mel(torch.zeros(5000), torch.zeros(15),
+                                  _table(np.ones((4, 7))), 15, 5, 9,
                                   False),
         "mel table": lambda: mel(sig, win, _table(np.ones((4, 128))), wl,
                                  step, t, False),
@@ -381,9 +381,10 @@ def _bad_call(case):
                                   "spec batch"])
 def test_cuda_halves_refuse_before_launch(case, monkeypatch):
     """The CUDA halves check the dtype (signal and table), the window
-    (rfft.fits), the table's bins, the signal's length, the hop and the
-    grid before they touch the library: float64 raises NotImplementedError,
-    the rest ValueError; nothing is launched or counted."""
+    (melfft.fits: 16 to 4,096), the table's bins, the signal's length, the
+    hop and the grid before they touch the library: float64 raises
+    NotImplementedError, the rest ValueError; nothing is launched or
+    counted."""
     def no_library():
         raise AssertionError("the launch was reached")
 
@@ -421,30 +422,36 @@ def test_plain_version_refuses_a_table_for_another_window():
                              t, False)
 
 
-# The route of kernels/melfused.route: five rows x both dials.
+# The route of kernels/melfused.route: twelve rows x both dials. WL 262
+# (its half 131 a prime above 127: Bluestein) and 401 (odd, and a prime:
+# a complex FFT a frame, by Bluestein) take the stores as the rule's
+# windows do; ZAFTPU_FFT=matmul sends 2,062 (Bluestein too) to the GEMMs as
+# it does 2048.
 ROUTE_ROWS = [
     # (window, ZAFTPU_MELFUSE, ZAFTPU_FFT, exact dial, split4 dial)
     (2048, None, None, "fft", "fft"),
     (2048, "1", None, "fft", "fft"),
     (1102, "auto", None, "fft", "fft"),
     (2048, "0", None, "split", "split"),
-    (262, None, None, "kernel", "split"),
+    (262, None, None, "fft", "fft"),
     (2048, None, "matmul", "kernel", "split"),
-    (262, "1", None, "kernel", "kernel"),
+    (262, "1", None, "fft", "fft"),
     (2048, "1", "matmul", "kernel", "kernel"),
     (262, "0", None, "split", "split"),
     (2048, "0", "matmul", "split", "split"),
+    (401, None, None, "fft", "fft"),
+    (2062, None, "matmul", "kernel", "split"),
 ]
 
 
 @pytest.mark.parametrize("wl,melfuse,fft,exact,split4", ROUTE_ROWS)
 @pytest.mark.parametrize("dial", ["highest", "split4"])
 def test_route_table(wl, melfuse, fft, exact, split4, dial, monkeypatch):
-    """The rule's windows take the stores on both dials unless
-    ZAFTPU_MELFUSE=0; off the rule (or under ZAFTPU_FFT=matmul) auto takes
-    B8 / B9 on the exact dial and the split path under split4, 1 takes
-    B8 / B9 (B9-s4 under split4), 0 the split path. float64 follows the
-    exact dial's column on both dials."""
+    """Every window from 16 to 4,096 takes the stores on both dials unless
+    ZAFTPU_MELFUSE=0; under ZAFTPU_FFT=matmul auto takes B8 / B9 on the
+    exact dial and the split path under split4, 1 takes B8 / B9 (B9-s4
+    under split4), 0 the split path. float64 follows the exact dial's
+    column on both dials."""
     monkeypatch.setenv("ZAFTPU_PRECISION", dial)
     for name, value in (("ZAFTPU_MELFUSE", melfuse), ("ZAFTPU_FFT", fft)):
         if value is not None:

@@ -518,25 +518,26 @@ def test_fused2_lever_is_off_unless_one(monkeypatch):
                                             ("auto", "split"),
                                             ("0", "split"), ("1", "kernel")])
 def test_melfuse_gate_under_split4(melfuse, wanted, monkeypatch):
-    """Under split4 a float32 signal off the FFT rule (WL 262 = 2 * 131)
-    takes the split4 half spectrum unless ZAFTPU_MELFUSE=1 forces the
-    kernels (``wanted``); at the rule's windows the FFT kernel's stores
-    unless ZAFTPU_MELFUSE=0."""
+    """Under split4 a float32 signal off the stores' rule (WL 15, below
+    its 16) takes the split4 half spectrum unless ZAFTPU_MELFUSE=1 forces
+    the kernels (``wanted``); at the rule's windows (every one from 16 to
+    4,096: 262 = 2 * 131 by Bluestein too) the FFT kernel's stores unless
+    ZAFTPU_MELFUSE=0."""
     monkeypatch.setenv("ZAFTPU_PRECISION", "split4")
     if melfuse is None:
         monkeypatch.delenv("ZAFTPU_MELFUSE", raising=False)
     else:
         monkeypatch.setenv("ZAFTPU_MELFUSE", melfuse)
     fft = "split" if melfuse == "0" else "fft"
-    assert tmelfused.route(torch.float32, 262) == wanted
-    for wl in (2048, 1102):
+    assert tmelfused.route(torch.float32, 15) == wanted
+    for wl in (2048, 1102, 262):
         assert tmelfused.route(torch.float32, wl) == fft
     # float64 never lowers, so the dial does not move it: the lever and the
-    # FFT shape rule decide, as on the exact dial (the FFT at WL 2048 and
-    # 1102, the kernels at WL 262).
-    assert tmelfused.route(torch.float64, 262) == (
+    # stores' rule decide, as on the exact dial (the FFT at WL 2048, 1102
+    # and 262, the kernels at WL 15).
+    assert tmelfused.route(torch.float64, 15) == (
         "split" if melfuse == "0" else "kernel")
-    for wl in (2048, 1102):
+    for wl in (2048, 1102, 262):
         assert tmelfused.route(torch.float64, wl) == fft
 
 

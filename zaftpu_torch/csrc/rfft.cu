@@ -24,6 +24,9 @@
 // B9) and that kernel's _kernel_split4 (:142, B9-s4) at those window
 // lengths on both dials; melfused.cu keeps every other length, an explicit
 // operator and ZAFTPU_FFT=matmul (kernels/melfused.route states the rule).
+// The magnitude and mel stores also take every other window from 16 to
+// 4096 (rfft_any, below), so there melfused.cu keeps only a window below
+// 16 and ZAFTPU_FFT=matmul.
 // The TPU kernels contract each frame with a dense (N, F) cos/sin
 // operator on the matrix unit: 4 N F FLOP per frame. Here the same sums
 // come from an FFT, about 2.5 N log2 N FLOP at a smooth N and more at a
@@ -71,6 +74,33 @@
 //     leaves threads idle at a few mels (80 outputs for 256 threads at WL
 //     2048 and 40 mels) and rows of 4 to 163 terms unbalanced at
 //     MelConfig(); a later change may split the rows.
+//
+// Off that rule the magnitude and mel stores run rfft_any: an odd N
+// transforms each frame alone as a complex N-point FFT with zero imaginary
+// parts (the passes take N: the odd radices and primes up to 127). That is
+// twice a real FFT's work, but a frame's bins round with no other frame's:
+// two frames packed as one FFT's real and imaginary parts put about 1e-7
+// of the loud one's magnitude into a silent partner, which a log-mel or
+// MFCC turns into a different value than the GEMM's exact zero (PERF.md).
+// An FFT length M (N/2, or N when odd) with a prime factor above 127 runs
+// by Bluestein's chirp z-transform: M-point DFT = conj c[k] (a * c)[k],
+// a[m] = z[m] conj c[m], c[j] = exp(i pi j^2 / M), the convolution
+// circular over P >= 2M - 1 values the passes take
+// (kernels/rfft.bluestein_length: 2,304 for M 1,031, 4,096 for 2,039) as a
+// forward FFT, a product with the host table B = FFT_P(c wrapped) / P and
+// a conjugated forward FFT. A block holds as many rows as fit in the
+// smallest of 2,048, 4,096 and 8,192 values that holds one (an odd N above
+// 2,048, or P, takes the larger ones) and allocates two buffers of just
+// those rows in dynamic shared memory (up to 128 KB; cudaFuncSetAttribute
+// above 48 KB): at WL 2,062 (P 2,304) and 2,205 the stores took 0.76-0.87
+// of the time of buffers of the whole 4,096 values on an H100
+// (scripts/torch_ab.py --label any, PERF.md), and 512 threads a block took
+// 1.08-1.35 times as long as 256 at WL 2,062 and 4,078. Counted as the
+// M-point DFT it computes (5 M log2 M operations), the 600-s WL 2,062
+// magnitude store (hop 512) is bound by its bytes, 0.095 ms
+// (chip_smoke.bound); Bluestein's own work, two P-point FFTs and three
+// pointwise products, would take 0.224 ms at the FP32 peak, and B8 GEMM's
+// FP32 bound is 6.56 ms.
 #include "stockham.cuh"
 
 namespace {
@@ -201,17 +231,168 @@ rfft_kernel(const float* __restrict__ sig, const float* __restrict__ win,
   }
 }
 
+// The magnitude and mel stores at a window the static path refuses, on
+// `rows` rows of L values in dynamic shared memory (two buffers of rows * L
+// values), row r frame t0 + r: ODD holds z[m] = x[m] w[m] (m < N, zero
+// imaginary parts) and runs the N-point complex FFT, whose bins 1..(N-1)/2
+// are the frame's (no Nyquist bin); otherwise the frame's even/odd
+// packing, M = N/2 points, and split_bin. BLUE runs that M-point FFT (M =
+// N or N/2) by Bluestein's chirp z-transform on rows of L = P values: z[m]
+// times conj c[m], zeros to P, the forward passes (table W_P), times B[k],
+// conjugated, the forward passes, conjugated, times conj c[k]. tab holds
+// W_N (N values), then under BLUE W_P (P), conj c (M) and B (P)
+// (kernels/rfft.store_tables). Then the stores of rfft_kernel, over F =
+// N/2 (rounded down) bins a frame.
+template <bool ODD, bool BLUE, Store S>
+__global__ void __launch_bounds__(zt::kThreads)
+rfft_any(const float* __restrict__ sig, const float* __restrict__ win,
+         const float2* __restrict__ tab, float* __restrict__ out,
+         long long sig_len, int T, int n, int step, int P, int rows,
+         zt::Plan plan, Mel mel) {
+  extern __shared__ __align__(16) float2 smem[];
+  const int M = ODD ? n : n / 2;
+  const int L = BLUE ? P : M;     // values a row
+  const zt::Buffers buf{smem, rows * L};
+  const int F = n / 2;            // bins 1..F a frame
+  const long long t0 = (long long)blockIdx.x * rows;
+  const float* sb = sig + blockIdx.y * sig_len;
+  const float2* twp = BLUE ? tab + n : tab;  // the passes' table, W_L
+  const float2* chirp = tab + n + P;
+  const float2* big = chirp + M;
+
+  for (int e = threadIdx.x; e < rows * L; e += blockDim.x) {
+    const int r = e / L;
+    const int m = e - r * L;
+    float2 v = make_float2(0.f, 0.f);
+    const long long t = t0 + r;
+    if (m < M && t < T) {
+      const float* p = sb + t * step;
+      if constexpr (ODD) {
+        v.x = __fmul_rn(p[m], win[m]);
+      } else {
+        v = make_float2(__fmul_rn(p[2 * m], win[2 * m]),
+                        __fmul_rn(p[2 * m + 1], win[2 * m + 1]));
+      }
+      if constexpr (BLUE) v = zt::cmul(v, __ldg(chirp + m));
+    }
+    buf[0][e] = v;
+  }
+  __syncthreads();
+
+  int cur = 0;
+  zt::fft_rows(buf, cur, twp, L, rows, L, plan);
+  if constexpr (BLUE) {
+    for (int e = threadIdx.x; e < rows * L; e += blockDim.x) {
+      const float2 y = zt::cmul(buf[cur][e], __ldg(big + e % L));
+      buf[cur][e] = make_float2(y.x, -y.y);
+    }
+    __syncthreads();
+    zt::fft_rows(buf, cur, twp, L, rows, L, plan);
+    for (int e = threadIdx.x; e < rows * M; e += blockDim.x) {
+      const int r = e / M;
+      const int k = e - r * M;
+      float2* z = buf[cur] + r * L + k;
+      *z = zt::cmul(make_float2(z->x, -z->y), __ldg(chirp + k));
+    }
+    __syncthreads();
+  }
+
+  // Bins 1..F: the magnitudes straight out, or into the free buffer.
+  float* vals = reinterpret_cast<float*>(buf[cur ^ 1]);
+  for (int e = threadIdx.x; e < rows * F; e += blockDim.x) {
+    const int f = e / F;
+    const int k = e - f * F + 1;
+    const long long t = t0 + f;
+    if (t >= T) continue;
+    const float2 x = ODD ? buf[cur][f * L + k]
+                         : split_bin(buf[cur] + f * L, tab, k, M);
+    const float p = __fadd_rn(__fmul_rn(x.x, x.x), __fmul_rn(x.y, x.y));
+    if constexpr (S == Store::kSpec) {
+      out[((long long)blockIdx.y * T + t) * F + k - 1] = __fsqrt_rn(p);
+    } else {
+      vals[e] = mel.power ? p : __fsqrt_rn(p);
+    }
+  }
+  if constexpr (S == Store::kMel) {
+    __syncthreads();
+    for (int o = threadIdx.x; o < rows * mel.n_mels; o += blockDim.x) {
+      const int f = o / mel.n_mels;
+      const int m = o - f * mel.n_mels;
+      const long long t = t0 + f;
+      if (t >= T) continue;
+      const float* v = vals + f * F;
+      const int end = __ldg(mel.rowptr + m + 1);
+      float acc = 0.f;
+      for (int j = __ldg(mel.rowptr + m); j < end; ++j) {
+        acc = __fadd_rn(acc, __fmul_rn(__ldg(mel.weights + j),
+                                       v[__ldg(mel.cols + j)]));
+      }
+      out[((long long)blockIdx.y * T + t) * mel.n_mels + m] = acc;
+    }
+  }
+}
+
+// How rfft_any transforms a window the static path refuses: the values a
+// row holds (M, or P under Bluestein), the rows of a block and the plan. P
+// is the caller's Bluestein length (kernels/rfft.bluestein_length), 0 when
+// the passes take M; false when the window or P does not fit. A block
+// holds as many rows as fit in the smallest of 2,048, 4,096 and 8,192
+// values that holds one, and allocates only those rows.
+struct AnyPlan {
+  bool odd, blue;
+  int L, rows, cap;
+  zt::Plan plan;
+};
+
+inline bool any_plan(int n, int P, AnyPlan* a) {
+  if (n < 16 || n > 2 * zt::kElems) return false;
+  a->odd = n % 2 == 1;
+  const int M = a->odd ? n : n / 2;
+  a->blue = !zt::make_plan(M, &a->plan);
+  if (a->blue ? (P < 2 * M - 1 || P > zt::kMaxElems ||
+                 !zt::make_plan(P, &a->plan))
+              : P != 0) {
+    return false;
+  }
+  a->L = a->blue ? P : M;
+  a->cap = a->L <= zt::kElems ? zt::kElems
+                              : a->L <= 2 * zt::kElems ? 2 * zt::kElems
+                                                       : zt::kMaxElems;
+  a->rows = a->cap / a->L;
+  return true;
+}
+
+template <bool ODD, bool BLUE, Store S>
+int launch_any(const float* s, const float* w, const float2* t, float* y,
+               int batch, long long sig_len, int T, int n, int step,
+               const AnyPlan& a, int P, cudaStream_t st, Mel mel) {
+  auto kernel = rfft_any<ODD, BLUE, S>;
+  const int bytes = 2 * a.rows * a.L * (int)sizeof(float2);
+  if (bytes > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+    if (err != cudaSuccess) return (int)err;
+  }
+  const dim3 grid(zt::ceil_div(T, a.rows), batch);
+  kernel<<<grid, zt::kThreads, bytes, st>>>(s, w, t, y, sig_len, T, n, step, P,
+                                       a.rows, a.plan, mel);
+  return (int)cudaGetLastError();
+}
+
+// The checks of every store's arguments but the window's.
+template <Store S>
+bool args_ok(int WL, int step, int batch, const void* tw, const Mel& mel) {
+  return step >= 1 && step <= WL && batch <= 65535 && zt::aligned8(tw) &&
+         (S != Store::kMel ||
+          (mel.n_mels >= 1 && mel.rowptr && mel.cols && mel.weights));
+}
+
 template <Store S>
 int launch(const void* sig, const void* win, const void* tw, void* out,
            int batch, long long sig_len, int T, int WL, int step,
            void* stream, Mel mel = Mel{}) {
   zt::Plan plan;
-  if (!zt::fft_fits(WL, &plan) || step < 1 || step > WL || batch > 65535 ||
-      !zt::aligned8(tw)) {
-    return (int)cudaErrorInvalidValue;
-  }
-  if (S == Store::kMel && (mel.n_mels < 1 || !mel.rowptr || !mel.cols ||
-                           !mel.weights)) {
+  if (!zt::fft_fits(WL, &plan) || !args_ok<S>(WL, step, batch, tw, mel)) {
     return (int)cudaErrorInvalidValue;
   }
   if (T <= 0 || batch <= 0) return (int)cudaSuccess;
@@ -231,6 +412,39 @@ int launch(const void* sig, const void* win, const void* tw, void* out,
         s, w, t, y, sig_len, T, WL, step, plan, mel);
   }
   return (int)cudaGetLastError();
+}
+
+// The magnitude or mel store at any window from 16 to 4096: rfft_kernel
+// where fft_fits (P = 0), else rfft_any in the block its row needs.
+template <Store S>
+int launch_store(const void* sig, const void* win, const void* tw, void* out,
+                 int batch, long long sig_len, int T, int WL, int step, int P,
+                 void* stream, Mel mel = Mel{}) {
+  zt::Plan plan;
+  if (P == 0 && zt::fft_fits(WL, &plan)) {
+    return launch<S>(sig, win, tw, out, batch, sig_len, T, WL, step, stream,
+                     mel);
+  }
+  AnyPlan a;
+  if (!any_plan(WL, P, &a) || !args_ok<S>(WL, step, batch, tw, mel)) {
+    return (int)cudaErrorInvalidValue;
+  }
+  if (T <= 0 || batch <= 0) return (int)cudaSuccess;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const float* s = static_cast<const float*>(sig);
+  const float* w = static_cast<const float*>(win);
+  const float2* t = static_cast<const float2*>(tw);
+  float* y = static_cast<float*>(out);
+  if (a.odd && a.blue) {
+    return launch_any<true, true, S>(s, w, t, y, batch, sig_len, T, WL, step,
+                                     a, P, st, mel);
+  }
+  if (a.odd) {
+    return launch_any<true, false, S>(s, w, t, y, batch, sig_len, T, WL,
+                                      step, a, P, st, mel);
+  }
+  return launch_any<false, true, S>(s, w, t, y, batch, sig_len, T, WL, step,
+                                    a, P, st, mel);
 }
 
 }  // namespace
@@ -267,12 +481,17 @@ ZT_EXPORT int zt_rfft_full(const void* sig, const void* win, const void* tw,
 }
 
 // As zt_rfft_half, out the magnitudes (batch, T, WL/2) float32 of bins
-// 1..WL/2: out[b, t, k - 1] = sqrt(re^2 + im^2) of zt_rfft_half's bin k.
+// 1..WL/2 (WL/2 rounded down: an odd WL has no Nyquist bin): out[b, t, k -
+// 1] = sqrt(re^2 + im^2) of bin k of the windowed frame's DFT, at any WL in
+// [16, 4096]. tw: kernels/rfft.store_tables(WL), P: its Bluestein length
+// (kernels/rfft.layout(WL).p; 0 where the passes take the FFT's own
+// length). At a WL zt_rfft_half takes (P = 0) they are sqrt(re^2 + im^2)
+// of its bins.
 ZT_EXPORT int zt_rfft_spec(const void* sig, const void* win, const void* tw,
                            void* out, int batch, long long sig_len, int T,
-                           int WL, int step, void* stream) {
-  return launch<Store::kSpec>(sig, win, tw, out, batch, sig_len, T, WL, step,
-                              stream);
+                           int WL, int step, int P, void* stream) {
+  return launch_store<Store::kSpec>(sig, win, tw, out, batch, sig_len, T, WL,
+                                    step, P, stream);
 }
 
 // As zt_rfft_spec (power != 0: the squares, unrooted), each frame's values
@@ -284,10 +503,10 @@ ZT_EXPORT int zt_rfft_spec(const void* sig, const void* win, const void* tw,
 ZT_EXPORT int zt_rfft_mel(const void* sig, const void* win, const void* tw,
                           const void* rowptr, const void* cols,
                           const void* weights, void* out, int batch,
-                          long long sig_len, int T, int WL, int step,
+                          long long sig_len, int T, int WL, int step, int P,
                           int n_mels, int power, void* stream) {
-  return launch<Store::kMel>(
-      sig, win, tw, out, batch, sig_len, T, WL, step, stream,
+  return launch_store<Store::kMel>(
+      sig, win, tw, out, batch, sig_len, T, WL, step, P, stream,
       Mel{static_cast<const int*>(rowptr), static_cast<const int*>(cols),
           static_cast<const float*>(weights), n_mels, power});
 }

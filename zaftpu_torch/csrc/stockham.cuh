@@ -2,9 +2,12 @@
 // memory, shared by the forward real FFT (rfft.cu) and the inverse real
 // FFT + overlap-add (irfft.cu).
 //
-// A 256-thread block transforms up to kElems complex values at once: the
-// FFTs of fpb consecutive M-point rows between two shared-memory buffers
-// (16 KB each), one barrier per pass, in the plan the host gives (Plan,
+// A 256-thread block transforms up to kElems complex values at once (the
+// magnitude and mel stores off rfft.cu's rule up to kMaxElems, in dynamic
+// shared memory): the FFTs of fpb consecutive M-point rows between two
+// shared-memory buffers (16 KB each at kElems), one barrier per pass, with
+// the twiddle table of W_n for any n that M divides (n = 2M for the real
+// FFT's half-length transform), in the plan the host gives (Plan,
 // kernels/rfft.radices): radix 4 while it fits in M's power-of-two part,
 // one radix-2 pass when that part's log2 is odd, then the radix-3, -5 and
 // -7 passes, then one pass for each prime factor from 11 to kMaxPrime,
@@ -14,8 +17,9 @@
 // The odd radices are direct R-point DFTs over the sums and differences of
 // mirrored inputs, with cos and sin of 2 pi k / R read from the twiddle
 // table (W_N^(k N/R)). After the last pass the buffer holds FFT_M of each
-// row in natural order. The twiddles W_N^j = exp(-2 pi i j / N), j < N,
-// N = 2M, are one host table (float64 math rounded once to float32,
+// row in natural order. The twiddles W_N^j = exp(-2 pi i j / N), j < N
+// (N = 2M, or N = M for the stores' packed and Bluestein rows), are one
+// host table (float64 math rounded once to float32,
 // kernels/rfft.py), read through the read-only cache. Every product and
 // sum is an explicitly rounded intrinsic (__fmul_rn, __fadd_rn), so
 // nothing is contracted into an FMA and the passes do the plain version's
@@ -37,8 +41,11 @@ constexpr int kElems = 2048;  // complex values a block transforms
 // its shared-memory accumulator: 2 N_max.
 constexpr int kSpan = 4 * kElems;
 constexpr int kMaxPrime = 127;  // the largest prime factor of M a pass takes
-// Passes of a prime above 7: 11^3 = 1331 <= kElems < 11^4.
+// Passes of a prime above 7: 11^3 = 1331 <= kElems and 11^4 > kMaxElems.
 constexpr int kMaxPrimes = 3;
+// The largest row a dynamic-shared-memory block transforms (rfft.cu's
+// magnitude and mel stores off the rule).
+constexpr int kMaxElems = 8192;
 
 __device__ __forceinline__ float2 cadd(float2 a, float2 b) {
   return make_float2(__fadd_rn(a.x, b.x), __fadd_rn(a.y, b.y));
@@ -156,9 +163,21 @@ __device__ __forceinline__ void stage(const float2* __restrict__ src,
   }
 }
 
-// `count` radix-R passes from buf[cur], one barrier after each.
-template <int R>
-__device__ __forceinline__ void passes(float2 (*buf)[kElems], int& cur,
+// Two buffers of `stride` values each from `base` (dynamic shared memory),
+// indexed as a float2 (*)[kElems] is: buf[i] for i = 0, 1.
+struct Buffers {
+  float2* base;
+  int stride;
+  __device__ __forceinline__ float2* operator[](int i) const {
+    return base + i * stride;
+  }
+};
+
+// `count` radix-R passes from buf[cur], one barrier after each; buf[0] and
+// buf[1] are the two buffers (float2 (*)[kElems] in the static blocks,
+// Buffers in dynamic shared memory).
+template <int R, class Buf>
+__device__ __forceinline__ void passes(Buf buf, int& cur,
                                        const float2* __restrict__ tw, int m,
                                        int fpb, int& ns, int n, int count) {
   for (int i = 0; i < count; ++i) {
@@ -252,9 +271,11 @@ __device__ __forceinline__ void prime_stage(float2* __restrict__ src,
   }
 }
 
-// Every pass of the plan over the fpb rows in buf[cur]; on return buf[cur]
-// holds their FFTs, after a barrier.
-__device__ __forceinline__ void fft_rows(float2 (*buf)[kElems], int& cur,
+// Every pass of the plan over the fpb rows of m values in buf[cur], with
+// the twiddle table of W_n (m divides n); on return buf[cur] holds their
+// FFTs, after a barrier.
+template <class Buf>
+__device__ __forceinline__ void fft_rows(Buf buf, int& cur,
                                          const float2* __restrict__ tw, int m,
                                          int fpb, int n, const Plan& plan) {
   int ns = 1;
@@ -273,7 +294,7 @@ __device__ __forceinline__ void fft_rows(float2 (*buf)[kElems], int& cur,
 
 // The plan of an M-point FFT (kernels/rfft.py: radices), or false when M
 // has a prime factor above kMaxPrime (or more than kMaxPrimes primes above
-// 7, which no M <= kElems has).
+// 7, which no M <= kMaxElems has).
 inline bool make_plan(int m, Plan* plan) {
   const int primes[4] = {2, 3, 5, 7};
   int count[8] = {0};

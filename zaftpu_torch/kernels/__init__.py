@@ -16,7 +16,7 @@ Seven levers choose the kernels, with ``zaftpu``'s names and meaning:
   ``torch.matmul`` instead of the real-FFT kernel's magnitude and mel
   stores (:mod:`zaftpu_torch.kernels.melfft`) or the one-pass magnitude
   and mel GEMM kernels (:mod:`zaftpu_torch.kernels.melfused`); ``1``
-  forces the GEMM kernels where the shape rule below does not give the
+  forces the GEMM kernels where the stores' rule below does not give the
   stores, and unset it follows the rule (``melfused.route``);
 * ``ZAFTPU_FULLSPEC``: ``1`` makes ``stft`` take the full-spectrum
   analysis kernel, the conjugate mirror in its store
@@ -49,10 +49,12 @@ prime factor above 127 takes the real-FFT kernel
 (:mod:`zaftpu_torch.kernels.rfft`) and the
 inverse real-FFT + overlap-add kernel (:mod:`zaftpu_torch.kernels.irfft`),
 any other length the GEMM kernels or, under split4, their twins. The
-magnitude and mel front ends follow it too: at such a window they take
-the FFT kernel's magnitude and mel stores
-(:mod:`zaftpu_torch.kernels.melfft`) on both dials unless
-``ZAFTPU_MELFUSE=0`` asks for the half spectrum (``melfused.route``). The
+magnitude and mel front ends take the FFT kernel's magnitude and mel
+stores (:mod:`zaftpu_torch.kernels.melfft`) at every window from 16 to
+4096 (``melfft.applies``: an odd window a complex FFT a frame, a prime
+factor above 127 by Bluestein) on every dial, unless ``ZAFTPU_MELFUSE=0``
+asks for the half spectrum or ``ZAFTPU_FFT=matmul`` for the GEMMs
+(``melfused.route``). The
 MDCT and IMDCT follow the same rule at a
 quarter of the window (``mdct.applies``: a multiple of 4 up to 4096 whose
 quarter has no prime factor above 127): the fast MDCT kernel and the fast
@@ -71,10 +73,10 @@ twins at three and one pass (``policy.gemm_passes``) and every operator
 GEMM of the split dispatch at that count, and on the CPU they run exact;
 the FFT kernels, exact and faster than the twins, serve every dial
 wherever the shape rule holds.
-Off the shape rule, under split4 the magnitude and mel front ends take
-the half spectrum of the analysis kernel unless ``ZAFTPU_MELFUSE=1``
-forces their kernels (the exact ``spec_rows``, the mel kernel's twin), as
-in ``zaftpu``. A float32 CQT whose FFT length is a
+Off the stores' rule (below 16, or under ``ZAFTPU_FFT=matmul``), under
+split4 the magnitude and mel front ends take the half spectrum of the
+analysis kernel unless ``ZAFTPU_MELFUSE=1`` forces their kernels (the
+exact ``spec_rows``, the mel kernel's twin), as in ``zaftpu``. A float32 CQT whose FFT length is a
 power of two up to 32,768 runs the spectral CQT kernel
 (:mod:`zaftpu_torch.kernels.cqtfft`: each frame's real FFT and the
 kernel's nonzeros) on every scheme and dial (``cqtfft.applies``); at any

@@ -2,18 +2,31 @@
 of ``csrc/rfft.cu`` and their plain versions.
 
 :func:`spec_rows_fft` computes what ``zaftpu/pallas/melfused.py:
-_spec_rows_impl`` (B8) computes, the ``(..., T, WL/2)`` magnitudes
-``sqrt(re² + im²)`` of bins ``1..WL/2`` of the windowed frames' real FFT
-(DC dropped, Nyquist kept, zaf.py:370), and :func:`mel_rows_fft` what its
-``_mel_rows_impl`` (B9) and that kernel's ``_kernel_split4`` (B9-s4)
-compute, those magnitudes (or, ``power=True``, their squares, the MFCC's
-front) times the mel filterbank, ``(..., T, n_mels)``. The TPU kernels
-contract each frame with a dense cos/sin operator and multiply by the
-dense filterbank; here the frame's FFT runs in shared memory
-(:mod:`zaftpu_torch.kernels.rfft`: the same passes and split step, so each
-bin is bit-equal to its half store's) and the mel store adds only the
-filterbank's nonzeros. Both stores take the window lengths that
-:func:`zaftpu_torch.kernels.rfft.fits` takes.
+_spec_rows_impl`` (B8) computes, the ``(..., T, WL//2)`` magnitudes
+``sqrt(re² + im²)`` of bins ``1..WL//2`` of the windowed frames' real FFT
+(DC dropped, Nyquist kept, zaf.py:370; an odd window has none), and
+:func:`mel_rows_fft` what its ``_mel_rows_impl`` (B9) and that kernel's
+``_kernel_split4`` (B9-s4) compute, those magnitudes (or, ``power=True``,
+their squares, the MFCC's front) times the mel filterbank, ``(..., T,
+n_mels)``. The TPU kernels contract each frame with a dense cos/sin
+operator and multiply by the dense filterbank; here the frame's FFT runs
+in shared memory and the mel store adds only the filterbank's nonzeros.
+Both stores take every window length from 16 to 4096 (:func:`fits`):
+
+* where :func:`zaftpu_torch.kernels.rfft.fits` holds, the real-FFT
+  kernel's static path (:mod:`zaftpu_torch.kernels.rfft`: the same
+  passes and split step, so each bin is bit-equal to its half store's);
+* at an odd window, each frame alone as the real parts of one complex
+  ``N``-point FFT (zero imaginary parts), whose bins ``1..(N-1)/2`` are
+  the frame's. Packing two frames into one such FFT would halve the work,
+  but a frame's bins would then round with its partner's: a silent frame
+  beside a loud one would read about 1e-7 of the loud one's magnitude
+  where the GEMM reads zero, and its log-mel and MFCC would differ;
+* where that FFT's length (``N/2``, or ``N`` when odd) has a prime factor
+  above 127 (262, 2062 and 4078 among the even windows), by Bluestein's
+  chirp z-transform on the same passes at a length ``P`` the passes take
+  (:func:`zaftpu_torch.kernels.rfft.bluestein_length`), in a block of up
+  to 8,192 complex values.
 
 The mel store reads the filterbank as a CSR table
 (:func:`filterbank_table`): a row pointer, each nonzero's column (column
@@ -35,21 +48,24 @@ sparse sum, which forms no product with a zero weight, gives ``+inf`` in
 the mels whose nonzeros reach it and leaves the others finite.
 
 The plain versions repeat the kernel's float32 operations in its order:
-:func:`zaftpu_torch.kernels.rfft.frames_fft_planes`, ``re*re + im*im``, the
-root in float64 rounded once (``__fsqrt_rn`` is correctly rounded; torch's
-CPU float ``sqrt`` can be 1 ulp off), then for each mel its nonzeros'
-products added to a zero sum in the table's order. In float64 they compute
-in float64 (the oracle mode). The CPU tests and ``chip_smoke.py`` use them;
-the wrappers take them only for a tensor that lies on the CPU.
+:func:`zaftpu_torch.kernels.rfft.frames_fft_planes` (or the chirp
+products, the passes, the table product and the split of :func:`_bins`), ``re*re + im*im``, the root in float64 rounded once
+(``__fsqrt_rn`` is correctly rounded; torch's CPU float ``sqrt`` can be 1
+ulp off), then for each mel its nonzeros' products added to a zero sum in
+the table's order. In float64 they compute in float64 (the oracle mode).
+The CPU tests and ``chip_smoke.py`` use them; the wrappers take them only
+for a tensor that lies on the CPU.
 """
 
 from __future__ import annotations
 
+import os
 from typing import NamedTuple
 
 import numpy as np
 import torch
 
+from zaftpu_torch.core.frame import extract_frames
 from zaftpu_torch.kernels import _build
 from zaftpu_torch.kernels import rfft as _rfft
 
@@ -174,12 +190,71 @@ def filterbank_device_table(fbank: np.ndarray, device,
     return table
 
 
+def fits(window_length: int) -> bool:
+    """Do the stores take this window length? Every one from
+    :data:`~zaftpu_torch.kernels.rfft.MIN_WINDOW` to
+    :data:`~zaftpu_torch.kernels.rfft.MAX_WINDOW`; the CUDA entries take
+    exactly these."""
+    return _rfft.MIN_WINDOW <= int(window_length) <= _rfft.MAX_WINDOW
+
+
+def applies(window_length: int) -> bool:
+    """The stores' rule (:func:`zaftpu_torch.kernels.melfused.route`): the
+    window :func:`fits` and ``ZAFTPU_FFT`` is not ``matmul``, which turns
+    the rule off as it does :func:`zaftpu_torch.kernels.rfft.applies`."""
+    return (os.environ.get("ZAFTPU_FFT", "auto") != "matmul"
+            and fits(window_length))
+
+
+def _bluestein(re, im, lay, tables):
+    """The ``m``-point FFT of rows ``(..., m)`` by Bluestein's chirp
+    z-transform on the passes, in the kernel's order: times the chirp,
+    zero-padded to ``P``, the forward passes, times the table ``B``,
+    conjugated, the forward passes again, conjugated, times the chirp."""
+    m, p = lay.m, lay.p
+    n = tables.shape[0] - 2 * p - m
+    tw_p, chirp, big = tables[n:].split([p, m, p])
+    cr, ci = chirp[:, 0], chirp[:, 1]
+    pad = (0, p - m)
+    ar = torch.nn.functional.pad(re * cr - im * ci, pad)
+    ai = torch.nn.functional.pad(re * ci + im * cr, pad)
+    ar, ai = _rfft.fft_rows_plain(ar, ai, tw_p, p)
+    br, bi = big[:, 0], big[:, 1]
+    yr, yi = _rfft.fft_rows_plain(ar * br - ai * bi, -(ar * bi + ai * br),
+                                  tw_p, p)
+    yr, yi = yr[..., :m], -yi[..., :m]
+    return yr * cr - yi * ci, yr * ci + yi * cr
+
+
 def _bins(padded, window, window_length, step, number_times):
-    """``re*re + im*im`` of bins ``1..WL/2`` of the windowed frames' FFT,
-    in the kernel's arithmetic and order."""
-    re, im = _rfft._fft_planes(padded, window, window_length, step,
-                               number_times)
-    re, im = re[..., 1:], im[..., 1:]
+    """``re*re + im*im`` of bins ``1..WL//2`` of the windowed frames' FFT,
+    in the kernel's arithmetic and order. At a window that
+    :func:`zaftpu_torch.kernels.rfft.fits`, its half store's; at an odd one
+    each frame's complex ``N``-point FFT with zero imaginary parts, bins
+    ``1..(N-1)/2``; where the FFT's length has a prime factor above 127,
+    that FFT by :func:`_bluestein`."""
+    wl = window_length
+    if _rfft.fits(wl):
+        re, im = _rfft._fft_planes(padded, window, wl, step, number_times)
+        re, im = re[..., 1:], im[..., 1:]
+        return re * re + im * im
+    lay = _rfft.layout(wl)
+    tables = _rfft.store_tables(wl, padded.dtype, padded.device)
+    frames = (extract_frames(padded, wl, step, number_times)
+              * window.to(padded.dtype))
+    if lay.odd:
+        re, im = frames, torch.zeros_like(frames)
+    else:
+        re, im = frames[..., 0::2], frames[..., 1::2]
+    if lay.p:
+        re, im = _bluestein(re, im, lay, tables)
+    else:
+        re, im = _rfft.fft_rows_plain(re, im, tables, wl)
+    if lay.odd:
+        re, im = re[..., 1:wl // 2 + 1], im[..., 1:wl // 2 + 1]
+    else:
+        re, im = _rfft.split_planes(re, im, tables, lay.m)
+        re, im = re[..., 1:], im[..., 1:]
     return re * re + im * im
 
 
@@ -198,8 +273,8 @@ def _check_table(name: str, table: DeviceTable, window_length: int) -> None:
 def spec_rows_fft_plain(padded: torch.Tensor, window: torch.Tensor,
                         window_length: int, step: int,
                         number_times: int) -> torch.Tensor:
-    """``sqrt(re² + im²)`` over bins ``1..WL/2``, ``(..., T, WL/2)``, by the
-    kernel's FFT, in plain PyTorch (not ``torch.fft``)."""
+    """``sqrt(re² + im²)`` over bins ``1..WL//2``, ``(..., T, WL//2)``, by
+    the kernel's FFT, in plain PyTorch (not ``torch.fft``)."""
     spec_rows_fft_plain.calls += 1
     return _root(_bins(padded, window, window_length, step, number_times))
 
@@ -208,7 +283,7 @@ def mel_rows_fft_plain(padded: torch.Tensor, window: torch.Tensor,
                        table: DeviceTable, window_length: int, step: int,
                        number_times: int, power: bool) -> torch.Tensor:
     """Magnitude (``power=False``) or power (``power=True``) over bins
-    ``1..WL/2`` times the filterbank, ``(..., T, n_mels)``, by the kernel's
+    ``1..WL//2`` times the filterbank, ``(..., T, n_mels)``, by the kernel's
     FFT and its sums, in plain PyTorch: for each mel its nonzeros' products
     added to a zero sum in the table's order (the padding after a row's
     nonzeros is skipped, as the kernel skips it)."""
@@ -231,10 +306,10 @@ for _fn in (spec_rows_fft_plain, mel_rows_fft_plain):
 def spec_rows_fft(padded: torch.Tensor, window: torch.Tensor,
                   window_length: int, step: int,
                   number_times: int) -> torch.Tensor:
-    """Magnitude spectrogram rows ``(..., T, WL/2)`` over bins ``1..WL/2``
-    of a padded signal ``(..., L)`` for a ``window_length`` that
-    :func:`zaftpu_torch.kernels.rfft.fits`; neither the frames nor the
-    complex spectrum are stored.
+    """Magnitude spectrogram rows ``(..., T, WL//2)`` over bins
+    ``1..WL//2`` of a padded signal ``(..., L)`` for a ``window_length``
+    that :func:`fits`; neither the frames nor the complex spectrum are
+    stored.
 
     A CPU tensor takes the plain version; a CUDA tensor launches the
     kernel's magnitude store (leading axes flattened into its batch) or
@@ -253,7 +328,8 @@ def _spec_rows_fft_cuda(padded: torch.Tensor, window: torch.Tensor,
     """Check the CUDA input, launch the magnitude store, count the launch
     (no launch for zero frames or rows)."""
     sig, win, tw, lead = _rfft.device_inputs(
-        "spec_rows_fft", padded, window, window_length, step, number_times)
+        "spec_rows_fft", padded, window, window_length, step, number_times,
+        every_window=True)
     f, t = window_length // 2, number_times
     out = torch.empty((sig.shape[0], t, f), dtype=torch.float32,
                       device=padded.device)
@@ -261,7 +337,7 @@ def _spec_rows_fft_cuda(padded: torch.Tensor, window: torch.Tensor,
         err = _build.library().zt_rfft_spec(
             sig.data_ptr(), win.data_ptr(), tw.data_ptr(), out.data_ptr(),
             sig.shape[0], sig.shape[1], t, window_length, step,
-            _build.stream_of(padded))
+            _rfft.layout(window_length).p, _build.stream_of(padded))
         _build.check(err, "zt_rfft_spec")
         spec_rows_fft.launches += 1
     return out.reshape(*lead, t, f)
@@ -274,7 +350,7 @@ def mel_rows_fft(padded: torch.Tensor, window: torch.Tensor,
     melspectrogram) or power-mel (``power=True``, the MFCC front) rows of
     a padded signal ``(..., L)``, ``table`` the filterbank's
     :class:`DeviceTable` (any ``n_mels``), for a ``window_length`` that
-    :func:`zaftpu_torch.kernels.rfft.fits`.
+    :func:`fits`.
 
     A CPU tensor takes the plain version; a CUDA tensor launches the
     kernel's mel store (leading axes flattened into its batch) or raises.
@@ -294,7 +370,8 @@ def _mel_rows_fft_cuda(padded: torch.Tensor, window: torch.Tensor,
     name = "mel_rows_fft"
     _check_table(name, table, window_length)
     sig, win, tw, lead = _rfft.device_inputs(
-        name, padded, window, window_length, step, number_times)
+        name, padded, window, window_length, step, number_times,
+        every_window=True)
     _build.require_f32(table.weights, name)
     dev = padded.device
     rowptr, cols, weights = (x.to(dev) for x in (table.rowptr, table.cols,
@@ -305,8 +382,9 @@ def _mel_rows_fft_cuda(padded: torch.Tensor, window: torch.Tensor,
         err = _build.library().zt_rfft_mel(
             sig.data_ptr(), win.data_ptr(), tw.data_ptr(), rowptr.data_ptr(),
             cols.data_ptr(), weights.data_ptr(), out.data_ptr(),
-            sig.shape[0], sig.shape[1], t, window_length, step, m,
-            int(power), _build.stream_of(padded))
+            sig.shape[0], sig.shape[1], t, window_length, step,
+            _rfft.layout(window_length).p, m, int(power),
+            _build.stream_of(padded))
         _build.check(err, "zt_rfft_mel")
         mel_rows_fft.launches += 1
     return out.reshape(*lead, t, m)

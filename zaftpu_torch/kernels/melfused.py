@@ -11,12 +11,12 @@ the last ulp. The filterbank GEMM is full FP32, as ``zaftpu`` runs it at
 HIGHEST in every precision mode.
 
 :func:`route` sends ``spectrogram``, ``melspectrogram`` and ``mfcc`` one of
-three ways. Where the real-FFT kernel's shape rule holds
-(:func:`zaftpu_torch.kernels.rfft.applies`) they take its magnitude and mel
-stores (:mod:`zaftpu_torch.kernels.melfft`) on both dials, as ``zaftpu``
-takes its one-pass mel kernel by default on its accelerator; these GEMM
-kernels take every other window, an explicit operator and
-``ZAFTPU_FFT=matmul``.
+three ways. At every window from 16 to 4096
+(:func:`zaftpu_torch.kernels.melfft.applies`) they take the real-FFT
+kernel's magnitude and mel stores (:mod:`zaftpu_torch.kernels.melfft`) on
+every dial, as ``zaftpu`` takes its one-pass mel kernel by default on its
+accelerator; these GEMM kernels take a window below 16, an explicit
+operator and ``ZAFTPU_FFT=matmul``.
 
 Under ``ZAFTPU_PRECISION=split4`` the front ends leave these kernels for
 the split4 half spectrum off the rule (:func:`route`), as ``zaftpu``'s do.
@@ -46,6 +46,7 @@ from zaftpu_torch.core.frame import extract_frames
 from zaftpu_torch.core.policy import (exact_matmul, gemm_passes,
                                       split4_applies)
 from zaftpu_torch.kernels import _build
+from zaftpu_torch.kernels import melfft as _melfft
 from zaftpu_torch.kernels import rfft as _rfft
 from zaftpu_torch.kernels.framing import check_frame_args
 from zaftpu_torch.kernels.fused import (TILE_BINS, TILE_FRAMES, _products,
@@ -67,20 +68,21 @@ def route(dtype: torch.dtype, window_length: int) -> str:
 
     ``ZAFTPU_MELFUSE=0`` (``zaftpu``'s A/B lever) gives ``"split"`` at every
     window, and so does a window above the FFT kernels' ``MAX_WINDOW``
-    (``zaftpu``'s gate on its direct engine, stft.py:221-222). Otherwise the FFT shape rule
-    (:func:`zaftpu_torch.kernels.rfft.applies`) gives ``"fft"`` on both
-    dials, ``ZAFTPU_MELFUSE`` ``auto`` or ``1``: the stores compute exact
-    values, as the FFT analysis does on the split4 dial. Where the rule
-    refuses (or under ``ZAFTPU_FFT=matmul``) ``1`` gives ``"kernel"``, and
-    the default ``auto`` gives ``"kernel"`` on the exact dial and
-    ``"split"`` where split4 applies (float32; ``zaftpu``'s gate,
-    melfused.py:87-95: the split4 half spectrum carries the front ends).
+    (``zaftpu``'s gate on its direct engine, stft.py:221-222). Otherwise the
+    stores' rule (:func:`zaftpu_torch.kernels.melfft.applies`: every window
+    from 16 to 4096) gives ``"fft"`` on every dial, ``ZAFTPU_MELFUSE``
+    ``auto`` or ``1``: the stores compute exact values, as the FFT analysis
+    does on the split4 dial. Below 16 (or under ``ZAFTPU_FFT=matmul``)
+    ``1`` gives ``"kernel"``, and the default ``auto`` gives ``"kernel"`` on
+    the exact dial and ``"split"`` where split4 applies (float32;
+    ``zaftpu``'s gate, melfused.py:87-95: the split4 half spectrum carries
+    the front ends).
     Unlike ``zaftpu``'s there is no hop, rank or operator-size condition:
     every path takes any hop up to WL and any batch."""
     melfuse = os.environ.get("ZAFTPU_MELFUSE", "auto")
     if melfuse == "0" or window_length > _rfft.MAX_WINDOW:
         return "split"
-    if _rfft.applies(window_length):
+    if _melfft.applies(window_length):
         return "fft"
     if melfuse == "1" or not split4_applies(dtype):
         return "kernel"

@@ -12,7 +12,10 @@ kernel body. The TPU kernels contract each frame with a dense cos/sin
 operator; this one runs an FFT, so it is bound by its bytes, not by FP32
 arithmetic. The same body's magnitude and mel stores have their wrappers
 in :mod:`zaftpu_torch.kernels.melfft`, which checks its inputs with
-:func:`device_inputs`.
+:func:`device_inputs`; at the windows :func:`fits` refuses they run
+``rfft_any``, whose layout (:func:`layout`: a complex FFT a frame at an
+odd window, Bluestein at :func:`bluestein_length` past a prime above 127)
+and tables (:func:`store_tables`) come from here.
 
 :func:`applies` is the shape rule that :mod:`zaftpu_torch.kernels.fused`
 uses to send both dials here: an even window length from
@@ -30,6 +33,7 @@ from __future__ import annotations
 
 import os
 from functools import lru_cache
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -121,6 +125,107 @@ def radices(m: int) -> tuple:
     return (4,) * (twos // 2) + (2,) * (twos % 2) + tuple(plan[twos:])
 
 
+# The magnitude and mel stores off the rule (csrc/rfft.cu: rfft_any) run
+# in a block of 2,048, 4,096 or 8,192 complex values: the static block's
+# size, then two of dynamic shared memory.
+BLOCKS = (2048, 4096, 8192)
+
+
+@lru_cache(maxsize=1)
+def _smooth_lengths() -> np.ndarray:
+    """Every length from 1 to ``BLOCKS[-1]`` with no prime factor above
+    :data:`MAX_PRIME`, ascending (a largest-prime-factor sieve)."""
+    top = BLOCKS[-1]
+    largest = np.zeros(top + 1, np.int64)
+    for p in range(2, top + 1):
+        if largest[p] == 0:  # p is prime
+            largest[p::p] = p
+    return np.flatnonzero(largest[1:] <= MAX_PRIME) + 1
+
+
+@lru_cache(maxsize=None)
+def pass_ops(m: int) -> int:
+    """Operations of the passes of an ``m``-point complex FFT in the plan
+    of :func:`radices`: each input of a butterfly past the first times its
+    twiddle (6), then the butterfly: 4 (radix 2), 16 (radix 4), or for an
+    odd radix ``r`` with ``h = (r - 1)/2`` the ``4h`` sums and differences,
+    ``2h`` adds for ``y_0`` and ``8h + 2`` for each of the ``h`` other
+    output pairs."""
+    total = 0
+    for r in radices(m):
+        h = (r - 1) // 2
+        fly = {2: 4, 4: 16}.get(r, 6 * h + h * (8 * h + 2))
+        total += m // r * (6 * (r - 1) + fly)
+    return total
+
+
+@lru_cache(maxsize=64)
+def bluestein_length(m: int) -> int:
+    """The length ``P`` of the circular convolution that gives an
+    ``m``-point DFT by Bluestein's chirp z-transform: ``P >= 2m - 1`` with
+    no prime factor above :data:`MAX_PRIME`, so the passes take it. Of
+    those up to the smallest of :data:`BLOCKS` that holds ``2m - 1``, the
+    one with the fewest operations for the two ``P``-point FFTs and the
+    table product, ``2 pass_ops(P) + 6 P`` (the shorter on a tie): the
+    smallest such ``P`` can hold a large prime, which a pass pays ``O(p)``
+    operations a point for (``m`` 131: 261 = 3^2 * 29 costs 1.8 times 288
+    = 2^5 * 3^2; ``m`` 1,031: 2,064 = 2^4 * 3 * 43 costs twice 2,304 =
+    2^8 * 3^2; ``m`` 2,039: 4,080 = 2^4 * 3 * 5 * 17 costs 1.5 times
+    4,096)."""
+    low = 2 * m - 1
+    cap = next(b for b in BLOCKS if b >= low)
+    lengths = _smooth_lengths()
+    lengths = lengths[(lengths >= low) & (lengths <= cap)]
+    return min((int(p) for p in lengths),
+               key=lambda p: (2 * pass_ops(p) + 6 * p, p))
+
+
+class Layout(NamedTuple):
+    """How the magnitude and mel stores transform a frame of ``N``
+    samples: ``odd`` takes the frame as the real parts of one complex
+    ``N``-point FFT (``N`` odd), else its even and odd samples as one
+    ``N/2``-point FFT; ``m`` is that FFT's length and ``p`` the length of
+    its Bluestein convolution, 0 when the passes take ``m`` itself."""
+
+    odd: bool
+    m: int
+    p: int
+
+
+def layout(n: int) -> Layout:
+    odd = n % 2 == 1
+    m = n if odd else n // 2
+    return Layout(odd, m, 0 if _factors(m)[1] == 1 else bluestein_length(m))
+
+
+@lru_cache(maxsize=8)
+def _store_tables(n: int, rdtype_name: str = "float32") -> np.ndarray:
+    """``(rows, 2)`` tables of the magnitude and mel stores at window ``n``:
+    :func:`_twiddles` of ``n``, and under Bluestein (``layout(n).p``) after
+    it the twiddles of ``P``, the chirp ``conj c[j] = exp(-i pi (j^2 mod
+    2m) / m)`` for ``j < m`` (``j^2`` reduced in integers) and ``B =
+    FFT_P(b) / P`` with ``b[j] = c[|j|]`` wrapped modulo ``P`` (zero for
+    ``m <= j <= P - m``): float64 math rounded once to the target dtype."""
+    lay = layout(n)
+    parts = [_twiddles(n, "float64")]
+    if lay.p:
+        m, p = lay.m, lay.p
+        j = np.arange(m, dtype=np.int64)
+        c = np.exp(1j * np.pi * ((j * j) % (2 * m)) / m)
+        b = np.zeros(p, np.complex128)
+        b[:m] = c
+        b[p - m + 1:] = c[:0:-1]
+        big = np.fft.fft(b) / p
+        parts += [_twiddles(p, "float64"), np.stack([c.real, -c.imag], -1),
+                  np.stack([big.real, big.imag], -1)]
+    return np.concatenate(parts).astype(rdtype_name)
+
+
+def store_tables(n: int, dtype: torch.dtype, device) -> torch.Tensor:
+    return _fft.device_operator(_store_tables, (n, _fft._real_name(dtype)),
+                                torch.device(device), dtype)
+
+
 def _odd_butterfly(vr, vi, c, s):
     """The direct ``r``-point DFT of ``r`` odd inputs, ``r = len(vr)``:
     with ``a_p = v_p + v_{r-p}``, ``b_p = v_p - v_{r-p}`` (``p = 1..h``,
@@ -200,29 +305,45 @@ def _fft_planes(padded: torch.Tensor, window: torch.Tensor,
     return frames_fft_planes(frames, window_length)
 
 
+def fft_rows_plain(re: torch.Tensor, im: torch.Tensor, tw: torch.Tensor,
+                   n: int) -> tuple:
+    """The complex FFT of rows ``(..., m)`` (re and im planes) by the
+    Stockham passes of :func:`radices` (``m``) with the ``(n, 2)`` twiddle
+    table of ``W_n``, ``m`` dividing ``n``: ``csrc/stockham.cuh``'s
+    ``fft_rows``, operation by operation."""
+    tw_re, tw_im = tw[:, 0], tw[:, 1]
+    ns = 1
+    for r in radices(re.shape[-1]):
+        re, im = _stage(re, im, tw_re, tw_im, n, ns, r)
+        ns *= r
+    return re, im
+
+
+def split_planes(re: torch.Tensor, im: torch.Tensor, tw: torch.Tensor,
+                 m: int) -> tuple:
+    """The split step of the real FFT of N = 2m samples from the FFT ``Z``
+    of their even/odd packing (the first ``m`` values of each row): ``X[k]
+    = E + W_N^k O`` over ``k = 0..m``, ``Z[m]`` read as ``Z[0]``, ``tw``
+    the table of ``W_N`` (``csrc/rfft.cu``: ``split_bin``)."""
+    k = torch.arange(m + 1, device=re.device)
+    ia, ib = k % m, (m - k) % m
+    ar, ai, br, bi = re[..., ia], im[..., ia], re[..., ib], im[..., ib]
+    er, ei = (ar + br) * 0.5, (ai - bi) * 0.5
+    od, oi = (ai + bi) * 0.5, (br - ar) * 0.5
+    wr, wi = tw[:m + 1, 0], tw[:m + 1, 1]
+    return er + (wr * od - wi * oi), ei + (wr * oi + wi * od)
+
+
 def frames_fft_planes(frames: torch.Tensor, n: int,
                       tw: torch.Tensor | None = None) -> tuple:
     """Re and im planes ``(..., N/2+1)`` of the rFFT of real rows ``(...,
     N)`` in the kernel's arithmetic and order: the even/odd packing, the
     Stockham passes of :func:`radices` with the twiddle table of ``N`` (or
     ``tw``, another ``(N, 2)`` table of ``W_N^j``), the split step."""
-    m = n // 2
     if tw is None:
         tw = twiddles(n, frames.dtype, frames.device)
-    tw_re, tw_im = tw[:, 0], tw[:, 1]
-    re, im = frames[..., 0::2], frames[..., 1::2]
-    ns = 1
-    for r in radices(m):
-        re, im = _stage(re, im, tw_re, tw_im, n, ns, r)
-        ns *= r
-    # The split step: X[k] = E + W^k O over k = 0..N/2, Z[N/2] read as Z[0].
-    k = torch.arange(m + 1, device=frames.device)
-    ia, ib = k % m, (m - k) % m
-    ar, ai, br, bi = re[..., ia], im[..., ia], re[..., ib], im[..., ib]
-    er, ei = (ar + br) * 0.5, (ai - bi) * 0.5
-    od, oi = (ai + bi) * 0.5, (br - ar) * 0.5
-    wr, wi = tw_re[:m + 1], tw_im[:m + 1]
-    return er + (wr * od - wi * oi), ei + (wr * oi + wi * od)
+    re, im = fft_rows_plain(frames[..., 0::2], frames[..., 1::2], tw, n)
+    return split_planes(re, im, tw, n // 2)
 
 
 def frames_rfft_fft_plain(padded: torch.Tensor, window: torch.Tensor,
@@ -314,13 +435,21 @@ def frames_rfft_full_fft(padded: torch.Tensor, window: torch.Tensor,
 
 
 def device_inputs(name: str, padded: torch.Tensor, window: torch.Tensor,
-                  window_length: int, step: int, number_times: int) -> tuple:
+                  window_length: int, step: int, number_times: int,
+                  every_window: bool = False) -> tuple:
     """Check a CUDA input for the kernel's C entries ``zt_rfft_*``; return
     the signal as ``(batch, L)``, the float32 window and twiddle table on
-    its device, and the leading axes."""
+    its device, and the leading axes. ``every_window`` (the magnitude and
+    mel stores): any window length from :data:`MIN_WINDOW` to
+    :data:`MAX_WINDOW`, and the table is :func:`store_tables`'."""
     check_frame_args(name, padded, window, window_length, step,
                      number_times)
-    if not fits(window_length):
+    if every_window:
+        if not MIN_WINDOW <= window_length <= MAX_WINDOW:
+            raise ValueError(f"{name}: window_length must be in "
+                             f"[{MIN_WINDOW}, {MAX_WINDOW}], got "
+                             f"{window_length}")
+    elif not fits(window_length):
         raise ValueError(f"{name}: window_length must be even, in "
                          f"[{MIN_WINDOW}, {MAX_WINDOW}], with no prime factor "
                          f"above {MAX_PRIME} in its half, got "
@@ -330,7 +459,8 @@ def device_inputs(name: str, padded: torch.Tensor, window: torch.Tensor,
     _build.require_grid(sig.shape[0], 1, name)
     dev = padded.device
     win = window.to(device=dev, dtype=torch.float32).contiguous()
-    return (sig, win, twiddles(window_length, torch.float32, dev),
+    table = store_tables if every_window else twiddles
+    return (sig, win, table(window_length, torch.float32, dev),
             padded.shape[:-1])
 
 
