@@ -23,10 +23,12 @@ non-zero exit and no result line:
    256 for frames_op; F = 100 for imdct_ola; WL 512 / hop 128 with 20 mels
    for spec_rows and mel_rows; the CQT at 22,050 Hz, 12 bins per octave,
    110-3,520 Hz: L 4,096, hop 882, F 60, T 1,001), the split4 twins of B1,
-   B2, B3, B4, B7, B9, B10 and B12 included. The real-FFT kernel (B1, B12
-   and B3, and on the split4 dial their twins, at every even window whose
-   half has no prime factor above 127; its half, planes and full stores)
-   also at batched, misaligned shapes whose hop does not divide WL (3 rows,
+   B2, B3, B4, B7, B9, B10 and B12 included. The real-FFT kernel (its
+   half, planes and full stores: B3, and on the split4 dial its twin, at
+   every even window whose half has no prime factor above 127, B1, B12
+   and their twins there too and at every other window from 16 to 4,096,
+   phase_any_window below) also at batched, misaligned shapes whose hop
+   does not divide WL (3 rows,
    WL 512 / hop 100 and WL 400 / hop 160, T 1,001; 3 rows of WL 2,032 and
    2,662 and 2 of WL 2,822, hop 1,000: the odd-prime passes 4, 2, 127; 11,
    11, 11; 17, 83), at the 40-ms window (WL 1,764, hop 882, T 30,001:
@@ -44,9 +46,12 @@ non-zero exit and no result line:
    their operator given (which names the GEMM at a rule window), and the
    twins B1-s4, B12-s4, B3-s4 and B4-s4 the same shape (the twin wrappers
    take no rule), as in earlier runs; all eight also run at WL 2,062 / hop
-   300 with no operator (2,062 = 2 * 1,031: the rule leaves it to them)
-   and at WL 2048 (timed, for B3, B3-s4, B4 and B4-s4) and WL 512 with
-   their operator given; the mel kernels also past the old shared-memory
+   300 (2,062 = 2 * 1,031: the full store's and the inverse kernel's rule
+   leaves it to B3 and B4; B1 and B12 with their operator, which the half
+   and planes stores would take otherwise, B3 with it too, so that it
+   holds B1's sums) and at WL 2048 (timed, for B3, B3-s4, B4 and B4-s4)
+   and WL 512 with their operator given; the mel kernels also past the
+   old shared-memory
    limit (800 mels at WL 2048). The fast MDCT and IMDCT + overlap-add
    kernels (B2, B7 and their twins at every window that is a multiple of
    4 up to 4096 whose quarter has no prime factor above 127) at the
@@ -99,9 +104,11 @@ non-zero exit and no result line:
    the launch) and the inverse FFT synthesis ran and no plain version did;
    then the same with the 40-ms window (WL 1,764, hop 882) and the 25-ms
    window (WL 1,102, hop 551; the FFT kernels through the odd-prime
-   passes), and with WL 2,062 (hop 1,031), which the shape rule sends to
-   the GEMM B1, the index mirror and B4, and under ZAFTPU_FUSED2=1 to the
-   GEMM B12 and B4;
+   passes), and with WL 2,062 (hop 1,031), where the half store (rfft_any,
+   Bluestein at P 2,304) computes the spectrum, the index mirror mirrors
+   it and B4 (the inverse kernel's rule refuses the window) the round
+   trip, under ZAFTPU_FUSED2=1 the planes store and B4, and under
+   ZAFTPU_FFT=matmul the GEMM B1 (B12 with ZAFTPU_FUSED2=1) and B4;
 5. STFT main path, split dispatch (ZAFTPU_FUSED=0 ZAFTPU_SYNTH=0): the
    same checks, with the framing and OLA kernels;
 6. MDCT main path: mdct -> imdct of the 600-s signal with vorbis(2048),
@@ -139,9 +146,11 @@ non-zero exit and no result line:
    coefficients within 1e-4 * max and the MDCT round trip in [100, 125)
    dB; launch counts showing
    which kernels ran and that no exact GEMM kernel or plain version did;
-   stft -> istft at WL 2,062 (B1's and B4's twins, B12's under
-   ZAFTPU_FUSED2=1) and at WL 2048 under ZAFTPU_FFT=matmul (B1's and B4's
-   twins) within 1e-4 * max, round trips in [100, 125) dB; then the mel
+   stft -> istft at WL 2,062 (the exact half store, the planes store under
+   ZAFTPU_FUSED2=1, and B4's twin), at WL 2048 under ZAFTPU_FFT=matmul
+   (B1's and B4's twins) and at WL 2,062 under ZAFTPU_FFT=matmul
+   ZAFTPU_FUSED2=1 (B12's and B4's twins) within 1e-4 * max, round trips
+   in [100, 125) dB; then the mel
    phase under split4 and with ZAFTPU_MELFUSE=1 (the FFT kernel's stores,
    the exact gates) and with ZAFTPU_FFT=matmul ZAFTPU_MELFUSE=1:
    melspectrogram and mfcc through the mel kernel's twin (within 1e-4 *
@@ -156,13 +165,16 @@ non-zero exit and no result line:
    synth_fft), ZAFTPU_FULLSPEC=1 and =0 (as on the exact dial), and
    ZAFTPU_FULLSPEC=1 at WL 2,062 (B3-s4, synth_split4): each spectrum and
    round trip bit-equal to those of the same dial and window without the
-   lever, and the exact gates (split4's at WL 1,102); then the peak device
+   lever (at WL 2,062 the lever-free run under ZAFTPU_FFT=matmul, B1 or
+   B1-s4 and the index mirror, whose sums B3 and B3-s4 share), and the
+   exact gates (split4's at WL 2,062); then the peak device
    memory of one 600-s stft under ZAFTPU_FULLSPEC=0 and unset, of one
    600-s melspectrogram on the mel store and under ZAFTPU_MELFUSE=0, and
    of one 600-s cqtspectrogram on the spectral kernel and under
    ZAFTPU_FFT=matmul;
 11. one hour: six 600-s segments through stft, then istft (also at the
-   40-ms and 25-ms windows on the default dispatch); mdct, then
+   40-ms and 25-ms windows and at WL 2,062 on the default dispatch, and
+   at WL 2,062 under ZAFTPU_FFT=matmul); mdct, then
    imdct; spectrogram; melspectrogram; mfcc, under the default, the split
    and the split4 dispatch, and the three mel front ends under
    ZAFTPU_MELFUSE=0, under ZAFTPU_FFT=matmul ZAFTPU_MELFUSE=1 (B8 and B9)
@@ -215,8 +227,9 @@ its plain version at the same count within 1e-4 * max, timed (with its
 bound) where the 4-pass twin is. After phase 9 the main paths run under
 ZAFTPU_PRECISION=high and default: stft -> istft and mdct -> imdct at WL
 2048 through the exact FFT kernels under the exact gates, and at WL 2,062
-(B1's and B4's twins) and vorbis(1102) (B2's and B7's twins) at 3 and 1
-passes, high within 1e-4 * max of the float64 oracle and >= 88 dB,
+(the exact half store and B4's twin) and vorbis(1102) (B2's and B7's
+twins) at 3 and 1 passes, high within 1e-4 * max of the float64 oracle
+and >= 88 dB,
 default within 2e-3 * max and >= 40 dB, with default < high < split4 in
 this call; then under compute_dtype("bfloat16") the CQT at CQT_WIDE
 (L 65,536) through B10-s4 at one pass, >= 45 dB against the float64
@@ -264,23 +277,27 @@ its launches count in the kernels line.
 The CQT kernel is built on the host without the disk cache
 (ZAFTPU_CACHE=0), so the run writes nothing outside the checkout.
 
-Right after phase 3, phase_any_window: the magnitude and mel stores at
-windows the FFT rule refuses (they take every window from 16 to 4,096):
-each frame alone a complex N-point FFT at an
-odd window, Bluestein's chirp z-transform where that FFT's length has a prime
-factor above 127, in a block of 2,048, 4,096 or 8,192 complex values. At
-600 s of 10 ms (441 / 147), 25 ms at 22.05 kHz (551 / 220), 30 ms (1,323 /
+Right after phase 3, phase_any_window: the half, planes, magnitude and
+mel stores at windows the FFT rule refuses (they take every window from
+16 to 4,096): each frame alone a complex N-point FFT at an odd window,
+Bluestein's chirp z-transform where that FFT's length has a prime factor
+above 127, in a block of 2,048, 4,096 or 8,192 complex values. At 600 s
+of 10 ms (441 / 147), 25 ms at 22.05 kHz (551 / 220), 30 ms (1,323 /
 441), 2,062 / 512 (Bluestein, P 2,304), 50 ms (2,205 / 441) and 4,078 /
-1,024 (Bluestein, P 4,096), 40 mels: spectrogram, melspectrogram and mfcc
-through the entry points launch the stores and nothing else, within 1e-5
-* max of a float64 torch.fft oracle; each store (magnitude, mel, power)
-bit-equal to its plain version; the store's median ms beside B8's or
-B9's (ZAFTPU_FFT=matmul's route), torch.stft(..., center=False)[..., 1:,
-:].abs() (times the filterbank transpose) and its bound; and at ANY_RAGGED
-(3 rows of WL 3,093: Bluestein in the 8,192-value block, T 301, offset 1,
-a sparse 1,546-mel filterbank) bit-equal. The hour phase adds
-spectrogram, melspectrogram and mfcc at 1,323 / 441 on the stores and
-under ZAFTPU_FFT=matmul (B8, B9).
+1,024 (Bluestein, P 4,096), 40 mels: stft, spectrogram, melspectrogram
+and mfcc through the entry points launch the half, magnitude and mel
+stores and nothing else, within 1e-5 * max of a float64 torch.fft
+oracle; each store (half, planes, magnitude, mel, power) bit-equal to its
+plain version, the planes to the half store's values; the store's median
+ms beside B1's, B12's, B8's or B9's (ZAFTPU_FFT=matmul's route),
+torch.stft(..., center=False) (one-sided; for the magnitude and mel
+stores [..., 1:, :].abs(), times the filterbank transpose) and its bound;
+and at ANY_RAGGED (3 rows of WL 3,093: Bluestein in the 8,192-value
+block, T 301, offset 1, a sparse 1,546-mel filterbank) bit-equal; then
+the half and magnitude stores at QUIET_WINDOWS' loud, silent and -80 dB
+frames (a silent frame exactly zero). The hour phase adds spectrogram,
+melspectrogram and mfcc at 1,323 / 441 on the stores and under
+ZAFTPU_FFT=matmul (B8, B9).
 
 The line before the last is a JSON object with one entry per kernel (a
 twin's also with its 3- and 1-pass times, bounds and errors); the last
@@ -351,10 +368,12 @@ MIXED_WL = 1764
 # the main-path shape of the GEMM B1, B12, B3 and B4 (with their operator)
 # and of their twins, as in earlier runs.
 PRIME_WL = 1102
-# A window the FFT rule leaves to the GEMMs and, under split4, to their
-# twins: its half 1031 is a prime above 127. (An odd window such as 1323
-# takes the GEMMs too, but its round trip is one sample off under the
-# reference's trim.)
+# A window the full store's and the inverse kernel's rule leave to B3 and
+# B4 (B3-s4 and B4-s4 under split4): its half 1031 is a prime above 127.
+# The half and planes stores take it (Bluestein at P 2,304); an explicit
+# operator or ZAFTPU_FFT=matmul gives it to B1 and B12 or their twins. (An
+# odd window such as 1323 runs the same way, but its round trip is one
+# sample off under the reference's trim.)
 GEMM_WL = 2062
 GEMM_RAGGED = (GEMM_WL, 300, 1001)
 # The GEMM B1, B12 and B3, and their twins.
@@ -790,12 +809,19 @@ def _kernel_cases(dev, main_t: int):
            GEMM_TOL)
     yield "synth_split4", "main", f"WL {wl} hop {step} T {t}", args, GEMM_TOL
     del args
-    # The off-rule window, no operator: the rule's own way to the GEMMs.
+    # The off-rule window: B1 and B12 with their operator (the half and
+    # planes stores take WL 2,062 without one), B3 likewise (bit-equal to
+    # B1's sums there), the twins (whose wrappers take no rule) without.
     wl, step, t = GEMM_RAGGED
     padded, win = _signal_and_window(wl, step, t, hamming, dev)
-    for name in GEMM_KERNELS + TWIN_KERNELS:
-        yield (name, "ragged", f"WL {wl} hop {step} T {t} (no operator)",
+    ops = fused.rdft_ops(wl, torch.float32, dev)
+    for name in GEMM_KERNELS:
+        yield (name, "ragged", f"WL {wl} hop {step} T {t} (operator)",
+               (padded, win, wl, step, t, ops), GEMM_TOL)
+    for name in TWIN_KERNELS:
+        yield (name, "ragged", f"WL {wl} hop {step} T {t}",
                (padded, win, wl, step, t), GEMM_TOL)
+    del ops
     args = _synth_args(wl, step, t, dev)
     for name in SYNTH_GEMMS:
         yield (name, "ragged", f"WL {wl} hop {step} T {t} (no operator)",
@@ -1019,31 +1045,48 @@ def _dft_ops(m: int) -> float:
     """Operations an ``m``-point complex DFT needs: its passes' where they
     take ``m`` (rfft.pass_ops, as every FFT row counts), else the
     conventional 5 m log2 m of a complex FFT. This counts the function,
-    not Bluestein's way to it (_store_ops with ``own``): two FFTs of more
-    than twice the length."""
+    not Bluestein's way to it (_frame_fft_ops with ``own``): two FFTs of
+    more than twice the length."""
     if rfft._factors(m)[1] == 1:
         return rfft.pass_ops(m)
     return 5 * m * math.log2(m)
+
+
+def _frame_fft_ops(wl: int, own: bool = False) -> float:
+    """Operations of the complex DFT a frame at window ``wl`` needs
+    (rfft.layout: N/2 points at an even window, N at an odd one; _dft_ops),
+    or with ``own`` what the kernel does for it: where that FFT's length M
+    has a prime above 127, Bluestein's two P-point FFTs (rfft.pass_ops),
+    table product (6 a value) and two chirp products (6 a value each, over
+    M)."""
+    lay = rfft.layout(wl)
+    if lay.p and own:
+        return 2 * rfft.pass_ops(lay.p) + 6 * lay.p + 12 * lay.m
+    return _dft_ops(lay.m)
 
 
 def _store_ops(wl: int, own: bool = False) -> float:
     """Operations a frame of the magnitude store at window ``wl``: the
     window (1 a sample), the real DFT of the frame and the magnitude (3 a
     bin) of bins 1..WL//2. The real DFT needs an N/2-point complex DFT
-    (_dft_ops) and the split step (16 a bin) at an even window, and half
-    an N-point complex DFT at an odd one. With ``own``, what the kernel
-    does for it (rfft.layout): an odd window's whole N-point complex FFT,
-    and where that FFT's length M has a prime above 127, Bluestein's two
-    P-point FFTs (rfft.pass_ops), table product (6 a value) and two chirp
-    products (6 a value each, over M)."""
-    lay = rfft.layout(wl)
-    if lay.p and own:
-        fft = 2 * rfft.pass_ops(lay.p) + 6 * lay.p + 12 * lay.m
-    else:
-        fft = _dft_ops(lay.m)
-    if lay.odd:
+    and the split step (16 a bin) at an even window, and half an N-point
+    complex DFT at an odd one (_frame_fft_ops). With ``own``, what the
+    kernel does for it: an odd window's whole N-point complex FFT, and
+    Bluestein's work where it runs."""
+    fft = _frame_fft_ops(wl, own)
+    if rfft.layout(wl).odd:
         return wl + (fft if own else fft / 2) + 3 * (wl // 2)
     return wl + fft + 19 * (wl // 2)
+
+
+def _half_ops(wl: int, own: bool = False) -> float:
+    """Operations a frame of the half store at window ``wl``: the window (1
+    a sample) and the real DFT of the frame, as _store_ops counts it, with
+    the split step over bins 0..N/2 (16 a bin) and no magnitude."""
+    fft = _frame_fft_ops(wl, own)
+    if rfft.layout(wl).odd:
+        return wl + (fft if own else fft / 2)
+    return wl + fft + 16 * (wl // 2 + 1)
 
 
 def _work(name: str, args: tuple,
@@ -1157,15 +1200,15 @@ def _work(name: str, args: tuple,
                 4 * (padded.numel() + wl) + tables + table_bytes
                 + 4 * b * t * cols)
     if base in FFT_STORES:
-        # The real FFT: the window, its plan's passes and the split step
-        # (16 a bin); the signal and the window read once, the twiddle
-        # table, the half (or, for the full store, the full) spectrum
-        # written once.
+        # The real FFT (_half_ops a frame); the signal, the window and the
+        # store's tables read once, the half (or, for the full store, the
+        # full) spectrum written once.
         padded, _, wl, _, t = args
         b = _rows(padded)
         f = wl if base == "frames_rfft_full_fft" else wl // 2 + 1
-        return (0, b * t * (wl + _fft_ops(wl) + 16 * (wl // 2 + 1)),
-                4 * (padded.numel() + wl + 2 * wl) + 8 * b * t * f)
+        tables = 8 * rfft._store_tables(wl).shape[0]
+        return (0, b * t * _half_ops(wl),
+                4 * (padded.numel() + wl) + tables + 8 * b * t * f)
     # The analysis kernels: windowed frames times an operator.
     if base == "frames_op":
         padded, _, _, f, wl, _, t = args
@@ -1507,33 +1550,41 @@ def oracle_error(x: torch.Tensor, spec: torch.Tensor, wl: int = WL,
 # dispatch -> the kernels the STFT main path must run, and its gates. At
 # WL 2048, 1764 and 1102 the FFT kernels compute the spectrum (the full
 # store, the mirror in its epilogue) and the round trip on both dials, so
-# split4 meets the exact gates there; at WL 2062 and under
-# ZAFTPU_FFT=matmul its twins meet split4's.
+# split4 meets the exact gates there. At WL 2062 the half store (or the
+# planes store under ZAFTPU_FUSED2=1) computes the spectrum on every dial
+# and B4 the round trip, its twin on a lowered dial, which sets split4's
+# (or the dial's) round-trip gates; under ZAFTPU_FFT=matmul B1 and B12, or
+# their twins, compute the spectrum.
 FFT_PATH = (("frames_rfft_full_fft", "synth_fft"), EXACT_GATES)
 STFT_WANT = {
     "default": FFT_PATH,
     "split": (("framing", "ola"), EXACT_GATES),
     f"default WL {MIXED_WL}": FFT_PATH,
     f"default WL {PRIME_WL}": FFT_PATH,
-    f"default WL {GEMM_WL}": (("fused", "synth"), EXACT_GATES),
-    f"ZAFTPU_FUSED2=1 WL {GEMM_WL}": (("frames_matmul2", "synth"),
+    f"default WL {GEMM_WL}": (("fused_fft", "synth"), EXACT_GATES),
+    f"ZAFTPU_FUSED2=1 WL {GEMM_WL}": (("frames_matmul2_fft", "synth"),
                                       EXACT_GATES),
+    f"ZAFTPU_FFT=matmul WL {GEMM_WL}": (("fused", "synth"), EXACT_GATES),
+    f"ZAFTPU_FFT=matmul ZAFTPU_FUSED2=1 WL {GEMM_WL}": (
+        ("frames_matmul2", "synth"), EXACT_GATES),
     "split4": FFT_PATH,
     f"split4 WL {MIXED_WL}": FFT_PATH,
     f"split4 WL {PRIME_WL}": FFT_PATH,
-    f"split4 WL {GEMM_WL}": (("fused_split4", "synth_split4"), SPLIT4_GATES),
+    f"split4 WL {GEMM_WL}": (("fused_fft", "synth_split4"), SPLIT4_GATES),
     f"split4 ZAFTPU_FUSED2=1 WL {GEMM_WL}": (
-        ("frames_matmul2_split4", "synth_split4"), SPLIT4_GATES),
+        ("frames_matmul2_fft", "synth_split4"), SPLIT4_GATES),
     "split4 ZAFTPU_FFT=matmul": (("fused_split4", "synth_split4"),
                                  SPLIT4_GATES),
+    f"split4 ZAFTPU_FFT=matmul ZAFTPU_FUSED2=1 WL {GEMM_WL}": (
+        ("frames_matmul2_split4", "synth_split4"), SPLIT4_GATES),
     # ZAFTPU_PRECISION=high and default: the exact FFT kernels at a rule
-    # window, the twins at 3 and 1 passes off it.
+    # window; off it the exact half store and B4's twin at 3 and 1 passes.
     "ZAFTPU_PRECISION=high": FFT_PATH,
     "ZAFTPU_PRECISION=default": FFT_PATH,
-    f"ZAFTPU_PRECISION=high WL {GEMM_WL}": (("fused_split4", "synth_split4"),
+    f"ZAFTPU_PRECISION=high WL {GEMM_WL}": (("fused_fft", "synth_split4"),
                                             HIGH_GATES),
     f"ZAFTPU_PRECISION=default WL {GEMM_WL}": (
-        ("fused_split4", "synth_split4"), DEFAULT_DIAL_GATES)}
+        ("fused_fft", "synth_split4"), DEFAULT_DIAL_GATES)}
 # dispatch -> the kernels the MDCT main path must run, and its gates. At WL
 # 2048 the fast MDCT and IMDCT kernels run on both dials, so split4 meets
 # the exact gates there; at WL 1102 (an odd F) B2 and B7 run, their twins
@@ -1770,35 +1821,54 @@ def _any_oracle(x: torch.Tensor, win: torch.Tensor, wl: int, step: int,
     return spec, spec @ torch.from_numpy(fbank.T.copy()).to(x.device)
 
 
+# The stores that take every window from 16 to 4,096: the half and the
+# magnitude and mel stores that the entry points launch off the rule (the
+# planes store runs under ZAFTPU_FUSED2=1 and is held here at kernel level).
+ANY_STORES = ("fused_fft",) + MEL_STORES
+
+
 def phase_any_window(dev) -> dict:
-    """The magnitude and mel stores at windows the FFT rule refuses (two
-    frames a complex FFT at an odd window, Bluestein where the FFT's length
-    has a prime factor above 127), at ANY_WINDOWS' 600-s shapes and
-    ANY_RAGGED's: spectrogram, melspectrogram and mfcc through the entry
-    points (the stores launched, no plain version, no GEMM), each store
-    bit-equal to its plain version (magnitude, mel and power), the
-    spectrogram and mel against a float64 torch.fft oracle (<= 1e-5 *
-    max|oracle|), and at each 600-s shape the median ms of the store, of
-    B8 or B9 (the route under ZAFTPU_FFT=matmul) and of torch.stft(...,
-    center=False)[..., 1:, :].abs() (times the filterbank transpose for the
-    mel) and of its plain version, beside the store's bound; then
-    QUIET_WINDOWS' loud and quiet frames (_quiet_frames_case). Returns
-    the entry points' launches."""
-    launches = dict.fromkeys(MEL_STORES, 0)
+    """The half, planes, magnitude and mel stores at windows the FFT rule
+    refuses (each frame alone a complex FFT at an odd window, Bluestein
+    where the FFT's length has a prime factor above 127), at ANY_WINDOWS'
+    600-s shapes and ANY_RAGGED's: stft, spectrogram, melspectrogram and
+    mfcc through the entry points (the half, magnitude and mel stores
+    launched, no plain version, no GEMM), the spectrum, spectrogram and mel
+    against a float64 torch.fft oracle (<= 1e-5 * max|oracle|), each store
+    bit-equal to its plain version (half, planes, magnitude, mel and
+    power; the planes also to the half store's values), and at each 600-s
+    shape the median ms of the store, of B1, B12, B8 or B9 (the route under
+    ZAFTPU_FFT=matmul) and of torch.stft(..., center=False) (the magnitude
+    of bins 1..WL//2, times the filterbank transpose for the mel) and of
+    its plain version, beside the store's bound; then QUIET_WINDOWS' loud
+    and quiet frames (_quiet_frames_case). Returns the entry points'
+    launches."""
+    launches = dict.fromkeys(ANY_STORES, 0)
     for label, sr, wl, step in ANY_WINDOWS:
         x = torch.from_numpy(segment(0)[:SEGMENT_SECONDS * sr]).to(dev)
         host_win = hamming(wl).astype(np.float32)
         win = torch.from_numpy(host_win).to(dev)
         fbank = melfilterbank(sr, wl, 40)
         reset_counters()
+        stft = zaftpu_torch.stft(x, host_win, step)
         spec = zaftpu_torch.spectrogram(x, host_win, step)
         mel = zaftpu_torch.melspectrogram(x, host_win, step, fbank)
         mf = zaftpu_torch.mfcc(x, host_win, step, fbank, 20)
         torch.cuda.synchronize()
         for name, count in check_counters(f"any window [{label} WL {wl}]",
-                                          MEL_STORES).items():
+                                          ANY_STORES).items():
             launches[name] += count
         require(bool(torch.isfinite(mf).all()), f"[{label}] mfcc not finite")
+        t = stft_padding(x.shape[-1], wl, step)[2]
+        require(tuple(stft.shape) == (wl, t)
+                and stft.dtype == torch.complex64,
+                f"[{label}] stft {tuple(stft.shape)} {stft.dtype}")
+        err, scale = oracle_error(x, stft, wl, step)
+        print(f"any window [{label} WL {wl} hop {step}]: stft max_abs_err vs "
+              f"f64 oracle {err!r} (ratio {err / scale!r})")
+        require(err <= ORACLE_TOL * scale,
+                f"[{label}] stft error {err} > {ORACLE_TOL} * {scale}")
+        del stft
         for name, got, oracle in zip(("spectrogram", "melspectrogram"),
                                      (spec, mel),
                                      _any_oracle(x, win, wl, step, fbank)):
@@ -1828,8 +1898,8 @@ def phase_any_window(dev) -> dict:
     fb[rng.random(fb.shape) < 0.9] = 0.0
     table = melfft.device_table(melfft.filterbank_table(fb), dev)
     label = f"ragged {rows} rows offset {offset}"
-    _any_store_case("spec_rows_fft", label, (padded, win, wl, step, t), None,
-                    False)
+    for name in ("fused_fft", "frames_matmul2_fft", "spec_rows_fft"):
+        _any_store_case(name, label, (padded, win, wl, step, t), None, False)
     for power in (False, True):
         _any_store_case("mel_rows_fft", label,
                         (padded, win, table, wl, step, t, power), None, False)
@@ -1840,12 +1910,12 @@ def phase_any_window(dev) -> dict:
 
 def _quiet_frames_case(wl: int, dev) -> None:
     """QUIET_GAINS' frames at odd window ``wl`` through the magnitude store
-    and B8 (ZAFTPU_FFT=matmul's route): each frame's max_abs_err against a
-    float64 torch.fft oracle beside its max. Gated: the store bit-equal to
-    its plain version, each sounding frame's error within ORACLE_TOL of
-    that frame's own max, a silent frame's output exactly zero (the
-    oracle's need not be: cuFFT's float64 transform of a prime length gave
-    2e-14 there)."""
+    and B8 (ZAFTPU_FFT=matmul's route), and through the half store and B1:
+    each frame's max_abs_err against a float64 torch.fft oracle beside its
+    max. Gated: each store bit-equal to its plain version, each sounding
+    frame's error within ORACLE_TOL of that frame's own max, a silent
+    frame's output exactly zero (the oracle's need not be: cuFFT's float64
+    transform of a prime length gave 2e-14 there)."""
     rng = np.random.default_rng(SEED)
     gains = torch.tensor(QUIET_GAINS, dtype=torch.float64)
     frames = torch.from_numpy(rng.standard_normal((len(gains), wl)))
@@ -1853,38 +1923,49 @@ def _quiet_frames_case(wl: int, dev) -> None:
     win = torch.from_numpy(hamming(wl).astype(np.float32)).to(dev)
     t = len(gains)
     oracle = torch.fft.rfft(padded.double().reshape(t, wl) * win.double(),
-                            dim=-1)[:, 1:wl // 2 + 1].abs()
-    store = melfft.spec_rows_fft(padded, win, wl, wl, t)
-    gemm = melfused.spec_rows(padded, win, wl, wl, t)
-    require(torch.equal(store, melfft.spec_rows_fft_plain(padded, win, wl,
-                                                          wl, t)),
-            f"quiet frames WL {wl}: the store is not bit-equal to its plain "
-            "version")
-    own = oracle.amax(dim=-1)
-    errs = [(store.double() - oracle).abs().amax(dim=-1),
-            (gemm.double() - oracle).abs().amax(dim=-1)]
-    for f in range(t):
-        print(f"quiet frames WL {wl} frame {f} (gain {QUIET_GAINS[f]!r}, "
-              f"max {float(own[f])!r}): store max_abs_err "
-              f"{float(errs[0][f])!r}, B8 {float(errs[1][f])!r}")
+                            dim=-1)
     sounding = gains.to(dev) > 0
-    require(bool((errs[0] <= ORACLE_TOL * own)[sounding].all())
-            and not store[~sounding].any(),
-            f"quiet frames WL {wl}: errors {errs[0].tolist()} above "
-            f"{ORACLE_TOL} x each frame's max {own.tolist()}, or a silent "
-            "frame not zero")
+    ops = fused.rdft_ops(wl, torch.float32, dev)
+    for what, store, plain, gemm_name, gemm, want in (
+            ("magnitude", melfft.spec_rows_fft(padded, win, wl, wl, t),
+             melfft.spec_rows_fft_plain(padded, win, wl, wl, t), "B8",
+             melfused.spec_rows(padded, win, wl, wl, t),
+             oracle[:, 1:wl // 2 + 1].abs()),
+            ("half", rfft.frames_rfft_fft(padded, win, wl, wl, t),
+             rfft.frames_rfft_fft_plain(padded, win, wl, wl, t), "B1",
+             fused.frames_rfft(padded, win, wl, wl, t, ops), oracle)):
+        require(torch.equal(store, plain),
+                f"quiet frames WL {wl}: the {what} store is not bit-equal to "
+                "its plain version")
+        own = want.abs().amax(dim=-1)
+        errs = [(y.to(want.dtype) - want).abs().amax(dim=-1)
+                for y in (store, gemm)]
+        for f in range(t):
+            print(f"quiet frames WL {wl} frame {f} (gain {QUIET_GAINS[f]!r}, "
+                  f"max {float(own[f])!r}): {what} store max_abs_err "
+                  f"{float(errs[0][f])!r}, {gemm_name} {float(errs[1][f])!r}")
+        require(bool((errs[0] <= ORACLE_TOL * own)[sounding].all())
+                and not store[~sounding].any(),
+                f"quiet frames WL {wl}: {what} store errors "
+                f"{errs[0].tolist()} above {ORACLE_TOL} x each frame's max "
+                f"{own.tolist()}, or a silent frame not zero")
 
 
 def _any_store_args(x: torch.Tensor, win: torch.Tensor, fbank: np.ndarray,
                     wl: int, step: int) -> tuple:
-    """(name, the store's arguments, B8's or B9's) for the magnitude and
-    the mel store (magnitude) on the centre-padded ``x``."""
+    """(name, the store's arguments, those of its GEMM on ZAFTPU_FFT=matmul's
+    route: B1's and B12's with their operator, B8's or B9's) for the half,
+    planes, magnitude and mel (magnitude) stores on the centre-padded
+    ``x``."""
     padded, t = centre_padded(x, wl, step)
     table = melfft.device_table(melfft.filterbank_table(fbank), x.device)
     fbank_t = torch.from_numpy(np.ascontiguousarray(
         fbank.T.astype(np.float32))).to(x.device)
-    return (("spec_rows_fft", (padded, win, wl, step, t),
-             (padded, win, wl, step, t)),
+    analysis = (padded, win, wl, step, t)
+    gemm = (*analysis, fused.rdft_ops(wl, torch.float32, x.device))
+    return (("fused_fft", analysis, gemm),
+            ("frames_matmul2_fft", analysis, gemm),
+            ("spec_rows_fft", analysis, analysis),
             ("mel_rows_fft", (padded, win, table, wl, step, t, False),
              (padded, win, fbank_t, wl, step, t, False)))
 
@@ -1900,10 +1981,18 @@ def _any_cases(dev):
             yield name, "any", f"{label} WL {wl} hop {step}", args, EXACT_TOL
 
 
+# Each store's GEMM on ZAFTPU_FFT=matmul's route: B1, B12, B8 and B9.
+ANY_GEMMS = {"fused_fft": fused.frames_rfft,
+             "frames_matmul2_fft": fused.frames_matmul2,
+             "spec_rows_fft": melfused.spec_rows,
+             "mel_rows_fft": melfused.mel_rows}
+
+
 def _any_store_case(name: str, label: str, args: tuple, gemm_args,
                     timed: bool) -> None:
-    """One store off the rule against its plain version, bit for bit, and
-    (``timed``) its median ms beside its plain version's, B8's or B9's on
+    """One store off the rule against its plain version, bit for bit (the
+    planes store also against the half store's values), and (``timed``) its
+    median ms beside its plain version's, its GEMM's (ANY_GEMMS) on
     ``gemm_args``, the torch.stft yardstick's and its bound."""
     kernel, plain = KERNELS[name][2:]
     wl = args[3] if name == "mel_rows_fft" else args[2]
@@ -1912,31 +2001,39 @@ def _any_store_case(name: str, label: str, args: tuple, gemm_args,
     shape = (f"WL {wl} T {t}"
              f" {'odd, a complex FFT a frame' if lay.odd else 'even'}"
              f"{f', Bluestein P {lay.p}' if lay.p else ''}")
-    got, ref = kernel(*args), plain(*args)
-    require(torch.equal(got, ref),
+    got, ref = _planes(kernel(*args)), _planes(plain(*args))
+    require(all(torch.equal(a, b) for a, b in zip(got, ref)),
             f"{name} [{label}] {shape}: not bit-equal to its plain version "
-            f"(max_abs_err {_max_abs(got - ref)!r})")
+            f"(max_abs_err {_max_abs(torch.stack(got) - torch.stack(ref))!r})")
     print(f"any window kernel {name} [{label}] {shape}: bit-equal to its "
           "plain version")
+    if name in RESTORES:
+        base, store = RESTORES[name]
+        sums = _planes(store(KERNELS[base][2](*args), wl))
+        require(all(torch.equal(a, b) for a, b in zip(got, sums)),
+                f"{name} [{label}] {shape}: not bit-equal to {base}'s")
+        print(f"any window kernel {name} [{label}]: bit-equal to {base}'s "
+              "values")
     del got, ref
     if not timed:
         return
-    gemm = melfused.spec_rows if name == "spec_rows_fft" else \
-        melfused.mel_rows
+    gemm = ANY_GEMMS[name]
     ms = median_ms(lambda: kernel(*args))
     plain_ms = median_ms(lambda: plain(*args), reps=3, warmup=1)
     gemm_ms = median_ms(lambda: gemm(*gemm_args), reps=5)
     library_ms = median_ms(library_call(name, args))
     bound_ms, bound_by = bound(name, args)
-    # The kernel's own operations (_store_ops with own) at the FP32 peak.
-    extra = _rows(args[0]) * t * (_store_ops(wl, own=True) - _store_ops(wl))
+    # The kernel's own operations (_frame_fft_ops with own) at the FP32
+    # peak.
+    ops = _half_ops if name in FFT_STORES else _store_ops
+    extra = _rows(args[0]) * t * (ops(wl, own=True) - ops(wl))
     own_ms = (_work(name, args)[1] + extra) / PEAK_FP32 * 1e3
     print(f"  {name} [{label}]: kernel {ms:.4f} ms, plain {plain_ms:.4f} "
           f"ms (median of 3), GEMM ({gemm.__name__}, ZAFTPU_FFT=matmul's "
           f"route) {gemm_ms:.4f} ms (median of 5), library "
           f"{library_ms:.4f} ms; bound {bound_ms:.4f} ms by {bound_by} "
           f"(the kernel's own operations {own_ms:.4f} ms); kernel / library "
-          f"{ms / library_ms:.3f}")
+          f"{ms / library_ms:.3f}; GEMM / kernel {gemm_ms / ms:.3f}")
 
 
 def phase_hour(dispatch: str, segs: list, wl: int = WL) -> None:
@@ -3129,6 +3226,8 @@ SPLIT4_MATMUL = {**SPLIT4, "ZAFTPU_FFT": "matmul"}
 CQT_HIGHEST = {**DEFAULT, "ZAFTPU_PRECISION": "highest"}
 CQT_EXACT = {**DEFAULT, "ZAFTPU_CQT_SCHEME": "exact"}
 FFT_MATMUL = {**DEFAULT, "ZAFTPU_FFT": "matmul"}
+MATMUL_FUSED2 = {**FFT_MATMUL, "ZAFTPU_FUSED2": "1"}
+SPLIT4_MATMUL_FUSED2 = {**SPLIT4_MATMUL, "ZAFTPU_FUSED2": "1"}
 MATMUL_MELFUSE = {**FFT_MATMUL, "ZAFTPU_MELFUSE": "1"}
 SPLIT4_MATMUL_MELFUSE = {**SPLIT4_MATMUL, "ZAFTPU_MELFUSE": "1"}
 CQT_EXACT_MATMUL = {**CQT_EXACT, "ZAFTPU_FFT": "matmul"}
@@ -3183,6 +3282,9 @@ def main() -> int:
             (DEFAULT, phase_main_path, f"default WL {PRIME_WL}"),
             (DEFAULT, phase_main_path, f"default WL {GEMM_WL}"),
             (FUSED2_ON, phase_main_path, f"ZAFTPU_FUSED2=1 WL {GEMM_WL}"),
+            (FFT_MATMUL, phase_main_path, f"ZAFTPU_FFT=matmul WL {GEMM_WL}"),
+            (MATMUL_FUSED2, phase_main_path,
+             f"ZAFTPU_FFT=matmul ZAFTPU_FUSED2=1 WL {GEMM_WL}"),
             (DEFAULT, phase_mdct_path, "default"),
             (SPLIT, phase_mdct_path, "split"),
             (DEFAULT, phase_mdct_path, f"default WL {MDCT_GEMM_WL}"),
@@ -3208,6 +3310,8 @@ def main() -> int:
             (SPLIT4_FUSED2, phase_main_path,
              f"split4 ZAFTPU_FUSED2=1 WL {GEMM_WL}"),
             (SPLIT4_MATMUL, phase_main_path, "split4 ZAFTPU_FFT=matmul"),
+            (SPLIT4_MATMUL_FUSED2, phase_main_path,
+             f"split4 ZAFTPU_FFT=matmul ZAFTPU_FUSED2=1 WL {GEMM_WL}"),
             (SPLIT4, phase_mdct_path, "split4"),
             (SPLIT4, phase_mdct_path, f"split4 WL {MDCT_GEMM_WL}"),
             (SPLIT4, phase_mel_path, "split4"),
@@ -3247,7 +3351,9 @@ def main() -> int:
           f"{time.perf_counter() - start:.1f} s")
     # Each lever against its dial's lever-free run at the same window, bit
     # for bit. At WL 2062 ZAFTPU_FULLSPEC=1 runs the GEMM B3 (B3-s4 under
-    # split4), which the default leaves for B1 and the index mirror there.
+    # split4), whose sums the lever-free run under ZAFTPU_FFT=matmul shares
+    # (B1, or B1-s4, and the index mirror; the default there takes the
+    # half store).
     fft_stores = ("frames_rfft_full_fft", "synth_fft")
     half_store = ("fused_fft", "synth_fft")
     for base, wl, levers in (
@@ -3259,7 +3365,7 @@ def main() -> int:
                 (FULLSPEC_OFF, "ZAFTPU_FULLSPEC=0", half_store, EXACT_GATES),
                 (FUSED2_ON, "ZAFTPU_FUSED2=1",
                  ("frames_matmul2_fft", "synth_fft"), EXACT_GATES))),
-            (DEFAULT, GEMM_WL, (
+            (FFT_MATMUL, GEMM_WL, (
                 (FULLSPEC_ON, f"ZAFTPU_FULLSPEC=1 WL {GEMM_WL}",
                  ("frames_rfft_full", "synth"), EXACT_GATES),)),
             (SPLIT4, WL, (
@@ -3269,7 +3375,7 @@ def main() -> int:
                  EXACT_GATES),
                 (SPLIT4_FULLSPEC_OFF, "split4 ZAFTPU_FULLSPEC=0", half_store,
                  EXACT_GATES))),
-            (SPLIT4, GEMM_WL, (
+            (SPLIT4_MATMUL, GEMM_WL, (
                 (SPLIT4_FULLSPEC, f"split4 ZAFTPU_FULLSPEC=1 WL {GEMM_WL}",
                  ("frames_rfft_full_split4", "synth_split4"),
                  SPLIT4_GATES),))):
@@ -3295,8 +3401,10 @@ def main() -> int:
         _with_env(env, phase_hour, dispatch, segs)
         _with_env(env, phase_hour_features, dispatch, segs)
         torch.cuda.empty_cache()
-    for wl in (MIXED_WL, PRIME_WL):
+    for wl in (MIXED_WL, PRIME_WL, GEMM_WL):
         _with_env(DEFAULT, phase_hour, f"default WL {wl}", segs, wl)
+    _with_env(FFT_MATMUL, phase_hour, f"ZAFTPU_FFT=matmul WL {GEMM_WL}", segs,
+              GEMM_WL)
     for env, dispatch in ((MELFUSE_OFF, "ZAFTPU_MELFUSE=0"),
                           (MATMUL_MELFUSE, "ZAFTPU_FFT=matmul ZAFTPU_MELFUSE=1"),
                           (SPLIT4_MATMUL_MELFUSE,

@@ -22,14 +22,16 @@ case (main by default; "40 ms" and "25 ms" the FFT kernels' windows;
 median of 10 CUDA-event pairs around one launch, which includes the
 wrapper's host work before it, or with --launches N around N launches
 queued back to back, which leaves the device's time alone (divided by N).
-Ends with each side's median of its two runs and B / A. Needs a CUDA
-card and nvcc; exits 1 without a card.
+Ends with each side's median of its two runs and B / A, and whether the
+two sides' outputs were bit-equal (a SHA-256 of each output's bytes).
+Needs a CUDA card and nvcc; exits 1 without a card.
 """
 
 from __future__ import annotations
 
 import argparse
 import codecs
+import hashlib
 import json
 import os
 import re
@@ -102,10 +104,14 @@ def worker(root: str, side: str, kernels: list, needle: str,
     for name, case, shape, args, _ in cases:
         if name in kernels and case == label:
             fn = chip_smoke.KERNELS[name][2]
+            digest = hashlib.sha256()
+            for y in chip_smoke._planes(fn(*args)):
+                digest.update(y.contiguous().cpu().numpy().tobytes())
             ms = chip_smoke.median_ms(
                 lambda: [fn(*args) for _ in range(launches)]) / launches
             print(json.dumps({"side": side, "kernel": name, "shape": shape,
-                              "ms": ms}), flush=True)
+                              "ms": ms, "sha256": digest.hexdigest()}),
+                  flush=True)
 
 
 def main() -> int:
@@ -137,6 +143,7 @@ def main() -> int:
     print(smi.stdout.strip().splitlines()[0])
     copy = Path(args.tree).resolve() if args.tree else make_copy(args.edit)
     times: dict = {}
+    digests: dict = {}
     for side, root in (("A", ROOT), ("B", copy), ("B", copy), ("A", ROOT)):
         proc = subprocess.run(
             [sys.executable, __file__, "--worker", str(root), side,
@@ -151,13 +158,17 @@ def main() -> int:
                 rec = json.loads(line)
                 times.setdefault((rec["kernel"], rec["shape"]), {}).setdefault(
                     side, []).append(rec["ms"])
+                digests.setdefault((rec["kernel"], rec["shape"]),
+                                   set()).add((side, rec["sha256"]))
                 line = (f"[{side}] {rec['kernel']} {rec['shape']}: "
                         f"{rec['ms']:.4f} ms")
             print(line, flush=True)
     for (name, shape), sides in times.items():
         a, b = (statistics.median(sides[s]) for s in ("A", "B"))
+        same = len({h for _, h in digests[(name, shape)]}) == 1
         print(f"{name} {shape}: A {a:.4f} ms, B {b:.4f} ms, B / A "
-              f"{b / a:.3f}")
+              f"{b / a:.3f}; outputs "
+              f"{'bit-equal' if same else 'differ'} across A and B")
     return 0
 
 

@@ -68,7 +68,7 @@ def _rel_err(got, ref):
 
 def _half_plain(wl):
     """The plain version of the kernel frames_rfft launches at ``wl``."""
-    return (rfft.frames_rfft_fft_plain if rfft.applies(wl)
+    return (rfft.frames_rfft_fft_plain if rfft.half_applies(wl)
             else fused.frames_rfft_plain)
 
 
@@ -113,12 +113,15 @@ def test_misaligned_signal_takes_the_scalar_framing(dev):
 
 
 @pytest.mark.parametrize("wl", [512, 500, 502])
-def test_batched_cuda_input_launches_once(dev, wl):
+@pytest.mark.parametrize("operator", [False, True])
+def test_batched_cuda_input_launches_once(dev, wl, operator):
     """One launch for a batch, of the kernel the shape rule picks: the FFT
-    at an even window whose half has no prime factor above 127 (512, 500),
-    the GEMM otherwise (502: 251 is prime); no plain version."""
+    kernel's half store at every window from 16 to 4,096 (512, 500 on the
+    static path, 502 = 2 * 251 through rfft_any's Bluestein), the GEMM
+    with an explicit operator; no plain version."""
     step, t = 128, 21
     padded, win = _inputs(wl, step, t, dev, (4,))
+    ops = fused.rdft_ops(wl, torch.float32, dev) if operator else None
 
     def counts():
         return (fused.frames_rfft.launches, rfft.frames_rfft_fft.launches,
@@ -126,10 +129,9 @@ def test_batched_cuda_input_launches_once(dev, wl):
                 rfft.frames_rfft_fft_plain.calls)
 
     before = counts()
-    fused.frames_rfft(padded, win, wl, step, t)
-    fft = rfft.applies(wl)
-    assert counts() == (before[0] + (not fft), before[1] + fft, before[2],
-                        before[3])
+    fused.frames_rfft(padded, win, wl, step, t, ops)
+    assert counts() == (before[0] + operator, before[1] + (not operator),
+                        before[2], before[3])
 
 
 @pytest.mark.parametrize("split", [False, True])
@@ -763,7 +765,7 @@ def test_frames_matmul2_bitwise_vs_frames_rfft(dev, wl, step, t, lead):
     assert re.shape == (*lead, t, wl // 2 + 1)
     half = fused.frames_rfft(padded, win, wl, step, t)
     assert torch.equal(torch.complex(re, im), half)
-    plain = (rfft.frames_matmul2_fft_plain if rfft.applies(wl)
+    plain = (rfft.frames_matmul2_fft_plain if rfft.half_applies(wl)
              else fused.frames_matmul2_plain)
     pre, pim = plain(padded, win, wl, step, t)
     assert _rel_err(torch.stack((re, im)), torch.stack((pre, pim))) < 2e-5
@@ -875,18 +877,20 @@ def test_fused2_and_fullspec_levers_on_card_bit_equal(dev, lever, dial,
 @pytest.mark.parametrize("wl,lever,fused2,kernel", [
     (2048, None, False, "fft_full"), (2048, None, True, "fft2"),
     (1102, None, False, "fft_full"), (1102, None, True, "fft2"),
-    (262, None, False, "twin"), (262, None, True, "twin2"),
+    (262, None, False, "fft"), (262, None, True, "fft2"),
+    (262, "matmul", False, "twin"), (262, "matmul", True, "twin2"),
     (2048, "matmul", False, "twin"), (2048, "matmul", True, "twin2"),
     (1764, "native", False, "fft_full")])
 def test_split4_stft_takes_the_fft_where_the_rule_holds(dev, wl, lever,
                                                        fused2, kernel,
                                                        monkeypatch):
-    """Under split4 stft launches the FFT kernel (its full store, or its
-    planes store under ZAFTPU_FUSED2=1) where the shape rule holds (WL
-    1102 = 2 * 19 * 29 among its windows), and B1's twin (B12's) at WL 262
-    (131 is a prime above 127) or with ZAFTPU_FFT=matmul, once and nothing
-    else; the FFT's spectrum bit-equal to the exact dial's, the twins'
-    within 1e-4 of max of the CPU float64 path."""
+    """Under split4 stft launches the FFT kernel, once and nothing else:
+    its full store (its planes store under ZAFTPU_FUSED2=1) where the full
+    store's shape rule holds (WL 1102 = 2 * 19 * 29 among its windows), its
+    half store (planes store) at WL 262 (131 is a prime above 127:
+    rfft_any's Bluestein); B1's twin (B12's) only with ZAFTPU_FFT=matmul;
+    the FFT's spectrum bit-equal to the exact dial's, the twins' within
+    1e-4 of max of the CPU float64 path."""
     monkeypatch.setenv("ZAFTPU_PRECISION", "split4")
     if lever is not None:
         monkeypatch.setenv("ZAFTPU_FFT", lever)
@@ -950,9 +954,9 @@ def test_numpy_input_runs_on_the_card(dev, name, cqt_cache):
 @pytest.mark.parametrize("value", ["high", "default"])
 def test_tpu_pass_count_dials_refused_on_cuda(dev, value, monkeypatch):
     """``high`` and ``default`` are no longer refused on the card: the
-    transforms run, off the FFT rule on the twins at 3 and 1 passes (within
-    the dial's reach of the CPU float64 path), at a rule window on the
-    exact FFT kernels (bit-equal to highest)."""
+    transforms run, off the FFT rule on the exact half store and B4's twin
+    at 3 and 1 passes (within the dial's reach of the CPU float64 path), at
+    a rule window on the exact FFT kernels (bit-equal to highest)."""
     monkeypatch.setenv("ZAFTPU_PRECISION", value)
     p = {"high": 3, "default": 1}[value]
     tol = {3: 2e-5, 1: 3e-2}[p]
@@ -964,8 +968,9 @@ def test_tpu_pass_count_dials_refused_on_cuda(dev, value, monkeypatch):
                   synth.istft_ola_split4.launches)
         spec = zaftpu_torch.stft(xd, hamming(wl), wl // 2)
         rec = zaftpu_torch.istft(spec, hamming(wl), wl // 2)
-        assert (fused.frames_rfft_split4.launches > before[0]
-                or rfft.applies(wl))
+        assert (fused.frames_rfft_split4.launches == before[0]
+                and (synth.istft_ola_split4.launches > before[1]
+                     or rfft.applies(wl)))
         ref = zaftpu_torch.stft(x.double(), hamming(wl), wl // 2)
         assert _rel_err(spec.cpu().to(torch.complex128), ref) < tol
         assert rec.is_cuda
@@ -1146,22 +1151,36 @@ def test_prime_passes_bit_equal_to_plain(dev, wl, step, t, lead, offset):
 
 
 def test_fft_entry_refuses_what_the_rule_refuses(dev):
-    """The CUDA entry takes exactly the lengths rfft.fits takes (the set of
-    rfft.applies without an operator or the lever) and refuses every other
-    before any launch: T = 0 returns after the checks; the wrapper raises
-    ValueError on the same lengths."""
+    """The full store's CUDA entry takes exactly the lengths rfft.fits
+    takes (the set of rfft.applies without an operator or the lever), the
+    half and planes entries every length from 16 to 4,096 with its
+    Bluestein length (rfft.layout(WL).p, 0 where the passes take the FFT's
+    own length); each refuses every other length, and the half and planes
+    entries a wrong P, before any launch (T = 0 returns after the checks);
+    the wrappers raise ValueError on the same lengths."""
     lib = _build.library()
     buf = torch.zeros(8192, device=dev)
+    p = buf.data_ptr()
+    halves = (lib.zt_rfft_half, lib.zt_rfft_planes)
     for wl in range(1, 4200):
-        for entry in (lib.zt_rfft_half, lib.zt_rfft_planes,
-                      lib.zt_rfft_full):
-            err = entry(buf.data_ptr(), buf.data_ptr(), buf.data_ptr(),
-                        buf.data_ptr(), 1, 8192, 0, wl, 1, 0)
-            assert (err == 0) is rfft.fits(wl), (wl, err)
-    for wl in (262, 2062, 255, 4098):
+        err = lib.zt_rfft_full(p, p, p, p, 1, 8192, 0, wl, 1, 0)
+        assert (err == 0) is rfft.fits(wl), (wl, err)
+        big = rfft.layout(wl).p if melfft.fits(wl) else 0
+        for entry in halves:
+            err = entry(p, p, p, p, 1, 8192, 0, wl, 1, big, 0)
+            assert (err == 0) is melfft.fits(wl), (wl, err)
+    for wl, big in ((2048, 288), (441, 882), (262, 0), (2062, 2063),
+                    (3093, 8194)):
+        for entry in halves:
+            assert entry(p, p, p, p, 1, 8192, 0, wl, 1, big, 0) != 0
+    for wl in (262, 2062, 255, 15, 4098):
         padded, win = _inputs(wl, wl // 2, 3, dev)
-        for wrapper in (rfft.frames_rfft_fft, rfft.frames_rfft_full_fft):
-            with pytest.raises(ValueError, match="prime factor"):
+        with pytest.raises(ValueError, match="prime factor"):
+            rfft.frames_rfft_full_fft(padded, win, wl, wl // 2, 3)
+        if melfft.fits(wl):
+            continue
+        for wrapper in (rfft.frames_rfft_fft, rfft.frames_matmul2_fft):
+            with pytest.raises(ValueError, match="must be in"):
                 wrapper(padded, win, wl, wl // 2, 3)
 
 
@@ -1190,11 +1209,11 @@ def test_fft_kernel_takes_an_hour_in_one_launch(dev):
                                 262, 2062])
 @pytest.mark.parametrize("fused2", [False, True])
 def test_shape_rule_launch_counts_on_card(dev, wl, fused2, monkeypatch):
-    """stft launches the FFT kernel (its full or, with ZAFTPU_FUSED2=1, its
-    planes store) at an even window whose half has no prime factor above
-    127 (16 ... 2822) and the GEMM kernel otherwise (262 = 2 * 131, 2062 =
-    2 * 1031), once, and no plain version; within 1e-5 of max of the
-    float64 path."""
+    """stft launches the FFT kernel, once, and no plain version: its full
+    store (its planes store with ZAFTPU_FUSED2=1) at an even window whose
+    half has no prime factor above 127 (16 ... 2822), its half store
+    (planes store) at any other (262 = 2 * 131, 2062 = 2 * 1031); within
+    1e-5 of max of the float64 path."""
     if fused2:
         monkeypatch.setenv("ZAFTPU_FUSED2", "1")
     x64 = np.random.default_rng(wl).standard_normal((2, 20000))
@@ -1212,7 +1231,7 @@ def test_shape_rule_launch_counts_on_card(dev, wl, fused2, monkeypatch):
     spec = zaftpu_torch.stft(x, win, wl // 2)
     moved = {k for k, c in counters.items() if c.launches != before[k]}
     if not rfft.applies(wl):
-        want = "gemm2" if fused2 else "gemm"
+        want = "fft2" if fused2 else "fft"
     else:
         want = "fft2" if fused2 else "fft_full"
     assert moved == {want} and counters[want].launches == before[want] + 1
@@ -1398,14 +1417,21 @@ def test_stft_istft_take_the_ffts_on_both_dials(dev, wl, dial, monkeypatch):
 
 
 @pytest.mark.parametrize("dial", ["highest", "split4"])
-def test_odd_window_keeps_the_gemms_on_card(dev, dial, monkeypatch):
-    """An odd window stays with the GEMM kernels: stft -> istft at WL 1323 /
-    hop 441 (30 ms at 44.1 kHz, periodic Hamming at a third of its length)
-    launches B1 and B4 (their twins under split4) once each and no FFT
-    kernel; the spectrum and the signal within 1e-5 (1e-4) of max of the
-    CPU float64 path. (At an odd window the reference's trim leaves the
-    round trip one sample off, so it is held to that path, not to x.)"""
+@pytest.mark.parametrize("lever", [None, "matmul"])
+def test_odd_window_takes_the_half_store_on_card(dev, dial, lever,
+                                                monkeypatch):
+    """An odd window: stft -> istft at WL 1323 / hop 441 (30 ms at 44.1
+    kHz, periodic Hamming at a third of its length) launches the FFT
+    kernel's half store (each frame a complex 1,323-point FFT) and B4 (its
+    twin under split4) once each, and with ZAFTPU_FFT=matmul B1 and B4
+    (their twins under split4); the spectrum and the signal within 1e-5
+    (1e-4 where a twin runs) of max of the CPU float64 path, the half
+    store's spectrum bit-equal across the dials. (At an odd window the
+    reference's trim leaves the round trip one sample off, so it is held to
+    that path, not to x.)"""
     monkeypatch.setenv("ZAFTPU_PRECISION", dial)
+    if lever is not None:
+        monkeypatch.setenv("ZAFTPU_FFT", lever)
     wl, step = 1323, 441
     x64 = np.random.default_rng(wl).standard_normal((2, 44100))
     x = torch.from_numpy(x64.astype(np.float32)).to(dev)
@@ -1419,14 +1445,19 @@ def test_odd_window_keeps_the_gemms_on_card(dev, dial, monkeypatch):
     spec = zaftpu_torch.stft(x, win, step)
     rec = zaftpu_torch.istft(spec, win, step)
     moved = {k for k, c in counters.items() if c.launches != before[k]}
-    want = ({"twin", "synth_twin"} if dial == "split4"
-            else {"gemm", "synth"})
+    analysis = "fft" if lever is None else (
+        "twin" if dial == "split4" else "gemm")
+    want = {analysis, "synth_twin" if dial == "split4" else "synth"}
     assert moved == want
     assert all(counters[k].launches == before[k] + 1 for k in want)
     monkeypatch.setenv("ZAFTPU_PRECISION", "highest")
+    if lever is None:
+        assert torch.equal(spec, zaftpu_torch.stft(x, win, step))
+    monkeypatch.delenv("ZAFTPU_FFT", raising=False)
     oracle = zaftpu_torch.stft(torch.from_numpy(x64), win, step)
     tol = 1e-4 if dial == "split4" else 1e-5
-    assert _rel_err(spec.cpu().to(torch.complex128), oracle) < tol
+    spec_tol = 1e-5 if analysis == "fft" else tol
+    assert _rel_err(spec.cpu().to(torch.complex128), oracle) < spec_tol
     assert _rel_err(rec.cpu().double(),
                     zaftpu_torch.istft(oracle, win, step)) < tol
 
@@ -1786,13 +1817,89 @@ def test_spec_store_takes_every_window_bit_equal(dev, wl):
     _spec_store_bit_equal(dev, wl)
 
 
+def _half_stores_bit_equal(dev, wl, step, t, lead=(2,), offset=1):
+    """The half and planes stores at ``wl`` launch once each (nothing for
+    zero frames) and equal their plain versions bit for bit, the planes
+    the half store's values: batched and misaligned by default."""
+    padded, win = _inputs(wl, step, max(t, 1), dev, lead, offset)
+    before = (rfft.frames_rfft_fft.launches, rfft.frames_matmul2_fft.launches)
+    half = rfft.frames_rfft_fft(padded, win, wl, step, t)
+    re, im = rfft.frames_matmul2_fft(padded, win, wl, step, t)
+    assert half.shape == re.shape == im.shape == (*lead, t, wl // 2 + 1)
+    assert half.dtype == torch.complex64 and half.is_cuda
+    if t:
+        args = (padded, win, wl, step, t)
+        assert torch.equal(half, rfft.frames_rfft_fft_plain(*args)), wl
+        pre, pim = rfft.frames_matmul2_fft_plain(*args)
+        assert torch.equal(re, pre) and torch.equal(im, pim), wl
+        assert torch.equal(torch.complex(re, im), half), wl
+    runs = 1 if t else 0
+    assert (rfft.frames_rfft_fft.launches,
+            rfft.frames_matmul2_fft.launches) == (before[0] + runs,
+                                                  before[1] + runs)
+
+
 @pytest.mark.skipif(os.environ.get("ZAFTPU_CUDA_SWEEP") != "1",
-                    reason="the sweep of all 4,081 windows takes about 3 "
+                    reason="the sweep of all 4,081 windows takes several "
                     "minutes on an H100; set ZAFTPU_CUDA_SWEEP=1")
 def test_spec_store_every_window_sweep(dev):
-    """Every window from 16 to 4,096 through _spec_store_bit_equal."""
+    """Every window from 16 to 4,096 through _spec_store_bit_equal and,
+    for the half and planes stores, _half_stores_bit_equal (3 frames, a
+    hop that does not divide the window)."""
     for wl in range(16, 4097):
         _spec_store_bit_equal(dev, wl)
+        _half_stores_bit_equal(dev, wl, wl // 3 + 1, 3)
+
+
+# The half and planes stores at every window from 16 to 4,096 (B1's and
+# B12's function, and B1-s4's and B12-s4's off the full store's rule):
+# tests/test_torch_rfft_any.py's ORACLE_WINDOWS (the layouts and the ends)
+# and EVERY_PATH_WINDOWS.
+HALF_WINDOWS = sorted({16, 17, 131, 255, 262, 393, 441, 551, 1031, 1323,
+                       2039, 2048, 2062, 2205, 3093, 4078, 4095, 4096,
+                       *EVERY_PATH_WINDOWS})
+# Ragged shapes in each block: the 2,048-value block (441: four rows; 262:
+# Bluestein at P 288), the 4,096-value one (2,205; 2,062 and 4,078 by
+# Bluestein at P 2,304 and 4,096) and the 8,192-value one (chip_smoke's
+# ANY_RAGGED: 3,093 by Bluestein at P 6,400); odd T, hops that do not
+# divide the window.
+HALF_RAGGED = [(441, 100, 1001), (262, 100, 1001), (2205, 441, 301),
+               (2062, 512, 301), (4078, 1000, 301), (3093, 1000, 301)]
+
+
+@pytest.mark.parametrize("wl", HALF_WINDOWS)
+def test_half_and_planes_stores_take_every_window_bit_equal(dev, wl):
+    """HALF_WINDOWS through _half_stores_bit_equal: 3 frames, 2 rows, a
+    hop that does not divide the window, misaligned."""
+    _half_stores_bit_equal(dev, wl, wl // 3 + 1, 3)
+
+
+@pytest.mark.parametrize("wl,step,t", HALF_RAGGED)
+@pytest.mark.parametrize("lead,offset", [((), 0), ((3,), 1)])
+def test_half_and_planes_stores_ragged_bit_equal(dev, wl, step, t, lead,
+                                                 offset):
+    """HALF_RAGGED's shapes, one row aligned and three misaligned, through
+    _half_stores_bit_equal; within 2e-6 of max of the float64 oracle."""
+    _half_stores_bit_equal(dev, wl, step, t, lead, offset)
+    padded, win = _inputs(wl, step, t, dev, lead, offset)
+    half = rfft.frames_rfft_fft(padded, win, wl, step, t)
+    oracle = _oracle_half(padded, win, wl, step, t)
+    assert _rel_err(half.cpu().to(torch.complex128), oracle) < 2e-6
+
+
+@pytest.mark.parametrize("wl", [441, 2062, 3093, 2048])
+def test_half_and_planes_stores_launch_nothing_for_zero_frames(dev, wl):
+    """Zero frames: empty outputs and no launch, on every path (the static
+    one at 2,048) and through frames_rfft / frames_matmul2."""
+    _half_stores_bit_equal(dev, wl, wl // 2, 0)
+    padded, win = _inputs(wl, wl // 2, 1, dev)
+    before = (rfft.frames_rfft_fft.launches, rfft.frames_matmul2_fft.launches)
+    assert fused.frames_rfft(padded, win, wl, wl // 2, 0).shape == (
+        0, wl // 2 + 1)
+    assert fused.frames_matmul2(padded, win, wl, wl // 2, 0)[0].shape == (
+        0, wl // 2 + 1)
+    assert (rfft.frames_rfft_fft.launches,
+            rfft.frames_matmul2_fft.launches) == before
 
 
 @pytest.mark.parametrize("wl", [3093, 4095, 2062])
@@ -1842,7 +1949,7 @@ _ROUTE_COUNTERS = {"spec_rows_fft": melfft.spec_rows_fft,
      {"spec_rows_fft", "mel_rows_fft"}),
     (2048, "1", "matmul", {"spec_rows", "mel_rows"},
      {"spec_rows", "mel_rows_split4"}),
-    (2062, "0", None, {"frames_rfft"}, {"frames_rfft_split4"}),
+    (2062, "0", None, {"frames_rfft_fft"}, {"frames_rfft_fft"}),
     (1323, None, None, {"spec_rows_fft", "mel_rows_fft"},
      {"spec_rows_fft", "mel_rows_fft"}),
     (2062, None, "matmul", {"spec_rows", "mel_rows"},
@@ -2044,11 +2151,11 @@ def test_dct_dst_on_the_card(dev, route, n, monkeypatch):
 @pytest.mark.parametrize("wl,step", [(2048, 512), (1200, 300), (262, 131),
                                      (8192, 2048)])
 def test_griffin_lim_on_the_card(dev, wl, step):
-    """At the FFT rule's windows each iteration launches the half store and
-    the windowed store once (and the last synthesis once more); off the
-    rule the GEMM B1 (or, above 4,096, the framing kernel) and the OLA
-    kernel. The result within 1e-3 * max of the CPU's float32 plain
-    versions after 3 iterations."""
+    """Each iteration launches the half store once at every window up to
+    4,096 (rfft_any off the FFT rule; above 4,096 the framing kernel), and
+    at the FFT rule's windows the windowed store once (and the last
+    synthesis once more), off the rule the OLA kernel. The result within
+    1e-3 * max of the CPU's float32 plain versions after 3 iterations."""
     gen = torch.Generator(device=dev).manual_seed(wl)
     x = torch.randn(44100, device=dev, generator=gen)
     win = hamming(wl)
@@ -2057,7 +2164,8 @@ def test_griffin_lim_on_the_card(dev, wl, step):
         irfft.istft_ola_fft_window.launches
     out = zaftpu_torch.griffin_lim(mag, win, step, iterations=3)
     on_rule = rfft.fits(wl)
-    assert rfft.frames_rfft_fft.launches - half == (3 if on_rule else 0)
+    assert rfft.frames_rfft_fft.launches - half == (
+        3 if rfft.half_applies(wl) else 0)
     assert irfft.istft_ola_fft_window.launches - window == (4 if on_rule
                                                             else 0)
     ref = zaftpu_torch.griffin_lim(mag.cpu(), win, step, iterations=3)

@@ -169,13 +169,15 @@ def test_radices_refuse_a_prime_above_7():
                                     (1102, True), (38, True), (262, False),
                                     (2062, False)])
 def test_shape_rule_through_plain_calls(wl, fft, monkeypatch):
-    """frames_rfft and frames_matmul2 take the FFT's plain version at an
-    even window in [16, 4096] whose half has no prime factor above 127 and
-    no operator, on both dials; any other length (262 = 2 * 131, 2062 = 2 *
-    1031) keeps the GEMM plain versions (the split4 twin's under split4),
-    and an explicit operator the exact GEMM's."""
+    """frames_rfft and frames_matmul2 take the FFT's plain version at every
+    window in [16, 4096] with no operator, on both dials: rfft.applies
+    (the full store's rule: an even window whose half has no prime factor
+    above 127) and beyond it (255, 262 = 2 * 131, 2062 = 2 * 1031:
+    rfft_any); a window below 16 keeps the GEMM plain versions (the split4
+    twin's under split4), and an explicit operator the exact GEMM's."""
     monkeypatch.delenv("ZAFTPU_PRECISION", raising=False)
     assert trfft.applies(wl) is fft
+    fft = trfft.half_applies(wl)
     step = max(1, wl // 2)
     padded = torch.from_numpy(_signal((), wl, step, 3, 2))
     win = torch.from_numpy(hamming(wl).astype(np.float32))
@@ -312,7 +314,7 @@ def _bad_fft_launch(case):
                                         win[:-1], wl, step, t),
         "short": lambda: trfft._launch("frames_matmul2_fft", "planes",
                                        padded[:-1], win, wl, step, t),
-        "not_pow2": lambda: trfft._launch("frames_matmul2_fft", "planes",
+        "not_pow2": lambda: trfft._launch("frames_rfft_full_fft", "full",
                                           padded[:-1], win[:-1], wl - 1,
                                           step, t),
         "prime_above_7": lambda: trfft._launch(

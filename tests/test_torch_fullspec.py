@@ -119,34 +119,52 @@ LEVERS = {"none": {}, "ZAFTPU_MIRROR=pallas": {"ZAFTPU_MIRROR": "pallas"},
           "ZAFTPU_FUSED=0": {"ZAFTPU_FUSED": "0"},
           "ZAFTPU_FFT=matmul": {"ZAFTPU_FFT": "matmul"}}
 # A 7-smooth rule window, one through the odd-prime passes (1102 = 2 * 19
-# * 29) and one the rule leaves to the GEMMs (262 = 2 * 131).
+# * 29) and one the full store's rule leaves to the GEMM B3 (262 = 2 * 131),
+# where the half and planes stores run rfft_any's Bluestein.
 RULE_WL, PRIME_WL, OFF_RULE_WL = 2048, 1102, 262
 
 
 def _expected(fullspec, lever: str, dial: str, wl: int) -> set:
-    """The counters stft moves: the lever's rule, stated once more."""
+    """The counters stft moves: the lever's rule, stated once more. The
+    half and planes stores take every window unless ZAFTPU_FFT=matmul; the
+    full store only the full store's rule."""
     if lever == "ZAFTPU_FUSED=0":
         return {"framing"}
-    fft = wl != OFF_RULE_WL and lever != "ZAFTPU_FFT=matmul"
-    kernel = "fft" if fft else "twin" if dial == "split4" else "gemm"
+    matmul = lever == "ZAFTPU_FFT=matmul"
+    gemm = "twin" if dial == "split4" else "gemm"
+    full_fft = wl != OFF_RULE_WL and not matmul
     if fullspec is None:
-        full = fft and lever not in ("ZAFTPU_MIRROR=pallas",
-                                     "ZAFTPU_FUSED2=1")
+        full = full_fft and lever not in ("ZAFTPU_MIRROR=pallas",
+                                          "ZAFTPU_FUSED2=1")
     else:
         full = fullspec == "1"
     if full:
-        return {f"full_{kernel}"}
+        return {f"full_{'fft' if full_fft else gemm}"}
     store = "planes" if lever == "ZAFTPU_FUSED2=1" else "half"
     mirror = {"mirror"} if lever == "ZAFTPU_MIRROR=pallas" else set()
-    return {f"{store}_{kernel}"} | mirror
+    return {f"{store}_{gemm if matmul else 'fft'}"} | mirror
 
 
-def _group(lever: str, wl: int) -> str:
+def _group(fullspec, lever: str, wl: int) -> str:
     """The analysis kernel whose sums the spectrum holds."""
     if lever == "ZAFTPU_FUSED=0":
         return "split"
-    return ("fft" if wl != OFF_RULE_WL and lever != "ZAFTPU_FFT=matmul"
-            else "gemm")
+    if lever == "ZAFTPU_FFT=matmul" or (wl == OFF_RULE_WL
+                                        and fullspec == "1"):
+        return "gemm"
+    return "fft"
+
+
+def _agree(spec, ref, same_kernel: bool, dial: str) -> None:
+    """Bit-equal where both ran the same analysis kernel, else within the
+    dial's oracle gate (1e-5 of max exact, 1e-4 split4)."""
+    if same_kernel:
+        assert torch.equal(spec, ref)
+        return
+    ref = _np(ref)
+    tol = 1e-4 if dial == "split4" else 1e-5
+    np.testing.assert_allclose(_np(spec), ref, rtol=0,
+                               atol=tol * np.abs(ref).max())
 
 
 def _stft(x, wl, env: dict, monkeypatch):
@@ -163,11 +181,11 @@ def _stft(x, wl, env: dict, monkeypatch):
 @pytest.mark.parametrize("fullspec", [None, "0", "1"])
 def test_fullspec_lever_dispatch(fullspec, lever, dial, wl, monkeypatch):
     """Each combination moves exactly the counters the rule names, and its
-    spectrum equals, bit for bit, that of every combination that runs the
-    same analysis kernel on this dial: ZAFTPU_FULLSPEC=0 under the same
-    lever, and the lever-free default where both share the kernel; across
-    kernels within the dial's oracle gate (1e-5 of max exact, 1e-4
-    split4)."""
+    spectrum equals, bit for bit, that of ZAFTPU_FULLSPEC=0 under the same
+    lever and of the lever-free default wherever both run the same
+    analysis kernel on this dial; across kernels (at WL 262 the full
+    store's GEMM B3 against the half store) within the dial's oracle gate
+    (1e-5 of max exact, 1e-4 split4)."""
     monkeypatch.setenv("ZAFTPU_PRECISION", dial)
     x = torch.from_numpy(np.random.default_rng(41).standard_normal(
         (2, 4 * wl)).astype(np.float32))
@@ -180,17 +198,12 @@ def test_fullspec_lever_dispatch(fullspec, lever, dial, wl, monkeypatch):
     assert moved == _expected(fullspec, lever, dial, wl)
     assert all(STORES[k].calls == before[k] + 1 for k in moved)
     assert spec.shape[:2] == (2, wl) and spec.dtype == torch.complex64
+    group = _group(fullspec, lever, wl)
     same = _stft(x, wl, {**LEVERS[lever], "ZAFTPU_FULLSPEC": "0"},
                  monkeypatch)
-    assert torch.equal(spec, same)
+    _agree(spec, same, group == _group("0", lever, wl), dial)
     default = _stft(x, wl, {}, monkeypatch)
-    if _group(lever, wl) == _group("none", wl):
-        assert torch.equal(spec, default)
-        return
-    ref = _np(default)
-    tol = 1e-4 if dial == "split4" else 1e-5
-    np.testing.assert_allclose(_np(spec), ref, rtol=0,
-                               atol=tol * np.abs(ref).max())
+    _agree(spec, default, group == _group(None, "none", wl), dial)
 
 
 def test_unset_lever_takes_the_full_store_only_at_rule_windows(monkeypatch):

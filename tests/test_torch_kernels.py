@@ -145,8 +145,8 @@ def _counts():
 
 
 def test_cpu_tensors_take_plain_versions_only():
-    """WL 256 takes the FFT kernel's plain version, WL 255 the GEMM's; the
-    synthesis, given its operator, B4's."""
+    """WL 256 takes the FFT kernel's plain version, WL 255 given its
+    operator the GEMM's; the synthesis, given its operator, B4's."""
     wl, step, t = 256, 128, 9
     padded = torch.from_numpy(_signal(wl, step, t, 6))
     win = torch.from_numpy(hamming(wl).astype(np.float32))
@@ -164,7 +164,8 @@ def test_cpu_tensors_take_plain_versions_only():
     half = tfused.frames_rfft(padded, win, wl, step, t)
     tsynth.istft_ola(half.real.contiguous(), half.imag.contiguous(), wl, step,
                      1.0, ops=tsynth.istft_ops(wl, 1.0, torch.float32, "cpu"))
-    tfused.frames_rfft(padded[:-1], win[:-1], wl - 1, step, t)
+    tfused.frames_rfft(padded[:-1], win[:-1], wl - 1, step, t,
+                       ops=tfused.rdft_ops(wl - 1, torch.float32, "cpu"))
     assert _counts() == launches
     assert calls() == tuple(c + 1 for c in before)
 

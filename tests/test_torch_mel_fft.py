@@ -478,8 +478,8 @@ def test_front_ends_follow_the_route(wl, melfuse, fft, exact, split4, dial,
     """spectrogram, melspectrogram and mfcc of a float32 signal run the
     plain versions of the route's kernels and no others: the stores; B8
     and B9 (B9-s4 under split4); or the half spectrum of the analysis
-    dispatch (the FFT's half store at a rule window, else B1 or its
-    twin)."""
+    dispatch (the FFT's half store at every window from 16 to 4,096
+    unless ZAFTPU_FFT=matmul, else B1 or its twin)."""
     monkeypatch.setenv("ZAFTPU_PRECISION", dial)
     for name, value in (("ZAFTPU_MELFUSE", melfuse), ("ZAFTPU_FFT", fft)):
         if value is not None:
@@ -490,7 +490,7 @@ def test_front_ends_follow_the_route(wl, melfuse, fft, exact, split4, dial,
     elif route == "kernel":
         want = {"spec_rows",
                 "mel_rows_split4" if dial == "split4" else "mel_rows"}
-    elif trfft.applies(wl):
+    elif trfft.half_applies(wl):
         want = {"frames_rfft_fft"}
     else:
         want = {"frames_rfft_split4" if dial == "split4" else "frames_rfft"}

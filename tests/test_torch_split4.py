@@ -623,15 +623,15 @@ def test_split4_takes_the_fft_where_the_rule_holds(x32, monkeypatch):
 def test_split4_off_the_rule_runs_the_twins_and_matches_zaftpu(
         x32, fused2, split4, monkeypatch):
     """At WL 2062 (its half 1031 is a prime above 127) the split4 stft
-    runs B1's twin, or under ZAFTPU_FUSED2=1 B12's, without the lever, and
-    agrees with zaftpu's split4 stft (its GEMM engine, ZAFTPU_FFT=matmul on
-    its side only) at 2e-6 of max."""
+    under ZAFTPU_FFT=matmul runs B1's twin, or under ZAFTPU_FUSED2=1
+    B12's, and agrees with zaftpu's split4 stft (its GEMM engine,
+    ZAFTPU_FFT=matmul on both sides) at 2e-6 of max. Without the lever the
+    half store takes the window (the test below)."""
     wl, step = 2062, 1031
     assert not trfft.applies(wl)
     win = hamming(wl).astype(np.float32)
     monkeypatch.setenv("ZAFTPU_FFT", "matmul")
     ref = np.asarray(zaftpu.stft(x32, win, step))
-    monkeypatch.delenv("ZAFTPU_FFT")
     if fused2:
         monkeypatch.setenv("ZAFTPU_FUSED2", "1")
     twin = (tfused.frames_matmul2_split4_plain if fused2
@@ -643,6 +643,35 @@ def test_split4_off_the_rule_runs_the_twins_and_matches_zaftpu(
     assert mine.dtype == torch.complex64 and tuple(mine.shape) == ref.shape
     _gemm_close(_np(mine).real, ref.real)
     _gemm_close(_np(mine).imag, ref.imag)
+
+
+@pytest.mark.parametrize("fused2", [False, True])
+def test_split4_off_the_rule_runs_the_half_store_without_the_lever(
+        x32, fused2, split4, monkeypatch):
+    """At WL 2062 without ZAFTPU_FFT=matmul the split4 stft runs the half
+    store's plain version (the planes store's under ZAFTPU_FUSED2=1) and
+    no twin, bit-equal to the exact dial's, and agrees with zaftpu's
+    split4 stft (its native FFT off the TPU) at 2e-6 of max."""
+    wl, step = 2062, 1031
+    win = hamming(wl).astype(np.float32)
+    monkeypatch.delenv("ZAFTPU_FFT", raising=False)
+    ref = np.asarray(zaftpu.stft(x32, win, step))
+    if fused2:
+        monkeypatch.setenv("ZAFTPU_FUSED2", "1")
+    store = (trfft.frames_matmul2_fft_plain if fused2
+             else trfft.frames_rfft_fft_plain)
+    twins = (tfused.frames_rfft_split4_plain,
+             tfused.frames_matmul2_split4_plain)
+    calls = (store.calls, *(t.calls for t in twins))
+    mine = zaftpu_torch.stft(torch.from_numpy(x32), win, step)
+    assert (store.calls, *(t.calls for t in twins)) == (calls[0] + 1,
+                                                        *calls[1:])
+    assert mine.dtype == torch.complex64 and tuple(mine.shape) == ref.shape
+    _gemm_close(_np(mine).real, ref.real)
+    _gemm_close(_np(mine).imag, ref.imag)
+    monkeypatch.setenv("ZAFTPU_PRECISION", "highest")
+    assert torch.equal(mine, zaftpu_torch.stft(torch.from_numpy(x32), win,
+                                               step))
 
 
 @pytest.mark.parametrize("power", [False, True])

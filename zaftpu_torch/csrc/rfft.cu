@@ -17,16 +17,15 @@
 // reaches it (B1), its _kernel_split4 (B1-s4), _frames_matmul2_impl (B12),
 // its _kernel2_split4 (B12-s4), _frames_matmul_full_impl (B3, the mirror in
 // its epilogue) and its _kernel_full_split4 (B3-s4) on both dials at those
-// window lengths; the GEMM kernels of fused.cu and their twins keep every
-// other length and an explicit operator (kernels/fused.py states the
-// rule). The magnitude store replaces zaftpu/pallas/melfused.py:
+// window lengths. The magnitude store replaces zaftpu/pallas/melfused.py:
 // _spec_rows_impl (:200, B8) and the mel store its _mel_rows_impl (:263,
-// B9) and that kernel's _kernel_split4 (:142, B9-s4) at those window
-// lengths on both dials; melfused.cu keeps every other length, an explicit
-// operator and ZAFTPU_FFT=matmul (kernels/melfused.route states the rule).
-// The magnitude and mel stores also take every other window from 16 to
-// 4096 (rfft_any, below), so there melfused.cu keeps only a window below
-// 16 and ZAFTPU_FFT=matmul.
+// B9) and that kernel's _kernel_split4 (:142, B9-s4) there too. The half,
+// planes, magnitude and mel stores also take every other window from 16 to
+// 4096 (rfft_any, below), on both dials: there the GEMM kernels of fused.cu
+// and melfused.cu and their twins keep only an explicit operator,
+// ZAFTPU_FFT=matmul and a window below 16, and the full store's B3 and
+// B3-s4 every window off the rule (kernels/fused.py and
+// kernels/melfused.route state the rules).
 // The TPU kernels contract each frame with a dense (N, F) cos/sin
 // operator on the matrix unit: 4 N F FLOP per frame. Here the same sums
 // come from an FFT, about 2.5 N log2 N FLOP at a smooth N and more at a
@@ -75,13 +74,14 @@
 //     2048 and 40 mels) and rows of 4 to 163 terms unbalanced at
 //     MelConfig(); a later change may split the rows.
 //
-// Off that rule the magnitude and mel stores run rfft_any: an odd N
-// transforms each frame alone as a complex N-point FFT with zero imaginary
-// parts (the passes take N: the odd radices and primes up to 127). That is
-// twice a real FFT's work, but a frame's bins round with no other frame's:
-// two frames packed as one FFT's real and imaginary parts put about 1e-7
-// of the loud one's magnitude into a silent partner, which a log-mel or
-// MFCC turns into a different value than the GEMM's exact zero (PERF.md).
+// Off that rule the half, planes, magnitude and mel stores run rfft_any:
+// an odd N transforms each frame alone as a complex N-point FFT with zero
+// imaginary parts (the passes take N: the odd radices and primes up to
+// 127). That is twice a real FFT's work, but a frame's bins round with no
+// other frame's: two frames packed as one FFT's real and imaginary parts
+// put about 1e-7 of the loud one's magnitude into a silent partner, which
+// a log-mel or MFCC turns into a different value than the GEMM's exact
+// zero (PERF.md).
 // An FFT length M (N/2, or N when odd) with a prime factor above 127 runs
 // by Bluestein's chirp z-transform: M-point DFT = conj c[k] (a * c)[k],
 // a[m] = z[m] conj c[m], c[j] = exp(i pi j^2 / M), the convolution
@@ -231,18 +231,20 @@ rfft_kernel(const float* __restrict__ sig, const float* __restrict__ win,
   }
 }
 
-// The magnitude and mel stores at a window the static path refuses, on
-// `rows` rows of L values in dynamic shared memory (two buffers of rows * L
-// values), row r frame t0 + r: ODD holds z[m] = x[m] w[m] (m < N, zero
-// imaginary parts) and runs the N-point complex FFT, whose bins 1..(N-1)/2
-// are the frame's (no Nyquist bin); otherwise the frame's even/odd
+// The half, planes, magnitude and mel stores at a window the static path
+// refuses, on `rows` rows of L values in dynamic shared memory (two
+// buffers of rows * L values), row r frame t0 + r: ODD holds z[m] = x[m]
+// w[m] (m < N, zero imaginary parts) and runs the N-point complex FFT,
+// whose bins 0..(N-1)/2 are the frame's (no Nyquist bin), each frame
+// alone (no two frames share an FFT, so a frame's bins round with no
+// other frame's); otherwise the frame's even/odd
 // packing, M = N/2 points, and split_bin. BLUE runs that M-point FFT (M =
 // N or N/2) by Bluestein's chirp z-transform on rows of L = P values: z[m]
 // times conj c[m], zeros to P, the forward passes (table W_P), times B[k],
 // conjugated, the forward passes, conjugated, times conj c[k]. tab holds
 // W_N (N values), then under BLUE W_P (P), conj c (M) and B (P)
-// (kernels/rfft.store_tables). Then the stores of rfft_kernel, over F =
-// N/2 (rounded down) bins a frame.
+// (kernels/rfft.store_tables). Then the stores of rfft_kernel: bins 0..F
+// (half, planes) or 1..F (magnitude, mel), F = N/2 rounded down.
 template <bool ODD, bool BLUE, Store S>
 __global__ void __launch_bounds__(zt::kThreads)
 rfft_any(const float* __restrict__ sig, const float* __restrict__ win,
@@ -297,37 +299,59 @@ rfft_any(const float* __restrict__ sig, const float* __restrict__ win,
     __syncthreads();
   }
 
-  // Bins 1..F: the magnitudes straight out, or into the free buffer.
-  float* vals = reinterpret_cast<float*>(buf[cur ^ 1]);
-  for (int e = threadIdx.x; e < rows * F; e += blockDim.x) {
-    const int f = e / F;
-    const int k = e - f * F + 1;
-    const long long t = t0 + f;
-    if (t >= T) continue;
-    const float2 x = ODD ? buf[cur][f * L + k]
-                         : split_bin(buf[cur] + f * L, tab, k, M);
-    const float p = __fadd_rn(__fmul_rn(x.x, x.x), __fmul_rn(x.y, x.y));
-    if constexpr (S == Store::kSpec) {
-      out[((long long)blockIdx.y * T + t) * F + k - 1] = __fsqrt_rn(p);
-    } else {
-      vals[e] = mel.power ? p : __fsqrt_rn(p);
-    }
-  }
-  if constexpr (S == Store::kMel) {
-    __syncthreads();
-    for (int o = threadIdx.x; o < rows * mel.n_mels; o += blockDim.x) {
-      const int f = o / mel.n_mels;
-      const int m = o - f * mel.n_mels;
+  if constexpr (S == Store::kHalf || S == Store::kPlanes) {
+    // Bins 0..F (H = F + 1 a frame, DC included; an odd N has no Nyquist
+    // bin), rfft_kernel's layouts, consecutive threads on consecutive bins
+    // of a frame.
+    const int H = F + 1;
+    for (int e = threadIdx.x; e < rows * H; e += blockDim.x) {
+      const int f = e / H;
+      const int k = e - f * H;
       const long long t = t0 + f;
       if (t >= T) continue;
-      const float* v = vals + f * F;
-      const int end = __ldg(mel.rowptr + m + 1);
-      float acc = 0.f;
-      for (int j = __ldg(mel.rowptr + m); j < end; ++j) {
-        acc = __fadd_rn(acc, __fmul_rn(__ldg(mel.weights + j),
-                                       v[__ldg(mel.cols + j)]));
+      const float2 x = ODD ? buf[cur][f * L + k]
+                           : split_bin(buf[cur] + f * L, tab, k, M);
+      const long long row = (long long)blockIdx.y * T + t;
+      if constexpr (S == Store::kPlanes) {
+        out[row * H + k] = x.x;
+        out[((long long)gridDim.y * T + row) * H + k] = x.y;
+      } else {
+        reinterpret_cast<float2*>(out)[row * H + k] = x;
       }
-      out[((long long)blockIdx.y * T + t) * mel.n_mels + m] = acc;
+    }
+  } else {
+    // Bins 1..F: the magnitudes straight out, or into the free buffer.
+    float* vals = reinterpret_cast<float*>(buf[cur ^ 1]);
+    for (int e = threadIdx.x; e < rows * F; e += blockDim.x) {
+      const int f = e / F;
+      const int k = e - f * F + 1;
+      const long long t = t0 + f;
+      if (t >= T) continue;
+      const float2 x = ODD ? buf[cur][f * L + k]
+                           : split_bin(buf[cur] + f * L, tab, k, M);
+      const float p = __fadd_rn(__fmul_rn(x.x, x.x), __fmul_rn(x.y, x.y));
+      if constexpr (S == Store::kSpec) {
+        out[((long long)blockIdx.y * T + t) * F + k - 1] = __fsqrt_rn(p);
+      } else {
+        vals[e] = mel.power ? p : __fsqrt_rn(p);
+      }
+    }
+    if constexpr (S == Store::kMel) {
+      __syncthreads();
+      for (int o = threadIdx.x; o < rows * mel.n_mels; o += blockDim.x) {
+        const int f = o / mel.n_mels;
+        const int m = o - f * mel.n_mels;
+        const long long t = t0 + f;
+        if (t >= T) continue;
+        const float* v = vals + f * F;
+        const int end = __ldg(mel.rowptr + m + 1);
+        float acc = 0.f;
+        for (int j = __ldg(mel.rowptr + m); j < end; ++j) {
+          acc = __fadd_rn(acc, __fmul_rn(__ldg(mel.weights + j),
+                                         v[__ldg(mel.cols + j)]));
+        }
+        out[((long long)blockIdx.y * T + t) * mel.n_mels + m] = acc;
+      }
     }
   }
 }
@@ -414,8 +438,9 @@ int launch(const void* sig, const void* win, const void* tw, void* out,
   return (int)cudaGetLastError();
 }
 
-// The magnitude or mel store at any window from 16 to 4096: rfft_kernel
-// where fft_fits (P = 0), else rfft_any in the block its row needs.
+// The half, planes, magnitude or mel store at any window from 16 to 4096:
+// rfft_kernel where fft_fits (P = 0), else rfft_any in the block its row
+// needs.
 template <Store S>
 int launch_store(const void* sig, const void* win, const void* tw, void* out,
                  int batch, long long sig_len, int T, int WL, int step, int P,
@@ -450,29 +475,35 @@ int launch_store(const void* sig, const void* win, const void* tw, void* out,
 }  // namespace
 
 // sig: (batch, sig_len) with sig_len >= (T - 1) * step + WL; win: (WL,);
-// tw: (WL, 2) float32, W_WL^j = (cos, sin)(-2 pi j / WL), 8-byte aligned;
-// out: (batch, T, WL/2 + 1) complex64 as float pairs. WL even in [16, 4096]
-// with no prime factor above 127 in WL/2, step in [1, WL]; any other WL
+// tw: kernels/rfft.store_tables(WL), 8-byte aligned (at a WL whose half
+// rfft.fits takes, that is the (WL, 2) float32 table W_WL^j = (cos,
+// sin)(-2 pi j / WL)); P: its Bluestein length (kernels/rfft.layout(WL).p;
+// 0 where the passes take the FFT's own length); out: (batch, T, WL/2 + 1)
+// complex64 as float pairs, bins 0..WL/2 (WL/2 rounded down: an odd WL has
+// no Nyquist bin). Any WL in [16, 4096] and step in [1, WL]: rfft_kernel
+// where the WL fits (P = 0), else rfft_any; any other WL or a wrong P
 // returns cudaErrorInvalidValue before a launch. All contiguous.
 ZT_EXPORT int zt_rfft_half(const void* sig, const void* win, const void* tw,
                            void* out, int batch, long long sig_len, int T,
-                           int WL, int step, void* stream) {
-  return launch<Store::kHalf>(sig, win, tw, out, batch, sig_len, T, WL, step,
-                              stream);
+                           int WL, int step, int P, void* stream) {
+  return launch_store<Store::kHalf>(sig, win, tw, out, batch, sig_len, T, WL,
+                                    step, P, stream);
 }
 
 // As zt_rfft_half, out two float32 planes (2, batch, T, WL/2 + 1): the real
 // parts, then the imaginary parts.
 ZT_EXPORT int zt_rfft_planes(const void* sig, const void* win, const void* tw,
                              void* out, int batch, long long sig_len, int T,
-                             int WL, int step, void* stream) {
-  return launch<Store::kPlanes>(sig, win, tw, out, batch, sig_len, T, WL,
-                                step, stream);
+                             int WL, int step, int P, void* stream) {
+  return launch_store<Store::kPlanes>(sig, win, tw, out, batch, sig_len, T,
+                                      WL, step, P, stream);
 }
 
-// As zt_rfft_half, out the full spectrum (batch, T, WL) complex64 as float
-// pairs: bins 0..WL/2 as zt_rfft_half writes them, then bin WL - k the
-// conjugate of bin k for k = 1..WL/2 - 1.
+// As zt_rfft_half at a WL even in [16, 4096] with no prime factor above 127
+// in WL/2 (any other WL returns cudaErrorInvalidValue before a launch), tw
+// the (WL, 2) twiddle table; out the full spectrum (batch, T, WL) complex64
+// as float pairs: bins 0..WL/2 as zt_rfft_half writes them, then bin WL - k
+// the conjugate of bin k for k = 1..WL/2 - 1.
 ZT_EXPORT int zt_rfft_full(const void* sig, const void* win, const void* tw,
                            void* out, int batch, long long sig_len, int T,
                            int WL, int step, void* stream) {
@@ -481,12 +512,8 @@ ZT_EXPORT int zt_rfft_full(const void* sig, const void* win, const void* tw,
 }
 
 // As zt_rfft_half, out the magnitudes (batch, T, WL/2) float32 of bins
-// 1..WL/2 (WL/2 rounded down: an odd WL has no Nyquist bin): out[b, t, k -
-// 1] = sqrt(re^2 + im^2) of bin k of the windowed frame's DFT, at any WL in
-// [16, 4096]. tw: kernels/rfft.store_tables(WL), P: its Bluestein length
-// (kernels/rfft.layout(WL).p; 0 where the passes take the FFT's own
-// length). At a WL zt_rfft_half takes (P = 0) they are sqrt(re^2 + im^2)
-// of its bins.
+// 1..WL/2: out[b, t, k - 1] = sqrt(re^2 + im^2) of bin k of the windowed
+// frame's DFT, of zt_rfft_half's bins.
 ZT_EXPORT int zt_rfft_spec(const void* sig, const void* win, const void* tw,
                            void* out, int batch, long long sig_len, int T,
                            int WL, int step, int P, void* stream) {

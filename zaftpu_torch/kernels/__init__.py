@@ -24,8 +24,9 @@ Seven levers choose the kernels, with ``zaftpu``'s names and meaning:
   shape rule below holds, the GEMM B3 or its twin elsewhere), at every
   window; ``0`` the half-spectrum kernel and a separate mirror; unset, the
   full store at the shape rule's windows unless ``ZAFTPU_MIRROR=pallas`` or
-  ``ZAFTPU_FUSED2=1`` is set, and the half spectrum and mirror elsewhere
-  (``fused.fullspec_enabled``); only with the fused analysis on;
+  ``ZAFTPU_FUSED2=1`` is set, and the half spectrum (the real-FFT kernel's
+  half store) and mirror elsewhere (``fused.fullspec_enabled``); only with
+  the fused analysis on;
 * ``ZAFTPU_FUSED2=1``: the half spectrum through the two-output analysis
   kernel (``fused.frames_matmul2``, both components as float32 planes)
   instead of the complex-store one; off by default, equal values;
@@ -41,19 +42,22 @@ The first two default to the fused kernels, ``ZAFTPU_MELFUSE``,
 ``ZAFTPU_FULLSPEC`` and ``ZAFTPU_FFT`` to the shape rule, the other two to
 off.
 
-On both dials the analysis (``fused.frames_rfft``,
-``fused.frames_rfft_full`` and ``fused.frames_matmul2``) and the fused
-ISTFT synthesis (``synth.istft_ola``) follow a shape rule
+On both dials the full-spectrum analysis (``fused.frames_rfft_full``)
+and the fused ISTFT synthesis (``synth.istft_ola``) follow a shape rule
 (``rfft.applies``): an even window length from 16 to 4096 whose half has no
-prime factor above 127 takes the real-FFT kernel
+prime factor above 127 takes the real-FFT kernel's full store
 (:mod:`zaftpu_torch.kernels.rfft`) and the
 inverse real-FFT + overlap-add kernel (:mod:`zaftpu_torch.kernels.irfft`),
-any other length the GEMM kernels or, under split4, their twins. The
-magnitude and mel front ends take the FFT kernel's magnitude and mel
-stores (:mod:`zaftpu_torch.kernels.melfft`) at every window from 16 to
-4096 (``melfft.applies``: an odd window a complex FFT a frame, a prime
-factor above 127 by Bluestein) on every dial, unless ``ZAFTPU_MELFUSE=0``
-asks for the half spectrum or ``ZAFTPU_FFT=matmul`` for the GEMMs
+any other length the GEMM kernels B3 and B4 or, under split4, their twins.
+The half-spectrum analysis (``fused.frames_rfft``, and
+``fused.frames_matmul2`` as two planes) takes the FFT kernel's half and
+planes stores at every window from 16 to 4096 (``rfft.half_applies``), and
+the magnitude and mel front ends its magnitude and mel stores
+(:mod:`zaftpu_torch.kernels.melfft`, ``melfft.applies``), on every dial:
+an odd window a complex FFT a frame, a prime factor above 127 by
+Bluestein. The front ends do so unless ``ZAFTPU_MELFUSE=0`` asks for the
+half spectrum; ``ZAFTPU_FFT=matmul`` (or a window below 16) gives all four
+stores' functions to the GEMMs B1, B12, B8 and B9 or their twins
 (``melfused.route``). The
 MDCT and IMDCT follow the same rule at a
 quarter of the window (``mdct.applies``: a multiple of 4 up to 4096 whose
@@ -72,7 +76,8 @@ float32 sums) and the split dispatch's wide GEMMs as
 twins at three and one pass (``policy.gemm_passes``) and every operator
 GEMM of the split dispatch at that count, and on the CPU they run exact;
 the FFT kernels, exact and faster than the twins, serve every dial
-wherever the shape rule holds.
+wherever their shape rules hold: off the full store's rule a lowered dial
+runs an exact analysis (the half store) and the synthesis twin.
 Off the stores' rule (below 16, or under ``ZAFTPU_FFT=matmul``), under
 split4 the magnitude and mel front ends take the half spectrum of the
 analysis kernel unless ``ZAFTPU_MELFUSE=1`` forces their kernels (the

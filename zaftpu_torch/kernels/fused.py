@@ -10,15 +10,20 @@ twin ``_frames_matmul2_impl`` (``frames_matmul2``, both components as
 float32 planes; ``ZAFTPU_FUSED2=1``). One launch computes every component
 from the same frame tile.
 
-On both dials ``frames_rfft``, ``frames_rfft_full`` and ``frames_matmul2``
-follow a shape rule (:func:`zaftpu_torch.kernels.rfft.applies`): at an even
-window length from 16 to 4096 whose half has no prime factor above 127,
-with no explicit ``ops`` and ``ZAFTPU_FFT`` not ``matmul``, they take the
-real-FFT kernel of :mod:`zaftpu_torch.kernels.rfft` (``csrc/rfft.cu``, its
-half, full and planes stores), which computes the same spectrum with an
-FFT; every other window length, an explicit operator and
-``ZAFTPU_FFT=matmul`` keep the GEMM kernels below. The rule is a dispatch,
-not a fallback: a CUDA tensor launches the kernel it picks or raises.
+On both dials ``frames_rfft``, ``frames_matmul2`` and ``frames_rfft_full``
+follow shape rules that send them to the real-FFT kernel of
+:mod:`zaftpu_torch.kernels.rfft` (``csrc/rfft.cu``), which computes the
+same spectrum with an FFT, with no explicit ``ops`` and ``ZAFTPU_FFT`` not
+``matmul``: ``frames_rfft`` and ``frames_matmul2`` take its half and planes
+stores at every window length from 16 to 4096
+(:func:`zaftpu_torch.kernels.rfft.half_applies`; an odd window a complex
+FFT a frame, a prime factor above 127 in the FFT's length by Bluestein),
+``frames_rfft_full`` its full store at an even window length whose half has
+no prime factor above 127 (:func:`zaftpu_torch.kernels.rfft.applies`). An
+explicit operator, ``ZAFTPU_FFT=matmul``, a window below 16 and, for
+``frames_rfft_full``, every window the full store's rule refuses keep the
+GEMM kernels below. The rules are a dispatch, not a fallback: a CUDA tensor
+launches the kernel they pick or raises.
 
 Under ``ZAFTPU_PRECISION=split4`` (float32 only; ``high`` and ``default``
 on CUDA) each GEMM kernel launches its split4 twin instead, the port of the
@@ -177,10 +182,11 @@ def frames_rfft(padded: torch.Tensor, window: torch.Tensor,
     GEMM kernel, since an explicit operator names the GEMM at any window.
 
     ``ZAFTPU_FUSED2=1`` takes :func:`frames_matmul2` and forms the complex
-    result, as ``zaftpu`` does; the shape rule
-    (:func:`zaftpu_torch.kernels.rfft.applies`) takes
-    :func:`zaftpu_torch.kernels.rfft.frames_rfft_fft` on every dial;
-    elsewhere a lowered dial (float32, ``policy.gemm_passes``) takes
+    result, as ``zaftpu`` does; the half store's shape rule
+    (:func:`zaftpu_torch.kernels.rfft.half_applies`: every window from 16
+    to 4096) takes :func:`zaftpu_torch.kernels.rfft.frames_rfft_fft` on
+    every dial; elsewhere (an explicit ``ops``, ``ZAFTPU_FFT=matmul``, a
+    window below 16) a lowered dial (float32, ``policy.gemm_passes``) takes
     :func:`frames_rfft_split4` at its pass count. A CPU tensor takes the
     plain version; a CUDA tensor launches the kernel (leading axes
     flattened into its batch) or raises.
@@ -188,7 +194,7 @@ def frames_rfft(padded: torch.Tensor, window: torch.Tensor,
     if fused2_enabled():
         return torch.complex(*frames_matmul2(padded, window, window_length,
                                              step, number_times, ops))
-    if _rfft.applies(window_length, ops):
+    if _rfft.half_applies(window_length, ops):
         return _rfft.frames_rfft_fft(padded, window, window_length, step,
                                      number_times)
     p = gemm_passes(padded.dtype, padded.device)
@@ -303,8 +309,9 @@ def fullspec_enabled(window_length: int) -> bool:
     zaftpu/pallas/fused.py:539-552). Unset, yes where
     :func:`zaftpu_torch.kernels.rfft.applies` (the FFT kernel's full store)
     unless ``ZAFTPU_MIRROR=pallas`` or ``ZAFTPU_FUSED2=1`` names a
-    half-spectrum path, no elsewhere. Both give the same values wherever
-    they run the same analysis kernel."""
+    half-spectrum path, no elsewhere (the half store and the index mirror,
+    where :func:`frames_rfft_full` would take the GEMM B3). Both give the
+    same values wherever they run the same analysis kernel."""
     lever = os.environ.get("ZAFTPU_FULLSPEC", "auto")
     if lever in ("0", "1"):
         return lever == "1"
@@ -426,14 +433,15 @@ def frames_matmul2(padded: torch.Tensor, window: torch.Tensor,
     """Fused windowed-frames rDFT as two float32 planes ``(re, im)``, each
     ``(..., T, WL/2+1)``, from one launch (``zaftpu``'s
     ``frames_matmul2``, sliced to the valid bins). ``ops`` as for
-    :func:`frames_rfft`; the shape rule takes
+    :func:`frames_rfft`; the half store's shape rule
+    (:func:`zaftpu_torch.kernels.rfft.half_applies`) takes
     :func:`zaftpu_torch.kernels.rfft.frames_matmul2_fft` on either dial,
     elsewhere a lowered dial (float32) :func:`frames_matmul2_split4`.
 
     A CPU tensor takes the plain version; a CUDA tensor launches the kernel
     (leading axes flattened into its batch) or raises.
     """
-    if _rfft.applies(window_length, ops):
+    if _rfft.half_applies(window_length, ops):
         return _rfft.frames_matmul2_fft(padded, window, window_length, step,
                                         number_times)
     p = gemm_passes(padded.dtype, padded.device)

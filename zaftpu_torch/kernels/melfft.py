@@ -48,8 +48,10 @@ sparse sum, which forms no product with a zero weight, gives ``+inf`` in
 the mels whose nonzeros reach it and leaves the others finite.
 
 The plain versions repeat the kernel's float32 operations in its order:
-:func:`zaftpu_torch.kernels.rfft.frames_fft_planes` (or the chirp
-products, the passes, the table product and the split of :func:`_bins`), ``re*re + im*im``, the root in float64 rounded once
+:func:`zaftpu_torch.kernels.rfft.half_planes` (the half store's plain
+planes: the even/odd packing or the zero-imaginary complex FFT, the chirp
+products, the passes, the table product and the split), ``re*re +
+im*im`` of bins ``1..``, the root in float64 rounded once
 (``__fsqrt_rn`` is correctly rounded; torch's CPU float ``sqrt`` can be 1
 ulp off), then for each mel its nonzeros' products added to a zero sum in
 the table's order. In float64 they compute in float64 (the oracle mode).
@@ -65,7 +67,6 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from zaftpu_torch.core.frame import extract_frames
 from zaftpu_torch.kernels import _build
 from zaftpu_torch.kernels import rfft as _rfft
 
@@ -206,55 +207,15 @@ def applies(window_length: int) -> bool:
             and fits(window_length))
 
 
-def _bluestein(re, im, lay, tables):
-    """The ``m``-point FFT of rows ``(..., m)`` by Bluestein's chirp
-    z-transform on the passes, in the kernel's order: times the chirp,
-    zero-padded to ``P``, the forward passes, times the table ``B``,
-    conjugated, the forward passes again, conjugated, times the chirp."""
-    m, p = lay.m, lay.p
-    n = tables.shape[0] - 2 * p - m
-    tw_p, chirp, big = tables[n:].split([p, m, p])
-    cr, ci = chirp[:, 0], chirp[:, 1]
-    pad = (0, p - m)
-    ar = torch.nn.functional.pad(re * cr - im * ci, pad)
-    ai = torch.nn.functional.pad(re * ci + im * cr, pad)
-    ar, ai = _rfft.fft_rows_plain(ar, ai, tw_p, p)
-    br, bi = big[:, 0], big[:, 1]
-    yr, yi = _rfft.fft_rows_plain(ar * br - ai * bi, -(ar * bi + ai * br),
-                                  tw_p, p)
-    yr, yi = yr[..., :m], -yi[..., :m]
-    return yr * cr - yi * ci, yr * ci + yi * cr
-
-
 def _bins(padded, window, window_length, step, number_times):
     """``re*re + im*im`` of bins ``1..WL//2`` of the windowed frames' FFT,
-    in the kernel's arithmetic and order. At a window that
-    :func:`zaftpu_torch.kernels.rfft.fits`, its half store's; at an odd one
-    each frame's complex ``N``-point FFT with zero imaginary parts, bins
-    ``1..(N-1)/2``; where the FFT's length has a prime factor above 127,
-    that FFT by :func:`_bluestein`."""
-    wl = window_length
-    if _rfft.fits(wl):
-        re, im = _rfft._fft_planes(padded, window, wl, step, number_times)
-        re, im = re[..., 1:], im[..., 1:]
-        return re * re + im * im
-    lay = _rfft.layout(wl)
-    tables = _rfft.store_tables(wl, padded.dtype, padded.device)
-    frames = (extract_frames(padded, wl, step, number_times)
-              * window.to(padded.dtype))
-    if lay.odd:
-        re, im = frames, torch.zeros_like(frames)
-    else:
-        re, im = frames[..., 0::2], frames[..., 1::2]
-    if lay.p:
-        re, im = _bluestein(re, im, lay, tables)
-    else:
-        re, im = _rfft.fft_rows_plain(re, im, tables, wl)
-    if lay.odd:
-        re, im = re[..., 1:wl // 2 + 1], im[..., 1:wl // 2 + 1]
-    else:
-        re, im = _rfft.split_planes(re, im, tables, lay.m)
-        re, im = re[..., 1:], im[..., 1:]
+    in the kernel's arithmetic and order: bins ``1..`` of the half store's
+    plain planes (:func:`zaftpu_torch.kernels.rfft.half_planes`), the
+    static path's where :func:`zaftpu_torch.kernels.rfft.fits` holds,
+    ``rfft_any``'s elsewhere."""
+    re, im = _rfft.half_planes(padded, window, window_length, step,
+                               number_times)
+    re, im = re[..., 1:], im[..., 1:]
     return re * re + im * im
 
 

@@ -12,21 +12,26 @@ kernel body. The TPU kernels contract each frame with a dense cos/sin
 operator; this one runs an FFT, so it is bound by its bytes, not by FP32
 arithmetic. The same body's magnitude and mel stores have their wrappers
 in :mod:`zaftpu_torch.kernels.melfft`, which checks its inputs with
-:func:`device_inputs`; at the windows :func:`fits` refuses they run
-``rfft_any``, whose layout (:func:`layout`: a complex FFT a frame at an
-odd window, Bluestein at :func:`bluestein_length` past a prime above 127)
-and tables (:func:`store_tables`) come from here.
+:func:`device_inputs`.
 
-:func:`applies` is the shape rule that :mod:`zaftpu_torch.kernels.fused`
-uses to send both dials here: an even window length from
-:data:`MIN_WINDOW` to :data:`MAX_WINDOW` whose half has no prime factor
-above :data:`MAX_PRIME` (:func:`fits`: 1,263 lengths, the 25-ms window at
-44.1 kHz, WL 1,102 = 2 * 19 * 29, among them), no explicit operator, and
-``ZAFTPU_FFT`` not set to ``matmul``. The plain version repeats the
-kernel's arithmetic (the same even/odd packing, the same mixed-radix
-Stockham passes in the same order, the same twiddle table, the same split
-step), operation by operation, so the CPU tests exercise the kernel's
-indexing and the kernel equals it on the card.
+Two shape rules send both dials here from
+:mod:`zaftpu_torch.kernels.fused`. :func:`applies`, the full store's (and
+the inverse kernel's, :mod:`zaftpu_torch.kernels.irfft`): an even window
+length from :data:`MIN_WINDOW` to :data:`MAX_WINDOW` whose half has no prime
+factor above :data:`MAX_PRIME` (:func:`fits`: 1,263 lengths, the 25-ms
+window at 44.1 kHz, WL 1,102 = 2 * 19 * 29, among them), no explicit
+operator, and ``ZAFTPU_FFT`` not set to ``matmul``. :func:`half_applies`,
+the half and planes stores': every window from :data:`MIN_WINDOW` to
+:data:`MAX_WINDOW`, on the same two conditions. At a window :func:`fits`
+refuses those two stores (and the magnitude and mel stores) run
+``rfft_any``, whose layout (:func:`layout`: a complex FFT a frame at an odd
+window, Bluestein at :func:`bluestein_length` past a prime above 127) and
+tables (:func:`store_tables`) come from here. The plain versions repeat the
+kernel's arithmetic (the same even/odd packing or zero-imaginary complex
+FFT, the same mixed-radix Stockham passes in the same order, the same
+twiddle and chirp tables, the same split step), operation by operation, so
+the CPU tests exercise the kernel's indexing and the kernel equals them on
+the card.
 """
 
 from __future__ import annotations
@@ -83,18 +88,33 @@ def fits(window_length: int) -> bool:
     return _factors(n // 2)[1] == 1
 
 
-def applies(window_length: int, ops=None) -> bool:
-    """The shape rule: the FFT kernel computes the half spectrum when the
-    window length :func:`fits` and no operator is given (an explicit
-    ``ops`` names the GEMM kernels), unless ``ZAFTPU_FFT=matmul``.
+def _engine_allows(ops) -> bool:
+    """No explicit operator (an explicit ``ops`` names the GEMM kernels) and
+    ``ZAFTPU_FFT`` not ``matmul``.
 
     ``ZAFTPU_FFT`` is ``zaftpu``'s FFT-engine lever with its meaning
     (zaftpu/core/fft.py: engine_selected): ``matmul`` runs the DFT as a
-    GEMM everywhere, so here it turns the rule off and the GEMM kernels
+    GEMM everywhere, so here it turns the rules off and the GEMM kernels
     (their split4 twins under split4) take every window; ``auto`` (the
-    default) and ``native`` follow the rule."""
-    return (ops is None and os.environ.get("ZAFTPU_FFT", "auto") != "matmul"
-            and fits(window_length))
+    default) and ``native`` follow the rules."""
+    return ops is None and os.environ.get("ZAFTPU_FFT", "auto") != "matmul"
+
+
+def applies(window_length: int, ops=None) -> bool:
+    """The full store's shape rule (and the inverse kernel's): the window
+    length :func:`fits`, no operator is given, and ``ZAFTPU_FFT`` is not
+    ``matmul``."""
+    return _engine_allows(ops) and fits(window_length)
+
+
+def half_applies(window_length: int, ops=None) -> bool:
+    """The half and planes stores' shape rule: any window length from
+    :data:`MIN_WINDOW` to :data:`MAX_WINDOW` (``rfft_any`` where
+    :func:`fits` refuses it), no operator given, and ``ZAFTPU_FFT`` not
+    ``matmul``, as :func:`zaftpu_torch.kernels.melfft.applies` for the
+    magnitude and mel stores."""
+    return (_engine_allows(ops)
+            and MIN_WINDOW <= int(window_length) <= MAX_WINDOW)
 
 
 @lru_cache(maxsize=8)
@@ -295,16 +315,6 @@ def _stage(re, im, tw_re, tw_im, n, ns, r):
             torch.stack(yi, dim=-2).reshape(*lead, m))
 
 
-def _fft_planes(padded: torch.Tensor, window: torch.Tensor,
-                window_length: int, step: int,
-                number_times: int) -> tuple:
-    """Re and im planes ``(..., T, N/2+1)`` of the windowed frames' rFFT,
-    in the kernel's arithmetic and order, in ``padded``'s dtype."""
-    frames = (extract_frames(padded, window_length, step, number_times)
-              * window.to(padded.dtype))
-    return frames_fft_planes(frames, window_length)
-
-
 def fft_rows_plain(re: torch.Tensor, im: torch.Tensor, tw: torch.Tensor,
                    n: int) -> tuple:
     """The complex FFT of rows ``(..., m)`` (re and im planes) by the
@@ -346,13 +356,75 @@ def frames_fft_planes(frames: torch.Tensor, n: int,
     return split_planes(re, im, tw, n // 2)
 
 
+def bluestein_plain(re: torch.Tensor, im: torch.Tensor, lay: Layout,
+                    tables: torch.Tensor) -> tuple:
+    """The ``m``-point FFT of rows ``(..., m)`` by Bluestein's chirp
+    z-transform on the passes, in ``rfft_any``'s order: times the chirp,
+    zero-padded to ``P``, the forward passes, times the table ``B``,
+    conjugated, the forward passes again, conjugated, times the chirp.
+    ``tables`` is :func:`store_tables` of the window."""
+    m, p = lay.m, lay.p
+    n = tables.shape[0] - 2 * p - m
+    tw_p, chirp, big = tables[n:].split([p, m, p])
+    cr, ci = chirp[:, 0], chirp[:, 1]
+    pad = (0, p - m)
+    ar = torch.nn.functional.pad(re * cr - im * ci, pad)
+    ai = torch.nn.functional.pad(re * ci + im * cr, pad)
+    ar, ai = fft_rows_plain(ar, ai, tw_p, p)
+    br, bi = big[:, 0], big[:, 1]
+    yr, yi = fft_rows_plain(ar * br - ai * bi, -(ar * bi + ai * br), tw_p, p)
+    yr, yi = yr[..., :m], -yi[..., :m]
+    return yr * cr - yi * ci, yr * ci + yi * cr
+
+
+def _any_planes(padded: torch.Tensor, window: torch.Tensor,
+                window_length: int, step: int, number_times: int) -> tuple:
+    """Re and im planes ``(..., T, WL//2+1)`` of bins ``0..WL//2`` of the
+    windowed frames' DFT in ``rfft_any``'s arithmetic and order, at any
+    window: an odd one's frames each the real parts of one complex
+    ``N``-point FFT (its first ``(N+1)/2`` bins), an even one's even/odd
+    packing and the split step; an FFT length with a prime factor above
+    :data:`MAX_PRIME` by :func:`bluestein_plain`."""
+    wl = window_length
+    lay = layout(wl)
+    tables = store_tables(wl, padded.dtype, padded.device)
+    frames = (extract_frames(padded, wl, step, number_times)
+              * window.to(padded.dtype))
+    if lay.odd:
+        re, im = frames, torch.zeros_like(frames)
+    else:
+        re, im = frames[..., 0::2], frames[..., 1::2]
+    if lay.p:
+        re, im = bluestein_plain(re, im, lay, tables)
+    else:
+        re, im = fft_rows_plain(re, im, tables, wl)
+    if lay.odd:
+        return re[..., :wl // 2 + 1], im[..., :wl // 2 + 1]
+    return split_planes(re, im, tables, lay.m)
+
+
+def half_planes(padded: torch.Tensor, window: torch.Tensor,
+                window_length: int, step: int, number_times: int) -> tuple:
+    """Re and im planes ``(..., T, WL//2+1)`` of the half spectrum in the
+    arithmetic of the kernel the half and planes stores launch at
+    ``window_length``, in ``padded``'s dtype: ``rfft_kernel``'s where it
+    :func:`fits`, else ``rfft_any``'s. The full, magnitude and mel stores'
+    plain versions take their bins from here."""
+    if not fits(window_length):
+        return _any_planes(padded, window, window_length, step, number_times)
+    frames = (extract_frames(padded, window_length, step, number_times)
+              * window.to(padded.dtype))
+    return frames_fft_planes(frames, window_length)
+
+
 def frames_rfft_fft_plain(padded: torch.Tensor, window: torch.Tensor,
                           window_length: int, step: int,
                           number_times: int) -> torch.Tensor:
-    """Half spectrum ``(..., T, WL/2+1)`` of the windowed frames by the
-    kernel's FFT, in plain PyTorch (not ``torch.fft``)."""
+    """Half spectrum ``(..., T, WL//2+1)`` of the windowed frames by the
+    kernel's FFT (:func:`half_planes`), in plain PyTorch (not
+    ``torch.fft``)."""
     frames_rfft_fft_plain.calls += 1
-    return torch.complex(*_fft_planes(padded, window, window_length, step,
+    return torch.complex(*half_planes(padded, window, window_length, step,
                                       number_times))
 
 
@@ -361,7 +433,7 @@ def frames_matmul2_fft_plain(padded: torch.Tensor, window: torch.Tensor,
                              number_times: int) -> tuple:
     """:func:`frames_rfft_fft_plain` as ``(re, im)`` float planes."""
     frames_matmul2_fft_plain.calls += 1
-    return _fft_planes(padded, window, window_length, step, number_times)
+    return half_planes(padded, window, window_length, step, number_times)
 
 
 def frames_rfft_full_fft_plain(padded: torch.Tensor, window: torch.Tensor,
@@ -370,7 +442,7 @@ def frames_rfft_full_fft_plain(padded: torch.Tensor, window: torch.Tensor,
     """Full spectrum ``(..., T, WL)``: :func:`frames_rfft_fft_plain`'s half
     spectrum and the conjugate mirror's index gathers."""
     frames_rfft_full_fft_plain.calls += 1
-    half = torch.complex(*_fft_planes(padded, window, window_length, step,
+    half = torch.complex(*half_planes(padded, window, window_length, step,
                                       number_times))
     return _fft.conjugate_mirror(half, window_length)
 
@@ -383,9 +455,11 @@ for _fn in (frames_rfft_fft_plain, frames_matmul2_fft_plain,
 def frames_rfft_fft(padded: torch.Tensor, window: torch.Tensor,
                     window_length: int, step: int,
                     number_times: int) -> torch.Tensor:
-    """Windowed-frames real FFT: the ``(..., T, WL/2+1)`` complex half
+    """Windowed-frames real FFT: the ``(..., T, WL//2+1)`` complex half
     spectrum of a padded signal ``(..., L)``, the frames never stored, for
-    a ``window_length`` that :func:`fits`.
+    any ``window_length`` from :data:`MIN_WINDOW` to :data:`MAX_WINDOW`
+    (``rfft_any`` where it does not :func:`fits`; bins ``0..(WL-1)/2`` at
+    an odd one).
 
     A CPU tensor takes the plain version; a CUDA tensor launches the kernel
     (leading axes flattened into its batch) or raises.
@@ -393,9 +467,9 @@ def frames_rfft_fft(padded: torch.Tensor, window: torch.Tensor,
     if not padded.is_cuda:
         return frames_rfft_fft_plain(padded, window, window_length, step,
                                      number_times)
-    out = _launch("frames_rfft_fft", "half", padded, window, window_length,
-                  step, number_times)
-    frames_rfft_fft.launches += 1
+    out, launched = _launch("frames_rfft_fft", "half", padded, window,
+                            window_length, step, number_times)
+    frames_rfft_fft.launches += launched
     return out
 
 
@@ -403,13 +477,14 @@ def frames_matmul2_fft(padded: torch.Tensor, window: torch.Tensor,
                        window_length: int, step: int,
                        number_times: int) -> tuple:
     """:func:`frames_rfft_fft` as two float32 planes ``(re, im)``, each
-    ``(..., T, WL/2+1)``, from one launch: the same values, bit for bit."""
+    ``(..., T, WL//2+1)``, from one launch: the same values, bit for bit,
+    at every window it takes."""
     if not padded.is_cuda:
         return frames_matmul2_fft_plain(padded, window, window_length, step,
                                         number_times)
-    out = _launch("frames_matmul2_fft", "planes", padded, window,
-                  window_length, step, number_times)
-    frames_matmul2_fft.launches += 1
+    out, launched = _launch("frames_matmul2_fft", "planes", padded, window,
+                            window_length, step, number_times)
+    frames_matmul2_fft.launches += launched
     return out
 
 
@@ -418,7 +493,8 @@ def frames_rfft_full_fft(padded: torch.Tensor, window: torch.Tensor,
                          number_times: int) -> torch.Tensor:
     """:func:`frames_rfft_fft` as the ``(..., T, WL)`` full spectrum, the
     reference's zaf.py:139 convention: bin ``WL - k`` the conjugate of bin
-    ``k``, written by the kernel's store in the same launch. Bit-equal to
+    ``k``, written by the kernel's store in the same launch, for a
+    ``window_length`` that :func:`fits`. Bit-equal to
     :func:`frames_rfft_fft` followed by
     :func:`zaftpu_torch.core.fft.conjugate_mirror`.
 
@@ -428,9 +504,9 @@ def frames_rfft_full_fft(padded: torch.Tensor, window: torch.Tensor,
     if not padded.is_cuda:
         return frames_rfft_full_fft_plain(padded, window, window_length,
                                           step, number_times)
-    out = _launch("frames_rfft_full_fft", "full", padded, window,
-                  window_length, step, number_times)
-    frames_rfft_full_fft.launches += 1
+    out, launched = _launch("frames_rfft_full_fft", "full", padded, window,
+                            window_length, step, number_times)
+    frames_rfft_full_fft.launches += launched
     return out
 
 
@@ -439,9 +515,10 @@ def device_inputs(name: str, padded: torch.Tensor, window: torch.Tensor,
                   every_window: bool = False) -> tuple:
     """Check a CUDA input for the kernel's C entries ``zt_rfft_*``; return
     the signal as ``(batch, L)``, the float32 window and twiddle table on
-    its device, and the leading axes. ``every_window`` (the magnitude and
-    mel stores): any window length from :data:`MIN_WINDOW` to
-    :data:`MAX_WINDOW`, and the table is :func:`store_tables`'."""
+    its device, and the leading axes. ``every_window`` (the half, planes,
+    magnitude and mel stores): any window length from :data:`MIN_WINDOW`
+    to :data:`MAX_WINDOW`, and the table is :func:`store_tables`' (at a
+    window that :func:`fits`, the same values as :func:`twiddles`)."""
     check_frame_args(name, padded, window, window_length, step,
                      number_times)
     if every_window:
@@ -466,14 +543,17 @@ def device_inputs(name: str, padded: torch.Tensor, window: torch.Tensor,
 
 def _launch(name: str, store: str, padded: torch.Tensor,
             window: torch.Tensor, window_length: int, step: int,
-            number_times: int):
+            number_times: int) -> tuple:
     """Check a CUDA input and launch one store, the C entry
-    ``zt_rfft_<store>``: ``half`` (complex), ``planes`` (two float32
-    planes) or ``full`` (complex, mirrored)."""
-    sig, win, tw, lead = device_inputs(name, padded, window, window_length,
-                                       step, number_times)
-    entry = f"zt_rfft_{store}"
+    ``zt_rfft_<store>``: ``half`` (complex) or ``planes`` (two float32
+    planes) at any window from :data:`MIN_WINDOW` to :data:`MAX_WINDOW`
+    (the Bluestein length after the hop), ``full`` (complex, mirrored) at a
+    window that :func:`fits`. Returns the output and whether it launched
+    (not for zero frames or rows)."""
     wl, t = window_length, number_times
+    sig, win, tw, lead = device_inputs(name, padded, window, wl, step, t,
+                                       every_window=store != "full")
+    entry = f"zt_rfft_{store}"
     f = wl if store == "full" else wl // 2 + 1
     batch, length = sig.shape
     dev = padded.device
@@ -481,13 +561,18 @@ def _launch(name: str, store: str, padded: torch.Tensor,
         out = torch.empty((2, batch, t, f), dtype=torch.float32, device=dev)
     else:
         out = torch.empty((batch, t, f), dtype=torch.complex64, device=dev)
-    err = getattr(_build.library(), entry)(
-        sig.data_ptr(), win.data_ptr(), tw.data_ptr(), out.data_ptr(), batch,
-        length, t, wl, step, _build.stream_of(padded))
-    _build.check(err, entry)
+    if out.numel():
+        args = (sig.data_ptr(), win.data_ptr(), tw.data_ptr(), out.data_ptr(),
+                batch, length, t, wl, step)
+        if store != "full":
+            args += (layout(wl).p,)
+        err = getattr(_build.library(), entry)(*args,
+                                               _build.stream_of(padded))
+        _build.check(err, entry)
     if store == "planes":
-        return out[0].reshape(*lead, t, f), out[1].reshape(*lead, t, f)
-    return out.reshape(*lead, t, f)
+        return ((out[0].reshape(*lead, t, f), out[1].reshape(*lead, t, f)),
+                bool(out.numel()))
+    return out.reshape(*lead, t, f), bool(out.numel())
 
 
 for _fn in (frames_rfft_fft, frames_matmul2_fft, frames_rfft_full_fft):

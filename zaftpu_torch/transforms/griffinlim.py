@@ -17,8 +17,10 @@ kernel's windowed store for the synthesis
 (:func:`zaftpu_torch.kernels.irfft.istft_ola_fft_window`, which reads the
 half spectrum as it is). At any other window, or under
 ``ZAFTPU_FFT=matmul``, ``zaftpu``'s composition on the port's dispatch:
-``kernels.windowed_frames_rfft`` (the GEMM B1, or the framing kernel and the
-FFT layer's ``rfft`` above 4096), ``core.fft.real_ifft`` of the mirrored
+``kernels.windowed_frames_rfft`` (the real-FFT kernel's half store at every
+window up to 4096, its ``rfft_any`` off that rule; the GEMM B1 under
+``ZAFTPU_FFT=matmul``; the framing kernel and the FFT layer's ``rfft``
+above 4096), ``core.fft.real_ifft`` of the mirrored
 spectrum times the window, the OLA kernel and ``/ wsq``. The envelope is
 the OLA kernel's, once a call; the phase projection is plain elementwise
 PyTorch on the card, as in ``zaftpu``. CPU tensors run the kernels' plain

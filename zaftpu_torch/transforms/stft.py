@@ -4,12 +4,15 @@ Semantics match ``zaftpu.transforms.stft`` and the reference
 (zaf.py:45-243): the same centering pad and frame count, the full complex
 ``(window_length, number_times)`` output with DC and mirrored bins, and the
 COLA-normalized inverse. On a CUDA float32 signal the analysis runs the
-fused framing + window + real-FFT kernel at an even window from 16 to 4096
-whose half has no prime factor above 127 (the shape rule,
-``kernels/rfft.applies``), which writes the full spectrum, the conjugate
-mirror included, in its store; at any other window the fused framing +
-window + DFT-GEMM kernel computes the half spectrum and PyTorch index ops
-mirror it. The synthesis runs the inverse real-FFT + overlap-add kernel
+fused framing + window + real-FFT kernel at every window from 16 to 4096:
+at an even window whose half has no prime factor above 127 (the shape
+rule, ``kernels/rfft.applies``) its full store writes the full spectrum,
+the conjugate mirror included; at any other window its half store
+(``kernels/rfft.half_applies``: an odd window a complex FFT a frame, a
+prime factor above 127 by Bluestein) computes the half spectrum and
+PyTorch index ops mirror it (the fused framing + window + DFT-GEMM kernel
+only under ``ZAFTPU_FFT=matmul``, or below 16). The synthesis runs the
+inverse real-FFT + overlap-add kernel
 where the rule holds and the fused inverse GEMM + overlap-add kernel at
 any other window up to 4096 (:mod:`zaftpu_torch.kernels`); a longer
 window takes the framing kernel and the FFT layer's ``rfft``
@@ -17,8 +20,9 @@ window takes the framing kernel and the FFT layer's ``rfft``
 ``ZAFTPU_FFT=matmul``), and ``real_ifft`` and the OLA kernel back, as ``zaftpu`` does off its direct engine; under
 ``ZAFTPU_PRECISION=split4`` the GEMM kernels run their split4 twins, the
 FFT kernels stay. The spectrogram takes the real-FFT kernel's magnitude
-store where the rule holds (:mod:`zaftpu_torch.kernels.melfft`) and the
-one-pass magnitude GEMM kernel at any other window on the exact dial
+store at every window from 16 to 4096 (:mod:`zaftpu_torch.kernels.melfft`)
+and the one-pass magnitude GEMM kernel below 16 or under
+``ZAFTPU_FFT=matmul`` on the exact dial
 (:func:`zaftpu_torch.kernels.melfused.route`; ``ZAFTPU_MELFUSE=0``: the half
 spectrum and ``|·|`` everywhere). ``ZAFTPU_FULLSPEC=0`` takes the
 half spectrum and the index mirror at every window, ``1`` the full
