@@ -24,9 +24,8 @@ non-zero exit and no result line:
    for spec_rows and mel_rows; the CQT at 22,050 Hz, 12 bins per octave,
    110-3,520 Hz: L 4,096, hop 882, F 60, T 1,001), the split4 twins of B1,
    B2, B3, B4, B7, B9, B10 and B12 included. The real-FFT kernel (its
-   half, planes and full stores: B3, and on the split4 dial its twin, at
-   every even window whose half has no prime factor above 127, B1, B12
-   and their twins there too and at every other window from 16 to 4,096,
+   half, planes and full stores: B1, B12, B3 and their twins at every
+   window from 16 to 4,096; the windows the static path refuses in
    phase_any_window below) also at batched, misaligned shapes whose hop
    does not divide WL (3 rows,
    WL 512 / hop 100 and WL 400 / hop 160, T 1,001; 3 rows of WL 2,032 and
@@ -36,7 +35,8 @@ non-zero exit and no result line:
    store) and the GEMM B1 with its operator in the same call, and at the
    25-ms window (WL 1,102, hop 551, T 48,023: the odd-prime passes 19, 29),
    timed beside torch.stft. The inverse real-FFT kernel (B4 and B4-s4 at
-   those windows) likewise at its main-path shape, at WL 4,096 / hop 256
+   every window from 16 to 4,096) likewise at its main-path shape, at WL
+   4,096 / hop 256
    (K = 16), 3 rows of WL 400 / hop 160, 2 rows of WL 3,000 / hop 1,000
    and the three odd-prime shapes, and at the 40-ms window, timed beside
    torch.istft, B4 with its operator and B4-s4 in the same call, at the
@@ -46,10 +46,9 @@ non-zero exit and no result line:
    their operator given (which names the GEMM at a rule window), and the
    twins B1-s4, B12-s4, B3-s4 and B4-s4 the same shape (the twin wrappers
    take no rule), as in earlier runs; all eight also run at WL 2,062 / hop
-   300 (2,062 = 2 * 1,031: the full store's and the inverse kernel's rule
-   leaves it to B3 and B4; B1 and B12 with their operator, which the half
-   and planes stores would take otherwise, B3 with it too, so that it
-   holds B1's sums) and at WL 2048 (timed, for B3, B3-s4, B4 and B4-s4)
+   300 (2,062 = 2 * 1,031: the FFT kernels take it by Bluestein, so B1,
+   B12, B3 and B4 run with their operator, B3 holding B1's sums) and at
+   WL 2048 (timed, for B3, B3-s4, B4 and B4-s4)
    and WL 512 with their operator given; the mel kernels also past the
    old shared-memory
    limit (800 mels at WL 2048). The fast MDCT and IMDCT + overlap-add
@@ -104,10 +103,10 @@ non-zero exit and no result line:
    the launch) and the inverse FFT synthesis ran and no plain version did;
    then the same with the 40-ms window (WL 1,764, hop 882) and the 25-ms
    window (WL 1,102, hop 551; the FFT kernels through the odd-prime
-   passes), and with WL 2,062 (hop 1,031), where the half store (rfft_any,
-   Bluestein at P 2,304) computes the spectrum, the index mirror mirrors
-   it and B4 (the inverse kernel's rule refuses the window) the round
-   trip, under ZAFTPU_FUSED2=1 the planes store and B4, and under
+   passes), and with WL 2,062 (hop 1,031), where the full store (rfft_any,
+   Bluestein at P 2,304) computes the spectrum and the inverse kernel
+   (irfft_any, Bluestein at P 2,304) the round trip, under
+   ZAFTPU_FUSED2=1 the planes store and the inverse kernel, and under
    ZAFTPU_FFT=matmul the GEMM B1 (B12 with ZAFTPU_FUSED2=1) and B4;
 5. STFT main path, split dispatch (ZAFTPU_FUSED=0 ZAFTPU_SYNTH=0): the
    same checks, with the framing and OLA kernels;
@@ -146,11 +145,11 @@ non-zero exit and no result line:
    coefficients within 1e-4 * max and the MDCT round trip in [100, 125)
    dB; launch counts showing
    which kernels ran and that no exact GEMM kernel or plain version did;
-   stft -> istft at WL 2,062 (the exact half store, the planes store under
-   ZAFTPU_FUSED2=1, and B4's twin), at WL 2048 under ZAFTPU_FFT=matmul
-   (B1's and B4's twins) and at WL 2,062 under ZAFTPU_FFT=matmul
-   ZAFTPU_FUSED2=1 (B12's and B4's twins) within 1e-4 * max, round trips
-   in [100, 125) dB; then the mel
+   stft -> istft at WL 2,062 (the exact full store, the planes store under
+   ZAFTPU_FUSED2=1, and the exact inverse kernel, under the exact gates),
+   at WL 2048 and 2,062 under ZAFTPU_FFT=matmul (B1's and B4's twins) and
+   at WL 2,062 under ZAFTPU_FFT=matmul ZAFTPU_FUSED2=1 (B12's and B4's
+   twins) within 1e-4 * max, round trips in [100, 125) dB; then the mel
    phase under split4 and with ZAFTPU_MELFUSE=1 (the FFT kernel's stores,
    the exact gates) and with ZAFTPU_FFT=matmul ZAFTPU_MELFUSE=1:
    melspectrogram and mfcc through the mel kernel's twin (within 1e-4 *
@@ -160,14 +159,17 @@ non-zero exit and no result line:
    (fused_fft, mirror_full_planes, fold_half_planes, synth_fft),
    ZAFTPU_FULLSPEC=1 (frames_rfft_full_fft, synth_fft), ZAFTPU_FULLSPEC=0
    (fused_fft, synth_fft) and ZAFTPU_FUSED2=1 (frames_matmul2_fft,
-   synth_fft), and ZAFTPU_FULLSPEC=1 at WL 2,062 (the GEMM B3, synth);
+   synth_fft), at WL 2,062 ZAFTPU_MIRROR=pallas and ZAFTPU_FULLSPEC=0
+   (the half store by Bluestein, synth_fft), and ZAFTPU_FULLSPEC=1 at WL
+   2,062 under ZAFTPU_FFT=matmul (the GEMM B3, synth);
    then under split4 with ZAFTPU_FUSED2=1 (frames_matmul2_fft,
    synth_fft), ZAFTPU_FULLSPEC=1 and =0 (as on the exact dial), and
-   ZAFTPU_FULLSPEC=1 at WL 2,062 (B3-s4, synth_split4): each spectrum and
-   round trip bit-equal to those of the same dial and window without the
-   lever (at WL 2,062 the lever-free run under ZAFTPU_FFT=matmul, B1 or
-   B1-s4 and the index mirror, whose sums B3 and B3-s4 share), and the
-   exact gates (split4's at WL 2,062); then the peak device
+   ZAFTPU_FULLSPEC=1 at WL 2,062 under ZAFTPU_FFT=matmul (B3-s4,
+   synth_split4): each spectrum and round trip bit-equal to those of the
+   same dial and window without the lever (under ZAFTPU_FFT=matmul the
+   lever-free run, B1 or B1-s4 and the index mirror, whose sums B3 and
+   B3-s4 share), and the exact gates (split4's for the twins); then the
+   peak device
    memory of one 600-s stft under ZAFTPU_FULLSPEC=0 and unset, of one
    600-s melspectrogram on the mel store and under ZAFTPU_MELFUSE=0, and
    of one 600-s cqtspectrogram on the spectral kernel and under
@@ -226,14 +228,14 @@ twins (B1, B2, B3, B4, B7, B9, B10, B12) also runs at 3 and 1 bf16 passes
 its plain version at the same count within 1e-4 * max, timed (with its
 bound) where the 4-pass twin is. After phase 9 the main paths run under
 ZAFTPU_PRECISION=high and default: stft -> istft and mdct -> imdct at WL
-2048 through the exact FFT kernels under the exact gates, and at WL 2,062
-(the exact half store and B4's twin) and vorbis(1102) (B2's and B7's
-twins) at 3 and 1 passes, high within 1e-4 * max of the float64 oracle
-and >= 88 dB,
-default within 2e-3 * max and >= 40 dB, with default < high < split4 in
-this call; then under compute_dtype("bfloat16") the CQT at CQT_WIDE
-(L 65,536) through B10-s4 at one pass, >= 45 dB against the float64
-oracle, and melspectrogram and mfcc (exempt) bit-equal to float32.
+2048, and stft -> istft at WL 2,062, through the exact FFT kernels under
+the exact gates, and at WL 2,062 under ZAFTPU_FFT=matmul (B1's and B4's
+twins) and vorbis(1102) (B2's and B7's twins) at 3 and 1 passes, high
+within 1e-4 * max of the float64 oracle and >= 88 dB, default within 2e-3
+* max and >= 40 dB, with default < high < split4 in this call; then under
+compute_dtype("bfloat16") the CQT at CQT_WIDE (L 65,536) through B10-s4 at
+one pass, >= 45 dB against the float64 oracle, and melspectrogram and mfcc
+(exempt) bit-equal to float32.
 
 The stream phase: one hour (the six 600-s segments) written as a 44.1 kHz
 mono 16-bit WAV to a temporary directory (removed after); the native WAV
@@ -277,25 +279,30 @@ its launches count in the kernels line.
 The CQT kernel is built on the host without the disk cache
 (ZAFTPU_CACHE=0), so the run writes nothing outside the checkout.
 
-Right after phase 3, phase_any_window: the half, planes, magnitude and
-mel stores at windows the FFT rule refuses (they take every window from
-16 to 4,096): each frame alone a complex N-point FFT at an odd window,
-Bluestein's chirp z-transform where that FFT's length has a prime factor
-above 127, in a block of 2,048, 4,096 or 8,192 complex values. At 600 s
-of 10 ms (441 / 147), 25 ms at 22.05 kHz (551 / 220), 30 ms (1,323 /
-441), 2,062 / 512 (Bluestein, P 2,304), 50 ms (2,205 / 441) and 4,078 /
-1,024 (Bluestein, P 4,096), 40 mels: stft, spectrogram, melspectrogram
-and mfcc through the entry points launch the half, magnitude and mel
-stores and nothing else, within 1e-5 * max of a float64 torch.fft
-oracle; each store (half, planes, magnitude, mel, power) bit-equal to its
-plain version, the planes to the half store's values; the store's median
-ms beside B1's, B12's, B8's or B9's (ZAFTPU_FFT=matmul's route),
-torch.stft(..., center=False) (one-sided; for the magnitude and mel
-stores [..., 1:, :].abs(), times the filterbank transpose) and its bound;
-and at ANY_RAGGED (3 rows of WL 3,093: Bluestein in the 8,192-value
-block, T 301, offset 1, a sparse 1,546-mel filterbank) bit-equal; then
-the half and magnitude stores at QUIET_WINDOWS' loud, silent and -80 dB
-frames (a silent frame exactly zero). The hour phase adds spectrogram,
+Right after phase 3, phase_any_window: the half, planes, full, magnitude
+and mel stores and the inverse kernel at windows the static FFT path
+refuses (they take every window from 16 to 4,096): each frame alone a
+complex N-point FFT at an odd window, Bluestein's chirp z-transform where
+that FFT's length has a prime factor above 127, in a block of 2,048,
+4,096 or 8,192 complex values. At 600 s of 10 ms (441 / 147), 25 ms at
+22.05 kHz (551 / 220), 30 ms (1,323 / 441), 2,062 / 512 (Bluestein, P
+2,304), 50 ms (2,205 / 441) and 4,078 / 1,024 (Bluestein, P 4,096), 40
+mels: stft -> istft, spectrogram, melspectrogram and mfcc through the
+entry points launch the full, magnitude and mel stores and the inverse
+kernel and nothing else, the analyses within 1e-5 * max of a float64
+torch.fft oracle and the synthesis within 1e-5 * max of a float64 istft
+of the same spectrum; each store (half, planes, full, magnitude, mel,
+power) bit-equal to its plain version, the planes and the full store to
+the half store's values, the inverse within 1e-6 * max of its plain
+version; each one's median ms beside B1's, B12's, B3's, B4's, B8's or
+B9's (ZAFTPU_FFT=matmul's route), torch.stft(..., center=False)
+(one-sided; two-sided for the full store; for the magnitude and mel
+stores [..., 1:, :].abs(), times the filterbank transpose) or torch.istft
+of a ones window, and its bound; and at ANY_RAGGED (3 rows of WL 3,093:
+Bluestein in the 8,192-value block, T 301, offset 1, a sparse 1,546-mel
+filterbank) likewise, untimed; then the half and magnitude stores and the
+inverse at QUIET_WINDOWS' loud, silent and -80 dB frames (a silent
+frame exactly zero). The hour phase adds spectrogram,
 melspectrogram and mfcc at 1,323 / 441 on the stores and under
 ZAFTPU_FFT=matmul (B8, B9).
 
@@ -368,12 +375,12 @@ MIXED_WL = 1764
 # the main-path shape of the GEMM B1, B12, B3 and B4 (with their operator)
 # and of their twins, as in earlier runs.
 PRIME_WL = 1102
-# A window the full store's and the inverse kernel's rule leave to B3 and
-# B4 (B3-s4 and B4-s4 under split4): its half 1031 is a prime above 127.
-# The half and planes stores take it (Bluestein at P 2,304); an explicit
-# operator or ZAFTPU_FFT=matmul gives it to B1 and B12 or their twins. (An
-# odd window such as 1323 runs the same way, but its round trip is one
-# sample off under the reference's trim.)
+# A window whose half 1031 is a prime above 127: every store and the
+# inverse kernel take it by Bluestein (P 2,304) on every dial; an explicit
+# operator or ZAFTPU_FFT=matmul gives it to B1, B12, B3 and B4 or their
+# twins, where the dials' round trips are ordered. (An odd window such as
+# 1323 runs the same way, but its round trip is one sample off under the
+# reference's trim.)
 GEMM_WL = 2062
 GEMM_RAGGED = (GEMM_WL, 300, 1001)
 # The GEMM B1, B12 and B3, and their twins.
@@ -809,9 +816,9 @@ def _kernel_cases(dev, main_t: int):
            GEMM_TOL)
     yield "synth_split4", "main", f"WL {wl} hop {step} T {t}", args, GEMM_TOL
     del args
-    # The off-rule window: B1 and B12 with their operator (the half and
-    # planes stores take WL 2,062 without one), B3 likewise (bit-equal to
-    # B1's sums there), the twins (whose wrappers take no rule) without.
+    # The off-rule window: B1, B12, B3 and B4 with their operator (the FFT
+    # kernels take WL 2,062 without one; B3 bit-equal to B1's sums), the
+    # twins (whose wrappers take no rule) without.
     wl, step, t = GEMM_RAGGED
     padded, win = _signal_and_window(wl, step, t, hamming, dev)
     ops = fused.rdft_ops(wl, torch.float32, dev)
@@ -823,9 +830,10 @@ def _kernel_cases(dev, main_t: int):
                (padded, win, wl, step, t), GEMM_TOL)
     del ops
     args = _synth_args(wl, step, t, dev)
-    for name in SYNTH_GEMMS:
-        yield (name, "ragged", f"WL {wl} hop {step} T {t} (no operator)",
-               args, GEMM_TOL)
+    yield ("synth", "ragged", f"WL {wl} hop {step} T {t} (operator)",
+           (*args, synth.istft_ops(wl, args[-1], torch.float32, dev)),
+           GEMM_TOL)
+    yield "synth_split4", "ragged", f"WL {wl} hop {step} T {t}", args, GEMM_TOL
     del padded, args
     # B2 and B7 (and their twins) with their operator: at WL 2048, which
     # the fast MDCT kernels take on the main path; at a ragged shape; and
@@ -1023,7 +1031,9 @@ def _window_store_args(sr: int, wl: int, step: int, window, rows: int,
     flat = torch.zeros(2 * half.numel() + offset, device=dev)
     planes = flat[offset:].view(2, *half.shape)
     planes[0], planes[1] = half.real, half.imag
-    wsq = ola.overlap_add_plain((win * win).expand(t, wl), step)
+    # The OLA kernel, as griffin_lim builds its envelope: deterministic at
+    # every hop (the plain version's scatter-add is not on the card).
+    wsq = ola.overlap_add((win * win).expand(t, wl), step)
     return planes[0], planes[1], wl, step, win, wsq.clamp_min(1e-12)
 
 
@@ -1089,6 +1099,19 @@ def _half_ops(wl: int, own: bool = False) -> float:
     return wl + fft + 16 * (wl // 2 + 1)
 
 
+def _inverse_ops(wl: int, own: bool = False) -> float:
+    """Operations a frame of the inverse kernel at window ``wl`` before its
+    scaled overlap-add (2 a sample): the inverse real DFT of the frame, at
+    an even window the inverse split step (12 a bin of N/2) and an
+    N/2-point complex DFT, at an odd one half an N-point complex DFT
+    (_frame_fft_ops); with ``own`` what the kernel does for it, as
+    _store_ops counts it."""
+    fft = _frame_fft_ops(wl, own)
+    if rfft.layout(wl).odd:
+        return (fft if own else fft / 2) + 2 * wl
+    return fft + 12 * (wl // 2) + 2 * wl
+
+
 def _work(name: str, args: tuple,
           passes: int = 4) -> tuple[float, float, float]:
     """Operator-GEMM FLOP, other FLOP and bytes of one call of kernel
@@ -1116,11 +1139,12 @@ def _work(name: str, args: tuple,
         b, t, f = _rows(h_re) // h_re.shape[-2], h_re.shape[-2], h_re.shape[-1]
         out = 4 * b * ((t - 1) * step + n)
         if base == "synth_fft":
-            # The inverse real FFT: its plan's passes, the inverse split
-            # step (12 a bin) and the scaled overlap-add (2 a sample); both
-            # planes read once, the twiddle table, the signal written once.
-            return (0, b * t * (_fft_ops(n) + 12 * (n // 2) + 2 * n),
-                    4 * 2 * b * t * f + 8 * n + out)
+            # The inverse real FFT and the scaled overlap-add (_inverse_ops
+            # a frame: at a rule window its plan's passes); both planes and
+            # the store's tables read once, the signal written once.
+            return (0, b * t * _inverse_ops(n),
+                    4 * 2 * b * t * f + 8 * rfft._store_tables(n).shape[0]
+                    + out)
         return (passes * 2 * b * t * 2 * f * n, 0,
                 8 * b * t * f + opb * 2 * f * n + out)
     if base in ("mdct_fft", "imdct_ola_fft"):
@@ -1548,43 +1572,47 @@ def oracle_error(x: torch.Tensor, spec: torch.Tensor, wl: int = WL,
 
 
 # dispatch -> the kernels the STFT main path must run, and its gates. At
-# WL 2048, 1764 and 1102 the FFT kernels compute the spectrum (the full
-# store, the mirror in its epilogue) and the round trip on both dials, so
-# split4 meets the exact gates there. At WL 2062 the half store (or the
-# planes store under ZAFTPU_FUSED2=1) computes the spectrum on every dial
-# and B4 the round trip, its twin on a lowered dial, which sets split4's
-# (or the dial's) round-trip gates; under ZAFTPU_FFT=matmul B1 and B12, or
-# their twins, compute the spectrum.
+# every window from 16 to 4,096 (WL 2048, 1764, 1102 and 2062 here) the FFT
+# kernels compute the spectrum (the full store, the mirror in its epilogue;
+# the planes store under ZAFTPU_FUSED2=1) and the round trip on every dial,
+# so every dial meets the exact gates there, Bluestein on both sides at WL
+# 2062. Under ZAFTPU_FFT=matmul B1 and B12 (or their twins) compute the
+# spectrum and B4 (or its twin, which sets the dial's round-trip gates) the
+# round trip; at WL 2062 there the lowered dials are ordered
+# (check_dial_order).
 FFT_PATH = (("frames_rfft_full_fft", "synth_fft"), EXACT_GATES)
+FFT2_PATH = (("frames_matmul2_fft", "synth_fft"), EXACT_GATES)
+TWIN_PATH = ("fused_split4", "synth_split4")
 STFT_WANT = {
     "default": FFT_PATH,
     "split": (("framing", "ola"), EXACT_GATES),
     f"default WL {MIXED_WL}": FFT_PATH,
     f"default WL {PRIME_WL}": FFT_PATH,
-    f"default WL {GEMM_WL}": (("fused_fft", "synth"), EXACT_GATES),
-    f"ZAFTPU_FUSED2=1 WL {GEMM_WL}": (("frames_matmul2_fft", "synth"),
-                                      EXACT_GATES),
+    f"default WL {GEMM_WL}": FFT_PATH,
+    f"ZAFTPU_FUSED2=1 WL {GEMM_WL}": FFT2_PATH,
     f"ZAFTPU_FFT=matmul WL {GEMM_WL}": (("fused", "synth"), EXACT_GATES),
     f"ZAFTPU_FFT=matmul ZAFTPU_FUSED2=1 WL {GEMM_WL}": (
         ("frames_matmul2", "synth"), EXACT_GATES),
     "split4": FFT_PATH,
     f"split4 WL {MIXED_WL}": FFT_PATH,
     f"split4 WL {PRIME_WL}": FFT_PATH,
-    f"split4 WL {GEMM_WL}": (("fused_fft", "synth_split4"), SPLIT4_GATES),
-    f"split4 ZAFTPU_FUSED2=1 WL {GEMM_WL}": (
-        ("frames_matmul2_fft", "synth_split4"), SPLIT4_GATES),
-    "split4 ZAFTPU_FFT=matmul": (("fused_split4", "synth_split4"),
-                                 SPLIT4_GATES),
+    f"split4 WL {GEMM_WL}": FFT_PATH,
+    f"split4 ZAFTPU_FUSED2=1 WL {GEMM_WL}": FFT2_PATH,
+    "split4 ZAFTPU_FFT=matmul": (TWIN_PATH, SPLIT4_GATES),
+    f"split4 ZAFTPU_FFT=matmul WL {GEMM_WL}": (TWIN_PATH, SPLIT4_GATES),
     f"split4 ZAFTPU_FFT=matmul ZAFTPU_FUSED2=1 WL {GEMM_WL}": (
         ("frames_matmul2_split4", "synth_split4"), SPLIT4_GATES),
-    # ZAFTPU_PRECISION=high and default: the exact FFT kernels at a rule
-    # window; off it the exact half store and B4's twin at 3 and 1 passes.
+    # ZAFTPU_PRECISION=high and default: the exact FFT kernels at every
+    # window; under ZAFTPU_FFT=matmul the twins of B1 and B4 at 3 and 1
+    # passes.
     "ZAFTPU_PRECISION=high": FFT_PATH,
     "ZAFTPU_PRECISION=default": FFT_PATH,
-    f"ZAFTPU_PRECISION=high WL {GEMM_WL}": (("fused_fft", "synth_split4"),
-                                            HIGH_GATES),
-    f"ZAFTPU_PRECISION=default WL {GEMM_WL}": (
-        ("fused_fft", "synth_split4"), DEFAULT_DIAL_GATES)}
+    f"ZAFTPU_PRECISION=high WL {GEMM_WL}": FFT_PATH,
+    f"ZAFTPU_PRECISION=default WL {GEMM_WL}": FFT_PATH,
+    f"ZAFTPU_PRECISION=high ZAFTPU_FFT=matmul WL {GEMM_WL}": (TWIN_PATH,
+                                                            HIGH_GATES),
+    f"ZAFTPU_PRECISION=default ZAFTPU_FFT=matmul WL {GEMM_WL}": (
+        TWIN_PATH, DEFAULT_DIAL_GATES)}
 # dispatch -> the kernels the MDCT main path must run, and its gates. At WL
 # 2048 the fast MDCT and IMDCT kernels run on both dials, so split4 meets
 # the exact gates there; at WL 1102 (an odd F) B2 and B7 run, their twins
@@ -1687,16 +1715,19 @@ def phase_mdct_path(dispatch: str, x: torch.Tensor) -> dict:
 
 
 def check_dial_order() -> None:
-    """Off the FFT rule the pass counts order the round trips: default
-    (1 pass) < high (3) < split4 (4), each read in this call."""
-    for kind, wl in (("stft", GEMM_WL), ("mdct", MDCT_GEMM_WL)):
-        snr = [SNRS[f"{kind} {d} WL {wl}"]
+    """Where the twins run, the pass counts order the round trips: default
+    (1 pass) < high (3) < split4 (4), each read in this call: stft at WL
+    2062 under ZAFTPU_FFT=matmul (the FFT kernels take it otherwise), mdct
+    at vorbis(1102)."""
+    for kind, where in (("stft", f"ZAFTPU_FFT=matmul WL {GEMM_WL}"),
+                        ("mdct", f"WL {MDCT_GEMM_WL}")):
+        snr = [SNRS[f"{kind} {d} {where}"]
                for d in ("ZAFTPU_PRECISION=default", "ZAFTPU_PRECISION=high",
                          "split4")]
-        print(f"dials: {kind} round trip at WL {wl}: default {snr[0]!r} < "
+        print(f"dials: {kind} round trip at {where}: default {snr[0]!r} < "
               f"high {snr[1]!r} < split4 {snr[2]!r} dB")
         require(snr[0] < snr[1] < snr[2],
-                f"dials: {kind} WL {wl} round trips out of order: {snr}")
+                f"dials: {kind} {where} round trips out of order: {snr}")
 
 
 def phase_bf16(dispatch: str, x: torch.Tensor) -> dict:
@@ -1821,27 +1852,51 @@ def _any_oracle(x: torch.Tensor, win: torch.Tensor, wl: int, step: int,
     return spec, spec @ torch.from_numpy(fbank.T.copy()).to(x.device)
 
 
-# The stores that take every window from 16 to 4,096: the half and the
-# magnitude and mel stores that the entry points launch off the rule (the
-# planes store runs under ZAFTPU_FUSED2=1 and is held here at kernel level).
-ANY_STORES = ("fused_fft",) + MEL_STORES
+def _istft_oracle(spec: torch.Tensor, host_win: np.ndarray,
+                  step: int) -> torch.Tensor:
+    """Float64 istft of a ``(WL, T)`` spectrum by torch.fft on the card:
+    real(ifft) of each frame, overlap-added (fold), divided by the COLA
+    gain, the reference's trim (zaf.py:223-243); a check only, never on the
+    path."""
+    wl, t = spec.shape
+    frames = torch.fft.ifft(spec.T.to(torch.complex128), dim=-1).real
+    n = (t - 1) * step + wl
+    out = torch.nn.functional.fold(frames.T[None], (1, n), (1, wl),
+                                   stride=(1, step)).reshape(n)
+    edge = wl - step
+    gain = float(host_win.astype(np.float64)[::step].sum())
+    return out[edge:n - edge] / gain
+
+
+# What the entry points launch at every window from 16 to 4,096: stft's full
+# store, istft's inverse kernel, the magnitude and mel stores (the half and
+# planes stores run under ZAFTPU_FULLSPEC=0 and ZAFTPU_FUSED2=1 and are held
+# here at kernel level).
+ANY_STORES = ("frames_rfft_full_fft", "synth_fft") + MEL_STORES
 
 
 def phase_any_window(dev) -> dict:
-    """The half, planes, magnitude and mel stores at windows the FFT rule
+    """The stores and the inverse kernel at windows the static FFT path
     refuses (each frame alone a complex FFT at an odd window, Bluestein
     where the FFT's length has a prime factor above 127), at ANY_WINDOWS'
-    600-s shapes and ANY_RAGGED's: stft, spectrogram, melspectrogram and
-    mfcc through the entry points (the half, magnitude and mel stores
-    launched, no plain version, no GEMM), the spectrum, spectrogram and mel
-    against a float64 torch.fft oracle (<= 1e-5 * max|oracle|), each store
-    bit-equal to its plain version (half, planes, magnitude, mel and
-    power; the planes also to the half store's values), and at each 600-s
-    shape the median ms of the store, of B1, B12, B8 or B9 (the route under
-    ZAFTPU_FFT=matmul) and of torch.stft(..., center=False) (the magnitude
-    of bins 1..WL//2, times the filterbank transpose for the mel) and of
-    its plain version, beside the store's bound; then QUIET_WINDOWS' loud
-    and quiet frames (_quiet_frames_case). Returns the entry points'
+    600-s shapes and ANY_RAGGED's: stft -> istft, spectrogram,
+    melspectrogram and mfcc through the entry points (the full, magnitude
+    and mel stores and the inverse kernel launched, no plain version, no
+    GEMM), the spectrum, spectrogram and mel against a float64 torch.fft
+    oracle and the synthesis against a float64 istft of the same spectrum
+    (each <= 1e-5 * max|oracle|; not the round trip: an odd window's is one
+    sample off under the reference's trim, and 2,062 / 512 and 4,078 /
+    1,024 are not COLA), each store
+    bit-equal to its plain version (half, planes, full, magnitude, mel and
+    power; the planes and the full store also to the half store's values)
+    and the inverse within FFT_TOL of its plain version, and at each 600-s
+    shape the median ms of each, of B1, B12, B3, B4, B8 or B9 (the route
+    under ZAFTPU_FFT=matmul), of one PyTorch call (torch.stft(...,
+    center=False), two-sided for the full store, the magnitude of bins
+    1..WL//2 for the magnitude and mel stores, times the filterbank
+    transpose for the mel; torch.istft of a ones window for the inverse)
+    and of its plain version, beside its bound; then QUIET_WINDOWS' loud and
+    quiet frames (_quiet_frames_case). Returns the entry points'
     launches."""
     launches = dict.fromkeys(ANY_STORES, 0)
     for label, sr, wl, step in ANY_WINDOWS:
@@ -1851,6 +1906,7 @@ def phase_any_window(dev) -> dict:
         fbank = melfilterbank(sr, wl, 40)
         reset_counters()
         stft = zaftpu_torch.stft(x, host_win, step)
+        rec = zaftpu_torch.istft(stft, host_win, step)
         spec = zaftpu_torch.spectrogram(x, host_win, step)
         mel = zaftpu_torch.melspectrogram(x, host_win, step, fbank)
         mf = zaftpu_torch.mfcc(x, host_win, step, fbank, 20)
@@ -1864,11 +1920,19 @@ def phase_any_window(dev) -> dict:
                 and stft.dtype == torch.complex64,
                 f"[{label}] stft {tuple(stft.shape)} {stft.dtype}")
         err, scale = oracle_error(x, stft, wl, step)
+        oracle = _istft_oracle(stft, host_win, step)
+        require(rec.shape == oracle.shape and rec.dtype == torch.float32,
+                f"[{label}] istft {tuple(rec.shape)} {rec.dtype}")
+        serr, sscale = _max_abs(rec.double() - oracle), _max_abs(oracle)
         print(f"any window [{label} WL {wl} hop {step}]: stft max_abs_err vs "
-              f"f64 oracle {err!r} (ratio {err / scale!r})")
+              f"f64 oracle {err!r} (ratio {err / scale!r}); istft of that "
+              f"spectrum max_abs_err vs f64 istft {serr!r} (ratio "
+              f"{serr / sscale!r})")
         require(err <= ORACLE_TOL * scale,
                 f"[{label}] stft error {err} > {ORACLE_TOL} * {scale}")
-        del stft
+        require(serr <= ORACLE_TOL * sscale,
+                f"[{label}] istft error {serr} > {ORACLE_TOL} * {sscale}")
+        del stft, rec, oracle
         for name, got, oracle in zip(("spectrogram", "melspectrogram"),
                                      (spec, mel),
                                      _any_oracle(x, win, wl, step, fbank)):
@@ -1898,11 +1962,19 @@ def phase_any_window(dev) -> dict:
     fb[rng.random(fb.shape) < 0.9] = 0.0
     table = melfft.device_table(melfft.filterbank_table(fb), dev)
     label = f"ragged {rows} rows offset {offset}"
-    for name in ("fused_fft", "frames_matmul2_fft", "spec_rows_fft"):
+    for name in ("fused_fft", "frames_matmul2_fft", "frames_rfft_full_fft",
+                 "spec_rows_fft"):
         _any_store_case(name, label, (padded, win, wl, step, t), None, False)
     for power in (False, True):
         _any_store_case("mel_rows_fft", label,
                         (padded, win, table, wl, step, t, power), None, False)
+    h_re, h_im, scale = _folded(rfft.frames_rfft_fft(padded, win, wl, step, t),
+                                wl, step)
+    flat = torch.zeros(2 * h_re.numel() + offset, device=dev)
+    planes = flat[offset:].view(2, *h_re.shape)
+    planes[0], planes[1] = h_re, h_im
+    _any_store_case("synth_fft", label,
+                    (planes[0], planes[1], wl, step, scale), None, False)
     for wl in QUIET_WINDOWS:
         _quiet_frames_case(wl, dev)
     return launches
@@ -1949,25 +2021,52 @@ def _quiet_frames_case(wl: int, dev) -> None:
                 f"quiet frames WL {wl}: {what} store errors "
                 f"{errs[0].tolist()} above {ORACLE_TOL} x each frame's max "
                 f"{own.tolist()}, or a silent frame not zero")
+    # The inverse kernel on the half store's disjoint frames (hop WL): each
+    # frame's samples within ORACLE_TOL of that frame's own max, the silent
+    # frame's exactly zero.
+    h_re, h_im, _ = _folded(rfft.frames_rfft_fft(padded, win, wl, wl, t), wl,
+                            wl)
+    out = irfft.istft_ola_fft(h_re, h_im, wl, wl, 1.0)
+    ref = irfft.istft_ola_fft_plain(h_re, h_im, wl, wl, 1.0)
+    want = padded.double().reshape(t, wl) * win.double()
+    own = want.abs().amax(dim=-1)
+    errs = (out.double().reshape(t, wl) - want).abs().amax(dim=-1)
+    err, scale = _max_abs(out - ref), _max_abs(ref)
+    print(f"quiet frames WL {wl}: inverse max_abs_err vs its plain version "
+          f"{err!r}; each frame's vs the windowed frame {errs.tolist()} "
+          f"(maxima {own.tolist()})")
+    require(err <= FFT_TOL * scale
+            and bool((errs <= ORACLE_TOL * own)[sounding].all())
+            and not out.reshape(t, wl)[~sounding].any(),
+            f"quiet frames WL {wl}: the inverse is off its plain version "
+            f"({err}), a frame off its windowed samples, or a silent frame "
+            "not zero")
 
 
 def _any_store_args(x: torch.Tensor, win: torch.Tensor, fbank: np.ndarray,
                     wl: int, step: int) -> tuple:
-    """(name, the store's arguments, those of its GEMM on ZAFTPU_FFT=matmul's
-    route: B1's and B12's with their operator, B8's or B9's) for the half,
-    planes, magnitude and mel (magnitude) stores on the centre-padded
-    ``x``."""
+    """(name, the kernel's arguments, those of its GEMM on
+    ZAFTPU_FFT=matmul's route: B1's, B12's, B3's and B4's with their
+    operator, B8's or B9's) for the half, planes, full, magnitude and mel
+    (magnitude) stores on the centre-padded ``x``, and for the inverse
+    kernel on the folded planes of the half store's spectrum."""
     padded, t = centre_padded(x, wl, step)
     table = melfft.device_table(melfft.filterbank_table(fbank), x.device)
     fbank_t = torch.from_numpy(np.ascontiguousarray(
         fbank.T.astype(np.float32))).to(x.device)
     analysis = (padded, win, wl, step, t)
     gemm = (*analysis, fused.rdft_ops(wl, torch.float32, x.device))
+    inverse = _folded(rfft.frames_rfft_fft(*analysis), wl, step)
+    inverse = (*inverse[:2], wl, step, inverse[2])
     return (("fused_fft", analysis, gemm),
             ("frames_matmul2_fft", analysis, gemm),
+            ("frames_rfft_full_fft", analysis, gemm),
             ("spec_rows_fft", analysis, analysis),
             ("mel_rows_fft", (padded, win, table, wl, step, t, False),
-             (padded, win, fbank_t, wl, step, t, False)))
+             (padded, win, fbank_t, wl, step, t, False)),
+            ("synth_fft", inverse,
+             (*inverse, synth.istft_ops(wl, inverse[-1], torch.float32,
+                                        x.device))))
 
 
 def _any_cases(dev):
@@ -1981,32 +2080,48 @@ def _any_cases(dev):
             yield name, "any", f"{label} WL {wl} hop {step}", args, EXACT_TOL
 
 
-# Each store's GEMM on ZAFTPU_FFT=matmul's route: B1, B12, B8 and B9.
+# Each kernel's GEMM on ZAFTPU_FFT=matmul's route: B1, B12, B3, B4, B8 and
+# B9.
 ANY_GEMMS = {"fused_fft": fused.frames_rfft,
              "frames_matmul2_fft": fused.frames_matmul2,
+             "frames_rfft_full_fft": fused.frames_rfft_full,
+             "synth_fft": synth.istft_ola,
              "spec_rows_fft": melfused.spec_rows,
              "mel_rows_fft": melfused.mel_rows}
 
 
 def _any_store_case(name: str, label: str, args: tuple, gemm_args,
                     timed: bool) -> None:
-    """One store off the rule against its plain version, bit for bit (the
-    planes store also against the half store's values), and (``timed``) its
-    median ms beside its plain version's, its GEMM's (ANY_GEMMS) on
-    ``gemm_args``, the torch.stft yardstick's and its bound."""
+    """One store or the inverse kernel off the rule against its plain
+    version, a store bit for bit (the planes and full stores also against
+    the half store's values), the inverse within FFT_TOL * max|ref|, and
+    (``timed``) its median ms beside its plain version's, its GEMM's
+    (ANY_GEMMS) on ``gemm_args``, the torch.stft or torch.istft yardstick's
+    and its bound."""
     kernel, plain = KERNELS[name][2:]
-    wl = args[3] if name == "mel_rows_fft" else args[2]
-    t = args[-2] if name == "mel_rows_fft" else args[-1]
+    if name == "synth_fft":
+        wl, t = args[2], args[0].shape[-2]
+    elif name == "mel_rows_fft":
+        wl, t = args[3], args[-2]
+    else:
+        wl, t = args[2], args[-1]
     lay = rfft.layout(wl)
     shape = (f"WL {wl} T {t}"
              f" {'odd, a complex FFT a frame' if lay.odd else 'even'}"
              f"{f', Bluestein P {lay.p}' if lay.p else ''}")
     got, ref = _planes(kernel(*args)), _planes(plain(*args))
-    require(all(torch.equal(a, b) for a, b in zip(got, ref)),
-            f"{name} [{label}] {shape}: not bit-equal to its plain version "
-            f"(max_abs_err {_max_abs(torch.stack(got) - torch.stack(ref))!r})")
-    print(f"any window kernel {name} [{label}] {shape}: bit-equal to its "
-          "plain version")
+    err = _max_abs(torch.stack(got) - torch.stack(ref))
+    same = all(torch.equal(a, b) for a, b in zip(got, ref))
+    if name == "synth_fft":
+        scale = _max_abs(torch.stack(ref))
+        require(got[0].shape == ref[0].shape and err <= FFT_TOL * scale,
+                f"{name} [{label}] {shape}: max_abs_err {err!r} > {FFT_TOL} "
+                f"* {scale!r}")
+    else:
+        require(same, f"{name} [{label}] {shape}: not bit-equal to its plain "
+                f"version (max_abs_err {err!r})")
+    print(f"any window kernel {name} [{label}] {shape}: max_abs_err vs its "
+          f"plain version {err!r} (bit-equal: {same})")
     if name in RESTORES:
         base, store = RESTORES[name]
         sums = _planes(store(KERNELS[base][2](*args), wl))
@@ -2025,8 +2140,10 @@ def _any_store_case(name: str, label: str, args: tuple, gemm_args,
     bound_ms, bound_by = bound(name, args)
     # The kernel's own operations (_frame_fft_ops with own) at the FP32
     # peak.
-    ops = _half_ops if name in FFT_STORES else _store_ops
-    extra = _rows(args[0]) * t * (ops(wl, own=True) - ops(wl))
+    ops = {**dict.fromkeys(FFT_STORES, _half_ops),
+           "synth_fft": _inverse_ops}.get(name, _store_ops)
+    rows = _rows(args[0]) // (t if name == "synth_fft" else 1)
+    extra = rows * t * (ops(wl, own=True) - ops(wl))
     own_ms = (_work(name, args)[1] + extra) / PEAK_FP32 * 1e3
     print(f"  {name} [{label}]: kernel {ms:.4f} ms, plain {plain_ms:.4f} "
           f"ms (median of 3), GEMM ({gemm.__name__}, ZAFTPU_FFT=matmul's "
@@ -3227,7 +3344,9 @@ CQT_HIGHEST = {**DEFAULT, "ZAFTPU_PRECISION": "highest"}
 CQT_EXACT = {**DEFAULT, "ZAFTPU_CQT_SCHEME": "exact"}
 FFT_MATMUL = {**DEFAULT, "ZAFTPU_FFT": "matmul"}
 MATMUL_FUSED2 = {**FFT_MATMUL, "ZAFTPU_FUSED2": "1"}
+MATMUL_FULLSPEC = {**FFT_MATMUL, "ZAFTPU_FULLSPEC": "1"}
 SPLIT4_MATMUL_FUSED2 = {**SPLIT4_MATMUL, "ZAFTPU_FUSED2": "1"}
+SPLIT4_MATMUL_FULLSPEC = {**SPLIT4_MATMUL, "ZAFTPU_FULLSPEC": "1"}
 MATMUL_MELFUSE = {**FFT_MATMUL, "ZAFTPU_MELFUSE": "1"}
 SPLIT4_MATMUL_MELFUSE = {**SPLIT4_MATMUL, "ZAFTPU_MELFUSE": "1"}
 CQT_EXACT_MATMUL = {**CQT_EXACT, "ZAFTPU_FFT": "matmul"}
@@ -3310,6 +3429,8 @@ def main() -> int:
             (SPLIT4_FUSED2, phase_main_path,
              f"split4 ZAFTPU_FUSED2=1 WL {GEMM_WL}"),
             (SPLIT4_MATMUL, phase_main_path, "split4 ZAFTPU_FFT=matmul"),
+            (SPLIT4_MATMUL, phase_main_path,
+             f"split4 ZAFTPU_FFT=matmul WL {GEMM_WL}"),
             (SPLIT4_MATMUL_FUSED2, phase_main_path,
              f"split4 ZAFTPU_FFT=matmul ZAFTPU_FUSED2=1 WL {GEMM_WL}"),
             (SPLIT4, phase_mdct_path, "split4"),
@@ -3318,14 +3439,18 @@ def main() -> int:
             (SPLIT4_MELFUSE, phase_mel_path, "split4 ZAFTPU_MELFUSE=1"),
             (SPLIT4_MATMUL_MELFUSE, phase_mel_path,
              "split4 ZAFTPU_FFT=matmul ZAFTPU_MELFUSE=1"),
-            # The dials: exact FFT kernels at the rule's windows, the twins
-            # at 3 and 1 passes off it; the bf16 compute dtype.
-            *((env, phase, f"ZAFTPU_PRECISION={dial}{wl}")
+            # The dials: exact FFT kernels where they run, the twins at 3
+            # and 1 passes under ZAFTPU_FFT=matmul and at vorbis(1102); the
+            # bf16 compute dtype.
+            *(({**env, **extra}, phase, f"ZAFTPU_PRECISION={dial}{wl}")
               for env, dial in ((HIGH, "high"), (DEFAULT_DIAL, "default"))
-              for phase, wl in ((phase_main_path, ""),
-                                (phase_main_path, f" WL {GEMM_WL}"),
-                                (phase_mdct_path, ""),
-                                (phase_mdct_path, f" WL {MDCT_GEMM_WL}"))),
+              for phase, extra, wl in (
+                  (phase_main_path, {}, ""),
+                  (phase_main_path, {}, f" WL {GEMM_WL}"),
+                  (phase_main_path, {"ZAFTPU_FFT": "matmul"},
+                   f" ZAFTPU_FFT=matmul WL {GEMM_WL}"),
+                  (phase_mdct_path, {}, ""),
+                  (phase_mdct_path, {}, f" WL {MDCT_GEMM_WL}"))),
             (DEFAULT, phase_bf16, "compute_dtype bfloat16")):
         for name, count in _with_env(env, phase, dispatch, x).items():
             launches[name] += count
@@ -3350,10 +3475,11 @@ def main() -> int:
     print(f"chip_smoke: long windows, griffin-lim and dct at "
           f"{time.perf_counter() - start:.1f} s")
     # Each lever against its dial's lever-free run at the same window, bit
-    # for bit. At WL 2062 ZAFTPU_FULLSPEC=1 runs the GEMM B3 (B3-s4 under
-    # split4), whose sums the lever-free run under ZAFTPU_FFT=matmul shares
-    # (B1, or B1-s4, and the index mirror; the default there takes the
-    # half store).
+    # for bit: at WL 2062 the half store and the index mirror (or the mirror
+    # and fold kernels) against the full store, Bluestein's; under
+    # ZAFTPU_FFT=matmul ZAFTPU_FULLSPEC=1 runs the GEMM B3 (B3-s4 under
+    # split4), whose sums the lever-free run there shares (B1, or B1-s4,
+    # and the index mirror).
     fft_stores = ("frames_rfft_full_fft", "synth_fft")
     half_store = ("fused_fft", "synth_fft")
     for base, wl, levers in (
@@ -3365,8 +3491,15 @@ def main() -> int:
                 (FULLSPEC_OFF, "ZAFTPU_FULLSPEC=0", half_store, EXACT_GATES),
                 (FUSED2_ON, "ZAFTPU_FUSED2=1",
                  ("frames_matmul2_fft", "synth_fft"), EXACT_GATES))),
+            (DEFAULT, GEMM_WL, (
+                (MIRROR_ON, f"ZAFTPU_MIRROR=pallas WL {GEMM_WL}",
+                 ("fused_fft", "mirror_full_planes", "fold_half_planes",
+                  "synth_fft"), EXACT_GATES),
+                (FULLSPEC_OFF, f"ZAFTPU_FULLSPEC=0 WL {GEMM_WL}", half_store,
+                 EXACT_GATES))),
             (FFT_MATMUL, GEMM_WL, (
-                (FULLSPEC_ON, f"ZAFTPU_FULLSPEC=1 WL {GEMM_WL}",
+                (MATMUL_FULLSPEC,
+                 f"ZAFTPU_FFT=matmul ZAFTPU_FULLSPEC=1 WL {GEMM_WL}",
                  ("frames_rfft_full", "synth"), EXACT_GATES),)),
             (SPLIT4, WL, (
                 (SPLIT4_FUSED2, "split4 ZAFTPU_FUSED2=1",
@@ -3376,7 +3509,8 @@ def main() -> int:
                 (SPLIT4_FULLSPEC_OFF, "split4 ZAFTPU_FULLSPEC=0", half_store,
                  EXACT_GATES))),
             (SPLIT4_MATMUL, GEMM_WL, (
-                (SPLIT4_FULLSPEC, f"split4 ZAFTPU_FULLSPEC=1 WL {GEMM_WL}",
+                (SPLIT4_MATMUL_FULLSPEC,
+                 f"split4 ZAFTPU_FFT=matmul ZAFTPU_FULLSPEC=1 WL {GEMM_WL}",
                  ("frames_rfft_full_split4", "synth_split4"),
                  SPLIT4_GATES),))):
         ref = _with_env(base, _default_stft_istft, x, wl)

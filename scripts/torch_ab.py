@@ -18,7 +18,8 @@ registers and spills that ``nvcc -Xptxas -v`` reports for the entry
 functions whose names contain the --ptxas text, and times each --kernel
 (a chip_smoke.py KERNELS name) at its chip_smoke.py shapes of the --label
 case (main by default; "40 ms" and "25 ms" the FFT kernels' windows;
-"any" the magnitude and mel stores at chip_smoke.ANY_WINDOWS' windows):
+"any" the real-FFT kernel's stores and the inverse at
+chip_smoke.ANY_WINDOWS' windows):
 median of 10 CUDA-event pairs around one launch, which includes the
 wrapper's host work before it, or with --launches N around N launches
 queued back to back, which leaves the device's time alone (divided by N).

@@ -877,7 +877,7 @@ def test_fused2_and_fullspec_levers_on_card_bit_equal(dev, lever, dial,
 @pytest.mark.parametrize("wl,lever,fused2,kernel", [
     (2048, None, False, "fft_full"), (2048, None, True, "fft2"),
     (1102, None, False, "fft_full"), (1102, None, True, "fft2"),
-    (262, None, False, "fft"), (262, None, True, "fft2"),
+    (262, None, False, "fft_full"), (262, None, True, "fft2"),
     (262, "matmul", False, "twin"), (262, "matmul", True, "twin2"),
     (2048, "matmul", False, "twin"), (2048, "matmul", True, "twin2"),
     (1764, "native", False, "fft_full")])
@@ -885,10 +885,10 @@ def test_split4_stft_takes_the_fft_where_the_rule_holds(dev, wl, lever,
                                                        fused2, kernel,
                                                        monkeypatch):
     """Under split4 stft launches the FFT kernel, once and nothing else:
-    its full store (its planes store under ZAFTPU_FUSED2=1) where the full
-    store's shape rule holds (WL 1102 = 2 * 19 * 29 among its windows), its
-    half store (planes store) at WL 262 (131 is a prime above 127:
-    rfft_any's Bluestein); B1's twin (B12's) only with ZAFTPU_FFT=matmul;
+    its full store (its planes store under ZAFTPU_FUSED2=1) at every window
+    from 16 to 4,096 (WL 1102 = 2 * 19 * 29 through the odd-prime passes,
+    262 = 2 * 131 through rfft_any's Bluestein); B1's twin (B12's) only
+    with ZAFTPU_FFT=matmul;
     the FFT's spectrum bit-equal to the exact dial's, the twins' within
     1e-4 of max of the CPU float64 path."""
     monkeypatch.setenv("ZAFTPU_PRECISION", "split4")
@@ -954,23 +954,27 @@ def test_numpy_input_runs_on_the_card(dev, name, cqt_cache):
 @pytest.mark.parametrize("value", ["high", "default"])
 def test_tpu_pass_count_dials_refused_on_cuda(dev, value, monkeypatch):
     """``high`` and ``default`` are no longer refused on the card: the
-    transforms run, off the FFT rule on the exact half store and B4's twin
-    at 3 and 1 passes (within the dial's reach of the CPU float64 path), at
-    a rule window on the exact FFT kernels (bit-equal to highest)."""
+    transforms run, at every window from 16 to 4,096 (262 by Bluestein,
+    510 on the static path) on the exact FFT kernels, and under
+    ZAFTPU_FFT=matmul on B1's and B4's twins at 3 and 1 passes (within the
+    dial's reach of the CPU float64 path)."""
     monkeypatch.setenv("ZAFTPU_PRECISION", value)
     p = {"high": 3, "default": 1}[value]
     tol = {3: 2e-5, 1: 3e-2}[p]
     x = torch.from_numpy(np.random.default_rng(21).standard_normal(
         8192).astype(np.float32))
     xd = x.to(dev)
-    for wl in (262, 510):
+    for wl, lever in ((262, None), (510, None), (262, "matmul")):
+        if lever:
+            monkeypatch.setenv("ZAFTPU_FFT", lever)
         before = (fused.frames_rfft_split4.launches,
                   synth.istft_ola_split4.launches)
         spec = zaftpu_torch.stft(xd, hamming(wl), wl // 2)
         rec = zaftpu_torch.istft(spec, hamming(wl), wl // 2)
-        assert (fused.frames_rfft_split4.launches == before[0]
-                and (synth.istft_ola_split4.launches > before[1]
-                     or rfft.applies(wl)))
+        twins = (fused.frames_rfft_split4.launches - before[0],
+                 synth.istft_ola_split4.launches - before[1])
+        assert twins == ((1, 1) if lever else (0, 0))
+        monkeypatch.delenv("ZAFTPU_FFT", raising=False)
         ref = zaftpu_torch.stft(x.double(), hamming(wl), wl // 2)
         assert _rel_err(spec.cpu().to(torch.complex128), ref) < tol
         assert rec.is_cuda
@@ -1151,35 +1155,30 @@ def test_prime_passes_bit_equal_to_plain(dev, wl, step, t, lead, offset):
 
 
 def test_fft_entry_refuses_what_the_rule_refuses(dev):
-    """The full store's CUDA entry takes exactly the lengths rfft.fits
-    takes (the set of rfft.applies without an operator or the lever), the
-    half and planes entries every length from 16 to 4,096 with its
-    Bluestein length (rfft.layout(WL).p, 0 where the passes take the FFT's
-    own length); each refuses every other length, and the half and planes
-    entries a wrong P, before any launch (T = 0 returns after the checks);
-    the wrappers raise ValueError on the same lengths."""
+    """The half, planes and full entries take every length from 16 to
+    4,096 with its Bluestein length (rfft.layout(WL).p, 0 where the passes
+    take the FFT's own length); each refuses every other length and a
+    wrong P before any launch (T = 0 returns after the checks); the
+    wrappers raise ValueError on the same lengths."""
     lib = _build.library()
     buf = torch.zeros(8192, device=dev)
     p = buf.data_ptr()
-    halves = (lib.zt_rfft_half, lib.zt_rfft_planes)
+    stores = (lib.zt_rfft_half, lib.zt_rfft_planes, lib.zt_rfft_full)
     for wl in range(1, 4200):
-        err = lib.zt_rfft_full(p, p, p, p, 1, 8192, 0, wl, 1, 0)
-        assert (err == 0) is rfft.fits(wl), (wl, err)
         big = rfft.layout(wl).p if melfft.fits(wl) else 0
-        for entry in halves:
+        for entry in stores:
             err = entry(p, p, p, p, 1, 8192, 0, wl, 1, big, 0)
             assert (err == 0) is melfft.fits(wl), (wl, err)
     for wl, big in ((2048, 288), (441, 882), (262, 0), (2062, 2063),
                     (3093, 8194)):
-        for entry in halves:
+        for entry in stores:
             assert entry(p, p, p, p, 1, 8192, 0, wl, 1, big, 0) != 0
-    for wl in (262, 2062, 255, 15, 4098):
+    for wl in (255, 15, 4098):
         padded, win = _inputs(wl, wl // 2, 3, dev)
-        with pytest.raises(ValueError, match="prime factor"):
-            rfft.frames_rfft_full_fft(padded, win, wl, wl // 2, 3)
         if melfft.fits(wl):
             continue
-        for wrapper in (rfft.frames_rfft_fft, rfft.frames_matmul2_fft):
+        for wrapper in (rfft.frames_rfft_fft, rfft.frames_matmul2_fft,
+                        rfft.frames_rfft_full_fft):
             with pytest.raises(ValueError, match="must be in"):
                 wrapper(padded, win, wl, wl // 2, 3)
 
@@ -1210,10 +1209,9 @@ def test_fft_kernel_takes_an_hour_in_one_launch(dev):
 @pytest.mark.parametrize("fused2", [False, True])
 def test_shape_rule_launch_counts_on_card(dev, wl, fused2, monkeypatch):
     """stft launches the FFT kernel, once, and no plain version: its full
-    store (its planes store with ZAFTPU_FUSED2=1) at an even window whose
-    half has no prime factor above 127 (16 ... 2822), its half store
-    (planes store) at any other (262 = 2 * 131, 2062 = 2 * 1031); within
-    1e-5 of max of the float64 path."""
+    store (its planes store with ZAFTPU_FUSED2=1) at every window from 16
+    to 4,096 (262 = 2 * 131 and 2062 = 2 * 1031 by Bluestein); within 1e-5
+    of max of the float64 path."""
     if fused2:
         monkeypatch.setenv("ZAFTPU_FUSED2", "1")
     x64 = np.random.default_rng(wl).standard_normal((2, 20000))
@@ -1230,10 +1228,7 @@ def test_shape_rule_launch_counts_on_card(dev, wl, fused2, monkeypatch):
     win = hamming(wl)
     spec = zaftpu_torch.stft(x, win, wl // 2)
     moved = {k for k, c in counters.items() if c.launches != before[k]}
-    if not rfft.applies(wl):
-        want = "fft2" if fused2 else "fft"
-    else:
-        want = "fft2" if fused2 else "fft_full"
+    want = "fft2" if fused2 else "fft_full"
     assert moved == {want} and counters[want].launches == before[want] + 1
     assert [p.calls for p in plains] == calls
     monkeypatch.delenv("ZAFTPU_FUSED2", raising=False)
@@ -1351,17 +1346,23 @@ def test_irfft_kernel_matches_plain(dev, wl, step, t, lead):
 
 
 def test_irfft_entry_refuses_what_the_rule_refuses(dev):
-    """The CUDA entry takes exactly the lengths rfft.fits takes with a hop
-    in [1, N] and refuses every other before any launch: T = 0 returns
-    after the checks."""
+    """The CUDA entry takes every length from 16 to 4,096 with its
+    Bluestein length (rfft.layout(N).p) and a hop in [1, N], and refuses
+    every other, and a wrong P, before any launch: T = 0 returns after the
+    checks."""
     lib = _build.library()
     buf = torch.zeros(8192, device=dev)
     p = buf.data_ptr()
     for wl in range(1, 4200):
+        big = rfft.layout(wl).p if melfft.fits(wl) else 0
         for step in sorted({0, 1, max(wl // 3, 1), wl, wl + 1}):
-            err = lib.zt_irfft_ola(p, p, p, p, 1.0, 1, 0, wl, step, 0)
-            assert (err == 0) is (rfft.fits(wl) and 1 <= step <= wl), (
+            err = lib.zt_irfft_ola(p, p, p, p, 1.0, 1, 0, wl, step, big, 0)
+            assert (err == 0) is (melfft.fits(wl) and 1 <= step <= wl), (
                 wl, step, err)
+    for wl, big in ((2048, 288), (441, 882), (262, 0), (2062, 2063),
+                    (3093, 8194), (4078, 4076)):
+        assert lib.zt_irfft_ola(p, p, p, p, 1.0, 1, 0, wl, wl // 2, big,
+                                0) != 0
 
 
 def test_irfft_kernel_takes_an_hour_in_one_launch(dev):
@@ -1384,12 +1385,11 @@ def test_irfft_kernel_takes_an_hour_in_one_launch(dev):
 @pytest.mark.parametrize("wl", [2048, 1764, 1102, 2822, 262])
 @pytest.mark.parametrize("dial", ["highest", "split4"])
 def test_stft_istft_take_the_ffts_on_both_dials(dev, wl, dial, monkeypatch):
-    """stft -> istft on the card: where the shape rule holds (WL 2048, 1764
-    and, through the odd-prime passes, 1102 and 2822) both dials launch the
-    FFT analysis and the inverse FFT synthesis, once each and no B4 or
-    B4-s4, bit-equal across the dials, within 1e-5 of max of the CPU
-    float64 path and above 120 dB; at WL 262 (131 is a prime above 127) B4
-    (B4-s4 under split4) runs, in split4's band there."""
+    """stft -> istft on the card: at every window from 16 to 4,096 (WL
+    2048, 1764, through the odd-prime passes 1102 and 2822, by Bluestein
+    262) both dials launch the FFT analysis and the inverse FFT synthesis,
+    once each and no B4 or B4-s4, bit-equal across the dials, within 1e-5
+    of max of the CPU float64 path and above 120 dB."""
     x64 = np.random.default_rng(wl + 3).standard_normal((2, 44100))
     x = torch.from_numpy(x64.astype(np.float32)).to(dev)
     win = hamming(wl)
@@ -1400,7 +1400,7 @@ def test_stft_istft_take_the_ffts_on_both_dials(dev, wl, dial, monkeypatch):
     spec = zaftpu_torch.stft(x, win, wl // 2)
     rec = zaftpu_torch.istft(spec, win, wl // 2)
     moved = {k for k, c in counters.items() if c.launches != before[k]}
-    want = ("fft" if rfft.applies(wl) else
+    want = ("fft" if irfft.applies(wl) else
             "twin" if dial == "split4" else "gemm")
     assert moved == {want} and counters[want].launches == before[want] + 1
     monkeypatch.setenv("ZAFTPU_PRECISION", "highest")
@@ -1421,15 +1421,16 @@ def test_stft_istft_take_the_ffts_on_both_dials(dev, wl, dial, monkeypatch):
 def test_odd_window_takes_the_half_store_on_card(dev, dial, lever,
                                                 monkeypatch):
     """An odd window: stft -> istft at WL 1323 / hop 441 (30 ms at 44.1
-    kHz, periodic Hamming at a third of its length) launches the FFT
-    kernel's half store (each frame a complex 1,323-point FFT) and B4 (its
-    twin under split4) once each, and with ZAFTPU_FFT=matmul B1 and B4
-    (their twins under split4); the spectrum and the signal within 1e-5
-    (1e-4 where a twin runs) of max of the CPU float64 path, the half
-    store's spectrum bit-equal across the dials. (At an odd window the
-    reference's trim leaves the round trip one sample off, so it is held to
-    that path, not to x.)"""
+    kHz, periodic Hamming at a third of its length) under ZAFTPU_FULLSPEC=0
+    launches the FFT kernel's half store (each frame a complex 1,323-point
+    FFT) and the inverse FFT kernel once each, and with ZAFTPU_FFT=matmul
+    B1 and B4 (their twins under split4); the spectrum and the signal
+    within 1e-5 (1e-4 where a twin runs) of max of the CPU float64 path,
+    the half store's spectrum bit-equal across the dials. (At an odd window
+    the reference's trim leaves the round trip one sample off, so it is
+    held to that path, not to x.)"""
     monkeypatch.setenv("ZAFTPU_PRECISION", dial)
+    monkeypatch.setenv("ZAFTPU_FULLSPEC", "0")
     if lever is not None:
         monkeypatch.setenv("ZAFTPU_FFT", lever)
     wl, step = 1323, 441
@@ -1447,7 +1448,9 @@ def test_odd_window_takes_the_half_store_on_card(dev, dial, lever,
     moved = {k for k, c in counters.items() if c.launches != before[k]}
     analysis = "fft" if lever is None else (
         "twin" if dial == "split4" else "gemm")
-    want = {analysis, "synth_twin" if dial == "split4" else "synth"}
+    synthesis = "ifft" if lever is None else (
+        "synth_twin" if dial == "split4" else "synth")
+    want = {analysis, synthesis}
     assert moved == want
     assert all(counters[k].launches == before[k] + 1 for k in want)
     monkeypatch.setenv("ZAFTPU_PRECISION", "highest")
@@ -1455,7 +1458,7 @@ def test_odd_window_takes_the_half_store_on_card(dev, dial, lever,
         assert torch.equal(spec, zaftpu_torch.stft(x, win, step))
     monkeypatch.delenv("ZAFTPU_FFT", raising=False)
     oracle = zaftpu_torch.stft(torch.from_numpy(x64), win, step)
-    tol = 1e-4 if dial == "split4" else 1e-5
+    tol = 1e-4 if dial == "split4" and lever else 1e-5
     spec_tol = 1e-5 if analysis == "fft" else tol
     assert _rel_err(spec.cpu().to(torch.complex128), oracle) < spec_tol
     assert _rel_err(rec.cpu().double(),
@@ -1844,11 +1847,13 @@ def _half_stores_bit_equal(dev, wl, step, t, lead=(2,), offset=1):
                     "minutes on an H100; set ZAFTPU_CUDA_SWEEP=1")
 def test_spec_store_every_window_sweep(dev):
     """Every window from 16 to 4,096 through _spec_store_bit_equal and,
-    for the half and planes stores, _half_stores_bit_equal (3 frames, a
-    hop that does not divide the window)."""
+    for the half and planes stores, _half_stores_bit_equal, for the full
+    store and the inverse kernel _full_and_inverse (3 frames, a hop that
+    does not divide the window)."""
     for wl in range(16, 4097):
         _spec_store_bit_equal(dev, wl)
         _half_stores_bit_equal(dev, wl, wl // 3 + 1, 3)
+        _full_and_inverse(dev, wl, wl // 3 + 1, 3)
 
 
 # The half and planes stores at every window from 16 to 4,096 (B1's and
@@ -1900,6 +1905,97 @@ def test_half_and_planes_stores_launch_nothing_for_zero_frames(dev, wl):
         0, wl // 2 + 1)
     assert (rfft.frames_rfft_fft.launches,
             rfft.frames_matmul2_fft.launches) == before
+
+
+def _full_and_inverse(dev, wl, step, t, lead=(2,), offset=1):
+    """The full store and the inverse kernel at ``wl`` launch once each
+    (nothing for zero frames): the full store equals its plain version bit
+    for bit and the half store's values mirrored, the inverse, on the half
+    store's planes copied to an offset view, within 1e-6 of max of its
+    plain version (chip_smoke.FFT_TOL). Batched and misaligned by
+    default."""
+    padded, win = _inputs(wl, step, max(t, 1), dev, lead, offset)
+    half = rfft.frames_rfft_fft(padded, win, wl, step, max(t, 1))[..., :t, :]
+    flat = torch.zeros(2 * half.numel() + offset, device=dev)
+    planes = flat[offset:].view(2, *half.shape)
+    planes[0], planes[1] = half.real, half.imag
+    before = (rfft.frames_rfft_full_fft.launches,
+              irfft.istft_ola_fft.launches)
+    full = rfft.frames_rfft_full_fft(padded, win, wl, step, t)
+    out = irfft.istft_ola_fft(planes[0], planes[1], wl, step, 0.5)
+    assert full.shape == (*lead, t, wl) and full.dtype == torch.complex64
+    assert out.shape == (*lead, (t - 1) * step + wl) and out.is_cuda
+    if t:
+        args = (padded, win, wl, step, t)
+        assert torch.equal(full, rfft.frames_rfft_full_fft_plain(*args)), wl
+        assert torch.equal(full, tfft.conjugate_mirror(half, wl)), wl
+        ref = irfft.istft_ola_fft_plain(planes[0], planes[1], wl, step, 0.5)
+        assert _rel_err(out, ref) <= 1e-6, (wl, _rel_err(out, ref))
+    else:
+        assert not out.any()
+    runs = 1 if t else 0
+    assert (rfft.frames_rfft_full_fft.launches,
+            irfft.istft_ola_fft.launches) == (before[0] + runs,
+                                              before[1] + runs)
+
+
+@pytest.mark.parametrize("wl", HALF_WINDOWS)
+def test_full_store_and_inverse_take_every_window(dev, wl):
+    """HALF_WINDOWS through _full_and_inverse: 3 frames, 2 rows, a hop
+    that does not divide the window, misaligned."""
+    _full_and_inverse(dev, wl, wl // 3 + 1, 3)
+
+
+@pytest.mark.parametrize("wl,step,t", HALF_RAGGED)
+@pytest.mark.parametrize("hop", ["1", "ragged", "whole"])
+@pytest.mark.parametrize("lead,offset", [((), 0), ((3,), 1)])
+def test_full_store_and_inverse_ragged(dev, wl, step, t, hop, lead, offset):
+    """HALF_RAGGED's shapes at a hop of 1, the shape's own (not dividing
+    the window) and N, one row aligned and three misaligned, through
+    _full_and_inverse; the inverse within 2e-6 of max of its float64 plain
+    version on the CPU."""
+    step = {"1": 1, "ragged": step, "whole": wl}[hop]
+    _full_and_inverse(dev, wl, step, t, lead, offset)
+    padded, win = _inputs(wl, step, t, dev, lead, offset)
+    half = rfft.frames_rfft_fft(padded, win, wl, step, t)
+    out = irfft.istft_ola_fft(half.real.contiguous(),
+                              half.imag.contiguous(), wl, step, 0.5)
+    oracle = irfft.istft_ola_fft(half.real.cpu().double(),
+                                 half.imag.cpu().double(), wl, step, 0.5)
+    assert _rel_err(out.cpu().double(), oracle) < 2e-6
+
+
+@pytest.mark.parametrize("wl", [441, 2062, 3093, 2048])
+def test_full_store_and_inverse_launch_nothing_for_zero_frames(dev, wl):
+    """Zero frames: an empty spectrum, the N - step zeros a row and no
+    launch, on every path (the static one at 2,048) and through
+    fused.frames_rfft_full / synth.istft_ola."""
+    _full_and_inverse(dev, wl, wl // 2, 0)
+    padded, win = _inputs(wl, wl // 2, 1, dev)
+    h = torch.zeros((0, wl // 2 + 1), device=dev)
+    before = (rfft.frames_rfft_full_fft.launches,
+              irfft.istft_ola_fft.launches)
+    assert fused.frames_rfft_full(padded, win, wl, wl // 2, 0).shape == (
+        0, wl)
+    out = synth.istft_ola(h, h, wl, wl // 2, 0.5)
+    assert out.shape == (wl - wl // 2,) and not out.any()
+    assert (rfft.frames_rfft_full_fft.launches,
+            irfft.istft_ola_fft.launches) == before
+
+
+@pytest.mark.parametrize("wl", [441, 1031, 2205, 3093, 262])
+def test_inverse_silent_frames_exact_zero(dev, wl):
+    """The inverse kernel on disjoint frames (hop N) whose planes are zero
+    in frames 1, 2 and 5 gives exactly 0 in their samples (each frame its
+    own FFT), and its plain version's values elsewhere (within 1e-6)."""
+    silent = torch.tensor([False, True, True, False, False, True, False])
+    gen = torch.Generator(device=dev).manual_seed(wl)
+    h = torch.randn((2, len(silent), wl // 2 + 1), device=dev, generator=gen)
+    h[:, silent.to(dev)] = 0.0
+    out = irfft.istft_ola_fft(h[0], h[1], wl, wl, 1.0)
+    assert not out.view(len(silent), wl)[silent.to(dev)].any()
+    ref = irfft.istft_ola_fft_plain(h[0], h[1], wl, wl, 1.0)
+    assert _rel_err(out, ref) <= 1e-6
 
 
 @pytest.mark.parametrize("wl", [3093, 4095, 2062])

@@ -314,12 +314,14 @@ def _bad_fft_launch(case):
                                         win[:-1], wl, step, t),
         "short": lambda: trfft._launch("frames_matmul2_fft", "planes",
                                        padded[:-1], win, wl, step, t),
+        # Every store takes every window from 16 to 4,096: the full store
+        # refuses one below 16 (15, 13) as it refuses one above.
         "not_pow2": lambda: trfft._launch("frames_rfft_full_fft", "full",
-                                          padded[:-1], win[:-1], wl - 1,
-                                          step, t),
+                                          torch.zeros(8 * 7 + 15),
+                                          torch.zeros(15), 15, 7, 9),
         "prime_above_7": lambda: trfft._launch(
-            "frames_rfft_full_fft", "full", torch.zeros(8 * 131 + 262),
-            torch.zeros(262), 262, 131, 9),
+            "frames_rfft_full_fft", "full", torch.zeros(8 * 6 + 13),
+            torch.zeros(13), 13, 6, 9),
         "too_long": lambda: trfft._launch(
             "frames_rfft_fft", "half", torch.zeros(8192 * 2),
             torch.zeros(8192), 8192, 4096, 2),

@@ -1,6 +1,6 @@
 """The real-FFT kernel's full store (zaftpu_torch.kernels.rfft.
-frames_rfft_full_fft, B3 and B3-s4 at the FFT rule's windows) through its
-plain version, and ZAFTPU_FULLSPEC's three values.
+frames_rfft_full_fft, B3 and B3-s4 at every window from 16 to 4,096)
+through its plain version, and ZAFTPU_FULLSPEC's three values.
 
 The plain version is the half store's plain version followed by the
 conjugate mirror, and the kernel equals it bit for bit on the card
@@ -118,21 +118,21 @@ LEVERS = {"none": {}, "ZAFTPU_MIRROR=pallas": {"ZAFTPU_MIRROR": "pallas"},
           "ZAFTPU_FUSED2=1": {"ZAFTPU_FUSED2": "1"},
           "ZAFTPU_FUSED=0": {"ZAFTPU_FUSED": "0"},
           "ZAFTPU_FFT=matmul": {"ZAFTPU_FFT": "matmul"}}
-# A 7-smooth rule window, one through the odd-prime passes (1102 = 2 * 19
-# * 29) and one the full store's rule leaves to the GEMM B3 (262 = 2 * 131),
-# where the half and planes stores run rfft_any's Bluestein.
+# A 7-smooth window, one through the odd-prime passes (1102 = 2 * 19 * 29)
+# and one the static path refuses (262 = 2 * 131), where the full, half and
+# planes stores run rfft_any's Bluestein.
 RULE_WL, PRIME_WL, OFF_RULE_WL = 2048, 1102, 262
 
 
 def _expected(fullspec, lever: str, dial: str, wl: int) -> set:
     """The counters stft moves: the lever's rule, stated once more. The
-    half and planes stores take every window unless ZAFTPU_FFT=matmul; the
-    full store only the full store's rule."""
+    full, half and planes stores take every window from 16 to 4,096
+    unless ZAFTPU_FFT=matmul."""
     if lever == "ZAFTPU_FUSED=0":
         return {"framing"}
     matmul = lever == "ZAFTPU_FFT=matmul"
     gemm = "twin" if dial == "split4" else "gemm"
-    full_fft = wl != OFF_RULE_WL and not matmul
+    full_fft = not matmul
     if fullspec is None:
         full = full_fft and lever not in ("ZAFTPU_MIRROR=pallas",
                                           "ZAFTPU_FUSED2=1")
@@ -149,8 +149,7 @@ def _group(fullspec, lever: str, wl: int) -> str:
     """The analysis kernel whose sums the spectrum holds."""
     if lever == "ZAFTPU_FUSED=0":
         return "split"
-    if lever == "ZAFTPU_FFT=matmul" or (wl == OFF_RULE_WL
-                                        and fullspec == "1"):
+    if lever == "ZAFTPU_FFT=matmul":
         return "gemm"
     return "fft"
 
@@ -183,9 +182,9 @@ def test_fullspec_lever_dispatch(fullspec, lever, dial, wl, monkeypatch):
     """Each combination moves exactly the counters the rule names, and its
     spectrum equals, bit for bit, that of ZAFTPU_FULLSPEC=0 under the same
     lever and of the lever-free default wherever both run the same
-    analysis kernel on this dial; across kernels (at WL 262 the full
-    store's GEMM B3 against the half store) within the dial's oracle gate
-    (1e-5 of max exact, 1e-4 split4)."""
+    analysis kernel on this dial (at WL 262 too: every store there runs
+    Bluestein); across kernels within the dial's oracle gate (1e-5 of max
+    exact, 1e-4 split4)."""
     monkeypatch.setenv("ZAFTPU_PRECISION", dial)
     x = torch.from_numpy(np.random.default_rng(41).standard_normal(
         (2, 4 * wl)).astype(np.float32))
@@ -207,21 +206,27 @@ def test_fullspec_lever_dispatch(fullspec, lever, dial, wl, monkeypatch):
 
 
 def test_unset_lever_takes_the_full_store_only_at_rule_windows(monkeypatch):
-    """fullspec_enabled: ``1`` and ``0`` force, unset follows the rule;
-    any other value reads as unset."""
+    """fullspec_enabled: ``1`` and ``0`` force, unset follows the rule
+    (rfft.half_applies: every window from 16 to 4,096, not under
+    ZAFTPU_FFT=matmul); any other value reads as unset."""
     for name in ("ZAFTPU_FULLSPEC", "ZAFTPU_MIRROR", "ZAFTPU_FUSED2",
                  "ZAFTPU_FFT"):
         monkeypatch.delenv(name, raising=False)
     assert tfused.fullspec_enabled(2048) and tfused.fullspec_enabled(400)
     assert tfused.fullspec_enabled(1102) and tfused.fullspec_enabled(2822)
-    assert not tfused.fullspec_enabled(262)
+    assert tfused.fullspec_enabled(262) and tfused.fullspec_enabled(441)
     assert not tfused.fullspec_enabled(8192)
+    assert not tfused.fullspec_enabled(15)
     for value, rule, off_rule in (("1", True, True), ("0", False, False),
                                   ("auto", True, False)):
         monkeypatch.setenv("ZAFTPU_FULLSPEC", value)
         assert tfused.fullspec_enabled(2048) is rule
-        assert tfused.fullspec_enabled(1102) is rule
-        assert tfused.fullspec_enabled(262) is off_rule
+        assert tfused.fullspec_enabled(262) is rule
+        assert tfused.fullspec_enabled(15) is off_rule
+    monkeypatch.delenv("ZAFTPU_FULLSPEC")
+    monkeypatch.setenv("ZAFTPU_FFT", "matmul")
+    assert not tfused.fullspec_enabled(2048)
+    assert not tfused.fullspec_enabled(262)
 
 
 def test_stft_matches_golden_under_the_unset_lever(golden, signal,

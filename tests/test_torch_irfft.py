@@ -164,17 +164,19 @@ def _synth_calls():
 
 @pytest.mark.parametrize("wl,lever,ops,want", [
     (2048, None, False, "fft"), (1764, "native", False, "fft"),
-    (1102, None, False, "fft"), (262, None, False, "gemm"),
+    (1102, None, False, "fft"), (262, None, False, "fft"),
     (2048, "matmul", False, "gemm"), (2048, None, True, "gemm"),
-    (400, "auto", False, "fft"), (2822, None, False, "fft")])
+    (400, "auto", False, "fft"), (2822, None, False, "fft"),
+    (262, "matmul", False, "gemm"), (441, None, False, "fft"),
+    (15, None, False, "gemm")])
 @pytest.mark.parametrize("dial", ["highest", "split4"])
 def test_shape_rule_through_plain_calls(wl, lever, ops, want, dial,
                                         monkeypatch):
-    """istft_ola takes the inverse FFT's plain version where the analysis's
-    shape rule holds (WL 1102 = 2 * 19 * 29 and 2822 = 2 * 17 * 83 among
-    its windows), on both dials; at WL 262 (131 is a prime above 127),
-    under ZAFTPU_FFT=matmul and with an explicit operator B4's plain
-    version (B4-s4's under split4), once. All agree with the float64
+    """istft_ola takes the inverse FFT's plain version at every window from
+    16 to 4,096 (WL 1102 = 2 * 19 * 29 and 2822 = 2 * 17 * 83 through the
+    odd-prime passes, 262 = 2 * 131 by Bluestein, 441 odd), on both dials;
+    below 16, under ZAFTPU_FFT=matmul and with an explicit operator B4's
+    plain version (B4-s4's under split4), once. All agree with the float64
     oracle."""
     monkeypatch.setenv("ZAFTPU_PRECISION", dial)
     if lever is None:
@@ -214,10 +216,13 @@ def _bad_launch(case):
     h = torch.zeros(t, wl // 2 + 1)
     calls = {
         "f64": lambda: tirfft._launch(h.double(), h.double(), wl, step, 1.0),
+        # The windowed store keeps the static path's windows; the inverse
+        # takes every other from 16 to 4,096 (an odd one below 16 fails).
         "prime_above_7": lambda: tirfft._launch(
-            torch.zeros(t, 132), torch.zeros(t, 132), 262, 131, 1.0),
-        "odd": lambda: tirfft._launch(torch.zeros(t, 128),
-                                      torch.zeros(t, 128), 255, 128, 1.0),
+            torch.zeros(t, 132), torch.zeros(t, 132), 262, 131, 1.0,
+            (torch.zeros(262), torch.ones(8 * 131 + 262))),
+        "odd": lambda: tirfft._launch(torch.zeros(t, 8), torch.zeros(t, 8),
+                                      15, 7, 1.0),
         "too_long": lambda: tirfft._launch(
             torch.zeros(2, 4097), torch.zeros(2, 4097), 8192, 4096, 1.0),
         "step_0": lambda: tirfft._launch(h, h, wl, 0, 1.0),

@@ -35,6 +35,7 @@ from zaftpu.core.windows import hamming
 from zaftpu.pallas import fused as zfused
 from zaftpu.transforms.griffinlim import griffin_lim as zgriffin_lim
 from zaftpu_torch.kernels import fused as tfused
+from zaftpu_torch.kernels import irfft as tirfft
 from zaftpu_torch.kernels import melfft as tmelfft
 from zaftpu_torch.kernels import rfft as trfft
 from zaftpu_torch.sharding import (initialize_distributed, make_mesh,
@@ -60,6 +61,17 @@ def levers(monkeypatch):
     for name in ("ZAFTPU_FFT", "ZAFTPU_PRECISION", "ZAFTPU_FUSED2",
                  "ZAFTPU_FULLSPEC", "ZAFTPU_MIRROR", "ZAFTPU_FUSED"):
         monkeypatch.delenv(name, raising=False)
+
+
+@pytest.fixture(autouse=True)
+def one_thread():
+    """One intra-op thread: the plain versions' many small operations
+    (Bluestein's passes above all) ran about 100 times slower when the test
+    workers' OpenMP threads oversubscribed the cores."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
 
 
 def _dial(dial, monkeypatch):
@@ -211,14 +223,17 @@ def _zaftpu_stft(x, win, step):
 def test_stft_takes_the_half_store_on_every_dial(golden, wl, step, dial,
                                                  fused2, monkeypatch):
     """stft of the golden signal in float32 at the odd and Bluestein
-    windows calls the half store's plain version once (the planes store's
-    under ZAFTPU_FUSED2=1) and no GEMM or twin plain version, on every dial
-    (the lowered dials with their pass count patched in); within 2e-6 of
-    max of zaftpu.stft in float32 and 1e-6 of max of a float64 DFT."""
+    windows under ZAFTPU_FULLSPEC=0 calls the half store's plain version
+    once (the planes store's under ZAFTPU_FUSED2=1) and no GEMM or twin
+    plain version, on every dial (the lowered dials with their pass count
+    patched in); within 2e-6 of max of zaftpu.stft in float32 and 1e-6 of
+    max of a float64 DFT. (Unset, ZAFTPU_FULLSPEC gives the full store:
+    tests/test_torch_irfft_any.py.)"""
     x32 = golden["signal"].astype(np.float32)
     w32 = hamming(wl).astype(np.float32)
     ref = _zaftpu_stft(x32, w32, step)
     _dial(dial, monkeypatch)
+    monkeypatch.setenv("ZAFTPU_FULLSPEC", "0")
     if fused2:
         monkeypatch.setenv("ZAFTPU_FUSED2", "1")
     calls = _calls()
@@ -235,10 +250,12 @@ def test_stft_takes_the_half_store_on_every_dial(golden, wl, step, dial,
 
 
 @pytest.mark.parametrize("wl,step", STFT_CASES)
-def test_stft_float64_matches_zaftpu(golden, wl, step):
+def test_stft_float64_matches_zaftpu(golden, wl, step, monkeypatch):
     """float64 (the oracle mode): stft of the golden signal through the
-    half store's plain version within 1e-12 of max of zaftpu.stft in
-    float64 and of a numpy DFT, the mirrored bins the conjugates."""
+    half store's plain version (ZAFTPU_FULLSPEC=0) within 1e-12 of max of
+    zaftpu.stft in float64 and of a numpy DFT, the mirrored bins the
+    conjugates."""
+    monkeypatch.setenv("ZAFTPU_FULLSPEC", "0")
     x = golden["signal"].astype(np.float64)
     win = hamming(wl)
     calls = trfft.frames_rfft_fft_plain.calls
@@ -259,9 +276,10 @@ def test_stft_float64_matches_zaftpu(golden, wl, step):
 def test_half_rule_at_every_window(dial, monkeypatch):
     """rfft.half_applies holds at every window from 16 to 4,096 on every
     dial, and not below 16, above 4,096, with an explicit operator or under
-    ZAFTPU_FFT=matmul (native follows it); rfft.applies and
-    fused.fullspec_enabled keep the full store's rule (rfft.fits), so B3,
-    B4 and the MDCT keep their windows."""
+    ZAFTPU_FFT=matmul (native follows it); fused.fullspec_enabled and the
+    inverse's rule (irfft.applies) follow it, rfft.applies keeps the
+    static path's rule (rfft.fits), so the MDCT and Griffin-Lim's pairing
+    keep their windows."""
     _dial(dial, monkeypatch)
     every = range(16, 4097)
     assert all(trfft.half_applies(wl) for wl in every)
@@ -269,8 +287,10 @@ def test_half_rule_at_every_window(dial, monkeypatch):
     assert not trfft.half_applies(2062, ops=torch.zeros(1))
     assert [wl for wl in every if trfft.applies(wl)] == [
         wl for wl in every if trfft.fits(wl)]
-    assert [wl for wl in every if tfused.fullspec_enabled(wl)] == [
-        wl for wl in every if trfft.fits(wl)]
+    assert all(tfused.fullspec_enabled(wl) and tirfft.applies(wl)
+               for wl in every)
+    assert not any(tfused.fullspec_enabled(wl) or tirfft.applies(wl)
+                   for wl in (15, 4097))
     monkeypatch.setenv("ZAFTPU_FFT", "native")
     assert all(trfft.half_applies(wl) for wl in every)
     monkeypatch.setenv("ZAFTPU_FFT", "matmul")
@@ -315,7 +335,7 @@ def test_dispatch_on_every_dial_and_lever(dial, lever, fused2, monkeypatch):
 
 def test_sharded_stft_one_rank_at_an_odd_window(golden, tmp_path):
     """stft_sharded at WL 441 / hop 147 on a one-rank gloo world (this
-    process) equals stft of the same tensor bit for bit, through the half
+    process) equals stft of the same tensor bit for bit, through the full
     store's plain version, and zaftpu.stft within 2e-6 of max."""
     wl, step = 441, 147
     x32 = golden["signal"].astype(np.float32)
@@ -327,9 +347,9 @@ def test_sharded_stft_one_rank_at_an_odd_window(golden, tmp_path):
                            init_method=f"file://{tmp_path}/store", rank=0,
                            world_size=1)
     try:
-        calls = trfft.frames_rfft_fft_plain.calls
+        calls = trfft.frames_rfft_full_fft_plain.calls
         got = stft_sharded(x, win, step, make_mesh(1))
-        assert trfft.frames_rfft_fft_plain.calls > calls
+        assert trfft.frames_rfft_full_fft_plain.calls > calls
     finally:
         dist.destroy_process_group()
     assert torch.equal(got, whole)

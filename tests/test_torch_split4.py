@@ -648,10 +648,11 @@ def test_split4_off_the_rule_runs_the_twins_and_matches_zaftpu(
 @pytest.mark.parametrize("fused2", [False, True])
 def test_split4_off_the_rule_runs_the_half_store_without_the_lever(
         x32, fused2, split4, monkeypatch):
-    """At WL 2062 without ZAFTPU_FFT=matmul the split4 stft runs the half
-    store's plain version (the planes store's under ZAFTPU_FUSED2=1) and
-    no twin, bit-equal to the exact dial's, and agrees with zaftpu's
-    split4 stft (its native FFT off the TPU) at 2e-6 of max."""
+    """At WL 2062 without ZAFTPU_FFT=matmul the split4 stft runs the FFT
+    kernel's full store's plain version (the half store's bins and the
+    mirror; the planes store's under ZAFTPU_FUSED2=1) and no twin,
+    bit-equal to the exact dial's, and agrees with zaftpu's split4 stft
+    (its native FFT off the TPU) at 2e-6 of max."""
     wl, step = 2062, 1031
     win = hamming(wl).astype(np.float32)
     monkeypatch.delenv("ZAFTPU_FFT", raising=False)
@@ -659,7 +660,7 @@ def test_split4_off_the_rule_runs_the_half_store_without_the_lever(
     if fused2:
         monkeypatch.setenv("ZAFTPU_FUSED2", "1")
     store = (trfft.frames_matmul2_fft_plain if fused2
-             else trfft.frames_rfft_fft_plain)
+             else trfft.frames_rfft_full_fft_plain)
     twins = (tfused.frames_rfft_split4_plain,
              tfused.frames_matmul2_split4_plain)
     calls = (store.calls, *(t.calls for t in twins))

@@ -19,13 +19,11 @@
 // its epilogue) and its _kernel_full_split4 (B3-s4) on both dials at those
 // window lengths. The magnitude store replaces zaftpu/pallas/melfused.py:
 // _spec_rows_impl (:200, B8) and the mel store its _mel_rows_impl (:263,
-// B9) and that kernel's _kernel_split4 (:142, B9-s4) there too. The half,
-// planes, magnitude and mel stores also take every other window from 16 to
-// 4096 (rfft_any, below), on both dials: there the GEMM kernels of fused.cu
-// and melfused.cu and their twins keep only an explicit operator,
-// ZAFTPU_FFT=matmul and a window below 16, and the full store's B3 and
-// B3-s4 every window off the rule (kernels/fused.py and
-// kernels/melfused.route state the rules).
+// B9) and that kernel's _kernel_split4 (:142, B9-s4) there too. All five
+// stores also take every other window from 16 to 4096 (rfft_any, below), on
+// every dial: the GEMM kernels of fused.cu and melfused.cu and their twins
+// keep only an explicit operator, ZAFTPU_FFT=matmul and a window below 16
+// (kernels/fused.py and kernels/melfused.route state the rules).
 // The TPU kernels contract each frame with a dense (N, F) cos/sin
 // operator on the matrix unit: 4 N F FLOP per frame. Here the same sums
 // come from an FFT, about 2.5 N log2 N FLOP at a smooth N and more at a
@@ -74,7 +72,7 @@
 //     2048 and 40 mels) and rows of 4 to 163 terms unbalanced at
 //     MelConfig(); a later change may split the rows.
 //
-// Off that rule the half, planes, magnitude and mel stores run rfft_any:
+// Off that rule the five stores run rfft_any:
 // an odd N transforms each frame alone as a complex N-point FFT with zero
 // imaginary parts (the passes take N: the odd radices and primes up to
 // 127). That is twice a real FFT's work, but a frame's bins round with no
@@ -231,9 +229,9 @@ rfft_kernel(const float* __restrict__ sig, const float* __restrict__ win,
   }
 }
 
-// The half, planes, magnitude and mel stores at a window the static path
-// refuses, on `rows` rows of L values in dynamic shared memory (two
-// buffers of rows * L values), row r frame t0 + r: ODD holds z[m] = x[m]
+// The five stores at a window the static path refuses, on `rows` rows of L
+// values in dynamic shared memory (two buffers of rows * L values), row r
+// frame t0 + r: ODD holds z[m] = x[m]
 // w[m] (m < N, zero imaginary parts) and runs the N-point complex FFT,
 // whose bins 0..(N-1)/2 are the frame's (no Nyquist bin), each frame
 // alone (no two frames share an FFT, so a frame's bins round with no
@@ -244,7 +242,8 @@ rfft_kernel(const float* __restrict__ sig, const float* __restrict__ win,
 // conjugated, the forward passes, conjugated, times conj c[k]. tab holds
 // W_N (N values), then under BLUE W_P (P), conj c (M) and B (P)
 // (kernels/rfft.store_tables). Then the stores of rfft_kernel: bins 0..F
-// (half, planes) or 1..F (magnitude, mel), F = N/2 rounded down.
+// (half, planes, full with its mirror) or 1..F (magnitude, mel), F = N/2
+// rounded down.
 template <bool ODD, bool BLUE, Store S>
 __global__ void __launch_bounds__(zt::kThreads)
 rfft_any(const float* __restrict__ sig, const float* __restrict__ win,
@@ -284,25 +283,16 @@ rfft_any(const float* __restrict__ sig, const float* __restrict__ win,
   int cur = 0;
   zt::fft_rows(buf, cur, twp, L, rows, L, plan);
   if constexpr (BLUE) {
-    for (int e = threadIdx.x; e < rows * L; e += blockDim.x) {
-      const float2 y = zt::cmul(buf[cur][e], __ldg(big + e % L));
-      buf[cur][e] = make_float2(y.x, -y.y);
-    }
-    __syncthreads();
-    zt::fft_rows(buf, cur, twp, L, rows, L, plan);
-    for (int e = threadIdx.x; e < rows * M; e += blockDim.x) {
-      const int r = e / M;
-      const int k = e - r * M;
-      float2* z = buf[cur] + r * L + k;
-      *z = zt::cmul(make_float2(z->x, -z->y), __ldg(chirp + k));
-    }
-    __syncthreads();
+    zt::bluestein_tail(buf, cur, twp, chirp, big, L, M, rows, plan);
   }
 
-  if constexpr (S == Store::kHalf || S == Store::kPlanes) {
+  if constexpr (S == Store::kHalf || S == Store::kPlanes ||
+                S == Store::kFull) {
     // Bins 0..F (H = F + 1 a frame, DC included; an odd N has no Nyquist
     // bin), rfft_kernel's layouts, consecutive threads on consecutive bins
-    // of a frame.
+    // of a frame; the full store also writes bin N - k as the conjugate of
+    // bin k for k = 1..(N-1)/2 (the mirror, not the FFT's own upper bins,
+    // which an odd N's FFT holds but which round otherwise).
     const int H = F + 1;
     for (int e = threadIdx.x; e < rows * H; e += blockDim.x) {
       const int f = e / H;
@@ -315,8 +305,12 @@ rfft_any(const float* __restrict__ sig, const float* __restrict__ win,
       if constexpr (S == Store::kPlanes) {
         out[row * H + k] = x.x;
         out[((long long)gridDim.y * T + row) * H + k] = x.y;
-      } else {
+      } else if constexpr (S == Store::kHalf) {
         reinterpret_cast<float2*>(out)[row * H + k] = x;
+      } else {
+        float2* o = reinterpret_cast<float2*>(out) + row * n;
+        o[k] = x;
+        if (k != 0 && 2 * k != n) o[n - k] = make_float2(x.x, -x.y);
       }
     }
   } else {
@@ -356,40 +350,10 @@ rfft_any(const float* __restrict__ sig, const float* __restrict__ win,
   }
 }
 
-// How rfft_any transforms a window the static path refuses: the values a
-// row holds (M, or P under Bluestein), the rows of a block and the plan. P
-// is the caller's Bluestein length (kernels/rfft.bluestein_length), 0 when
-// the passes take M; false when the window or P does not fit. A block
-// holds as many rows as fit in the smallest of 2,048, 4,096 and 8,192
-// values that holds one, and allocates only those rows.
-struct AnyPlan {
-  bool odd, blue;
-  int L, rows, cap;
-  zt::Plan plan;
-};
-
-inline bool any_plan(int n, int P, AnyPlan* a) {
-  if (n < 16 || n > 2 * zt::kElems) return false;
-  a->odd = n % 2 == 1;
-  const int M = a->odd ? n : n / 2;
-  a->blue = !zt::make_plan(M, &a->plan);
-  if (a->blue ? (P < 2 * M - 1 || P > zt::kMaxElems ||
-                 !zt::make_plan(P, &a->plan))
-              : P != 0) {
-    return false;
-  }
-  a->L = a->blue ? P : M;
-  a->cap = a->L <= zt::kElems ? zt::kElems
-                              : a->L <= 2 * zt::kElems ? 2 * zt::kElems
-                                                       : zt::kMaxElems;
-  a->rows = a->cap / a->L;
-  return true;
-}
-
 template <bool ODD, bool BLUE, Store S>
 int launch_any(const float* s, const float* w, const float2* t, float* y,
                int batch, long long sig_len, int T, int n, int step,
-               const AnyPlan& a, int P, cudaStream_t st, Mel mel) {
+               const zt::AnyPlan& a, int P, cudaStream_t st, Mel mel) {
   auto kernel = rfft_any<ODD, BLUE, S>;
   const int bytes = 2 * a.rows * a.L * (int)sizeof(float2);
   if (bytes > 48 * 1024) {
@@ -450,8 +414,8 @@ int launch_store(const void* sig, const void* win, const void* tw, void* out,
     return launch<S>(sig, win, tw, out, batch, sig_len, T, WL, step, stream,
                      mel);
   }
-  AnyPlan a;
-  if (!any_plan(WL, P, &a) || !args_ok<S>(WL, step, batch, tw, mel)) {
+  zt::AnyPlan a;
+  if (!zt::any_plan(WL, P, &a) || !args_ok<S>(WL, step, batch, tw, mel)) {
     return (int)cudaErrorInvalidValue;
   }
   if (T <= 0 || batch <= 0) return (int)cudaSuccess;
@@ -499,16 +463,14 @@ ZT_EXPORT int zt_rfft_planes(const void* sig, const void* win, const void* tw,
                                       WL, step, P, stream);
 }
 
-// As zt_rfft_half at a WL even in [16, 4096] with no prime factor above 127
-// in WL/2 (any other WL returns cudaErrorInvalidValue before a launch), tw
-// the (WL, 2) twiddle table; out the full spectrum (batch, T, WL) complex64
-// as float pairs: bins 0..WL/2 as zt_rfft_half writes them, then bin WL - k
-// the conjugate of bin k for k = 1..WL/2 - 1.
+// As zt_rfft_half, out the full spectrum (batch, T, WL) complex64 as float
+// pairs: bins 0..WL/2 (rounded down) as zt_rfft_half writes them, and bin
+// WL - k the conjugate of bin k for k = 1..(WL-1)/2.
 ZT_EXPORT int zt_rfft_full(const void* sig, const void* win, const void* tw,
                            void* out, int batch, long long sig_len, int T,
-                           int WL, int step, void* stream) {
-  return launch<Store::kFull>(sig, win, tw, out, batch, sig_len, T, WL, step,
-                              stream);
+                           int WL, int step, int P, void* stream) {
+  return launch_store<Store::kFull>(sig, win, tw, out, batch, sig_len, T, WL,
+                                    step, P, stream);
 }
 
 // As zt_rfft_half, out the magnitudes (batch, T, WL/2) float32 of bins

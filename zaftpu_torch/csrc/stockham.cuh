@@ -3,7 +3,7 @@
 // FFT + overlap-add (irfft.cu).
 //
 // A 256-thread block transforms up to kElems complex values at once (the
-// magnitude and mel stores off rfft.cu's rule up to kMaxElems, in dynamic
+// stores and the inverse off the static path up to kMaxElems, in dynamic
 // shared memory): the FFTs of fpb consecutive M-point rows between two
 // shared-memory buffers (16 KB each at kElems), one barrier per pass, with
 // the twiddle table of W_n for any n that M divides (n = 2M for the real
@@ -43,8 +43,8 @@ constexpr int kSpan = 4 * kElems;
 constexpr int kMaxPrime = 127;  // the largest prime factor of M a pass takes
 // Passes of a prime above 7: 11^3 = 1331 <= kElems and 11^4 > kMaxElems.
 constexpr int kMaxPrimes = 3;
-// The largest row a dynamic-shared-memory block transforms (rfft.cu's
-// magnitude and mel stores off the rule).
+// The largest row a dynamic-shared-memory block transforms (rfft_any and
+// irfft_any, off the static path).
 constexpr int kMaxElems = 8192;
 
 __device__ __forceinline__ float2 cadd(float2 a, float2 b) {
@@ -292,6 +292,31 @@ __device__ __forceinline__ void fft_rows(Buf buf, int& cur,
   }
 }
 
+// Bluestein's chirp z-transform after its first forward passes, over the
+// `rows` rows of L = P values in buf[cur] (each row the FFT of its chirped,
+// zero-padded input): times the table B, conjugated, the forward passes
+// again, then the first M values of each row conjugated and times conj c
+// (kernels/rfft.py: bluestein_plain); a barrier after each step.
+template <class Buf>
+__device__ __forceinline__ void bluestein_tail(
+    Buf buf, int& cur, const float2* __restrict__ tw,
+    const float2* __restrict__ chirp, const float2* __restrict__ big, int L,
+    int M, int rows, const Plan& plan) {
+  for (int e = threadIdx.x; e < rows * L; e += blockDim.x) {
+    const float2 y = cmul(buf[cur][e], __ldg(big + e % L));
+    buf[cur][e] = make_float2(y.x, -y.y);
+  }
+  __syncthreads();
+  fft_rows(buf, cur, tw, L, rows, L, plan);
+  for (int e = threadIdx.x; e < rows * M; e += blockDim.x) {
+    const int r = e / M;
+    const int k = e - r * M;
+    float2* z = buf[cur] + r * L + k;
+    *z = cmul(make_float2(z->x, -z->y), __ldg(chirp + k));
+  }
+  __syncthreads();
+}
+
 // The plan of an M-point FFT (kernels/rfft.py: radices), or false when M
 // has a prime factor above kMaxPrime (or more than kMaxPrimes primes above
 // 7, which no M <= kMaxElems has).
@@ -322,6 +347,37 @@ inline bool make_plan(int m, Plan* plan) {
 // kMaxPrime, with its plan (kernels/rfft.py: fits).
 inline bool fft_fits(int n, Plan* plan) {
   return n >= 16 && n <= 2 * kElems && n % 2 == 0 && make_plan(n / 2, plan);
+}
+
+// How rfft.cu's rfft_any and irfft.cu's irfft_any transform a window that
+// fft_fits refuses: an odd N as one complex N-point FFT a frame, an even N
+// by its even/odd packing (M = N/2 points); the values a row holds (M, or P
+// under Bluestein), the rows of a block and the plan. P is the caller's
+// Bluestein length (kernels/rfft.bluestein_length), 0 when the passes take
+// M; false when the window or P does not fit. A block holds as many rows
+// as fit in the smallest of 2,048, 4,096 and 8,192 values that holds one,
+// and allocates only those rows.
+struct AnyPlan {
+  bool odd, blue;
+  int L, rows, cap;
+  Plan plan;
+};
+
+inline bool any_plan(int n, int P, AnyPlan* a) {
+  if (n < 16 || n > 2 * kElems) return false;
+  a->odd = n % 2 == 1;
+  const int M = a->odd ? n : n / 2;
+  a->blue = !make_plan(M, &a->plan);
+  if (a->blue ? (P < 2 * M - 1 || P > kMaxElems || !make_plan(P, &a->plan))
+              : P != 0) {
+    return false;
+  }
+  a->L = a->blue ? P : M;
+  a->cap = a->L <= kElems       ? kElems
+           : a->L <= 2 * kElems ? 2 * kElems
+                                : kMaxElems;
+  a->rows = a->cap / a->L;
+  return true;
 }
 
 // The inverse kernels' first frame whose N samples reach output position p

@@ -24,9 +24,8 @@ Seven levers choose the kernels, with ``zaftpu``'s names and meaning:
   shape rule below holds, the GEMM B3 or its twin elsewhere), at every
   window; ``0`` the half-spectrum kernel and a separate mirror; unset, the
   full store at the shape rule's windows unless ``ZAFTPU_MIRROR=pallas`` or
-  ``ZAFTPU_FUSED2=1`` is set, and the half spectrum (the real-FFT kernel's
-  half store) and mirror elsewhere (``fused.fullspec_enabled``); only with
-  the fused analysis on;
+  ``ZAFTPU_FUSED2=1`` is set, and the half spectrum and mirror elsewhere
+  (``fused.fullspec_enabled``); only with the fused analysis on;
 * ``ZAFTPU_FUSED2=1``: the half spectrum through the two-output analysis
   kernel (``fused.frames_matmul2``, both components as float32 planes)
   instead of the complex-store one; off by default, equal values;
@@ -42,25 +41,23 @@ The first two default to the fused kernels, ``ZAFTPU_MELFUSE``,
 ``ZAFTPU_FULLSPEC`` and ``ZAFTPU_FFT`` to the shape rule, the other two to
 off.
 
-On both dials the full-spectrum analysis (``fused.frames_rfft_full``)
-and the fused ISTFT synthesis (``synth.istft_ola``) follow a shape rule
-(``rfft.applies``): an even window length from 16 to 4096 whose half has no
-prime factor above 127 takes the real-FFT kernel's full store
-(:mod:`zaftpu_torch.kernels.rfft`) and the
-inverse real-FFT + overlap-add kernel (:mod:`zaftpu_torch.kernels.irfft`),
-any other length the GEMM kernels B3 and B4 or, under split4, their twins.
-The half-spectrum analysis (``fused.frames_rfft``, and
-``fused.frames_matmul2`` as two planes) takes the FFT kernel's half and
-planes stores at every window from 16 to 4096 (``rfft.half_applies``), and
-the magnitude and mel front ends its magnitude and mel stores
-(:mod:`zaftpu_torch.kernels.melfft`, ``melfft.applies``), on every dial:
-an odd window a complex FFT a frame, a prime factor above 127 by
-Bluestein. The front ends do so unless ``ZAFTPU_MELFUSE=0`` asks for the
-half spectrum; ``ZAFTPU_FFT=matmul`` (or a window below 16) gives all four
-stores' functions to the GEMMs B1, B12, B8 and B9 or their twins
-(``melfused.route``). The
-MDCT and IMDCT follow the same rule at a
-quarter of the window (``mdct.applies``: a multiple of 4 up to 4096 whose
+On every dial the spectral analyses follow one shape rule
+(``rfft.half_applies``: every window length from 16 to 4096, no explicit
+operator, ``ZAFTPU_FFT`` not ``matmul``): the full-spectrum analysis
+(``fused.frames_rfft_full``) takes the real-FFT kernel's full store, the
+half-spectrum analysis (``fused.frames_rfft``, and ``fused.frames_matmul2``
+as two planes) its half and planes stores (:mod:`zaftpu_torch.kernels.rfft`),
+and the fused ISTFT synthesis (``synth.istft_ola``) the inverse real-FFT +
+overlap-add kernel (:mod:`zaftpu_torch.kernels.irfft`, ``irfft.applies``);
+the magnitude and mel front ends take its magnitude and mel stores
+(:mod:`zaftpu_torch.kernels.melfft`, ``melfft.applies``): an odd window a
+complex FFT a frame, a prime factor above 127 by Bluestein. The front ends
+do so unless ``ZAFTPU_MELFUSE=0`` asks for the half spectrum;
+``ZAFTPU_FFT=matmul`` (or a window below 16) gives all six functions to
+the GEMMs B1, B12, B3, B4, B8 and B9 or their twins
+(``melfused.route``). The MDCT and IMDCT follow the static path's rule
+(``rfft.applies``) at a quarter of the window (``mdct.applies``: a
+multiple of 4 up to 4096 whose
 quarter has no prime factor above 127): the fast MDCT kernel and the fast
 IMDCT + overlap-add kernel (:mod:`zaftpu_torch.kernels.mdct`) there, the
 GEMMs ``fused.frames_op`` and ``synth.imdct_ola`` (their twins under
@@ -76,8 +73,8 @@ float32 sums) and the split dispatch's wide GEMMs as
 twins at three and one pass (``policy.gemm_passes``) and every operator
 GEMM of the split dispatch at that count, and on the CPU they run exact;
 the FFT kernels, exact and faster than the twins, serve every dial
-wherever their shape rules hold: off the full store's rule a lowered dial
-runs an exact analysis (the half store) and the synthesis twin.
+wherever their shape rules hold, so from WL 16 to 4096 the STFT and ISTFT
+of a lowered dial are the exact dial's.
 Off the stores' rule (below 16, or under ``ZAFTPU_FFT=matmul``), under
 split4 the magnitude and mel front ends take the half spectrum of the
 analysis kernel unless ``ZAFTPU_MELFUSE=1`` forces their kernels (the
@@ -189,8 +186,9 @@ def synthesis_ola(spectra, step: int, gain: float = 1.0):
     ``overlap_add(real(ifft(spectraᵀ)), step) / gain``, with the division
     folded into the inverse transform. The Hermitian fold runs as PyTorch
     index ops, or with ``ZAFTPU_MIRROR=pallas`` as the fold kernel; then
-    the fused synthesis (the inverse real-FFT kernel where the shape rule
-    holds, else the inverse GEMM kernel or its twin), or with
+    the fused synthesis (the inverse real-FFT kernel where its shape rule
+    holds, every window from 16 to 4096, else the inverse GEMM kernel or
+    its twin), or with
     ``ZAFTPU_SYNTH=0`` the inverse GEMM followed by the OLA kernel. Above
     :data:`MAX_WINDOW`, ``zaftpu``'s off-engine composition:
     :func:`zaftpu_torch.core.fft.real_ifft`, the OLA kernel, ``/ gain``."""

@@ -70,11 +70,11 @@ SIGNATURES = {
                               _I, _P),
     "zt_rfft_half": (_P, _P, _P, _P, _I, _LL, _I, _I, _I, _I, _P),
     "zt_rfft_planes": (_P, _P, _P, _P, _I, _LL, _I, _I, _I, _I, _P),
-    "zt_rfft_full": (_P, _P, _P, _P, _I, _LL, _I, _I, _I, _P),
+    "zt_rfft_full": (_P, _P, _P, _P, _I, _LL, _I, _I, _I, _I, _P),
     "zt_rfft_spec": (_P, _P, _P, _P, _I, _LL, _I, _I, _I, _I, _P),
     "zt_rfft_mel": (_P, _P, _P, _P, _P, _P, _P, _I, _LL, _I, _I, _I, _I, _I,
                     _I, _P),
-    "zt_irfft_ola": (_P, _P, _P, _P, _F, _I, _I, _I, _I, _P),
+    "zt_irfft_ola": (_P, _P, _P, _P, _F, _I, _I, _I, _I, _I, _P),
     "zt_irfft_ola_window": (_P, _P, _P, _P, _P, _P, _F, _I, _I, _I, _I, _P),
     "zt_mdct_fft": (_P, _P, _P, _P, _P, _I, _LL, _I, _I, _P),
     "zt_imdct_ola_fft": (_P, _P, _P, _P, _P, _I, _I, _I, _P),

@@ -14,15 +14,12 @@ On both dials ``frames_rfft``, ``frames_matmul2`` and ``frames_rfft_full``
 follow shape rules that send them to the real-FFT kernel of
 :mod:`zaftpu_torch.kernels.rfft` (``csrc/rfft.cu``), which computes the
 same spectrum with an FFT, with no explicit ``ops`` and ``ZAFTPU_FFT`` not
-``matmul``: ``frames_rfft`` and ``frames_matmul2`` take its half and planes
-stores at every window length from 16 to 4096
-(:func:`zaftpu_torch.kernels.rfft.half_applies`; an odd window a complex
-FFT a frame, a prime factor above 127 in the FFT's length by Bluestein),
-``frames_rfft_full`` its full store at an even window length whose half has
-no prime factor above 127 (:func:`zaftpu_torch.kernels.rfft.applies`). An
-explicit operator, ``ZAFTPU_FFT=matmul``, a window below 16 and, for
-``frames_rfft_full``, every window the full store's rule refuses keep the
-GEMM kernels below. The rules are a dispatch, not a fallback: a CUDA tensor
+``matmul``: ``frames_rfft``, ``frames_matmul2`` and ``frames_rfft_full``
+take its half, planes and full stores at every window length from 16 to
+4096 (:func:`zaftpu_torch.kernels.rfft.half_applies`; an odd window a
+complex FFT a frame, a prime factor above 127 in the FFT's length by
+Bluestein). An explicit operator, ``ZAFTPU_FFT=matmul`` and a window below
+16 keep the GEMM kernels below. The rules are a dispatch, not a fallback: a CUDA tensor
 launches the kernel they pick or raises.
 
 Under ``ZAFTPU_PRECISION=split4`` (float32 only; ``high`` and ``default``
@@ -307,15 +304,16 @@ def fullspec_enabled(window_length: int) -> bool:
     latter at every window (``zaftpu``'s lever; its default ``0`` stands
     only because Mosaic cannot lower the kernel's lane reversal,
     zaftpu/pallas/fused.py:539-552). Unset, yes where
-    :func:`zaftpu_torch.kernels.rfft.applies` (the FFT kernel's full store)
-    unless ``ZAFTPU_MIRROR=pallas`` or ``ZAFTPU_FUSED2=1`` names a
-    half-spectrum path, no elsewhere (the half store and the index mirror,
+    :func:`zaftpu_torch.kernels.rfft.half_applies` (the FFT kernel's full
+    store, every window from 16 to 4096) unless ``ZAFTPU_MIRROR=pallas`` or
+    ``ZAFTPU_FUSED2=1`` names a half-spectrum path, no elsewhere (below 16
+    or under ``ZAFTPU_FFT=matmul``: the half spectrum and the index mirror,
     where :func:`frames_rfft_full` would take the GEMM B3). Both give the
     same values wherever they run the same analysis kernel."""
     lever = os.environ.get("ZAFTPU_FULLSPEC", "auto")
     if lever in ("0", "1"):
         return lever == "1"
-    return (_rfft.applies(window_length) and not _mirror.enabled()
+    return (_rfft.half_applies(window_length) and not _mirror.enabled()
             and not fused2_enabled())
 
 
@@ -362,17 +360,17 @@ def frames_rfft_full(padded: torch.Tensor, window: torch.Tensor,
     """Fused windowed-frames full spectrum: ``(..., T, WL)`` complex, the
     reference's zaf.py:139 convention, with the mirrored bins written by
     the kernel's store: bit-equal to :func:`frames_rfft` followed by the
-    conjugate mirror on either dial. The shape rule
-    (:func:`zaftpu_torch.kernels.rfft.applies`) takes the FFT kernel's
+    conjugate mirror on every dial. The shape rule
+    (:func:`zaftpu_torch.kernels.rfft.half_applies`) takes the FFT kernel's
     full store, :func:`zaftpu_torch.kernels.rfft.frames_rfft_full_fft`, on
-    either dial; elsewhere (another window length, an explicit ``ops``,
+    every dial; elsewhere (a window below 16, an explicit ``ops``,
     ``ZAFTPU_FFT=matmul``) the GEMM B3, or on a lowered dial (float32)
     :func:`frames_rfft_full_split4`. ``ops`` as for :func:`frames_rfft`.
 
     A CPU tensor takes the plain version; a CUDA tensor launches the kernel
     (leading axes flattened into its batch) or raises.
     """
-    if _rfft.applies(window_length, ops):
+    if _rfft.half_applies(window_length, ops):
         return _rfft.frames_rfft_full_fft(padded, window, window_length,
                                           step, number_times)
     p = gemm_passes(padded.dtype, padded.device)

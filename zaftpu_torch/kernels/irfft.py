@@ -9,14 +9,19 @@ irfft_N(H[t])`` overlap-added at the hop. The TPU kernels contract each
 frame with a dense inverse operator; this one runs an FFT, so it is bound
 by its bytes, not by FP32 or bf16 arithmetic.
 
-:mod:`zaftpu_torch.kernels.synth` sends both dials here by the analysis's
-shape rule (:func:`zaftpu_torch.kernels.rfft.applies`). The plain version
-repeats the kernel's arithmetic operation by operation, with the forward
-kernel's pieces (:mod:`zaftpu_torch.kernels.rfft`: the twiddle table, the
-pass plan and the Stockham passes): the inverse split step, conj -> the
-forward passes -> conj, the interleave, the factor ``s = scale / N``
-rounded once, and the overlap-add summed c ascending. So the CPU tests
-exercise the kernel's indexing and the kernel equals it on the card.
+:mod:`zaftpu_torch.kernels.synth` sends every dial here by :func:`applies`:
+every window from 16 to 4096, no explicit operator, ``ZAFTPU_FFT`` not
+``matmul`` (the analysis's half, planes and full stores' rule,
+:func:`zaftpu_torch.kernels.rfft.half_applies`). The plain version repeats
+the kernel's arithmetic operation by operation, with the forward kernel's
+pieces (:mod:`zaftpu_torch.kernels.rfft`: the tables, the pass plan, the
+Stockham passes and Bluestein's chirp z-transform): at an even window the
+inverse split step, conj -> the forward N/2-point FFT -> conj and the
+interleave; at an odd one the conjugated Hermitian extension, the forward
+N-point FFT and its real parts, each frame alone; then the factor ``s =
+scale / N`` rounded once, and the overlap-add summed c ascending. So the
+CPU tests exercise the kernel's indexing and the kernel equals it on the
+card.
 
 The same kernel body's windowed store (:func:`istft_ola_fft_window`, the
 C entry ``zt_irfft_ola_window``) is Griffin-Lim's synthesis
@@ -26,7 +31,8 @@ they are: the Hermitian fold of S's conjugate mirror is S, bit for bit,
 but for the imaginary parts of DC and Nyquist, which the kernel does not
 read. Each frame sample is multiplied by the window before its add and
 the finished sum divided by the envelope at the store; its plain version
-repeats that order.
+repeats that order. It takes only a window that
+:func:`zaftpu_torch.kernels.rfft.fits`, the pairing Griffin-Lim asks for.
 """
 
 from __future__ import annotations
@@ -55,14 +61,19 @@ def _factor(n: int, scale: float, dtype: torch.dtype) -> torch.Tensor:
     return torch.tensor(float(scale) / n, dtype=torch.float64).to(dtype)
 
 
-def _inverse_frames(h_re: torch.Tensor, h_im: torch.Tensor, n: int,
-                    scale: float) -> torch.Tensor:
-    """``scale * irfft_N`` of each folded row, ``(..., T, N)``, in the
-    kernel's arithmetic and order, in ``h_re``'s dtype."""
-    m = n // 2
-    tw = _rfft.twiddles(n, h_re.dtype, h_re.device)
-    tw_re, tw_im = tw[:, 0], tw[:, 1]
-    # The imaginary parts of DC and Nyquist are not read.
+def applies(n: int, ops=None) -> bool:
+    """The inverse kernel's shape rule, the half, planes and full stores'
+    (:func:`zaftpu_torch.kernels.rfft.half_applies`): any window from 16 to
+    4096, no explicit operator, ``ZAFTPU_FFT`` not ``matmul``."""
+    return _rfft.half_applies(n, ops)
+
+
+def _conj_z(h_re: torch.Tensor, h_im: torch.Tensor, tw: torch.Tensor,
+            m: int) -> tuple:
+    """Re and im of ``conj Z`` over ``k = 0..m-1`` from the folded planes
+    (N = 2m): ``Z = (H[k] + conj H[m-k]) + i W_N^-k (H[k] - conj H[m-k])``,
+    the imaginary parts of DC and Nyquist read as 0 (``csrc/irfft.cu``:
+    ``conj_z``)."""
     h_im = h_im.clone()
     h_im[..., 0] = 0
     h_im[..., m] = 0
@@ -71,15 +82,35 @@ def _inverse_frames(h_re: torch.Tensor, h_im: torch.Tensor, n: int,
     br, bi = h_re[..., m - k], h_im[..., m - k]
     sr, si = ar + br, ai - bi
     dr, di = ar - br, ai + bi
-    wr, wi = tw_re[:m], tw_im[:m]
-    # Z = S + i W^-k D; the passes run forward on conj Z.
-    re = sr - (wr * di - wi * dr)
-    im = -(si + (wr * dr + wi * di))
-    ns = 1
-    for r in _rfft.radices(m):
-        re, im = _rfft._stage(re, im, tw_re, tw_im, n, ns, r)
-        ns *= r
+    wr, wi = tw[:m, 0], tw[:m, 1]
+    return sr - (wr * di - wi * dr), -(si + (wr * dr + wi * di))
+
+
+def _inverse_frames(h_re: torch.Tensor, h_im: torch.Tensor, n: int,
+                    scale: float) -> torch.Tensor:
+    """``scale * irfft_N`` of each folded row ``(..., T, N//2+1)``, ``(...,
+    T, N)``, in the kernel's arithmetic and order, in ``h_re``'s dtype: at
+    an even ``N`` the forward N/2-point FFT of :func:`_conj_z`, read as
+    ``x[2j] = Re``, ``x[2j+1] = -Im``; at an odd one the forward N-point FFT
+    of the conjugated Hermitian extension (``Re H[0]``, ``conj H[k]`` for
+    ``k = 1..(N-1)/2``, ``H[N-k]`` above), read as ``x[j] = Re``; Bluestein
+    (:func:`zaftpu_torch.kernels.rfft.bluestein_plain`) where that FFT's
+    length has a prime factor above 127."""
+    lay = _rfft.layout(n)
+    tables = _rfft.store_tables(n, h_re.dtype, h_re.device)
+    if lay.odd:
+        re = torch.cat((h_re, h_re[..., 1:].flip(-1)), dim=-1)
+        im = torch.cat((torch.zeros_like(h_im[..., :1]), -h_im[..., 1:],
+                        h_im[..., 1:].flip(-1)), dim=-1)
+    else:
+        re, im = _conj_z(h_re, h_im, tables, lay.m)
+    if lay.p:
+        re, im = _rfft.bluestein_plain(re, im, lay, tables)
+    else:
+        re, im = _rfft.fft_rows_plain(re, im, tables, n)
     s = _factor(n, scale, h_re.dtype)
+    if lay.odd:
+        return re * s
     return torch.stack((re * s, -im * s), dim=-1).flatten(-2)
 
 
@@ -149,8 +180,9 @@ def istft_ola_fft(h_re: torch.Tensor, h_im: torch.Tensor, n: int, step: int,
                   scale: float) -> torch.Tensor:
     """Fused ISTFT synthesis by the inverse real FFT: the ``(..., T*step + N
     - step)`` signal before the trim, from Hermitian-folded planes ``(...,
-    T, N/2+1)``, for an ``n`` that :func:`zaftpu_torch.kernels.rfft.fits`
-    and any hop in ``[1, n]``. ``scale`` is the COLA 1/gain.
+    T, N//2+1)``, for any ``n`` from 16 to 4096 and any hop in ``[1, n]``
+    (``irfft_any`` where :func:`zaftpu_torch.kernels.rfft.fits` refuses
+    ``n``). ``scale`` is the COLA 1/gain.
 
     A CPU tensor takes the plain version; a CUDA tensor launches the kernel
     (leading axes flattened into its batch) or raises.
@@ -166,16 +198,21 @@ istft_ola_fft.launches = 0
 def _launch(h_re: torch.Tensor, h_im: torch.Tensor, n: int, step: int,
             scale: float, windowed: tuple | None = None) -> torch.Tensor:
     """Check a CUDA input and launch the kernel, the windowed store when
-    ``windowed`` gives ``(window, wsq)``; with no frames (or no rows),
-    return the ``N - step`` zeros a row without a launch (the windowed
-    store's plain version divides them by ``wsq``)."""
+    ``windowed`` gives ``(window, wsq)`` (at an ``n`` that
+    :func:`zaftpu_torch.kernels.rfft.fits`), else at any ``n`` from 16 to
+    4096 with its Bluestein length; with no frames (or no rows), return the
+    ``N - step`` zeros a row without a launch (the windowed store's plain
+    version divides them by ``wsq``)."""
     name = "istft_ola_fft_window" if windowed else "istft_ola_fft"
     _build.require_f32(h_re, name)
     _build.require_f32(h_im, name)
-    if not _rfft.fits(n):
+    if windowed and not _rfft.fits(n):
         raise ValueError(f"{name}: N must be even, in [{_rfft.MIN_WINDOW}, "
                          f"{_rfft.MAX_WINDOW}], with no prime factor above "
                          f"{_rfft.MAX_PRIME} in its half, got {n}")
+    if not _rfft.MIN_WINDOW <= n <= _rfft.MAX_WINDOW:
+        raise ValueError(f"{name}: N must be in [{_rfft.MIN_WINDOW}, "
+                         f"{_rfft.MAX_WINDOW}], got {n}")
     f = n // 2 + 1
     *lead, t, width = h_re.shape
     if h_im.shape != h_re.shape or width != f:
@@ -202,7 +239,7 @@ def _launch(h_re: torch.Tensor, h_im: torch.Tensor, n: int, step: int,
         if windowed:
             out = out / wsq
         return out.reshape(*lead, out_len)
-    tw = _rfft.twiddles(n, torch.float32, dev)
+    tw = _rfft.store_tables(n, torch.float32, dev)
     out = torch.empty((batch, out_len), dtype=torch.float32, device=dev)
     s = ctypes.c_float(_factor(n, scale, torch.float32).item())
     lib, stream = _build.library(), _build.stream_of(h_re)
@@ -214,7 +251,8 @@ def _launch(h_re: torch.Tensor, h_im: torch.Tensor, n: int, step: int,
         istft_ola_fft_window.launches += 1
     else:
         err = lib.zt_irfft_ola(hr.data_ptr(), hi.data_ptr(), tw.data_ptr(),
-                               out.data_ptr(), s, batch, t, n, step, stream)
+                               out.data_ptr(), s, batch, t, n, step,
+                               _rfft.layout(n).p, stream)
         _build.check(err, "zt_irfft_ola")
         istft_ola_fft.launches += 1
     return out.reshape(*lead, out_len)

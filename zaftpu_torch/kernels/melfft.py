@@ -289,8 +289,7 @@ def _spec_rows_fft_cuda(padded: torch.Tensor, window: torch.Tensor,
     """Check the CUDA input, launch the magnitude store, count the launch
     (no launch for zero frames or rows)."""
     sig, win, tw, lead = _rfft.device_inputs(
-        "spec_rows_fft", padded, window, window_length, step, number_times,
-        every_window=True)
+        "spec_rows_fft", padded, window, window_length, step, number_times)
     f, t = window_length // 2, number_times
     out = torch.empty((sig.shape[0], t, f), dtype=torch.float32,
                       device=padded.device)
@@ -331,8 +330,7 @@ def _mel_rows_fft_cuda(padded: torch.Tensor, window: torch.Tensor,
     name = "mel_rows_fft"
     _check_table(name, table, window_length)
     sig, win, tw, lead = _rfft.device_inputs(
-        name, padded, window, window_length, step, number_times,
-        every_window=True)
+        name, padded, window, window_length, step, number_times)
     _build.require_f32(table.weights, name)
     dev = padded.device
     rowptr, cols, weights = (x.to(dev) for x in (table.rowptr, table.cols,

@@ -14,19 +14,21 @@ arithmetic. The same body's magnitude and mel stores have their wrappers
 in :mod:`zaftpu_torch.kernels.melfft`, which checks its inputs with
 :func:`device_inputs`.
 
-Two shape rules send both dials here from
-:mod:`zaftpu_torch.kernels.fused`. :func:`applies`, the full store's (and
-the inverse kernel's, :mod:`zaftpu_torch.kernels.irfft`): an even window
-length from :data:`MIN_WINDOW` to :data:`MAX_WINDOW` whose half has no prime
-factor above :data:`MAX_PRIME` (:func:`fits`: 1,263 lengths, the 25-ms
-window at 44.1 kHz, WL 1,102 = 2 * 19 * 29, among them), no explicit
-operator, and ``ZAFTPU_FFT`` not set to ``matmul``. :func:`half_applies`,
-the half and planes stores': every window from :data:`MIN_WINDOW` to
-:data:`MAX_WINDOW`, on the same two conditions. At a window :func:`fits`
-refuses those two stores (and the magnitude and mel stores) run
-``rfft_any``, whose layout (:func:`layout`: a complex FFT a frame at an odd
-window, Bluestein at :func:`bluestein_length` past a prime above 127) and
-tables (:func:`store_tables`) come from here. The plain versions repeat the
+One shape rule sends every dial here from
+:mod:`zaftpu_torch.kernels.fused`: :func:`half_applies`, the half, planes
+and full stores' (and the inverse kernel's,
+:func:`zaftpu_torch.kernels.irfft.applies`): every window length from
+:data:`MIN_WINDOW` to :data:`MAX_WINDOW`, no explicit operator, and
+``ZAFTPU_FFT`` not set to ``matmul``. At an even window whose half has no
+prime factor above :data:`MAX_PRIME` (:func:`fits`: 1,263 lengths, the
+25-ms window at 44.1 kHz, WL 1,102 = 2 * 19 * 29, among them) the static
+path runs; at every other window the stores (and the magnitude and mel
+stores) run ``rfft_any``, whose layout (:func:`layout`: a complex FFT a
+frame at an odd window, Bluestein at :func:`bluestein_length` past a prime
+above 127) and tables (:func:`store_tables`) come from here. :func:`applies`
+(:func:`fits` on the same two conditions) is left to the paths that need
+the static layout: the fast MDCT's quarter, Griffin-Lim's pairing and the
+inverse kernel's windowed store. The plain versions repeat the
 kernel's arithmetic (the same even/odd packing or zero-imaginary complex
 FFT, the same mixed-radix Stockham passes in the same order, the same
 twiddle and chirp tables, the same split step), operation by operation, so
@@ -101,18 +103,19 @@ def _engine_allows(ops) -> bool:
 
 
 def applies(window_length: int, ops=None) -> bool:
-    """The full store's shape rule (and the inverse kernel's): the window
-    length :func:`fits`, no operator is given, and ``ZAFTPU_FFT`` is not
-    ``matmul``."""
+    """The static path's rule (the fast MDCT's quarter, Griffin-Lim's
+    pairing): the window length :func:`fits`, no operator is given, and
+    ``ZAFTPU_FFT`` is not ``matmul``."""
     return _engine_allows(ops) and fits(window_length)
 
 
 def half_applies(window_length: int, ops=None) -> bool:
-    """The half and planes stores' shape rule: any window length from
-    :data:`MIN_WINDOW` to :data:`MAX_WINDOW` (``rfft_any`` where
-    :func:`fits` refuses it), no operator given, and ``ZAFTPU_FFT`` not
-    ``matmul``, as :func:`zaftpu_torch.kernels.melfft.applies` for the
-    magnitude and mel stores."""
+    """The half, planes and full stores' shape rule (and the inverse
+    kernel's): any window length from :data:`MIN_WINDOW` to
+    :data:`MAX_WINDOW` (``rfft_any`` where :func:`fits` refuses it), no
+    operator given, and ``ZAFTPU_FFT`` not ``matmul``, as
+    :func:`zaftpu_torch.kernels.melfft.applies` for the magnitude and mel
+    stores."""
     return (_engine_allows(ops)
             and MIN_WINDOW <= int(window_length) <= MAX_WINDOW)
 
@@ -493,8 +496,8 @@ def frames_rfft_full_fft(padded: torch.Tensor, window: torch.Tensor,
                          number_times: int) -> torch.Tensor:
     """:func:`frames_rfft_fft` as the ``(..., T, WL)`` full spectrum, the
     reference's zaf.py:139 convention: bin ``WL - k`` the conjugate of bin
-    ``k``, written by the kernel's store in the same launch, for a
-    ``window_length`` that :func:`fits`. Bit-equal to
+    ``k`` (``k = 1..(WL-1)//2``), written by the kernel's store in the same
+    launch, at any window :func:`frames_rfft_fft` takes. Bit-equal to
     :func:`frames_rfft_fft` followed by
     :func:`zaftpu_torch.core.fft.conjugate_mirror`.
 
@@ -511,33 +514,24 @@ def frames_rfft_full_fft(padded: torch.Tensor, window: torch.Tensor,
 
 
 def device_inputs(name: str, padded: torch.Tensor, window: torch.Tensor,
-                  window_length: int, step: int, number_times: int,
-                  every_window: bool = False) -> tuple:
-    """Check a CUDA input for the kernel's C entries ``zt_rfft_*``; return
-    the signal as ``(batch, L)``, the float32 window and twiddle table on
-    its device, and the leading axes. ``every_window`` (the half, planes,
-    magnitude and mel stores): any window length from :data:`MIN_WINDOW`
-    to :data:`MAX_WINDOW`, and the table is :func:`store_tables`' (at a
-    window that :func:`fits`, the same values as :func:`twiddles`)."""
+                  window_length: int, step: int, number_times: int) -> tuple:
+    """Check a CUDA input for the kernel's C entries ``zt_rfft_*`` (any
+    window length from :data:`MIN_WINDOW` to :data:`MAX_WINDOW`); return the
+    signal as ``(batch, L)``, the float32 window and :func:`store_tables`
+    (at a window that :func:`fits`, the same values as :func:`twiddles`) on
+    its device, and the leading axes."""
     check_frame_args(name, padded, window, window_length, step,
                      number_times)
-    if every_window:
-        if not MIN_WINDOW <= window_length <= MAX_WINDOW:
-            raise ValueError(f"{name}: window_length must be in "
-                             f"[{MIN_WINDOW}, {MAX_WINDOW}], got "
-                             f"{window_length}")
-    elif not fits(window_length):
-        raise ValueError(f"{name}: window_length must be even, in "
-                         f"[{MIN_WINDOW}, {MAX_WINDOW}], with no prime factor "
-                         f"above {MAX_PRIME} in its half, got "
+    if not MIN_WINDOW <= window_length <= MAX_WINDOW:
+        raise ValueError(f"{name}: window_length must be in "
+                         f"[{MIN_WINDOW}, {MAX_WINDOW}], got "
                          f"{window_length}")
     sig = padded.reshape(-1, padded.shape[-1]).contiguous()
     # Frame groups ride grid x (2^31 - 1 blocks), the batch grid y.
     _build.require_grid(sig.shape[0], 1, name)
     dev = padded.device
     win = window.to(device=dev, dtype=torch.float32).contiguous()
-    table = store_tables if every_window else twiddles
-    return (sig, win, table(window_length, torch.float32, dev),
+    return (sig, win, store_tables(window_length, torch.float32, dev),
             padded.shape[:-1])
 
 
@@ -545,14 +539,13 @@ def _launch(name: str, store: str, padded: torch.Tensor,
             window: torch.Tensor, window_length: int, step: int,
             number_times: int) -> tuple:
     """Check a CUDA input and launch one store, the C entry
-    ``zt_rfft_<store>``: ``half`` (complex) or ``planes`` (two float32
-    planes) at any window from :data:`MIN_WINDOW` to :data:`MAX_WINDOW`
-    (the Bluestein length after the hop), ``full`` (complex, mirrored) at a
-    window that :func:`fits`. Returns the output and whether it launched
-    (not for zero frames or rows)."""
+    ``zt_rfft_<store>``: ``half`` (complex), ``planes`` (two float32
+    planes) or ``full`` (complex, mirrored) at any window from
+    :data:`MIN_WINDOW` to :data:`MAX_WINDOW` (the Bluestein length after
+    the hop). Returns the output and whether it launched (not for zero
+    frames or rows)."""
     wl, t = window_length, number_times
-    sig, win, tw, lead = device_inputs(name, padded, window, wl, step, t,
-                                       every_window=store != "full")
+    sig, win, tw, lead = device_inputs(name, padded, window, wl, step, t)
     entry = f"zt_rfft_{store}"
     f = wl if store == "full" else wl // 2 + 1
     batch, length = sig.shape
@@ -562,12 +555,10 @@ def _launch(name: str, store: str, padded: torch.Tensor,
     else:
         out = torch.empty((batch, t, f), dtype=torch.complex64, device=dev)
     if out.numel():
-        args = (sig.data_ptr(), win.data_ptr(), tw.data_ptr(), out.data_ptr(),
-                batch, length, t, wl, step)
-        if store != "full":
-            args += (layout(wl).p,)
-        err = getattr(_build.library(), entry)(*args,
-                                               _build.stream_of(padded))
+        err = getattr(_build.library(), entry)(
+            sig.data_ptr(), win.data_ptr(), tw.data_ptr(), out.data_ptr(),
+            batch, length, t, wl, step, layout(wl).p,
+            _build.stream_of(padded))
         _build.check(err, entry)
     if store == "planes":
         return ((out[0].reshape(*lead, t, f), out[1].reshape(*lead, t, f)),

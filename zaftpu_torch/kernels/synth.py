@@ -15,14 +15,14 @@ on CUDA) both launch the split4 twin instead, the port of
 the operator presplit on the host, the dial's bf16 passes (4, 3 or 1) on
 the tensor cores with float32 sums, the same overlap-add.
 
-On both dials ``istft_ola`` first follows the analysis's shape rule
-(:func:`zaftpu_torch.kernels.rfft.applies`): at an even window length from
-16 to 4096 whose half has no prime factor above 127, with no explicit
-``ops`` and ``ZAFTPU_FFT`` not ``matmul``, it takes the inverse real-FFT
-kernel of :mod:`zaftpu_torch.kernels.irfft` (``csrc/irfft.cu``), as
-``zaftpu`` runs its FFT off the TPU; every other window length, an
-explicit operator and ``ZAFTPU_FFT=matmul`` keep the GEMM kernel or its
-twin. ``imdct_ola`` follows the MDCT's rule
+On every dial ``istft_ola`` first follows the inverse kernel's shape rule
+(:func:`zaftpu_torch.kernels.irfft.applies`): at every window length from
+16 to 4096, with no explicit ``ops`` and ``ZAFTPU_FFT`` not ``matmul``, it
+takes the inverse real-FFT kernel of :mod:`zaftpu_torch.kernels.irfft`
+(``csrc/irfft.cu``; an odd window a complex FFT a frame, a prime factor
+above 127 by Bluestein), as ``zaftpu`` runs its FFT off the TPU; a window
+below 16, an explicit operator and ``ZAFTPU_FFT=matmul`` keep the GEMM
+kernel or its twin. ``imdct_ola`` follows the MDCT's rule
 (:func:`zaftpu_torch.kernels.mdct.applies`) the same way: the fast IMDCT +
 overlap-add kernel of :mod:`zaftpu_torch.kernels.mdct` (``csrc/mdct.cu``)
 at a window length that is a multiple of 4 up to 4096 whose quarter has no
@@ -44,7 +44,6 @@ from zaftpu_torch.core.policy import (exact_matmul, gemm_passes,
 from zaftpu_torch.kernels import _build
 from zaftpu_torch.kernels import irfft as _irfft
 from zaftpu_torch.kernels import mdct as _mdct
-from zaftpu_torch.kernels import rfft as _rfft
 
 CUDA_SOURCE = "zaftpu_torch/csrc/synth.cu"
 REPLACES = "zaftpu/pallas/synth.py:264"  # _gemm_ola_impl (istft_ola)
@@ -158,14 +157,14 @@ def istft_ola(h_re: torch.Tensor, h_im: torch.Tensor, n: int, step: int,
     the GEMM at any window. The kernel reads the two planes packed into
     zero-padded ``(T, 2, KP)`` rows.
 
-    The shape rule (:func:`zaftpu_torch.kernels.rfft.applies`) takes
+    The shape rule (:func:`zaftpu_torch.kernels.irfft.applies`) takes
     :func:`zaftpu_torch.kernels.irfft.istft_ola_fft` on every dial;
     elsewhere a lowered dial (float32, ``policy.gemm_passes``) takes
     :func:`istft_ola_split4` at its pass count. A CPU tensor takes the
     plain version; a CUDA tensor launches the kernel (leading axes
     flattened into its batch) or raises.
     """
-    if _rfft.applies(n, ops):
+    if _irfft.applies(n, ops):
         return _irfft.istft_ola_fft(h_re, h_im, n, step, scale)
     p = gemm_passes(h_re.dtype, h_re.device)
     if p is not None:

@@ -4,29 +4,27 @@ Semantics match ``zaftpu.transforms.stft`` and the reference
 (zaf.py:45-243): the same centering pad and frame count, the full complex
 ``(window_length, number_times)`` output with DC and mirrored bins, and the
 COLA-normalized inverse. On a CUDA float32 signal the analysis runs the
-fused framing + window + real-FFT kernel at every window from 16 to 4096:
-at an even window whose half has no prime factor above 127 (the shape
-rule, ``kernels/rfft.applies``) its full store writes the full spectrum,
-the conjugate mirror included; at any other window its half store
-(``kernels/rfft.half_applies``: an odd window a complex FFT a frame, a
-prime factor above 127 by Bluestein) computes the half spectrum and
-PyTorch index ops mirror it (the fused framing + window + DFT-GEMM kernel
-only under ``ZAFTPU_FFT=matmul``, or below 16). The synthesis runs the
-inverse real-FFT + overlap-add kernel
-where the rule holds and the fused inverse GEMM + overlap-add kernel at
-any other window up to 4096 (:mod:`zaftpu_torch.kernels`); a longer
+fused framing + window + real-FFT kernel's full store at every window from
+16 to 4096 (the shape rule, ``kernels/rfft.half_applies``: an odd window a
+complex FFT a frame, a prime factor above 127 by Bluestein), which writes
+the full spectrum, the conjugate mirror included, and the synthesis the
+inverse real-FFT + overlap-add kernel at the same windows
+(``kernels/irfft.applies``); the fused framing + window + DFT-GEMM kernel
+and the fused inverse GEMM + overlap-add kernel run only under
+``ZAFTPU_FFT=matmul`` or below 16 (:mod:`zaftpu_torch.kernels`). A longer
 window takes the framing kernel and the FFT layer's ``rfft``
 (``torch.fft``; the four-step engine at a power of two under
-``ZAFTPU_FFT=matmul``), and ``real_ifft`` and the OLA kernel back, as ``zaftpu`` does off its direct engine; under
-``ZAFTPU_PRECISION=split4`` the GEMM kernels run their split4 twins, the
-FFT kernels stay. The spectrogram takes the real-FFT kernel's magnitude
+``ZAFTPU_FFT=matmul``), and ``real_ifft`` and the OLA kernel back, as
+``zaftpu`` does off its direct engine; under ``ZAFTPU_PRECISION=split4``
+the GEMM kernels run their split4 twins, the FFT kernels stay. The spectrogram takes the real-FFT kernel's magnitude
 store at every window from 16 to 4096 (:mod:`zaftpu_torch.kernels.melfft`)
 and the one-pass magnitude GEMM kernel below 16 or under
 ``ZAFTPU_FFT=matmul`` on the exact dial
 (:func:`zaftpu_torch.kernels.melfused.route`; ``ZAFTPU_MELFUSE=0``: the half
 spectrum and ``|·|`` everywhere). ``ZAFTPU_FULLSPEC=0`` takes the
 half spectrum and the index mirror at every window, ``1`` the full
-spectrum at every window (the GEMM B3, or its twin, off the rule), and
+spectrum at every window (the GEMM B3, or its twin, under
+``ZAFTPU_FFT=matmul`` or below 16), and
 ``ZAFTPU_MIRROR=pallas`` the half spectrum with the mirror and the
 Hermitian fold as kernels: each bit-equal to the default wherever both run
 the same analysis kernel.
@@ -176,11 +174,10 @@ def istft(audio_stft, window_function=None, step_length: int | None = None,
         with the reference's trim and normalization (zaf.py:144-243).
         Exact reconstruction needs a COLA window (periodic, step | WL).
 
-    On a CUDA complex64 spectrum the synthesis follows the analysis's
-    shape rule on both dials: the inverse real-FFT + overlap-add kernel at
-    an even window from 16 to 4096 whose half has no prime factor above 127,
-    B4 (its split4 twin under split4) at any other or under
-    ``ZAFTPU_FFT=matmul``.
+    On a CUDA complex64 spectrum the synthesis follows its shape rule on
+    every dial: the inverse real-FFT + overlap-add kernel at every window
+    from 16 to 4096, B4 (its split4 twin on a lowered dial) below 16 or
+    under ``ZAFTPU_FFT=matmul``.
     """
     z, step, gain = _synthesis_inputs(audio_stft, window_function,
                                       step_length, config)
