@@ -1206,7 +1206,7 @@ def _work(name: str, args: tuple,
     if base in ("spec_rows_fft", "mel_rows_fft"):
         # The real FFT's magnitude or mel store (_store_ops a frame) and for
         # the mel store 2 a filterbank nonzero; the signal, the window and
-        # the store's tables read once (and the CSR table: a row pointer, a
+        # the kernel's tables read once (and the CSR table: a row pointer, a
         # column and a weight a nonzero), the magnitudes or mel rows
         # written once.
         padded = args[0]
@@ -1219,18 +1219,18 @@ def _work(name: str, args: tuple,
             adds, cols = 2 * nnz, table.number_mels
             table_bytes = 4 * (cols + 1) + 8 * nnz
         b = _rows(padded)
-        tables = 8 * rfft._store_tables(wl).shape[0]
+        tables = 8 * rfft._kernel_tables(wl).shape[0]
         return (0, b * t * (_store_ops(wl) + adds),
                 4 * (padded.numel() + wl) + tables + table_bytes
                 + 4 * b * t * cols)
     if base in FFT_STORES:
         # The real FFT (_half_ops a frame); the signal, the window and the
-        # store's tables read once, the half (or, for the full store, the
+        # kernel's tables read once, the half (or, for the full store, the
         # full) spectrum written once.
         padded, _, wl, _, t = args
         b = _rows(padded)
         f = wl if base == "frames_rfft_full_fft" else wl // 2 + 1
-        tables = 8 * rfft._store_tables(wl).shape[0]
+        tables = 8 * rfft._kernel_tables(wl).shape[0]
         return (0, b * t * _half_ops(wl),
                 4 * (padded.numel() + wl) + tables + 8 * b * t * f)
     # The analysis kernels: windowed frames times an operator.

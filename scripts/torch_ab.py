@@ -3,7 +3,7 @@
     python3 scripts/torch_ab.py --kernel mel_rows mel_rows_split4 \
         --edit zaftpu_torch/csrc/melfused.cu \
         '(zt::kThreads, 2)\\nmel_rows_kernel' '(zt::kThreads)\\nmel_rows_kernel' \
-        [--ptxas mel_rows_kernel] [--label '25 ms'] [--launches 20]
+        [--ptxas mel_rows_kernel] [--label '25 ms' ...] [--launches 20]
 
     python3 scripts/torch_ab.py --kernel synth_fft --tree build/parent
 
@@ -16,7 +16,7 @@ worker processes in turn: the tree as it is (A), the edited copy or the
 other tree (B), B, A. Each builds its own kernels, prints the
 registers and spills that ``nvcc -Xptxas -v`` reports for the entry
 functions whose names contain the --ptxas text, and times each --kernel
-(a chip_smoke.py KERNELS name) at its chip_smoke.py shapes of the --label
+(a chip_smoke.py KERNELS name) at its chip_smoke.py shapes of each --label
 case (main by default; "40 ms" and "25 ms" the FFT kernels' windows;
 "any" the real-FFT kernel's stores and the inverse at
 chip_smoke.ANY_WINDOWS' windows):
@@ -33,6 +33,7 @@ from __future__ import annotations
 import argparse
 import codecs
 import hashlib
+import itertools
 import json
 import os
 import re
@@ -81,7 +82,7 @@ def registers(log: str, needle: str) -> list[str]:
 
 
 def worker(root: str, side: str, kernels: list, needle: str,
-           label: str, launches: int) -> None:
+           labels: list, launches: int) -> None:
     sys.path.insert(0, root)
     os.environ["ZAFTPU_CACHE"] = "0"
     import torch
@@ -100,10 +101,11 @@ def worker(root: str, side: str, kernels: list, needle: str,
     dev = torch.device("cuda", 0)
     main_t = chip_smoke.stft_padding(chip_smoke.SEGMENT_SECONDS * chip_smoke.SR,
                                      chip_smoke.WL, chip_smoke.STEP)[2]
-    cases = (chip_smoke._any_cases(dev) if label == "any"
-             else chip_smoke._kernel_cases(dev, main_t))
+    cases = [] if labels == ["any"] else chip_smoke._kernel_cases(dev, main_t)
+    if "any" in labels:
+        cases = itertools.chain(cases, chip_smoke._any_cases(dev))
     for name, case, shape, args, _ in cases:
-        if name in kernels and case == label:
+        if name in kernels and case in labels:
             fn = chip_smoke.KERNELS[name][2]
             digest = hashlib.sha256()
             for y in chip_smoke._planes(fn(*args)):
@@ -111,6 +113,7 @@ def worker(root: str, side: str, kernels: list, needle: str,
             ms = chip_smoke.median_ms(
                 lambda: [fn(*args) for _ in range(launches)]) / launches
             print(json.dumps({"side": side, "kernel": name, "shape": shape,
+                              "label": case,
                               "ms": ms, "sha256": digest.hexdigest()}),
                   flush=True)
 
@@ -121,7 +124,7 @@ def main() -> int:
     parser.add_argument("--edit", nargs=3, action="append", default=[],
                         metavar=("FILE", "OLD", "NEW"))
     parser.add_argument("--ptxas", default="")
-    parser.add_argument("--label", default="main")
+    parser.add_argument("--label", nargs="+", default=["main"])
     parser.add_argument("--launches", type=int, default=1)
     parser.add_argument("--tree", help="B: this checkout, not an edited "
                         "copy")
@@ -149,7 +152,7 @@ def main() -> int:
         proc = subprocess.run(
             [sys.executable, __file__, "--worker", str(root), side,
              "--kernel", *args.kernel, "--ptxas", args.ptxas,
-             "--label", args.label, "--launches", str(args.launches)],
+             "--label", *args.label, "--launches", str(args.launches)],
             capture_output=True, text=True)
         if proc.returncode:
             print(proc.stdout + proc.stderr, file=sys.stderr)

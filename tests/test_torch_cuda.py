@@ -87,11 +87,7 @@ def test_kernels_match_plain(dev, wl, step, t, lead):
     assert torch.equal(frames, ref)
     got = ola.overlap_add(frames, step)
     ref = ola.overlap_add_plain(frames, step)
-    assert got.shape == ref.shape
-    if wl % step == 0:
-        assert torch.equal(got, ref)
-    else:  # the plain scatter-add sums in frame order, the kernel c-ascending
-        assert _rel_err(got, ref) < 1e-6
+    assert got.shape == ref.shape and torch.equal(got, ref)
     half = fused.frames_rfft(padded, win, wl, step, t)
     ref = _half_plain(wl)(padded, win, wl, step, t)
     assert half.shape == ref.shape and _rel_err(half, ref) < 2e-5
@@ -1840,6 +1836,72 @@ def _half_stores_bit_equal(dev, wl, step, t, lead=(2,), offset=1):
     assert (rfft.frames_rfft_fft.launches,
             rfft.frames_matmul2_fft.launches) == (before[0] + runs,
                                                   before[1] + runs)
+
+
+# The static path's steps (csrc/stockham.cuh: static_plan) at each power
+# of two from 16 to 4,096 (radix-16 steps: none at 16 (4 then 2), one at
+# 32 and 128 (plus a radix-2 or radix-4 step), two at 512 and 2,048), the
+# paired radix-3 passes (18: M 9; 1,764: 2, 3 3, 7, 7; 1,458: M 729),
+# mixed radices (400), and primes above 7: 11 (22, 88), 29 (1,102: 19 then
+# 29), 31 (62, 248), 37 (296), 127 (254, 2,032), three 11s (2,662) and 83
+# (2,822), each with its input twiddles applied by the step before.
+STATIC_WINDOWS = [16, 32, 64, 128, 256, 512, 1024, 2048, 4096, 18, 1764,
+                  1458, 400, 22, 88, 1102, 62, 248, 296, 254, 2032, 2662,
+                  2822]
+
+
+def _static_stores_bit_equal(dev, wl, step, t, lead, offset):
+    """All five stores of the static path at ``wl`` equal their plain
+    versions bit for bit (torch.equal), the mel store with a sparse
+    filterbank, magnitude and power."""
+    assert rfft.fits(wl)
+    padded, win = _inputs(wl, step, t, dev, lead, offset)
+    args = (padded, win, wl, step, t)
+    assert torch.equal(rfft.frames_rfft_fft(*args),
+                       rfft.frames_rfft_fft_plain(*args)), wl
+    re, im = rfft.frames_matmul2_fft(*args)
+    pre, pim = rfft.frames_matmul2_fft_plain(*args)
+    assert torch.equal(re, pre) and torch.equal(im, pim), wl
+    assert torch.equal(rfft.frames_rfft_full_fft(*args),
+                       rfft.frames_rfft_full_fft_plain(*args)), wl
+    assert torch.equal(melfft.spec_rows_fft(*args),
+                       melfft.spec_rows_fft_plain(*args)), wl
+    fb = np.random.default_rng(wl).random((13, wl // 2))
+    fb[fb < 0.7] = 0.0
+    table = melfft.device_table(melfft.filterbank_table(fb), dev)
+    for power in (False, True):
+        got = melfft.mel_rows_fft(padded, win, table, wl, step, t, power)
+        ref = melfft.mel_rows_fft_plain(padded, win, table, wl, step, t,
+                                        power)
+        assert torch.equal(got, ref), (wl, power)
+
+
+@pytest.mark.parametrize("wl", STATIC_WINDOWS)
+@pytest.mark.parametrize("case", ["ragged", "aligned", "one frame"])
+def test_static_stores_bit_equal(dev, wl, case):
+    """STATIC_WINDOWS through _static_stores_bit_equal: T not a multiple of
+    the frames a block takes, 2 rows, an odd hop and a signal one float
+    off (scalar loads); one row at hop WL/2 (8-byte loads); one frame."""
+    fpb = 2048 // (wl // 2)
+    step, t, lead, offset = {
+        "ragged": ((wl // 3) | 1, 2 * fpb + 1, (2,), 1),
+        "aligned": (wl // 2, fpb + 1, (), 0),
+        "one frame": (wl // 2, 1, (), 0)}[case]
+    _static_stores_bit_equal(dev, wl, step, t, lead, offset)
+
+
+@pytest.mark.parametrize("wl,step,t", [(400, 160, 1001), (1102, 441, 301),
+                                       (16, 7, 257)])
+def test_overlap_add_repeats_and_equals_plain(dev, wl, step, t):
+    """At hops that do not divide the window the OLA kernel and the plain
+    overlap-add (c ascending, no atomics) agree bit for bit, and two runs
+    of each give the same bytes."""
+    frames = torch.from_numpy(np.random.default_rng(wl).standard_normal(
+        (3, t, wl)).astype(np.float32)).to(dev)
+    got = [ola.overlap_add(frames, step) for _ in range(2)]
+    ref = [ola.overlap_add_plain(frames, step) for _ in range(2)]
+    for x in got[1:] + ref:
+        assert torch.equal(x.view(torch.int32), got[0].view(torch.int32))
 
 
 @pytest.mark.skipif(os.environ.get("ZAFTPU_CUDA_SWEEP") != "1",

@@ -44,29 +44,24 @@ def extract_frames(padded: torch.Tensor, window_length: int, step_length: int,
 def overlap_add(frames: torch.Tensor, step_length: int) -> torch.Tensor:
     """Constant overlap-add of ``(..., T, WL)`` frames at hop ``step``.
 
-    Output ``(..., T*step + WL - step)`` (zaf.py:227-233). When ``step | WL``
-    it is the sum of the K zero-padded chunk planes, c ascending and
-    left-associated, as in ``zaftpu.core.frame.overlap_add`` (the order the
-    OLA kernel keeps). Otherwise a scatter-add in frame order.
+    Output ``(..., T*step + WL - step)`` (zaf.py:227-233): the sum of the K
+    = ceil(WL/step) chunk planes, c ascending and left-associated, each
+    frame zero-padded to ``K*step`` samples where ``step`` does not divide
+    ``WL``. That is the OLA kernel's order and, where ``step | WL``,
+    ``zaftpu.core.frame.overlap_add``'s; no atomics, so the sum is the same
+    from run to run on the card.
     """
     *lead, t, wl = frames.shape
     s = step_length
-    out_len = t * s + (wl - s)
-    if wl % s == 0:
-        k = wl // s
-        chunks = frames.reshape(*lead, t, k, s)
-        total = torch.nn.functional.pad(chunks[..., :, 0, :], (0, 0, 0, k - 1))
-        for c in range(1, k):
-            total = total + torch.nn.functional.pad(chunks[..., :, c, :],
-                                                    (0, 0, c, k - 1 - c))
-        return total.reshape(*lead, out_len)
-    starts = torch.arange(t, device=frames.device) * s
-    idx = (starts[:, None]
-           + torch.arange(wl, device=frames.device)[None, :]).reshape(-1)
-    flat = frames.reshape(*lead, t * wl)
-    out = torch.zeros((*lead, out_len), dtype=frames.dtype,
-                      device=frames.device)
-    return out.index_add_(-1, idx, flat)
+    k = -(-wl // s)
+    if k * s != wl:
+        frames = torch.nn.functional.pad(frames, (0, k * s - wl))
+    chunks = frames.reshape(*lead, t, k, s)
+    total = torch.nn.functional.pad(chunks[..., :, 0, :], (0, 0, 0, k - 1))
+    for c in range(1, k):
+        total = total + torch.nn.functional.pad(chunks[..., :, c, :],
+                                                (0, 0, c, k - 1 - c))
+    return total.reshape(*lead, (t + k - 1) * s)[..., :t * s + wl - s]
 
 
 def cola_gain(window: np.ndarray, step_length: int) -> float:

@@ -46,13 +46,23 @@
 // (rounded down) consecutive frames of one batch row: two frames at WL 2048
 // and 1764, three at 1102, one at 3000 and 4096, ten at 400. Frame groups
 // ride grid x and the batch grid y, so an hour-long signal fits one launch.
-//  1. Framing: each thread reads sample pairs (2m, 2m + 1) of a frame (one
-//     8-byte load where the hop and the pointers allow), multiplies them by
-//     the window and stores z[m] = x[2m] + i x[2m+1] in shared memory:
-//     the real FFT of N as a complex FFT of M.
-//  2. The Stockham passes of stockham.cuh, in the plan the host gives
-//     (kernels/rfft.radices), between two shared-memory buffers (16 KB
-//     each): the buffer then holds Z = FFT_M(z) in natural order.
+//  1. Framing: z[m] = x[2m] w[2m] + i x[2m+1] w[2m+1] (one 8-byte load of
+//     signal and window where the hop and the pointers allow): the real FFT
+//     of N as a complex FFT of M. The first step of the passes reads these
+//     values itself; a plan that starts with a prime above 7 stores them in
+//     shared memory first.
+//  2. The passes (stockham.cuh: static_fft, in the plan the host builds
+//     from kernels/rfft.radices): pairs of radix-4 passes (and 4 then 2, 3
+//     then 3) as one register step of 16 (8, 9) values a thread, other
+//     radices up to 7 one pass a step, primes up to 31 in registers (each
+//     work item one butterfly's real or imaginary halves) and above 31 in
+//     tiles of four outputs; between two padded shared-memory buffers of
+//     17 KB: three round trips at WL 2048, where the framing and five
+//     radix-4 passes took six. Every index from a host-computed Divmod,
+//     every twiddle from a
+//     per-pass table (kernels/rfft.kernel_tables) read by neighbouring
+//     threads at neighbouring entries. The buffer then holds Z = FFT_M(z)
+//     in natural order.
 //  3. Split: X[k] = E + W_N^k O with E = (Z[k] + conj Z[(M-k) mod M]) / 2,
 //     O = (Z[k] - conj Z[(M-k) mod M]) / 2i, for k = 0..M (Z[M] read as
 //     Z[0]); a warp writes consecutive bins of one frame, so every store is
@@ -119,14 +129,9 @@ struct Mel {
   int power;
 };
 
-// Bin k of the split step from Z = FFT_M(z) of one frame (k = 0..M, Z[M]
-// read as Z[0]): X[k] = E + W_N^k O.
-__device__ __forceinline__ float2 split_bin(const float2* z,
-                                            const float2* __restrict__ tw,
-                                            int k, int M) {
-  const float2 a = z[k == M ? 0 : k];
-  const float2 b = z[k == 0 ? 0 : M - k];
-  const float2 w = __ldg(tw + k);
+// The split step's bin from a = Z[k] and b = Z[(M-k) mod M] of one frame
+// and w = W_N^k: X[k] = E + W_N^k O.
+__device__ __forceinline__ float2 split_pair(float2 a, float2 b, float2 w) {
   const float er = __fmul_rn(__fadd_rn(a.x, b.x), 0.5f);
   const float ei = __fmul_rn(__fsub_rn(a.y, b.y), 0.5f);
   const float od = __fmul_rn(__fadd_rn(a.y, b.y), 0.5f);
@@ -136,52 +141,51 @@ __device__ __forceinline__ float2 split_bin(const float2* z,
       __fadd_rn(ei, __fadd_rn(__fmul_rn(w.x, oi), __fmul_rn(w.y, od))));
 }
 
-// VEC: 8-byte signal and window loads.
-template <bool VEC, Store S>
-__global__ void __launch_bounds__(zt::kThreads)
+// Bin k of the split step from Z = FFT_M(z) of one frame (k = 0..M, Z[M]
+// read as Z[0]): X[k] = E + W_N^k O.
+__device__ __forceinline__ float2 split_bin(const float2* z,
+                                            const float2* __restrict__ tw,
+                                            int k, int M) {
+  return split_pair(z[k == M ? 0 : k], z[k == 0 ? 0 : M - k], __ldg(tw + k));
+}
+
+// split_bin of the frame at row base (base = f M) of a padded buffer.
+__device__ __forceinline__ float2 split_at(const float2* z, int base,
+                                           const float2* __restrict__ tw,
+                                           int k, int M) {
+  return split_pair(z[zt::pad(base + (k == M ? 0 : k))],
+                    z[zt::pad(base + (k == 0 ? 0 : M - k))], __ldg(tw + k));
+}
+
+// tab: W_N, then the passes' tables (kernels/rfft.kernel_tables); vec:
+// 8-byte signal and window loads; REG: the plan has a prime pass up to
+// zt::kRegPrime (a kernel of its own, so the other plans keep their
+// registers).
+template <Store S, bool REG>
+__global__ void __launch_bounds__(zt::kThreads, 4)
 rfft_kernel(const float* __restrict__ sig, const float* __restrict__ win,
-            const float2* __restrict__ tw, float* __restrict__ out,
-            long long sig_len, int T, int n, int step, zt::Plan plan,
+            const float2* __restrict__ tab, float* __restrict__ out,
+            long long sig_len, int T, int step, int vec, zt::StaticPlan plan,
             Mel mel) {
-  __shared__ __align__(16) float2 buf[2][zt::kElems];
-  const int M = n / 2;
-  const int fpb = zt::kElems / M;  // frames per block
+  __shared__ __align__(16) float2 buf[2][zt::kPadElems];
+  __shared__ zt::StaticPlan sp;
+  __shared__ float2 cs[zt::kMaxPrimes * zt::kRegPrime];
+  const int M = plan.m;
+  const int fpb = plan.fpb;  // frames per block
   const long long t0 = (long long)blockIdx.x * fpb;
-  const float* sb = sig + blockIdx.y * sig_len;
-
-  for (int e = threadIdx.x; e < fpb * M; e += blockDim.x) {
-    const int f = e / M;
-    const int m = e - f * M;
-    const long long t = t0 + f;
-    float2 v = make_float2(0.f, 0.f);
-    if (t < T) {
-      const float* p = sb + t * step + 2 * m;
-      float2 x, w;
-      if constexpr (VEC) {
-        x = *reinterpret_cast<const float2*>(p);
-        w = *reinterpret_cast<const float2*>(win + 2 * m);
-      } else {
-        x = make_float2(p[0], p[1]);
-        w = make_float2(win[2 * m], win[2 * m + 1]);
-      }
-      v = make_float2(__fmul_rn(x.x, w.x), __fmul_rn(x.y, w.y));
-    }
-    buf[0][e] = v;
-  }
-  __syncthreads();
-
-  int cur = 0;
-  zt::fft_rows(buf, cur, tw, M, fpb, n, plan);
+  const zt::Frames fr{sig + blockIdx.y * sig_len, win, t0, T, step, vec};
+  const int cur = zt::static_fft<REG>(buf, sp, cs, plan, tab, fr);
+  const float2* z = buf[cur];
 
   if constexpr (S == Store::kSpec || S == Store::kMel) {
     // Bins 1..M: the magnitudes straight out, or into the free buffer.
     float* vals = reinterpret_cast<float*>(buf[cur ^ 1]);
     for (int e = threadIdx.x; e < fpb * M; e += blockDim.x) {
-      const int f = e / M;
+      const int f = plan.by_m.div(e);
       const int k = e - f * M + 1;
       const long long t = t0 + f;
       if (t >= T) continue;
-      const float2 x = split_bin(buf[cur] + f * M, tw, k, M);
+      const float2 x = split_at(z, f * M, tab, k, M);
       const float p = __fadd_rn(__fmul_rn(x.x, x.x), __fmul_rn(x.y, x.y));
       if constexpr (S == Store::kSpec) {
         out[((long long)blockIdx.y * T + t) * M + k - 1] = __fsqrt_rn(p);
@@ -208,12 +212,13 @@ rfft_kernel(const float* __restrict__ sig, const float* __restrict__ win,
     }
   } else {
     const int F = M + 1;
+    const int n = 2 * M;
     for (int e = threadIdx.x; e < fpb * F; e += blockDim.x) {
-      const int f = e / F;
+      const int f = plan.by_f.div(e);
       const int k = e - f * F;
       const long long t = t0 + f;
       if (t >= T) continue;
-      const float2 x = split_bin(buf[cur] + f * M, tw, k, M);
+      const float2 x = split_at(z, f * M, tab, k, M);
       const long long row = (long long)blockIdx.y * T + t;
       if constexpr (S == Store::kPlanes) {
         out[row * F + k] = x.x;
@@ -379,26 +384,19 @@ template <Store S>
 int launch(const void* sig, const void* win, const void* tw, void* out,
            int batch, long long sig_len, int T, int WL, int step,
            void* stream, Mel mel = Mel{}) {
-  zt::Plan plan;
-  if (!zt::fft_fits(WL, &plan) || !args_ok<S>(WL, step, batch, tw, mel)) {
+  zt::StaticPlan plan;
+  if (!zt::static_plan(WL, &plan) || !args_ok<S>(WL, step, batch, tw, mel)) {
     return (int)cudaErrorInvalidValue;
   }
   if (T <= 0 || batch <= 0) return (int)cudaSuccess;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int fpb = zt::kElems / (WL / 2);
-  const dim3 grid(zt::ceil_div(T, fpb), batch);
-  const float* s = static_cast<const float*>(sig);
-  const float* w = static_cast<const float*>(win);
-  const float2* t = static_cast<const float2*>(tw);
-  float* y = static_cast<float*>(out);
-  if (step % 2 == 0 && sig_len % 2 == 0 && zt::aligned8(sig) &&
-      zt::aligned8(win)) {
-    rfft_kernel<true, S><<<grid, zt::kThreads, 0, st>>>(
-        s, w, t, y, sig_len, T, WL, step, plan, mel);
-  } else {
-    rfft_kernel<false, S><<<grid, zt::kThreads, 0, st>>>(
-        s, w, t, y, sig_len, T, WL, step, plan, mel);
-  }
+  const int vec = step % 2 == 0 && sig_len % 2 == 0 && zt::aligned8(sig) &&
+                  zt::aligned8(win);
+  const dim3 grid(zt::ceil_div(T, plan.fpb), batch);
+  auto kernel = plan.cs ? rfft_kernel<S, true> : rfft_kernel<S, false>;
+  kernel<<<grid, zt::kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(sig), static_cast<const float*>(win),
+      static_cast<const float2*>(tw), static_cast<float*>(out), sig_len, T,
+      step, vec, plan, mel);
   return (int)cudaGetLastError();
 }
 

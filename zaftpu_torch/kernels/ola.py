@@ -1,9 +1,9 @@
 """Overlap-add: CUDA kernel (``csrc/ola.cu``) and its plain version.
 
 Replaces ``zaftpu/pallas/ola.py: overlap_add``. The kernel is memory-bound;
-see the source note in ``csrc/ola.cu``. For ``step | WL`` both versions sum
-the same terms in the same order (c ascending, left-associated), so they
-agree bit for bit.
+see the source note in ``csrc/ola.cu``. At every hop both versions sum the
+same terms in the same order (c ascending, left-associated), so they agree
+bit for bit and repeat from run to run.
 """
 
 from __future__ import annotations

@@ -249,6 +249,47 @@ def store_tables(n: int, dtype: torch.dtype, device) -> torch.Tensor:
                                 torch.device(device), dtype)
 
 
+@lru_cache(maxsize=8)
+def _pass_tables(n: int) -> np.ndarray:
+    """The static path's per-pass twiddle tables at a window that
+    :func:`fits`: for each pass of :func:`radices` of ``N/2``, radix ``r``
+    entered at sub-transform length ``ns``, the ``(r - 1) * ns`` entries
+    ``W_N^(s k N/(ns r))`` at ``(s - 1) ns + k`` (``s = 1..r-1``, ``k <
+    ns``), passes in order: a gather from :func:`_twiddles`, no new
+    rounding (``csrc/stockham.cuh``: ``static_plan`` reads them there)."""
+    tw = _twiddles(n)
+    parts, ns = [], 1
+    for r in radices(n // 2):
+        s = np.arange(1, r)[:, None]
+        k = np.arange(ns)[None, :]
+        parts.append(tw[(s * k * (n // (ns * r))).reshape(-1)])
+        ns *= r
+    return np.concatenate(parts)
+
+
+@lru_cache(maxsize=8)
+def _kernel_tables(n: int) -> np.ndarray:
+    """The table the stores' C entries take at window ``n``: where it
+    :func:`fits`, :func:`_twiddles` then :func:`_pass_tables`; elsewhere
+    :func:`_store_tables` (``rfft_any``)."""
+    if not fits(n):
+        return _store_tables(n)
+    return np.concatenate([_twiddles(n), _pass_tables(n)])
+
+
+def kernel_tables(n: int, device) -> torch.Tensor:
+    return _fft.device_operator(_kernel_tables, (n,), torch.device(device),
+                                torch.float32)
+
+
+def divmod_multiplier(d: int) -> int:
+    """The static path's multiplier for a division by ``d`` (``csrc/
+    stockham.cuh``: ``make_divmod``): ``x // d == (x * mul) >> 32`` for
+    ``0 <= x`` and ``x * d < 2**32``, ``mul = 2**32 // d + 1``; 0 for ``d
+    = 1`` (the quotient is ``x``)."""
+    return 0 if d == 1 else 2 ** 32 // d + 1
+
+
 def _odd_butterfly(vr, vi, c, s):
     """The direct ``r``-point DFT of ``r`` odd inputs, ``r = len(vr)``:
     with ``a_p = v_p + v_{r-p}``, ``b_p = v_p - v_{r-p}`` (``p = 1..h``,
@@ -517,9 +558,8 @@ def device_inputs(name: str, padded: torch.Tensor, window: torch.Tensor,
                   window_length: int, step: int, number_times: int) -> tuple:
     """Check a CUDA input for the kernel's C entries ``zt_rfft_*`` (any
     window length from :data:`MIN_WINDOW` to :data:`MAX_WINDOW`); return the
-    signal as ``(batch, L)``, the float32 window and :func:`store_tables`
-    (at a window that :func:`fits`, the same values as :func:`twiddles`) on
-    its device, and the leading axes."""
+    signal as ``(batch, L)``, the float32 window and :func:`kernel_tables`
+    on its device, and the leading axes."""
     check_frame_args(name, padded, window, window_length, step,
                      number_times)
     if not MIN_WINDOW <= window_length <= MAX_WINDOW:
@@ -531,8 +571,7 @@ def device_inputs(name: str, padded: torch.Tensor, window: torch.Tensor,
     _build.require_grid(sig.shape[0], 1, name)
     dev = padded.device
     win = window.to(device=dev, dtype=torch.float32).contiguous()
-    return (sig, win, store_tables(window_length, torch.float32, dev),
-            padded.shape[:-1])
+    return sig, win, kernel_tables(window_length, dev), padded.shape[:-1]
 
 
 def _launch(name: str, store: str, padded: torch.Tensor,
