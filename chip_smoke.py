@@ -80,7 +80,10 @@ non-zero exit and no result line:
    for the mel store, exact_matmul with the filterbank transpose) and the
    yardstick torch.stft(center=False)[..., 1:, :].abs() (times the
    filterbank transpose for the mel store), B8, B9 and B9-s4 likewise.
-   Framing, OLA, mirror, fold and the FFT's full store must be bit-equal,
+   Framing, OLA, mirror, fold, the FFT's full store and the static
+   inverse's three loads (the folded planes; the full spectrum with the
+   fold in the load, frames-major, bins-major and a column slice of one;
+   Griffin-Lim's complex half spectrum) must be bit-equal,
    the FFT's other stores within 1e-6 * max|ref| (they do their plain
    versions' operations in their order), the GEMM kernels within 2e-5 *
    max|ref|, and the kernels that only store another's sums elsewhere (B3,
@@ -92,15 +95,17 @@ non-zero exit and no result line:
    (torch.stft for B1, B3, B12, their twins and the FFT kernel's stores,
    two-sided for B3, its twin and the full store, fold for
    the OLA, torch.istft of a ones window times WL / hop / gain for B4, its
-   twin and the inverse FFT kernel, held against the kernel away from the
-   first and last WL samples);
+   twin and the inverse FFT kernel, two-sided for the fused fold, held
+   against the kernel away from the first and last WL samples);
    each kernel's bound, the least time the card could take, from its
    inputs;
 4. STFT main path, default dispatch: stft -> istft of a 600-s signal with
    the periodic Hamming window; the spectrum against a float64 torch.fft
    oracle (<= 1e-5 * max|oracle|), the round-trip SNR (>= 120 dB), and
    launch counts showing the FFT analysis (its full store: the mirror in
-   the launch) and the inverse FFT synthesis ran and no plain version did;
+   the launch) and the inverse FFT synthesis (at a static window the fused
+   fold: the full spectrum folded in the inverse kernel's load) ran and
+   no plain version did;
    then the same with the 40-ms window (WL 1,764, hop 882) and the 25-ms
    window (WL 1,102, hop 551; the FFT kernels through the odd-prime
    passes), and with WL 2,062 (hop 1,031), where the full store (rfft_any,
@@ -157,13 +162,14 @@ non-zero exit and no result line:
    max);
 10. levers: stft -> istft of the 600-s signal under ZAFTPU_MIRROR=pallas
    (fused_fft, mirror_full_planes, fold_half_planes, synth_fft),
-   ZAFTPU_FULLSPEC=1 (frames_rfft_full_fft, synth_fft), ZAFTPU_FULLSPEC=0
-   (fused_fft, synth_fft) and ZAFTPU_FUSED2=1 (frames_matmul2_fft,
-   synth_fft), at WL 2,062 ZAFTPU_MIRROR=pallas and ZAFTPU_FULLSPEC=0
+   ZAFTPU_FULLSPEC=1 (frames_rfft_full_fft, synth_fft_full),
+   ZAFTPU_FULLSPEC=0 (fused_fft, synth_fft_full) and ZAFTPU_FUSED2=1
+   (frames_matmul2_fft, synth_fft_full), at WL 2,062 ZAFTPU_MIRROR=pallas
+   and ZAFTPU_FULLSPEC=0
    (the half store by Bluestein, synth_fft), and ZAFTPU_FULLSPEC=1 at WL
    2,062 under ZAFTPU_FFT=matmul (the GEMM B3, synth);
    then under split4 with ZAFTPU_FUSED2=1 (frames_matmul2_fft,
-   synth_fft), ZAFTPU_FULLSPEC=1 and =0 (as on the exact dial), and
+   synth_fft_full), ZAFTPU_FULLSPEC=1 and =0 (as on the exact dial), and
    ZAFTPU_FULLSPEC=1 at WL 2,062 under ZAFTPU_FFT=matmul (B3-s4,
    synth_split4): each spectrum and round trip bit-equal to those of the
    same dial and window without the lever (under ZAFTPU_FFT=matmul the
@@ -189,7 +195,8 @@ non-zero exit and no result line:
 
 Phases 3 and 12-14 cover the DCT / DST, the windows above 4,096 and
 Griffin-Lim. In phase 3 the inverse real-FFT kernel's windowed store
-(Griffin-Lim's synthesis) is bit-equal to its plain version at 600 s of
+(Griffin-Lim's synthesis, from the complex half spectrum) is bit-equal to
+its plain version at 600 s of
 Hamming 2048 / hop 512 (T 51,681; timed beside its plain version, its byte
 bound and torch.istft with the window, which computes the same ifft times
 the window, overlap-add and envelope division), at Tacotron's 24 kHz front
@@ -555,6 +562,9 @@ KERNELS = {
     "synth_fft_window": (irfft.CUDA_SOURCE, irfft.REPLACES_WINDOW,
                          irfft.istft_ola_fft_window,
                          irfft.istft_ola_fft_window_plain),
+    "synth_fft_full": (irfft.CUDA_SOURCE, irfft.REPLACES_FULL,
+                       irfft.istft_ola_fft_full,
+                       irfft.istft_ola_fft_full_plain),
     "imdct_ola_split4": (synth.CUDA_SOURCE, synth.REPLACES_SPLIT4,
                          synth.imdct_ola_split4,
                          synth.imdct_ola_split4_plain),
@@ -669,7 +679,8 @@ def _kernel_inputs(wl: int, step: int, t: int, dev) -> dict:
         "frames_rfft_full_fft": (analysis, EXACT_TOL),
         "synth": ((h_re, h_im, wl, step, scale,
                    synth.istft_ops(wl, scale, torch.float32, dev)), GEMM_TOL),
-        "synth_fft": ((h_re, h_im, wl, step, scale), FFT_TOL),
+        "synth_fft": ((h_re, h_im, wl, step, scale), EXACT_TOL),
+        "synth_fft_full": ((spec, wl, step, scale), EXACT_TOL),
         "framing": (analysis, EXACT_TOL),
         "ola": ((frames.contiguous(), step), EXACT_TOL),
         "mirror_full_planes": ((half, wl), EXACT_TOL),
@@ -692,25 +703,45 @@ def _folded(half: torch.Tensor, wl: int, step: int) -> tuple:
     return h_re, h_im, 1.0 / float(hamming(wl)[::step].sum())
 
 
-def _synth_args(wl: int, step: int, t: int, dev, rows: int = 1) -> tuple:
-    """Synthesis-kernel arguments for T frames of the test signal's
-    spectrum at this window and hop, ``rows`` batch rows."""
+def _synth_half(wl: int, step: int, t: int, dev, rows: int = 1):
+    """The half spectrum of T frames of the test signal at this window and
+    hop, ``rows`` batch rows."""
     sig = np.resize(segment(2), rows * ((t - 1) * step + wl))
     padded = torch.from_numpy(sig.astype(np.float32)).to(dev).reshape(
         rows, -1).squeeze(0)
     win = torch.from_numpy(hamming(wl).astype(np.float32)).to(dev)
-    h_re, h_im, scale = _folded(
-        fused.frames_rfft_plain(padded, win, wl, step, t), wl, step)
+    return fused.frames_rfft_plain(padded, win, wl, step, t)
+
+
+def _synth_args(wl: int, step: int, t: int, dev, rows: int = 1) -> tuple:
+    """Synthesis-kernel arguments for T frames of the test signal's
+    spectrum at this window and hop, ``rows`` batch rows."""
+    h_re, h_im, scale = _folded(_synth_half(wl, step, t, dev, rows), wl,
+                                step)
     return h_re, h_im, wl, step, scale
 
 
-def irfft_transforms(wl: int, step: int, t: int) -> float:
+def _synth_full_args(wl: int, step: int, t: int, dev, rows: int = 1,
+                     bins_major: bool = False) -> tuple:
+    """The fused fold's arguments: the full spectrum of :func:`_synth_args`'
+    frames (frames-major, or the transposed view of a bins-major copy, as
+    istft hands a bins-major spectrum over), hop and the COLA 1/gain."""
+    spec = fft.conjugate_mirror(_synth_half(wl, step, t, dev, rows), wl)
+    if bins_major:
+        spec = spec.transpose(-1, -2).contiguous().transpose(-1, -2)
+    return spec, wl, step, 1.0 / float(hamming(wl)[::step].sum())
+
+
+def irfft_transforms(wl: int, step: int, t: int, rows: int) -> float:
     """Frames the inverse FFT kernel transforms per output frame: each
-    block of irfft.SPAN output samples transforms every frame that reaches
-    them (csrc/irfft.cu), so frames at a block edge are done twice."""
+    block of irfft.block_span(...) output samples transforms every frame
+    that reaches them (csrc/irfft.cu), so frames at a block edge are done
+    twice."""
     out_len = (t - 1) * step + wl
-    p0 = np.arange(0, out_len, irfft.SPAN, dtype=np.int64)
-    p1 = np.minimum(p0 + irfft.SPAN, out_len)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    span = irfft.block_span(wl, step, t, rows, sms)
+    p0 = np.arange(0, out_len, span, dtype=np.int64)
+    p1 = np.minimum(p0 + span, out_len)
     top = np.minimum((p1 - 1) // step, t - 1)
     low = np.maximum(0, -((wl - 1 - p0) // step))
     return float((top - low + 1).sum()) / t
@@ -773,7 +804,19 @@ def _kernel_cases(dev, main_t: int):
                    _fft_tol(name))
     for wl, step, t, rows in IFFT_RAGGED:
         yield ("synth_fft", "ragged", f"{rows} rows WL {wl} hop {step} T {t}",
-               _synth_args(wl, step, t, dev, rows), FFT_TOL)
+               _synth_args(wl, step, t, dev, rows), EXACT_TOL)
+        yield ("synth_fft_full", "ragged",
+               f"{rows} rows WL {wl} hop {step} T {t}",
+               _synth_full_args(wl, step, t, dev, rows), EXACT_TOL)
+    # The fused fold reads a bins-major spectrum in place, and a column
+    # slice of one (its frames from the second on).
+    wl, step, t = RAGGED
+    spec, *rest = _synth_full_args(wl, step, t + 2, dev, 2, bins_major=True)
+    yield ("synth_fft_full", "ragged", f"2 rows WL {wl} hop {step} T {t + 2} "
+           "bins-major", (spec, *rest), EXACT_TOL)
+    yield ("synth_fft_full", "ragged", f"2 rows WL {wl} hop {step} T {t} "
+           "bins-major column slice", (spec[:, 1:t + 1], *rest), EXACT_TOL)
+    del spec
     # The 40-ms window: the FFT kernels (the three analysis stores and the
     # synthesis) and, in the same call, the GEMM B1 and B4 with their
     # operators and B4-s4, all timed.
@@ -786,8 +829,10 @@ def _kernel_cases(dev, main_t: int):
     yield ("fused", "40 ms", f"WL {wl} hop {step} T {t} (operator)",
            (*analysis, fused.rdft_ops(wl, torch.float32, dev)), GEMM_TOL)
     del padded, analysis
+    yield ("synth_fft_full", "40 ms", f"WL {wl} hop {step} T {t}",
+           _synth_full_args(wl, step, t, dev), EXACT_TOL)
     args = _synth_args(wl, step, t, dev)
-    yield "synth_fft", "40 ms", f"WL {wl} hop {step} T {t}", args, FFT_TOL
+    yield "synth_fft", "40 ms", f"WL {wl} hop {step} T {t}", args, EXACT_TOL
     yield ("synth", "40 ms", f"WL {wl} hop {step} T {t} (operator)",
            (*args, synth.istft_ops(wl, args[-1], torch.float32, dev)),
            GEMM_TOL)
@@ -809,8 +854,10 @@ def _kernel_cases(dev, main_t: int):
     for name in TWIN_KERNELS:
         yield name, "main", f"WL {wl} hop {step} T {t}", analysis, GEMM_TOL
     del padded, analysis, ops
+    yield ("synth_fft_full", "25 ms", f"WL {wl} hop {step} T {t}",
+           _synth_full_args(wl, step, t, dev), EXACT_TOL)
     args = _synth_args(wl, step, t, dev)
-    yield "synth_fft", "25 ms", f"WL {wl} hop {step} T {t}", args, FFT_TOL
+    yield "synth_fft", "25 ms", f"WL {wl} hop {step} T {t}", args, EXACT_TOL
     yield ("synth", "main", f"WL {wl} hop {step} T {t} (operator)",
            (*args, synth.istft_ops(wl, args[-1], torch.float32, dev)),
            GEMM_TOL)
@@ -1017,10 +1064,10 @@ def _kernel_cases(dev, main_t: int):
 
 def _window_store_args(sr: int, wl: int, step: int, window, rows: int,
                        offset: int, dev) -> tuple:
-    """The windowed store's arguments: the half-spectrum planes of a 600-s
-    segment's frames at ``sr`` (of 1,001 frames a row when ``rows`` > 1),
-    copied ``offset`` floats into a buffer, the window and the floored
-    envelope, as griffin_lim hands them over."""
+    """The windowed store's arguments: the complex half spectrum of a
+    600-s segment's frames at ``sr`` (of 1,001 frames a row when ``rows`` >
+    1), copied ``offset`` complex values into a buffer, the window and the
+    floored envelope, as griffin_lim hands them over."""
     t = (stft_padding(SEGMENT_SECONDS * sr, wl, step)[2] if rows == 1
          else 1001)
     n = (t - 1) * step + wl
@@ -1028,13 +1075,13 @@ def _window_store_args(sr: int, wl: int, step: int, window, rows: int,
     sig = torch.from_numpy(np.resize(segment(2), rows * n).astype(
         np.float32)).to(dev).reshape(rows, n).squeeze(0)
     half = fused.frames_rfft_plain(sig, win, wl, step, t)
-    flat = torch.zeros(2 * half.numel() + offset, device=dev)
-    planes = flat[offset:].view(2, *half.shape)
-    planes[0], planes[1] = half.real, half.imag
-    # The OLA kernel, as griffin_lim builds its envelope: deterministic at
-    # every hop (the plain version's scatter-add is not on the card).
+    flat = torch.zeros(half.numel() + offset, dtype=torch.complex64,
+                       device=dev)
+    spec = flat[offset:].view(half.shape)
+    spec.copy_(half)
+    # The OLA kernel, as griffin_lim builds its envelope.
     wsq = ola.overlap_add((win * win).expand(t, wl), step)
-    return planes[0], planes[1], wl, step, win, wsq.clamp_min(1e-12)
+    return spec, wl, step, win, wsq.clamp_min(1e-12)
 
 
 def _rows(x: torch.Tensor) -> int:
@@ -1128,12 +1175,21 @@ def _work(name: str, args: tuple,
         # sample) and the divide by the envelope (1 an output sample); both
         # planes, the twiddle table, the window and the envelope read once,
         # the signal written once.
-        s_re, _, n, step, _, wsq = args
-        t, f = s_re.shape[-2], s_re.shape[-1]
-        b = _rows(s_re) // t
+        spec, n, step, _, wsq = args
+        t, f = spec.shape[-2], spec.shape[-1]
+        b = _rows(spec) // t
         out = b * ((t - 1) * step + n)
         return (0, b * t * (_fft_ops(n) + 12 * (n // 2) + 3 * n) + out,
-                4 * 2 * b * t * f + 12 * n + 4 * wsq.numel() + 4 * out)
+                8 * b * t * f + 12 * n + 4 * wsq.numel() + 4 * out)
+    if base == "synth_fft_full":
+        # The Hermitian fold (4 a bin of N/2 + 1: a sum, a difference, two
+        # products) and synth_fft's inverse; the full spectrum and the
+        # kernel's tables read once, the signal written once.
+        z, n, step, _ = args
+        b, t = _rows(z) // z.shape[-2], z.shape[-2]
+        return (0, b * t * (4 * (n // 2 + 1) + _inverse_ops(n)),
+                8 * b * t * n + 8 * rfft._kernel_tables(n).shape[0]
+                + 4 * b * ((t - 1) * step + n))
     if base in ("synth", "synth_fft"):
         h_re, _, n, step, _ = args[:5]
         b, t, f = _rows(h_re) // h_re.shape[-2], h_re.shape[-2], h_re.shape[-1]
@@ -1143,7 +1199,7 @@ def _work(name: str, args: tuple,
             # a frame: at a rule window its plan's passes); both planes and
             # the store's tables read once, the signal written once.
             return (0, b * t * _inverse_ops(n),
-                    4 * 2 * b * t * f + 8 * rfft._store_tables(n).shape[0]
+                    4 * 2 * b * t * f + 8 * rfft._kernel_tables(n).shape[0]
                     + out)
         return (passes * 2 * b * t * 2 * f * n, 0,
                 8 * b * t * f + opb * 2 * f * n + out)
@@ -1287,11 +1343,13 @@ def library_call(name: str, args: tuple):
                                   onesided=not full, return_complex=True)
     if base in ("synth", "synth_fft"):
         return synth_library(*args[:5])
+    if base == "synth_fft_full":
+        return synth_full_library(*args)
     if base == "synth_fft_window":
-        s_re, s_im, wl, step, win, _ = args
+        spec, wl, step, win, _ = args
         if float(win.min()) <= 0:  # torch.istft refuses a vanishing envelope
             return None
-        spec = torch.complex(s_re, s_im).transpose(-1, -2)
+        spec = spec.transpose(-1, -2)
         return lambda: torch.istft(spec, wl, step, window=win, center=False)
     if base == "ola":
         frames, step = args
@@ -1381,6 +1439,17 @@ def synth_library(h_re, h_im, wl, step, scale):
                                center=False) * (wl / step * scale)
 
 
+def synth_full_library(z, wl, step, scale):
+    """The fused fold's function as one torch.istft call on the full
+    spectrum (two-sided; the real part of its complex output), a ones
+    window normalising as in :func:`synth_library`."""
+    spec = z.transpose(-1, -2)
+    ones = torch.ones(wl, device=z.device)
+    return lambda: torch.istft(spec, wl, step, window=ones, center=False,
+                               onesided=False, return_complex=True).real * (
+        wl / step * scale)
+
+
 def _planes(x) -> tuple:
     return x if isinstance(x, tuple) else (x,)
 
@@ -1420,10 +1489,11 @@ def phase_kernels(dev) -> dict:
               f"max_abs_err {err!r} max|ref| {scale!r}")
         require(np.isfinite(err) and err <= tol * scale,
                 f"{name} {label}: max_abs_err {err} > {tol} * {scale}")
-        if name == "synth_fft":
-            wl, step, t = args[2], args[3], args[0].shape[-2]
-            print(f"  {name}: {irfft_transforms(wl, step, t):.4f} frames "
-                  "transformed per output frame")
+        if name in ("synth_fft", "synth_fft_full"):
+            wl, step, t = args[-3], args[-2], args[0].shape[-2]
+            done = irfft_transforms(wl, step, t, _rows(args[0]) // t)
+            print(f"  {name}: {done:.4f} frames transformed per output "
+                  "frame")
         timed = label in ("main", "40 ms", "25 ms", "whisper",
                           "tacotron") or (
             label == "operator"
@@ -1439,8 +1509,10 @@ def phase_kernels(dev) -> dict:
             lib = library_call(name, args)
             library_ms = None if lib is None else median_ms(lib)
             if lib is not None and name.removesuffix("_split4") in (
-                    "synth", "synth_fft", "synth_fft_window"):
-                wl = args[2]
+                    "synth", "synth_fft", "synth_fft_window",
+                    "synth_fft_full"):
+                wl = args[1] if name in ("synth_fft_full",
+                                         "synth_fft_window") else args[2]
                 lerr = _max_abs((lib() - kernel(*args))[..., wl:-wl])
                 print(f"  {name}: torch.istft yardstick vs kernel, interior "
                       f"max_abs_err {lerr!r}")
@@ -1580,7 +1652,9 @@ def oracle_error(x: torch.Tensor, spec: torch.Tensor, wl: int = WL,
 # spectrum and B4 (or its twin, which sets the dial's round-trip gates) the
 # round trip; at WL 2062 there the lowered dials are ordered
 # (check_dial_order).
-FFT_PATH = (("frames_rfft_full_fft", "synth_fft"), EXACT_GATES)
+FFT_PATH = (("frames_rfft_full_fft", "synth_fft_full"), EXACT_GATES)
+# Off the static rule (WL 2062) istft folds by index ops, then irfft_any.
+ANY_PATH = (("frames_rfft_full_fft", "synth_fft"), EXACT_GATES)
 FFT2_PATH = (("frames_matmul2_fft", "synth_fft"), EXACT_GATES)
 TWIN_PATH = ("fused_split4", "synth_split4")
 STFT_WANT = {
@@ -1588,7 +1662,7 @@ STFT_WANT = {
     "split": (("framing", "ola"), EXACT_GATES),
     f"default WL {MIXED_WL}": FFT_PATH,
     f"default WL {PRIME_WL}": FFT_PATH,
-    f"default WL {GEMM_WL}": FFT_PATH,
+    f"default WL {GEMM_WL}": ANY_PATH,
     f"ZAFTPU_FUSED2=1 WL {GEMM_WL}": FFT2_PATH,
     f"ZAFTPU_FFT=matmul WL {GEMM_WL}": (("fused", "synth"), EXACT_GATES),
     f"ZAFTPU_FFT=matmul ZAFTPU_FUSED2=1 WL {GEMM_WL}": (
@@ -1596,7 +1670,7 @@ STFT_WANT = {
     "split4": FFT_PATH,
     f"split4 WL {MIXED_WL}": FFT_PATH,
     f"split4 WL {PRIME_WL}": FFT_PATH,
-    f"split4 WL {GEMM_WL}": FFT_PATH,
+    f"split4 WL {GEMM_WL}": ANY_PATH,
     f"split4 ZAFTPU_FUSED2=1 WL {GEMM_WL}": FFT2_PATH,
     "split4 ZAFTPU_FFT=matmul": (TWIN_PATH, SPLIT4_GATES),
     f"split4 ZAFTPU_FFT=matmul WL {GEMM_WL}": (TWIN_PATH, SPLIT4_GATES),
@@ -1607,8 +1681,8 @@ STFT_WANT = {
     # passes.
     "ZAFTPU_PRECISION=high": FFT_PATH,
     "ZAFTPU_PRECISION=default": FFT_PATH,
-    f"ZAFTPU_PRECISION=high WL {GEMM_WL}": FFT_PATH,
-    f"ZAFTPU_PRECISION=default WL {GEMM_WL}": FFT_PATH,
+    f"ZAFTPU_PRECISION=high WL {GEMM_WL}": ANY_PATH,
+    f"ZAFTPU_PRECISION=default WL {GEMM_WL}": ANY_PATH,
     f"ZAFTPU_PRECISION=high ZAFTPU_FFT=matmul WL {GEMM_WL}": (TWIN_PATH,
                                                             HIGH_GATES),
     f"ZAFTPU_PRECISION=default ZAFTPU_FFT=matmul WL {GEMM_WL}": (
@@ -2626,17 +2700,16 @@ def phase_griffin_lim_600s(x: torch.Tensor) -> None:
     peak = torch.cuda.max_memory_allocated() - base
     require(bool(torch.isfinite(out).all()), "600-s griffin-lim not finite")
     # An iteration's two kernels alone at this shape (median of 10): the
-    # windowed store on the magnitude's planes, the half store on its
-    # output; the rest of an iteration is the elementwise projection.
+    # windowed store on the magnitude as a complex spectrum, the half store
+    # on its output; the rest of an iteration is the elementwise projection.
     t = mag.shape[1]
-    s_re = mag.T.contiguous()
-    s_im = torch.zeros_like(s_re)
+    spec = mag.T.contiguous().to(torch.complex64)
     win_t = torch.from_numpy(win.astype(np.float32)).to(x.device)
     wsq = ola.overlap_add((win_t * win_t).expand(t, wl), step).clamp_min(
         1e-12)
     synth_ms = median_ms(lambda: irfft.istft_ola_fft_window(
-        s_re, s_im, wl, step, win_t, wsq))
-    sig = irfft.istft_ola_fft_window(s_re, s_im, wl, step, win_t, wsq)
+        spec, wl, step, win_t, wsq))
+    sig = irfft.istft_ola_fft_window(spec, wl, step, win_t, wsq)
     half_ms = median_ms(lambda: rfft.frames_rfft_fft(sig, win_t, wl, step, t))
     print(f"griffin-lim 600 s (WL {wl}, hop {step}, T {t}, "
           f"{GL_ITERATIONS} iterations): {ms:.3f} ms, "
@@ -2896,7 +2969,7 @@ def phase_stream(dev) -> dict:
                  lambda src, path, stats: pipeline.streaming_istft(
                      src, hw, STEP, path, SR,
                      block_frames=STREAM_BLOCK_FRAMES, stats=stats),
-                 "synth_fft"),
+                 "synth_fft_full"),
                 ("imdct", coeffs, zaftpu_torch.imdct(coeffs, vw),
                  lambda src, path, stats: pipeline.streaming_imdct(
                      src, vw, path, SR, block_frames=STREAM_BLOCK_FRAMES,
@@ -3057,7 +3130,7 @@ EXAMPLE_RESIDUAL = 1e-4
 # spectral CQT, B2 (the MDCT at kbd(512)'s 510 samples: F 255, odd), the
 # fast MDCT and IMDCT (vorbis 2048), and Griffin-Lim's half store, windowed
 # store and envelope OLA; the DCT / DST of 1,024 points run the operator.
-EXAMPLE_KERNELS = ("frames_rfft_full_fft", "synth_fft", "mel_rows_fft",
+EXAMPLE_KERNELS = ("frames_rfft_full_fft", "synth_fft_full", "mel_rows_fft",
                    "cqt_fft", "frames_op", "mdct_fft", "imdct_ola_fft",
                    "fused_fft", "synth_fft_window", "ola")
 
@@ -3143,7 +3216,7 @@ BENCH_REPS = 3
 # transform (stft, istft, spectrogram, mel and MFCC, mdct, imdct, the two
 # CQT rows) and Griffin-Lim's half store, windowed store and envelope OLA;
 # the DCT / DST rows run the operator.
-BENCH_KERNELS = ("frames_rfft_full_fft", "synth_fft", "spec_rows_fft",
+BENCH_KERNELS = ("frames_rfft_full_fft", "synth_fft_full", "spec_rows_fft",
                  "mel_rows_fft", "mdct_fft", "imdct_ola_fft", "cqt_fft",
                  "fused_fft", "synth_fft_window", "ola")
 
@@ -3173,7 +3246,7 @@ def phase_bench(dev) -> dict:
 
 # The kernels the sharded path launches at one rank: the stores of stft,
 # istft, spectrogram, the mel front ends, mdct, imdct and the CQT.
-SHARDED_KERNELS = ("frames_rfft_full_fft", "synth_fft", "spec_rows_fft",
+SHARDED_KERNELS = ("frames_rfft_full_fft", "synth_fft_full", "spec_rows_fft",
                    "mel_rows_fft", "mdct_fft", "imdct_ola_fft", "cqt_fft")
 # x max|unsharded|: the MFCC's DCT is a torch.matmul, outside any kernel.
 SHARDED_MFCC_TOL = 1e-6
@@ -3480,8 +3553,8 @@ def main() -> int:
     # ZAFTPU_FFT=matmul ZAFTPU_FULLSPEC=1 runs the GEMM B3 (B3-s4 under
     # split4), whose sums the lever-free run there shares (B1, or B1-s4,
     # and the index mirror).
-    fft_stores = ("frames_rfft_full_fft", "synth_fft")
-    half_store = ("fused_fft", "synth_fft")
+    fft_stores = ("frames_rfft_full_fft", "synth_fft_full")
+    half_store = ("fused_fft", "synth_fft_full")
     for base, wl, levers in (
             (DEFAULT, WL, (
                 (MIRROR_ON, "ZAFTPU_MIRROR=pallas",
@@ -3490,20 +3563,20 @@ def main() -> int:
                 (FULLSPEC_ON, "ZAFTPU_FULLSPEC=1", fft_stores, EXACT_GATES),
                 (FULLSPEC_OFF, "ZAFTPU_FULLSPEC=0", half_store, EXACT_GATES),
                 (FUSED2_ON, "ZAFTPU_FUSED2=1",
-                 ("frames_matmul2_fft", "synth_fft"), EXACT_GATES))),
+                 ("frames_matmul2_fft", "synth_fft_full"), EXACT_GATES))),
             (DEFAULT, GEMM_WL, (
                 (MIRROR_ON, f"ZAFTPU_MIRROR=pallas WL {GEMM_WL}",
                  ("fused_fft", "mirror_full_planes", "fold_half_planes",
                   "synth_fft"), EXACT_GATES),
-                (FULLSPEC_OFF, f"ZAFTPU_FULLSPEC=0 WL {GEMM_WL}", half_store,
-                 EXACT_GATES))),
+                (FULLSPEC_OFF, f"ZAFTPU_FULLSPEC=0 WL {GEMM_WL}",
+                 ("fused_fft", "synth_fft"), EXACT_GATES))),
             (FFT_MATMUL, GEMM_WL, (
                 (MATMUL_FULLSPEC,
                  f"ZAFTPU_FFT=matmul ZAFTPU_FULLSPEC=1 WL {GEMM_WL}",
                  ("frames_rfft_full", "synth"), EXACT_GATES),)),
             (SPLIT4, WL, (
                 (SPLIT4_FUSED2, "split4 ZAFTPU_FUSED2=1",
-                 ("frames_matmul2_fft", "synth_fft"), EXACT_GATES),
+                 ("frames_matmul2_fft", "synth_fft_full"), EXACT_GATES),
                 (SPLIT4_FULLSPEC, "split4 ZAFTPU_FULLSPEC=1", fft_stores,
                  EXACT_GATES),
                 (SPLIT4_FULLSPEC_OFF, "split4 ZAFTPU_FULLSPEC=0", half_store,

@@ -19,7 +19,10 @@ functions whose names contain the --ptxas text, and times each --kernel
 (a chip_smoke.py KERNELS name) at its chip_smoke.py shapes of each --label
 case (main by default; "40 ms" and "25 ms" the FFT kernels' windows;
 "any" the real-FFT kernel's stores and the inverse at
-chip_smoke.ANY_WINDOWS' windows):
+chip_smoke.ANY_WINDOWS' windows; --kernel synthesis: istft's synthesis,
+zaftpu_torch.kernels.synthesis_ola, on stft's spectrum of a 600-s segment
+at the main, 40-ms and 25-ms windows, whatever kernels each tree runs
+for it):
 median of 10 CUDA-event pairs around one launch, which includes the
 wrapper's host work before it, or with --launches N around N launches
 queued back to back, which leaves the device's time alone (divided by N).
@@ -81,6 +84,32 @@ def registers(log: str, needle: str) -> list[str]:
     return out
 
 
+def synthesis(spec, step: int, gain: float):
+    """istft's synthesis as it runs on this tree, the trim aside."""
+    from zaftpu_torch import kernels
+
+    return kernels.synthesis_ola(spec, step, gain)
+
+
+def synthesis_cases(chip_smoke, dev):
+    """("synthesis", label, shape, args, None): stft's bins-major spectrum
+    of a 600-s segment at the main, 40-ms and 25-ms windows (half
+    overlap), the hop and the Hamming window's COLA gain."""
+    import torch
+
+    import zaftpu_torch
+    from zaftpu_torch.core.frame import cola_gain
+    from zaftpu_torch.core.windows import hamming
+
+    x = torch.from_numpy(chip_smoke.segment(0)).to(dev)
+    for label, wl in (("main", chip_smoke.WL), ("40 ms", chip_smoke.MIXED_WL),
+                      ("25 ms", chip_smoke.PRIME_WL)):
+        win, step = hamming(wl), wl // 2
+        spec = zaftpu_torch.stft(x, win, step)
+        yield ("synthesis", label, f"WL {wl} hop {step} T {spec.shape[-1]}",
+               (spec, step, cola_gain(win, step)), None)
+
+
 def worker(root: str, side: str, kernels: list, needle: str,
            labels: list, launches: int) -> None:
     sys.path.insert(0, root)
@@ -104,9 +133,12 @@ def worker(root: str, side: str, kernels: list, needle: str,
     cases = [] if labels == ["any"] else chip_smoke._kernel_cases(dev, main_t)
     if "any" in labels:
         cases = itertools.chain(cases, chip_smoke._any_cases(dev))
+    if "synthesis" in kernels:
+        cases = itertools.chain(cases, synthesis_cases(chip_smoke, dev))
     for name, case, shape, args, _ in cases:
         if name in kernels and case in labels:
-            fn = chip_smoke.KERNELS[name][2]
+            fn = (synthesis if name == "synthesis"
+                  else chip_smoke.KERNELS[name][2])
             digest = hashlib.sha256()
             for y in chip_smoke._planes(fn(*args)):
                 digest.update(y.contiguous().cpu().numpy().tobytes())
@@ -168,6 +200,11 @@ def main() -> int:
                         f"{rec['ms']:.4f} ms")
             print(line, flush=True)
     for (name, shape), sides in times.items():
+        if len(sides) < 2:  # a kernel only one tree has
+            (side, ms), = sides.items()
+            print(f"{name} {shape}: {side} {statistics.median(ms):.4f} ms "
+                  "(only on this side)")
+            continue
         a, b = (statistics.median(sides[s]) for s in ("A", "B"))
         same = len({h for _, h in digests[(name, shape)]}) == 1
         print(f"{name} {shape}: A {a:.4f} ms, B {b:.4f} ms, B / A "

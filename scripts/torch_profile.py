@@ -1,7 +1,7 @@
 """Where the device time of zaftpu_torch's main path goes, on a CUDA card.
 
     python3 scripts/torch_profile.py [--precision highest|split4] [--iters 3]
-        [--window 1102] [--only mdct|cqt|mel]
+        [--window 1102] [--only mdct|cqt|mel|istft]
 
 Profiles 600-s stft -> istft, mdct -> imdct (the chip_smoke.py signal,
 Hamming and vorbis windows of 2048, hop 1024; --window sets the STFT's
@@ -29,7 +29,8 @@ at MelConfig() and melspectrogram at Whisper's front end (16 kHz, Hann 400
 / hop 160, 80 mels: the signal's first 600 s of samples read at 16 kHz),
 each on the selected path (the real-FFT kernel's mel store by default) and
 under ZAFTPU_MELFUSE=0 (the half store, ``|·|`` and the filterbank
-product).
+product). ``--only istft`` profiles the STFT's synthesis: 600-s stft ->
+istft and istft alone at --window, half overlap.
 Needs a CUDA card; prints nothing else and exits 1 without one.
 """
 
@@ -168,7 +169,8 @@ def main() -> int:
                         choices=("highest", "split4"))
     parser.add_argument("--iters", type=int, default=3)
     parser.add_argument("--window", type=int, default=WL)
-    parser.add_argument("--only", choices=("all", "mdct", "cqt", "mel"),
+    parser.add_argument("--only", choices=("all", "mdct", "cqt", "mel",
+                                           "istft"),
                         default="all")
     args = parser.parse_args()
     if not torch.cuda.is_available():
@@ -191,6 +193,13 @@ def main() -> int:
         return 0
     if args.only == "mel":
         profile_mel(x, args.iters)
+        return 0
+    if args.only == "istft":
+        profile("stft -> istft", lambda: zaftpu_torch.istft(
+            zaftpu_torch.stft(x, hw, step), hw, step), args.iters)
+        spec = zaftpu_torch.stft(x, hw, step)
+        profile("istft", lambda: zaftpu_torch.istft(spec, hw, step),
+                args.iters)
         return 0
     profile("stft -> istft", lambda: zaftpu_torch.istft(
         zaftpu_torch.stft(x, hw, step), hw, step), args.iters)

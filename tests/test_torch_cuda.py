@@ -684,14 +684,16 @@ def test_frames_rfft_full_bitwise_vs_half_and_mirror(dev, wl, step, t, lead):
     ({"ZAFTPU_MIRROR": "pallas"},
      {"frames_rfft_fft", "mirror_full_planes", "fold_half_planes",
       "synth_fft"}),
-    ({"ZAFTPU_FULLSPEC": "1"}, {"frames_rfft_full_fft", "synth_fft"}),
-    ({"ZAFTPU_FULLSPEC": "0"}, {"frames_rfft_fft", "synth_fft"})])
+    ({"ZAFTPU_FULLSPEC": "1"}, {"frames_rfft_full_fft", "synth_fft_full"}),
+    ({"ZAFTPU_FULLSPEC": "0"}, {"frames_rfft_fft", "synth_fft_full"})])
 def test_mirror_and_fullspec_levers_on_card_bit_equal_default(
         dev, levers, moved, monkeypatch):
     """At WL 2048 the default stft takes the FFT kernel's full store; the
     mirror lever and ZAFTPU_FULLSPEC=0 its half store (and the mirror
-    kernel or the index mirror), ZAFTPU_FULLSPEC=1 the full store: each
-    bit-equal to the default, spectrum and round trip."""
+    kernel or the index mirror), ZAFTPU_FULLSPEC=1 the full store; istft
+    the fused fold, under the mirror lever the fold kernel and the inverse
+    on its planes: each bit-equal to the default, spectrum and round
+    trip."""
     x64 = np.random.default_rng(7).standard_normal((2, 44100))
     x = torch.from_numpy(x64.astype(np.float32)).to(dev)
     win = hamming(2048)
@@ -708,7 +710,8 @@ def test_mirror_and_fullspec_levers_on_card_bit_equal_default(
                 "mirror_full_planes": mirror.mirror_full_planes.launches,
                 "fold_half_planes": mirror.fold_half_planes.launches,
                 "synth": synth.istft_ola.launches,
-                "synth_fft": irfft.istft_ola_fft.launches}
+                "synth_fft": irfft.istft_ola_fft.launches,
+                "synth_fft_full": irfft.istft_ola_fft_full.launches}
 
     before = launches()
     spec = zaftpu_torch.stft(x, win, 1024)
@@ -799,6 +802,7 @@ def _split4_launches():
             "fused": fused.frames_rfft.launches,
             "synth": synth.istft_ola.launches,
             "synth_fft": irfft.istft_ola_fft.launches,
+            "synth_fft_full": irfft.istft_ola_fft_full.launches,
             "frames_op": fused.frames_op.launches,
             "imdct_ola": synth.imdct_ola.launches}
 
@@ -1341,6 +1345,80 @@ def test_irfft_kernel_matches_plain(dev, wl, step, t, lead):
     assert _rel_err(got.cpu().double(), oracle) < 2e-6
 
 
+@pytest.mark.parametrize("wl,step,t", IRFFT_SHAPES)
+@pytest.mark.parametrize("lead", [(), (2, 3)])
+@pytest.mark.parametrize("layout", ["frames-major", "bins-major",
+                                    "column slice"])
+def test_irfft_fused_fold_matches_plain(dev, wl, step, t, lead, layout):
+    """The fused fold (the full spectrum, the Hermitian fold read in the
+    load) on a spectrum that is not Hermitian, frames-major, as the
+    transposed view of a bins-major tensor, or a column slice of one (its
+    frames from the second on): one launch, bit-equal to its plain version
+    and to the index fold followed by the inverse on the folded planes
+    (the route before the fold moved into the load)."""
+    rng = np.random.default_rng(wl + step + t + 1)
+    z = rng.standard_normal((2, *lead, t + 2, wl)).astype(np.float32)
+    full = torch.complex(*(torch.from_numpy(a) for a in z)).to(dev)
+    if layout != "frames-major":
+        full = full.transpose(-1, -2).contiguous().transpose(-1, -2)
+    full = full[..., 1:t + 1, :] if layout == "column slice" else \
+        full[..., :t, :]
+    before = irfft.istft_ola_fft_full.launches
+    got = irfft.istft_ola_fft_full(full, wl, step, 0.5)
+    assert irfft.istft_ola_fft_full.launches == before + 1
+    ref = irfft.istft_ola_fft_full_plain(full, wl, step, 0.5)
+    assert got.shape == ref.shape == (*lead, (t - 1) * step + wl)
+    assert torch.equal(got, ref), _rel_err(got, ref)
+    h_re, h_im = tfft.hermitian_fold_planes(full.real, full.imag, wl)
+    assert torch.equal(got, irfft.istft_ola_fft(h_re, h_im, wl, step, 0.5))
+
+
+@pytest.mark.parametrize("wl", [2048, 1764, 1102, 400, 2822, 16])
+@pytest.mark.parametrize("layout", ["stft", "bins-major"])
+def test_istft_on_the_card_equals_the_fold_then_the_inverse(dev, wl,
+                                                            layout):
+    """istft at a static window (half overlap) launches the fused fold once
+    and equals, bit for bit, the route before it, computed by hand: the
+    index fold of the spectrum, the inverse kernel on its planes, the
+    trim. The spectrum as stft returns it (a transposed view) and as a
+    contiguous bins-major tensor."""
+    from zaftpu_torch.core.frame import cola_gain
+
+    gen = torch.Generator(device=dev).manual_seed(wl)
+    x = torch.randn(2, 20 * wl, device=dev, generator=gen)
+    win, step = hamming(wl), wl // 2
+    spec = zaftpu_torch.stft(x, win, step)
+    if layout == "bins-major":
+        spec = spec.contiguous()
+    before = (irfft.istft_ola_fft_full.launches, irfft.istft_ola_fft.launches)
+    rec = zaftpu_torch.istft(spec, win, step)
+    assert (irfft.istft_ola_fft_full.launches,
+            irfft.istft_ola_fft.launches) == (before[0] + 1, before[1])
+    fm = spec.transpose(-1, -2)
+    h_re, h_im = tfft.hermitian_fold_planes(fm.real, fm.imag, wl)
+    ref = irfft.istft_ola_fft(h_re, h_im, wl, step,
+                              1.0 / cola_gain(np.asarray(win), step))
+    edge = wl - step
+    assert torch.equal(rec, ref[..., edge:ref.shape[-1] - edge])
+
+
+def test_irfft_full_entry_refuses_what_the_rule_refuses(dev):
+    """The fused fold's C entry takes the windows rfft.fits takes and a hop
+    in [1, N], and refuses every other and a misaligned spectrum, before
+    any launch: T = 0 returns after the checks."""
+    lib = _build.library()
+    buf = torch.zeros(8192, device=dev)
+    p = buf.data_ptr()
+    for wl in range(1, 4200, 7):
+        for step in sorted({0, 1, max(wl // 3, 1), wl, wl + 1}):
+            err = lib.zt_irfft_ola_full(p, p, p, 1.0, 1, 0, wl, step, wl, 1,
+                                        1, 0)
+            assert (err == 0) is (rfft.fits(wl) and 1 <= step <= wl), (
+                wl, step, err)
+    assert lib.zt_irfft_ola_full(p + 4, p, p, 1.0, 1, 0, 2048, 1024, 2048,
+                                 1, 1, 0) != 0
+
+
 def test_irfft_entry_refuses_what_the_rule_refuses(dev):
     """The CUDA entry takes every length from 16 to 4,096 with its
     Bluestein length (rfft.layout(N).p) and a hop in [1, N], and refuses
@@ -1390,13 +1468,14 @@ def test_stft_istft_take_the_ffts_on_both_dials(dev, wl, dial, monkeypatch):
     x = torch.from_numpy(x64.astype(np.float32)).to(dev)
     win = hamming(wl)
     monkeypatch.setenv("ZAFTPU_PRECISION", dial)
-    counters = {"fft": irfft.istft_ola_fft, "gemm": synth.istft_ola,
-                "twin": synth.istft_ola_split4}
+    counters = {"full": irfft.istft_ola_fft_full, "fft": irfft.istft_ola_fft,
+                "gemm": synth.istft_ola, "twin": synth.istft_ola_split4}
     before = {k: c.launches for k, c in counters.items()}
     spec = zaftpu_torch.stft(x, win, wl // 2)
     rec = zaftpu_torch.istft(spec, win, wl // 2)
     moved = {k for k, c in counters.items() if c.launches != before[k]}
-    want = ("fft" if irfft.applies(wl) else
+    want = ("full" if rfft.applies(wl) else
+            "fft" if irfft.applies(wl) else
             "twin" if dial == "split4" else "gemm")
     assert moved == {want} and counters[want].launches == before[want] + 1
     monkeypatch.setenv("ZAFTPU_PRECISION", "highest")
@@ -1974,17 +2053,26 @@ def _full_and_inverse(dev, wl, step, t, lead=(2,), offset=1):
     (nothing for zero frames): the full store equals its plain version bit
     for bit and the half store's values mirrored, the inverse, on the half
     store's planes copied to an offset view, within 1e-6 of max of its
-    plain version (chip_smoke.FFT_TOL). Batched and misaligned by
-    default."""
+    plain version (chip_smoke.FFT_TOL). Where rfft.fits the window, the
+    fused fold on the full spectrum launches once too, bit-equal to its
+    plain version and to the inverse on the half store's planes (the fold
+    of a conjugate mirror is the half spectrum). Batched and misaligned
+    by default."""
     padded, win = _inputs(wl, step, max(t, 1), dev, lead, offset)
     half = rfft.frames_rfft_fft(padded, win, wl, step, max(t, 1))[..., :t, :]
     flat = torch.zeros(2 * half.numel() + offset, device=dev)
     planes = flat[offset:].view(2, *half.shape)
     planes[0], planes[1] = half.real, half.imag
     before = (rfft.frames_rfft_full_fft.launches,
-              irfft.istft_ola_fft.launches)
+              irfft.istft_ola_fft.launches, irfft.istft_ola_fft_full.launches)
     full = rfft.frames_rfft_full_fft(padded, win, wl, step, t)
     out = irfft.istft_ola_fft(planes[0], planes[1], wl, step, 0.5)
+    fused_fold = rfft.fits(wl)
+    if fused_fold:
+        out_full = irfft.istft_ola_fft_full(full, wl, step, 0.5)
+        assert torch.equal(out_full, irfft.istft_ola_fft_full_plain(
+            full, wl, step, 0.5)), wl
+        assert torch.equal(out_full, out), wl
     assert full.shape == (*lead, t, wl) and full.dtype == torch.complex64
     assert out.shape == (*lead, (t - 1) * step + wl) and out.is_cuda
     if t:
@@ -1996,9 +2084,10 @@ def _full_and_inverse(dev, wl, step, t, lead=(2,), offset=1):
     else:
         assert not out.any()
     runs = 1 if t else 0
-    assert (rfft.frames_rfft_full_fft.launches,
-            irfft.istft_ola_fft.launches) == (before[0] + runs,
-                                              before[1] + runs)
+    assert (rfft.frames_rfft_full_fft.launches, irfft.istft_ola_fft.launches,
+            irfft.istft_ola_fft_full.launches) == (
+                before[0] + runs, before[1] + runs,
+                before[2] + (runs if fused_fold else 0))
 
 
 @pytest.mark.parametrize("wl", HALF_WINDOWS)
@@ -2174,42 +2263,45 @@ WINDOW_STORE_SHAPES = [(2048, 512, 37), (1200, 300, 61), (512, 100, 1001),
 
 
 def _window_store_inputs(wl, step, t, lead, dev, offset=0):
+    """The complex half spectrum (misaligned by ``offset`` complex values),
+    the window and the floored envelope."""
     rng = np.random.default_rng(wl + step + t)
     f = wl // 2 + 1
     flat = rng.standard_normal(2 * int(np.prod(lead, dtype=int)) * t * f
-                               + offset).astype(np.float32)
-    planes = torch.from_numpy(flat).to(dev)[offset:].view(2, *lead, t, f)
+                               + 2 * offset).astype(np.float32)
+    spec = torch.view_as_complex(torch.from_numpy(flat).view(-1, 2)).to(
+        dev)[offset:].view(*lead, t, f)
     win = torch.from_numpy(hamming(wl).astype(np.float32)).to(dev)
     wsq = ola.overlap_add((win * win).expand(max(t, 1), wl), step)
     wsq = wsq[:(t - 1) * step + wl].clamp_min(1e-12)
-    return planes[0], planes[1], win, wsq
+    return spec, win, wsq
 
 
 @pytest.mark.parametrize("wl,step,t", WINDOW_STORE_SHAPES)
 @pytest.mark.parametrize("lead,offset", [((), 0), ((2, 3), 1)])
 def test_window_store_matches_plain(dev, wl, step, t, lead, offset):
-    """Bit-equal to its plain version (batched, misaligned planes, ragged
-    hops, T 0, 1 and 2), one launch (none with no frames), within 2e-6 of
-    max of the float64 plain version."""
-    s_re, s_im, win, wsq = _window_store_inputs(wl, step, t, lead, dev,
-                                                offset)
+    """Bit-equal to its plain version (batched, a misaligned complex
+    spectrum, ragged hops, T 0, 1 and 2), one launch (none with no
+    frames), within 2e-6 of max of the float64 plain version."""
+    spec, win, wsq = _window_store_inputs(wl, step, t, lead, dev, offset)
     before = irfft.istft_ola_fft_window.launches
-    got = irfft.istft_ola_fft_window(s_re, s_im, wl, step, win, wsq)
+    got = irfft.istft_ola_fft_window(spec, wl, step, win, wsq)
     assert irfft.istft_ola_fft_window.launches == before + (t > 0)
-    ref = irfft.istft_ola_fft_window_plain(s_re, s_im, wl, step, win, wsq)
+    ref = irfft.istft_ola_fft_window_plain(spec, wl, step, win, wsq)
     assert got.shape == ref.shape == (*lead, (t - 1) * step + wl)
     assert torch.equal(got, ref), _rel_err(got, ref)
     if t:
         oracle = irfft.istft_ola_fft_window_plain(
-            *(v.cpu().double() for v in (s_re, s_im)), wl, step,
-            win.cpu().double(), wsq.cpu().double())
+            spec.cpu().to(torch.complex128), wl, step, win.cpu().double(),
+            wsq.cpu().double())
         assert _rel_err(got.cpu().double(), oracle) < 2e-6
 
 
 def test_window_store_leaves_the_existing_store(dev):
     """The existing store's values are its plain version's, bit for bit,
     beside the windowed one (one template, two stores)."""
-    s_re, s_im, win, wsq = _window_store_inputs(2048, 512, 37, (), dev)
+    spec, win, wsq = _window_store_inputs(2048, 512, 37, (), dev)
+    s_re, s_im = spec.real.contiguous(), spec.imag.contiguous()
     got = irfft.istft_ola_fft(s_re, s_im, 2048, 512, 0.5)
     assert torch.equal(got, irfft.istft_ola_fft_plain(s_re, s_im, 2048, 512,
                                                       0.5))
@@ -2221,7 +2313,7 @@ def test_window_store_entry_refuses_what_the_rule_refuses(dev):
     p = buf.data_ptr()
     for wl in range(1, 4200, 7):
         for step in sorted({0, 1, max(wl // 3, 1), wl, wl + 1}):
-            err = lib.zt_irfft_ola_window(p, p, p, p, p, p, 1.0, 1, 0, wl,
+            err = lib.zt_irfft_ola_window(p, p, p, p, p, 1.0, 1, 0, wl,
                                           step, 0)
             assert (err == 0) is (rfft.fits(wl) and 1 <= step <= wl), (
                 wl, step, err)
@@ -2247,7 +2339,8 @@ def test_long_windows_on_the_card(dev, wl, dial, lever, monkeypatch):
     fb = zaftpu_torch.melfilterbank(44100, wl, 40)
     kernels = (framing.frame_window, ola.overlap_add, fused.frames_rfft,
                rfft.frames_rfft_fft, rfft.frames_rfft_full_fft,
-               irfft.istft_ola_fft, synth.istft_ola, kmdct.mdct_fft,
+               irfft.istft_ola_fft, irfft.istft_ola_fft_full, synth.istft_ola,
+               kmdct.mdct_fft,
                kmdct.imdct_ola_fft, melfft.spec_rows_fft,
                melfft.mel_rows_fft, melfused.spec_rows, melfused.mel_rows)
     before = [k.launches for k in kernels]
@@ -2584,7 +2677,7 @@ def test_bench_suite_on_the_card(dev):
     by = {r["transform"]: r for r in rows}
     assert len(rows) == 18
     assert by["stft"]["launches"] == {"rfft.frames_rfft_full_fft": 1}
-    assert by["istft"]["launches"] == {"irfft.istft_ola_fft": 1}
+    assert by["istft"]["launches"] == {"irfft.istft_ola_fft_full": 1}
     assert by["melspectrogram"]["launches"] == {"melfft.mel_rows_fft": 1}
     assert by["cqtspectrogram"]["launches"] == {
         "cqtfft.cqt_magnitudes_fft": 1}
@@ -2681,11 +2774,13 @@ def test_sharded_launches_the_same_kernels(dev, nccl_mesh):
     x = torch.from_numpy(np.random.default_rng(47).standard_normal(
         44100 * 5).astype(np.float32)).to(dev)
     win = hamming(2048)
-    before = (rfft.frames_rfft_full_fft.launches, irfft.istft_ola_fft.launches,
+    before = (rfft.frames_rfft_full_fft.launches,
+              irfft.istft_ola_fft_full.launches,
               rfft.frames_rfft_full_fft_plain.calls)
     spec = S.stft_sharded(x, win, 1024, nccl_mesh[0])
     S.istft_sharded(spec, win, 1024, nccl_mesh[0], block=True)
-    after = (rfft.frames_rfft_full_fft.launches, irfft.istft_ola_fft.launches,
+    after = (rfft.frames_rfft_full_fft.launches,
+             irfft.istft_ola_fft_full.launches,
              rfft.frames_rfft_full_fft_plain.calls)
     assert [b - a for a, b in zip(before, after)] == [1, 1, 0]
 

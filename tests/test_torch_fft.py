@@ -371,8 +371,9 @@ def test_prime_windows_f32_match_numpy_rfft(wl):
 @pytest.mark.parametrize("wl", PRIME_WINDOWS)
 def test_prime_windows_stft_istft_match_zaftpu(wl, monkeypatch):
     """The public float32 stft -> istft at a window whose half has a prime
-    factor above 7, half overlap: the FFT's full store and the inverse
-    FFT's plain versions, once each; the spectrum and the signal within
+    factor above 7, half overlap: the FFT's full store and the fused
+    fold's (the Hermitian fold read in the inverse FFT's load) plain
+    versions, once each; the spectrum and the signal within
     1e-5 of max of zaftpu.stft and zaftpu.istft on the same input
     (tests/test_torch_stft.py's gate), and a round trip of at least 120
     dB."""
@@ -382,11 +383,12 @@ def test_prime_windows_stft_istft_match_zaftpu(wl, monkeypatch):
         np.float32)
     win = hamming(wl).astype(np.float32)
     counters = (trfft.frames_rfft_full_fft_plain,
-                tirfft.istft_ola_fft_plain)
+                tirfft.istft_ola_fft_full_plain, tirfft.istft_ola_fft_plain)
     before = [c.calls for c in counters]
     spec = zaftpu_torch.stft(torch.from_numpy(x), win, step)
     rec = zaftpu_torch.istft(spec, win, step)
-    assert [c.calls for c in counters] == [b + 1 for b in before]
+    assert [c.calls for c in counters] == [before[0] + 1, before[1] + 1,
+                                           before[2]]
     ref = np.asarray(zaftpu.stft(x, win, step))
     ref_rec = np.asarray(zaftpu.istft(ref, win, step))
     assert spec.dtype == torch.complex64 and tuple(spec.shape) == ref.shape

@@ -164,8 +164,8 @@ def test_window_store_plain_matches_zaftpus_composition(wl, step, t, lead,
     zaftpu's synthesize computes it (griffinlim.py:40-43)."""
     s, win, wsq = _store_inputs(wl, step, t, lead, dtype)
     mine = tirfft.istft_ola_fft_window_plain(
-        torch.from_numpy(s[0]), torch.from_numpy(s[1]), wl, step,
-        torch.from_numpy(win), torch.from_numpy(wsq))
+        torch.complex(torch.from_numpy(s[0]), torch.from_numpy(s[1])), wl,
+        step, torch.from_numpy(win), torch.from_numpy(wsq))
     half = jnp.asarray(s[0] + 1j * s[1])
     frames = zfft.real_ifft(zfft.full_from_half(half, wl)) * win
     ref = zframe.overlap_add(frames, step) / wsq
@@ -187,38 +187,39 @@ def test_window_store_with_a_flat_window_is_the_existing_store(dtype):
         (2, t, wl // 2 + 1))).to(dtype)
     ones = torch.ones(wl, dtype=dtype)
     flat = tirfft.istft_ola_fft_window_plain(
-        s[0], s[1], wl, step, ones, torch.ones((t - 1) * step + wl,
-                                               dtype=dtype))
+        torch.complex(s[0], s[1]), wl, step, ones,
+        torch.ones((t - 1) * step + wl, dtype=dtype))
     assert torch.equal(flat, tirfft.istft_ola_fft_plain(s[0], s[1], wl, step,
                                                         1.0))
 
 
 def test_window_store_no_frames():
     out = tirfft.istft_ola_fft_window_plain(
-        torch.zeros(0, 129), torch.zeros(0, 129), 256, 64,
+        torch.zeros(0, 129, dtype=torch.complex64), 256, 64,
         torch.ones(256), torch.full((192,), 2.0))
     assert out.shape == (192,) and not out.any()
 
 
 def _bad_window_launch(case):
     wl, step, t = 256, 64, 5
-    re = torch.zeros(t, wl // 2 + 1)
+    spec = torch.zeros(t, wl // 2 + 1, dtype=torch.complex64)
     win, wsq = torch.ones(wl), torch.ones((t - 1) * step + wl)
-    args = {"f64": (re.double(), re.double(), wl, step, win, wsq),
-            "step": (re, re, wl, wl + 1, win, wsq),
-            "window": (re, re, wl, step, win[:-1], wsq),
-            "wsq": (re, re, wl, step, win, wsq[:-1]),
-            "planes": (re, re[:, :-1], wl, step, win, wsq),
-            "too_long": (torch.zeros(t, 4097), torch.zeros(t, 4097), 8192,
+    args = {"f64": (spec.to(torch.complex128), wl, step, win, wsq),
+            "step": (spec, wl, wl + 1, win, wsq),
+            "window": (spec, wl, step, win[:-1], wsq),
+            "wsq": (spec, wl, step, win, wsq[:-1]),
+            "planes": (spec[:, :-1], wl, step, win, wsq),
+            "too_long": (torch.zeros(t, 4097, dtype=torch.complex64), 8192,
                          step, torch.ones(8192), torch.ones(8192 + 4 * step))}
-    return tirfft._launch(*args[case][:4], 1.0, args[case][4:])
+    return tirfft._launch_complex("istft_ola_fft_window",
+                                  *args[case][:3], 1.0, args[case][3:])
 
 
 @pytest.mark.parametrize("case", ["f64", "step", "window", "wsq", "planes",
                                   "too_long"])
 def test_window_store_refuses_before_launch(case, monkeypatch):
-    """The CUDA half checks the dtype, hop, window, envelope, planes and
-    length before it touches the library: float64 raises
+    """The CUDA half checks the dtype, hop, window, envelope, spectrum width
+    and length before it touches the library: complex128 raises
     NotImplementedError, the rest ValueError; no launch is counted."""
     def no_library():
         raise AssertionError("the launch was reached")

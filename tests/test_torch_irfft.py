@@ -134,7 +134,8 @@ def test_imaginary_dc_and_nyquist_are_not_read():
 def test_cpu_istft_matches_zaftpu_and_the_goldens(golden, signal,
                                                   hamming_window, dial, dtype,
                                                   monkeypatch):
-    """istft at WL 2048 on either dial runs the inverse FFT's plain version:
+    """istft at WL 2048 on either dial runs the fused fold's plain version
+    (the Hermitian fold, then the inverse FFT's arithmetic, one call):
     within 1e-12 (float64) or 2e-6 of max (float32) of the reference golden
     and of zaftpu.istft on the same spectrum, whose engine is its native
     FFT off the TPU."""
@@ -143,9 +144,9 @@ def test_cpu_istft_matches_zaftpu_and_the_goldens(golden, signal,
     spec = golden["stft"].astype(np.complex128 if dtype == np.float64
                                  else np.complex64)
     win = hamming_window.astype(dtype)
-    calls = tirfft.istft_ola_fft_plain.calls
+    calls = _synth_calls()
     mine = zaftpu_torch.istft(torch.from_numpy(spec), win, 1024).numpy()
-    assert tirfft.istft_ola_fft_plain.calls == calls + 1
+    assert _synth_calls() == (calls[0], calls[1], calls[2], calls[3] + 1)
     assert mine.dtype == dtype
     ref = np.asarray(zaftpu.istft(spec, win, 1024))
     atol = (1e-12 if dtype == np.float64
@@ -159,7 +160,8 @@ def test_cpu_istft_matches_zaftpu_and_the_goldens(golden, signal,
 
 def _synth_calls():
     return (tirfft.istft_ola_fft_plain.calls, tsynth.istft_ola_plain.calls,
-            tsynth.istft_ola_split4_plain.calls)
+            tsynth.istft_ola_split4_plain.calls,
+            tirfft.istft_ola_fft_full_plain.calls)
 
 
 @pytest.mark.parametrize("wl,lever,ops,want", [
@@ -190,9 +192,9 @@ def test_shape_rule_through_plain_calls(wl, lever, ops, want, dial,
     before = _synth_calls()
     out = tsynth.istft_ola(torch.from_numpy(h[0]), torch.from_numpy(h[1]),
                            wl, step, SCALE, op)
-    gemm = (0, 0, 1) if dial == "split4" else (0, 1, 0)
+    gemm = (0, 0, 1, 0) if dial == "split4" else (0, 1, 0, 0)
     assert _synth_calls() == tuple(b + d for b, d in zip(
-        before, (1, 0, 0) if want == "fft" else gemm))
+        before, (1, 0, 0, 0) if want == "fft" else gemm))
     ref = _oracle(h, wl, step)
     tol = 1e-4 if want == "gemm" and dial == "split4" else 2e-6
     np.testing.assert_allclose(out.numpy(), ref, rtol=0,
@@ -218,8 +220,9 @@ def _bad_launch(case):
         "f64": lambda: tirfft._launch(h.double(), h.double(), wl, step, 1.0),
         # The windowed store keeps the static path's windows; the inverse
         # takes every other from 16 to 4,096 (an odd one below 16 fails).
-        "prime_above_7": lambda: tirfft._launch(
-            torch.zeros(t, 132), torch.zeros(t, 132), 262, 131, 1.0,
+        "prime_above_7": lambda: tirfft._launch_complex(
+            "istft_ola_fft_window",
+            torch.zeros(t, 132, dtype=torch.complex64), 262, 131, 1.0,
             (torch.zeros(262), torch.ones(8 * 131 + 262))),
         "odd": lambda: tirfft._launch(torch.zeros(t, 8), torch.zeros(t, 8),
                                       15, 7, 1.0),

@@ -580,7 +580,8 @@ def test_split4_takes_the_fft_where_the_rule_holds(x32, monkeypatch):
     twin: bit-equal to the
     exact dial's outputs, within 2e-6 of max of zaftpu's split4 outputs
     under ZAFTPU_FFT=auto (its native FFT off the TPU; MFCC atol 5e-3),
-    and istft runs the inverse FFT's plain version and no twin: its round
+    and istft runs the fused fold's plain version (the fold read in the
+    inverse FFT's load) and no twin: its round
     trip bit-equal to the exact dial's, above split4's (100, 125) dB."""
     monkeypatch.delenv("ZAFTPU_FFT", raising=False)
     x = torch.from_numpy(x32)
@@ -609,10 +610,11 @@ def test_split4_takes_the_fft_where_the_rule_holds(x32, monkeypatch):
         _gemm_close(_np(mine), np.asarray(ref))
     np.testing.assert_allclose(_np(outs[3]), np.asarray(refs[3]), rtol=0,
                                atol=5e-3)  # the log domain (test_mel.py:70)
-    synths = (tirfft.istft_ola_fft_plain, tsynth.istft_ola_split4_plain)
+    synths = (tirfft.istft_ola_fft_full_plain, tsynth.istft_ola_split4_plain,
+              tirfft.istft_ola_fft_plain)
     calls = tuple(c.calls for c in synths)
     rec = zaftpu_torch.istft(outs[0], win, STEP)
-    assert tuple(c.calls for c in synths) == (calls[0] + 1, calls[1])
+    assert tuple(c.calls for c in synths) == (calls[0] + 1, *calls[1:])
     monkeypatch.setenv("ZAFTPU_PRECISION", "highest")
     assert torch.equal(rec, zaftpu_torch.istft(exact[0], win, STEP))
     assert snr_db(x32, _np(rec)) > 125.0

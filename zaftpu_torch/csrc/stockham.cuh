@@ -1,8 +1,10 @@
 // The mixed-radix Stockham passes of an M-point complex FFT in shared
 // memory: fft_rows, which the real FFT's stores off the static path
-// (rfft.cu: rfft_any), the inverse real FFT + overlap-add (irfft.cu) and
-// the fast MDCT (mdct.cu) run, and static_fft (below), the same passes
-// regrouped for the real FFT's static path (rfft.cu: rfft_kernel).
+// (rfft.cu: rfft_any), the inverse real FFT + overlap-add off it (irfft.cu:
+// irfft_any) and the fast MDCT (mdct.cu) run, and static_fft (below), the
+// same passes regrouped for the static paths of the real FFT (rfft.cu:
+// rfft_kernel) and of the inverse (irfft.cu: irfft_kernel, through
+// run_step and its own first step from the spectrum).
 //
 // A 256-thread block transforms up to kElems complex values at once (the
 // stores and the inverse off the static path up to kMaxElems, in dynamic
@@ -388,7 +390,8 @@ inline bool any_plan(int n, int P, AnyPlan* a) {
 }
 
 // ---------------------------------------------------------------------------
-// The static real FFT's passes (rfft.cu: rfft_kernel only). The same
+// The static path's passes (rfft.cu: rfft_kernel; irfft.cu: irfft_kernel,
+// whose first step reads the spectrum). The same
 // butterflies, twiddle products and sums as fft_rows, in the same order, so
 // every value is bit-equal to it and to kernels/rfft.py's plain version;
 // what changes is where the values live between passes and how a thread
@@ -470,8 +473,10 @@ struct StaticPlan {
   Step step[kMaxSteps];
 };
 
-// The plan of an even window fft_fits takes, or false.
-inline bool static_plan(int n, StaticPlan* sp) {
+// The plan of an even window fft_fits takes, or false. single_first: the
+// first pass is a step of its own, never paired with the next (irfft.cu's
+// first step reads each pair of mirrored inputs once).
+inline bool static_plan(int n, StaticPlan* sp, bool single_first = false) {
   Plan plan;
   if (!fft_fits(n, &plan)) return false;
   int r[24], cnt = 0;
@@ -495,7 +500,7 @@ inline bool static_plan(int n, StaticPlan* sp) {
   out.by_f = make_divmod(out.m + 1);
   for (int i = 0; i < cnt;) {
     if (out.steps == kMaxSteps) return false;
-    const bool pair = i + 1 < cnt &&
+    const bool pair = (i > 0 || !single_first) && i + 1 < cnt &&
                       ((r[i] == 4 && (r[i + 1] == 4 || r[i + 1] == 2)) ||
                        (r[i] == 3 && r[i + 1] == 3));
     Step& st = out.step[out.steps++];
@@ -529,43 +534,53 @@ inline bool static_plan(int n, StaticPlan* sp) {
 }
 
 // The block's frames in the signal: row f is frame t0 + f (zeros from T
-// on); vec: 8-byte signal and window loads.
+// on); vec: 8-byte signal and window loads. The first step's source of its
+// values (static_fft's Src; irfft.cu has another, the spectrum's).
 struct Frames {
   const float* sig;
   const float* win;
   long long t0;
   int T, step, vec;
-};
 
-// Values z[g + t G], t < R, of row f from the signal (SIG) or from src.
-template <int R, bool SIG>
-__device__ __forceinline__ void load_group(const float2* src, const Frames& fr,
-                                           int f, int base, int g, int G,
-                                           float2 (&v)[R]) {
-  if constexpr (SIG) {
-    const long long t = fr.t0 + f;
-    if (t >= fr.T) {
+  // Values z[g + i G], i < R, of row f: the windowed frame packed as z[m]
+  // = x[2m] w[2m] + i x[2m+1] w[2m+1].
+  template <int R>
+  __device__ __forceinline__ void load(int f, int g, int G,
+                                       float2 (&v)[R]) const {
+    const long long t = t0 + f;
+    if (t >= T) {
 #pragma unroll
       for (int i = 0; i < R; ++i) v[i] = make_float2(0.f, 0.f);
       return;
     }
-    const float* p = fr.sig + t * fr.step;
-    if (fr.vec) {
+    const float* p = sig + t * step;
+    if (vec) {
 #pragma unroll
       for (int i = 0; i < R; ++i) {
         const int m = g + i * G;
         const float2 x = __ldg(reinterpret_cast<const float2*>(p) + m);
-        const float2 w = __ldg(reinterpret_cast<const float2*>(fr.win) + m);
+        const float2 w = __ldg(reinterpret_cast<const float2*>(win) + m);
         v[i] = make_float2(__fmul_rn(x.x, w.x), __fmul_rn(x.y, w.y));
       }
     } else {
 #pragma unroll
       for (int i = 0; i < R; ++i) {
         const int m = 2 * (g + i * G);
-        v[i] = make_float2(__fmul_rn(__ldg(p + m), __ldg(fr.win + m)),
-                           __fmul_rn(__ldg(p + m + 1), __ldg(fr.win + m + 1)));
+        v[i] = make_float2(__fmul_rn(__ldg(p + m), __ldg(win + m)),
+                           __fmul_rn(__ldg(p + m + 1), __ldg(win + m + 1)));
       }
     }
+  }
+};
+
+// Values z[g + t G], t < R, of row f from the source (SIG: in.load) or
+// from src.
+template <int R, bool SIG, class Src>
+__device__ __forceinline__ void load_group(const float2* src, const Src& in,
+                                           int f, int base, int g, int G,
+                                           float2 (&v)[R]) {
+  if constexpr (SIG) {
+    in.template load<R>(f, g, G, v);
   } else {
 #pragma unroll
     for (int i = 0; i < R; ++i) v[i] = src[pad(base + g + i * G)];
@@ -588,8 +603,8 @@ __device__ __forceinline__ void odd_constants(const float2* __restrict__ tab,
 }
 
 // One step of radices R1 then R2 (R2 = 1: one pass) over the block's rows.
-template <int R1, int R2, bool SIG>
-__device__ __forceinline__ void fused_step(const float2* src, const Frames& fr,
+template <int R1, int R2, bool SIG, class Src>
+__device__ __forceinline__ void fused_step(const float2* src, const Src& fr,
                                            float2* dst,
                                            const float2* __restrict__ tab,
                                            int M, const Step& st) {
@@ -787,10 +802,10 @@ __device__ __forceinline__ void prime_reg_step(const float2* src, float2* dst,
   }
 }
 
-// Step st from src (or the signal, SIG) into dst.
+// Step st from src (or the source fr, SIG) into dst.
 // REG: the plan has primes up to kRegPrime (StaticPlan::cs > 0).
-template <bool SIG, bool REG>
-__device__ __forceinline__ void run_step(const float2* src, const Frames& fr,
+template <bool SIG, bool REG, class Src>
+__device__ __forceinline__ void run_step(const float2* src, const Src& fr,
                                          float2* dst,
                                          const float2* __restrict__ tab,
                                          const float2* cs, int M,
@@ -821,20 +836,11 @@ __device__ __forceinline__ void run_step(const float2* src, const Frames& fr,
   }
 }
 
-// The M-point FFTs of the block's fpb frames (each windowed and packed as
-// z[m] = x[2m] + i x[2m+1]) by the steps of `plan`, between buf[0] and
-// buf[1] (padded); sp: a shared copy of the plan that thread 0 writes
-// here; cs: the shared cos/sin table of the primes up to kRegPrime (W_N^(kk
-// N/p), kk < p, at each step's cso), written here. Returns the buffer that
-// holds them, after a barrier. REG as in run_step.
+// The shared cos/sin table of the plan's primes up to kRegPrime (W_N^(kk
+// N/p), kk < p, at each step's cso); REG as in run_step.
 template <bool REG>
-__device__ __forceinline__ int static_fft(float2 (*buf)[kPadElems],
-                                          StaticPlan& sp, float2* cs,
-                                          const StaticPlan& plan,
-                                          const float2* __restrict__ tab,
-                                          const Frames& fr) {
-  const int M = plan.m;
-  if (threadIdx.x == 0) sp = plan;
+__device__ __forceinline__ void prime_table(float2* cs, const StaticPlan& plan,
+                                            const float2* __restrict__ tab) {
 #pragma unroll
   for (int i = 0; i < kMaxSteps; ++i) {
     const Step& st = plan.step[i];
@@ -844,6 +850,24 @@ __device__ __forceinline__ int static_fft(float2 (*buf)[kPadElems],
       }
     }
   }
+}
+
+// The M-point FFTs of the block's fpb frames (each windowed and packed as
+// z[m] = x[2m] + i x[2m+1]) by the steps of `plan`, between buf[0] and
+// buf[1] (padded); sp: a shared copy of the plan that thread 0 writes
+// here; cs: the shared cos/sin table of the primes up to kRegPrime,
+// written here (prime_table). Returns the buffer that holds them, after a
+// barrier. REG as in run_step; fr: the frames (Frames), or another source
+// with Frames' load.
+template <bool REG, class Src>
+__device__ __forceinline__ int static_fft(float2 (*buf)[kPadElems],
+                                          StaticPlan& sp, float2* cs,
+                                          const StaticPlan& plan,
+                                          const float2* __restrict__ tab,
+                                          const Src& fr) {
+  const int M = plan.m;
+  if (threadIdx.x == 0) sp = plan;
+  prime_table<REG>(cs, plan, tab);
   const Step& s0 = plan.step[0];
   int i = 1;
   if (s0.r1 > 7) {

@@ -31,7 +31,8 @@ Seven levers choose the kernels, with ``zaftpu``'s names and meaning:
   instead of the complex-store one; off by default, equal values;
 * ``ZAFTPU_MIRROR=pallas``: the STFT's conjugate mirror and the ISTFT's
   Hermitian fold run as kernels (:mod:`zaftpu_torch.kernels.mirror`)
-  instead of PyTorch index ops; off by default;
+  instead of PyTorch index ops (or, for the fold at a static window, the
+  inverse kernel's load); off by default;
 * ``ZAFTPU_FFT=matmul``: the DFT and its inverse as GEMMs at every
   window, which turns the shape rule below off (``auto``, the default,
   and ``native`` follow it), and the CQT's time-domain kernels at every
@@ -48,7 +49,10 @@ operator, ``ZAFTPU_FFT`` not ``matmul``): the full-spectrum analysis
 half-spectrum analysis (``fused.frames_rfft``, and ``fused.frames_matmul2``
 as two planes) its half and planes stores (:mod:`zaftpu_torch.kernels.rfft`),
 and the fused ISTFT synthesis (``synth.istft_ola``) the inverse real-FFT +
-overlap-add kernel (:mod:`zaftpu_torch.kernels.irfft`, ``irfft.applies``);
+overlap-add kernel (:mod:`zaftpu_torch.kernels.irfft`, ``irfft.applies``),
+which at a static window (``rfft.applies``: ``rfft.fits``) reads
+``istft``'s full spectrum itself, the Hermitian fold in its load
+(``irfft.istft_ola_fft_full``);
 the magnitude and mel front ends take its magnitude and mel stores
 (:mod:`zaftpu_torch.kernels.melfft`, ``melfft.applies``): an odd window a
 complex FFT a frame, a prime factor above 127 by Bluestein. The front ends
@@ -109,8 +113,10 @@ from zaftpu_torch.core import fft as _fft
 from zaftpu_torch.core.policy import real_matmul
 from zaftpu_torch.kernels import framing as _framing
 from zaftpu_torch.kernels import fused as _fused
+from zaftpu_torch.kernels import irfft as _irfft
 from zaftpu_torch.kernels import mirror as _mirror
 from zaftpu_torch.kernels import ola as _ola
+from zaftpu_torch.kernels import rfft as _rfft
 from zaftpu_torch.kernels import synth as _synth
 # Largest window the kernels' analysis and synthesis take; longer ones run
 # the framing kernel, the FFT layer and OLA.
@@ -184,11 +190,15 @@ def overlap_add(frames, step: int):
 def synthesis_ola(spectra, step: int, gain: float = 1.0):
     """Synthesis back end from bins-major spectra ``(..., N, T)``:
     ``overlap_add(real(ifft(spectraᵀ)), step) / gain``, with the division
-    folded into the inverse transform. The Hermitian fold runs as PyTorch
-    index ops, or with ``ZAFTPU_MIRROR=pallas`` as the fold kernel; then
-    the fused synthesis (the inverse real-FFT kernel where its shape rule
-    holds, every window from 16 to 4096, else the inverse GEMM kernel or
-    its twin), or with
+    folded into the inverse transform. At a window of the static inverse
+    kernel's rule (``rfft.applies``) with the fused synthesis on and
+    ``ZAFTPU_MIRROR`` not ``pallas``, one launch: the inverse real-FFT
+    kernel reading the Hermitian fold in its load
+    (``irfft.istft_ola_fft_full``, the spectrum in its own strides).
+    Elsewhere the fold runs first, as PyTorch index ops or with
+    ``ZAFTPU_MIRROR=pallas`` as the fold kernel; then the fused synthesis
+    (the inverse real-FFT kernel where its shape rule holds, every window
+    from 16 to 4096, else the inverse GEMM kernel or its twin), or with
     ``ZAFTPU_SYNTH=0`` the inverse GEMM followed by the OLA kernel. Above
     :data:`MAX_WINDOW`, ``zaftpu``'s off-engine composition:
     :func:`zaftpu_torch.core.fft.real_ifft`, the OLA kernel, ``/ gain``."""
@@ -197,6 +207,8 @@ def synthesis_ola(spectra, step: int, gain: float = 1.0):
     if n > MAX_WINDOW:
         out = overlap_add(_fft.real_ifft(fm), step)
         return out / gain if gain != 1.0 else out
+    if synth_enabled() and not _mirror.enabled() and _rfft.applies(n):
+        return _irfft.istft_ola_fft_full(fm, n, step, 1.0 / gain)
     if _mirror.enabled():
         h_re, h_im = _mirror.fold_half_planes(fm, n)
     else:

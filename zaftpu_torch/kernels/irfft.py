@@ -23,16 +23,25 @@ scale / N`` rounded once, and the overlap-add summed c ascending. So the
 CPU tests exercise the kernel's indexing and the kernel equals it on the
 card.
 
-The same kernel body's windowed store (:func:`istft_ola_fft_window`, the
-C entry ``zt_irfft_ola_window``) is Griffin-Lim's synthesis
+At a window that :func:`zaftpu_torch.kernels.rfft.fits` (the static
+path) the same kernel body reads the spectrum through two more loads. The
+fused fold (:func:`istft_ola_fft_full`, the C entry ``zt_irfft_ola_full``)
+takes the full complex spectrum ``(..., T, N)`` in its own strides and
+folds it in its load, ``H_k = (Z_k + conj(Z_{(N-k) mod N})) / 2`` in the
+fold's order: ``istft``'s synthesis there
+(:func:`zaftpu_torch.kernels.synthesis_ola`, where
+:func:`zaftpu_torch.kernels.rfft.applies`),
+bit-equal to :func:`zaftpu_torch.core.fft.hermitian_fold_planes` followed by
+:func:`istft_ola_fft`, with neither the fold's planes written nor read
+back. The windowed store (:func:`istft_ola_fft_window`, the C entry
+``zt_irfft_ola_window``) is Griffin-Lim's synthesis
 (``zaftpu/transforms/griffinlim.py:40-43``, ``real_ifft(full_from_half(S))
-* win``, the overlap-add and ``/ wsq``) from the half spectrum's planes as
-they are: the Hermitian fold of S's conjugate mirror is S, bit for bit,
-but for the imaginary parts of DC and Nyquist, which the kernel does not
-read. Each frame sample is multiplied by the window before its add and
-the finished sum divided by the envelope at the store; its plain version
-repeats that order. It takes only a window that
-:func:`zaftpu_torch.kernels.rfft.fits`, the pairing Griffin-Lim asks for.
+* win``, the overlap-add and ``/ wsq``) from the complex half spectrum as
+Griffin-Lim holds it: the Hermitian fold of S's conjugate mirror is S, bit
+for bit, but for the imaginary parts of DC and Nyquist, which the kernel
+does not read. Each frame sample is multiplied by the window before its
+add and the finished sum divided by the envelope at the store; its plain
+version repeats that order.
 """
 
 from __future__ import annotations
@@ -42,6 +51,7 @@ import math
 
 import torch
 
+from zaftpu_torch.core import fft as _fft
 from zaftpu_torch.kernels import _build
 from zaftpu_torch.kernels import rfft as _rfft
 
@@ -52,8 +62,39 @@ REPLACES_SPLIT4 = "zaftpu/pallas/synth.py:231"  # its _kernel_split4, B4-s4
 # envelope (zaftpu/transforms/griffinlim.py:40-43, XLA ops there).
 REPLACES_WINDOW = REPLACES
 
-# Output samples a block of the kernel owns (csrc/stockham.cuh: kSpan).
+# The fused fold: B4 with the Hermitian fold (B11b's function; index ops
+# on zaftpu's default path, zaftpu/core/fft.py) read in its load.
+REPLACES_FULL = REPLACES
+
+# The most output samples a block of the kernel owns (csrc/stockham.cuh:
+# kSpan); irfft_any's blocks own exactly this many.
 SPAN = 8192
+# Blocks of the static kernel an SM holds (csrc/irfft.cu: kBlocksPerSm).
+BLOCKS_PER_SM = 3
+
+
+def block_span(n: int, step: int, t: int, batch: int = 1,
+               sms: int = 132) -> int:
+    """Output samples a block of the static kernel owns for ``batch`` rows
+    of ``t`` frames at window ``n`` and this hop on a card of ``sms`` SMs
+    (``csrc/irfft.cu``: ``span_for``): the multiple ``m`` of the hop up to
+    :data:`SPAN` that minimises the waves of blocks (``sms`` times
+    :data:`BLOCKS_PER_SM` at once) times the groups of ``fpb = 2048 //
+    (n/2)`` frames a block transforms, ``m + (n - 1) // step`` (the larger
+    ``m`` on a tie); :data:`SPAN` at a window that does not
+    :func:`zaftpu_torch.kernels.rfft.fits`."""
+    if not _rfft.fits(n):
+        return SPAN
+    fpb = 2048 // (n // 2)
+    out_len = (t - 1) * step + n
+    slots = sms * BLOCKS_PER_SM
+    best, best_cost = 1, None
+    for m in range(1, SPAN // step + 1):
+        blocks = -(-out_len // (m * step)) * batch
+        cost = -(-blocks // slots) * -(-(m + (n - 1) // step) // fpb)
+        if best_cost is None or cost <= best_cost:
+            best, best_cost = m, cost
+    return best * step
 
 
 def _factor(n: int, scale: float, dtype: torch.dtype) -> torch.Tensor:
@@ -140,40 +181,78 @@ def istft_ola_fft_plain(h_re: torch.Tensor, h_im: torch.Tensor, n: int,
 istft_ola_fft_plain.calls = 0
 
 
-def istft_ola_fft_window_plain(s_re: torch.Tensor, s_im: torch.Tensor,
-                               n: int, step: int, window: torch.Tensor,
+def istft_ola_fft_window_plain(spec: torch.Tensor, n: int, step: int,
+                               window: torch.Tensor,
                                wsq: torch.Tensor) -> torch.Tensor:
     """The windowed store's function in plain PyTorch: the ``(...,
-    (T-1)*step + N)`` overlap-add of ``irfft_N`` of the half-spectrum planes
-    ``(..., T, N/2+1)`` times ``window``, divided by ``wsq``, in the
-    kernel's order."""
+    (T-1)*step + N)`` overlap-add of ``irfft_N`` of the complex half
+    spectrum ``(..., T, N/2+1)`` times ``window``, divided by ``wsq``, in
+    the kernel's order."""
     istft_ola_fft_window_plain.calls += 1
-    frames = _inverse_frames(s_re, s_im, n, 1.0) * window.to(s_re.dtype)
-    return _overlap_add(frames, step) / wsq.to(s_re.dtype)
+    frames = (_inverse_frames(spec.real, spec.imag, n, 1.0)
+              * window.to(spec.real.dtype))
+    return _overlap_add(frames, step) / wsq.to(spec.real.dtype)
 
 
 istft_ola_fft_window_plain.calls = 0
 
 
-def istft_ola_fft_window(s_re: torch.Tensor, s_im: torch.Tensor, n: int,
-                         step: int, window: torch.Tensor,
+def istft_ola_fft_window(spec: torch.Tensor, n: int, step: int,
+                         window: torch.Tensor,
                          wsq: torch.Tensor) -> torch.Tensor:
     """Griffin-Lim's synthesis by the inverse real FFT: ``overlap_add(
     irfft_N(S) * window, step) / wsq``, ``(..., (T-1)*step + N)``, from the
-    half spectrum's planes ``(..., T, N/2+1)``, for an ``n`` that
-    :func:`zaftpu_torch.kernels.rfft.fits` and any hop in ``[1, n]``;
-    ``window`` is ``(N,)`` and ``wsq`` ``((T-1)*step + N,)``, shared by the
-    leading axes.
+    complex half spectrum ``(..., T, N/2+1)`` as Griffin-Lim holds it, for
+    an ``n`` that :func:`zaftpu_torch.kernels.rfft.fits` and any hop in
+    ``[1, n]``; ``window`` is ``(N,)`` and ``wsq`` ``((T-1)*step + N,)``,
+    shared by the leading axes.
 
     A CPU tensor takes the plain version; a CUDA tensor launches the kernel
     (leading axes flattened into its batch) or raises.
     """
-    if not s_re.is_cuda:
-        return istft_ola_fft_window_plain(s_re, s_im, n, step, window, wsq)
-    return _launch(s_re, s_im, n, step, 1.0, (window, wsq))
+    if not spec.is_cuda:
+        return istft_ola_fft_window_plain(spec, n, step, window, wsq)
+    return _launch_complex("istft_ola_fft_window", spec, n, step, 1.0,
+                           (window, wsq))
 
 
 istft_ola_fft_window.launches = 0
+
+
+def istft_ola_fft_full_plain(z: torch.Tensor, n: int, step: int,
+                             scale: float) -> torch.Tensor:
+    """The fused fold's function in plain PyTorch: the Hermitian fold of
+    the full spectrum ``(..., T, N)``
+    (:func:`zaftpu_torch.core.fft.hermitian_fold_planes`), then
+    :func:`istft_ola_fft_plain`'s inverse and overlap-add, in the kernel's
+    order."""
+    istft_ola_fft_full_plain.calls += 1
+    h_re, h_im = _fft.hermitian_fold_planes(z.real, z.imag, n)
+    return _overlap_add(_inverse_frames(h_re, h_im, n, scale), step)
+
+
+istft_ola_fft_full_plain.calls = 0
+
+
+def istft_ola_fft_full(z: torch.Tensor, n: int, step: int,
+                       scale: float) -> torch.Tensor:
+    """Fused ISTFT synthesis from the full complex spectrum ``(..., T, N)``,
+    any strides (the transposed view of a bins-major spectrum is read in
+    place), the Hermitian fold read in the kernel's load: the ``(..., T*step
+    + N - step)`` signal before the trim, for an ``n`` that
+    :func:`zaftpu_torch.kernels.rfft.fits` and any hop in ``[1, n]``.
+    Bit-equal to the fold followed by :func:`istft_ola_fft`. ``scale`` is
+    the COLA 1/gain.
+
+    A CPU tensor takes the plain version; a CUDA tensor launches the kernel
+    (leading axes flattened into its batch) or raises.
+    """
+    if not z.is_cuda:
+        return istft_ola_fft_full_plain(z, n, step, scale)
+    return _launch_complex("istft_ola_fft_full", z, n, step, scale)
+
+
+istft_ola_fft_full.launches = 0
 
 
 def istft_ola_fft(h_re: torch.Tensor, h_im: torch.Tensor, n: int, step: int,
@@ -195,37 +274,81 @@ def istft_ola_fft(h_re: torch.Tensor, h_im: torch.Tensor, n: int, step: int,
 istft_ola_fft.launches = 0
 
 
-def _launch(h_re: torch.Tensor, h_im: torch.Tensor, n: int, step: int,
-            scale: float, windowed: tuple | None = None) -> torch.Tensor:
-    """Check a CUDA input and launch the kernel, the windowed store when
-    ``windowed`` gives ``(window, wsq)`` (at an ``n`` that
-    :func:`zaftpu_torch.kernels.rfft.fits`), else at any ``n`` from 16 to
-    4096 with its Bluestein length; with no frames (or no rows), return the
-    ``N - step`` zeros a row without a launch (the windowed store's plain
-    version divides them by ``wsq``)."""
-    name = "istft_ola_fft_window" if windowed else "istft_ola_fft"
-    _build.require_f32(h_re, name)
-    _build.require_f32(h_im, name)
-    if windowed and not _rfft.fits(n):
+def _check(name: str, n: int, step: int, static: bool) -> None:
+    """The window and hop an entry takes: any ``n`` from 16 to 4096, or
+    with ``static`` one that :func:`zaftpu_torch.kernels.rfft.fits`; a hop
+    in ``[1, n]``."""
+    if static and not _rfft.fits(n):
         raise ValueError(f"{name}: N must be even, in [{_rfft.MIN_WINDOW}, "
                          f"{_rfft.MAX_WINDOW}], with no prime factor above "
                          f"{_rfft.MAX_PRIME} in its half, got {n}")
     if not _rfft.MIN_WINDOW <= n <= _rfft.MAX_WINDOW:
         raise ValueError(f"{name}: N must be in [{_rfft.MIN_WINDOW}, "
                          f"{_rfft.MAX_WINDOW}], got {n}")
+    if not 1 <= step <= n:
+        raise ValueError(f"{name}: need step in [1, {n}], got {step}")
+
+
+def _launch(h_re: torch.Tensor, h_im: torch.Tensor, n: int, step: int,
+            scale: float) -> torch.Tensor:
+    """Check CUDA planes and launch ``zt_irfft_ola`` at any ``n`` from 16
+    to 4096 with its Bluestein length; with no frames (or no rows), return
+    the ``N - step`` zeros a row without a launch."""
+    name = "istft_ola_fft"
+    _build.require_f32(h_re, name)
+    _build.require_f32(h_im, name)
+    _check(name, n, step, False)
     f = n // 2 + 1
     *lead, t, width = h_re.shape
     if h_im.shape != h_re.shape or width != f:
         raise ValueError(f"{name}: planes must both be (..., T, {f}), got "
                          f"{tuple(h_re.shape)} and {tuple(h_im.shape)}")
-    if not 1 <= step <= n:
-        raise ValueError(f"{name}: need step in [1, {n}], got {step}")
     batch = math.prod(lead)
     # Output spans ride grid x (2^31 - 1 blocks), the batch grid y.
     _build.require_grid(batch, 1, name)
     dev = h_re.device
+    out_len = (t - 1) * step + n
+    out = torch.empty((batch, out_len), dtype=torch.float32, device=dev)
+    if t == 0 or batch == 0:
+        return out.zero_().reshape(*lead, out_len)
     hr = h_re.reshape(batch, t, f).contiguous()
     hi = h_im.reshape(batch, t, f).contiguous()
+    err = _build.library().zt_irfft_ola(
+        hr.data_ptr(), hi.data_ptr(), _rfft.kernel_tables(n, dev).data_ptr(),
+        out.data_ptr(), _factor_c(n, scale), batch, t, n, step,
+        _rfft.layout(n).p, _build.stream_of(h_re))
+    _build.check(err, "zt_irfft_ola")
+    istft_ola_fft.launches += 1
+    return out.reshape(*lead, out_len)
+
+
+def _factor_c(n: int, scale: float) -> ctypes.c_float:
+    return ctypes.c_float(_factor(n, scale, torch.float32).item())
+
+
+def _launch_complex(name: str, z: torch.Tensor, n: int, step: int,
+                    scale: float, windowed: tuple | None = None
+                    ) -> torch.Tensor:
+    """Check a CUDA complex64 spectrum and launch the static kernel at an
+    ``n`` that :func:`zaftpu_torch.kernels.rfft.fits`: the windowed store
+    (``zt_irfft_ola_window``) from the half spectrum ``(..., T, N/2+1)``
+    when ``windowed`` gives ``(window, wsq)``, else the fused fold
+    (``zt_irfft_ola_full``) from the full spectrum ``(..., T, N)`` in its
+    own strides. With no frames (or no rows), return the ``N - step`` zeros
+    a row without a launch (the windowed store's plain version divides them
+    by ``wsq``)."""
+    if z.dtype != torch.complex64:
+        raise NotImplementedError(
+            f"{name}: the CUDA kernel takes complex64, got {z.dtype}")
+    _check(name, n, step, True)
+    width = n // 2 + 1 if windowed else n
+    if z.ndim < 2 or z.shape[-1] != width:
+        raise ValueError(f"{name}: need a (..., T, {width}) spectrum, got "
+                         f"{tuple(z.shape)}")
+    *lead, t, _ = z.shape
+    batch = math.prod(lead)
+    _build.require_grid(batch, 1, name)
+    dev = z.device
     out_len = (t - 1) * step + n
     if windowed:
         win, wsq = (v.to(device=dev, dtype=torch.float32).contiguous()
@@ -234,25 +357,26 @@ def _launch(h_re: torch.Tensor, h_im: torch.Tensor, n: int, step: int,
             raise ValueError(f"{name}: need a ({n},) window and a "
                              f"({out_len},) wsq, got {tuple(win.shape)} and "
                              f"{tuple(wsq.shape)}")
-    if t == 0 or batch == 0:
-        out = torch.zeros((batch, out_len), dtype=torch.float32, device=dev)
-        if windowed:
-            out = out / wsq
-        return out.reshape(*lead, out_len)
-    tw = _rfft.store_tables(n, torch.float32, dev)
     out = torch.empty((batch, out_len), dtype=torch.float32, device=dev)
-    s = ctypes.c_float(_factor(n, scale, torch.float32).item())
-    lib, stream = _build.library(), _build.stream_of(h_re)
+    if t == 0 or batch == 0:
+        out.zero_()
+        return (out / wsq if windowed else out).reshape(*lead, out_len)
+    tw = _rfft.kernel_tables(n, dev).data_ptr()
+    lib, stream = _build.library(), _build.stream_of(z)
     if windowed:
+        spec = z.reshape(batch, t, width).contiguous()
         err = lib.zt_irfft_ola_window(
-            hr.data_ptr(), hi.data_ptr(), tw.data_ptr(), win.data_ptr(),
-            wsq.data_ptr(), out.data_ptr(), s, batch, t, n, step, stream)
+            spec.data_ptr(), tw, win.data_ptr(), wsq.data_ptr(),
+            out.data_ptr(), _factor_c(n, 1.0), batch, t, n, step, stream)
         _build.check(err, "zt_irfft_ola_window")
         istft_ola_fft_window.launches += 1
     else:
-        err = lib.zt_irfft_ola(hr.data_ptr(), hi.data_ptr(), tw.data_ptr(),
-                               out.data_ptr(), s, batch, t, n, step,
-                               _rfft.layout(n).p, stream)
-        _build.check(err, "zt_irfft_ola")
-        istft_ola_fft.launches += 1
+        # A view wherever the leading axes allow; the kernel takes strides.
+        z3 = z.reshape(batch, t, n)
+        sb, st, sk = z3.stride()
+        err = lib.zt_irfft_ola_full(
+            z3.data_ptr(), tw, out.data_ptr(), _factor_c(n, scale), batch, t,
+            n, step, sb, st, sk, stream)
+        _build.check(err, "zt_irfft_ola_full")
+        istft_ola_fft_full.launches += 1
     return out.reshape(*lead, out_len)

@@ -15,8 +15,9 @@ real-FFT kernel's half store for the analysis
 (:func:`zaftpu_torch.kernels.rfft.frames_rfft_fft`) and the inverse real-FFT
 kernel's windowed store for the synthesis
 (:func:`zaftpu_torch.kernels.irfft.istft_ola_fft_window`, which reads the
-half spectrum as it is). At any other window, or under
-``ZAFTPU_FFT=matmul``, ``zaftpu``'s composition on the port's dispatch:
+complex half spectrum as it is, no copy of its planes). At any other
+window, or under ``ZAFTPU_FFT=matmul``, ``zaftpu``'s composition on the
+port's dispatch:
 ``kernels.windowed_frames_rfft`` (the real-FFT kernel's half store at every
 window up to 4096, its ``rfft_any`` off that rule; the GEMM B1 under
 ``ZAFTPU_FFT=matmul``; the framing kernel and the FFT layer's ``rfft``
@@ -78,8 +79,7 @@ def griffin_lim(magnitude, window_function, step_length: int,
 
     def synthesize(spec: torch.Tensor) -> torch.Tensor:
         if on_rule:
-            return _irfft.istft_ola_fft_window(spec.real, spec.imag, wl, step,
-                                               win, wsq)
+            return _irfft.istft_ola_fft_window(spec, wl, step, win, wsq)
         frames = _fft.real_ifft(_fft.full_from_half(spec, wl)) * win
         return _kernels.overlap_add(frames, step) / wsq
 
