@@ -1653,9 +1653,10 @@ def oracle_error(x: torch.Tensor, spec: torch.Tensor, wl: int = WL,
 # round trip; at WL 2062 there the lowered dials are ordered
 # (check_dial_order).
 FFT_PATH = (("frames_rfft_full_fft", "synth_fft_full"), EXACT_GATES)
-# Off the static rule (WL 2062) istft folds by index ops, then irfft_any.
-ANY_PATH = (("frames_rfft_full_fft", "synth_fft"), EXACT_GATES)
-FFT2_PATH = (("frames_matmul2_fft", "synth_fft"), EXACT_GATES)
+# Off the static rule (WL 2062) istft reads the full spectrum through
+# irfft_any's fused fold too.
+ANY_PATH = FFT_PATH
+FFT2_PATH = (("frames_matmul2_fft", "synth_fft_full"), EXACT_GATES)
 TWIN_PATH = ("fused_split4", "synth_split4")
 STFT_WANT = {
     "default": FFT_PATH,
@@ -1943,10 +1944,11 @@ def _istft_oracle(spec: torch.Tensor, host_win: np.ndarray,
 
 
 # What the entry points launch at every window from 16 to 4,096: stft's full
-# store, istft's inverse kernel, the magnitude and mel stores (the half and
-# planes stores run under ZAFTPU_FULLSPEC=0 and ZAFTPU_FUSED2=1 and are held
-# here at kernel level).
-ANY_STORES = ("frames_rfft_full_fft", "synth_fft") + MEL_STORES
+# store, istft's inverse kernel with the fold in its load, the magnitude and
+# mel stores (the half and planes stores run under ZAFTPU_FULLSPEC=0 and
+# ZAFTPU_FUSED2=1, the inverse on folded planes under ZAFTPU_MIRROR=pallas,
+# and are held here at kernel level).
+ANY_STORES = ("frames_rfft_full_fft", "synth_fft_full") + MEL_STORES
 
 
 def phase_any_window(dev) -> dict:
@@ -1955,22 +1957,24 @@ def phase_any_window(dev) -> dict:
     where the FFT's length has a prime factor above 127), at ANY_WINDOWS'
     600-s shapes and ANY_RAGGED's: stft -> istft, spectrogram,
     melspectrogram and mfcc through the entry points (the full, magnitude
-    and mel stores and the inverse kernel launched, no plain version, no
-    GEMM), the spectrum, spectrogram and mel against a float64 torch.fft
+    and mel stores and the inverse kernel's fused fold launched, no plain
+    version, no GEMM), the spectrum, spectrogram and mel against a float64
+    torch.fft
     oracle and the synthesis against a float64 istft of the same spectrum
     (each <= 1e-5 * max|oracle|; not the round trip: an odd window's is one
     sample off under the reference's trim, and 2,062 / 512 and 4,078 /
     1,024 are not COLA), each store
     bit-equal to its plain version (half, planes, full, magnitude, mel and
-    power; the planes and the full store also to the half store's values)
-    and the inverse within FFT_TOL of its plain version, and at each 600-s
-    shape the median ms of each, of B1, B12, B3, B4, B8 or B9 (the route
-    under ZAFTPU_FFT=matmul), of one PyTorch call (torch.stft(...,
-    center=False), two-sided for the full store, the magnitude of bins
-    1..WL//2 for the magnitude and mel stores, times the filterbank
-    transpose for the mel; torch.istft of a ones window for the inverse)
-    and of its plain version, beside its bound; then QUIET_WINDOWS' loud and
-    quiet frames (_quiet_frames_case). Returns the entry points'
+    power; the planes and the full store also to the half store's values),
+    the inverse on folded planes and the fused fold on stft's bins-major
+    spectrum too, and at each 600-s shape the median ms of each, of B1,
+    B12, B3, B4, B8 or B9 (the route under ZAFTPU_FFT=matmul; none for the
+    fused fold), of one PyTorch call (torch.stft(..., center=False),
+    two-sided for the full store, the magnitude of bins 1..WL//2 for the
+    magnitude and mel stores, times the filterbank transpose for the mel;
+    torch.istft of a ones window for the inverse, two-sided for the fused
+    fold) and of its plain version, beside its bound; then QUIET_WINDOWS'
+    loud and quiet frames (_quiet_frames_case). Returns the entry points'
     launches."""
     launches = dict.fromkeys(ANY_STORES, 0)
     for label, sr, wl, step in ANY_WINDOWS:
@@ -2049,6 +2053,13 @@ def phase_any_window(dev) -> dict:
     planes[0], planes[1] = h_re, h_im
     _any_store_case("synth_fft", label,
                     (planes[0], planes[1], wl, step, scale), None, False)
+    # The fused fold on a full spectrum in a misaligned bins-major buffer.
+    full = fft.conjugate_mirror(torch.complex(h_re, h_im), wl)
+    flat = torch.zeros(full.numel() + offset, dtype=full.dtype, device=dev)
+    spec = flat[offset:].view(rows, wl, t)
+    spec.copy_(full.transpose(-1, -2))
+    _any_store_case("synth_fft_full", label,
+                    (spec.transpose(-1, -2), wl, step, scale), None, False)
     for wl in QUIET_WINDOWS:
         _quiet_frames_case(wl, dev)
     return launches
@@ -2105,33 +2116,38 @@ def _quiet_frames_case(wl: int, dev) -> None:
     want = padded.double().reshape(t, wl) * win.double()
     own = want.abs().amax(dim=-1)
     errs = (out.double().reshape(t, wl) - want).abs().amax(dim=-1)
-    err, scale = _max_abs(out - ref), _max_abs(ref)
+    err = _max_abs(out - ref)
     print(f"quiet frames WL {wl}: inverse max_abs_err vs its plain version "
           f"{err!r}; each frame's vs the windowed frame {errs.tolist()} "
           f"(maxima {own.tolist()})")
-    require(err <= FFT_TOL * scale
+    require(torch.equal(out, ref)
             and bool((errs <= ORACLE_TOL * own)[sounding].all())
             and not out.reshape(t, wl)[~sounding].any(),
-            f"quiet frames WL {wl}: the inverse is off its plain version "
-            f"({err}), a frame off its windowed samples, or a silent frame "
-            "not zero")
+            f"quiet frames WL {wl}: the inverse is not bit-equal to its "
+            f"plain version ({err}), a frame off its windowed samples, or a "
+            "silent frame not zero")
 
 
 def _any_store_args(x: torch.Tensor, win: torch.Tensor, fbank: np.ndarray,
                     wl: int, step: int) -> tuple:
     """(name, the kernel's arguments, those of its GEMM on
     ZAFTPU_FFT=matmul's route: B1's, B12's, B3's and B4's with their
-    operator, B8's or B9's) for the half, planes, full, magnitude and mel
-    (magnitude) stores on the centre-padded ``x``, and for the inverse
-    kernel on the folded planes of the half store's spectrum."""
+    operator, B8's or B9's; None for the fused fold) for the half, planes,
+    full, magnitude and mel (magnitude) stores on the centre-padded ``x``,
+    for the inverse kernel on the folded planes of the half store's
+    spectrum and for the fused fold on the full spectrum as istft hands it
+    over (stft's frames-major storage)."""
     padded, t = centre_padded(x, wl, step)
     table = melfft.device_table(melfft.filterbank_table(fbank), x.device)
     fbank_t = torch.from_numpy(np.ascontiguousarray(
         fbank.T.astype(np.float32))).to(x.device)
     analysis = (padded, win, wl, step, t)
     gemm = (*analysis, fused.rdft_ops(wl, torch.float32, x.device))
-    inverse = _folded(rfft.frames_rfft_fft(*analysis), wl, step)
+    half = rfft.frames_rfft_fft(*analysis)
+    inverse = _folded(half, wl, step)
     inverse = (*inverse[:2], wl, step, inverse[2])
+    full = fft.conjugate_mirror(half, wl)
+    del half
     return (("fused_fft", analysis, gemm),
             ("frames_matmul2_fft", analysis, gemm),
             ("frames_rfft_full_fft", analysis, gemm),
@@ -2140,7 +2156,8 @@ def _any_store_args(x: torch.Tensor, win: torch.Tensor, fbank: np.ndarray,
              (padded, win, fbank_t, wl, step, t, False)),
             ("synth_fft", inverse,
              (*inverse, synth.istft_ops(wl, inverse[-1], torch.float32,
-                                        x.device))))
+                                        x.device))),
+            ("synth_fft_full", (full, wl, step, inverse[-1]), None))
 
 
 def _any_cases(dev):
@@ -2173,8 +2190,11 @@ def _any_store_case(name: str, label: str, args: tuple, gemm_args,
     (ANY_GEMMS) on ``gemm_args``, the torch.stft or torch.istft yardstick's
     and its bound."""
     kernel, plain = KERNELS[name][2:]
+    inverse = name in ("synth_fft", "synth_fft_full")
     if name == "synth_fft":
         wl, t = args[2], args[0].shape[-2]
+    elif name == "synth_fft_full":
+        wl, t = args[1], args[0].shape[-2]
     elif name == "mel_rows_fft":
         wl, t = args[3], args[-2]
     else:
@@ -2185,15 +2205,10 @@ def _any_store_case(name: str, label: str, args: tuple, gemm_args,
              f"{f', Bluestein P {lay.p}' if lay.p else ''}")
     got, ref = _planes(kernel(*args)), _planes(plain(*args))
     err = _max_abs(torch.stack(got) - torch.stack(ref))
-    same = all(torch.equal(a, b) for a, b in zip(got, ref))
-    if name == "synth_fft":
-        scale = _max_abs(torch.stack(ref))
-        require(got[0].shape == ref[0].shape and err <= FFT_TOL * scale,
-                f"{name} [{label}] {shape}: max_abs_err {err!r} > {FFT_TOL} "
-                f"* {scale!r}")
-    else:
-        require(same, f"{name} [{label}] {shape}: not bit-equal to its plain "
-                f"version (max_abs_err {err!r})")
+    same = all(a.shape == b.shape and torch.equal(a, b)
+               for a, b in zip(got, ref))
+    require(same, f"{name} [{label}] {shape}: not bit-equal to its plain "
+            f"version (max_abs_err {err!r})")
     print(f"any window kernel {name} [{label}] {shape}: max_abs_err vs its "
           f"plain version {err!r} (bit-equal: {same})")
     if name in RESTORES:
@@ -2206,25 +2221,30 @@ def _any_store_case(name: str, label: str, args: tuple, gemm_args,
     del got, ref
     if not timed:
         return
-    gemm = ANY_GEMMS[name]
+    gemm = ANY_GEMMS.get(name)
     ms = median_ms(lambda: kernel(*args))
     plain_ms = median_ms(lambda: plain(*args), reps=3, warmup=1)
-    gemm_ms = median_ms(lambda: gemm(*gemm_args), reps=5)
     library_ms = median_ms(library_call(name, args))
     bound_ms, bound_by = bound(name, args)
     # The kernel's own operations (_frame_fft_ops with own) at the FP32
     # peak.
-    ops = {**dict.fromkeys(FFT_STORES, _half_ops),
-           "synth_fft": _inverse_ops}.get(name, _store_ops)
-    rows = _rows(args[0]) // (t if name == "synth_fft" else 1)
+    ops = {**dict.fromkeys(FFT_STORES, _half_ops), "synth_fft": _inverse_ops,
+           "synth_fft_full": _inverse_ops}.get(name, _store_ops)
+    rows = _rows(args[0]) // (t if inverse else 1)
     extra = rows * t * (ops(wl, own=True) - ops(wl))
     own_ms = (_work(name, args)[1] + extra) / PEAK_FP32 * 1e3
+    if gemm is None:
+        gemm_text = "no GEMM route"
+    else:
+        gemm_ms = median_ms(lambda: gemm(*gemm_args), reps=5)
+        gemm_text = (f"GEMM ({gemm.__name__}, ZAFTPU_FFT=matmul's route) "
+                     f"{gemm_ms:.4f} ms (median of 5), GEMM / kernel "
+                     f"{gemm_ms / ms:.3f}")
     print(f"  {name} [{label}]: kernel {ms:.4f} ms, plain {plain_ms:.4f} "
-          f"ms (median of 3), GEMM ({gemm.__name__}, ZAFTPU_FFT=matmul's "
-          f"route) {gemm_ms:.4f} ms (median of 5), library "
-          f"{library_ms:.4f} ms; bound {bound_ms:.4f} ms by {bound_by} "
-          f"(the kernel's own operations {own_ms:.4f} ms); kernel / library "
-          f"{ms / library_ms:.3f}; GEMM / kernel {gemm_ms / ms:.3f}")
+          f"ms (median of 3), library {library_ms:.4f} ms; bound "
+          f"{bound_ms:.4f} ms by {bound_by} (the kernel's own operations "
+          f"{own_ms:.4f} ms); kernel / library {ms / library_ms:.3f}; "
+          f"{gemm_text}")
 
 
 def phase_hour(dispatch: str, segs: list, wl: int = WL) -> None:
@@ -3569,7 +3589,7 @@ def main() -> int:
                  ("fused_fft", "mirror_full_planes", "fold_half_planes",
                   "synth_fft"), EXACT_GATES),
                 (FULLSPEC_OFF, f"ZAFTPU_FULLSPEC=0 WL {GEMM_WL}",
-                 ("fused_fft", "synth_fft"), EXACT_GATES))),
+                 ("fused_fft", "synth_fft_full"), EXACT_GATES))),
             (FFT_MATMUL, GEMM_WL, (
                 (MATMUL_FULLSPEC,
                  f"ZAFTPU_FFT=matmul ZAFTPU_FULLSPEC=1 WL {GEMM_WL}",

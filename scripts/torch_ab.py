@@ -21,8 +21,8 @@ case (main by default; "40 ms" and "25 ms" the FFT kernels' windows;
 "any" the real-FFT kernel's stores and the inverse at
 chip_smoke.ANY_WINDOWS' windows; --kernel synthesis: istft's synthesis,
 zaftpu_torch.kernels.synthesis_ola, on stft's spectrum of a 600-s segment
-at the main, 40-ms and 25-ms windows, whatever kernels each tree runs
-for it):
+at the main, 40-ms and 25-ms windows and, with --label any, at
+chip_smoke.ANY_WINDOWS', whatever kernels each tree runs for it):
 median of 10 CUDA-event pairs around one launch, which includes the
 wrapper's host work before it, or with --launches N around N launches
 queued back to back, which leaves the device's time alone (divided by N).
@@ -94,19 +94,26 @@ def synthesis(spec, step: int, gain: float):
 def synthesis_cases(chip_smoke, dev):
     """("synthesis", label, shape, args, None): stft's bins-major spectrum
     of a 600-s segment at the main, 40-ms and 25-ms windows (half
-    overlap), the hop and the Hamming window's COLA gain."""
+    overlap) and, labelled "any", at chip_smoke.ANY_WINDOWS' windows and
+    hops, the hop and the Hamming window's COLA gain."""
     import torch
 
     import zaftpu_torch
     from zaftpu_torch.core.frame import cola_gain
     from zaftpu_torch.core.windows import hamming
 
-    x = torch.from_numpy(chip_smoke.segment(0)).to(dev)
-    for label, wl in (("main", chip_smoke.WL), ("40 ms", chip_smoke.MIXED_WL),
-                      ("25 ms", chip_smoke.PRIME_WL)):
-        win, step = hamming(wl), wl // 2
+    cases = [(label, chip_smoke.SR, wl, wl // 2) for label, wl in (
+        ("main", chip_smoke.WL), ("40 ms", chip_smoke.MIXED_WL),
+        ("25 ms", chip_smoke.PRIME_WL))]
+    cases += [("any", sr, wl, step)
+              for _, sr, wl, step in chip_smoke.ANY_WINDOWS]
+    for label, sr, wl, step in cases:
+        x = torch.from_numpy(chip_smoke.segment(0)[
+            :chip_smoke.SEGMENT_SECONDS * sr]).to(dev)
+        win = hamming(wl)
         spec = zaftpu_torch.stft(x, win, step)
-        yield ("synthesis", label, f"WL {wl} hop {step} T {spec.shape[-1]}",
+        yield ("synthesis", label,
+               f"{label} WL {wl} hop {step} T {spec.shape[-1]}",
                (spec, step, cola_gain(win, step)), None)
 
 

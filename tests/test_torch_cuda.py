@@ -1373,11 +1373,14 @@ def test_irfft_fused_fold_matches_plain(dev, wl, step, t, lead, layout):
     assert torch.equal(got, irfft.istft_ola_fft(h_re, h_im, wl, step, 0.5))
 
 
-@pytest.mark.parametrize("wl", [2048, 1764, 1102, 400, 2822, 16])
+@pytest.mark.parametrize("wl", [2048, 1764, 1102, 400, 2822, 16, 2062, 441,
+                                3093, 4078])
 @pytest.mark.parametrize("layout", ["stft", "bins-major"])
 def test_istft_on_the_card_equals_the_fold_then_the_inverse(dev, wl,
                                                             layout):
-    """istft at a static window (half overlap) launches the fused fold once
+    """istft at a static window or off the rule (irfft_any: 2,062 and
+    4,078 by Bluestein, 441 odd, 3,093 odd by Bluestein; half overlap)
+    launches the fused fold once
     and equals, bit for bit, the route before it, computed by hand: the
     index fold of the spectrum, the inverse kernel on its planes, the
     trim. The spectrum as stft returns it (a transposed view) and as a
@@ -1403,20 +1406,26 @@ def test_istft_on_the_card_equals_the_fold_then_the_inverse(dev, wl,
 
 
 def test_irfft_full_entry_refuses_what_the_rule_refuses(dev):
-    """The fused fold's C entry takes the windows rfft.fits takes and a hop
-    in [1, N], and refuses every other and a misaligned spectrum, before
-    any launch: T = 0 returns after the checks."""
+    """The fused fold's C entry takes every length from 16 to 4,096 with
+    its Bluestein length (rfft.layout(N).p) and a hop in [1, N], and
+    refuses every other, a wrong P and a misaligned spectrum, before any
+    launch: T = 0 returns after the checks."""
     lib = _build.library()
     buf = torch.zeros(8192, device=dev)
     p = buf.data_ptr()
     for wl in range(1, 4200, 7):
+        big = rfft.layout(wl).p if melfft.fits(wl) else 0
         for step in sorted({0, 1, max(wl // 3, 1), wl, wl + 1}):
-            err = lib.zt_irfft_ola_full(p, p, p, 1.0, 1, 0, wl, step, wl, 1,
-                                        1, 0)
-            assert (err == 0) is (rfft.fits(wl) and 1 <= step <= wl), (
+            err = lib.zt_irfft_ola_full(p, p, p, 1.0, 1, 0, wl, step, big,
+                                        wl, 1, 1, 0)
+            assert (err == 0) is (melfft.fits(wl) and 1 <= step <= wl), (
                 wl, step, err)
-    assert lib.zt_irfft_ola_full(p + 4, p, p, 1.0, 1, 0, 2048, 1024, 2048,
-                                 1, 1, 0) != 0
+    for wl, big in ((2048, 288), (441, 882), (262, 0), (2062, 2063),
+                    (3093, 8194), (4078, 4076)):
+        assert lib.zt_irfft_ola_full(p, p, p, 1.0, 1, 0, wl, wl // 2, big,
+                                     wl, 1, 1, 0) != 0
+    assert lib.zt_irfft_ola_full(p + 4, p, p, 1.0, 1, 0, 2048, 1024, 0,
+                                 2048, 1, 1, 0) != 0
 
 
 def test_irfft_entry_refuses_what_the_rule_refuses(dev):
@@ -1474,8 +1483,7 @@ def test_stft_istft_take_the_ffts_on_both_dials(dev, wl, dial, monkeypatch):
     spec = zaftpu_torch.stft(x, win, wl // 2)
     rec = zaftpu_torch.istft(spec, win, wl // 2)
     moved = {k for k, c in counters.items() if c.launches != before[k]}
-    want = ("full" if rfft.applies(wl) else
-            "fft" if irfft.applies(wl) else
+    want = ("full" if irfft.applies(wl) else
             "twin" if dial == "split4" else "gemm")
     assert moved == {want} and counters[want].launches == before[want] + 1
     monkeypatch.setenv("ZAFTPU_PRECISION", "highest")
@@ -1498,7 +1506,8 @@ def test_odd_window_takes_the_half_store_on_card(dev, dial, lever,
     """An odd window: stft -> istft at WL 1323 / hop 441 (30 ms at 44.1
     kHz, periodic Hamming at a third of its length) under ZAFTPU_FULLSPEC=0
     launches the FFT kernel's half store (each frame a complex 1,323-point
-    FFT) and the inverse FFT kernel once each, and with ZAFTPU_FFT=matmul
+    FFT) and the inverse FFT kernel's fused fold once each, and with
+    ZAFTPU_FFT=matmul
     B1 and B4 (their twins under split4); the spectrum and the signal
     within 1e-5 (1e-4 where a twin runs) of max of the CPU float64 path,
     the half store's spectrum bit-equal across the dials. (At an odd window
@@ -1516,14 +1525,15 @@ def test_odd_window_takes_the_half_store_on_card(dev, dial, lever,
                 "synth": synth.istft_ola, "synth_twin": synth.istft_ola_split4,
                 "fft": rfft.frames_rfft_fft,
                 "fft_full": rfft.frames_rfft_full_fft,
-                "ifft": irfft.istft_ola_fft}
+                "ifft": irfft.istft_ola_fft,
+                "ifft_full": irfft.istft_ola_fft_full}
     before = {k: c.launches for k, c in counters.items()}
     spec = zaftpu_torch.stft(x, win, step)
     rec = zaftpu_torch.istft(spec, win, step)
     moved = {k for k, c in counters.items() if c.launches != before[k]}
     analysis = "fft" if lever is None else (
         "twin" if dial == "split4" else "gemm")
-    synthesis = "ifft" if lever is None else (
+    synthesis = "ifft_full" if lever is None else (
         "synth_twin" if dial == "split4" else "synth")
     want = {analysis, synthesis}
     assert moved == want
@@ -1843,12 +1853,16 @@ def test_melfft_entries_take_exactly_what_fits_takes(dev):
         assert (err == 0) is melfft.fits(wl), (wl, err)
     assert lib.zt_rfft_mel(p, p, p, ints.data_ptr(), ints.data_ptr(), p, p,
                            1, 8192, 0, 2048, 1, 0, 0, 0, 0) != 0
-    # P: none at a length the passes take; at least 2M - 1, free of primes
-    # above 127 and at most 8,192 under Bluestein.
+    # P: none at a length the passes take; under Bluestein at least 2M - 1,
+    # free of primes above 127, at most 8,192, its passes opening with two
+    # radix-4 ones (the first step the Bluestein kernels build) and holding
+    # no prime from 11 to 31 (they have no register-prime variant): 261 =
+    # 3^2 29 and 272 = 2^4 17 are refused, 592 = 2^4 37 taken.
     for wl, big in ((2048, 288), (441, 882), (262, 0), (262, 260),
-                    (262, 262), (2062, 2063), (3093, 8194)):
+                    (262, 262), (2062, 2063), (3093, 8194), (262, 261),
+                    (262, 272)):
         assert lib.zt_rfft_spec(p, p, p, p, 1, 8192, 0, wl, 1, big, 0) != 0
-    for wl, big in ((262, 261), (262, 2048), (3093, 8192)):
+    for wl, big in ((262, 592), (262, 2048), (3093, 8192)):
         assert lib.zt_rfft_spec(p, p, p, p, 1, 8192, 0, wl, 1, big, 0) == 0
     for wl in (15, 4097):
         padded, win = _inputs(wl, wl // 2, 3, dev)
@@ -2049,15 +2063,15 @@ def test_half_and_planes_stores_launch_nothing_for_zero_frames(dev, wl):
 
 
 def _full_and_inverse(dev, wl, step, t, lead=(2,), offset=1):
-    """The full store and the inverse kernel at ``wl`` launch once each
-    (nothing for zero frames): the full store equals its plain version bit
-    for bit and the half store's values mirrored, the inverse, on the half
-    store's planes copied to an offset view, within 1e-6 of max of its
-    plain version (chip_smoke.FFT_TOL). Where rfft.fits the window, the
-    fused fold on the full spectrum launches once too, bit-equal to its
-    plain version and to the inverse on the half store's planes (the fold
-    of a conjugate mirror is the half spectrum). Batched and misaligned
-    by default."""
+    """The full store, the inverse kernel and its fused fold at ``wl``
+    launch once each (nothing for zero frames): the full store equals its
+    plain version bit for bit and the half store's values mirrored, the
+    inverse on the half store's planes copied to an offset view equals its
+    plain version bit for bit, and the fused fold on the full spectrum
+    equals its plain version and the inverse on the half store's planes
+    (the fold of a conjugate mirror is the half spectrum), at every window
+    from 16 to 4,096 (irfft_any off rfft.fits). Batched and misaligned by
+    default."""
     padded, win = _inputs(wl, step, max(t, 1), dev, lead, offset)
     half = rfft.frames_rfft_fft(padded, win, wl, step, max(t, 1))[..., :t, :]
     flat = torch.zeros(2 * half.numel() + offset, device=dev)
@@ -2067,12 +2081,10 @@ def _full_and_inverse(dev, wl, step, t, lead=(2,), offset=1):
               irfft.istft_ola_fft.launches, irfft.istft_ola_fft_full.launches)
     full = rfft.frames_rfft_full_fft(padded, win, wl, step, t)
     out = irfft.istft_ola_fft(planes[0], planes[1], wl, step, 0.5)
-    fused_fold = rfft.fits(wl)
-    if fused_fold:
-        out_full = irfft.istft_ola_fft_full(full, wl, step, 0.5)
-        assert torch.equal(out_full, irfft.istft_ola_fft_full_plain(
-            full, wl, step, 0.5)), wl
-        assert torch.equal(out_full, out), wl
+    out_full = irfft.istft_ola_fft_full(full, wl, step, 0.5)
+    assert torch.equal(out_full, irfft.istft_ola_fft_full_plain(
+        full, wl, step, 0.5)), wl
+    assert torch.equal(out_full, out), wl
     assert full.shape == (*lead, t, wl) and full.dtype == torch.complex64
     assert out.shape == (*lead, (t - 1) * step + wl) and out.is_cuda
     if t:
@@ -2080,14 +2092,13 @@ def _full_and_inverse(dev, wl, step, t, lead=(2,), offset=1):
         assert torch.equal(full, rfft.frames_rfft_full_fft_plain(*args)), wl
         assert torch.equal(full, tfft.conjugate_mirror(half, wl)), wl
         ref = irfft.istft_ola_fft_plain(planes[0], planes[1], wl, step, 0.5)
-        assert _rel_err(out, ref) <= 1e-6, (wl, _rel_err(out, ref))
+        assert torch.equal(out, ref), (wl, _rel_err(out, ref))
     else:
         assert not out.any()
     runs = 1 if t else 0
     assert (rfft.frames_rfft_full_fft.launches, irfft.istft_ola_fft.launches,
             irfft.istft_ola_fft_full.launches) == (
-                before[0] + runs, before[1] + runs,
-                before[2] + (runs if fused_fold else 0))
+                before[0] + runs, before[1] + runs, before[2] + runs)
 
 
 @pytest.mark.parametrize("wl", HALF_WINDOWS)
@@ -2138,7 +2149,7 @@ def test_full_store_and_inverse_launch_nothing_for_zero_frames(dev, wl):
 def test_inverse_silent_frames_exact_zero(dev, wl):
     """The inverse kernel on disjoint frames (hop N) whose planes are zero
     in frames 1, 2 and 5 gives exactly 0 in their samples (each frame its
-    own FFT), and its plain version's values elsewhere (within 1e-6)."""
+    own FFT), and its plain version's values, bit for bit."""
     silent = torch.tensor([False, True, True, False, False, True, False])
     gen = torch.Generator(device=dev).manual_seed(wl)
     h = torch.randn((2, len(silent), wl // 2 + 1), device=dev, generator=gen)
@@ -2146,7 +2157,7 @@ def test_inverse_silent_frames_exact_zero(dev, wl):
     out = irfft.istft_ola_fft(h[0], h[1], wl, wl, 1.0)
     assert not out.view(len(silent), wl)[silent.to(dev)].any()
     ref = irfft.istft_ola_fft_plain(h[0], h[1], wl, wl, 1.0)
-    assert _rel_err(out, ref) <= 1e-6
+    assert torch.equal(out, ref), _rel_err(out, ref)
 
 
 @pytest.mark.parametrize("wl", [3093, 4095, 2062])

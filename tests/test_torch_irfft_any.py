@@ -51,6 +51,10 @@ HOPS = ["1", "non-divisor", "whole"]
 PASSES = {"split4": 4, "high": 3, "default": 1}
 SYNTH_PLAINS = (tirfft.istft_ola_fft_plain, tsynth.istft_ola_plain,
                 tsynth.istft_ola_split4_plain)
+# istft's synthesis: the fused fold (the Hermitian fold in the inverse's
+# load) at every window from 16 to 4,096, or the fold and then one of
+# SYNTH_PLAINS.
+ISTFT_PLAINS = (tirfft.istft_ola_fft_full_plain,) + SYNTH_PLAINS
 ANALYSIS_PLAINS = (trfft.frames_rfft_full_fft_plain,
                    trfft.frames_rfft_fft_plain,
                    trfft.frames_matmul2_fft_plain,
@@ -146,18 +150,18 @@ def test_synthesis_matches_zaftpu(wl, step, sr):
 def test_round_trip_matches_zaftpu_f32(golden, wl, step, dial, monkeypatch):
     """stft -> istft of the golden signal in float32 at the odd and
     Bluestein windows, on both dials: stft calls the full store's plain
-    version once and istft the inverse's once, no GEMM or twin; the
+    version once and istft the fused fold's once, no GEMM or twin; the
     spectrum within 2e-6 of max of zaftpu.stft and the synthesis within
     2e-6 of max of zaftpu.istft of the same spectrum."""
     x32 = golden["signal"].astype(np.float32)
     w32 = hamming(wl).astype(np.float32)
     _dial(dial, monkeypatch)
-    calls = _calls(ANALYSIS_PLAINS + SYNTH_PLAINS)
+    calls = _calls(ANALYSIS_PLAINS + ISTFT_PLAINS)
     spec = zaftpu_torch.stft(torch.from_numpy(x32), w32, step)
     rec = zaftpu_torch.istft(spec, w32, step)
     moved = [b - a for a, b in zip(calls, _calls(ANALYSIS_PLAINS
-                                                 + SYNTH_PLAINS))]
-    assert moved == [1] + [0] * (len(ANALYSIS_PLAINS) - 1) + [1, 0, 0]
+                                                 + ISTFT_PLAINS))]
+    assert moved == [1] + [0] * (len(ANALYSIS_PLAINS) - 1) + [1, 0, 0, 0]
     ref = np.asarray(zaftpu.stft(x32, w32, step))
     assert spec.shape == ref.shape and spec.dtype == torch.complex64
     assert np.abs(spec.numpy() - ref).max() <= 2e-6 * np.abs(ref).max()
@@ -181,18 +185,18 @@ def _numpy_istft(spec, win, step):
 @pytest.mark.parametrize("wl,step", STFT_CASES)
 def test_round_trip_float64_matches_zaftpu_and_numpy(golden, wl, step):
     """float64 (the oracle mode): stft -> istft of the golden signal
-    through the full store's and the inverse's plain versions, the
+    through the full store's and the fused fold's plain versions, the
     spectrum within 1e-12 of max of zaftpu.stft and of a numpy DFT, the
     synthesis within 1e-12 of max of zaftpu.istft and of numpy's istft of
     the same spectrum."""
     x = golden["signal"].astype(np.float64)
     win = hamming(wl)
     calls = _calls((trfft.frames_rfft_full_fft_plain,
-                    tirfft.istft_ola_fft_plain))
+                    tirfft.istft_ola_fft_full_plain))
     spec = zaftpu_torch.stft(torch.from_numpy(x), win, step).numpy()
     rec = zaftpu_torch.istft(torch.from_numpy(spec), win, step).numpy()
     assert _calls((trfft.frames_rfft_full_fft_plain,
-                   tirfft.istft_ola_fft_plain)) == [c + 1 for c in calls]
+                   tirfft.istft_ola_fft_full_plain)) == [c + 1 for c in calls]
     ref = np.asarray(zaftpu.stft(x, win, step))
     scale = np.abs(ref).max()
     assert spec.dtype == np.complex128
@@ -299,7 +303,7 @@ def test_synthesis_route_on_every_dial_and_lever(dial, lever, monkeypatch):
 def test_sharded_round_trip_one_rank_at_an_odd_window(golden, tmp_path):
     """stft_sharded -> istft_sharded (the block passed on) at WL 441 / hop
     147 on a one-rank gloo world (this process) equals istft of stft of the
-    same tensor bit for bit, through the inverse's plain version, and
+    same tensor bit for bit, through the fused fold's plain version, and
     zaftpu.istft of zaftpu.stft within 2e-6 of max."""
     wl, step = 441, 147
     x32 = golden["signal"].astype(np.float32)
@@ -312,10 +316,10 @@ def test_sharded_round_trip_one_rank_at_an_odd_window(golden, tmp_path):
                            world_size=1)
     try:
         mesh = make_mesh(1)
-        calls = tirfft.istft_ola_fft_plain.calls
+        calls = tirfft.istft_ola_fft_full_plain.calls
         block = stft_sharded(x, win, step, mesh)
         got = gather(istft_sharded(block, win, step, mesh, block=True), mesh)
-        assert tirfft.istft_ola_fft_plain.calls == calls + 1
+        assert tirfft.istft_ola_fft_full_plain.calls == calls + 1
     finally:
         dist.destroy_process_group()
     assert torch.equal(got, whole)

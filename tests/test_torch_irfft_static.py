@@ -20,6 +20,7 @@ import numpy as np
 import pytest
 import torch
 
+import zaftpu
 import zaftpu_torch
 from zaftpu.core import fft as zfft
 from zaftpu.core import frame as zframe
@@ -131,6 +132,47 @@ def test_fused_fold_of_a_conjugate_mirror_is_the_half_spectrum():
         tirfft.istft_ola_fft_plain(half.real, half.imag, wl, step, SCALE))
 
 
+# Windows off the static rule: odd (441; 551, 25 ms at 22.05 kHz; 2,205 in
+# the 4,096-value block), even by Bluestein (262: P 288; 2,062: P 2,304;
+# 4,078: P 4,096, the 4,096-value block) and odd by Bluestein in the
+# 8,192-value block (3,093: P 6,400), each with a hop that does not divide
+# it.
+OFF_RULE = [(441, 147), (551, 220), (2205, 441), (262, 131), (2062, 1031),
+            (4078, 1024), (3093, 1000)]
+
+
+@pytest.mark.parametrize("wl,step", OFF_RULE)
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+def test_fused_fold_off_the_rule(wl, step, dtype, monkeypatch):
+    """istft at a window rfft.fits refuses reads its full spectrum through
+    the fused fold too (irfft_any's load): one call of its plain version,
+    within 2e-6 (float32) or 1e-12 (float64) of max of zaftpu.istft of the
+    same seeded, non-Hermitian bins-major spectrum, and that plain version
+    bit-equal to the index fold followed by the planes' plain version."""
+    for name in ("ZAFTPU_PRECISION", "ZAFTPU_FFT", "ZAFTPU_MIRROR",
+                 "ZAFTPU_SYNTH"):
+        monkeypatch.delenv(name, raising=False)
+    assert not trfft.fits(wl)
+    t = 6
+    rng = np.random.default_rng(wl + step)
+    spec = (rng.standard_normal((wl, t))
+            + 1j * rng.standard_normal((wl, t))).astype(
+                np.complex64 if dtype == np.float32 else np.complex128)
+    win = hamming(wl).astype(dtype)
+    calls = tirfft.istft_ola_fft_full_plain.calls
+    mine = zaftpu_torch.istft(torch.from_numpy(spec), win, step).numpy()
+    assert tirfft.istft_ola_fft_full_plain.calls == calls + 1
+    ref = np.asarray(zaftpu.istft(spec, win, step))
+    assert mine.shape == ref.shape and mine.dtype == dtype
+    tol = 2e-6 if dtype == np.float32 else 1e-12
+    assert np.abs(mine - ref).max() <= tol * np.abs(ref).max()
+    z = torch.from_numpy(spec).T
+    h_re, h_im = tfft.hermitian_fold_planes(z.real, z.imag, wl)
+    assert torch.equal(tirfft.istft_ola_fft_full_plain(z, wl, step, SCALE),
+                       tirfft.istft_ola_fft_plain(h_re, h_im, wl, step,
+                                                  SCALE))
+
+
 def _window_planes_plain(s_re, s_im, n, step, window, wsq):
     """The windowed store's plain version as it read two planes before the
     complex load."""
@@ -175,17 +217,17 @@ def _counts():
     (2048, {"ZAFTPU_FFT": "native"}, {"full"}),
     (2048, {"ZAFTPU_MIRROR": "pallas"}, {"fold_kernel", "planes"}),
     (1102, {"ZAFTPU_MIRROR": "pallas"}, {"fold_kernel", "planes"}),
-    (2062, {}, {"planes"}),
-    (441, {}, {"planes"}),
+    (2062, {}, {"full"}),
+    (441, {}, {"full"}),
     (2048, {"ZAFTPU_SYNTH": "0"}, set()),
     (2048, {"ZAFTPU_FFT": "matmul"}, {"gemm"}),
     (15, {}, {"gemm"})])
 def test_synthesis_route_by_counters(wl, env, want, monkeypatch):
-    """istft's synthesis: at a static window (rfft.fits) the fused fold,
-    on every dial; under ZAFTPU_MIRROR=pallas the fold kernel, then the
-    inverse on its planes; off the static rule (2,062 by Bluestein, 441
-    odd) the index fold, then irfft_any on its planes; ZAFTPU_SYNTH=0 the
-    inverse GEMM and the OLA kernel (no synthesis kernel);
+    """istft's synthesis: at every window from 16 to 4,096 (the static
+    path, and off it 2,062 by Bluestein and 441 odd) the fused fold, on
+    every dial; under ZAFTPU_MIRROR=pallas the fold kernel, then the
+    inverse on its planes; ZAFTPU_SYNTH=0 the inverse GEMM and the OLA
+    kernel (no synthesis kernel);
     ZAFTPU_FFT=matmul and a window below 16 B4. One call each, and every
     route bit-equal to the index fold followed by the same synthesis."""
     for name in ("ZAFTPU_PRECISION", "ZAFTPU_FFT", "ZAFTPU_MIRROR",
@@ -237,11 +279,11 @@ def _bad_full_launch(case):
         "float32": lambda: tirfft._launch_complex(
             "istft_ola_fft_full", z.real, wl, step, 1.0),
         "off_rule": lambda: tirfft._launch_complex(
-            "istft_ola_fft_full", torch.zeros(t, 262, dtype=torch.complex64),
-            262, 131, 1.0),
+            "istft_ola_fft_full", torch.zeros(t, 15, dtype=torch.complex64),
+            15, 7, 1.0),
         "odd": lambda: tirfft._launch_complex(
-            "istft_ola_fft_full", torch.zeros(t, 441, dtype=torch.complex64),
-            441, 147, 1.0),
+            "istft_ola_fft_full", torch.zeros(2, 4097, dtype=torch.complex64),
+            4097, 2048, 1.0),
         "too_long": lambda: tirfft._launch_complex(
             "istft_ola_fft_full", torch.zeros(2, 8192, dtype=torch.complex64),
             8192, 4096, 1.0),
@@ -264,9 +306,9 @@ def _bad_full_launch(case):
                                   "width", "half_width", "no_frames_axis"])
 def test_fused_fold_refuses_before_launch(case, monkeypatch):
     """The fused fold's CUDA half checks the dtype (complex64 only:
-    NotImplementedError), the window (rfft.fits), the hop and the spectrum's
-    width and axes (ValueError) before it touches the library; no launch
-    is counted."""
+    NotImplementedError), the window (16 to 4,096: 15 and the odd 4,097
+    are refused), the hop and the spectrum's width and axes (ValueError)
+    before it touches the library; no launch is counted."""
     def no_library():
         raise AssertionError("the launch was reached")
 
@@ -283,22 +325,27 @@ def test_fused_fold_refuses_before_launch(case, monkeypatch):
     (2048, 1024, 25841, 1), (2048, 512, 51681, 1), (1764, 882, 30001, 1),
     (1102, 551, 48023, 1), (1200, 300, 48001, 1), (2032, 1000, 301, 3),
     (4096, 256, 1001, 1), (400, 160, 1001, 3), (16, 1, 700, 2),
-    (4096, 4096, 1, 1), (2062, 1031, 25841, 1)])
+    (4096, 4096, 1, 1), (2062, 1031, 25841, 1), (441, 147, 180001, 1),
+    (4078, 1024, 25842, 1)])
 def test_block_span_by_waves(wl, step, t, batch):
     """block_span (csrc/irfft.cu: span_for): a multiple of the hop within
-    SPAN at a static window (SPAN off it) whose waves of blocks times
-    groups a block is the least of every multiple's: on the 600-s WL 2048
-    / hop 1024 signal 7 hops (8 frames, 4 groups of 2, the fewest groups
-    an output frame), on a short one shorter blocks than that rule would
-    give."""
+    SPAN whose waves of blocks times groups a block is the least of every
+    multiple's, with the frames a group and the blocks an SM of geometry:
+    on the 600-s WL 2048 / hop 1024 signal 7 hops (8 frames, 4 groups of
+    2, the fewest groups an output frame), on a short one shorter blocks
+    than that rule would give; off the static rule (irfft_any) the rows of
+    its block (4 of 441 values in 2,048, 1 of 2,304 at 2,062 and of 4,096
+    at 4,078) and the blocks its shared memory leaves an SM (3, 3, 2)."""
     span = tirfft.block_span(wl, step, t, batch)
-    if not trfft.fits(wl):
-        assert span == tirfft.SPAN
-        return
     assert span % step == 0 and step <= span <= tirfft.SPAN
-    fpb = 2048 // (wl // 2)
+    fpb, per_sm = tirfft.geometry(wl)
+    if trfft.fits(wl):
+        assert (fpb, per_sm) == (2048 // (wl // 2), tirfft.BLOCKS_PER_SM)
+    else:
+        assert (fpb, per_sm) == {2062: (1, 3), 441: (4, 3),
+                                 4078: (1, 2)}[wl]
     out_len = (t - 1) * step + wl
-    slots = 132 * tirfft.BLOCKS_PER_SM
+    slots = 132 * per_sm
 
     def cost(m):
         blocks = -(-out_len // (m * step)) * batch

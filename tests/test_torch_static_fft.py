@@ -95,12 +95,45 @@ def test_pass_tables_are_gathers_of_the_twiddles(n):
     np.testing.assert_array_equal(dev.numpy(), tab)
 
 
-@pytest.mark.parametrize("n", [2062, 441, 4078])
+@pytest.mark.parametrize("n", [2062, 441, 4078, 3093, 262])
 def test_kernel_tables_off_the_rule_are_the_store_tables(n):
-    """Where rfft.fits refuses the window, rfft_any takes store_tables."""
+    """Where rfft.fits refuses the window, rfft_any and irfft_any take
+    store_tables followed by the per-pass tables of the L-point FFT (L the
+    FFT's own length, or its Bluestein length): for each pass of
+    radices(L), radix r at sub-transform length ns, W_L^(s k L/(ns r)) at
+    (s - 1) ns + k, gathered from the float32 table of W_L that
+    store_tables holds under Bluestein (L - 1 entries in all)."""
     assert not trfft.fits(n)
-    np.testing.assert_array_equal(trfft._kernel_tables(n),
-                                  trfft._store_tables(n))
+    lay = trfft.layout(n)
+    length = lay.p or lay.m
+    store = trfft._store_tables(n)
+    tab = trfft._kernel_tables(n)
+    assert tab.dtype == np.float32
+    assert tab.shape == (store.shape[0] + length - 1, 2)
+    np.testing.assert_array_equal(tab[:store.shape[0]], store)
+    tw = trfft._twiddles(length)
+    if lay.p:
+        np.testing.assert_array_equal(store[n:n + length], tw)
+    want, ns = [], 1
+    for r in trfft.radices(length):
+        for s in range(1, r):
+            for k in range(ns):
+                want.append(tw[s * k * (length // (ns * r))])
+        ns *= r
+    np.testing.assert_array_equal(tab[store.shape[0]:], np.array(want))
+
+
+def test_bluestein_plans_start_with_two_radix_4_passes():
+    """Every Bluestein length the windows from 16 to 4,096 take is a
+    multiple of 16 whose passes open with two radix-4 ones: the first step
+    rfft_any's and irfft_any's Bluestein kernels build (csrc/stockham.cuh:
+    any_plan refuses any other), and none holds a prime above 7 (their
+    kernels have no variant for a register prime)."""
+    lengths = {trfft.layout(n).p for n in range(16, 4097)} - {0}
+    assert len(lengths) == 41
+    for p in lengths:
+        assert trfft.radices(p)[:2] == (4, 4), p
+        assert max(trfft._factors(p)[0]) <= 7, p
 
 
 def test_divmod_multipliers_equal_floor_division():

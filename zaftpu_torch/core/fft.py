@@ -28,9 +28,10 @@ planes, as they are XLA gathers outside any kernel in ``zaftpu``; under
 ``ZAFTPU_MIRROR=pallas`` the mirror of :func:`full_from_half` (and the
 ISTFT's fold, :func:`zaftpu_torch.kernels.synthesis_ola`) go through
 :mod:`zaftpu_torch.kernels.mirror`, whose plain versions are these. By
-default the ISTFT's fold at a window the static inverse kernel takes is
-read in that kernel's load (:func:`zaftpu_torch.kernels.irfft.
-istft_ola_fft_full`), in this fold's order.
+default the ISTFT's fold at every window the inverse real-FFT kernel
+takes (16 to 4096) is read in that kernel's load
+(:func:`zaftpu_torch.kernels.irfft.istft_ola_fft_full`), in this fold's
+order; these index ops serve the GEMM routes.
 
 Dtype follows the input: float32 in gives complex64 out, float64 (the CPU
 oracle mode) gives complex128.

@@ -87,16 +87,19 @@
 // blocks at 64 registers spilled 700 bytes and ran up to 1.11 times
 // slower on an H100; PERF.md).
 //
-// irfft_any keeps the older span design (kSpan samples a block, its frames
-// by stockham.cuh's fft_rows) and runs each frame's transform as rfft.cu's
-// rfft_any does, backwards: an odd N as one complex N-point FFT of the
-// conjugated Hermitian extension a frame, a length with a prime above 127
-// by Bluestein, in rows of the 2,048-, 4,096- or 8,192-value block
+// irfft_any (on the same steps and span design) runs each
+// frame's transform as rfft.cu's rfft_any does, backwards: an odd N as one
+// complex N-point FFT of the conjugated Hermitian extension a frame, a
+// length with a prime above 127 by Bluestein (its product with B in the
+// second FFT's first step, its last chirp product in the overlap-add's
+// reads), in rows of the 2,048-, 4,096- or 8,192-value block
 // (zt::any_plan) in dynamic shared memory before the accumulator: up to
-// two 50-KB buffers and the 32-KB accumulator (N 3,093, P 6,400), one
-// block an SM there. Each frame is its own FFT (no two frames packed as one
-// FFT's real and imaginary parts), so a silent frame gives exact zeros
-// where no other frame reaches.
+// two 68-KB buffers and the 32-KB accumulator (N 3,093, P 6,400), one
+// block an SM there. It takes the Planes and the Complex<true> loads, so
+// istft's synthesis is one launch at every window from 16 to 4,096. Each
+// frame is its own FFT (no two frames packed as one FFT's real and
+// imaginary parts), so a silent frame gives exact zeros where no other
+// frame reaches.
 //
 // The windowed store (kWindowed, zt_irfft_ola_window) is Griffin-Lim's
 // synthesis, zaftpu/transforms/griffinlim.py:40-43: y[b, p] = (sum_t
@@ -125,15 +128,6 @@ __device__ __forceinline__ float2 conj_z_of(float ar, float ai, float br,
   const float zi =
       __fadd_rn(si, __fadd_rn(__fmul_rn(w.x, dr), __fmul_rn(w.y, di)));
   return make_float2(zr, -zi);
-}
-
-// conj Z[k] of one frame's folded planes a (re), b (im) (k = 0..M-1), tw
-// the table of W_N.
-__device__ __forceinline__ float2 conj_z(const float* a, const float* b,
-                                         const float2* __restrict__ tw, int k,
-                                         int M) {
-  return conj_z_of(a[k], k == 0 ? 0.f : b[k], a[M - k],
-                   k == 0 ? 0.f : b[M - k], __ldg(tw + k));
 }
 
 // The three loads of the static kernel: where frame u (from the block's
@@ -484,198 +478,247 @@ int launch(const Spec& spec, const void* tw, const void* win, const void* wsq,
   return (int)cudaGetLastError();
 }
 
-// irfft_any's geometry: the kSpan output samples of block (blockIdx.x,
-// blockIdx.y) and the frames that reach them: samples [p0, p0 + span),
-// block-relative sample q = p - t_lo * step of relative frame u = t - t_lo
-// (q < kSpan + N, u * step <= q), q0 the block's first sample, u_top its
-// last frame, `first` the planes' row of frame t_lo.
-struct Span {
-  long long p0, first;
-  int span, q0, u_top;
+// The rows of a group of irfft_any as zt::any_fft's first-step source
+// (Rows' role in irfft_kernel): row f holds frame top - f of the block
+// (zeros past its first frame) as its FFT's input, from the load spec: ODD
+// the conjugated Hermitian extension of H (m = 0: Re H[0]; m <= (N-1)/2:
+// conj H[m]; above: H[N - m]), else conj Z over M = N/2 points (conj_z_of,
+// the inverse split step, tw the table of W_N); BLUE times conj c[m] for m
+// < M, zeros from M to P, which it does not load.
+template <class Spec, bool ODD, bool BLUE>
+struct AnyRows {
+  Spec spec;
+  const float2* tw;
+  const float2* chirp;
+  int n, M, top;
+
+  __device__ __forceinline__ float2 value(int u, int m) const {
+    float2 v;
+    if constexpr (ODD) {
+      if (m == 0) {
+        v = make_float2(spec.h(u, 0).x, 0.f);
+      } else if (2 * m < n) {
+        const float2 h = spec.h(u, m);
+        v = make_float2(h.x, -h.y);
+      } else {
+        v = spec.h(u, n - m);
+      }
+    } else {
+      const float2 a = spec.h(u, m);
+      const float2 b = spec.h(u, M - m);
+      v = conj_z_of(a.x, m == 0 ? 0.f : a.y, b.x, m == 0 ? 0.f : b.y,
+                    __ldg(tw + m));
+    }
+    if constexpr (BLUE) v = zt::cmul(v, __ldg(chirp + m));
+    return v;
+  }
+
+  template <int R>
+  __device__ __forceinline__ void load(int f, int g, int G,
+                                       float2 (&v)[R]) const {
+    const int u = top - f;
+#pragma unroll
+    for (int i = 0; i < R; ++i) {
+      const int m = g + i * G;
+      v[i] = u < 0 || (BLUE && m >= M) ? make_float2(0.f, 0.f) : value(u, m);
+    }
+  }
 };
 
-__device__ __forceinline__ Span block_span(long long out_len, int T, int n,
-                                           int step) {
-  Span b;
-  b.p0 = (long long)blockIdx.x * zt::kSpan;
-  const long long rest = out_len - b.p0;
-  b.span = rest < zt::kSpan ? (int)rest : zt::kSpan;
-  const long long last = (b.p0 + b.span - 1) / step;
-  const long long t_top = last < T - 1 ? last : T - 1;
-  const long long t_lo = zt::first_frame(b.p0, n, step);
-  b.q0 = (int)(b.p0 - t_lo * step);
-  b.u_top = (int)(t_top - t_lo);
-  b.first = (long long)blockIdx.y * T + t_lo;
-  return b;
-}
-
-// irfft_any's overlap-add: the group's frames u_end < u <= ug, frame u in
-// row ug - u of z (L values apart), into the accumulator entries this
-// thread owns, frame index descending: s * x[j] (ODD: Re z[j]; else Re
-// z[j/2] at an even j, -Im at an odd one); then a barrier.
-template <bool ODD>
-__device__ __forceinline__ void add_group(float* acc, const float2* z, int L,
-                                          int ug, int u_end, const Span& b,
-                                          int n, int step, float s) {
-  for (int e = threadIdx.x; e < b.span; e += blockDim.x) {
-    const int q = b.q0 + e;
-    int u = q / step;
+// irfft_any's overlap-add: add_rows with rows of L values and each frame
+// sample from zt::blue_value (Bluestein's last chirp product where BLUE):
+// s * Re at position j (ODD), else s * Re at j/2 for an even j and s * -Im
+// for an odd one.
+template <bool ODD, bool BLUE>
+__device__ __forceinline__ void add_any(float* acc, const float2* z, int L,
+                                        int ug, int u_end, int q0, int len,
+                                        int n, int step, zt::Divmod by_step,
+                                        float s,
+                                        const float2* __restrict__ chirp) {
+  const int lo = max(q0, (u_end + 1) * step);
+  const int hi = min(q0 + len, ug * step + n);
+  for (int q = lo + threadIdx.x; q < hi; q += blockDim.x) {
+    int u = by_step.div(q);
     if (u > ug) u = ug;
-    float v = acc[e];
+    float v = acc[q - q0];
     for (int j = q - u * step; u > u_end && j < n; --u, j += step) {
-      const float2 c = z[(ug - u) * L + (ODD ? j : j >> 1)];
+      const float2 c =
+          zt::blue_value<BLUE>(z, (ug - u) * L, chirp, ODD ? j : j >> 1);
       v = __fadd_rn(v, __fmul_rn(ODD || !(j & 1) ? c.x : -c.y, s));
     }
-    acc[e] = v;
+    acc[q - q0] = v;
+  }
+}
+
+// irfft_kernel at a window fft_fits refuses (zt::any_plan), each frame's
+// transform as rfft.cu's rfft_any runs it, backwards: a.rows rows of a.L
+// values a group in two padded buffers of dynamic shared memory, the span's
+// accumulator after them. ODD runs the N-point FFT of the conjugated
+// Hermitian extension and reads x[j] = Re at position j; otherwise conj Z
+// over M = N/2 points and x[2j] = Re, x[2j+1] = -Im at position j, as
+// irfft_kernel. BLUE runs the M-point FFT (M = N when odd) by Bluestein on
+// rows of L = P values: the first step reads the chirped rows (AnyRows),
+// the second FFT's first step the first's times B, conjugated (BlueMid),
+// and the overlap-add each value conjugated and times conj c (blue_value).
+// The rest is irfft_kernel's design: a block owns `span` samples (a
+// multiple of the hop chosen by waves of blocks, span_for), transforms the
+// frames that reach them a group at a time from the highest frame down, and
+// adds each group's samples c ascending with no barrier before the next
+// group's first step. Each frame is its own FFT, so a frame's samples round
+// with no other frame's. spec: the load (Planes, or the full spectrum with
+// the fold, Complex<true>); tab: kernels/rfft.kernel_tables(N); REG as in
+// rfft_any.
+template <class Spec, bool ODD, bool BLUE, bool REG>
+__global__ void __launch_bounds__(zt::kThreads, kBlocksPerSm)
+irfft_any(Spec spec, const float2* __restrict__ tab, float* __restrict__ out,
+          float s, int T, int n, int step, long long out_len, int span,
+          zt::Divmod by_step, zt::AnyPlan a) {
+  extern __shared__ __align__(16) float2 smem[];
+  __shared__ zt::StaticPlan sp;
+  __shared__ float2 cs[zt::kMaxPrimes * zt::kRegPrime];
+  const zt::Buffers buf{smem, a.stride};
+  float* acc = reinterpret_cast<float*>(smem + 2 * a.stride);  // span
+  const int M = a.M;
+  const int L = a.L;
+  const int G = a.rows;
+  const float2* twp = BLUE ? tab + n : tab;  // W_L and the passes' tables
+  const float2* chirp = tab + n + L;         // BLUE only
+  const long long p0 = (long long)blockIdx.x * span;
+  const int len = (int)min((long long)span, out_len - p0);
+  const long long t_top = min((p0 + len - 1) / step, (long long)T - 1);
+  const long long t_lo = zt::first_frame(p0, n, step);
+  const int q0 = (int)(p0 - t_lo * step);
+  AnyRows<Spec, ODD, BLUE> rows{spec.at(blockIdx.y, t_lo, T), tab, chirp, n,
+                                M, 0};
+
+  if (threadIdx.x == 0) sp = a.sp;
+  zt::prime_table<REG>(cs, a.sp, twp);
+  for (int e = threadIdx.x; e < len; e += blockDim.x) acc[e] = 0.f;
+  __syncthreads();
+
+  constexpr int kFirst = BLUE ? zt::kQuadFirst : zt::kOddFirst;
+  int cur = 1;
+  for (int ug = (int)(t_top - t_lo); ug >= 0; ug -= G) {
+    rows.top = ug;
+    cur = zt::any_fft<kFirst, REG, BLUE>(buf, sp, cs, a.sp, twp, rows,
+                                         chirp + M, cur ^ 1);
+    add_any<ODD, BLUE>(acc, buf[cur], L, ug, max(ug - G, -1), q0, len, n,
+                       step, by_step, s, chirp);
   }
   __syncthreads();
+
+  float* ob = out + blockIdx.y * out_len + p0;
+  for (int e = threadIdx.x; e < len; e += blockDim.x) ob[e] = acc[e];
 }
 
-// irfft_kernel at a window fft_fits refuses (zt::any_plan), with each
-// frame's transform as rfft.cu's rfft_any runs it, backwards: `rows` rows
-// of L values in two buffers of dynamic shared memory, the accumulator
-// after them. ODD loads row position m of the conjugated Hermitian
-// extension (m = 0: Re H[0]; m <= (N-1)/2: conj H[m]; above: H[N - m]),
-// runs the N-point FFT and reads x[j] = Re at position j; otherwise conj Z
-// (conj_z) over M = N/2 points and x[2j] = Re, x[2j+1] = -Im at position
-// j, as irfft_ola_kernel. BLUE runs the M-point FFT (M = N when odd) by
-// Bluestein on rows of L = P values, as rfft_any does. Each frame is its
-// own FFT, so a frame's samples round with no other frame's. tab is
-// kernels/rfft.store_tables(N).
-template <bool ODD, bool BLUE>
-__global__ void __launch_bounds__(zt::kThreads)
-irfft_any(const float* __restrict__ hr, const float* __restrict__ hi,
-          const float2* __restrict__ tab, float* __restrict__ out, float s,
-          int T, int n, int step, long long out_len, int P, int rows,
-          zt::Plan plan) {
-  extern __shared__ __align__(16) float2 smem[];
-  const int M = ODD ? n : n / 2;
-  const int L = BLUE ? P : M;  // values a row
-  const int F = n / 2 + 1;     // bins a frame's planes hold
-  const zt::Buffers buf{smem, rows * L};
-  float* acc = reinterpret_cast<float*>(smem + 2 * rows * L);  // kSpan
-  const float2* twp = BLUE ? tab + n : tab;  // the passes' table, W_L
-  const float2* chirp = tab + n + P;
-  const float2* big = chirp + M;
-  const Span b = block_span(out_len, T, n, step);
-  const float* hrb = hr + b.first * F;
-  const float* hib = hi + b.first * F;
+// Blocks of irfft_any an SM holds: kBlocksPerSm, or as many as the SM's
+// 228 KB of shared memory takes of its two buffers, the largest
+// accumulator (kSpan floats) and 3 KB of static shared memory and reserve
+// (kernels/irfft.py: geometry): 3 in the 2,048-value block, 2 or 3 in the
+// 4,096-value one, 1 in the 8,192-value one. (On an H100, blocks of up to
+// twice kSpan ran 1.06-1.35 times as long at ANY_WINDOWS' shapes: PERF.md.)
+inline int any_blocks_per_sm(const zt::AnyPlan& a) {
+  const int bytes = 2 * a.stride * (int)sizeof(float2) +
+                    zt::kSpan * (int)sizeof(float) + 3 * 1024;
+  const int fit = 228 * 1024 / bytes;
+  return fit < kBlocksPerSm ? fit : kBlocksPerSm;
+}
 
-  for (int e = threadIdx.x; e < b.span; e += blockDim.x) acc[e] = 0.f;
-
-  for (int ug = b.u_top; ug >= 0; ug -= rows) {
-    const int cnt = ug + 1 < rows ? ug + 1 : rows;  // rows u = ug, ug - 1, ...
-    for (int e = threadIdx.x; e < cnt * L; e += blockDim.x) {
-      const int f = e / L;
-      const int m = e - f * L;
-      float2 v = make_float2(0.f, 0.f);
-      if (m < M) {
-        const float* re = hrb + (long long)(ug - f) * F;
-        const float* im = hib + (long long)(ug - f) * F;
-        if constexpr (ODD) {
-          if (m == 0) {
-            v.x = re[0];
-          } else if (m < F) {
-            v = make_float2(re[m], -im[m]);
-          } else {
-            v = make_float2(re[n - m], im[n - m]);
-          }
-        } else {
-          v = conj_z(re, im, tab, m, M);
-        }
-        if constexpr (BLUE) v = zt::cmul(v, __ldg(chirp + m));
-      }
-      buf[0][e] = v;
-    }
-    __syncthreads();
-    int cur = 0;
-    zt::fft_rows(buf, cur, twp, L, cnt, L, plan);
-    if constexpr (BLUE) {
-      zt::bluestein_tail(buf, cur, twp, chirp, big, L, M, cnt, plan);
-    }
-    add_group<ODD>(acc, buf[cur], L, ug, ug - cnt, b, n, step, s);
+template <class Spec, bool ODD, bool BLUE, bool REG>
+int launch_any(const Spec& spec, const float2* tab, float* out, float s,
+               int batch, int T, int n, int step, const zt::AnyPlan& a,
+               cudaStream_t st) {
+  int device = 0, sms = 0;
+  cudaError_t err = cudaGetDevice(&device);
+  if (err == cudaSuccess) {
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
   }
-
-  float* ob = out + blockIdx.y * out_len + b.p0;
-  for (int e = threadIdx.x; e < b.span; e += blockDim.x) ob[e] = acc[e];
-}
-
-template <bool ODD, bool BLUE>
-int launch_any(const float* hr, const float* hi, const float2* tab,
-               float* out, float s, int batch, int T, int n, int step,
-               const zt::AnyPlan& a, int P, cudaStream_t st) {
-  auto kernel = irfft_any<ODD, BLUE>;
-  const int smem = 2 * a.rows * a.L * (int)sizeof(float2) +
-                   zt::kSpan * (int)sizeof(float);
-  const cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
   const long long out_len = (long long)(T - 1) * step + n;
-  const dim3 grid((unsigned int)((out_len + zt::kSpan - 1) / zt::kSpan),
-                  batch);
-  kernel<<<grid, zt::kThreads, smem, st>>>(hr, hi, tab, out, s, T, n, step,
-                                           out_len, P, a.rows, a.plan);
+  const int span = span_for(n, step, a.rows, out_len, batch,
+                            (long long)sms * any_blocks_per_sm(a));
+  const int smem = 2 * a.stride * (int)sizeof(float2) +
+                   span * (int)sizeof(float);
+  auto kernel = irfft_any<Spec, ODD, BLUE, REG>;
+  err = cudaFuncSetAttribute(kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid((unsigned int)((out_len + span - 1) / span), batch);
+  kernel<<<grid, zt::kThreads, smem, st>>>(spec, tab, out, s, T, n, step,
+                                           out_len, span,
+                                           zt::make_divmod(step), a);
   return (int)cudaGetLastError();
 }
 
-}  // namespace
-
-// h_re, h_im: (batch, T, N/2 + 1) float32 (N/2 rounded down); tw:
-// kernels/rfft.store_tables(N), 8-byte aligned (where fft_fits takes N,
-// the (N, 2) float32 table W_N^j = (cos, sin)(-2 pi j / N)); out: (batch,
-// (T - 1) * step + N) float32; s the factor (scale / N); P the Bluestein
-// length (kernels/rfft.layout(N).p, 0 where the passes take the FFT's own
-// length). All contiguous. Any N in [16, 4096]: irfft_ola_kernel where
-// fft_fits (P = 0), else irfft_any; step in [1, N] and batch at most
-// 65535. Anything else, or a wrong P, returns cudaErrorInvalidValue before
-// a launch. T = 0 returns after the checks and writes nothing: the wrapper
-// returns the N - step zeros itself.
-ZT_EXPORT int zt_irfft_ola(const void* h_re, const void* h_im, const void* tw,
-                           void* out, float s, int batch, int T, int N,
-                           int step, int P, void* stream) {
-  zt::Plan plan;
-  if (P == 0 && zt::fft_fits(N, &plan)) {
-    return launch<Planes, false>(
-        Planes{static_cast<const float*>(h_re),
-               static_cast<const float*>(h_im), N / 2 + 1},
-        tw, nullptr, nullptr, out, s, batch, T, N, step, stream);
-  }
+// irfft_any's launch at window N and Bluestein length P, after the checks
+// zt_irfft_ola makes: odd with Bluestein, odd (with a register prime or
+// not), or even with Bluestein.
+template <class Spec>
+int launch_off_rule(const Spec& spec, const void* tw, void* out, float s,
+                    int batch, int T, int N, int step, int P,
+                    void* stream) {
   zt::AnyPlan a;
   if (!zt::any_plan(N, P, &a) || step < 1 || step > N || batch > 65535 ||
       !zt::aligned8(tw)) {
     return (int)cudaErrorInvalidValue;
   }
   if (T <= 0 || batch <= 0) return (int)cudaSuccess;
-  const float* hr = static_cast<const float*>(h_re);
-  const float* hi = static_cast<const float*>(h_im);
   const float2* t = static_cast<const float2*>(tw);
   float* y = static_cast<float*>(out);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (a.odd && a.blue) {
-    return launch_any<true, true>(hr, hi, t, y, s, batch, T, N, step, a, P,
-                                  st);
+  if (a.blue) {
+    return a.odd ? launch_any<Spec, true, true, false>(spec, t, y, s, batch,
+                                                       T, N, step, a, st)
+                 : launch_any<Spec, false, true, false>(spec, t, y, s, batch,
+                                                        T, N, step, a, st);
   }
-  if (a.odd) {
-    return launch_any<true, false>(hr, hi, t, y, s, batch, T, N, step, a, P,
-                                   st);
+  return a.sp.cs ? launch_any<Spec, true, false, true>(spec, t, y, s, batch,
+                                                       T, N, step, a, st)
+                 : launch_any<Spec, true, false, false>(spec, t, y, s, batch,
+                                                        T, N, step, a, st);
+}
+
+}  // namespace
+
+// h_re, h_im: (batch, T, N/2 + 1) float32 (N/2 rounded down); tw:
+// kernels/rfft.kernel_tables(N), 8-byte aligned; out: (batch, (T - 1) *
+// step + N) float32; s the factor (scale / N); P the Bluestein length
+// (kernels/rfft.layout(N).p, 0 where the passes take the FFT's own
+// length). All contiguous. Any N in [16, 4096]: irfft_kernel where fft_fits
+// (P = 0), else irfft_any; step in [1, N] and batch at most 65535. Anything
+// else, or a wrong P, returns cudaErrorInvalidValue before a launch. T = 0
+// returns after the checks and writes nothing: the wrapper returns the N -
+// step zeros itself.
+ZT_EXPORT int zt_irfft_ola(const void* h_re, const void* h_im, const void* tw,
+                           void* out, float s, int batch, int T, int N,
+                           int step, int P, void* stream) {
+  const Planes spec{static_cast<const float*>(h_re),
+                    static_cast<const float*>(h_im), N / 2 + 1};
+  zt::Plan plan;
+  if (P == 0 && zt::fft_fits(N, &plan)) {
+    return launch<Planes, false>(spec, tw, nullptr, nullptr, out, s, batch,
+                                 T, N, step, stream);
   }
-  return launch_any<false, true>(hr, hi, t, y, s, batch, T, N, step, a, P,
-                                 st);
+  return launch_off_rule(spec, tw, out, s, batch, T, N, step, P, stream);
 }
 
 // The fused fold: z the full complex64 spectrum (batch, T, N), element
 // (b, t, k) at z + b * sb + t * st + k * sk (strides in complex elements,
 // any layout; 8-byte aligned), read as its Hermitian fold; the rest as
-// zt_irfft_ola at a window fft_fits takes (no Bluestein length). Bit-equal
-// to the fold (zt_fold_half) followed by zt_irfft_ola.
+// zt_irfft_ola, at any N in [16, 4096] with its Bluestein length P.
+// Bit-equal to the fold (zt_fold_half) followed by zt_irfft_ola.
 ZT_EXPORT int zt_irfft_ola_full(const void* z, const void* tw, void* out,
                                 float s, int batch, int T, int N, int step,
-                                long long sb, long long st, long long sk,
-                                void* stream) {
+                                int P, long long sb, long long st,
+                                long long sk, void* stream) {
   if (!zt::aligned8(z)) return (int)cudaErrorInvalidValue;
-  return launch<Complex<true>, false>(
-      Complex<true>{static_cast<const float2*>(z), sb, st, sk, N}, tw,
-      nullptr, nullptr, out, s, batch, T, N, step, stream);
+  const Complex<true> spec{static_cast<const float2*>(z), sb, st, sk, N};
+  zt::Plan plan;
+  if (P == 0 && zt::fft_fits(N, &plan)) {
+    return launch<Complex<true>, false>(spec, tw, nullptr, nullptr, out, s,
+                                        batch, T, N, step, stream);
+  }
+  return launch_off_rule(spec, tw, out, s, batch, T, N, step, P, stream);
 }
 
 // The windowed store: spec the half spectrum (batch, T, N/2 + 1)

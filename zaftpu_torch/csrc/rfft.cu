@@ -98,12 +98,17 @@
 // forward FFT, a product with the host table B = FFT_P(c wrapped) / P and
 // a conjugated forward FFT. A block holds as many rows as fit in the
 // smallest of 2,048, 4,096 and 8,192 values that holds one (an odd N above
-// 2,048, or P, takes the larger ones) and allocates two buffers of just
-// those rows in dynamic shared memory (up to 128 KB; cudaFuncSetAttribute
-// above 48 KB): at WL 2,062 (P 2,304) and 2,205 the stores took 0.76-0.87
-// of the time of buffers of the whole 4,096 values on an H100
-// (scripts/torch_ab.py --label any, PERF.md), and 512 threads a block took
-// 1.08-1.35 times as long as 256 at WL 2,062 and 4,078. Counted as the
+// 2,048, or P, takes the larger ones) in two padded buffers of just those
+// rows in dynamic shared memory (up to 136 KB; cudaFuncSetAttribute above
+// 48 KB). The transforms run on stockham.cuh's steps (zt::any_fft, as
+// rfft_kernel's do): the first step reads the frame from the
+// signal into registers (the odd frame, or the packing, times conj c under
+// Bluestein, and no load for Bluestein's zeros), Bluestein's product with B
+// and its conjugation ride the second FFT's first step (zt::BlueMid), and
+// its last conjugation and chirp product ride the stores' reads
+// (zt::blue_value): where the first design took a framing sweep, one
+// barrier a pass and three more sweeps, P 2,304 (WL 2,062) takes three
+// register steps an FFT and nothing else (PERF.md). Counted as the
 // M-point DFT it computes (5 M log2 M operations), the 600-s WL 2,062
 // magnitude store (hop 512) is bound by its bytes, 0.095 ms
 // (chip_smoke.bound); Bluestein's own work, two P-point FFTs and three
@@ -141,15 +146,8 @@ __device__ __forceinline__ float2 split_pair(float2 a, float2 b, float2 w) {
       __fadd_rn(ei, __fadd_rn(__fmul_rn(w.x, oi), __fmul_rn(w.y, od))));
 }
 
-// Bin k of the split step from Z = FFT_M(z) of one frame (k = 0..M, Z[M]
-// read as Z[0]): X[k] = E + W_N^k O.
-__device__ __forceinline__ float2 split_bin(const float2* z,
-                                            const float2* __restrict__ tw,
-                                            int k, int M) {
-  return split_pair(z[k == M ? 0 : k], z[k == 0 ? 0 : M - k], __ldg(tw + k));
-}
-
-// split_bin of the frame at row base (base = f M) of a padded buffer.
+// Bin k of the split step (k = 0..M, Z[M] read as Z[0]) of the frame at row
+// base (base = f M) of a padded buffer: X[k] = E + W_N^k O.
 __device__ __forceinline__ float2 split_at(const float2* z, int base,
                                            const float2* __restrict__ tw,
                                            int k, int M) {
@@ -234,65 +232,104 @@ rfft_kernel(const float* __restrict__ sig, const float* __restrict__ win,
   }
 }
 
-// The five stores at a window the static path refuses, on `rows` rows of L
-// values in dynamic shared memory (two buffers of rows * L values), row r
-// frame t0 + r: ODD holds z[m] = x[m]
-// w[m] (m < N, zero imaginary parts) and runs the N-point complex FFT,
-// whose bins 0..(N-1)/2 are the frame's (no Nyquist bin), each frame
-// alone (no two frames share an FFT, so a frame's bins round with no
-// other frame's); otherwise the frame's even/odd
-// packing, M = N/2 points, and split_bin. BLUE runs that M-point FFT (M =
-// N or N/2) by Bluestein's chirp z-transform on rows of L = P values: z[m]
-// times conj c[m], zeros to P, the forward passes (table W_P), times B[k],
-// conjugated, the forward passes, conjugated, times conj c[k]. tab holds
-// W_N (N values), then under BLUE W_P (P), conj c (M) and B (P)
-// (kernels/rfft.store_tables). Then the stores of rfft_kernel: bins 0..F
-// (half, planes, full with its mirror) or 1..F (magnitude, mel), F = N/2
-// rounded down.
-template <bool ODD, bool BLUE, Store S>
-__global__ void __launch_bounds__(zt::kThreads)
+// The frames of a block of rfft_any, rows f = frame t0 + f (zeros from T
+// on), as zt::any_fft's first-step source: ODD the windowed frame z[m] =
+// x[m] w[m] (zero imaginary parts, m < N), else its even/odd packing z[m] =
+// x[2m] w[2m] + i x[2m+1] w[2m+1]; BLUE times the chirp conj c[m] for m < M
+// and zeros from M to P, which it does not load.
+template <bool ODD, bool BLUE>
+struct AnyFrames {
+  const float* sig;
+  const float* win;
+  const float2* chirp;
+  long long t0;
+  int T, step, M;
+
+  template <int R>
+  __device__ __forceinline__ void load(int f, int g, int G,
+                                       float2 (&v)[R]) const {
+    const long long t = t0 + f;
+    const float* p = sig + t * step;
+#pragma unroll
+    for (int i = 0; i < R; ++i) {
+      const int m = g + i * G;
+      float2 x = make_float2(0.f, 0.f);
+      if (t < T && (!BLUE || m < M)) {
+        if constexpr (ODD) {
+          x.x = __fmul_rn(__ldg(p + m), __ldg(win + m));
+        } else {
+          x = make_float2(__fmul_rn(__ldg(p + 2 * m), __ldg(win + 2 * m)),
+                          __fmul_rn(__ldg(p + 2 * m + 1),
+                                    __ldg(win + 2 * m + 1)));
+        }
+        if constexpr (BLUE) x = zt::cmul(x, __ldg(chirp + m));
+      }
+      v[i] = x;
+    }
+  }
+};
+
+// Bin k (k <= F) of the frame at row base: ODD straight from its N-point
+// FFT, else split_pair of its M-point FFT's values k and M - k (mod M).
+template <bool ODD, bool BLUE>
+__device__ __forceinline__ float2 any_bin(const float2* z, int base,
+                                          const float2* __restrict__ tw,
+                                          const float2* __restrict__ chirp,
+                                          int k, int M) {
+  if constexpr (ODD) {
+    return zt::blue_value<BLUE>(z, base, chirp, k);
+  } else {
+    return split_pair(zt::blue_value<BLUE>(z, base, chirp, k == M ? 0 : k),
+                      zt::blue_value<BLUE>(z, base, chirp, k == 0 ? 0 : M - k),
+                      __ldg(tw + k));
+  }
+}
+
+// The five stores at a window the static path refuses (zt::any_plan), on
+// a.rows frames of a.L values a block in dynamic shared memory (two padded
+// buffers of a.stride values), by zt::any_fft's steps: ODD transforms
+// each frame alone as one complex N-point FFT with zero imaginary parts,
+// whose bins 0..(N-1)/2 are the frame's (no Nyquist bin), else the frame's
+// even/odd packing over M = N/2 points and split_pair. BLUE runs that
+// M-point FFT (M = N or N/2) by Bluestein's chirp z-transform on rows of L
+// = P values: the first step reads the chirped frame (AnyFrames), the
+// forward steps (table W_P), then a second forward FFT whose first step
+// reads those rows times B, conjugated (BlueMid), and the stores read each
+// value conjugated and times conj c[k] (any_value), so no sweep of its own
+// remains. tab holds W_N (N values), under BLUE then W_P (P), conj c (M)
+// and B (P), then the per-pass tables of W_L (kernels/rfft.kernel_tables).
+// The store is a runtime choice (one kernel serves all five, uniform across
+// the block): bins 0..F (half, planes, full with its mirror) or 1..F
+// (magnitude, mel), F = N/2 rounded down, as rfft_kernel writes them. REG:
+// the plan has a prime pass up to zt::kRegPrime (only odd N, never a
+// Bluestein length).
+template <bool ODD, bool BLUE, bool REG>
+__global__ void __launch_bounds__(zt::kThreads, 4)
 rfft_any(const float* __restrict__ sig, const float* __restrict__ win,
          const float2* __restrict__ tab, float* __restrict__ out,
-         long long sig_len, int T, int n, int step, int P, int rows,
-         zt::Plan plan, Mel mel) {
+         long long sig_len, int T, int n, int step, zt::AnyPlan a, Store S,
+         Mel mel) {
   extern __shared__ __align__(16) float2 smem[];
-  const int M = ODD ? n : n / 2;
-  const int L = BLUE ? P : M;     // values a row
-  const zt::Buffers buf{smem, rows * L};
-  const int F = n / 2;            // bins 1..F a frame
+  __shared__ zt::StaticPlan sp;
+  __shared__ float2 cs[zt::kMaxPrimes * zt::kRegPrime];
+  const int M = a.M;
+  const int L = a.L;
+  const int rows = a.rows;
+  const zt::Buffers buf{smem, a.stride};
   const long long t0 = (long long)blockIdx.x * rows;
-  const float* sb = sig + blockIdx.y * sig_len;
-  const float2* twp = BLUE ? tab + n : tab;  // the passes' table, W_L
-  const float2* chirp = tab + n + P;
-  const float2* big = chirp + M;
+  const float2* twp = BLUE ? tab + n : tab;  // W_L and the passes' tables
+  const float2* chirp = tab + n + L;         // BLUE only
+  const AnyFrames<ODD, BLUE> fr{sig + blockIdx.y * sig_len, win, chirp, t0,
+                                T, step, M};
+  constexpr int kFirst = BLUE ? zt::kQuadFirst : zt::kOddFirst;
+  if (threadIdx.x == 0) sp = a.sp;
+  zt::prime_table<REG>(cs, a.sp, twp);
+  const int cur = zt::any_fft<kFirst, REG, BLUE>(buf, sp, cs, a.sp, twp, fr,
+                                                 chirp + M, 0);
+  const float2* z = buf[cur];
+  const int F = n / 2;  // bins 1..F a frame
 
-  for (int e = threadIdx.x; e < rows * L; e += blockDim.x) {
-    const int r = e / L;
-    const int m = e - r * L;
-    float2 v = make_float2(0.f, 0.f);
-    const long long t = t0 + r;
-    if (m < M && t < T) {
-      const float* p = sb + t * step;
-      if constexpr (ODD) {
-        v.x = __fmul_rn(p[m], win[m]);
-      } else {
-        v = make_float2(__fmul_rn(p[2 * m], win[2 * m]),
-                        __fmul_rn(p[2 * m + 1], win[2 * m + 1]));
-      }
-      if constexpr (BLUE) v = zt::cmul(v, __ldg(chirp + m));
-    }
-    buf[0][e] = v;
-  }
-  __syncthreads();
-
-  int cur = 0;
-  zt::fft_rows(buf, cur, twp, L, rows, L, plan);
-  if constexpr (BLUE) {
-    zt::bluestein_tail(buf, cur, twp, chirp, big, L, M, rows, plan);
-  }
-
-  if constexpr (S == Store::kHalf || S == Store::kPlanes ||
-                S == Store::kFull) {
+  if (S == Store::kHalf || S == Store::kPlanes || S == Store::kFull) {
     // Bins 0..F (H = F + 1 a frame, DC included; an odd N has no Nyquist
     // bin), rfft_kernel's layouts, consecutive threads on consecutive bins
     // of a frame; the full store also writes bin N - k as the conjugate of
@@ -300,17 +337,16 @@ rfft_any(const float* __restrict__ sig, const float* __restrict__ win,
     // which an odd N's FFT holds but which round otherwise).
     const int H = F + 1;
     for (int e = threadIdx.x; e < rows * H; e += blockDim.x) {
-      const int f = e / H;
+      const int f = a.by_h.div(e);
       const int k = e - f * H;
       const long long t = t0 + f;
       if (t >= T) continue;
-      const float2 x = ODD ? buf[cur][f * L + k]
-                           : split_bin(buf[cur] + f * L, tab, k, M);
+      const float2 x = any_bin<ODD, BLUE>(z, f * L, tab, chirp, k, M);
       const long long row = (long long)blockIdx.y * T + t;
-      if constexpr (S == Store::kPlanes) {
+      if (S == Store::kPlanes) {
         out[row * H + k] = x.x;
         out[((long long)gridDim.y * T + row) * H + k] = x.y;
-      } else if constexpr (S == Store::kHalf) {
+      } else if (S == Store::kHalf) {
         reinterpret_cast<float2*>(out)[row * H + k] = x;
       } else {
         float2* o = reinterpret_cast<float2*>(out) + row * n;
@@ -322,20 +358,19 @@ rfft_any(const float* __restrict__ sig, const float* __restrict__ win,
     // Bins 1..F: the magnitudes straight out, or into the free buffer.
     float* vals = reinterpret_cast<float*>(buf[cur ^ 1]);
     for (int e = threadIdx.x; e < rows * F; e += blockDim.x) {
-      const int f = e / F;
+      const int f = a.by_f.div(e);
       const int k = e - f * F + 1;
       const long long t = t0 + f;
       if (t >= T) continue;
-      const float2 x = ODD ? buf[cur][f * L + k]
-                           : split_bin(buf[cur] + f * L, tab, k, M);
+      const float2 x = any_bin<ODD, BLUE>(z, f * L, tab, chirp, k, M);
       const float p = __fadd_rn(__fmul_rn(x.x, x.x), __fmul_rn(x.y, x.y));
-      if constexpr (S == Store::kSpec) {
+      if (S == Store::kSpec) {
         out[((long long)blockIdx.y * T + t) * F + k - 1] = __fsqrt_rn(p);
       } else {
         vals[e] = mel.power ? p : __fsqrt_rn(p);
       }
     }
-    if constexpr (S == Store::kMel) {
+    if (S == Store::kMel) {
       __syncthreads();
       for (int o = threadIdx.x; o < rows * mel.n_mels; o += blockDim.x) {
         const int f = o / mel.n_mels;
@@ -355,20 +390,20 @@ rfft_any(const float* __restrict__ sig, const float* __restrict__ win,
   }
 }
 
-template <bool ODD, bool BLUE, Store S>
+template <bool ODD, bool BLUE, bool REG>
 int launch_any(const float* s, const float* w, const float2* t, float* y,
                int batch, long long sig_len, int T, int n, int step,
-               const zt::AnyPlan& a, int P, cudaStream_t st, Mel mel) {
-  auto kernel = rfft_any<ODD, BLUE, S>;
-  const int bytes = 2 * a.rows * a.L * (int)sizeof(float2);
+               const zt::AnyPlan& a, cudaStream_t st, Store store, Mel mel) {
+  auto kernel = rfft_any<ODD, BLUE, REG>;
+  const int bytes = 2 * a.stride * (int)sizeof(float2);
   if (bytes > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
     if (err != cudaSuccess) return (int)err;
   }
   const dim3 grid(zt::ceil_div(T, a.rows), batch);
-  kernel<<<grid, zt::kThreads, bytes, st>>>(s, w, t, y, sig_len, T, n, step, P,
-                                       a.rows, a.plan, mel);
+  kernel<<<grid, zt::kThreads, bytes, st>>>(s, w, t, y, sig_len, T, n, step,
+                                            a, store, mel);
   return (int)cudaGetLastError();
 }
 
@@ -422,16 +457,16 @@ int launch_store(const void* sig, const void* win, const void* tw, void* out,
   const float* w = static_cast<const float*>(win);
   const float2* t = static_cast<const float2*>(tw);
   float* y = static_cast<float*>(out);
-  if (a.odd && a.blue) {
-    return launch_any<true, true, S>(s, w, t, y, batch, sig_len, T, WL, step,
-                                     a, P, st, mel);
+  if (a.blue) {
+    return a.odd ? launch_any<true, true, false>(s, w, t, y, batch, sig_len,
+                                                 T, WL, step, a, st, S, mel)
+                 : launch_any<false, true, false>(s, w, t, y, batch, sig_len,
+                                                  T, WL, step, a, st, S, mel);
   }
-  if (a.odd) {
-    return launch_any<true, false, S>(s, w, t, y, batch, sig_len, T, WL,
-                                      step, a, P, st, mel);
-  }
-  return launch_any<false, true, S>(s, w, t, y, batch, sig_len, T, WL, step,
-                                    a, P, st, mel);
+  return a.sp.cs ? launch_any<true, false, true>(s, w, t, y, batch, sig_len,
+                                                 T, WL, step, a, st, S, mel)
+                 : launch_any<true, false, false>(s, w, t, y, batch, sig_len,
+                                                  T, WL, step, a, st, S, mel);
 }
 
 }  // namespace

@@ -1,10 +1,10 @@
 // The mixed-radix Stockham passes of an M-point complex FFT in shared
-// memory: fft_rows, which the real FFT's stores off the static path
-// (rfft.cu: rfft_any), the inverse real FFT + overlap-add off it (irfft.cu:
-// irfft_any) and the fast MDCT (mdct.cu) run, and static_fft (below), the
-// same passes regrouped for the static paths of the real FFT (rfft.cu:
-// rfft_kernel) and of the inverse (irfft.cu: irfft_kernel, through
-// run_step and its own first step from the spectrum).
+// memory: fft_rows, which the fast MDCT (mdct.cu) runs, and static_fft and
+// any_fft (below), the same passes regrouped into register steps for the
+// real FFT (rfft.cu: rfft_kernel on the static path, rfft_any off it) and
+// the inverse real FFT + overlap-add (irfft.cu: irfft_kernel, irfft_any),
+// each reading its first step's values from its own source (the signal,
+// the spectrum, or Bluestein's first FFT).
 //
 // A 256-thread block transforms up to kElems complex values at once (the
 // stores and the inverse off the static path up to kMaxElems, in dynamic
@@ -301,31 +301,6 @@ __device__ __forceinline__ void fft_rows(Buf buf, int& cur,
   }
 }
 
-// Bluestein's chirp z-transform after its first forward passes, over the
-// `rows` rows of L = P values in buf[cur] (each row the FFT of its chirped,
-// zero-padded input): times the table B, conjugated, the forward passes
-// again, then the first M values of each row conjugated and times conj c
-// (kernels/rfft.py: bluestein_plain); a barrier after each step.
-template <class Buf>
-__device__ __forceinline__ void bluestein_tail(
-    Buf buf, int& cur, const float2* __restrict__ tw,
-    const float2* __restrict__ chirp, const float2* __restrict__ big, int L,
-    int M, int rows, const Plan& plan) {
-  for (int e = threadIdx.x; e < rows * L; e += blockDim.x) {
-    const float2 y = cmul(buf[cur][e], __ldg(big + e % L));
-    buf[cur][e] = make_float2(y.x, -y.y);
-  }
-  __syncthreads();
-  fft_rows(buf, cur, tw, L, rows, L, plan);
-  for (int e = threadIdx.x; e < rows * M; e += blockDim.x) {
-    const int r = e / M;
-    const int k = e - r * M;
-    float2* z = buf[cur] + r * L + k;
-    *z = cmul(make_float2(z->x, -z->y), __ldg(chirp + k));
-  }
-  __syncthreads();
-}
-
 // The plan of an M-point FFT (kernels/rfft.py: radices), or false when M
 // has a prime factor above kMaxPrime (or more than kMaxPrimes primes above
 // 7, which no M <= kMaxElems has).
@@ -358,40 +333,9 @@ inline bool fft_fits(int n, Plan* plan) {
   return n >= 16 && n <= 2 * kElems && n % 2 == 0 && make_plan(n / 2, plan);
 }
 
-// How rfft.cu's rfft_any and irfft.cu's irfft_any transform a window that
-// fft_fits refuses: an odd N as one complex N-point FFT a frame, an even N
-// by its even/odd packing (M = N/2 points); the values a row holds (M, or P
-// under Bluestein), the rows of a block and the plan. P is the caller's
-// Bluestein length (kernels/rfft.bluestein_length), 0 when the passes take
-// M; false when the window or P does not fit. A block holds as many rows
-// as fit in the smallest of 2,048, 4,096 and 8,192 values that holds one,
-// and allocates only those rows.
-struct AnyPlan {
-  bool odd, blue;
-  int L, rows, cap;
-  Plan plan;
-};
-
-inline bool any_plan(int n, int P, AnyPlan* a) {
-  if (n < 16 || n > 2 * kElems) return false;
-  a->odd = n % 2 == 1;
-  const int M = a->odd ? n : n / 2;
-  a->blue = !make_plan(M, &a->plan);
-  if (a->blue ? (P < 2 * M - 1 || P > kMaxElems || !make_plan(P, &a->plan))
-              : P != 0) {
-    return false;
-  }
-  a->L = a->blue ? P : M;
-  a->cap = a->L <= kElems       ? kElems
-           : a->L <= 2 * kElems ? 2 * kElems
-                                : kMaxElems;
-  a->rows = a->cap / a->L;
-  return true;
-}
-
 // ---------------------------------------------------------------------------
-// The static path's passes (rfft.cu: rfft_kernel; irfft.cu: irfft_kernel,
-// whose first step reads the spectrum). The same
+// The steps (rfft.cu: rfft_kernel and rfft_any; irfft.cu: irfft_kernel and
+// irfft_any, whose first steps read the spectrum). The same
 // butterflies, twiddle products and sums as fft_rows, in the same order, so
 // every value is bit-equal to it and to kernels/rfft.py's plain version;
 // what changes is where the values live between passes and how a thread
@@ -465,20 +409,25 @@ struct Step {
   Divmod by_span, by_ns, by_q;
 };
 
-// The static path's plan at window N: M = N/2, fpb rows a block, the
-// steps (kernels/rfft.radices' passes, paired).
+// The steps of an M-point FFT (kernels/rfft.radices' passes, paired) over
+// fpb rows a block: M = N/2 on the static path at window N (static_plan),
+// the FFT's or Bluestein's length off it (any_plan).
 struct StaticPlan {
   int m, fpb, steps, cs;  // cs: entries of the shared cos/sin table
   Divmod by_m, by_f;  // M and M + 1
   Step step[kMaxSteps];
 };
 
-// The plan of an even window fft_fits takes, or false. single_first: the
-// first pass is a step of its own, never paired with the next (irfft.cu's
+// The steps of an m-point FFT (make_plan's passes, paired) with the
+// twiddle table of W_n (m divides n) and the per-pass tables from tw0 (in
+// float2s from the table's start), fpb rows of m values a block; false when
+// m has a prime factor above kMaxPrime or the steps do not fit. single_first:
+// the first pass is a step of its own, never paired with the next (irfft.cu's
 // first step reads each pair of mirrored inputs once).
-inline bool static_plan(int n, StaticPlan* sp, bool single_first = false) {
+inline bool steps_plan(int m, int n, int tw0, int fpb, bool single_first,
+                       StaticPlan* sp) {
   Plan plan;
-  if (!fft_fits(n, &plan)) return false;
+  if (!make_plan(m, &plan)) return false;
   int r[24], cnt = 0;
   const int counts[5] = {plan.n4, plan.n2, plan.n3, plan.n5, plan.n7};
   const int radix[5] = {4, 2, 3, 5, 7};
@@ -487,15 +436,15 @@ inline bool static_plan(int n, StaticPlan* sp, bool single_first = false) {
   }
   for (int i = 0; i < plan.np; ++i) r[cnt++] = plan.p[i];
   int off[24], ns[24];
-  for (int i = 0, o = n, x = 1; i < cnt; ++i) {
+  for (int i = 0, o = tw0, x = 1; i < cnt; ++i) {
     off[i] = o;
     ns[i] = x;
     o += (r[i] - 1) * x;
     x *= r[i];
   }
   StaticPlan out{};
-  out.m = n / 2;
-  out.fpb = kElems / out.m;
+  out.m = m;
+  out.fpb = fpb;
   out.by_m = make_divmod(out.m);
   out.by_f = make_divmod(out.m + 1);
   for (int i = 0; i < cnt;) {
@@ -530,6 +479,64 @@ inline bool static_plan(int n, StaticPlan* sp, bool single_first = false) {
     i += pair ? 2 : 1;
   }
   *sp = out;
+  return true;
+}
+
+// The plan of an even window fft_fits takes (M = N/2 points, the table W_N
+// and its per-pass tables after it, kElems / M rows a block), or false;
+// single_first as in steps_plan.
+inline bool static_plan(int n, StaticPlan* sp, bool single_first = false) {
+  Plan plan;
+  return fft_fits(n, &plan) &&
+         steps_plan(n / 2, n, n, kElems / (n / 2), single_first, sp);
+}
+
+// How rfft.cu's rfft_any and irfft.cu's irfft_any transform a window that
+// fft_fits refuses: an odd N as one complex N-point FFT a frame, an even N
+// by its even/odd packing (M = N/2 points); L, the values a row holds (M,
+// or P under Bluestein: P is the caller's Bluestein length,
+// kernels/rfft.bluestein_length, 0 when the passes take M); as many rows as
+// fit in the smallest of 2,048, 4,096 and 8,192 values that holds one;
+// stride, the float2s of one padded buffer of those rows; the steps
+// of the L-point FFT (steps_plan: the table W_L, its per-pass tables after
+// the store tables, kernels/rfft.kernel_tables, tw0 entries from W_L's
+// start); by_h and by_f divide by F + 1 and F, F = N/2 rounded down. False
+// when the window or P does not fit, or when a Bluestein plan's first step
+// is not two radix-4 passes (the only first step its kernels build) or it
+// holds a prime from 11 to kRegPrime (they have no register-prime variant):
+// no bluestein_length from 16 to 4,096 does either.
+struct AnyPlan {
+  bool odd, blue;
+  int M, L, rows, stride;
+  StaticPlan sp;
+  Divmod by_h, by_f;
+};
+
+// Float2s of a padded buffer of x values (pad(x - 1) < the result).
+inline int padded_len(int x) { return x + (x >> 4) + 1; }
+
+inline bool any_plan(int n, int P, AnyPlan* a) {
+  if (n < 16 || n > 2 * kElems) return false;
+  Plan plan;
+  a->odd = n % 2 == 1;
+  a->M = a->odd ? n : n / 2;
+  a->blue = !make_plan(a->M, &plan);
+  if (a->blue ? (P < 2 * a->M - 1 || P > kMaxElems) : P != 0) return false;
+  a->L = a->blue ? P : a->M;
+  const int cap = a->L <= kElems       ? kElems
+                  : a->L <= 2 * kElems ? 2 * kElems
+                                       : kMaxElems;
+  a->rows = cap / a->L;
+  a->stride = padded_len(a->rows * a->L);
+  // The store tables: W_N, then under Bluestein W_P, conj c (M) and B (P).
+  const int tw0 = a->blue ? 2 * P + a->M : n;
+  if (!steps_plan(a->L, a->L, tw0, a->rows, false, &a->sp)) return false;
+  if (a->blue && (a->sp.step[0].r1 != 4 || a->sp.step[0].r2 != 4 ||
+                  a->sp.cs != 0)) {
+    return false;
+  }
+  a->by_h = make_divmod(n / 2 + 1);
+  a->by_f = make_divmod(n / 2);
   return true;
 }
 
@@ -888,6 +895,114 @@ __device__ __forceinline__ int static_fft(float2 (*buf)[kPadElems],
     run_step<false, REG>(buf[cur], fr, buf[cur ^ 1], tab, cs, M, sp.step[i]);
     cur ^= 1;
     __syncthreads();
+  }
+  return cur;
+}
+
+// The first steps the off-rule kernels build (any_fft): kQuadFirst only
+// two radix-4 passes (a Bluestein length, any_plan); kOddFirst an odd
+// length's (3 then 3, 3, 5 or 7). Fewer first steps, less code to compile
+// for each source a kernel reads.
+enum First { kQuadFirst, kOddFirst };
+
+template <int FIRST, class Src>
+__device__ __forceinline__ void run_first(const Src& fr, float2* dst,
+                                          const float2* __restrict__ tab,
+                                          int M, const Step& st) {
+  if constexpr (FIRST == kQuadFirst) {
+    fused_step<4, 4, true>(nullptr, fr, dst, tab, M, st);
+  } else {
+    switch (st.r1 * 8 + st.r2) {
+      case 3 * 8 + 3: fused_step<3, 3, true>(nullptr, fr, dst, tab, M, st); break;
+      case 3 * 8 + 1: fused_step<3, 1, true>(nullptr, fr, dst, tab, M, st); break;
+      case 5 * 8 + 1: fused_step<5, 1, true>(nullptr, fr, dst, tab, M, st); break;
+      default: fused_step<7, 1, true>(nullptr, fr, dst, tab, M, st);
+    }
+  }
+}
+
+// Bluestein's second FFT's first-step source: the first FFT's rows of L
+// values (padded, in shared memory) times the table B, conjugated
+// (kernels/rfft.py: bluestein_plain).
+struct BlueMid {
+  const float2* z;
+  const float2* big;
+  int L;
+
+  template <int R>
+  __device__ __forceinline__ void load(int f, int g, int G,
+                                       float2 (&v)[R]) const {
+#pragma unroll
+    for (int i = 0; i < R; ++i) {
+      const int m = g + i * G;
+      const float2 y = cmul(z[pad(f * L + m)], __ldg(big + m));
+      v[i] = make_float2(y.x, -y.y);
+    }
+  }
+};
+
+// Value k of the row at base of the last FFT's buffer z (padded): the FFT
+// itself, or under BLUE its conjugate times conj c[k] (k < M), the end of
+// Bluestein's chirp z-transform, read where the stores (rfft.cu) and the
+// overlap-add (irfft.cu) need it.
+template <bool BLUE>
+__device__ __forceinline__ float2 blue_value(const float2* z, int base,
+                                             const float2* __restrict__ chirp,
+                                             int k) {
+  const float2 y = z[pad(base + k)];
+  if constexpr (!BLUE) return y;
+  return cmul(make_float2(y.x, -y.y), __ldg(chirp + k));
+}
+
+// The L-point FFTs of the block's rows off the static path (rfft.cu's
+// rfft_any, irfft.cu's irfft_any) by the steps of `plan`, the first step
+// reading fr (FIRST as in run_first; a plan whose first pass is a prime
+// above 7 has fr's values framed into buf[start] first) and writing
+// buf[start]; under BLUE then Bluestein's second forward FFT, whose first
+// step reads the first's rows times B (big), conjugated (BlueMid). One loop
+// runs the steps after the first for both FFTs, so a kernel holds one copy
+// of their code (on an H100 the Bluestein stores ran 0.91-0.96 times as
+// long as with two copies: PERF.md). sp: the plan's shared copy and cs the
+// primes' cos/sin table (prime_table), both
+// written before the call; REG as in run_step. Returns the buffer that
+// holds the FFTs, after a barrier.
+template <int FIRST, bool REG, bool BLUE, class Src>
+__device__ __forceinline__ int any_fft(Buffers buf, const StaticPlan& sp,
+                                       const float2* cs,
+                                       const StaticPlan& plan,
+                                       const float2* __restrict__ tab,
+                                       const Src& fr,
+                                       const float2* __restrict__ big,
+                                       int start) {
+  const int M = plan.m;
+  const Step& s0 = plan.step[0];
+  int cur = start;
+#pragma unroll 1
+  for (int k = 0; k < (BLUE ? 2 : 1); ++k) {
+    int i = 1;
+    if (k == 0 && !BLUE && s0.r1 > 7) {
+      for (int e = threadIdx.x; e < plan.fpb * M; e += blockDim.x) {
+        const int f = plan.by_m.div(e);
+        const int m = e - f * M;
+        float2 v[1];
+        load_group<1, true>(nullptr, fr, f, 0, m, 0, v);
+        buf[start][pad(e)] = v[0];
+      }
+      i = 0;
+    } else if (k == 0) {
+      run_first<FIRST>(fr, buf[start], tab, M, s0);
+    } else {
+      run_first<kQuadFirst>(BlueMid{buf[cur], big, M}, buf[cur ^ 1], tab, M,
+                            s0);
+      cur ^= 1;
+    }
+    __syncthreads();
+    for (; i < sp.steps; ++i) {
+      run_step<false, REG>(buf[cur], fr, buf[cur ^ 1], tab, cs, M,
+                           sp.step[i]);
+      cur ^= 1;
+      __syncthreads();
+    }
   }
   return cur;
 }

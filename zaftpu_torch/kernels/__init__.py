@@ -31,7 +31,7 @@ Seven levers choose the kernels, with ``zaftpu``'s names and meaning:
   instead of the complex-store one; off by default, equal values;
 * ``ZAFTPU_MIRROR=pallas``: the STFT's conjugate mirror and the ISTFT's
   Hermitian fold run as kernels (:mod:`zaftpu_torch.kernels.mirror`)
-  instead of PyTorch index ops (or, for the fold at a static window, the
+  instead of PyTorch index ops (or, for the fold from 16 to 4096, the
   inverse kernel's load); off by default;
 * ``ZAFTPU_FFT=matmul``: the DFT and its inverse as GEMMs at every
   window, which turns the shape rule below off (``auto``, the default,
@@ -50,9 +50,8 @@ half-spectrum analysis (``fused.frames_rfft``, and ``fused.frames_matmul2``
 as two planes) its half and planes stores (:mod:`zaftpu_torch.kernels.rfft`),
 and the fused ISTFT synthesis (``synth.istft_ola``) the inverse real-FFT +
 overlap-add kernel (:mod:`zaftpu_torch.kernels.irfft`, ``irfft.applies``),
-which at a static window (``rfft.applies``: ``rfft.fits``) reads
-``istft``'s full spectrum itself, the Hermitian fold in its load
-(``irfft.istft_ola_fft_full``);
+which reads ``istft``'s full spectrum itself, the Hermitian fold in its
+load (``irfft.istft_ola_fft_full``);
 the magnitude and mel front ends take its magnitude and mel stores
 (:mod:`zaftpu_torch.kernels.melfft`, ``melfft.applies``): an odd window a
 complex FFT a frame, a prime factor above 127 by Bluestein. The front ends
@@ -116,7 +115,6 @@ from zaftpu_torch.kernels import fused as _fused
 from zaftpu_torch.kernels import irfft as _irfft
 from zaftpu_torch.kernels import mirror as _mirror
 from zaftpu_torch.kernels import ola as _ola
-from zaftpu_torch.kernels import rfft as _rfft
 from zaftpu_torch.kernels import synth as _synth
 # Largest window the kernels' analysis and synthesis take; longer ones run
 # the framing kernel, the FFT layer and OLA.
@@ -190,16 +188,17 @@ def overlap_add(frames, step: int):
 def synthesis_ola(spectra, step: int, gain: float = 1.0):
     """Synthesis back end from bins-major spectra ``(..., N, T)``:
     ``overlap_add(real(ifft(spectraᵀ)), step) / gain``, with the division
-    folded into the inverse transform. At a window of the static inverse
-    kernel's rule (``rfft.applies``) with the fused synthesis on and
-    ``ZAFTPU_MIRROR`` not ``pallas``, one launch: the inverse real-FFT
-    kernel reading the Hermitian fold in its load
-    (``irfft.istft_ola_fft_full``, the spectrum in its own strides).
-    Elsewhere the fold runs first, as PyTorch index ops or with
-    ``ZAFTPU_MIRROR=pallas`` as the fold kernel; then the fused synthesis
-    (the inverse real-FFT kernel where its shape rule holds, every window
-    from 16 to 4096, else the inverse GEMM kernel or its twin), or with
-    ``ZAFTPU_SYNTH=0`` the inverse GEMM followed by the OLA kernel. Above
+    folded into the inverse transform. Where the inverse real-FFT kernel's
+    shape rule holds (``irfft.applies``: every window from 16 to 4096, not
+    ``ZAFTPU_FFT=matmul``) with the fused synthesis on and
+    ``ZAFTPU_MIRROR`` not ``pallas``, one launch: that kernel reading the
+    Hermitian fold in its load (``irfft.istft_ola_fft_full``, the spectrum
+    in its own strides). Elsewhere the fold runs first, as PyTorch index
+    ops or with ``ZAFTPU_MIRROR=pallas`` as the fold kernel; then the fused
+    synthesis (under ``ZAFTPU_MIRROR=pallas`` the inverse real-FFT kernel
+    on the fold's planes, else the inverse GEMM kernel or its twin), or
+    with ``ZAFTPU_SYNTH=0`` the inverse GEMM followed by the OLA kernel.
+    Above
     :data:`MAX_WINDOW`, ``zaftpu``'s off-engine composition:
     :func:`zaftpu_torch.core.fft.real_ifft`, the OLA kernel, ``/ gain``."""
     n = spectra.shape[-2]
@@ -207,7 +206,7 @@ def synthesis_ola(spectra, step: int, gain: float = 1.0):
     if n > MAX_WINDOW:
         out = overlap_add(_fft.real_ifft(fm), step)
         return out / gain if gain != 1.0 else out
-    if synth_enabled() and not _mirror.enabled() and _rfft.applies(n):
+    if synth_enabled() and not _mirror.enabled() and _irfft.applies(n):
         return _irfft.istft_ola_fft_full(fm, n, step, 1.0 / gain)
     if _mirror.enabled():
         h_re, h_im = _mirror.fold_half_planes(fm, n)

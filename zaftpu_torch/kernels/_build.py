@@ -75,7 +75,8 @@ SIGNATURES = {
     "zt_rfft_mel": (_P, _P, _P, _P, _P, _P, _P, _I, _LL, _I, _I, _I, _I, _I,
                     _I, _P),
     "zt_irfft_ola": (_P, _P, _P, _P, _F, _I, _I, _I, _I, _I, _P),
-    "zt_irfft_ola_full": (_P, _P, _P, _F, _I, _I, _I, _I, _LL, _LL, _LL, _P),
+    "zt_irfft_ola_full": (_P, _P, _P, _F, _I, _I, _I, _I, _I, _LL, _LL, _LL,
+                          _P),
     "zt_irfft_ola_window": (_P, _P, _P, _P, _P, _F, _I, _I, _I, _I, _P),
     "zt_mdct_fft": (_P, _P, _P, _P, _P, _I, _LL, _I, _I, _P),
     "zt_imdct_ola_fft": (_P, _P, _P, _P, _P, _I, _I, _I, _P),

@@ -23,17 +23,17 @@ scale / N`` rounded once, and the overlap-add summed c ascending. So the
 CPU tests exercise the kernel's indexing and the kernel equals it on the
 card.
 
-At a window that :func:`zaftpu_torch.kernels.rfft.fits` (the static
-path) the same kernel body reads the spectrum through two more loads. The
+The same kernel body reads the spectrum through two more loads. The
 fused fold (:func:`istft_ola_fft_full`, the C entry ``zt_irfft_ola_full``)
 takes the full complex spectrum ``(..., T, N)`` in its own strides and
 folds it in its load, ``H_k = (Z_k + conj(Z_{(N-k) mod N})) / 2`` in the
-fold's order: ``istft``'s synthesis there
-(:func:`zaftpu_torch.kernels.synthesis_ola`, where
-:func:`zaftpu_torch.kernels.rfft.applies`),
+fold's order, at every window the planes take (``irfft_any`` off the
+static path): ``istft``'s synthesis
+(:func:`zaftpu_torch.kernels.synthesis_ola`, where :func:`applies`),
 bit-equal to :func:`zaftpu_torch.core.fft.hermitian_fold_planes` followed by
 :func:`istft_ola_fft`, with neither the fold's planes written nor read
-back. The windowed store (:func:`istft_ola_fft_window`, the C entry
+back. At a window that :func:`zaftpu_torch.kernels.rfft.fits` (the static
+path) the windowed store (:func:`istft_ola_fft_window`, the C entry
 ``zt_irfft_ola_window``) is Griffin-Lim's synthesis
 (``zaftpu/transforms/griffinlim.py:40-43``, ``real_ifft(full_from_half(S))
 * win``, the overlap-add and ``/ wsq``) from the complex half spectrum as
@@ -67,27 +67,51 @@ REPLACES_WINDOW = REPLACES
 REPLACES_FULL = REPLACES
 
 # The most output samples a block of the kernel owns (csrc/stockham.cuh:
-# kSpan); irfft_any's blocks own exactly this many.
+# kSpan).
 SPAN = 8192
-# Blocks of the static kernel an SM holds (csrc/irfft.cu: kBlocksPerSm).
+# Blocks of the kernel an SM holds at most (csrc/irfft.cu: kBlocksPerSm).
 BLOCKS_PER_SM = 3
+# An SM's shared memory, and what a block of irfft_any takes besides its
+# buffers and accumulator (its plan, the primes' cos/sin table, the
+# reserve): csrc/irfft.cu's any_blocks_per_sm.
+SM_SHARED_BYTES = 228 * 1024
+ANY_EXTRA_BYTES = 3 * 1024
+
+
+def geometry(n: int) -> tuple:
+    """The frames a block transforms at once and the blocks an SM holds at
+    window ``n``: where :func:`zaftpu_torch.kernels.rfft.fits`, ``2048 //
+    (n/2)`` frames and :data:`BLOCKS_PER_SM`; elsewhere (``irfft_any``) the
+    rows of ``L`` values (the FFT's length or its Bluestein length) that fit
+    in the smallest of :data:`zaftpu_torch.kernels.rfft.BLOCKS` that holds
+    one, and as many blocks, up to :data:`BLOCKS_PER_SM`, as the SM's shared
+    memory takes of their two padded buffers (one value in 16), the largest
+    accumulator (:data:`SPAN` floats) and :data:`ANY_EXTRA_BYTES`
+    (``csrc/stockham.cuh``: ``any_plan``; ``csrc/irfft.cu``:
+    ``any_blocks_per_sm``)."""
+    if _rfft.fits(n):
+        return 2048 // (n // 2), BLOCKS_PER_SM
+    lay = _rfft.layout(n)
+    length = lay.p or lay.m
+    rows = next(b for b in _rfft.BLOCKS if b >= length) // length
+    values = rows * length
+    stride = values + (values >> 4) + 1
+    block = 2 * 8 * stride + 4 * SPAN + ANY_EXTRA_BYTES
+    return rows, min(BLOCKS_PER_SM, SM_SHARED_BYTES // block)
 
 
 def block_span(n: int, step: int, t: int, batch: int = 1,
                sms: int = 132) -> int:
-    """Output samples a block of the static kernel owns for ``batch`` rows
-    of ``t`` frames at window ``n`` and this hop on a card of ``sms`` SMs
+    """Output samples a block of the kernel owns for ``batch`` rows of
+    ``t`` frames at window ``n`` and this hop on a card of ``sms`` SMs
     (``csrc/irfft.cu``: ``span_for``): the multiple ``m`` of the hop up to
-    :data:`SPAN` that minimises the waves of blocks (``sms`` times
-    :data:`BLOCKS_PER_SM` at once) times the groups of ``fpb = 2048 //
-    (n/2)`` frames a block transforms, ``m + (n - 1) // step`` (the larger
-    ``m`` on a tie); :data:`SPAN` at a window that does not
-    :func:`zaftpu_torch.kernels.rfft.fits`."""
-    if not _rfft.fits(n):
-        return SPAN
-    fpb = 2048 // (n // 2)
+    :data:`SPAN` that minimises the waves of blocks (``sms`` times the
+    blocks an SM holds at once) times the groups of ``fpb`` frames a block
+    transforms, ``m + (n - 1) // step`` (the larger ``m`` on a tie), with
+    ``fpb`` and the blocks from :func:`geometry`."""
+    fpb, per_sm = geometry(n)
     out_len = (t - 1) * step + n
-    slots = sms * BLOCKS_PER_SM
+    slots = sms * per_sm
     best, best_cost = 1, None
     for m in range(1, SPAN // step + 1):
         blocks = -(-out_len // (m * step)) * batch
@@ -239,10 +263,10 @@ def istft_ola_fft_full(z: torch.Tensor, n: int, step: int,
     """Fused ISTFT synthesis from the full complex spectrum ``(..., T, N)``,
     any strides (the transposed view of a bins-major spectrum is read in
     place), the Hermitian fold read in the kernel's load: the ``(..., T*step
-    + N - step)`` signal before the trim, for an ``n`` that
-    :func:`zaftpu_torch.kernels.rfft.fits` and any hop in ``[1, n]``.
-    Bit-equal to the fold followed by :func:`istft_ola_fft`. ``scale`` is
-    the COLA 1/gain.
+    + N - step)`` signal before the trim, for any ``n`` from 16 to 4096
+    (``irfft_any`` where :func:`zaftpu_torch.kernels.rfft.fits` refuses it)
+    and any hop in ``[1, n]``. Bit-equal to the fold followed by
+    :func:`istft_ola_fft`. ``scale`` is the COLA 1/gain.
 
     A CPU tensor takes the plain version; a CUDA tensor launches the kernel
     (leading axes flattened into its batch) or raises.
@@ -329,18 +353,19 @@ def _factor_c(n: int, scale: float) -> ctypes.c_float:
 def _launch_complex(name: str, z: torch.Tensor, n: int, step: int,
                     scale: float, windowed: tuple | None = None
                     ) -> torch.Tensor:
-    """Check a CUDA complex64 spectrum and launch the static kernel at an
-    ``n`` that :func:`zaftpu_torch.kernels.rfft.fits`: the windowed store
-    (``zt_irfft_ola_window``) from the half spectrum ``(..., T, N/2+1)``
-    when ``windowed`` gives ``(window, wsq)``, else the fused fold
-    (``zt_irfft_ola_full``) from the full spectrum ``(..., T, N)`` in its
-    own strides. With no frames (or no rows), return the ``N - step`` zeros
+    """Check a CUDA complex64 spectrum and launch the windowed store
+    (``zt_irfft_ola_window``, an ``n`` that
+    :func:`zaftpu_torch.kernels.rfft.fits`) from the half spectrum ``(...,
+    T, N/2+1)`` when ``windowed`` gives ``(window, wsq)``, else the fused
+    fold (``zt_irfft_ola_full``, any ``n`` from 16 to 4096 with its
+    Bluestein length) from the full spectrum ``(..., T, N)`` in its own
+    strides. With no frames (or no rows), return the ``N - step`` zeros
     a row without a launch (the windowed store's plain version divides them
     by ``wsq``)."""
     if z.dtype != torch.complex64:
         raise NotImplementedError(
             f"{name}: the CUDA kernel takes complex64, got {z.dtype}")
-    _check(name, n, step, True)
+    _check(name, n, step, bool(windowed))
     width = n // 2 + 1 if windowed else n
     if z.ndim < 2 or z.shape[-1] != width:
         raise ValueError(f"{name}: need a (..., T, {width}) spectrum, got "
@@ -376,7 +401,7 @@ def _launch_complex(name: str, z: torch.Tensor, n: int, step: int,
         sb, st, sk = z3.stride()
         err = lib.zt_irfft_ola_full(
             z3.data_ptr(), tw, out.data_ptr(), _factor_c(n, scale), batch, t,
-            n, step, sb, st, sk, stream)
+            n, step, _rfft.layout(n).p, sb, st, sk, stream)
         _build.check(err, "zt_irfft_ola_full")
         istft_ola_fft_full.launches += 1
     return out.reshape(*lead, out_len)

@@ -249,17 +249,18 @@ def store_tables(n: int, dtype: torch.dtype, device) -> torch.Tensor:
                                 torch.device(device), dtype)
 
 
-@lru_cache(maxsize=8)
-def _pass_tables(n: int) -> np.ndarray:
-    """The static path's per-pass twiddle tables at a window that
-    :func:`fits`: for each pass of :func:`radices` of ``N/2``, radix ``r``
-    entered at sub-transform length ``ns``, the ``(r - 1) * ns`` entries
-    ``W_N^(s k N/(ns r))`` at ``(s - 1) ns + k`` (``s = 1..r-1``, ``k <
-    ns``), passes in order: a gather from :func:`_twiddles`, no new
-    rounding (``csrc/stockham.cuh``: ``static_plan`` reads them there)."""
+@lru_cache(maxsize=16)
+def _pass_tables(m: int, n: int) -> np.ndarray:
+    """The per-pass twiddle tables of an ``m``-point FFT on the twiddle
+    table of ``W_n`` (``m`` divides ``n``): for each pass of
+    :func:`radices` of ``m``, radix ``r`` entered at sub-transform length
+    ``ns``, the ``(r - 1) * ns`` entries ``W_n^(s k n/(ns r))`` at ``(s -
+    1) ns + k`` (``s = 1..r-1``, ``k < ns``), passes in order: a gather
+    from :func:`_twiddles` of ``n``, no new rounding (``csrc/stockham.cuh``:
+    ``steps_plan`` reads them there)."""
     tw = _twiddles(n)
     parts, ns = [], 1
-    for r in radices(n // 2):
+    for r in radices(m):
         s = np.arange(1, r)[:, None]
         k = np.arange(ns)[None, :]
         parts.append(tw[(s * k * (n // (ns * r))).reshape(-1)])
@@ -269,12 +270,18 @@ def _pass_tables(n: int) -> np.ndarray:
 
 @lru_cache(maxsize=8)
 def _kernel_tables(n: int) -> np.ndarray:
-    """The table the stores' C entries take at window ``n``: where it
-    :func:`fits`, :func:`_twiddles` then :func:`_pass_tables`; elsewhere
-    :func:`_store_tables` (``rfft_any``)."""
+    """The table the C entries of the stores and the inverse take at window
+    ``n``: where it :func:`fits`, :func:`_twiddles` then the pass tables of
+    the ``N/2``-point FFT on ``W_N``; elsewhere :func:`_store_tables` then
+    the pass tables of the ``L``-point FFT on ``W_L``, ``L`` the FFT's own
+    length or its Bluestein length (:func:`layout`: ``rfft_any`` and
+    ``irfft_any``)."""
     if not fits(n):
-        return _store_tables(n)
-    return np.concatenate([_twiddles(n), _pass_tables(n)])
+        lay = layout(n)
+        length = lay.p or lay.m
+        return np.concatenate([_store_tables(n),
+                               _pass_tables(length, length)])
+    return np.concatenate([_twiddles(n), _pass_tables(n // 2, n)])
 
 
 def kernel_tables(n: int, device) -> torch.Tensor:
@@ -378,7 +385,7 @@ def split_planes(re: torch.Tensor, im: torch.Tensor, tw: torch.Tensor,
     """The split step of the real FFT of N = 2m samples from the FFT ``Z``
     of their even/odd packing (the first ``m`` values of each row): ``X[k]
     = E + W_N^k O`` over ``k = 0..m``, ``Z[m]`` read as ``Z[0]``, ``tw``
-    the table of ``W_N`` (``csrc/rfft.cu``: ``split_bin``)."""
+    the table of ``W_N`` (``csrc/rfft.cu``: ``split_pair``)."""
     k = torch.arange(m + 1, device=re.device)
     ia, ib = k % m, (m - k) % m
     ar, ai, br, bi = re[..., ia], im[..., ia], re[..., ib], im[..., ib]

@@ -176,9 +176,9 @@ def istft(audio_stft, window_function=None, step_length: int | None = None,
 
     On a CUDA complex64 spectrum the synthesis follows its shape rule on
     every dial: the inverse real-FFT + overlap-add kernel at every window
-    from 16 to 4096 (at a window ``rfft.fits`` takes, one launch that reads
-    the spectrum in its strides and folds it in its load), B4 (its split4
-    twin on a lowered dial) below 16 or under ``ZAFTPU_FFT=matmul``.
+    from 16 to 4096 (one launch that reads the spectrum in its strides and
+    folds it in its load), B4 (its split4 twin on a lowered dial) after the
+    index-op fold below 16 or under ``ZAFTPU_FFT=matmul``.
     """
     z, step, gain = _synthesis_inputs(audio_stft, window_function,
                                       step_length, config)
