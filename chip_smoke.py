@@ -61,13 +61,16 @@ non-zero exit and no result line:
    window), take their main-path shape from vorbis(1102) (hop 551,
    T 48,023, F 551: odd, so the fast kernels refuse it), timed, and also
    run at WL 2048 and at their ragged shapes. The spectral CQT kernel (B10
-   and B10-s4 at every power-of-two L up to 32,768) at CqtConfig()'s
+   and B10-s4 at every power-of-two L up to 65,536) at CqtConfig()'s
    main-path shape, at CQT_RAGGED's (2 rows, misaligned) and on a dense
    foreign kernel with columns above L/2 (L 1,024, 2 rows, misaligned),
+   and its two-block cluster at CQT_WIDE's main-path shape (27.5 Hz: L
+   65,536, F 168, hop 1,764, T 15,000), at CQT_RAGGED_WIDE's (L 65,536, 2
+   rows, misaligned) and on a dense foreign kernel at L 65,536, each
    bit-equal to its plain version, timed beside torch.stft + a gather +
    the complex product + abs (four calls); B10 and B10-s4 at CqtConfig()
-   (timed, the same-shape A/B), at CQT_RAGGED's and at their main-path
-   shape, CQT_WIDE (27.5 Hz: L 65,536, F 168, hop 1,764, T 15,000), timed.
+   (timed, the same-shape A/B), at CQT_RAGGED's and at CQT_WIDE's shape
+   (their route under ZAFTPU_FFT=matmul), timed.
    The real-FFT kernel's magnitude and mel stores (B8, B9 and B9-s4's
    function at every window of the FFT rule) bit-equal to their plain
    versions at the main-path shape (40 mels, magnitude and power),
@@ -90,7 +93,8 @@ non-zero exit and no result line:
    B12, their twins and the FFT's planes and full stores) bit-equal to it
    (with the mirror); median times of
    kernel and plain version at the main-path shape (CUDA events; of 10, of
-   3 for a plain version slower than 0.1 s), and of
+   3 for a plain version slower than 0.1 s, one call for one slower than
+   1 s), and of
    one PyTorch call computing the same function where there is one
    (torch.stft for B1, B3, B12, their twins and the FFT kernel's stores,
    two-sided for B3, its twin and the full store, fold for
@@ -140,8 +144,10 @@ non-zero exit and no result line:
    ZAFTPU_PRECISION=split4 (the spectral kernel, <= 1e-5 * max|oracle|),
    under ZAFTPU_FFT=matmul (the split4 twin B10-s4, <= 1e-4 * max|oracle|;
    with ZAFTPU_CQT_SCHEME=exact the exact B10, <= 1e-5) and at CQT_WIDE
-   (L 65,536: B10-s4 by default, B10 under ZAFTPU_CQT_SCHEME=exact), with
-   launch counts showing which kernel ran and that no plain version did;
+   (L 65,536: the spectral kernel's cluster by default and under
+   ZAFTPU_CQT_SCHEME=exact, <= 1e-5; B10-s4 and B10 under
+   ZAFTPU_FFT=matmul), with launch counts showing which kernel ran and
+   that no plain version did;
 9. split4 main path (ZAFTPU_PRECISION=split4): stft -> istft and mdct ->
    imdct of the 600-s signal; at WL 2048, 1,764 and 1,102 the FFT kernels
    compute the spectrum and the round trip under the exact gates (1e-5 *
@@ -240,9 +246,10 @@ the exact gates, and at WL 2,062 under ZAFTPU_FFT=matmul (B1's and B4's
 twins) and vorbis(1102) (B2's and B7's twins) at 3 and 1 passes, high
 within 1e-4 * max of the float64 oracle and >= 88 dB, default within 2e-3
 * max and >= 40 dB, with default < high < split4 in this call; then under
-compute_dtype("bfloat16") the CQT at CQT_WIDE (L 65,536) through B10-s4 at
-one pass, >= 45 dB against the float64 oracle, and melspectrogram and mfcc
-(exempt) bit-equal to float32.
+compute_dtype("bfloat16") the CQT at CQT_WIDE (L 65,536) on the spectral
+kernel's cluster, melspectrogram and mfcc (exempt), each bit-equal to
+float32, and with ZAFTPU_FFT=matmul the CQT at CQT_WIDE through B10-s4 at
+one pass, >= 45 dB against the float64 oracle.
 
 The stream phase: one hour (the six 600-s segments) written as a 44.1 kHz
 mono 16-bit WAV to a temporary directory (removed after); the native WAV
@@ -429,12 +436,16 @@ MEL_30MS = MelConfig(window_length=1323, step_length=441)
 CQT_RAGGED = (CqtConfig(sampling_frequency=22050, octave_resolution=12,
                         minimum_frequency=110.0), 1001)  # L 4096, hop 882
 # The CQT from 27.5 Hz (the piano's lowest A) at 24 bins per octave: L
-# 65,536, F 168, past the spectral kernel's one-block FFT, so B10 and
-# B10-s4 still run there (and under ZAFTPU_FFT=matmul everywhere).
+# 65,536, F 168, past one block's FFT: the spectral kernel's two-block
+# cluster (B10 and B10-s4 under ZAFTPU_FFT=matmul).
 CQT_WIDE = CqtConfig(minimum_frequency=27.5)
-# A small dense foreign CQT kernel with columns above L/2 (read as
-# conjugates): F, L, hop, T, batch rows, signal offset.
-CQT_FOREIGN = (12, 1024, 160, 301, 2, 1)
+CQT_RAGGED_WIDE = (CqtConfig(sampling_frequency=8000, octave_resolution=12,
+                             minimum_frequency=3.0, maximum_frequency=12.0),
+                   201)  # L 65,536, hop 320, F 24
+# Small foreign CQT kernels over every column, with columns above L/2 (read
+# as conjugates): F, L, hop, T, batch rows, signal offset, share of zeros.
+CQT_FOREIGN = (12, 1024, 160, 301, 2, 1, 0.5)
+CQT_FOREIGN_WIDE = (4, 65536, 1000, 41, 2, 1, 0.9)
 # Windows above 4,096: a power of two (the four-step engine under
 # ZAFTPU_FFT=matmul, torch.fft by default) and one that is not (torch.fft).
 LONG_WL = 8192
@@ -520,6 +531,10 @@ KERNELS = {
     "cqt_fft": (cqtfft.CUDA_SOURCE,
                 f"{cqtfft.REPLACES} and {cqtfft.REPLACES_SPLIT4}",
                 cqtfft.cqt_magnitudes_fft, cqtfft.cqt_magnitudes_fft_plain),
+    "cqt_fft_cluster": (cqtfft.CUDA_SOURCE,
+                        f"{cqtfft.REPLACES} and {cqtfft.REPLACES_SPLIT4}",
+                        cqtfft.cqt_magnitudes_fft_cluster,
+                        cqtfft.cqt_magnitudes_fft_plain),
     "mirror_full_planes": (mirror.CUDA_SOURCE, mirror.REPLACES_MIRROR,
                            mirror.mirror_full_planes,
                            mirror.mirror_full_planes_plain),
@@ -1014,36 +1029,40 @@ def _kernel_cases(dev, main_t: int):
         del args
     main_cqt_t = SEGMENT_SECONDS * SR // _cqt_step(CqtConfig())  # 15,000
     # The spectral kernel (B10 and B10-s4 at every power-of-two L up to
-    # 32,768), bit-equal to its plain version: CqtConfig()'s main-path
+    # 65,536), bit-equal to its plain version: CqtConfig()'s main-path
     # shape, CQT_RAGGED's batched and misaligned, and a dense foreign kernel
-    # with columns above L/2.
-    for label, (cfg, t), rows, offset in (
-            ("main", (CqtConfig(), main_cqt_t), 1, 0),
-            ("ragged", CQT_RAGGED, 2, 1)):
+    # with columns above L/2; its two-block cluster at CQT_WIDE's main-path
+    # shape (L 65,536), CQT_RAGGED_WIDE's and a dense foreign kernel there.
+    for name, label, (cfg, t), rows, offset in (
+            ("cqt_fft", "main", (CqtConfig(), main_cqt_t), 1, 0),
+            ("cqt_fft", "ragged", CQT_RAGGED, 2, 1),
+            ("cqt_fft_cluster", "main", (CQT_WIDE, main_cqt_t), 1, 0),
+            ("cqt_fft_cluster", "ragged", CQT_RAGGED_WIDE, 2, 3)):
         kern = cfg.kernel()
         step, length = _cqt_step(cfg), kern.fft_length
         n = (t - 1) * step + length
         sig = torch.from_numpy(np.resize(segment(0), rows * n + offset).astype(
             np.float32)).to(dev)[offset:].reshape(rows, n).squeeze(0)
-        yield ("cqt_fft", label,
+        yield (name, label,
                f"{rows} rows L {length} hop {step} T {t} F "
                f"{kern.number_frequencies} offset {offset}",
                (sig, tcqt._device_fft_table(kern, dev), step, length, t),
                EXACT_TOL)
         del sig
-    f, length, step, t, rows, offset = CQT_FOREIGN
-    rng = np.random.default_rng(SEED)
-    dense = (rng.standard_normal((f, length))
-             + 1j * rng.standard_normal((f, length))) / length
-    dense[rng.random(dense.shape) < 0.5] = 0
-    n = (t - 1) * step + length
-    sig = torch.from_numpy(np.resize(segment(1), rows * n + offset).astype(
-        np.float32)).to(dev)[offset:].reshape(rows, n)
-    yield ("cqt_fft", "ragged",
-           f"dense foreign {rows} rows L {length} hop {step} T {t} F {f} "
-           f"offset {offset}",
-           (sig, cqtfft.device_table(cqtfft.kernel_table(dense), dev), step,
-            length, t), EXACT_TOL)
+    for name, (f, length, step, t, rows, offset, zeros) in (
+            ("cqt_fft", CQT_FOREIGN), ("cqt_fft_cluster", CQT_FOREIGN_WIDE)):
+        rng = np.random.default_rng(SEED)
+        dense = (rng.standard_normal((f, length))
+                 + 1j * rng.standard_normal((f, length))) / length
+        dense[rng.random(dense.shape) < zeros] = 0
+        n = (t - 1) * step + length
+        sig = torch.from_numpy(np.resize(segment(1), rows * n + offset).astype(
+            np.float32)).to(dev)[offset:].reshape(rows, n)
+        yield (name, "ragged",
+               f"dense foreign {rows} rows L {length} hop {step} T {t} F {f} "
+               f"offset {offset}",
+               (sig, cqtfft.device_table(cqtfft.kernel_table(dense), dev),
+                step, length, t), EXACT_TOL)
     # B10 and B10-s4: at CqtConfig() (the spectral kernel's shape, timed
     # beside it), at CQT_RAGGED's, and at their main-path shape, L 65,536
     # (CQT_WIDE), timed.
@@ -1244,21 +1263,30 @@ def _work(name: str, args: tuple,
         b = _rows(sig)
         return (passes * 4 * b * t * length * f, 3 * b * t * f,
                 4 * (sig.numel() + b * t * f) + opb * 2 * length * f)
-    if base == "cqt_fft":
-        # The spectral CQT: each frame's L/2-point FFT (its plan's passes),
-        # the split step at the distinct bins the kernel reads (16 each),
-        # the banded product (8 a nonzero) and the magnitude (3 an output);
-        # the signal, the passes' eighth of the twiddle table and the
-        # kernel's table read once (a row pointer; a bin code, a complex64
-        # value and its twiddle a nonzero), the magnitudes written once.
+    if base in ("cqt_fft", "cqt_fft_cluster"):
+        # The spectral CQT: each frame's L/2-point FFT (its plan's passes;
+        # at L 65,536 the last, radix-2 pass only at the positions the
+        # split list names, 10 each), the split step at the distinct bins
+        # the kernel reads (16 each), the banded product (8 a nonzero) and
+        # the magnitude (3 an output); the signal, the passes' eighth of the
+        # twiddle table, the split step's twiddles (one a bin; at L 65,536
+        # the last pass's too, one a position) and the kernel's table read
+        # once (a row pointer; a code and a complex64 value a nonzero; the
+        # split list), the magnitudes written once.
         sig, table, _, length, t = args
         b = _rows(sig)
-        f, nnz = table.number_frequencies, table.code.numel()
-        bins = torch.unique(table.code >> 1).numel()
+        f, nnz = table.number_frequencies, table.index.numel()
+        bins = torch.unique(table.index >> 3).numel()
         ops = _fft_ops(length) + 16 * bins + 8 * nnz + 3 * f
+        twiddles = length + 8 * bins
+        if cqtfft.cluster_size(length) > 1:
+            j = table.splits.cpu().numpy() >> 4
+            positions = int((1 + ((j > 0) & (2 * j != length // 4))).sum())
+            ops += 10 * positions - 10 * (length // 4)
+            twiddles += 8 * positions
         return (0, b * t * ops,
-                4 * sig.numel() + length + 4 * (f + 1) + 20 * nnz
-                + 4 * b * t * f)
+                4 * sig.numel() + twiddles + 4 * (f + 1) + 12 * nnz
+                + 4 * table.splits.numel() + 4 * b * t * f)
     if base in ("spec_rows_fft", "mel_rows_fft"):
         # The real FFT's magnitude or mel store (_store_ops a frame) and for
         # the mel store 2 a filterbank nonzero; the signal, the window and
@@ -1357,7 +1385,7 @@ def library_call(name: str, args: tuple):
         return lambda: torch.nn.functional.fold(
             frames.T[None], (1, (t - 1) * step + wl), (1, wl),
             stride=(1, step))
-    if base == "cqt_fft":
+    if base in ("cqt_fft", "cqt_fft_cluster"):
         return cqt_fft_library(*args[:4])
     if base in ("spec_rows", "spec_rows_fft"):
         padded, win, wl, step, _ = args[:5]
@@ -1412,13 +1440,13 @@ def cqt_fft_library(sig, table, step, length):
     the complex64 product with the reduced kernel (its ``reduced_low``
     rounded to complex64) and ``abs``, ``(F, T)``. For a kernel with no
     columns above L/2, as every CqtConfig() kernel."""
-    codes = table.code.cpu().numpy()
+    codes = table.index.cpu().numpy()
     require(not (codes & 1).any(), "cqt_fft yardstick: conjugate columns")
-    cols = np.unique(codes >> 1)
+    cols = np.unique(codes >> 3)
     rowptr = table.rowptr.cpu().numpy()
     reduced = np.zeros((rowptr.shape[0] - 1, cols.shape[0]), np.complex64)
     row = np.repeat(np.arange(reduced.shape[0]), np.diff(rowptr))
-    reduced[row, np.searchsorted(cols, codes >> 1)] = \
+    reduced[row, np.searchsorted(cols, codes >> 3)] = \
         table.values.cpu().numpy()
     red = torch.from_numpy(reduced).to(sig.device)
     idx = torch.from_numpy(cols).to(sig.device)
@@ -1470,8 +1498,10 @@ def phase_kernels(dev) -> dict:
         start = time.perf_counter()
         ref = plain(*args)
         torch.cuda.synchronize()
-        # A plain version slower than 0.1 s a call is timed 3 times.
-        plain_reps = 3 if time.perf_counter() - start > 0.1 else 10
+        # A plain version slower than 0.1 s a call is timed 3 times, one
+        # slower than 1 s once (the call above its warm-up).
+        plain_s = time.perf_counter() - start
+        plain_reps = 1 if plain_s > 1 else 3 if plain_s > 0.1 else 10
         if name in RESTORES:
             base, store = RESTORES[name]
             sums = _planes(store(KERNELS[base][2](*args), args[2]))
@@ -1505,7 +1535,7 @@ def phase_kernels(dev) -> dict:
         if timed:
             ms = median_ms(lambda: kernel(*args))
             plain_ms = median_ms(lambda: plain(*args), reps=plain_reps,
-                                 warmup=2 if plain_reps == 10 else 1)
+                                 warmup={10: 2, 3: 1}.get(plain_reps, 0))
             lib = library_call(name, args)
             library_ms = None if lib is None else median_ms(lib)
             if lib is not None and name.removesuffix("_split4") in (
@@ -1519,7 +1549,7 @@ def phase_kernels(dev) -> dict:
                 require(lerr <= GEMM_TOL * scale,
                         f"{name}: torch.istft yardstick {lerr} > "
                         f"{GEMM_TOL} * {scale}")
-            if name == "cqt_fft":
+            if name in ("cqt_fft", "cqt_fft_cluster"):
                 lerr = _max_abs(lib().transpose(-1, -2) - got)
                 print(f"  {name}: four-call yardstick vs kernel max_abs_err "
                       f"{lerr!r} (printed, not gated)")
@@ -1806,41 +1836,59 @@ def check_dial_order() -> None:
 
 
 def phase_bf16(dispatch: str, x: torch.Tensor) -> dict:
-    """Under compute_dtype("bfloat16"): the CQT at CQT_WIDE (L 65,536, B10's
-    route) through B10-s4 at one pass, at least 45 dB against the float64
-    oracle and below BF16_CQT_MAX_SNR_DB, which the float32 dial's CQT
-    exceeds; melspectrogram and mfcc at MelConfig() (exempt) bit-equal to
-    the float32 dial's. Returns the launch counts."""
+    """Under compute_dtype("bfloat16"): melspectrogram and mfcc at
+    MelConfig() (exempt) and the CQT at CQT_WIDE (L 65,536) on the spectral
+    kernel's cluster, one launch (bfloat16 lowers only the time-domain
+    route, which the spectral kernel replaces up to L 65,536), each
+    bit-equal to the float32 dial's; then, under ZAFTPU_FFT=matmul (B10's
+    route), the CQT at CQT_WIDE through B10-s4 at one pass, at least 45 dB
+    against the float64 oracle and below BF16_CQT_MAX_SNR_DB, which the
+    float32 dial's CQT on that route exceeds. Returns the launch
+    counts."""
     cfg = MelConfig()
+
+    def cqt():
+        return zaftpu_torch.cqtspectrogram(x, config=CQT_WIDE)
+
     mel = zaftpu_torch.melspectrogram(x, config=cfg)
     mf = zaftpu_torch.mfcc(x, config=cfg)
-    spec32 = zaftpu_torch.cqtspectrogram(x, config=CQT_WIDE)
+    spec32 = cqt()
+    spec32_gemm = _with_env(FFT_MATMUL, cqt)
     reset_counters()
     with zaftpu_torch.compute_dtype("bfloat16"):
-        spec = zaftpu_torch.cqtspectrogram(x, config=CQT_WIDE)
+        spec = cqt()
         torch.cuda.synchronize()
         launches = check_counters(f"bf16 [{dispatch}] cqt",
-                                  ("cqt_magnitudes_split4",))
-        require(launches["cqt_magnitudes_split4"] == 1,
-                f"bf16: {launches} launches of B10-s4, not one")
-        oracle = cqt_oracle(x, CQT_WIDE)[0]
-        snr, snr32 = (
-            float(10 * torch.log10((oracle ** 2).sum()
-                                   / ((s.T.double() - oracle) ** 2).sum()))
-            for s in (spec, spec32))
+                                  ("cqt_fft_cluster",))
+        require(launches["cqt_fft_cluster"] == 1,
+                f"bf16: {launches} launches of the cluster, not one")
         mel16 = zaftpu_torch.melspectrogram(x, config=cfg)
         mf16 = zaftpu_torch.mfcc(x, config=cfg)
+        reset_counters()
+        spec_gemm = _with_env(FFT_MATMUL, cqt)
+        torch.cuda.synchronize()
+        gemm = check_counters(f"bf16 [{dispatch}] ZAFTPU_FFT=matmul cqt",
+                              ("cqt_magnitudes_split4",))
+        require(gemm["cqt_magnitudes_split4"] == 1,
+                f"bf16: {gemm} launches of B10-s4, not one")
+    oracle = cqt_oracle(x, CQT_WIDE)[0]
+    snr, snr32 = (
+        float(10 * torch.log10((oracle ** 2).sum()
+                               / ((s.T.double() - oracle) ** 2).sum()))
+        for s in (spec_gemm, spec32_gemm))
+    equal = [torch.equal(a, b)
+             for a, b in ((spec, spec32), (mel16, mel), (mf16, mf))]
     print(f"bf16 [{dispatch}]: cqtspectrogram at L "
-          f"{CQT_WIDE.kernel().fft_length} on B10-s4 at 1 pass: SNR vs f64 "
-          f"oracle {snr!r} dB (float32 dial {snr32!r} dB); melspectrogram "
-          f"and mfcc bit-equal to float32: {torch.equal(mel16, mel)} "
-          f"{torch.equal(mf16, mf)}")
+          f"{CQT_WIDE.kernel().fft_length}, melspectrogram and mfcc "
+          f"bit-equal to float32: {equal}; under ZAFTPU_FFT=matmul on "
+          f"B10-s4 at 1 pass: SNR vs f64 oracle {snr!r} dB (float32 dial "
+          f"{snr32!r} dB)")
     require(BF16_CQT_MIN_SNR_DB <= snr < BF16_CQT_MAX_SNR_DB <= snr32,
             f"bf16 CQT SNR {snr} dB (float32 {snr32} dB) outside "
             f"[{BF16_CQT_MIN_SNR_DB}, {BF16_CQT_MAX_SNR_DB})")
-    require(torch.equal(mel16, mel) and torch.equal(mf16, mf),
-            "bf16: an exempt mel front end changed")
-    return launches
+    require(equal[0], "bf16: the CQT on the spectral kernel changed")
+    require(equal[1] and equal[2], "bf16: an exempt mel front end changed")
+    return {**launches, **gemm}
 
 
 def mel_oracles(x: torch.Tensor, cfg: MelConfig):
@@ -2383,8 +2431,9 @@ def cqt_oracle(x: torch.Tensor, cfg: CqtConfig, chunk: int = 256):
 
 # CQT dispatch -> the configuration, the kernel it must run and its oracle
 # gate (x max|oracle|). At CqtConfig() (L 32,768) the spectral kernel runs
-# on every scheme and dial; under ZAFTPU_FFT=matmul and at CQT_WIDE's L
-# 65,536 the scheme's time-domain kernel: B10-s4 by default, B10 exact.
+# on every scheme and dial, at CQT_WIDE's L 65,536 its two-block cluster;
+# under ZAFTPU_FFT=matmul the scheme's time-domain kernel: B10-s4 by
+# default, B10 exact.
 CQT_WANT = {
     "default": (CqtConfig(), "cqt_fft", ORACLE_TOL),
     "ZAFTPU_PRECISION=highest": (CqtConfig(), "cqt_fft", ORACLE_TOL),
@@ -2395,9 +2444,13 @@ CQT_WANT = {
     "ZAFTPU_FFT=matmul ZAFTPU_CQT_SCHEME=exact": (CqtConfig(),
                                                   "cqt_magnitudes",
                                                   ORACLE_TOL),
-    "default L 65536": (CQT_WIDE, "cqt_magnitudes_split4", SPLIT4_ORACLE_TOL),
-    "ZAFTPU_CQT_SCHEME=exact L 65536": (CQT_WIDE, "cqt_magnitudes",
-                                        ORACLE_TOL)}
+    "default L 65536": (CQT_WIDE, "cqt_fft_cluster", ORACLE_TOL),
+    "ZAFTPU_CQT_SCHEME=exact L 65536": (CQT_WIDE, "cqt_fft_cluster",
+                                        ORACLE_TOL),
+    "ZAFTPU_FFT=matmul L 65536": (CQT_WIDE, "cqt_magnitudes_split4",
+                                  SPLIT4_ORACLE_TOL),
+    "ZAFTPU_FFT=matmul ZAFTPU_CQT_SCHEME=exact L 65536": (
+        CQT_WIDE, "cqt_magnitudes", ORACLE_TOL)}
 
 
 def phase_cqt_path(dispatch: str, x: torch.Tensor) -> dict:
@@ -3515,6 +3568,9 @@ def main() -> int:
              "ZAFTPU_FFT=matmul ZAFTPU_CQT_SCHEME=exact"),
             (DEFAULT, phase_cqt_path, "default L 65536"),
             (CQT_EXACT, phase_cqt_path, "ZAFTPU_CQT_SCHEME=exact L 65536"),
+            (FFT_MATMUL, phase_cqt_path, "ZAFTPU_FFT=matmul L 65536"),
+            (CQT_EXACT_MATMUL, phase_cqt_path,
+             "ZAFTPU_FFT=matmul ZAFTPU_CQT_SCHEME=exact L 65536"),
             (SPLIT4, phase_main_path, "split4"),
             (SPLIT4, phase_main_path, f"split4 WL {MIXED_WL}"),
             (SPLIT4, phase_main_path, f"split4 WL {PRIME_WL}"),

@@ -1,22 +1,32 @@
-"""Rehearse the real-FFT and inverse kernels' CUDA sources on the CPU.
+"""Rehearse the real-FFT, inverse and spectral CQT kernels' CUDA sources
+on the CPU.
 
     python3 scripts/cuda_cpu_rehearsal.py [WL ...] [--sweep LO HI]
         [--every K --first I] [--threads 32]
+    python3 scripts/cuda_cpu_rehearsal.py --cqt
 
-Compiles ``zaftpu_torch/csrc/rfft.cu`` and ``irfft.cu`` with ``g++`` against
-a small stand-in for the CUDA runtime (``HEADER`` below: each block's
-threads run as ``std::thread``s with a ``std::barrier`` for
-``__syncthreads``, blocks one after another, the ``__f*_rn`` intrinsics as
-plain IEEE single operations under ``-ffp-contract=off``, shared memory
-poisoned before each launch), then calls the C entries on CPU tensors
-through ``ctypes`` and holds every output bit-equal to its plain PyTorch
-version: the half, planes, full, magnitude and mel stores (magnitude and
-power), the inverse on folded planes and the fused fold on a full spectrum
-that is not Hermitian, frames-major and bins-major, at each window given
-(or every window from LO to HI that ``rfft.fits`` refuses, every K-th from
-the I-th), 3 to 9 frames, batched, at the hops ``WL // 3 + 1``, ``WL // 7
-+ 1`` and ``WL``. A block runs on ``--threads`` threads (the kernels' loops stride by
-``blockDim.x``, so the values are those of 256). It proves the kernels'
+Compiles ``zaftpu_torch/csrc/rfft.cu``, ``irfft.cu`` and ``cqtfft.cu`` with
+``g++`` against a small stand-in for the CUDA runtime (``HEADER`` below:
+each block's threads run as ``std::thread``s with a ``std::barrier`` for
+``__syncthreads``, blocks one after another, a cluster's blocks side by
+side with a barrier of their own and each other's shared memory
+(``cooperative_groups``' ``this_cluster``, ``cudaLaunchKernelEx``), the
+``__f*_rn`` intrinsics as plain IEEE single operations under
+``-ffp-contract=off``, shared memory poisoned before each launch), then
+calls the C entries on CPU tensors through ``ctypes`` and holds every
+output bit-equal to its plain PyTorch version: the half, planes, full,
+magnitude and mel stores (magnitude and power), the inverse on folded
+planes and the fused fold on a full spectrum that is not Hermitian,
+frames-major and bins-major, at each window given (or every window from
+LO to HI that ``rfft.fits`` refuses, every K-th from the I-th), 3 to 9
+frames, batched, at the hops ``WL // 3 + 1``, ``WL // 7 + 1`` and ``WL``.
+A block runs on ``--threads`` threads (the kernels' loops stride by
+``blockDim.x``, so the values are those of 256). ``--cqt`` instead runs
+the spectral CQT (``cqt_cases``: ``CqtConfig()``, L 2,048, dense and
+conjugate foreign kernels, L 16, 32 and 128, and at L 65,536 on two-block
+clusters
+``CQT_WIDE``, a batched misaligned case and a dense foreign kernel) at the
+kernel's 1,024 threads a block, in about 30 s. It proves the kernels'
 indexing and operation order, not that ``nvcc`` takes them or that they
 are race-free on the card. The build goes to ``build/cpu_rehearsal/``
 (one directory for each source hash).
@@ -40,7 +50,9 @@ import torch
 ROOT = Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(ROOT))
 
-from zaftpu_torch.kernels import _build, irfft, melfft, rfft  # noqa: E402
+from zaftpu_torch.kernels import (_build, cqtfft, irfft, melfft,  # noqa: E402
+                                  rfft)
+from zaftpu_torch.transforms import cqt as tcqt  # noqa: E402
 
 OUT = ROOT / "build" / "cpu_rehearsal"
 HEADER = r"""
@@ -50,12 +62,15 @@ HEADER = r"""
 #include <cstdint>
 #include <cstdlib>
 #include <cstring>
+#include <memory>
 #include <thread>
 #include <tuple>
 #include <vector>
 
 struct float2 { float x, y; };
 struct float4 { float x, y, z, w; };
+struct int2 { int x, y; };
+inline int2 make_int2(int x, int y) { return {x, y}; }
 inline float2 make_float2(float x, float y) { return {x, y}; }
 inline float4 make_float4(float x, float y, float z, float w) {
   return {x, y, z, w};
@@ -66,17 +81,23 @@ struct dim3 {
   dim3(unsigned a = 1, unsigned b = 1, unsigned c = 1) : x(a), y(b), z(c) {}
 };
 inline thread_local uint3 threadIdx;
-inline uint3 blockIdx;
+inline thread_local uint3 blockIdx;
 inline dim3 blockDim, gridDim;
-inline std::barrier<>* emu_bar = nullptr;
-inline void* emu_smem_ptr = nullptr;
+inline thread_local std::barrier<>* emu_bar = nullptr;
+inline thread_local void* emu_smem_ptr = nullptr;
 inline int emu_threads = 256;
+// A cluster's blocks run side by side: its barrier, each block's rank and
+// the blocks' shared memory.
+inline thread_local std::barrier<>* emu_cluster_bar = nullptr;
+inline thread_local unsigned emu_cluster_rank = 0;
+inline thread_local void** emu_cluster_smem = nullptr;
 inline void __syncthreads() { emu_bar->arrive_and_wait(); }
 
 #define __global__
 #define __device__
 #define __host__
 #define __forceinline__ inline
+#define __noinline__ __attribute__((noinline))
 #define __launch_bounds__(...)
 #define __shared__ static
 #define __align__(n) __attribute__((aligned(n)))
@@ -86,6 +107,16 @@ inline float __fsub_rn(float a, float b) { return a - b; }
 inline float __fmul_rn(float a, float b) { return a * b; }
 inline float __fdiv_rn(float a, float b) { return a / b; }
 inline float __fsqrt_rn(float a) { return std::sqrt(a); }
+inline unsigned __float_as_uint(float x) {
+  unsigned u;
+  std::memcpy(&u, &x, sizeof u);
+  return u;
+}
+inline float __uint_as_float(unsigned u) {
+  float x;
+  std::memcpy(&x, &u, sizeof x);
+  return x;
+}
 inline unsigned __umulhi(unsigned a, unsigned b) {
   return (unsigned)(((unsigned long long)a * b) >> 32);
 }
@@ -95,7 +126,8 @@ template <class T> inline T max(T a, T b) { return a < b ? b : a; }
 
 typedef int cudaError_t;
 typedef void* cudaStream_t;
-enum { cudaSuccess = 0, cudaErrorInvalidValue = 1 };
+enum { cudaSuccess = 0, cudaErrorInvalidValue = 1,
+       cudaErrorInvalidConfiguration = 9 };
 enum { cudaFuncAttributeMaxDynamicSharedMemorySize = 8 };
 enum { cudaDevAttrMultiProcessorCount = 16 };
 inline int cudaGetLastError() { return 0; }
@@ -106,32 +138,100 @@ template <class K> inline int cudaFuncSetAttribute(K, int, int bytes) {
 }
 inline const char* cudaGetErrorString(int) { return "cpu rehearsal"; }
 
+// Runs the grid cluster by cluster (cx blocks along x at once), each
+// block's threads as std::threads with the block's barrier, shared memory
+// poisoned.
 template <class... P, class... A>
-void emu_launch(void (*k)(P...), dim3 grid, int, size_t smem, cudaStream_t,
-                A&&... args) {
-  std::vector<double> shared(smem / sizeof(double) + 2);
-  std::memset(shared.data(), 0xff, shared.size() * sizeof(double));
-  emu_smem_ptr = shared.data();
-  const int threads = emu_threads;
+void emu_grid(void (*k)(P...), dim3 grid, unsigned cx, int threads,
+              size_t smem, A&&... args) {
   gridDim = grid;
   blockDim = dim3(threads);
   std::tuple<std::decay_t<P>...> params(args...);
   for (unsigned by = 0; by < grid.y; ++by) {
-    for (unsigned bx = 0; bx < grid.x; ++bx) {
-      blockIdx = {bx, by, 0};
-      std::barrier<> bar(threads);
-      emu_bar = &bar;
+    for (unsigned bx = 0; bx < grid.x; bx += cx) {
+      std::vector<std::vector<double>> shared(
+          cx, std::vector<double>(smem / sizeof(double) + 2));
+      std::vector<void*> ptrs(cx);
+      std::vector<std::unique_ptr<std::barrier<>>> bars;
+      for (unsigned r = 0; r < cx; ++r) {
+        std::memset(shared[r].data(), 0xff, shared[r].size() * sizeof(double));
+        ptrs[r] = shared[r].data();
+        bars.emplace_back(new std::barrier<>(threads));
+      }
+      std::barrier<> cbar(cx * threads);
       std::vector<std::thread> ts;
-      for (int t = 0; t < threads; ++t) {
-        ts.emplace_back([&, t] {
-          threadIdx = {(unsigned)t, 0, 0};
-          std::apply(k, params);
-        });
+      for (unsigned r = 0; r < cx; ++r) {
+        for (int t = 0; t < threads; ++t) {
+          ts.emplace_back([&, r, t] {
+            threadIdx = {(unsigned)t, 0, 0};
+            blockIdx = {bx + r, by, 0};
+            emu_bar = bars[r].get();
+            emu_smem_ptr = ptrs[r];
+            emu_cluster_bar = &cbar;
+            emu_cluster_rank = r;
+            emu_cluster_smem = ptrs.data();
+            std::apply(k, params);
+          });
+        }
       }
       for (auto& th : ts) th.join();
     }
   }
 }
+
+template <class... P, class... A>
+void emu_launch(void (*k)(P...), dim3 grid, int, size_t smem, cudaStream_t,
+                A&&... args) {
+  emu_grid(k, grid, 1, emu_threads, smem, std::forward<A>(args)...);
+}
+
+enum { cudaLaunchAttributeClusterDimension = 4 };
+struct cudaLaunchAttribute {
+  int id;
+  struct { struct { unsigned x, y, z; } clusterDim; } val;
+};
+struct cudaLaunchConfig_t {
+  dim3 gridDim, blockDim;
+  size_t dynamicSmemBytes;
+  cudaStream_t stream;
+  cudaLaunchAttribute* attrs;
+  unsigned numAttrs;
+};
+template <class K>
+inline int cudaOccupancyMaxActiveClusters(int* n, K, const cudaLaunchConfig_t*) {
+  *n = 66;
+  return 0;
+}
+template <class... P, class... A>
+int cudaLaunchKernelEx(const cudaLaunchConfig_t* cfg, void (*k)(P...),
+                       A&&... args) {
+  unsigned cx = 1;
+  for (unsigned i = 0; i < cfg->numAttrs; ++i) {
+    if (cfg->attrs[i].id == cudaLaunchAttributeClusterDimension) {
+      cx = cfg->attrs[i].val.clusterDim.x;
+    }
+  }
+  if (cfg->gridDim.x % cx) return cudaErrorInvalidConfiguration;
+  emu_grid(k, cfg->gridDim, cx, cfg->blockDim.x, cfg->dynamicSmemBytes,
+           std::forward<A>(args)...);
+  return 0;
+}
+"""
+COOPERATIVE_GROUPS = r"""
+#pragma once
+#include "cuda_runtime.h"
+namespace cooperative_groups {
+struct cluster_group {
+  void sync() const { emu_cluster_bar->arrive_and_wait(); }
+  unsigned block_rank() const { return emu_cluster_rank; }
+  template <class T>
+  T* map_shared_rank(T* p, unsigned r) const {
+    return (T*)((char*)emu_cluster_smem[r] +
+                ((char*)p - (char*)emu_cluster_smem[emu_cluster_rank]));
+  }
+};
+inline cluster_group this_cluster() { return {}; }
+}  // namespace cooperative_groups
 """
 EXTRA = """#include "common.cuh"
 ZT_EXPORT void zt_rehearsal_threads(int n) { emu_threads = n; }
@@ -148,6 +248,7 @@ def build() -> ctypes.CDLL:
     (out / "inc").mkdir(parents=True, exist_ok=True)
     src.mkdir(exist_ok=True)
     (out / "inc" / "cuda_runtime.h").write_text(HEADER)
+    (out / "inc" / "cooperative_groups.h").write_text(COOPERATIVE_GROUPS)
     for f in _build.CSRC.iterdir():
         text = f.read_text()
         text = re.sub(r"extern __shared__ __align__\(16\) float2 (\w+)\[\];",
@@ -165,8 +266,8 @@ def build() -> ctypes.CDLL:
             ["g++", "-std=c++20", "-O2", "-ffp-contract=off", "-fPIC",
              "-shared", "-pthread", "-w", "-x", "c++", "-I", str(out / "inc"),
              "-I", str(src), "-o", str(tmp),
-             *(str(src / n) for n in ("rfft.cu", "irfft.cu", "errors.cu",
-                                      "rehearsal.cu"))], check=True)
+             *(str(src / n) for n in ("rfft.cu", "irfft.cu", "cqtfft.cu",
+                                      "errors.cu", "rehearsal.cu"))], check=True)
         os.replace(tmp, lib)  # another rehearsal sees all of it or none
     loaded = ctypes.CDLL(str(lib))
     for name, argtypes in _build.SIGNATURES.items():
@@ -264,6 +365,63 @@ def inverse(lib, wl: int, step: int, t: int, batch: int) -> list:
     return bad
 
 
+# The spectral CQT's rehearsal cases: (name, kernel's dense (F, L) array,
+# hop, T, batch rows, signal offset in floats).
+def cqt_cases() -> list:
+    rng = np.random.default_rng(7)
+
+    def dense(f, length, zeros):
+        k = (rng.standard_normal((f, length))
+             + 1j * rng.standard_normal((f, length))) / length
+        k[rng.random(k.shape) < zeros] = 0
+        return k
+
+    high = tcqt.cqtkernel(8000, 12, 110.0, 880.0).kernel.copy()
+    high[::2] = np.roll(high[::2, ::-1], 1, axis=1)
+    return [
+        ("CqtConfig() L 32,768", tcqt.cqtkernel(44100, 24, 55.0,
+                                                3520.0).kernel, 1764, 3, 1,
+         0),
+        ("L 2,048 misaligned", tcqt.cqtkernel(8000, 12, 110.0,
+                                              880.0).kernel, 320, 5, 2, 1),
+        ("dense foreign L 512", dense(10, 512, 0.4), 160, 4, 2, 1),
+        ("bands above L/2, L 2,048", high, 320, 3, 1, 0),
+        ("dense foreign L 16", dense(3, 16, 0.3), 5, 7, 1, 0),
+        ("dense foreign L 32", dense(4, 32, 0.3), 7, 9, 2, 1),
+        ("dense foreign L 128", dense(5, 128, 0.3), 40, 6, 1, 0),
+        ("CQT_WIDE L 65,536", tcqt.cqtkernel(44100, 24, 27.5,
+                                             3520.0).kernel, 1764, 2, 1, 0),
+        ("L 65,536 batched misaligned", tcqt.cqtkernel(8000, 12, 3.0,
+                                                       12.0).kernel, 320, 2,
+         2, 3),
+        ("dense foreign L 65,536", dense(3, 65536, 0.5), 1000, 2, 1, 0),
+    ]
+
+
+def cqt(lib, name, dense, step, t, batch, offset) -> list:
+    """The spectral CQT kernel against its plain version; the failures."""
+    length = dense.shape[1]
+    n = (t - 1) * step + length
+    rng = np.random.default_rng(length + t)
+    flat = torch.from_numpy(rng.standard_normal(batch * n + offset).astype(
+        np.float32))
+    sig = flat[offset:].view(batch, n)
+    tab = cqtfft.device_table(cqtfft.kernel_table(dense), "cpu")
+    tw = cqtfft.twiddles(length, torch.float32, "cpu")
+    out = torch.full((batch, t, dense.shape[0]), float("nan"))
+    err = lib.zt_cqt_magnitudes_fft(
+        sig.data_ptr(), tw.data_ptr(), tab.rowptr.data_ptr(),
+        tab.index.data_ptr(), tab.values.data_ptr(), tab.splits.data_ptr(),
+        out.data_ptr(), batch, n, t, length, step, dense.shape[0],
+        tab.splits.numel(), tab.rsplit, None)
+    ref = cqtfft.cqt_magnitudes_fft_plain(sig, tab, step, length, t)
+    if err or not torch.equal(out, ref):
+        bad = int((out != ref).sum())
+        return [f"cqt {name}: error {err}, {bad} values "
+                "differ"]
+    return []
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("windows", nargs="*", type=int)
@@ -271,6 +429,9 @@ def main() -> int:
     parser.add_argument("--every", type=int, default=1)
     parser.add_argument("--first", type=int, default=0)
     parser.add_argument("--threads", type=int, default=32)
+    parser.add_argument("--cqt", action="store_true",
+                        help="the spectral CQT kernel's cases instead "
+                        "(1,024 threads a block, two-block clusters)")
     args = parser.parse_args()
     torch.set_num_threads(1)
     wins = list(args.windows)
@@ -283,12 +444,19 @@ def main() -> int:
     lib.zt_rehearsal_threads(args.threads)
     print(f"built in {time.perf_counter() - t0:.1f} s", flush=True)
     bad = []
+    if args.cqt:
+        lib.zt_rehearsal_threads(1024)  # the kernel's kThreadsFft
+        cases = cqt_cases()
+        for case in cases:
+            bad += cqt(lib, *case)
+            print(f"{case[0]}: {time.perf_counter() - t0:.1f} s", flush=True)
     for wl in wins:
         bad += stores(lib, wl, wl // 3 + 1, 3)
         for step, t, batch in ((wl // 3 + 1, 4, 2), (wl // 7 + 1, 9, 1),
                                (wl, 3, 3)):
             bad += inverse(lib, wl, step, t, batch)
-    print(f"{len(wins)} windows in {time.perf_counter() - t0:.1f} s: "
+    print(f"{len(wins)} windows{' and the CQT cases' if args.cqt else ''} in "
+          f"{time.perf_counter() - t0:.1f} s: "
           f"{len(bad)} mismatches")
     for line in bad[:20]:
         print(line)

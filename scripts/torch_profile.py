@@ -6,8 +6,8 @@
 Profiles 600-s stft -> istft, mdct -> imdct (the chip_smoke.py signal,
 Hamming and vorbis windows of 2048, hop 1024; --window sets the STFT's
 Hamming window, at half overlap), cqtspectrogram at
-CqtConfig() (on the path the environment selects, then under
-ZAFTPU_FFT=matmul: the time-domain kernels), one hour of stft (six 600-s
+CqtConfig() and from 27.5 Hz (L 65,536; on the path the environment
+selects, then under ZAFTPU_FFT=matmul: the time-domain kernels), one hour of stft (six 600-s
 segments queued back to back)
 and one hour of stft, then istft (chip_smoke.py's hour phase) with
 torch.profiler after two
@@ -22,8 +22,9 @@ share; for the hours, also the host operators that take the most host
 time of their own. ``--only mdct`` profiles the MDCT instead: 600-s mdct ->
 imdct, mdct alone and imdct alone, and one hour of mdct, then imdct (set
 ZAFTPU_FFT=matmul to profile the GEMMs B2 and B7, or their twins, at WL
-2048). ``--only cqt`` profiles the CQT alone: 600-s cqtspectrogram and
-one hour of it, each on the selected path and under ZAFTPU_FFT=matmul.
+2048). ``--only cqt`` profiles the CQT alone: 600-s cqtspectrogram at
+both configurations and one hour of it at CqtConfig(), each on the
+selected path and under ZAFTPU_FFT=matmul.
 ``--only mel`` profiles the mel front ends: 600-s melspectrogram and mfcc
 at MelConfig() and melspectrogram at Whisper's front end (16 kHz, Hann 400
 / hop 160, 80 mels: the signal's first 600 s of samples read at 16 kHz),
@@ -110,11 +111,11 @@ def profile_mdct(x: torch.Tensor, vw, iters: int) -> None:
 
 
 def profile_cqt(x: torch.Tensor, iters: int, hour: bool) -> None:
-    """cqtspectrogram at CqtConfig() on the path the environment selects
-    (the spectral kernel by default) and again under ZAFTPU_FFT=matmul (the
-    time-domain kernels B10-s4 and B10, the path before the spectral
-    kernel): 600 s and, with ``hour``, one hour."""
-    cfg = CqtConfig()
+    """cqtspectrogram at CqtConfig() (L 32,768) and from 27.5 Hz (L 65,536)
+    on the path the environment selects (the spectral kernel by default;
+    its two-block cluster at L 65,536) and again under ZAFTPU_FFT=matmul
+    (the time-domain kernels B10-s4 and B10): 600 s and, with ``hour``, one
+    hour at CqtConfig()."""
     segs = ([torch.from_numpy(segment(i)).cuda() for i in range(6)]
             if hour else [])
     saved = os.environ.get("ZAFTPU_FFT")
@@ -122,13 +123,15 @@ def profile_cqt(x: torch.Tensor, iters: int, hour: bool) -> None:
         for fft in (saved, "matmul"):
             if fft is not None:
                 os.environ["ZAFTPU_FFT"] = fft
-            label = f"cqtspectrogram [ZAFTPU_FFT={fft or 'auto'}]"
-            profile(label, lambda: zaftpu_torch.cqtspectrogram(
-                x, config=cfg), iters)
-            if hour:
-                profile(label + ", one hour", lambda: [
-                    zaftpu_torch.cqtspectrogram(s, config=cfg)
-                    for s in segs], iters, host_rows=8)
+            for name, cfg in (("CqtConfig()", CqtConfig()),
+                              ("27.5 Hz", CqtConfig(minimum_frequency=27.5))):
+                label = f"cqtspectrogram {name} [ZAFTPU_FFT={fft or 'auto'}]"
+                profile(label, lambda: zaftpu_torch.cqtspectrogram(
+                    x, config=cfg), iters)
+                if hour and name == "CqtConfig()":
+                    profile(label + ", one hour", lambda: [
+                        zaftpu_torch.cqtspectrogram(s, config=cfg)
+                        for s in segs], iters, host_rows=8)
     finally:
         if saved is None:
             os.environ.pop("ZAFTPU_FFT", None)

@@ -508,16 +508,27 @@ def test_cuda_f64_cqt_raises(dev, cqt_cache):
 
 
 # The spectral CQT kernel: B10 and B10-s4 at every power-of-two L up to
-# 32,768.
+# 65,536 (at 65,536 on a cluster of two blocks).
 
 # (sr, bins per octave, fmin, fmax, T): CqtConfig() (L 32,768, hop 1,764,
 # F 144) at T 1, 2 and 700; L 2,048 (hop 320, F 36), L 4,096 (hop 882, F
-# 60) and L 16,384 (hop 1,764, F 72).
+# 60) and L 16,384 (hop 1,764, F 72); L 65,536 from 27.5 Hz (hop 1,764, F
+# 168) at T 1 and 300, and from 8 kHz, 3-12 Hz (hop 320, F 24).
 CQT_FFT_SHAPES = [(44100, 24, 55.0, 3520.0, 1), (44100, 24, 55.0, 3520.0, 2),
                   (44100, 24, 55.0, 3520.0, 700),
                   (8000, 12, 110.0, 880.0, 301),
                   (22050, 12, 110.0, 3520.0, 101),
-                  (44100, 12, 55.0, 3520.0, 40)]
+                  (44100, 12, 55.0, 3520.0, 40),
+                  (44100, 24, 27.5, 3520.0, 1),
+                  (44100, 24, 27.5, 3520.0, 300),
+                  (8000, 12, 3.0, 12.0, 57)]
+
+
+def _cqt_fft_counter(length):
+    """The wrapper that counts the spectral kernel's launches at L: the
+    two-block cluster's above 32,768."""
+    return (cqtfft.cqt_magnitudes_fft_cluster
+            if cqtfft.cluster_size(length) > 1 else cqtfft.cqt_magnitudes_fft)
 
 
 def _cqt_fft_case(dense, step, t, dev, lead=(), offset=0, seed=0):
@@ -541,16 +552,17 @@ def test_cqt_fft_kernel_matches_plain(dev, cqt_cache, sr, bins, fmin, fmax,
     """The spectral kernel bit-equal to its plain version, which does the
     kernel's float32 operations in its order: batched, misaligned (1 or 3
     floats past an aligned address, the scalar framing), T = 1, 2 and 700
-    at CqtConfig(), and L 2,048, 4,096 and 16,384; one launch a call; and
-    within 1e-6 of max of the float64 path."""
+    at CqtConfig(), L 2,048, 4,096 and 16,384, and L 65,536 on the cluster;
+    one launch a call; and within 1e-6 of max of the float64 path."""
     kern = zaftpu_torch.cqtkernel(sr, bins, fmin, fmax)
     step = round(sr / 25)
     sig, table = _cqt_fft_case(kern.kernel, step, t, dev, lead, offset)
     if offset:
         assert sig.data_ptr() % 8 != 0
-    before = cqtfft.cqt_magnitudes_fft.launches
+    counter = _cqt_fft_counter(kern.fft_length)
+    before = counter.launches
     got = cqtfft.cqt_magnitudes_fft(sig, table, step, kern.fft_length, t)
-    assert cqtfft.cqt_magnitudes_fft.launches == before + 1
+    assert counter.launches == before + 1
     ref = cqtfft.cqt_magnitudes_fft_plain(sig, table, step, kern.fft_length,
                                           t)
     assert got.shape == ref.shape == (*lead, t, kern.number_frequencies)
@@ -561,16 +573,22 @@ def test_cqt_fft_kernel_matches_plain(dev, cqt_cache, sr, bins, fmin, fmax,
     assert _rel_err(got.cpu().double(), oracle) < 1e-6
 
 
-@pytest.mark.parametrize("kind", ["dense", "high"])
+@pytest.mark.parametrize("kind", ["dense", "high", "dense65536"])
 def test_cqt_fft_kernel_on_foreign_kernels(dev, cqt_cache, kind):
-    """A dense foreign kernel over every column of L 512 (40% zeros) and
-    the L 2,048 kernel with its even rows' bands moved above L/2: the
-    conjugate reads, bit-equal to the plain version, batched."""
+    """A dense foreign kernel over every column of L 512 (40% zeros), the
+    L 2,048 kernel with its even rows' bands moved above L/2, and a dense
+    foreign kernel over every column of L 65,536 (4 rows, half zeros: rows
+    that read X from both blocks of the cluster): the conjugate reads,
+    bit-equal to the plain version, batched and misaligned."""
     rng = np.random.default_rng(5)
     if kind == "dense":
         dense = (rng.standard_normal((10, 512))
                  + 1j * rng.standard_normal((10, 512))) / 512
         dense[rng.random(dense.shape) < 0.4] = 0
+    elif kind == "dense65536":
+        dense = (rng.standard_normal((4, 65536))
+                 + 1j * rng.standard_normal((4, 65536))) / 65536
+        dense[rng.random(dense.shape) < 0.5] = 0
     else:
         dense = zaftpu_torch.cqtkernel(8000, 12, 110.0, 880.0).kernel.copy()
         dense[::2] = np.roll(dense[::2, ::-1], 1, axis=1)
@@ -591,16 +609,17 @@ def test_cqt_fft_entry_takes_exactly_what_fits_takes(dev):
     lib = _build.library()
     buf = torch.zeros(16, device=dev)
     p = buf.data_ptr()
-    for n in range(1, 70000):
-        err = lib.zt_cqt_magnitudes_fft(p, p, p, p, p, p, p, 1, 70000, 0, n,
-                                        1, 1, 0)
+    for n in range(1, 140000):
+        err = lib.zt_cqt_magnitudes_fft(p, p, p, p, p, p, p, 1, 140000, 0, n,
+                                        1, 1, 0, 0, 0)
         assert (err == 0) is cqtfft.fits(n), (n, err)
 
 
 @pytest.mark.parametrize("geometry,rule", [
     ((44100, 24, 55.0, 3520.0), True),   # CqtConfig(): L 32,768
     ((8000, 12, 110.0, 880.0), True),    # L 2,048
-    ((8000, 12, 3.0, 12.0), False)])     # L 65,536: past one block
+    ((8000, 12, 3.0, 12.0), True),       # L 65,536: the two-block cluster
+    ((8000, 12, 1.5, 6.0), False)])      # L 131,072: past the kernel
 @pytest.mark.parametrize("env", [{}, {"ZAFTPU_CQT_SCHEME": "exact"},
                                  {"ZAFTPU_PRECISION": "split4"},
                                  {"ZAFTPU_FFT": "matmul"},
@@ -609,10 +628,10 @@ def test_cqt_fft_entry_takes_exactly_what_fits_takes(dev):
 def test_cqt_launch_counts_on_card(dev, cqt_cache, geometry, rule, env,
                                    monkeypatch):
     """cqtspectrogram and cqtchromagram launch the spectral kernel, once
-    each, at the rule's L under the default scheme, ZAFTPU_CQT_SCHEME=exact
-    and ZAFTPU_PRECISION=split4, and nothing else; at L 65,536 and under
-    ZAFTPU_FFT=matmul B10-s4 (default) or B10 (exact) launch, as before.
-    No plain version runs."""
+    each, at the rule's L (on the cluster at 65,536) under the default
+    scheme, ZAFTPU_CQT_SCHEME=exact and ZAFTPU_PRECISION=split4, and
+    nothing else; at L 131,072 and under ZAFTPU_FFT=matmul B10-s4 (default)
+    or B10 (exact) launch, as before. No plain version runs."""
     for name in ("ZAFTPU_PRECISION", "ZAFTPU_CQT_SCHEME", "ZAFTPU_FFT"):
         monkeypatch.delenv(name, raising=False)
     for name, value in env.items():
@@ -621,17 +640,17 @@ def test_cqt_launch_counts_on_card(dev, cqt_cache, geometry, rule, env,
     kern = zaftpu_torch.cqtkernel(*geometry)
     x = torch.from_numpy(np.random.default_rng(9).standard_normal(
         2 * sr).astype(np.float32)).to(dev)
-    kernels = (cqtfft.cqt_magnitudes_fft, cqtslab.cqt_magnitudes,
-               cqtslab.cqt_magnitudes_split4)
+    kernels = (cqtfft.cqt_magnitudes_fft, cqtfft.cqt_magnitudes_fft_cluster,
+               cqtslab.cqt_magnitudes, cqtslab.cqt_magnitudes_split4)
     plains = (cqtfft.cqt_magnitudes_fft_plain, cqtslab.cqt_magnitudes_plain,
               cqtslab.cqt_magnitudes_split4_plain)
     before = [k.launches for k in kernels], [p.calls for p in plains]
     zaftpu_torch.cqtspectrogram(x, sr, 25, kern)
     zaftpu_torch.cqtchromagram(x, sr, 25, bins, kern)
     if rule and "ZAFTPU_FFT" not in env:
-        ran = 0
+        ran = kernels.index(_cqt_fft_counter(kern.fft_length))
     else:
-        ran = 1 if "ZAFTPU_CQT_SCHEME" in env else 2
+        ran = 2 if "ZAFTPU_CQT_SCHEME" in env else 3
     assert [k.launches for k in kernels] == [
         b + 2 * (i == ran) for i, b in enumerate(before[0])]
     assert [p.calls for p in plains] == before[1]
@@ -2572,6 +2591,30 @@ def test_bf16_cqt_runs_the_twin_at_one_pass(dev, cqt_cache, monkeypatch):
     with zaftpu_torch.compute_dtype("bfloat16"):
         assert torch.equal(zaftpu_torch.melspectrogram(x, win, 512, fb), mel)
         assert torch.equal(zaftpu_torch.mfcc(x, win, 512, fb, 13), mf)
+
+
+@pytest.mark.parametrize("geometry", [(22050, 12, 110.0, 3520.0),
+                                      (8000, 12, 3.0, 12.0)])
+def test_bf16_cqt_takes_the_spectral_kernel(dev, cqt_cache, monkeypatch,
+                                            geometry):
+    """Under compute_dtype("bfloat16") a CQT on the spectral kernel's rule
+    (L 4,096, and L 65,536 on the cluster) launches that kernel once and
+    equals the float32 CQT bit for bit: bfloat16 lowers only the
+    time-domain route."""
+    for name in ("ZAFTPU_PRECISION", "ZAFTPU_CQT_SCHEME", "ZAFTPU_FFT"):
+        monkeypatch.delenv(name, raising=False)
+    sr = geometry[0]
+    kern = zaftpu_torch.cqtkernel(*geometry)
+    x = torch.from_numpy(np.random.default_rng(32).standard_normal(
+        sr * 3).astype(np.float32)).to(dev)
+    f32 = zaftpu_torch.cqtspectrogram(x, sr, 25, kern)
+    counter = _cqt_fft_counter(kern.fft_length)
+    before = (counter.launches, cqtslab.cqt_magnitudes_split4.launches)
+    with zaftpu_torch.compute_dtype("bfloat16"):
+        got = zaftpu_torch.cqtspectrogram(x, sr, 25, kern)
+    assert (counter.launches, cqtslab.cqt_magnitudes_split4.launches) == (
+        before[0] + 1, before[1])
+    assert torch.equal(got, f32)
 
 
 def _short_wav(tmp_path, seconds=3, sr=22050):

@@ -2,38 +2,40 @@
 // (zaf.py:627-633):
 //   out[b, t, i] = | sum_j K[i, c_j] X_{b,t}[c_j] |
 // with X_{b,t} the real FFT of the unwindowed frame sig[b, t*step ..
-// t*step + L), L a power of two from 16 to 32,768, and K the thresholded
+// t*step + L), L a power of two from 16 to 65,536, and K the thresholded
 // spectral kernel (conjugated and scaled by 1/L) as a host table
-// (kernels/cqtfft.kernel_table): a row pointer, each nonzero's
-// half-spectrum bin with a conjugate flag (a column c > L/2 reads conj
-// X[L - c]), its value as complex64, rows' nonzeros in ascending column
-// order.
+// (kernels/cqtfft.device_table): a row pointer, each row's nonzeros in
+// ascending column order as complex64 values with one code each (its
+// half-spectrum bin, a conjugate flag for a column c > L/2, which reads
+// conj X[L - c], and at L 65,536 the cluster's blocks that hold X[bin]),
+// and the split list: the bins the table reads, grouped as step 3 takes
+// them.
 //
 // Replaces zaftpu/pallas/cqtslab.py: magnitudes_in_trace (_kernel, B10)
 // and its _kernel_split4 (B10-s4) on both schemes at those L. The TPU
 // kernels contract each frame with the dense time-domain operator FFT(K
 // rows)^T: 4 L F FLOP a frame (283 GFLOP per 600-s segment at
-// CqtConfig(): T 15,000, L 32,768, F 144), and B10 writes 16 chunk
-// partials (276 MB) that a second pass sums (cqtslab.cu). Here each frame
-// is transformed once and only the kernel's nonzeros are read: the
-// 16,384-point complex FFT of the real frame (974,848 operations in
-// chip_smoke._fft_ops' count), the split step at the 2,634 bins the
-// kernel reads (16 each) and the banded product (8 a nonzero, 9,450
-// nonzeros), about 1.09 M operations a frame, 16.4 GFLOP a segment: bound
-// by FP32 operations, 0.245 ms at the H100's 67 TFLOP/s (the signal read
-// once, 106 MB, and the magnitudes written once, 8.6 MB, take 0.034 ms at
-// 3.35 TB/s).
+// CqtConfig(): T 15,000, L 32,768, F 144). Here each frame is transformed
+// once and only the kernel's nonzeros are read: the 16,384-point complex
+// FFT of the real frame (974,848 operations in chip_smoke._fft_ops'
+// count), the split step at the 2,634 bins the kernel reads (16 each) and
+// the banded product (8 a nonzero, 9,450 nonzeros), about 1.09 M
+// operations a frame, 16.4 GFLOP a segment: bound by FP32 operations,
+// 0.245 ms at the H100's 67 TFLOP/s, which counts an FMA as two; the
+// kernel issues every product and sum on its own (__fmul_rn, __fadd_rn),
+// so at one operation an issue slot it would take 0.49 ms (the signal
+// read once, 106 MB, and the magnitudes written once, 8.6 MB, take 0.034
+// ms at 3.35 TB/s). Measured (PERF.md, scripts/torch_cqt_variants.py
+// --phases) the FFT takes two thirds of the time and the row sums most of
+// the rest.
 //
-// Design: a block of 1,024 threads holds fpb = 16,384 / M frames' M =
-// L/2-point complex FFTs in one float2 buffer (136 KB of dynamic shared
-// memory with its padding): one frame at L 32,768, 8 at L 4,096. A
-// 16,384-point FFT fits a block's 227 KB only as one buffer, not as
-// Stockham's two (stockham.cuh transforms 2,048 values between two 16-KB
-// buffers), so each pass runs in place: a thread loads all its values,
-// runs its butterflies in registers and stores them after a barrier. One
-// block an SM, each looping over frame groups, and no partial goes through
-// device memory: the frame's FFT, the product and the magnitude all stay
-// in the block.
+// Design: a block of 1,024 threads holds fpb = 16,384 / M frames' M-point
+// complex FFTs in one float2 buffer (136 KB of dynamic shared memory with
+// its padding): one frame at L 32,768, 8 at L 4,096. A 16,384-point FFT
+// fits a block's 227 KB only as one buffer, not as Stockham's two, so each
+// pass runs in place: a thread loads all its values, runs its butterflies
+// in registers and stores them after a barrier. One block an SM, each
+// looping over frame groups; no partial goes through device memory.
 //  1. Framing, as rfft.cu: sample pairs (2m, 2m + 1) of each frame read
 //     straight from the signal (one 8-byte load where the hop and the
 //     pointer allow) as z[m] = x[2m] + i x[2m+1]; no window. From L 512
@@ -41,39 +43,66 @@
 //  2. The M-point complex FFT in place, in the plan of rfft.radices(M)
 //     (radix 4, then one radix-2 pass when log2 M is odd) with
 //     stockham.cuh's butterflies: two radix-4 passes at a time as one
-//     radix-16 group a thread (the first pass's outputs are the second's
-//     inputs in the same thread), so L 32,768's seven passes take four
-//     trips through shared memory and the framing none. The twiddles come
-//     from shared memory: the table (kernels/cqtfft._twiddles) has exact
+//     radix-16 group a thread, so L 32,768's seven passes take four trips
+//     through shared memory and the framing none. The twiddles come from
+//     shared memory: the table (kernels/cqtfft._twiddles) has exact
 //     quarter-turn symmetry, so the passes' W_L^2i for 2i < L/4 (32 KB)
-//     serve every pass by exact swaps and negations, loaded once a block.
-//     The buffer is padded (a value every 16) and so is the twiddle
-//     table, so a warp's accesses at a power-of-two stride spread over the
-//     banks.
-//  3. The split step only at the bins the kernel reads: X[k] = E + W_L^k
-//     O, E = (Z[k] + conj Z[(M-k) mod M]) / 2, O = (Z[k] - conj Z[(M-k)
-//     mod M]) / 2i, as rfft.cu's store (W_L^k from the kernel's table, one
-//     a nonzero); nothing else of the spectrum is formed.
-//  4. The products K X (conj X where flagged), every thread computing
-//     some, into a 48-KB buffer; then one thread a (frame, row) adds its
-//     row's products in the table's order from 0 (their loads unrolled by
-//     16: the adds form one chain a row) and writes sqrt(re^2 + im^2)
-//     frames-major (batch, T, F), as B10 writes it.
+//     serve every pass by exact swaps and negations (selects, no branch),
+//     loaded once a block. The buffer is padded (a value every 16) and so
+//     is the twiddle table, so a warp's accesses at a power-of-two stride
+//     spread over the banks.
+//  3. The split step once a bin the table reads, in place: X[k] = E + W_L^k
+//     O, E = (Z[k] + conj Z[(M-k) mod M]) / 2, O = (Z[k] - conj Z[(M-k) mod
+//     M]) / 2i (kernels/rfft.split_planes). A thread takes one entry of
+//     the split list, reads the values its bins need, and writes each X
+//     where a Z was: the entries' positions are disjoint, so no barrier
+//     stands between the reads and the writes and X needs no buffer of its
+//     own (X[M], Nyquist, goes to a side slot a frame). An entry is a
+//     pair of bins k and M - k (split_pairs). W_L^k comes from the device
+//     table through the read-only cache.
+//  4. The row sums: the products K X (conj X where flagged) go through a
+//     40-KB buffer 5,120 at a time, each computed by one thread; then one
+//     thread a (frame, row) adds its row's products from 0 in the table's
+//     order (the loads unrolled by 16: the adds form one chain a row) and
+//     writes sqrt(re^2 + im^2) frames-major (batch, T, F), as B10 writes
+//     it.
+//
+// L 65,536 (M 32,768 points, 272 KB with the padding) runs on a cluster of
+// two blocks on neighbouring SMs that read each other's shared memory
+// (distributed shared memory). The plan of rfft.radices(32,768) is seven
+// radix-4 passes and one radix-2 pass. A Stockham pass at sub-transform
+// length ns combines the sub-transforms c + s M / (R ns) (c < M / (R ns)):
+// up to the seventh pass none crosses the even and odd values of z, so
+// the first seven passes are two independent 16,384-point FFTs, of z[2i]
+// and z[2i+1], in the same butterflies, twiddles and order. Block r runs
+// the one-block design's FFT on z[2i + r] (its first pass reads those
+// samples from the signal), with the W_{L/2} table of the L 32,768 case
+// (W_65536^4i = W_32768^2i bit for bit: kernels/cqtfft.cluster_fft_plain
+// checks the split on the CPU). After a cluster barrier the last pass
+// (Z[j] = Y0[j] + W_L^2j Y1[j], Z[j + M/2] = Y0[j] - W_L^2j Y1[j]) runs
+// only where the split step reads, fused with it: positions j and M/2 - j
+// of both blocks hold every value bins j, M/2 - j, M/2 + j and M - j read,
+// so a thread takes such a quad, reads the four Y (two of them in the
+// other block), and writes each X where a Y was: bin k in block k >= M/2
+// at position k mod M/2, and also in the other block when the quad's
+// partner bin there (k +- M/2) is not read (kernels/cqtfft.x_slots). The
+// blocks then take half of the rows each (split by nonzeros); a kernel
+// cqtkernel builds finds all its X in each block's own shared memory,
+// and a foreign kernel's nonzero reads its X where its code says it lies.
+// The frame ends on a cluster barrier. There is no fallback: a cluster
+// launch the card refuses returns its error.
+//
 // Every product and sum is an explicitly rounded intrinsic (__fmul_rn,
 // __fadd_rn, __fsqrt_rn), so nothing is contracted into an FMA and the
 // kernel does its plain version's float32 operations
 // (kernels/cqtfft.cqt_magnitudes_fft_plain) in their order: bit-equal.
-//
-// Measured on an H100 80GB HBM3 at 700 W (PERF.md): about 11 times its
-// bound at CqtConfig(), with one frame a block and its table read from L2
-// for every frame. Left for later: a second frame in flight (the table's
-// reads and the passes do not overlap), the table's bytes (20 a nonzero:
-// 189 KB a frame at CqtConfig()), pruning the last pass to the outputs
-// the split step reads (5,345 of 16,384 at CqtConfig()), and the fused
-// pass's spills at 64 registers.
+#include <cooperative_groups.h>
+
 #include "stockham.cuh"
 
 namespace {
+
+namespace cg = cooperative_groups;
 
 constexpr int kThreadsFft = 1024;   // threads a block
 constexpr int kBlockElems = 16384;  // complex values a block's FFTs hold
@@ -83,17 +112,22 @@ constexpr int kGroups = kPerThread / 16;  // radix-16 groups a thread
 // consecutive outputs then start 17 values (34 banks) apart, so its
 // stores do not conflict.
 constexpr int kPadded = kBlockElems + kBlockElems / 16;
+// X[M] of each frame after the buffer: fpb slots, 2,048 at L 16.
+constexpr int kSideSlots = kBlockElems / 8;
 // W_L^2i, 2i < L/4 (L/8 values), value x at tpad(x) = x + x/16 + x/256,
 // so that a warp's reads at a power-of-two stride spread over the banks.
 constexpr int kTwiddles = kBlockElems / 4 + kBlockElems / 64 + 16;
-constexpr int kChunk = 6144;  // products a pass
+constexpr int kChunk = 5120;  // products a pass of step 4
 constexpr int kMinLength = 16;
-constexpr int kMaxLength = 2 * kBlockElems;
-// The FFT buffer (136 KB), the twiddles (34 KB), the products (48 KB).
+constexpr int kOneBlockLength = 2 * kBlockElems;  // 32,768
+constexpr int kMaxLength = 2 * kOneBlockLength;   // 65,536: two blocks
+constexpr int kCluster = 2;  // blocks a frame at kMaxLength
+// The FFT buffer (136 KB), the side slots (16 KB), the twiddles (34 KB),
+// the products (40 KB).
 constexpr size_t kSmemBytes =
-    (kPadded + kTwiddles + kChunk) * sizeof(float2);
+    (kPadded + kSideSlots + kTwiddles + kChunk) * sizeof(float2);
 
-// L a power of two from 16 to 32,768 (kernels/cqtfft.fits).
+// L a power of two from 16 to 65,536 (kernels/cqtfft.fits).
 bool cqt_fft_fits(int n) {
   return n >= kMinLength && n <= kMaxLength && (n & (n - 1)) == 0;
 }
@@ -103,13 +137,17 @@ __device__ __forceinline__ int tpad(int x) { return x + (x >> 4) + (x >> 8); }
 
 // W_L^idx for an even idx < 3L/4 from the block's W_L^2i, 2i < L/4 =
 // 2^lq: the table's later quarters are the first one turned by -i, exactly
-// (kernels/cqtfft._twiddles).
+// (kernels/cqtfft._twiddles): quarter q = 1 is (w.y, -w.x), q = 2 (-w.x,
+// -w.y). The turn is selects and sign flips, with no branch: the lanes of
+// a warp read twiddles in different quarters.
 __device__ __forceinline__ float2 twiddle(const float2* __restrict__ tws,
                                           int idx, int lq) {
   const float2 w = tws[tpad((idx & ((1 << lq) - 1)) >> 1)];
   const int q = idx >> lq;
-  return q == 0 ? w : q == 1 ? make_float2(w.y, -w.x)
-                             : make_float2(-w.x, -w.y);
+  const unsigned sx = q == 2 ? 0x80000000u : 0u;
+  const unsigned sy = q != 0 ? 0x80000000u : 0u;
+  return make_float2(__uint_as_float(__float_as_uint(q & 1 ? w.y : w.x) ^ sx),
+                     __uint_as_float(__float_as_uint(q & 1 ? w.x : w.y) ^ sy));
 }
 
 // Two radix-4 Stockham passes in place, sub-transforms of length ns =
@@ -126,14 +164,17 @@ __device__ __forceinline__ float2 twiddle(const float2* __restrict__ tws,
 //
 // With SIG the pass is the first (ns = 1) and reads its 16 values a group
 // straight from the signal (sb, frames t0.. at hop step, zeros past frame
-// T), which does the framing as well: z[m] = x[2m] + i x[2m+1]. VEC:
-// 8-byte loads. Not inlined: inlined, it spilled more and ran slower.
+// T), which does the framing as well: value m of the row is z[(m << zs) +
+// zr] of the frame, z[m] = x[2m] + i x[2m+1] (zs 1: a cluster block's
+// half, zr its rank). VEC: 8-byte loads. Not inlined: inlined, it spilled
+// more and ran slower.
 template <bool SIG, bool VEC>
 __device__ __noinline__ void fused_pass(float2* __restrict__ z,
                                         const float2* __restrict__ tws,
                                         int log2m, int log2ns, int lq,
                                         const float* __restrict__ sb,
-                                        long long t0, int T, int step) {
+                                        long long t0, int T, int step,
+                                        int zs, int zr) {
   float c[4], sn[4];  // the odd radices' constants: unused here
   const int log2g = log2m - 4;  // groups per row: M / 16
   const int ns = 1 << log2ns;
@@ -153,7 +194,8 @@ __device__ __noinline__ void fused_pass(float2* __restrict__ z,
       for (int m = 0; m < 16; ++m) {
         float2 v = make_float2(0.f, 0.f);
         if (t < T) {
-          const float* p = sb + t * step + 2 * (j0 + (m << log2g));
+          const float* p =
+              sb + t * step + 2 * (((j0 + (m << log2g)) << zs) + zr);
           if constexpr (VEC) {
             v = *reinterpret_cast<const float2*>(p);
           } else {
@@ -258,163 +300,364 @@ __device__ __forceinline__ void inplace_pass(float2* __restrict__ z,
   __syncthreads();
 }
 
-// One nonzero's product K X[k] of a frame's FFT Z (M points from the
-// unpadded offset base): the split step at bin k = c >> 1, X[k] = E + w O
-// with w = W_L^k, E = (Z[k] + conj Z[(M-k) mod M]) / 2, O = (Z[k] - conj
-// Z[(M-k) mod M]) / 2i, conjugated where c & 1, times the kernel's value
-// kv.
-__device__ __forceinline__ float2 product(const float2* __restrict__ z,
-                                          int base, int c, float2 kv,
-                                          float2 w, int M) {
-  const int k = c >> 1;
-  const float2 a = z[pad(base + (k & (M - 1)))];        // Z[M] as Z[0]
-  const float2 b = z[pad(base + ((M - k) & (M - 1)))];  // Z[(M-k) mod M]
+// The M-point FFT of the block's fpb frames t0.. (a cluster block: its
+// half of one frame, zs = 1, zr its rank), in place in z: the framing and
+// the passes of steps 1 and 2. vec: 8-byte signal loads.
+__device__ __forceinline__ void frame_fft(float2* __restrict__ z,
+                                          const float2* __restrict__ tws,
+                                          int log2m, const float* sb,
+                                          long long t0, int T, int step,
+                                          bool vec, int zs, int zr) {
+  const int M = 1 << log2m;
+  const int lq = log2m - 1;  // L/4 = 2^lq of the block's FFT
+  int log2ns = 0;
+  if (log2m >= 8) {  // the first two passes read the frames themselves
+    if (vec) {
+      fused_pass<true, true>(z, tws, log2m, 0, lq, sb, t0, T, step, zs, zr);
+    } else {
+      fused_pass<true, false>(z, tws, log2m, 0, lq, sb, t0, T, step, zs,
+                              zr);
+    }
+    log2ns = 4;
+  } else {  // one block a frame group only: zs = 0, zr = 0
+#pragma unroll
+    for (int u = 0; u < kPerThread; ++u) {
+      const int e = threadIdx.x + u * kThreadsFft;
+      const long long t = t0 + (e >> log2m);
+      float2 v = make_float2(0.f, 0.f);
+      if (t < T) {
+        const float* p = sb + t * step + 2 * (e & (M - 1));
+        v = vec ? *reinterpret_cast<const float2*>(p)
+                : make_float2(p[0], p[1]);
+      }
+      z[pad(e)] = v;
+    }
+    __syncthreads();
+  }
+  for (; log2m >= 8 && log2ns + 4 <= log2m; log2ns += 4) {
+    fused_pass<false, false>(z, tws, log2m, log2ns, lq, sb, t0, T, step, 0,
+                             0);
+  }
+  for (; log2ns + 2 <= log2m; log2ns += 2) {
+    inplace_pass<4>(z, tws, log2m, log2ns, lq);
+  }
+  if (log2ns < log2m) inplace_pass<2>(z, tws, log2m, log2ns, lq);
+}
+
+// The split step at bin k from a = Z[k mod M] and b = Z[(M-k) mod M]:
+// X[k] = E + w O, w = W_L^k (kernels/rfft.split_planes' operations).
+__device__ __forceinline__ float2 split_bin(float2 a, float2 b, float2 w) {
   const float er = __fmul_rn(__fadd_rn(a.x, b.x), 0.5f);
   const float ei = __fmul_rn(__fsub_rn(a.y, b.y), 0.5f);
   const float od = __fmul_rn(__fadd_rn(a.y, b.y), 0.5f);
   const float oi = __fmul_rn(__fsub_rn(b.x, a.x), 0.5f);
-  const float xr =
-      __fadd_rn(er, __fsub_rn(__fmul_rn(w.x, od), __fmul_rn(w.y, oi)));
-  float xi = __fadd_rn(ei, __fadd_rn(__fmul_rn(w.x, oi), __fmul_rn(w.y, od)));
-  if (c & 1) xi = -xi;
-  return make_float2(__fsub_rn(__fmul_rn(kv.x, xr), __fmul_rn(kv.y, xi)),
-                     __fadd_rn(__fmul_rn(kv.x, xi), __fmul_rn(kv.y, xr)));
+  return make_float2(
+      __fadd_rn(er, __fsub_rn(__fmul_rn(w.x, od), __fmul_rn(w.y, oi))),
+      __fadd_rn(ei, __fadd_rn(__fmul_rn(w.x, oi), __fmul_rn(w.y, od))));
 }
 
-// VEC: 8-byte signal loads. Grid: x = blocks a batch row, each looping
-// over frame groups g = blockIdx.x, blockIdx.x + gridDim.x, ...; y = batch
-// row.
-template <bool VEC>
-__global__ void __launch_bounds__(kThreadsFft, 1)
-cqt_fft_kernel(const float* __restrict__ sig, const float2* __restrict__ tw,
-               const int* __restrict__ rowptr, const int* __restrict__ code,
-               const float2* __restrict__ vals,
-               const float2* __restrict__ wk, float* __restrict__ out,
-               long long sig_len, int T, int n, int step, int F, int log2m,
-               long long groups) {
-  extern __shared__ __align__(16) float2 smem[];
-  float2* z = smem;
-  float2* tws = smem + kPadded;
-  float2* prod = tws + kTwiddles;
+// Step 3 on one block's fpb frames of M = 2^log2m points: each entry of
+// the split list is p << 2 | 1 (X[p] read) | 2 (X[M - p] read; X[M] for p
+// = 0), p <= M/2. X[k] goes where Z[k] was, X[M] to frame f's side slot.
+__device__ __forceinline__ void split_pairs(float2* __restrict__ z,
+                                            const float2* __restrict__ tw,
+                                            const int* __restrict__ splits,
+                                            int nsplit, int fpb, int log2m) {
   const int M = 1 << log2m;
-  const int lq = log2m - 1;  // L/4 = 2^lq
-  const int fpb = kBlockElems >> log2m;  // frames per group
-  const float* sb = sig + blockIdx.y * sig_len;
-  const int items = fpb * F;
-  const int nnz = __ldg(rowptr + F);
-  // The passes' twiddles, once a block.
-  for (int i = threadIdx.x; i < (n >> 3); i += kThreadsFft) {
-    tws[tpad(i)] = __ldg(tw + 2 * i);
+  for (int it = threadIdx.x; it < fpb * nsplit; it += kThreadsFft) {
+    const int f = it / nsplit;
+    const int e = __ldg(splits + it - f * nsplit);
+    const int p = e >> 2;
+    const int base = f << log2m;
+    const int pa = pad(base + p);
+    const int pb = pad(base + ((M - p) & (M - 1)));
+    const float2 a = z[pa];
+    const float2 b = z[pb];
+    if (e & 1) z[pa] = split_bin(a, b, __ldg(tw + p));
+    if (e & 2) {
+      z[p ? pb : kPadded + f] = split_bin(b, a, __ldg(tw + M - p));
+    }
   }
-  __syncthreads();
+}
 
-  for (long long g = blockIdx.x; g < groups; g += gridDim.x) {
-    const long long t0 = g * fpb;
-    int log2ns = 0;
-    if (log2m >= 8) {  // the first two passes read the frames themselves
-      fused_pass<true, VEC>(z, tws, log2m, 0, lq, sb, t0, T, step);
-      log2ns = 4;
-    } else {
-#pragma unroll
-      for (int u = 0; u < kPerThread; ++u) {
-        const int e = threadIdx.x + u * kThreadsFft;
-        const long long t = t0 + (e >> log2m);
-        float2 v = make_float2(0.f, 0.f);
-        if (t < T) {
-          const float* p = sb + t * step + 2 * (e & (M - 1));
-          if constexpr (VEC) {
-            v = *reinterpret_cast<const float2*>(p);
-          } else {
-            v = make_float2(p[0], p[1]);
-          }
-        }
-        z[pad(e)] = v;
+// Step 3 at L 65,536 on the cluster: zb[0] and zb[1] are the two blocks'
+// buffers, each the H = 2^log2h = M/2-point FFT Y_r of z[2i + r]. Entry j
+// << 4 | 1 (bin j) | 2 (bin H + j) | 4 (bin H - j) | 8 (bin M - j; M for j
+// = 0), j <= H/2: the last radix-2 pass at positions P = j and Q = (H - j)
+// mod H (Z[P] = Y0[P] + W_L^2P Y1[P], Z[P + H] = Y0[P] - W_L^2P Y1[P]),
+// then the split step at the bins flagged, each X written to its block's
+// position (and to the other block's when that slot's bin is not read).
+// Block 0 takes the first half of the list, block 1 the rest, so a warp's
+// entries, and its accesses in both blocks, are neighbours (alternate
+// entries ran 8% slower at CQT_WIDE).
+__device__ __forceinline__ void split_quads(float2* const* zb,
+                                            const float2* __restrict__ tw,
+                                            const int* __restrict__ splits,
+                                            int nsplit, int log2h,
+                                            int rank) {
+  const int H = 1 << log2h;
+  const int M = 2 * H;
+  const int half = (nsplit + 1) / 2;
+  for (int it = rank * half + threadIdx.x; it < min(nsplit, (rank + 1) * half);
+       it += kThreadsFft) {
+    const int e = __ldg(splits + it);
+    const int j = e >> 4;
+    const int q = j ? H - j : 0;
+    const int pp = pad(j);
+    const int pq = pad(q);
+    const float2 v1p = zt::cmul(zb[1][pp], __ldg(tw + 2 * j));
+    const float2 y0p = zb[0][pp];
+    const float2 zp0 = zt::cadd(y0p, v1p);
+    const float2 zp1 = zt::csub(y0p, v1p);
+    float2 zq0 = zp0;
+    float2 zq1 = zp1;
+    if (q != j) {
+      const float2 v1q = zt::cmul(zb[1][pq], __ldg(tw + 2 * q));
+      const float2 y0q = zb[0][pq];
+      zq0 = zt::cadd(y0q, v1q);
+      zq1 = zt::csub(y0q, v1q);
+    }
+    // Bin k reads a = Z[k mod M] and b = Z[(M - k) mod M].
+    float2 x0, x1, x2, x3;
+    if (e & 1) x0 = split_bin(zp0, j ? zq1 : zp0, __ldg(tw + j));
+    if (e & 2) x1 = split_bin(zp1, j ? zq0 : zp1, __ldg(tw + H + j));
+    if (e & 4) x2 = split_bin(zq0, zp1, __ldg(tw + H - j));
+    if (e & 8) x3 = split_bin(j ? zq1 : zp0, zp0, __ldg(tw + M - j));
+    if (e & 1) {
+      zb[0][pp] = x0;
+      if (!(e & 2)) zb[1][pp] = x0;
+    }
+    if (e & 2) {
+      zb[1][pp] = x1;
+      if (!(e & 1)) zb[0][pp] = x1;
+    }
+    if (e & 4) {
+      zb[0][pq] = x2;
+      if (!(e & 8)) zb[1][pq] = x2;
+    }
+    if (e & 8) {
+      if (j) {
+        zb[1][pq] = x3;
+        if (!(e & 4)) zb[0][pq] = x3;
+      } else {
+        zb[0][kPadded] = x3;
+        zb[1][kPadded] = x3;
+      }
+    }
+  }
+}
+
+// One nonzero's product K X[k] (conj X[k] where flagged), v its value,
+// from its code c = bin << 3 | holders << 1 | conj (kernels/cqtfft
+// .kernel_codes).
+__device__ __forceinline__ float2 product(float2 v, float2 x, int c) {
+  const float xi = c & 1 ? -x.y : x.y;
+  return make_float2(__fsub_rn(__fmul_rn(v.x, x.x), __fmul_rn(v.y, xi)),
+                     __fadd_rn(__fmul_rn(v.x, xi), __fmul_rn(v.y, x.x)));
+}
+
+// Step 4 for `items` row items, item u = row i of frame f: its nonzeros
+// are the range range(u) of the flat index e = f nnz + j (j the table's
+// nonzero). The products of kThreadsFft items at a time go through the
+// product buffer kChunk at a time, each computed by one thread (xat(f,
+// c): X of frame f at the bin of code c); then each item's thread adds
+// its own from 0 in the table's order (their loads unrolled by 16: the
+// adds form one chain a row) and store(u, magnitude) writes it.
+template <class Range, class XAt, class Store>
+__device__ __forceinline__ void row_sums(float2* __restrict__ prod,
+                                         int items, int nnz,
+                                         const int* __restrict__ index,
+                                         const float2* __restrict__ vals,
+                                         Range range, XAt xat, Store store) {
+  for (int r0 = 0; r0 < items; r0 += kThreadsFft) {
+    const int last = min(items, r0 + kThreadsFft) - 1;
+    const int e_lo = range(r0).x;
+    const int e_hi = range(last).y;
+    const int item = r0 + threadIdx.x;
+    const int2 own = item < items ? range(item) : make_int2(0, 0);
+    float re = 0.f;
+    float im = 0.f;
+    for (int c0 = e_lo; c0 < e_hi; c0 += kChunk) {
+      const int c1 = min(e_hi, c0 + kChunk);
+      for (int e = c0 + threadIdx.x; e < c1; e += kThreadsFft) {
+        const int f = e / nnz;
+        const int c = __ldg(index + e - f * nnz);
+        prod[e - c0] = product(__ldg(vals + e - f * nnz), xat(f, c), c);
+      }
+      __syncthreads();
+      const int b = min(own.y, c1);
+#pragma unroll 16
+      for (int e = max(own.x, c0); e < b; ++e) {
+        const float2 p = prod[e - c0];
+        re = __fadd_rn(re, p.x);
+        im = __fadd_rn(im, p.y);
       }
       __syncthreads();
     }
-    for (; log2m >= 8 && log2ns + 4 <= log2m; log2ns += 4) {
-      fused_pass<false, VEC>(z, tws, log2m, log2ns, lq, sb, t0, T, step);
+    if (item < items) {
+      store(item, __fsqrt_rn(__fadd_rn(__fmul_rn(re, re), __fmul_rn(im, im))));
     }
-    for (; log2ns + 2 <= log2m; log2ns += 2) {
-      inplace_pass<4>(z, tws, log2m, log2ns, lq);
-    }
-    if (log2ns < log2m) inplace_pass<2>(z, tws, log2m, log2ns, lq);
-
-    // The products in parallel, the sums in order. Items (frame, row) go
-    // kThreadsFft at a time, one a thread; their products, a contiguous
-    // range of e = f nnz + j, go through the product buffer kChunk at a
-    // time, each computed by one thread; then each item's thread adds its
-    // own, in order.
-    for (int r0 = 0; r0 < items; r0 += kThreadsFft) {
-      const int last = min(items, r0 + kThreadsFft) - 1;
-      const int e_lo = r0 / F * nnz + __ldg(rowptr + r0 % F);
-      const int e_hi = last / F * nnz + __ldg(rowptr + last % F + 1);
-      const int item = r0 + threadIdx.x;
-      int lo = 0;
-      int hi = 0;
-      if (item < items) {
-        const int f = item / F;
-        const int i = item - f * F;
-        lo = f * nnz + __ldg(rowptr + i);
-        hi = f * nnz + __ldg(rowptr + i + 1);
-      }
-      float re = 0.f;
-      float im = 0.f;
-      for (int c0 = e_lo; c0 < e_hi; c0 += kChunk) {
-        const int c1 = min(e_hi, c0 + kChunk);
-        for (int e = c0 + threadIdx.x; e < c1; e += kThreadsFft) {
-          const int f = e / nnz;
-          const int j = e - f * nnz;
-          prod[e - c0] = product(z, f << log2m, __ldg(code + j),
-                                 __ldg(vals + j), __ldg(wk + j), M);
-        }
-        __syncthreads();
-        const int b = min(hi, c1);
-#pragma unroll 16
-        for (int e = max(lo, c0); e < b; ++e) {
-          const float2 p = prod[e - c0];
-          re = __fadd_rn(re, p.x);
-          im = __fadd_rn(im, p.y);
-        }
-        __syncthreads();
-      }
-      if (item < items && t0 + item / F < T) {
-        out[((long long)blockIdx.y * T + t0 + item / F) * F + item % F] =
-            __fsqrt_rn(__fadd_rn(__fmul_rn(re, re), __fmul_rn(im, im)));
-      }
-    }
-    __syncthreads();  // the next group's framing overwrites the buffer
   }
 }
 
-template <bool VEC>
-int launch(const float* sig, const float2* tw, const int* rowptr,
-           const int* code, const float2* vals, const float2* wk, float* out,
-           int batch,
-           long long sig_len, int T, int n, int step, int F,
-           cudaStream_t st) {
-  int log2m = 0;
-  while ((2 << log2m) < n) ++log2m;
-  const long long groups = zt::ceil_div(T, kBlockElems >> log2m);
-  // One block an SM: the blocks of a batch row loop over its groups.
-  int device = 0;
-  int sms = 0;
-  cudaError_t err = cudaGetDevice(&device);
-  if (err == cudaSuccess) {
-    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
-                                 device);
+// Step 4 on one block's fpb frames t0.. (rows F, nonzeros nnz): items u =
+// f F + i, frames past T included and not stored.
+__device__ __forceinline__ void sums_frames(
+    const float2* __restrict__ z, float2* __restrict__ prod,
+    const int* __restrict__ rowptr, const int* __restrict__ index,
+    const float2* __restrict__ vals, float* __restrict__ ob, int F, int nnz,
+    int fpb, int log2m, long long t0, int T) {
+  const int M = 1 << log2m;
+  row_sums(
+      prod, fpb * F, nnz, index, vals,
+      [&](int u) {
+        const int f = u / F;
+        const int i = u - f * F;
+        return make_int2(f * nnz + __ldg(rowptr + i),
+                         f * nnz + __ldg(rowptr + i + 1));
+      },
+      [&](int f, int c) {
+        const int k = c >> 3;
+        return z[k < M ? pad((f << log2m) + k) : kPadded + f];
+      },
+      [&](int u, float mag) {
+        if (t0 * F + u < (long long)T * F) ob[t0 * F + u] = mag;
+      });
+}
+
+// Step 4 on the cluster at frame t0: rank 0 takes rows [0, rsplit), rank
+// 1 [rsplit, F); X[k] from this block's buffer z where its code says the
+// block holds it, else from the block k >= M (M = 2^log2m) holds it in
+// (other: the other block's buffer).
+__device__ __forceinline__ void sums_cluster(
+    const float2* z, const float2* other, float2* __restrict__ prod,
+    const int* __restrict__ rowptr, const int* __restrict__ index,
+    const float2* __restrict__ vals, float* __restrict__ ob, int F, int nnz,
+    int rsplit, int log2m, int rank, long long t0) {
+  const int M = 1 << log2m;
+  const float2* const zb[2] = {rank ? other : z, rank ? z : other};
+  const int r0 = rank ? rsplit : 0;
+  row_sums(
+      prod, (rank ? F : rsplit) - r0, nnz, index, vals,
+      [&](int u) {
+        return make_int2(__ldg(rowptr + r0 + u), __ldg(rowptr + r0 + u + 1));
+      },
+      [&](int, int c) {
+        const int k = c >> 3;
+        const int pos = k < 2 * M ? pad(k & (M - 1)) : kPadded;
+        return (c >> (1 + rank)) & 1 ? z[pos] : zb[k >= M][pos];
+      },
+      [&](int u, float mag) { ob[t0 * F + r0 + u] = mag; });
+}
+
+// Grid: x = blocks (C = 2: clusters of two) a batch row, each looping over
+// frame groups g = blockIdx.x / C, + gridDim.x / C, ...; y = batch row.
+// log2m: the block's FFT, L/2 (C = 1) or L/4 (C = 2). rsplit: C = 2, the
+// first row of block 1. vec: 8-byte signal loads.
+template <int C>
+__global__ void __launch_bounds__(kThreadsFft, 1)
+cqt_fft_kernel(const float* __restrict__ sig, const float2* __restrict__ tw,
+               const int* __restrict__ rowptr, const int* __restrict__ index,
+               const float2* __restrict__ vals,
+               const int* __restrict__ splits, float* __restrict__ out,
+               long long sig_len, int T, int n, int step, int F, int nsplit,
+               int rsplit, int log2m, long long groups, bool vec) {
+  extern __shared__ __align__(16) float2 smem[];
+  float2* z = smem;
+  float2* tws = smem + kPadded + kSideSlots;
+  float2* prod = tws + kTwiddles;
+  const int M = 1 << log2m;
+  const int fpb = kBlockElems >> log2m;  // frames per group
+  const int nnz = __ldg(rowptr + F);
+  const float* sb = sig + blockIdx.y * sig_len;
+  float* ob = out + (long long)blockIdx.y * T * F;
+  // The passes' twiddles, once a block: W_L^2Ci = W_{L/C}^2i.
+  for (int i = threadIdx.x; i < (n >> 3) / C; i += kThreadsFft) {
+    tws[tpad(i)] = __ldg(tw + 2 * C * i);
   }
-  if (err != cudaSuccess) return (int)err;
-  const long long per_row = sms / batch > 1 ? sms / batch : 1;
-  const dim3 grid((unsigned)(groups < per_row ? groups : per_row), batch);
+  __syncthreads();
+
+  for (long long g = blockIdx.x / C; g < groups; g += gridDim.x / C) {
+    const long long t0 = g * fpb;
+    if constexpr (C == 1) {
+      frame_fft(z, tws, log2m, sb, t0, T, step, vec, 0, 0);
+      split_pairs(z, tw, splits, nsplit, fpb, log2m);
+      __syncthreads();
+      sums_frames(z, prod, rowptr, index, vals, ob, F, nnz, fpb, log2m, t0,
+                  T);
+      // Step 4 ends on a barrier: the next group may overwrite z.
+    } else {
+      cg::cluster_group cluster = cg::this_cluster();
+      const int rank = (int)cluster.block_rank();
+      float2* other = cluster.map_shared_rank(z, rank ^ 1);
+      float2* const zb[2] = {rank ? other : z, rank ? z : other};
+      frame_fft(z, tws, log2m, sb, t0, T, step, vec, 1, rank);
+      cluster.sync();  // both halves transformed
+      split_quads(zb, tw, splits, nsplit, log2m, rank);
+      cluster.sync();  // every X in place
+      sums_cluster(z, other, prod, rowptr, index, vals, ob, F, nnz, rsplit,
+                   log2m, rank, t0);
+      cluster.sync();  // the other block's reads done before the next frame
+    }
+  }
+}
+
+template <int C>
+int launch(const float* sig, const float2* tw, const int* rowptr,
+           const int* index, const float2* vals, const int* splits,
+           float* out, int batch, long long sig_len, int T, int n, int step,
+           int F, int nsplit, int rsplit, bool vec, cudaStream_t st) {
+  int log2m = 0;  // the block's FFT: L / (2 C) points
+  while ((2 * C << log2m) < n) ++log2m;
+  const long long groups = zt::ceil_div(T, kBlockElems >> log2m);
+  void (*kernel)(const float*, const float2*, const int*, const int*,
+                 const float2*, const int*, float*, long long, int, int, int,
+                 int, int, int, int, long long, bool) = cqt_fft_kernel<C>;
   // Above 48 KB a block's shared memory is dynamic and opted into.
-  err = cudaFuncSetAttribute(cqt_fft_kernel<VEC>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             (int)kSmemBytes);
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)kSmemBytes);
   if (err != cudaSuccess) return (int)err;
-  cqt_fft_kernel<VEC><<<grid, kThreadsFft, kSmemBytes, st>>>(
-      sig, tw, rowptr, code, vals, wk, out, sig_len, T, n, step, F, log2m,
-      groups);
+  if constexpr (C == 1) {
+    // One block an SM: the blocks of a batch row loop over its groups.
+    int device = 0;
+    int sms = 0;
+    err = cudaGetDevice(&device);
+    if (err == cudaSuccess) {
+      err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
+                                   device);
+    }
+    if (err != cudaSuccess) return (int)err;
+    const long long per_row = sms / batch > 1 ? sms / batch : 1;
+    const dim3 grid((unsigned)(groups < per_row ? groups : per_row), batch);
+    kernel<<<grid, kThreadsFft, kSmemBytes, st>>>(
+        sig, tw, rowptr, index, vals, splits, out, sig_len, T, n, step, F,
+        nsplit, rsplit, log2m, groups, vec);
+  } else {
+    // Clusters of two blocks: as many as the card schedules at once.
+    cudaLaunchAttribute attr[1];
+    attr[0].id = cudaLaunchAttributeClusterDimension;
+    attr[0].val.clusterDim.x = C;
+    attr[0].val.clusterDim.y = 1;
+    attr[0].val.clusterDim.z = 1;
+    cudaLaunchConfig_t cfg = {};
+    cfg.gridDim = dim3(C, 1, 1);
+    cfg.blockDim = dim3(kThreadsFft, 1, 1);
+    cfg.dynamicSmemBytes = kSmemBytes;
+    cfg.stream = st;
+    cfg.attrs = attr;
+    cfg.numAttrs = 1;
+    int clusters = 0;
+    err = cudaOccupancyMaxActiveClusters(&clusters, kernel, &cfg);
+    if (err != cudaSuccess) return (int)err;
+    if (clusters < 1) return (int)cudaErrorInvalidConfiguration;
+    const long long per_row = clusters / batch > 1 ? clusters / batch : 1;
+    cfg.gridDim =
+        dim3((unsigned)(C * (groups < per_row ? groups : per_row)), batch, 1);
+    err = cudaLaunchKernelEx(&cfg, kernel, sig, tw, rowptr, index, vals,
+                             splits, out, sig_len, T, n, step, F, nsplit,
+                             rsplit, log2m, groups, vec);
+    if (err != cudaSuccess) return (int)err;
+  }
   return (int)cudaGetLastError();
 }
 
@@ -422,35 +665,40 @@ int launch(const float* sig, const float2* tw, const int* rowptr,
 
 // sig: (batch, sig_len) float32, sig_len >= (T - 1) * step + L; tw: (L, 2)
 // float32, W_L^j = (cos, sin)(-2 pi j / L) with exact quarter-turn symmetry
-// (kernels/cqtfft._twiddles), 8-byte aligned; rowptr: (F + 1)
-// int32; code: (nnz) int32, 2 * bin + conj with bin in [0, L/2]; vals:
-// (nnz) complex64 as float pairs; wk: (nnz) complex64, tw[bin] of each
-// nonzero; vals and wk 8-byte aligned; out: (batch, T, F) float32. L a
-// power of two from 16 to 32,768, step >= 1, F >= 1; any other L returns
-// cudaErrorInvalidValue before a launch. All contiguous.
+// (kernels/cqtfft._twiddles), 8-byte aligned; rowptr: (F + 1) int32; index:
+// (nnz) int32, bin << 3 | holders << 1 | conj with bin in [0, L/2] and at
+// L 65,536 holders bit r set when the cluster's block r holds X[bin]
+// (kernels/cqtfft.kernel_codes); vals: (nnz) complex64 as float pairs,
+// 8-byte aligned; splits: (nsplit) int32, the split list (kernels/cqtfft
+// .split_list); rsplit: at L 65,536 the first row of the cluster's second
+// block, in [0, F]; out: (batch, T, F) float32. L a power of two from 16 to
+// 65,536, step >= 1, F >= 1; any other L returns cudaErrorInvalidValue
+// before a launch. All contiguous.
 ZT_EXPORT int zt_cqt_magnitudes_fft(const void* sig, const void* tw,
-                                    const void* rowptr, const void* code,
-                                    const void* vals, const void* wk,
+                                    const void* rowptr, const void* index,
+                                    const void* vals, const void* splits,
                                     void* out, int batch, long long sig_len,
                                     int T, int L, int step, int F,
-                                    void* stream) {
+                                    int nsplit, int rsplit, void* stream) {
   if (!cqt_fft_fits(L) || step < 1 || F < 1 || batch > 65535 ||
-      !zt::aligned8(tw) || !zt::aligned8(vals) || !zt::aligned8(wk)) {
+      nsplit < 0 || rsplit < 0 || rsplit > F || !zt::aligned8(tw) ||
+      !zt::aligned8(vals)) {
     return (int)cudaErrorInvalidValue;
   }
   if (T <= 0 || batch <= 0) return (int)cudaSuccess;
   const float* s = static_cast<const float*>(sig);
   const float2* t = static_cast<const float2*>(tw);
   const int* r = static_cast<const int*>(rowptr);
-  const int* c = static_cast<const int*>(code);
+  const int* c = static_cast<const int*>(index);
   const float2* v = static_cast<const float2*>(vals);
-  const float2* w = static_cast<const float2*>(wk);
+  const int* sp = static_cast<const int*>(splits);
   float* o = static_cast<float*>(out);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (step % 2 == 0 && sig_len % 2 == 0 && zt::aligned8(sig)) {
-    return launch<true>(s, t, r, c, v, w, o, batch, sig_len, T, L, step, F,
-                        st);
+  const bool vec = step % 2 == 0 && sig_len % 2 == 0 && zt::aligned8(sig);
+  if (L > kOneBlockLength) {
+    return launch<kCluster>(s, t, r, c, v, sp, o, batch, sig_len, T, L, step,
+                            F, nsplit, rsplit, vec, st);
   }
-  return launch<false>(s, t, r, c, v, w, o, batch, sig_len, T, L, step, F,
-                       st);
+  return launch<1>(s, t, r, c, v, sp, o, batch, sig_len, T, L, step, F,
+                   nsplit, rsplit, vec, st);
 }

@@ -18,11 +18,18 @@ nonzeros row by row in ascending column order: a row pointer, each
 nonzero's half-spectrum bin and conjugate flag, each value rounded once
 from complex128 to complex64. The table is in CSR form, so a foreign
 kernel whose rows are not one band, or with columns above ``L/2``, is
-computed right too.
+computed right too. On the device (:func:`device_table`) each nonzero
+carries its code (:func:`kernel_codes`), and beside the table goes the
+split list (:func:`split_list`): the bins the table reads, grouped as the
+kernel's split step takes them.
 
 :func:`fits` is the kernel's shape rule: ``L`` a power of two from
-:data:`MIN_LENGTH` to :data:`MAX_LENGTH` (one frame's FFT in one block's
-shared memory). :func:`applies` adds ``ZAFTPU_FFT`` not ``matmul``, as
+:data:`MIN_LENGTH` to :data:`MAX_LENGTH`. Up to
+:data:`ONE_BLOCK_LENGTH` one frame's FFT lies in one block's shared
+memory; at 65,536 in a cluster of :data:`CLUSTER` blocks
+(:func:`cluster_size`), each holding the FFT of half of the frame's
+values (:func:`cluster_fft_plain`, :func:`x_slots`). :func:`applies` adds
+``ZAFTPU_FFT`` not ``matmul``, as
 :func:`zaftpu_torch.kernels.rfft.applies` does. The plain version repeats
 the kernel's float32 operations in their order (the real-FFT kernels'
 packing, Stockham passes and split step at ``N = L`` with no window, on
@@ -51,7 +58,10 @@ REPLACES_SPLIT4 = "zaftpu/pallas/cqtslab.py:203"  # _kernel_split4 (B10-s4)
 
 MIN_LENGTH = 16
 # One frame's L/2 complex values fill one block's 128-KB buffer.
-MAX_LENGTH = 32768
+ONE_BLOCK_LENGTH = 32768
+# Past it, a frame spans a cluster of two blocks.
+CLUSTER = 2
+MAX_LENGTH = CLUSTER * ONE_BLOCK_LENGTH
 # The plain version transforms at most this many frame samples at once
 # (1,024 frames at L 32,768), which bounds its memory on a long signal.
 PLAIN_BLOCK_SAMPLES = 1 << 25
@@ -63,6 +73,12 @@ def fits(fft_length: int) -> bool:
     this set."""
     n = int(fft_length)
     return MIN_LENGTH <= n <= MAX_LENGTH and n & (n - 1) == 0
+
+
+def cluster_size(fft_length: int) -> int:
+    """Blocks a frame spans on the card: 1 up to
+    :data:`ONE_BLOCK_LENGTH`, :data:`CLUSTER` above."""
+    return 1 if int(fft_length) <= ONE_BLOCK_LENGTH else CLUSTER
 
 
 def applies(fft_length: int) -> bool:
@@ -123,17 +139,76 @@ def kernel_table(kern) -> KernelTable:
         fft_length=length)
 
 
+def split_list(bins: np.ndarray, fft_length: int) -> np.ndarray:
+    """The kernel's split list for the bins a table reads, ``int32``.
+
+    One block a frame (M = L/2 points): an entry ``p << 2 | 1 | 2`` for
+    each pair ``p <= M/2`` of which X[p] (1) or X[M - p] (2; X[M] for p = 0)
+    is read; its thread reads Z[p] and Z[M - p], which both need. At L 65,536
+    (two blocks, each the H = M/2-point FFT of half the values): ``j << 4
+    | 1 (bin j) | 2 (bin H + j) | 4 (bin H - j) | 8 (bin M - j; M for j =
+    0)`` for each ``j <= H/2`` with a bin read; its thread runs the last
+    radix-2 pass at positions j and H - j of both blocks, which give every
+    value those bins read."""
+    m = fft_length // 2
+    need = np.zeros(m + 1, bool)
+    need[np.asarray(bins)] = True
+    if cluster_size(fft_length) == 1:
+        p = np.arange(m // 2 + 1)
+        lo, hi = need[p], need[m - p] & (m - p != p)
+        e = p << 2 | lo | hi << 1
+        return e[lo | hi].astype(np.int32)
+    h = m // 2
+    j = np.arange(h // 2 + 1)
+    inner = (j > 0) & (j < h // 2)
+    flags = (need[j].astype(int) | need[h + j] << 1
+             | (inner & need[h - j]) << 2
+             | np.where(j == 0, need[m], inner & need[m - j]) << 3)
+    return (j << 4 | flags)[flags > 0].astype(np.int32)
+
+
+def x_slots(bins: np.ndarray, fft_length: int) -> tuple:
+    """Where the kernel at L 65,536 leaves X[k] for each bin read: ``(block,
+    position, holders)``. Bin k < M goes to block ``k >= M/2`` at position
+    ``k mod M/2``, and also to the other block there when that block's bin
+    at the position (``k +- M/2``, the partner) is not read; X[M] to the
+    side slot (position M/2) of both. ``holders``: bit r set when block r
+    holds X[k]."""
+    bins = np.asarray(bins)
+    m = fft_length // 2
+    h = m // 2
+    need = np.zeros(m + 1, bool)
+    need[bins] = True
+    block = (bins >= h).astype(int)
+    position = np.where(bins == m, h, bins % h)
+    partner = np.where(bins < h, bins + h, bins - h)
+    copied = ~need[np.minimum(partner, m)] | (bins == m)
+    holders = 1 << block | copied << (1 - block)
+    return block, position, holders
+
+
+def kernel_codes(table: KernelTable) -> np.ndarray:
+    """Each nonzero's code as the kernel reads it, ``(nnz,)`` int32: ``bin
+    << 3 | holders << 1 | conj``, with ``holders`` at L 65,536 the cluster's
+    blocks that hold X[bin] (:func:`x_slots`; bit r: block r reads it in its
+    own shared memory), else 0."""
+    holders = np.zeros(table.bins.shape[0], np.int32)
+    if cluster_size(table.fft_length) > 1 and table.bins.shape[0]:
+        holders = x_slots(table.bins, table.fft_length)[2].astype(np.int32)
+    return (table.bins.astype(np.int32) << 3 | holders << 1
+            | table.conj.astype(np.int32))
+
+
 class DeviceTable(NamedTuple):
-    """A :class:`KernelTable` on a device: the kernel's CSR arrays (with
-    each nonzero's split-step twiddle, so that the kernel reads it beside
-    its value) and the plain version's ``(F, W)`` form, each row's nonzeros
-    in its columns and zero values (bin 0) after them, ``W`` the longest
-    row."""
+    """A :class:`KernelTable` on a device: the kernel's arrays and the plain
+    version's ``(F, W)`` form, each row's nonzeros in its columns and zero
+    values (bin 0) after them, ``W`` the longest row."""
 
     rowptr: torch.Tensor  # (F + 1,) int32
-    code: torch.Tensor    # (nnz,) int32: 2 * bin + conj
     values: torch.Tensor  # (nnz,) complex64
-    twiddles: torch.Tensor  # (nnz,) complex64: W_L^bin (_twiddles)
+    index: torch.Tensor   # (nnz,) int32: kernel_codes
+    splits: torch.Tensor  # split_list
+    rsplit: int           # L 65,536: the second block's first row
     bins: torch.Tensor    # (F, W) int64
     conj: torch.Tensor    # (F, W) bool
     re: torch.Tensor      # (F, W) float32
@@ -146,7 +221,8 @@ class DeviceTable(NamedTuple):
 
 
 def device_table(table: KernelTable, device) -> DeviceTable:
-    """Upload a :class:`KernelTable` to ``device``."""
+    """Upload a :class:`KernelTable` to ``device``. At L 65,536 the rows are
+    split between the cluster's two blocks by nonzeros."""
     f = table.rowptr.shape[0] - 1
     counts = np.diff(table.rowptr)
     width = int(counts.max(initial=0))
@@ -158,17 +234,43 @@ def device_table(table: KernelTable, device) -> DeviceTable:
     bins[row, pos] = table.bins
     conj[row, pos] = table.conj
     values[row, pos] = table.values
-    code = 2 * table.bins.astype(np.int32) + table.conj.astype(np.int32)
-    tw = _twiddles(table.fft_length)[table.bins]
+    length = table.fft_length
+    rsplit = 0
+    if cluster_size(length) > 1:
+        rsplit = int(np.searchsorted(table.rowptr, table.rowptr[-1] / 2))
 
     def put(a):
         return torch.from_numpy(np.ascontiguousarray(a)).to(device)
 
     return DeviceTable(
-        rowptr=put(table.rowptr), code=put(code), values=put(table.values),
-        twiddles=put(tw[:, 0] + 1j * tw[:, 1].astype(np.complex64)),
+        rowptr=put(table.rowptr), values=put(table.values),
+        index=put(kernel_codes(table)),
+        splits=put(split_list(np.unique(table.bins), length)),
+        rsplit=min(rsplit, f),
         bins=put(bins), conj=put(conj), re=put(values.real),
-        im=put(values.imag), fft_length=table.fft_length)
+        im=put(values.imag), fft_length=length)
+
+
+def cluster_fft_plain(re: torch.Tensor, im: torch.Tensor, tw: torch.Tensor,
+                      n: int) -> tuple:
+    """The M-point FFT of rows ``(..., M)``, log2 M odd (``rfft.radices(M)``:
+    radix-4 passes, then one radix-2), placed as the cluster computes it
+    at L 65,536: the radix-4 passes on the even and on the odd values
+    apart (block r's H = M/2-point FFT Y_r of z[2i + r], with the same
+    twiddles of the ``(n, 2)`` table), then the radix-2 pass Z[j] = Y0[j] +
+    W_n^2j Y1[j], Z[j + H] = Y0[j] - W_n^2j Y1[j]. Bit-equal to
+    :func:`zaftpu_torch.kernels.rfft.fft_rows_plain`."""
+    m = re.shape[-1]
+    h = m // 2
+    if _rfft.radices(m) != (4,) * (_rfft.radices(m).count(4)) + (2,):
+        raise ValueError(f"cluster_fft_plain: {m} is not 2 * 4^k")
+    (y0r, y0i), (y1r, y1i) = (_rfft.fft_rows_plain(re[..., r::2],
+                                                   im[..., r::2], tw, n)
+                              for r in (0, 1))
+    wr, wi = tw[0:2 * h:2, 0], tw[0:2 * h:2, 1]
+    vr, vi = y1r * wr - y1i * wi, y1r * wi + y1i * wr
+    return (torch.cat([y0r + vr, y0r - vr], dim=-1),
+            torch.cat([y0i + vi, y0i - vi], dim=-1))
 
 
 def cqt_magnitudes_fft_plain(padded: torch.Tensor, table: DeviceTable,
@@ -219,7 +321,9 @@ def cqt_magnitudes_fft(padded: torch.Tensor, table: DeviceTable, step: int,
     :func:`fits`.
 
     A CPU tensor takes the plain version; a CUDA tensor launches the kernel
-    (leading axes flattened into its batch) or raises.
+    (leading axes flattened into its batch) or raises: one block a frame up
+    to :data:`ONE_BLOCK_LENGTH`, above it the two-block cluster, whose
+    launches are counted on :func:`cqt_magnitudes_fft_cluster`.
     """
     if not padded.is_cuda:
         return cqt_magnitudes_fft_plain(padded, table, step, fft_length,
@@ -228,10 +332,20 @@ def cqt_magnitudes_fft(padded: torch.Tensor, table: DeviceTable, step: int,
                                     number_times)
 
 
+def cqt_magnitudes_fft_cluster(padded: torch.Tensor, table: DeviceTable,
+                               step: int, fft_length: int,
+                               number_times: int) -> torch.Tensor:
+    """:func:`cqt_magnitudes_fft` under the name that counts the two-block
+    cluster's launches (L above :data:`ONE_BLOCK_LENGTH`)."""
+    return cqt_magnitudes_fft(padded, table, step, fft_length, number_times)
+
+
 def _cqt_magnitudes_fft_cuda(padded: torch.Tensor, table: DeviceTable,
                              step: int, fft_length: int,
                              number_times: int) -> torch.Tensor:
-    """Check the CUDA input, launch the kernel, count the launch."""
+    """Check the CUDA input, launch the kernel and count the launch: on
+    :func:`cqt_magnitudes_fft_cluster` at a cluster's length, else on
+    :func:`cqt_magnitudes_fft`."""
     name = "cqt_magnitudes_fft"
     _build.require_f32(padded, name)
     n, t, f = fft_length, number_times, table.number_frequencies
@@ -251,17 +365,19 @@ def _cqt_magnitudes_fft_cuda(padded: torch.Tensor, table: DeviceTable,
     _build.require_grid(batch, 1, name)
     sig = padded.reshape(batch, padded.shape[-1]).contiguous()
     dev = padded.device
-    rowptr, code, values, wk = (x.to(dev) for x in (
-        table.rowptr, table.code, table.values, table.twiddles))
+    rowptr, index, values, splits = (x.to(dev) for x in (
+        table.rowptr, table.index, table.values, table.splits))
     out = torch.empty((batch, t, f), dtype=torch.float32, device=dev)
     err = _build.library().zt_cqt_magnitudes_fft(
         sig.data_ptr(), twiddles(n, torch.float32, dev).data_ptr(),
-        rowptr.data_ptr(), code.data_ptr(), values.data_ptr(),
-        wk.data_ptr(), out.data_ptr(), batch, sig.shape[-1], t, n, step, f,
-        _build.stream_of(padded))
+        rowptr.data_ptr(), index.data_ptr(), values.data_ptr(),
+        splits.data_ptr(), out.data_ptr(), batch, sig.shape[-1], t, n, step,
+        f, splits.numel(), table.rsplit, _build.stream_of(padded))
     _build.check(err, "zt_cqt_magnitudes_fft")
-    cqt_magnitudes_fft.launches += 1
+    (cqt_magnitudes_fft_cluster if cluster_size(n) > 1
+     else cqt_magnitudes_fft).launches += 1
     return out.reshape(*padded.shape[:-1], t, f)
 
 
 cqt_magnitudes_fft.launches = 0
+cqt_magnitudes_fft_cluster.launches = 0
