@@ -13,7 +13,7 @@ non-zero exit and no result line:
 
 1. device: the card's name and power limit (as nvidia-smi gives them),
    torch and CUDA versions; TF32 off for matmuls and cuDNN;
-2. build: the thirty-one kernels from zaftpu_torch/csrc (one nvcc per
+2. build: the kernels from zaftpu_torch/csrc (one nvcc per
    source, all started together), with the seconds taken;
 3. kernels: each kernel against its plain PyTorch version on the card at
    its main-path shape (WL 2048, hop 1024, a 600-s segment: T = 25,841;
@@ -61,16 +61,20 @@ non-zero exit and no result line:
    window), take their main-path shape from vorbis(1102) (hop 551,
    T 48,023, F 551: odd, so the fast kernels refuse it), timed, and also
    run at WL 2048 and at their ragged shapes. The spectral CQT kernel (B10
-   and B10-s4 at every power-of-two L up to 65,536) at CqtConfig()'s
+   and B10-s4 at every power-of-two L up to 131,072) at CqtConfig()'s
    main-path shape, at CQT_RAGGED's (2 rows, misaligned) and on a dense
    foreign kernel with columns above L/2 (L 1,024, 2 rows, misaligned),
-   and its two-block cluster at CQT_WIDE's main-path shape (27.5 Hz: L
+   its two-block cluster at CQT_WIDE's main-path shape (27.5 Hz: L
    65,536, F 168, hop 1,764, T 15,000), at CQT_RAGGED_WIDE's (L 65,536, 2
-   rows, misaligned) and on a dense foreign kernel at L 65,536, each
-   bit-equal to its plain version, timed beside torch.stft + a gather +
-   the complex product + abs (four calls); B10 and B10-s4 at CqtConfig()
-   (timed, the same-shape A/B), at CQT_RAGGED's and at CQT_WIDE's shape
-   (their route under ZAFTPU_FFT=matmul), timed.
+   rows, misaligned) and on a dense foreign kernel at L 65,536, and its
+   four-block cluster at CQT_C0's and CQT_A0_96K's main-path shapes (L
+   131,072: C0 at 44.1 kHz, F 186, hop 1,764; A0 at 96 kHz, F 168, hop
+   3,840; T 15,000), at CQT_RAGGED_C4's (L 131,072, 2 rows, misaligned)
+   and on a dense foreign kernel at L 131,072, each bit-equal to its plain
+   version, timed beside torch.stft + a gather + the complex product + abs
+   (four calls); B10 and B10-s4 at CqtConfig() (timed, the same-shape
+   A/B), at CQT_RAGGED's, at CQT_WIDE's shape (their route under
+   ZAFTPU_FFT=matmul) and at CQT_C0's and CQT_A0_96K's, timed.
    The real-FFT kernel's magnitude and mel stores (B8, B9 and B9-s4's
    function at every window of the FFT rule) bit-equal to their plain
    versions at the main-path shape (40 mels, magnitude and power),
@@ -143,11 +147,14 @@ non-zero exit and no result line:
    ZAFTPU_PRECISION=highest, ZAFTPU_CQT_SCHEME=exact and
    ZAFTPU_PRECISION=split4 (the spectral kernel, <= 1e-5 * max|oracle|),
    under ZAFTPU_FFT=matmul (the split4 twin B10-s4, <= 1e-4 * max|oracle|;
-   with ZAFTPU_CQT_SCHEME=exact the exact B10, <= 1e-5) and at CQT_WIDE
-   (L 65,536: the spectral kernel's cluster by default and under
+   with ZAFTPU_CQT_SCHEME=exact the exact B10, <= 1e-5), at CQT_WIDE
+   (L 65,536: the spectral kernel's two-block cluster by default and under
    ZAFTPU_CQT_SCHEME=exact, <= 1e-5; B10-s4 and B10 under
-   ZAFTPU_FFT=matmul), with launch counts showing which kernel ran and
-   that no plain version did;
+   ZAFTPU_FFT=matmul), at CQT_C0 and CQT_A0_96K (L 131,072: its four-block
+   cluster, by default and under ZAFTPU_CQT_SCHEME=exact at C0, <= 1e-5;
+   B10-s4 and B10 under ZAFTPU_FFT=matmul at C0) and at CQT_L262144 (L
+   262,144, past the kernel: B10-s4 by default, <= 1e-4), with launch
+   counts showing which kernel ran and that no plain version did;
 9. split4 main path (ZAFTPU_PRECISION=split4): stft -> istft and mdct ->
    imdct of the 600-s signal; at WL 2048, 1,764 and 1,102 the FFT kernels
    compute the spectrum and the round trip under the exact gates (1e-5 *
@@ -246,10 +253,11 @@ the exact gates, and at WL 2,062 under ZAFTPU_FFT=matmul (B1's and B4's
 twins) and vorbis(1102) (B2's and B7's twins) at 3 and 1 passes, high
 within 1e-4 * max of the float64 oracle and >= 88 dB, default within 2e-3
 * max and >= 40 dB, with default < high < split4 in this call; then under
-compute_dtype("bfloat16") the CQT at CQT_WIDE (L 65,536) on the spectral
-kernel's cluster, melspectrogram and mfcc (exempt), each bit-equal to
-float32, and with ZAFTPU_FFT=matmul the CQT at CQT_WIDE through B10-s4 at
-one pass, >= 45 dB against the float64 oracle.
+compute_dtype("bfloat16") the CQT at CQT_WIDE (L 65,536) and CQT_C0 (L
+131,072) on the spectral kernel's clusters, melspectrogram and mfcc
+(exempt), each bit-equal to float32, and with ZAFTPU_FFT=matmul the CQT
+at CQT_WIDE through B10-s4 at one pass, >= 45 dB against the float64
+oracle.
 
 The stream phase: one hour (the six 600-s segments) written as a 44.1 kHz
 mono 16-bit WAV to a temporary directory (removed after); the native WAV
@@ -404,6 +412,8 @@ TWIN_KERNELS = ("fused_split4", "frames_matmul2_split4",
 SYNTH_GEMMS = ("synth", "synth_split4")  # B4, B4-s4
 FULL_GEMMS = ("frames_rfft_full", "frames_rfft_full_split4")  # B3, B3-s4
 CQT_GEMMS = ("cqt_magnitudes", "cqt_magnitudes_split4")  # B10, B10-s4
+# The spectral CQT kernel: one block a frame, clusters of two and four.
+CQT_FFTS = ("cqt_fft", "cqt_fft_cluster", "cqt_fft_cluster4")
 # The inverse FFT kernel's other shapes: WL, hop, T, batch rows (K = 16, a
 # mixed-radix window whose hop does not divide it, one frame per block).
 IFFT_RAGGED = ((4096, 256, 1001, 1), (400, 160, 1001, 3), (3000, 1000, 301, 2),
@@ -446,6 +456,19 @@ CQT_RAGGED_WIDE = (CqtConfig(sampling_frequency=8000, octave_resolution=12,
 # as conjugates): F, L, hop, T, batch rows, signal offset, share of zeros.
 CQT_FOREIGN = (12, 1024, 160, 301, 2, 1, 0.5)
 CQT_FOREIGN_WIDE = (4, 65536, 1000, 41, 2, 1, 0.9)
+CQT_FOREIGN_C4 = (4, 131072, 1000, 41, 2, 1, 0.9)
+# L 131,072, the spectral kernel's four-block cluster (B10 and B10-s4 under
+# ZAFTPU_FFT=matmul), at 24 bins per octave: from C0 (16.35 Hz, the organ's
+# and the extended piano's lowest C) at 44.1 kHz, F 186, and from A0 (27.5
+# Hz) at 96 kHz, F 168; a batched misaligned shape.
+CQT_C0 = CqtConfig(minimum_frequency=16.35)
+CQT_A0_96K = CqtConfig(sampling_frequency=96000, minimum_frequency=27.5)
+CQT_RAGGED_C4 = (CqtConfig(sampling_frequency=8000, octave_resolution=12,
+                           minimum_frequency=1.5, maximum_frequency=6.0),
+                 201)  # L 131,072, hop 320, F 24
+# Past the kernel: L 262,144 from C-1 (8.18 Hz, a 64-foot organ stop's
+# lowest C) at 44.1 kHz, F 210: B10-s4 by default.
+CQT_L262144 = CqtConfig(minimum_frequency=8.18)
 # Windows above 4,096: a power of two (the four-step engine under
 # ZAFTPU_FFT=matmul, torch.fft by default) and one that is not (torch.fft).
 LONG_WL = 8192
@@ -535,6 +558,10 @@ KERNELS = {
                         f"{cqtfft.REPLACES} and {cqtfft.REPLACES_SPLIT4}",
                         cqtfft.cqt_magnitudes_fft_cluster,
                         cqtfft.cqt_magnitudes_fft_plain),
+    "cqt_fft_cluster4": (cqtfft.CUDA_SOURCE,
+                         f"{cqtfft.REPLACES} and {cqtfft.REPLACES_SPLIT4}",
+                         cqtfft.cqt_magnitudes_fft_cluster4,
+                         cqtfft.cqt_magnitudes_fft_plain),
     "mirror_full_planes": (mirror.CUDA_SOURCE, mirror.REPLACES_MIRROR,
                            mirror.mirror_full_planes,
                            mirror.mirror_full_planes_plain),
@@ -1029,15 +1056,20 @@ def _kernel_cases(dev, main_t: int):
         del args
     main_cqt_t = SEGMENT_SECONDS * SR // _cqt_step(CqtConfig())  # 15,000
     # The spectral kernel (B10 and B10-s4 at every power-of-two L up to
-    # 65,536), bit-equal to its plain version: CqtConfig()'s main-path
+    # 131,072), bit-equal to its plain version: CqtConfig()'s main-path
     # shape, CQT_RAGGED's batched and misaligned, and a dense foreign kernel
     # with columns above L/2; its two-block cluster at CQT_WIDE's main-path
-    # shape (L 65,536), CQT_RAGGED_WIDE's and a dense foreign kernel there.
+    # shape (L 65,536), CQT_RAGGED_WIDE's and a dense foreign kernel there;
+    # its four-block cluster at CQT_C0's and CQT_A0_96K's main-path shapes
+    # (L 131,072), CQT_RAGGED_C4's and a dense foreign kernel there.
     for name, label, (cfg, t), rows, offset in (
             ("cqt_fft", "main", (CqtConfig(), main_cqt_t), 1, 0),
             ("cqt_fft", "ragged", CQT_RAGGED, 2, 1),
             ("cqt_fft_cluster", "main", (CQT_WIDE, main_cqt_t), 1, 0),
-            ("cqt_fft_cluster", "ragged", CQT_RAGGED_WIDE, 2, 3)):
+            ("cqt_fft_cluster", "ragged", CQT_RAGGED_WIDE, 2, 3),
+            ("cqt_fft_cluster4", "main", (CQT_C0, main_cqt_t), 1, 0),
+            ("cqt_fft_cluster4", "main", (CQT_A0_96K, main_cqt_t), 1, 0),
+            ("cqt_fft_cluster4", "ragged", CQT_RAGGED_C4, 2, 3)):
         kern = cfg.kernel()
         step, length = _cqt_step(cfg), kern.fft_length
         n = (t - 1) * step + length
@@ -1050,7 +1082,8 @@ def _kernel_cases(dev, main_t: int):
                EXACT_TOL)
         del sig
     for name, (f, length, step, t, rows, offset, zeros) in (
-            ("cqt_fft", CQT_FOREIGN), ("cqt_fft_cluster", CQT_FOREIGN_WIDE)):
+            ("cqt_fft", CQT_FOREIGN), ("cqt_fft_cluster", CQT_FOREIGN_WIDE),
+            ("cqt_fft_cluster4", CQT_FOREIGN_C4)):
         rng = np.random.default_rng(SEED)
         dense = (rng.standard_normal((f, length))
                  + 1j * rng.standard_normal((f, length))) / length
@@ -1064,11 +1097,13 @@ def _kernel_cases(dev, main_t: int):
                (sig, cqtfft.device_table(cqtfft.kernel_table(dense), dev),
                 step, length, t), EXACT_TOL)
     # B10 and B10-s4: at CqtConfig() (the spectral kernel's shape, timed
-    # beside it), at CQT_RAGGED's, and at their main-path shape, L 65,536
-    # (CQT_WIDE), timed.
+    # beside it), at CQT_RAGGED's, at their main-path shape, L 65,536
+    # (CQT_WIDE), and at the four-block cluster's shapes (L 131,072), timed.
     for label, (cfg, t) in (("operator", (CqtConfig(), main_cqt_t)),
                             ("ragged", CQT_RAGGED),
-                            ("main", (CQT_WIDE, main_cqt_t))):
+                            ("main", (CQT_WIDE, main_cqt_t)),
+                            ("operator", (CQT_C0, main_cqt_t)),
+                            ("operator", (CQT_A0_96K, main_cqt_t))):
         kern = cfg.kernel()
         step, length = _cqt_step(cfg), kern.fft_length
         sig = torch.from_numpy(np.resize(
@@ -1263,27 +1298,31 @@ def _work(name: str, args: tuple,
         b = _rows(sig)
         return (passes * 4 * b * t * length * f, 3 * b * t * f,
                 4 * (sig.numel() + b * t * f) + opb * 2 * length * f)
-    if base in ("cqt_fft", "cqt_fft_cluster"):
+    if base in CQT_FFTS:
         # The spectral CQT: each frame's L/2-point FFT (its plan's passes;
-        # at L 65,536 the last, radix-2 pass only at the positions the
-        # split list names, 10 each), the split step at the distinct bins
-        # the kernel reads (16 each), the banded product (8 a nonzero) and
-        # the magnitude (3 an output); the signal, the passes' eighth of the
-        # twiddle table, the split step's twiddles (one a bin; at L 65,536
-        # the last pass's too, one a position) and the kernel's table read
-        # once (a row pointer; a code and a complex64 value a nonzero; the
-        # split list), the magnitudes written once.
+        # on a cluster of C blocks the last, radix-C pass only at the
+        # positions the split list names: 10 each at C = 2, 34 at C = 4),
+        # the split step at the distinct bins the kernel reads (16 each),
+        # the banded product (8 a nonzero) and the magnitude (3 an output);
+        # the signal, the passes' eighth of the twiddle table, the split
+        # step's twiddles (one a bin; on a cluster the last pass's too, C -
+        # 1 a position) and the kernel's table read once (a row pointer; a
+        # code and a complex64 value a nonzero; the split list), the
+        # magnitudes written once.
         sig, table, _, length, t = args
         b = _rows(sig)
         f, nnz = table.number_frequencies, table.index.numel()
-        bins = torch.unique(table.index >> 3).numel()
+        bins = torch.unique(table.index >> cqtfft.CODE_SHIFT).numel()
         ops = _fft_ops(length) + 16 * bins + 8 * nnz + 3 * f
         twiddles = length + 8 * bins
-        if cqtfft.cluster_size(length) > 1:
-            j = table.splits.cpu().numpy() >> 4
-            positions = int((1 + ((j > 0) & (2 * j != length // 4))).sum())
-            ops += 10 * positions - 10 * (length // 4)
-            twiddles += 8 * positions
+        c = cqtfft.cluster_size(length)
+        if c > 1:
+            h = length // (2 * c)
+            j = table.splits.cpu().numpy() >> 2 * c
+            positions = int((1 + ((j > 0) & (2 * j != h))).sum())
+            per = 6 * (c - 1) + (4 if c == 2 else 16)
+            ops += per * (positions - h)
+            twiddles += 8 * (c - 1) * positions
         return (0, b * t * ops,
                 4 * sig.numel() + twiddles + 4 * (f + 1) + 12 * nnz
                 + 4 * table.splits.numel() + 4 * b * t * f)
@@ -1385,7 +1424,7 @@ def library_call(name: str, args: tuple):
         return lambda: torch.nn.functional.fold(
             frames.T[None], (1, (t - 1) * step + wl), (1, wl),
             stride=(1, step))
-    if base in ("cqt_fft", "cqt_fft_cluster"):
+    if base in CQT_FFTS:
         return cqt_fft_library(*args[:4])
     if base in ("spec_rows", "spec_rows_fft"):
         padded, win, wl, step, _ = args[:5]
@@ -1442,11 +1481,11 @@ def cqt_fft_library(sig, table, step, length):
     columns above L/2, as every CqtConfig() kernel."""
     codes = table.index.cpu().numpy()
     require(not (codes & 1).any(), "cqt_fft yardstick: conjugate columns")
-    cols = np.unique(codes >> 3)
+    cols = np.unique(codes >> cqtfft.CODE_SHIFT)
     rowptr = table.rowptr.cpu().numpy()
     reduced = np.zeros((rowptr.shape[0] - 1, cols.shape[0]), np.complex64)
     row = np.repeat(np.arange(reduced.shape[0]), np.diff(rowptr))
-    reduced[row, np.searchsorted(cols, codes >> 3)] = \
+    reduced[row, np.searchsorted(cols, codes >> cqtfft.CODE_SHIFT)] = \
         table.values.cpu().numpy()
     red = torch.from_numpy(reduced).to(sig.device)
     idx = torch.from_numpy(cols).to(sig.device)
@@ -1549,7 +1588,7 @@ def phase_kernels(dev) -> dict:
                 require(lerr <= GEMM_TOL * scale,
                         f"{name}: torch.istft yardstick {lerr} > "
                         f"{GEMM_TOL} * {scale}")
-            if name in ("cqt_fft", "cqt_fft_cluster"):
+            if name in CQT_FFTS:
                 lerr = _max_abs(lib().transpose(-1, -2) - got)
                 print(f"  {name}: four-call yardstick vs kernel max_abs_err "
                       f"{lerr!r} (printed, not gated)")
@@ -1837,31 +1876,36 @@ def check_dial_order() -> None:
 
 def phase_bf16(dispatch: str, x: torch.Tensor) -> dict:
     """Under compute_dtype("bfloat16"): melspectrogram and mfcc at
-    MelConfig() (exempt) and the CQT at CQT_WIDE (L 65,536) on the spectral
-    kernel's cluster, one launch (bfloat16 lowers only the time-domain
-    route, which the spectral kernel replaces up to L 65,536), each
-    bit-equal to the float32 dial's; then, under ZAFTPU_FFT=matmul (B10's
-    route), the CQT at CQT_WIDE through B10-s4 at one pass, at least 45 dB
-    against the float64 oracle and below BF16_CQT_MAX_SNR_DB, which the
-    float32 dial's CQT on that route exceeds. Returns the launch
-    counts."""
+    MelConfig() (exempt) and the CQT at CQT_WIDE (L 65,536) and CQT_C0 (L
+    131,072) on the spectral kernel's clusters, one launch each (bfloat16
+    lowers only the time-domain route, which the spectral kernel replaces
+    up to L 131,072), each bit-equal to the float32 dial's; then, under
+    ZAFTPU_FFT=matmul (B10's route), the CQT at CQT_WIDE through B10-s4 at
+    one pass, at least 45 dB against the float64 oracle and below
+    BF16_CQT_MAX_SNR_DB, which the float32 dial's CQT on that route
+    exceeds. Returns the launch counts."""
     cfg = MelConfig()
 
-    def cqt():
-        return zaftpu_torch.cqtspectrogram(x, config=CQT_WIDE)
+    def cqt(config=CQT_WIDE):
+        return zaftpu_torch.cqtspectrogram(x, config=config)
 
     mel = zaftpu_torch.melspectrogram(x, config=cfg)
     mf = zaftpu_torch.mfcc(x, config=cfg)
     spec32 = cqt()
+    spec32_c0 = cqt(CQT_C0)
     spec32_gemm = _with_env(FFT_MATMUL, cqt)
-    reset_counters()
+    launches, specs = {}, {}
     with zaftpu_torch.compute_dtype("bfloat16"):
-        spec = cqt()
-        torch.cuda.synchronize()
-        launches = check_counters(f"bf16 [{dispatch}] cqt",
-                                  ("cqt_fft_cluster",))
-        require(launches["cqt_fft_cluster"] == 1,
-                f"bf16: {launches} launches of the cluster, not one")
+        for name, config in (("cqt_fft_cluster", CQT_WIDE),
+                             ("cqt_fft_cluster4", CQT_C0)):
+            reset_counters()
+            specs[name] = cqt(config)
+            torch.cuda.synchronize()
+            count = check_counters(f"bf16 [{dispatch}] cqt L "
+                                   f"{config.kernel().fft_length}", (name,))
+            require(count[name] == 1,
+                    f"bf16: {count} launches of {name}, not one")
+            launches.update(count)
         mel16 = zaftpu_torch.melspectrogram(x, config=cfg)
         mf16 = zaftpu_torch.mfcc(x, config=cfg)
         reset_counters()
@@ -1877,17 +1921,20 @@ def phase_bf16(dispatch: str, x: torch.Tensor) -> dict:
                                / ((s.T.double() - oracle) ** 2).sum()))
         for s in (spec_gemm, spec32_gemm))
     equal = [torch.equal(a, b)
-             for a, b in ((spec, spec32), (mel16, mel), (mf16, mf))]
+             for a, b in ((specs["cqt_fft_cluster"], spec32),
+                          (specs["cqt_fft_cluster4"], spec32_c0),
+                          (mel16, mel), (mf16, mf))]
     print(f"bf16 [{dispatch}]: cqtspectrogram at L "
-          f"{CQT_WIDE.kernel().fft_length}, melspectrogram and mfcc "
-          f"bit-equal to float32: {equal}; under ZAFTPU_FFT=matmul on "
-          f"B10-s4 at 1 pass: SNR vs f64 oracle {snr!r} dB (float32 dial "
-          f"{snr32!r} dB)")
+          f"{CQT_WIDE.kernel().fft_length} and {CQT_C0.kernel().fft_length}"
+          f", melspectrogram and mfcc bit-equal to float32: {equal}; under "
+          f"ZAFTPU_FFT=matmul on B10-s4 at 1 pass: SNR vs f64 oracle {snr!r}"
+          f" dB (float32 dial {snr32!r} dB)")
     require(BF16_CQT_MIN_SNR_DB <= snr < BF16_CQT_MAX_SNR_DB <= snr32,
             f"bf16 CQT SNR {snr} dB (float32 {snr32} dB) outside "
             f"[{BF16_CQT_MIN_SNR_DB}, {BF16_CQT_MAX_SNR_DB})")
-    require(equal[0], "bf16: the CQT on the spectral kernel changed")
-    require(equal[1] and equal[2], "bf16: an exempt mel front end changed")
+    require(equal[0] and equal[1],
+            "bf16: the CQT on the spectral kernel changed")
+    require(equal[2] and equal[3], "bf16: an exempt mel front end changed")
     return {**launches, **gemm}
 
 
@@ -2431,9 +2478,10 @@ def cqt_oracle(x: torch.Tensor, cfg: CqtConfig, chunk: int = 256):
 
 # CQT dispatch -> the configuration, the kernel it must run and its oracle
 # gate (x max|oracle|). At CqtConfig() (L 32,768) the spectral kernel runs
-# on every scheme and dial, at CQT_WIDE's L 65,536 its two-block cluster;
-# under ZAFTPU_FFT=matmul the scheme's time-domain kernel: B10-s4 by
-# default, B10 exact.
+# on every scheme and dial, at CQT_WIDE's L 65,536 its two-block cluster,
+# at CQT_C0's and CQT_A0_96K's L 131,072 its four-block cluster; under
+# ZAFTPU_FFT=matmul and past the kernel (CQT_L262144) the scheme's
+# time-domain kernel: B10-s4 by default, B10 exact.
 CQT_WANT = {
     "default": (CqtConfig(), "cqt_fft", ORACLE_TOL),
     "ZAFTPU_PRECISION=highest": (CqtConfig(), "cqt_fft", ORACLE_TOL),
@@ -2450,7 +2498,17 @@ CQT_WANT = {
     "ZAFTPU_FFT=matmul L 65536": (CQT_WIDE, "cqt_magnitudes_split4",
                                   SPLIT4_ORACLE_TOL),
     "ZAFTPU_FFT=matmul ZAFTPU_CQT_SCHEME=exact L 65536": (
-        CQT_WIDE, "cqt_magnitudes", ORACLE_TOL)}
+        CQT_WIDE, "cqt_magnitudes", ORACLE_TOL),
+    "default L 131072": (CQT_C0, "cqt_fft_cluster4", ORACLE_TOL),
+    "ZAFTPU_CQT_SCHEME=exact L 131072": (CQT_C0, "cqt_fft_cluster4",
+                                         ORACLE_TOL),
+    "default 96 kHz L 131072": (CQT_A0_96K, "cqt_fft_cluster4", ORACLE_TOL),
+    "ZAFTPU_FFT=matmul L 131072": (CQT_C0, "cqt_magnitudes_split4",
+                                   SPLIT4_ORACLE_TOL),
+    "ZAFTPU_FFT=matmul ZAFTPU_CQT_SCHEME=exact L 131072": (
+        CQT_C0, "cqt_magnitudes", ORACLE_TOL),
+    "default L 262144": (CQT_L262144, "cqt_magnitudes_split4",
+                         SPLIT4_ORACLE_TOL)}
 
 
 def phase_cqt_path(dispatch: str, x: torch.Tensor) -> dict:
@@ -3571,6 +3629,13 @@ def main() -> int:
             (FFT_MATMUL, phase_cqt_path, "ZAFTPU_FFT=matmul L 65536"),
             (CQT_EXACT_MATMUL, phase_cqt_path,
              "ZAFTPU_FFT=matmul ZAFTPU_CQT_SCHEME=exact L 65536"),
+            (DEFAULT, phase_cqt_path, "default L 131072"),
+            (CQT_EXACT, phase_cqt_path, "ZAFTPU_CQT_SCHEME=exact L 131072"),
+            (DEFAULT, phase_cqt_path, "default 96 kHz L 131072"),
+            (FFT_MATMUL, phase_cqt_path, "ZAFTPU_FFT=matmul L 131072"),
+            (CQT_EXACT_MATMUL, phase_cqt_path,
+             "ZAFTPU_FFT=matmul ZAFTPU_CQT_SCHEME=exact L 131072"),
+            (DEFAULT, phase_cqt_path, "default L 262144"),
             (SPLIT4, phase_main_path, "split4"),
             (SPLIT4, phase_main_path, f"split4 WL {MIXED_WL}"),
             (SPLIT4, phase_main_path, f"split4 WL {PRIME_WL}"),

@@ -23,10 +23,11 @@ frames, batched, at the hops ``WL // 3 + 1``, ``WL // 7 + 1`` and ``WL``.
 A block runs on ``--threads`` threads (the kernels' loops stride by
 ``blockDim.x``, so the values are those of 256). ``--cqt`` instead runs
 the spectral CQT (``cqt_cases``: ``CqtConfig()``, L 2,048, dense and
-conjugate foreign kernels, L 16, 32 and 128, and at L 65,536 on two-block
-clusters
-``CQT_WIDE``, a batched misaligned case and a dense foreign kernel) at the
-kernel's 1,024 threads a block, in about 30 s. It proves the kernels'
+conjugate foreign kernels, L 16, 32 and 128, at L 65,536 on two-block
+clusters ``CQT_WIDE``, a batched misaligned case and a dense foreign
+kernel, and at L 131,072 on four-block clusters a CQT from C0 at 44.1 kHz
+and from A0 at 96 kHz, a batched misaligned case and a dense foreign
+kernel) at the kernel's 1,024 threads a block. It proves the kernels'
 indexing and operation order, not that ``nvcc`` takes them or that they
 are race-free on the card. The build goes to ``build/cpu_rehearsal/``
 (one directory for each source hash).
@@ -395,6 +396,15 @@ def cqt_cases() -> list:
                                                        12.0).kernel, 320, 2,
          2, 3),
         ("dense foreign L 65,536", dense(3, 65536, 0.5), 1000, 2, 1, 0),
+        ("C0 44.1 kHz L 131,072", tcqt.cqtkernel(44100, 24, 16.35,
+                                                 3520.0).kernel, 1764, 2, 1,
+         0),
+        ("A0 96 kHz L 131,072", tcqt.cqtkernel(96000, 24, 27.5,
+                                               3520.0).kernel, 3840, 2, 1, 0),
+        ("L 131,072 batched misaligned", tcqt.cqtkernel(8000, 12, 1.5,
+                                                        6.0).kernel, 320, 2,
+         2, 3),
+        ("dense foreign L 131,072", dense(3, 131072, 0.5), 1000, 2, 1, 0),
     ]
 
 
@@ -413,7 +423,7 @@ def cqt(lib, name, dense, step, t, batch, offset) -> list:
         sig.data_ptr(), tw.data_ptr(), tab.rowptr.data_ptr(),
         tab.index.data_ptr(), tab.values.data_ptr(), tab.splits.data_ptr(),
         out.data_ptr(), batch, n, t, length, step, dense.shape[0],
-        tab.splits.numel(), tab.rsplit, None)
+        tab.splits.numel(), *tab.rsplit, None)
     ref = cqtfft.cqt_magnitudes_fft_plain(sig, tab, step, length, t)
     if err or not torch.equal(out, ref):
         bad = int((out != ref).sum())
@@ -431,7 +441,7 @@ def main() -> int:
     parser.add_argument("--threads", type=int, default=32)
     parser.add_argument("--cqt", action="store_true",
                         help="the spectral CQT kernel's cases instead "
-                        "(1,024 threads a block, two-block clusters)")
+                        "(1,024 threads a block, clusters of two and four)")
     args = parser.parse_args()
     torch.set_num_threads(1)
     wins = list(args.windows)

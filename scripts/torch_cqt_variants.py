@@ -11,8 +11,9 @@ prints each kernel's registers and spills. ``--phases`` adds two variants
 that skip work, to split the time by phase: "fft+split" (no row sums) and
 "fft" (no split step either); their outputs are wrong by design. Then
 times every library at the spectral CQT's main-path shapes of
-``chip_smoke.py`` (``CqtConfig()``: L 32,768, T 15,000; ``CQT_WIDE``: L
-65,536 on the two-block cluster, T 15,000): the median of 10 CUDA-event
+``chip_smoke.py`` (``CqtConfig()``: L 32,768; ``CQT_WIDE``: L 65,536 on
+the two-block cluster; ``CQT_C0`` and ``CQT_A0_96K``: L 131,072 on the
+four-block cluster; T 15,000 each): the median of 10 CUDA-event
 pairs around ``--launches`` launches queued back to back (divided by
 them), the libraries in turns, forward then backward, ``--reps`` times;
 and says whether each output is bit-equal to the plain version. Prints
@@ -24,6 +25,7 @@ from __future__ import annotations
 import argparse
 import codecs
 import ctypes
+import re
 import statistics
 import subprocess
 import sys
@@ -36,13 +38,13 @@ OUT = ROOT / "build" / "cqt_variants"
 SOURCE = ROOT / "zaftpu_torch" / "csrc" / "cqtfft.cu"
 # The phase-skipping variants: (name, [(old, new), ...]).
 _NO_SUMS = [("      sums_frames(z, prod,", "      if (0) sums_frames(z, prod,"),
-            ("      sums_cluster(z, other,",
-             "      if (0) sums_cluster(z, other,")]
+            ("      sums_cluster<C>(z, prod,",
+             "      if (0) sums_cluster<C>(z, prod,")]
 PHASES = [
     ("fft+split", _NO_SUMS),
     ("fft", _NO_SUMS + [
         ("      split_pairs(z, tw, splits, nsplit, fpb, log2m);", ""),
-        ("      split_quads(zb, tw, splits, nsplit, log2m, rank);", "")]),
+        ("      split_cross<C>(z, rank, tw, splits, nsplit, log2m);", "")]),
 ]
 
 
@@ -62,7 +64,8 @@ def write_variant(name: str, edits: list) -> Path:
 
 def build_all(variants: dict) -> dict:
     """Each variant's library, compiled side by side; prints ptxas's
-    registers and spills of its kernels."""
+    registers and spills of its kernels, each line under the kernel
+    (cqt_fft_kernel<C>) whose compilation it belongs to."""
     from zaftpu_torch.kernels import _build
 
     nvcc = _build.nvcc_path()
@@ -79,9 +82,14 @@ def build_all(variants: dict) -> dict:
         log = proc.communicate()[0]
         if proc.returncode:
             raise SystemExit(f"variant {name}: nvcc failed\n{log}")
+        kernel = "?"
         for line in log.splitlines():
-            if "spill" in line or "Used" in line:
-                print(f"[{name}] ptxas {line.strip()}")
+            entry = re.search(r"Compiling entry function '\w*?"
+                              r"cqt_fft_kernelILi(\d)E", line)
+            if entry:
+                kernel = f"cqt_fft_kernel<{entry.group(1)}>"
+            elif "spill" in line or "Used" in line:
+                print(f"[{name}] {kernel} ptxas {line.strip()}")
         loaded = ctypes.CDLL(str(lib))
         fn = loaded.zt_cqt_magnitudes_fft
         fn.argtypes = _build.SIGNATURES["zt_cqt_magnitudes_fft"]
@@ -98,11 +106,14 @@ def cases(dev):
     import chip_smoke
     from zaftpu_torch.transforms import cqt as tcqt
 
+    t = chip_smoke.SEGMENT_SECONDS * chip_smoke.SR // chip_smoke._cqt_step(
+        chip_smoke.CqtConfig())  # 15,000
     for label, cfg in (("CqtConfig()", chip_smoke.CqtConfig()),
-                       ("CQT_WIDE", chip_smoke.CQT_WIDE)):
+                       ("CQT_WIDE", chip_smoke.CQT_WIDE),
+                       ("CQT_C0", chip_smoke.CQT_C0),
+                       ("CQT_A0_96K", chip_smoke.CQT_A0_96K)):
         kern = cfg.kernel()
         step = chip_smoke._cqt_step(cfg)
-        t = chip_smoke.SEGMENT_SECONDS * chip_smoke.SR // step
         length = kern.fft_length
         sig = torch.from_numpy(np.resize(chip_smoke.segment(0), (t - 1) * step
                                          + length).astype(np.float32)).to(dev)
@@ -154,7 +165,7 @@ def main() -> int:
                 sig.data_ptr(), tw.data_ptr(), table.rowptr.data_ptr(),
                 table.index.data_ptr(), table.values.data_ptr(),
                 table.splits.data_ptr(), out.data_ptr(), 1, sig.shape[-1],
-                t, length, step, f, table.splits.numel(), table.rsplit,
+                t, length, step, f, table.splits.numel(), *table.rsplit,
                 _build.stream_of(sig))
             _build.check(err, f"variant {name}")
             return out

@@ -6,8 +6,9 @@
 Profiles 600-s stft -> istft, mdct -> imdct (the chip_smoke.py signal,
 Hamming and vorbis windows of 2048, hop 1024; --window sets the STFT's
 Hamming window, at half overlap), cqtspectrogram at
-CqtConfig() and from 27.5 Hz (L 65,536; on the path the environment
-selects, then under ZAFTPU_FFT=matmul: the time-domain kernels), one hour of stft (six 600-s
+CqtConfig(), from 27.5 Hz (L 65,536) and from 16.35 Hz (L 131,072; on the
+path the environment selects, then under ZAFTPU_FFT=matmul: the
+time-domain kernels), one hour of stft (six 600-s
 segments queued back to back)
 and one hour of stft, then istft (chip_smoke.py's hour phase) with
 torch.profiler after two
@@ -23,8 +24,8 @@ time of their own. ``--only mdct`` profiles the MDCT instead: 600-s mdct ->
 imdct, mdct alone and imdct alone, and one hour of mdct, then imdct (set
 ZAFTPU_FFT=matmul to profile the GEMMs B2 and B7, or their twins, at WL
 2048). ``--only cqt`` profiles the CQT alone: 600-s cqtspectrogram at
-both configurations and one hour of it at CqtConfig(), each on the
-selected path and under ZAFTPU_FFT=matmul.
+CqtConfig() and from 27.5 and 16.35 Hz, and one hour of it at
+CqtConfig(), each on the selected path and under ZAFTPU_FFT=matmul.
 ``--only mel`` profiles the mel front ends: 600-s melspectrogram and mfcc
 at MelConfig() and melspectrogram at Whisper's front end (16 kHz, Hann 400
 / hop 160, 80 mels: the signal's first 600 s of samples read at 16 kHz),
@@ -111,11 +112,12 @@ def profile_mdct(x: torch.Tensor, vw, iters: int) -> None:
 
 
 def profile_cqt(x: torch.Tensor, iters: int, hour: bool) -> None:
-    """cqtspectrogram at CqtConfig() (L 32,768) and from 27.5 Hz (L 65,536)
-    on the path the environment selects (the spectral kernel by default;
-    its two-block cluster at L 65,536) and again under ZAFTPU_FFT=matmul
-    (the time-domain kernels B10-s4 and B10): 600 s and, with ``hour``, one
-    hour at CqtConfig()."""
+    """cqtspectrogram at CqtConfig() (L 32,768), from 27.5 Hz (L 65,536) and
+    from 16.35 Hz (C0: L 131,072) on the path the environment selects (the
+    spectral kernel by default; its two-block cluster at L 65,536, its
+    four-block cluster at L 131,072) and again under ZAFTPU_FFT=matmul (the
+    time-domain kernels B10-s4 and B10): 600 s and, with ``hour``, one hour
+    at CqtConfig()."""
     segs = ([torch.from_numpy(segment(i)).cuda() for i in range(6)]
             if hour else [])
     saved = os.environ.get("ZAFTPU_FFT")
@@ -124,7 +126,8 @@ def profile_cqt(x: torch.Tensor, iters: int, hour: bool) -> None:
             if fft is not None:
                 os.environ["ZAFTPU_FFT"] = fft
             for name, cfg in (("CqtConfig()", CqtConfig()),
-                              ("27.5 Hz", CqtConfig(minimum_frequency=27.5))):
+                              ("27.5 Hz", CqtConfig(minimum_frequency=27.5)),
+                              ("16.35 Hz", CqtConfig(minimum_frequency=16.35))):
                 label = f"cqtspectrogram {name} [ZAFTPU_FFT={fft or 'auto'}]"
                 profile(label, lambda: zaftpu_torch.cqtspectrogram(
                     x, config=cfg), iters)

@@ -90,11 +90,12 @@ def test_annotate_in_a_profiler_trace():
 
 def test_kernel_wrappers_are_every_counted_kernel():
     wrappers = harness.kernel_wrappers()
-    assert len(wrappers) == 33
+    assert len(wrappers) == 34
     assert {"rfft.frames_rfft_full_fft", "irfft.istft_ola_fft",
             "irfft.istft_ola_fft_full",
             "melfft.mel_rows_fft", "cqtfft.cqt_magnitudes_fft",
             "cqtfft.cqt_magnitudes_fft_cluster",
+            "cqtfft.cqt_magnitudes_fft_cluster4",
             "mdct.mdct_fft", "fused.frames_rfft"} <= set(wrappers)
 
 

@@ -1,6 +1,7 @@
 """zaftpu_torch's spectral CQT kernel (kernels/cqtfft.py, csrc/cqtfft.cu) on
 the CPU: the shape rule, the kernel's table and its band form, the split
-list and the two-block cluster's placement at L 65,536, the plain version
+list and the clusters' placement at L 65,536 (two blocks) and 131,072
+(four), the plain version
 against zaftpu's slab kernel (Pallas interpret mode) or its float32 CQT,
 the float64 oracle and B10's plain slab loop, cqtspectrogram /
 cqtchromagram through it against zaftpu and the goldens, batching, the
@@ -14,7 +15,8 @@ F 36), L 4,096 (22.05 kHz, 12 per octave, 110-3,520 Hz: hop 882, F 60) and
 CqtConfig() (44.1 kHz, 24 per octave, 55-3,520 Hz: L 32,768, hop 1,764,
 F 144); L 65,536 from 8 kHz, 12 per octave, 3-12 Hz (F 24), and from 44.1
 kHz, 24 per octave, 27.5-3,520 Hz (F 168); L 131,072 from 8 kHz, 12 per
-octave, 1.5-6 Hz (F 24), past the kernel.
+octave, 1.5-6 Hz (F 24); L 262,144 from 8 kHz, 12 per octave, 0.75-3 Hz
+(F 24), past the kernel.
 """
 
 import jax.numpy as jnp
@@ -39,6 +41,7 @@ GREF = (44100, 24, 55.0, 3520.0)
 G65536 = (8000, 12, 3.0, 12.0)
 GWIDE = (44100, 24, 27.5, 3520.0)
 G131072 = (8000, 12, 1.5, 6.0)
+G262144 = (8000, 12, 0.75, 3.0)
 GEOMETRIES = {"L2048": G2048, "L4096": G4096, "CqtConfig": GREF}
 
 
@@ -105,14 +108,16 @@ def test_twiddle_table_turns_by_exact_quarters(length):
 
 
 def test_fits_is_its_definition():
-    """A power of two from 16 to 65,536: thirteen lengths, one block a
-    frame up to 32,768 and a cluster of two at 65,536."""
-    got = [n for n in range(1, 140000) if tcqtfft.fits(n)]
-    assert got == [2 ** p for p in range(4, 17)]
-    assert [tcqtfft.cluster_size(n) for n in got] == [1] * 12 + [2]
+    """A power of two from 16 to 131,072: fourteen lengths, one block a
+    frame up to 32,768, a cluster of two at 65,536 and of four at
+    131,072."""
+    got = [n for n in range(1, 300000) if tcqtfft.fits(n)]
+    assert got == [2 ** p for p in range(4, 18)]
+    assert [tcqtfft.cluster_size(n) for n in got] == [1] * 12 + [2, 4]
 
 
-@pytest.mark.parametrize("length", [2048, 32768, 65536, 131072, 3000])
+@pytest.mark.parametrize("length", [2048, 32768, 65536, 131072, 262144,
+                                    3000])
 @pytest.mark.parametrize("fft", [None, "auto", "native", "matmul"])
 def test_applies_follows_zaftpu_fft(fft, length, monkeypatch):
     """ZAFTPU_FFT=matmul turns the rule off; auto (the default) and native
@@ -353,17 +358,19 @@ def _plain_calls():
             tcqtslab.cqt_magnitudes_split4_plain.calls)
 
 
-@pytest.mark.parametrize("case", ["rule", "L65536", "L131072", "matmul"])
+@pytest.mark.parametrize("case", ["rule", "L65536", "L131072", "L262144",
+                                  "matmul"])
 @pytest.mark.parametrize("scheme", [None, "split4", "exact"])
 @pytest.mark.parametrize("precision", [None, "highest", "split4"])
 def test_dispatch_on_every_scheme_and_dial(case, scheme, precision,
                                            monkeypatch):
     """On the CPU the float32 CQT takes the spectral kernel's plain version
-    at the rule's L (65,536 among them) on every scheme and dial, and the
-    exact slab loop at L 131,072 and under ZAFTPU_FFT=matmul; nothing
-    launches, and the time-domain operator is built only where the slab
-    loop runs."""
-    geometry = {"L65536": G65536, "L131072": G131072}.get(case, G2048)
+    at the rule's L (65,536 and 131,072 among them) on every scheme and
+    dial, and the exact slab loop at L 262,144 and under ZAFTPU_FFT=matmul;
+    nothing launches, and the time-domain operator is built only where the
+    slab loop runs."""
+    geometry = {"L65536": G65536, "L131072": G131072,
+                "L262144": G262144}.get(case, G2048)
     if case == "matmul":
         monkeypatch.setenv("ZAFTPU_FFT", "matmul")
     if precision is not None:
@@ -376,15 +383,17 @@ def test_dispatch_on_every_scheme_and_dial(case, scheme, precision,
     before = _plain_calls()
     launches = (tcqtfft.cqt_magnitudes_fft.launches,
                 tcqtfft.cqt_magnitudes_fft_cluster.launches,
+                tcqtfft.cqt_magnitudes_fft_cluster4.launches,
                 tcqtslab.cqt_magnitudes.launches,
                 tcqtslab.cqt_magnitudes_split4.launches)
     zaftpu_torch.cqtspectrogram(x, geometry[0], 25, kern)
     zaftpu_torch.cqtchromagram(x, geometry[0], 25, geometry[1], kern)
-    spectral = case in ("rule", "L65536")
+    spectral = case in ("rule", "L65536", "L131072")
     moved = (2, 0, 0) if spectral else (0, 2, 0)
     assert _plain_calls() == tuple(b + m for b, m in zip(before, moved))
     assert launches == (tcqtfft.cqt_magnitudes_fft.launches,
                         tcqtfft.cqt_magnitudes_fft_cluster.launches,
+                        tcqtfft.cqt_magnitudes_fft_cluster4.launches,
                         tcqtslab.cqt_magnitudes.launches,
                         tcqtslab.cqt_magnitudes_split4.launches)
     dtypes = {key[2] for key in tcqt._device_kernels if key[0] == id(kern)}
@@ -416,8 +425,8 @@ def _bad_call(case):
                                                         step, 2048, t),
         "length": lambda: tcqtfft._cqt_magnitudes_fft_cuda(
             torch.zeros(70000), tab, step, 3000, t),
-        "l131072": lambda: tcqtfft._cqt_magnitudes_fft_cuda(
-            torch.zeros(140000), tab, step, 131072, 1),
+        "l262144": lambda: tcqtfft._cqt_magnitudes_fft_cuda(
+            torch.zeros(270000), tab, step, 262144, 1),
         "table": lambda: tcqtfft._cqt_magnitudes_fft_cuda(sig, tab, step,
                                                           4096, 1),
         "step": lambda: tcqtfft._cqt_magnitudes_fft_cuda(sig, tab, 0, 2048,
@@ -432,7 +441,7 @@ def _bad_call(case):
     return calls[case]()
 
 
-@pytest.mark.parametrize("case", ["f64", "length", "l131072", "table", "step",
+@pytest.mark.parametrize("case", ["f64", "length", "l262144", "table", "step",
                                   "frames", "short", "batch"])
 def test_cuda_wrapper_refuses_before_launch(case, monkeypatch):
     """The CUDA half checks dtype, FFT length, table, hop, frame count,
@@ -460,7 +469,8 @@ def _any_table(name):
              + 1j * rng.standard_normal((3, length))) / length
         k[rng.random(k.shape) < 0.5] = 0
         return tcqtfft.kernel_table(k)
-    geometry = {**GEOMETRIES, "L65536": G65536, "wide": GWIDE}.get(name)
+    geometry = {**GEOMETRIES, "L65536": G65536, "wide": GWIDE,
+                "L131072": G131072}.get(name)
     if geometry is None:
         return tcqtfft.kernel_table(_foreign(name))
     return tcqtfft.kernel_table(tcqt.cqtkernel(*geometry))
@@ -468,26 +478,29 @@ def _any_table(name):
 
 def _decode_split(entries, length):
     """The split list's entries as (bins, positions) lists: one block's
-    positions of its Z (k and M - k), or at L 65,536 the positions j and
-    M/2 - j both blocks hold."""
+    positions of its Z (k and M - k), or on a cluster of C blocks the
+    positions j and H - j (H = M/C) every block holds."""
     m = length // 2
+    c = tcqtfft.cluster_size(length)
     bins, positions = [], []
     for e in entries.tolist():
-        if tcqtfft.cluster_size(length) == 1:
+        if c == 1:
             p = e >> 2
             bins += [k for bit, k in ((1, p), (2, m - p)) if e & bit]
             positions.append({p, (m - p) % m})
         else:
-            h, j = m // 2, e >> 4
-            bins += [k for bit, k in ((1, j), (2, h + j), (4, h - j),
-                                      (8, m - j)) if e & bit]
+            h, j = m // c, e >> 4 * c
+            bins += [k for bit, k in enumerate(
+                [j + s * h for s in range(c)]
+                + [(s + 1) * h - j for s in range(c)]) if e >> bit & 1]
             positions.append({j, (h - j) % h})
     return bins, positions
 
 
 @pytest.mark.parametrize("name", ["L2048", "L4096", "CqtConfig", "L65536",
                                   "wide", "dense", "high", "dense65536",
-                                  "dense32", "dense128"])
+                                  "dense32", "dense128", "L131072",
+                                  "dense131072"])
 def test_split_list_names_each_bin_once(name):
     """The split list names every bin the table reads exactly once, and no
     two entries share a position: each entry's thread reads and writes
@@ -500,62 +513,88 @@ def test_split_list_names_each_bin_once(name):
     assert len(flat) == len(set(flat))
 
 
-@pytest.mark.parametrize("name", ["L65536", "wide", "dense65536"])
+@pytest.mark.parametrize("name", ["L65536", "wide", "dense65536", "L131072",
+                                  "dense131072"])
 def test_cluster_slots_hold_every_bin(name):
-    """At L 65,536 the split step's writes, as the kernel makes them from
-    the split list (each X at its block's position, a copy in the other
-    block where that slot's bin is not read), leave every bin's X where
-    x_slots says, and each nonzero's code names its bin, conjugate flag and
-    exactly the blocks that hold its X; rows are split between the blocks
-    by nonzeros."""
+    """On a cluster (L 65,536: two blocks; 131,072: four) the split step's
+    writes, as the kernel makes them from the split list (each X at its
+    block's position, the lowest bin read at a position also in each block
+    a copy bit names, which is a block whose own bin there is not read and
+    whose rows read that bin; X[M] in every side slot), leave every bin's X
+    where x_slots says, and each nonzero's code names its bin, conjugate
+    flag and exactly the blocks that hold its X; rows are split between the
+    blocks by nonzeros, and a cqtkernel table's rows read every X in their
+    own block."""
     tab = _any_table(name)
     length = tab.fft_length
+    c = tcqtfft.cluster_size(length)
     m = length // 2
-    h = m // 2
+    h = m // c
+    full = (1 << c) - 1
     dev = tcqtfft.device_table(tab, "cpu")
-    held = [dict(), dict()]  # block -> position -> bin
+    needs = tcqtfft.block_needs(tab)
+    held = [dict() for _ in range(c)]  # block -> position -> bin
     for e in dev.splits.numpy().tolist():
-        j = e >> 4
+        j = e >> 4 * c
         q = (h - j) % h
-        writes = [(1, j, 0, j, 2), (2, h + j, 1, j, 1),
-                  (4, h - j, 0, q, 8), (8, m - j, 1, q, 4)]
-        for bit, k, block, pos, partner in writes:
-            if not e & bit:
+        for side, pos in ((0, j), (c, q)):
+            read = {s: (j + s * h if side == 0 else (s + 1) * h - j)
+                    for s in range(c) if e >> (side + s) & 1}
+            copies = e >> (2 * c + side) & full
+            if side and j == 0:  # Nyquist: the side slot of every block
+                assert list(read) in ([], [c - 1]) and not copies
+                for r in range(c) if read else ():
+                    held[r][h] = m
                 continue
-            if k == m:  # Nyquist: the side slot of both blocks
-                held[0][h] = held[1][h] = k
-                continue
-            assert pos not in held[block]
-            held[block][pos] = k
-            if not e & partner:
-                assert pos not in held[1 - block]
-                held[1 - block][pos] = k
+            for r, k in read.items():
+                assert pos not in held[r]
+                held[r][pos] = k
+            for r in range(c):
+                if copies >> r & 1:
+                    low = read[min(read)]
+                    assert r not in read and needs[r, low]
+                    assert pos not in held[r]
+                    held[r][pos] = low
     bins = np.unique(tab.bins)
-    block, position, holders = tcqtfft.x_slots(bins, length)
+    block, position, holders = tcqtfft.x_slots(bins, length, needs)
     for k, b, p, who in zip(bins, block, position, holders):
         assert held[b][p] == k
-        for r in (0, 1):
+        for r in range(c):
             assert bool(held[r].get(p) == k) is bool(who >> r & 1)
     by_bin = dict(zip(bins.tolist(), holders.tolist()))
     codes = dev.index.numpy()
-    np.testing.assert_array_equal(codes >> 3, tab.bins)
+    shift = tcqtfft.CODE_SHIFT
+    np.testing.assert_array_equal(codes >> shift, tab.bins)
     np.testing.assert_array_equal(codes & 1, tab.conj)
-    np.testing.assert_array_equal(codes >> 1 & 3,
+    np.testing.assert_array_equal(codes >> 1 & (1 << shift - 1) - 1,
                                   [by_bin[k] for k in tab.bins.tolist()])
-    assert 0 <= dev.rsplit <= tab.rowptr.shape[0] - 1
-    assert abs(int(tab.rowptr[dev.rsplit]) - tab.rowptr[-1] / 2) <= max(
-        np.diff(tab.rowptr))
-    if name != "dense65536":  # cqtkernel's bands: every X in both blocks
-        assert (codes >> 1 & 3 == 3).all()
+    f = tab.rowptr.shape[0] - 1
+    bounds = [0, *dev.rsplit[:c - 1], f]
+    assert bounds == sorted(bounds) and dev.rsplit[c - 1:] == (f,) * (4 - c)
+    for b in range(1, c):
+        assert abs(int(tab.rowptr[bounds[b]]) - tab.rowptr[-1] * b / c) <= (
+            max(np.diff(tab.rowptr)))
+    owner = np.searchsorted(bounds, np.repeat(np.arange(f), np.diff(
+        tab.rowptr)), side="right") - 1  # each nonzero's block
+    local = codes >> (1 + owner) & 1
+    for b in range(c):
+        np.testing.assert_array_equal(
+            needs[b], np.isin(np.arange(m + 1), tab.bins[owner == b]))
+    if not name.startswith("dense"):
+        assert local.all()
+    else:  # a block that does not hold X reads it where it lies
+        assert not local.all()
 
 
-@pytest.mark.parametrize("length", [64, 1024, 65536])
+@pytest.mark.parametrize("length", [64, 1024, 65536, 131072])
 def test_cluster_fft_plain_equals_the_passes(length):
-    """The cluster's placement of the FFT: the radix-4 passes on the even
-    and the odd values apart, then the radix-2 pass, bit-equal to the plan's
+    """The cluster's placement of the FFT: the passes before the last on
+    each residue class mod C apart (C = 2 where the plan ends in a radix-2
+    pass, 4 at L 131,072), then the last pass, bit-equal to the plan's
     passes over the whole row (rfft.fft_rows_plain), in float32 and
-    float64; at 65,536 the passes of the L 32,768 table serve the halves
-    bit for bit (W_65536^4i = W_32768^2i)."""
+    float64; at 65,536 and 131,072 the passes of the L 32,768 table serve
+    the residue classes bit for bit (W_65536^4i = W_131072^8i =
+    W_32768^2i)."""
     rng = np.random.default_rng(length)
     for dtype in (torch.float32, torch.float64):
         x = torch.from_numpy(rng.standard_normal((2, length))).to(dtype)
@@ -564,17 +603,20 @@ def test_cluster_fft_plain_equals_the_passes(length):
         got = tcqtfft.cluster_fft_plain(x[..., 0::2], x[..., 1::2], tw,
                                         length)
         assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
-    if length == 65536:
-        np.testing.assert_array_equal(tcqtfft._twiddles(65536)[::4],
+    if length > 32768:
+        c = length // 32768
+        np.testing.assert_array_equal(tcqtfft._twiddles(length)[::2 * c],
                                       tcqtfft._twiddles(32768)[::2])
 
 
-def test_plain_at_l65536_matches_the_float64_path():
-    """At L 65,536 (G65536) the plain version within 1e-6 of max of the
-    float64 _cqt_apply, and in float64 that path on the table's complex64
-    values to 1e-13, as at L <= 32,768."""
-    kern = tcqt.cqtkernel(*G65536)
-    padded, step, t = _padded(kern, G65536[0], 3.0, 37)
+@pytest.mark.parametrize("geometry", [G65536, G131072],
+                         ids=["L65536", "L131072"])
+def test_plain_at_l65536_matches_the_float64_path(geometry):
+    """At L 65,536 (G65536) and 131,072 (G131072) the plain version within
+    1e-6 of max of the float64 _cqt_apply, and in float64 that path on the
+    table's complex64 values to 1e-13, as at L <= 32,768."""
+    kern = tcqt.cqtkernel(*geometry)
+    padded, step, t = _padded(kern, geometry[0], 3.0, 37)
     tab = _table(kern)
     oracle = _oracle(kern, padded, step, t)
     mine = tcqtfft.cqt_magnitudes_fft_plain(torch.from_numpy(padded), tab,
@@ -587,13 +629,15 @@ def test_plain_at_l65536_matches_the_float64_path():
     assert float((mine64 - oracle).abs().max()) <= 1e-13 * scale
 
 
+@pytest.mark.parametrize("geometry", [G65536, G131072],
+                         ids=["L65536", "L131072"])
 @pytest.mark.parametrize("fn", ["cqtspectrogram", "cqtchromagram"])
-def test_f32_entry_points_at_l65536_match_zaftpu(fn):
-    """cqtspectrogram / cqtchromagram in float32 at L 65,536 through the
-    spectral kernel's plain version against zaftpu's float32 CQT on the CPU
-    (its slab kernel in interpret mode takes some 18 s there), at 2e-6 of
-    max."""
-    sr, bins, fmin, fmax = G65536
+def test_f32_entry_points_at_l65536_match_zaftpu(fn, geometry):
+    """cqtspectrogram / cqtchromagram in float32 at L 65,536 and 131,072
+    through the spectral kernel's plain version against zaftpu's float32
+    CQT on the CPU (its slab kernel in interpret mode takes some 18 s there
+    at 65,536), at 2e-6 of max."""
+    sr, bins, fmin, fmax = geometry
     x = np.random.default_rng(43).standard_normal(2 * sr).astype(np.float32)
     args = (sr, 25, bins) if fn == "cqtchromagram" else (sr, 25)
     ref = np.asarray(getattr(zaftpu, fn)(x, *args,

@@ -2,14 +2,13 @@
 // (zaf.py:627-633):
 //   out[b, t, i] = | sum_j K[i, c_j] X_{b,t}[c_j] |
 // with X_{b,t} the real FFT of the unwindowed frame sig[b, t*step ..
-// t*step + L), L a power of two from 16 to 65,536, and K the thresholded
+// t*step + L), L a power of two from 16 to 131,072, and K the thresholded
 // spectral kernel (conjugated and scaled by 1/L) as a host table
 // (kernels/cqtfft.device_table): a row pointer, each row's nonzeros in
 // ascending column order as complex64 values with one code each (its
 // half-spectrum bin, a conjugate flag for a column c > L/2, which reads
-// conj X[L - c], and at L 65,536 the cluster's blocks that hold X[bin]),
-// and the split list: the bins the table reads, grouped as step 3 takes
-// them.
+// conj X[L - c], and on a cluster the blocks that hold X[bin]), and the
+// split list: the bins the table reads, grouped as step 3 takes them.
 //
 // Replaces zaftpu/pallas/cqtslab.py: magnitudes_in_trace (_kernel, B10)
 // and its _kernel_split4 (B10-s4) on both schemes at those L. The TPU
@@ -63,7 +62,8 @@
 //  4. The row sums: the products K X (conj X where flagged) go through a
 //     40-KB buffer 5,120 at a time, each computed by one thread; then one
 //     thread a (frame, row) adds its row's products from 0 in the table's
-//     order (the loads unrolled by 16: the adds form one chain a row) and
+//     order (eight products loaded at once, as four float4, ahead of the
+//     adds, which form one chain a row) and
 //     writes sqrt(re^2 + im^2) frames-major (batch, T, F), as B10 writes
 //     it.
 //
@@ -84,13 +84,34 @@
 // of both blocks hold every value bins j, M/2 - j, M/2 + j and M - j read,
 // so a thread takes such a quad, reads the four Y (two of them in the
 // other block), and writes each X where a Y was: bin k in block k >= M/2
-// at position k mod M/2, and also in the other block when the quad's
-// partner bin there (k +- M/2) is not read (kernels/cqtfft.x_slots). The
-// blocks then take half of the rows each (split by nonzeros); a kernel
-// cqtkernel builds finds all its X in each block's own shared memory,
-// and a foreign kernel's nonzero reads its X where its code says it lies.
+// at position k mod M/2, and also in the other block when that block's
+// bin there (k +- M/2) is not read and its rows read bin k (a copy bit of
+// the entry; kernels/cqtfft.x_slots). The blocks then take half of the
+// rows each (split by nonzeros); a kernel cqtkernel builds finds all its X
+// in each block's own shared memory, and a foreign kernel's nonzero reads
+// its X where its code says it lies.
 // The frame ends on a cluster barrier. There is no fallback: a cluster
 // launch the card refuses returns its error.
+//
+// L 131,072 (M 65,536 = 4^8 points) runs on a cluster of four blocks, by
+// the same argument: up to the eighth pass the sub-transforms a pass
+// combines lie a multiple of 4 apart, so the first seven radix-4 passes
+// are four independent 16,384-point FFTs, of z[4i + r], block r's, on the
+// L 32,768 table again (W_131072^8i = W_32768^2i). The eighth, radix-4
+// pass (Z[j + sH] = butterfly s of Y0[j], W_L^2j Y1[j], W_L^4j Y2[j],
+// W_L^6j Y3[j], H = M/4) is fused with the split step (split_cross<4>): a
+// thread takes positions j and H - j of the four blocks (eight Y, six of
+// them in other blocks), which give every value bins j + sH and (s+1)H - j
+// read, and writes each X at its block's position, the lowest bin read at
+// a position also into every block whose own bin there is not read and
+// whose rows read it. Every bin cqtkernel reads lies below H, so again
+// each block holds every X it reads; the blocks take a quarter of the rows
+// each, split by nonzeros. Distributed shared memory is slow beside a
+// block's own, so only the blocks whose rows read an X get a copy (copy
+// bits in the split list): 9,181 remote writes a frame at C0 (44.1 kHz
+// from 16.35 Hz) instead of 31,932, 3% of the kernel's time on the H100
+// (scripts/torch_cqt_variants.py). The cross step's six remote reads an
+// entry stay: 8,147 entries a frame at C0.
 //
 // Every product and sum is an explicitly rounded intrinsic (__fmul_rn,
 // __fadd_rn, __fsqrt_rn), so nothing is contracted into an FMA and the
@@ -118,16 +139,20 @@ constexpr int kSideSlots = kBlockElems / 8;
 // so that a warp's reads at a power-of-two stride spread over the banks.
 constexpr int kTwiddles = kBlockElems / 4 + kBlockElems / 64 + 16;
 constexpr int kChunk = 5120;  // products a pass of step 4
+constexpr int kSumBatch = 8;  // products a row's chain loads at once
 constexpr int kMinLength = 16;
 constexpr int kOneBlockLength = 2 * kBlockElems;  // 32,768
-constexpr int kMaxLength = 2 * kOneBlockLength;   // 65,536: two blocks
-constexpr int kCluster = 2;  // blocks a frame at kMaxLength
+constexpr int kMaxLength = 4 * kOneBlockLength;   // 131,072: four blocks
+// A nonzero's code: bin << kCodeShift | holders << 1 | conj, 4 holder bits.
+constexpr int kCodeShift = 5;
 // The FFT buffer (136 KB), the side slots (16 KB), the twiddles (34 KB),
 // the products (40 KB).
 constexpr size_t kSmemBytes =
     (kPadded + kSideSlots + kTwiddles + kChunk) * sizeof(float2);
+static_assert((kPadded + kSideSlots + kTwiddles) % 2 == 0,
+              "the product buffer starts 16-byte aligned");
 
-// L a power of two from 16 to 65,536 (kernels/cqtfft.fits).
+// L a power of two from 16 to 131,072 (kernels/cqtfft.fits).
 bool cqt_fft_fits(int n) {
   return n >= kMinLength && n <= kMaxLength && (n & (n - 1)) == 0;
 }
@@ -380,76 +405,111 @@ __device__ __forceinline__ void split_pairs(float2* __restrict__ z,
   }
 }
 
-// Step 3 at L 65,536 on the cluster: zb[0] and zb[1] are the two blocks'
-// buffers, each the H = 2^log2h = M/2-point FFT Y_r of z[2i + r]. Entry j
-// << 4 | 1 (bin j) | 2 (bin H + j) | 4 (bin H - j) | 8 (bin M - j; M for j
-// = 0), j <= H/2: the last radix-2 pass at positions P = j and Q = (H - j)
-// mod H (Z[P] = Y0[P] + W_L^2P Y1[P], Z[P + H] = Y0[P] - W_L^2P Y1[P]),
-// then the split step at the bins flagged, each X written to its block's
-// position (and to the other block's when that slot's bin is not read).
-// Block 0 takes the first half of the list, block 1 the rest, so a warp's
-// entries, and its accesses in both blocks, are neighbours (alternate
-// entries ran 8% slower at CQT_WIDE).
-__device__ __forceinline__ void split_quads(float2* const* zb,
+// Position pos of block r's buffer, this block (rank) holding z: z + pos
+// itself, or its image in block r's shared memory.
+__device__ __forceinline__ float2* block_at(float2* z, int pos, int r,
+                                            int rank) {
+  return r == rank ? z + pos : cg::this_cluster().map_shared_rank(z + pos, r);
+}
+
+// The last pass at position pos of the cluster's C blocks (block r: the
+// H-point FFT Y_r of z[C i + r]): Z[pos + sH] = butterfly s of Y_0[pos]
+// and W_L^(2 r j) Y_r[pos] (j = pos's index), stockham.cuh's radix-C
+// butterfly in the plain version's order.
+template <int C>
+__device__ __forceinline__ void last_pass(float2* z, int rank,
+                                          const float2* __restrict__ tw,
+                                          int pos, int j, float2 (&y)[C]) {
+  float c[C], sn[C];  // the odd radices' constants: unused here
+  float2 v[C];
+  v[0] = *block_at(z, pos, 0, rank);
+#pragma unroll
+  for (int r = 1; r < C; ++r) {
+    v[r] = zt::cmul(*block_at(z, pos, r, rank), __ldg(tw + 2 * r * j));
+  }
+  zt::dft<C>(v, c, sn, y);
+}
+
+// Step 3 on a cluster of C = 2 or 4 blocks (this one: rank, buffer z; H =
+// 2^log2h). Entry j << 4C | copies << 2C | flags (flag bit s: bin j + sH;
+// C + s: bin (s+1)H - j, M for s = C - 1 and j = 0; j <= H/2): the last
+// pass at positions P = j and Q = (H - j) mod H, then the split step at
+// the bins flagged, each X written where its Y was (bin k in block k / H),
+// the lowest X at a position also into each block that copy bit r (P) or
+// C + r (Q) names, X[M] into every block's side slot. Block r takes the
+// r-th of C contiguous parts of the list, so a warp's entries, and its
+// accesses in every block, are neighbours (alternate entries ran 8% slower
+// at CQT_WIDE). X is stored as it is made: only the lowest stays live.
+template <int C>
+__device__ __forceinline__ void split_cross(float2* z, int rank,
                                             const float2* __restrict__ tw,
                                             const int* __restrict__ splits,
-                                            int nsplit, int log2h,
-                                            int rank) {
+                                            int nsplit, int log2h) {
+  constexpr int kAll = (1 << C) - 1;
   const int H = 1 << log2h;
-  const int M = 2 * H;
-  const int half = (nsplit + 1) / 2;
-  for (int it = rank * half + threadIdx.x; it < min(nsplit, (rank + 1) * half);
-       it += kThreadsFft) {
+  const int share = (nsplit + C - 1) / C;
+  for (int it = rank * share + threadIdx.x;
+       it < min(nsplit, (rank + 1) * share); it += kThreadsFft) {
     const int e = __ldg(splits + it);
-    const int j = e >> 4;
+    const int j = e >> (4 * C);
     const int q = j ? H - j : 0;
     const int pp = pad(j);
     const int pq = pad(q);
-    const float2 v1p = zt::cmul(zb[1][pp], __ldg(tw + 2 * j));
-    const float2 y0p = zb[0][pp];
-    const float2 zp0 = zt::cadd(y0p, v1p);
-    const float2 zp1 = zt::csub(y0p, v1p);
-    float2 zq0 = zp0;
-    float2 zq1 = zp1;
+    float2 zp[C], zq[C];
+    last_pass<C>(z, rank, tw, pp, j, zp);
     if (q != j) {
-      const float2 v1q = zt::cmul(zb[1][pq], __ldg(tw + 2 * q));
-      const float2 y0q = zb[0][pq];
-      zq0 = zt::cadd(y0q, v1q);
-      zq1 = zt::csub(y0q, v1q);
+      last_pass<C>(z, rank, tw, pq, q, zq);
+    } else {
+#pragma unroll
+      for (int s = 0; s < C; ++s) zq[s] = zp[s];
     }
     // Bin k reads a = Z[k mod M] and b = Z[(M - k) mod M].
-    float2 x0, x1, x2, x3;
-    if (e & 1) x0 = split_bin(zp0, j ? zq1 : zp0, __ldg(tw + j));
-    if (e & 2) x1 = split_bin(zp1, j ? zq0 : zp1, __ldg(tw + H + j));
-    if (e & 4) x2 = split_bin(zq0, zp1, __ldg(tw + H - j));
-    if (e & 8) x3 = split_bin(j ? zq1 : zp0, zp0, __ldg(tw + M - j));
-    if (e & 1) {
-      zb[0][pp] = x0;
-      if (!(e & 2)) zb[1][pp] = x0;
-    }
-    if (e & 2) {
-      zb[1][pp] = x1;
-      if (!(e & 1)) zb[0][pp] = x1;
-    }
-    if (e & 4) {
-      zb[0][pq] = x2;
-      if (!(e & 8)) zb[1][pq] = x2;
-    }
-    if (e & 8) {
-      if (j) {
-        zb[1][pq] = x3;
-        if (!(e & 4)) zb[0][pq] = x3;
-      } else {
-        zb[0][kPadded] = x3;
-        zb[1][kPadded] = x3;
+    const int lo = e & kAll;  // bins j + sH
+    float2 low;
+#pragma unroll
+    for (int s = 0; s < C; ++s) {
+      if (lo >> s & 1) {
+        const float2 x =
+            split_bin(zp[s], j ? zq[C - 1 - s] : zp[(C - s) & (C - 1)],
+                      __ldg(tw + j + s * H));
+        *block_at(z, pp, s, rank) = x;
+        if (!(lo & ((1 << s) - 1))) low = x;
       }
+    }
+    const int cp = e >> (2 * C) & kAll;
+#pragma unroll
+    for (int r = 0; r < C; ++r) {
+      if (cp >> r & 1) *block_at(z, pp, r, rank) = low;
+    }
+    const int hi = e >> C & kAll;  // bins (s+1)H - j
+    if (!j) {
+      if (hi) {  // X[M]
+        const float2 x = split_bin(zp[0], zp[0], __ldg(tw + C * H));
+#pragma unroll
+        for (int r = 0; r < C; ++r) *block_at(z, kPadded, r, rank) = x;
+      }
+      continue;
+    }
+#pragma unroll
+    for (int s = 0; s < C; ++s) {
+      if (hi >> s & 1) {
+        const float2 x =
+            split_bin(zq[s], zp[C - 1 - s], __ldg(tw + (s + 1) * H - j));
+        *block_at(z, pq, s, rank) = x;
+        if (!(hi & ((1 << s) - 1))) low = x;
+      }
+    }
+    const int cq = e >> (3 * C) & kAll;
+#pragma unroll
+    for (int r = 0; r < C; ++r) {
+      if (cq >> r & 1) *block_at(z, pq, r, rank) = low;
     }
   }
 }
 
 // One nonzero's product K X[k] (conj X[k] where flagged), v its value,
-// from its code c = bin << 3 | holders << 1 | conj (kernels/cqtfft
-// .kernel_codes).
+// from its code c = bin << kCodeShift | holders << 1 | conj
+// (kernels/cqtfft.kernel_codes).
 __device__ __forceinline__ float2 product(float2 v, float2 x, int c) {
   const float xi = c & 1 ? -x.y : x.y;
   return make_float2(__fsub_rn(__fmul_rn(v.x, x.x), __fmul_rn(v.y, xi)),
@@ -461,8 +521,8 @@ __device__ __forceinline__ float2 product(float2 v, float2 x, int c) {
 // nonzero). The products of kThreadsFft items at a time go through the
 // product buffer kChunk at a time, each computed by one thread (xat(f,
 // c): X of frame f at the bin of code c); then each item's thread adds
-// its own from 0 in the table's order (their loads unrolled by 16: the
-// adds form one chain a row) and store(u, magnitude) writes it.
+// its own from 0 in the table's order (kSumBatch loaded at once: the adds
+// form one chain a row) and store(u, magnitude) writes it.
 template <class Range, class XAt, class Store>
 __device__ __forceinline__ void row_sums(float2* __restrict__ prod,
                                          int items, int nnz,
@@ -485,13 +545,28 @@ __device__ __forceinline__ void row_sums(float2* __restrict__ prod,
         prod[e - c0] = product(__ldg(vals + e - f * nnz), xat(f, c), c);
       }
       __syncthreads();
-      const int b = min(own.y, c1);
-#pragma unroll 16
-      for (int e = max(own.x, c0); e < b; ++e) {
-        const float2 p = prod[e - c0];
+      // The chain: products two at a time as float4 (the buffer starts
+      // 16-byte aligned, so an even offset is), kSumBatch a batch so that
+      // the loads go ahead of the adds.
+      auto add = [&](float2 p) {
         re = __fadd_rn(re, p.x);
         im = __fadd_rn(im, p.y);
+      };
+      const int b = min(own.y, c1);
+      int e = max(own.x, c0);
+      if (e < b && ((e - c0) & 1)) add(prod[e++ - c0]);
+      for (; e + kSumBatch <= b; e += kSumBatch) {
+        const float4* p4 = reinterpret_cast<const float4*>(prod + (e - c0));
+        float4 q[kSumBatch / 2];
+#pragma unroll
+        for (int k = 0; k < kSumBatch / 2; ++k) q[k] = p4[k];
+#pragma unroll
+        for (int k = 0; k < kSumBatch / 2; ++k) {
+          add(make_float2(q[k].x, q[k].y));
+          add(make_float2(q[k].z, q[k].w));
+        }
       }
+      for (; e < b; ++e) add(prod[e - c0]);
       __syncthreads();
     }
     if (item < items) {
@@ -517,7 +592,7 @@ __device__ __forceinline__ void sums_frames(
                          f * nnz + __ldg(rowptr + i + 1));
       },
       [&](int f, int c) {
-        const int k = c >> 3;
+        const int k = c >> kCodeShift;
         return z[k < M ? pad((f << log2m) + k) : kPadded + f];
       },
       [&](int u, float mag) {
@@ -525,35 +600,35 @@ __device__ __forceinline__ void sums_frames(
       });
 }
 
-// Step 4 on the cluster at frame t0: rank 0 takes rows [0, rsplit), rank
-// 1 [rsplit, F); X[k] from this block's buffer z where its code says the
-// block holds it, else from the block k >= M (M = 2^log2m) holds it in
-// (other: the other block's buffer).
+// Step 4 on a cluster of C blocks at frame t0: this block (rank, buffer
+// z) takes rows [r0, r1); X[k] from z where its code says the block holds
+// it, else from the block k >= H = 2^log2h holds it in.
+template <int C>
 __device__ __forceinline__ void sums_cluster(
-    const float2* z, const float2* other, float2* __restrict__ prod,
-    const int* __restrict__ rowptr, const int* __restrict__ index,
-    const float2* __restrict__ vals, float* __restrict__ ob, int F, int nnz,
-    int rsplit, int log2m, int rank, long long t0) {
-  const int M = 1 << log2m;
-  const float2* const zb[2] = {rank ? other : z, rank ? z : other};
-  const int r0 = rank ? rsplit : 0;
+    float2* z, float2* __restrict__ prod, const int* __restrict__ rowptr,
+    const int* __restrict__ index, const float2* __restrict__ vals,
+    float* __restrict__ ob, int F, int nnz, int r0, int r1, int log2h,
+    int rank, long long t0) {
+  const int H = 1 << log2h;
   row_sums(
-      prod, (rank ? F : rsplit) - r0, nnz, index, vals,
+      prod, r1 - r0, nnz, index, vals,
       [&](int u) {
         return make_int2(__ldg(rowptr + r0 + u), __ldg(rowptr + r0 + u + 1));
       },
       [&](int, int c) {
-        const int k = c >> 3;
-        const int pos = k < 2 * M ? pad(k & (M - 1)) : kPadded;
-        return (c >> (1 + rank)) & 1 ? z[pos] : zb[k >= M][pos];
+        const int k = c >> kCodeShift;
+        const int pos = k < C * H ? pad(k & (H - 1)) : kPadded;
+        return (c >> (1 + rank)) & 1 ? z[pos]
+                                     : *block_at(z, pos, k >> log2h, rank);
       },
       [&](int u, float mag) { ob[t0 * F + r0 + u] = mag; });
 }
 
-// Grid: x = blocks (C = 2: clusters of two) a batch row, each looping over
-// frame groups g = blockIdx.x / C, + gridDim.x / C, ...; y = batch row.
-// log2m: the block's FFT, L/2 (C = 1) or L/4 (C = 2). rsplit: C = 2, the
-// first row of block 1. vec: 8-byte signal loads.
+// Grid: x = blocks (C = 2, 4: clusters of C) a batch row, each looping
+// over frame groups g = blockIdx.x / C, + gridDim.x / C, ...; y = batch
+// row. log2m: the block's FFT, L / (2C) points. rs1, rs2, rs3: on a
+// cluster the first rows of blocks 1, 2, 3 (block C - 1 ends at F). vec:
+// 8-byte signal loads.
 template <int C>
 __global__ void __launch_bounds__(kThreadsFft, 1)
 cqt_fft_kernel(const float* __restrict__ sig, const float2* __restrict__ tw,
@@ -561,7 +636,8 @@ cqt_fft_kernel(const float* __restrict__ sig, const float2* __restrict__ tw,
                const float2* __restrict__ vals,
                const int* __restrict__ splits, float* __restrict__ out,
                long long sig_len, int T, int n, int step, int F, int nsplit,
-               int rsplit, int log2m, long long groups, bool vec) {
+               int rs1, int rs2, int rs3, int log2m, long long groups,
+               bool vec) {
   extern __shared__ __align__(16) float2 smem[];
   float2* z = smem;
   float2* tws = smem + kPadded + kSideSlots;
@@ -577,6 +653,10 @@ cqt_fft_kernel(const float* __restrict__ sig, const float2* __restrict__ tw,
   }
   __syncthreads();
 
+  // A cluster block's rank and rows [r0, r1).
+  const int rank = C > 1 ? (int)cg::this_cluster().block_rank() : 0;
+  const int r0 = rank == 0 ? 0 : rank == 1 ? rs1 : rank == 2 ? rs2 : rs3;
+  const int r1 = rank == C - 1 ? F : rank == 0 ? rs1 : rank == 1 ? rs2 : rs3;
   for (long long g = blockIdx.x / C; g < groups; g += gridDim.x / C) {
     const long long t0 = g * fpb;
     if constexpr (C == 1) {
@@ -588,16 +668,13 @@ cqt_fft_kernel(const float* __restrict__ sig, const float2* __restrict__ tw,
       // Step 4 ends on a barrier: the next group may overwrite z.
     } else {
       cg::cluster_group cluster = cg::this_cluster();
-      const int rank = (int)cluster.block_rank();
-      float2* other = cluster.map_shared_rank(z, rank ^ 1);
-      float2* const zb[2] = {rank ? other : z, rank ? z : other};
-      frame_fft(z, tws, log2m, sb, t0, T, step, vec, 1, rank);
-      cluster.sync();  // both halves transformed
-      split_quads(zb, tw, splits, nsplit, log2m, rank);
+      frame_fft(z, tws, log2m, sb, t0, T, step, vec, C == 4 ? 2 : 1, rank);
+      cluster.sync();  // every block's residue class transformed
+      split_cross<C>(z, rank, tw, splits, nsplit, log2m);
       cluster.sync();  // every X in place
-      sums_cluster(z, other, prod, rowptr, index, vals, ob, F, nnz, rsplit,
-                   log2m, rank, t0);
-      cluster.sync();  // the other block's reads done before the next frame
+      sums_cluster<C>(z, prod, rowptr, index, vals, ob, F, nnz, r0, r1,
+                      log2m, rank, t0);
+      cluster.sync();  // the other blocks' reads done before the next frame
     }
   }
 }
@@ -606,13 +683,15 @@ template <int C>
 int launch(const float* sig, const float2* tw, const int* rowptr,
            const int* index, const float2* vals, const int* splits,
            float* out, int batch, long long sig_len, int T, int n, int step,
-           int F, int nsplit, int rsplit, bool vec, cudaStream_t st) {
+           int F, int nsplit, int rs1, int rs2, int rs3, bool vec,
+           cudaStream_t st) {
   int log2m = 0;  // the block's FFT: L / (2 C) points
   while ((2 * C << log2m) < n) ++log2m;
   const long long groups = zt::ceil_div(T, kBlockElems >> log2m);
   void (*kernel)(const float*, const float2*, const int*, const int*,
                  const float2*, const int*, float*, long long, int, int, int,
-                 int, int, int, int, long long, bool) = cqt_fft_kernel<C>;
+                 int, int, int, int, int, int, long long, bool) =
+      cqt_fft_kernel<C>;
   // Above 48 KB a block's shared memory is dynamic and opted into.
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)kSmemBytes);
@@ -631,9 +710,9 @@ int launch(const float* sig, const float2* tw, const int* rowptr,
     const dim3 grid((unsigned)(groups < per_row ? groups : per_row), batch);
     kernel<<<grid, kThreadsFft, kSmemBytes, st>>>(
         sig, tw, rowptr, index, vals, splits, out, sig_len, T, n, step, F,
-        nsplit, rsplit, log2m, groups, vec);
+        nsplit, rs1, rs2, rs3, log2m, groups, vec);
   } else {
-    // Clusters of two blocks: as many as the card schedules at once.
+    // Clusters of C blocks: as many as the card schedules at once.
     cudaLaunchAttribute attr[1];
     attr[0].id = cudaLaunchAttributeClusterDimension;
     attr[0].val.clusterDim.x = C;
@@ -655,7 +734,7 @@ int launch(const float* sig, const float2* tw, const int* rowptr,
         dim3((unsigned)(C * (groups < per_row ? groups : per_row)), batch, 1);
     err = cudaLaunchKernelEx(&cfg, kernel, sig, tw, rowptr, index, vals,
                              splits, out, sig_len, T, n, step, F, nsplit,
-                             rsplit, log2m, groups, vec);
+                             rs1, rs2, rs3, log2m, groups, vec);
     if (err != cudaSuccess) return (int)err;
   }
   return (int)cudaGetLastError();
@@ -666,23 +745,25 @@ int launch(const float* sig, const float2* tw, const int* rowptr,
 // sig: (batch, sig_len) float32, sig_len >= (T - 1) * step + L; tw: (L, 2)
 // float32, W_L^j = (cos, sin)(-2 pi j / L) with exact quarter-turn symmetry
 // (kernels/cqtfft._twiddles), 8-byte aligned; rowptr: (F + 1) int32; index:
-// (nnz) int32, bin << 3 | holders << 1 | conj with bin in [0, L/2] and at
-// L 65,536 holders bit r set when the cluster's block r holds X[bin]
+// (nnz) int32, bin << 5 | holders << 1 | conj with bin in [0, L/2] and
+// above L 32,768 holders bit r set when the cluster's block r holds X[bin]
 // (kernels/cqtfft.kernel_codes); vals: (nnz) complex64 as float pairs,
 // 8-byte aligned; splits: (nsplit) int32, the split list (kernels/cqtfft
-// .split_list); rsplit: at L 65,536 the first row of the cluster's second
-// block, in [0, F]; out: (batch, T, F) float32. L a power of two from 16 to
-// 65,536, step >= 1, F >= 1; any other L returns cudaErrorInvalidValue
+// .split_list); rs1 <= rs2 <= rs3 in [0, F]: above L 32,768 the first rows
+// of the cluster's blocks 1, 2 and 3 (at L 65,536 only rs1 is read; block
+// C - 1 ends at F); out: (batch, T, F) float32. L a power of two from 16
+// to 131,072, step >= 1, F >= 1; any other L returns cudaErrorInvalidValue
 // before a launch. All contiguous.
 ZT_EXPORT int zt_cqt_magnitudes_fft(const void* sig, const void* tw,
                                     const void* rowptr, const void* index,
                                     const void* vals, const void* splits,
                                     void* out, int batch, long long sig_len,
                                     int T, int L, int step, int F,
-                                    int nsplit, int rsplit, void* stream) {
+                                    int nsplit, int rs1, int rs2, int rs3,
+                                    void* stream) {
   if (!cqt_fft_fits(L) || step < 1 || F < 1 || batch > 65535 ||
-      nsplit < 0 || rsplit < 0 || rsplit > F || !zt::aligned8(tw) ||
-      !zt::aligned8(vals)) {
+      nsplit < 0 || rs1 < 0 || rs1 > rs2 || rs2 > rs3 || rs3 > F ||
+      !zt::aligned8(tw) || !zt::aligned8(vals)) {
     return (int)cudaErrorInvalidValue;
   }
   if (T <= 0 || batch <= 0) return (int)cudaSuccess;
@@ -695,10 +776,14 @@ ZT_EXPORT int zt_cqt_magnitudes_fft(const void* sig, const void* tw,
   float* o = static_cast<float*>(out);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const bool vec = step % 2 == 0 && sig_len % 2 == 0 && zt::aligned8(sig);
+  if (L > 2 * kOneBlockLength) {
+    return launch<4>(s, t, r, c, v, sp, o, batch, sig_len, T, L, step, F,
+                     nsplit, rs1, rs2, rs3, vec, st);
+  }
   if (L > kOneBlockLength) {
-    return launch<kCluster>(s, t, r, c, v, sp, o, batch, sig_len, T, L, step,
-                            F, nsplit, rsplit, vec, st);
+    return launch<2>(s, t, r, c, v, sp, o, batch, sig_len, T, L, step, F,
+                     nsplit, rs1, rs2, rs3, vec, st);
   }
   return launch<1>(s, t, r, c, v, sp, o, batch, sig_len, T, L, step, F,
-                   nsplit, rsplit, vec, st);
+                   nsplit, rs1, rs2, rs3, vec, st);
 }

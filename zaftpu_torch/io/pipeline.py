@@ -444,7 +444,7 @@ def streaming_cqtspectrogram(path, sampling_frequency, time_resolution,
     ``round(sr/time_resolution)``, each frame ``fft_length`` samples long,
     the asymmetric centring pad. Each block by
     :func:`zaftpu_torch.cqtspectrogram`'s route (the spectral kernel at a
-    power-of-two length up to 65,536)."""
+    power-of-two length up to 131,072)."""
     from zaftpu_torch.transforms import cqt as _cqt
 
     kern = _cqt._as_kernel(cqt_kernel)

@@ -82,9 +82,10 @@ Off the stores' rule (below 16, or under ``ZAFTPU_FFT=matmul``), under
 split4 the magnitude and mel front ends take the half spectrum of the
 analysis kernel unless ``ZAFTPU_MELFUSE=1`` forces their kernels (the
 exact ``spec_rows``, the mel kernel's twin), as in ``zaftpu``. A float32 CQT whose FFT length is a
-power of two up to 65,536 runs the spectral CQT kernel
+power of two up to 131,072 runs the spectral CQT kernel
 (:mod:`zaftpu_torch.kernels.cqtfft`: each frame's real FFT and the
-kernel's nonzeros; at 65,536 on a cluster of two blocks) on every scheme
+kernel's nonzeros; at 65,536 on a cluster of two blocks, at 131,072 of
+four) on every scheme
 and dial (``cqtfft.applies``); at any
 other length or under ``ZAFTPU_FFT=matmul`` the CQT has its own scheme,
 ``ZAFTPU_CQT_SCHEME`` (:mod:`zaftpu_torch.transforms.cqt`): a CUDA float32

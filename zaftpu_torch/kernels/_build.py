@@ -67,7 +67,7 @@ SIGNATURES = {
     "zt_cqt_magnitudes": _CQT,
     "zt_cqt_magnitudes_split4": _twin(_CQT),
     "zt_cqt_magnitudes_fft": (_P, _P, _P, _P, _P, _P, _P, _I, _LL, _I, _I,
-                              _I, _I, _I, _I, _P),
+                              _I, _I, _I, _I, _I, _I, _P),
     "zt_rfft_half": (_P, _P, _P, _P, _I, _LL, _I, _I, _I, _I, _P),
     "zt_rfft_planes": (_P, _P, _P, _P, _I, _LL, _I, _I, _I, _I, _P),
     "zt_rfft_full": (_P, _P, _P, _P, _I, _LL, _I, _I, _I, _I, _P),

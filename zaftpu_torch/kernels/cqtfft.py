@@ -26,10 +26,10 @@ kernel's split step takes them.
 :func:`fits` is the kernel's shape rule: ``L`` a power of two from
 :data:`MIN_LENGTH` to :data:`MAX_LENGTH`. Up to
 :data:`ONE_BLOCK_LENGTH` one frame's FFT lies in one block's shared
-memory; at 65,536 in a cluster of :data:`CLUSTER` blocks
-(:func:`cluster_size`), each holding the FFT of half of the frame's
-values (:func:`cluster_fft_plain`, :func:`x_slots`). :func:`applies` adds
-``ZAFTPU_FFT`` not ``matmul``, as
+memory; above it in a cluster of :func:`cluster_size` blocks (2 at
+65,536, 4 at 131,072), each holding the FFT of one residue class of the
+frame's values (:func:`cluster_fft_plain`, :func:`x_slots`).
+:func:`applies` adds ``ZAFTPU_FFT`` not ``matmul``, as
 :func:`zaftpu_torch.kernels.rfft.applies` does. The plain version repeats
 the kernel's float32 operations in their order (the real-FFT kernels'
 packing, Stockham passes and split step at ``N = L`` with no window, on
@@ -59,9 +59,10 @@ REPLACES_SPLIT4 = "zaftpu/pallas/cqtslab.py:203"  # _kernel_split4 (B10-s4)
 MIN_LENGTH = 16
 # One frame's L/2 complex values fill one block's 128-KB buffer.
 ONE_BLOCK_LENGTH = 32768
-# Past it, a frame spans a cluster of two blocks.
-CLUSTER = 2
-MAX_LENGTH = CLUSTER * ONE_BLOCK_LENGTH
+# Past it, a frame spans a cluster of 2 blocks, then of 4.
+MAX_LENGTH = 4 * ONE_BLOCK_LENGTH
+# A nonzero's code (kernel_codes): bin << CODE_SHIFT | holders << 1 | conj.
+CODE_SHIFT = 5
 # The plain version transforms at most this many frame samples at once
 # (1,024 frames at L 32,768), which bounds its memory on a long signal.
 PLAIN_BLOCK_SAMPLES = 1 << 25
@@ -77,8 +78,9 @@ def fits(fft_length: int) -> bool:
 
 def cluster_size(fft_length: int) -> int:
     """Blocks a frame spans on the card: 1 up to
-    :data:`ONE_BLOCK_LENGTH`, :data:`CLUSTER` above."""
-    return 1 if int(fft_length) <= ONE_BLOCK_LENGTH else CLUSTER
+    :data:`ONE_BLOCK_LENGTH`, else ``L / ONE_BLOCK_LENGTH`` (2 at 65,536, 4
+    at 131,072)."""
+    return max(1, int(fft_length) // ONE_BLOCK_LENGTH)
 
 
 def applies(fft_length: int) -> bool:
@@ -139,63 +141,108 @@ def kernel_table(kern) -> KernelTable:
         fft_length=length)
 
 
-def split_list(bins: np.ndarray, fft_length: int) -> np.ndarray:
+def row_split(rowptr: np.ndarray, fft_length: int) -> tuple:
+    """The first rows of a cluster's blocks 1, 2 and 3 (F past the last
+    block; zeros at one block a frame): block b's rows start at the first
+    row whose nonzeros start at or past ``b / C`` of them."""
+    c = cluster_size(fft_length)
+    f = rowptr.shape[0] - 1
+    if c == 1:
+        return (0, 0, 0)
+    return tuple(min(int(np.searchsorted(rowptr, rowptr[-1] * b / c)), f)
+                 for b in range(1, c)) + (f,) * (4 - c)
+
+
+def block_needs(table: KernelTable) -> np.ndarray:
+    """``(C, L/2 + 1)`` bool: block b of the cluster (:func:`row_split`) has
+    a row that reads bin k."""
+    c = cluster_size(table.fft_length)
+    f = table.rowptr.shape[0] - 1
+    bounds = table.rowptr[[0, *row_split(table.rowptr,
+                                         table.fft_length)[:c - 1], f]]
+    needs = np.zeros((c, table.fft_length // 2 + 1), bool)
+    for b in range(c):
+        needs[b, table.bins[bounds[b]:bounds[b + 1]]] = True
+    return needs
+
+
+def split_list(bins: np.ndarray, fft_length: int,
+               needs: np.ndarray | None = None) -> np.ndarray:
     """The kernel's split list for the bins a table reads, ``int32``.
 
-    One block a frame (M = L/2 points): an entry ``p << 2 | 1 | 2`` for
-    each pair ``p <= M/2`` of which X[p] (1) or X[M - p] (2; X[M] for p = 0)
-    is read; its thread reads Z[p] and Z[M - p], which both need. At L 65,536
-    (two blocks, each the H = M/2-point FFT of half the values): ``j << 4
-    | 1 (bin j) | 2 (bin H + j) | 4 (bin H - j) | 8 (bin M - j; M for j =
-    0)`` for each ``j <= H/2`` with a bin read; its thread runs the last
-    radix-2 pass at positions j and H - j of both blocks, which give every
-    value those bins read."""
+    A frame's M = L/2-point FFT Z spans C = :func:`cluster_size` blocks,
+    block r holding at position i < H = M/C the H-point FFT Y_r of z[C i +
+    r] (C = 1: Z itself). An entry stands for each ``j <= H/2`` with a bin
+    read; its thread runs the last pass (C > 1) at positions j and H - j of
+    every block, which gives every value those bins read, then the split
+    step at the flagged bins. C = 1: ``p << 2 | 1 (X[p]) | 2 (X[M - p];
+    X[M] for p = 0)``. C > 1: ``j << 4C | copies << 2C | flags``, flag bit
+    s (s < C) for bin j + sH, bit C + s for bin (s+1)H - j (bin M for s =
+    C - 1 and j = 0; no such bin at j = 0 otherwise, nor at j = H/2); copy
+    bit r (position j) or C + r (position H - j) when block r's own bin
+    there is not read and ``needs[r]`` (:func:`block_needs`) holds the
+    lowest bin read there: the thread writes that X into block r too."""
     m = fft_length // 2
+    c = cluster_size(fft_length)
+    h = m // c
     need = np.zeros(m + 1, bool)
     need[np.asarray(bins)] = True
-    if cluster_size(fft_length) == 1:
-        p = np.arange(m // 2 + 1)
-        lo, hi = need[p], need[m - p] & (m - p != p)
-        e = p << 2 | lo | hi << 1
-        return e[lo | hi].astype(np.int32)
-    h = m // 2
     j = np.arange(h // 2 + 1)
     inner = (j > 0) & (j < h // 2)
-    flags = (need[j].astype(int) | need[h + j] << 1
-             | (inner & need[h - j]) << 2
-             | np.where(j == 0, need[m], inner & need[m - j]) << 3)
-    return (j << 4 | flags)[flags > 0].astype(np.int32)
+    flags = np.zeros(j.shape, np.int64)
+    for s in range(c):
+        upper = (np.where(j == 0, need[m], inner & need[m - j])
+                 if s == c - 1 else inner & need[(s + 1) * h - j])
+        flags |= need[j + s * h].astype(np.int64) << s | upper << (c + s)
+    keep = flags > 0
+    if c == 1:
+        return (j << 2 | flags)[keep].astype(np.int32)
+    full = (1 << c) - 1
+    copies = np.zeros(j.shape, np.int64)
+    for side, pos in ((0, j), (c, (h - j) % h)):
+        read = flags >> side & full
+        lowest = np.log2(np.maximum(read & -read, 1)).astype(np.int64)
+        wanted = sum(needs[r, pos + lowest * h].astype(np.int64) << r
+                     for r in range(c))
+        slot = (read > 0) & ((side == 0) | (j > 0))  # not X[M]'s side slot
+        copies |= np.where(slot, full & ~read & wanted, 0) << side
+    return (j << 4 * c | copies << 2 * c | flags)[keep].astype(np.int32)
 
 
-def x_slots(bins: np.ndarray, fft_length: int) -> tuple:
-    """Where the kernel at L 65,536 leaves X[k] for each bin read: ``(block,
-    position, holders)``. Bin k < M goes to block ``k >= M/2`` at position
-    ``k mod M/2``, and also to the other block there when that block's bin
-    at the position (``k +- M/2``, the partner) is not read; X[M] to the
-    side slot (position M/2) of both. ``holders``: bit r set when block r
-    holds X[k]."""
+def x_slots(bins: np.ndarray, fft_length: int, needs: np.ndarray) -> tuple:
+    """Where the kernel on a cluster of C blocks leaves X[k] for each bin
+    read: ``(block, position, holders)``. Bin k < M goes to block ``k // H``
+    (its home) at position ``k mod H`` (H = M/C); the lowest bin read at a
+    position also to every block whose own bin there is not read and whose
+    rows read it (``needs``, :func:`block_needs`); X[M] goes to the side
+    slot (position H) of every block (block C - 1 named). ``holders``: bit
+    r set when block r holds X[k]."""
     bins = np.asarray(bins)
     m = fft_length // 2
-    h = m // 2
+    c = cluster_size(fft_length)
+    h = m // c
     need = np.zeros(m + 1, bool)
     need[bins] = True
-    block = (bins >= h).astype(int)
+    block = np.minimum(bins // h, c - 1)
     position = np.where(bins == m, h, bins % h)
-    partner = np.where(bins < h, bins + h, bins - h)
-    copied = ~need[np.minimum(partner, m)] | (bins == m)
-    holders = 1 << block | copied << (1 - block)
+    # reads[s]: block s's own bin at the position is read.
+    reads = need[np.minimum(position, h - 1) + h * np.arange(c)[:, None]]
+    free = ((~reads & needs[:, bins]) << np.arange(c)[:, None]).sum(axis=0)
+    copied = np.where(block == reads.argmax(axis=0), free, 0)
+    holders = np.where(bins == m, (1 << c) - 1, 1 << block | copied)
     return block, position, holders
 
 
 def kernel_codes(table: KernelTable) -> np.ndarray:
     """Each nonzero's code as the kernel reads it, ``(nnz,)`` int32: ``bin
-    << 3 | holders << 1 | conj``, with ``holders`` at L 65,536 the cluster's
-    blocks that hold X[bin] (:func:`x_slots`; bit r: block r reads it in its
-    own shared memory), else 0."""
+    << CODE_SHIFT | holders << 1 | conj``, with ``holders`` (4 bits) on a
+    cluster the blocks that hold X[bin] (:func:`x_slots`; bit r: block r
+    reads it in its own shared memory), else 0."""
     holders = np.zeros(table.bins.shape[0], np.int32)
     if cluster_size(table.fft_length) > 1 and table.bins.shape[0]:
-        holders = x_slots(table.bins, table.fft_length)[2].astype(np.int32)
-    return (table.bins.astype(np.int32) << 3 | holders << 1
+        holders = x_slots(table.bins, table.fft_length,
+                          block_needs(table))[2].astype(np.int32)
+    return (table.bins.astype(np.int32) << CODE_SHIFT | holders << 1
             | table.conj.astype(np.int32))
 
 
@@ -208,7 +255,7 @@ class DeviceTable(NamedTuple):
     values: torch.Tensor  # (nnz,) complex64
     index: torch.Tensor   # (nnz,) int32: kernel_codes
     splits: torch.Tensor  # split_list
-    rsplit: int           # L 65,536: the second block's first row
+    rsplit: tuple         # a cluster's blocks 1, 2, 3: each one's first row
     bins: torch.Tensor    # (F, W) int64
     conj: torch.Tensor    # (F, W) bool
     re: torch.Tensor      # (F, W) float32
@@ -221,8 +268,9 @@ class DeviceTable(NamedTuple):
 
 
 def device_table(table: KernelTable, device) -> DeviceTable:
-    """Upload a :class:`KernelTable` to ``device``. At L 65,536 the rows are
-    split between the cluster's two blocks by nonzeros."""
+    """Upload a :class:`KernelTable` to ``device``. On a cluster of C
+    blocks the rows are split between them by nonzeros
+    (:func:`row_split`)."""
     f = table.rowptr.shape[0] - 1
     counts = np.diff(table.rowptr)
     width = int(counts.max(initial=0))
@@ -235,9 +283,7 @@ def device_table(table: KernelTable, device) -> DeviceTable:
     conj[row, pos] = table.conj
     values[row, pos] = table.values
     length = table.fft_length
-    rsplit = 0
-    if cluster_size(length) > 1:
-        rsplit = int(np.searchsorted(table.rowptr, table.rowptr[-1] / 2))
+    needs = block_needs(table) if cluster_size(length) > 1 else None
 
     def put(a):
         return torch.from_numpy(np.ascontiguousarray(a)).to(device)
@@ -245,32 +291,34 @@ def device_table(table: KernelTable, device) -> DeviceTable:
     return DeviceTable(
         rowptr=put(table.rowptr), values=put(table.values),
         index=put(kernel_codes(table)),
-        splits=put(split_list(np.unique(table.bins), length)),
-        rsplit=min(rsplit, f),
+        splits=put(split_list(np.unique(table.bins), length, needs)),
+        rsplit=row_split(table.rowptr, length),
         bins=put(bins), conj=put(conj), re=put(values.real),
         im=put(values.imag), fft_length=length)
 
 
 def cluster_fft_plain(re: torch.Tensor, im: torch.Tensor, tw: torch.Tensor,
                       n: int) -> tuple:
-    """The M-point FFT of rows ``(..., M)``, log2 M odd (``rfft.radices(M)``:
-    radix-4 passes, then one radix-2), placed as the cluster computes it
-    at L 65,536: the radix-4 passes on the even and on the odd values
-    apart (block r's H = M/2-point FFT Y_r of z[2i + r], with the same
-    twiddles of the ``(n, 2)`` table), then the radix-2 pass Z[j] = Y0[j] +
-    W_n^2j Y1[j], Z[j + H] = Y0[j] - W_n^2j Y1[j]. Bit-equal to
+    """The M-point FFT of rows ``(..., M)``, M a power of two whose plan
+    (``rfft.radices(M)``: radix-4 passes, then one radix-2 when log2 M is
+    odd) ends in a pass of radix C, placed as a cluster of C blocks
+    computes it at L = 2M: the passes before the last on each residue
+    class z[C i + r] apart (block r's H = M/C-point FFT Y_r, with the same
+    twiddles of the ``(n, 2)`` table), then the last pass across the
+    blocks, Z[j + sH] = the radix-C butterfly s of Y_0[j], W_n^2j Y_1[j],
+    ... (``rfft``'s Stockham pass at sub-transform length H). Bit-equal to
     :func:`zaftpu_torch.kernels.rfft.fft_rows_plain`."""
     m = re.shape[-1]
-    h = m // 2
-    if _rfft.radices(m) != (4,) * (_rfft.radices(m).count(4)) + (2,):
-        raise ValueError(f"cluster_fft_plain: {m} is not 2 * 4^k")
-    (y0r, y0i), (y1r, y1i) = (_rfft.fft_rows_plain(re[..., r::2],
-                                                   im[..., r::2], tw, n)
-                              for r in (0, 1))
-    wr, wi = tw[0:2 * h:2, 0], tw[0:2 * h:2, 1]
-    vr, vi = y1r * wr - y1i * wi, y1r * wi + y1i * wr
-    return (torch.cat([y0r + vr, y0r - vr], dim=-1),
-            torch.cat([y0i + vi, y0i - vi], dim=-1))
+    plan = _rfft.radices(m)
+    c = plan[-1]
+    if m & (m - 1) or c not in (2, 4) or len(plan) < 2:
+        raise ValueError(f"cluster_fft_plain: {m} is not 2 * 4^k or 4^k, "
+                         "k >= 1")
+    ys = [_rfft.fft_rows_plain(re[..., r::c], im[..., r::c], tw, n)
+          for r in range(c)]
+    return _rfft._stage(torch.cat([y[0] for y in ys], dim=-1),
+                        torch.cat([y[1] for y in ys], dim=-1), tw[:, 0],
+                        tw[:, 1], n, m // c, c)
 
 
 def cqt_magnitudes_fft_plain(padded: torch.Tensor, table: DeviceTable,
@@ -322,8 +370,9 @@ def cqt_magnitudes_fft(padded: torch.Tensor, table: DeviceTable, step: int,
 
     A CPU tensor takes the plain version; a CUDA tensor launches the kernel
     (leading axes flattened into its batch) or raises: one block a frame up
-    to :data:`ONE_BLOCK_LENGTH`, above it the two-block cluster, whose
-    launches are counted on :func:`cqt_magnitudes_fft_cluster`.
+    to :data:`ONE_BLOCK_LENGTH`, above it a cluster, whose launches are
+    counted on :func:`cqt_magnitudes_fft_cluster` (two blocks, L 65,536)
+    or :func:`cqt_magnitudes_fft_cluster4` (four, L 131,072).
     """
     if not padded.is_cuda:
         return cqt_magnitudes_fft_plain(padded, table, step, fft_length,
@@ -336,16 +385,28 @@ def cqt_magnitudes_fft_cluster(padded: torch.Tensor, table: DeviceTable,
                                step: int, fft_length: int,
                                number_times: int) -> torch.Tensor:
     """:func:`cqt_magnitudes_fft` under the name that counts the two-block
-    cluster's launches (L above :data:`ONE_BLOCK_LENGTH`)."""
+    cluster's launches (L 65,536)."""
     return cqt_magnitudes_fft(padded, table, step, fft_length, number_times)
+
+
+def cqt_magnitudes_fft_cluster4(padded: torch.Tensor, table: DeviceTable,
+                                step: int, fft_length: int,
+                                number_times: int) -> torch.Tensor:
+    """:func:`cqt_magnitudes_fft` under the name that counts the four-block
+    cluster's launches (L 131,072)."""
+    return cqt_magnitudes_fft(padded, table, step, fft_length, number_times)
+
+
+# The wrapper that counts the kernel's launches, by cluster_size.
+COUNTERS = {1: cqt_magnitudes_fft, 2: cqt_magnitudes_fft_cluster,
+            4: cqt_magnitudes_fft_cluster4}
 
 
 def _cqt_magnitudes_fft_cuda(padded: torch.Tensor, table: DeviceTable,
                              step: int, fft_length: int,
                              number_times: int) -> torch.Tensor:
-    """Check the CUDA input, launch the kernel and count the launch: on
-    :func:`cqt_magnitudes_fft_cluster` at a cluster's length, else on
-    :func:`cqt_magnitudes_fft`."""
+    """Check the CUDA input, launch the kernel and count the launch on the
+    wrapper of its cluster size (:data:`COUNTERS`)."""
     name = "cqt_magnitudes_fft"
     _build.require_f32(padded, name)
     n, t, f = fft_length, number_times, table.number_frequencies
@@ -372,12 +433,12 @@ def _cqt_magnitudes_fft_cuda(padded: torch.Tensor, table: DeviceTable,
         sig.data_ptr(), twiddles(n, torch.float32, dev).data_ptr(),
         rowptr.data_ptr(), index.data_ptr(), values.data_ptr(),
         splits.data_ptr(), out.data_ptr(), batch, sig.shape[-1], t, n, step,
-        f, splits.numel(), table.rsplit, _build.stream_of(padded))
+        f, splits.numel(), *table.rsplit, _build.stream_of(padded))
     _build.check(err, "zt_cqt_magnitudes_fft")
-    (cqt_magnitudes_fft_cluster if cluster_size(n) > 1
-     else cqt_magnitudes_fft).launches += 1
+    COUNTERS[cluster_size(n)].launches += 1
     return out.reshape(*padded.shape[:-1], t, f)
 
 
 cqt_magnitudes_fft.launches = 0
 cqt_magnitudes_fft_cluster.launches = 0
+cqt_magnitudes_fft_cluster4.launches = 0

@@ -15,11 +15,11 @@ Application follows the input's dtype, as ``zaftpu``'s does:
   (default 1024), one batched ``rfft`` per block, a gather of the kernel's
   non-zero columns (conjugated where they are negative frequencies, by
   Hermitian symmetry), a complex GEMM and ``abs``;
-* float32, at an ``fft_length`` that is a power of two up to 65,536
+* float32, at an ``fft_length`` that is a power of two up to 131,072
   (:func:`zaftpu_torch.kernels.cqtfft.applies`; ``cqtkernel`` always
-  builds a power of two, and 65,536 reaches down to 23 Hz at 44.1 kHz and
-  24 bins per octave, the piano's lowest A at 27.5 Hz among them), the
-  same spectral form:
+  builds a power of two, and 131,072 reaches down to 11.5 Hz at 44.1 kHz
+  and 24 bins per octave, C0 at 16.35 Hz among them, and to A0 at 96
+  kHz), the same spectral form:
   each frame's real FFT and the kernel's nonzeros from a host table
   (:func:`zaftpu_torch.kernels.cqtfft.cqt_magnitudes_fft`), on the card a
   hand-written kernel, on the CPU its plain version, under every scheme
@@ -474,7 +474,7 @@ def cqtspectrogram(audio_signal, sampling_frequency=None,
     ``|K . fft(frame)|``. ``config=CqtConfig(...)`` may stand in for the
     three positional parameters. The output is a transposed view of a
     frames-major tensor. A CUDA float32 signal runs the spectral CQT
-    kernel at a power-of-two FFT length up to 65,536, else the time-domain
+    kernel at a power-of-two FFT length up to 131,072, else the time-domain
     kernel of ``ZAFTPU_CQT_SCHEME`` and the dial: the split4 twin by
     default; under ``compute_dtype("bfloat16")`` the twin at one pass.
     """
