@@ -54,7 +54,9 @@ non-zero exit and no result line:
    limit (800 mels at WL 2048). The fast MDCT and IMDCT + overlap-add
    kernels (B2, B7 and their twins at every window that is a multiple of
    4 up to 4096 whose quarter has no prime factor above 127) at the
-   main-path shape (vorbis 2048, T 25,841) and at batched, misaligned
+   main-path shape (vorbis 2048, T 25,841), at the 40-ms window's
+   (vorbis 1,764, T 30,001: Q 441 = 3^2 7^2), both timed, and at batched,
+   misaligned
    shapes through odd-prime quarters (3 rows of WL 1,764, 2 of WL 1,100
    and 2,060), bit-equal to their plain versions. B2, B7 and their twins,
    with their operator given (B7's, like B2's, names the GEMM at a rule
@@ -955,17 +957,19 @@ def _kernel_cases(dev, main_t: int):
         yield "imdct_ola_split4", label, f"F {f} T {t}", (coeffs, f, wb), \
             GEMM_TOL
     # The fast MDCT and IMDCT kernels, bit-equal to their plain versions:
-    # the main-path shape (vorbis 2048, T 25,841), then batched, misaligned
-    # shapes through odd-prime quarters.
-    wl, t = WL, main_t
-    padded, win = _signal_and_window(wl, wl // 2, t, vorbis, dev)
-    yield ("mdct_fft", "main", f"WL {wl} T {t}", (padded, win, wl, t),
-           EXACT_TOL)
-    coeffs = kmdct.mdct_fft_plain(padded, win, wl, t)
-    del padded
-    yield ("imdct_ola_fft", "main", f"F {wl // 2} T {t}",
-           (coeffs, wl // 2, vorbis(wl).tobytes()), EXACT_TOL)
-    del coeffs
+    # the main-path shape (vorbis 2048, T 25,841) and the 40-ms window's
+    # (vorbis 1,764, T 30,001: Q 441 = 3^2 7^2), both timed, then batched,
+    # misaligned shapes through odd-prime quarters.
+    for label, (wl, _, t) in (("main", (WL, STEP, main_t)),
+                              ("40 ms", _segment_shape(MIXED_WL))):
+        padded, win = _signal_and_window(wl, wl // 2, t, vorbis, dev)
+        yield ("mdct_fft", label, f"WL {wl} T {t}", (padded, win, wl, t),
+               EXACT_TOL)
+        coeffs = kmdct.mdct_fft_plain(padded, win, wl, t)
+        del padded
+        yield ("imdct_ola_fft", label, f"F {wl // 2} T {t}",
+               (coeffs, wl // 2, vorbis(wl).tobytes()), EXACT_TOL)
+        del coeffs
     for wl, t, rows, offset in MDCT_FFT_RAGGED:
         f = wl // 2
         sig = np.resize(segment(1), rows * (t + 1) * f + offset)
@@ -1261,11 +1265,12 @@ def _work(name: str, args: tuple,
         # The fast MDCT: the fold (an add a value) or the window and the
         # overlap-add (2 a sample), the pre- and post-twiddles (6 a packed
         # value each) and the quarter-length FFT's passes; the signal (or
-        # coefficients) and the window read once, the tables, the
-        # coefficients (or signal) written once.
+        # coefficients) and the window read once, the tables (the twiddles
+        # and kernels/rfft.kernel_tables(N/2)), the coefficients (or
+        # signal) written once.
         x, n = args[0], (args[2] if base == "mdct_fft" else 2 * args[1])
         f, q = n // 2, n // 4
-        tables = 4 * (n + 4 * q + 2 * f)
+        tables = 4 * (n + 4 * q) + 8 * rfft._kernel_tables(f).shape[0]
         if base == "mdct_fft":
             t = args[3]
             b = _rows(x)

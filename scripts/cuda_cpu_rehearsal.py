@@ -1,11 +1,13 @@
-"""Rehearse the real-FFT, inverse and spectral CQT kernels' CUDA sources
-on the CPU.
+"""Rehearse the real-FFT, inverse, fast MDCT and spectral CQT kernels' CUDA
+sources on the CPU.
 
     python3 scripts/cuda_cpu_rehearsal.py [WL ...] [--sweep LO HI]
         [--every K --first I] [--threads 32]
+    python3 scripts/cuda_cpu_rehearsal.py --mdct [--every K --first I]
     python3 scripts/cuda_cpu_rehearsal.py --cqt
 
-Compiles ``zaftpu_torch/csrc/rfft.cu``, ``irfft.cu`` and ``cqtfft.cu`` with
+Compiles ``zaftpu_torch/csrc/rfft.cu``, ``irfft.cu``, ``mdct.cu`` and
+``cqtfft.cu`` with
 ``g++`` against a small stand-in for the CUDA runtime (``HEADER`` below:
 each block's threads run as ``std::thread``s with a ``std::barrier`` for
 ``__syncthreads``, blocks one after another, a cluster's blocks side by
@@ -21,7 +23,13 @@ frames-major and bins-major, at each window given (or every window from
 LO to HI that ``rfft.fits`` refuses, every K-th from the I-th), 3 to 9
 frames, batched, at the hops ``WL // 3 + 1``, ``WL // 7 + 1`` and ``WL``.
 A block runs on ``--threads`` threads (the kernels' loops stride by
-``blockDim.x``, so the values are those of 256). ``--cqt`` instead runs
+``blockDim.x``, so the values are those of 256). ``--mdct`` instead runs
+the fast MDCT and IMDCT + overlap-add (``zt_mdct_fft``,
+``zt_imdct_ola_fft``) against their plain versions: at
+``chip_smoke.MDCT_FFT_RAGGED``'s shapes, at WL 32, 508, 572, 1,196, 2,048
+and 4,096 (2 fpb + 1 frames, 2 rows, 1 or 3 floats past an aligned
+address), T 1 and 2 at WL 2,048, and with ``--every K`` every K-th window
+of ``mdct.fits`` from the I-th (``--every 1``: all 724). ``--cqt`` instead runs
 the spectral CQT (``cqt_cases``: ``CqtConfig()``, L 2,048, dense and
 conjugate foreign kernels, L 16, 32 and 128, at L 65,536 on two-block
 clusters ``CQT_WIDE``, a batched misaligned case and a dense foreign
@@ -51,8 +59,10 @@ import torch
 ROOT = Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(ROOT))
 
+from zaftpu_torch.core.windows import vorbis  # noqa: E402
 from zaftpu_torch.kernels import (_build, cqtfft, irfft, melfft,  # noqa: E402
                                   rfft)
+from zaftpu_torch.kernels import mdct as kmdct  # noqa: E402
 from zaftpu_torch.transforms import cqt as tcqt  # noqa: E402
 
 OUT = ROOT / "build" / "cpu_rehearsal"
@@ -240,7 +250,8 @@ ZT_EXPORT void zt_rehearsal_threads(int n) { emu_threads = n; }
 
 
 def build() -> ctypes.CDLL:
-    """The C entries of rfft.cu and irfft.cu compiled for the CPU, under a
+    """The C entries of rfft.cu, irfft.cu, mdct.cu and cqtfft.cu compiled
+    for the CPU, under a
     directory named by the sources' hash: built once for each version of
     the sources (a running rehearsal keeps its library while another
     builds)."""
@@ -267,8 +278,9 @@ def build() -> ctypes.CDLL:
             ["g++", "-std=c++20", "-O2", "-ffp-contract=off", "-fPIC",
              "-shared", "-pthread", "-w", "-x", "c++", "-I", str(out / "inc"),
              "-I", str(src), "-o", str(tmp),
-             *(str(src / n) for n in ("rfft.cu", "irfft.cu", "cqtfft.cu",
-                                      "errors.cu", "rehearsal.cu"))], check=True)
+             *(str(src / n) for n in ("rfft.cu", "irfft.cu", "mdct.cu",
+                                      "cqtfft.cu", "errors.cu",
+                                      "rehearsal.cu"))], check=True)
         os.replace(tmp, lib)  # another rehearsal sees all of it or none
     loaded = ctypes.CDLL(str(lib))
     for name, argtypes in _build.SIGNATURES.items():
@@ -432,13 +444,72 @@ def cqt(lib, name, dense, step, t, batch, offset) -> list:
     return []
 
 
+def mdct_cases(every, first) -> list:
+    """The fast MDCT's rehearsal cases: (WL, T, batch rows, signal offset
+    in floats)."""
+    import chip_smoke
+
+    def frames(wl):  # two blocks of the forward and one frame more
+        return 2 * (2048 // (wl // 4)) + 1
+
+    cases = list(chip_smoke.MDCT_FFT_RAGGED)
+    cases += [(wl, frames(wl), 2, 1 + 2 * (i % 2))
+              for i, wl in enumerate((32, 508, 572, 1196, 2048, 4096))]
+    cases += [(2048, 1, 1, 0), (2048, 2, 2, 3)]
+    if every:
+        wins = [w for w in range(32, 4097, 4) if kmdct.fits(w)]
+        cases += [(wl, frames(wl), 2, 1) for wl in wins[first::every]]
+    return cases
+
+
+def mdct(lib, wl: int, t: int, batch: int, offset: int) -> list:
+    """The fast MDCT and IMDCT + overlap-add against their plain versions,
+    the signal and the coefficients ``offset`` floats past an aligned
+    address; the failures."""
+    f = wl // 2
+    n = (t + 1) * f
+    rng = np.random.default_rng(wl + t + offset)
+    flat = torch.from_numpy(rng.standard_normal(batch * n + offset).astype(
+        np.float32))
+    padded = flat[offset:].view(batch, n)
+    win = torch.from_numpy(vorbis(wl).astype(np.float32))
+    tw = kmdct.twiddles(wl, torch.float32, "cpu")
+    tab = rfft.kernel_tables(f, "cpu")
+    bad = []
+    out = torch.full((batch, t, f), float("nan"))
+    err = lib.zt_mdct_fft(padded.data_ptr(), win.data_ptr(), tw.data_ptr(),
+                          tab.data_ptr(), out.data_ptr(), batch, n, t, wl,
+                          None)
+    ref = kmdct.mdct_fft_plain(padded, win, wl, t)
+    if err or not torch.equal(out, ref):
+        bad.append(f"mdct WL {wl} T {t} rows {batch} offset {offset}: "
+                   f"error {err}, {int((out != ref).sum())} values differ")
+    cflat = torch.zeros(ref.numel() + offset)
+    cflat[offset:] = ref.reshape(-1)
+    coeffs = cflat[offset:].view(batch, t, f)
+    wb = vorbis(wl).tobytes()
+    rec = torch.full((batch, n), float("nan"))
+    err = lib.zt_imdct_ola_fft(
+        coeffs.data_ptr(),
+        kmdct.synthesis_window(wb, torch.float32, "cpu").data_ptr(),
+        tw.data_ptr(), tab.data_ptr(), rec.data_ptr(), batch, t, wl, None)
+    ref = kmdct.imdct_ola_fft_plain(coeffs, f, wb)
+    if err or not torch.equal(rec, ref):
+        bad.append(f"imdct WL {wl} T {t} rows {batch} offset {offset}: "
+                   f"error {err}, {int((rec != ref).sum())} values differ")
+    return bad
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("windows", nargs="*", type=int)
     parser.add_argument("--sweep", nargs=2, type=int, metavar=("LO", "HI"))
-    parser.add_argument("--every", type=int, default=1)
+    parser.add_argument("--every", type=int)
     parser.add_argument("--first", type=int, default=0)
     parser.add_argument("--threads", type=int, default=32)
+    parser.add_argument("--mdct", action="store_true",
+                        help="the fast MDCT and IMDCT kernels' cases "
+                        "instead")
     parser.add_argument("--cqt", action="store_true",
                         help="the spectral CQT kernel's cases instead "
                         "(1,024 threads a block, clusters of two and four)")
@@ -448,7 +519,7 @@ def main() -> int:
     if args.sweep:
         lo, hi = args.sweep
         wins += [w for w in range(lo, hi + 1)
-                 if not rfft.fits(w)][args.first::args.every]
+                 if not rfft.fits(w)][args.first::args.every or 1]
     t0 = time.perf_counter()
     lib = build()
     lib.zt_rehearsal_threads(args.threads)
@@ -460,6 +531,12 @@ def main() -> int:
         for case in cases:
             bad += cqt(lib, *case)
             print(f"{case[0]}: {time.perf_counter() - t0:.1f} s", flush=True)
+    mcases = mdct_cases(args.every, args.first) if args.mdct else []
+    for case in mcases:
+        bad += mdct(lib, *case)
+    if mcases:
+        print(f"{len(mcases)} MDCT cases: {time.perf_counter() - t0:.1f} s",
+              flush=True)
     for wl in wins:
         bad += stores(lib, wl, wl // 3 + 1, 3)
         for step, t, batch in ((wl // 3 + 1, 4, 2), (wl // 7 + 1, 9, 1),

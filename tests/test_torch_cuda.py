@@ -1681,9 +1681,10 @@ MDCT_FFT_SHAPES = [(2048, 37), (2048, 1), (2048, 2), (256, 61), (32, 300),
                    (64, 257), (4096, 9), (1024, 5),
                    # Odd primes in the quarter: 1100 (5, 5, 11), 1764 (3,
                    # 3, 7, 7), 2060 (5, 103), 4088 (2, 2, 2, 7, 73), 1920
-                   # (2^5, 3, 5), 508 (127).
+                   # (2^5, 3, 5), 508 (127), 1196 (13, 23: two register
+                   # primes), 572 (11, 13: a prime first, then another).
                    (1100, 23), (1764, 9), (2060, 7), (4088, 5), (1920, 11),
-                   (508, 40)]
+                   (508, 40), (1196, 19), (572, 31)]
 
 
 @pytest.mark.parametrize("wl,t", MDCT_FFT_SHAPES)
@@ -1723,6 +1724,31 @@ def test_mdct_fft_kernels_match_plain(dev, wl, t, lead, offset):
     assert torch.equal(rec, rref), _rel_err(rec, rref)
     oracle = kmdct.imdct_ola_fft(coeffs.cpu().double(), f, wb)
     assert _rel_err(rec.cpu().double(), oracle) < 2e-6
+
+
+def test_mdct_fft_kernels_repeat_at_the_main_path_shape(dev):
+    """Each kernel run twice on the same input at the main-path shape
+    (vorbis 2048, a 600-s segment: T 25,841) gives the same bits twice:
+    every output is written once, with no atomics and no order that
+    changes from run to run."""
+    wl, t = 2048, 25841
+    f = wl // 2
+    rng = np.random.default_rng(2048)
+    padded = torch.from_numpy(rng.standard_normal((t + 1) * f).astype(
+        np.float32)).to(dev)
+    win = torch.from_numpy(vorbis(wl).astype(np.float32)).to(dev)
+    before = kmdct.mdct_fft.launches
+    first = kmdct.mdct_fft(padded, win, wl, t)
+    second = kmdct.mdct_fft(padded, win, wl, t)
+    assert kmdct.mdct_fft.launches == before + 2
+    assert torch.equal(first, second)
+    wb = vorbis(wl).tobytes()
+    before = kmdct.imdct_ola_fft.launches
+    rec = kmdct.imdct_ola_fft(first, f, wb)
+    again = kmdct.imdct_ola_fft(first, f, wb)
+    assert kmdct.imdct_ola_fft.launches == before + 2
+    assert rec.shape == again.shape == ((t + 1) * f,)
+    assert torch.equal(rec, again)
 
 
 def test_imdct_ola_fft_returns_zeros_for_no_frames(dev):

@@ -328,7 +328,7 @@ def test_fused_fold_refuses_before_launch(case, monkeypatch):
     (4096, 4096, 1, 1), (2062, 1031, 25841, 1), (441, 147, 180001, 1),
     (4078, 1024, 25842, 1)])
 def test_block_span_by_waves(wl, step, t, batch):
-    """block_span (csrc/irfft.cu: span_for): a multiple of the hop within
+    """block_span (csrc/stockham.cuh: span_for): a multiple of the hop within
     SPAN whose waves of blocks times groups a block is the least of every
     multiple's, with the frames a group and the blocks an SM of geometry:
     on the 600-s WL 2048 / hop 1024 signal 7 hops (8 frames, 4 groups of

@@ -27,10 +27,12 @@ from zaftpu_torch.kernels import fused as tfused
 from zaftpu_torch.kernels import irfft as tirfft
 from zaftpu_torch.kernels import mdct as tkmdct
 from zaftpu_torch.kernels import ola as tola
+from zaftpu_torch.kernels import rfft as trfft
 from zaftpu_torch.kernels import synth as tsynth
 
-# Quarters 64 = 2^6, 275 = 5^2 11 (an odd-prime pass) and 480 = 2^5 3 5.
-WINDOWS = [256, 1100, 1920]
+# Quarters 64 = 2^6, 275 = 5^2 11 (an odd-prime pass), 480 = 2^5 3 5 and
+# 143 = 11 13 (a plan whose first pass is a prime above 7).
+WINDOWS = [256, 1100, 1920, 572]
 
 
 def _close(a, b):
@@ -67,6 +69,27 @@ def test_twiddle_tables_are_the_references_rounded_once(n):
     table = tkmdct._synthesis_window(win.tobytes())
     np.testing.assert_array_equal(table, (win * (2.0 / f)).astype(np.float32))
     assert tkmdct._twiddles(n, "float64").dtype == np.float64
+
+
+@pytest.mark.parametrize("n", WINDOWS + [32, 2048, 4096])
+def test_kernel_tables_start_with_the_fft_twiddle_table(n):
+    """The CUDA entries take kernels/rfft.kernel_tables(N/2): its first N/2
+    rows are the table of W_{N/2} that the plain versions' passes read
+    (rfft.twiddles(N/2)), entry for entry, and the rest the Q-point FFT's
+    per-pass tables, gathered from it with no new rounding."""
+    f, q = n // 2, n // 4
+    tab = trfft.kernel_tables(f, "cpu")
+    assert tab.dtype == torch.float32
+    assert torch.equal(tab[:f], trfft.twiddles(f, torch.float32, "cpu"))
+    passes = tab[f:].numpy()
+    np.testing.assert_array_equal(passes, trfft._pass_tables(q, f))
+    ns, rows = 1, 0
+    for r in trfft.radices(q):
+        rows += (r - 1) * ns
+        ns *= r
+    assert passes.shape == (rows, 2)
+    assert np.isin(passes.view(np.int64), tab[:f].numpy().view(
+        np.int64)).all()
 
 
 def test_fits_is_its_definition():

@@ -37,7 +37,7 @@
 // batch row (grid x; the batch on grid y) in a shared-memory accumulator,
 // so every hop from 1 to N works and each sample is written once,
 // coalesced, with no atomics and nothing carried between blocks. span
-// (span_for) is the multiple of the hop up to kSpan = 8,192 whose block
+// (zt::span_for) is the multiple of the hop up to kSpan = 8,192 whose block
 // transforms the fewest groups per output frame: at WL 2048 / hop 1024,
 // 7 hops, whose 8 frames fill 4 groups of 2 (8,192 samples took 9 frames,
 // 5 groups). The block transforms the frames that reach its samples, fpb
@@ -412,30 +412,6 @@ irfft_kernel(Spec spec, const float2* __restrict__ tab,
   }
 }
 
-// The output samples a block of irfft_kernel owns: a multiple m of the hop
-// (m step <= kSpan), m + (N - 1) / step frames a block away from the
-// signal's ends, in groups of fpb. Blocks run about a group's time a
-// group, `slots` at once (SMs times kBlocksPerSm), so m minimises the waves
-// of blocks times the groups a block (the larger m on a tie): on a long
-// signal the fewest groups per output frame (WL 2048 / hop 1024: 7 hops,
-// whose 8 frames fill 4 groups of 2; 8,192 samples took 9 frames, 5
-// groups), on a short one more, shorter blocks.
-int span_for(int n, int step, int fpb, long long out_len, int batch,
-             long long slots) {
-  long long best_cost = -1;
-  int best = 1;
-  for (int m = 1; m * step <= zt::kSpan; ++m) {
-    const long long blocks = (out_len + m * step - 1) / (m * step) * batch;
-    const long long cost = (blocks + slots - 1) / slots *
-                           zt::ceil_div(m + (n - 1) / step, fpb);
-    if (best_cost < 0 || cost <= best_cost) {
-      best_cost = cost;
-      best = m;
-    }
-  }
-  return best * step;
-}
-
 template <class Spec, bool kWindowed>
 int launch(const Spec& spec, const void* tw, const void* win, const void* wsq,
            void* out, float s, int batch, int T, int N, int step,
@@ -458,7 +434,7 @@ int launch(const Spec& spec, const void* tw, const void* win, const void* wsq,
   }
   if (err != cudaSuccess) return (int)err;
   const long long out_len = (long long)(T - 1) * step + N;
-  const int span = span_for(N, step, plan.fpb, out_len, batch,
+  const int span = zt::span_for(N, step, plan.fpb, out_len, batch,
                             (long long)sms * kBlocksPerSm);
   // first_step's groups: M / r1, or the M values of a first prime pass.
   const zt::Step& s0 = plan.step[0];
@@ -635,7 +611,7 @@ int launch_any(const Spec& spec, const float2* tab, float* out, float s,
   }
   if (err != cudaSuccess) return (int)err;
   const long long out_len = (long long)(T - 1) * step + n;
-  const int span = span_for(n, step, a.rows, out_len, batch,
+  const int span = zt::span_for(n, step, a.rows, out_len, batch,
                             (long long)sms * any_blocks_per_sm(a));
   const int smem = 2 * a.stride * (int)sizeof(float2) +
                    span * (int)sizeof(float);

@@ -1,39 +1,35 @@
-// The mixed-radix Stockham passes of an M-point complex FFT in shared
-// memory: fft_rows, which the fast MDCT (mdct.cu) runs, and static_fft and
-// any_fft (below), the same passes regrouped into register steps for the
-// real FFT (rfft.cu: rfft_kernel on the static path, rfft_any off it) and
-// the inverse real FFT + overlap-add (irfft.cu: irfft_kernel, irfft_any),
+// The mixed-radix Stockham passes of an M-point complex FFT, regrouped into
+// register steps between two shared-memory buffers: static_fft, which the
+// real FFT (rfft.cu: rfft_kernel), the inverse real FFT + overlap-add
+// (irfft.cu: irfft_kernel) and the fast MDCT and IMDCT (mdct.cu) run on
+// the static path, and any_fft, which rfft_any and irfft_any run off it,
 // each reading its first step's values from its own source (the signal,
-// the spectrum, or Bluestein's first FFT).
+// the spectrum, the folded frame, the coefficients, or Bluestein's first
+// FFT).
 //
 // A 256-thread block transforms up to kElems complex values at once (the
 // stores and the inverse off the static path up to kMaxElems, in dynamic
-// shared memory): the FFTs of fpb consecutive M-point rows between two
-// shared-memory buffers (16 KB each at kElems), one barrier per pass, with
-// the twiddle table of W_n for any n that M divides (n = 2M for the real
-// FFT's half-length transform), in the plan the host gives (Plan,
-// kernels/rfft.radices): radix 4 while it fits in M's power-of-two part,
-// one radix-2 pass when that part's log2 is odd, then the radix-3, -5 and
-// -7 passes, then one pass for each prime factor from 11 to kMaxPrime,
-// ascending. Pass p with sub-transform length ns reads v[s] = in[j + s *
-// M/R], multiplies v[s] (s > 0) by the twiddle W_N^(s k N/(ns R)), k = j mod
-// ns, runs the R-point DFT and writes y[s] to out[(j - k) R + k + s ns].
-// The odd radices are direct R-point DFTs over the sums and differences of
-// mirrored inputs, with cos and sin of 2 pi k / R read from the twiddle
-// table (W_N^(k N/R)). After the last pass the buffer holds FFT_M of each
-// row in natural order. The twiddles W_N^j = exp(-2 pi i j / N), j < N
-// (N = 2M, or N = M for the stores' packed and Bluestein rows), are one
-// host table (float64 math rounded once to float32,
-// kernels/rfft.py), read through the read-only cache. Every product and
-// sum is an explicitly rounded intrinsic (__fmul_rn, __fadd_rn), so
-// nothing is contracted into an FMA and the passes do the plain version's
-// float32 operations (kernels/rfft.py: _stage) in its order.
-//
-// The radices up to 7 are templates that hold a butterfly's R values in
-// registers. A prime p from 11 to 127 is a runtime value (prime_stage): R
-// values a thread do not scale to p = 127, so its work item is one output
-// pair (y_t, y_{p-t}) of one butterfly, after a sub-pass that applies the
-// twiddles in place.
+// shared memory): the FFTs of fpb consecutive M-point rows, with the
+// twiddle table of W_n for any n that M divides (n = 2M for the real FFT's
+// half-length transform and the MDCT's quarter-length one), in the plan
+// the host gives (Plan, kernels/rfft.radices): radix 4 while it fits in
+// M's power-of-two part, one radix-2 pass when that part's log2 is odd,
+// then the radix-3, -5 and -7 passes, then one pass for each prime factor
+// from 11 to kMaxPrime, ascending. Pass p with sub-transform length ns
+// reads v[s] = in[j + s * M/R], multiplies v[s] (s > 0) by the twiddle
+// W_N^(s k N/(ns R)), k = j mod ns, runs the R-point DFT and writes y[s]
+// to out[(j - k) R + k + s ns]. The odd radices are direct R-point DFTs
+// over the sums and differences of mirrored inputs, with cos and sin of 2
+// pi k / R read from the twiddle table (W_N^(k N/R)); a prime above 7 in
+// the first pass (ns = 1) skips its twiddle products, which are all by W^0
+// = 1. After the last pass the buffer holds FFT_M of each row in natural
+// order. The twiddles W_N^j = exp(-2 pi i j / N), j < N (N = 2M, or N = M
+// for the stores' packed and Bluestein rows), are one host table (float64
+// math rounded once to float32, kernels/rfft.py), read through the
+// read-only cache. Every product and sum is an explicitly rounded
+// intrinsic (__fmul_rn, __fadd_rn), so nothing is contracted into an FMA
+// and the steps do the plain version's float32 operations (kernels/rfft.py:
+// _stage) in its order.
 //
 // No pass uses the tensor cores: a TF32 or bf16 product (wgmma, mma.sync)
 // would change the float32 products and sums that the plain version rounds
@@ -46,8 +42,8 @@
 namespace zt {
 
 constexpr int kElems = 2048;  // complex values a block transforms
-// Output samples a block of the inverse kernels (irfft.cu, mdct.cu) owns in
-// its shared-memory accumulator: 2 N_max.
+// The most output samples a block of the inverse kernels (irfft.cu, mdct.cu)
+// owns in its shared-memory accumulator (span_for): 2 N_max.
 constexpr int kSpan = 4 * kElems;
 constexpr int kMaxPrime = 127;  // the largest prime factor of M a pass takes
 // Passes of a prime above 7: 11^3 = 1331 <= kElems and 11^4 > kMaxElems.
@@ -133,45 +129,6 @@ __device__ __forceinline__ void dft(const float2 (&v)[R],
   }
 }
 
-// One radix-R Stockham pass over the fpb rows of the block (M points
-// each): sub-transforms of length ns grow to R ns.
-template <int R>
-__device__ __forceinline__ void stage(const float2* __restrict__ src,
-                                      float2* __restrict__ dst,
-                                      const float2* __restrict__ tw, int m,
-                                      int fpb, int ns, int n) {
-  const int q = m / R;             // butterflies per row
-  const int stride = n / (ns * R);  // twiddle index step: N / (ns R)
-  // Odd R: cos and sin of 2 pi k / R, from W_N^(k N/R) = (cos, -sin).
-  float c[R], sn[R];
-  if constexpr (R % 2 == 1) {
-#pragma unroll
-    for (int k = 1; k < R; ++k) {
-      const float2 w = __ldg(tw + k * (n / R));
-      c[k] = w.x;
-      sn[k] = -w.y;
-    }
-  }
-  for (int b = threadIdx.x; b < fpb * q; b += blockDim.x) {
-    const int f = b / q;
-    const int j = b - f * q;
-    const int k = j % ns;
-    const float2* in = src + f * m + j;
-    float2 v[R];
-#pragma unroll
-    for (int s = 0; s < R; ++s) v[s] = in[s * q];
-#pragma unroll
-    for (int s = 1; s < R; ++s) {
-      v[s] = cmul(v[s], __ldg(tw + s * k * stride));
-    }
-    float2 y[R];
-    dft<R>(v, c, sn, y);
-    float2* out = dst + f * m + (j - k) * R + k;
-#pragma unroll
-    for (int s = 0; s < R; ++s) out[s * ns] = y[s];
-  }
-}
-
 // Two buffers of `stride` values each from `base` (dynamic shared memory),
 // indexed as a float2 (*)[kElems] is: buf[i] for i = 0, 1.
 struct Buffers {
@@ -181,125 +138,6 @@ struct Buffers {
     return base + i * stride;
   }
 };
-
-// `count` radix-R passes from buf[cur], one barrier after each; buf[0] and
-// buf[1] are the two buffers (float2 (*)[kElems] in the static blocks,
-// Buffers in dynamic shared memory).
-template <int R, class Buf>
-__device__ __forceinline__ void passes(Buf buf, int& cur,
-                                       const float2* __restrict__ tw, int m,
-                                       int fpb, int& ns, int n, int count) {
-  for (int i = 0; i < count; ++i) {
-    stage<R>(buf[cur], buf[cur ^ 1], tw, m, fpb, ns, n);
-    cur ^= 1;
-    ns *= R;
-    __syncthreads();
-  }
-}
-
-// One radix-p Stockham pass for a prime p from 11 to kMaxPrime, in two
-// steps with a barrier between them. First every input v[s], s > 0, is
-// multiplied by its twiddle in place in src (the plain version's products;
-// src is not read again after the pass), unless the pass is the first (ns
-// = 1), whose twiddles are all W^0 = 1 and which the plain version does
-// not multiply either. Then a work item (t, f, j) forms output t of
-// butterfly j of row f, t = 0..H, H = (p-1)/2: y_0 = v_0 + a_1 + ... +
-// a_H, or for t >= 1 A = v_0 + sum_u a_u cos(2 pi u t / p), B = sum_u b_u
-// sin(2 pi u t / p), y_t = A - i B and y_{p-t} = A + i B, with a_u = v_u +
-// v_{p-u}, b_u = v_u - v_{p-u} and every sum in u order (kernels/rfft.py:
-// _odd_butterfly). Items run j fastest, so a warp reads consecutive inputs
-// and one cos/sin pair (W_N^(kk N/p), kk = u t mod p) at a time. The u
-// loops are unrolled by 4, so an item's shared loads of four terms are in
-// flight together.
-//
-// On an H100 at WL 1102 (passes 19, 29) the twiddles applied inline by
-// each item (2H products an item, no sub-pass) ran 8-25% slower, skipping
-// the first pass's sub-pass 9-12% faster and the unrolling 4-6% faster
-// (scripts/torch_ab.py, PERF.md).
-__device__ __forceinline__ void prime_stage(float2* __restrict__ src,
-                                            float2* __restrict__ dst,
-                                            const float2* __restrict__ tw,
-                                            int m, int fpb, int ns, int n,
-                                            int p) {
-  const int q = m / p;              // butterflies per row
-  const int stride = n / (ns * p);  // twiddle index step: N / (ns p)
-  const int rest = m - q;           // inputs of a row with s > 0
-  if (ns > 1) {
-    for (int e = threadIdx.x; e < fpb * rest; e += blockDim.x) {
-      const int f = e / rest;
-      const int r = e - f * rest + q;  // r = j + s q, s >= 1
-      const int s = r / q;
-      const int j = r - s * q;
-      float2* v = src + f * m + r;
-      *v = cmul(*v, __ldg(tw + s * (j % ns) * stride));
-    }
-    __syncthreads();
-  }
-  const int h = (p - 1) / 2;
-  const int rows = fpb * q;   // butterflies of the block
-  const int cstep = n / p;    // W_N^(kk N/p) = (cos, -sin)(2 pi kk / p)
-  for (int b = threadIdx.x; b < (h + 1) * rows; b += blockDim.x) {
-    const int t = b / rows;
-    const int i = b - t * rows;
-    const int f = i / q;
-    const int j = i - f * q;
-    const int k = j % ns;
-    const float2* in = src + f * m + j;
-    float2* out = dst + f * m + (j - k) * p + k;
-    float2 sa = in[0];
-    if (t == 0) {
-#pragma unroll 4
-      for (int u = 1; u <= h; ++u) {
-        sa = cadd(sa, cadd(in[u * q], in[(p - u) * q]));
-      }
-      out[0] = sa;
-      continue;
-    }
-    float2 sb = make_float2(0.f, 0.f);
-    int kk = 0;
-#pragma unroll 4
-    for (int u = 1; u <= h; ++u) {
-      kk += t;
-      if (kk >= p) kk -= p;
-      const float2 w = __ldg(tw + kk * cstep);
-      const float c = w.x;
-      const float sn = -w.y;
-      const float2 x = in[u * q];
-      const float2 z = in[(p - u) * q];
-      const float2 a = cadd(x, z);
-      const float2 d = csub(x, z);
-      sa = make_float2(__fadd_rn(sa.x, __fmul_rn(a.x, c)),
-                       __fadd_rn(sa.y, __fmul_rn(a.y, c)));
-      const float2 db = make_float2(__fmul_rn(d.x, sn), __fmul_rn(d.y, sn));
-      sb = u == 1 ? db : make_float2(__fadd_rn(sb.x, db.x),
-                                     __fadd_rn(sb.y, db.y));
-    }
-    out[t * ns] = make_float2(__fadd_rn(sa.x, sb.y), __fsub_rn(sa.y, sb.x));
-    out[(p - t) * ns] =
-        make_float2(__fsub_rn(sa.x, sb.y), __fadd_rn(sa.y, sb.x));
-  }
-}
-
-// Every pass of the plan over the fpb rows of m values in buf[cur], with
-// the twiddle table of W_n (m divides n); on return buf[cur] holds their
-// FFTs, after a barrier.
-template <class Buf>
-__device__ __forceinline__ void fft_rows(Buf buf, int& cur,
-                                         const float2* __restrict__ tw, int m,
-                                         int fpb, int n, const Plan& plan) {
-  int ns = 1;
-  passes<4>(buf, cur, tw, m, fpb, ns, n, plan.n4);
-  passes<2>(buf, cur, tw, m, fpb, ns, n, plan.n2);
-  passes<3>(buf, cur, tw, m, fpb, ns, n, plan.n3);
-  passes<5>(buf, cur, tw, m, fpb, ns, n, plan.n5);
-  passes<7>(buf, cur, tw, m, fpb, ns, n, plan.n7);
-  for (int i = 0; i < plan.np; ++i) {
-    prime_stage(buf[cur], buf[cur ^ 1], tw, m, fpb, ns, n, plan.p[i]);
-    cur ^= 1;
-    ns *= plan.p[i];
-    __syncthreads();
-  }
-}
 
 // The plan of an M-point FFT (kernels/rfft.py: radices), or false when M
 // has a prime factor above kMaxPrime (or more than kMaxPrimes primes above
@@ -335,11 +173,12 @@ inline bool fft_fits(int n, Plan* plan) {
 
 // ---------------------------------------------------------------------------
 // The steps (rfft.cu: rfft_kernel and rfft_any; irfft.cu: irfft_kernel and
-// irfft_any, whose first steps read the spectrum). The same
-// butterflies, twiddle products and sums as fft_rows, in the same order, so
-// every value is bit-equal to it and to kernels/rfft.py's plain version;
-// what changes is where the values live between passes and how a thread
-// finds its indices.
+// irfft_any, whose first steps read the spectrum; mdct.cu: mdct_kernel and
+// imdct_ola_kernel, whose first steps read the folded frame and the
+// coefficients). The butterflies, twiddle products and sums of the passes
+// above in their order, so every value is bit-equal to kernels/rfft.py's
+// plain version (_stage, pass by pass); what changes is where the values
+// live between passes and how a thread finds its indices.
 //  - Steps: two consecutive passes of radices R1 and R2 (4 then 4, 4 then
 //    2, 3 then 3) run as one step in registers. A thread takes group g of
 //    row f and reads the R1 R2 values in[g + t G], G = M / (R1 R2), t = s2 +
@@ -423,7 +262,8 @@ struct StaticPlan {
 // float2s from the table's start), fpb rows of m values a block; false when
 // m has a prime factor above kMaxPrime or the steps do not fit. single_first:
 // the first pass is a step of its own, never paired with the next (irfft.cu's
-// first step reads each pair of mirrored inputs once).
+// first step reads each pair of mirrored inputs once; mdct.cu's forward
+// spreads its signal reads over twice the threads).
 inline bool steps_plan(int m, int n, int tw0, int fpb, bool single_first,
                        StaticPlan* sp) {
   Plan plan;
@@ -859,10 +699,51 @@ __device__ __forceinline__ void prime_table(float2* cs, const StaticPlan& plan,
   }
 }
 
-// The M-point FFTs of the block's fpb frames (each windowed and packed as
-// z[m] = x[2m] + i x[2m+1]) by the steps of `plan`, between buf[0] and
-// buf[1] (padded); sp: a shared copy of the plan that thread 0 writes
-// here; cs: the shared cos/sin table of the primes up to kRegPrime,
+// The M-point FFTs of the block's fpb rows by the steps of `plan`, between
+// buf[0] and buf[1] (padded), the first step reading its values from the
+// source fr and writing buf[start] (a plan whose first pass is a prime
+// above 7 has fr's values stored in buf[start] first); sp and cs: the
+// plan's shared copy and the primes' cos/sin table (prime_table), both
+// written before the call. Returns the buffer that holds the FFTs, after a
+// barrier. REG as in run_step. The inverse kernels (irfft.cu, mdct.cu)
+// start each group of frames in the buffer the group before left free, so
+// its overlap-add needs no barrier before the next group's first step.
+template <bool REG, class Src>
+__device__ __forceinline__ int fft_steps(float2 (*buf)[kPadElems],
+                                         const StaticPlan& sp,
+                                         const float2* cs,
+                                         const StaticPlan& plan,
+                                         const float2* __restrict__ tab,
+                                         const Src& fr, int start) {
+  const int M = plan.m;
+  const Step& s0 = plan.step[0];
+  int i = 1;
+  if (s0.r1 > 7) {
+    for (int e = threadIdx.x; e < plan.fpb * M; e += blockDim.x) {
+      const int f = plan.by_m.div(e);
+      const int m = e - f * M;
+      float2 v[1];
+      load_group<1, true>(nullptr, fr, f, 0, m, 0, v);
+      buf[start][pad(e)] = v[0];
+    }
+    i = 0;
+  } else {
+    run_step<true, REG>(nullptr, fr, buf[start], tab, cs, M, s0);
+  }
+  __syncthreads();
+  int cur = start;
+  for (; i < sp.steps; ++i) {
+    run_step<false, REG>(buf[cur], fr, buf[cur ^ 1], tab, cs, M, sp.step[i]);
+    cur ^= 1;
+    __syncthreads();
+  }
+  return cur;
+}
+
+// The M-point FFTs of the block's fpb frames (rfft.cu: each windowed and
+// packed as z[m] = x[2m] + i x[2m+1]; mdct.cu: folded and pre-twiddled) by
+// fft_steps from buf[0]; sp: a shared copy of the plan that thread 0
+// writes here; cs: the shared cos/sin table of the primes up to kRegPrime,
 // written here (prime_table). Returns the buffer that holds them, after a
 // barrier. REG as in run_step; fr: the frames (Frames), or another source
 // with Frames' load.
@@ -872,31 +753,9 @@ __device__ __forceinline__ int static_fft(float2 (*buf)[kPadElems],
                                           const StaticPlan& plan,
                                           const float2* __restrict__ tab,
                                           const Src& fr) {
-  const int M = plan.m;
   if (threadIdx.x == 0) sp = plan;
   prime_table<REG>(cs, plan, tab);
-  const Step& s0 = plan.step[0];
-  int i = 1;
-  if (s0.r1 > 7) {
-    for (int e = threadIdx.x; e < plan.fpb * M; e += blockDim.x) {
-      const int f = plan.by_m.div(e);
-      const int m = e - f * M;
-      float2 v[1];
-      load_group<1, true>(nullptr, fr, f, 0, m, 0, v);
-      buf[0][pad(e)] = v[0];
-    }
-    i = 0;
-  } else {
-    run_step<true, REG>(nullptr, fr, buf[0], tab, cs, M, s0);
-  }
-  __syncthreads();
-  int cur = 0;
-  for (; i < sp.steps; ++i) {
-    run_step<false, REG>(buf[cur], fr, buf[cur ^ 1], tab, cs, M, sp.step[i]);
-    cur ^= 1;
-    __syncthreads();
-  }
-  return cur;
+  return fft_steps<REG>(buf, sp, cs, plan, tab, fr, 0);
 }
 
 // The first steps the off-rule kernels build (any_fft): kQuadFirst only
@@ -1005,6 +864,31 @@ __device__ __forceinline__ int any_fft(Buffers buf, const StaticPlan& sp,
     }
   }
   return cur;
+}
+
+// The output samples a block of the inverse kernels (irfft.cu's
+// irfft_kernel and irfft_any, mdct.cu's imdct_ola_kernel) owns: a multiple m
+// of the hop (m step <= kSpan), m + (N - 1) / step frames a block away from
+// the signal's ends, in groups of fpb. Blocks run about a group's time a
+// group, `slots` at once (SMs times the blocks an SM holds), so m
+// minimises the waves of blocks times the groups a block (the larger m on a
+// tie): on a long signal the fewest groups per output frame (WL 2048 / hop
+// 1024: 7 hops, whose 8 frames fill 4 groups of 2; 8,192 samples took 9
+// frames, 5 groups), on a short one more, shorter blocks.
+inline int span_for(int n, int step, int fpb, long long out_len, int batch,
+                    long long slots) {
+  long long best_cost = -1;
+  int best = 1;
+  for (int m = 1; m * step <= kSpan; ++m) {
+    const long long blocks = (out_len + m * step - 1) / (m * step) * batch;
+    const long long cost = (blocks + slots - 1) / slots *
+                           ceil_div(m + (n - 1) / step, fpb);
+    if (best_cost < 0 || cost <= best_cost) {
+      best_cost = cost;
+      best = m;
+    }
+  }
+  return best * step;
 }
 
 // The inverse kernels' first frame whose N samples reach output position p

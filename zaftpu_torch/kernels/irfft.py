@@ -104,8 +104,8 @@ def block_span(n: int, step: int, t: int, batch: int = 1,
                sms: int = 132) -> int:
     """Output samples a block of the kernel owns for ``batch`` rows of
     ``t`` frames at window ``n`` and this hop on a card of ``sms`` SMs
-    (``csrc/irfft.cu``: ``span_for``): the multiple ``m`` of the hop up to
-    :data:`SPAN` that minimises the waves of blocks (``sms`` times the
+    (``csrc/stockham.cuh``: ``span_for``): the multiple ``m`` of the hop
+    up to :data:`SPAN` that minimises the waves of blocks (``sms`` times the
     blocks an SM holds at once) times the groups of ``fpb`` frames a block
     transforms, ``m + (n - 1) // step`` (the larger ``m`` on a tie), with
     ``fpb`` and the blocks from :func:`geometry`."""

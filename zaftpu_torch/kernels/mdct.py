@@ -27,9 +27,11 @@ run the standard fast MDCT with ``Q = N/4``:
   ``2/F`` (one float32 table, rounded once from float64), overlap-added
   frame by frame as ``imdct_ola`` sums them.
 
-The ``Q``-point FFT runs on the Stockham passes the real-FFT kernels share
-(``csrc/stockham.cuh``; :mod:`zaftpu_torch.kernels.rfft`'s plan, twiddle
-table and ``_stage``), so :func:`fits` is ``N % 4 == 0`` and the real-FFT
+The ``Q``-point FFT is the static real FFT's at window ``N/2``: the
+register steps the real-FFT kernels share (``csrc/stockham.cuh``:
+``fft_steps``) on :mod:`zaftpu_torch.kernels.rfft`'s plan and tables
+(``kernel_tables(N/2)``, whose first ``N/2`` rows are the twiddle table
+``_stage`` reads here), so :func:`fits` is ``N % 4 == 0`` and the real-FFT
 rule at ``N/2``, up to :data:`MAX_WINDOW`: 724 window lengths, 256, 512,
 1,024, 1,920, 2,048 and 4,096 among them. :func:`applies` adds "no
 explicit operator" and ``ZAFTPU_FFT`` not ``matmul``, as
@@ -197,7 +199,7 @@ def _mdct_fft_cuda(padded: torch.Tensor, window: torch.Tensor,
         err = _build.library().zt_mdct_fft(
             sig.data_ptr(), win.data_ptr(),
             twiddles(n, torch.float32, dev).data_ptr(),
-            _rfft.twiddles(n // 2, torch.float32, dev).data_ptr(),
+            _rfft.kernel_tables(n // 2, dev).data_ptr(),
             out.data_ptr(), batch, length, t, n, _build.stream_of(padded))
         _build.check(err, "zt_mdct_fft")
         mdct_fft.launches += 1
@@ -249,7 +251,7 @@ def _imdct_ola_fft_cuda(coeffs: torch.Tensor, f: int,
             c.data_ptr(), synthesis_window(window_bytes, torch.float32,
                                            dev).data_ptr(),
             twiddles(n, torch.float32, dev).data_ptr(),
-            _rfft.twiddles(f, torch.float32, dev).data_ptr(),
+            _rfft.kernel_tables(f, dev).data_ptr(),
             out.data_ptr(), batch, t, n, _build.stream_of(coeffs))
         _build.check(err, "zt_imdct_ola_fft")
         imdct_ola_fft.launches += 1

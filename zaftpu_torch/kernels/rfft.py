@@ -370,8 +370,8 @@ def fft_rows_plain(re: torch.Tensor, im: torch.Tensor, tw: torch.Tensor,
                    n: int) -> tuple:
     """The complex FFT of rows ``(..., m)`` (re and im planes) by the
     Stockham passes of :func:`radices` (``m``) with the ``(n, 2)`` twiddle
-    table of ``W_n``, ``m`` dividing ``n``: ``csrc/stockham.cuh``'s
-    ``fft_rows``, operation by operation."""
+    table of ``W_n``, ``m`` dividing ``n``: the passes of
+    ``csrc/stockham.cuh``'s steps, operation by operation."""
     tw_re, tw_im = tw[:, 0], tw[:, 1]
     ns = 1
     for r in radices(re.shape[-1]):
